@@ -1,0 +1,6 @@
+from apex_tpu_torch.amp.frontend import Amp, initialize  # noqa: F401
+from apex_tpu_torch.amp.policy import (  # noqa: F401
+    cast_params,
+    default_norm_predicate,
+)
+from apex_tpu_torch.amp.properties import Properties, opt_levels  # noqa: F401

@@ -1,0 +1,51 @@
+"""Param-tree casting (counterpart of ``apex_tpu/amp/policy.py``).
+
+The model is a dict tree of tensors, so "cast the model" maps over the
+floating leaves. With ``keep_batchnorm_fp32``, leaves whose path names
+a normalization parameter stay fp32. The path markers are copied
+exactly from the JAX package: they match none of the GPT tree's
+``ln1``/``ln2``/``final_ln`` paths, so under O2 every GPT leaf becomes
+bf16 there, and here too.
+"""
+
+from typing import Any, Callable, Optional
+
+import torch
+
+_NORM_PATH_MARKERS = (
+    "batchnorm", "batch_norm", "bn", "layernorm", "layer_norm", "norm",
+    "groupnorm", "group_norm", "rmsnorm", "rms_norm",
+)
+
+
+def default_norm_predicate(path: tuple) -> bool:
+    joined = "/".join(str(k) for k in path).lower()
+    return any(m in joined for m in _NORM_PATH_MARKERS)
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def cast_params(params: Any, dtype: torch.dtype,
+                keep_batchnorm_fp32: bool = False,
+                norm_predicate: Optional[Callable[[tuple], bool]] = None
+                ) -> Any:
+    """Cast floating leaves of a param tree to ``dtype`` (O2/O3 model
+    cast); norm-path leaves stay fp32 under ``keep_batchnorm_fp32``."""
+    pred = norm_predicate or default_norm_predicate
+
+    def cast(path, x):
+        if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+            return x
+        target = torch.float32 if (keep_batchnorm_fp32 and pred(path)) \
+            else dtype
+        return x.to(target)
+
+    return _map_with_path(cast, params)

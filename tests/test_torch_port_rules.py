@@ -1,0 +1,189 @@
+"""Rules of the PyTorch/CUDA port, checked on the CPU:
+
+- no module of ``apex_tpu_torch`` (nor ``chip_smoke.py``) imports
+  ``jax``, ``jaxlib`` or the JAX package ``apex_tpu``;
+- entry points run on the card by default: ``device=None`` on a host
+  without CUDA raises, naming ``device='cpu'``;
+- a CUDA tensor goes to the kernel or raises: with dispatch sent to the
+  card, no path reaches a plain version, and no wrapper falls back;
+- a kernel's launch count moves only on a successful launch;
+- ``chip_smoke.py`` fails, printing no result, without a card and when
+  run outside the repository."""
+
+import ast
+import importlib
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from apex_tpu_torch.models import gpt as port_gpt
+from apex_tpu_torch import serving as port_serving
+from apex_tpu_torch.utils import cuda_build
+from apex_tpu_torch.utils.platform import resolve_device
+
+# the packages re-export each function under its module's name
+ln = importlib.import_module("apex_tpu_torch.normalization.fused_layer_norm")
+fa = importlib.import_module(
+    "apex_tpu_torch.transformer.functional.flash_attention")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "apex_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "apex_tpu"}
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, dirnames, filenames in os.walk(PORT):
+        dirnames.sort()
+        out += [os.path.join(dirpath, f) for f in sorted(filenames)
+                if f.endswith(".py")]
+    return out
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", None) == "import_module" and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 20
+    bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
+                                            & FORBIDDEN)
+           for p in files}
+    assert {p: r for p, r in bad.items() if r} == {}
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    "resolve_device", "init_gpt", "init_cache", "DecodeEngine",
+    "params_from_jax"])
+def test_default_device_is_the_card(no_cuda, entry):
+    cfg = port_gpt.gpt_tiny()
+    calls = {
+        "resolve_device": lambda: resolve_device(None),
+        "init_gpt": lambda: port_gpt.init_gpt(cfg, torch.Generator()),
+        "init_cache": lambda: port_serving.init_cache(cfg, 1, 8),
+        "DecodeEngine": lambda: port_serving.DecodeEngine({}, cfg, 1, 8),
+        "params_from_jax": lambda: port_gpt.params_from_jax({}, None),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.fixture
+def dispatch_to_card(monkeypatch):
+    """Send every wrapper's dispatch to the kernel branch and make the
+    plain versions fail loudly if anything reaches them."""
+    def plain(*a, **k):
+        raise AssertionError("plain version reached on the CUDA path")
+
+    for mod in (ln, fa):
+        monkeypatch.setattr(mod, "on_card", lambda t, what="": True)
+    monkeypatch.setattr(ln, "layer_norm_fwd_plain", plain)
+    monkeypatch.setattr(fa, "attention_fwd_plain", plain)
+
+
+def test_cuda_path_never_reaches_plain_layer_norm(dispatch_to_card):
+    x = torch.randn(4, 16)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        ln.fused_layer_norm_affine(x, torch.ones(16), torch.zeros(16), 16)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        ln.fused_rms_norm(x, 16)
+
+
+def test_cuda_path_never_reaches_plain_attention(dispatch_to_card):
+    q = torch.randn(1, 2, 8, 16)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        fa.flash_attention(q, q, q, causal=True)
+
+
+def test_gpt_on_card_path_never_reaches_plain(dispatch_to_card):
+    cfg = port_gpt.gpt_tiny()
+    params = port_gpt.init_gpt(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        port_gpt.apply_gpt_unsharded(params, cfg,
+                                     torch.zeros((1, 4), dtype=torch.long))
+
+
+@pytest.mark.parametrize("mod", [ln, fa], ids=["layer_norm", "flash"])
+def test_wrappers_have_no_fallback(mod):
+    """No ``try`` in a wrapper module: a failed launch raises."""
+    with open(mod.__file__) as f:
+        tree = ast.parse(f.read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+class _FakeLib:
+    """Stands in for a loaded library: ``apx_fn`` returns ``code`` as
+    the C entry points return ``cudaGetLastError()``."""
+
+    def __init__(self, code):
+        self.apx_fn = lambda *args: code
+
+    def load(self):
+        return self
+
+    def apx_error_string(self, code):
+        return b"fake error"
+
+
+@pytest.mark.parametrize("code", [0, 9])
+def test_launch_count_moves_only_on_success(code):
+    k = cuda_build.Kernel(_FakeLib(code), "apx_fn", [])
+    if code:
+        with pytest.raises(RuntimeError, match="CUDA error 9.*fake error"):
+            k(1, 2)
+        assert k.launches == 0
+    else:
+        k(1, 2)
+        k(3, 4)
+        assert k.launches == 2
+
+
+def test_library_path_follows_source_and_flags():
+    lib = cuda_build.CudaLibrary("layer_norm")
+    assert lib.path.startswith(os.path.join(cuda_build.BUILD_DIR,
+                                            "liblayer_norm-"))
+    assert lib.path.endswith(".so")
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+def _smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _smoke(REPO)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = _smoke(str(tmp_path))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
