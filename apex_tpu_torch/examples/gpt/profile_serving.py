@@ -1,0 +1,97 @@
+"""Where the serving path's time goes, under ``torch.profiler``: GPT-2
+medium (random weights from seed 0, O2 bf16) on an 8-slot, 1024-row
+dense engine, over two windows —
+
+- 4 decode-only ticks with all 8 slots occupied (128-token prompts);
+- one prefill of a 1000-token prompt (bucket 1024).
+
+For each window it prints the wall time (profiler on, so it includes
+the profiler's cost), the summed device time of the kernels and copies
+the profiler saw, their share of the wall, and the top device entries;
+then one JSON line with the same numbers. Runs on the CUDA device::
+
+    python -m apex_tpu_torch.examples.gpt.profile_serving
+"""
+
+import json
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from apex_tpu_torch import amp
+from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+from apex_tpu_torch.serving import (
+    ContinuousBatchingScheduler, DecodeEngine, Request,
+)
+from apex_tpu_torch.utils.platform import resolve_device
+
+
+def device_ms(prof):
+    """Device ms per profiler key, CUDA entries only."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", 0.0) or getattr(
+            e, "device_time_total", 0.0)
+        out[e.key] = out.get(e.key, 0.0) + t / 1e3
+    return out
+
+
+def window(name, work):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = device_ms(prof)
+    busy = sum(kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    if busy <= 0:
+        print(f"{name}: wall {wall:.2f} ms; device time not measured "
+              "(the profiler saw no CUDA kernels)")
+        return dict(wall_ms=wall, device_ms=None)
+    print(f"{name}: wall {wall:.2f} ms, device {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}% busy)")
+    for k, t in top:
+        print(f"    {t:9.3f} ms {100 * t / busy:5.1f}%  {k[:90]}")
+    return dict(wall_ms=wall, device_ms=busy,
+                top=[[k[:90], t] for k, t in top])
+
+
+def main():
+    dev = resolve_device(None)
+    cfg = gpt_medium()
+    params = amp.initialize("O2", verbosity=0).cast_model(
+        init_gpt(cfg, torch.Generator().manual_seed(0), device=dev))
+    res = {}
+    with torch.inference_mode():
+        eng = DecodeEngine(params, cfg, num_slots=8, max_len=1024,
+                           cache_dtype=torch.bfloat16,
+                           buckets=(128, 256, 512, 1024), device=dev)
+        rng = np.random.RandomState(2)
+        sched = ContinuousBatchingScheduler(eng, eos_id=-1)
+        for _ in range(eng.num_slots):
+            sched.submit(Request(prompt=tuple(int(t) for t in rng.randint(
+                0, cfg.vocab_size, size=128)), max_new_tokens=9))
+        sched.step()  # admits every slot, then one decode tick
+        long_prompt = [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                      size=1000)]
+
+        def ticks():
+            for _ in range(4):
+                sched.step()
+
+        res["decode_4_ticks_8_slots"] = window("decode_4_ticks_8_slots",
+                                               ticks)
+        res["prefill_1000_tokens"] = window(
+            "prefill_1000_tokens", lambda: eng.prefill(0, long_prompt))
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()

@@ -256,16 +256,11 @@ def dense(p, x):
 
 
 def apply_gpt_unsharded(params: Dict[str, Any], cfg: GPTConfig,
-                        input_ids: torch.Tensor, *,
-                        compute_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
+                        input_ids: torch.Tensor) -> torch.Tensor:
     """ids (b, s) -> final hidden (b, s, h), no dropout."""
     check_config(cfg)
     s = input_ids.shape[1]
-    table = params["embedding"]["word"]["embedding"]
-    if compute_dtype is not None:
-        table = table.to(compute_dtype)
-    x = table[input_ids]
+    x = params["embedding"]["word"]["embedding"][input_ids]
     pos = params["embedding"]["position"]["embedding"][:s]
     x = x + pos.to(x.dtype)[None]
     layers = params["layers"]

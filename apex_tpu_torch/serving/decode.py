@@ -71,22 +71,17 @@ def _decode_core(params, cfg: GPTConfig, cache: KVCache, tokens, active,
     return cache, logits
 
 
-def _embed_unsharded(cfg: GPTConfig, compute_dtype):
-    def embed(params, ids, pos=None):
-        table = params["embedding"]["word"]["embedding"]
-        if compute_dtype is not None:
-            table = table.to(compute_dtype)
-        x = table[ids]
-        ptab = params["embedding"]["position"]["embedding"]
-        if pos is None:
-            x = x + ptab[: ids.shape[1]].to(x.dtype)[None]
-        else:
-            # decode: slot b's token sits at absolute position pos[b]
-            idx = pos[:, None].long() + torch.arange(
-                ids.shape[1], device=ids.device)[None, :]
-            x = x + ptab[idx].to(x.dtype)
-        return x
-    return embed
+def _embed_unsharded(params, ids, pos=None):
+    x = params["embedding"]["word"]["embedding"][ids]
+    ptab = params["embedding"]["position"]["embedding"]
+    if pos is None:
+        x = x + ptab[: ids.shape[1]].to(x.dtype)[None]
+    else:
+        # decode: slot b's token sits at absolute position pos[b]
+        idx = pos[:, None].long() + torch.arange(
+            ids.shape[1], device=ids.device)[None, :]
+        x = x + ptab[idx].to(x.dtype)
+    return x
 
 
 def _logits_unsharded(params, hidden):
@@ -94,30 +89,28 @@ def _logits_unsharded(params, hidden):
     return torch.matmul(hidden, table.to(hidden.dtype).t()).float()
 
 
-def make_prefill_fn(cfg: GPTConfig, compute_dtype=None):
+def make_prefill_fn(cfg: GPTConfig):
     """``prefill(params, cache, ids, mask, slot) -> (cache, logits)``;
     the cache is updated in place. Call through a bucketing layer (the
     scheduler does) so prompts arrive at a few shapes."""
     check_config(cfg)
-    embed = _embed_unsharded(cfg, compute_dtype)
 
     def prefill(params, cache, ids, mask, slot):
         return _prefill_core(params, cfg, cache, ids, mask, slot,
-                             embed_fn=embed, dense_fn=_dense,
+                             embed_fn=_embed_unsharded, dense_fn=_dense,
                              logits_fn=_logits_unsharded)
 
     return prefill
 
 
-def make_decode_fn(cfg: GPTConfig, compute_dtype=None):
+def make_decode_fn(cfg: GPTConfig):
     """``decode(params, cache, tokens, active) -> (cache, logits)``; the
     cache is updated in place and every slot advances together."""
     check_config(cfg)
-    embed = _embed_unsharded(cfg, compute_dtype)
 
     def decode(params, cache, tokens, active):
         return _decode_core(params, cfg, cache, tokens, active,
-                            embed_fn=embed, dense_fn=_dense,
+                            embed_fn=_embed_unsharded, dense_fn=_dense,
                             logits_fn=_logits_unsharded)
 
     return decode

@@ -60,7 +60,6 @@ class DecodeEngine:
     def __init__(self, params, cfg: GPTConfig, num_slots: int,
                  max_len: int, cache_dtype: torch.dtype = torch.bfloat16,
                  buckets: Optional[Sequence[int]] = None,
-                 compute_dtype: Optional[torch.dtype] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.params = params
@@ -75,8 +74,8 @@ class DecodeEngine:
                                      for b in buckets}))
         self.cache = init_cache(cfg, num_slots, max_len, cache_dtype,
                                 self.device)
-        self._prefill = make_prefill_fn(cfg, compute_dtype)
-        self._decode = make_decode_fn(cfg, compute_dtype)
+        self._prefill = make_prefill_fn(cfg)
+        self._decode = make_decode_fn(cfg)
 
     def prefill(self, slot: int, prompt: Sequence[int]) -> torch.Tensor:
         """Full forward over ``prompt`` into cache row ``slot``; returns
@@ -123,7 +122,8 @@ class DecodeEngine:
 
 class ContinuousBatchingScheduler:
     """FIFO -> fixed slots -> batched decode ticks, with typed outcomes
-    in ``self.outcomes``."""
+    in ``self.outcomes`` and the batched decode steps run so far in
+    ``self.decode_steps``."""
 
     def __init__(self, engine: DecodeEngine, eos_id: int):
         self.engine = engine
@@ -136,6 +136,7 @@ class ContinuousBatchingScheduler:
         self._first_token_tick: Dict[int, int] = {}
         self._prefill_ticks: Dict[int, int] = {}
         self._tick_no = 0
+        self.decode_steps = 0
 
     def submit(self, request: Request) -> int:
         if not len(request.prompt):
@@ -230,6 +231,7 @@ class ContinuousBatchingScheduler:
         temps = [s.request.temperature if s is not None else 0.0
                  for s in self._slots]
         logits = eng.decode(tokens, active)
+        self.decode_steps += 1
         finite = eng.finite(logits).tolist()
         next_tokens = eng.sample(logits, temps).tolist()
         for i in occupied:

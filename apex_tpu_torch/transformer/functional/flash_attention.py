@@ -19,10 +19,10 @@ probabilities AFTER normalisation with the same position hash
 masks are equal.
 
 Dispatch: on a CUDA tensor :func:`flash_attention` always launches the
-kernel (the JAX package's seq-256 crossover was a TPU v5e tuning);
-``use_kernel=False`` is an explicit caller choice of the plain version.
-On a CPU tensor it runs the plain version. The backward kernels are a
-later slice: differentiating raises.
+kernel or raises (the JAX package's seq-256 crossover was a TPU v5e
+tuning, and the port keeps no ``use_kernel`` switch); on a CPU tensor
+it runs the plain version. The backward kernels are a later slice:
+differentiating raises.
 """
 
 import ctypes
@@ -79,11 +79,11 @@ def _threshold(rate: float) -> int:
     return min(int(rate * 2.0 ** 32), 2 ** 32 - 1)
 
 
-def attention_fwd_plain(q, k, v, mask, seed: Sequence[int], *,
-                        causal: bool, scale: float, rate: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Port of the JAX ``_unfused_attention``; also returns the base-2
-    logsumexp (b*h, s_q) the kernel emits (+inf on fully masked rows)."""
+def attention_probs(q, k, mask, *, causal: bool, scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax probabilities (b, h, s_q, s_k) fp32 from fp32 scores (q
+    and k upcast), 0 where masked and on fully masked rows, and the
+    base-2 logsumexp (b*h, s_q), +inf on fully masked rows."""
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     dev = q.device
@@ -104,6 +104,18 @@ def attention_fwd_plain(q, k, v, mask, seed: Sequence[int], *,
                     torch.zeros((), device=dev))
     lse = torch.where(l[..., 0] > 0, (m[..., 0] + torch.log(l[..., 0]))
                       * LOG2E, torch.full((), math.inf, device=dev))
+    return p, lse.reshape(b * h, sq)
+
+
+def attention_fwd_plain(q, k, v, mask, seed: Sequence[int], *,
+                        causal: bool, scale: float, rate: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Port of the JAX ``_unfused_attention``; also returns the base-2
+    logsumexp (b*h, s_q) the kernel emits (+inf on fully masked rows)."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    dev = q.device
+    p, lse = attention_probs(q, k, mask, causal=causal, scale=scale)
     if rate > 0.0:
         bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
         qpos = torch.arange(sq, device=dev).reshape(1, 1, sq, 1)
@@ -111,7 +123,24 @@ def attention_fwd_plain(q, k, v, mask, seed: Sequence[int], *,
         keep = hash_keep(qpos, kpos, bh, seed[0], seed[1], rate)
         p = torch.where(keep, p / (1.0 - rate), torch.zeros((), device=dev))
     o = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
-    return o, lse.reshape(b * h, sq)
+    return o, lse
+
+
+def o_limit(q, k, v, mask, o0, *, causal: bool, scale: float
+            ) -> torch.Tensor:
+    """How far, per element, the kernel's o may sit from the plain
+    version's ``o0`` on the same inputs. fp32: 1e-5 (|o0| + 1). bf16:
+    one ulp of o0 (2^-7 |o0|; each side rounds an fp32 value once) plus
+    2^-5 sqrt(sum_j p_j^2 v_j^2), the scale of the random error that
+    rounding p (2^-9 relative, on both sides) and the prescaled q (about
+    2^-9 in each score) put into o, some 16 times its standard
+    deviation."""
+    a = o0.float().abs()
+    if q.dtype == torch.float32:
+        return 1e-5 * (a + 1.0)
+    p, _ = attention_probs(q, k, mask, causal=causal, scale=scale)
+    return 2.0 ** -7 * a + 2.0 ** -5 * torch.sqrt(
+        torch.matmul(p * p, v.float() ** 2))
 
 
 def attention_fwd_kernel(q, k, v, mask, seed: Sequence[int], *,
@@ -174,9 +203,8 @@ class _FlashFwd(torch.autograd.Function):
     """Forward only; the dq and dk/dv kernels are a later slice."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, causal, scale, rate, use_kernel):
-        fwd = attention_fwd_kernel if use_kernel and on_card(q, "q") \
-            else attention_fwd_plain
+    def forward(ctx, q, k, v, mask, seed, causal, scale, rate):
+        fwd = attention_fwd_kernel if on_card(q, "q") else attention_fwd_plain
         o, _ = fwd(q, k, v, mask, seed, causal=causal, scale=scale,
                    rate=rate)
         return o
@@ -191,8 +219,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     softmax_scale: Optional[float] = None,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[Sequence[int]] = None,
-                    use_kernel: bool = True) -> torch.Tensor:
+                    dropout_seed: Optional[Sequence[int]] = None
+                    ) -> torch.Tensor:
     """Scaled-dot-product attention.
 
     Args:
@@ -204,8 +232,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         only when ``dropout_seed`` is given.
       dropout_seed: two uint32 words seeding the position hash (the JAX
         function draws them as ``jax.random.bits(rng, (2,), uint32)``).
-      use_kernel: False forces the plain version; a CUDA tensor
-        otherwise always launches the kernel.
 
     Returns (batch, heads, seq, head_dim) in q's dtype.
     """
@@ -215,4 +241,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seed = (0, 0) if rate <= 0.0 else \
         (int(dropout_seed[0]) & _M32, int(dropout_seed[1]) & _M32)
     return _FlashFwd.apply(q, k, v, mask, seed, bool(causal),
-                           float(softmax_scale), rate, bool(use_kernel))
+                           float(softmax_scale), rate)

@@ -17,7 +17,6 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 import time
 from typing import Iterable, List, Optional, Sequence
 
@@ -49,7 +48,6 @@ class CudaLibrary:
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._lib: Optional[ctypes.CDLL] = None
-        self._lock = threading.Lock()
 
     @property
     def path(self) -> str:
@@ -88,14 +86,13 @@ class CudaLibrary:
         os.replace(proc.apx_tmp, self.path)
 
     def load(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                self._finish(self._start())
-                lib = ctypes.CDLL(self.path)
-                lib.apx_error_string.argtypes = [ctypes.c_int]
-                lib.apx_error_string.restype = ctypes.c_char_p
-                self._lib = lib
-            return self._lib
+        if self._lib is None:
+            self._finish(self._start())
+            lib = ctypes.CDLL(self.path)
+            lib.apx_error_string.argtypes = [ctypes.c_int]
+            lib.apx_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
 
 
 def build_all(libs: Iterable[CudaLibrary]) -> None:

@@ -17,10 +17,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    are read around this run. Then the headline serving contract: decode
    logits over 4 steps equal the full forward's at the same positions
    (fp32 and bf16).
-4. times — each kernel at the serving path's shapes (CUDA events), its
-   plain version, one library call computing the same function, and
-   the least time the card could take (bytes over 3.35 TB/s or
-   operations over the peak rate for their type, the larger).
+4. times — each kernel at the serving path's shapes, its plain
+   version, one library call computing the same function (device time:
+   20 calls captured in one CUDA graph, replays timed with CUDA
+   events), and the least time the card could take (bytes over
+   3.35 TB/s or operations over the peak rate for their type, the
+   larger).
 
 It then prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It imports neither
@@ -56,11 +58,6 @@ def kernel_modules():
                 "apex_tpu_torch.normalization.fused_layer_norm"),
             importlib.import_module(
                 "apex_tpu_torch.transformer.functional.flash_attention"))
-
-
-def fail(msg):
-    print(f"FAIL {msg}", flush=True)
-    sys.exit(1)
 
 
 def check(ok, msg):
@@ -137,22 +134,32 @@ def ln_parity(dev):
     return worst
 
 
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # base 2, absolute
+
+
 def flash_parity(dev):
+    from apex_tpu_torch.models.gpt import _split_qkv
+
     _, fa = kernel_modules()
-    phase("kernel parity: flash attention (tolerance on o: fp32 1e-5, "
-          "bf16 2e-2; on the base-2 lse: fp32 1e-4, bf16 5e-2; dropout "
-          "keep masks equal)")
+    phase("kernel parity: flash attention (tolerance on o per element, "
+          "flash_attention.o_limit: fp32 1e-5 (|o0| + 1), bf16 2^-7 |o0| "
+          "+ 2^-5 sqrt(sum p^2 v^2); on the base-2 lse: fp32 1e-4, bf16 "
+          "1e-2; dropout keep masks equal)")
     gen = torch.Generator(device=dev).manual_seed(2)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [  # b, h, s, d, dtype, causal, masked, rate
-        (1, 16, 1024, 64, bf, True, True, 0.0),
-        (2, 16, 300, 64, bf, False, True, 0.0),
-        (1, 4, 256, 128, f32, True, False, 0.0),
-        (1, 16, 1024, 64, bf, True, True, 0.1),
+    cases = [  # b, h, s, d, dtype, causal, masked, rate, qkv views
+        (1, 16, 1024, 64, bf, True, True, 0.0, True),
+        (1, 16, 1024, 64, bf, True, True, 0.0, False),
+        (2, 16, 300, 64, bf, False, True, 0.0, False),
+        (1, 4, 256, 128, f32, True, False, 0.0, False),
+        (1, 16, 1024, 64, bf, True, True, 0.1, False),
     ]
     worst = 0.0
-    for b, h, s, d, dt, causal, masked, rate in cases:
-        q, k, v = (_rand(gen, (b, h, s, d), dt, dev) for _ in range(3))
+    for b, h, s, d, dt, causal, masked, rate, views in cases:
+        if views:  # prefill's layout: views into the fused projection
+            q, k, v = _split_qkv(_rand(gen, (b, s, 3 * h * d), dt, dev), d)
+        else:
+            q, k, v = (_rand(gen, (b, h, s, d), dt, dev) for _ in range(3))
         mask = None
         if masked:
             mask = torch.ones((b, s), dtype=torch.int32, device=dev)
@@ -162,18 +169,19 @@ def flash_parity(dev):
         o, lse = fa.attention_fwd_kernel(q, k, v, mask, seed, **kw)
         torch.cuda.synchronize()
         o0, lse0 = fa.attention_fwd_plain(q, k, v, mask, seed, **kw)
-        tol = 1e-5 if dt == f32 else 2e-2
-        ltol = 1e-4 if dt == f32 else 5e-2
-        e = float((o.float() - o0.float()).abs().max())
+        err = (o.float() - o0.float()).abs()
+        lim = fa.o_limit(q, k, v, mask, o0, causal=causal, scale=d ** -0.5)
+        use = float(torch.where(err > 0, err / lim, 0.0).max())
+        e = float(err.max())
         fin = torch.isfinite(lse0)
         le = float((lse - lse0)[fin].abs().max())
-        ok = bool(torch.allclose(o.float(), o0.float(), rtol=tol, atol=tol))
-        ok &= bool(torch.equal(torch.isfinite(lse), fin)) and le <= ltol \
-            * (1 + float(lse0[fin].abs().max()))
+        ok = use <= 1.0 and le <= LSE_TOL[dt]
+        ok &= bool(torch.equal(torch.isfinite(lse), fin))
         worst = max(worst, e)
         check(ok, f"flash b{b} h{h} s{s} d{d} {str(dt)[6:]} causal={causal}"
-              f" mask={masked} rate={rate}: max_abs_err o {e:.3g}, "
-              f"lse {le:.3g}")
+              f" mask={masked} rate={rate}"
+              f"{' qkv views' if views else ''}: max_abs_err o {e:.3g} "
+              f"({use:.2f} of its tolerance), lse {le:.3g}")
     return worst
 
 
@@ -189,7 +197,7 @@ def _logits_full(params, cfg, seq):
     return torch.matmul(hidden, table.to(hidden.dtype).t()).float()
 
 
-def decode_vs_full(params, cfg, dev, cache_dtype, label, rel_tol):
+def decode_vs_full(params, cfg, dev, cache_dtype, label, tol):
     """Prefill one prompt, decode 4 greedy steps, and hold the 4 decode
     logits rows against the full forward at the same positions."""
     from apex_tpu_torch.serving import DecodeEngine
@@ -210,9 +218,9 @@ def decode_vs_full(params, cfg, dev, cache_dtype, label, rel_tol):
     seq = torch.tensor([prompt + fed], device=dev)
     want = _logits_full(params, cfg, seq)[0, len(prompt):]
     err = float((got - want).abs().max())
-    tol = rel_tol * float(want.abs().max())
     check(err <= tol, f"decode vs full forward ({label}), 4 steps: "
-          f"max_abs_err {err:.4g} <= {tol:.4g} ({rel_tol:g} x max|logit|)")
+          f"max_abs_err {err:.4g} <= {tol:g} (max|logit| "
+          f"{float(want.abs().max()):.3g})")
     return err
 
 
@@ -231,13 +239,15 @@ def serve(dev, ln_kernel, fa_kernel):
           flush=True)
     out = {}
     with torch.inference_mode():
+        # limits: 2x the error measured on an H100 at these seeds
+        # (fp32 4.3e-6 -> 1e-5; bf16 0.031 -> 0.0625)
         out["decode_err_fp32"] = decode_vs_full(
-            params, cfg, dev, torch.float32, "fp32 params and cache", 1e-3)
+            params, cfg, dev, torch.float32, "fp32 params and cache", 1e-5)
         params = amp.initialize("O2", verbosity=0).cast_model(params)
         torch.cuda.empty_cache()
         out["decode_err_bf16"] = decode_vs_full(
             params, cfg, dev, torch.bfloat16, "O2 bf16 params and cache",
-            5e-2)
+            0.0625)
 
         eng = DecodeEngine(params, cfg, num_slots=NUM_SLOTS,
                            max_len=MAX_LEN, cache_dtype=torch.bfloat16,
@@ -246,14 +256,6 @@ def serve(dev, ln_kernel, fa_kernel):
         warm = ContinuousBatchingScheduler(eng, eos_id=-1)
         warm.submit(Request(prompt=(1, 2, 3), max_new_tokens=2))
         warm.run()
-        n_decode = [0]
-        decode = eng.decode
-
-        def counted_decode(tokens, active):
-            n_decode[0] += 1
-            return decode(tokens, active)
-
-        eng.decode = counted_decode
         sched = ContinuousBatchingScheduler(eng, eos_id=-1)
         rng = np.random.RandomState(0)
         lens = rng.randint(64, 961, size=N_REQUESTS)
@@ -280,129 +282,52 @@ def serve(dev, ln_kernel, fa_kernel):
     check(all(0 <= t < cfg.vocab_size for s in streams for t in s),
           "every token inside the vocabulary")
     per = 2 * cfg.num_layers + 1
-    want_ln = per * (N_REQUESTS + n_decode[0])
+    n_decode = sched.decode_steps
+    want_ln = per * (N_REQUESTS + n_decode)
     want_fa = cfg.num_layers * N_REQUESTS
     check(launches["ln"] == want_ln and launches["flash"] == want_fa,
           f"launches during the run: LN {launches['ln']} (= {per} x "
-          f"({N_REQUESTS} prefills + {n_decode[0]} decode ticks)), flash "
+          f"({N_REQUESTS} prefills + {n_decode} decode steps)), flash "
           f"{launches['flash']} (= {cfg.num_layers} x {N_REQUESTS} "
           "prefills)")
     print(f"served {n_tok} tokens in {wall:.3f} s wall: "
           f"{n_tok / wall:.1f} tokens/s (prefill included)", flush=True)
     print(f"first stream: {streams[0][:8]}...")
     out.update(launches=launches, wall_s=wall, tokens=n_tok,
-               tokens_per_s=n_tok / wall, decode_ticks=n_decode[0])
-    return out, eng
-
-
-def profile_windows(eng, cfg):
-    """torch.profiler over two windows of the serving path: 4
-    decode-only ticks of a full slot batch, and one 1000-token prefill.
-    Prints each window's wall time (profiler on), the summed device time
-    of its kernels and copies, their share of the wall, and the top
-    kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from apex_tpu_torch.serving import ContinuousBatchingScheduler, Request
-
-    phase("where the time goes (torch.profiler on; wall includes its cost)")
-    rng = np.random.RandomState(2)
-    sched = ContinuousBatchingScheduler(eng, eos_id=-1)
-    for _ in range(eng.num_slots):
-        sched.submit(Request(prompt=tuple(int(t) for t in rng.randint(
-            0, cfg.vocab_size, size=128)), max_new_tokens=9))
-    sched.step()  # admits every slot, then one decode tick
-    long_prompt = [int(t) for t in rng.randint(0, cfg.vocab_size,
-                                                  size=1000)]
-
-    def ticks():
-        for _ in range(4):
-            sched.step()
-
-    res = {}
-    for name, work in (("decode_4_ticks_8_slots", ticks),
-                       ("prefill_1000_tokens",
-                        lambda: eng.prefill(0, long_prompt))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            work()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kern = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t = getattr(e, "self_device_time_total", 0.0) or getattr(
-                e, "device_time_total", 0.0)
-            kern[e.key] = kern.get(e.key, 0.0) + t / 1e3
-        busy = sum(kern.values())
-        top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
-        if busy <= 0:
-            print(f"{name}: wall {wall:.2f} ms; device time not measured "
-                  "(the profiler saw no CUDA kernels)")
-            res[name] = dict(wall_ms=wall, device_ms=None)
-            continue
-        print(f"{name}: wall {wall:.2f} ms, device {busy:.2f} ms "
-              f"({100 * busy / wall:.1f}% busy)")
-        for k, t in top:
-            print(f"    {t:9.3f} ms {100 * t / busy:5.1f}%  {k[:90]}")
-        res[name] = dict(wall_ms=wall, device_ms=busy,
-                         top=[[k[:90], t] for k, t in top])
-    return res
+               tokens_per_s=n_tok / wall, decode_steps=n_decode)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # 4. times
 # ---------------------------------------------------------------------------
 
-_CYCLES_PER_MS = 1.98e6  # the H100 SXM's boost clock
-
-
-def _timed(fn, inner, hold_cycles=0):
-    """CUDA-event ms per call over ``inner`` back-to-back calls; with
-    ``hold_cycles`` the stream is held first (``torch.cuda._sleep``).
-    Returns (ms, whether the hold outlasted the host's queueing)."""
+def time_ms(fn, reps=15, inner=20):
+    """Device ms per call: ``inner`` calls captured in one CUDA graph
+    (after a warm-up on a side stream), the graph replayed ``reps``
+    times between CUDA events; the median. The card runs the calls back
+    to back with no host dispatch between them, inputs L2-warm."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    if hold_cycles:
-        torch.cuda._sleep(hold_cycles)
-    start.record()
-    for _ in range(inner):
-        fn()
-    queued_in_time = not start.query()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / inner, queued_in_time
-
-
-def time_ms(fn, reps=15, inner=20):
-    """(device_ms, call_ms) per call, medians over ``reps``, after a
-    warm-up.
-
-    call_ms: ``inner`` back-to-back calls as a caller makes them — host
-    dispatch included, which is what bounds a small kernel's wrapper.
-    device_ms: the stream is held by ``torch.cuda._sleep`` while the
-    host queues the same calls, so the card runs them back to back and
-    the events see device time only; the hold is sized from call_ms and
-    doubled until the start event is still pending when the last call is
-    queued. Inputs stay in L2 (50 MB) between calls in both."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    call = [_timed(fn, inner)[0] for _ in range(reps)]
-    hold = int(4 * inner * max(call) * _CYCLES_PER_MS) + 2_000_000
-    dev = []
-    while len(dev) < reps:
-        t, ok = _timed(fn, inner, hold)
-        if ok:
-            dev.append(t)
-        elif hold > 400 * _CYCLES_PER_MS * 1e3:
-            fail("timing hold reached 400 s without outlasting the host")
-        else:
-            hold *= 2
-    return statistics.median(dev), statistics.median(call)
+    ts = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end) / inner)
+    return statistics.median(ts)
 
 
 def bound(nbytes, flops, peak):
@@ -413,7 +338,8 @@ def bound(nbytes, flops, peak):
 
 def times(dev):
     ln, fa = kernel_modules()
-    phase("times (ms per call, medians of CUDA-event timings)")
+    phase("times (device ms per call; medians of CUDA-graph replays "
+          "timed with CUDA events)")
     gen = torch.Generator(device=dev).manual_seed(3)
     res = {}
     with torch.inference_mode():
@@ -422,46 +348,38 @@ def times(dev):
             x = _rand(gen, (rows, h), torch.bfloat16, dev)
             w = _rand(gen, (h,), torch.bfloat16, dev, 0.5, 1.0)
             b = _rand(gen, (h,), torch.bfloat16, dev, 0.3)
-            t_k, c_k = time_ms(lambda: ln.layer_norm_fwd_kernel(
+            t_k = time_ms(lambda: ln.layer_norm_fwd_kernel(
                 x, w, b, "ln", 1e-5))
-            t_p, c_p = time_ms(lambda: ln.layer_norm_fwd_plain(
+            t_p = time_ms(lambda: ln.layer_norm_fwd_plain(
                 x, w, b, "ln", 1e-5))
-            t_l, c_l = time_ms(lambda: F.layer_norm(x, (h,), w, b, 1e-5))
+            t_l = time_ms(lambda: F.layer_norm(x, (h,), w, b, 1e-5))
             nbytes = 2 * rows * h * 2 + 2 * h * 2 + 2 * rows * 4
             bd, by = bound(nbytes, 8 * rows * h, FP32_FLOPS)
             res[f"ln_{rows}x{h}"] = dict(ms=t_k, plain_ms=t_p,
                                          library_ms=t_l, bound_ms=bd,
-                                         bound_by=by, call_ms=c_k,
-                                         plain_call_ms=c_p,
-                                         library_call_ms=c_l)
-            print(f"LN ({rows}, {h}) bf16, device: kernel {t_k:.4f}, "
-                  f"plain {t_p:.4f}, F.layer_norm {t_l:.4f}, bound "
-                  f"{bd:.4f} ({by}); per call with host dispatch: kernel "
-                  f"{c_k:.4f}, plain {c_p:.4f}, F.layer_norm {c_l:.4f}",
-                  flush=True)
+                                         bound_by=by)
+            print(f"LN ({rows}, {h}) bf16: kernel {t_k:.5f}, plain "
+                  f"{t_p:.5f}, F.layer_norm {t_l:.5f}, bound {bd:.5f} "
+                  f"({by})", flush=True)
         b_, h_, s, d = 1, 16, 1024, 64
         q, k, v = (_rand(gen, (b_, h_, s, d), torch.bfloat16, dev)
                    for _ in range(3))
         kw = dict(causal=True, scale=d ** -0.5, rate=0.0)
-        t_k, c_k = time_ms(lambda: fa.attention_fwd_kernel(
+        t_k = time_ms(lambda: fa.attention_fwd_kernel(
             q, k, v, None, (0, 0), **kw))
-        t_p, c_p = time_ms(lambda: fa.attention_fwd_plain(
+        t_p = time_ms(lambda: fa.attention_fwd_plain(
             q, k, v, None, (0, 0), **kw))
-        t_l, c_l = time_ms(lambda: F.scaled_dot_product_attention(
+        t_l = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=d ** -0.5))
         pairs = s * (s + 1) // 2
         nbytes = 4 * b_ * h_ * s * d * 2 + b_ * h_ * s * 4
         bd, by = bound(nbytes, 4 * d * pairs * b_ * h_, BF16_TC_FLOPS)
         res["flash_b1h16s1024d64"] = dict(ms=t_k, plain_ms=t_p,
                                           library_ms=t_l, bound_ms=bd,
-                                          bound_by=by, call_ms=c_k,
-                                          plain_call_ms=c_p,
-                                          library_call_ms=c_l)
-        print(f"flash b1 h16 s1024 d64 causal bf16, device: kernel "
-              f"{t_k:.4f}, plain {t_p:.4f}, scaled_dot_product_attention "
-              f"{t_l:.4f}, bound {bd:.4f} ({by}); per call with host "
-              f"dispatch: kernel {c_k:.4f}, plain {c_p:.4f}, sdpa "
-              f"{c_l:.4f}", flush=True)
+                                          bound_by=by)
+        print(f"flash b1 h16 s1024 d64 causal bf16: kernel {t_k:.5f}, "
+              f"plain {t_p:.5f}, scaled_dot_product_attention {t_l:.5f}, "
+              f"bound {bd:.5f} ({by})", flush=True)
     return res
 
 
@@ -498,12 +416,8 @@ def main():
     build([ln.LIB, fa.LIB])
     ln_err = ln_parity(dev)
     fa_err = flash_parity(dev)
-    srv, eng = serve(dev, ln.LN_FWD, fa.FLASH_FWD)
+    srv = serve(dev, ln.LN_FWD, fa.FLASH_FWD)
     tm = times(dev)
-    # last: the profiler leaves host overhead behind that would inflate
-    # the host-inclusive call times above
-    with torch.inference_mode():
-        srv["profile"] = profile_windows(eng, eng.cfg)
     kernels = [
         dict(name="layer_norm_fwd", route="cuda",
              source="apex_tpu_torch/csrc/layer_norm.cu",
@@ -518,7 +432,7 @@ def main():
     ]
     print(f"LN (8, 1024) bf16 (decode shape): "
           f"{json.dumps(tm['ln_8x1024'])}")
-    print(f"serving: {json.dumps({k: v for k, v in srv.items()})}")
+    print(f"serving: {json.dumps(srv)}")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -227,6 +227,24 @@ def test_greedy_streams_identical_to_jax(jax_params):
                                      b.total_ticks, b.prefill_ticks)
 
 
+@pytest.mark.parametrize("n_req", [1, 2])
+def test_decode_steps_count_batched_decodes(jax_params, n_req):
+    """Requests of 5 tokens on 2 slots: the prefill yields the first
+    token, then 4 batched decode steps serve every occupied slot."""
+    peng = port_serving.DecodeEngine(_port_params(jax_params),
+                                     port_gpt.gpt_tiny(), num_slots=2,
+                                     max_len=S_MAX, cache_dtype=torch.float32,
+                                     device="cpu")
+    psched = port_serving.ContinuousBatchingScheduler(peng, eos_id=-1)
+    for i in range(n_req):
+        psched.submit(port_serving.Request(prompt=(3 + i, 4, 5),
+                                           max_new_tokens=5))
+    with torch.inference_mode():
+        streams = psched.run()
+    assert [len(s) for s in streams] == [5] * n_req
+    assert psched.decode_steps == 4
+
+
 def test_cache_full_eviction_matches_jax(jax_params):
     """A request that outgrows its cache row ends ``cache_full`` with
     the same tokens on both sides (max_len 16, a 14-token prompt)."""

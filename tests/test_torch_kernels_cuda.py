@@ -6,22 +6,25 @@ JAX::
 
 Without a CUDA device every test here skips. Tolerances: LayerNorm fp32
 1e-5, bf16 one bf16 ulp (2^-7 relative: both round one fp32 value);
-attention fp32 1e-5, bf16 2e-2 (the kernel rounds the prescaled q and
-the unnormalised p to bf16 where the plain version rounds the
-normalised p); base-2 lse fp32 1e-4, bf16 5e-2 (q's one rounding)."""
+attention o per element as ``flash_attention.o_limit`` states it (fp32
+1e-5 (|o0| + 1); bf16 one ulp of o0 plus 2^-5 sqrt(sum p^2 v^2), the
+scale of the error that rounding p and the prescaled q put into o);
+base-2 lse absolute, fp32 1e-4, bf16 1e-2."""
 
 import numpy as np
 import pytest
 import torch
 
+from apex_tpu_torch.models.gpt import _split_qkv
 from apex_tpu_torch.normalization.fused_layer_norm import (
     LN_FWD, layer_norm_fwd_kernel, layer_norm_fwd_plain,
 )
 from apex_tpu_torch.transformer.functional.flash_attention import (
-    FLASH_FWD, attention_fwd_kernel, attention_fwd_plain,
+    FLASH_FWD, attention_fwd_kernel, attention_fwd_plain, o_limit,
 )
 
 _DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+_LSE_TOL = {"f32": 1e-4, "bf16": 1e-2}  # base 2, absolute
 
 
 @pytest.fixture
@@ -72,6 +75,16 @@ def test_layer_norm_kernel_matches_plain(cuda_device, rows, h, xdt, wdt,
         assert mean is None
 
 
+def _assert_o_close(o, o0, q, k, v, mask, causal, scale):
+    err = (o.float() - o0.float()).abs()
+    lim = o_limit(q, k, v, mask, o0, causal=causal, scale=scale)
+    bad = err > lim
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {err.numel()} elements past o_limit; worst "
+        f"{float((err / lim.clamp_min(1e-30)).max()):.3g} of it, max "
+        f"error {float(err.max()):.3g}")
+
+
 _FA_CASES = [
     # (b, h, s, d, causal, masked, dtype)
     (2, 2, 40, 16, False, True, "f32"),
@@ -104,10 +117,8 @@ def test_flash_kernel_matches_plain(cuda_device, b, h, s, d, causal,
     assert FLASH_FWD.launches == before + 1
     o0, lse0 = attention_fwd_plain(q, k, v, m, (123, 456), **kw)
     assert o.dtype == q.dtype and o.shape == (b, h, s, d)
-    tol = 1e-5 if dt == "f32" else 2e-2
-    torch.testing.assert_close(o.float(), o0.float(), rtol=tol, atol=tol)
-    lse_tol = 1e-4 if dt == "f32" else 5e-2
-    torch.testing.assert_close(lse, lse0, rtol=lse_tol, atol=lse_tol)
+    _assert_o_close(o, o0, q, k, v, m, causal, d ** -0.5)
+    torch.testing.assert_close(lse, lse0, rtol=0.0, atol=_LSE_TOL[dt])
     if masked and causal:
         assert bool((o[0, :, 0] == 0).all())
         assert bool(torch.isinf(lse[:h, 0]).all())
@@ -115,14 +126,21 @@ def test_flash_kernel_matches_plain(cuda_device, b, h, s, d, causal,
 
 @pytest.mark.cuda
 def test_flash_kernel_reads_strided_qkv(cuda_device):
-    """q, k, v as views into one fused (b, s, nh, 3, d) projection, the
-    GPT prefill's layout, give the same result as contiguous copies."""
+    """q, k, v as views into one fused (b, s, 3*h) projection, the GPT
+    prefill's layout (``_split_qkv``), with a padded-tail key mask: the
+    kernel matches the plain version on the same views and gives the
+    same result as on contiguous copies."""
     rng = np.random.RandomState(1)
-    qkv = _t(rng.randn(1, 200, 8, 3, 64), "bf16", cuda_device)
-    q, k, v = (qkv[:, :, :, j].transpose(1, 2) for j in range(3))
+    q, k, v = _split_qkv(_t(rng.randn(1, 200, 3 * 8 * 64), "bf16",
+                            cuda_device), 64)
+    mask = torch.ones((1, 200), dtype=torch.int32, device=cuda_device)
+    mask[:, 180:] = 0
     kw = dict(causal=True, scale=0.125, rate=0.0)
-    o, _ = attention_fwd_kernel(q, k, v, None, (0, 0), **kw)
+    o, lse = attention_fwd_kernel(q, k, v, mask, (0, 0), **kw)
     o1, _ = attention_fwd_kernel(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), None, (0, 0), **kw)
+                                 v.contiguous(), mask, (0, 0), **kw)
     torch.cuda.synchronize()
     assert torch.equal(o, o1)
+    o0, lse0 = attention_fwd_plain(q, k, v, mask, (0, 0), **kw)
+    _assert_o_close(o, o0, q, k, v, mask, True, 0.125)
+    torch.testing.assert_close(lse, lse0, rtol=0.0, atol=_LSE_TOL["bf16"])
