@@ -4,3 +4,8 @@ from apex_tpu_torch.amp.policy import (  # noqa: F401
     default_norm_predicate,
 )
 from apex_tpu_torch.amp.properties import Properties, opt_levels  # noqa: F401
+from apex_tpu_torch.amp.scaler import (  # noqa: F401
+    LossScaler,
+    LossScalerState,
+    apply_if_finite,
+)

@@ -5,7 +5,7 @@ floating leaves. With ``keep_batchnorm_fp32``, leaves whose path names
 a normalization parameter stay fp32. The path markers are copied
 exactly from the JAX package: they match none of the GPT tree's
 ``ln1``/``ln2``/``final_ln`` paths, so under O2 every GPT leaf becomes
-bf16 there, and here too.
+bf16 there, and here too; BERT's ``layernorm`` leaves stay fp32.
 """
 
 from typing import Any, Callable, Optional
@@ -23,29 +23,37 @@ def default_norm_predicate(path: tuple) -> bool:
     return any(m in joined for m in _NORM_PATH_MARKERS)
 
 
-def _map_with_path(fn, tree, path=()):
+def _map_with_path(fn, tree, pre, path=()):
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,))
+        return {k: _map_with_path(fn, v, None if pre is None else pre[k],
+                                  path + (k,))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, v, path + (i,))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
+        return type(tree)(
+            _map_with_path(fn, v, None if pre is None else pre[i],
+                           path + (i,))
+            for i, v in enumerate(tree))
+    return fn(path, tree, pre)
 
 
 def cast_params(params: Any, dtype: torch.dtype,
                 keep_batchnorm_fp32: bool = False,
-                norm_predicate: Optional[Callable[[tuple], bool]] = None
-                ) -> Any:
+                norm_predicate: Optional[Callable[[tuple], bool]] = None,
+                precast: Optional[Any] = None) -> Any:
     """Cast floating leaves of a param tree to ``dtype`` (O2/O3 model
-    cast); norm-path leaves stay fp32 under ``keep_batchnorm_fp32``."""
+    cast); norm-path leaves stay fp32 under ``keep_batchnorm_fp32``.
+    ``precast`` (an optimizer's cast-out tree, ``FusedAdam(
+    emit_compute_params=True)``) is taken leaf for leaf wherever its
+    dtype already is the target, so those leaves read no master bytes."""
     pred = norm_predicate or default_norm_predicate
 
-    def cast(path, x):
+    def cast(path, x, pre):
         if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
             return x
         target = torch.float32 if (keep_batchnorm_fp32 and pred(path)) \
             else dtype
+        if pre is not None and pre.dtype == target:
+            return pre
         return x.to(target)
 
-    return _map_with_path(cast, params)
+    return _map_with_path(cast, params, precast)

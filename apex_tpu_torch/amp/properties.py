@@ -1,9 +1,9 @@
 """Opt-level property system (counterpart of ``apex_tpu/amp/properties.py``).
 
 The five knobs keep the reference's names and meanings; "half" is
-bfloat16. This slice uses ``cast_model_type`` and
-``keep_batchnorm_fp32`` (the O2/O3 model cast); the master-weight and
-loss-scale knobs are carried for the training slice.
+bfloat16. ``cast_model_type`` and ``keep_batchnorm_fp32`` drive the
+model cast, ``loss_scale`` the :class:`LossScaler`; as in the JAX
+package the master weights are the caller's fp32 tree.
 """
 
 import dataclasses

@@ -1,0 +1,164 @@
+"""BERT masked-LM training steps under amp O2 for the PyTorch/CUDA port:
+the counterpart of the JAX benchmark's ``bench.py::_bert_step``.
+
+One step: ``amp.initialize("O2", loss_scale="dynamic")`` casts the fp32
+master tree (bf16 but the LayerNorm leaves), ``Amp.value_and_grad``
+takes the scaled loss's gradients through the LayerNorm, flash-attention
+and softmax-cross-entropy kernels, unscales them and advances the
+dynamic loss scaler, and ``FusedAdam(lr=1e-4, weight_decay=0.01)``
+steps the master tree, skipping the step on an overflow. Two optimizer
+state modes, as the JAX headline races them: ``fp32`` and
+``bf16m_castout`` (bf16 first moment, plus the updated params emitted
+in the compute dtypes and fed back through ``cast_model(precast=...)``).
+
+Random weights from a seed and one fixed batch of random ids (every
+position predicted). Runs on the CUDA device by default::
+
+    python -m apex_tpu_torch.examples.bert.train --config large --steps 4
+
+and on the CPU (the kernels' plain versions) with ``--device cpu``::
+
+    python -m apex_tpu_torch.examples.bert.train --config tiny \\
+        --batch 2 --seq 16 --device cpu
+"""
+
+import argparse
+import statistics
+import time
+from typing import Any, Optional, Tuple
+
+import torch
+
+from apex_tpu_torch import amp
+from apex_tpu_torch.models.bert import (
+    BertConfig, apply_bert, bert_base, bert_large, bert_tiny, init_bert,
+    mlm_loss,
+)
+from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
+
+CONFIGS = {"tiny": bert_tiny, "base": bert_base, "large": bert_large}
+STATE_MODES = {"fp32": (torch.float32, False),
+               "bf16m_castout": (torch.bfloat16, True)}
+
+
+class BertTrainStep:
+    """``step(master, opt_state, scaler_state, [compute,] ids, mask)``
+    returns ``(master, opt_state, scaler_state, [compute,] loss)``, the
+    JAX ``train_step``'s tuple; :meth:`grads` is its first half."""
+
+    def __init__(self, cfg: BertConfig, handle: amp.Amp, opt: FusedAdam):
+        self.cfg = cfg
+        self.amp = handle
+        self.opt = opt
+        self._value_and_grad = handle.value_and_grad(self.loss_fn)
+
+    def loss_fn(self, p, ids, mask):
+        out = apply_bert(p, self.cfg, ids, mask)
+        return mlm_loss(out["mlm_logits"], ids, mask)
+
+    def grads(self, master, scaler_state, ids, mask,
+              compute: Optional[Any] = None):
+        """(compute tree p, loss, grads, found_inf, new scaler state)."""
+        p = self.amp.cast_model(master, precast=compute)
+        loss, grads, found_inf, scaler_state = self._value_and_grad(
+            p, scaler_state, ids, mask)
+        return p, loss, grads, found_inf, scaler_state
+
+    def __call__(self, master, opt_state, scaler_state, *rest):
+        *compute, ids, mask = rest
+        p, loss, grads, found_inf, scaler_state = self.grads(
+            master, scaler_state, ids, mask,
+            compute[0] if compute else None)
+        if self.opt.emit_compute_params:
+            master, opt_state, c = self.opt.step(
+                grads, master, opt_state, found_inf=found_inf,
+                compute_params=p)
+            return master, opt_state, scaler_state, c, loss
+        master, opt_state = self.opt.step(grads, master, opt_state,
+                                          found_inf=found_inf)
+        return master, opt_state, scaler_state, loss
+
+
+def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
+                         m_dtype: torch.dtype = torch.float32,
+                         emit_compute: bool = False,
+                         device: DeviceLike = None, opt_level: str = "O2",
+                         seed: int = 0
+                         ) -> Tuple[BertTrainStep, Any, Tuple]:
+    """Returns ``(train_step, make_state, (ids, mask))`` as the JAX
+    ``_bert_step`` does. ``make_state()`` draws the fp32 master tree
+    from ``seed`` (on a generator on ``device``) and returns ``(master,
+    opt_state, scaler_state)``, plus the compute tree with
+    ``emit_compute``. ``ids`` come from a CPU generator seeded 1, so they
+    are the same on every device; ``mask`` is all ones."""
+    dev = resolve_device(device)
+    h = amp.initialize(opt_level, loss_scale="dynamic", verbosity=0)
+    opt = FusedAdam(lr=1e-4, weight_decay=0.01, m_dtype=m_dtype,
+                    emit_compute_params=emit_compute)
+
+    def make_state():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_bert(cfg, gen, device=dev)
+        base = (params, opt.init(params), h.init_state(dev))
+        if not emit_compute:
+            return base
+        return base + (h.cast_model(params),)
+
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    mask = torch.ones((batch, seq), dtype=torch.int32, device=dev)
+    return BertTrainStep(cfg, h, opt), make_state, (ids, mask)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--config", choices=sorted(CONFIGS), default="large")
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--steps", type=int, default=4)
+    p.add_argument("--state-mode", choices=sorted(STATE_MODES),
+                   default="fp32")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = CONFIGS[args.config]()
+    m_dtype, emit = STATE_MODES[args.state_mode]
+    step, make_state, (ids, mask) = make_bert_train_step(
+        args.batch, args.seq, cfg, m_dtype=m_dtype, emit_compute=emit,
+        device=dev, seed=args.seed)
+    state = make_state()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    times = []
+    for i in range(args.steps):
+        sync()
+        t0 = time.perf_counter()
+        *state, loss = step(*state, ids, mask)
+        sync()
+        times.append(time.perf_counter() - t0)
+        scaler = state[2]
+        print(f"step {i}: loss {float(loss):.5f}, loss scale "
+              f"{float(scaler.loss_scale):g}, unskipped "
+              f"{int(scaler.unskipped)}, {times[-1] * 1e3:.1f} ms",
+              flush=True)
+    # the first step carries the warm-up (library handles, allocator)
+    med = statistics.median(times[1:] or times)
+    over = f"steps 2-{len(times)}" if len(times) > 1 else "one step"
+    print(f"bert {args.config} batch {args.batch} seq {args.seq} "
+          f"{args.state_mode} on {dev}: median step {med * 1e3:.1f} ms "
+          f"over {over}, {args.batch / med:.1f} samples/s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

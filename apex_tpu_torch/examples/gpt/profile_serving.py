@@ -40,7 +40,10 @@ def device_ms(prof):
     return out
 
 
-def window(name, work):
+def window(name, work, groups=None, n_top=8):
+    """Profile ``work()``: wall ms, summed device ms, busy share and the
+    ``n_top`` top device entries; ``groups`` optionally maps the per-key
+    device ms to named sums, printed and returned too."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -50,17 +53,23 @@ def window(name, work):
         wall = (time.perf_counter() - t0) * 1e3
     kern = device_ms(prof)
     busy = sum(kern.values())
-    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:n_top]
     if busy <= 0:
         print(f"{name}: wall {wall:.2f} ms; device time not measured "
               "(the profiler saw no CUDA kernels)")
         return dict(wall_ms=wall, device_ms=None)
     print(f"{name}: wall {wall:.2f} ms, device {busy:.2f} ms "
           f"({100 * busy / wall:.1f}% busy)")
+    out = dict(wall_ms=wall, device_ms=busy,
+               top=[[k[:90], t] for k, t in top])
+    if groups is not None:
+        out["groups"] = groups(kern)
+        print("    by group: " + ", ".join(
+            f"{g} {t:.2f} ms ({100 * t / busy:.1f}%)"
+            for g, t in out["groups"].items()))
     for k, t in top:
         print(f"    {t:9.3f} ms {100 * t / busy:5.1f}%  {k[:90]}")
-    return dict(wall_ms=wall, device_ms=busy,
-                top=[[k[:90], t] for k, t in top])
+    return out
 
 
 def main():

@@ -1,1 +1,1 @@
-"""Model definitions (the GPT inference subset of this slice)."""
+"""Model definitions: GPT (inference subset) and BERT with its MLM loss."""

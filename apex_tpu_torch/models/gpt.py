@@ -15,10 +15,10 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch.models._convert import params_from_jax  # noqa: F401
 from apex_tpu_torch.normalization import fused_layer_norm_affine
 from apex_tpu_torch.transformer.functional import flash_attention
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -107,32 +107,6 @@ def init_gpt(cfg: GPTConfig, generator: torch.Generator,
     params["embedding"]["position"] = {"embedding": normal(
         (cfg.max_position_embeddings, h), 0.02)}
     return params
-
-
-def params_from_jax(tree: Any, device: DeviceLike,
-                    dtype: Optional[torch.dtype] = None) -> Any:
-    """Map a JAX parameter tree, given as numpy arrays, onto the port's
-    tree with the same keys. bf16 leaves (numpy dtype ``bfloat16``)
-    cross as a uint16 view; ``dtype`` optionally casts floating
-    leaves."""
-    dev = resolve_device(device)
-
-    def leaf(a):
-        a = np.array(a)  # a writable copy: jax hands out read-only views
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(a)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t.to(dev)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return leaf(node)
-
-    return walk(tree)
 
 
 def layer(layers: Dict[str, Any], i: int) -> Dict[str, Any]:

@@ -5,24 +5,35 @@
 
 Phases, each printed as it runs; any failure exits non-zero:
 
-1. build — nvcc builds every CUDA source of the serving path (one
-   process per source, all at once); TF32 is switched off so fp32
-   products are full fp32.
+1. build — nvcc builds every CUDA source (layer norm, flash attention,
+   softmax cross entropy; one process per source, all at once); TF32
+   is switched off so fp32 products are full fp32.
 2. kernel parity — each kernel against its plain PyTorch version on the
-   same card inputs, max error beside the stated tolerance.
+   same card inputs, max error beside the stated tolerance: the
+   forwards of the serving path, then the LayerNorm and flash-attention
+   backward kernels and the softmax cross entropy at the training
+   path's shapes, held per element to their modules' error models.
 3. serving — GPT-2 medium (h 1024, 24 layers, 16 heads, vocab 50304),
    random weights from seed 0, O2-cast to bf16, served by the port's
    ``DecodeEngine`` + ``ContinuousBatchingScheduler`` (8 slots, max_len
    1024): 16 greedy requests of 32 tokens. The kernels' launch counts
-   are read around this run. Then the headline serving contract: decode
-   logits over 4 steps equal the full forward's at the same positions
-   (fp32 and bf16).
-4. times — each kernel at the serving path's shapes, its plain
-   version, one library call computing the same function (device time:
-   20 calls captured in one CUDA graph, replays timed with CUDA
-   events), and the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate for their type, the
-   larger).
+   are set to 0 before this run and read after it. Then the headline
+   serving contract: decode logits over 4 steps equal the full
+   forward's at the same positions (fp32 and bf16).
+4. training — BERT-Large width (h 1024, 16 heads, ffn 4096, vocab
+   30522). (a) Two layers, batch 8, seq 128: one step of
+   ``make_bert_train_step`` on the card (kernels) against the same step
+   on the CPU (plain versions) from the same weights, in O0 (fp32) and
+   in O2. (b) All 24 layers, O2 with the dynamic loss scaler, batch 64,
+   seq 128 (the JAX headline's shape): 6 steps on one fixed batch in
+   each optimizer-state mode (``fp32``, ``bf16m_castout``), counts set
+   to 0 before each run and read after it; losses finite and falling,
+   no overflow, exact launches per step.
+5. times — each kernel at its path's shapes, its plain version, one
+   library call computing the same function (device time: 20 calls
+   captured in one CUDA graph, replays timed with CUDA events), and the
+   least time the card could take (bytes over 3.35 TB/s or operations
+   over the peak rate for their type, the larger).
 
 It then prints the ``kernels`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It imports neither
@@ -52,12 +63,13 @@ def phase(name):
 
 
 def kernel_modules():
-    """The two wrapper modules (their packages re-export each function
-    under the module's name, so import them by path)."""
+    """The three wrapper modules (the packages re-export some functions
+    under their modules' names, so import them by path)."""
     return (importlib.import_module(
                 "apex_tpu_torch.normalization.fused_layer_norm"),
             importlib.import_module(
-                "apex_tpu_torch.transformer.functional.flash_attention"))
+                "apex_tpu_torch.transformer.functional.flash_attention"),
+            importlib.import_module("apex_tpu_torch.contrib.xentropy"))
 
 
 def check(ok, msg):
@@ -100,7 +112,7 @@ def _rand(gen, shape, dtype, dev, scale=1.0, shift=0.0):
 
 
 def ln_parity(dev):
-    ln, _ = kernel_modules()
+    ln = kernel_modules()[0]
     phase("kernel parity: layer norm (tolerance: fp32 1e-5; bf16 one "
           "bf16 ulp, i.e. 2^-7 relative + 1e-5)")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -108,6 +120,7 @@ def ln_parity(dev):
     cases = [  # rows, h, x dtype, w/b dtype, mode, affine
         (1024, 1024, bf, bf, "ln", True),
         (8, 1024, bf, bf, "ln", True),
+        (8192, 1024, bf, f32, "ln", True),    # the BERT O2 step
         (333, 1000, f32, f32, "ln", True),
         (1024, 1024, bf, bf, "rms", True),
         (333, 1000, f32, f32, "ln", False),
@@ -140,24 +153,28 @@ LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # base 2, absolute
 def flash_parity(dev):
     from apex_tpu_torch.models.gpt import _split_qkv
 
-    _, fa = kernel_modules()
+    fa = kernel_modules()[1]
     phase("kernel parity: flash attention (tolerance on o per element, "
           "flash_attention.o_limit: fp32 1e-5 (|o0| + 1), bf16 2^-7 |o0| "
           "+ 2^-5 sqrt(sum p^2 v^2); on the base-2 lse: fp32 1e-4, bf16 "
           "1e-2; dropout keep masks equal)")
     gen = torch.Generator(device=dev).manual_seed(2)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [  # b, h, s, d, dtype, causal, masked, rate, qkv views
-        (1, 16, 1024, 64, bf, True, True, 0.0, True),
-        (1, 16, 1024, 64, bf, True, True, 0.0, False),
-        (2, 16, 300, 64, bf, False, True, 0.0, False),
-        (1, 4, 256, 128, f32, True, False, 0.0, False),
-        (1, 16, 1024, 64, bf, True, True, 0.1, False),
+    cases = [  # b, h, s, d, dtype, causal, masked, rate, q/k/v layout
+        (1, 16, 1024, 64, bf, True, True, 0.0, "gpt"),
+        (1, 16, 1024, 64, bf, True, True, 0.0, None),
+        (2, 16, 300, 64, bf, False, True, 0.0, None),
+        (1, 4, 256, 128, f32, True, False, 0.0, None),
+        (1, 16, 1024, 64, bf, True, True, 0.1, None),
+        (64, 16, 128, 64, bf, False, True, 0.0, "bert"),  # the BERT step
     ]
     worst = 0.0
-    for b, h, s, d, dt, causal, masked, rate, views in cases:
-        if views:  # prefill's layout: views into the fused projection
+    for b, h, s, d, dt, causal, masked, rate, layout in cases:
+        if layout == "gpt":  # prefill: views into the fused projection
             q, k, v = _split_qkv(_rand(gen, (b, s, 3 * h * d), dt, dev), d)
+        elif layout == "bert":  # a (b, s, 3, h, d) fused projection
+            qkv = _rand(gen, (b, s, 3, h, d), dt, dev)
+            q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
         else:
             q, k, v = (_rand(gen, (b, h, s, d), dt, dev) for _ in range(3))
         mask = None
@@ -180,8 +197,142 @@ def flash_parity(dev):
         worst = max(worst, e)
         check(ok, f"flash b{b} h{h} s{s} d{d} {str(dt)[6:]} causal={causal}"
               f" mask={masked} rate={rate}"
-              f"{' qkv views' if views else ''}: max_abs_err o {e:.3g} "
+              f"{f' {layout} qkv views' if layout else ''}: max_abs_err o "
+              f"{e:.3g} "
               f"({use:.2f} of its tolerance), lse {le:.3g}")
+    return worst
+
+
+def _held(got, want, lim):
+    """(max abs error, worst share of the per-element limit)."""
+    err = (got.float() - want.float()).abs()
+    use = float(torch.where(err > 0, err / lim, torch.zeros(
+        (), device=err.device)).max())
+    return float(err.max()), use
+
+
+def ln_bwd_parity(dev):
+    ln = kernel_modules()[0]
+    phase("kernel parity: layer norm backward (tolerance per element, "
+          "fused_layer_norm.bwd_limits: the sum-order bound 2 (n - 1) "
+          "2^-24 sum|terms| of each fp32 reduction, plus one ulp of a bf16 "
+          "output; dgamma/dbeta must repeat bit for bit)")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # rows, h, x dtype, w/b dtype, mode, affine
+        (8192, 1024, bf, f32, "ln", True),    # the BERT O2 step
+        (1024, 1024, bf, bf, "ln", True),
+        (1024, 1024, bf, bf, "rms", True),
+        (333, 1000, f32, f32, "ln", False),
+        (2048, 4096, bf, f32, "ln", True),    # the JAX column-split regime
+        (2048, 4096, f32, f32, "ln", True),
+    ]
+    worst = 0.0
+    for rows, h, xdt, wdt, mode, affine in cases:
+        x = _rand(gen, (rows, h), xdt, dev, 2.0, 0.5)
+        dy = _rand(gen, (rows, h), xdt, dev)
+        w = _rand(gen, (h,), wdt, dev, 0.5, 1.0) if affine else None
+        b = _rand(gen, (h,), wdt, dev, 0.3) \
+            if affine and mode == "ln" else None
+        _, mean, rstd = ln.layer_norm_fwd_plain(x, w, b, mode, 1e-5)
+        got = ln.layer_norm_bwd_kernel(dy, x, w, b, mean, rstd)
+        again = ln.layer_norm_bwd_kernel(dy, x, w, b, mean, rstd)
+        torch.cuda.synchronize()
+        want = ln.layer_norm_bwd_plain(dy, x, w, b, mean, rstd)
+        lims = ln.bwd_limits(dy, x, w, mean, rstd, *want)
+        ok, parts = True, []
+        for name, g, g2, w0, lim in zip(("dx", "dgamma", "dbeta"), got,
+                                        again, want, lims):
+            if w0 is None:
+                continue
+            e, use = _held(g, w0, lim)
+            ok &= use <= 1.0 and g.dtype == w0.dtype and torch.equal(g, g2)
+            worst = max(worst, e)
+            parts.append(f"{name} {e:.3g} ({use:.2f} of its tolerance)")
+        check(ok, f"LN bwd {mode} ({rows}, {h}) x {str(xdt)[6:]} w "
+              f"{str(wdt)[6:] if affine else 'none'}: max_abs_err "
+              + ", ".join(parts))
+    return worst
+
+
+def flash_bwd_parity(dev):
+    fa = kernel_modules()[1]
+    phase("kernel parity: flash attention backward (tolerance per element, "
+          "flash_attention.bwd_limits: the fp32 sum-order bounds carried "
+          "through p and ds, one bf16 ulp of p and of ds, one ulp of the "
+          "output per rounding)")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # b, h, s, d, dtype, causal, masked, rate, BERT views
+        (64, 16, 128, 64, bf, False, True, 0.0, True),   # the BERT step
+        (1, 16, 1024, 64, bf, True, False, 0.0, False),
+        (2, 16, 300, 64, bf, True, True, 0.1, False),
+        (1, 4, 256, 128, f32, True, False, 0.0, False),
+    ]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for b, h, s, d, dt, causal, masked, rate, views in cases:
+        if views:  # BERT's layout: a (b, s, 3, h, d) fused projection
+            qkv = _rand(gen, (b, s, 3, h, d), dt, dev)
+            q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+        else:
+            q, k, v = (_rand(gen, (b, h, s, d), dt, dev) for _ in range(3))
+        do = _rand(gen, (b, h, s, d), dt, dev)
+        mask = None
+        if masked:
+            mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+            mask[:, s - s // 8:] = 0       # a padded tail
+        seed = (0x1234ABCD, 0x9876FEDC)
+        kw = dict(causal=causal, scale=d ** -0.5, rate=rate)
+        o, lse = fa.attention_fwd_kernel(q, k, v, mask, seed, **kw)
+        got = fa.attention_bwd_kernel(q, k, v, mask, o, lse, do, seed, **kw)
+        torch.cuda.synchronize()
+        want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, seed, **kw)
+        lims = fa.bwd_limits(q, k, v, mask, o, lse, do, *want, **kw)
+        ok, parts = True, []
+        for name, g, w0, lim in zip(("dq", "dk", "dv"), got, want, lims):
+            e, use = _held(g, w0, lim)
+            ok &= use <= 1.0 and bool(torch.isfinite(g).all())
+            key = "dq" if name == "dq" else "dkv"
+            worst[key] = max(worst[key], e)
+            parts.append(f"{name} {e:.3g} ({use:.2f})")
+        check(ok, f"flash bwd b{b} h{h} s{s} d{d} {str(dt)[6:]} "
+              f"causal={causal} mask={masked} rate={rate}"
+              f"{' BERT views' if views else ''}: max_abs_err (share of "
+              "its tolerance) " + ", ".join(parts))
+    return worst
+
+
+def xent_parity(dev):
+    xent = kernel_modules()[2]
+    phase("kernel parity: softmax cross entropy (tolerance per element, "
+          "xentropy.limits: the sum-order bound of the row's logsumexp, "
+          "one rounding per term; ignored rows exactly 0)")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, v = 8192, 30522
+    x = _rand(gen, (n, v), torch.float32, dev, 3.0)
+    labels = torch.randint(0, v, (n,), generator=gen, device=dev)
+    labels[torch.rand((n,), generator=gen, device=dev) < 0.15] = -1
+    dloss = torch.rand((n,), generator=gen, device=dev) + 0.5
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for eps in (0.0, 0.1):
+        loss, lse = xent.xentropy_fwd_kernel(x, labels, eps)
+        dx = xent.xentropy_bwd_kernel(x, labels, lse, dloss, eps)
+        torch.cuda.synchronize()
+        loss0, lse0 = xent.xentropy_fwd_plain(x, labels, eps)
+        dx0 = xent.xentropy_bwd_plain(x, labels, lse0, dloss, eps)
+        lims = xent.limits(x, labels, eps, loss0, lse0, dloss, dx0)
+        res = [_held(g, w0, lim) for g, w0, lim in zip(
+            (loss, lse, dx), (loss0, lse0, dx0), lims)]
+        ign = labels < 0
+        ok = all(use <= 1.0 for _, use in res)
+        ok &= bool((loss[ign] == 0).all()) and bool((dx[ign] == 0).all())
+        worst["fwd"] = max(worst["fwd"], res[0][0], res[1][0])
+        worst["bwd"] = max(worst["bwd"], res[2][0])
+        check(ok, f"xentropy ({n}, {v}) fp32 eps={eps}, "
+              f"{int(ign.sum())} ignored rows: max_abs_err (share of its "
+              "tolerance) " + ", ".join(
+                  f"{nm} {e:.3g} ({use:.2f})" for nm, (e, use) in zip(
+                      ("loss", "lse", "dx"), res)))
     return worst
 
 
@@ -299,7 +450,184 @@ def serve(dev, ln_kernel, fa_kernel):
 
 
 # ---------------------------------------------------------------------------
-# 4. times
+# 4. training at full width
+# ---------------------------------------------------------------------------
+
+LR = 1e-4   # make_bert_train_step's FusedAdam
+SMALL_BATCH, SMALL_LAYERS, BIG_BATCH, SEQ, BIG_STEPS = 8, 2, 64, 128, 6
+# card step vs CPU step (relative norm of the difference per leaf; loss
+# relative; master absolute). O0: fp32 sums of up to 30522 terms in
+# other orders, about sqrt(n) 2^-24 ~ 1e-5 relative per product,
+# compounded through two layers and back: 1e-4 (v, a square: 2e-4).
+# Master: an Adam step moves a leaf by at most lr (|m^|/sqrt(v^) <= 1
+# on the first step) beside the weight decay both share, and a gradient
+# within rounding of zero may change sign, so 2 lr (plus 1e-6 for the
+# roundings of p - lr u) in both levels. O2: about 4x the error measured
+# on an H100 (700 W) at these seeds: loss 5.2e-6, gradients and m
+# 0.025, v 0.038, master 2.0e-4 (one sign flip).
+STEP_LIMITS = {
+    "O0": {"loss": 1e-5, "grads": 1e-4, "m": 1e-4, "v": 2e-4,
+           "master": 2 * LR + 1e-6},
+    "O2": {"loss": 2e-5, "grads": 0.1, "m": 0.1, "v": 0.15,
+           "master": 2 * LR + 1e-6},
+}
+
+
+def _relnorm(got_tree, want_tree):
+    from apex_tpu_torch.utils.tree import tree_leaves
+
+    worst = 0.0
+    for g, w in zip(tree_leaves(got_tree), tree_leaves(want_tree)):
+        g, w = g.detach().cpu().double(), w.detach().double()
+        n = float(w.norm())
+        worst = max(worst, float((g - w).norm()) / (n if n > 0 else 1.0))
+    return worst
+
+
+def _maxabs(got_tree, want_tree):
+    from apex_tpu_torch.utils.tree import tree_leaves
+
+    return max(float((g.cpu().double() - w.double()).abs().max())
+               for g, w in zip(tree_leaves(got_tree), tree_leaves(want_tree)))
+
+
+def train_small(dev):
+    """One step of the 2-layer full-width model on the card and on the
+    CPU from the same weights, in O0 and O2."""
+    import dataclasses
+
+    from apex_tpu_torch.examples.bert.train import make_bert_train_step
+    from apex_tpu_torch.models.bert import bert_large
+    from apex_tpu_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(bert_large(), num_layers=SMALL_LAYERS)
+    out = {}
+    for level, lim in STEP_LIMITS.items():
+        phase(f"training: BERT-Large width, {SMALL_LAYERS} layers, batch "
+              f"{SMALL_BATCH}, seq {SEQ}, {level}: one step on the card "
+              "(kernels) vs the same step on the CPU (plain versions)")
+        step_d, make_state, (ids, mask) = make_bert_train_step(
+            SMALL_BATCH, SEQ, cfg, device=dev, opt_level=level)
+        state_d = list(make_state())
+        step_c, _, (ids_c, mask_c) = make_bert_train_step(
+            SMALL_BATCH, SEQ, cfg, device="cpu", opt_level=level)
+        master_c = tree_map(lambda t: t.cpu(), state_d[0])
+        state_c = [master_c, step_c.opt.init(master_c),
+                   step_c.amp.init_state("cpu")]
+        check(torch.equal(ids.cpu(), ids_c), "same ids on both devices")
+        t0 = time.perf_counter()
+        _, _, grads_d, found_d, _ = step_d.grads(state_d[0], state_d[2],
+                                                 ids, mask)
+        new_d = step_d(*state_d, ids, mask)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, _, grads_c, found_c, _ = step_c.grads(state_c[0], state_c[2],
+                                                 ids_c, mask_c)
+        new_c = step_c(*state_c, ids_c, mask_c)
+        t2 = time.perf_counter()
+        loss_d, loss_c = float(new_d[-1]), float(new_c[-1])
+        got = {
+            "loss": abs(loss_d - loss_c) / abs(loss_c),
+            "grads": _relnorm(grads_d, grads_c),
+            "m": _relnorm(new_d[1].m, new_c[1].m),
+            "v": _relnorm(new_d[1].v, new_c[1].v),
+            "master": _maxabs(new_d[0], new_c[0]),
+        }
+        print(f"card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; loss card "
+              f"{loss_d:.6f}, CPU {loss_c:.6f}", flush=True)
+        check(not bool(found_d) and not bool(found_c)
+              and float(new_d[2].loss_scale) == float(new_c[2].loss_scale)
+              and int(new_d[2].unskipped) == int(new_c[2].unskipped) == 1
+              and int(new_d[1].step) == int(new_c[1].step) == 1,
+              "found_inf False on both; scaler states and step counts equal")
+        for key, val in got.items():
+            check(val <= lim[key], f"{level} {key}: card vs CPU "
+                  f"{'max abs' if key == 'master' else 'relative'} "
+                  f"{val:.3g} <= {lim[key]:g}")
+        out[level] = got
+        del state_d, new_d, grads_d
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_big(dev, kern):
+    """Six O2 steps of full BERT-Large at the headline's shape in each
+    optimizer-state mode; ``kern`` maps names to the kernels counted."""
+    from apex_tpu_torch.examples.bert.train import (
+        STATE_MODES, make_bert_train_step,
+    )
+    from apex_tpu_torch.models.bert import bert_large
+    from apex_tpu_torch.utils.tree import tree_leaves
+
+    cfg = bert_large()
+    L = cfg.num_layers
+    per_step = {"layer_norm_fwd": 2 * L + 2, "layer_norm_bwd": 2 * L + 2,
+                "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "xentropy_fwd": 1,
+                "xentropy_bwd": 1}
+    out = {}
+    for mode, (m_dtype, emit) in STATE_MODES.items():
+        phase(f"training: BERT-Large ({L} layers), O2 dynamic loss scale, "
+              f"batch {BIG_BATCH}, seq {SEQ}, {BIG_STEPS} steps, state "
+              f"mode {mode}")
+        step, make_state, (ids, mask) = make_bert_train_step(
+            BIG_BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit,
+            device=dev)
+        state = list(make_state())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kern.values():
+            k.launches = 0
+        losses, times, steps_ok = [], [], True
+        for _ in range(BIG_STEPS):
+            before = {n: k.launches for n, k in kern.items()}
+            t0 = time.perf_counter()
+            *state, loss = step(*state, ids, mask)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            steps_ok &= all(kern[n].launches - before[n] == per_step[n]
+                            for n in kern)
+        launches = {n: k.launches for n, k in kern.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(l) for l in losses]
+        sc = state[2]
+        print(f"losses {[round(l, 5) for l in losses]}", flush=True)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              "every loss finite, the last below the first")
+        check(int(sc.unskipped) == BIG_STEPS and int(sc.overflows) == 0,
+              f"found_inf False on every step: scaler unskipped "
+              f"{int(sc.unskipped)} == {BIG_STEPS}, overflows "
+              f"{int(sc.overflows)}, loss scale {float(sc.loss_scale):g}")
+        check(steps_ok and all(launches[n] == BIG_STEPS * per_step[n]
+                               for n in kern),
+              f"launches per step exactly {per_step} ({launches} over "
+              f"{BIG_STEPS} steps)")
+        if emit:
+            m_ok = all(t.dtype == torch.bfloat16
+                       for t in tree_leaves(state[1].m))
+            cast = step.amp.cast_model(state[0])
+            c_ok = all(c.dtype == w.dtype and torch.equal(c, w) for c, w in
+                       zip(tree_leaves(state[3]), tree_leaves(cast)))
+            check(m_ok and c_ok, "m leaves bf16; emitted compute tree "
+                  "array-equal to cast_model(master)")
+        med = statistics.median(times[1:])
+        print(f"smoke reading, not a benchmark: median step "
+              f"{med * 1e3:.1f} ms over steps 2-{BIG_STEPS} "
+              f"({BIG_BATCH / med:.1f} samples/s); first step "
+              f"{times[0] * 1e3:.1f} ms; peak device memory {peak:.2f} GiB",
+              flush=True)
+        out[mode] = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                         median_step_ms=med * 1e3,
+                         samples_per_s=BIG_BATCH / med, launches=launches,
+                         peak_gib=peak)
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5. times
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps=15, inner=20):
@@ -337,9 +665,9 @@ def bound(nbytes, flops, peak):
 
 
 def times(dev):
-    ln, fa = kernel_modules()
-    phase("times (device ms per call; medians of CUDA-graph replays "
-          "timed with CUDA events)")
+    ln, fa, _ = kernel_modules()
+    phase("times at the serving path's shapes (device ms per call; "
+          "medians of CUDA-graph replays timed with CUDA events)")
     gen = torch.Generator(device=dev).manual_seed(3)
     res = {}
     with torch.inference_mode():
@@ -383,6 +711,138 @@ def times(dev):
     return res
 
 
+def _entry(res, key, t_k, t_p, t_l, nbytes, flops, peak, label, lib):
+    bd, by = bound(nbytes, flops, peak)
+    res[key] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bd,
+                    bound_by=by)
+    print(f"{label}: kernel {t_k:.5f}, plain {t_p:.5f}, {lib} {t_l:.5f}, "
+          f"bound {bd:.5f} ({by})", flush=True)
+
+
+def train_times(dev):
+    """The training path's kernels at the BERT-Large O2 step's shapes.
+    Library calls needing autograd are timed as forward + backward minus
+    forward; every call, autograd included, is captured in the graph."""
+    ln, fa, xent = kernel_modules()
+    phase("times at the training path's shapes (BERT-Large, batch 64, "
+          "seq 128; device ms per call, CUDA-graph replays)")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf, f32 = torch.bfloat16, torch.float32
+    res = {}
+    rows, h = BIG_BATCH * SEQ, 1024
+    x = _rand(gen, (rows, h), bf, dev)
+    dy = _rand(gen, (rows, h), bf, dev)
+    w = _rand(gen, (h,), f32, dev, 0.5, 1.0)
+    b = _rand(gen, (h,), f32, dev, 0.3)
+    _, mean, rstd = ln.layer_norm_fwd_plain(x, w, b, "ln", 1e-12)
+    w16, b16 = w.to(bf), b.to(bf)
+    _entry(res, "ln_fwd_train",
+           time_ms(lambda: ln.layer_norm_fwd_kernel(x, w, b, "ln", 1e-12)),
+           time_ms(lambda: ln.layer_norm_fwd_plain(x, w, b, "ln", 1e-12)),
+           time_ms(lambda: F.layer_norm(x, (h,), w16, b16, 1e-12)),
+           2 * rows * h * 2 + 2 * h * 4 + 2 * rows * 4, 8 * rows * h,
+           FP32_FLOPS, f"LN fwd ({rows}, {h}) bf16 x, fp32 w, b",
+           "F.layer_norm (bf16 w, b)")
+    _entry(res, "ln_bwd",
+           time_ms(lambda: ln.layer_norm_bwd_kernel(dy, x, w, b, mean, rstd)),
+           time_ms(lambda: ln.layer_norm_bwd_plain(dy, x, w, b, mean, rstd)),
+           time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+               dy, x, [h], mean, rstd, w16, b16, [True, True, True])),
+           3 * rows * h * 2 + h * 4 + 2 * rows * 4 + 2 * h * 4,
+           12 * rows * h, FP32_FLOPS,
+           f"LN bwd ({rows}, {h}) bf16 x, fp32 w, b",
+           "native_layer_norm_backward (bf16 w, b)")
+    # the regime where the JAX package splits columns (h >= 2731)
+    r4, h4 = 2048, 4096
+    x4, dy4 = _rand(gen, (r4, h4), bf, dev), _rand(gen, (r4, h4), bf, dev)
+    w4, b4 = _rand(gen, (h4,), f32, dev, 0.5, 1.0), _rand(gen, (h4,), f32,
+                                                          dev, 0.3)
+    _, mean4, rstd4 = ln.layer_norm_fwd_plain(x4, w4, b4, "ln", 1e-12)
+    _entry(res, "ln_bwd_4096",
+           time_ms(lambda: ln.layer_norm_bwd_kernel(dy4, x4, w4, b4, mean4,
+                                                    rstd4)),
+           time_ms(lambda: ln.layer_norm_bwd_plain(dy4, x4, w4, b4, mean4,
+                                                   rstd4)),
+           time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+               dy4, x4, [h4], mean4, rstd4, w4.to(bf), b4.to(bf),
+               [True, True, True])),
+           3 * r4 * h4 * 2 + h4 * 4 + 2 * r4 * 4 + 2 * h4 * 4,
+           12 * r4 * h4, FP32_FLOPS,
+           f"LN bwd ({r4}, {h4}) bf16 x, fp32 w, b (JAX column split)",
+           "native_layer_norm_backward (bf16 w, b)")
+
+    bb, hh, s, d = BIG_BATCH, 16, SEQ, 64
+    qkv = _rand(gen, (bb, s, 3, hh, d), bf, dev)
+    q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+    do = _rand(gen, (bb, hh, s, d), bf, dev)
+    mask = torch.ones((bb, s), dtype=torch.int32, device=dev)  # the step's
+    kw = dict(causal=False, scale=d ** -0.5, rate=0.0)
+    o, lse = fa.attention_fwd_kernel(q, k, v, mask, (0, 0), **kw)
+    delta = (do.float() * o.float()).sum(-1).reshape(-1, s)
+    qc, kc, vc = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qc, kc, vc, scale=d ** -0.5)
+
+    t_lf = time_ms(lambda: sdpa().detach())
+    t_lfb = time_ms(lambda: torch.autograd.grad(sdpa(), (qc, kc, vc), do))
+    t_pb = time_ms(lambda: fa.attention_bwd_plain(q, k, v, mask, o, lse, do,
+                                                  (0, 0), **kw))
+    pairs = bb * hh * s * s             # no causal cut, no masked key
+    qkvo = 4 * bb * hh * s * d * 2
+    rowstats = 2 * bb * hh * s * 4 + bb * s * 4
+    label = f"b{bb} h{hh} s{s} d{d} bf16, BERT views"
+    _entry(res, "flash_fwd_train",
+           time_ms(lambda: fa.attention_fwd_kernel(q, k, v, mask, (0, 0),
+                                                   **kw)),
+           time_ms(lambda: fa.attention_fwd_plain(q, k, v, mask, (0, 0),
+                                                  **kw)),
+           t_lf, qkvo + bb * hh * s * 4 + bb * s * 4, 4 * d * pairs,
+           BF16_TC_FLOPS, f"flash fwd {label}",
+           "scaled_dot_product_attention")
+    _entry(res, "flash_dq",
+           time_ms(lambda: fa.attention_dq_kernel(q, k, v, mask, do, lse,
+                                                  delta, (0, 0), **kw)),
+           t_pb, t_lfb - t_lf, qkvo + rowstats + bb * hh * s * d * 2,
+           6 * d * pairs, BF16_TC_FLOPS, f"flash dq {label}",
+           "sdpa backward (fwd+bwd - fwd; plain: whole backward)")
+    _entry(res, "flash_dkv",
+           time_ms(lambda: fa.attention_dkv_kernel(q, k, v, mask, do, lse,
+                                                   delta, (0, 0), **kw)),
+           t_pb, t_lfb - t_lf, qkvo + rowstats + 2 * bb * hh * s * d * 2,
+           8 * d * pairs, BF16_TC_FLOPS, f"flash dk/dv {label}",
+           "sdpa backward (fwd+bwd - fwd; plain: whole backward)")
+
+    n, vv = rows, 30522
+    logits = _rand(gen, (n, vv), f32, dev, 3.0)
+    labels = torch.randint(0, vv, (n,), generator=gen, device=dev)
+    dloss = torch.full((n,), 1.0 / n, device=dev)   # the mean's gradient
+    _, xlse = xent.xentropy_fwd_plain(logits, labels, 0.0)
+    lr = logits.clone().requires_grad_(True)
+
+    def ce():
+        return F.cross_entropy(lr, labels, reduction="none", ignore_index=-1)
+
+    t_cf = time_ms(lambda: ce().detach(), inner=5)
+    t_cfb = time_ms(lambda: torch.autograd.grad(ce(), lr, dloss), inner=5)
+    _entry(res, "xent_fwd",
+           time_ms(lambda: xent.xentropy_fwd_kernel(logits, labels, 0.0),
+                   inner=5),
+           time_ms(lambda: xent.xentropy_fwd_plain(logits, labels, 0.0),
+                   inner=5),
+           t_cf, n * vv * 4 + n * 8 + 2 * n * 4, 4 * n * vv, FP32_FLOPS,
+           f"xentropy fwd ({n}, {vv}) fp32", "F.cross_entropy")
+    _entry(res, "xent_bwd",
+           time_ms(lambda: xent.xentropy_bwd_kernel(logits, labels, xlse,
+                                                    dloss, 0.0), inner=5),
+           time_ms(lambda: xent.xentropy_bwd_plain(logits, labels, xlse,
+                                                   dloss, 0.0), inner=5),
+           t_cfb - t_cf, 2 * n * vv * 4 + n * (8 + 4 + 4), 4 * n * vv,
+           FP32_FLOPS, f"xentropy bwd ({n}, {vv}) fp32",
+           "F.cross_entropy backward (fwd+bwd - fwd)")
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -402,7 +862,7 @@ def main():
               "script runs on a CUDA device", file=sys.stderr)
         return 2
     try:
-        ln, fa = kernel_modules()
+        ln, fa, xent = kernel_modules()
     except ImportError as e:
         print(f"chip_smoke: cannot import apex_tpu_torch ({e}); run it "
               "from the root of the repository", file=sys.stderr)
@@ -413,26 +873,59 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
-    build([ln.LIB, fa.LIB])
-    ln_err = ln_parity(dev)
-    fa_err = flash_parity(dev)
+    build([ln.LIB, fa.LIB, xent.LIB])
+    err = {"layer_norm_fwd": ln_parity(dev),
+           "flash_attention_fwd": flash_parity(dev),
+           "layer_norm_bwd": ln_bwd_parity(dev)}
+    fb = flash_bwd_parity(dev)
+    xe = xent_parity(dev)
+    err.update(flash_attention_bwd_dq=fb["dq"],
+               flash_attention_bwd_dkv=fb["dkv"], xentropy_fwd=xe["fwd"],
+               xentropy_bwd=xe["bwd"])
+    kern = {"layer_norm_fwd": ln.LN_FWD, "layer_norm_bwd": ln.LN_BWD,
+            "flash_attention_fwd": fa.FLASH_FWD,
+            "flash_attention_bwd_dq": fa.FLASH_BWD_DQ,
+            "flash_attention_bwd_dkv": fa.FLASH_BWD_DKV,
+            "xentropy_fwd": xent.XENT_FWD, "xentropy_bwd": xent.XENT_BWD}
     srv = serve(dev, ln.LN_FWD, fa.FLASH_FWD)
+    small = train_small(dev)
+    big = train_big(dev, kern)
     tm = times(dev)
-    kernels = [
-        dict(name="layer_norm_fwd", route="cuda",
-             source="apex_tpu_torch/csrc/layer_norm.cu",
-             replaces="apex_tpu/normalization/fused_layer_norm.py:76",
-             launches=srv["launches"]["ln"], max_abs_err=ln_err,
-             **tm["ln_1024x1024"]),
-        dict(name="flash_attention_fwd", route="cuda",
-             source="apex_tpu_torch/csrc/flash_attention.cu",
-             replaces="apex_tpu/transformer/functional/flash_attention.py:239",
-             launches=srv["launches"]["flash"], max_abs_err=fa_err,
-             **tm["flash_b1h16s1024d64"]),
+    tm.update(train_times(dev))
+    by_path = {n: {"serving": 0, "training": sum(
+        big[m]["launches"][n] for m in big)} for n in kern}
+    by_path["layer_norm_fwd"]["serving"] = srv["launches"]["ln"]
+    by_path["flash_attention_fwd"]["serving"] = srv["launches"]["flash"]
+    rows = [  # name, source, replaces (TPU kernel file:line), times key
+        ("layer_norm_fwd", "layer_norm.cu",
+         "normalization/fused_layer_norm.py:76", "ln_1024x1024"),
+        ("layer_norm_bwd", "layer_norm.cu",
+         "normalization/fused_layer_norm.py:107", "ln_bwd"),
+        ("flash_attention_fwd", "flash_attention.cu",
+         "transformer/functional/flash_attention.py:239",
+         "flash_b1h16s1024d64"),
+        ("flash_attention_bwd_dq", "flash_attention.cu",
+         "transformer/functional/flash_attention.py:330", "flash_dq"),
+        ("flash_attention_bwd_dkv", "flash_attention.cu",
+         "transformer/functional/flash_attention.py:395", "flash_dkv"),
+        ("xentropy_fwd", "xentropy.cu", "contrib/xentropy.py:38",
+         "xent_fwd"),
+        ("xentropy_bwd", "xentropy.cu", "contrib/xentropy.py:85",
+         "xent_bwd"),
     ]
-    print(f"LN (8, 1024) bf16 (decode shape): "
-          f"{json.dumps(tm['ln_8x1024'])}")
+    kernels = [dict(name=name, route="cuda",
+                    source=f"apex_tpu_torch/csrc/{src}",
+                    replaces=f"apex_tpu/{rep}",
+                    launches=sum(by_path[name].values()),
+                    launches_by_path=by_path[name],
+                    max_abs_err=err[name], **tm[key])
+               for name, src, rep, key in rows]
+    for key in ("ln_8x1024", "ln_fwd_train", "ln_bwd_4096",
+                "flash_fwd_train"):
+        print(f"{key}: {json.dumps(tm[key])}")
     print(f"serving: {json.dumps(srv)}")
+    print(f"training, card vs CPU: {json.dumps(small)}")
+    print(f"training, BERT-Large: {json.dumps(big)}")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

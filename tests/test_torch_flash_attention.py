@@ -144,20 +144,108 @@ def test_plain_lse_is_base2_logsumexp():
     np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_backward_raises():
-    q, k, v, _ = _inputs(40, 16, "f32")
-    qt = _torch(q).requires_grad_(True)
-    out = port_fa.flash_attention(qt, _torch(k), _torch(v), causal=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        out.sum().backward()
+_BWD_CASES = [
+    # (s, d, causal, masked, dtype, rate)
+    (40, 16, False, True, "f32", 0.0),
+    (40, 64, True, False, "f32", 0.0),
+    (130, 64, True, True, "f32", 0.0),
+    (130, 16, False, True, "f32", 0.2),
+    (130, 16, False, False, "bf16", 0.0),
+    (40, 64, True, True, "bf16", 0.0),
+    (130, 64, False, True, "bf16", 0.0),
+    (130, 16, True, True, "bf16", 0.2),
+]
+
+
+@pytest.mark.parametrize("s,d,causal,masked,dt,rate", _BWD_CASES)
+def test_backward_matches_jax_bwd_call(s, d, causal, masked, dt, rate):
+    """``attention_bwd_plain`` against the JAX ``_bwd_call`` (its dq and
+    dk/dv Pallas kernels in interpret mode), both fed JAX's forward o
+    and base-2 lse. fp32: 1e-4 relative + 2e-5 absolute (sums over keys
+    in other orders). bf16: both sides round p, ds and the outputs to
+    bf16 from fp32 values computed in other orders, so an element may
+    sit a few ulps away: 2^-6 relative plus 2^-8 of the largest
+    magnitude in its tensor."""
+    q, k, v, mask = _inputs(s, d, dt, seed=3)
+    do = _np(np.random.RandomState(4).randn(*q.shape), dt)
+    m = mask if masked else None
+    seed = (0x1234ABCD, 0x9876FEDC)
+    scale = d ** -0.5
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jm = None if m is None else jnp.asarray(m)
+    jseed = jnp.asarray(seed, jnp.uint32)
+    kw = dict(causal=causal, scale=scale, rate=rate, seed=jseed,
+              interpret=True)
+    o, lse_p = jax_fa._fwd_call(jq, jk, jv, jm, **kw)
+    want = jax_fa._bwd_call(jq, jk, jv, jm, o, lse_p, jdo, **kw)
+    lse = _torch(np.asarray(lse_p)[:, 0, :s].copy())
+    got = port_fa.attention_bwd_plain(
+        _torch(q), _torch(k), _torch(v),
+        None if m is None else torch.from_numpy(m),
+        _torch(np.array(o)), lse, _torch(do), seed, causal=causal,
+        scale=scale, rate=rate)
+    for g, w in zip(got, want):
+        assert g.dtype == _torch(q).dtype and g.shape == q.shape
+        g, w = _f32(g), _f32(w)
+        assert np.all(np.isfinite(g))
+        if dt == "f32":
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=2e-5)
+        else:
+            lim = 2.0 ** -6 * np.abs(w) + 2.0 ** -8 * np.abs(w).max()
+            assert np.all(np.abs(g - w) <= lim)
+    if masked and causal:
+        # batch 0, query 0 sees no key: zero dq, not NaN
+        assert np.all(_f32(got[0])[0, :, 0] == 0.0)
+
+
+@pytest.mark.parametrize("causal,masked,rate", [
+    (False, True, 0.0), (True, True, 0.0), (True, False, 0.3)])
+def test_backward_plain_matches_autograd(causal, masked, rate):
+    """fp32: the plain backward (the kernels' numerics) against torch
+    autograd through the plain forward, 1e-5: the algebra is the same,
+    the summation order and exp2 vs exp differ."""
+    q, k, v, mask = _inputs(40, 16, "f32", seed=5)
+    do = torch.from_numpy(np.random.RandomState(6).randn(*q.shape)).float()
+    m = torch.from_numpy(mask) if masked else None
+    seed = (7, 8)
+    kw = dict(causal=causal, scale=0.25, rate=rate)
+    ts = [_torch(a).requires_grad_(True) for a in (q, k, v)]
+    o, lse = port_fa.attention_fwd_plain(*ts, m, seed, **kw)
+    want = torch.autograd.grad(o, ts, do)
+    got = port_fa.attention_bwd_plain(*[t.detach() for t in ts], m,
+                                      o.detach(), lse, do, seed, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_autograd_uses_the_backward(monkeypatch):
+    """``flash_attention``'s backward is the plain backward on the CPU,
+    fed the forward's o and lse; gradients reach q, k and v."""
+    q, k, v, mask = _inputs(40, 16, "f32")
+    calls = []
+    orig = port_fa.attention_bwd_plain
+    monkeypatch.setattr(port_fa, "attention_bwd_plain",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    ts = [_torch(a).requires_grad_(True) for a in (q, k, v)]
+    out = port_fa.flash_attention(*ts, torch.from_numpy(mask), causal=True)
+    grads = torch.autograd.grad(out.sum(), ts)
+    assert calls == [1]
+    assert all(g.shape == t.shape and bool(torch.isfinite(g).all())
+               for g, t in zip(grads, ts))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v, _ = _inputs(40, 16, "f32")
-    before = port_fa.FLASH_FWD.launches
+    kernels = (port_fa.FLASH_FWD, port_fa.FLASH_BWD_DQ,
+               port_fa.FLASH_BWD_DKV)
+    before = [kk.launches for kk in kernels]
+    t = [_torch(a) for a in (q, k, v)]
+    kw = dict(causal=True, scale=0.25, rate=0.0)
     with pytest.raises(RuntimeError, match="CUDA"):
-        port_fa.attention_fwd_kernel(
-            _torch(q), _torch(k), _torch(v), None, (0, 0), causal=True,
-            scale=0.25, rate=0.0)
-    assert port_fa.FLASH_FWD.launches == before
+        port_fa.attention_fwd_kernel(*t, None, (0, 0), **kw)
+    o, lse = port_fa.attention_fwd_plain(*t, None, (0, 0), **kw)
+    for fn in (port_fa.attention_dq_kernel, port_fa.attention_dkv_kernel):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(*t, None, o, lse, lse, (0, 0), **kw)
+    assert [kk.launches for kk in kernels] == before
 

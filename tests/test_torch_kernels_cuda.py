@@ -9,7 +9,13 @@ Without a CUDA device every test here skips. Tolerances: LayerNorm fp32
 attention o per element as ``flash_attention.o_limit`` states it (fp32
 1e-5 (|o0| + 1); bf16 one ulp of o0 plus 2^-5 sqrt(sum p^2 v^2), the
 scale of the error that rounding p and the prescaled q put into o);
-base-2 lse absolute, fp32 1e-4, bf16 1e-2."""
+base-2 lse absolute, fp32 1e-4, bf16 1e-2. The backward kernels and the
+softmax cross entropy are held per element to the error models of
+``fused_layer_norm.bwd_limits``, ``flash_attention.bwd_limits`` and
+``xentropy.limits`` (the sum-order bound of each fp32 reduction plus
+one ulp per rounding to bf16), the limits ``chip_smoke.py`` uses."""
+
+import importlib
 
 import numpy as np
 import pytest
@@ -17,11 +23,19 @@ import torch
 
 from apex_tpu_torch.models.gpt import _split_qkv
 from apex_tpu_torch.normalization.fused_layer_norm import (
-    LN_FWD, layer_norm_fwd_kernel, layer_norm_fwd_plain,
+    LN_BWD, LN_FWD, layer_norm_bwd_kernel, layer_norm_bwd_plain,
+    layer_norm_fwd_kernel, layer_norm_fwd_plain,
 )
 from apex_tpu_torch.transformer.functional.flash_attention import (
-    FLASH_FWD, attention_fwd_kernel, attention_fwd_plain, o_limit,
+    FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD, attention_bwd_kernel,
+    attention_bwd_plain, attention_fwd_kernel, attention_fwd_plain, o_limit,
 )
+
+ln_mod = importlib.import_module(
+    "apex_tpu_torch.normalization.fused_layer_norm")
+fa_mod = importlib.import_module(
+    "apex_tpu_torch.transformer.functional.flash_attention")
+xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
 
 _DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 _LSE_TOL = {"f32": 1e-4, "bf16": 1e-2}  # base 2, absolute
@@ -44,6 +58,7 @@ _LN_CASES = [
     (333, 1000, "f32", "f32", "ln", True),
     (1024, 1024, "bf16", "bf16", "ln", True),
     (8, 1024, "bf16", "bf16", "ln", True),
+    (8192, 1024, "bf16", "f32", "ln", True),    # BERT O2
     (64, 1000, "bf16", "f32", "rms", True),
     (64, 1024, "f32", "bf16", "ln", True),
     (7, 1000, "bf16", "bf16", "ln", False),
@@ -144,3 +159,139 @@ def test_flash_kernel_reads_strided_qkv(cuda_device):
     o0, lse0 = attention_fwd_plain(q, k, v, mask, (0, 0), **kw)
     _assert_o_close(o, o0, q, k, v, mask, True, 0.125)
     torch.testing.assert_close(lse, lse0, rtol=0.0, atol=_LSE_TOL["bf16"])
+
+
+def _assert_within(name, got, want, lim):
+    err = (got.float() - want.float()).abs()
+    bad = err > lim
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} of {err.numel()} elements past the "
+        f"limit; worst {float((err / lim.clamp_min(1e-30)).max()):.3g} of "
+        f"it, max error {float(err.max()):.3g}")
+
+
+_LN_BWD_CASES = [
+    # (rows, h, x dtype, w/b dtype, mode, affine)
+    (8192, 1024, "bf16", "f32", "ln", True),    # BERT O2
+    (1024, 1024, "bf16", "bf16", "ln", True),   # GPT O2
+    (1024, 1024, "bf16", "bf16", "rms", True),
+    (333, 1000, "f32", "f32", "ln", False),
+    (2048, 4096, "bf16", "f32", "ln", True),    # JAX column-split regime
+    (2048, 4096, "f32", "f32", "ln", True),
+    (7, 64, "f32", "f32", "rms", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h,xdt,wdt,mode,affine", _LN_BWD_CASES)
+def test_layer_norm_bwd_kernel_matches_plain(cuda_device, rows, h, xdt, wdt,
+                                             mode, affine):
+    rng = np.random.RandomState(0)
+    x = _t(rng.randn(rows, h) * 2.0 + 0.5, xdt, cuda_device)
+    dy = _t(rng.randn(rows, h), xdt, cuda_device)
+    w = _t(1.0 + 0.5 * rng.randn(h), wdt, cuda_device) if affine else None
+    b = _t(0.3 * rng.randn(h), wdt, cuda_device) \
+        if affine and mode == "ln" else None
+    _, mean, rstd = layer_norm_fwd_plain(x, w, b, mode, 1e-5)
+    before = LN_BWD.launches
+    got = layer_norm_bwd_kernel(dy, x, w, b, mean, rstd)
+    again = layer_norm_bwd_kernel(dy, x, w, b, mean, rstd)
+    torch.cuda.synchronize()
+    assert LN_BWD.launches == before + 2
+    want = layer_norm_bwd_plain(dy, x, w, b, mean, rstd)
+    lims = ln_mod.bwd_limits(dy, x, w, mean, rstd, *want)
+    for name, g, g2, w0, lim in zip(("dx", "dgamma", "dbeta"), got, again,
+                                    want, lims):
+        assert (g is None) == (w0 is None)
+        if g is None:
+            continue
+        assert g.dtype == w0.dtype and g.shape == w0.shape
+        assert torch.equal(g, g2)   # no atomics: the same bits every run
+        _assert_within(name, g, w0, lim)
+
+
+def _flash_inputs(b, h, s, d, dt, dev, views, masked, seed=0):
+    rng = np.random.RandomState(seed)
+    if views:  # BERT's layout: (b, s, 3, h, d) projection, strided views
+        qkv = _t(rng.randn(b, s, 3, h, d), dt, dev)
+        q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+    else:
+        q, k, v = (_t(rng.randn(b, h, s, d), dt, dev) for _ in range(3))
+    m = None
+    if masked:
+        mask = np.ones((b, s), np.int32)
+        mask[0, 0] = 0           # under causal, row 0 of batch 0 sees nothing
+        mask[:, s - s // 8:] = 0  # a padded tail
+        m = torch.from_numpy(mask).to(dev)
+    do = _t(rng.randn(b, h, s, d), dt, dev)
+    return q, k, v, m, do
+
+
+_FA_BWD_CASES = [
+    # (b, h, s, d, dtype, causal, masked, rate, views)
+    (64, 16, 128, 64, "bf16", False, True, 0.0, True),   # BERT-Large step
+    (1, 16, 1024, 64, "bf16", True, False, 0.0, False),
+    (2, 16, 300, 64, "bf16", True, True, 0.1, False),
+    (1, 4, 256, 128, "f32", True, False, 0.0, False),
+    (2, 2, 40, 100, "bf16", True, True, 0.0, False),
+    (2, 2, 130, 16, "f32", False, True, 0.2, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,d,dt,causal,masked,rate,views",
+                         _FA_BWD_CASES)
+def test_flash_bwd_kernels_match_plain(cuda_device, b, h, s, d, dt, causal,
+                                       masked, rate, views):
+    q, k, v, m, do = _flash_inputs(b, h, s, d, dt, cuda_device, views,
+                                   masked)
+    kw = dict(causal=causal, scale=d ** -0.5, rate=rate)
+    seed = (0x1234ABCD, 0x9876FEDC)
+    o, lse = attention_fwd_kernel(q, k, v, m, seed, **kw)
+    # the forward at this shape and layout, before its o and lse feed
+    # both backward versions
+    o0, lse0 = attention_fwd_plain(q, k, v, m, seed, **kw)
+    _assert_o_close(o, o0, q, k, v, m, causal, d ** -0.5)
+    torch.testing.assert_close(lse, lse0, rtol=0.0, atol=_LSE_TOL[dt])
+    before = FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches
+    got = attention_bwd_kernel(q, k, v, m, o, lse, do, seed, **kw)
+    torch.cuda.synchronize()
+    assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = attention_bwd_plain(q, k, v, m, o, lse, do, seed, **kw)
+    lims = fa_mod.bwd_limits(q, k, v, m, o, lse, do, *want, **kw)
+    for name, g, w0, lim in zip(("dq", "dk", "dv"), got, want, lims):
+        assert g.dtype == q.dtype and g.shape == q.shape
+        assert bool(torch.isfinite(g).all())
+        _assert_within(name, g, w0, lim)
+    if masked and causal:
+        assert bool((got[0][0, :, 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v,dt,eps", [
+    (8192, 30522, "f32", 0.0), (8192, 30522, "f32", 0.1),
+    (100, 1000, "bf16", 0.1), (5, 77, "f32", 0.0)])
+def test_xentropy_kernels_match_plain(cuda_device, n, v, dt, eps):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (torch.randn((n, v), generator=g, device=cuda_device) * 3.0).to(
+        _DT[dt])
+    labels = torch.randint(0, v, (n,), generator=g, device=cuda_device)
+    labels[torch.rand((n,), generator=g, device=cuda_device) < 0.15] = -1
+    dloss = torch.rand((n,), generator=g, device=cuda_device) + 0.5
+    before = xent.XENT_FWD.launches, xent.XENT_BWD.launches
+    loss, lse = xent.xentropy_fwd_kernel(x, labels, eps)
+    dx = xent.xentropy_bwd_kernel(x, labels, lse, dloss, eps)
+    torch.cuda.synchronize()
+    assert (xent.XENT_FWD.launches, xent.XENT_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    loss0, lse0 = xent.xentropy_fwd_plain(x, labels, eps)
+    dx0 = xent.xentropy_bwd_plain(x, labels, lse0, dloss, eps)
+    lim_loss, lim_lse, lim_dx = xent.limits(x, labels, eps, loss0, lse0,
+                                            dloss, dx0)
+    _assert_within("loss", loss, loss0, lim_loss)
+    _assert_within("lse", lse, lse0, lim_lse)
+    _assert_within("dx", dx, dx0, lim_dx)
+    assert dx.dtype == x.dtype
+    assert bool((loss[labels < 0] == 0).all())
+    assert bool((dx[labels < 0] == 0).all())

@@ -9,6 +9,9 @@ bf16 ulp of a float64 reference computed from the same bf16 inputs
 (both sides compute in fp32 and round once, so they can differ only by
 where that one rounding lands)."""
 
+import importlib
+
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -18,7 +21,8 @@ import torch
 from apex_tpu import normalization as jax_norm
 from apex_tpu_torch import normalization as port_norm
 from apex_tpu_torch.normalization.fused_layer_norm import (
-    LN_FWD, layer_norm_fwd_kernel, layer_norm_fwd_plain,
+    LN_BWD, LN_FWD, layer_norm_bwd_kernel, layer_norm_bwd_plain,
+    layer_norm_fwd_kernel, layer_norm_fwd_plain,
 )
 
 _DT = {"f32": (np.float32, torch.float32),
@@ -153,18 +157,95 @@ def test_modules(cls):
                                atol=1e-2)
 
 
-def test_backward_raises():
-    x, w, b = _inputs(7, 64, "f32", "f32")
-    xt = _torch(x).requires_grad_(True)
-    y = port_norm.fused_layer_norm_affine(xt, _torch(w), _torch(b), 64)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        y.sum().backward()
+_ENTRY = {  # (mode, affine) -> entry point name
+    ("ln", True): "fused_layer_norm_affine",
+    ("ln", False): "fused_layer_norm",
+    ("rms", True): "fused_rms_norm_affine",
+    ("rms", False): "fused_rms_norm",
+}
+
+_BWD_CASES = [
+    # (rows, h, x dtype, w/b dtype, mode, affine)
+    (7, 64, "f32", "f32", "ln", True),
+    (33, 1000, "f32", "f32", "ln", True),
+    (7, 1000, "f32", "f32", "ln", False),
+    (33, 64, "f32", "f32", "rms", True),
+    (7, 1000, "f32", "f32", "rms", False),
+    (33, 1000, "bf16", "f32", "ln", True),     # BERT O2: bf16 x, fp32 w, b
+    (7, 1024, "bf16", "bf16", "ln", True),     # GPT O2: bf16 throughout
+    (33, 1000, "bf16", "f32", "rms", True),
+    (7, 64, "bf16", "bf16", "rms", False),
+    (16, 4096, "f32", "f32", "ln", True),      # JAX: column-split path
+    (16, 4096, "bf16", "f32", "rms", True),    # JAX: column-split path
+]
+
+
+@pytest.mark.parametrize("rows,h,xdt,wdt,mode,affine", _BWD_CASES)
+def test_backward_matches_jax(monkeypatch, rows, h, xdt, wdt, mode, affine):
+    """dx, dgamma, dbeta against ``jax.vjp`` of the JAX function (its
+    Pallas backward in interpret mode). fp32 results: 1e-4 relative +
+    1e-5 absolute (two fp32 row reductions and a column sum, added in
+    other orders); bf16 dx: one bf16 ulp of the JAX value plus 1e-5
+    (both round one fp32 value). dgamma and dbeta come out in the
+    param dtype, fp32 here even when x is bf16."""
+    jax_ln = importlib.import_module(
+        "apex_tpu.normalization.fused_layer_norm")
+    colsplit = []
+    orig = jax_ln._bwd_call_colsplit
+    monkeypatch.setattr(jax_ln, "_bwd_call_colsplit",
+                        lambda *a: colsplit.append(1) or orig(*a))
+    x, w, b = _inputs(rows, h, xdt, wdt)
+    dy = _np(np.random.RandomState(1).randn(rows, h), xdt)
+    params = [w] + ([b] if mode == "ln" else []) if affine else []
+    name = _ENTRY[(mode, affine)]
+
+    def jax_fn(x_, *ps):
+        return getattr(jax_norm, name)(x_, *ps, h)
+
+    _, vjp = jax.vjp(jax_fn, jnp.asarray(x), *map(jnp.asarray, params))
+    want = vjp(jnp.asarray(dy))
+    assert bool(colsplit) == (h == 4096)
+
+    ts = [_torch(a).requires_grad_(True) for a in [x] + params]
+    y = getattr(port_norm, name)(ts[0], *ts[1:], h)
+    got = torch.autograd.grad(y, ts, _torch(dy))
+    for g, t, wv in zip(got, ts, want):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        g, wv = _f64(g), np.asarray(wv).astype(np.float64)
+        if t.dtype == torch.bfloat16:
+            assert np.all(np.abs(g - wv) <= _bf16_ulp(wv) + 1e-5)
+        else:
+            np.testing.assert_allclose(g, wv, rtol=1e-4, atol=1e-5)
+
+
+def test_backward_plain_matches_autograd():
+    """The plain backward equals torch autograd through the plain
+    forward (fp32, both: 1e-5, the two differ only in summation
+    order)."""
+    x, w, b = map(_torch, _inputs(9, 100, "f32", "f32"))
+    dy = torch.from_numpy(np.random.RandomState(2).randn(9, 100)).float()
+    for mode in ("ln", "rms"):
+        bb = b if mode == "ln" else None
+        ts = [t.clone().requires_grad_(True) for t in (x, w)]
+        y, _, _ = layer_norm_fwd_plain(ts[0], ts[1], bb, mode, 1e-5)
+        want = torch.autograd.grad(y, ts, dy)
+        _, mean, rstd = layer_norm_fwd_plain(x, w, bb, mode, 1e-5)
+        dx, dw, db = layer_norm_bwd_plain(dy, x, w, bb, mean, rstd)
+        torch.testing.assert_close(dx, want[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dw, want[1], rtol=1e-5, atol=1e-5)
+        assert (db is None) == (mode == "rms")
+        if db is not None:
+            torch.testing.assert_close(db, dy.sum(0), rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     x, w, b = _inputs(7, 64, "f32", "f32")
-    before = LN_FWD.launches
+    before = LN_FWD.launches, LN_BWD.launches
+    xt, wt, bt = _torch(x), _torch(w), _torch(b)
     with pytest.raises(RuntimeError, match="CUDA"):
-        layer_norm_fwd_kernel(_torch(x), _torch(w), _torch(b), "ln", 1e-5)
-    assert LN_FWD.launches == before
+        layer_norm_fwd_kernel(xt, wt, bt, "ln", 1e-5)
+    _, mean, rstd = layer_norm_fwd_plain(xt, wt, bt, "ln", 1e-5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layer_norm_bwd_kernel(xt, xt, wt, bt, mean, rstd)
+    assert (LN_FWD.launches, LN_BWD.launches) == before
 

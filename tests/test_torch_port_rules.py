@@ -20,6 +20,9 @@ import sys
 import pytest
 import torch
 
+from apex_tpu_torch import amp as port_amp
+from apex_tpu_torch.examples.bert.train import make_bert_train_step
+from apex_tpu_torch.models import bert as port_bert
 from apex_tpu_torch.models import gpt as port_gpt
 from apex_tpu_torch import serving as port_serving
 from apex_tpu_torch.utils import cuda_build
@@ -29,6 +32,11 @@ from apex_tpu_torch.utils.platform import resolve_device
 ln = importlib.import_module("apex_tpu_torch.normalization.fused_layer_norm")
 fa = importlib.import_module(
     "apex_tpu_torch.transformer.functional.flash_attention")
+xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+
+# the plain forwards, saved before any test patches them
+_plain = {"ln": ln.layer_norm_fwd_plain, "fa": fa.attention_fwd_plain,
+          "xent": xent.xentropy_fwd_plain}
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "apex_tpu_torch")
@@ -75,15 +83,21 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "resolve_device", "init_gpt", "init_cache", "DecodeEngine",
-    "params_from_jax"])
+    "params_from_jax", "init_bert", "make_bert_train_step",
+    "scaler_init_state"])
 def test_default_device_is_the_card(no_cuda, entry):
     cfg = port_gpt.gpt_tiny()
+    bcfg = port_bert.bert_tiny()
     calls = {
         "resolve_device": lambda: resolve_device(None),
         "init_gpt": lambda: port_gpt.init_gpt(cfg, torch.Generator()),
         "init_cache": lambda: port_serving.init_cache(cfg, 1, 8),
         "DecodeEngine": lambda: port_serving.DecodeEngine({}, cfg, 1, 8),
         "params_from_jax": lambda: port_gpt.params_from_jax({}, None),
+        "init_bert": lambda: port_bert.init_bert(bcfg, torch.Generator()),
+        "make_bert_train_step": lambda: make_bert_train_step(2, 8, bcfg),
+        "scaler_init_state": lambda: port_amp.initialize(
+            "O2", verbosity=0).init_state(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -97,10 +111,15 @@ def dispatch_to_card(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("plain version reached on the CUDA path")
 
-    for mod in (ln, fa):
+    for mod in (ln, fa, xent):
         monkeypatch.setattr(mod, "on_card", lambda t, what="": True)
-    monkeypatch.setattr(ln, "layer_norm_fwd_plain", plain)
-    monkeypatch.setattr(fa, "attention_fwd_plain", plain)
+    for mod, name in ((ln, "layer_norm_fwd_plain"),
+                      (ln, "layer_norm_bwd_plain"),
+                      (fa, "attention_fwd_plain"),
+                      (fa, "attention_bwd_plain"),
+                      (xent, "xentropy_fwd_plain"),
+                      (xent, "xentropy_bwd_plain")):
+        monkeypatch.setattr(mod, name, plain)
 
 
 def test_cuda_path_never_reaches_plain_layer_norm(dispatch_to_card):
@@ -117,6 +136,33 @@ def test_cuda_path_never_reaches_plain_attention(dispatch_to_card):
         fa.flash_attention(q, q, q, causal=True)
 
 
+def test_cuda_path_never_reaches_plain_xentropy(dispatch_to_card):
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        xent.softmax_cross_entropy_loss(torch.randn(4, 10),
+                                        torch.zeros(4, dtype=torch.long))
+
+
+def test_cuda_path_backward_never_reaches_plain(monkeypatch,
+                                                dispatch_to_card):
+    """With the forwards let through (their kernels swapped for the
+    saved plain versions), each backward still goes to its kernel
+    wrapper, which refuses the CPU tensors; no plain backward runs."""
+    monkeypatch.setattr(ln, "layer_norm_fwd_kernel", _plain["ln"])
+    monkeypatch.setattr(fa, "attention_fwd_kernel", _plain["fa"])
+    monkeypatch.setattr(xent, "xentropy_fwd_kernel", _plain["xent"])
+    x = torch.randn(4, 16, requires_grad=True)
+    q = torch.randn(1, 2, 8, 16, requires_grad=True)
+    outs = [ln.fused_layer_norm_affine(x, torch.ones(16), torch.zeros(16),
+                                       16),
+            ln.fused_rms_norm(x, 16),
+            fa.flash_attention(q, q, q, causal=True),
+            xent.softmax_cross_entropy_loss(
+                x, torch.zeros(4, dtype=torch.long))]
+    for out in outs:
+        with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+            out.sum().backward()
+
+
 def test_gpt_on_card_path_never_reaches_plain(dispatch_to_card):
     cfg = port_gpt.gpt_tiny()
     params = port_gpt.init_gpt(cfg, torch.Generator().manual_seed(0),
@@ -126,7 +172,8 @@ def test_gpt_on_card_path_never_reaches_plain(dispatch_to_card):
                                      torch.zeros((1, 4), dtype=torch.long))
 
 
-@pytest.mark.parametrize("mod", [ln, fa], ids=["layer_norm", "flash"])
+@pytest.mark.parametrize("mod", [ln, fa, xent],
+                         ids=["layer_norm", "flash", "xentropy"])
 def test_wrappers_have_no_fallback(mod):
     """No ``try`` in a wrapper module: a failed launch raises."""
     with open(mod.__file__) as f:
