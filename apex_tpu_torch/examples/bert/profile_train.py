@@ -13,8 +13,16 @@ everything else) and the top entries. Last, one JSON line with the same
 numbers::
 
     python -m apex_tpu_torch.examples.bert.profile_train
+    python -m apex_tpu_torch.examples.bert.profile_train \
+        --attention softmax --flat-adam
+
+``--attention softmax`` runs the unfused attention (the fused softmax
+kernels) and ``--flat-adam`` the flat FusedAdam (one ``flat_adam``
+kernel), as in ``examples/bert/train.py``.
 """
 
+import argparse
+import dataclasses
 import json
 import statistics
 import time
@@ -32,7 +40,7 @@ BATCH, SEQ = 64, 128
 # device-kernel name fragments of this package's kernels
 OURS = ("layer_norm_fwd_kernel", "layer_norm_bwd", "flash_fwd_kernel",
         "flash_dq_kernel", "flash_dkv_kernel", "xent_fwd_kernel",
-        "xent_bwd_kernel")
+        "xent_bwd_kernel", "softmax_fwd", "softmax_bwd", "adam_kernel")
 GEMM = ("gemm", "xmma", "cutlass", "sm90_", "cublas", "nvjet")
 
 
@@ -48,13 +56,20 @@ def group(kern):
     return out
 
 
-def main():
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--attention", choices=("flash", "softmax"),
+                   default="flash")
+    p.add_argument("--flat-adam", action="store_true")
+    args = p.parse_args(argv)
     dev = resolve_device(None)
-    cfg = bert_large()
+    cfg = dataclasses.replace(bert_large(),
+                              fused_attention=args.attention == "flash")
     res = {}
     for mode, (m_dtype, emit) in STATE_MODES.items():
         step, make_state, (ids, mask) = make_bert_train_step(
-            BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit, device=dev)
+            BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit, device=dev,
+            use_flat_kernel=args.flat_adam)
         state = list(make_state())
         for _ in range(2):
             *state, _ = step(*state, ids, mask)

@@ -10,11 +10,18 @@ steps the master tree, skipping the step on an overflow. Two optimizer
 state modes, as the JAX headline races them: ``fp32`` and
 ``bf16m_castout`` (bf16 first moment, plus the updated params emitted
 in the compute dtypes and fed back through ``cast_model(precast=...)``).
+Two switches of the JAX package pick the configuration: the model
+config's ``fused_attention`` (flash attention, or the score product,
+the fused softmax and the context product) and ``FusedAdam``'s
+``use_flat_kernel`` (the tree path, or one ``flat_adam`` kernel over
+packed buffers); the defaults are flash attention and the tree path.
 
 Random weights from a seed and one fixed batch of random ids (every
 position predicted). Runs on the CUDA device by default::
 
     python -m apex_tpu_torch.examples.bert.train --config large --steps 4
+    python -m apex_tpu_torch.examples.bert.train --attention softmax \
+        --flat-adam
 
 and on the CPU (the kernels' plain versions) with ``--device cpu``::
 
@@ -23,6 +30,7 @@ and on the CPU (the kernels' plain versions) with ``--device cpu``::
 """
 
 import argparse
+import dataclasses
 import statistics
 import time
 from typing import Any, Optional, Tuple
@@ -84,10 +92,12 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
                          m_dtype: torch.dtype = torch.float32,
                          emit_compute: bool = False,
                          device: DeviceLike = None, opt_level: str = "O2",
-                         seed: int = 0
+                         seed: int = 0, use_flat_kernel: bool = False
                          ) -> Tuple[BertTrainStep, Any, Tuple]:
     """Returns ``(train_step, make_state, (ids, mask))`` as the JAX
-    ``_bert_step`` does. ``make_state()`` draws the fp32 master tree
+    ``_bert_step`` does; ``cfg.fused_attention`` and ``use_flat_kernel``
+    (passed to ``FusedAdam``) pick the configuration.
+    ``make_state()`` draws the fp32 master tree
     from ``seed`` (on a generator on ``device``) and returns ``(master,
     opt_state, scaler_state)``, plus the compute tree with
     ``emit_compute``. ``ids`` come from a CPU generator seeded 1, so they
@@ -95,7 +105,8 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
     dev = resolve_device(device)
     h = amp.initialize(opt_level, loss_scale="dynamic", verbosity=0)
     opt = FusedAdam(lr=1e-4, weight_decay=0.01, m_dtype=m_dtype,
-                    emit_compute_params=emit_compute)
+                    emit_compute_params=emit_compute,
+                    use_flat_kernel=use_flat_kernel)
 
     def make_state():
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -119,6 +130,13 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--state-mode", choices=sorted(STATE_MODES),
                    default="fp32")
+    p.add_argument("--attention", choices=("flash", "softmax"),
+                   default="flash",
+                   help="flash attention (fused_attention=True) or the "
+                   "fused softmax between plain products")
+    p.add_argument("--flat-adam", action="store_true",
+                   help="FusedAdam(use_flat_kernel=True): one flat_adam "
+                   "kernel over packed buffers")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
@@ -128,11 +146,12 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = CONFIGS[args.config]()
+    cfg = dataclasses.replace(CONFIGS[args.config](),
+                              fused_attention=args.attention == "flash")
     m_dtype, emit = STATE_MODES[args.state_mode]
     step, make_state, (ids, mask) = make_bert_train_step(
         args.batch, args.seq, cfg, m_dtype=m_dtype, emit_compute=emit,
-        device=dev, seed=args.seed)
+        device=dev, seed=args.seed, use_flat_kernel=args.flat_adam)
     state = make_state()
 
     def sync():
@@ -155,7 +174,9 @@ def main(argv=None) -> int:
     med = statistics.median(times[1:] or times)
     over = f"steps 2-{len(times)}" if len(times) > 1 else "one step"
     print(f"bert {args.config} batch {args.batch} seq {args.seq} "
-          f"{args.state_mode} on {dev}: median step {med * 1e3:.1f} ms "
+          f"{args.state_mode}, {args.attention} attention, "
+          f"{'flat' if args.flat_adam else 'tree'} FusedAdam on {dev}: "
+          f"median step {med * 1e3:.1f} ms "
           f"over {over}, {args.batch / med:.1f} samples/s")
     return 0
 

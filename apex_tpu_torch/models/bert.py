@@ -1,18 +1,19 @@
 """BERT encoder with the masked-LM head (counterpart of
 ``apex_tpu/models/bert.py``), the north-star model: every LayerNorm
 through ``fused_layer_norm_affine``, attention through
-``flash_attention``, the MLM loss through the fused softmax cross
-entropy. The dense products, embeddings and activations are plain
+``flash_attention`` (``fused_attention=True``) or through the score
+product, ``scaled_masked_softmax`` and the context product
+(``fused_attention=False``), the MLM loss through the fused softmax
+cross entropy. The dense products, embeddings and activations are plain
 PyTorch, as they are plain ``jnp`` in the JAX package.
 
 The param tree has the JAX tree's keys, dtypes and layout, the encoder
 a list of per-layer dicts, so the O2 cast keeps every ``layernorm``
 leaf fp32 as in JAX.
 
-Not ported (raise): the ``fused_attention=False`` path (the fused
-softmax kernels, ROADMAP queue A2), ``remat``, and hidden / attention
-dropout drawn from ``dropout_rng`` (threefry bits torch cannot
-reproduce); the training step of the JAX benchmark uses none of them.
+Not ported (raise): ``remat``, and hidden / attention dropout drawn
+from ``dropout_rng`` (threefry bits torch cannot reproduce); the
+training step of the JAX benchmark uses neither.
 """
 
 import dataclasses
@@ -25,7 +26,9 @@ import torch.nn.functional as F
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.models import layers as L
 from apex_tpu_torch.normalization import fused_layer_norm_affine
-from apex_tpu_torch.transformer.functional import flash_attention
+from apex_tpu_torch.transformer.functional import (
+    flash_attention, scaled_masked_softmax,
+)
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -65,11 +68,6 @@ def bert_tiny() -> BertConfig:  # for tests
 
 
 def check_config(cfg: BertConfig) -> None:
-    if not cfg.fused_attention:
-        raise NotImplementedError(
-            "fused_attention=False needs the fused softmax kernels "
-            "(transformer/functional/fused_softmax.py, ROADMAP queue A2), "
-            "not ported yet")
     if cfg.remat:
         raise NotImplementedError("remat is not ported yet")
 
@@ -140,8 +138,21 @@ def _attention(p, cfg: BertConfig, x, mask):
     # views of it, which the kernels read as they are
     qkv = L.dense(p["qkv"], x).reshape(b, s, 3, nh, hd)
     q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
-    ctx = flash_attention(q, k, v, mask, softmax_scale=1.0 / math.sqrt(hd),
-                          dropout_rate=cfg.attention_dropout)
+    if cfg.fused_attention:
+        ctx = flash_attention(q, k, v, mask,
+                              softmax_scale=1.0 / math.sqrt(hd),
+                              dropout_rate=cfg.attention_dropout)
+    else:
+        # the unfused path: plain products in the compute dtype around the
+        # fused softmax, whose mask is nonzero where a key is padding
+        scores = torch.matmul(q, k.transpose(-1, -2))
+        if mask is not None:
+            inv = (1 - mask)[:, None, None, :]
+        else:
+            inv = torch.zeros((b, 1, 1, s), dtype=torch.int32,
+                              device=x.device)
+        probs = scaled_masked_softmax(scores, inv, 1.0 / math.sqrt(hd))
+        ctx = torch.matmul(probs, v)
     ctx = ctx.transpose(1, 2).reshape(b, s, h)
     return L.dense(p["out"], ctx)
 

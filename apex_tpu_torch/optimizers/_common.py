@@ -16,7 +16,8 @@ from typing import Any, Optional, Tuple
 import torch
 
 from apex_tpu_torch.amp.scaler import apply_if_finite
-from apex_tpu_torch.utils.tree import tree_map
+from apex_tpu_torch.multi_tensor_apply.flatten import FlatSpec, make_spec
+from apex_tpu_torch.utils.tree import tree_flatten, tree_map
 
 # dtypes accepted for the first moment (``m_dtype``): fp32 is exact apex
 # semantics; bf16 halves its bytes, accumulated in fp32 and stored
@@ -77,13 +78,29 @@ def cast_like(tree: Any, template: Optional[Any],
 
 def finish_compute_params(new_params: Any, params: Any,
                           compute_params: Optional[Any],
-                          found_inf: Optional[torch.Tensor]) -> Any:
-    """Shared tail of ``emit_compute_params``: the new params cast to
+                          found_inf: Optional[torch.Tensor],
+                          precomputed: Optional[Any] = None) -> Any:
+    """Shared tail of ``emit_compute_params``: ``precomputed`` (the
+    kernel's cast-out, on the flat path) or else the new params cast to
     the dtypes of ``compute_params`` (the previous compute tree, also the
     cheap old value on an overflow step) or to bf16 without it."""
-    new_c = cast_like(new_params, compute_params)
+    new_c = precomputed if precomputed is not None else \
+        cast_like(new_params, compute_params)
     if found_inf is None:
         return new_c
     old_c = compute_params if compute_params is not None else \
         cast_like(params, None)
     return apply_if_finite(new_c, old_c, found_inf)
+
+
+def flat_layout(cache: dict, params: Any) -> Tuple[list, Any, FlatSpec]:
+    """Cached flat-buffer layout for the ``use_flat_kernel`` paths:
+    ``(leaves, treedef, spec)``, the leaves in JAX's order. Keyed by the
+    tree's structure and its leaves' shapes and dtypes: one optimizer
+    may serve several trees."""
+    leaves, treedef = tree_flatten(params)
+    key = (repr(treedef), tuple((tuple(l.shape), l.dtype) for l in leaves))
+    spec = cache.get(key)
+    if spec is None:
+        spec = cache[key] = make_spec(leaves)
+    return leaves, treedef, spec

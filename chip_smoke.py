@@ -6,13 +6,17 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. build — nvcc builds every CUDA source (layer norm, flash attention,
-   softmax cross entropy; one process per source, all at once); TF32
-   is switched off so fp32 products are full fp32.
+   softmax cross entropy, fused softmax, multi-tensor Adam; one process
+   per source, all at once); TF32 is switched off so fp32 products are
+   full fp32.
 2. kernel parity — each kernel against its plain PyTorch version on the
    same card inputs, max error beside the stated tolerance: the
    forwards of the serving path, then the LayerNorm and flash-attention
    backward kernels and the softmax cross entropy at the training
-   path's shapes, held per element to their modules' error models.
+   path's shapes, held per element to their modules' error models; the
+   fused softmax forwards (masked, causal) and backward, per element to
+   their error model; ``flat_adam`` on BERT-Large's flat buffer, bit for
+   bit.
 3. serving — GPT-2 medium (h 1024, 24 layers, 16 heads, vocab 50304),
    random weights from seed 0, O2-cast to bf16, served by the port's
    ``DecodeEngine`` + ``ContinuousBatchingScheduler`` (8 slots, max_len
@@ -28,7 +32,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    seq 128 (the JAX headline's shape): 6 steps on one fixed batch in
    each optimizer-state mode (``fp32``, ``bf16m_castout``), counts set
    to 0 before each run and read after it; losses finite and falling,
-   no overflow, exact launches per step.
+   no overflow, exact launches per step. Both (a) and (b) run two
+   configurations: flash attention with the tree-path FusedAdam, and
+   the unfused attention (``fused_attention=False``: the fused softmax
+   kernels) with the flat FusedAdam (``use_flat_kernel=True``: one
+   ``flat_adam`` kernel a step).
 5. times — each kernel at its path's shapes, its plain version, one
    library call computing the same function (device time: 20 calls
    captured in one CUDA graph, replays timed with CUDA events), and the
@@ -63,13 +71,17 @@ def phase(name):
 
 
 def kernel_modules():
-    """The three wrapper modules (the packages re-export some functions
+    """The five wrapper modules (the packages re-export some functions
     under their modules' names, so import them by path)."""
     return (importlib.import_module(
                 "apex_tpu_torch.normalization.fused_layer_norm"),
             importlib.import_module(
                 "apex_tpu_torch.transformer.functional.flash_attention"),
-            importlib.import_module("apex_tpu_torch.contrib.xentropy"))
+            importlib.import_module("apex_tpu_torch.contrib.xentropy"),
+            importlib.import_module(
+                "apex_tpu_torch.transformer.functional.fused_softmax"),
+            importlib.import_module(
+                "apex_tpu_torch.multi_tensor_apply.kernels"))
 
 
 def check(ok, msg):
@@ -336,6 +348,130 @@ def xent_parity(dev):
     return worst
 
 
+SM_SCALE = 0.125   # 1 / sqrt(64), BERT-Large's attention scale
+
+
+def softmax_parity(dev):
+    fsm = kernel_modules()[3]
+    phase("kernel parity: fused softmax (tolerance per element, "
+          "fused_softmax.fwd_limits: (2 (sk - 1) + 12) fp32 ulps of y for "
+          "the row sums in other orders, plus one ulp of a bf16 y; "
+          "backward fused_softmax.bwd_limits on the same y: 2 (sk + 1) "
+          "ulps of sum |y dy| plus one ulp of a bf16 dx)")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf, f32 = torch.bfloat16, torch.float32
+    b, nh, s = BIG_BATCH, 16, SEQ
+    worst = {"fwd": 0.0, "causal": 0.0, "bwd": 0.0}
+    cases = [  # label, x dtype, fully masked rows
+        ("padded tail", bf, False), ("padded tail + a fully masked row",
+                                     bf, True), ("padded tail", f32, False)]
+    for label, dt, full in cases:
+        x = _rand(gen, (b, nh, s, s), dt, dev, 8.0)
+        dy = _rand(gen, (b, nh, s, s), dt, dev)
+        mask = torch.zeros((b, 1, 1, s), dtype=torch.int32, device=dev)
+        mask[..., s - s // 10:] = 1          # BERT's (1 - mask): 1 = pad
+        if full:
+            mask[0] = 1
+        y = fsm.masked_softmax_fwd_kernel(x, mask, SM_SCALE)
+        dx = fsm.softmax_bwd_kernel(y, dy, SM_SCALE)
+        torch.cuda.synchronize()
+        y0 = fsm.masked_softmax_fwd_plain(x, mask, SM_SCALE)
+        dx0 = fsm.softmax_bwd_plain(y, dy, SM_SCALE)
+        ey, uy = _held(y, y0, fsm.fwd_limits(y0))
+        ed, ud = _held(dx, dx0, fsm.bwd_limits(y, dy, SM_SCALE, dx0))
+        ok = uy <= 1.0 and ud <= 1.0 and y.dtype == dx.dtype == dt
+        if full:
+            ok &= torch.equal(y[0].float(), torch.full_like(
+                y[0].float(), 1.0 / s).to(dt).float())
+        worst["fwd"] = max(worst["fwd"], ey)
+        worst["bwd"] = max(worst["bwd"], ed)
+        check(ok, f"masked softmax ({b}, {nh}, {s}, {s}) {str(dt)[6:]}, "
+              f"(b, 1, 1, sk) mask, {label}: max_abs_err y {ey:.3g} "
+              f"({uy:.2f} of its tolerance), dx {ed:.3g} ({ud:.2f})"
+              + (", the masked rows uniform 1/sk" if full else ""))
+    bc, sc = 16, 1024                        # the causal kernel's case
+    x = _rand(gen, (bc, sc, sc), bf, dev, 4.0)
+    dy = _rand(gen, (bc, sc, sc), bf, dev)
+    y = fsm.causal_softmax_fwd_kernel(x, SM_SCALE)
+    dx = fsm.softmax_bwd_kernel(y, dy, SM_SCALE)
+    torch.cuda.synchronize()
+    y0 = fsm.causal_softmax_fwd_plain(x, SM_SCALE)
+    dx0 = fsm.softmax_bwd_plain(y, dy, SM_SCALE)
+    ey, uy = _held(y, y0, fsm.fwd_limits(y0))
+    ed, ud = _held(dx, dx0, fsm.bwd_limits(y, dy, SM_SCALE, dx0))
+    above = bool((y[:, fsm._causal(sc, sc, dev)] == 0).all())
+    worst["causal"] = ey
+    worst["bwd"] = max(worst["bwd"], ed)
+    check(uy <= 1.0 and ud <= 1.0 and above,
+          f"causal softmax ({bc}, {sc}, {sc}) bf16: max_abs_err y {ey:.3g} "
+          f"({uy:.2f} of its tolerance), dx {ed:.3g} ({ud:.2f}); zero "
+          "above the diagonal")
+    return worst
+
+
+def bert_flat(dev):
+    """BERT-Large's master tree packed as the flat FusedAdam packs it:
+    (the fp32 params buffer, its spec)."""
+    from apex_tpu_torch.models.bert import bert_large, init_bert
+    from apex_tpu_torch.multi_tensor_apply.flatten import flatten_tensors
+    from apex_tpu_torch.utils.tree import tree_flatten
+
+    params = init_bert(bert_large(), torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    leaves, _ = tree_flatten(params)
+    return flatten_tensors(leaves)
+
+
+def adam_inputs(dev, m_dtype, gen):
+    from apex_tpu_torch.multi_tensor_apply.kernels import adam_hparams
+
+    p, spec = bert_flat(dev)
+    g = _rand(gen, p.shape, torch.float32, dev, 1e-3)
+    m = _rand(gen, p.shape, torch.float32, dev, 1e-4).to(m_dtype)
+    v = _rand(gen, p.shape, torch.float32, dev, 1e-6).abs()
+    hp = adam_hparams(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                      step=torch.tensor(3, device=dev), weight_decay=0.01,
+                      adam_w_mode=True, bias_correction=True, grad_scale=1.0,
+                      device=dev)
+    return g, p, m, v, hp, spec
+
+
+def flat_adam_parity(dev):
+    mta = kernel_modules()[4]
+    phase("kernel parity: flat_adam on BERT-Large's flat buffer (tolerance: "
+          "bit for bit against the plain version, the same fp32 operations "
+          "in the same order; the bf16 cast-out equal to the cast of the "
+          "kernel's own p; found_inf True writes the old values)")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = 0.0
+    for m_dtype, emit in ((torch.float32, None),
+                          (torch.bfloat16, torch.bfloat16)):
+        g, p, m, v, hp, spec = adam_inputs(dev, m_dtype, gen)
+        for found in (False, True):
+            fi = torch.tensor(found, device=dev)
+            got = mta.flat_adam_kernel(g, p, m, v, hp, fi, emit)
+            torch.cuda.synchronize()
+            want = mta.flat_adam_plain(g, p, m, v, hp, fi, emit)
+            errs = [float((a.float() - w.float()).abs().max())
+                    for a, w in zip(got, want)]
+            ok = all(torch.equal(a, w) for a, w in zip(got, want))
+            if emit is not None:
+                ok &= torch.equal(got[3], got[0].to(torch.bfloat16))
+            if found:
+                ok &= torch.equal(got[0], p) and torch.equal(got[1], m) \
+                    and torch.equal(got[2], v)
+            worst = max([worst] + errs)
+            check(ok, f"flat_adam ({spec.total_rows}, 128) = "
+                  f"{p.numel()} elements, m {str(m_dtype)[6:]}"
+                  f"{', bf16 cast-out' if emit else ''}, found_inf {found}: "
+                  f"max_abs_err {max(errs):.3g} (p, m, v"
+                  f"{', compute' if emit else ''} bit-equal)")
+            del got, want
+        del g, p, m, v
+        torch.cuda.empty_cache()
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # 3. serving at full width
 # ---------------------------------------------------------------------------
@@ -491,139 +627,186 @@ def _maxabs(got_tree, want_tree):
                for g, w in zip(tree_leaves(got_tree), tree_leaves(want_tree)))
 
 
-def train_small(dev):
-    """One step of the 2-layer full-width model on the card and on the
-    CPU from the same weights, in O0 and O2."""
+KERNEL_NAMES = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                "xentropy_fwd", "xentropy_bwd", "scaled_masked_softmax_fwd",
+                "scaled_upper_triang_softmax_fwd", "fused_softmax_bwd",
+                "flat_adam")
+# the step's two configurations, through the JAX package's own switches:
+# name -> (cfg.fused_attention, FusedAdam's use_flat_kernel)
+STEP_CONFIGS = {"flash_tree": (True, False), "softmax_flat": (False, True)}
+
+
+def _step_cfg(name, **kw):
     import dataclasses
 
-    from apex_tpu_torch.examples.bert.train import make_bert_train_step
     from apex_tpu_torch.models.bert import bert_large
+
+    return dataclasses.replace(bert_large(),
+                               fused_attention=STEP_CONFIGS[name][0], **kw)
+
+
+def _key(name, label):
+    """Result keys: the first configuration keeps its plain labels."""
+    return label if name == "flash_tree" else f"{label} {name}"
+
+
+def train_small(dev):
+    """One step of the 2-layer full-width model on the card and on the
+    CPU from the same weights, in O0 and O2, in each configuration."""
+    out = {}
+    for name, (_, flat) in STEP_CONFIGS.items():
+        cfg = _step_cfg(name, num_layers=SMALL_LAYERS)
+        for level, lim in STEP_LIMITS.items():
+            out[_key(name, level)] = _train_small_one(dev, cfg, flat, level,
+                                                      lim, name)
+    return out
+
+
+def _train_small_one(dev, cfg, flat, level, lim, name):
+    from apex_tpu_torch.examples.bert.train import make_bert_train_step
     from apex_tpu_torch.utils.tree import tree_map
 
-    cfg = dataclasses.replace(bert_large(), num_layers=SMALL_LAYERS)
-    out = {}
-    for level, lim in STEP_LIMITS.items():
-        phase(f"training: BERT-Large width, {SMALL_LAYERS} layers, batch "
-              f"{SMALL_BATCH}, seq {SEQ}, {level}: one step on the card "
-              "(kernels) vs the same step on the CPU (plain versions)")
-        step_d, make_state, (ids, mask) = make_bert_train_step(
-            SMALL_BATCH, SEQ, cfg, device=dev, opt_level=level)
-        state_d = list(make_state())
-        step_c, _, (ids_c, mask_c) = make_bert_train_step(
-            SMALL_BATCH, SEQ, cfg, device="cpu", opt_level=level)
-        master_c = tree_map(lambda t: t.cpu(), state_d[0])
-        state_c = [master_c, step_c.opt.init(master_c),
-                   step_c.amp.init_state("cpu")]
-        check(torch.equal(ids.cpu(), ids_c), "same ids on both devices")
-        t0 = time.perf_counter()
-        _, _, grads_d, found_d, _ = step_d.grads(state_d[0], state_d[2],
-                                                 ids, mask)
-        new_d = step_d(*state_d, ids, mask)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        _, _, grads_c, found_c, _ = step_c.grads(state_c[0], state_c[2],
-                                                 ids_c, mask_c)
-        new_c = step_c(*state_c, ids_c, mask_c)
-        t2 = time.perf_counter()
-        loss_d, loss_c = float(new_d[-1]), float(new_c[-1])
-        got = {
-            "loss": abs(loss_d - loss_c) / abs(loss_c),
-            "grads": _relnorm(grads_d, grads_c),
-            "m": _relnorm(new_d[1].m, new_c[1].m),
-            "v": _relnorm(new_d[1].v, new_c[1].v),
-            "master": _maxabs(new_d[0], new_c[0]),
-        }
-        print(f"card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; loss card "
-              f"{loss_d:.6f}, CPU {loss_c:.6f}", flush=True)
-        check(not bool(found_d) and not bool(found_c)
-              and float(new_d[2].loss_scale) == float(new_c[2].loss_scale)
-              and int(new_d[2].unskipped) == int(new_c[2].unskipped) == 1
-              and int(new_d[1].step) == int(new_c[1].step) == 1,
-              "found_inf False on both; scaler states and step counts equal")
-        for key, val in got.items():
-            check(val <= lim[key], f"{level} {key}: card vs CPU "
-                  f"{'max abs' if key == 'master' else 'relative'} "
-                  f"{val:.3g} <= {lim[key]:g}")
-        out[level] = got
-        del state_d, new_d, grads_d
-        torch.cuda.empty_cache()
+    phase(f"training ({name}): BERT-Large width, {SMALL_LAYERS} layers, "
+          f"batch {SMALL_BATCH}, seq {SEQ}, {level}: one step on the "
+          "card (kernels) vs the same step on the CPU (plain versions)")
+    step_d, make_state, (ids, mask) = make_bert_train_step(
+        SMALL_BATCH, SEQ, cfg, device=dev, opt_level=level,
+        use_flat_kernel=flat)
+    state_d = list(make_state())
+    step_c, _, (ids_c, mask_c) = make_bert_train_step(
+        SMALL_BATCH, SEQ, cfg, device="cpu", opt_level=level,
+        use_flat_kernel=flat)
+    master_c = tree_map(lambda t: t.cpu(), state_d[0])
+    state_c = [master_c, step_c.opt.init(master_c),
+               step_c.amp.init_state("cpu")]
+    check(torch.equal(ids.cpu(), ids_c), "same ids on both devices")
+    t0 = time.perf_counter()
+    _, _, grads_d, found_d, _ = step_d.grads(state_d[0], state_d[2],
+                                             ids, mask)
+    new_d = step_d(*state_d, ids, mask)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, _, grads_c, found_c, _ = step_c.grads(state_c[0], state_c[2],
+                                             ids_c, mask_c)
+    new_c = step_c(*state_c, ids_c, mask_c)
+    t2 = time.perf_counter()
+    loss_d, loss_c = float(new_d[-1]), float(new_c[-1])
+    got = {
+        "loss": abs(loss_d - loss_c) / abs(loss_c),
+        "grads": _relnorm(grads_d, grads_c),
+        "m": _relnorm(new_d[1].m, new_c[1].m),
+        "v": _relnorm(new_d[1].v, new_c[1].v),
+        "master": _maxabs(new_d[0], new_c[0]),
+    }
+    print(f"card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; loss card "
+          f"{loss_d:.6f}, CPU {loss_c:.6f}", flush=True)
+    check(not bool(found_d) and not bool(found_c)
+          and float(new_d[2].loss_scale) == float(new_c[2].loss_scale)
+          and int(new_d[2].unskipped) == int(new_c[2].unskipped) == 1
+          and int(new_d[1].step) == int(new_c[1].step) == 1,
+          "found_inf False on both; scaler states and step counts equal")
+    for key, val in got.items():
+        check(val <= lim[key], f"{level} {key}: card vs CPU "
+              f"{'max abs' if key == 'master' else 'relative'} "
+              f"{val:.3g} <= {lim[key]:g}")
+    del state_d, new_d, grads_d
+    torch.cuda.empty_cache()
+    return got
+
+
+def per_step_launches(name, L):
+    """Exact launches of each kernel in one BERT step of ``L`` layers."""
+    flash, _ = STEP_CONFIGS[name]
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    out.update(layer_norm_fwd=2 * L + 2, layer_norm_bwd=2 * L + 2,
+               xentropy_fwd=1, xentropy_bwd=1)
+    if flash:
+        out.update(flash_attention_fwd=L, flash_attention_bwd_dq=L,
+                   flash_attention_bwd_dkv=L)
+    else:
+        out.update(scaled_masked_softmax_fwd=L, fused_softmax_bwd=L,
+                   flat_adam=1)
     return out
 
 
 def train_big(dev, kern):
     """Six O2 steps of full BERT-Large at the headline's shape in each
-    optimizer-state mode; ``kern`` maps names to the kernels counted."""
-    from apex_tpu_torch.examples.bert.train import (
-        STATE_MODES, make_bert_train_step,
-    )
-    from apex_tpu_torch.models.bert import bert_large
+    configuration and optimizer-state mode; ``kern`` maps names to the
+    kernels counted."""
+    from apex_tpu_torch.examples.bert.train import STATE_MODES
+
+    out = {}
+    for name in STEP_CONFIGS:
+        for mode, (m_dtype, emit) in STATE_MODES.items():
+            out[_key(name, mode)] = _train_big_one(dev, kern, name, mode,
+                                                   m_dtype, emit)
+    return out
+
+
+def _train_big_one(dev, kern, name, mode, m_dtype, emit):
+    from apex_tpu_torch.examples.bert.train import make_bert_train_step
     from apex_tpu_torch.utils.tree import tree_leaves
 
-    cfg = bert_large()
+    cfg = _step_cfg(name)
     L = cfg.num_layers
-    per_step = {"layer_norm_fwd": 2 * L + 2, "layer_norm_bwd": 2 * L + 2,
-                "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-                "flash_attention_bwd_dkv": L, "xentropy_fwd": 1,
-                "xentropy_bwd": 1}
-    out = {}
-    for mode, (m_dtype, emit) in STATE_MODES.items():
-        phase(f"training: BERT-Large ({L} layers), O2 dynamic loss scale, "
-              f"batch {BIG_BATCH}, seq {SEQ}, {BIG_STEPS} steps, state "
-              f"mode {mode}")
-        step, make_state, (ids, mask) = make_bert_train_step(
-            BIG_BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit,
-            device=dev)
-        state = list(make_state())
+    per_step = per_step_launches(name, L)
+    phase(f"training ({name}): BERT-Large ({L} layers), O2 dynamic loss "
+          f"scale, batch {BIG_BATCH}, seq {SEQ}, {BIG_STEPS} steps, "
+          f"state mode {mode}")
+    step, make_state, (ids, mask) = make_bert_train_step(
+        BIG_BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit,
+        device=dev, use_flat_kernel=STEP_CONFIGS[name][1])
+    state = list(make_state())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kern.values():
+        k.launches = 0
+    losses, times, steps_ok = [], [], True
+    for _ in range(BIG_STEPS):
+        before = {n: k.launches for n, k in kern.items()}
+        t0 = time.perf_counter()
+        *state, loss = step(*state, ids, mask)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in kern.values():
-            k.launches = 0
-        losses, times, steps_ok = [], [], True
-        for _ in range(BIG_STEPS):
-            before = {n: k.launches for n, k in kern.items()}
-            t0 = time.perf_counter()
-            *state, loss = step(*state, ids, mask)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            losses.append(loss)
-            steps_ok &= all(kern[n].launches - before[n] == per_step[n]
-                            for n in kern)
-        launches = {n: k.launches for n, k in kern.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        losses = [float(l) for l in losses]
-        sc = state[2]
-        print(f"losses {[round(l, 5) for l in losses]}", flush=True)
-        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-              "every loss finite, the last below the first")
-        check(int(sc.unskipped) == BIG_STEPS and int(sc.overflows) == 0,
-              f"found_inf False on every step: scaler unskipped "
-              f"{int(sc.unskipped)} == {BIG_STEPS}, overflows "
-              f"{int(sc.overflows)}, loss scale {float(sc.loss_scale):g}")
-        check(steps_ok and all(launches[n] == BIG_STEPS * per_step[n]
-                               for n in kern),
-              f"launches per step exactly {per_step} ({launches} over "
-              f"{BIG_STEPS} steps)")
-        if emit:
-            m_ok = all(t.dtype == torch.bfloat16
-                       for t in tree_leaves(state[1].m))
-            cast = step.amp.cast_model(state[0])
-            c_ok = all(c.dtype == w.dtype and torch.equal(c, w) for c, w in
-                       zip(tree_leaves(state[3]), tree_leaves(cast)))
-            check(m_ok and c_ok, "m leaves bf16; emitted compute tree "
-                  "array-equal to cast_model(master)")
-        med = statistics.median(times[1:])
-        print(f"smoke reading, not a benchmark: median step "
-              f"{med * 1e3:.1f} ms over steps 2-{BIG_STEPS} "
-              f"({BIG_BATCH / med:.1f} samples/s); first step "
-              f"{times[0] * 1e3:.1f} ms; peak device memory {peak:.2f} GiB",
-              flush=True)
-        out[mode] = dict(losses=losses, step_ms=[t * 1e3 for t in times],
-                         median_step_ms=med * 1e3,
-                         samples_per_s=BIG_BATCH / med, launches=launches,
-                         peak_gib=peak)
-        del state, step
-        torch.cuda.empty_cache()
-    return out
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        steps_ok &= all(kern[n].launches - before[n] == per_step[n]
+                        for n in kern)
+    launches = {n: k.launches for n, k in kern.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(l) for l in losses]
+    sc = state[2]
+    print(f"losses {[round(l, 5) for l in losses]}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "every loss finite, the last below the first")
+    check(int(sc.unskipped) == BIG_STEPS and int(sc.overflows) == 0,
+          f"found_inf False on every step: scaler unskipped "
+          f"{int(sc.unskipped)} == {BIG_STEPS}, overflows "
+          f"{int(sc.overflows)}, loss scale {float(sc.loss_scale):g}")
+    check(steps_ok and all(launches[n] == BIG_STEPS * per_step[n]
+                           for n in kern),
+          f"launches per step exactly {per_step} ({launches} over "
+          f"{BIG_STEPS} steps)")
+    if emit:
+        m_ok = all(t.dtype == torch.bfloat16
+                   for t in tree_leaves(state[1].m))
+        cast = step.amp.cast_model(state[0])
+        c_ok = all(c.dtype == w.dtype and torch.equal(c, w) for c, w in
+                   zip(tree_leaves(state[3]), tree_leaves(cast)))
+        check(m_ok and c_ok, "m leaves bf16; emitted compute tree "
+              "array-equal to cast_model(master)")
+    med = statistics.median(times[1:])
+    print(f"smoke reading, not a benchmark: median step "
+          f"{med * 1e3:.1f} ms over steps 2-{BIG_STEPS} "
+          f"({BIG_BATCH / med:.1f} samples/s); first step "
+          f"{times[0] * 1e3:.1f} ms; peak device memory {peak:.2f} GiB",
+          flush=True)
+    res = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+               median_step_ms=med * 1e3, samples_per_s=BIG_BATCH / med,
+               launches=launches, peak_gib=peak)
+    del state, step
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -665,7 +848,7 @@ def bound(nbytes, flops, peak):
 
 
 def times(dev):
-    ln, fa, _ = kernel_modules()
+    ln, fa = kernel_modules()[:2]
     phase("times at the serving path's shapes (device ms per call; "
           "medians of CUDA-graph replays timed with CUDA events)")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -715,7 +898,8 @@ def _entry(res, key, t_k, t_p, t_l, nbytes, flops, peak, label, lib):
     bd, by = bound(nbytes, flops, peak)
     res[key] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bd,
                     bound_by=by)
-    print(f"{label}: kernel {t_k:.5f}, plain {t_p:.5f}, {lib} {t_l:.5f}, "
+    lib_ms = "" if t_l is None else f" {t_l:.5f}"
+    print(f"{label}: kernel {t_k:.5f}, plain {t_p:.5f}, {lib}{lib_ms}, "
           f"bound {bd:.5f} ({by})", flush=True)
 
 
@@ -723,7 +907,7 @@ def train_times(dev):
     """The training path's kernels at the BERT-Large O2 step's shapes.
     Library calls needing autograd are timed as forward + backward minus
     forward; every call, autograd included, is captured in the graph."""
-    ln, fa, xent = kernel_modules()
+    ln, fa, xent = kernel_modules()[:3]
     phase("times at the training path's shapes (BERT-Large, batch 64, "
           "seq 128; device ms per call, CUDA-graph replays)")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -843,6 +1027,88 @@ def train_times(dev):
     return res
 
 
+def _fused_adamw(tensors, m, v, dev):
+    """One ``torch._fused_adamw_`` call over the tree's tensors: the
+    library call computing the flat step's function in fp32 mode, timed
+    only."""
+    ps, gs = tensors
+    steps = [torch.full((), 3.0, device=dev) for _ in ps]
+    return lambda: torch._fused_adamw_(
+        ps, gs, m, v, [], steps, lr=LR, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False)
+
+
+def step_times(dev):
+    """The unfused-attention, flat-Adam step's kernels at its shapes. No
+    single PyTorch call computes the scaled, masked softmax or its
+    backward, so their library time is null; the nearest calls
+    (``torch.softmax`` without scale or mask, ``_softmax_backward_data``
+    without the scale) are printed beside them."""
+    from apex_tpu_torch.multi_tensor_apply.flatten import unflatten_tensors
+
+    fsm, mta = kernel_modules()[3:]
+    phase("times at the unfused-attention, flat-Adam step's shapes "
+          "(BERT-Large, batch 64, seq 128; device ms per call, CUDA-graph "
+          "replays)")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+    res = {}
+    b, nh, s = BIG_BATCH, 16, SEQ
+    x = _rand(gen, (b, nh, s, s), bf, dev, 8.0)
+    dy = _rand(gen, (b, nh, s, s), bf, dev)
+    mask = torch.zeros((b, 1, 1, s), dtype=torch.int32, device=dev)
+    n = x.numel()
+    y = fsm.masked_softmax_fwd_kernel(x, mask, SM_SCALE)
+    near_f = time_ms(lambda: torch.softmax(x, -1))
+    near_b = time_ms(lambda: torch._softmax_backward_data(dy, y, -1, bf))
+    _entry(res, "softmax_fwd",
+           time_ms(lambda: fsm.masked_softmax_fwd_kernel(x, mask, SM_SCALE)),
+           time_ms(lambda: fsm.masked_softmax_fwd_plain(x, mask, SM_SCALE)),
+           None, 2 * n * 2 + b * s * 4, 5 * n, FP32_FLOPS,
+           f"masked softmax fwd ({b}, {nh}, {s}, {s}) bf16",
+           f"no single call (torch.softmax, no scale or mask: {near_f:.5f})")
+    _entry(res, "softmax_bwd",
+           time_ms(lambda: fsm.softmax_bwd_kernel(y, dy, SM_SCALE)),
+           time_ms(lambda: fsm.softmax_bwd_plain(y, dy, SM_SCALE)),
+           None, 3 * n * 2, 5 * n, FP32_FLOPS,
+           f"softmax bwd ({b}, {nh}, {s}, {s}) bf16",
+           f"no single call (_softmax_backward_data, no scale: "
+           f"{near_b:.5f})")
+    bc, sc = 16, 1024
+    xc = _rand(gen, (bc, sc, sc), bf, dev, 4.0)
+    nc = xc.numel()
+    _entry(res, "softmax_causal",
+           time_ms(lambda: fsm.causal_softmax_fwd_kernel(xc, SM_SCALE)),
+           time_ms(lambda: fsm.causal_softmax_fwd_plain(xc, SM_SCALE)),
+           None, 2 * nc * 2, 5 * nc, FP32_FLOPS,
+           f"causal softmax fwd ({bc}, {sc}, {sc}) bf16", "no single call")
+    del x, dy, y, xc
+    for m_dtype, emit, key in ((torch.float32, None, "flat_adam"),
+                               (bf, bf, "flat_adam_bf16m_castout")):
+        g, p, m, v, hp, spec = adam_inputs(dev, m_dtype, gen)
+        nel = p.numel()
+        lib = None
+        if emit is None:   # the library call over the tree's tensors
+            views = [unflatten_tensors(t, spec) for t in (p, g, m, v)]
+            lib = time_ms(_fused_adamw(views[:2], views[2], views[3], dev),
+                          reps=5, inner=3)
+        nbytes = nel * (4 * 3 + 4 * 2 + 2 * m.element_size()
+                        + (2 if emit else 0))
+        _entry(res, key,
+               time_ms(lambda: mta.flat_adam_kernel(g, p, m, v, hp, None,
+                                                    emit), reps=5, inner=3),
+               time_ms(lambda: mta.flat_adam_plain(g, p, m, v, hp, None,
+                                                   emit), reps=5, inner=3),
+               lib, nbytes, 16 * nel, FP32_FLOPS,
+               f"flat_adam ({spec.total_rows}, 128) m {str(m_dtype)[6:]}"
+               f"{', bf16 cast-out' if emit else ''}",
+               "torch._fused_adamw_ over the tree's tensors" if emit is None
+               else "none (bf16 m)")
+        del g, p, m, v
+        torch.cuda.empty_cache()
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -862,7 +1128,7 @@ def main():
               "script runs on a CUDA device", file=sys.stderr)
         return 2
     try:
-        ln, fa, xent = kernel_modules()
+        ln, fa, xent, fsm, mta = kernel_modules()
     except ImportError as e:
         print(f"chip_smoke: cannot import apex_tpu_torch ({e}); run it "
               "from the root of the repository", file=sys.stderr)
@@ -873,27 +1139,35 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
-    build([ln.LIB, fa.LIB, xent.LIB])
+    build([ln.LIB, fa.LIB, xent.LIB, fsm.LIB, mta.LIB])
     err = {"layer_norm_fwd": ln_parity(dev),
            "flash_attention_fwd": flash_parity(dev),
            "layer_norm_bwd": ln_bwd_parity(dev)}
     fb = flash_bwd_parity(dev)
     xe = xent_parity(dev)
+    sm = softmax_parity(dev)
     err.update(flash_attention_bwd_dq=fb["dq"],
                flash_attention_bwd_dkv=fb["dkv"], xentropy_fwd=xe["fwd"],
-               xentropy_bwd=xe["bwd"])
-    kern = {"layer_norm_fwd": ln.LN_FWD, "layer_norm_bwd": ln.LN_BWD,
-            "flash_attention_fwd": fa.FLASH_FWD,
-            "flash_attention_bwd_dq": fa.FLASH_BWD_DQ,
-            "flash_attention_bwd_dkv": fa.FLASH_BWD_DKV,
-            "xentropy_fwd": xent.XENT_FWD, "xentropy_bwd": xent.XENT_BWD}
+               xentropy_bwd=xe["bwd"], scaled_masked_softmax_fwd=sm["fwd"],
+               scaled_upper_triang_softmax_fwd=sm["causal"],
+               fused_softmax_bwd=sm["bwd"], flat_adam=flat_adam_parity(dev))
+    kern = dict(zip(KERNEL_NAMES, (
+        ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
+        xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
+        fsm.SOFTMAX_BWD, mta.FLAT_ADAM)))
     srv = serve(dev, ln.LN_FWD, fa.FLASH_FWD)
     small = train_small(dev)
     big = train_big(dev, kern)
     tm = times(dev)
     tm.update(train_times(dev))
-    by_path = {n: {"serving": 0, "training": sum(
-        big[m]["launches"][n] for m in big)} for n in kern}
+    tm.update(step_times(dev))
+    by_path = {n: {"serving": 0} for n in kern}
+    for cfg_name in STEP_CONFIGS:
+        path = _key(cfg_name, "training").replace(" ", "_")
+        for n in kern:
+            by_path[n][path] = sum(
+                big[_key(cfg_name, m)]["launches"][n]
+                for m in ("fp32", "bf16m_castout"))
     by_path["layer_norm_fwd"]["serving"] = srv["launches"]["ln"]
     by_path["flash_attention_fwd"]["serving"] = srv["launches"]["flash"]
     rows = [  # name, source, replaces (TPU kernel file:line), times key
@@ -912,6 +1186,14 @@ def main():
          "xent_fwd"),
         ("xentropy_bwd", "xentropy.cu", "contrib/xentropy.py:85",
          "xent_bwd"),
+        ("scaled_masked_softmax_fwd", "fused_softmax.cu",
+         "transformer/functional/fused_softmax.py:49", "softmax_fwd"),
+        ("scaled_upper_triang_softmax_fwd", "fused_softmax.cu",
+         "transformer/functional/fused_softmax.py:55", "softmax_causal"),
+        ("fused_softmax_bwd", "fused_softmax.cu",
+         "transformer/functional/fused_softmax.py:65", "softmax_bwd"),
+        ("flat_adam", "multi_tensor.cu",
+         "multi_tensor_apply/kernels.py:187", "flat_adam"),
     ]
     kernels = [dict(name=name, route="cuda",
                     source=f"apex_tpu_torch/csrc/{src}",
@@ -920,8 +1202,15 @@ def main():
                     launches_by_path=by_path[name],
                     max_abs_err=err[name], **tm[key])
                for name, src, rep, key in rows]
+    kernels[KERNEL_NAMES.index("scaled_upper_triang_softmax_fwd")]["note"] = (
+        "on no model path: reached only through "
+        "FusedScaleMaskSoftmax(attn_mask_type=causal); held to its plain "
+        "version and timed at (16, 1024, 1024) bf16")
+    check(all(sum(by_path[n].values()) > 0 for n in KERNEL_NAMES
+              if n != "scaled_upper_triang_softmax_fwd"),
+          "every kernel of a path launched on that path")
     for key in ("ln_8x1024", "ln_fwd_train", "ln_bwd_4096",
-                "flash_fwd_train"):
+                "flash_fwd_train", "flat_adam_bf16m_castout"):
         print(f"{key}: {json.dumps(tm[key])}")
     print(f"serving: {json.dumps(srv)}")
     print(f"training, card vs CPU: {json.dumps(small)}")

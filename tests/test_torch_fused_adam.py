@@ -117,8 +117,8 @@ def test_zero_gradient_leaves_still_decay():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="row 16"):
-        FusedAdam(use_flat_kernel=True)
+    with pytest.raises(RuntimeError, match="AMSGrad"):
+        FusedAdam(amsgrad=True, use_flat_kernel=True)
     with pytest.raises(ValueError, match="m_dtype"):
         FusedAdam(m_dtype=torch.float16)
     with pytest.raises(RuntimeError, match="AMSGrad"):

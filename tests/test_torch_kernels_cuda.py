@@ -13,7 +13,12 @@ base-2 lse absolute, fp32 1e-4, bf16 1e-2. The backward kernels and the
 softmax cross entropy are held per element to the error models of
 ``fused_layer_norm.bwd_limits``, ``flash_attention.bwd_limits`` and
 ``xentropy.limits`` (the sum-order bound of each fp32 reduction plus
-one ulp per rounding to bf16), the limits ``chip_smoke.py`` uses."""
+one ulp per rounding to bf16), the limits ``chip_smoke.py`` uses. The
+fused softmax forward and backward are held per element to
+``fused_softmax.fwd_limits`` and ``fused_softmax.bwd_limits`` (the
+row sums in other orders, one ulp of a bf16 or fp16 output), and
+``flat_adam`` to its plain version bit for bit (the same fp32 operations
+in the same order, no FMA)."""
 
 import importlib
 
@@ -36,8 +41,11 @@ ln_mod = importlib.import_module(
 fa_mod = importlib.import_module(
     "apex_tpu_torch.transformer.functional.flash_attention")
 xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+fsm = importlib.import_module(
+    "apex_tpu_torch.transformer.functional.fused_softmax")
+mta = importlib.import_module("apex_tpu_torch.multi_tensor_apply.kernels")
 
-_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+_DT = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 _LSE_TOL = {"f32": 1e-4, "bf16": 1e-2}  # base 2, absolute
 
 
@@ -295,3 +303,106 @@ def test_xentropy_kernels_match_plain(cuda_device, n, v, dt, eps):
     assert dx.dtype == x.dtype
     assert bool((loss[labels < 0] == 0).all())
     assert bool((dx[labels < 0] == 0).all())
+
+
+_SOFTMAX_CASES = [
+    # (b, np, sq, sk, dtype, mask: "key" (b, 1, 1, sk) padded tail, "query"
+    # (b, 1, sq, sk) random, "full" a fully masked row)
+    (64, 16, 128, 128, "bf16", "key"),       # the BERT-Large step
+    (2, 3, 17, 40, "f32", "query"),
+    (2, 2, 16, 24, "bf16", "full"),
+    (1, 2, 5, 130, "bf16", "key"),           # sk % 8: the generic path
+    (2, 4, 8, 1000, "f32", "query"),         # eight vectors a thread
+    (2, 2, 16, 256, "f16", "key"),
+    (1, 1, 3, 3000, "f32", "key"),           # past the register path
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,np_,sq,sk,dt,kind", _SOFTMAX_CASES)
+def test_masked_softmax_kernels_match_plain(cuda_device, b, np_, sq, sk, dt,
+                                            kind):
+    rng = np.random.RandomState(0)
+    x = _t(rng.randn(b, np_, sq, sk) * 3, dt, cuda_device)
+    dy = _t(rng.randn(b, np_, sq, sk), dt, cuda_device)
+    if kind == "query":
+        mask = rng.rand(b, 1, sq, sk) < 0.3
+    else:
+        mask = np.zeros((b, 1, 1, sk), bool)
+        mask[..., sk - sk // 8:] = True
+        if kind == "full":
+            mask[0] = True
+    mask = torch.from_numpy(mask.astype(np.int32)).to(cuda_device)
+    before = fsm.SOFTMAX_FWD.launches, fsm.SOFTMAX_BWD.launches
+    y = fsm.masked_softmax_fwd_kernel(x, mask, 0.125)
+    dx = fsm.softmax_bwd_kernel(y, dy, 0.125)
+    torch.cuda.synchronize()
+    assert (fsm.SOFTMAX_FWD.launches, fsm.SOFTMAX_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    y0 = fsm.masked_softmax_fwd_plain(x, mask, 0.125)
+    dx0 = fsm.softmax_bwd_plain(y, dy, 0.125)
+    assert y.dtype == dx.dtype == x.dtype
+    _assert_within("y", y, y0, fsm.fwd_limits(y0))
+    _assert_within("dx", dx, dx0, fsm.bwd_limits(y, dy, 0.125, dx0))
+    if kind == "full":
+        assert bool((y[0].float() == y0[0].float()).all())
+        assert torch.equal(y[0, 0, 0], torch.full(
+            (sk,), 1.0 / sk, device=cuda_device).to(y.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batches,sq,sk,dt", [
+    (16, 1024, 1024, "bf16"), (4, 24, 24, "f32"), (3, 12, 20, "bf16"),
+    (2, 17, 17, "f32")])
+def test_causal_softmax_kernel_matches_plain(cuda_device, batches, sq, sk,
+                                             dt):
+    rng = np.random.RandomState(1)
+    x = _t(rng.randn(batches, sq, sk) * 2, dt, cuda_device)
+    dy = _t(rng.randn(batches, sq, sk), dt, cuda_device)
+    before = fsm.SOFTMAX_CAUSAL_FWD.launches
+    y = fsm.causal_softmax_fwd_kernel(x, 1.3)
+    dx = fsm.softmax_bwd_kernel(y, dy, 1.3)
+    torch.cuda.synchronize()
+    assert fsm.SOFTMAX_CAUSAL_FWD.launches == before + 1
+    y0 = fsm.causal_softmax_fwd_plain(x, 1.3)
+    _assert_within("y", y, y0, fsm.fwd_limits(y0))
+    _assert_within("dx", dx, fsm.softmax_bwd_plain(y, dy, 1.3),
+                   fsm.bwd_limits(y, dy, 1.3, fsm.softmax_bwd_plain(
+                       y, dy, 1.3)))
+    assert bool((y.float()[:, fsm._causal(sq, sk, cuda_device)] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_dt,emit", [("f32", False), ("bf16", True),
+                                       ("bf16", False)])
+@pytest.mark.parametrize("found", [None, False, True])
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_flat_adam_kernel_matches_plain_bitwise(cuda_device, m_dt, emit,
+                                                found, adam_w_mode):
+    rng = np.random.RandomState(2)
+    n = 256 * 128 * 3
+    g, p = (_t(rng.randn(n // 128, 128), "f32", cuda_device)
+            for _ in range(2))
+    m = _t(rng.randn(n // 128, 128) * 0.1, m_dt, cuda_device)
+    v = _t(np.abs(rng.randn(n // 128, 128)) * 0.01, "f32", cuda_device)
+    hp = mta.adam_hparams(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                          step=torch.tensor(3, device=cuda_device),
+                          weight_decay=0.01, adam_w_mode=adam_w_mode,
+                          bias_correction=True, grad_scale=0.5,
+                          device=cuda_device)
+    fi = None if found is None else torch.tensor(found, device=cuda_device)
+    emit_dt = torch.bfloat16 if emit else None
+    before = mta.FLAT_ADAM.launches
+    got = mta.flat_adam_kernel(g, p, m, v, hp, fi, emit_dt)
+    torch.cuda.synchronize()
+    assert mta.FLAT_ADAM.launches == before + 1
+    want = mta.flat_adam_plain(g, p, m, v, hp, fi, emit_dt)
+    assert len(got) == len(want) == (4 if emit else 3)
+    for name, a, w in zip(("p", "m", "v", "compute"), got, want):
+        assert a.dtype == w.dtype, name
+        assert torch.equal(a, w), (name, float((a.float() - w.float()).abs()
+                                               .max()))
+    if emit:
+        assert torch.equal(got[3], got[0].to(torch.bfloat16))
+    if found:
+        assert torch.equal(got[0], p) and torch.equal(got[1], m)

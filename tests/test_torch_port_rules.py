@@ -33,10 +33,15 @@ ln = importlib.import_module("apex_tpu_torch.normalization.fused_layer_norm")
 fa = importlib.import_module(
     "apex_tpu_torch.transformer.functional.flash_attention")
 xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
+fsm = importlib.import_module(
+    "apex_tpu_torch.transformer.functional.fused_softmax")
+mta = importlib.import_module("apex_tpu_torch.multi_tensor_apply.kernels")
 
 # the plain forwards, saved before any test patches them
 _plain = {"ln": ln.layer_norm_fwd_plain, "fa": fa.attention_fwd_plain,
-          "xent": xent.xentropy_fwd_plain}
+          "xent": xent.xentropy_fwd_plain,
+          "softmax": fsm.masked_softmax_fwd_plain,
+          "causal": fsm.causal_softmax_fwd_plain}
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "apex_tpu_torch")
@@ -111,14 +116,18 @@ def dispatch_to_card(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("plain version reached on the CUDA path")
 
-    for mod in (ln, fa, xent):
+    for mod in (ln, fa, xent, fsm, mta):
         monkeypatch.setattr(mod, "on_card", lambda t, what="": True)
     for mod, name in ((ln, "layer_norm_fwd_plain"),
                       (ln, "layer_norm_bwd_plain"),
                       (fa, "attention_fwd_plain"),
                       (fa, "attention_bwd_plain"),
                       (xent, "xentropy_fwd_plain"),
-                      (xent, "xentropy_bwd_plain")):
+                      (xent, "xentropy_bwd_plain"),
+                      (fsm, "masked_softmax_fwd_plain"),
+                      (fsm, "causal_softmax_fwd_plain"),
+                      (fsm, "softmax_bwd_plain"),
+                      (mta, "flat_adam_plain")):
         monkeypatch.setattr(mod, name, plain)
 
 
@@ -142,6 +151,24 @@ def test_cuda_path_never_reaches_plain_xentropy(dispatch_to_card):
                                         torch.zeros(4, dtype=torch.long))
 
 
+def test_cuda_path_never_reaches_plain_softmax(dispatch_to_card):
+    x = torch.randn(1, 2, 4, 8)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        fsm.scaled_masked_softmax(x, torch.zeros((1, 1, 1, 8),
+                                                 dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        fsm.scaled_upper_triang_masked_softmax(x)
+
+
+def test_cuda_path_never_reaches_plain_flat_adam(dispatch_to_card):
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    params = {"w": torch.randn(4, 8), "b": torch.randn(8)}
+    opt = FusedAdam(use_flat_kernel=True)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        opt.step(params, params, opt.init(params))
+
+
 def test_cuda_path_backward_never_reaches_plain(monkeypatch,
                                                 dispatch_to_card):
     """With the forwards let through (their kernels swapped for the
@@ -150,6 +177,8 @@ def test_cuda_path_backward_never_reaches_plain(monkeypatch,
     monkeypatch.setattr(ln, "layer_norm_fwd_kernel", _plain["ln"])
     monkeypatch.setattr(fa, "attention_fwd_kernel", _plain["fa"])
     monkeypatch.setattr(xent, "xentropy_fwd_kernel", _plain["xent"])
+    monkeypatch.setattr(fsm, "masked_softmax_fwd_kernel", _plain["softmax"])
+    monkeypatch.setattr(fsm, "causal_softmax_fwd_kernel", _plain["causal"])
     x = torch.randn(4, 16, requires_grad=True)
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
     outs = [ln.fused_layer_norm_affine(x, torch.ones(16), torch.zeros(16),
@@ -157,10 +186,24 @@ def test_cuda_path_backward_never_reaches_plain(monkeypatch,
             ln.fused_rms_norm(x, 16),
             fa.flash_attention(q, q, q, causal=True),
             xent.softmax_cross_entropy_loss(
-                x, torch.zeros(4, dtype=torch.long))]
+                x, torch.zeros(4, dtype=torch.long)),
+            fsm.scaled_masked_softmax(q, torch.zeros((1, 1, 1, 16),
+                                                     dtype=torch.int32)),
+            fsm.scaled_upper_triang_masked_softmax(q)]
     for out in outs:
         with pytest.raises(RuntimeError, match="needs CUDA tensors"):
             out.sum().backward()
+
+
+def test_bert_unfused_on_card_path_never_reaches_plain(dispatch_to_card):
+    import dataclasses
+
+    cfg = dataclasses.replace(port_bert.bert_tiny(), fused_attention=False)
+    params = port_bert.init_bert(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        port_bert.apply_bert(params, cfg, torch.zeros((1, 4),
+                                                      dtype=torch.long))
 
 
 def test_gpt_on_card_path_never_reaches_plain(dispatch_to_card):
@@ -172,8 +215,9 @@ def test_gpt_on_card_path_never_reaches_plain(dispatch_to_card):
                                      torch.zeros((1, 4), dtype=torch.long))
 
 
-@pytest.mark.parametrize("mod", [ln, fa, xent],
-                         ids=["layer_norm", "flash", "xentropy"])
+@pytest.mark.parametrize("mod", [ln, fa, xent, fsm, mta],
+                         ids=["layer_norm", "flash", "xentropy",
+                              "fused_softmax", "flat_adam"])
 def test_wrappers_have_no_fallback(mod):
     """No ``try`` in a wrapper module: a failed launch raises."""
     with open(mod.__file__) as f:
