@@ -5,7 +5,7 @@ mode (``fp32``, ``bf16m_castout``), after two warm-up steps.
 For each mode it prints, from host clocks around work that ends in a
 device synchronise, the median time of the gradient half of the step
 (cast, forward, backward, unscale; ``BertTrainStep.grads``) and of the
-``FusedAdam`` step, over 3 steps each; then one step under
+optimizer step, over 3 steps each; then one step under
 ``torch.profiler``: its wall time (profiler on), the summed device time
 of the kernels and copies the profiler saw, their share of the wall,
 the device time by group (this package's kernels, matrix products,
@@ -14,11 +14,14 @@ numbers::
 
     python -m apex_tpu_torch.examples.bert.profile_train
     python -m apex_tpu_torch.examples.bert.profile_train \
-        --attention softmax --flat-adam
+        --attention softmax --flat-kernel
+    python -m apex_tpu_torch.examples.bert.profile_train \
+        --optimizer lamb --flat-kernel
 
 ``--attention softmax`` runs the unfused attention (the fused softmax
-kernels) and ``--flat-adam`` the flat FusedAdam (one ``flat_adam``
-kernel), as in ``examples/bert/train.py``.
+kernels), ``--optimizer lamb`` FusedLAMB in place of FusedAdam, and
+``--flat-kernel`` the optimizer's flat path, as in
+``examples/bert/train.py``.
 """
 
 import argparse
@@ -30,7 +33,7 @@ import time
 import torch
 
 from apex_tpu_torch.examples.bert.train import (
-    STATE_MODES, make_bert_train_step,
+    OPTIMIZERS, STATE_MODES, make_bert_train_step,
 )
 from apex_tpu_torch.examples.gpt.profile_serving import window
 from apex_tpu_torch.models.bert import bert_large
@@ -40,7 +43,8 @@ BATCH, SEQ = 64, 128
 # device-kernel name fragments of this package's kernels
 OURS = ("layer_norm_fwd_kernel", "layer_norm_bwd", "flash_fwd_kernel",
         "flash_dq_kernel", "flash_dkv_kernel", "xent_fwd_kernel",
-        "xent_bwd_kernel", "softmax_fwd", "softmax_bwd", "adam_kernel")
+        "xent_bwd_kernel", "softmax_fwd", "softmax_bwd", "adam_kernel",
+        "l2_partials_kernel", "lamb_stage1_kernel")
 GEMM = ("gemm", "xmma", "cutlass", "sm90_", "cublas", "nvjet")
 
 
@@ -60,7 +64,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--attention", choices=("flash", "softmax"),
                    default="flash")
-    p.add_argument("--flat-adam", action="store_true")
+    p.add_argument("--optimizer", choices=sorted(OPTIMIZERS),
+                   default="adam")
+    p.add_argument("--flat-kernel", action="store_true")
     args = p.parse_args(argv)
     dev = resolve_device(None)
     cfg = dataclasses.replace(bert_large(),
@@ -69,7 +75,7 @@ def main(argv=None):
     for mode, (m_dtype, emit) in STATE_MODES.items():
         step, make_state, (ids, mask) = make_bert_train_step(
             BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit, device=dev,
-            use_flat_kernel=args.flat_adam)
+            use_flat_kernel=args.flat_kernel, optimizer=args.optimizer)
         state = list(make_state())
         for _ in range(2):
             *state, _ = step(*state, ids, mask)
@@ -95,7 +101,8 @@ def main(argv=None):
         phases = {"grads_ms": statistics.median(t_grads),
                   "optimizer_ms": statistics.median(t_opt)}
         print(f"{mode}: gradient half {phases['grads_ms']:.1f} ms, "
-              f"FusedAdam step {phases['optimizer_ms']:.1f} ms (medians "
+              f"{type(step.opt).__name__} step "
+              f"{phases['optimizer_ms']:.1f} ms (medians "
               "of 3, host clock around synchronised work)")
 
         def one_step():

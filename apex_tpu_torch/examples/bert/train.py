@@ -5,23 +5,28 @@ One step: ``amp.initialize("O2", loss_scale="dynamic")`` casts the fp32
 master tree (bf16 but the LayerNorm leaves), ``Amp.value_and_grad``
 takes the scaled loss's gradients through the LayerNorm, flash-attention
 and softmax-cross-entropy kernels, unscales them and advances the
-dynamic loss scaler, and ``FusedAdam(lr=1e-4, weight_decay=0.01)``
-steps the master tree, skipping the step on an overflow. Two optimizer
-state modes, as the JAX headline races them: ``fp32`` and
-``bf16m_castout`` (bf16 first moment, plus the updated params emitted
-in the compute dtypes and fed back through ``cast_model(precast=...)``).
-Two switches of the JAX package pick the configuration: the model
-config's ``fused_attention`` (flash attention, or the score product,
-the fused softmax and the context product) and ``FusedAdam``'s
-``use_flat_kernel`` (the tree path, or one ``flat_adam`` kernel over
-packed buffers); the defaults are flash attention and the tree path.
+dynamic loss scaler, and ``FusedAdam(lr=1e-4, weight_decay=0.01)`` (or
+``FusedLAMB(lr=1e-3, weight_decay=0.01)``, the JAX package's BERT-Large
+LAMB setting, ``bench.py::_make_optimizer``) steps the master tree,
+skipping the step on an overflow. Two optimizer state modes, as the JAX
+headline races them: ``fp32`` and ``bf16m_castout`` (bf16 first
+moment, plus the updated params emitted in the compute dtypes and fed
+back through ``cast_model(precast=...)``). Switches of the JAX package
+pick the configuration: the model config's ``fused_attention`` (flash
+attention, or the score product, the fused softmax and the context
+product), the optimizer, and its ``use_flat_kernel`` (the tree path, or
+packed buffers stepped by one ``flat_adam`` kernel, or by LAMB's
+grad-norm pre-pass and stage-1 kernels); the defaults are flash
+attention and the tree-path FusedAdam.
 
 Random weights from a seed and one fixed batch of random ids (every
 position predicted). Runs on the CUDA device by default::
 
     python -m apex_tpu_torch.examples.bert.train --config large --steps 4
     python -m apex_tpu_torch.examples.bert.train --attention softmax \
-        --flat-adam
+        --flat-kernel
+    python -m apex_tpu_torch.examples.bert.train --optimizer lamb \
+        --flat-kernel
 
 and on the CPU (the kernels' plain versions) with ``--device cpu``::
 
@@ -33,7 +38,7 @@ import argparse
 import dataclasses
 import statistics
 import time
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -42,12 +47,15 @@ from apex_tpu_torch.models.bert import (
     BertConfig, apply_bert, bert_base, bert_large, bert_tiny, init_bert,
     mlm_loss,
 )
-from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 CONFIGS = {"tiny": bert_tiny, "base": bert_base, "large": bert_large}
 STATE_MODES = {"fp32": (torch.float32, False),
                "bf16m_castout": (torch.bfloat16, True)}
+# the JAX package's BERT-Large settings (bench.py: _bert_step, and
+# _make_optimizer for LAMB); every other argument keeps its default
+OPTIMIZERS = {"adam": (FusedAdam, 1e-4), "lamb": (FusedLAMB, 1e-3)}
 
 
 class BertTrainStep:
@@ -55,7 +63,8 @@ class BertTrainStep:
     returns ``(master, opt_state, scaler_state, [compute,] loss)``, the
     JAX ``train_step``'s tuple; :meth:`grads` is its first half."""
 
-    def __init__(self, cfg: BertConfig, handle: amp.Amp, opt: FusedAdam):
+    def __init__(self, cfg: BertConfig, handle: amp.Amp,
+                 opt: Union[FusedAdam, FusedLAMB]):
         self.cfg = cfg
         self.amp = handle
         self.opt = opt
@@ -92,11 +101,14 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
                          m_dtype: torch.dtype = torch.float32,
                          emit_compute: bool = False,
                          device: DeviceLike = None, opt_level: str = "O2",
-                         seed: int = 0, use_flat_kernel: bool = False
+                         seed: int = 0, use_flat_kernel: bool = False,
+                         optimizer: str = "adam"
                          ) -> Tuple[BertTrainStep, Any, Tuple]:
     """Returns ``(train_step, make_state, (ids, mask))`` as the JAX
-    ``_bert_step`` does; ``cfg.fused_attention`` and ``use_flat_kernel``
-    (passed to ``FusedAdam``) pick the configuration.
+    ``_bert_step`` does; ``cfg.fused_attention``, ``optimizer``
+    (``"adam"``: ``FusedAdam(lr=1e-4)``; ``"lamb"``: ``FusedLAMB(lr=
+    1e-3)``; both with weight decay 0.01) and ``use_flat_kernel`` pick
+    the configuration.
     ``make_state()`` draws the fp32 master tree
     from ``seed`` (on a generator on ``device``) and returns ``(master,
     opt_state, scaler_state)``, plus the compute tree with
@@ -104,9 +116,10 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
     are the same on every device; ``mask`` is all ones."""
     dev = resolve_device(device)
     h = amp.initialize(opt_level, loss_scale="dynamic", verbosity=0)
-    opt = FusedAdam(lr=1e-4, weight_decay=0.01, m_dtype=m_dtype,
-                    emit_compute_params=emit_compute,
-                    use_flat_kernel=use_flat_kernel)
+    cls, lr = OPTIMIZERS[optimizer]
+    opt = cls(lr=lr, weight_decay=0.01, m_dtype=m_dtype,
+              emit_compute_params=emit_compute,
+              use_flat_kernel=use_flat_kernel)
 
     def make_state():
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -134,9 +147,11 @@ def parse_args(argv=None):
                    default="flash",
                    help="flash attention (fused_attention=True) or the "
                    "fused softmax between plain products")
-    p.add_argument("--flat-adam", action="store_true",
-                   help="FusedAdam(use_flat_kernel=True): one flat_adam "
-                   "kernel over packed buffers")
+    p.add_argument("--optimizer", choices=sorted(OPTIMIZERS),
+                   default="adam")
+    p.add_argument("--flat-kernel", action="store_true",
+                   help="use_flat_kernel=True: the optimizer steps packed "
+                   "buffers through its flat kernels")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
@@ -151,7 +166,8 @@ def main(argv=None) -> int:
     m_dtype, emit = STATE_MODES[args.state_mode]
     step, make_state, (ids, mask) = make_bert_train_step(
         args.batch, args.seq, cfg, m_dtype=m_dtype, emit_compute=emit,
-        device=dev, seed=args.seed, use_flat_kernel=args.flat_adam)
+        device=dev, seed=args.seed, use_flat_kernel=args.flat_kernel,
+        optimizer=args.optimizer)
     state = make_state()
 
     def sync():
@@ -175,7 +191,8 @@ def main(argv=None) -> int:
     over = f"steps 2-{len(times)}" if len(times) > 1 else "one step"
     print(f"bert {args.config} batch {args.batch} seq {args.seq} "
           f"{args.state_mode}, {args.attention} attention, "
-          f"{'flat' if args.flat_adam else 'tree'} FusedAdam on {dev}: "
+          f"{'flat' if args.flat_kernel else 'tree'} "
+          f"{type(step.opt).__name__} on {dev}: "
           f"median step {med * 1e3:.1f} ms "
           f"over {over}, {args.batch / med:.1f} samples/s")
     return 0

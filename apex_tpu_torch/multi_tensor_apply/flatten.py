@@ -49,6 +49,16 @@ class FlatSpec:
             ids[off // tile_rows: (off + cnt) // tile_rows] = t
         return ids
 
+    def tile_counts(self, tile_rows: int = SUBLANES) -> torch.Tensor:
+        """int64 tensor (CPU): the row-tiles of each tensor, the run
+        lengths of ``tile_tensor_ids`` (the tail padding counted to the
+        last tensor)."""
+        counts = [cnt // tile_rows for cnt in self.row_counts]
+        if counts:
+            counts[-1] += (self.total_rows - sum(self.row_counts)) \
+                // tile_rows
+        return torch.tensor(counts, dtype=torch.int64)
+
 
 def make_spec(tensors: Sequence[torch.Tensor]) -> FlatSpec:
     shapes, dtypes, offsets, counts = [], [], [], []

@@ -16,7 +16,13 @@ Phases, each printed as it runs; any failure exits non-zero:
    path's shapes, held per element to their modules' error models; the
    fused softmax forwards (masked, causal) and backward, per element to
    their error model; ``flat_adam`` on BERT-Large's flat buffer, bit for
-   bit.
+   bit; on the same buffer (336,232,448 elements) ``flat_scale`` and
+   ``flat_axpby`` (outputs and finite flags bit for bit, with an
+   injected inf and NaN), ``flat_l2norm_partials`` (to the sum-of-squares
+   model, and the same bits on a repeat) and LAMB's stage 1 (m, v and u
+   bit for bit, its partials to that model, the params through stage 2
+   to ``lamb_p_limit``; found_inf writes the old values; two
+   ``flat_lamb`` calls give the same bits).
 3. serving — GPT-2 medium (h 1024, 24 layers, 16 heads, vocab 50304),
    random weights from seed 0, O2-cast to bf16, served by the port's
    ``DecodeEngine`` + ``ContinuousBatchingScheduler`` (8 slots, max_len
@@ -28,15 +34,19 @@ Phases, each printed as it runs; any failure exits non-zero:
    30522). (a) Two layers, batch 8, seq 128: one step of
    ``make_bert_train_step`` on the card (kernels) against the same step
    on the CPU (plain versions) from the same weights, in O0 (fp32) and
-   in O2. (b) All 24 layers, O2 with the dynamic loss scaler, batch 64,
+   in O2 (the LAMB master per element to ``lamb_master_limit``, each
+   side's step recomputed in float64). (b) All 24 layers, O2 with the dynamic loss scaler, batch 64,
    seq 128 (the JAX headline's shape): 6 steps on one fixed batch in
    each optimizer-state mode (``fp32``, ``bf16m_castout``), counts set
    to 0 before each run and read after it; losses finite and falling,
-   no overflow, exact launches per step. Both (a) and (b) run two
-   configurations: flash attention with the tree-path FusedAdam, and
-   the unfused attention (``fused_attention=False``: the fused softmax
-   kernels) with the flat FusedAdam (``use_flat_kernel=True``: one
-   ``flat_adam`` kernel a step).
+   no overflow, exact launches per step. Both (a) and (b) run three
+   configurations: ``flash_tree``, flash attention with the tree-path
+   FusedAdam; ``softmax_flat``, the unfused attention
+   (``fused_attention=False``: the fused softmax kernels) with the flat
+   FusedAdam (``use_flat_kernel=True``: one ``flat_adam`` kernel a
+   step); ``flash_lamb_flat``, flash attention with the flat FusedLAMB
+   (``FusedLAMB(lr=1e-3, weight_decay=0.01, use_flat_kernel=True)``: one
+   ``flat_l2norm_partials`` and one ``flat_lamb_stage1`` a step).
 5. times — each kernel at its path's shapes, its plain version, one
    library call computing the same function (device time: 20 calls
    captured in one CUDA graph, replays timed with CUDA events), and the
@@ -472,6 +482,155 @@ def flat_adam_parity(dev):
     return worst
 
 
+def _same(a, b):
+    """Equal values and dtypes, a NaN where the other has one (a NaN's
+    payload may differ: the kernel rounds it to bf16 as
+    ``__float2bfloat16_rn`` does, PyTorch as ``c10::BFloat16``)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return a.dtype == b.dtype and torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0), b.masked_fill(nb, 0))
+
+
+def flat_scale_axpby_parity(dev):
+    """``flat_scale`` and ``flat_axpby`` on BERT-Large's flat buffer:
+    the kernel's output and flag against the plain version's, bit for
+    bit, clean and with an injected inf (scale) or NaN (axpby)."""
+    mta = kernel_modules()[4]
+    phase("kernel parity: flat_scale and flat_axpby on BERT-Large's flat "
+          "buffer (tolerance: outputs bit for bit, a NaN where the plain "
+          "version has one; finite "
+          "flags equal, scale's judged on x, axpby's on the result)")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, spec = bert_flat(dev)
+    y = _rand(gen, x.shape, torch.float32, dev, 1e-2)
+    s = torch.tensor(1.0 / 65536, device=dev)
+    ab = torch.tensor([0.9, 0.1], device=dev)
+    worst = {"scale": 0.0, "axpby": 0.0}
+    for bad in (None, "inf", "nan"):
+        if bad is not None:   # one element in the middle of the buffer
+            x.view(-1)[x.numel() // 2 + 17] = float(bad)
+        for odt in (torch.float32, torch.bfloat16):
+            got = mta.flat_scale_kernel(x, s, odt)
+            torch.cuda.synchronize()
+            want = mta.flat_scale_plain(x, s, odt)
+            ok = _same(got[0], want[0]) and bool(got[1]) == bool(
+                want[1]) == (bad is not None)
+            e = float((got[0].float() - want[0].float()).nan_to_num().abs()
+                      .max())
+            worst["scale"] = max(worst["scale"], e)
+            check(ok, f"flat_scale ({spec.total_rows}, 128) fp32 -> "
+                  f"{str(odt)[6:]}, {bad or 'all finite'}: bit-equal, "
+                  f"found_inf {bool(got[1])}")
+            del got, want
+        got = mta.flat_axpby_kernel(y, x, ab, torch.float32)
+        torch.cuda.synchronize()
+        want = mta.flat_axpby_plain(y, x, ab, torch.float32)
+        ok = _same(got[0], want[0]) and bool(got[1]) == bool(
+            want[1]) == (bad is not None)
+        e = float((got[0] - want[0]).nan_to_num().abs().max())
+        worst["axpby"] = max(worst["axpby"], e)
+        check(ok, f"flat_axpby ({spec.total_rows}, 128) fp32, "
+              f"{bad or 'all finite'}: bit-equal, found_inf {bool(got[1])}")
+        del got, want
+    del x, y
+    torch.cuda.empty_cache()
+    return worst
+
+
+def lamb_inputs(dev, m_dtype, gen):
+    """BERT-Large's flat params with random grads, moments and the
+    stage-1 vector of step 3 (grad_scale / clip = 0.5)."""
+    mta = kernel_modules()[4]
+    p, spec = bert_flat(dev)
+    g = _rand(gen, p.shape, torch.float32, dev, 1e-3)
+    m = _rand(gen, p.shape, torch.float32, dev, 1e-4).to(m_dtype)
+    v = _rand(gen, p.shape, torch.float32, dev, 1e-6).abs()
+    hp = mta.lamb_hparams(beta1=0.9, beta2=0.999, eps=1e-6,
+                          step=torch.tensor(3, device=dev), weight_decay=0.01,
+                          adam_w_mode=True,
+                          gs_over_clip=torch.tensor(0.5, device=dev),
+                          device=dev)
+    segs = (spec.tile_tensor_ids(8).to(dev), spec.tile_counts(8).to(dev))
+    return g, p, m, v, hp, spec, segs
+
+
+def flat_lamb_parity(dev):
+    mta = kernel_modules()[4]
+    phase("kernel parity: flat_l2norm_partials and LAMB's stage 1 on "
+          "BERT-Large's flat buffer (tolerance: partials per element to "
+          "sum_sq_limit, 2 (1024 + 1) u of each sub-tile's sum for two "
+          "orders of 1,024 squares; m, v and u bit for bit; params through "
+          "stage 2 to lamb_p_limit, lr |u| |d ratio| plus an ulp; repeats "
+          "and two flat_lamb calls bit for bit; found_inf True writes the "
+          "old m and v, u = 0 and gives the old p)")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {"l2": 0.0, "stage1": 0.0}
+    for m_dtype in (torch.float32, torch.bfloat16):
+        g, p, m, v, hp, spec, segs = lamb_inputs(dev, m_dtype, gen)
+        label = f"({spec.total_rows}, 128) = {p.numel()} elements"
+        if m_dtype == torch.float32:
+            got = mta.flat_l2norm_partials_kernel(g)
+            again = mta.flat_l2norm_partials_kernel(g)
+            torch.cuda.synchronize()
+            want = mta.flat_l2norm_partials_plain(g)
+            e, use = _held(got, want, mta.sum_sq_limit(want, mta.SUB))
+            out["l2"] = e
+            check(use <= 1.0 and torch.equal(got, again),
+                  f"flat_l2norm_partials {label}: {got.numel()} partials, "
+                  f"max_abs_err {e:.3g} ({use:.3f} of its tolerance), "
+                  "repeat bit-equal")
+            del got, again, want
+        for found in (False, True):
+            fi = torch.tensor(found, device=dev)
+            got = mta.flat_lamb_stage1_kernel(g, p, m, v, hp, fi)
+            torch.cuda.synchronize()
+            want = mta.flat_lamb_stage1_plain(g, p, m, v, hp, fi)
+            ok = all(torch.equal(a, w) for a, w in zip(got[:3], want[:3]))
+            errs = [float((a.float() - w.float()).abs().max())
+                    for a, w in zip(got[:3], want[:3])]
+            parts = [_held(a, w, mta.sum_sq_limit(w, mta.SUB))
+                     for a, w in zip(got[3:], want[3:])]
+            ok &= all(use <= 1.0 for _, use in parts)
+            if found:
+                ok &= torch.equal(got[0], m) and torch.equal(got[1], v) \
+                    and not bool(got[2].any())
+            # stage 2 from each side's stage 1: the ratio's sum orders
+            lim = None
+            p_got = mta.lamb_stage2(p, got[2], got[3], got[4], *segs,
+                                    lr=1e-3, weight_decay=0.01,
+                                    use_nvlamb=False)
+            u_want = want[2].clone()
+            p_want = mta.lamb_stage2(p, want[2], want[3], want[4], *segs,
+                                     lr=1e-3, weight_decay=0.01,
+                                     use_nvlamb=False)
+            lim = mta.lamb_p_limit(p_want, u_want, want[3], want[4], *segs,
+                                   1e-3)
+            ep, up = _held(p_got, p_want, lim)
+            ok &= up <= 1.0
+            if found:
+                ok &= torch.equal(p_got, p)
+            out["stage1"] = max([out["stage1"]] + errs)
+            check(ok, f"flat_lamb_stage1 {label}, m {str(m_dtype)[6:]}, "
+                  f"found_inf {found}: m, v, u bit-equal (max_abs_err "
+                  f"{max(errs):.3g}); partials p {parts[0][0]:.3g} "
+                  f"({parts[0][1]:.3f}), u {parts[1][0]:.3g} "
+                  f"({parts[1][1]:.3f}); params {ep:.3g} ({up:.3f} of "
+                  "lamb_p_limit)")
+            del got, want, p_got, p_want, u_want, lim
+            torch.cuda.empty_cache()
+        kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, step=3,
+                  weight_decay=0.01)
+        a = mta.flat_lamb(g, p, m, v, *segs, **kw)
+        b = mta.flat_lamb(g, p, m, v, *segs, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"flat_lamb {label}, m {str(m_dtype)[6:]}: two calls give "
+              "the same bits (p, m, v)")
+        del a, b, g, p, m, v
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 3. serving at full width
 # ---------------------------------------------------------------------------
@@ -589,7 +748,8 @@ def serve(dev, ln_kernel, fa_kernel):
 # 4. training at full width
 # ---------------------------------------------------------------------------
 
-LR = 1e-4   # make_bert_train_step's FusedAdam
+LR = 1e-4        # make_bert_train_step's FusedAdam
+LAMB_LR = 1e-3   # and its FusedLAMB
 SMALL_BATCH, SMALL_LAYERS, BIG_BATCH, SEQ, BIG_STEPS = 8, 2, 64, 128, 6
 # card step vs CPU step (relative norm of the difference per leaf; loss
 # relative; master absolute). O0: fp32 sums of up to 30522 terms in
@@ -607,7 +767,23 @@ STEP_LIMITS = {
     "O2": {"loss": 2e-5, "grads": 0.1, "m": 0.1, "v": 0.15,
            "master": 2 * LR + 1e-6},
 }
-
+# The flat FusedLAMB configuration: loss, gradients, m and v as above (m
+# = beta3 g / clip, v its square: the clip's norm agrees far inside
+# these). Master is held per element to LAMB's own error model
+# (``lamb_master_limit``), as tests/test_torch_bert_train.py holds the
+# port to the JAX package: each side's step p - lr r u is recomputed in
+# float64 from the master before it and that side's own new m and v (u =
+# m^ / (sqrt(v^) + eps) + wd p, r = ||p|| / ||u|| over the leaf), and
+# the two masters may differ by the difference of those two results
+# plus each side's fp32 roundings: the ratio's sums of squares ((1024 +
+# k) u for the flat path's two levels over a leaf of k sub-tiles, plus
+# 3 u), 16 u of u (2^-8 more with a bf16 m), 2 u of the product and an
+# ulp of p. A gradient near zero that changes sign between card and CPU
+# moves an element by up to 2 lr r, and the model carries it exactly;
+# a step that leaves master where it was, or moves it the wrong way,
+# misses by lr r |u| on every element.
+LAMB_EPS, LAMB_WD = 1e-6, 0.01   # make_bert_train_step's FusedLAMB
+U32 = 2.0 ** -24                 # fp32 unit roundoff
 
 def _relnorm(got_tree, want_tree):
     from apex_tpu_torch.utils.tree import tree_leaves
@@ -631,10 +807,16 @@ KERNEL_NAMES = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                 "xentropy_fwd", "xentropy_bwd", "scaled_masked_softmax_fwd",
                 "scaled_upper_triang_softmax_fwd", "fused_softmax_bwd",
-                "flat_adam")
-# the step's two configurations, through the JAX package's own switches:
-# name -> (cfg.fused_attention, FusedAdam's use_flat_kernel)
-STEP_CONFIGS = {"flash_tree": (True, False), "softmax_flat": (False, True)}
+                "flat_adam", "flat_scale", "flat_axpby",
+                "flat_l2norm_partials", "flat_lamb_stage1")
+# kernels on no model path (held to their plain versions and timed)
+OFF_PATH = ("scaled_upper_triang_softmax_fwd", "flat_scale", "flat_axpby")
+# the step's three configurations, through the JAX package's own
+# switches: name -> (cfg.fused_attention, the optimizer, its
+# use_flat_kernel)
+STEP_CONFIGS = {"flash_tree": (True, "adam", False),
+                "softmax_flat": (False, "adam", True),
+                "flash_lamb_flat": (True, "lamb", True)}
 
 
 def _step_cfg(name, **kw):
@@ -655,28 +837,74 @@ def train_small(dev):
     """One step of the 2-layer full-width model on the card and on the
     CPU from the same weights, in O0 and O2, in each configuration."""
     out = {}
-    for name, (_, flat) in STEP_CONFIGS.items():
+    for name, (_, opt, flat) in STEP_CONFIGS.items():
         cfg = _step_cfg(name, num_layers=SMALL_LAYERS)
         for level, lim in STEP_LIMITS.items():
-            out[_key(name, level)] = _train_small_one(dev, cfg, flat, level,
-                                                      lim, name)
+            out[_key(name, level)] = _train_small_one(
+                dev, cfg, opt, flat, level, lim, name)
     return out
 
 
-def _train_small_one(dev, cfg, flat, level, lim, name):
+def lamb_master_limit(prev, state_d, state_c):
+    """{leaf: per-element limit on |master_card - master_cpu|} (a tree
+    like ``prev``) after the first flat FusedLAMB step from master
+    ``prev`` on both, the card's state ``state_d`` and the CPU's
+    ``state_c`` (the model above)."""
+    from apex_tpu_torch.multi_tensor_apply.flatten import (
+        make_spec, unflatten_tensors,
+    )
+    from apex_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(prev)
+    spec = make_spec(leaves)
+    # step 1's bias corrections as the kernel has them, in fp32
+    c1 = float(1.0 - torch.tensor(0.9))
+    c2 = float(1.0 - torch.tensor(0.999))
+    bf = 2.0 ** -8 if state_c.m.dtype == torch.bfloat16 else 0.0
+    sides = []
+    for st in (state_d, state_c):
+        steps = []
+        for p, m, v in zip(leaves,
+                           unflatten_tensors(st.m.cpu(), spec, False),
+                           unflatten_tensors(st.v.cpu(), spec, False)):
+            p = p.cpu().double()
+            u = (m.double() / c1) / (torch.sqrt(v.double() / c2)
+                                     + LAMB_EPS) + LAMB_WD * p
+            wn, un = float(p.norm()), float(u.norm())
+            r = wn / un if wn > 0 and un > 0 else 1.0
+            steps.append((p - LAMB_LR * r * u, LAMB_LR * r * u.abs()))
+        sides.append(steps)
+    lims = []
+    for p, (pd, sd), (pc, sc) in zip(leaves, *sides):
+        k = -(-max(p.numel(), 1) // 1024) + 32   # + the buffer's tail
+        rel = (1024 + k + 3 + 16 + 2) * U32 + bf
+        lims.append((pd - pc).abs() + (sd + sc) * rel
+                    + 2 * U32 * (pd.abs() + pc.abs()))
+    return tree_unflatten(treedef, lims)
+
+
+def _share(got, want, lim):
+    """The largest |got - want| / lim; an element with a zero limit must
+    be equal (it counts 0 then, inf else)."""
+    d = (got.cpu().double() - want.double()).abs()
+    return float(torch.where(d <= lim, d / lim.clamp_min(1e-300),
+                             torch.full_like(d, float("inf"))).max())
+
+
+def _train_small_one(dev, cfg, opt, flat, level, lim, name):
     from apex_tpu_torch.examples.bert.train import make_bert_train_step
-    from apex_tpu_torch.utils.tree import tree_map
+    from apex_tpu_torch.utils.tree import tree_leaves, tree_map
 
     phase(f"training ({name}): BERT-Large width, {SMALL_LAYERS} layers, "
           f"batch {SMALL_BATCH}, seq {SEQ}, {level}: one step on the "
           "card (kernels) vs the same step on the CPU (plain versions)")
     step_d, make_state, (ids, mask) = make_bert_train_step(
         SMALL_BATCH, SEQ, cfg, device=dev, opt_level=level,
-        use_flat_kernel=flat)
+        use_flat_kernel=flat, optimizer=opt)
     state_d = list(make_state())
     step_c, _, (ids_c, mask_c) = make_bert_train_step(
         SMALL_BATCH, SEQ, cfg, device="cpu", opt_level=level,
-        use_flat_kernel=flat)
+        use_flat_kernel=flat, optimizer=opt)
     master_c = tree_map(lambda t: t.cpu(), state_d[0])
     state_c = [master_c, step_c.opt.init(master_c),
                step_c.amp.init_state("cpu")]
@@ -699,6 +927,15 @@ def _train_small_one(dev, cfg, flat, level, lim, name):
         "v": _relnorm(new_d[1].v, new_c[1].v),
         "master": _maxabs(new_d[0], new_c[0]),
     }
+    if opt == "lamb":   # the share of the per-element model used
+        lims = lamb_master_limit(master_c, new_d[1], new_c[1])
+        got["master_share"] = max(
+            _share(g, w, l) for g, w, l in zip(
+                tree_leaves(new_d[0]), tree_leaves(new_c[0]),
+                tree_leaves(lims)))
+        # master: the largest of the per-element limits
+        lim = dict(lim, master_share=1.0, master=max(
+            float(l.max()) for l in tree_leaves(lims)))
     print(f"card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; loss card "
           f"{loss_d:.6f}, CPU {loss_c:.6f}", flush=True)
     check(not bool(found_d) and not bool(found_c)
@@ -707,9 +944,12 @@ def _train_small_one(dev, cfg, flat, level, lim, name):
           and int(new_d[1].step) == int(new_c[1].step) == 1,
           "found_inf False on both; scaler states and step counts equal")
     for key, val in got.items():
-        check(val <= lim[key], f"{level} {key}: card vs CPU "
-              f"{'max abs' if key == 'master' else 'relative'} "
-              f"{val:.3g} <= {lim[key]:g}")
+        what = {"master": "max abs", "master_share": "share of "
+                "lamb_master_limit"}.get(key, "relative")
+        # the share sits just under 1 by construction: print it in full
+        shown = f"{val:.7f}" if key == "master_share" else f"{val:.3g}"
+        check(val <= lim[key], f"{level} {key}: card vs CPU {what} "
+              f"{shown} <= {lim[key]:g}")
     del state_d, new_d, grads_d
     torch.cuda.empty_cache()
     return got
@@ -717,7 +957,7 @@ def _train_small_one(dev, cfg, flat, level, lim, name):
 
 def per_step_launches(name, L):
     """Exact launches of each kernel in one BERT step of ``L`` layers."""
-    flash, _ = STEP_CONFIGS[name]
+    flash, opt, flat = STEP_CONFIGS[name]
     out = dict.fromkeys(KERNEL_NAMES, 0)
     out.update(layer_norm_fwd=2 * L + 2, layer_norm_bwd=2 * L + 2,
                xentropy_fwd=1, xentropy_bwd=1)
@@ -725,8 +965,11 @@ def per_step_launches(name, L):
         out.update(flash_attention_fwd=L, flash_attention_bwd_dq=L,
                    flash_attention_bwd_dkv=L)
     else:
-        out.update(scaled_masked_softmax_fwd=L, fused_softmax_bwd=L,
-                   flat_adam=1)
+        out.update(scaled_masked_softmax_fwd=L, fused_softmax_bwd=L)
+    if flat and opt == "adam":
+        out.update(flat_adam=1)
+    elif flat:
+        out.update(flat_l2norm_partials=1, flat_lamb_stage1=1)
     return out
 
 
@@ -754,9 +997,10 @@ def _train_big_one(dev, kern, name, mode, m_dtype, emit):
     phase(f"training ({name}): BERT-Large ({L} layers), O2 dynamic loss "
           f"scale, batch {BIG_BATCH}, seq {SEQ}, {BIG_STEPS} steps, "
           f"state mode {mode}")
+    _, opt, flat = STEP_CONFIGS[name]
     step, make_state, (ids, mask) = make_bert_train_step(
         BIG_BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit,
-        device=dev, use_flat_kernel=STEP_CONFIGS[name][1])
+        device=dev, use_flat_kernel=flat, optimizer=opt)
     state = list(make_state())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1109,6 +1353,75 @@ def step_times(dev):
     return res
 
 
+def flat_times(dev):
+    """The four flat kernels of this slice at BERT-Large's flat buffer
+    (336,232,448 elements, fp32). Library calls: for the scale,
+    ``torch._amp_foreach_non_finite_check_and_unscale_`` over the 300
+    tensors (in place, scale 1, so the values stay put); for the
+    partials, ``torch.linalg.vector_norm`` of the flat buffer (the same
+    bytes; ``torch._foreach_norm`` over the tensors printed beside it);
+    none computes axpby with its flag or LAMB's stage 1."""
+    from apex_tpu_torch.multi_tensor_apply.flatten import unflatten_tensors
+
+    mta = kernel_modules()[4]
+    phase("times of the flat kernels on BERT-Large's flat buffer (device "
+          "ms per call, CUDA-graph replays of 3 calls)")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    res = {}
+    kw = dict(reps=5, inner=3)
+    x, spec = bert_flat(dev)
+    nel = x.numel()
+    label = f"({spec.total_rows}, 128) fp32"
+    y = _rand(gen, x.shape, torch.float32, dev, 1e-2)
+    s = torch.tensor(1.0 / 65536, device=dev)
+    ab = torch.tensor([0.9, 0.1], device=dev)
+    leaves = unflatten_tensors(x, spec)
+    found = torch.zeros((), device=dev)
+    one = torch.ones((), device=dev)
+    _entry(res, "flat_scale",
+           time_ms(lambda: mta.flat_scale_kernel(x, s, torch.float32), **kw),
+           time_ms(lambda: mta.flat_scale_plain(x, s, torch.float32), **kw),
+           time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+               leaves, found, one), **kw),
+           8 * nel, 2 * nel, FP32_FLOPS, f"flat_scale {label}",
+           "_amp_foreach_non_finite_check_and_unscale_ over the tensors")
+    _entry(res, "flat_axpby",
+           time_ms(lambda: mta.flat_axpby_kernel(x, y, ab, torch.float32),
+                   **kw),
+           time_ms(lambda: mta.flat_axpby_plain(x, y, ab, torch.float32),
+                   **kw),
+           None, 12 * nel, 4 * nel, FP32_FLOPS, f"flat_axpby {label}",
+           "none")
+    t_fn = time_ms(lambda: torch._foreach_norm(leaves), **kw)
+    _entry(res, "flat_l2norm",
+           time_ms(lambda: mta.flat_l2norm_partials_kernel(x), **kw),
+           time_ms(lambda: mta.flat_l2norm_partials_plain(x), **kw),
+           time_ms(lambda: torch.linalg.vector_norm(x), **kw),
+           4 * nel + 4 * (nel // mta.SUB), 2 * nel, FP32_FLOPS,
+           f"flat_l2norm_partials {label}",
+           f"torch._foreach_norm over the tensors {t_fn:.5f}; "
+           "torch.linalg.vector_norm of the buffer")
+    res["flat_l2norm"]["foreach_norm_ms"] = t_fn
+    del x, y, leaves
+    torch.cuda.empty_cache()
+    for m_dtype, key in ((torch.float32, "flat_lamb_stage1"),
+                         (torch.bfloat16, "flat_lamb_stage1_bf16m")):
+        g, p, m, v, hp, spec, _ = lamb_inputs(dev, m_dtype, gen)
+        # reads g, p, v and m; writes v, u and m; and the two partials
+        nbytes = nel * (4 * 3 + 4 * 2 + 2 * m.element_size()) \
+            + 2 * 4 * (nel // mta.SUB)
+        _entry(res, key,
+               time_ms(lambda: mta.flat_lamb_stage1_kernel(g, p, m, v, hp),
+                       **kw),
+               time_ms(lambda: mta.flat_lamb_stage1_plain(g, p, m, v, hp),
+                       **kw),
+               None, nbytes, 24 * nel, FP32_FLOPS,
+               f"flat_lamb_stage1 {label}, m {str(m_dtype)[6:]}", "none")
+        del g, p, m, v
+        torch.cuda.empty_cache()
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -1146,21 +1459,28 @@ def main():
     fb = flash_bwd_parity(dev)
     xe = xent_parity(dev)
     sm = softmax_parity(dev)
+    sa = flat_scale_axpby_parity(dev)
+    lb = flat_lamb_parity(dev)
     err.update(flash_attention_bwd_dq=fb["dq"],
                flash_attention_bwd_dkv=fb["dkv"], xentropy_fwd=xe["fwd"],
                xentropy_bwd=xe["bwd"], scaled_masked_softmax_fwd=sm["fwd"],
                scaled_upper_triang_softmax_fwd=sm["causal"],
-               fused_softmax_bwd=sm["bwd"], flat_adam=flat_adam_parity(dev))
+               fused_softmax_bwd=sm["bwd"], flat_adam=flat_adam_parity(dev),
+               flat_scale=sa["scale"], flat_axpby=sa["axpby"],
+               flat_l2norm_partials=lb["l2"], flat_lamb_stage1=lb["stage1"])
     kern = dict(zip(KERNEL_NAMES, (
         ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
         xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
-        fsm.SOFTMAX_BWD, mta.FLAT_ADAM)))
+        fsm.SOFTMAX_BWD, mta.FLAT_ADAM, mta.FLAT_SCALE, mta.FLAT_AXPBY,
+        mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1)))
+    torch.cuda.empty_cache()
     srv = serve(dev, ln.LN_FWD, fa.FLASH_FWD)
     small = train_small(dev)
     big = train_big(dev, kern)
     tm = times(dev)
     tm.update(train_times(dev))
     tm.update(step_times(dev))
+    tm.update(flat_times(dev))
     by_path = {n: {"serving": 0} for n in kern}
     for cfg_name in STEP_CONFIGS:
         path = _key(cfg_name, "training").replace(" ", "_")
@@ -1194,6 +1514,14 @@ def main():
          "transformer/functional/fused_softmax.py:65", "softmax_bwd"),
         ("flat_adam", "multi_tensor.cu",
          "multi_tensor_apply/kernels.py:187", "flat_adam"),
+        ("flat_scale", "multi_tensor.cu", "multi_tensor_apply/kernels.py:72",
+         "flat_scale"),
+        ("flat_axpby", "multi_tensor.cu",
+         "multi_tensor_apply/kernels.py:107", "flat_axpby"),
+        ("flat_l2norm_partials", "multi_tensor.cu",
+         "multi_tensor_apply/kernels.py:146", "flat_l2norm"),
+        ("flat_lamb_stage1", "multi_tensor.cu",
+         "multi_tensor_apply/kernels.py:287", "flat_lamb_stage1"),
     ]
     kernels = [dict(name=name, route="cuda",
                     source=f"apex_tpu_torch/csrc/{src}",
@@ -1206,11 +1534,16 @@ def main():
         "on no model path: reached only through "
         "FusedScaleMaskSoftmax(attn_mask_type=causal); held to its plain "
         "version and timed at (16, 1024, 1024) bf16")
+    for name in ("flat_scale", "flat_axpby"):
+        kernels[KERNEL_NAMES.index(name)]["note"] = (
+            "on no model path; the JAX package reaches them only from its "
+            "lint tiers (apex_tpu/lint/traced/registry.py:1234-1237)")
     check(all(sum(by_path[n].values()) > 0 for n in KERNEL_NAMES
-              if n != "scaled_upper_triang_softmax_fwd"),
+              if n not in OFF_PATH),
           "every kernel of a path launched on that path")
     for key in ("ln_8x1024", "ln_fwd_train", "ln_bwd_4096",
-                "flash_fwd_train", "flat_adam_bf16m_castout"):
+                "flash_fwd_train", "flat_adam_bf16m_castout",
+                "flat_lamb_stage1_bf16m"):
         print(f"{key}: {json.dumps(tm[key])}")
     print(f"serving: {json.dumps(srv)}")
     print(f"training, card vs CPU: {json.dumps(small)}")

@@ -4,11 +4,14 @@ the JAX package's ``bench.py::_bert_step`` on ``bert_tiny``, on the CPU
 kernels in interpret mode, or its unfused attention at this length).
 
 Both start from the same weights (``init_bert`` in JAX, carried across
-by ``params_from_jax``) and the same ids. Two configurations: the
-default (flash attention, the tree-path FusedAdam) and the unfused
+by ``params_from_jax``) and the same ids. Three configurations: the
+default (flash attention, the tree-path FusedAdam); the unfused
 attention (``fused_attention=False``: the fused softmax kernels) with
-the flat FusedAdam (``use_flat_kernel=True``: the ``flat_adam`` kernel),
-whose flat m and v are compared leaf by leaf through the JAX layout.
+the flat FusedAdam (``use_flat_kernel=True``: the ``flat_adam`` kernel);
+and flash attention with the flat FusedLAMB (``FusedLAMB(lr=1e-3,
+weight_decay=0.01, use_flat_kernel=True)``, the JAX package's BERT-Large
+LAMB setting, swapped into ``_bert_step`` on the JAX side). Flat m and v
+are compared leaf by leaf through the JAX layout.
 
 Tolerances. O0 (fp32 compute): loss within 1e-6 relative, every
 gradient, m and v within 1e-5 in relative norm (sums in other orders),
@@ -37,9 +40,23 @@ norm: fp32 moments within r = 1e-5 of each other, each rounded once to
 bf16, land one ulp (<= 2^-7 |m|) apart where a rounding boundary lies
 between them, which happens with a chance of about |a - b| / ulp; that
 adds about sqrt(2^-7 r) to the relative norm (Cauchy-Schwarz over
-sum |m| |a - b|). Bit-equal m is held where the inputs are equal:
-``test_torch_fused_adam.py`` steps both optimizers on the same
-gradients and compares m bit for bit."""
+sum |m| |a - b|). That estimate needs many elements: a LAMB bias of 128
+elements with one such flip reads 5.3e-4, so the flat-LAMB cases hold a
+bf16 m per element instead: the fp32 moments' difference, at most 1e-5
+of the leaf's norm, plus one bf16 ulp (2^-7 |m|). Bit-equal m is held
+where the inputs are equal: ``test_torch_fused_adam.py`` steps both
+optimizers on the same gradients and compares m bit for bit.
+
+LAMB's master is held per element, in O0 and O2, to its own error model
+(``_lamb_limit``): each side's step p - lr ratio u is recomputed in
+float64 from its own previous master, m and v (u = m^ / (sqrt(v^) + eps)
++ wd p, the ratio ||p|| / ||u|| over the leaf), and the two may differ by
+the difference of those float64 results plus each side's fp32 roundings:
+the ratio's sums of squares ((1024 + k) u for the flat path's two levels
+over a leaf of k sub-tiles, plus 3 u), 16 u of u (2^-8 more with a bf16
+m), 2 u of the product and an ulp of p. A gradient near zero that
+changes sign moves an element by up to 2 lr ratio, and the model carries
+it exactly, so no fixed limit is needed."""
 
 import dataclasses
 import functools
@@ -64,6 +81,7 @@ from apex_tpu_torch.examples.bert.train import make_bert_train_step
 from apex_tpu_torch.multi_tensor_apply.flatten import (
     make_spec, unflatten_tensors,
 )
+from apex_tpu_torch.utils.math import cdiv
 from apex_tpu_torch.utils.tree import tree_leaves
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -167,6 +185,39 @@ def _adam_limit(t, jprev, pprev, jstate, pstate):
         r_p = 2 * _U * (pj.abs() + pp.abs() + 2 * LR)
         out[k] = torch.clamp((pp - pj).abs() * (1 + LR * WD) + LR * (
             (uj - up).abs() + r_u) + r_p, min=1e-6)
+    return out
+
+
+LAMB_LR, LAMB_EPS = 1e-3, 1e-6   # the flat FusedLAMB configuration's
+
+
+def _lamb_limit(t, jprev, pprev, jstate, pstate):
+    """{path: per-element limit on |master_port - master_jax|} after
+    LAMB step ``t`` (the module docstring)."""
+    prev_j, prev_p = _by_path(_port(jprev)), _by_path(pprev)
+    c1, c2 = 1.0 - 0.9 ** t, 1.0 - 0.999 ** t
+    bf = 2 ** -8 if tree_leaves(pstate.m)[0].dtype == torch.bfloat16 \
+        else 0.0
+    sides = []
+    for prev, (m, v) in ((prev_j, (_port(jstate.m), _port(jstate.v))),
+                         (prev_p, (pstate.m, pstate.v))):
+        m, v = _moment(m, prev_p), _moment(v, prev_p)
+        new = {}
+        for k, p in prev.items():
+            p = p.double()
+            u = (m[k].double() / c1) / (torch.sqrt(v[k].double() / c2)
+                                        + LAMB_EPS) + WD * p
+            wn, un = float(p.norm()), float(u.norm())
+            r = wn / un if wn > 0 and un > 0 else 1.0
+            new[k] = (p - LAMB_LR * r * u, LAMB_LR * r * u.abs())
+        sides.append(new)
+    out = {}
+    for k, p in prev_p.items():
+        (pj, sj), (pp, sp) = sides[0][k], sides[1][k]
+        n_sub = cdiv(max(p.numel(), 1), 1024) + 32   # + the buffer's tail
+        rel = (1024 + n_sub + 3 + 16 + 2) * _U + bf
+        out[k] = (pp - pj).abs() + (sj + sp) * rel + 2 * _U * (
+            pj.abs() + pp.abs())
     return out
 
 
@@ -284,13 +335,14 @@ def test_unported_options_raise():
         port_bert.apply_bert(params, cfg, ids, dropout_rng=object())
 
 
-def _steps(level, mode, monkeypatch, softmax_flat=False):
+def _steps(level, mode, monkeypatch, config="flash_tree"):
     """Two steps of the JAX ``_bert_step`` and the port's, from the same
     state; yields per step (jax outputs, port outputs, jax grads tuple,
     port grads tuple, jax state before, port state before).
-    ``softmax_flat``: the configuration with unfused attention
-    (``fused_attention=False``) and the flat FusedAdam, set on the JAX
-    side through its own switches."""
+    ``config``: ``flash_tree``; ``softmax_flat``, unfused attention
+    (``fused_attention=False``) and the flat FusedAdam; or
+    ``flash_lamb_flat``, the flat FusedLAMB; set on the JAX side through
+    its own switches."""
     m_jax, m_port, emit = {
         "fp32": (jnp.float32, torch.float32, False),
         "bf16m_castout": (jnp.bfloat16, torch.bfloat16, True)}[mode]
@@ -299,11 +351,17 @@ def _steps(level, mode, monkeypatch, softmax_flat=False):
                         lambda opt_level, **kw: orig(level, **kw))
     cfg = jax_bert.bert_tiny()
     pcfg = port_bert.bert_tiny()
-    if softmax_flat:
+    if config == "softmax_flat":
         cfg = dataclasses.replace(cfg, fused_attention=False)
         pcfg = dataclasses.replace(pcfg, fused_attention=False)
         monkeypatch.setattr(jax_optimizers, "FusedAdam", functools.partial(
             jax_optimizers.FusedAdam, use_flat_kernel=True))
+    elif config == "flash_lamb_flat":
+        def lamb(lr, **kw):   # _bert_step's weight decay, m_dtype, emit
+            return jax_optimizers.FusedLAMB(lr=LAMB_LR, use_flat_kernel=True,
+                                            **kw)
+
+        monkeypatch.setattr(jax_optimizers, "FusedAdam", lamb)
     jstep, jmake, (jids, jmask) = _bench()._bert_step(
         B, S, cfg, m_dtype=m_jax, emit_compute=emit)
     h = jax_amp.initialize("O2", loss_scale="dynamic", verbosity=0)
@@ -317,7 +375,8 @@ def _steps(level, mode, monkeypatch, softmax_flat=False):
     jstep = jax.jit(jstep)
     pstep, _, _ = make_bert_train_step(
         B, S, pcfg, m_dtype=m_port, emit_compute=emit, device="cpu",
-        opt_level=level, use_flat_kernel=softmax_flat)
+        opt_level=level, use_flat_kernel=config != "flash_tree",
+        optimizer="lamb" if config == "flash_lamb_flat" else "adam")
     ids = torch.from_numpy(np.asarray(jids).astype(np.int64))
     mask = torch.from_numpy(np.array(jmask))
     jstate = list(jmake())
@@ -338,17 +397,26 @@ def _steps(level, mode, monkeypatch, softmax_flat=False):
     return out, pstep
 
 
-# (level, state mode, unfused attention + flat FusedAdam)
-_STEP_CASES = [("O2", "fp32", False), ("O2", "bf16m_castout", False),
-               ("O0", "fp32", False), ("O0", "bf16m_castout", False),
-               ("O0", "fp32", True), ("O2", "bf16m_castout", True)]
+# (level, state mode, configuration)
+_STEP_CASES = [("O2", "fp32", "flash_tree"),
+               ("O2", "bf16m_castout", "flash_tree"),
+               ("O0", "fp32", "flash_tree"),
+               ("O0", "bf16m_castout", "flash_tree"),
+               ("O0", "fp32", "softmax_flat"),
+               ("O2", "bf16m_castout", "softmax_flat"),
+               ("O0", "fp32", "flash_lamb_flat"),
+               ("O0", "bf16m_castout", "flash_lamb_flat"),
+               ("O2", "fp32", "flash_lamb_flat"),
+               ("O2", "bf16m_castout", "flash_lamb_flat")]
 
 
-@pytest.mark.parametrize("level,mode,softmax_flat", _STEP_CASES, ids=[
-    f"{l}-{m}" + ("-softmax_flat" if u else "") for l, m, u in _STEP_CASES])
-def test_bert_step_matches_jax(level, mode, softmax_flat, monkeypatch):
+@pytest.mark.parametrize("level,mode,config", _STEP_CASES, ids=[
+    f"{l}-{m}" + ("" if c == "flash_tree" else f"-{c}")
+    for l, m, c in _STEP_CASES])
+def test_bert_step_matches_jax(level, mode, config, monkeypatch):
     strict = level == "O0"
-    results, pstep = _steps(level, mode, monkeypatch, softmax_flat)
+    lamb = config == "flash_lamb_flat"
+    results, pstep = _steps(level, mode, monkeypatch, config)
     for i, (jout, pout, jg, pg, jprev, pprev) in enumerate(results):
         (jl, jgrads, jfound, jsc), (_, pl, pgrads, pfound, psc) = jg, pg
         assert bool(jfound) is False and bool(pfound) is False
@@ -375,17 +443,30 @@ def test_bert_step_matches_jax(level, mode, softmax_flat, monkeypatch):
                 w = want[k]
                 if key == "m":
                     assert g.dtype == w.dtype == pstep.opt.m_dtype
+                    if lamb and strict and g.dtype == torch.bfloat16:
+                        # per element: the fp32 moments' difference (at
+                        # most 1e-5 of the leaf's norm) plus one bf16 ulp
+                        wf = w.float()
+                        lim = 2 ** -7 * wf.abs() + 1.01e-5 * wf.norm()
+                        assert bool(((g.float() - wf).abs() <= lim).all())
+                        continue
                     lim = M_BF16_STRICT if strict and g.dtype == \
                         torch.bfloat16 else 1e-5 if strict else 0.05
                 else:
                     lim = 1e-5 if strict else 0.1
                 assert _relnorm(w, g) <= lim, (key, k)
-        if strict:
+        if lamb:
+            lims = _lamb_limit(i + 1, jprev[0], pprev[0], jout[1], pout[1])
+            use = max(float(((g - w).abs().double() / lims[k]).max())
+                      for k, (w, g) in zip(_by_path(pout[0]),
+                                           _pairs(jout[0], pout[0])))
+            print(f"step {i + 1}: master uses {use:.6f} of the LAMB model")
+        elif strict:
             lims = _adam_limit(i + 1, jprev[0], pprev[0], jout[1], pout[1])
             _print_worst(i + 1, lims, jout, pout, jgrads, pgrads)
         for path, (w, g) in zip(_by_path(pout[0]), _pairs(jout[0],
                                                           pout[0])):
-            lim = lims[path] if strict else 2 * LR * (i + 1) + 1e-7
+            lim = lims[path] if strict or lamb else 2 * LR * (i + 1) + 1e-7
             assert bool(((g - w).abs() <= lim).all()), path
         if mode == "bf16m_castout":
             cast = pstep.amp.cast_model(pout[0])

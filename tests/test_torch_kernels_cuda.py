@@ -18,7 +18,12 @@ fused softmax forward and backward are held per element to
 ``fused_softmax.fwd_limits`` and ``fused_softmax.bwd_limits`` (the
 row sums in other orders, one ulp of a bf16 or fp16 output), and
 ``flat_adam`` to its plain version bit for bit (the same fp32 operations
-in the same order, no FMA)."""
+in the same order, no FMA). So are ``flat_scale`` and ``flat_axpby`` (the
+outputs and the finite flags, with an injected inf or NaN) and LAMB's
+stage 1 (m, v and u); the sums of squares (the L2 partials, stage 1's
+partials, and ``flat_lamb``'s params through the trust ratio) are held
+to ``multi_tensor_apply.kernels.sum_sq_limit`` and ``lamb_p_limit``, and
+must repeat bit for bit."""
 
 import importlib
 
@@ -406,3 +411,154 @@ def test_flat_adam_kernel_matches_plain_bitwise(cuda_device, m_dt, emit,
         assert torch.equal(got[3], got[0].to(torch.bfloat16))
     if found:
         assert torch.equal(got[0], p) and torch.equal(got[1], m)
+
+
+def _flat_buf(rng, rows, dt, dev, scale=3.0, inject=None):
+    a = (rng.randn(rows, 128) * scale).astype(np.float32)
+    if inject == "inf":
+        a[rows // 2, 5] = -np.inf
+    elif inject == "nan":
+        a[rows - 1, 127] = np.nan
+    return _t(a, dt, dev)
+
+
+def _same(a, b):
+    """Equal values and dtypes, a NaN where the other has one (a NaN's
+    payload may differ between the two roundings to bf16)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return a.dtype == b.dtype and torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0), b.masked_fill(nb, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,odt", [("f32", "f32"), ("f32", "bf16"),
+                                     ("bf16", "f32"), ("bf16", "bf16")])
+@pytest.mark.parametrize("inject", [None, "inf", "nan"])
+def test_flat_scale_kernel_matches_plain(cuda_device, xdt, odt, inject):
+    rng = np.random.RandomState(3)
+    x = _flat_buf(rng, 300, xdt, cuda_device, inject=inject)
+    s = torch.tensor(0.37, device=cuda_device)
+    before = mta.FLAT_SCALE.launches
+    out, found = mta.flat_scale_kernel(x, s, _DT[odt])
+    torch.cuda.synchronize()
+    assert mta.FLAT_SCALE.launches == before + 1
+    out0, found0 = mta.flat_scale_plain(x, s, _DT[odt])
+    assert _same(out, out0) and found.dtype == torch.bool
+    assert bool(found) == bool(found0) == (inject is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,ydt,odt", [("f32", "f32", "f32"),
+                                         ("bf16", "f32", "bf16"),
+                                         ("f32", "bf16", "f32"),
+                                         ("bf16", "bf16", "bf16")])
+@pytest.mark.parametrize("inject", [None, "inf", "nan"])
+def test_flat_axpby_kernel_matches_plain(cuda_device, xdt, ydt, odt, inject):
+    rng = np.random.RandomState(4)
+    x = _flat_buf(rng, 300, xdt, cuda_device)
+    y = _flat_buf(rng, 300, ydt, cuda_device, inject=inject)
+    ab = torch.tensor([1.7, -0.3], device=cuda_device)
+    before = mta.FLAT_AXPBY.launches
+    out, found = mta.flat_axpby_kernel(x, y, ab, _DT[odt])
+    torch.cuda.synchronize()
+    assert mta.FLAT_AXPBY.launches == before + 1
+    out0, found0 = mta.flat_axpby_plain(x, y, ab, _DT[odt])
+    assert _same(out, out0)
+    assert bool(found) == bool(found0) == (inject is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [256, 300, 8, 4096])
+def test_flat_l2norm_partials_kernel_matches_plain(cuda_device, rows):
+    x = _flat_buf(np.random.RandomState(5), rows, "f32", cuda_device)
+    before = mta.FLAT_L2NORM.launches
+    got = mta.flat_l2norm_partials_kernel(x)
+    again = mta.flat_l2norm_partials_kernel(x)
+    torch.cuda.synchronize()
+    assert mta.FLAT_L2NORM.launches == before + 2
+    want = mta.flat_l2norm_partials_plain(x)
+    assert got.shape == want.shape and torch.equal(got, again)
+    _assert_within("partials", got, want, mta.sum_sq_limit(want, mta.SUB))
+
+
+def _lamb_case(dev, m_dt, adam_w_mode, rows=1024):
+    rng = np.random.RandomState(6)
+    g = _flat_buf(rng, rows, "f32", dev, 1e-2)
+    p = _flat_buf(rng, rows, "f32", dev, 1.0)
+    m = _flat_buf(rng, rows, m_dt, dev, 1e-3)
+    v = _t(np.abs(rng.randn(rows, 128)) * 1e-5, "f32", dev)
+    hp = mta.lamb_hparams(beta1=0.9, beta2=0.999, eps=1e-6,
+                          step=torch.tensor(3, device=dev), weight_decay=0.01,
+                          adam_w_mode=adam_w_mode,
+                          gs_over_clip=torch.tensor(0.8, device=dev),
+                          device=dev)
+    return g, p, m, v, hp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_dt", ["f32", "bf16"])
+@pytest.mark.parametrize("found", [None, False, True])
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_flat_lamb_stage1_kernel_matches_plain(cuda_device, m_dt, found,
+                                               adam_w_mode):
+    g, p, m, v, hp = _lamb_case(cuda_device, m_dt, adam_w_mode)
+    fi = None if found is None else torch.tensor(found, device=cuda_device)
+    before = mta.FLAT_LAMB_STAGE1.launches
+    got = mta.flat_lamb_stage1_kernel(g, p, m, v, hp, fi)
+    again = mta.flat_lamb_stage1_kernel(g, p, m, v, hp, fi)
+    torch.cuda.synchronize()
+    assert mta.FLAT_LAMB_STAGE1.launches == before + 2
+    want = mta.flat_lamb_stage1_plain(g, p, m, v, hp, fi)
+    for name, a, w in zip(("m", "v", "u"), got[:3], want[:3]):
+        assert a.dtype == w.dtype and torch.equal(a, w), (
+            name, float((a.float() - w.float()).abs().max()))
+    for name, a, a2, w in zip(("p_parts", "u_parts"), got[3:], again[3:],
+                              want[3:]):
+        assert torch.equal(a, a2)
+        _assert_within(name, a, w, mta.sum_sq_limit(w, mta.SUB))
+    if found:
+        assert torch.equal(got[0], m) and torch.equal(got[1], v)
+        assert not bool(got[2].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_dt", ["f32", "bf16"])
+def test_flat_lamb_kernels_match_plain_and_repeat(cuda_device, m_dt):
+    """flat_lamb on the card (both kernels, stage 2 in PyTorch) against
+    the same call on the CPU (the plain versions), the gradients' norm
+    under max_grad_norm (so the clip is 1 on both): m and v bit for bit,
+    p within lamb_p_limit; a second call on the card gives the same
+    bits (the segment sums use no atomics)."""
+    from apex_tpu_torch.multi_tensor_apply.flatten import flatten_tensors
+
+    rng = np.random.RandomState(7)
+    shapes = [(1024, 300), (300,), (1,), (77, 129), (4096,)]
+    leaves = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+              for s in shapes]
+    p, spec = flatten_tensors(leaves)
+    g, _ = flatten_tensors([torch.from_numpy(
+        (rng.randn(*s) * 1e-4).astype(np.float32)) for s in shapes], spec)
+    m = torch.zeros_like(p).to(_DT[m_dt])
+    v = torch.zeros_like(p)
+    ids, counts = spec.tile_tensor_ids(8), spec.tile_counts(8)
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, step=1,
+              weight_decay=0.01)
+    dev = [t.to(cuda_device) for t in (g, p, m, v, ids, counts)]
+    before = (mta.FLAT_L2NORM.launches, mta.FLAT_LAMB_STAGE1.launches)
+    got = mta.flat_lamb(*dev, **kw)
+    again = mta.flat_lamb(*dev, **kw)
+    torch.cuda.synchronize()
+    assert (mta.FLAT_L2NORM.launches, mta.FLAT_LAMB_STAGE1.launches) == (
+        before[0] + 2, before[1] + 2)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = mta.flat_lamb(g, p, m, v, ids, counts, **kw)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+    hp = mta.lamb_hparams(beta1=0.9, beta2=0.999, eps=1e-6, step=1,
+                          weight_decay=0.01, adam_w_mode=True,
+                          gs_over_clip=torch.tensor(1.0), device="cpu")
+    _, _, u, pp, up = mta.flat_lamb_stage1_plain(g, p, m, v, hp)
+    lim = mta.lamb_p_limit(want[0], u, pp, up, ids, counts, 1e-3)
+    _assert_within("p", got[0].cpu(), want[0], lim)
+    assert not torch.equal(want[0], p)

@@ -283,3 +283,336 @@ def test_flat_fused_adam_matches_jax_and_tree_path(m_dtype, emit):
                 assert a.dtype == b.dtype == t.dtype and torch.equal(a, b)
             jc, pc, tc = jout[2], pc2, tc2
         jp, js, pp, ps, tp, ts = jp2, js2, pp2, ps2, tp2, ts2
+
+
+# ---------------------------------------------------------------------------
+# The list ops, flat_scale, flat_axpby, flat_l2norm_partials and flat_lamb
+# against the JAX package. Elementwise outputs and flags are held exactly
+# (each is one rounding of the same fp32 operations), the partials and
+# LAMB's params to the module's error models (``sum_sq_limit``,
+# ``lamb_p_limit``: sums of squares in other orders).
+# ---------------------------------------------------------------------------
+
+from apex_tpu.multi_tensor_apply import (  # noqa: E402
+    multi_tensor_apply as jmta,
+)
+from apex_tpu_torch.multi_tensor_apply import (  # noqa: E402
+    multi_tensor_apply as pmta,
+)
+from apex_tpu_torch.optimizers._common import flat_layout  # noqa: E402
+
+_TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+_JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+def _list(seed, dtypes):
+    rng = np.random.RandomState(seed)
+    shapes = [(9, 40), (40,), (), (3, 130)]
+    return [np.asarray(rng.randn(*s) * 3, np.float32) for s in shapes[
+        :len(dtypes)]]
+
+
+def _pair(arrays, dtypes):
+    """The same arrays as JAX and as torch tensors, each in its dtype."""
+    j = [jnp.asarray(a, _JDT[d]) for a, d in zip(arrays, dtypes)]
+    return j, [_to_torch(np.asarray(x)) for x in j]
+
+
+def _equal(got, want):
+    want = _to_torch(np.asarray(want))
+    assert got.dtype == want.dtype and tuple(got.shape) == tuple(want.shape)
+    assert torch.equal(got, want) or bool(
+        (torch.isnan(got) == torch.isnan(want)).all()
+        and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
+
+
+@pytest.mark.parametrize("op", ["scale", "axpby", "l2norm", "l2norm_per",
+                                "applier_scale", "applier_axpby"])
+@pytest.mark.parametrize("inject", [None, "inf"])
+def test_list_ops_match_jax(op, inject):
+    dtypes = ["f32", "bf16", "f32", "bf16"]
+    xs = _list(20, dtypes)
+    ys = _list(21, dtypes)
+    if inject:
+        xs[1] = xs[1].copy()
+        xs[1][3] = np.inf
+    jx, px = _pair(xs, dtypes)
+    jy, py = _pair(ys, dtypes)
+    outs = ["bf16", "f32", "f32", "bf16"]
+    if op in ("scale", "applier_scale"):
+        if op == "scale":
+            jo, jf = jmta.multi_tensor_scale(jx, 0.25)
+            po, pf = pmta.multi_tensor_scale(px, 0.25)
+        else:
+            jdst = [jnp.zeros(x.shape, _JDT[d]) for x, d in zip(jx, outs)]
+            pdst = [torch.zeros(tuple(x.shape), dtype=_TDT[d])
+                    for x, d in zip(px, outs)]
+            jo, jf = jmta.multi_tensor_applier("scale", None, [jx, jdst], 0.25)
+            po, pf = pmta.multi_tensor_applier("scale", None, [px, pdst],
+                                               0.25)
+    elif op in ("axpby", "applier_axpby"):
+        if op == "axpby":
+            jo, jf = jmta.multi_tensor_axpby(2.0, jx, -0.5, jy)
+            po, pf = pmta.multi_tensor_axpby(2.0, px, -0.5, py)
+        else:
+            jdst = [jnp.zeros(x.shape, _JDT[d]) for x, d in zip(jx, outs)]
+            pdst = [torch.zeros(tuple(x.shape), dtype=_TDT[d])
+                    for x, d in zip(px, outs)]
+            jo, jf = jmta.multi_tensor_applier("axpby", None,
+                                               [jx, jy, jdst], 2.0, -0.5)
+            po, pf = pmta.multi_tensor_applier("axpby", None,
+                                               [px, py, pdst], 2.0, -0.5)
+    else:
+        per = op == "l2norm_per"
+        jres = jmta.multi_tensor_l2norm(jy, per_tensor=per)
+        pres = pmta.multi_tensor_l2norm(py, per_tensor=per)
+        jres, pres = (jres, pres) if per else ((jres,), (pres,))
+        n = sum(int(np.prod(np.shape(y))) for y in ys)
+        for w, g in zip(jres, pres):
+            w = _to_torch(np.asarray(w))
+            assert g.dtype == torch.float32 and g.shape == w.shape
+            # sqrt of a sum of squares: half the relative sum-order bound
+            assert bool(((g - w).abs() <= pkern.sum_sq_limit(w, n) / 2
+                         + 2 * _U * w).all())
+        return
+    assert bool(pf) == bool(jf) == bool(inject)
+    assert len(po) == len(jo)
+    for g, w in zip(po, jo):
+        _equal(g, w)
+
+
+_SCALE_CASES = [("f32", "f32"), ("f32", "bf16"), ("bf16", "f32"),
+                ("bf16", "bf16")]
+
+
+def _flat(seed, rows=40, scale=3.0, inject=None):
+    rng = np.random.RandomState(seed)
+    a = (rng.randn(rows, 128) * scale).astype(np.float32)
+    if inject == "inf":
+        a[7, 5] = -np.inf
+    elif inject == "nan":
+        a[rows - 1, 127] = np.nan
+    elif inject == "big":   # finite fp32, inf once scaled by 4
+        a[3, 3] = 3e38
+    return a
+
+
+@pytest.mark.parametrize("xdt,odt", _SCALE_CASES)
+@pytest.mark.parametrize("inject", [None, "inf", "nan", "big"])
+def test_flat_scale_plain_matches_jax(xdt, odt, inject):
+    x = _flat(30, inject=inject)
+    jx, px = _pair([x], [xdt])
+    want, wf = jkern.flat_scale(jx[0], 4.0, out_dtype=_JDT[odt])
+    got, gf = pkern.flat_scale(px[0], 4.0, out_dtype=_TDT[odt])
+    _equal(got, want)
+    # the flag judges the incoming values: 3e38 * 4 is inf, yet finite in
+    assert gf.dtype == torch.bool and gf.shape == ()
+    assert bool(gf) == bool(wf) == (inject in ("inf", "nan"))
+    assert pkern.flat_scale(px[0], 4.0)[0].dtype == _TDT[xdt]
+
+
+@pytest.mark.parametrize("xdt,ydt,odt", [("f32", "f32", "f32"),
+                                         ("bf16", "f32", "bf16"),
+                                         ("f32", "bf16", "f32"),
+                                         ("bf16", "bf16", "f32")])
+@pytest.mark.parametrize("inject", [None, "inf", "nan", "big"])
+def test_flat_axpby_plain_matches_jax(xdt, ydt, odt, inject):
+    x, y = _flat(31, inject=inject), _flat(32)
+    (jx, jy), (px, py) = _pair([x, y], [xdt, ydt])
+    want, wf = jkern.flat_axpby(4.0, jx, -0.5, jy, out_dtype=_JDT[odt])
+    got, gf = pkern.flat_axpby(4.0, px, -0.5, py, out_dtype=_TDT[odt])
+    _equal(got, want)
+    # the flag judges the result: 4 * 3e38 overflows
+    assert bool(gf) == bool(wf) == (inject is not None)
+    assert pkern.flat_axpby(1.0, px, 1.0, py)[0].dtype == _TDT[xdt]
+
+
+def test_flat_scale_and_axpby_refuse_other_dtypes():
+    x = torch.zeros(8, 128, dtype=torch.float16)
+    with pytest.raises(RuntimeError, match="fp32 or bf16"):
+        pkern.flat_scale(x, 2.0)
+    with pytest.raises(RuntimeError, match="fp32 or bf16"):
+        pkern.flat_axpby(1.0, torch.zeros(8, 128), 1.0, x)
+    with pytest.raises(RuntimeError, match="fp32 or bf16"):
+        pkern.flat_scale(torch.zeros(8, 128), 2.0, out_dtype=torch.float64)
+
+
+@pytest.mark.parametrize("rows", [256, 300, 8])
+def test_flat_l2norm_partials_plain_matches_jax(rows):
+    x = _flat(33, rows=rows)
+    want = _to_torch(np.asarray(jkern.flat_l2norm_partials(jnp.asarray(x))))
+    got = pkern.flat_l2norm_partials(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert got.numel() % 32 == 0 and bool((got[rows // 8 + (rows % 8 > 0):]
+                                           == 0).all())
+    lim = pkern.sum_sq_limit(want, pkern.SUB)
+    err = (got - want).abs()
+    assert bool((err <= lim).all()), float((err / lim).max())
+    n = float(pkern.flat_l2norm(torch.from_numpy(x)))
+    w = float(jkern.flat_l2norm(jnp.asarray(x)))
+    assert abs(n - w) <= (x.size + 2) * _U * w
+
+
+def _lamb_inputs(seed, m_dtype):
+    tree = _tree(seed)
+    leaves, _ = tree_flatten(_torch_tree(tree))
+    p, spec = pflat.flatten_tensors(leaves)
+    rng = np.random.RandomState(seed + 1)
+
+    def like(scale, fn=lambda a: a):
+        a = np.zeros(p.shape, np.float32)
+        for off, cnt, shape in zip(spec.row_offsets, spec.row_counts,
+                                   spec.shapes):
+            n = int(np.prod(shape))
+            a.reshape(-1)[off * 128: off * 128 + n] = fn(
+                rng.randn(n) * scale)
+        return torch.from_numpy(a)
+
+    g = like(0.3)
+    m = like(0.1).to(_TDT[m_dtype])
+    v = like(0.01, np.abs)
+    return g, p, m, v, spec
+
+
+_LAMB_CASES = [  # (m dtype, kwargs)
+    ("f32", dict(weight_decay=0.01)),
+    ("f32", dict(weight_decay=0.01, adam_w_mode=False)),
+    ("f32", dict(weight_decay=0.0, use_nvlamb=True)),
+    ("f32", dict(weight_decay=0.0)),
+    ("f32", dict(weight_decay=0.01, max_grad_norm=0.05)),   # clip engages
+    ("f32", dict(weight_decay=0.01, max_grad_norm=0.0)),    # no clip
+    ("bf16", dict(weight_decay=0.01)),
+]
+
+
+@pytest.mark.parametrize("m_dtype,kw", _LAMB_CASES, ids=[
+    f"{m}-" + "-".join(f"{k}={v}" for k, v in kw.items())
+    for m, kw in _LAMB_CASES])
+def test_flat_lamb_plain_matches_jax(m_dtype, kw):
+    g, p, m, v, spec = _lamb_inputs(6, m_dtype)
+    ids, counts = spec.tile_tensor_ids(8), spec.tile_counts(8)
+    emit = m_dtype == "bf16"
+    common = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-6, step=3, **kw)
+    got = pkern.flat_lamb(g, p, m, v, ids, counts, emit_compute_dtype=(
+        torch.bfloat16 if emit else None), **common)
+    want = jkern.flat_lamb(
+        *(jnp.asarray(t.numpy()) for t in (g, p)),
+        jnp.asarray(m.float().numpy(), _JDT[m_dtype]), jnp.asarray(v.numpy()),
+        jnp.asarray(ids.numpy()), num_tensors=spec.num_tensors,
+        emit_compute_dtype=(jnp.bfloat16 if emit else None), **common)
+    assert len(got) == len(want) == (4 if emit else 3)
+    want = [_to_torch(np.asarray(w)) for w in want]
+    # m and v: the same fp32 operations, but XLA contracts multiply-adds
+    # of the interpreted kernel into FMAs (in the first case 440 of 32768
+    # v elements land one ulp off), so they are held to 8 ulps of their
+    # terms as flat_adam's are above, a bf16 m to one bf16 ulp; where the
+    # clip engages, its global norm is a sum of squares in another order
+    hp, e_clip = _lamb_hp(g, spec, common)
+    b1, b2, _, wd, _, _, aw, beta3, gsc = hp.unbind()
+    gs_abs = g.abs() * gsc
+    t_gl = gs_abs + ((1.0 - aw) * wd).abs() * p.abs()
+    m_lim = 8 * _U * (b1 * m.float().abs() + beta3 * t_gl) \
+        + beta3 * gs_abs * e_clip + (2 ** -7 * want[1].float().abs()
+                                     if emit else 0.0)
+    v_lim = 8 * _U * (b2 * v + (1.0 - b2) * t_gl ** 2) \
+        + 2 * (1.0 - b2) * t_gl * gs_abs * e_clip
+    assert got[1].dtype == _TDT[m_dtype]
+    assert bool(((got[1].float() - want[1].float()).abs() <= m_lim).all())
+    assert bool(((got[2] - want[2]).abs() <= v_lim).all())
+    # p: the ratio's sums of squares in other orders (lamb_p_limit)
+    _, _, u, pp, up = pkern.flat_lamb_stage1_plain(g, p, m, v, hp)
+    lim = pkern.lamb_p_limit(want[0], u, pp, up, ids, counts, 1e-2)
+    err = (got[0] - want[0]).abs()
+    assert bool((err <= lim).all()), float((err / lim).max())
+    assert not torch.equal(got[0], p)
+    if emit:
+        assert torch.equal(got[3], got[0].to(torch.bfloat16))
+
+
+def _lamb_hp(g, spec, common):
+    """The stage-1 vector flat_lamb builds for ``common``, and the
+    relative limit on its clip between two sum orders of the global norm
+    (0 where the clip does not engage: it is 1 exactly)."""
+    parts = pkern.flat_l2norm_partials(g)
+    norm = float(torch.sqrt(parts.sum()))
+    mx = float(common.get("max_grad_norm", 1.0))
+    e_clip = (g.numel() + 4) * _U if 0 < mx < norm else 0.0
+    return pkern.lamb_hparams(
+        beta1=0.9, beta2=0.999, eps=1e-6, step=3,
+        weight_decay=common["weight_decay"],
+        adam_w_mode=common.get("adam_w_mode", True),
+        gs_over_clip=pkern.lamb_inv_clip(parts, mx),
+        device="cpu"), e_clip
+
+
+def test_lamb_hparams_vector_is_the_jax_kernels():
+    """Order and values of the (9,) vector, beta3 as the JAX flat path
+    rounds it (from float64), c1 and c2 from the step."""
+    hp = pkern.lamb_hparams(beta1=0.9, beta2=0.999, eps=1e-6,
+                            step=torch.tensor(4, dtype=torch.int32),
+                            weight_decay=0.01, adam_w_mode=False,
+                            gs_over_clip=torch.tensor(0.25), device="cpu")
+    b1, b2 = np.float32(0.9), np.float32(0.999)
+    want = np.array([b1, b2, 1e-6, 0.01, 1 - b1 ** np.float32(4),
+                     1 - b2 ** np.float32(4), 0.0, np.float32(1.0 - 0.9),
+                     0.25], np.float32)
+    assert hp.dtype == torch.float32 and hp.shape == (9,)
+    np.testing.assert_allclose(hp.numpy(), want, rtol=2 * _U)
+    assert hp[7] == np.float32(1.0 - 0.9) and hp[7] != 1 - b1
+    aw = pkern.lamb_hparams(beta1=0.9, beta2=0.999, eps=1e-6, step=1,
+                            weight_decay=0.0, adam_w_mode=True,
+                            gs_over_clip=torch.tensor(1.0), device="cpu")
+    assert aw[6] == 1.0 and aw[3] == 0.0 and aw[4] == np.float32(1.0) - b1
+
+
+@pytest.mark.parametrize("m_dtype", ["f32", "bf16"])
+def test_flat_lamb_found_inf_keeps_the_old_values(m_dtype):
+    g, p, m, v, spec = _lamb_inputs(7, m_dtype)
+    g[0, 0] = float("inf")
+    ids, counts = spec.tile_tensor_ids(8), spec.tile_counts(8)
+    kw = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-6, step=2,
+              weight_decay=0.01)
+    p2, m2, v2, pc = pkern.flat_lamb(g, p, m, v, ids, counts,
+                                     emit_compute_dtype=torch.bfloat16,
+                                     found_inf=torch.tensor(True), **kw)
+    assert torch.equal(p2, p) and torch.equal(m2, m) and torch.equal(v2, v)
+    assert torch.equal(pc, p.to(torch.bfloat16))
+    g[0, 0] = 0.0
+    p3 = pkern.flat_lamb(g, p, m, v, ids, counts,
+                         found_inf=torch.tensor(False), **kw)[0]
+    assert torch.equal(p3, pkern.flat_lamb(g, p, m, v, ids, counts,
+                                           **kw)[0])
+    assert not torch.equal(p3, p)
+
+
+def test_stage1_plain_skip_and_segment_sums():
+    """A skipped stage 1 gives u = 0 and zero partials (so stage 2 gives
+    the old p); ``tile_counts`` are the run lengths of ``tile_ids`` and
+    the per-tensor sums follow those spans."""
+    g, p, m, v, spec = _lamb_inputs(8, "f32")
+    hp, _ = _lamb_hp(g, spec, dict(weight_decay=0.01))
+    m2, v2, u, pp, up = pkern.flat_lamb_stage1_plain(
+        g, p, m, v, hp, torch.tensor(True))
+    assert torch.equal(m2, m) and torch.equal(v2, v)
+    assert not bool(u.any()) and not bool(pp.any()) and not bool(up.any())
+    ids = spec.tile_tensor_ids(8)
+    lengths = spec.tile_counts(8)
+    assert lengths.tolist() == np.bincount(ids.numpy()).tolist()
+    parts = pkern.flat_l2norm_partials(p)
+    sums = pkern.segment_sums(parts[:ids.numel()], lengths)
+    for t, leaf in enumerate(tree_flatten(_torch_tree(_tree(8)))[0]):
+        w = float((leaf.double() ** 2).sum())
+        assert abs(float(sums[t]) - w) <= 2 * (leaf.numel() + 1024) * _U * w
+
+
+def test_flat_layout_caches_tile_ids_on_the_params_device():
+    params = _torch_tree(_tree(9))
+    cache = {}
+    leaves, treedef, spec, ids, counts = flat_layout(cache, params)
+    assert ids.dtype == torch.int32 and ids.device == leaves[0].device
+    assert counts.dtype == torch.int64 and counts.device == ids.device
+    assert torch.equal(ids, spec.tile_tensor_ids(8))
+    assert torch.equal(counts, torch.bincount(ids.long()))
+    again = flat_layout(cache, params)
+    assert again[2] is spec and again[3] is ids and again[4] is counts \
+        and len(cache) == 1

@@ -127,7 +127,11 @@ def dispatch_to_card(monkeypatch):
                       (fsm, "masked_softmax_fwd_plain"),
                       (fsm, "causal_softmax_fwd_plain"),
                       (fsm, "softmax_bwd_plain"),
-                      (mta, "flat_adam_plain")):
+                      (mta, "flat_adam_plain"),
+                      (mta, "flat_scale_plain"),
+                      (mta, "flat_axpby_plain"),
+                      (mta, "flat_l2norm_partials_plain"),
+                      (mta, "flat_lamb_stage1_plain")):
         monkeypatch.setattr(mod, name, plain)
 
 
@@ -167,6 +171,26 @@ def test_cuda_path_never_reaches_plain_flat_adam(dispatch_to_card):
     opt = FusedAdam(use_flat_kernel=True)
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         opt.step(params, params, opt.init(params))
+
+
+def test_cuda_path_never_reaches_plain_flat_lamb(dispatch_to_card):
+    from apex_tpu_torch.optimizers import FusedLAMB
+
+    params = {"w": torch.randn(4, 8), "b": torch.randn(8)}
+    opt = FusedLAMB(use_flat_kernel=True)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        opt.step(params, params, opt.init(params))
+
+
+@pytest.mark.parametrize("fn", ["flat_scale", "flat_axpby",
+                                "flat_l2norm_partials"])
+def test_cuda_path_never_reaches_plain_flat_ops(dispatch_to_card, fn):
+    x = torch.randn(8, 128)
+    calls = {"flat_scale": lambda: mta.flat_scale(x, 0.5),
+             "flat_axpby": lambda: mta.flat_axpby(2.0, x, 1.0, x),
+             "flat_l2norm_partials": lambda: mta.flat_l2norm_partials(x)}
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        calls[fn]()
 
 
 def test_cuda_path_backward_never_reaches_plain(monkeypatch,
