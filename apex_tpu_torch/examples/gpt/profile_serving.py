@@ -8,11 +8,17 @@ dense engine, over two windows —
 For each window it prints the wall time (profiler on, so it includes
 the profiler's cost), the summed device time of the kernels and copies
 the profiler saw, their share of the wall, and the top device entries;
-then one JSON line with the same numbers. Runs on the CUDA device::
+then one JSON line with the same numbers. ``--w8`` profiles the same
+windows on the weight-only int8 tree of those params
+(``quant.quantize_params`` after the O2 cast, bf16 compute), and
+reports the w8 kernels' share of the device time: the counterpart of
+``bench.py::_w8_decode_ab_pair``, with learned positions. Runs on the
+CUDA device::
 
-    python -m apex_tpu_torch.examples.gpt.profile_serving
+    python -m apex_tpu_torch.examples.gpt.profile_serving [--w8]
 """
 
+import argparse
 import json
 import time
 
@@ -22,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from apex_tpu_torch import amp
 from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+from apex_tpu_torch.quant import quantize_params
 from apex_tpu_torch.serving import (
     ContinuousBatchingScheduler, DecodeEngine, Request,
 )
@@ -72,16 +79,31 @@ def window(name, work, groups=None, n_top=8):
     return out
 
 
-def main():
+def w8_share(kern):
+    """Device ms of the w8 kernels (their CUDA symbols) and the rest."""
+    w8 = sum(t for k, t in kern.items() if "w8_" in k)
+    return {"w8 kernels": w8, "other": sum(kern.values()) - w8}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--w8", action="store_true",
+                    help="serve the weight-only int8 tree (bf16 compute)")
+    args = ap.parse_args(argv)
     dev = resolve_device(None)
     cfg = gpt_medium()
     params = amp.initialize("O2", verbosity=0).cast_model(
         init_gpt(cfg, torch.Generator().manual_seed(0), device=dev))
-    res = {}
+    compute_dtype, groups = None, None
+    if args.w8:
+        params, compute_dtype, groups = (quantize_params(params),
+                                         torch.bfloat16, w8_share)
+    res = {"w8": args.w8}
     with torch.inference_mode():
         eng = DecodeEngine(params, cfg, num_slots=8, max_len=1024,
                            cache_dtype=torch.bfloat16,
-                           buckets=(128, 256, 512, 1024), device=dev)
+                           buckets=(128, 256, 512, 1024),
+                           compute_dtype=compute_dtype, device=dev)
         rng = np.random.RandomState(2)
         sched = ContinuousBatchingScheduler(eng, eos_id=-1)
         for _ in range(eng.num_slots):
@@ -96,9 +118,10 @@ def main():
                 sched.step()
 
         res["decode_4_ticks_8_slots"] = window("decode_4_ticks_8_slots",
-                                               ticks)
+                                               ticks, groups)
         res["prefill_1000_tokens"] = window(
-            "prefill_1000_tokens", lambda: eng.prefill(0, long_prompt))
+            "prefill_1000_tokens", lambda: eng.prefill(0, long_prompt),
+            groups)
     print(json.dumps(res))
 
 

@@ -8,7 +8,8 @@ layers is a Python loop. Attention goes through the port's
 ``fused_layer_norm_affine``; the dense products, decode attention and
 embeddings are plain PyTorch, as they are plain ``jnp`` in the JAX
 package. Learned positions only: RoPE, tensor/context parallelism and
-the paged, verify, tree and int8 blocks are later slices.
+the paged, verify and tree blocks are later slices. Weight-only int8
+trees run these blocks with ``serving/decode.py``'s w8 linears.
 """
 
 import dataclasses

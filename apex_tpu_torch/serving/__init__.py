@@ -1,5 +1,6 @@
 """Serving: KV-cached incremental decode for the port's GPT (dense
-cache, greedy continuous batching). See ``scheduler.py``."""
+cache, greedy continuous batching; bf16/fp32 or weight-only int8
+params, detected by ``DecodeEngine``). See ``scheduler.py``."""
 
 from apex_tpu_torch.serving.cache import KVCache, init_cache  # noqa: F401
 from apex_tpu_torch.serving.decode import (  # noqa: F401

@@ -1,5 +1,7 @@
 """Prefill and single-token decode over the dense KV cache (counterpart
-of ``apex_tpu/serving/decode.py``; dense, unsharded, unquantized).
+of ``apex_tpu/serving/decode.py``; dense, unsharded). A weight-only int8
+tree (``quant.quantize_params``) runs the same steps with its linears,
+embedding lookup and tied logits head swapped for the w8 versions.
 
 - **prefill** runs the full forward once over one slot's bucket-padded
   prompt, writes that slot's K/V rows (pad tail zeroed) and length, and
@@ -20,6 +22,7 @@ from apex_tpu_torch.models.gpt import (
     GPTConfig, _block_decode, _block_prefill, _ln, check_config, layer,
 )
 from apex_tpu_torch.models.gpt import dense as _dense
+from apex_tpu_torch.quant.kernels import w8_matmul, w8_matmul_nk
 from apex_tpu_torch.serving.cache import KVCache
 
 
@@ -71,17 +74,23 @@ def _decode_core(params, cfg: GPTConfig, cache: KVCache, tokens, active,
     return cache, logits
 
 
-def _embed_unsharded(params, ids, pos=None):
-    x = params["embedding"]["word"]["embedding"][ids]
+def _add_positions(params, x, ids, pos):
     ptab = params["embedding"]["position"]["embedding"]
     if pos is None:
-        x = x + ptab[: ids.shape[1]].to(x.dtype)[None]
-    else:
-        # decode: slot b's token sits at absolute position pos[b]
-        idx = pos[:, None].long() + torch.arange(
-            ids.shape[1], device=ids.device)[None, :]
-        x = x + ptab[idx].to(x.dtype)
-    return x
+        return x + ptab[: ids.shape[1]].to(x.dtype)[None]
+    # decode: slot b's token sits at absolute position pos[b]
+    idx = pos[:, None].long() + torch.arange(
+        ids.shape[1], device=ids.device)[None, :]
+    return x + ptab[idx].to(x.dtype)
+
+
+def _embed_unsharded(cfg: GPTConfig, compute_dtype):
+    def embed(params, ids, pos=None):
+        x = params["embedding"]["word"]["embedding"][ids]
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        return _add_positions(params, x, ids, pos)
+    return embed
 
 
 def _logits_unsharded(params, hidden):
@@ -89,28 +98,70 @@ def _logits_unsharded(params, hidden):
     return torch.matmul(hidden, table.to(hidden.dtype).t()).float()
 
 
-def make_prefill_fn(cfg: GPTConfig):
+def _dense_w8(p, x):
+    """Weight-only int8 linear: the dequant-fused matmul against the
+    layer's int8 kernel and per-output-channel fp32 scale."""
+    return w8_matmul(x, p["kernel"], p["scale"], p["bias"],
+                     out_dtype=x.dtype)
+
+
+def _embed_w8(cfg: GPTConfig, compute_dtype):
+    """Embedding lookup from the int8 word table: take rows, dequantize
+    each against its per-row (per-vocab-entry) scale. An int8 table
+    carries no activation dtype: ``compute_dtype`` gives it (fp32 with
+    None, as in the JAX package)."""
+
+    def embed(params, ids, pos=None):
+        word = params["embedding"]["word"]
+        x = word["embedding"][ids].float() * word["scale"][ids][..., None]
+        x = x.to(torch.float32 if compute_dtype is None else compute_dtype)
+        return _add_positions(params, x, ids, pos)
+
+    return embed
+
+
+def _logits_w8(params, hidden):
+    """Tied logits head against the output-channel-major int8 word
+    table: ``w8_matmul_nk`` contracts without transposing it."""
+    word = params["embedding"]["word"]
+    return w8_matmul_nk(hidden, word["embedding"], word["scale"])
+
+
+def _unsharded_fns(cfg: GPTConfig, compute_dtype, quantized: bool):
+    if quantized:
+        return _embed_w8(cfg, compute_dtype), _dense_w8, _logits_w8
+    return _embed_unsharded(cfg, compute_dtype), _dense, _logits_unsharded
+
+
+def make_prefill_fn(cfg: GPTConfig, compute_dtype=None,
+                    quantized: bool = False):
     """``prefill(params, cache, ids, mask, slot) -> (cache, logits)``;
     the cache is updated in place. Call through a bucketing layer (the
-    scheduler does) so prompts arrive at a few shapes."""
+    scheduler does) so prompts arrive at a few shapes. ``quantized``
+    expects the weight-only int8 tree of ``quant.quantize_params``."""
     check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
 
     def prefill(params, cache, ids, mask, slot):
         return _prefill_core(params, cfg, cache, ids, mask, slot,
-                             embed_fn=_embed_unsharded, dense_fn=_dense,
-                             logits_fn=_logits_unsharded)
+                             embed_fn=embed, dense_fn=dense_fn,
+                             logits_fn=logits_fn)
 
     return prefill
 
 
-def make_decode_fn(cfg: GPTConfig):
+def make_decode_fn(cfg: GPTConfig, compute_dtype=None,
+                   quantized: bool = False):
     """``decode(params, cache, tokens, active) -> (cache, logits)``; the
     cache is updated in place and every slot advances together."""
     check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
 
     def decode(params, cache, tokens, active):
         return _decode_core(params, cfg, cache, tokens, active,
-                            embed_fn=_embed_unsharded, dense_fn=_dense,
-                            logits_fn=_logits_unsharded)
+                            embed_fn=embed, dense_fn=dense_fn,
+                            logits_fn=logits_fn)
 
     return decode

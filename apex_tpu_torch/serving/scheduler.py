@@ -1,5 +1,6 @@
 """Continuous batching over a fixed-slot KV cache (counterpart of
-``apex_tpu/serving/scheduler.py``; dense cache, greedy, plain decode).
+``apex_tpu/serving/scheduler.py``; dense cache, greedy, plain decode,
+bf16/fp32 or weight-only int8 params).
 
 A FIFO of requests is multiplexed onto ``num_slots`` cache rows. A slot
 is admitted with one bucketed prefill, then every tick advances ALL
@@ -23,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from apex_tpu_torch.models.gpt import GPTConfig
+from apex_tpu_torch.quant.params import is_quantized_tree
 from apex_tpu_torch.serving.cache import init_cache
 from apex_tpu_torch.serving.decode import make_decode_fn, make_prefill_fn
 from apex_tpu_torch.serving.health import NonFiniteLogits, RequestOutcome
@@ -55,11 +57,15 @@ class _Slot:
 
 class DecodeEngine:
     """Owns the params, the cache and the prefill/decode steps. Params
-    must already lie on ``device`` (``None`` means the card)."""
+    must already lie on ``device`` (``None`` means the card). A
+    weight-only int8 tree (``quant.quantize_params``) is detected and
+    served through the w8 kernels; ``compute_dtype`` is then the
+    activations' dtype (fp32 with None), as in the JAX engine."""
 
     def __init__(self, params, cfg: GPTConfig, num_slots: int,
                  max_len: int, cache_dtype: torch.dtype = torch.bfloat16,
                  buckets: Optional[Sequence[int]] = None,
+                 compute_dtype: Optional[torch.dtype] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.params = params
@@ -72,10 +78,15 @@ class DecodeEngine:
         # S_max, and the top-of-ladder bucket may overshoot max_len
         self.buckets = tuple(sorted({min(int(b), max_len)
                                      for b in buckets}))
+        if cache_dtype == torch.int8:
+            raise ValueError(
+                "the dense cache has no int8 mode (per-page scales need "
+                "pages); use PagedDecodeEngine for kv_dtype=int8")
+        quantized = is_quantized_tree(params)
         self.cache = init_cache(cfg, num_slots, max_len, cache_dtype,
                                 self.device)
-        self._prefill = make_prefill_fn(cfg)
-        self._decode = make_decode_fn(cfg)
+        self._prefill = make_prefill_fn(cfg, compute_dtype, quantized)
+        self._decode = make_decode_fn(cfg, compute_dtype, quantized)
 
     def prefill(self, slot: int, prompt: Sequence[int]) -> torch.Tensor:
         """Full forward over ``prompt`` into cache row ``slot``; returns

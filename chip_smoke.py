@@ -6,9 +6,9 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. build — nvcc builds every CUDA source (layer norm, flash attention,
-   softmax cross entropy, fused softmax, multi-tensor Adam; one process
-   per source, all at once); TF32 is switched off so fp32 products are
-   full fp32.
+   softmax cross entropy, fused softmax, multi-tensor Adam, the int8
+   weight-only matmuls; one process per source, all at once); TF32 is
+   switched off so fp32 products are full fp32.
 2. kernel parity — each kernel against its plain PyTorch version on the
    same card inputs, max error beside the stated tolerance: the
    forwards of the serving path, then the LayerNorm and flash-attention
@@ -22,14 +22,23 @@ Phases, each printed as it runs; any failure exits non-zero:
    model, and the same bits on a repeat) and LAMB's stage 1 (m, v and u
    bit for bit, its partials to that model, the params through stage 2
    to ``lamb_p_limit``; found_inf writes the old values; two
-   ``flat_lamb`` calls give the same bits).
+   ``flat_lamb`` calls give the same bits); the int8 weight-only matmuls
+   (``w8_matmul`` with and without bias, ``w8_matmul_nk``) at GPT-2
+   medium's decode and prefill shapes and a ragged one, per element to
+   ``quant.kernels.w8_limit``, two launches the same bits.
 3. serving — GPT-2 medium (h 1024, 24 layers, 16 heads, vocab 50304),
    random weights from seed 0, O2-cast to bf16, served by the port's
    ``DecodeEngine`` + ``ContinuousBatchingScheduler`` (8 slots, max_len
    1024): 16 greedy requests of 32 tokens. The kernels' launch counts
    are set to 0 before this run and read after it. Then the headline
    serving contract: decode logits over 4 steps equal the full
-   forward's at the same positions (fp32 and bf16).
+   forward's at the same positions (fp32 and bf16). The weight-only
+   int8 path (``serving_w8``): the fp32 params quantized
+   (``quantize_params``) and served with fp32 compute and cache, 4
+   decode steps against the full forward of the dequantized tree; then
+   the same 16 requests on the quantized O2 params with bf16 compute,
+   counts set to 0 before and read after, exact launches of every
+   kernel.
 4. training — BERT-Large width (h 1024, 16 heads, ffn 4096, vocab
    30522). (a) Two layers, batch 8, seq 128: one step of
    ``make_bert_train_step`` on the card (kernels) against the same step
@@ -47,8 +56,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    step); ``flash_lamb_flat``, flash attention with the flat FusedLAMB
    (``FusedLAMB(lr=1e-3, weight_decay=0.01, use_flat_kernel=True)``: one
    ``flat_l2norm_partials`` and one ``flat_lamb_stage1`` a step).
-5. times — each kernel at its path's shapes, its plain version, one
-   library call computing the same function (device time: 20 calls
+5. times — each kernel at its path's shapes (the w8 kernels at M 8
+   and M 1024), its plain version, one library call computing the same
+   function (device time: 20 calls
    captured in one CUDA graph, replays timed with CUDA events), and the
    least time the card could take (bytes over 3.35 TB/s or operations
    over the peak rate for their type, the larger).
@@ -59,6 +69,7 @@ JAX nor the JAX package.
 """
 
 import importlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -81,7 +92,7 @@ def phase(name):
 
 
 def kernel_modules():
-    """The five wrapper modules (the packages re-export some functions
+    """The six wrapper modules (the packages re-export some functions
     under their modules' names, so import them by path)."""
     return (importlib.import_module(
                 "apex_tpu_torch.normalization.fused_layer_norm"),
@@ -91,7 +102,8 @@ def kernel_modules():
             importlib.import_module(
                 "apex_tpu_torch.transformer.functional.fused_softmax"),
             importlib.import_module(
-                "apex_tpu_torch.multi_tensor_apply.kernels"))
+                "apex_tpu_torch.multi_tensor_apply.kernels"),
+            importlib.import_module("apex_tpu_torch.quant.kernels"))
 
 
 def check(ok, msg):
@@ -631,6 +643,69 @@ def flat_lamb_parity(dev):
     return out
 
 
+# GPT-2 medium's four linears (K, N): qkv, out, fc1, fc2; and (K, N) of
+# the logits head over the (50304, 1024) int8 word table
+W8_LINEARS = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
+W8_TABLE = (1024, 50304)
+
+
+def w8_operands(gen, dev, m, k, n, xdt, nk=False, bias=True):
+    """x (m, k) in ``xdt``, a quantized (k, n) (or (n, k)) weight and its
+    fp32 scales, a bias in ``xdt`` (the O2 tree's)."""
+    from apex_tpu_torch.quant import quantize_tensor
+
+    w = _rand(gen, (n, k) if nk else (k, n), torch.float32, dev,
+              k ** -0.5)
+    wq, scale = quantize_tensor(w, -1 if nk else -2)
+    x = _rand(gen, (m, k), xdt, dev)
+    b = _rand(gen, (n,), xdt, dev, 0.1) if bias else None
+    return x, wq, scale, b
+
+
+def w8_parity(dev):
+    w8 = kernel_modules()[5]
+    phase("kernel parity: int8 weight-only matmuls (tolerance per element, "
+          "quant.kernels.w8_limit: 2 K 2^-24 sum_k |x||w| for two fp32 sum "
+          "orders, 2^-23 of the bias sum, one ulp of a bf16 output; two "
+          "launches the same bits)")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(m, k, n, bf, "bias") for m in (8, 1024)
+             for k, n in W8_LINEARS]
+    cases += [(8, 1024, 3072, f32, "bias"), (1024, 1024, 3072, f32, "bias"),
+              (8, 4096, 1024, bf, "nobias"), (1, *W8_TABLE, bf, "nk"),
+              (8, *W8_TABLE, bf, "nk"), (8, *W8_TABLE, f32, "nk"),
+              (37, 100, 201, bf, "bias"), (37, 100, 201, f32, "nobias"),
+              (37, 201, 100, bf, "nk")]   # the ragged case: byte loads
+    worst = dict.fromkeys(("w8_matmul", "w8_matmul_nobias", "w8_matmul_nk"),
+                          0.0)
+    for m, k, n, xdt, kind in cases:
+        nk = kind == "nk"
+        x, wq, scale, b = w8_operands(gen, dev, m, k, n, xdt, nk,
+                                      kind == "bias")
+        if nk:
+            args = (x, wq, scale, f32)
+            fk, fp = w8.w8_matmul_nk_kernel, w8.w8_matmul_nk_plain
+            lim = w8.w8_limit(x, wq, scale, None, f32, nk=True)
+        else:
+            args = (x, wq, scale, b, xdt)
+            fk, fp = w8.w8_matmul_kernel, w8.w8_matmul_plain
+            lim = w8.w8_limit(x, wq, scale, b, xdt)
+        got, again = fk(*args), fk(*args)
+        torch.cuda.synchronize()
+        e, use = _held(got, fp(*args), lim)
+        name = "w8_matmul" + ("" if kind == "bias" else f"_{kind}")
+        worst[name] = max(worst[name], e)
+        check(use <= 1.0 and torch.equal(got, again)
+              and got.dtype == args[-1],
+              f"{name} M {m} K {k} N {n}, x {str(xdt)[6:]} -> "
+              f"{str(args[-1])[6:]}: max_abs_err {e:.3g} ({use:.4f} of "
+              "w8_limit), repeat bit-equal")
+        del x, wq, scale, b, got, again, lim
+    torch.cuda.empty_cache()
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # 3. serving at full width
 # ---------------------------------------------------------------------------
@@ -643,9 +718,10 @@ def _logits_full(params, cfg, seq):
     return torch.matmul(hidden, table.to(hidden.dtype).t()).float()
 
 
-def decode_vs_full(params, cfg, dev, cache_dtype, label, tol):
+def decode_vs_full(params, cfg, dev, cache_dtype, label, tol, ref=None):
     """Prefill one prompt, decode 4 greedy steps, and hold the 4 decode
-    logits rows against the full forward at the same positions."""
+    logits rows against the full forward of ``ref`` (default the same
+    params) at the same positions."""
     from apex_tpu_torch.serving import DecodeEngine
 
     eng = DecodeEngine(params, cfg, num_slots=1, max_len=MAX_LEN,
@@ -662,7 +738,8 @@ def decode_vs_full(params, cfg, dev, cache_dtype, label, tol):
         tok = int(logits[0].argmax())
     got = torch.stack(rows)
     seq = torch.tensor([prompt + fed], device=dev)
-    want = _logits_full(params, cfg, seq)[0, len(prompt):]
+    want = _logits_full(params if ref is None else ref, cfg,
+                        seq)[0, len(prompt):]
     err = float((got - want).abs().max())
     check(err <= tol, f"decode vs full forward ({label}), 4 steps: "
           f"max_abs_err {err:.4g} <= {tol:g} (max|logit| "
@@ -670,53 +747,53 @@ def decode_vs_full(params, cfg, dev, cache_dtype, label, tol):
     return err
 
 
-def serve(dev, ln_kernel, fa_kernel):
-    from apex_tpu_torch import amp
-    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+def dequantized(qparams):
+    """The fp32 tree a weight-only int8 tree stands for: each int8 kernel
+    and the word table dequantized (``dequantize_tensor``), the rest as
+    it is."""
+    from apex_tpu_torch.quant import dequantize_tensor
+
+    word = qparams["embedding"]["word"]
+    layers = {name: ({"kernel": dequantize_tensor(p["kernel"], p["scale"],
+                                                  -2), "bias": p["bias"]}
+                     if "scale" in p else p)
+              for name, p in qparams["layers"].items()}
+    return dict(qparams, layers=layers, embedding=dict(
+        qparams["embedding"], word={"embedding": dequantize_tensor(
+            word["embedding"], word["scale"], -1)}))
+
+
+def serve_mix(dev, cfg, params, kern, **engine_kw):
+    """The 16-request mix on one engine (8 slots, bf16 cache), after a
+    one-request warm-up; every kernel's count set to 0 just before the
+    run and read just after. Returns the streams, launches, decode
+    steps and wall time."""
     from apex_tpu_torch.serving import (
         ContinuousBatchingScheduler, DecodeEngine, Request,
     )
 
-    phase("serving: gpt_medium, 16 greedy requests x 32 tokens, 8 slots")
-    cfg = gpt_medium()
+    eng = DecodeEngine(params, cfg, num_slots=NUM_SLOTS, max_len=MAX_LEN,
+                       cache_dtype=torch.bfloat16, buckets=BUCKETS,
+                       device=dev, **engine_kw)
+    # warm-up: one short request (library handles, allocator)
+    warm = ContinuousBatchingScheduler(eng, eos_id=-1)
+    warm.submit(Request(prompt=(1, 2, 3), max_new_tokens=2))
+    warm.run()
+    sched = ContinuousBatchingScheduler(eng, eos_id=-1)
+    rng = np.random.RandomState(0)
+    lens = rng.randint(64, 961, size=N_REQUESTS)
+    for n in lens:
+        prompt = tuple(int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                   size=int(n)))
+        sched.submit(Request(prompt=prompt, max_new_tokens=NEW_TOKENS))
+    torch.cuda.synchronize()
+    for k in kern.values():
+        k.launches = 0
     t0 = time.perf_counter()
-    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=dev)
-    print(f"init_gpt (fp32, seed 0) in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    out = {}
-    with torch.inference_mode():
-        # limits: 2x the error measured on an H100 at these seeds
-        # (fp32 4.3e-6 -> 1e-5; bf16 0.031 -> 0.0625)
-        out["decode_err_fp32"] = decode_vs_full(
-            params, cfg, dev, torch.float32, "fp32 params and cache", 1e-5)
-        params = amp.initialize("O2", verbosity=0).cast_model(params)
-        torch.cuda.empty_cache()
-        out["decode_err_bf16"] = decode_vs_full(
-            params, cfg, dev, torch.bfloat16, "O2 bf16 params and cache",
-            0.0625)
-
-        eng = DecodeEngine(params, cfg, num_slots=NUM_SLOTS,
-                           max_len=MAX_LEN, cache_dtype=torch.bfloat16,
-                           buckets=BUCKETS, device=dev)
-        # warm-up: one short request (library handles, allocator)
-        warm = ContinuousBatchingScheduler(eng, eos_id=-1)
-        warm.submit(Request(prompt=(1, 2, 3), max_new_tokens=2))
-        warm.run()
-        sched = ContinuousBatchingScheduler(eng, eos_id=-1)
-        rng = np.random.RandomState(0)
-        lens = rng.randint(64, 961, size=N_REQUESTS)
-        for n in lens:
-            prompt = tuple(int(t) for t in rng.randint(0, cfg.vocab_size,
-                                                       size=int(n)))
-            sched.submit(Request(prompt=prompt, max_new_tokens=NEW_TOKENS))
-        torch.cuda.synchronize()
-        ln_kernel.launches = 0
-        fa_kernel.launches = 0
-        t0 = time.perf_counter()
-        streams = sched.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"ln": ln_kernel.launches, "flash": fa_kernel.launches}
+    streams = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kern.items()}
     print(f"prompt lengths {lens.tolist()}")
     reasons = [sched.outcomes[i].reason for i in range(N_REQUESTS)]
     n_tok = sum(len(s) for s in streams)
@@ -727,20 +804,80 @@ def serve(dev, ln_kernel, fa_kernel):
           f"{n_tok} tokens")
     check(all(0 <= t < cfg.vocab_size for s in streams for t in s),
           "every token inside the vocabulary")
-    per = 2 * cfg.num_layers + 1
-    n_decode = sched.decode_steps
-    want_ln = per * (N_REQUESTS + n_decode)
-    want_fa = cfg.num_layers * N_REQUESTS
-    check(launches["ln"] == want_ln and launches["flash"] == want_fa,
-          f"launches during the run: LN {launches['ln']} (= {per} x "
-          f"({N_REQUESTS} prefills + {n_decode} decode steps)), flash "
-          f"{launches['flash']} (= {cfg.num_layers} x {N_REQUESTS} "
-          "prefills)")
     print(f"served {n_tok} tokens in {wall:.3f} s wall: "
           f"{n_tok / wall:.1f} tokens/s (prefill included)", flush=True)
     print(f"first stream: {streams[0][:8]}...")
-    out.update(launches=launches, wall_s=wall, tokens=n_tok,
-               tokens_per_s=n_tok / wall, decode_steps=n_decode)
+    return dict(streams=streams, launches=launches, wall_s=wall,
+                tokens=n_tok, tokens_per_s=n_tok / wall,
+                decode_steps=sched.decode_steps)
+
+
+def check_launches(launches, want, label):
+    """Every kernel's count in the run equals ``want`` (0 where absent)."""
+    want = {n: want.get(n, 0) for n in launches}
+    got = {n: c for n, c in launches.items() if c}
+    check(launches == want, f"launches during the {label} run: {got} "
+          f"(expected {({n: c for n, c in want.items() if c})}, every "
+          "other kernel 0)")
+
+
+def serve(dev, kern):
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+    from apex_tpu_torch.quant import quantize_params
+
+    phase("serving: gpt_medium, 16 greedy requests x 32 tokens, 8 slots")
+    cfg = gpt_medium()
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=dev)
+    print(f"init_gpt (fp32, seed 0) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out = {}
+    with torch.inference_mode():
+        # limits: 2x the error measured on an H100 at these seeds
+        # (fp32 4.3e-6 -> 1e-5; bf16 0.031 -> 0.0625)
+        out["decode_err_fp32"] = decode_vs_full(
+            params, cfg, dev, torch.float32, "fp32 params and cache", 1e-5)
+        # the w8 steps and the dequantized tree's forward read the same
+        # fp32 weights and differ only in sum orders: the fp32 limit
+        qparams = quantize_params(params)
+        out["decode_err_w8_fp32"] = decode_vs_full(
+            qparams, cfg, dev, torch.float32, "w8 of the fp32 params, fp32 "
+            "compute and cache, against the dequantized tree", 1e-5,
+            ref=dequantized(qparams))
+        del qparams
+        params = amp.initialize("O2", verbosity=0).cast_model(params)
+        torch.cuda.empty_cache()
+        out["decode_err_bf16"] = decode_vs_full(
+            params, cfg, dev, torch.bfloat16,
+            "O2 bf16 params and cache", 0.0625)
+        bf = serve_mix(dev, cfg, params, kern)
+        per = 2 * L + 1
+        forwards = N_REQUESTS + bf["decode_steps"]
+        check_launches(bf["launches"], {
+            "layer_norm_fwd": per * forwards,
+            "flash_attention_fwd": L * N_REQUESTS}, "bf16 serving")
+        phase("serving_w8: the same 16 requests on quantize_params of the "
+              "O2 params, bf16 compute and cache")
+        w8 = serve_mix(dev, cfg, quantize_params(params), kern,
+                       compute_dtype=torch.bfloat16)
+        forwards_w8 = N_REQUESTS + w8["decode_steps"]
+        check_launches(w8["launches"], {
+            "layer_norm_fwd": per * forwards_w8,
+            "flash_attention_fwd": L * N_REQUESTS,
+            "w8_matmul": 4 * L * forwards_w8,
+            "w8_matmul_nk": forwards_w8}, "w8 serving")
+    pairs = [(a, b) for s, t in zip(bf["streams"], w8["streams"])
+             for a, b in zip(s, t)]
+    same = sum(a == b for a, b in pairs)
+    print(f"greedy tokens equal to the bf16 run's (for information): "
+          f"{same} of {len(pairs)}; tokens/s bf16 {bf['tokens_per_s']:.1f},"
+          f" w8 {w8['tokens_per_s']:.1f}", flush=True)
+    for res in (bf, w8):
+        del res["streams"]
+    out.update(bf16=bf, w8=w8, w8_tokens_equal_to_bf16=same,
+               tokens_compared=len(pairs))
     return out
 
 
@@ -808,9 +945,11 @@ KERNEL_NAMES = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
                 "xentropy_fwd", "xentropy_bwd", "scaled_masked_softmax_fwd",
                 "scaled_upper_triang_softmax_fwd", "fused_softmax_bwd",
                 "flat_adam", "flat_scale", "flat_axpby",
-                "flat_l2norm_partials", "flat_lamb_stage1")
+                "flat_l2norm_partials", "flat_lamb_stage1",
+                "w8_matmul_nobias", "w8_matmul", "w8_matmul_nk")
 # kernels on no model path (held to their plain versions and timed)
-OFF_PATH = ("scaled_upper_triang_softmax_fwd", "flat_scale", "flat_axpby")
+OFF_PATH = ("scaled_upper_triang_softmax_fwd", "flat_scale", "flat_axpby",
+            "w8_matmul_nobias")
 # the step's three configurations, through the JAX package's own
 # switches: name -> (cfg.fused_attention, the optimizer, its
 # use_flat_kernel)
@@ -1290,7 +1429,7 @@ def step_times(dev):
     without the scale) are printed beside them."""
     from apex_tpu_torch.multi_tensor_apply.flatten import unflatten_tensors
 
-    fsm, mta = kernel_modules()[3:]
+    fsm, mta = kernel_modules()[3:5]
     phase("times at the unfused-attention, flat-Adam step's shapes "
           "(BERT-Large, batch 64, seq 128; device ms per call, CUDA-graph "
           "replays)")
@@ -1422,6 +1561,83 @@ def flat_times(dev):
     return res
 
 
+def _cycle(fns):
+    """One callable that calls ``fns`` in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def w8_times(dev):
+    """Rows 21-23 at M 8 (a decode step's slots) and M 1024 (a 1024-token
+    prefill), bf16 x as on the O2 path. The linears are timed over 24
+    weight copies, one call each in turn, as a step reads its 24 layers
+    (72-96 MB, past the 50 MB L2); the word table is read once (51.5
+    MB). The library call is ``torch._weight_int8pack_mm`` where the
+    card's torch has it for CUDA (bf16 scales and output, no bias; the KN
+    rows on transposed copies made outside the timing); else
+    ``torch.matmul``/``addmm`` over the weights dequantized to bf16, a
+    different function (it reads bf16 weights)."""
+    from apex_tpu_torch.quant import dequantize_tensor
+
+    w8 = kernel_modules()[5]
+    phase("times of the int8 weight-only matmuls at M 8 and M 1024 (bf16 "
+          "x; device ms per call, CUDA-graph replays)")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf, f32 = torch.bfloat16, torch.float32
+    int8pack = torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
+    lib_name = ("torch._weight_int8pack_mm (bf16 scales and out, no bias)"
+                if int8pack else "torch.matmul over the weights dequantized "
+                "to bf16 (a different function)")
+    res = {"w8_library": lib_name}
+    for name, (k, n), kind, copies in (
+            ("w8_matmul", W8_LINEARS[0], "bias", 24),
+            ("w8_matmul_nobias", W8_LINEARS[3], "nobias", 24),
+            ("w8_matmul_nk", W8_TABLE, "nk", 1)):
+        nk = kind == "nk"
+        ops = [w8_operands(gen, dev, 1, k, n, bf, nk, kind == "bias")
+               for _ in range(copies)]
+        for m in (8, 1024):
+            x = _rand(gen, (m, k), bf, dev)
+            if nk:
+                fk = [lambda o=o: w8.w8_matmul_nk_kernel(x, o[1], o[2], f32)
+                      for o in ops]
+                fp = [lambda o=o: w8.w8_matmul_nk_plain(x, o[1], o[2], f32)
+                      for o in ops]
+            else:
+                fk = [lambda o=o: w8.w8_matmul_kernel(x, o[1], o[2], o[3], bf)
+                      for o in ops]
+                fp = [lambda o=o: w8.w8_matmul_plain(x, o[1], o[2], o[3], bf)
+                      for o in ops]
+            if int8pack:
+                packed = [(o[1] if nk else o[1].t().contiguous(),
+                           o[2].to(bf)) for o in ops]
+                fl = [lambda p=p: torch._weight_int8pack_mm(x, *p)
+                      for p in packed]
+            else:
+                deq = [dequantize_tensor(o[1], o[2], -1 if nk else -2, bf)
+                       for o in ops]
+                if nk:
+                    fl = [lambda d=d: torch.matmul(x, d.t()) for d in deq]
+                elif kind == "bias":
+                    fl = [lambda d=d, o=o: torch.addmm(o[3], x, d)
+                          for d, o in zip(deq, ops)]
+                else:
+                    fl = [lambda d=d: torch.matmul(x, d) for d in deq]
+            kw = dict(inner=copies) if copies > 1 else dict(inner=5)
+            nbytes = (m * k * 2 + k * n + n * 4 + (n * 2 if kind == "bias"
+                                                   else 0)
+                      + m * n * (4 if nk else 2))
+            _entry(res, f"{name}_m{m}", time_ms(_cycle(fk), **kw),
+                   time_ms(_cycle(fp), **kw), time_ms(_cycle(fl), **kw),
+                   nbytes, 2 * m * k * n, BF16_TC_FLOPS,
+                   f"{name} M {m} K {k} N {n} bf16 x", lib_name)
+            del x, fk, fp, fl
+        del ops
+        torch.cuda.empty_cache()
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -1441,7 +1657,7 @@ def main():
               "script runs on a CUDA device", file=sys.stderr)
         return 2
     try:
-        ln, fa, xent, fsm, mta = kernel_modules()
+        ln, fa, xent, fsm, mta, w8 = kernel_modules()
     except ImportError as e:
         print(f"chip_smoke: cannot import apex_tpu_torch ({e}); run it "
               "from the root of the repository", file=sys.stderr)
@@ -1452,7 +1668,7 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
-    build([ln.LIB, fa.LIB, xent.LIB, fsm.LIB, mta.LIB])
+    build([ln.LIB, fa.LIB, xent.LIB, fsm.LIB, mta.LIB, w8.LIB])
     err = {"layer_norm_fwd": ln_parity(dev),
            "flash_attention_fwd": flash_parity(dev),
            "layer_norm_bwd": ln_bwd_parity(dev)}
@@ -1461,6 +1677,7 @@ def main():
     sm = softmax_parity(dev)
     sa = flat_scale_axpby_parity(dev)
     lb = flat_lamb_parity(dev)
+    err.update(w8_parity(dev))
     err.update(flash_attention_bwd_dq=fb["dq"],
                flash_attention_bwd_dkv=fb["dkv"], xentropy_fwd=xe["fwd"],
                xentropy_bwd=xe["bwd"], scaled_masked_softmax_fwd=sm["fwd"],
@@ -1472,24 +1689,25 @@ def main():
         ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
         xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
         fsm.SOFTMAX_BWD, mta.FLAT_ADAM, mta.FLAT_SCALE, mta.FLAT_AXPBY,
-        mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1)))
+        mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1, w8.W8_MATMUL_NOBIAS,
+        w8.W8_MATMUL, w8.W8_MATMUL_NK)))
     torch.cuda.empty_cache()
-    srv = serve(dev, ln.LN_FWD, fa.FLASH_FWD)
+    srv = serve(dev, kern)
     small = train_small(dev)
     big = train_big(dev, kern)
     tm = times(dev)
     tm.update(train_times(dev))
     tm.update(step_times(dev))
     tm.update(flat_times(dev))
-    by_path = {n: {"serving": 0} for n in kern}
+    tm.update(w8_times(dev))
+    by_path = {n: {"serving": srv["bf16"]["launches"][n],
+                   "serving_w8": srv["w8"]["launches"][n]} for n in kern}
     for cfg_name in STEP_CONFIGS:
         path = _key(cfg_name, "training").replace(" ", "_")
         for n in kern:
             by_path[n][path] = sum(
                 big[_key(cfg_name, m)]["launches"][n]
                 for m in ("fp32", "bf16m_castout"))
-    by_path["layer_norm_fwd"]["serving"] = srv["launches"]["ln"]
-    by_path["flash_attention_fwd"]["serving"] = srv["launches"]["flash"]
     rows = [  # name, source, replaces (TPU kernel file:line), times key
         ("layer_norm_fwd", "layer_norm.cu",
          "normalization/fused_layer_norm.py:76", "ln_1024x1024"),
@@ -1522,6 +1740,11 @@ def main():
          "multi_tensor_apply/kernels.py:146", "flat_l2norm"),
         ("flat_lamb_stage1", "multi_tensor.cu",
          "multi_tensor_apply/kernels.py:287", "flat_lamb_stage1"),
+        ("w8_matmul_nobias", "w8_matmul.cu", "quant/kernels.py:96",
+         "w8_matmul_nobias_m8"),
+        ("w8_matmul", "w8_matmul.cu", "quant/kernels.py:85", "w8_matmul_m8"),
+        ("w8_matmul_nk", "w8_matmul.cu", "quant/kernels.py:104",
+         "w8_matmul_nk_m8"),
     ]
     kernels = [dict(name=name, route="cuda",
                     source=f"apex_tpu_torch/csrc/{src}",
@@ -1538,12 +1761,20 @@ def main():
         kernels[KERNEL_NAMES.index(name)]["note"] = (
             "on no model path; the JAX package reaches them only from its "
             "lint tiers (apex_tpu/lint/traced/registry.py:1234-1237)")
+    kernels[KERNEL_NAMES.index("w8_matmul_nobias")]["note"] = (
+        "on no unsharded path: only the tensor-parallel row-parallel "
+        "linear calls it (apex_tpu/serving/decode.py:880); held to its "
+        "plain version and timed at K 4096, N 1024")
+    for k in kernels[-3:]:   # the w8 rows: times at M 8 above, M 1024 here
+        k.update(at_m1024=tm[k["name"] + "_m1024"],
+                 library_call=tm["w8_library"])
     check(all(sum(by_path[n].values()) > 0 for n in KERNEL_NAMES
               if n not in OFF_PATH),
           "every kernel of a path launched on that path")
     for key in ("ln_8x1024", "ln_fwd_train", "ln_bwd_4096",
                 "flash_fwd_train", "flat_adam_bf16m_castout",
-                "flat_lamb_stage1_bf16m"):
+                "flat_lamb_stage1_bf16m", "w8_matmul_m1024",
+                "w8_matmul_nobias_m1024", "w8_matmul_nk_m1024"):
         print(f"{key}: {json.dumps(tm[key])}")
     print(f"serving: {json.dumps(srv)}")
     print(f"training, card vs CPU: {json.dumps(small)}")

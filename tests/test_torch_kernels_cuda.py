@@ -23,7 +23,10 @@ outputs and the finite flags, with an injected inf or NaN) and LAMB's
 stage 1 (m, v and u); the sums of squares (the L2 partials, stage 1's
 partials, and ``flat_lamb``'s params through the trust ratio) are held
 to ``multi_tensor_apply.kernels.sum_sq_limit`` and ``lamb_p_limit``, and
-must repeat bit for bit."""
+must repeat bit for bit. The int8 weight-only matmuls (``w8_matmul``
+with and without bias, ``w8_matmul_nk``) are held per element to
+``quant.kernels.w8_limit`` (two fp32 sum orders over K, the bias
+rounding, one ulp of a bf16 output) and must repeat bit for bit."""
 
 import importlib
 
@@ -562,3 +565,97 @@ def test_flat_lamb_kernels_match_plain_and_repeat(cuda_device, m_dt):
     lim = mta.lamb_p_limit(want[0], u, pp, up, ids, counts, 1e-3)
     _assert_within("p", got[0].cpu(), want[0], lim)
     assert not torch.equal(want[0], p)
+
+
+w8 = importlib.import_module("apex_tpu_torch.quant.kernels")
+
+# GPT-2 medium's four linears (K, N): qkv, out, fc1, fc2
+_W8_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+_W8_TAILS = [  # (M, K, N): vector and byte loads, gemv and tiled, K split
+    (6, 72, 200), (3, 72, 201), (37, 72, 200), (37, 100, 201),
+    (128, 1024, 1024), (9, 33, 7)]
+
+
+def _w8_operands(dev, m, k, n, xdt, nk, bias, seed=0):
+    from apex_tpu_torch.quant import quantize_tensor
+
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy(rng.randn(*((n, k) if nk else (k, n))).astype(
+        np.float32)).to(dev)
+    wq, scale = quantize_tensor(w, -1 if nk else -2)
+    x = _t(rng.randn(m, k), xdt, dev)
+    b = _t(rng.randn(n), xdt, dev) if bias else None
+    return x, wq, scale, b
+
+
+def _w8_check(fn_kernel, fn_plain, counter, args, lim):
+    before = counter.launches
+    got = fn_kernel(*args)
+    again = fn_kernel(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    want = fn_plain(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _assert_within("y", got, want, lim)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+@pytest.mark.parametrize("k,n", _W8_SHAPES)
+@pytest.mark.parametrize("m", [8, 1024], ids=["decode", "prefill"])
+def test_w8_matmul_kernels_match_plain(cuda_device, m, k, n, xdt, bias):
+    """Rows 21 (no bias) and 22 (bias) at GPT-2 medium's decode and
+    prefill shapes, out in x's dtype as the serving path calls them."""
+    x, wq, scale, b = _w8_operands(cuda_device, m, k, n, xdt, False, bias)
+    counter = w8.W8_MATMUL if bias else w8.W8_MATMUL_NOBIAS
+    _w8_check(w8.w8_matmul_kernel, w8.w8_matmul_plain, counter,
+              (x, wq, scale, b, x.dtype),
+              w8.w8_limit(x, wq, scale, b, x.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 8, 1024])
+def test_w8_matmul_nk_kernel_matches_plain(cuda_device, m, xdt):
+    """Row 23, the tied logits head over the (50304, 1024) word table."""
+    x, wq, scale, _ = _w8_operands(cuda_device, m, 1024, 50304, xdt, True,
+                                   False)
+    _w8_check(w8.w8_matmul_nk_kernel, w8.w8_matmul_nk_plain,
+              w8.W8_MATMUL_NK, (x, wq, scale, torch.float32),
+              w8.w8_limit(x, wq, scale, None, torch.float32, nk=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odt", ["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", _W8_TAILS)
+def test_w8_kernels_take_any_shape(cuda_device, m, k, n, odt):
+    for nk, bias in ((False, True), (False, False), (True, False)):
+        x, wq, scale, b = _w8_operands(cuda_device, m, k, n, "bf16", nk,
+                                       bias, seed=m + k + n)
+        if nk:
+            _w8_check(w8.w8_matmul_nk_kernel, w8.w8_matmul_nk_plain,
+                      w8.W8_MATMUL_NK, (x, wq, scale, _DT[odt]),
+                      w8.w8_limit(x, wq, scale, None, _DT[odt], nk=True))
+        else:
+            _w8_check(w8.w8_matmul_kernel, w8.w8_matmul_plain,
+                      w8.W8_MATMUL if bias else w8.W8_MATMUL_NOBIAS,
+                      (x, wq, scale, b, _DT[odt]),
+                      w8.w8_limit(x, wq, scale, b, _DT[odt]))
+
+
+@pytest.mark.cuda
+def test_w8_refused_launch_keeps_the_count(cuda_device):
+    x, wq, scale, b = _w8_operands(cuda_device, 8, 64, 32, "f32", False,
+                                   True)
+    counts = (w8.W8_MATMUL.launches, w8.W8_MATMUL_NK.launches)
+    with pytest.raises(RuntimeError, match="fp32 or bf16"):
+        w8.w8_matmul_kernel(x.half(), wq, scale, b, torch.float16)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        w8.w8_matmul_nk_kernel(x.cpu(), wq.t().contiguous().cpu(),
+                               scale.cpu(), torch.float32)
+    assert (w8.W8_MATMUL.launches, w8.W8_MATMUL_NK.launches) == counts
+    w8.w8_matmul(x, wq, scale, b)
+    torch.cuda.synchronize()
+    assert w8.W8_MATMUL.launches == counts[0] + 1

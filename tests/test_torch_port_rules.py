@@ -36,6 +36,7 @@ xent = importlib.import_module("apex_tpu_torch.contrib.xentropy")
 fsm = importlib.import_module(
     "apex_tpu_torch.transformer.functional.fused_softmax")
 mta = importlib.import_module("apex_tpu_torch.multi_tensor_apply.kernels")
+w8 = importlib.import_module("apex_tpu_torch.quant.kernels")
 
 # the plain forwards, saved before any test patches them
 _plain = {"ln": ln.layer_norm_fwd_plain, "fa": fa.attention_fwd_plain,
@@ -116,7 +117,7 @@ def dispatch_to_card(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("plain version reached on the CUDA path")
 
-    for mod in (ln, fa, xent, fsm, mta):
+    for mod in (ln, fa, xent, fsm, mta, w8):
         monkeypatch.setattr(mod, "on_card", lambda t, what="": True)
     for mod, name in ((ln, "layer_norm_fwd_plain"),
                       (ln, "layer_norm_bwd_plain"),
@@ -131,7 +132,9 @@ def dispatch_to_card(monkeypatch):
                       (mta, "flat_scale_plain"),
                       (mta, "flat_axpby_plain"),
                       (mta, "flat_l2norm_partials_plain"),
-                      (mta, "flat_lamb_stage1_plain")):
+                      (mta, "flat_lamb_stage1_plain"),
+                      (w8, "w8_matmul_plain"),
+                      (w8, "w8_matmul_nk_plain")):
         monkeypatch.setattr(mod, name, plain)
 
 
@@ -239,9 +242,43 @@ def test_gpt_on_card_path_never_reaches_plain(dispatch_to_card):
                                      torch.zeros((1, 4), dtype=torch.long))
 
 
-@pytest.mark.parametrize("mod", [ln, fa, xent, fsm, mta],
+@pytest.mark.parametrize("fn", ["w8_matmul", "w8_matmul_nobias",
+                                "w8_matmul_nk"])
+def test_cuda_path_never_reaches_plain_w8(dispatch_to_card, fn):
+    from apex_tpu_torch.quant import quantize_tensor
+
+    x = torch.randn(2, 3, 16)
+    wq, scale = quantize_tensor(torch.randn(16, 24), -2)
+    wn, sn = quantize_tensor(torch.randn(24, 16), -1)
+    calls = {"w8_matmul": lambda: w8.w8_matmul(x, wq, scale,
+                                               torch.zeros(24)),
+             "w8_matmul_nobias": lambda: w8.w8_matmul(x, wq, scale),
+             "w8_matmul_nk": lambda: w8.w8_matmul_nk(x, wn, sn)}
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        calls[fn]()
+
+
+def test_quantized_engine_prefill_never_reaches_plain(monkeypatch,
+                                                     dispatch_to_card):
+    """A quantized tree's prefill goes to the w8 kernel wrappers (the
+    norm and attention kernels swapped for the saved plain versions, so
+    the step reaches its first linear), which refuse CPU tensors."""
+    from apex_tpu_torch.quant import quantize_params
+
+    monkeypatch.setattr(ln, "layer_norm_fwd_kernel", _plain["ln"])
+    monkeypatch.setattr(fa, "attention_fwd_kernel", _plain["fa"])
+    cfg = port_gpt.gpt_tiny()
+    params = quantize_params(port_gpt.init_gpt(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    eng = port_serving.DecodeEngine(params, cfg, num_slots=1, max_len=16,
+                                    device="cpu")
+    with pytest.raises(RuntimeError, match="w8_matmul kernel needs CUDA"):
+        eng.prefill(0, [3, 4, 5])
+
+
+@pytest.mark.parametrize("mod", [ln, fa, xent, fsm, mta, w8],
                          ids=["layer_norm", "flash", "xentropy",
-                              "fused_softmax", "flat_adam"])
+                              "fused_softmax", "flat_adam", "w8_matmul"])
 def test_wrappers_have_no_fallback(mod):
     """No ``try`` in a wrapper module: a failed launch raises."""
     with open(mod.__file__) as f:
