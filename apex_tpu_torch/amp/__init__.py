@@ -1,5 +1,6 @@
 from apex_tpu_torch.amp.frontend import Amp, initialize  # noqa: F401
 from apex_tpu_torch.amp.policy import (  # noqa: F401
+    cast_inputs,
     cast_params,
     default_norm_predicate,
 )

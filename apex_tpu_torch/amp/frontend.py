@@ -5,6 +5,7 @@ overrides; the handle casts a param tree and carries the loss scaler.
     h = amp.initialize("O2", loss_scale="dynamic")
     state = h.init_state()                       # scaler state, on the card
     p = h.cast_model(master)                     # O2: bf16 but the norms
+    x = h.cast_input(x)                          # O2: floating inputs bf16
     loss, grads, found_inf, state = h.value_and_grad(loss_fn)(p, state, x)
     master, opt_state = opt.step(grads, master, opt_state,
                                  found_inf=found_inf)
@@ -41,6 +42,15 @@ class Amp:
             keep_batchnorm_fp32=bool(p.keep_batchnorm_fp32),
             precast=precast)
 
+    def cast_input(self, batch: Any) -> Any:
+        """The input cast: floating tensors of ``batch`` to
+        ``cast_model_type`` (fp32 under O0, as the reference casts them
+        there too; bf16 under O2); O1 leaves the batch as it is."""
+        p = self.properties
+        if p.cast_model_type is None:
+            return batch
+        return _policy.cast_inputs(batch, p.cast_model_type)
+
     # -- scaler ---------------------------------------------------------
     def init_state(self, device: DeviceLike = None) -> LossScalerState:
         return self.scaler.init_state(device)
@@ -54,16 +64,19 @@ class Amp:
     def update_scale(self, state: LossScalerState, found_inf):
         return self.scaler.update_scale(state, found_inf)
 
-    def value_and_grad(self, loss_fn: Callable) -> Callable:
+    def value_and_grad(self, loss_fn: Callable,
+                       has_aux: bool = False) -> Callable:
         """Scaled value-and-grad: gradients of the *scaled* loss,
         unscaled, and the scaler state advanced.
 
-        Returned callable: ``(params, state, *args, **kw) -> (loss,
-        grads, found_inf, new_state)``, the JAX tuple. The gradients are
-        with respect to ``params`` as given (the compute tree, bf16
-        leaves included): its floating leaves are detached and marked
-        ``requires_grad``. A leaf the loss never reaches gets a zero
-        gradient, as ``jax.grad`` gives it."""
+        Returned callable: ``(params, state, *args, **kw) -> (value,
+        grads, found_inf, new_state)``, the JAX tuple, where ``value`` is
+        the unscaled loss, or with ``has_aux`` (``loss_fn`` returning
+        ``(loss, aux)``) the pair ``(loss, aux)``, aux detached. The
+        gradients are with respect to ``params`` as given (the compute
+        tree, bf16 leaves included): its floating leaves are detached and
+        marked ``requires_grad``. A leaf the loss never reaches gets a
+        zero gradient, as ``jax.grad`` gives it."""
 
         def wrapped(params, state: LossScalerState, *args, **kw):
             def leaf(x):
@@ -73,7 +86,8 @@ class Amp:
 
             p = tree_map(leaf, params)
             with torch.enable_grad():
-                loss = loss_fn(p, *args, **kw)
+                out = loss_fn(p, *args, **kw)
+                loss, aux = out if has_aux else (out, None)
                 xs = [x for x in tree_leaves(p)
                       if isinstance(x, torch.Tensor) and x.requires_grad]
                 gs = torch.autograd.grad(self.scaler.scale(loss, state), xs,
@@ -83,7 +97,11 @@ class Amp:
             grads = tree_map(lambda x: by_id.get(id(x), x), p)
             grads, found_inf = self.scaler.unscale(grads, state)
             new_state = self.scaler.update_scale(state, found_inf)
-            return loss.detach(), grads, found_inf, new_state
+            if not has_aux:
+                return loss.detach(), grads, found_inf, new_state
+            aux = tree_map(lambda x: x.detach()
+                           if isinstance(x, torch.Tensor) else x, aux)
+            return (loss.detach(), aux), grads, found_inf, new_state
 
         return wrapped
 

@@ -57,3 +57,14 @@ def cast_params(params: Any, dtype: torch.dtype,
         return x.to(target)
 
     return _map_with_path(cast, params, precast)
+
+
+def cast_inputs(batch: Any, dtype: torch.dtype) -> Any:
+    """Cast the floating tensors of a batch (a tree) to the compute dtype
+    (the O2 input cast); integer tensors and other leaves pass through."""
+    def cast(path, x, pre):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.to(dtype)
+        return x
+
+    return _map_with_path(cast, batch, None)

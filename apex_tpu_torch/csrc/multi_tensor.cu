@@ -1,6 +1,6 @@
 // Flat-buffer kernels over packed (rows, 128) buffers, for Hopper (sm_90a):
-// Adam / AdamW (below), then scale, axpby, the L2 partials and LAMB's
-// stage 1 (further down, each with its own note).
+// Adam / AdamW (below), then scale, axpby, the L2 partials, LAMB's stage 1,
+// and SGD, Adagrad and NovoGrad (further down, each with its own note).
 //
 // apx_flat_adam replaces the TPU kernel
 // apex_tpu/multi_tensor_apply/kernels.py :: _adam_kernel (launched by
@@ -335,6 +335,173 @@ lamb_stage1_kernel(const float* __restrict__ g, const float* __restrict__ p,
   }
 }
 
+// ---------------------------------------------------------------------------
+// SGD, Adagrad and NovoGrad, each updating p and its state in place.
+//
+// apx_flat_sgd replaces _sgd_kernel (flat_sgd), apx_flat_adagrad
+// _adagrad_kernel (flat_adagrad) and apx_flat_novograd _novograd_kernel
+// (flat_novograd) of apex_tpu/multi_tensor_apply/kernels.py. Per element, in
+// the JAX kernel's order of fp32 operations (__f*_rn: no FMA contraction,
+// so the results are bit for bit the plain PyTorch versions'):
+//   SGD      g   = g * gs + ((1 - wd_after) * wd) * p
+//            buf'= first ? g : mom * buf + (1 - damp) * g
+//            d   = use_mom ? (nesterov ? g + mom * buf' : buf') : g
+//            p   = p - lr * (d + (wd_after * wd) * p)
+//            (buf written back only when use_mom; fp32 or bf16 in memory)
+//   Adagrad  g   = g * gs + ((1 - w) * wd) * p
+//            s   = s + g * g
+//            p   = p - lr * (g / (sqrt(s) + eps) + (w * wd) * p)
+//   NovoGrad gn  = (g * gs) / denom + (reg * wd) * p
+//            m   = b1 * m + beta3 * gn                 (m fp32 or bf16)
+//            p   = p - lr * (m / c1 + ((1 - reg) * wd) * p)
+// with the hyperparameters in one fp32 vector on the device, in the JAX
+// kernel's order: SGD (lr, mom, damp, wd, nesterov, wd_after, first, gs,
+// use_mom), Adagrad (lr, eps, wd, w, gs), NovoGrad (lr, b1, beta3, wd, c1,
+// reg, gs). NovoGrad's denom = sqrt(v / c2) + eps is one fp32 per (8, 128)
+// sub-tile (the tensor's, from its per-tensor second moment), the value the
+// JAX kernel divides by. The JAX kernels alias p and the state in place
+// (input_output_aliases); so do these: each element is read and written by
+// one thread. The optional cast-out writes bf16(p). With the device flag
+// found_inf set the kernel leaves p and the state as they are and writes
+// bf16 of the old p, so a skipped step needs no select pass.
+//
+// Bound on an H100: bytes. SGD reads g, p, buf and writes p, buf: 20 B an
+// element (fp32 buf), 16 B with a bf16 buf plus 2 B of cast-out; Adagrad
+// 20 B; NovoGrad 20 B (fp32 m) and the 4 B a sub-tile of denom. Grid-stride,
+// four elements a thread a step, as apx_flat_adam.
+// ---------------------------------------------------------------------------
+
+template <typename BT>
+__global__ void __launch_bounds__(kThreads)
+sgd_kernel(const float* __restrict__ g, float* __restrict__ p,
+           BT* __restrict__ buf, __nv_bfloat16* __restrict__ pc_out,
+           const float* __restrict__ hp, const uint8_t* __restrict__ found,
+           int64_t n4) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  if (found != nullptr && *found != 0) {  // skipped step: p, buf as they are
+    if (pc_out != nullptr)
+      for (int64_t i = start; i < n4; i += stride) {
+        float pv[4];
+        load4(p, i, pv);
+        store4(pc_out, i, pv);
+      }
+    return;
+  }
+  const float lr = hp[0], mom = hp[1], damp = hp[2], wd = hp[3];
+  const bool nesterov = hp[4] > 0.f, first = hp[6] > 0.f;
+  const bool use_mom = hp[8] > 0.f;
+  const float wda = hp[5], gs = hp[7];
+  const float l2 = __fmul_rn(__fsub_rn(1.f, wda), wd);  // (1 - wd_after) * wd
+  const float dw = __fmul_rn(wda, wd);                   // wd_after * wd
+  const float odamp = __fsub_rn(1.f, damp);
+  for (int64_t i = start; i < n4; i += stride) {
+    float gv[4], pv[4], bv[4];
+    load4(g, i, gv);
+    load4(p, i, pv);
+    if (use_mom) load4(buf, i, bv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float gg = __fadd_rn(__fmul_rn(gv[e], gs), __fmul_rn(l2, pv[e]));
+      float d = gg;
+      if (use_mom) {
+        bv[e] = first ? gg
+                      : __fadd_rn(__fmul_rn(mom, bv[e]), __fmul_rn(odamp, gg));
+        d = nesterov ? __fadd_rn(gg, __fmul_rn(mom, bv[e])) : bv[e];
+      }
+      d = __fadd_rn(d, __fmul_rn(dw, pv[e]));
+      pv[e] = __fsub_rn(pv[e], __fmul_rn(lr, d));
+    }
+    store4(p, i, pv);
+    if (use_mom) store4(buf, i, bv);
+    if (pc_out != nullptr) store4(pc_out, i, pv);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+adagrad_kernel(const float* __restrict__ g, float* __restrict__ p,
+               float* __restrict__ s, __nv_bfloat16* __restrict__ pc_out,
+               const float* __restrict__ hp,
+               const uint8_t* __restrict__ found, int64_t n4) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  if (found != nullptr && *found != 0) {  // skipped step: p, s as they are
+    if (pc_out != nullptr)
+      for (int64_t i = start; i < n4; i += stride) {
+        float pv[4];
+        load4(p, i, pv);
+        store4(pc_out, i, pv);
+      }
+    return;
+  }
+  const float lr = hp[0], eps = hp[1], wd = hp[2], w = hp[3], gs = hp[4];
+  const float l2 = __fmul_rn(__fsub_rn(1.f, w), wd);  // (1 - w) * wd
+  const float dw = __fmul_rn(w, wd);                   // w * wd
+  for (int64_t i = start; i < n4; i += stride) {
+    float gv[4], pv[4], sv[4];
+    load4(g, i, gv);
+    load4(p, i, pv);
+    load4(s, i, sv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float gg = __fadd_rn(__fmul_rn(gv[e], gs), __fmul_rn(l2, pv[e]));
+      sv[e] = __fadd_rn(sv[e], __fmul_rn(gg, gg));
+      const float u = __fadd_rn(
+          __fdiv_rn(gg, __fadd_rn(__fsqrt_rn(sv[e]), eps)),
+          __fmul_rn(dw, pv[e]));
+      pv[e] = __fsub_rn(pv[e], __fmul_rn(lr, u));
+    }
+    store4(p, i, pv);
+    store4(s, i, sv);
+    if (pc_out != nullptr) store4(pc_out, i, pv);
+  }
+}
+
+template <typename MT>
+__global__ void __launch_bounds__(kThreads)
+novograd_kernel(const float* __restrict__ g, float* __restrict__ p,
+                MT* __restrict__ m, const float* __restrict__ denom,
+                __nv_bfloat16* __restrict__ pc_out,
+                const float* __restrict__ hp,
+                const uint8_t* __restrict__ found, int64_t n4) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  if (found != nullptr && *found != 0) {  // skipped step: p, m as they are
+    if (pc_out != nullptr)
+      for (int64_t i = start; i < n4; i += stride) {
+        float pv[4];
+        load4(p, i, pv);
+        store4(pc_out, i, pv);
+      }
+    return;
+  }
+  const float lr = hp[0], b1 = hp[1], beta3 = hp[2], wd = hp[3];
+  const float c1 = hp[4], reg = hp[5], gs = hp[6];
+  const float rw = __fmul_rn(reg, wd);                   // reg * wd
+  const float dw = __fmul_rn(__fsub_rn(1.f, reg), wd);   // (1 - reg) * wd
+  for (int64_t i = start; i < n4; i += stride) {
+    float gv[4], pv[4], mv[4];
+    load4(g, i, gv);
+    load4(p, i, pv);
+    load4(m, i, mv);
+    const float dn = denom[i / kSub4];  // the sub-tile's tensor's denom
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float gn = __fadd_rn(__fdiv_rn(__fmul_rn(gv[e], gs), dn),
+                                 __fmul_rn(rw, pv[e]));
+      mv[e] = __fadd_rn(__fmul_rn(b1, mv[e]), __fmul_rn(beta3, gn));
+      const float u = __fadd_rn(__fdiv_rn(mv[e], c1), __fmul_rn(dw, pv[e]));
+      pv[e] = __fsub_rn(pv[e], __fmul_rn(lr, u));
+    }
+    store4(p, i, pv);
+    store4(m, i, mv);
+    if (pc_out != nullptr) store4(pc_out, i, pv);
+  }
+}
+
 int64_t grid_stride_blocks(int64_t n4) {
   int64_t blocks = (n4 + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
@@ -489,6 +656,68 @@ int apx_flat_lamb_stage1(const void* g, const void* p, const void* m,
     lamb_stage1_kernel<float><<<blocks, kThreads, 0, st>>>(
         gp, pp, static_cast<const float*>(m), vp, static_cast<float*>(m_out),
         vo, uo, pq, uq, h, f, n / 4, n_sub);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g, p: n fp32 elements (n a multiple of 4, 16-byte aligned); buf: fp32
+// (buf_bf16 = 0) or bf16 (1), updated in place with p; pc_out: bf16 or null;
+// hp: the nine fp32 hyperparameters on the device; found_inf: a device bool
+// or null.
+int apx_flat_sgd(const void* g, void* p, void* buf, void* pc_out,
+                 const void* hp, const void* found_inf, long long n,
+                 int buf_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = grid_stride_blocks(n / 4);
+  const float* gp = static_cast<const float*>(g);
+  float* pp = static_cast<float*>(p);
+  __nv_bfloat16* pc = static_cast<__nv_bfloat16*>(pc_out);
+  const float* h = static_cast<const float*>(hp);
+  const uint8_t* f = static_cast<const uint8_t*>(found_inf);
+  if (buf_bf16)
+    sgd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
+        gp, pp, static_cast<__nv_bfloat16*>(buf), pc, h, f, n / 4);
+  else
+    sgd_kernel<float><<<blocks, kThreads, 0, st>>>(
+        gp, pp, static_cast<float*>(buf), pc, h, f, n / 4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g, p, s: n fp32 elements (n a multiple of 4, 16-byte aligned), p and s
+// updated in place; pc_out: bf16 or null; hp: the five fp32 hyperparameters
+// on the device; found_inf: a device bool or null.
+int apx_flat_adagrad(const void* g, void* p, void* s, void* pc_out,
+                     const void* hp, const void* found_inf, long long n,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  adagrad_kernel<<<grid_stride_blocks(n / 4), kThreads, 0, st>>>(
+      static_cast<const float*>(g), static_cast<float*>(p),
+      static_cast<float*>(s), static_cast<__nv_bfloat16*>(pc_out),
+      static_cast<const float*>(hp), static_cast<const uint8_t*>(found_inf),
+      n / 4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g, p: n fp32 elements (n a multiple of 1,024, 16-byte aligned); m: fp32
+// (m_bf16 = 0) or bf16 (1), updated in place with p; denom: n / 1024 fp32,
+// one a sub-tile; pc_out: bf16 or null; hp: the seven fp32 hyperparameters
+// on the device; found_inf: a device bool or null.
+int apx_flat_novograd(const void* g, void* p, void* m, const void* denom,
+                      void* pc_out, const void* hp, const void* found_inf,
+                      long long n, int m_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = grid_stride_blocks(n / 4);
+  const float* gp = static_cast<const float*>(g);
+  float* pp = static_cast<float*>(p);
+  const float* dn = static_cast<const float*>(denom);
+  __nv_bfloat16* pc = static_cast<__nv_bfloat16*>(pc_out);
+  const float* h = static_cast<const float*>(hp);
+  const uint8_t* f = static_cast<const uint8_t*>(found_inf);
+  if (m_bf16)
+    novograd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
+        gp, pp, static_cast<__nv_bfloat16*>(m), dn, pc, h, f, n / 4);
+  else
+    novograd_kernel<float><<<blocks, kThreads, 0, st>>>(
+        gp, pp, static_cast<float*>(m), dn, pc, h, f, n / 4);
   return static_cast<int>(cudaGetLastError());
 }
 

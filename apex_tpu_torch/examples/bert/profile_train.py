@@ -44,7 +44,8 @@ BATCH, SEQ = 64, 128
 OURS = ("layer_norm_fwd_kernel", "layer_norm_bwd", "flash_fwd_kernel",
         "flash_dq_kernel", "flash_dkv_kernel", "xent_fwd_kernel",
         "xent_bwd_kernel", "softmax_fwd", "softmax_bwd", "adam_kernel",
-        "l2_partials_kernel", "lamb_stage1_kernel")
+        "l2_partials_kernel", "lamb_stage1_kernel", "sgd_kernel",
+        "adagrad_kernel", "novograd_kernel")
 GEMM = ("gemm", "xmma", "cutlass", "sm90_", "cublas", "nvjet")
 
 

@@ -12,7 +12,8 @@ def params_from_jax(tree: Any, device: DeviceLike,
                     dtype: Optional[torch.dtype] = None) -> Any:
     """Map a JAX parameter tree, given as numpy arrays, onto the port's
     tree with the same keys and the same list layout (BERT keeps its
-    encoder as a list of per-layer dicts). bf16 leaves (numpy dtype
+    encoder as a list of per-layer dicts; ResNet's params and BatchNorm
+    statistics cross as two dict trees). bf16 leaves (numpy dtype
     ``bfloat16``) cross as a uint16 view; ``dtype`` optionally casts
     floating leaves."""
     dev = resolve_device(device)

@@ -1,7 +1,8 @@
 """Multi-tensor engine (counterpart of ``apex_tpu/multi_tensor_apply``):
 the list ops of the apex API, the flat ``(rows, 128)`` buffer layout and
-the flat-buffer kernels (``flat_adam``, ``flat_lamb``, ``flat_scale``,
-``flat_axpby``, ``flat_l2norm``)."""
+the flat-buffer kernels (``flat_adam``, ``flat_lamb``, ``flat_sgd``,
+``flat_adagrad``, ``flat_novograd``, ``flat_scale``, ``flat_axpby``,
+``flat_l2norm``)."""
 
 from apex_tpu_torch.multi_tensor_apply.flatten import (  # noqa: F401
     FlatSpec,

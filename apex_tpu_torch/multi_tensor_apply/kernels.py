@@ -4,17 +4,24 @@
 True)`` runs; ``flat_lamb`` (``_l2_kernel`` for the global grad-norm
 pre-pass and ``_lamb_stage1_kernel``, then stage 2 in PyTorch), the one
 ``FusedLAMB(use_flat_kernel=True)`` runs; ``flat_scale`` and
-``flat_axpby`` (``_scale_kernel``, ``_axpby_kernel``).
+``flat_axpby`` (``_scale_kernel``, ``_axpby_kernel``); ``flat_sgd``,
+``flat_adagrad`` and ``flat_novograd`` (``_sgd_kernel``,
+``_adagrad_kernel``, and ``_l2_kernel`` then ``_novograd_kernel``), the
+ones ``FusedSGD``, ``FusedAdagrad`` and ``FusedNovoGrad`` run with
+``use_flat_kernel=True``.
 
 Hyperparameters are one fp32 vector on the device (the JAX kernel's SMEM
 vector), with the bias corrections ``c1 = 1 - beta1^t`` and ``c2 = 1 -
-beta2^t`` computed there from the step, and LAMB's ``1 / clip`` there
-from the grad-norm pre-pass, so a step never waits on the host.
-``found_inf`` (a 0-d bool on the device, apex's ``noop_flag``) makes the
-step write the old values.
+beta2^t`` computed there from the step, LAMB's ``1 / clip`` there from
+the grad-norm pre-pass, SGD's first-run flag from the step count and
+NovoGrad's per-tensor second moment from the L2 pre-pass, so a step never
+waits on the host. ``found_inf`` (a 0-d bool on the device, apex's
+``noop_flag``) makes the step write the old values.
 
-Outputs are new tensors: the inputs, the caller's optimizer state among
-them, stay as they were (JAX aliases them under jit, a pure update).
+Adam's and LAMB's outputs are new tensors: the inputs, the caller's
+optimizer state among them, stay as they were. SGD, Adagrad and NovoGrad
+update params and state in place and return those same tensors, as the
+JAX kernels alias them (``input_output_aliases``).
 
 Dispatch: a CUDA tensor launches the hand-written kernel
 (``csrc/multi_tensor.cu``) or raises; a CPU tensor takes the plain
@@ -45,6 +52,9 @@ FLAT_AXPBY = Kernel(LIB, "apx_flat_axpby", [_P] * 5 + [_N, _I, _I, _I, _P])
 FLAT_L2NORM = Kernel(LIB, "apx_flat_l2norm_partials", [_P, _P, _N, _N, _P])
 FLAT_LAMB_STAGE1 = Kernel(LIB, "apx_flat_lamb_stage1",
                           [_P] * 11 + [_N, _I, _P])
+FLAT_SGD = Kernel(LIB, "apx_flat_sgd", [_P] * 6 + [_N, _I, _P])
+FLAT_ADAGRAD = Kernel(LIB, "apx_flat_adagrad", [_P] * 6 + [_N, _P])
+FLAT_NOVOGRAD = Kernel(LIB, "apx_flat_novograd", [_P] * 7 + [_N, _I, _P])
 _M_DTYPES = (torch.float32, torch.bfloat16)
 _IO_DTYPES = (torch.float32, torch.bfloat16)   # flat_scale, flat_axpby
 SUB = 8 * LANES     # elements in one (8, 128) sub-tile: one partial each
@@ -350,19 +360,25 @@ def flat_l2norm(buf: torch.Tensor) -> torch.Tensor:
 
 def lamb_hparams(*, beta1: float, beta2: float, eps: float, step: Scalar,
                  weight_decay: Scalar, adam_w_mode: bool,
-                 gs_over_clip: torch.Tensor, device) -> torch.Tensor:
+                 gs_over_clip: torch.Tensor, device,
+                 bias_correction: bool = True,
+                 grad_averaging: bool = True) -> torch.Tensor:
     """The (9,) fp32 vector of LAMB's stage 1, on ``device``, in the JAX
     kernel's order: ``b1, b2, eps, wd, c1, c2, adam_w, beta3, grad_scale
-    / clip``. Bias correction and grad averaging are always on (the JAX
-    defaults): c1 and c2 in fp32 from the step; ``beta3 = 1 - beta1``
-    taken in float64 and rounded, as the JAX flat path takes it (its tree
-    path subtracts in fp32)."""
+    / clip``. c1 and c2 in fp32 from the step (1.0 without bias
+    correction); ``beta3 = 1 - beta1`` with grad averaging, taken in
+    float64 and rounded, as the JAX flat path takes it (its tree path
+    subtracts in fp32), else 1.0."""
     b1, b2 = _f32(beta1, device), _f32(beta2, device)
-    t = _f32(step, device)
+    if bias_correction:
+        t = _f32(step, device)
+        c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+    else:
+        c1 = c2 = _f32(1.0, device)
     return torch.stack([
-        b1, b2, _f32(eps, device), _f32(weight_decay, device),
-        1.0 - b1 ** t, 1.0 - b2 ** t,
-        _f32(1.0 if adam_w_mode else 0.0, device), _f32(1.0 - beta1, device),
+        b1, b2, _f32(eps, device), _f32(weight_decay, device), c1, c2,
+        _f32(1.0 if adam_w_mode else 0.0, device),
+        _f32(1.0 - beta1 if grad_averaging else 1.0, device),
         gs_over_clip.to(device=device, dtype=torch.float32)])
 
 
@@ -497,7 +513,8 @@ def flat_lamb(grads: torch.Tensor, params: torch.Tensor, m: torch.Tensor,
               v: torch.Tensor, tile_ids: torch.Tensor,
               tile_counts: torch.Tensor, *, lr: Scalar, beta1: float,
               beta2: float, eps: float, step: Scalar, weight_decay: Scalar,
-              adam_w_mode: bool = True, use_nvlamb: bool = False,
+              adam_w_mode: bool = True, grad_averaging: bool = True,
+              bias_correction: bool = True, use_nvlamb: bool = False,
               max_grad_norm: float = 1.0,
               emit_compute_dtype: Optional[torch.dtype] = None,
               found_inf: Optional[torch.Tensor] = None
@@ -516,7 +533,8 @@ def flat_lamb(grads: torch.Tensor, params: torch.Tensor, m: torch.Tensor,
       ``tile_ids`` (``FlatSpec.tile_tensor_ids(8)``), both on the
       device.
 
-    Bias correction and grad averaging are on, as the JAX defaults.
+    ``bias_correction=False`` takes c1 = c2 = 1, ``grad_averaging=False``
+    beta3 = 1, as in JAX.
 
     Returns ``(p, m, v)``, or ``(p, m, v, compute)`` with
     ``emit_compute_dtype``. ``m`` may be bf16 (fp32 accumulate);
@@ -530,7 +548,8 @@ def flat_lamb(grads: torch.Tensor, params: torch.Tensor, m: torch.Tensor,
         weight_decay=weight_decay, adam_w_mode=adam_w_mode,
         gs_over_clip=lamb_inv_clip(flat_l2norm_partials(grads),
                                    max_grad_norm),
-        device=params.device)
+        device=params.device, bias_correction=bias_correction,
+        grad_averaging=grad_averaging)
     stage1 = flat_lamb_stage1_kernel if on_card(params, "params") else \
         flat_lamb_stage1_plain
     m_new, v_new, u, p_parts, u_parts = stage1(grads, params, m, v, hp,
@@ -541,3 +560,304 @@ def flat_lamb(grads: torch.Tensor, params: torch.Tensor, m: torch.Tensor,
     if emit_compute_dtype is not None:
         return p_new, m_new, v_new, p_new.to(emit_compute_dtype)
     return p_new, m_new, v_new
+
+
+# ---------------------------------------------------------------------------
+# SGD (row 17), Adagrad (row 19) and NovoGrad (row 20): in place, as the JAX
+# kernels alias params and state
+# ---------------------------------------------------------------------------
+
+def _finish_in_place(params, states, new_params, new_states, found_inf,
+                     emit_compute_dtype) -> Tuple[torch.Tensor, ...]:
+    """The plain versions' tail: ``found_inf`` keeps the old values, the
+    new ones are copied into ``params`` and ``states`` (the kernels'
+    aliasing), and ``(params, *states[, compute])`` is returned."""
+    if found_inf is not None:
+        new_params = torch.where(found_inf, params, new_params)
+        new_states = [torch.where(found_inf, s, n)
+                      for s, n in zip(states, new_states)]
+    params.copy_(new_params)
+    for s, n in zip(states, new_states):
+        s.copy_(n)
+    outs = (params,) + tuple(states)
+    if emit_compute_dtype is not None:
+        outs += (params.to(emit_compute_dtype),)
+    return outs
+
+
+def _check_in_place(who: str, grads, params, states, hp, n_hp, found_inf,
+                    emit_compute_dtype, multiple: int = 4) -> None:
+    _check_buffer(who, params, multiple=multiple)
+    _check(who, "grads", grads, params)
+    for name, t, dts in states:
+        _check(who, name, t, params, dts)
+    _check_device_vector(who, hp, n_hp, params)
+    _check_found(who, found_inf, params)
+    if emit_compute_dtype not in (None, torch.bfloat16):
+        raise RuntimeError(f"{who} kernel casts out to bf16 only, not "
+                           f"{emit_compute_dtype}")
+
+
+def _cast_out(params, emit_compute_dtype) -> Optional[torch.Tensor]:
+    return None if emit_compute_dtype is None else \
+        torch.empty_like(params, dtype=torch.bfloat16)
+
+
+def sgd_hparams(*, lr: Scalar, momentum: float, dampening: float,
+                weight_decay: Scalar, nesterov: bool,
+                wd_after_momentum: bool, first_run, grad_scale: Scalar,
+                device) -> torch.Tensor:
+    """The (9,) fp32 vector of ``_sgd_kernel``, on ``device``, in its
+    order: ``lr, momentum, dampening, wd, nesterov, wd_after, first,
+    grad_scale, use_momentum``; ``first_run`` may be a 0-d bool tensor on
+    the device (the step count is 0)."""
+    first = first_run.to(device=device, dtype=torch.float32) \
+        if isinstance(first_run, torch.Tensor) else \
+        _f32(1.0 if first_run else 0.0, device)
+    return torch.stack([
+        _f32(lr, device), _f32(momentum, device), _f32(dampening, device),
+        _f32(weight_decay, device), _f32(1.0 if nesterov else 0.0, device),
+        _f32(1.0 if wd_after_momentum else 0.0, device), first,
+        _f32(grad_scale, device), _f32(1.0 if momentum > 0 else 0.0, device)])
+
+
+def flat_sgd_plain(grads, params, buf, hp, found_inf=None,
+                   emit_compute_dtype=None) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the kernel: the same fp32 operations in the same
+    order, written into ``params`` and ``buf``; returns ``(params, buf[,
+    compute])``."""
+    lr, mom, damp, wd, nest, wda, first, gs, use_mom = hp.unbind()
+    p = params
+    g = grads.float() * gs + ((1.0 - wda) * wd) * p
+    b = buf.float()
+    seeded = torch.where(first > 0, g, mom * b + (1.0 - damp) * g)
+    d = torch.where(nest > 0, g + mom * seeded, seeded)
+    d = torch.where(use_mom > 0, d, g)
+    new_buf = torch.where(use_mom > 0, seeded, b).to(buf.dtype)
+    p_new = p - lr * (d + (wda * wd) * p)
+    return _finish_in_place(params, [buf], p_new, [new_buf], found_inf,
+                            emit_compute_dtype)
+
+
+def flat_sgd_kernel(grads, params, buf, hp, found_inf=None,
+                    emit_compute_dtype=None) -> Tuple[torch.Tensor, ...]:
+    """Launch ``apx_flat_sgd`` on CUDA buffers, updating ``params`` and
+    ``buf`` in place: ``(params, buf[, compute])``. Raises on anything the
+    kernel does not take (fp32 grads and params; fp32 or bf16 buf; a
+    bf16 cast-out)."""
+    who = "flat_sgd"
+    _check_in_place(who, grads, params, [("buf", buf, _M_DTYPES)], hp, 9,
+                    found_inf, emit_compute_dtype)
+    pc = _cast_out(params, emit_compute_dtype)
+    FLAT_SGD(grads.data_ptr(), params.data_ptr(), buf.data_ptr(), _ptr(pc),
+             hp.data_ptr(), _ptr(found_inf), params.numel(),
+             int(buf.dtype == torch.bfloat16), _stream(params))
+    return (params, buf) if pc is None else (params, buf, pc)
+
+
+def flat_sgd(grads: torch.Tensor, params: torch.Tensor,
+             momentum_buf: torch.Tensor, *, lr: Scalar, momentum: float,
+             dampening: float, weight_decay: Scalar, nesterov: bool,
+             wd_after_momentum: bool, first_run, grad_scale: Scalar = 1.0,
+             emit_compute_dtype: Optional[torch.dtype] = None,
+             found_inf: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, ...]:
+    """One fused SGD step over flat buffers (the JAX ``flat_sgd``: the
+    ``first_run`` buffer seeding, ``wd_after_momentum``, Nesterov).
+    ``params`` and ``momentum_buf`` are updated in place and returned as
+    ``(params, buf)``, or ``(params, buf, compute)`` with
+    ``emit_compute_dtype``. ``momentum_buf`` may be bf16 (fp32
+    accumulate); it is written only with momentum. ``first_run`` may be a
+    0-d bool tensor on the device; ``found_inf`` True leaves params and
+    buffer as they were."""
+    hp = sgd_hparams(lr=lr, momentum=momentum, dampening=dampening,
+                     weight_decay=weight_decay, nesterov=nesterov,
+                     wd_after_momentum=wd_after_momentum,
+                     first_run=first_run, grad_scale=grad_scale,
+                     device=params.device)
+    fn = flat_sgd_kernel if on_card(params, "params") else flat_sgd_plain
+    return fn(grads, params, momentum_buf, hp, found_inf, emit_compute_dtype)
+
+
+def adagrad_hparams(*, lr: Scalar, eps: float, weight_decay: Scalar,
+                    adagrad_w_mode: bool, grad_scale: Scalar,
+                    device) -> torch.Tensor:
+    """The (5,) fp32 vector of ``_adagrad_kernel``: ``lr, eps, wd,
+    adagrad_w, grad_scale``."""
+    return torch.stack([
+        _f32(lr, device), _f32(eps, device), _f32(weight_decay, device),
+        _f32(1.0 if adagrad_w_mode else 0.0, device),
+        _f32(grad_scale, device)])
+
+
+def flat_adagrad_plain(grads, params, gsum, hp, found_inf=None,
+                       emit_compute_dtype=None) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the kernel, written into ``params`` and ``gsum``:
+    ``(params, gsum[, compute])``."""
+    lr, eps, wd, w, gs = hp.unbind()
+    p = params
+    g = grads.float() * gs + ((1.0 - w) * wd) * p
+    s = gsum + g * g
+    p_new = p - lr * (g / (torch.sqrt(s) + eps) + (w * wd) * p)
+    return _finish_in_place(params, [gsum], p_new, [s], found_inf,
+                            emit_compute_dtype)
+
+
+def flat_adagrad_kernel(grads, params, gsum, hp, found_inf=None,
+                        emit_compute_dtype=None) -> Tuple[torch.Tensor, ...]:
+    """Launch ``apx_flat_adagrad`` on CUDA fp32 buffers, updating
+    ``params`` and ``gsum`` in place."""
+    who = "flat_adagrad"
+    _check_in_place(who, grads, params, [("sum", gsum, (torch.float32,))],
+                    hp, 5, found_inf, emit_compute_dtype)
+    pc = _cast_out(params, emit_compute_dtype)
+    FLAT_ADAGRAD(grads.data_ptr(), params.data_ptr(), gsum.data_ptr(),
+                 _ptr(pc), hp.data_ptr(), _ptr(found_inf), params.numel(),
+                 _stream(params))
+    return (params, gsum) if pc is None else (params, gsum, pc)
+
+
+def flat_adagrad(grads: torch.Tensor, params: torch.Tensor,
+                 gsum: torch.Tensor, *, lr: Scalar, eps: float,
+                 weight_decay: Scalar, adagrad_w_mode: bool = False,
+                 grad_scale: Scalar = 1.0,
+                 emit_compute_dtype: Optional[torch.dtype] = None,
+                 found_inf: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """One fused Adagrad step over flat fp32 buffers (the JAX
+    ``flat_adagrad``): ``params`` and ``gsum`` updated in place and
+    returned, with the cast-out appended for ``emit_compute_dtype``;
+    ``found_inf`` True leaves them as they were."""
+    hp = adagrad_hparams(lr=lr, eps=eps, weight_decay=weight_decay,
+                         adagrad_w_mode=adagrad_w_mode,
+                         grad_scale=grad_scale, device=params.device)
+    fn = flat_adagrad_kernel if on_card(params, "params") else \
+        flat_adagrad_plain
+    return fn(grads, params, gsum, hp, found_inf, emit_compute_dtype)
+
+
+def novograd_hparams(*, lr: Scalar, beta1: float, step: Scalar,
+                     weight_decay: Scalar, grad_averaging: bool,
+                     bias_correction: bool, reg_inside_moment: bool,
+                     grad_scale: Scalar, device) -> torch.Tensor:
+    """The (7,) fp32 vector of ``_novograd_kernel``: ``lr, b1, beta3, wd,
+    c1, reg_inside, grad_scale``; beta3 = 1 - beta1 taken in float64 and
+    rounded (1.0 without grad averaging), c1 in fp32 from the step (1.0
+    without bias correction), as the JAX flat path takes them."""
+    b1 = _f32(beta1, device)
+    c1 = 1.0 - b1 ** _f32(step, device) if bias_correction else \
+        _f32(1.0, device)
+    return torch.stack([
+        _f32(lr, device), b1,
+        _f32(1.0 - beta1 if grad_averaging else 1.0, device),
+        _f32(weight_decay, device), c1,
+        _f32(1.0 if reg_inside_moment else 0.0, device),
+        _f32(grad_scale, device)])
+
+
+def novograd_moments(grad_partials: torch.Tensor, v: torch.Tensor,
+                     tile_counts: torch.Tensor, tile_ids: torch.Tensor, *,
+                     beta2: float, eps: float, step: Scalar,
+                     bias_correction: bool, init_zero: bool,
+                     grad_scale: Scalar = 1.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NovoGrad's per-tensor part, on the device: ``(v_new, denom)``.
+    ||g||^2 of each tensor from the L2 partials (span sums over
+    ``tile_counts``, times grad_scale^2), ``v_new`` its EMA (``gsq``
+    itself on step 1 unless ``init_zero``), and each sub-tile's
+    ``sqrt(v_new / c2) + eps`` picked by ``tile_ids``, 1 where that is 0
+    (JAX's block-pad rows)."""
+    dev = v.device
+    gs = _f32(grad_scale, dev)
+    gsq = segment_sums(grad_partials[:tile_ids.numel()], tile_counts) \
+        * gs * gs
+    b2 = _f32(beta2, dev)
+    t = _f32(step, dev)
+    ema = b2 * v + (1.0 - b2) * gsq
+    v_new = ema if init_zero else torch.where(t <= 1, gsq, ema)
+    c2 = 1.0 - b2 ** t if bias_correction else _f32(1.0, dev)
+    denom = (torch.sqrt(v_new / c2) + _f32(eps, dev))[tile_ids]
+    return v_new, torch.where(denom == 0, _f32(1.0, dev), denom)
+
+
+def flat_novograd_plain(grads, params, m, denom, hp, found_inf=None,
+                        emit_compute_dtype=None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the elementwise pass, written into ``params`` and
+    ``m``: ``(params, m[, compute])``; ``denom`` is one fp32 a sub-tile."""
+    lr, b1, beta3, wd, c1, reg, gs = hp.unbind()
+    p = params
+    n_sub = denom.numel()
+    gn = ((grads.float() * gs).view(n_sub, SUB) / denom[:, None]).view_as(p)
+    gn = gn + (reg * wd) * p
+    m32 = b1 * m.float() + beta3 * gn
+    p_new = p - lr * (m32 / c1 + ((1.0 - reg) * wd) * p)
+    return _finish_in_place(params, [m], p_new, [m32.to(m.dtype)],
+                            found_inf, emit_compute_dtype)
+
+
+def flat_novograd_kernel(grads, params, m, denom, hp, found_inf=None,
+                         emit_compute_dtype=None
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Launch ``apx_flat_novograd`` on CUDA buffers, updating ``params``
+    and ``m`` in place. Raises on anything the kernel does not take (fp32
+    grads and params, fp32 or bf16 m, a multiple of 1,024 elements, one
+    fp32 denom a sub-tile)."""
+    who = "flat_novograd"
+    _check_in_place(who, grads, params, [("m", m, _M_DTYPES)], hp, 7,
+                    found_inf, emit_compute_dtype, multiple=SUB)
+    _check_device_vector(who, denom, params.numel() // SUB, params)
+    pc = _cast_out(params, emit_compute_dtype)
+    FLAT_NOVOGRAD(grads.data_ptr(), params.data_ptr(), m.data_ptr(),
+                  denom.data_ptr(), _ptr(pc), hp.data_ptr(), _ptr(found_inf),
+                  params.numel(), int(m.dtype == torch.bfloat16),
+                  _stream(params))
+    return (params, m) if pc is None else (params, m, pc)
+
+
+def flat_novograd(grads: torch.Tensor, params: torch.Tensor,
+                  m: torch.Tensor, v: torch.Tensor, tile_ids: torch.Tensor,
+                  tile_counts: torch.Tensor, *, lr: Scalar, beta1: float,
+                  beta2: float, eps: float, step: Scalar,
+                  weight_decay: Scalar, grad_averaging: bool = True,
+                  bias_correction: bool = True,
+                  reg_inside_moment: bool = False, init_zero: bool = False,
+                  grad_scale: Scalar = 1.0,
+                  emit_compute_dtype: Optional[torch.dtype] = None,
+                  found_inf: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, ...]:
+    """One fused NovoGrad step over flat ``(rows, 128)`` buffers (rows a
+    multiple of 8), as the JAX ``flat_novograd`` splits it:
+
+    - the pre-pass: ``flat_l2norm_partials`` of the grads (row 15's
+      kernel), summed per tensor over the spans of ``tile_counts``
+      (``FlatSpec.tile_counts(8)``) into each tensor's ||g||^2;
+    - the ``(num_tensors,)`` second moment ``v`` and each sub-tile's
+      denominator, in PyTorch on the device (``novograd_moments``);
+    - one elementwise pass over p and m (``_novograd_kernel``).
+
+    ``params`` and ``m`` are updated in place; returns ``(params, m,
+    v_new)``, or ``(params, m, v_new, compute)`` with
+    ``emit_compute_dtype``. ``m`` may be bf16 (fp32 accumulate).
+    ``found_inf`` True leaves params and m as they were and gives the
+    old v. Nothing here reads a value back to the host."""
+    if params.dim() != 2 or params.shape[0] % 8:
+        raise ValueError(f"flat_novograd needs a (rows, {LANES}) buffer "
+                         f"with rows a multiple of 8, got "
+                         f"{tuple(params.shape)}")
+    v_new, denom = novograd_moments(
+        flat_l2norm_partials(grads), v, tile_counts, tile_ids, beta2=beta2,
+        eps=eps, step=step, bias_correction=bias_correction,
+        init_zero=init_zero, grad_scale=grad_scale)
+    hp = novograd_hparams(lr=lr, beta1=beta1, step=step,
+                          weight_decay=weight_decay,
+                          grad_averaging=grad_averaging,
+                          bias_correction=bias_correction,
+                          reg_inside_moment=reg_inside_moment,
+                          grad_scale=grad_scale, device=params.device)
+    fn = flat_novograd_kernel if on_card(params, "params") else \
+        flat_novograd_plain
+    outs = fn(grads, params, m, denom, hp, found_inf, emit_compute_dtype)
+    if found_inf is not None:
+        v_new = torch.where(found_inf, v, v_new)
+    return outs[:2] + (v_new,) + outs[2:]

@@ -135,20 +135,30 @@ def flat_layout(cache: dict, params: Any
 
 
 class FusedOptimizer:
-    """What the fused optimizers share: the state (a step count and the
-    moments m and v, by leaf or flat), the dispatch between the tree path
-    (plain PyTorch) and the flat path (kernels), the ``found_inf`` skip
-    and the compute-param tail. A subclass sets ``State`` and gives the
-    update: ``_tree_step(grads, params, state)`` and ``_flat_update(gbuf,
-    pbuf, state, step, layout, emit, found_inf)``, the flat kernel's
-    ``(p, m, v[, compute])`` buffers. ``State`` is a NamedTuple of
-    ``(step, m, v)``: a 0-d int32 count and the moments."""
+    """What the fused optimizers share: the state (a 0-d int32 step count
+    beside the subclass's buffers, by leaf or flat), the dispatch between
+    the tree path (plain PyTorch) and the flat path (kernels), the
+    ``found_inf`` skip and the compute-param tail.
+
+    A subclass sets ``State``, a NamedTuple whose first field is ``step``
+    and whose other fields keep the JAX state's names, and gives:
+
+    - ``_zero_state(params, spec)``: those other fields, zeroed, as a
+      dict (``spec`` the flat layout on the flat path, None on the tree
+      path; :meth:`_zeros` makes one zeroed buffer of either kind). The
+      default is Adam's and LAMB's: a first moment m in ``m_dtype`` and
+      a second moment v in fp32;
+    - ``_tree_step(grads, params, state)``: ``(params, state)``;
+    - ``_flat_update(gbuf, pbuf, state, t, layout, emit, found_inf)``:
+      the flat kernel's ``(p buffer, {field: new state}, compute buffer
+      or None)``, with ``t`` the new step count."""
 
     State: type
 
     def __init__(self, *, use_flat_kernel: bool, m_dtype: torch.dtype,
                  emit_compute_params: bool):
-        # reduced-precision first moment (fp32 accumulate, v stays fp32)
+        # reduced-precision first moment (fp32 accumulate; second moments
+        # and sums stay fp32)
         self.m_dtype = check_m_dtype(m_dtype)
         # fused cast-out: step also returns the updated params cast to
         # the compute dtypes (amp O2 then skips its per-step cast)
@@ -156,16 +166,25 @@ class FusedOptimizer:
         self.use_flat_kernel = use_flat_kernel
         self._specs = {}  # flat layouts, by tree structure and leaf shapes
 
+    @staticmethod
+    def _zeros(params: Any, spec: Optional[FlatSpec],
+               dtype: torch.dtype) -> Any:
+        """A zeroed state buffer: flat for ``spec``, else by leaf."""
+        if spec is not None:
+            return zeros_buffer(spec, dtype, tree_flatten(params)[0][0]
+                                .device)
+        return tree_zeros(params, dtype)
+
+    def _zero_state(self, params: Any, spec: Optional[FlatSpec]) -> dict:
+        return dict(m=self._zeros(params, spec, self.m_dtype),
+                    v=self._zeros(params, spec, torch.float32))
+
     def init(self, params: Any):
         dev = tree_flatten(params)[0][0].device
         step = torch.zeros((), dtype=torch.int32, device=dev)
-        if self.use_flat_kernel:
-            spec = flat_layout(self._specs, params)[2]
-            return self.State(step=step,
-                              m=zeros_buffer(spec, self.m_dtype, dev),
-                              v=zeros_buffer(spec, torch.float32, dev))
-        return self.State(step=step, m=tree_zeros(params, self.m_dtype),
-                          v=tree_zeros(params, torch.float32))
+        spec = flat_layout(self._specs, params)[2] \
+            if self.use_flat_kernel else None
+        return self.State(step=step, **self._zero_state(params, spec))
 
     def step(self, grads: Any, params: Any, state, *,
              found_inf: Optional[torch.Tensor] = None,
@@ -173,10 +192,10 @@ class FusedOptimizer:
         """One step on unscaled gradients (the loss scaler's ``unscale``
         comes first).
 
-        With ``found_inf`` True the step is skipped: params, m, v and the
-        step count stay put. With ``emit_compute_params`` the return
-        grows to ``(params, state, compute)``, the updated params cast to
-        the dtypes of ``compute_params`` (or bf16 without it)."""
+        With ``found_inf`` True the step is skipped: params, the state
+        and the step count stay put. With ``emit_compute_params`` the
+        return grows to ``(params, state, compute)``, the updated params
+        cast to the dtypes of ``compute_params`` (or bf16 without it)."""
         if self.use_flat_kernel:
             new_params, new_state, pc = self._flat_step(grads, params, state,
                                                         found_inf)
@@ -202,11 +221,11 @@ class FusedOptimizer:
         pbuf, _ = flatten_tensors(leaves, spec)
         t = state.step + 1
         emit = torch.bfloat16 if self.emit_compute_params else None
-        outs = self._flat_update(gbuf, pbuf, state, t, layout, emit,
-                                 found_inf)
-        new_params = unflatten_pytree(outs[0], spec, treedef)
-        pc = None if emit is None else \
-            unflatten_pytree(outs[3], spec, treedef, cast_back=False)
+        p_new, fields, pc_buf = self._flat_update(gbuf, pbuf, state, t,
+                                                  layout, emit, found_inf)
+        new_params = unflatten_pytree(p_new, spec, treedef)
+        pc = None if pc_buf is None else \
+            unflatten_pytree(pc_buf, spec, treedef, cast_back=False)
         if found_inf is not None:  # the step count stays put too
             t = torch.where(found_inf, state.step, t)
-        return new_params, self.State(step=t, m=outs[1], v=outs[2]), pc
+        return new_params, self.State(step=t, **fields), pc

@@ -30,12 +30,13 @@ class AdamState(NamedTuple):
 
 
 class FusedAdam(FusedOptimizer):
-    """Bias-corrected Adam (AdamW with ``adam_w_mode``); ``init`` and
-    ``step`` are ``FusedOptimizer``'s."""
+    """Adam (AdamW with ``adam_w_mode``), bias-corrected unless
+    ``bias_correction=False`` (then c1 = c2 = 1); ``init`` and ``step``
+    are ``FusedOptimizer``'s."""
 
     State = AdamState
 
-    def __init__(self, lr: float = 1e-3,
+    def __init__(self, lr: float = 1e-3, bias_correction: bool = True,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                  adam_w_mode: bool = True, weight_decay: float = 0.0,
                  amsgrad: bool = False, *, use_flat_kernel: bool = False,
@@ -47,6 +48,7 @@ class FusedAdam(FusedOptimizer):
         super().__init__(use_flat_kernel=use_flat_kernel, m_dtype=m_dtype,
                          emit_compute_params=emit_compute_params)
         self.lr = lr
+        self.bias_correction = bias_correction
         self.beta1, self.beta2 = betas
         self.eps = eps
         self.adam_w_mode = adam_w_mode
@@ -59,8 +61,10 @@ class FusedAdam(FusedOptimizer):
         t = state.step + 1
         tf = t.to(torch.float32)
         one = f32(1.0, dev)
-        c1 = one - b1 ** tf
-        c2 = one - b2 ** tf
+        if self.bias_correction:
+            c1, c2 = one - b1 ** tf, one - b2 ** tf
+        else:
+            c1 = c2 = one
         aw = self.adam_w_mode
         md = self.m_dtype
 
@@ -81,8 +85,11 @@ class FusedAdam(FusedOptimizer):
         return new_params, AdamState(step=t, m=new_m, v=new_v)
 
     def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf):
-        return flat_adam(
+        outs = flat_adam(
             gbuf, pbuf, state.m, state.v, lr=self.lr, beta1=self.beta1,
             beta2=self.beta2, eps=self.eps, step=t,
             weight_decay=self.weight_decay, adam_w_mode=self.adam_w_mode,
-            emit_compute_dtype=emit, found_inf=found_inf)
+            bias_correction=self.bias_correction, emit_compute_dtype=emit,
+            found_inf=found_inf)
+        return outs[0], dict(m=outs[1], v=outs[2]), \
+            outs[3] if emit else None

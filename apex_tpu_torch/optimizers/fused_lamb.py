@@ -33,16 +33,18 @@ class LambState(NamedTuple):
 
 
 class FusedLAMB(FusedOptimizer):
-    """LAMB with bias correction and grad averaging (the JAX defaults,
-    the only values any caller uses); ``init`` and ``step`` are
-    ``FusedOptimizer``'s, with the signature of ``FusedAdam``'s."""
+    """LAMB; ``bias_correction=False`` takes c1 = c2 = 1 and
+    ``grad_averaging=False`` beta3 = 1 (the m update's weight on g).
+    ``init`` and ``step`` are ``FusedOptimizer``'s, with the signature of
+    ``FusedAdam``'s."""
 
     State = LambState
 
-    def __init__(self, lr: float = 1e-3,
+    def __init__(self, lr: float = 1e-3, bias_correction: bool = True,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-6,
                  weight_decay: float = 0.01, amsgrad: bool = False,
-                 adam_w_mode: bool = True, max_grad_norm: float = 1.0,
+                 adam_w_mode: bool = True, grad_averaging: bool = True,
+                 max_grad_norm: float = 1.0,
                  use_nvlamb: bool = False, *, use_flat_kernel: bool = False,
                  m_dtype: torch.dtype = torch.float32,
                  emit_compute_params: bool = False):
@@ -52,10 +54,12 @@ class FusedLAMB(FusedOptimizer):
         super().__init__(use_flat_kernel=use_flat_kernel, m_dtype=m_dtype,
                          emit_compute_params=emit_compute_params)
         self.lr = lr
+        self.bias_correction = bias_correction
         self.beta1, self.beta2 = betas
         self.eps = eps
         self.weight_decay = weight_decay
         self.adam_w_mode = adam_w_mode
+        self.grad_averaging = grad_averaging
         self.max_grad_norm = max_grad_norm
         # NVLAMB: the trust ratio even for tensors without weight decay
         self.use_nvlamb = use_nvlamb
@@ -67,8 +71,11 @@ class FusedLAMB(FusedOptimizer):
         one = f32(1.0, dev)
         t = state.step + 1
         tf = t.to(torch.float32)
-        beta3 = one - b1
-        c1, c2 = one - b1 ** tf, one - b2 ** tf
+        beta3 = one - b1 if self.grad_averaging else one
+        if self.bias_correction:
+            c1, c2 = one - b1 ** tf, one - b2 ** tf
+        else:
+            c1 = c2 = one
         # stage 1 preamble: clip by the global grad norm
         grad_norm = global_grad_norm(tree_map(lambda g: g.float(), grads))
         max_norm = f32(self.max_grad_norm, dev)
@@ -103,9 +110,13 @@ class FusedLAMB(FusedOptimizer):
 
     def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf):
         tile_ids, tile_counts = layout[3:]
-        return flat_lamb(
+        outs = flat_lamb(
             gbuf, pbuf, state.m, state.v, tile_ids, tile_counts, lr=self.lr,
             beta1=self.beta1, beta2=self.beta2, eps=self.eps, step=t,
             weight_decay=self.weight_decay, adam_w_mode=self.adam_w_mode,
+            grad_averaging=self.grad_averaging,
+            bias_correction=self.bias_correction,
             use_nvlamb=self.use_nvlamb, max_grad_norm=self.max_grad_norm,
             emit_compute_dtype=emit, found_inf=found_inf)
+        return outs[0], dict(m=outs[1], v=outs[2]), \
+            outs[3] if emit else None

@@ -87,15 +87,19 @@ def _port_leaves(tree):
 _KW = [dict(weight_decay=0.01),
        dict(weight_decay=0.01, adam_w_mode=False),
        dict(weight_decay=0.0, use_nvlamb=True),
-       dict(weight_decay=0.01, max_grad_norm=0.05)]
-_KW_IDS = ["wd", "l2", "nvlamb_no_wd", "clip"]
+       dict(weight_decay=0.01, max_grad_norm=0.05),
+       dict(weight_decay=0.01, bias_correction=False),
+       dict(weight_decay=0.01, grad_averaging=False)]
+_KW_IDS = ["wd", "l2", "nvlamb_no_wd", "clip", "no_bias_correction",
+           "no_grad_averaging"]
 
 
 def _p_limit(jprev, jm, jv, jnew, kw):
     """LAMB's error model for step 1 (module docstring), per leaf."""
     wd = kw.get("weight_decay", 0.01)
     aw = kw.get("adam_w_mode", True)
-    c1, c2 = 1.0 - 0.9, 1.0 - 0.999
+    c1, c2 = (1.0 - 0.9, 1.0 - 0.999) if kw.get("bias_correction", True) \
+        else (1.0, 1.0)
     out = []
     for p, m, v, pn in zip(jprev, jm, jv, jnew):
         p, m, v = p.double(), m.double(), v.double()

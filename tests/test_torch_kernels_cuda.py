@@ -23,7 +23,13 @@ outputs and the finite flags, with an injected inf or NaN) and LAMB's
 stage 1 (m, v and u); the sums of squares (the L2 partials, stage 1's
 partials, and ``flat_lamb``'s params through the trust ratio) are held
 to ``multi_tensor_apply.kernels.sum_sq_limit`` and ``lamb_p_limit``, and
-must repeat bit for bit. The int8 weight-only matmuls (``w8_matmul``
+must repeat bit for bit. ``flat_sgd``, ``flat_adagrad`` and
+``flat_novograd`` update params and state in place and are held to their
+plain versions bit for bit, on clones of the same inputs, and to a
+second launch; the whole ``flat_novograd`` (partials, per-tensor v,
+elementwise pass) on the card against the CPU's, v to the sum-of-squares
+model and m and p to its effect through the denominator. The int8
+weight-only matmuls (``w8_matmul``
 with and without bias, ``w8_matmul_nk``) are held per element to
 ``quant.kernels.w8_limit`` (two fp32 sum orders over K, the bias
 rounding, one ulp of a bf16 output) and must repeat bit for bit."""
@@ -659,3 +665,183 @@ def test_w8_refused_launch_keeps_the_count(cuda_device):
     w8.w8_matmul(x, wq, scale, b)
     torch.cuda.synchronize()
     assert w8.W8_MATMUL.launches == counts[0] + 1
+
+
+# ---------------------------------------------------------------------------
+# flat_sgd, flat_adagrad and flat_novograd (in place): each kernel against
+# its plain version on clones of the same card inputs, bit for bit (the
+# same fp32 operations in the same order, no FMA); found_inf leaves params
+# and state as they were; two launches give the same bits.
+# ---------------------------------------------------------------------------
+
+def _in_place_check(kernel, plain, counter, args, n_state, found, emit):
+    """``args`` = (grads, params, *states, *rest): the kernel on clones of
+    params and states, twice (from the same inputs), against the plain
+    version on another clone."""
+    g, p, *rest = args
+    states, extra = rest[:n_state], rest[n_state:]
+    fi = None if found is None else torch.tensor(found, device=p.device)
+    emit_dt = torch.bfloat16 if emit else None
+    runs = []
+    before = counter.launches
+    for _ in range(2):
+        pc, sc = p.clone(), [s.clone() for s in states]
+        runs.append(kernel(g, pc, *sc, *extra, fi, emit_dt))
+        assert runs[-1][0] is pc and all(
+            a is b for a, b in zip(runs[-1][1:1 + n_state], sc))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    pp, sp = p.clone(), [s.clone() for s in states]
+    want = plain(g, pp, *sp, *extra, fi, emit_dt)
+    got = runs[0]
+    assert len(got) == len(want) == 1 + n_state + (1 if emit else 0)
+    for i, (a, b, w) in enumerate(zip(got, runs[1], want)):
+        assert a.dtype == w.dtype and torch.equal(a, w), (
+            i, float((a.float() - w.float()).abs().max()))
+        assert torch.equal(a, b)
+    if emit:
+        assert torch.equal(got[-1], got[0].to(torch.bfloat16))
+    if found:
+        assert torch.equal(got[0], p)
+        assert all(torch.equal(a, s) for a, s in zip(got[1:], states))
+    return got
+
+
+_SGD_CASES = {  # the JAX package's FusedSGD cases and the first run
+    "first": dict(momentum=0.9, weight_decay=1e-4, first_run=True),
+    "damp": dict(momentum=0.9, dampening=0.1, weight_decay=1e-4),
+    "nesterov": dict(momentum=0.9, nesterov=True),
+    "wd_after": dict(momentum=0.9, weight_decay=1e-4,
+                     wd_after_momentum=True),
+    "no_momentum": dict(weight_decay=1e-4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buf_dt,emit", [("f32", False), ("bf16", True)])
+@pytest.mark.parametrize("found", [None, False, True])
+@pytest.mark.parametrize("case", sorted(_SGD_CASES))
+def test_flat_sgd_kernel_matches_plain_bitwise(cuda_device, case, found,
+                                               buf_dt, emit):
+    rng = np.random.RandomState(8)
+    rows = 256 * 3
+    g = _flat_buf(rng, rows, "f32", cuda_device, 1e-2)
+    p = _flat_buf(rng, rows, "f32", cuda_device, 1.0)
+    buf = _flat_buf(rng, rows, buf_dt, cuda_device, 1e-2)
+    kw = dict(momentum=0.0, dampening=0.0, weight_decay=0.0, nesterov=False,
+              wd_after_momentum=False, first_run=False)
+    kw.update(_SGD_CASES[case])
+    hp = mta.sgd_hparams(lr=0.1, grad_scale=0.5, device=cuda_device, **kw)
+    got = _in_place_check(mta.flat_sgd_kernel, mta.flat_sgd_plain,
+                          mta.FLAT_SGD, (g, p, buf, hp), 1, found, emit)
+    if case == "no_momentum":
+        assert torch.equal(got[1], buf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("found", [None, False, True])
+@pytest.mark.parametrize("w_mode", [False, True])
+def test_flat_adagrad_kernel_matches_plain_bitwise(cuda_device, w_mode,
+                                                   found, emit):
+    rng = np.random.RandomState(9)
+    rows = 256 * 3
+    g = _flat_buf(rng, rows, "f32", cuda_device, 1e-2)
+    p = _flat_buf(rng, rows, "f32", cuda_device, 1.0)
+    s = _t(np.abs(rng.randn(rows, 128)) * 1e-4, "f32", cuda_device)
+    hp = mta.adagrad_hparams(lr=1e-2, eps=1e-10, weight_decay=1e-2,
+                             adagrad_w_mode=w_mode, grad_scale=0.5,
+                             device=cuda_device)
+    _in_place_check(mta.flat_adagrad_kernel, mta.flat_adagrad_plain,
+                    mta.FLAT_ADAGRAD, (g, p, s, hp), 1, found, emit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_dt,emit", [("f32", False), ("bf16", True)])
+@pytest.mark.parametrize("found", [None, False, True])
+@pytest.mark.parametrize("reg", [False, True])
+def test_flat_novograd_kernel_matches_plain_bitwise(cuda_device, reg, found,
+                                                    m_dt, emit):
+    rng = np.random.RandomState(10)
+    rows = 256 * 3
+    g = _flat_buf(rng, rows, "f32", cuda_device, 1e-2)
+    p = _flat_buf(rng, rows, "f32", cuda_device, 1.0)
+    m = _flat_buf(rng, rows, m_dt, cuda_device, 1e-2)
+    denom = _t(np.abs(rng.randn(rows // 8)) + 0.1, "f32", cuda_device)
+    hp = mta.novograd_hparams(lr=1e-2, beta1=0.95, step=2, weight_decay=1e-2,
+                              grad_averaging=True, bias_correction=True,
+                              reg_inside_moment=reg, grad_scale=0.5,
+                              device=cuda_device)
+    _in_place_check(mta.flat_novograd_kernel, mta.flat_novograd_plain,
+                    mta.FLAT_NOVOGRAD, (g, p, m, denom, hp), 1, found, emit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_dt", ["f32", "bf16"])
+@pytest.mark.parametrize("step", [1, 2])
+def test_flat_novograd_on_card_matches_cpu(cuda_device, m_dt, step):
+    """The whole flat_novograd on the card (the partials and NovoGrad
+    kernels, v in PyTorch) against the same call on the CPU (the plain
+    versions): v to the sum-of-squares model (step 1 seeds it with
+    ||g||^2, step 2 takes the EMA), p and m then held to the model's
+    effect through the denominator; two card calls give the same bits."""
+    from apex_tpu_torch.multi_tensor_apply.flatten import flatten_tensors
+
+    rng = np.random.RandomState(11)
+    shapes = [(1024, 300), (300,), (1,), (77, 129), (4096,)]
+    p, spec = flatten_tensors([torch.from_numpy(
+        rng.randn(*s).astype(np.float32)) for s in shapes])
+    g, _ = flatten_tensors([torch.from_numpy(
+        (rng.randn(*s) * 1e-2).astype(np.float32)) for s in shapes], spec)
+    m = flatten_tensors([torch.from_numpy(
+        (rng.randn(*s) * 1e-2).astype(np.float32)) for s in shapes],
+        spec)[0].to(_DT[m_dt])
+    v = torch.from_numpy(np.abs(rng.randn(len(shapes))).astype(np.float32))
+    ids, counts = spec.tile_tensor_ids(8), spec.tile_counts(8)
+    kw = dict(lr=1e-2, beta1=0.95, beta2=0.98, eps=1e-8, step=step,
+              weight_decay=1e-2)
+    runs = []
+    before = (mta.FLAT_L2NORM.launches, mta.FLAT_NOVOGRAD.launches)
+    for _ in range(2):
+        dev = [t.to(cuda_device) for t in (g, p, m, v, ids, counts)]
+        runs.append(mta.flat_novograd(*dev, **kw))
+    torch.cuda.synchronize()
+    assert (mta.FLAT_L2NORM.launches, mta.FLAT_NOVOGRAD.launches) == (
+        before[0] + 2, before[1] + 2)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    pc, mc = p.clone(), m.clone()
+    want = mta.flat_novograd(g, pc, mc, v, ids, counts, **kw)
+    gsq = mta.segment_sums(mta.flat_l2norm_partials_plain(g), counts)
+    n = counts.double() * mta.SUB
+    rel = (2.0 * (n + 1) * mta.U).float()   # sum_sq_limit's, relative
+    v_lim = rel * gsq * (1.0 if step == 1 else 0.02) + 2 * mta.U * want[2]
+    _assert_within("v", runs[0][2].cpu(), want[2], v_lim)
+    # the denominator's relative difference: half v's, plus the roundings
+    # of v / c2, the sqrt and + eps on each side
+    e = (rel / 2 + 8 * mta.U)[ids.long()].repeat_interleave(mta.SUB).view(
+        p.shape)
+    gn = (g.view(-1, mta.SUB) / mta.novograd_moments(
+        mta.flat_l2norm_partials_plain(g), v, counts, ids, beta2=0.98,
+        eps=1e-8, step=step, bias_correction=True, init_zero=False)[1][
+            :, None]).view(p.shape).abs()
+    m_lim = 0.05 * gn * e + 4 * mta.U * want[1].float().abs() + (
+        2 ** -8 * want[1].float().abs() if m_dt == "bf16" else 0.0)
+    _assert_within("m", runs[0][1].float().cpu(), want[1].float(), m_lim)
+    c1 = 1.0 - 0.95 ** step
+    _assert_within("p", runs[0][0].cpu(), want[0],
+                   1e-2 * m_lim / c1 + 2 * mta.U * want[0].abs())
+
+
+@pytest.mark.cuda
+def test_sgd_family_refused_launch_keeps_the_count(cuda_device):
+    p = torch.zeros((256, 128), device=cuda_device)
+    hp = mta.adagrad_hparams(lr=1e-2, eps=1e-10, weight_decay=0.0,
+                             adagrad_w_mode=False, grad_scale=1.0,
+                             device=cuda_device)
+    n = mta.FLAT_ADAGRAD.launches
+    with pytest.raises(RuntimeError, match="sum of .'torch.float32'."):
+        mta.flat_adagrad_kernel(p, p, p.to(torch.bfloat16), hp)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        mta.flat_adagrad_kernel(p.cpu(), p.cpu(), p.cpu(), hp.cpu())
+    assert mta.FLAT_ADAGRAD.launches == n

@@ -285,6 +285,58 @@ def test_flat_fused_adam_matches_jax_and_tree_path(m_dtype, emit):
         jp, js, pp, ps, tp, ts = jp2, js2, pp2, ps2, tp2, ts2
 
 
+@pytest.mark.parametrize("flat", [False, True], ids=["tree", "flat"])
+def test_fused_adam_without_bias_correction_matches_jax(flat):
+    """``FusedAdam(bias_correction=False)`` (c1 = c2 = 1) on both paths
+    against the JAX optimizer over two steps: m and v to 8 ulps of their
+    terms on the flat path, bit for bit on the tree path (both sides run
+    eagerly); params 1e-6 relative plus 32 ulps of the updates; and the
+    restored argument moves the result."""
+    kw = dict(lr=1e-2, bias_correction=False, weight_decay=0.01,
+              use_flat_kernel=flat)
+    jopt, popt = JaxAdam(**kw), FusedAdam(**kw)
+    tree = _tree(6)
+    jp, pp = jax.tree.map(jnp.asarray, tree), _torch_tree(tree)
+    js, ps = jopt.init(jp), popt.init(pp)
+    gs = []
+    for step in range(2):
+        g = _tree(20 + step)
+        gs.append(pflat.flatten_tensors(tree_flatten(_torch_tree(g))[0])[0])
+        jp, js = jopt.step(jax.tree.map(jnp.asarray, g), jp, js)
+        pp, ps = popt.step(_torch_tree(g), pp, ps)
+    # the terms of m and v after two steps from zero (AdamW: g unchanged)
+    terms = {"m": 0.1 * (gs[0].abs() + gs[1].abs()),
+             "v": 0.001 * (gs[0] ** 2 + gs[1] ** 2)}
+    for key, w, t in (("m", js.m, ps.m), ("v", js.v, ps.v)):
+        if flat:   # XLA may contract the interpreted kernel's FMAs
+            w = _to_torch(w)
+            assert bool(((t - w).abs() <= 8 * _U * terms[key]).all()), key
+        else:      # both eager: bit for bit
+            for a, b in zip(jax.tree_util.tree_leaves(w), tree_flatten(t)[0]):
+                assert torch.equal(b, _to_torch(np.asarray(a))), key
+    # params: 1e-6 of |p|, and 32 u of the two updates lr |u|, where |u|
+    # = |m| / sqrt(v) is at most sqrt(sum a_i^2 / b_i) over the terms of
+    # m and v (Cauchy-Schwarz): 3.17 after step 1, 4.26 after step 2
+    for w, t in zip(jax.tree_util.tree_leaves(jp), tree_flatten(pp)[0]):
+        torch.testing.assert_close(t, _to_torch(w), rtol=1e-6,
+                                   atol=32 * _U * 1e-2 * (3.17 + 4.26))
+    on = FusedAdam(lr=1e-2, weight_decay=0.01, use_flat_kernel=flat)
+    p_on, _ = on.step(_torch_tree(_tree(20)), _torch_tree(tree),
+                      on.init(_torch_tree(tree)))
+    off = FusedAdam(**kw)
+    p_off, _ = off.step(_torch_tree(_tree(20)), _torch_tree(tree),
+                        off.init(_torch_tree(tree)))
+    assert not torch.equal(tree_flatten(p_on)[0][0], tree_flatten(p_off)[0][0])
+
+
+def test_lamb_hparams_without_bias_correction_or_averaging():
+    hp = pkern.lamb_hparams(beta1=0.9, beta2=0.999, eps=1e-6, step=4,
+                            weight_decay=0.01, adam_w_mode=True,
+                            gs_over_clip=torch.tensor(1.0), device="cpu",
+                            bias_correction=False, grad_averaging=False)
+    assert hp[4] == hp[5] == 1.0 and hp[7] == 1.0
+
+
 # ---------------------------------------------------------------------------
 # The list ops, flat_scale, flat_axpby, flat_l2norm_partials and flat_lamb
 # against the JAX package. Elementwise outputs and flags are held exactly
@@ -482,6 +534,8 @@ _LAMB_CASES = [  # (m dtype, kwargs)
     ("f32", dict(weight_decay=0.01, max_grad_norm=0.05)),   # clip engages
     ("f32", dict(weight_decay=0.01, max_grad_norm=0.0)),    # no clip
     ("bf16", dict(weight_decay=0.01)),
+    ("f32", dict(weight_decay=0.01, bias_correction=False)),
+    ("f32", dict(weight_decay=0.01, grad_averaging=False)),
 ]
 
 
@@ -541,8 +595,9 @@ def _lamb_hp(g, spec, common):
         beta1=0.9, beta2=0.999, eps=1e-6, step=3,
         weight_decay=common["weight_decay"],
         adam_w_mode=common.get("adam_w_mode", True),
-        gs_over_clip=pkern.lamb_inv_clip(parts, mx),
-        device="cpu"), e_clip
+        gs_over_clip=pkern.lamb_inv_clip(parts, mx), device="cpu",
+        bias_correction=common.get("bias_correction", True),
+        grad_averaging=common.get("grad_averaging", True)), e_clip
 
 
 def test_lamb_hparams_vector_is_the_jax_kernels():

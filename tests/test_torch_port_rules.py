@@ -8,10 +8,14 @@
   card, no path reaches a plain version, and no wrapper falls back;
 - a kernel's launch count moves only on a successful launch;
 - ``chip_smoke.py`` fails, printing no result, without a card and when
-  run outside the repository."""
+  run outside the repository;
+- each ported optimizer's constructor has the reference's signature:
+  names, order, kinds and defaults (dtypes by name: ``jnp.float32`` is
+  ``torch.float32``)."""
 
 import ast
 import importlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -22,8 +26,11 @@ import torch
 
 from apex_tpu_torch import amp as port_amp
 from apex_tpu_torch.examples.bert.train import make_bert_train_step
+from apex_tpu_torch.examples.imagenet.main_amp import make_resnet_train_step
 from apex_tpu_torch.models import bert as port_bert
 from apex_tpu_torch.models import gpt as port_gpt
+from apex_tpu_torch.models import init_resnet
+from apex_tpu_torch import optimizers as port_optimizers
 from apex_tpu_torch import serving as port_serving
 from apex_tpu_torch.utils import cuda_build
 from apex_tpu_torch.utils.platform import resolve_device
@@ -90,7 +97,7 @@ def no_cuda(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "resolve_device", "init_gpt", "init_cache", "DecodeEngine",
     "params_from_jax", "init_bert", "make_bert_train_step",
-    "scaler_init_state"])
+    "scaler_init_state", "init_resnet", "resnet_step_init_state"])
 def test_default_device_is_the_card(no_cuda, entry):
     cfg = port_gpt.gpt_tiny()
     bcfg = port_bert.bert_tiny()
@@ -104,6 +111,9 @@ def test_default_device_is_the_card(no_cuda, entry):
         "make_bert_train_step": lambda: make_bert_train_step(2, 8, bcfg),
         "scaler_init_state": lambda: port_amp.initialize(
             "O2", verbosity=0).init_state(),
+        "init_resnet": lambda: init_resnet(torch.Generator(), 10, 10),
+        "resnet_step_init_state": lambda: make_resnet_train_step(
+            10).init_state({"w": torch.zeros(2)}, {}),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -133,6 +143,9 @@ def dispatch_to_card(monkeypatch):
                       (mta, "flat_axpby_plain"),
                       (mta, "flat_l2norm_partials_plain"),
                       (mta, "flat_lamb_stage1_plain"),
+                      (mta, "flat_sgd_plain"),
+                      (mta, "flat_adagrad_plain"),
+                      (mta, "flat_novograd_plain"),
                       (w8, "w8_matmul_plain"),
                       (w8, "w8_matmul_nk_plain")):
         monkeypatch.setattr(mod, name, plain)
@@ -183,6 +196,34 @@ def test_cuda_path_never_reaches_plain_flat_lamb(dispatch_to_card):
     opt = FusedLAMB(use_flat_kernel=True)
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         opt.step(params, params, opt.init(params))
+
+
+@pytest.mark.parametrize("opt", ["FusedSGD", "FusedAdagrad",
+                                 "FusedNovoGrad"])
+def test_cuda_path_never_reaches_plain_flat_sgd_family(dispatch_to_card,
+                                                       opt):
+    from apex_tpu_torch import optimizers
+
+    params = {"w": torch.randn(4, 8), "b": torch.randn(8)}
+    kw = dict(lr=0.1, momentum=0.9) if opt == "FusedSGD" else {}
+    o = getattr(optimizers, opt)(use_flat_kernel=True, **kw)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        o.step(params, params, o.init(params))
+
+
+def test_resnet_on_card_path_never_reaches_plain_sgd(dispatch_to_card):
+    """The ResNet example's flat step on the card path: convolutions,
+    BatchNorm and the loss are PyTorch, the optimizer's flat_sgd wrapper
+    refuses the CPU tensors; no plain version runs."""
+    step = make_resnet_train_step(10, "O0", optimizer=port_optimizers
+                                  .FusedSGD(lr=0.1, momentum=0.9,
+                                            use_flat_kernel=True))
+    params, stats = init_resnet(torch.Generator().manual_seed(0), 10, 10,
+                                device="cpu")
+    state = step.init_state(params, stats, "cpu")
+    with pytest.raises(RuntimeError, match="flat_sgd kernel needs CUDA"):
+        step(*state, torch.zeros(2, 32, 32, 3), torch.zeros(
+            2, dtype=torch.long))
 
 
 @pytest.mark.parametrize("fn", ["flat_scale", "flat_axpby",
@@ -339,3 +380,43 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     out = _smoke(str(tmp_path))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+_OPTIMIZERS = ["FusedAdam", "FusedLAMB", "FusedSGD", "FusedAdagrad",
+               "FusedNovoGrad"]
+
+
+@pytest.mark.parametrize("name", _OPTIMIZERS)
+def test_optimizer_signatures_match_the_reference(name):
+    """Names, order, kinds and defaults of each constructor's parameters
+    against the JAX package's (read from its source with ``ast``: the
+    port's tests import no JAX here); a dtype default is compared by its
+    name."""
+    path = os.path.join(REPO, "apex_tpu", "optimizers",
+                        f"{_REF_FILES[name]}.py")
+    with open(path) as f:
+        mod = ast.parse(f.read(), path)
+    init = next(n for c in mod.body if isinstance(c, ast.ClassDef)
+                and c.name == name for n in c.body
+                if isinstance(n, ast.FunctionDef) and n.name == "__init__")
+    a = init.args
+    pos = a.args[1:]                     # without self
+    pos_defaults = [None] * (len(pos) - len(a.defaults)) + a.defaults
+    want = [(x.arg, "POSITIONAL_OR_KEYWORD", d) for x, d in zip(
+        pos, pos_defaults)] + [(x.arg, "KEYWORD_ONLY", d) for x, d in zip(
+            a.kwonlyargs, a.kw_defaults)]
+    got = list(inspect.signature(getattr(port_optimizers, name))
+               .parameters.values())
+    assert [(p.name, p.kind.name) for p in got] == [w[:2] for w in want]
+    for p, (_, _, d) in zip(got, want):
+        if d is None:
+            assert p.default is inspect.Parameter.empty, p.name
+        elif isinstance(d, ast.Attribute):   # jnp.float32 -> torch.float32
+            assert p.default == getattr(torch, d.attr), p.name
+        else:
+            assert p.default == ast.literal_eval(d), p.name
+
+
+_REF_FILES = {"FusedAdam": "fused_adam", "FusedLAMB": "fused_lamb",
+              "FusedSGD": "fused_sgd", "FusedAdagrad": "fused_adagrad",
+              "FusedNovoGrad": "fused_novograd"}
