@@ -23,6 +23,15 @@ o) in fp32 (computed outside the kernels, as the JAX ``_bwd_call``
 does), or their plain version :func:`attention_bwd_plain`, which keeps
 ``_bwd_call``'s numerics on whole matrices.
 
+The bf16 forward and dk/dv kernels run their products on the tensor
+cores and take their tiles by 16-byte ``cp.async`` copies where every
+row starts on a 16-byte boundary (the C entry decides, from the
+pointers, strides and head_dim), by element loads otherwise; fp32 and
+the dq kernel run on the CUDA cores. Each kernel puts one block per
+tile of the sequence on the grid's y axis; past 65535 tiles the C entry
+refuses the launch, and the wrapper raises CUDA's invalid-configuration
+error.
+
 Dispatch: on a CUDA tensor :func:`flash_attention` always launches the
 kernels or raises (the JAX package's seq-256 crossover was a TPU v5e
 tuning, and the port keeps no ``use_kernel`` switch); on a CPU tensor
@@ -231,7 +240,7 @@ def _check_qkv(q, k, v, mask):
     if not 0 < d <= _MAX_D:
         raise RuntimeError(f"flash kernel takes head_dim up to {_MAX_D}, "
                            f"got {d}")
-    if sk < 1 or (sq + 31) // 32 > 65535:
+    if sk < 1:
         raise RuntimeError(f"flash kernel: unsupported s_q={sq}, s_k={sk}")
     if mask is not None:
         if mask.shape != (b, sk) or mask.device != q.device:

@@ -13,7 +13,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    same card inputs, max error beside the stated tolerance: the
    forwards of the serving path, then the LayerNorm and flash-attention
    backward kernels and the softmax cross entropy at the training
-   path's shapes, held per element to their modules' error models; the
+   path's shapes, held per element to their modules' error models (the
+   bf16 flash forward and dk/dv, on the tensor cores, also at ragged
+   s, d = 48, 100 and 128, dropout 0.1 and 0.5, GPT and BERT views, by
+   both load variants; a second launch gives the same bits; the
+   dropout keep masks read off both kernels equal the plain mask); the
    fused softmax forwards (masked, causal) and backward, per element to
    their error model; ``flat_adam`` on BERT-Large's flat buffer, bit for
    bit; on the same buffer (336,232,448 elements) ``flat_scale`` and
@@ -89,14 +93,18 @@ Phases, each printed as it runs; any failure exits non-zero:
    error model), exact launches a step.
 7. times — each kernel at its path's shapes (the w8 kernels at M 8
    and M 1024; ``flat_sgd`` on ResNet-50's flat buffer and on
-   BERT-Large's), its plain version, one library call computing the
+   BERT-Large's; the flash forward on contiguous tensors and on the
+   GPT prefill's ``_split_qkv`` views), its plain version, one library
+   call computing the
    same function (device time: 20 calls captured in one CUDA graph, 3
    for the flat kernels, replays timed with CUDA events), and the least
    time the card could take (bytes over 3.35 TB/s or operations over
    the peak rate for their type, the larger).
 
-It then prints the ``kernels`` JSON line, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. It imports neither
+It then prints the ``kernels`` JSON line (the rows redesigned since
+their port carry ``redesigned`` and a ``note`` naming the design), the
+card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. It imports neither
 JAX nor the JAX package.
 """
 
@@ -216,14 +224,49 @@ def ln_parity(dev):
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # base 2, absolute
 
 
-def flash_parity(dev):
+def _load_variant(*ts):
+    """How the flash C entries take these tensors' tiles: fp32 on the
+    CUDA cores; bf16 by 16-byte cp.async copies where every row of each
+    tensor starts on a 16-byte boundary and d fills whole copies, by
+    element loads otherwise."""
+    if ts[0].dtype == torch.float32:
+        return "fp32 CUDA cores"
+    rows16 = ts[0].shape[-1] % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+        for t in ts)
+    return "cp.async" if rows16 else "element loads"
+
+
+def _flash_qkv(gen, layout, b, h, s, d, dt, dev):
+    """q, k, v as the model paths hand them over: GPT's prefill views of
+    a fused (b, s, 3 h d) projection, BERT's views of a (b, s, 3, h, d)
+    one, or contiguous (b, h, s, d) tensors."""
     from apex_tpu_torch.models.gpt import _split_qkv
 
+    if layout == "gpt":
+        return _split_qkv(_rand(gen, (b, s, 3 * h * d), dt, dev), d)
+    if layout == "bert":
+        qkv = _rand(gen, (b, s, 3, h, d), dt, dev)
+        return tuple(qkv[:, :, j].transpose(1, 2) for j in range(3))
+    return tuple(_rand(gen, (b, h, s, d), dt, dev) for _ in range(3))
+
+
+def _flash_mask(b, s, dev, tail):
+    """Batch 0's first key masked (under causal its row 0 sees nothing)
+    and a padded tail of s // tail keys."""
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    mask[0, 0] = 0
+    mask[:, s - s // tail:] = 0
+    return mask
+
+
+def flash_parity(dev):
     fa = kernel_modules()[1]
     phase("kernel parity: flash attention (tolerance on o per element, "
           "flash_attention.o_limit: fp32 1e-5 (|o0| + 1), bf16 2^-7 |o0| "
           "+ 2^-5 sqrt(sum p^2 v^2); on the base-2 lse: fp32 1e-4, bf16 "
-          "1e-2; dropout keep masks equal)")
+          "1e-2; a second launch gives the same bits; bf16 on the tensor "
+          "cores, by cp.async or element loads)")
     gen = torch.Generator(device=dev).manual_seed(2)
     bf, f32 = torch.bfloat16, torch.float32
     cases = [  # b, h, s, d, dtype, causal, masked, rate, q/k/v layout
@@ -233,23 +276,23 @@ def flash_parity(dev):
         (1, 4, 256, 128, f32, True, False, 0.0, None),
         (1, 16, 1024, 64, bf, True, True, 0.1, None),
         (64, 16, 128, 64, bf, False, True, 0.0, "bert"),  # the BERT step
+        (64, 16, 128, 64, bf, False, True, 0.1, "bert"),
+        (1, 16, 1024, 64, bf, True, True, 0.5, "gpt"),
+        (2, 16, 40, 64, bf, False, True, 0.5, None),
+        (2, 16, 130, 64, bf, True, True, 0.1, "gpt"),
+        (2, 16, 300, 128, bf, True, True, 0.5, None),
+        (2, 16, 130, 100, bf, False, True, 0.1, None),   # element loads
+        (2, 4, 200, 48, bf, True, True, 0.0, "bert"),
+        (2, 2, 130, 64, f32, True, True, 0.2, "bert"),
     ]
     worst = 0.0
     for b, h, s, d, dt, causal, masked, rate, layout in cases:
-        if layout == "gpt":  # prefill: views into the fused projection
-            q, k, v = _split_qkv(_rand(gen, (b, s, 3 * h * d), dt, dev), d)
-        elif layout == "bert":  # a (b, s, 3, h, d) fused projection
-            qkv = _rand(gen, (b, s, 3, h, d), dt, dev)
-            q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
-        else:
-            q, k, v = (_rand(gen, (b, h, s, d), dt, dev) for _ in range(3))
-        mask = None
-        if masked:
-            mask = torch.ones((b, s), dtype=torch.int32, device=dev)
-            mask[:, s - s // 10:] = 0      # a padded tail
+        q, k, v = _flash_qkv(gen, layout, b, h, s, d, dt, dev)
+        mask = _flash_mask(b, s, dev, 10) if masked else None
         seed = (0x1234ABCD, 0x9876FEDC)
         kw = dict(causal=causal, scale=d ** -0.5, rate=rate)
         o, lse = fa.attention_fwd_kernel(q, k, v, mask, seed, **kw)
+        o2, lse2 = fa.attention_fwd_kernel(q, k, v, mask, seed, **kw)
         torch.cuda.synchronize()
         o0, lse0 = fa.attention_fwd_plain(q, k, v, mask, seed, **kw)
         err = (o.float() - o0.float()).abs()
@@ -260,13 +303,53 @@ def flash_parity(dev):
         le = float((lse - lse0)[fin].abs().max())
         ok = use <= 1.0 and le <= LSE_TOL[dt]
         ok &= bool(torch.equal(torch.isfinite(lse), fin))
+        ok &= torch.equal(o, o2) and torch.equal(lse, lse2)
+        if masked and causal:  # batch 0's row 0 sees no key
+            ok &= bool((o[0, :, 0] == 0).all())
         worst = max(worst, e)
         check(ok, f"flash b{b} h{h} s{s} d{d} {str(dt)[6:]} causal={causal}"
               f" mask={masked} rate={rate}"
-              f"{f' {layout} qkv views' if layout else ''}: max_abs_err o "
-              f"{e:.3g} "
-              f"({use:.2f} of its tolerance), lse {le:.3g}")
+              f"{f' {layout} qkv views' if layout else ''} "
+              f"({_load_variant(q, k, v)}): max_abs_err o "
+              f"{e:.3g} ({use:.2f} of its tolerance), lse {le:.3g}; "
+              "repeat bit-equal")
     return worst
+
+
+def flash_keep_masks(dev):
+    """The dropout keep mask read straight off the bf16 kernels, against
+    the plain version's at every (head, q, k). Forward: q = 0 makes every
+    p 1 before normalisation and v the identity (s_k = d), so o[q, j] is
+    0 exactly where (q, j) is dropped. dk/dv: lse = log2 s_k makes p =
+    1 / s_k and do the identity (s_q = d), so dv[k, j] = p_drop[j, k]."""
+    fa = kernel_modules()[1]
+    phase("kernel parity: flash dropout keep masks (forward and dk/dv, "
+          "bit for bit)")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf, b, h = torch.bfloat16, 2, 16
+    seed = (0x1234ABCD, 0x9876FEDC)
+    for d, sq, sk in ((64, 1024, 64), (128, 300, 128)):
+        eye = torch.eye(d, dtype=bf, device=dev)
+        for rate in (0.1, 0.5):
+            kw = dict(causal=False, scale=d ** -0.5, rate=rate)
+            zero = torch.zeros((b, h, sq, d), dtype=bf, device=dev)
+            o, _ = fa.attention_fwd_kernel(zero, zero[:, :, :sk],
+                                           eye[:sk].expand(b, h, sk, d),
+                                           None, seed, **kw)
+            k = _rand(gen, (b, h, sk, d), bf, dev)
+            _, dv = fa.attention_dkv_kernel(
+                torch.zeros((b, h, d, d), dtype=bf, device=dev), k, k, None,
+                eye.expand(b, h, d, d),
+                torch.full((b * h, d), float(np.log2(sk)), device=dev),
+                torch.zeros((b * h, d), device=dev), seed, **kw)
+            torch.cuda.synchronize()
+            keep = fa._keep_mask(b, h, sq, sk, seed, rate, dev)
+            keep_t = fa._keep_mask(b, h, d, sk, seed, rate, dev)
+            ok = torch.equal(o != 0, keep)
+            ok &= torch.equal(dv != 0, keep_t.transpose(-1, -2))
+            check(ok, f"keep mask b{b} h{h} s_q {sq} s_k {sk} d{d} rate "
+                  f"{rate}: forward and dk/dv equal the plain mask "
+                  f"({float(keep.float().mean()):.4f} kept)")
 
 
 def _held(got, want, lim):
@@ -326,45 +409,51 @@ def flash_bwd_parity(dev):
     phase("kernel parity: flash attention backward (tolerance per element, "
           "flash_attention.bwd_limits: the fp32 sum-order bounds carried "
           "through p and ds, one bf16 ulp of p and of ds, one ulp of the "
-          "output per rounding)")
+          "output per rounding; a second launch gives the same bits)")
     gen = torch.Generator(device=dev).manual_seed(5)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [  # b, h, s, d, dtype, causal, masked, rate, BERT views
-        (64, 16, 128, 64, bf, False, True, 0.0, True),   # the BERT step
-        (1, 16, 1024, 64, bf, True, False, 0.0, False),
-        (2, 16, 300, 64, bf, True, True, 0.1, False),
-        (1, 4, 256, 128, f32, True, False, 0.0, False),
+    cases = [  # b, h, s, d, dtype, causal, masked, rate, q/k/v layout
+        (64, 16, 128, 64, bf, False, True, 0.0, "bert"),   # the BERT step
+        (1, 16, 1024, 64, bf, True, False, 0.0, None),
+        (2, 16, 300, 64, bf, True, True, 0.1, None),
+        (1, 4, 256, 128, f32, True, False, 0.0, None),
+        (64, 16, 128, 64, bf, False, True, 0.1, "bert"),
+        (1, 16, 1024, 64, bf, True, True, 0.5, "gpt"),
+        (2, 16, 40, 64, bf, False, True, 0.5, None),
+        (2, 16, 130, 64, bf, True, True, 0.1, "bert"),
+        (1, 16, 300, 128, bf, True, True, 0.5, None),
+        (2, 16, 130, 100, bf, False, True, 0.1, None),   # element loads
+        (2, 4, 200, 48, bf, True, True, 0.0, "gpt"),
     ]
     worst = {"dq": 0.0, "dkv": 0.0}
-    for b, h, s, d, dt, causal, masked, rate, views in cases:
-        if views:  # BERT's layout: a (b, s, 3, h, d) fused projection
-            qkv = _rand(gen, (b, s, 3, h, d), dt, dev)
-            q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
-        else:
-            q, k, v = (_rand(gen, (b, h, s, d), dt, dev) for _ in range(3))
+    for b, h, s, d, dt, causal, masked, rate, layout in cases:
+        q, k, v = _flash_qkv(gen, layout, b, h, s, d, dt, dev)
         do = _rand(gen, (b, h, s, d), dt, dev)
-        mask = None
-        if masked:
-            mask = torch.ones((b, s), dtype=torch.int32, device=dev)
-            mask[:, s - s // 8:] = 0       # a padded tail
+        mask = _flash_mask(b, s, dev, 8) if masked else None
         seed = (0x1234ABCD, 0x9876FEDC)
         kw = dict(causal=causal, scale=d ** -0.5, rate=rate)
         o, lse = fa.attention_fwd_kernel(q, k, v, mask, seed, **kw)
         got = fa.attention_bwd_kernel(q, k, v, mask, o, lse, do, seed, **kw)
+        again = fa.attention_bwd_kernel(q, k, v, mask, o, lse, do, seed,
+                                         **kw)
         torch.cuda.synchronize()
         want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, seed, **kw)
         lims = fa.bwd_limits(q, k, v, mask, o, lse, do, *want, **kw)
         ok, parts = True, []
-        for name, g, w0, lim in zip(("dq", "dk", "dv"), got, want, lims):
+        for name, g, g2, w0, lim in zip(("dq", "dk", "dv"), got, again,
+                                        want, lims):
             e, use = _held(g, w0, lim)
             ok &= use <= 1.0 and bool(torch.isfinite(g).all())
+            ok &= torch.equal(g, g2)
             key = "dq" if name == "dq" else "dkv"
             worst[key] = max(worst[key], e)
             parts.append(f"{name} {e:.3g} ({use:.2f})")
         check(ok, f"flash bwd b{b} h{h} s{s} d{d} {str(dt)[6:]} "
               f"causal={causal} mask={masked} rate={rate}"
-              f"{' BERT views' if views else ''}: max_abs_err (share of "
-              "its tolerance) " + ", ".join(parts))
+              f"{f' {layout} qkv views' if layout else ''} "
+              f"({_load_variant(q, k, v, do)}): max_abs_err "
+              "(share of its tolerance) " + ", ".join(parts)
+              + "; repeat bit-equal")
     return worst
 
 
@@ -1842,6 +1931,24 @@ def times(dev):
         print(f"flash b1 h16 s1024 d64 causal bf16: kernel {t_k:.5f}, "
               f"plain {t_p:.5f}, scaled_dot_product_attention {t_l:.5f}, "
               f"bound {bd:.5f} ({by})", flush=True)
+        # what the serving prefill launches: _split_qkv views of the fused
+        # projection, with the bucket's key mask
+        from apex_tpu_torch.models.gpt import _split_qkv
+
+        qv, kv_, vv = _split_qkv(_rand(gen, (b_, s, 3 * h_ * d),
+                                       torch.bfloat16, dev), d)
+        mask = torch.ones((b_, s), dtype=torch.int32, device=dev)
+        _entry(res, "flash_b1h16s1024d64_gpt_views",
+               time_ms(lambda: fa.attention_fwd_kernel(
+                   qv, kv_, vv, mask, (0, 0), **kw)),
+               time_ms(lambda: fa.attention_fwd_plain(
+                   qv, kv_, vv, mask, (0, 0), **kw)),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   qv, kv_, vv, is_causal=True, scale=d ** -0.5)),
+               nbytes + b_ * s * 4, 4 * d * pairs * b_ * h_, BF16_TC_FLOPS,
+               "flash b1 h16 s1024 d64 causal bf16, GPT _split_qkv views "
+               f"({_load_variant(qv, kv_, vv)})",
+               "scaled_dot_product_attention")
     return res
 
 
@@ -2356,6 +2463,7 @@ def main():
     err = {"layer_norm_fwd": ln_parity(dev),
            "flash_attention_fwd": flash_parity(dev),
            "layer_norm_bwd": ln_bwd_parity(dev)}
+    flash_keep_masks(dev)
     fb = flash_bwd_parity(dev)
     xe = xent_parity(dev)
     sm = softmax_parity(dev)
@@ -2474,6 +2582,16 @@ def main():
     kernels[KERNEL_NAMES.index("flat_sgd")].update(
         at_bert_large=tm["flat_sgd_bert"],
         bf16_buf_castout=tm["flat_sgd_resnet50_bf16buf_castout"])
+    design = ("mma.sync.m16n8k16 bf16 tensor cores (fp32 accumulators), "
+              "ldmatrix fragments, 16-byte cp.async double-buffered tiles "
+              "(element loads where rows are not 16-byte aligned); fp32 "
+              "keeps the CUDA-core kernel")
+    kernels[KERNEL_NAMES.index("flash_attention_fwd")].update(
+        redesigned=True, note=design,
+        at_bert_views=tm["flash_fwd_train"],
+        at_gpt_views=tm["flash_b1h16s1024d64_gpt_views"])
+    kernels[KERNEL_NAMES.index("flash_attention_bwd_dkv")].update(
+        redesigned=True, note=design)
     for name in ("flat_adagrad", "flat_novograd"):
         kernels[KERNEL_NAMES.index(name)]["note"] = (
             "on no model path of the JAX package: driven through its "
@@ -2483,7 +2601,8 @@ def main():
               if n not in OFF_PATH),
           "every kernel of a path launched on that path")
     for key in ("ln_8x1024", "ln_fwd_train", "ln_bwd_4096",
-                "flash_fwd_train", "flat_adam_bf16m_castout",
+                "flash_fwd_train", "flash_b1h16s1024d64_gpt_views",
+                "flat_adam_bf16m_castout",
                 "flat_lamb_stage1_bf16m", "flat_sgd_bert_bf16buf_castout",
                 "w8_matmul_m1024",
                 "w8_matmul_nobias_m1024", "w8_matmul_nk_m1024"):

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from apex_tpu_torch.models.gpt import _split_qkv
+
 # the packages re-export the function under the module's name
 jax_fa = importlib.import_module(
     "apex_tpu.transformer.functional.flash_attention")
@@ -248,4 +250,50 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(*t, None, o, lse, lse, (0, 0), **kw)
     assert [kk.launches for kk in kernels] == before
+
+
+def _row_views(layout, b, s, h, d):
+    """q, k, v as the model paths hand them to the kernels: BERT's views
+    of a (b, s, 3, h, d) projection, GPT's ``_split_qkv`` views of a
+    (b, s, 3 h d) head-major one, contiguous tensors, or BERT's views
+    one element off a 16-byte boundary."""
+    if layout == "gpt":
+        return _split_qkv(torch.zeros((b, s, 3 * h * d),
+                                      dtype=torch.bfloat16), d)
+    if layout == "contiguous":
+        return tuple(torch.zeros((b, h, s, d), dtype=torch.bfloat16)
+                     for _ in range(3))
+    n = b * s * 3 * h * d
+    off = 1 if layout == "bert_shifted" else 0
+    qkv = torch.zeros(n + 1, dtype=torch.bfloat16)[off:off + n].view(
+        b, s, 3, h, d)
+    return tuple(qkv[:, :, j].transpose(1, 2) for j in range(3))
+
+
+def _rows16(t: torch.Tensor) -> bool:
+    """The C entries' rule for 16-byte ``cp.async`` tiles (``rows_aligned``
+    in ``csrc/flash_attention.cu``): every (batch, head, seq) row of the
+    bf16 tensor starts on a 16-byte boundary, and its d elements fill
+    whole copies. Addresses are byte offsets from the allocation, which
+    is 16-byte aligned on the card as on the CPU."""
+    es = t.element_size()
+    return (t.shape[-1] * es % 16 == 0
+            and t.storage_offset() * es % 16 == 0
+            and all(st * es % 16 == 0 for st in t.stride()[:3]))
+
+
+@pytest.mark.parametrize("layout,d,want", [
+    ("bert", 64, True), ("gpt", 64, True), ("contiguous", 64, True),
+    ("bert", 128, True), ("gpt", 48, True), ("bert", 100, False),
+    ("gpt", 100, False), ("contiguous", 100, False),
+    ("bert_shifted", 64, False)])
+def test_model_views_take_the_copy_variant(layout, d, want):
+    """The bf16 tensor-core kernels copy tiles by 16-byte ``cp.async``
+    where q, k and v all meet the C entry's row rule, else by element
+    loads: the q, k, v views the BERT and GPT paths hand over at d = 64
+    (and 48, 128) take the copies, d = 100 (200-byte rows) and views one
+    element off a boundary take element loads."""
+    views = _row_views(layout, 2, 130, 4, d)
+    assert all(_rows16(t) for t in views) is want
+    assert views[0].data_ptr() % 16 == (2 if layout == "bert_shifted" else 0)
 

@@ -9,7 +9,13 @@ Without a CUDA device every test here skips. Tolerances: LayerNorm fp32
 attention o per element as ``flash_attention.o_limit`` states it (fp32
 1e-5 (|o0| + 1); bf16 one ulp of o0 plus 2^-5 sqrt(sum p^2 v^2), the
 scale of the error that rounding p and the prescaled q put into o);
-base-2 lse absolute, fp32 1e-4, bf16 1e-2. The backward kernels and the
+base-2 lse absolute, fp32 1e-4, bf16 1e-2; the bf16 forward and dk/dv
+(tensor-core kernels) over ragged s, d = 32, 48, 100 and 128, dropout 0.1
+and 0.5 and the model paths' strided views, by both load variants
+(16-byte copies and element loads give the same bits), must repeat bit
+for bit, and their dropout keep masks, read off o and dv, must equal the
+plain version's. Each C entry launches 65535 tiles of its own height
+on the grid's y axis and refuses one row more. The backward kernels and the
 softmax cross entropy are held per element to the error models of
 ``fused_layer_norm.bwd_limits``, ``flash_attention.bwd_limits`` and
 ``xentropy.limits`` (the sum-order bound of each fp32 reduction plus
@@ -123,18 +129,26 @@ def _assert_o_close(o, o0, q, k, v, mask, causal, scale):
 
 
 _FA_CASES = [
-    # (b, h, s, d, causal, masked, dtype)
+    # (b, h, s, d, causal, masked, dtype); bf16 runs on the tensor cores:
+    # s past a 64-row tile (40, 130, 200, 300), the element-load variant
+    # (d = 100), d = 32 / 48 / 128 (d zero-padded to 32, 64, 128)
     (2, 2, 40, 16, False, True, "f32"),
     (2, 2, 130, 64, True, True, "f32"),
     (1, 4, 256, 128, True, False, "f32"),
     (1, 16, 1024, 64, True, True, "bf16"),
     (2, 16, 300, 64, False, True, "bf16"),
     (2, 2, 40, 100, True, False, "bf16"),
+    (2, 2, 40, 64, False, True, "bf16"),
+    (2, 3, 130, 64, True, True, "bf16"),
+    (1, 4, 300, 128, True, True, "bf16"),
+    (2, 2, 130, 100, False, True, "bf16"),
+    (2, 2, 40, 32, True, True, "bf16"),
+    (1, 2, 200, 48, True, True, "bf16"),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("b,h,s,d,causal,masked,dt", _FA_CASES)
 def test_flash_kernel_matches_plain(cuda_device, b, h, s, d, causal,
                                     masked, dt, rate):
@@ -150,8 +164,10 @@ def test_flash_kernel_matches_plain(cuda_device, b, h, s, d, causal,
     kw = dict(causal=causal, scale=d ** -0.5, rate=rate)
     before = FLASH_FWD.launches
     o, lse = attention_fwd_kernel(q, k, v, m, (123, 456), **kw)
+    o2, lse2 = attention_fwd_kernel(q, k, v, m, (123, 456), **kw)
     torch.cuda.synchronize()
-    assert FLASH_FWD.launches == before + 1
+    assert FLASH_FWD.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     o0, lse0 = attention_fwd_plain(q, k, v, m, (123, 456), **kw)
     assert o.dtype == q.dtype and o.shape == (b, h, s, d)
     _assert_o_close(o, o0, q, k, v, m, causal, d ** -0.5)
@@ -181,6 +197,135 @@ def test_flash_kernel_reads_strided_qkv(cuda_device):
     o0, lse0 = attention_fwd_plain(q, k, v, mask, (0, 0), **kw)
     _assert_o_close(o, o0, q, k, v, mask, True, 0.125)
     torch.testing.assert_close(lse, lse0, rtol=0.0, atol=_LSE_TOL["bf16"])
+
+
+def _qkv_views(layout, b, h, s, d, dt, dev, rng):
+    """q, k, v as the model paths hand them over: GPT's ``_split_qkv``
+    views of a (b, s, 3 h d) head-major projection, BERT's views of a
+    (b, s, 3, h, d) projection, or those views shifted by one element
+    (rows no longer 16-byte aligned: the element-load variant)."""
+    if layout == "gpt":
+        return _split_qkv(_t(rng.randn(b, s, 3 * h * d), dt, dev), d)
+    flat = _t(rng.randn(b * s * 3 * h * d + 1), dt, dev)
+    off = 1 if layout == "bert_shifted" else 0
+    qkv = flat[off:off + b * s * 3 * h * d].view(b, s, 3, h, d)
+    return tuple(qkv[:, :, j].transpose(1, 2) for j in range(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("layout,s,causal", [
+    ("gpt", 130, True), ("gpt", 300, True), ("bert", 130, False),
+    ("bert", 128, False), ("bert_shifted", 130, False)])
+def test_flash_kernel_views_take_both_load_variants(cuda_device, layout, s,
+                                                    causal, rate):
+    """The model paths' strided views reach the cp.async variant, views
+    one element off their alignment the element-load variant, and both
+    give the bits of the same kernel on contiguous copies (forward and
+    dk/dv), within the error models of the plain version."""
+    b, h, d = 2, 4, 64
+    rng = np.random.RandomState(3)
+    q, k, v = _qkv_views(layout, b, h, s, d, "bf16", cuda_device, rng)
+    # the C entry's rule: copies where every row of q, k and v starts on
+    # a 16-byte boundary (d = 64 fills whole copies)
+    rows16 = all(t.data_ptr() % 16 == 0
+                 and all(st % 8 == 0 for st in t.stride()[:3])
+                 for t in (q, k, v))
+    assert rows16 is (layout != "bert_shifted")
+    mask = torch.ones((b, s), dtype=torch.int32, device=cuda_device)
+    mask[0, 0] = 0
+    mask[:, s - 11:] = 0
+    do = _t(rng.randn(b, h, s, d), "bf16", cuda_device)
+    seed = (0x1234ABCD, 0x9876FEDC)
+    kw = dict(causal=causal, scale=d ** -0.5, rate=rate)
+    o, lse = attention_fwd_kernel(q, k, v, mask, seed, **kw)
+    cont = [t.contiguous() for t in (q, k, v)]
+    o1, lse1 = attention_fwd_kernel(*cont, mask, seed, **kw)
+    delta = (do.float() * o.float()).sum(-1).reshape(-1, s)
+    dkv = fa_mod.attention_dkv_kernel(q, k, v, mask, do, lse, delta, seed,
+                                      **kw)
+    dkv1 = fa_mod.attention_dkv_kernel(*cont, mask, do, lse, delta, seed,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    assert torch.equal(dkv[0], dkv1[0]) and torch.equal(dkv[1], dkv1[1])
+    o0, lse0 = attention_fwd_plain(q, k, v, mask, seed, **kw)
+    _assert_o_close(o, o0, q, k, v, mask, causal, d ** -0.5)
+    torch.testing.assert_close(lse, lse0, rtol=0.0, atol=_LSE_TOL["bf16"])
+    want = attention_bwd_plain(q, k, v, mask, o, lse, do, seed, **kw)
+    lims = fa_mod.bwd_limits(q, k, v, mask, o, lse, do, *want, **kw)
+    for name, g, w0, lim in zip(("dk", "dv"), dkv, want[1:], lims[1:]):
+        _assert_within(name, g, w0, lim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("d,sq,sk", [(64, 300, 64), (128, 130, 128)])
+def test_flash_kernel_keep_masks_equal_plain(cuda_device, d, sq, sk, rate):
+    """The dropout keep mask read straight off the kernels. Forward: q =
+    0 makes every score 0 and every p 1 before normalisation, and v the
+    identity (s_k = d), so o[q, j] = p_drop[q, j] / s_k, 0 exactly where
+    (q, j) is dropped. dk/dv: lse = log2 s_k makes p = 1 / s_k, and do
+    the identity (s_q = d), so dv[k, j] = p_drop[j, k]. Both must equal
+    the plain version's mask at every (head, q, k), bit for bit."""
+    b, h = 2, 3
+    dev = cuda_device
+    seed = (0x1234ABCD, 0x9876FEDC)
+    kw = dict(causal=False, scale=d ** -0.5, rate=rate)
+    eye = torch.eye(d, dtype=torch.bfloat16, device=dev)
+    zero = torch.zeros((b, h, sq, d), dtype=torch.bfloat16, device=dev)
+    v = eye[:sk].expand(b, h, sk, d)
+    o, _ = attention_fwd_kernel(zero, zero[:, :, :sk], v, None, seed, **kw)
+    keep = fa_mod._keep_mask(b, h, sq, sk, seed, rate, dev)
+    assert torch.equal(o != 0, keep)
+    q = torch.zeros((b, h, d, d), dtype=torch.bfloat16, device=dev)
+    k = _t(np.random.RandomState(5).randn(b, h, sk, d), "bf16", dev)
+    do = eye.expand(b, h, d, d)
+    lse = torch.full((b * h, d), float(np.log2(sk)), device=dev)
+    delta = torch.zeros((b * h, d), device=dev)
+    _, dv = fa_mod.attention_dkv_kernel(q, k, k, None, do, lse, delta, seed,
+                                        **kw)
+    torch.cuda.synchronize()
+    keep = fa_mod._keep_mask(b, h, d, sk, seed, rate, dev)
+    assert torch.equal(dv != 0, keep.transpose(-1, -2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dt,rows", [
+    ("fwd", "bf16", 64), ("fwd", "f32", 32), ("dq", "bf16", 32),
+    ("dkv", "bf16", 64), ("dkv", "f32", 32)])
+def test_flash_grid_limit_follows_the_tile_height(cuda_device, kernel, dt,
+                                                  rows):
+    """Each kernel puts one block per tile of its sequence (q rows for
+    the forward and dq, keys for dk/dv) on the grid's y axis, at most
+    65535. The C entry, which knows the tile height (64 rows on the
+    tensor cores, 32 on the CUDA cores), launches 65535 tiles and refuses
+    one row more with CUDA's invalid-configuration error, and the
+    refused launch keeps the count."""
+    dev, d = cuda_device, 8
+    z = dict(dtype=_DT[dt], device=dev)
+    kw = dict(causal=False, scale=d ** -0.5, rate=0.0)
+    counter = {"fwd": FLASH_FWD, "dq": FLASH_BWD_DQ,
+               "dkv": FLASH_BWD_DKV}[kernel]
+
+    def launch(s):
+        sq, sk = (s, 3) if kernel != "dkv" else (3, s)
+        q = torch.zeros((1, 2, sq, d), **z)
+        k = torch.zeros((1, 2, sk, d), **z)
+        if kernel == "fwd":
+            return attention_fwd_kernel(q, k, k, None, (0, 0), **kw)
+        lse = torch.zeros((2, sq), device=dev)
+        fn = (fa_mod.attention_dq_kernel if kernel == "dq"
+              else fa_mod.attention_dkv_kernel)
+        return fn(q, k, k, None, q, lse, lse, (0, 0), **kw)
+
+    before = counter.launches
+    launch(65535 * rows)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    with pytest.raises(RuntimeError, match="invalid configuration"):
+        launch(65535 * rows + 1)
+    assert counter.launches == before + 1
 
 
 def _assert_within(name, got, want, lim):
@@ -250,13 +395,21 @@ def _flash_inputs(b, h, s, d, dt, dev, views, masked, seed=0):
 
 
 _FA_BWD_CASES = [
-    # (b, h, s, d, dtype, causal, masked, rate, views)
+    # (b, h, s, d, dtype, causal, masked, rate, views); bf16 dk/dv runs
+    # on the tensor cores: s past a 64-key tile, d = 100 (element loads),
+    # d = 32 / 48 / 128, dropout 0.1 and 0.5
     (64, 16, 128, 64, "bf16", False, True, 0.0, True),   # BERT-Large step
     (1, 16, 1024, 64, "bf16", True, False, 0.0, False),
     (2, 16, 300, 64, "bf16", True, True, 0.1, False),
     (1, 4, 256, 128, "f32", True, False, 0.0, False),
     (2, 2, 40, 100, "bf16", True, True, 0.0, False),
     (2, 2, 130, 16, "f32", False, True, 0.2, True),
+    (2, 3, 40, 64, "bf16", False, True, 0.5, False),
+    (2, 2, 130, 64, "bf16", True, True, 0.1, True),
+    (1, 4, 300, 128, "bf16", True, True, 0.5, False),
+    (2, 2, 130, 100, "bf16", False, True, 0.1, False),
+    (2, 2, 200, 48, "bf16", True, True, 0.0, False),
+    (1, 2, 40, 32, "bf16", True, False, 0.5, False),
 ]
 
 
@@ -277,9 +430,11 @@ def test_flash_bwd_kernels_match_plain(cuda_device, b, h, s, d, dt, causal,
     torch.testing.assert_close(lse, lse0, rtol=0.0, atol=_LSE_TOL[dt])
     before = FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches
     got = attention_bwd_kernel(q, k, v, m, o, lse, do, seed, **kw)
+    again = attention_bwd_kernel(q, k, v, m, o, lse, do, seed, **kw)
     torch.cuda.synchronize()
     assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 2, before[1] + 2)
+    assert all(torch.equal(g, g2) for g, g2 in zip(got, again))
     want = attention_bwd_plain(q, k, v, m, o, lse, do, seed, **kw)
     lims = fa_mod.bwd_limits(q, k, v, m, o, lse, do, *want, **kw)
     for name, g, w0, lim in zip(("dq", "dk", "dv"), got, want, lims):
