@@ -29,18 +29,18 @@
 //
 // Two designs, chosen at compile time by dtype.
 //
-// bf16 forward and dk/dv: tensor cores. The JAX kernels run their
+// bf16 (forward, dq, dk/dv): tensor cores. The JAX kernels run their
 // products on the MXU with bf16 operands and fp32 accumulation
 // (dot_general with preferred_element_type=f32); here each product is
 // mma.sync.m16n8k16 with bf16 operands and fp32 accumulators, operand
 // fragments loaded from shared memory by ldmatrix (.trans for an
 // operand laid out (seq, d) but consumed as K x N). mma.sync, not
-// wgmma: at d = 64 a (q, k) pair costs 4d (forward) or 8d (dk/dv)
-// operations against q, k, v, o (and do, dk, dv) read or written once,
-// so at the BERT shape (b64 h16 s128) and at causal s1024 the least
-// time is set by device-memory bytes, and mma.sync's lower peak is not
-// what the kernels wait on. What bounds them as built is the
-// instructions and latency of each tile on few warps: a block's few
+// wgmma: at d = 64 a (q, k) pair costs 4d (forward), 6d (dq) or 8d
+// (dk/dv) operations against q, k, v, o (and do, dq, dk, dv) read or
+// written once, so at the BERT shape (b64 h16 s128) and at causal s1024
+// the least time is set by device-memory bytes, and mma.sync's lower
+// peak is not what the kernels wait on. What bounds them as built is
+// the instructions and latency of each tile on few warps: a block's few
 // tiles (two at s = 128) leave its loads exposed, and a causal block's
 // 16 tiles run one after another. So the design keeps the per-tile
 // instruction count down and the SM full: tiles by 16-byte
@@ -75,29 +75,41 @@
 //   dP^T = V do^T, so P_drop^T and dS^T come out of the accumulators
 //   already as the A fragments of dv += P_drop^T do and dk += dS^T q~.
 //   Causal blocks start at the first q tile that can see their keys.
+//   dq: the forward's structure, one block per (batch*head, 64-row q
+//   tile), 16 rows a warp, looping over 64-key tiles; q~ and do land
+//   with the first K/V tile and q is prescaled in shared memory then.
+//   S = q~ K^T and dP = do V^T (the same operand shapes, do and V in
+//   place of q~ and K) are accumulated in registers; ds = p (dp - delta)
+//   overwrites S's accumulator in fp32 and is packed to bf16 in place as
+//   the A fragment of dq += dS K, with K read k-major through
+//   ldmatrix.trans as the forward reads V. The q~ and do fragments are
+//   reloaded from shared memory a tile (8 ldmatrix against 96 mma at
+//   d = 64): held, they would cost the 32 registers that keep three
+//   blocks an SM. Each dq element is written once, by the block that
+//   owns its q tile: no atomics, the same bits on every launch. Causal
+//   blocks stop at the last key tile their last row can see and start
+//   first on the grid, as in the forward.
 //
-// fp32, and the dq kernel in both dtypes: CUDA cores. Tensor cores
-// would take fp32 operands as TF32 (10 mantissa bits), which would break
-// the fp32 forward's o_limit of 1e-5 (|o0| + 1) and the O0 parity the
-// BERT and serving checks hold the fp32 path to; so fp32 keeps these
-// kernels, bound by their fp32 operations and shared-memory traffic.
-// The dq kernel is next in line for the tensor-core design. Forward:
-// one 128-thread block per (batch*head, 32-row q tile), looping over
-// 32-key tiles; each warp owns 8 q rows; for scores, lane j owns key j
-// of the tile and dots it with the warp's 8 q rows, reading k as
-// float4 from a padded shared row (conflict-free) and q as broadcast
-// float4; row max and sum are warp shuffles; for PV, lane j owns dims
-// j, j+32, ... and reads p from shared memory as broadcast float4. dq
-// kernel: one block per (batch*head, 32-row q tile) loops over the
-// 32-key tiles, the forward's layout, with lane j owning dims j, j+32,
+// fp32: CUDA cores. Tensor cores would take fp32 operands as TF32 (10
+// mantissa bits), which would break the fp32 forward's o_limit of 1e-5
+// (|o0| + 1) and the O0 parity the BERT and serving checks hold the fp32
+// path to; so fp32 keeps these kernels, bound by their fp32 operations and
+// shared-memory traffic. Forward: one 128-thread block per (batch*head,
+// 32-row q tile), looping over 32-key tiles; each warp owns 8 q rows; for
+// scores, lane j owns key j of the tile and dots it with the warp's 8 q
+// rows, reading k as float4 from a padded shared row (conflict-free) and q
+// as broadcast float4; row max and sum are warp shuffles; for PV, lane j
+// owns dims j, j+32, ... and reads p from shared memory as broadcast
+// float4. dq kernel: one block per (batch*head, 32-row q tile) loops over
+// the 32-key tiles, the forward's layout, with lane j owning dims j, j+32,
 // ... for dq += ds . k. dk/dv kernel: one block per (batch*head, 32-key
-// tile) loops over the q tiles (q innermost, as in _dkv_kernel): each
-// warp owns 8 keys, lane j owns q row j for s and dp, and dims j, j+32,
-// ... for dv += p_drop^T . do and dk += ds^T . q~. Under causal masking
-// the dq loop stops at the last k tile its rows can see and the dk/dv
-// loop starts at the first q tile that can see its keys. q, k, v, o, do
-// are read through strides (BERT's q, k, v are views of one fused
-// projection); dq, dk, dv are written through strides too.
+// tile) loops over the q tiles (q innermost, as in _dkv_kernel): each warp
+// owns 8 keys, lane j owns q row j for s and dp, and dims j, j+32, ... for
+// dv += p_drop^T . do and dk += ds^T . q~. Under causal masking the dq
+// loop stops at the last k tile its rows can see and the dk/dv loop starts
+// at the first q tile that can see its keys. q, k, v, o, do are read
+// through strides (BERT's q, k, v are views of one fused projection); dq,
+// dk, dv are written through strides too.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -391,7 +403,8 @@ struct BwdParams {
   float keep_prob;      // 1 - rate, in fp32
   uint32_t thresh, seed_lo, seed_hi;
   int async_rows;       // bf16 tiles by 16-byte cp.async copies
-  int out_rows16;       // dk's and dv's rows all 16-byte aligned, D % 8 == 0
+  int out_rows16;       // the outputs' rows (dq; dk and dv) all 16-byte
+                        // aligned, D % 8 == 0
 };
 
 enum { kQ = 0, kK, kV, kDO, kDQ, kDK, kDV };
@@ -726,6 +739,8 @@ flash_dkv_kernel(const BwdParams p) {
   }
 }
 
+// fp32 only: bf16 dq and dk/dv are flash_dq_tc_kernel and
+// flash_dkv_tc_kernel
 template <typename T, int DM, bool DQ>
 cudaError_t launch_bwd(const BwdParams& p, int BH, cudaStream_t stream) {
   const int smem =
@@ -733,7 +748,7 @@ cudaError_t launch_bwd(const BwdParams& p, int BH, cudaStream_t stream) {
   void (*kernel)(BwdParams);
   if constexpr (DQ)
     kernel = flash_dq_kernel<T, DM>;
-  else  // fp32 only: bf16 dk/dv is flash_dkv_tc_kernel
+  else
     kernel = flash_dkv_kernel<T, DM>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1405,7 +1420,209 @@ cudaError_t launch_dkv_tc(const BwdParams& p, int BH, cudaStream_t stream) {
                       : launch_dkv_tc<DM, false>(p, BH, stream);
 }
 
-// -- dispatch: bf16 forward and dk/dv on the tensor cores -------------------
+template <int DM>
+constexpr int dq_tc_smem_bytes() {
+  return (2 * kTcRows + 2 * kStages * kTcKeys) * (DM + kPad) * 2 +
+         kStages * (kTcKeys / 32) * 4;
+}
+
+template <int DM, bool ASYNC>
+__global__ void __launch_bounds__(kThreads, DM == 128 ? 2 : 3)
+flash_dq_tc_kernel(const BwdParams p) {
+  constexpr int LD = DM + kPad;
+  constexpr int KC = DM / 16;      // k chunks of q~ K^T and do V^T
+  constexpr int NT = kTcKeys / 8;  // n-tiles of S and dP: 32 values a lane
+  constexpr int ND = DM / 8;       // n-tiles of dq
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // q~ (prescaled once landed)
+  bf16* Os = Qs + kTcRows * LD;               // do
+  // K, V and the keys' validity (key mask and sequence end, one bit a
+  // key): kStages buffers each
+  bf16* Ks = Os + kTcRows * LD;
+  bf16* Vs = Ks + kStages * kTcKeys * LD;
+  uint32_t* Mw = reinterpret_cast<uint32_t*>(Vs + kStages * kTcKeys * LD);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  // the last q tiles (the longest causal loops) are scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* kg = at<bf16>(p.k, p, kK, b, h);
+  const bf16* vg = at<bf16>(p.v, p, kV, b, h);
+
+  int n_kt = (p.Sk + kTcKeys - 1) / kTcKeys;
+  if (p.causal) n_kt = min(n_kt, (min(q0 + kTcRows, p.Sq) - 1) / kTcKeys + 1);
+
+  auto issue = [&](int kt) {
+    const int buf = kt % kStages, k0 = kt * kTcKeys;
+    load_rows<kTcKeys, DM, ASYNC>(Ks + buf * kTcKeys * LD, kg, p.st[kK][2],
+                                  k0, p.Sk, p.D);
+    load_rows<kTcKeys, DM, ASYNC>(Vs + buf * kTcKeys * LD, vg, p.st[kV][2],
+                                  k0, p.Sk, p.D);
+    if (warp < kTcKeys / 32) {
+      const int kpos = k0 + tid;
+      const uint32_t bits = __ballot_sync(
+          0xffffffffu,
+          kpos < p.Sk &&
+              (p.mask == nullptr || p.mask[(int64_t)b * p.Sk + kpos] != 0));
+      if (lane == 0) Mw[buf * (kTcKeys / 32) + warp] = bits;
+    }
+  };
+  // one commit group a k tile (the first with q and do)
+  load_rows<kTcRows, DM, ASYNC>(Qs, at<bf16>(p.q, p, kQ, b, h), p.st[kQ][2],
+                                q0, p.Sq, p.D);
+  load_rows<kTcRows, DM, ASYNC>(Os, at<bf16>(p.dout, p, kDO, b, h),
+                                p.st[kDO][2], q0, p.Sq, p.D);
+#pragma unroll
+  for (int kt = 0; kt < kStages - 1; ++kt) {
+    if (kt < n_kt) issue(kt);
+    cp_async_commit();
+  }
+
+  const int row0 = q0 + warp * 16;  // this warp's first row
+  const int row = row0 + g;         // this lane's rows: row, row + 8
+  float lse[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row + r * 8;
+    const bool in = qpos < p.Sq;  // rows past the end: p = 0, so ds = 0
+    lse[r] = in ? p.lse[(int64_t)bh * p.Sq + qpos] : INFINITY;
+    dl[r] = in ? p.delta[(int64_t)bh * p.Sq + qpos] : 0.f;
+  }
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + kStages - 1 < n_kt) issue(kt + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    if (kt == 0) {
+      prescale_rows<kTcRows, DM>(Qs, p.scale);
+      __syncthreads();
+    }
+    const int buf = kt % kStages, k0 = kt * kTcKeys;
+    const bf16* Kb = Ks + buf * kTcKeys * LD;
+    const bf16* Vb = Vs + buf * kTcKeys * LD;
+    const uint32_t kbits[2] = {Mw[buf * 2], Mw[buf * 2 + 1]};
+
+    // S = q~ K^T and dP = do V^T, this warp's 16 rows by the tile's keys;
+    // the q~ and do fragments are reloaded a tile (held, they would cost
+    // 32 registers and the third block an SM)
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, a_addr<LD>(Qs, warp * 16, kc * 16, lane));
+      ldsm_x4(oa, a_addr<LD>(Os, warp * 16, kc * 16, lane));
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t r[4];
+        ldsm_x4(r, bn_addr<LD>(Kb, j * 16, kc * 16, lane));
+        mma_bf16(s[2 * j], qa, r[0], r[1]);
+        mma_bf16(s[2 * j + 1], qa, r[2], r[3]);
+        ldsm_x4(r, bn_addr<LD>(Vb, j * 16, kc * 16, lane));
+        mma_bf16(dp[2 * j], oa, r[0], r[1]);
+        mma_bf16(dp[2 * j + 1], oa, r[2], r[3]);
+      }
+    }
+
+    // ds = p (dp - delta) into s, in fp32 (the pack below rounds it to
+    // bf16 once); the mask only on tiles that hold a masked key, cross
+    // the sequence end or cross this warp's diagonal (rows past the end
+    // have lse = +inf, so p = 0 there without it)
+    auto grads = [&](auto masked) {
+      constexpr bool MASKED = decltype(masked)::value;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = n * 8 + 2 * t4 + (i & 1), kpos = k0 + col;
+          const int qpos = row + (i >> 1) * 8;
+          float pr = exp2_ftz(s[n][i] - lse[i >> 1]);
+          if constexpr (MASKED)
+            pr = (kbits[col >> 5] >> (col & 31)) & 1u &&
+                         (!p.causal || kpos <= qpos)
+                     ? pr
+                     : 0.f;
+          float dpr = dp[n][i];
+          if (p.dropout) {
+            const bool keep = hash_keep((uint32_t)qpos, (uint32_t)kpos,
+                                        (uint32_t)bh, p.seed_lo, p.seed_hi,
+                                        p.thresh);
+            dpr = keep ? dpr / p.keep_prob : 0.f;
+          }
+          s[n][i] = pr * (dpr - dl[i >> 1]);
+        }
+    };
+    if ((kbits[0] & kbits[1]) != 0xffffffffu ||
+        (p.causal && k0 + kTcKeys - 1 > row0))
+      grads(std::true_type());
+    else
+      grads(std::false_type());
+
+    // dq += dS . K: the accumulator, packed to bf16, is dS's A operand;
+    // K is read k-major (keys x d), as the forward reads V
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      uint32_t sa[4];
+      acc_to_a(sa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {
+        uint32_t r[4];
+        ldsm_x4_t(r, bk_addr<LD>(Kb, kk * 16, j * 16, lane));
+        mma_bf16(dq[2 * j], sa, r[0], r[1]);
+        mma_bf16(dq[2 * j + 1], sa, r[2], r[3]);
+      }
+    }
+    __syncthreads();  // this buffer is consumed before it is refilled
+  }
+
+  // dq rounded once, times softmax_scale, rounded again; out through
+  // this warp's own rows of the q tile, in 16-byte rows
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dq[n][i] = Io<bf16>::round(dq[n][i]) * p.dq_scale;
+  bf16* Qw = Qs + warp * 16 * LD;
+  acc_to_smem<DM>(Qw, dq, g, t4);
+  __syncwarp();
+  store_rows16<DM>(at_out<bf16>(p.dq, p, kDQ, b, h), p.st[kDQ][2], Qw, row0,
+                   p.Sq, p.D, p.out_rows16, lane);
+}
+
+template <int DM, bool ASYNC>
+cudaError_t launch_dq_tc(const BwdParams& p, int BH, cudaStream_t stream) {
+  constexpr int smem = dq_tc_smem_bytes<DM>();
+  auto kernel = flash_dq_tc_kernel<DM, ASYNC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid;
+  const cudaError_t g = tile_grid(BH, p.Sq, kTcRows, &grid);
+  if (g != cudaSuccess) return g;
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaSuccess;
+}
+
+template <int DM>
+cudaError_t launch_dq_tc(const BwdParams& p, int BH, cudaStream_t stream) {
+  return p.async_rows ? launch_dq_tc<DM, true>(p, BH, stream)
+                      : launch_dq_tc<DM, false>(p, BH, stream);
+}
+
+// -- dispatch: bf16 on the tensor cores, fp32 on the CUDA cores ------------
 
 template <typename T>
 cudaError_t dispatch_d(const Params& p, int BH, cudaStream_t stream) {
@@ -1423,7 +1640,11 @@ cudaError_t dispatch_d(const Params& p, int BH, cudaStream_t stream) {
 
 template <typename T, bool DQ>
 cudaError_t dispatch_bwd(const BwdParams& p, int BH, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value && !DQ) {
+  if constexpr (std::is_same<T, bf16>::value && DQ) {
+    if (p.D <= 32) return launch_dq_tc<32>(p, BH, stream);
+    if (p.D <= 64) return launch_dq_tc<64>(p, BH, stream);
+    if (p.D <= 128) return launch_dq_tc<128>(p, BH, stream);
+  } else if constexpr (std::is_same<T, bf16>::value) {
     if (p.D <= 32) return launch_dkv_tc<32>(p, BH, stream);
     if (p.D <= 64) return launch_dkv_tc<64>(p, BH, stream);
     if (p.D <= 128) return launch_dkv_tc<128>(p, BH, stream);
@@ -1481,9 +1702,11 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* mask,
   for (int i = 0; i < 4; ++i)
     p.async_rows = p.async_rows &&
                    rows_aligned(in[i], p.st[i][0], p.st[i][1], p.st[i][2]);
-  p.out_rows16 = D % 8 == 0 && rows_aligned(dk, p.st[kDK][0], p.st[kDK][1],
-                                            p.st[kDK][2]) &&
-                 rows_aligned(dv, p.st[kDV][0], p.st[kDV][1], p.st[kDV][2]);
+  p.out_rows16 =
+      D % 8 == 0 &&
+      (DQ ? rows_aligned(dq, p.st[kDQ][0], p.st[kDQ][1], p.st[kDQ][2])
+          : rows_aligned(dk, p.st[kDK][0], p.st[kDK][1], p.st[kDK][2]) &&
+                rows_aligned(dv, p.st[kDV][0], p.st[kDV][1], p.st[kDV][2]));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = dtype != kF32
                             ? dispatch_bwd<bf16, DQ>(p, B * H, s)

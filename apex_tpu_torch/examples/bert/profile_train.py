@@ -42,8 +42,8 @@ from apex_tpu_torch.utils.platform import resolve_device
 BATCH, SEQ = 64, 128
 # device-kernel name fragments of this package's kernels
 OURS = ("layer_norm_fwd_kernel", "layer_norm_bwd", "flash_fwd_kernel",
-        "flash_fwd_tc_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-        "flash_dkv_tc_kernel", "xent_fwd_kernel",
+        "flash_fwd_tc_kernel", "flash_dq_kernel", "flash_dq_tc_kernel",
+        "flash_dkv_kernel", "flash_dkv_tc_kernel", "xent_fwd_kernel",
         "xent_bwd_kernel", "softmax_fwd", "softmax_bwd", "adam_kernel",
         "l2_partials_kernel", "lamb_stage1_kernel", "sgd_kernel",
         "adagrad_kernel", "novograd_kernel")

@@ -14,6 +14,7 @@ PyTorch versions below.
 """
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -33,8 +34,7 @@ LN_FWD = Kernel(LIB, "apx_layer_norm_fwd",
                  ctypes.c_float, _P])
 LN_BWD = Kernel(LIB, "apx_layer_norm_bwd", [_P] * 10 + [_I] * 7 + [_P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BWD_MAX_H = 8192     # 32 columns per thread of a 256-thread block
-_BWD_BLOCKS = 512     # stage-1 blocks aimed at (each owns a run of rows)
+_BWD_MAX_H = 8192     # 16 columns a thread of a 512-thread block
 
 
 def _normalized_size(normalized_shape: Shape) -> int:
@@ -186,6 +186,20 @@ def bwd_limits(dy2d, x2d, w, mean, rstd, dx0, dw0, db0):
             out(n * _U * dy.abs().sum(dim=0), db0))
 
 
+def bwd_grid(rows: int, n_sm: int) -> Tuple[int, int]:
+    """The backward's stage-1 grid: (rows a block, blocks). One block an
+    SM, each owning a contiguous run of rows (the last run may be
+    shorter), so the fp32 partials the blocks write are (blocks, h)
+    with blocks <= n_sm."""
+    rows_per_block = -(-rows // n_sm)
+    return rows_per_block, -(-rows // rows_per_block)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def layer_norm_bwd_kernel(dy2d: torch.Tensor, x2d: torch.Tensor,
                           w: Optional[torch.Tensor],
                           b: Optional[torch.Tensor],
@@ -193,10 +207,10 @@ def layer_norm_bwd_kernel(dy2d: torch.Tensor, x2d: torch.Tensor,
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                      Optional[torch.Tensor]]:
     """Launch the two-stage backward of ``csrc/layer_norm.cu`` on CUDA
-    tensors: stage 1 writes dx and per-block column partials into an
-    fp32 scratch buffer, stage 2 sums them into dgamma and dbeta (no
-    atomics: the same bits every run). Raises on anything the kernel
-    does not take."""
+    tensors: stage 1 (one block an SM, :func:`bwd_grid`) writes dx and
+    one row of column partials a block into an fp32 scratch buffer,
+    stage 2 sums them into dgamma and dbeta (no atomics: the same bits
+    every run). Raises on anything the kernel does not take."""
     _check_x(x2d)
     rows, h = x2d.shape
     if dy2d.shape != x2d.shape or dy2d.dtype != x2d.dtype \
@@ -223,8 +237,7 @@ def layer_norm_bwd_kernel(dy2d: torch.Tensor, x2d: torch.Tensor,
             if t is not None:
                 t.zero_()
         return dx, dw, db
-    rows_per_block = -(-rows // _BWD_BLOCKS)
-    n_blocks = -(-rows // rows_per_block)
+    rows_per_block, n_blocks = bwd_grid(rows, _sm_count(x2d.device.index))
 
     def scratch(t):
         return None if t is None else torch.empty(

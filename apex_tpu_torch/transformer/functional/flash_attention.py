@@ -23,11 +23,11 @@ o) in fp32 (computed outside the kernels, as the JAX ``_bwd_call``
 does), or their plain version :func:`attention_bwd_plain`, which keeps
 ``_bwd_call``'s numerics on whole matrices.
 
-The bf16 forward and dk/dv kernels run their products on the tensor
-cores and take their tiles by 16-byte ``cp.async`` copies where every
-row starts on a 16-byte boundary (the C entry decides, from the
-pointers, strides and head_dim), by element loads otherwise; fp32 and
-the dq kernel run on the CUDA cores. Each kernel puts one block per
+The bf16 kernels (forward, dq, dk/dv) run their products on the
+tensor cores and take their tiles by 16-byte ``cp.async`` copies where
+every row starts on a 16-byte boundary (the C entry decides, from the
+pointers, strides and head_dim), by element loads otherwise; fp32 runs
+on the CUDA cores. Each kernel puts one block per
 tile of the sequence on the grid's y axis; past 65535 tiles the C entry
 refuses the launch, and the wrapper raises CUDA's invalid-configuration
 error.

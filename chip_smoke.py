@@ -14,10 +14,13 @@ Phases, each printed as it runs; any failure exits non-zero:
    forwards of the serving path, then the LayerNorm and flash-attention
    backward kernels and the softmax cross entropy at the training
    path's shapes, held per element to their modules' error models (the
-   bf16 flash forward and dk/dv, on the tensor cores, also at ragged
-   s, d = 48, 100 and 128, dropout 0.1 and 0.5, GPT and BERT views, by
-   both load variants; a second launch gives the same bits; the
-   dropout keep masks read off both kernels equal the plain mask); the
+   bf16 flash forward, dq and dk/dv, on the tensor cores, also at
+   ragged s, one row either side of the 64-row q tile and a causal run
+   whose last q tile holds one row, d = 48, 100 and 128, dropout 0.1
+   and 0.5, GPT and BERT views, by both load variants; the LayerNorm
+   backward also at ragged h, 1000 and 1001; a second launch gives the
+   same bits; the dropout keep masks read off the forward and dk/dv
+   equal the plain mask); the
    fused softmax forwards (masked, causal) and backward, per element to
    their error model; ``flat_adam`` on BERT-Large's flat buffer, bit for
    bit; on the same buffer (336,232,448 elements) ``flat_scale`` and
@@ -375,6 +378,9 @@ def ln_bwd_parity(dev):
         (333, 1000, f32, f32, "ln", False),
         (2048, 4096, bf, f32, "ln", True),    # the JAX column-split regime
         (2048, 4096, f32, f32, "ln", True),
+        (1024, 1000, bf, bf, "ln", True),     # ragged h, 16-byte chunks
+        (333, 1001, bf, f32, "ln", True),     # h off the chunk: elements
+        (65, 8192, bf, f32, "rms", True),     # the largest h
     ]
     worst = 0.0
     for rows, h, xdt, wdt, mode, affine in cases:
@@ -424,6 +430,12 @@ def flash_bwd_parity(dev):
         (1, 16, 300, 128, bf, True, True, 0.5, None),
         (2, 16, 130, 100, bf, False, True, 0.1, None),   # element loads
         (2, 4, 200, 48, bf, True, True, 0.0, "gpt"),
+        # the dq kernel's 64-row q tile: one row short, one over, and a
+        # causal run whose last q tile holds one row
+        (8, 16, 63, 64, bf, False, True, 0.0, "bert"),
+        (8, 16, 65, 64, bf, False, True, 0.1, "bert"),
+        (4, 16, 129, 64, bf, True, True, 0.0, "gpt"),
+        (2, 16, 65, 100, bf, True, True, 0.0, None),     # element loads
     ]
     worst = {"dq": 0.0, "dkv": 0.0}
     for b, h, s, d, dt, causal, masked, rate, layout in cases:
@@ -2592,6 +2604,22 @@ def main():
         at_gpt_views=tm["flash_b1h16s1024d64_gpt_views"])
     kernels[KERNEL_NAMES.index("flash_attention_bwd_dkv")].update(
         redesigned=True, note=design)
+    kernels[KERNEL_NAMES.index("flash_attention_bwd_dq")].update(
+        redesigned=True, note=design + "; one block a 64-row q tile, S = "
+        "q~ K^T and dP = do V^T in registers, ds packed in place as the A "
+        "fragment of dq += dS K (K through ldmatrix.trans); each dq "
+        "element written once, no atomics")
+    kernels[KERNEL_NAMES.index("layer_norm_bwd")].update(
+        redesigned=True,
+        note="two stages built for the bytes: stage 1 one 512-thread block "
+        "an SM (grid from the SM count), a team of 32-512 threads a row, "
+        "16-byte loads of dy and x and stores of dx, the row held in "
+        "registers between the statistics and dx passes with the next "
+        "row in flight, c1/c2 by warp shuffles and the team's named "
+        "barrier, one fp32 partial row of dgamma and of dbeta a block; "
+        "stage 2 sums the partial rows per column in a fixed order with "
+        "coalesced 128-byte reads; no float atomics",
+        at_2048x4096=tm["ln_bwd_4096"])
     for name in ("flat_adagrad", "flat_novograd"):
         kernels[KERNEL_NAMES.index(name)]["note"] = (
             "on no model path of the JAX package: driven through its "

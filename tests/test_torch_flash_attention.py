@@ -156,6 +156,11 @@ _BWD_CASES = [
     (40, 64, True, True, "bf16", 0.0),
     (130, 64, False, True, "bf16", 0.0),
     (130, 16, True, True, "bf16", 0.2),
+    # the bf16 dq kernel's 64-row q tile: one row short, one row over,
+    # and a causal case whose last q tile holds one row
+    (63, 64, False, True, "bf16", 0.0),
+    (65, 64, True, True, "bf16", 0.1),
+    (129, 64, True, False, "bf16", 0.0),
 ]
 
 

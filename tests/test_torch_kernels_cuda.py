@@ -9,36 +9,37 @@ Without a CUDA device every test here skips. Tolerances: LayerNorm fp32
 attention o per element as ``flash_attention.o_limit`` states it (fp32
 1e-5 (|o0| + 1); bf16 one ulp of o0 plus 2^-5 sqrt(sum p^2 v^2), the
 scale of the error that rounding p and the prescaled q put into o);
-base-2 lse absolute, fp32 1e-4, bf16 1e-2; the bf16 forward and dk/dv
-(tensor-core kernels) over ragged s, d = 32, 48, 100 and 128, dropout 0.1
-and 0.5 and the model paths' strided views, by both load variants
-(16-byte copies and element loads give the same bits), must repeat bit
-for bit, and their dropout keep masks, read off o and dv, must equal the
-plain version's. Each C entry launches 65535 tiles of its own height
-on the grid's y axis and refuses one row more. The backward kernels and the
-softmax cross entropy are held per element to the error models of
-``fused_layer_norm.bwd_limits``, ``flash_attention.bwd_limits`` and
-``xentropy.limits`` (the sum-order bound of each fp32 reduction plus
-one ulp per rounding to bf16), the limits ``chip_smoke.py`` uses. The
-fused softmax forward and backward are held per element to
-``fused_softmax.fwd_limits`` and ``fused_softmax.bwd_limits`` (the
-row sums in other orders, one ulp of a bf16 or fp16 output), and
-``flat_adam`` to its plain version bit for bit (the same fp32 operations
-in the same order, no FMA). So are ``flat_scale`` and ``flat_axpby`` (the
-outputs and the finite flags, with an injected inf or NaN) and LAMB's
-stage 1 (m, v and u); the sums of squares (the L2 partials, stage 1's
-partials, and ``flat_lamb``'s params through the trust ratio) are held
-to ``multi_tensor_apply.kernels.sum_sq_limit`` and ``lamb_p_limit``, and
+base-2 lse absolute, fp32 1e-4, bf16 1e-2; the bf16 forward, dq and
+dk/dv (tensor-core kernels) over ragged s (one row either side of the
+64-row tile), d = 32, 48, 100 and 128, dropout 0.1 and 0.5 and the model
+paths' strided views, by both load variants (16-byte copies and element
+loads give the same bits), must repeat bit for bit, and the dropout keep
+masks read off o and dv must equal the plain version's. Each C entry
+launches 65535 tiles of its own height on the grid's y axis and refuses
+one row more. The backward kernels and the softmax cross entropy are
+held per element to the error models of ``fused_layer_norm.bwd_limits``,
+``flash_attention.bwd_limits`` and ``xentropy.limits`` (the sum-order
+bound of each fp32 reduction plus one ulp per rounding to bf16), the
+limits ``chip_smoke.py`` uses. The fused softmax forward and backward
+are held per element to ``fused_softmax.fwd_limits`` and
+``fused_softmax.bwd_limits`` (the row sums in other orders, one ulp of a
+bf16 or fp16 output), and ``flat_adam`` to its plain version bit for bit
+(the same fp32 operations in the same order, no FMA). So are
+``flat_scale`` and ``flat_axpby`` (the outputs and the finite flags,
+with an injected inf or NaN) and LAMB's stage 1 (m, v and u); the sums
+of squares (the L2 partials, stage 1's partials, and ``flat_lamb``'s
+params through the trust ratio) are held to
+``multi_tensor_apply.kernels.sum_sq_limit`` and ``lamb_p_limit``, and
 must repeat bit for bit. ``flat_sgd``, ``flat_adagrad`` and
 ``flat_novograd`` update params and state in place and are held to their
 plain versions bit for bit, on clones of the same inputs, and to a
 second launch; the whole ``flat_novograd`` (partials, per-tensor v,
 elementwise pass) on the card against the CPU's, v to the sum-of-squares
 model and m and p to its effect through the denominator. The int8
-weight-only matmuls (``w8_matmul``
-with and without bias, ``w8_matmul_nk``) are held per element to
-``quant.kernels.w8_limit`` (two fp32 sum orders over K, the bias
-rounding, one ulp of a bf16 output) and must repeat bit for bit."""
+weight-only matmuls (``w8_matmul`` with and without bias,
+``w8_matmul_nk``) are held per element to ``quant.kernels.w8_limit``
+(two fp32 sum orders over K, the bias rounding, one ulp of a bf16
+output) and must repeat bit for bit."""
 
 import importlib
 
@@ -221,8 +222,8 @@ def test_flash_kernel_views_take_both_load_variants(cuda_device, layout, s,
                                                     causal, rate):
     """The model paths' strided views reach the cp.async variant, views
     one element off their alignment the element-load variant, and both
-    give the bits of the same kernel on contiguous copies (forward and
-    dk/dv), within the error models of the plain version."""
+    give the bits of the same kernel on contiguous copies (forward, dq
+    and dk/dv), within the error models of the plain version."""
     b, h, d = 2, 4, 64
     rng = np.random.RandomState(3)
     q, k, v = _qkv_views(layout, b, h, s, d, "bf16", cuda_device, rng)
@@ -246,15 +247,18 @@ def test_flash_kernel_views_take_both_load_variants(cuda_device, layout, s,
                                       **kw)
     dkv1 = fa_mod.attention_dkv_kernel(*cont, mask, do, lse, delta, seed,
                                        **kw)
+    dq = fa_mod.attention_dq_kernel(q, k, v, mask, do, lse, delta, seed, **kw)
+    dq1 = fa_mod.attention_dq_kernel(*cont, mask, do, lse, delta, seed, **kw)
     torch.cuda.synchronize()
     assert torch.equal(o, o1) and torch.equal(lse, lse1)
     assert torch.equal(dkv[0], dkv1[0]) and torch.equal(dkv[1], dkv1[1])
+    assert torch.equal(dq, dq1)
     o0, lse0 = attention_fwd_plain(q, k, v, mask, seed, **kw)
     _assert_o_close(o, o0, q, k, v, mask, causal, d ** -0.5)
     torch.testing.assert_close(lse, lse0, rtol=0.0, atol=_LSE_TOL["bf16"])
     want = attention_bwd_plain(q, k, v, mask, o, lse, do, seed, **kw)
     lims = fa_mod.bwd_limits(q, k, v, mask, o, lse, do, *want, **kw)
-    for name, g, w0, lim in zip(("dk", "dv"), dkv, want[1:], lims[1:]):
+    for name, g, w0, lim in zip(("dq", "dk", "dv"), (dq, *dkv), want, lims):
         _assert_within(name, g, w0, lim)
 
 
@@ -292,7 +296,7 @@ def test_flash_kernel_keep_masks_equal_plain(cuda_device, d, sq, sk, rate):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,dt,rows", [
-    ("fwd", "bf16", 64), ("fwd", "f32", 32), ("dq", "bf16", 32),
+    ("fwd", "bf16", 64), ("fwd", "f32", 32), ("dq", "bf16", 64),
     ("dkv", "bf16", 64), ("dkv", "f32", 32)])
 def test_flash_grid_limit_follows_the_tile_height(cuda_device, kernel, dt,
                                                   rows):
@@ -346,6 +350,11 @@ _LN_BWD_CASES = [
     (2048, 4096, "bf16", "f32", "ln", True),    # JAX column-split regime
     (2048, 4096, "f32", "f32", "ln", True),
     (7, 64, "f32", "f32", "rms", False),
+    (1024, 1000, "bf16", "bf16", "ln", True),   # ragged h, 16-byte chunks
+    (333, 1001, "bf16", "f32", "ln", True),     # h off the chunk: elements
+    (333, 1001, "f32", "bf16", "rms", True),
+    (65, 8192, "bf16", "f32", "ln", True),      # the largest h
+    (7, 2731, "f32", "f32", "ln", False),
 ]
 
 
@@ -410,6 +419,13 @@ _FA_BWD_CASES = [
     (2, 2, 130, 100, "bf16", False, True, 0.1, False),
     (2, 2, 200, 48, "bf16", True, True, 0.0, False),
     (1, 2, 40, 32, "bf16", True, False, 0.5, False),
+    # the bf16 dq kernel's 64-row q tile: one row short, one row over,
+    # and causal runs whose last q tile holds one row
+    (2, 4, 63, 64, "bf16", False, True, 0.0, True),
+    (2, 4, 65, 64, "bf16", False, True, 0.1, True),
+    (2, 4, 129, 64, "bf16", True, True, 0.0, False),
+    (1, 4, 129, 128, "bf16", True, False, 0.5, False),
+    (2, 2, 65, 100, "bf16", True, True, 0.0, False),
 ]
 
 

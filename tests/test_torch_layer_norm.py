@@ -21,7 +21,7 @@ import torch
 from apex_tpu import normalization as jax_norm
 from apex_tpu_torch import normalization as port_norm
 from apex_tpu_torch.normalization.fused_layer_norm import (
-    LN_BWD, LN_FWD, layer_norm_bwd_kernel, layer_norm_bwd_plain,
+    LN_BWD, LN_FWD, bwd_grid, layer_norm_bwd_kernel, layer_norm_bwd_plain,
     layer_norm_fwd_kernel, layer_norm_fwd_plain,
 )
 
@@ -177,6 +177,8 @@ _BWD_CASES = [
     (7, 64, "bf16", "bf16", "rms", False),
     (16, 4096, "f32", "f32", "ln", True),      # JAX: column-split path
     (16, 4096, "bf16", "f32", "rms", True),    # JAX: column-split path
+    (16, 1000, "bf16", "bf16", "ln", True),    # ragged h in bf16
+    (9, 1001, "bf16", "bf16", "ln", True),     # h off the 16-byte chunk
 ]
 
 
@@ -249,3 +251,20 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         layer_norm_bwd_kernel(xt, xt, wt, bt, mean, rstd)
     assert (LN_FWD.launches, LN_BWD.launches) == before
 
+
+@pytest.mark.parametrize("n_sm", [1, 7, 132])
+@pytest.mark.parametrize("rows", [1, 7, 131, 132, 133, 2048, 8192, 8191])
+def test_bwd_grid_puts_every_row_in_one_block(rows, n_sm):
+    """The backward kernel's stage-1 grid: at most one block an SM,
+    every block non-empty, and the blocks' contiguous runs of rows cover
+    each row exactly once, so the (blocks, h) fp32 partials hold one row
+    a block: at most n_sm * h * 4 bytes of each of dgamma and dbeta."""
+    rows_per_block, n_blocks = bwd_grid(rows, n_sm)
+    assert 1 <= n_blocks <= n_sm
+    seen = np.zeros(rows, np.int64)
+    for blk in range(n_blocks):
+        r0 = blk * rows_per_block
+        r1 = min(r0 + rows_per_block, rows)
+        assert r0 < r1
+        seen[r0:r1] += 1
+    assert np.all(seen == 1)
