@@ -12,17 +12,23 @@
 // the card needs before compute matters; the least time is the bytes
 // over 3.35 TB/s.
 //
-// Design: one warp per row, four rows per 128-thread block, so rows
-// of any count and any h (not only multiples of 128) need no padding
-// and no inter-block reduction: the TPU kernel's (TILE_R, H) VMEM tile
-// becomes a warp walking its row with stride 32 (neighbouring lanes on
-// neighbouring addresses, so loads coalesce), and the VPU row
-// reduction becomes a shuffle reduction. The row is read three times
-// (sum, centred sum of squares, output); the second and third reads
-// hit L1, so device memory sees each input byte once. Weight and bias
-// may each be fp32 or bf16, independently of x (fp32 or bf16).
-// Not yet done: vectorised 16-byte loads and keeping the row in
-// registers between passes.
+// Design: built for the bytes, on the backward's pieces below. A team of
+// 32-1024 threads owns a row: the smallest power of two whose 8 elements
+// a thread (up to 2^21 elements in all) or 32 (beyond) cover h, so h up to
+// 32768. (1024, 1024) bf16 is 128 threads a row, one 16-byte chunk each;
+// (8192, 1024) a warp a row, four chunks each. A 128-thread block holds
+// 128 / team rows (one row a block for larger teams).
+// Thread l of a team owns the row's 16-byte chunks l, l + team, ..., so
+// x arrives by 16-byte loads (a warp's loads 512 contiguous bytes) and y
+// leaves by 16-byte stores; w and b are loaded at the start too, and
+// converted to fp32.
+// The row stays in registers, as loaded, between the statistics passes
+// and the output pass: device memory sees x once. The sums are warp
+// shuffles, then for a team of several warps the warps' sums added in
+// warp order through shared memory. Element loads and stores where h is
+// not a multiple of the vector or x, y, w or b does not start 16-byte
+// aligned. One kernel serves x fp32 or bf16, w and b each fp32 or bf16
+// or absent, LN or RMS.
 //
 // Backward. Replaces _bwd_kernel (via _bwd_call) and, at h >= 2731
 // where the JAX package splits columns, _bwd_colsum_kernel and
@@ -68,7 +74,6 @@
 namespace {
 
 enum { kF32 = 0, kBF16 = 1 };
-constexpr int kRowsPerBlock = 4;
 
 __device__ __forceinline__ float ld(const float* p, int64_t i) {
   return p[i];
@@ -89,80 +94,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename TX, typename TW, typename TB>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
-layer_norm_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                      const TB* __restrict__ b, TX* __restrict__ y,
-                      float* __restrict__ mean_out,
-                      float* __restrict__ rstd_out, int rows, int h,
-                      int rms, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row =
-      (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const TX* xr = x + row * h;
-  const float fh = (float)h;
-  float mean = 0.f, acc = 0.f;
-  if (!rms) {
-    for (int i = lane; i < h; i += 32) acc += ld(xr, i);
-    mean = warp_sum(acc) / fh;
-    acc = 0.f;
-  }
-  for (int i = lane; i < h; i += 32) {
-    const float d = ld(xr, i) - mean;
-    acc += d * d;
-  }
-  const float rstd = 1.0f / sqrtf(warp_sum(acc) / fh + eps);
-  TX* yr = y + row * h;
-  for (int i = lane; i < h; i += 32) {
-    float t = (ld(xr, i) - mean) * rstd;
-    if (w != nullptr) t *= ld(w, i);
-    if (b != nullptr) t += ld(b, i);
-    st(yr, i, t);
-  }
-  if (lane == 0) {
-    if (mean_out != nullptr) mean_out[row] = mean;
-    rstd_out[row] = rstd;
-  }
-}
-
-template <typename TX, typename TW, typename TB>
-void launch(const void* x, const void* w, const void* b, void* y,
-            float* mean, float* rstd, int rows, int h, int rms, float eps,
-            cudaStream_t stream) {
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  layer_norm_fwd_kernel<TX, TW, TB>
-      <<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
-          static_cast<const TX*>(x), static_cast<const TW*>(w),
-          static_cast<const TB*>(b), static_cast<TX*>(y), mean, rstd, rows,
-          h, rms, eps);
-}
-
-template <typename TX, typename TW>
-void dispatch_b(int b_dtype, const void* x, const void* w, const void* b,
-                void* y, float* mean, float* rstd, int rows, int h, int rms,
-                float eps, cudaStream_t s) {
-  if (b_dtype == kBF16)
-    launch<TX, TW, __nv_bfloat16>(x, w, b, y, mean, rstd, rows, h, rms, eps,
-                                  s);
-  else
-    launch<TX, TW, float>(x, w, b, y, mean, rstd, rows, h, rms, eps, s);
-}
-
-template <typename TX>
-void dispatch_w(int w_dtype, int b_dtype, const void* x, const void* w,
-                const void* b, void* y, float* mean, float* rstd, int rows,
-                int h, int rms, float eps, cudaStream_t s) {
-  if (w_dtype == kBF16)
-    dispatch_b<TX, __nv_bfloat16>(b_dtype, x, w, b, y, mean, rstd, rows, h,
-                                  rms, eps, s);
-  else
-    dispatch_b<TX, float>(b_dtype, x, w, b, y, mean, rstd, rows, h, rms,
-                          eps, s);
-}
-
-// -- backward ---------------------------------------------------------------
-
 constexpr int kBwdThreads = 512;  // stage 1: one block an SM
 constexpr int kBwdElems = 16;     // stage 1: elements of a row a thread
 constexpr int kBwdMaxH = kBwdThreads * kBwdElems;  // 8192
@@ -175,6 +106,8 @@ inline int bwd_team(int h) {
   while (t * kBwdElems < h) t *= 2;
   return t;
 }
+
+// -- rows in 16-byte chunks (forward and backward) --------------------------
 
 // 16 bytes of a row, kept as loaded (so a load in flight holds only its
 // four registers) and read as fp32: one vector load where VEC (row
@@ -240,6 +173,226 @@ __device__ __forceinline__ void store_chunk(T* row, int c, int h,
       if (c + i < h) st(row, c + i, v[i]);
   }
 }
+
+// -- forward ----------------------------------------------------------------
+
+constexpr int kFwdThreads = 128;  // a block, or a team where that is larger
+constexpr int kFwdMaxH = 1024 * 32;  // a 1024-thread team, 32 columns each
+// Up to this many elements the rows take 8 columns a thread, beyond it
+// 32: on the H100 8 took 10-21 % less time from (8, 1024) to (2048, 1024)
+// bf16, 32 took 11-17 % less at (1024, 4096) bf16, (4096, 1024) and
+// (8192, 1024) fp32 w.
+constexpr long long kFwdFewElems = 1LL << 21;
+
+// The columns of a row a thread holds: 8 for a problem of few elements
+// (more threads, one 16-byte chunk each for bf16), else 32.
+inline int fwd_elems(int rows, int h) {
+  return static_cast<long long>(rows) * h <= kFwdFewElems && h <= 1024 * 8
+             ? 8
+             : 32;
+}
+
+// The team of threads that owns a row: the smallest power of two, at
+// least a warp, whose `elems` columns a thread cover h.
+inline int fwd_team(int h, int elems) {
+  int t = 32;
+  while (t * elems < h) t *= 2;
+  return t;
+}
+
+// N elements of w or b (fp32 or bf16, `bf16`) at columns c .. c + N - 1
+// as fp32, 0 past h: vector loads where VEC (the chunk wholly in or
+// out of the row), else element loads.
+template <int N, bool VEC>
+__device__ __forceinline__ void load_param(const void* p, int bf16, int c,
+                                           int h, float (&v)[N]) {
+  if (bf16) {
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p);
+    if constexpr (VEC) {
+      uint32_t w[N / 2];
+      if constexpr (N == 8) {
+        const uint4 u = c < h ? *reinterpret_cast<const uint4*>(q + c)
+                              : make_uint4(0u, 0u, 0u, 0u);
+        w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+      } else {
+        const uint2 u = c < h ? *reinterpret_cast<const uint2*>(q + c)
+                              : make_uint2(0u, 0u);
+        w[0] = u.x, w[1] = u.y;
+      }
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        v[i] = __uint_as_float(i & 1 ? w[i >> 1] & 0xffff0000u
+                                     : w[i >> 1] << 16);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = c + i < h ? ld(q, c + i) : 0.f;
+    }
+  } else {
+    const float* q = static_cast<const float*>(p);
+    if constexpr (VEC) {
+#pragma unroll
+      for (int j = 0; j < N / 4; ++j) {
+        const float4 f = c < h ? *reinterpret_cast<const float4*>(q + c + 4 * j)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[4 * j] = f.x, v[4 * j + 1] = f.y, v[4 * j + 2] = f.z,
+              v[4 * j + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = c + i < h ? q[c + i] : 0.f;
+    }
+  }
+}
+
+// TEAM threads own a row; thread l of a team holds the row's 16-byte
+// chunks l, l + TEAM, ... (ELEMS columns) in registers from the load
+// to the store. A team of several warps adds its warps' sums in warp
+// order through shared memory (every thread of the block reaches the
+// barriers; a team past the last row stores nothing).
+template <typename TX, int TEAM, int ELEMS, bool VEC>
+__global__ void __launch_bounds__(TEAM > kFwdThreads ? TEAM : kFwdThreads)
+layer_norm_fwd_kernel(const TX* __restrict__ x, const void* __restrict__ w,
+                      int w_bf16, const void* __restrict__ b, int b_bf16,
+                      TX* __restrict__ y, float* __restrict__ mean_out,
+                      float* __restrict__ rstd_out, int rows, int h, int rms,
+                      float eps) {
+  using C = Chunk<TX, VEC>;
+  constexpr int N = C::N;
+  constexpr int VPT = ELEMS / N;  // chunks a thread
+  constexpr int BLOCK = TEAM > kFwdThreads ? TEAM : kFwdThreads;
+  constexpr int WARPS = TEAM / 32;    // warps a team
+  __shared__ float red[2][BLOCK / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int team = tid / TEAM, tl = tid % TEAM;
+  const int64_t row = (int64_t)blockIdx.x * (BLOCK / TEAM) + team;
+  const bool live = row < rows;
+  const TX* xr = x + (live ? row : 0) * h;
+  C cx[VPT];
+  float wv[VPT][N], bv[VPT][N];
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) {
+    const int c = (tl + v * TEAM) * N;
+    cx[v].load(xr, c, h);
+#pragma unroll
+    for (int i = 0; i < N; ++i) wv[v][i] = 1.f, bv[v][i] = 0.f;
+    if (w != nullptr) load_param<N, VEC>(w, w_bf16, c, h, wv[v]);
+    if (b != nullptr) load_param<N, VEC>(b, b_bf16, c, h, bv[v]);
+  }
+  auto team_sum = [&](float s, int pass) {
+    s = warp_sum(s);
+    if constexpr (WARPS > 1) {
+      if (lane == 0) red[pass][warp] = s;
+      __syncthreads();
+      s = 0.f;
+#pragma unroll
+      for (int i = 0; i < WARPS; ++i) s += red[pass][team * WARPS + i];
+    }
+    return s;
+  };
+  const float fh = (float)h;
+  float mean = 0.f;
+  if (!rms) {  // columns past h hold 0 and add nothing
+    float acc = 0.f;
+#pragma unroll
+    for (int v = 0; v < VPT; ++v)
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc += cx[v][i];
+    mean = team_sum(acc, 0) / fh;
+  }
+  float acc = 0.f;
+#pragma unroll
+  for (int v = 0; v < VPT; ++v)
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if ((tl + v * TEAM) * N + i < h) {
+        const float d = cx[v][i] - mean;
+        acc += d * d;
+      }
+  const float rstd = 1.0f / sqrtf(team_sum(acc, 1) / fh + eps);
+  if (!live) return;
+  TX* yr = y + row * h;
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) {
+    float o[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float t = (cx[v][i] - mean) * rstd;
+      if (w != nullptr) t *= wv[v][i];
+      if (b != nullptr) t += bv[v][i];
+      o[i] = t;
+    }
+    store_chunk<TX, VEC>(yr, (tl + v * TEAM) * N, h, o);
+  }
+  if (tl == 0) {
+    if (mean_out != nullptr) mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+}
+
+template <typename TX, int TEAM, int ELEMS, bool VEC>
+void launch_fwd(const void* x, const void* w, int w_bf16, const void* b,
+                int b_bf16, void* y, float* mean, float* rstd, int rows,
+                int h, int rms, float eps, cudaStream_t s) {
+  constexpr int BLOCK = TEAM > kFwdThreads ? TEAM : kFwdThreads;
+  constexpr int ROWS = BLOCK / TEAM;
+  layer_norm_fwd_kernel<TX, TEAM, ELEMS, VEC>
+      <<<(rows + ROWS - 1) / ROWS, BLOCK, 0, s>>>(
+          static_cast<const TX*>(x), w, w_bf16, b, b_bf16, static_cast<TX*>(y),
+          mean, rstd, rows, h, rms, eps);
+}
+
+template <typename TX, int ELEMS, bool VEC>
+int fwd_dispatch_team(const void* x, const void* w, int w_bf16,
+                      const void* b, int b_bf16, void* y, float* mean,
+                      float* rstd, int rows, int h, int rms, float eps,
+                      cudaStream_t s) {
+#define APX_LN_FWD(T)                                                     \
+  case T:                                                                 \
+    launch_fwd<TX, T, ELEMS, VEC>(x, w, w_bf16, b, b_bf16, y, mean, rstd, \
+                                  rows, h, rms, eps, s);                  \
+    return 0;
+  switch (fwd_team(h, ELEMS)) {
+    APX_LN_FWD(32)
+    APX_LN_FWD(64)
+    APX_LN_FWD(128)
+    APX_LN_FWD(256)
+    APX_LN_FWD(512)
+    APX_LN_FWD(1024)
+  }
+#undef APX_LN_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename TX, bool VEC>
+int fwd_dispatch_elems(const void* x, const void* w, int w_bf16,
+                       const void* b, int b_bf16, void* y, float* mean,
+                       float* rstd, int rows, int h, int rms, float eps,
+                       cudaStream_t s) {
+  return fwd_elems(rows, h) == 8
+             ? fwd_dispatch_team<TX, 8, VEC>(x, w, w_bf16, b, b_bf16, y, mean,
+                                             rstd, rows, h, rms, eps, s)
+             : fwd_dispatch_team<TX, 32, VEC>(x, w, w_bf16, b, b_bf16, y,
+                                              mean, rstd, rows, h, rms, eps,
+                                              s);
+}
+
+template <typename TX>
+int fwd_dispatch_vec(const void* x, const void* w, int w_bf16, const void* b,
+                     int b_bf16, void* y, float* mean, float* rstd, int rows,
+                     int h, int rms, float eps, cudaStream_t s) {
+  constexpr int N = 16 / sizeof(TX);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = h % N == 0 && aligned(x) && aligned(y) && aligned(w) &&
+                   aligned(b);
+  return vec ? fwd_dispatch_elems<TX, true>(x, w, w_bf16, b, b_bf16, y, mean,
+                                            rstd, rows, h, rms, eps, s)
+             : fwd_dispatch_elems<TX, false>(x, w, w_bf16, b, b_bf16, y,
+                                             mean, rstd, rows, h, rms, eps, s);
+}
+
+// -- backward ---------------------------------------------------------------
 
 // Stage 1. TEAM threads own a row: thread l of a team owns the 16-byte
 // chunks l, l + TEAM, ... (kBwdElems columns), so a warp's loads are 512
@@ -489,7 +642,8 @@ const char* apx_error_string(int code) {
 
 // x, y: (rows, h) row-major, dtype x_dtype (0 fp32, 1 bf16). w, b: (h,)
 // or null, dtypes w_dtype / b_dtype. mean (null in RMS mode), rstd:
-// (rows,) fp32. Launches on `stream` and returns cudaGetLastError().
+// (rows,) fp32. h <= 32768. Launches on `stream` and returns
+// cudaGetLastError().
 int apx_layer_norm_fwd(const void* x, const void* w, const void* b, void* y,
                        void* mean, void* rstd, int rows, int h, int x_dtype,
                        int w_dtype, int b_dtype, int rms, float eps,
@@ -497,12 +651,15 @@ int apx_layer_norm_fwd(const void* x, const void* w, const void* b, void* y,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mean);
   float* r = static_cast<float*>(rstd);
-  if (x_dtype == kBF16)
-    dispatch_w<__nv_bfloat16>(w_dtype, b_dtype, x, w, b, y, m, r, rows, h,
-                              rms, eps, s);
-  else
-    dispatch_w<float>(w_dtype, b_dtype, x, w, b, y, m, r, rows, h, rms, eps,
-                      s);
+  if (h > kFwdMaxH) return static_cast<int>(cudaErrorInvalidValue);
+  const int wb = w_dtype == kBF16, bb = b_dtype == kBF16;
+  const int e =
+      x_dtype == kBF16
+          ? fwd_dispatch_vec<__nv_bfloat16>(x, w, wb, b, bb, y, m, r, rows, h,
+                                            rms, eps, s)
+          : fwd_dispatch_vec<float>(x, w, wb, b, bb, y, m, r, rows, h, rms,
+                                    eps, s);
+  if (e != 0) return e;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,6 +34,7 @@ LN_FWD = Kernel(LIB, "apx_layer_norm_fwd",
                  ctypes.c_float, _P])
 LN_BWD = Kernel(LIB, "apx_layer_norm_bwd", [_P] * 10 + [_I] * 7 + [_P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FWD_MAX_H = 32768    # 32 columns a thread of a 1024-thread team
 _BWD_MAX_H = 8192     # 16 columns a thread of a 512-thread block
 
 
@@ -102,6 +103,9 @@ def layer_norm_fwd_kernel(x2d: torch.Tensor, w: Optional[torch.Tensor],
         raise ValueError(f"mode must be 'ln' or 'rms', got {mode!r}")
     rows, h = x2d.shape
     _check_params(x2d, w, b)
+    if h > _FWD_MAX_H:
+        raise RuntimeError(f"layer-norm forward kernel takes h up to "
+                           f"{_FWD_MAX_H}, got {h}")
     y = torch.empty_like(x2d)
     mean = torch.empty((rows, 1), device=x2d.device, dtype=torch.float32) \
         if mode == "ln" else None

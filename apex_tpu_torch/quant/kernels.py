@@ -18,8 +18,9 @@ Dispatch: a CUDA tensor launches the hand-written kernels
 (``csrc/w8_matmul.cu``; ``W8_MATMUL`` with a bias, ``W8_MATMUL_NOBIAS``
 without, ``W8_MATMUL_NK``) or raises; a CPU tensor takes the plain
 versions below, which dequantize in fp32 and take one fp32 product.
-The two sum the K products in other orders, and are held to each other
-by ``w8_limit``.
+The two sum the K products in other orders (a bf16 x at M > 8 on the
+tensor cores, with the scale applied after the sum), and are held to
+each other by ``w8_limit``.
 """
 
 import ctypes
@@ -34,9 +35,9 @@ from apex_tpu_torch.utils.platform import on_card
 LIB = CudaLibrary("w8_matmul")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-W8_MATMUL = Kernel(LIB, "apx_w8_matmul", [_P] * 6 + [_I] * 6 + [_P])
+W8_MATMUL = Kernel(LIB, "apx_w8_matmul", [_P] * 7 + [_I] * 6 + [_P])
 W8_MATMUL_NOBIAS = Kernel(LIB, "apx_w8_matmul_nobias",
-                          [_P] * 5 + [_I] * 5 + [_P])
+                          [_P] * 6 + [_I] * 5 + [_P])
 W8_MATMUL_NK = Kernel(LIB, "apx_w8_matmul_nk", [_P] * 5 + [_I] * 5 + [_P])
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 _U = 2.0 ** -24      # fp32 unit roundoff
@@ -107,13 +108,39 @@ def _check_launch(who: str, x2, wq, scale, bias, out_dtype) -> None:
                            f"{tuple(bias.shape)} {bias.dtype}")
 
 
-def _workspace(m: int, k: int, n: int, nk: bool, dev) -> torch.Tensor:
-    """The fp32 scratch for the kernel's K parts (the C side's plan)."""
-    fn = LIB.load().apx_w8_workspace
-    fn.argtypes = [_I] * 4
+def _plan_size(symbol: str, m: int, k: int, n: int, nk: bool,
+               x_bf16: int) -> int:
+    fn = getattr(LIB.load(), symbol)
+    fn.argtypes = [_I] * 5
     fn.restype = ctypes.c_longlong
-    return torch.empty((fn(m, k, n, int(nk)),), dtype=torch.float32,
-                       device=dev)
+    return fn(m, k, n, int(nk), x_bf16)
+
+
+def _workspace(m: int, k: int, n: int, nk: bool, x_bf16: int,
+               dev) -> torch.Tensor:
+    """The fp32 scratch for the kernel's K parts (the C side's plan)."""
+    return torch.empty((_plan_size("apx_w8_workspace", m, k, n, nk,
+                                   x_bf16),),
+                       dtype=torch.float32, device=dev)
+
+
+_COUNTERS = {}
+
+
+def _counters(m: int, k: int, n: int, x_bf16: int, dev) -> torch.Tensor:
+    """The arrival counters of a split-K launch: a zeroed int32 buffer
+    kept per device and grown as needed. Each launch finds its counters
+    zero and leaves them zero (the last block of a tile or strip resets
+    its own), so one buffer serves every launch on the device, CUDA-graph
+    replays included; launches that split K must not run concurrently on
+    two streams of one device."""
+    need = _plan_size("apx_w8_counters", m, k, n, False, x_bf16)
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros((max(need, 1024),), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -138,16 +165,18 @@ def w8_matmul_kernel(x2: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     if m == 0 or n == 0:
         return out
-    work = _workspace(m, k, n, False, x2.device)
+    work = _workspace(m, k, n, False, _bf16(x2), x2.device)
+    counters = _counters(m, k, n, _bf16(x2), x2.device)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     if bias is None:
         W8_MATMUL_NOBIAS(x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                         out.data_ptr(), _ptr(work), m, k, n, _bf16(x2),
-                         _bf16(out), stream)
+                         out.data_ptr(), _ptr(work), counters.data_ptr(), m,
+                         k, n, _bf16(x2), _bf16(out), stream)
     else:
         W8_MATMUL(x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                  bias.data_ptr(), out.data_ptr(), _ptr(work), m, k, n,
-                  _bf16(x2), _bf16(out), _bf16(bias), stream)
+                  bias.data_ptr(), out.data_ptr(), _ptr(work),
+                  counters.data_ptr(), m, k, n, _bf16(x2), _bf16(out),
+                  _bf16(bias), stream)
     return out
 
 
@@ -165,7 +194,7 @@ def w8_matmul_nk_kernel(x2: torch.Tensor, wq: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     if m == 0 or n == 0:
         return out
-    work = _workspace(m, k, n, True, x2.device)
+    work = _workspace(m, k, n, True, _bf16(x2), x2.device)
     W8_MATMUL_NK(x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
                  out.data_ptr(), _ptr(work), m, k, n, _bf16(x2), _bf16(out),
                  torch.cuda.current_stream(x2.device).cuda_stream)
@@ -209,13 +238,25 @@ def w8_limit(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     same inputs (kernel against plain version, or the port against the
     JAX package), shaped like the output.
 
-    Both sides dequantize each weight to the same fp32 value w, so they
-    differ only in the order of the K fp32 products' sum: each is within
-    K u sum_k |x_k| |w_kn| of the exact sum (u = 2^-24), two of them
-    within twice that. Adding the bias rounds once on each side (2 u of
-    the sum of the magnitudes). A bf16 output (``out_dtype``; default
-    x's, fp32 for ``nk``) adds one ulp of the value: both sides round
-    their fp32 sums once, 2^-7 of |y| plus that fp32 limit."""
+    Each side stays within K u sum_k |x_k| |w_kn| of the exact sum (u =
+    2^-24), so two of them within twice that:
+
+    - The plain versions and the CUDA-core kernels dequantize each weight
+      to the same fp32 w = fl(q s) and sum the K fp32 products x w in
+      some order: each product and each of the K - 1 additions rounds
+      once.
+    - The tensor-core kernel (bf16 x, M > 8) computes s_n sum_k (x_k
+      q_kn): each product is exact (8 significant bits times |q| <=
+      127), the K - 1 fp32 additions each round by at most u of a
+      partial sum's magnitude, and the factored scale adds one rounding,
+      u |y| <= u sum |x| |w|; against the exact sum of the exact
+      dequantized weights q s it also skips the rounding of q s, which
+      only removes error.
+
+    Adding the bias rounds once on each side (2 u of the sum of the
+    magnitudes). A bf16 output (``out_dtype``; default x's, fp32 for
+    ``nk``) adds one ulp of the value: both sides round their fp32 sums
+    once, 2^-7 of |y| plus that fp32 limit."""
     k = wq.shape[1] if nk else wq.shape[0]
     if out_dtype is None:
         out_dtype = torch.float32 if nk else x.dtype

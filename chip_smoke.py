@@ -39,8 +39,13 @@ Phases, each printed as it runs; any failure exits non-zero:
    state as they were, NovoGrad's per-tensor v through the partials
    kernel to the sum-of-squares model; the int8 weight-only matmuls
    (``w8_matmul`` with and without bias, ``w8_matmul_nk``) at GPT-2
-   medium's decode and prefill shapes and a ragged one, per element to
-   ``quant.kernels.w8_limit``, two launches the same bits.
+   medium's decode shapes and its prefill buckets M 128, 512 and 1024
+   (bf16 x there on the tensor cores), M 37 and 100, a ragged shape and
+   an x view 2 bytes past a 16-byte boundary, per element to
+   ``quant.kernels.w8_limit``, two launches the same bits, and the
+   one-launch decode the same bits across two CUDA-graph replays. The
+   LayerNorm forward also at ragged h, at teams of several warps and on
+   an unaligned row base.
 3. serving — GPT-2 medium (h 1024, 24 layers, 16 heads, vocab 50304),
    random weights from seed 0, O2-cast to bf16, served by the port's
    ``DecodeEngine`` + ``ContinuousBatchingScheduler`` (8 slots, max_len
@@ -94,8 +99,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    tree with seeded gradients, against the same optimizer's tree path
    on the card (SGD and Adagrad bit for bit, NovoGrad per element to its
    error model), exact launches a step.
-7. times — each kernel at its path's shapes (the w8 kernels at M 8
-   and M 1024; ``flat_sgd`` on ResNet-50's flat buffer and on
+7. times — each kernel at its path's shapes (the LayerNorm forward at
+   (1024, 1024), (8, 1024) and the BERT O2 (8192, 1024); the w8 kernels
+   at M 8, 128 (rows 21-22) and 1024, rows 21-22 also beside the bf16
+   serving linear on the dequantized weights; ``flat_sgd`` on ResNet-50's
+   flat buffer and on
    BERT-Large's; the flash forward on contiguous tensors and on the
    GPT prefill's ``_split_qkv`` views), its plain version, one library
    call computing the
@@ -201,10 +209,21 @@ def ln_parity(dev):
         (333, 1000, f32, f32, "ln", True),
         (1024, 1024, bf, bf, "rms", True),
         (333, 1000, f32, f32, "ln", False),
+        # ragged h, teams of several warps, a row base 2 bytes past a
+        # 16-byte boundary (element loads)
+        (16, 100, bf, bf, "ln", True),
+        (33, 4096, bf, f32, "ln", True),
+        (9, 8192, f32, f32, "rms", True),
+        (1024, 4096, bf, f32, "ln", True),
+        (40, 1024, bf, bf, "ln_unaligned", True),
     ]
     worst = 0.0
     for rows, h, xdt, wdt, mode, affine in cases:
         x = _rand(gen, (rows, h), xdt, dev, 2.0, 0.5)
+        if mode == "ln_unaligned":
+            mode = "ln"
+            buf = torch.empty(rows * h + 1, dtype=xdt, device=dev)
+            x = buf[1:].view(rows, h).copy_(x)
         w = _rand(gen, (h,), wdt, dev, 0.5, 1.0) if affine else None
         b = _rand(gen, (h,), wdt, dev, 0.3) \
             if affine and mode == "ln" else None
@@ -933,12 +952,27 @@ def w8_operands(gen, dev, m, k, n, xdt, nk=False, bias=True):
     return x, wq, scale, b
 
 
+def _graph_of(fn):
+    """``fn`` captured in a CUDA graph (after a warm-up on a side
+    stream), and the output tensor the replays write."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
 def w8_parity(dev):
     w8 = kernel_modules()[5]
     phase("kernel parity: int8 weight-only matmuls (tolerance per element, "
           "quant.kernels.w8_limit: 2 K 2^-24 sum_k |x||w| for two fp32 sum "
           "orders, 2^-23 of the bias sum, one ulp of a bf16 output; two "
-          "launches the same bits)")
+          "launches the same bits; the one-launch decode also across two "
+          "CUDA-graph replays)")
     gen = torch.Generator(device=dev).manual_seed(14)
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(m, k, n, bf, "bias") for m in (8, 1024)
@@ -948,12 +982,29 @@ def w8_parity(dev):
               (8, *W8_TABLE, bf, "nk"), (8, *W8_TABLE, f32, "nk"),
               (37, 100, 201, bf, "bias"), (37, 100, 201, f32, "nobias"),
               (37, 201, 100, bf, "nk")]   # the ragged case: byte loads
+    # the tensor-core kernel at the other prefill buckets, an M between 9
+    # and 127, K split or not, and an x view 2 bytes past a 16-byte
+    # boundary (element loads)
+    cases += [(128, *W8_LINEARS[0], bf, "bias"), (512, *W8_LINEARS[2], bf,
+                                                   "bias"),
+              (128, *W8_LINEARS[3], bf, "nobias"),
+              (512, *W8_LINEARS[3], bf, "nobias"),
+              (1024, *W8_LINEARS[3], bf, "nobias"),
+              (37, *W8_LINEARS[1], bf, "bias"), (100, *W8_LINEARS[3], bf,
+                                                  "bias"),
+              (128, *W8_LINEARS[0], bf, "bias_unaligned"),
+              (1, *W8_LINEARS[0], bf, "bias")]
     worst = dict.fromkeys(("w8_matmul", "w8_matmul_nobias", "w8_matmul_nk"),
                           0.0)
     for m, k, n, xdt, kind in cases:
         nk = kind == "nk"
         x, wq, scale, b = w8_operands(gen, dev, m, k, n, xdt, nk,
-                                      kind == "bias")
+                                      kind.startswith("bias"))
+        if kind == "bias_unaligned":
+            buf = torch.empty(m * k + 1, dtype=xdt, device=dev)
+            xv = buf[1:].view(m, k)
+            xv.copy_(x)
+            x = xv
         if nk:
             args = (x, wq, scale, f32)
             fk, fp = w8.w8_matmul_nk_kernel, w8.w8_matmul_nk_plain
@@ -963,15 +1014,26 @@ def w8_parity(dev):
             fk, fp = w8.w8_matmul_kernel, w8.w8_matmul_plain
             lim = w8.w8_limit(x, wq, scale, b, xdt)
         got, again = fk(*args), fk(*args)
+        same = torch.equal(got, again)
+        note = "repeat bit-equal"
+        if m <= 8 and not nk:
+            graph, out = _graph_of(lambda: fk(*args))
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                same &= torch.equal(out, got)
+            note += ", and across two CUDA-graph replays"
+            del graph, out
         torch.cuda.synchronize()
         e, use = _held(got, fp(*args), lim)
-        name = "w8_matmul" + ("" if kind == "bias" else f"_{kind}")
+        name = "w8_matmul" + ("" if kind.startswith("bias") else f"_{kind}")
         worst[name] = max(worst[name], e)
-        check(use <= 1.0 and torch.equal(got, again)
-              and got.dtype == args[-1],
-              f"{name} M {m} K {k} N {n}, x {str(xdt)[6:]} -> "
+        view = f" (x at {x.data_ptr() % 16} bytes past 16)" \
+            if x.data_ptr() % 16 else ""
+        check(use <= 1.0 and same and got.dtype == args[-1],
+              f"{name} M {m} K {k} N {n}, x {str(xdt)[6:]}{view} -> "
               f"{str(args[-1])[6:]}: max_abs_err {e:.3g} ({use:.4f} of "
-              "w8_limit), repeat bit-equal")
+              f"w8_limit), {note}")
         del x, wq, scale, b, got, again, lim
     torch.cuda.empty_cache()
     return worst
@@ -2371,20 +2433,25 @@ def _cycle(fns):
 
 
 def w8_times(dev):
-    """Rows 21-23 at M 8 (a decode step's slots) and M 1024 (a 1024-token
-    prefill), bf16 x as on the O2 path. The linears are timed over 24
-    weight copies, one call each in turn, as a step reads its 24 layers
-    (72-96 MB, past the 50 MB L2); the word table is read once (51.5
-    MB). The library call is ``torch._weight_int8pack_mm`` where the
-    card's torch has it for CUDA (bf16 scales and output, no bias; the KN
-    rows on transposed copies made outside the timing); else
-    ``torch.matmul``/``addmm`` over the weights dequantized to bf16, a
-    different function (it reads bf16 weights)."""
+    """Rows 21-23 at M 8 (a decode step's slots), M 128 (the smallest
+    prefill bucket; rows 21-22) and M 1024 (a 1024-token prefill), bf16 x
+    as on the O2 path. The linears are timed over 24 weight copies, one
+    call each in turn, as a step reads its 24 layers (72-96 MB, past the
+    50 MB L2); the word table is read once (51.5 MB). The library call is
+    ``torch._weight_int8pack_mm`` where the card's torch has it for CUDA
+    (bf16 scales and output, no bias; the KN rows on transposed copies
+    made outside the timing); else ``torch.matmul``/``addmm`` over the
+    weights dequantized to bf16, a different function (it reads bf16
+    weights). Rows 21-22 also time the bf16 serving path's own linear on
+    the dequantized bf16 weights (``torch.addmm(bias, x, w_bf16)``, or
+    ``torch.matmul`` without the bias): a different function, reading
+    twice the weight bytes, and the yardstick a w8 prefill has to
+    approach."""
     from apex_tpu_torch.quant import dequantize_tensor
 
     w8 = kernel_modules()[5]
-    phase("times of the int8 weight-only matmuls at M 8 and M 1024 (bf16 "
-          "x; device ms per call, CUDA-graph replays)")
+    phase("times of the int8 weight-only matmuls at M 8, 128 and 1024 "
+          "(bf16 x; device ms per call, CUDA-graph replays)")
     gen = torch.Generator(device=dev).manual_seed(15)
     bf, f32 = torch.bfloat16, torch.float32
     int8pack = torch._C._dispatch_has_kernel_for_dispatch_key(
@@ -2400,7 +2467,9 @@ def w8_times(dev):
         nk = kind == "nk"
         ops = [w8_operands(gen, dev, 1, k, n, bf, nk, kind == "bias")
                for _ in range(copies)]
-        for m in (8, 1024):
+        deq = [dequantize_tensor(o[1], o[2], -1 if nk else -2, bf)
+               for o in ops]
+        for m in (8, 1024) if nk else (8, 128, 1024):
             x = _rand(gen, (m, k), bf, dev)
             if nk:
                 fk = [lambda o=o: w8.w8_matmul_nk_kernel(x, o[1], o[2], f32)
@@ -2412,31 +2481,37 @@ def w8_times(dev):
                       for o in ops]
                 fp = [lambda o=o: w8.w8_matmul_plain(x, o[1], o[2], o[3], bf)
                       for o in ops]
+            if nk:
+                lin = [lambda d=d: torch.matmul(x, d.t()) for d in deq]
+            elif kind == "bias":
+                lin = [lambda d=d, o=o: torch.addmm(o[3], x, d)
+                       for d, o in zip(deq, ops)]
+            else:
+                lin = [lambda d=d: torch.matmul(x, d) for d in deq]
             if int8pack:
                 packed = [(o[1] if nk else o[1].t().contiguous(),
                            o[2].to(bf)) for o in ops]
                 fl = [lambda p=p: torch._weight_int8pack_mm(x, *p)
                       for p in packed]
             else:
-                deq = [dequantize_tensor(o[1], o[2], -1 if nk else -2, bf)
-                       for o in ops]
-                if nk:
-                    fl = [lambda d=d: torch.matmul(x, d.t()) for d in deq]
-                elif kind == "bias":
-                    fl = [lambda d=d, o=o: torch.addmm(o[3], x, d)
-                          for d, o in zip(deq, ops)]
-                else:
-                    fl = [lambda d=d: torch.matmul(x, d) for d in deq]
+                fl = lin
             kw = dict(inner=copies) if copies > 1 else dict(inner=5)
             nbytes = (m * k * 2 + k * n + n * 4 + (n * 2 if kind == "bias"
                                                    else 0)
                       + m * n * (4 if nk else 2))
-            _entry(res, f"{name}_m{m}", time_ms(_cycle(fk), **kw),
+            key = f"{name}_m{m}"
+            _entry(res, key, time_ms(_cycle(fk), **kw),
                    time_ms(_cycle(fp), **kw), time_ms(_cycle(fl), **kw),
                    nbytes, 2 * m * k * n, BF16_TC_FLOPS,
                    f"{name} M {m} K {k} N {n} bf16 x", lib_name)
-            del x, fk, fp, fl
-        del ops
+            if not nk:
+                t = time_ms(_cycle(lin), **kw)
+                res[key]["bf16_linear_ms"] = t
+                print(f"  the bf16 serving linear on the dequantized bf16 "
+                      f"weights ({'addmm' if kind == 'bias' else 'matmul'}; "
+                      f"a different function): {t:.5f}", flush=True)
+            del x, fk, fp, fl, lin
+        del ops, deq
         torch.cuda.empty_cache()
     return res
 
@@ -2584,13 +2659,37 @@ def main():
         kernels[KERNEL_NAMES.index(name)]["note"] = (
             "on no model path; the JAX package reaches them only from its "
             "lint tiers (apex_tpu/lint/traced/registry.py:1234-1237)")
-    kernels[KERNEL_NAMES.index("w8_matmul_nobias")]["note"] = (
-        "on no unsharded path: only the tensor-parallel row-parallel "
-        "linear calls it (apex_tpu/serving/decode.py:880); held to its "
-        "plain version and timed at K 4096, N 1024")
+    w8_design = (
+        "one launch at M <= 8 (x fp32 or bf16): a gemv whose last block of "
+        "a column strip, by an integer arrival counter, sums the K parts "
+        "in part order (no float atomics; the counters reset by that "
+        "block, so CUDA-graph replays find them zero); bf16 x at M > 8 on "
+        "the tensor cores: mma.sync.m16n8k16 bf16 -> fp32 over 64 x 64 "
+        "tiles, 16-byte cp.async rings, the int8 weights kept int8 in "
+        "shared memory and widened in registers after ldmatrix.trans, "
+        "y = s_n * sum_k x q + b (exact products, one scale multiply); fp32 "
+        "x at M > 8 keeps the CUDA-core tile")
+    kernels[KERNEL_NAMES.index("w8_matmul_nobias")].update(
+        redesigned=True, note=w8_design + "; on no unsharded path: only the "
+        "tensor-parallel row-parallel linear calls it "
+        "(apex_tpu/serving/decode.py:880); held to its plain version and "
+        "timed at K 4096, N 1024")
+    kernels[KERNEL_NAMES.index("w8_matmul")].update(redesigned=True,
+                                                    note=w8_design)
     for k in kernels[-6:-3]:   # the w8 rows: times at M 8, and M 1024 here
         k.update(at_m1024=tm[k["name"] + "_m1024"],
                  library_call=tm["w8_library"])
+        if k["name"] != "w8_matmul_nk":
+            k.update(at_m128=tm[k["name"] + "_m128"])
+    kernels[KERNEL_NAMES.index("layer_norm_fwd")].update(
+        redesigned=True,
+        note="built for the bytes: a team of 32-1024 threads a row, 8 "
+        "columns a thread up to 2^21 elements and 32 beyond, 16-byte loads "
+        "of x, w and b and stores of y, the row held in registers from the "
+        "load to the store (one read of device memory), warp shuffles and, "
+        "for a team of several warps, the warps' sums in warp order; "
+        "element loads where h or a row base is not aligned",
+        at_8x1024=tm["ln_8x1024"], at_8192x1024_fp32_w=tm["ln_fwd_train"])
     kernels[KERNEL_NAMES.index("flat_sgd")].update(
         at_bert_large=tm["flat_sgd_bert"],
         bf16_buf_castout=tm["flat_sgd_resnet50_bf16buf_castout"])
@@ -2632,8 +2731,9 @@ def main():
                 "flash_fwd_train", "flash_b1h16s1024d64_gpt_views",
                 "flat_adam_bf16m_castout",
                 "flat_lamb_stage1_bf16m", "flat_sgd_bert_bf16buf_castout",
-                "w8_matmul_m1024",
-                "w8_matmul_nobias_m1024", "w8_matmul_nk_m1024"):
+                "w8_matmul_m1024", "w8_matmul_m128",
+                "w8_matmul_nobias_m1024", "w8_matmul_nobias_m128",
+                "w8_matmul_nk_m1024"):
         print(f"{key}: {json.dumps(tm[key])}")
     print(f"serving: {json.dumps(srv)}")
     print(f"training, card vs CPU: {json.dumps(small)}")

@@ -39,7 +39,12 @@ model and m and p to its effect through the denominator. The int8
 weight-only matmuls (``w8_matmul`` with and without bias,
 ``w8_matmul_nk``) are held per element to ``quant.kernels.w8_limit``
 (two fp32 sum orders over K, the bias rounding, one ulp of a bf16
-output) and must repeat bit for bit."""
+output) and must repeat bit for bit: the bf16 tensor-core kernel at
+prefill M (ragged shapes and an unaligned x view too), the one-launch
+decode gemv across CUDA-graph replays, and the regime each dtype and M
+takes, read off the profiler's kernel names. The LayerNorm forward also
+runs at ragged h, at teams of one to 32 warps, at 8 and at 32 columns a
+thread, and on rows that do not start 16-byte aligned."""
 
 import importlib
 
@@ -92,6 +97,13 @@ _LN_CASES = [
     (64, 1024, "f32", "bf16", "ln", True),
     (7, 1000, "bf16", "bf16", "ln", False),
     (7, 1024, "f32", "f32", "rms", False),
+    # ragged h (element loads), and the team sizes past one warp
+    (16, 100, "bf16", "bf16", "ln", True),
+    (5, 100, "f32", "bf16", "rms", True),
+    (33, 4096, "bf16", "f32", "ln", True),
+    (9, 8192, "f32", "f32", "ln", True),
+    (3, 20000, "bf16", "bf16", "ln", True),
+    (1024, 4096, "bf16", "f32", "ln", True),    # 32 columns a thread
 ]
 
 
@@ -117,6 +129,32 @@ def test_layer_norm_kernel_matches_plain(cuda_device, rows, h, xdt, wdt,
         torch.testing.assert_close(mean, mean0, rtol=1e-5, atol=1e-6)
     else:
         assert mean is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt,h", [("bf16", "bf16", 1024),
+                                       ("f32", "f32", 1024),
+                                       ("bf16", "f32", 1000)])
+def test_layer_norm_kernel_reads_unaligned_rows(cuda_device, xdt, wdt, h):
+    """x and y whose rows do not start 16-byte aligned (a view one
+    element into a buffer) take the element loads, with the same bits as
+    an aligned copy of the same x."""
+    rng = np.random.RandomState(4)
+    rows = 40
+    buf = _t(rng.randn(rows * h + 1) * 2.0 + 0.5, xdt, cuda_device)
+    x = buf[1:].view(rows, h)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    w = _t(1.0 + 0.5 * rng.randn(h), wdt, cuda_device)
+    b = _t(0.3 * rng.randn(h), wdt, cuda_device)
+    y, mean, rstd = layer_norm_fwd_kernel(x, w, b, "ln", 1e-5)
+    y1, mean1, rstd1 = layer_norm_fwd_kernel(x.clone(), w, b, "ln", 1e-5)
+    torch.cuda.synchronize()
+    y0, mean0, rstd0 = layer_norm_fwd_plain(x, w, b, "ln", 1e-5)
+    tol = 1e-5 if xdt == "f32" else 2 ** -7
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd0, rtol=1e-5, atol=1e-6)
+    assert torch.equal(y, y1) and torch.equal(mean, mean1) \
+        and torch.equal(rstd, rstd1)
 
 
 def _assert_o_close(o, o0, q, k, v, mask, causal, scale):
@@ -820,6 +858,111 @@ def test_w8_kernels_take_any_shape(cuda_device, m, k, n, odt):
                       w8.W8_MATMUL if bias else w8.W8_MATMUL_NOBIAS,
                       (x, wq, scale, b, _DT[odt]),
                       w8.w8_limit(x, wq, scale, b, _DT[odt]))
+
+
+def _w8_kernel_names(fn):
+    """The device kernels one call of ``fn`` launches, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "w8_" in e.name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odt", ["f32", "bf16"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("k,n", _W8_SHAPES)
+@pytest.mark.parametrize("m", [128, 1024])
+def test_w8_mma_kernel_matches_plain(cuda_device, m, k, n, bias, odt):
+    """Rows 21/22 with a bf16 x at prefill M: the tensor-core kernel
+    (s_n times the fp32 sum of exact bf16 x int8 products), bf16 and fp32
+    out, held to the unchanged ``w8_limit``; a repeat gives the same
+    bits, whether or not K is split."""
+    x, wq, scale, b = _w8_operands(cuda_device, m, k, n, "bf16", False, bias)
+    _w8_check(w8.w8_matmul_kernel, w8.w8_matmul_plain,
+              w8.W8_MATMUL if bias else w8.W8_MATMUL_NOBIAS,
+              (x, wq, scale, b, _DT[odt]),
+              w8.w8_limit(x, wq, scale, b, _DT[odt]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,offset", [
+    (9, 1024, 1024, 0), (37, 1024, 3072, 0), (100, 4096, 1024, 0),
+    (127, 1024, 4096, 0), (37, 100, 201, 0), (128, 72, 200, 0),
+    (128, 1024, 3072, 1), (37, 1024, 1024, 1), (300, 100, 201, 1)])
+def test_w8_mma_takes_any_shape(cuda_device, m, k, n, offset):
+    """M between 9 and 127, K or N ragged (element loads and zero fill)
+    and an x view whose base is 2 bytes past a 16-byte boundary: within
+    ``w8_limit``, and an aligned copy of x gives the same bits."""
+    x, wq, scale, b = _w8_operands(cuda_device, m, k, n, "bf16", False, True,
+                                   seed=m + k + n)
+    if offset:
+        buf = torch.empty(m * k + offset, dtype=x.dtype, device=x.device)
+        xv = buf[offset:].view(m, k)
+        xv.copy_(x)
+        assert xv.data_ptr() % 16 == 2 and xv.is_contiguous()
+    else:
+        xv = x
+    args = (xv, wq, scale, b, torch.bfloat16)
+    _w8_check(w8.w8_matmul_kernel, w8.w8_matmul_plain, w8.W8_MATMUL, args,
+              w8.w8_limit(x, wq, scale, b, torch.bfloat16))
+    assert torch.equal(w8.w8_matmul_kernel(*args),
+                       w8.w8_matmul_kernel(x, wq, scale, b, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,m,kind", [
+    ("bf16", 1024, "w8_mma"), ("bf16", 128, "w8_mma"),
+    ("f32", 1024, "w8_tiled"), ("bf16", 8, "w8_gemv_kn"),
+    ("f32", 8, "w8_gemv_kn"), ("bf16", 1, "w8_gemv_kn")])
+def test_w8_kernel_by_dtype_and_m(cuda_device, xdt, m, kind):
+    """The regime follows M and x's dtype alone: a bf16 x at M > 8 runs
+    the tensor-core kernel, an fp32 x the CUDA-core tile (and its K-part
+    sum where K is split), and M <= 8 one gemv launch, K parts folded in.
+    """
+    x, wq, scale, b = _w8_operands(cuda_device, m, 1024, 1024, xdt, False,
+                                   True)
+    names = _w8_kernel_names(
+        lambda: w8.w8_matmul_kernel(x, wq, scale, b, x.dtype))
+    assert names and kind in names[0], names
+    if kind == "w8_tiled":
+        assert all("w8_tiled" in n or "w8_reduce" in n for n in names)
+    else:
+        assert len(names) == 1, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+@pytest.mark.parametrize("k,n", _W8_SHAPES)
+@pytest.mark.parametrize("m", [1, 8])
+def test_w8_decode_one_launch_repeats_under_graph_replay(cuda_device, m, k,
+                                                         n, xdt):
+    """The decode gemv is one launch a linear; its arrival counters are
+    zero at every launch, so two replays of a CUDA graph of the call
+    give the same bits as an eager call, within ``w8_limit``."""
+    x, wq, scale, b = _w8_operands(cuda_device, m, k, n, xdt, False, True)
+    want = w8.w8_matmul_kernel(x, wq, scale, b, x.dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w8.w8_matmul_kernel(x, wq, scale, b, x.dtype)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = w8.w8_matmul_kernel(x, wq, scale, b, x.dtype)
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(got.clone())
+    assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
+    _assert_within("y", want, w8.w8_matmul_plain(x, wq, scale, b, x.dtype),
+                   w8.w8_limit(x, wq, scale, b, x.dtype))
 
 
 @pytest.mark.cuda

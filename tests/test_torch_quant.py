@@ -26,6 +26,7 @@ from apex_tpu_torch import amp as port_amp
 from apex_tpu_torch import quant as port_quant
 from apex_tpu_torch import serving as port_serving
 from apex_tpu_torch.models import gpt as port_gpt
+from apex_tpu_torch.quant import kernels as port_qk
 
 S_MAX = 64
 W8_MAX_ABS = 0.05      # tests/L0/run_serving/test_quant.py
@@ -217,6 +218,42 @@ def test_w8_matmul_nk_matches_jax(xdt, odt, lead, k, n):
     _held(got, want, port_quant.w8_limit(px, pwq, pws, None, _TDT[odt],
                                          nk=True))
     assert port_quant.w8_matmul_nk(px, pwq, pws).dtype == torch.float32
+
+
+def _tensor_core_order(x2, wq, scale, bias, out_dtype):
+    """The card's tensor-core order for a bf16 x at M > 8, on the CPU:
+    each bf16 x times int8 q product exact in fp32, the products summed
+    in fp32 over 16-wide k steps, then one multiply by the channel's
+    scale, the bias added in fp32, one cast."""
+    xf, q = x2.float(), wq.float()
+    acc = torch.zeros((x2.shape[0], wq.shape[1]), dtype=torch.float32)
+    for k0 in range(0, wq.shape[0], 16):
+        acc = acc + torch.matmul(xf[:, k0:k0 + 16], q[k0:k0 + 16])
+    y = acc * scale
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
+@pytest.mark.parametrize("odt", ["f32", "bf16"])
+@pytest.mark.parametrize("with_bias", [True, False],
+                         ids=["bias", "nobias"])
+@pytest.mark.parametrize("k", [1024, 4096])
+def test_w8_tensor_core_order_within_limit(k, with_bias, odt):
+    """``w8_limit``'s argument for the tensor-core order (s_n times the
+    fp32 sum of exact products) holds where there is no card: that order
+    sits within the unchanged limit of the plain version and of the JAX
+    package's w8 kernel, at GPT-2 medium's contractions."""
+    (x, wq, ws, b), (px, pwq, pws, pb) = _w8_case((4,), k, 96, False, "bf16",
+                                                  with_bias, seed=k)
+    got = _tensor_core_order(px, pwq, pws, pb, _TDT[odt])
+    lim = port_quant.w8_limit(px, pwq, pws, pb, _TDT[odt])
+    _held(got, port_qk.w8_matmul_plain(px, pwq, pws, pb, _TDT[odt]), lim)
+    _held(got, jax_quant.w8_matmul(x, wq, ws, b, out_dtype=_JDT[odt]), lim)
+    # the order differs from the plain version's in fp32
+    if odt == "f32":
+        assert not torch.equal(
+            got, port_qk.w8_matmul_plain(px, pwq, pws, pb, _TDT[odt]))
 
 
 def test_w8_limit_catches_a_lost_scale():
