@@ -24,10 +24,21 @@
 // fp32) take the register path: a group of tpr = 1..32 threads (a power of
 // two) owns a row, each thread loads whole 16-byte vectors, keeps its part
 // of the row in registers, and the group reduces the max and the sum by
-// warp shuffles; a warp holds 32 / tpr rows (two at sk = 128 in bf16). Any
-// other sk takes the generic path: a warp a row, three sweeps over the row
-// in global memory (max, sum, write), scalar loads. Arithmetic is fp32
-// throughout (expf, an IEEE division for y).
+// warp shuffles. Any other sk takes the generic path: a warp a row, three
+// sweeps over the row in global memory (max, sum, write), scalar loads.
+//
+// The forwards are laid out so that a score costs few instructions: a
+// block's rows share their (batch, head), which the grid gives
+// (blockIdx.x a tile of queries, y the head, z the batch; the causal
+// kernels' flattened batch over y and z), so a row's query comes from
+// 32-bit arithmetic on the thread index and no row divides. Where the
+// mask's key stride is 1 (BERT's (b, 1, 1, sk) padding mask, a (b, 1, sq,
+// sk) one) and its rows are aligned, a thread reads the mask values of a
+// vector in one load (8 bytes of uint8 or 32 of int32); any other mask is
+// read element by element through its strides. Arithmetic is fp32: expf
+// of z - max, then one correctly rounded reciprocal of the row sum and a
+// multiply a score (fused_softmax.fwd_limits holds that form: one
+// rounding more than a division, within the model's slack).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -35,10 +46,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 enum { kF32 = 0, kBF16 = 1, kF16 = 2 };
+enum MaskKind { kCausal = 0, kMaskU8 = 1, kMaskI32 = 2 };
 constexpr int kThreads = 128;
+constexpr int kMaxGridY = 65535;
 constexpr float kMaskValue = -10000.f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -64,38 +79,48 @@ struct alignas(sizeof(T) * N) Pack {
   T v[N];
 };
 
-// Where one row's mask lives: base + k * sk_stride (int32 or uint8).
-struct MaskRow {
-  const void* base;
-  int64_t sk_stride;
-  int is_u8;
-  __device__ __forceinline__ bool masked(int k) const {
-    return is_u8 ? static_cast<const uint8_t*>(base)[k * sk_stride] != 0
-                 : static_cast<const int32_t*>(base)[k * sk_stride] != 0;
-  }
-};
-
+// The padding mask: element (b, h, q, k) at mask[b sb + h sh + q sq + k
+// sk], int32 or uint8 (KIND).
 struct MaskArgs {
   const void* mask;  // null for the causal kernels
-  int64_t sb, sh, sq, sk;  // element strides over (batch, head, query, key)
-  int is_u8;
+  int64_t sb, sh, sq, sk;
+  int vec;  // sk == 1 and every row aligned to a vector of mask values
 };
 
-__device__ __forceinline__ MaskRow mask_row(const MaskArgs& ma, int64_t row,
-                                            int sq, int heads) {
-  const int64_t q = row % sq, bh = row / sq;
-  const int64_t b = bh / heads, h = bh % heads;
-  const size_t esz = ma.is_u8 ? 1 : 4;
-  const char* base = static_cast<const char*>(ma.mask) +
-                     (b * ma.sb + h * ma.sh + q * ma.sq) * esz;
-  return MaskRow{base, ma.sk, ma.is_u8};
-}
+template <int KIND>
+using MaskT = typename std::conditional<KIND == kMaskU8, uint8_t,
+                                        int32_t>::type;
 
-template <bool CAUSAL>
-__device__ __forceinline__ float score(float xv, float scale, int k,
-                                       int64_t q, const MaskRow& mr) {
-  const bool masked = CAUSAL ? (k > q) : mr.masked(k);
-  return masked ? kMaskValue : xv * scale;
+// Whether the VEC keys k0 .. k0 + VEC - 1 of a row are masked, the row's
+// mask starting at mr (the padding kernels) or its query being q (causal).
+template <int KIND, int VEC>
+__device__ __forceinline__ void masked_of(const void* mr, int64_t sk_stride,
+                                          int vec, int k0, int q,
+                                          bool (&m)[VEC]) {
+  if constexpr (KIND == kCausal) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) m[e] = k0 + e > q;
+  } else {
+    using M = MaskT<KIND>;
+    const M* p = static_cast<const M*>(mr);
+    if (vec) {
+      const Pack<M, VEC>* v = reinterpret_cast<const Pack<M, VEC>*>(p + k0);
+      Pack<M, VEC> pk;
+      if constexpr (sizeof(Pack<M, VEC>) > 16) {  // 32 bytes: two loads
+        const uint4* src = reinterpret_cast<const uint4*>(v);
+        uint4* dst = reinterpret_cast<uint4*>(&pk);
+        dst[0] = src[0];
+        dst[1] = src[1];
+      } else {
+        pk = *v;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) m[e] = pk.v[e] != 0;
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) m[e] = p[(k0 + e) * sk_stride] != 0;
+    }
+  }
 }
 
 // Reductions over the tpr threads of a row group (tpr a power of two;
@@ -111,22 +136,46 @@ __device__ __forceinline__ float group_sum(float v, int tpr) {
   return v;
 }
 
+// Where a forward block's rows live: the (batch, head) slab of rows
+// (b heads + h, or the causal kernels' flattened batch) and its mask
+// base. False for a causal block past the last batch.
+template <int KIND>
+__device__ __forceinline__ bool block_rows(const MaskArgs& ma, int batches,
+                                           int64_t& bh, const char*& mb) {
+  mb = nullptr;
+  if constexpr (KIND == kCausal) {
+    bh = blockIdx.y + static_cast<int64_t>(gridDim.y) * blockIdx.z;
+    return bh < batches;
+  } else {
+    bh = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+    mb = static_cast<const char*>(ma.mask) +
+         (blockIdx.z * ma.sb + blockIdx.y * ma.sh) * sizeof(MaskT<KIND>);
+    return true;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // register path
 // ---------------------------------------------------------------------------
 
-template <typename T, int VEC, int CHUNKS, bool CAUSAL>
+// Block (x, y, z): queries [x rpb, (x + 1) rpb) of one (batch, head), rpb
+// = kThreads / tpr; thread i the query x rpb + i / tpr, vectors j tpr +
+// i % tpr (j < CHUNKS) of its row.
+template <typename T, int VEC, int CHUNKS, int KIND>
 __global__ void __launch_bounds__(kThreads)
 softmax_fwd_reg(const T* __restrict__ x, T* __restrict__ y, MaskArgs ma,
-                int64_t rows, int sq, int sk, int heads, float scale,
-                int tpr) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / tpr) +
-                      threadIdx.x / tpr;
-  const int lane = threadIdx.x % tpr;
-  const bool valid = row < rows;
-  const int64_t q = valid ? row % sq : 0;
-  MaskRow mr{nullptr, 0, 0};
-  if (!CAUSAL && valid) mr = mask_row(ma, row, sq, heads);
+                int batches, int sq, int sk, float scale, int lg_tpr) {
+  int64_t bh;
+  const char* mb;
+  if (!block_rows<KIND>(ma, batches, bh, mb)) return;  // the whole block
+  const int tpr = 1 << lg_tpr;
+  const int lane = threadIdx.x & (tpr - 1);
+  const int q = blockIdx.x * (kThreads >> lg_tpr) + (threadIdx.x >> lg_tpr);
+  const bool valid = q < sq;
+  const int64_t base = (bh * sq + q) * sk;
+  const void* mr = nullptr;
+  if constexpr (KIND != kCausal)
+    mr = mb + q * ma.sq * static_cast<int64_t>(sizeof(MaskT<KIND>));
   float z[CHUNKS][VEC];
   float mx = -INFINITY;
 #pragma unroll
@@ -134,36 +183,40 @@ softmax_fwd_reg(const T* __restrict__ x, T* __restrict__ y, MaskArgs ma,
     const int c = (j * tpr + lane) * VEC;
     if (valid && c < sk) {
       const Pack<T, VEC> p =
-          *reinterpret_cast<const Pack<T, VEC>*>(x + row * sk + c);
+          *reinterpret_cast<const Pack<T, VEC>*>(x + base + c);
+      bool m[VEC];
+      masked_of<KIND, VEC>(mr, ma.sk, ma.vec, c, q, m);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        z[j][e] = score<CAUSAL>(to_f(p.v[e]), scale, c + e, q, mr);
+        z[j][e] = m[e] ? kMaskValue : to_f(p.v[e]) * scale;
         mx = fmaxf(mx, z[j][e]);
       }
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) z[j][e] = -INFINITY;
     }
   }
   mx = group_max(mx, tpr);
   float sum = 0.f;
 #pragma unroll
-  for (int j = 0; j < CHUNKS; ++j)
+  for (int j = 0; j < CHUNKS; ++j) {
+    const int c = (j * tpr + lane) * VEC;
+    if (valid && c < sk) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      z[j][e] = z[j][e] == -INFINITY ? 0.f : expf(z[j][e] - mx);
-      sum += z[j][e];
+      for (int e = 0; e < VEC; ++e) {
+        z[j][e] = expf(z[j][e] - mx);
+        sum += z[j][e];
+      }
     }
+  }
   sum = group_sum(sum, tpr);
   if (!valid) return;
+  const float r = __frcp_rn(sum);
 #pragma unroll
   for (int j = 0; j < CHUNKS; ++j) {
     const int c = (j * tpr + lane) * VEC;
     if (c >= sk) continue;
     Pack<T, VEC> p;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) p.v[e] = from_f<T>(z[j][e] / sum);
-    *reinterpret_cast<Pack<T, VEC>*>(y + row * sk + c) = p;
+    for (int e = 0; e < VEC; ++e) p.v[e] = from_f<T>(__fmul_rn(z[j][e], r));
+    *reinterpret_cast<Pack<T, VEC>*>(y + base + c) = p;
   }
 }
 
@@ -212,29 +265,37 @@ softmax_bwd_reg(const T* __restrict__ y, const T* __restrict__ dy,
 // generic path: a warp a row, any sk
 // ---------------------------------------------------------------------------
 
-template <typename T, bool CAUSAL>
+// Block (x, y, z) as the register path's with four rows a block, a warp
+// each.
+template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads)
 softmax_fwd_any(const T* __restrict__ x, T* __restrict__ y, MaskArgs ma,
-                int64_t rows, int sq, int sk, int heads, float scale) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) +
-                      threadIdx.x / 32;
+                int batches, int sq, int sk, float scale) {
+  int64_t bh;
+  const char* mb;
+  if (!block_rows<KIND>(ma, batches, bh, mb)) return;
+  const int q = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= rows) return;  // whole warps leave together
-  const int64_t q = row % sq;
-  MaskRow mr{nullptr, 0, 0};
-  if (!CAUSAL) mr = mask_row(ma, row, sq, heads);
-  const T* xr = x + row * sk;
+  if (q >= sq) return;  // whole warps leave together
+  const void* mr = nullptr;
+  if constexpr (KIND != kCausal)
+    mr = mb + q * ma.sq * static_cast<int64_t>(sizeof(MaskT<KIND>));
+  const T* xr = x + (bh * sq + q) * sk;
+  T* yr = y + (bh * sq + q) * sk;
+  auto score = [&](int k) {
+    bool m[1];
+    masked_of<KIND, 1>(mr, ma.sk, 0, k, q, m);
+    return m[0] ? kMaskValue : to_f(xr[k]) * scale;
+  };
   float mx = -INFINITY;
-  for (int k = lane; k < sk; k += 32)
-    mx = fmaxf(mx, score<CAUSAL>(to_f(xr[k]), scale, k, q, mr));
+  for (int k = lane; k < sk; k += 32) mx = fmaxf(mx, score(k));
   mx = group_max(mx, 32);
   float sum = 0.f;
-  for (int k = lane; k < sk; k += 32)
-    sum += expf(score<CAUSAL>(to_f(xr[k]), scale, k, q, mr) - mx);
+  for (int k = lane; k < sk; k += 32) sum += expf(score(k) - mx);
   sum = group_sum(sum, 32);
+  const float r = __frcp_rn(sum);
   for (int k = lane; k < sk; k += 32)
-    y[row * sk + k] = from_f<T>(
-        expf(score<CAUSAL>(to_f(xr[k]), scale, k, q, mr) - mx) / sum);
+    yr[k] = from_f<T>(__fmul_rn(expf(score(k) - mx), r));
 }
 
 template <typename T>
@@ -259,51 +320,55 @@ softmax_bwd_any(const T* __restrict__ y, const T* __restrict__ dy,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T>
-struct Plan {
-  static constexpr int kVec = 16 / sizeof(T);
-  int reg;     // register path?
-  int tpr;     // threads a row (register path)
-  int chunks;  // vectors a thread (register path)
-  unsigned blocks;
+// The register path's row group: tpr = 2^lg threads a row, each with
+// `chunks` vectors (0 chunks: the generic path).
+struct RegPlan {
+  int chunks, lg_tpr;
 };
 
-template <typename T>
-Plan<T> plan(int64_t rows, int sk, const void* a, const void* b) {
-  Plan<T> p{0, 32, 1, 0};
-  constexpr int vec = Plan<T>::kVec;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(a) |
-                         reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+// As few vectors a thread as 32 threads a row allow: at sk 128 in bf16
+// (BERT-Large's step) one vector a thread and 16 threads a row took
+// 0.0259 ms on the H100, two vectors 0.0273, four 0.0290 and eight
+// 0.0403 (one process, examples/kernel_ab.py).
+RegPlan plan(int sk, int vec, bool aligned) {
   const int nvec = sk / vec;
-  if (aligned && sk % vec == 0 && nvec <= 32 * 8) {
-    p.reg = 1;
-    p.tpr = 1;
-    while (p.tpr < nvec && p.tpr < 32) p.tpr <<= 1;
-    while (p.tpr * p.chunks < nvec) p.chunks <<= 1;
-    const int64_t per_block = kThreads / p.tpr;
-    p.blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
-  } else {
-    p.blocks = static_cast<unsigned>((rows + kThreads / 32 - 1) /
-                                     (kThreads / 32));
-  }
-  return p;
+  if (!aligned || sk % vec != 0 || nvec > 32 * 8) return {0, 5};
+  int chunks = 1, lg = 0;
+  while ((1 << lg) < nvec && lg < 5) ++lg;
+  while ((chunks << lg) < nvec) chunks <<= 1;
+  return {chunks, lg};
 }
 
-template <typename T, bool CAUSAL>
-void launch_fwd(const void* x, void* y, const MaskArgs& ma, int64_t rows,
-                int sq, int sk, int heads, float scale, cudaStream_t s) {
+bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+          15) == 0;
+}
+
+// grid: (query tiles, heads, batch) for the padding kernels; (query
+// tiles, the flattened batch over y and z) for the causal ones.
+template <typename T, int KIND>
+int launch_fwd(const void* x, void* y, const MaskArgs& ma, int batch,
+               int heads, int sq, int sk, float scale, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
-  const Plan<T> p = plan<T>(rows, sk, x, y);
-  constexpr int V = Plan<T>::kVec;
-  if (!p.reg) {
-    softmax_fwd_any<T, CAUSAL><<<p.blocks, kThreads, 0, s>>>(
-        xp, yp, ma, rows, sq, sk, heads, scale);
-    return;
+  const RegPlan p = plan(sk, V, aligned16(x, y));
+  const int rpb = kThreads >> p.lg_tpr;
+  dim3 grid(static_cast<unsigned>((sq + rpb - 1) / rpb), heads, batch);
+  if (KIND == kCausal) {
+    grid.y = batch < kMaxGridY ? batch : kMaxGridY;
+    grid.z = (batch + kMaxGridY - 1) / kMaxGridY;
+  } else if (heads > kMaxGridY || batch > kMaxGridY) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (p.chunks == 0) {
+    softmax_fwd_any<T, KIND><<<grid, kThreads, 0, s>>>(xp, yp, ma, batch,
+                                                       sq, sk, scale);
+    return 0;
   }
 #define APX_FWD(C)                                                         \
-  softmax_fwd_reg<T, V, C, CAUSAL><<<p.blocks, kThreads, 0, s>>>(          \
-      xp, yp, ma, rows, sq, sk, heads, scale, p.tpr)
+  softmax_fwd_reg<T, V, C, KIND><<<grid, kThreads, 0, s>>>(                \
+      xp, yp, ma, batch, sq, sk, scale, p.lg_tpr)
   switch (p.chunks) {
     case 1: APX_FWD(1); break;
     case 2: APX_FWD(2); break;
@@ -311,27 +376,33 @@ void launch_fwd(const void* x, void* y, const MaskArgs& ma, int64_t rows,
     default: APX_FWD(8); break;
   }
 #undef APX_FWD
+  return 0;
 }
 
 template <typename T>
 void launch_bwd(const void* y, const void* dy, void* dx, int64_t rows,
                 int sk, float scale, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
   const T* yp = static_cast<const T*>(y);
   const T* gp = static_cast<const T*>(dy);
   T* dp = static_cast<T*>(dx);
   // all three rows must be 16-byte aligned for the register path
-  const uintptr_t both = reinterpret_cast<uintptr_t>(dy) |
-                         reinterpret_cast<uintptr_t>(dx);
-  const Plan<T> p = plan<T>(rows, sk, y, reinterpret_cast<const void*>(both));
-  constexpr int V = Plan<T>::kVec;
-  if (!p.reg) {
-    softmax_bwd_any<T><<<p.blocks, kThreads, 0, s>>>(yp, gp, dp, rows, sk,
-                                                      scale);
+  const RegPlan p = plan(
+      sk, V, aligned16(y, reinterpret_cast<const void*>(
+                              reinterpret_cast<uintptr_t>(dy) |
+                              reinterpret_cast<uintptr_t>(dx))));
+  const int tpr = 1 << p.lg_tpr;
+  const int64_t per_block = p.chunks ? kThreads / tpr : kThreads / 32;
+  const unsigned blocks =
+      static_cast<unsigned>((rows + per_block - 1) / per_block);
+  if (p.chunks == 0) {
+    softmax_bwd_any<T><<<blocks, kThreads, 0, s>>>(yp, gp, dp, rows, sk,
+                                                    scale);
     return;
   }
 #define APX_BWD(C)                                                         \
-  softmax_bwd_reg<T, V, C><<<p.blocks, kThreads, 0, s>>>(yp, gp, dp, rows, \
-                                                         sk, scale, p.tpr)
+  softmax_bwd_reg<T, V, C><<<blocks, kThreads, 0, s>>>(yp, gp, dp, rows,   \
+                                                       sk, scale, tpr)
   switch (p.chunks) {
     case 1: APX_BWD(1); break;
     case 2: APX_BWD(2); break;
@@ -341,17 +412,19 @@ void launch_bwd(const void* y, const void* dy, void* dx, int64_t rows,
 #undef APX_BWD
 }
 
-template <bool CAUSAL>
-int fwd_by_dtype(const void* x, void* y, const MaskArgs& ma, int64_t rows,
-                 int sq, int sk, int heads, int dtype, float scale,
+template <int KIND>
+int fwd_by_dtype(const void* x, void* y, const MaskArgs& ma, int batch,
+                 int heads, int sq, int sk, int dtype, float scale,
                  cudaStream_t s) {
+  int err;
   if (dtype == kBF16)
-    launch_fwd<__nv_bfloat16, CAUSAL>(x, y, ma, rows, sq, sk, heads, scale, s);
+    err = launch_fwd<__nv_bfloat16, KIND>(x, y, ma, batch, heads, sq, sk,
+                                          scale, s);
   else if (dtype == kF16)
-    launch_fwd<__half, CAUSAL>(x, y, ma, rows, sq, sk, heads, scale, s);
+    err = launch_fwd<__half, KIND>(x, y, ma, batch, heads, sq, sk, scale, s);
   else
-    launch_fwd<float, CAUSAL>(x, y, ma, rows, sq, sk, heads, scale, s);
-  return static_cast<int>(cudaGetLastError());
+    err = launch_fwd<float, KIND>(x, y, ma, batch, heads, sq, sk, scale, s);
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -363,18 +436,29 @@ const char* apx_error_string(int code) {
 }
 
 // Padding-mask forward. x, y: (b, heads, sq, sk) contiguous, dtype 0 fp32 /
-// 1 bf16 / 2 fp16. mask: int32 (mask_u8 = 0) or uint8/bool (1), read at
-// mask[b * m_sb + h * m_sh + q * m_sq + k * m_sk]. Launches on `stream`;
-// returns cudaGetLastError().
+// 1 bf16 / 2 fp16; b and heads at most 65535. mask: int32 (mask_u8 = 0) or
+// uint8/bool (1), read at mask[b * m_sb + h * m_sh + q * m_sq + k * m_sk].
+// Launches on `stream`; returns cudaGetLastError().
 int apx_softmax_masked_fwd(const void* x, const void* mask, void* y, int b,
                            int heads, int sq, int sk, long long m_sb,
                            long long m_sh, long long m_sq, long long m_sk,
                            int mask_u8, int dtype, float scale,
                            void* stream) {
-  const MaskArgs ma{mask, m_sb, m_sh, m_sq, m_sk, mask_u8};
-  const int64_t rows = static_cast<int64_t>(b) * heads * sq;
-  return fwd_by_dtype<false>(x, y, ma, rows, sq, sk, heads, dtype, scale,
-                             static_cast<cudaStream_t>(stream));
+  // the mask values of one 16-byte vector of x in one load: key stride 1
+  // and every row's start aligned to that many mask bytes (at most 16)
+  const int esz = mask_u8 ? 1 : 4;
+  const int vbytes = (dtype == kF32 ? 4 : 8) * esz;
+  const long long align = vbytes < 16 ? vbytes : 16;
+  const bool vec =
+      m_sk == 1 && sk % (dtype == kF32 ? 4 : 8) == 0 &&
+      ((reinterpret_cast<uintptr_t>(mask) | static_cast<uintptr_t>(
+            (m_sb | m_sh | m_sq) * esz)) % align) == 0;
+  const MaskArgs ma{mask, m_sb, m_sh, m_sq, m_sk, vec};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mask_u8 ? fwd_by_dtype<kMaskU8>(x, y, ma, b, heads, sq, sk, dtype,
+                                         scale, s)
+                 : fwd_by_dtype<kMaskI32>(x, y, ma, b, heads, sq, sk, dtype,
+                                          scale, s);
 }
 
 // Causal forward. x, y: (batches, sq, sk) contiguous; key k > query q is
@@ -382,9 +466,8 @@ int apx_softmax_masked_fwd(const void* x, const void* mask, void* y, int b,
 int apx_softmax_causal_fwd(const void* x, void* y, int batches, int sq,
                            int sk, int dtype, float scale, void* stream) {
   const MaskArgs ma{nullptr, 0, 0, 0, 0, 0};
-  const int64_t rows = static_cast<int64_t>(batches) * sq;
-  return fwd_by_dtype<true>(x, y, ma, rows, sq, sk, 1, dtype, scale,
-                            static_cast<cudaStream_t>(stream));
+  return fwd_by_dtype<kCausal>(x, y, ma, batches, 1, sq, sk, dtype, scale,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // Backward of either forward. y, dy, dx: (rows, sk) contiguous, one dtype.

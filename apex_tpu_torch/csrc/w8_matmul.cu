@@ -16,8 +16,8 @@
 // word table), a few operations per byte. Prefill (M = 128..1024):
 // operations, 2 M K N of them, on the bf16 tensor cores for bf16 x.
 //
-// Design. Three regimes, chosen by M and x's dtype alone; the Pallas
-// block structure (whole M, whole K, N tiles) is not carried over:
+// Design. The regime follows M, x's dtype and the layout alone; the
+// Pallas block structure (whole M, whole K, N tiles) is not carried over:
 // - M <= 8, KN layout, x fp32 or bf16 (w8_gemv_kn): one launch. A thread
 //   owns 4 neighbouring columns (one 4-byte load a weight row) and a run
 //   of R = 16 rows of K (8 where that gives fewer than 128 blocks); the 8
@@ -53,13 +53,29 @@
 //   aligned. Where the grid would hold fewer tiles than SMs, K is split,
 //   each part written to scratch, and the last block of a tile to arrive
 //   sums the parts in part order, as in the gemv.
-// - fp32 x at M > 8, and the NK layout at every M, keep the CUDA-core
-//   kernels: w8_tiled (a 64 x 128 fp32 tile per block, 4 x 8 outputs a
-//   thread, K parts summed by w8_reduce in a fixed order; an fp32 x is
-//   not exact in bf16, and TF32 operands would break the error model)
-//   and w8_gemv_nk (a thread owns one output channel and reads its
-//   K-contiguous row in 16-byte loads, eight in flight; x staged in
-//   shared memory 512 columns at a time, read as a broadcast).
+// - M <= 8, NK layout, bf16 x (w8_mma_nk, the tied logits head): the
+//   same tensor-core product with the operands swapped, y^T = Wq . x^T:
+//   16 output channels are the A rows, x's rows (zeros past M) the 8 B
+//   columns, so an int8 row, already K-contiguous, is A's row-major
+//   layout. The k order inside an m16n8k16 step is free as long as A and
+//   B share it, so each lane reads 16 contiguous bytes of each of its two
+//   rows (coalesced 16-byte loads, a stage of four ahead of their use),
+//   widens them in registers as w8_mma does (bytes (0, 1) and (2, 3) of a
+//   word as the pairs of one step), and takes x's bf16 pairs at the same
+//   k from a copy staged once a block in shared memory. y = s_n * sum_k
+//   x_k q_nk, one cast. K (1024) is not split: the 3144 tiles of the
+//   (50304, 1024) word table fill the card, so there are no parts, no
+//   counters and no scratch. A block of 8 warps takes a contiguous run
+//   of tiles, two blocks an SM.
+// - fp32 x at M > 8 and the NK layout at M > 8 keep the CUDA-core tile,
+//   and the NK layout at M <= 8 with an fp32 x (or a K whose staged x
+//   would pass 48 KB) the CUDA-core gemv: w8_tiled (a 64 x 128 fp32 tile
+//   per block, 4 x 8 outputs a thread, K parts summed by w8_reduce in a
+//   fixed order; an fp32 x is not exact in bf16, and TF32 operands would
+//   break the error model) and w8_gemv_nk (a thread owns one output
+//   channel and reads its K-contiguous row in 16-byte loads, eight in
+//   flight; x staged in shared memory 512 columns at a time, read as a
+//   broadcast).
 // Loads are vectorised where the row length and the base address allow
 // it, byte by byte else, so any M, K and N is taken.
 
@@ -76,10 +92,21 @@ constexpr int kGvWarps = 8;
 constexpr int kGvThreads = 32 * kGvWarps;
 constexpr int kGvBlockN = 32 * kGvCols;       // 128 columns a block
 constexpr int kGvMinBlocks = 128;             // R is halved (16 to 8) below this
-// w8_gemv_nk
+// w8_gemv_nk (fp32 x)
 constexpr int kNkThreads = 128;
 constexpr int kNkChunk = 512;
 constexpr int kNkVec = 8;
+// w8_mma_nk (bf16 x): a warp a 16-channel tile at a time, each lane 16
+// bytes of each of its two rows a 64-wide chunk of K, four chunks (256
+// bytes of a row) a stage, two stages in registers
+constexpr int kNcWarps = 8;
+constexpr int kNcThreads = 32 * kNcWarps;
+constexpr int kNcBlocksPerSm = 2;
+constexpr int kNcChunks = 4;
+constexpr int kNcStageK = 64 * kNcChunks;
+// x staged as kSmallM bf16 rows of K rounded up to 16, plus 8 (the pad
+// that puts a lane pair's rows in different banks), in the default 48 KB
+constexpr int kNcMaxK = (49152 / (2 * kSmallM) - 8) / 16 * 16;
 // w8_tiled (fp32 CUDA cores)
 constexpr int BM = 64, BN = 128, BK = 16, kTileThreads = 256;
 // w8_mma (bf16 tensor cores): K steps of 64
@@ -679,6 +706,177 @@ w8_gemv_nk(const void* __restrict__ x, const int8_t* __restrict__ wq,
   }
 }
 
+// Two int8 weights, bytes c and c + 1 of a word (wx: the word with every
+// sign bit flipped), as one bf16x2 register, the lower k in the low half:
+// each exact in fp32 (s8f), whose low 16 bits are then 0.
+__device__ __forceinline__ uint32_t s8x2_bf16_next(uint32_t wx, int c) {
+  return __byte_perm(__float_as_uint(s8f(wx, c)),
+                     __float_as_uint(s8f(wx, c + 1)), 0x7632u);
+}
+
+// 16 bytes of a stream read once: no L1 allocation, and the L2 fetches
+// the 256-byte block around them, which the stage's next loads of the row
+// find there (2-4 % faster on the H100 than 32-byte fetches).
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// M <= 8, NK layout, bf16 x, on the tensor cores: y^T (N x M) = Wq (N x
+// K) . x^T, with mma.m16n8k16 bf16 -> fp32, 16 output channels as the A
+// rows and x's rows as the 8 B columns (rows past M read as zero). Block
+// b owns the 16-channel tiles [b T / G, (b + 1) T / G) of the T tiles (G
+// blocks, two an SM), its warp w the tiles w, w + 8, ... of that range.
+// The k order inside a step is free as long as A and B share it: in each
+// 64-wide chunk c of K, lane (g, t) reads 16 contiguous bytes of its rows
+// g and g + 8, k = 64 c + 16 t .. + 15, and word j of them (k = 64 c +
+// 16 t + 4 j .. + 3) gives its A registers of k16 step j: bytes (0, 1)
+// as logical k (2t, 2t + 1), bytes (2, 3) as (2t + 8, 2t + 9). The B
+// registers are the bf16 pairs of x at the same k, read from x staged
+// once a block in shared memory. The int8 bytes are widened without a
+// conversion instruction (s8f: a byte permute and one fp32 add, then a
+// permute into bf16x2), the products are exact in fp32, and the scale is
+// applied once to the sum: y = s_n * sum_k x_k q_nk. A stage is four
+// chunks: its 8 loads a lane are issued a stage ahead of their use. VEC:
+// K % 16 == 0 and wq 16-byte aligned (16-byte loads), else byte loads
+// giving the same words; x_vec: x 16-byte aligned and K % 8 == 0.
+template <bool VEC>
+__global__ void __launch_bounds__(kNcThreads, kNcBlocksPerSm)
+w8_mma_nk(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
+          const float* __restrict__ scale, void* __restrict__ out, int M,
+          int K, int N, int x_vec, int out_bf16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* xs = reinterpret_cast<uint16_t*>(smem);
+  const int k16 = cdiv(K, 16) * 16, ld = k16 + 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = cdiv(N, 16);
+  const int first =
+      static_cast<int>(static_cast<int64_t>(blockIdx.x) * tiles / gridDim.x);
+  const int last = static_cast<int>(
+      static_cast<int64_t>(blockIdx.x + 1) * tiles / gridDim.x);
+  const int mine =
+      last - first > warp ? cdiv(last - first - warp, kNcWarps) : 0;
+  const int per = cdiv(K, kNcStageK);  // stages a tile
+  const int stages = mine * per;
+
+  auto load = [&](uint4 (&w)[2][kNcChunks], int s) {
+    const int tile = first + warp + (s / per) * kNcWarps;
+    const int kb = (s % per) * kNcStageK + 16 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = tile * 16 + g + 8 * r;
+      const int8_t* row = wq + static_cast<int64_t>(n) * K;
+#pragma unroll
+      for (int c = 0; c < kNcChunks; ++c) {
+        const int k = kb + 64 * c;
+        if constexpr (VEC) {
+          w[r][c] = n < N && k < K ? ld_stream16(row + k)
+                                   : make_uint4(0u, 0u, 0u, 0u);
+        } else {
+          uint32_t q[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            if (n < N && k + e < K)
+              q[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                               row[k + e])) << (8 * (e & 3));
+          w[r][c] = make_uint4(q[0], q[1], q[2], q[3]);
+        }
+      }
+    }
+  };
+
+  // two stages in registers: the next one's loads are in flight while
+  // this one is computed
+  uint4 wa[2][kNcChunks], wb[2][kNcChunks];
+  if (stages > 0) load(wa, 0);
+  // x into shared memory: rows past M and columns past K zero
+  const uint16_t* xh = reinterpret_cast<const uint16_t*>(x);
+  if (x_vec) {
+    const int per_row = k16 / 8;
+    for (int i = tid; i < kSmallM * per_row; i += kNcThreads) {
+      const int m = i / per_row, k = (i % per_row) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m < M && k < K)
+        v = *reinterpret_cast<const uint4*>(xh + static_cast<int64_t>(m) * K +
+                                            k);
+      *reinterpret_cast<uint4*>(xs + m * ld + k) = v;
+    }
+  } else {
+    for (int i = tid; i < kSmallM * k16; i += kNcThreads) {
+      const int m = i / k16, k = i % k16;
+      xs[m * ld + k] =
+          m < M && k < K ? xh[static_cast<int64_t>(m) * K + k] : 0u;
+    }
+  }
+  __syncthreads();  // the block's only barrier: every warp reaches it
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float sc[2] = {0.f, 0.f};
+  const uint16_t* xrow = xs + g * ld;
+  auto compute = [&](const uint4 (&w)[2][kNcChunks], int s) {
+    const int tile = first + warp + (s / per) * kNcWarps;
+    const bool closes = s % per == per - 1;
+    if (closes) {  // the tile's scales, ahead of the epilogue
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = tile * 16 + g + 8 * r;
+        sc[r] = n < N ? __ldg(scale + n) : 0.f;
+      }
+    }
+    const int kb = (s % per) * kNcStageK + 16 * t;
+#pragma unroll
+    for (int c = 0; c < kNcChunks; ++c) {
+      const int k = kb + 64 * c;
+      uint4 b0 = make_uint4(0u, 0u, 0u, 0u), b1 = b0;
+      if (k < K) {
+        b0 = *reinterpret_cast<const uint4*>(xrow + k);
+        b1 = *reinterpret_cast<const uint4*>(xrow + k + 8);
+      }
+      const uint32_t bw[8] = {b0.x, b0.y, b0.z, b0.w,
+                              b1.x, b1.y, b1.z, b1.w};
+      constexpr uint32_t f = 0x80808080u;  // every byte's sign bit
+      const uint32_t lo[4] = {w[0][c].x ^ f, w[0][c].y ^ f, w[0][c].z ^ f,
+                              w[0][c].w ^ f};
+      const uint32_t hi[4] = {w[1][c].x ^ f, w[1][c].y ^ f, w[1][c].z ^ f,
+                              w[1][c].w ^ f};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t a[4] = {s8x2_bf16_next(lo[j], 0),
+                               s8x2_bf16_next(hi[j], 0),
+                               s8x2_bf16_next(lo[j], 2),
+                               s8x2_bf16_next(hi[j], 2)};
+        mma_bf16(acc, a, bw[2 * j], bw[2 * j + 1]);
+      }
+    }
+    if (!closes) return;
+    // acc: rows g, g + 8 (channels), columns 2t, 2t + 1 (rows of x)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = tile * 16 + g + 8 * r;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 2 * t + e;
+        if (n < N && m < M)
+          store_out(out, static_cast<int64_t>(m) * N + n,
+                    __fmul_rn(acc[2 * r + e], sc[r]), out_bf16);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] = 0.f;
+  };
+
+  for (int s = 0; s < stages; s += 2) {
+    if (s + 1 < stages) load(wb, s + 1);
+    compute(wa, s);
+    if (s + 2 < stages) load(wa, s + 2);
+    if (s + 1 < stages) compute(wb, s + 1);
+  }
+}
+
 // NK: wq is (N, K), K contiguous; else (K, N), N contiguous.
 template <bool NK>
 __global__ void __launch_bounds__(kTileThreads)
@@ -800,7 +998,21 @@ __global__ void w8_reduce(const float* __restrict__ partial,
   }
 }
 
-enum Kind { kGemvNk, kGemvKn, kTiled, kMma };
+enum Kind { kGemvNk, kMmaNk, kGemvKn, kTiled, kMma };
+
+// The card's SM count, read once a device.
+int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
+  int n = kSms;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || n <= 0)
+    n = kSms;
+  if (dev >= 0 && dev < 64) cached[dev] = n;
+  return n;
+}
 
 struct Plan {
   Kind kind;
@@ -812,6 +1024,10 @@ struct Plan {
 };
 
 Plan plan(int M, int K, int N, bool nk, bool x_bf16) {
+  if (M <= kSmallM && nk && x_bf16 && K <= kNcMaxK) {
+    const int tiles = cdiv(N, 16), blocks = kNcBlocksPerSm * sm_count();
+    return {kMmaNk, dim3(tiles < blocks ? tiles : blocks), 1, 0, 0, 0};
+  }
   if (M <= kSmallM && nk)
     return {kGemvNk, dim3(cdiv(N, kNkThreads)), 1, 0, 0, 0};
   if (M <= kSmallM) {
@@ -872,6 +1088,19 @@ int launch(const void* x, const void* wq, const void* scale,
       const int vec = (K % 16 == 0) && (wp % 16 == 0);
       w8_gemv_nk<<<p.grid, kNkThreads, 0, st>>>(x, w, sc, out, M, K, N, vec,
                                                 x_bf16, out_bf16);
+      break;
+    }
+    case kMmaNk: {
+      const int vec = K % 16 == 0 && wp % 16 == 0;
+      const int xv = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+      const size_t bytes = 2 * kSmallM * (cdiv(K, 16) * 16 + 8);
+      const bf16* xb = static_cast<const bf16*>(x);
+      if (vec)
+        w8_mma_nk<true><<<p.grid, kNcThreads, bytes, st>>>(
+            xb, w, sc, out, M, K, N, xv, out_bf16);
+      else
+        w8_mma_nk<false><<<p.grid, kNcThreads, bytes, st>>>(
+            xb, w, sc, out, M, K, N, xv, out_bf16);
       break;
     }
     case kGemvKn: {

@@ -18,9 +18,9 @@ Dispatch: a CUDA tensor launches the hand-written kernels
 (``csrc/w8_matmul.cu``; ``W8_MATMUL`` with a bias, ``W8_MATMUL_NOBIAS``
 without, ``W8_MATMUL_NK``) or raises; a CPU tensor takes the plain
 versions below, which dequantize in fp32 and take one fp32 product.
-The two sum the K products in other orders (a bf16 x at M > 8 on the
-tensor cores, with the scale applied after the sum), and are held to
-each other by ``w8_limit``.
+The two sum the K products in other orders (a bf16 x on the tensor
+cores, KN at M > 8 and NK at M <= 8, with the scale applied after the
+sum), and are held to each other by ``w8_limit``.
 """
 
 import ctypes
@@ -245,7 +245,8 @@ def w8_limit(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
       to the same fp32 w = fl(q s) and sum the K fp32 products x w in
       some order: each product and each of the K - 1 additions rounds
       once.
-    - The tensor-core kernel (bf16 x, M > 8) computes s_n sum_k (x_k
+    - The tensor-core kernels (bf16 x: KN at M > 8, NK at M <= 8, in
+      another k order inside each step) compute s_n sum_k (x_k
       q_kn): each product is exact (8 significant bits times |q| <=
       127), the K - 1 fp32 additions each round by at most u of a
       partial sum's magnitude, and the factored scale adds one rounding,

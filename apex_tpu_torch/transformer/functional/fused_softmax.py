@@ -113,7 +113,17 @@ def fwd_limits(y0: torch.Tensor) -> torch.Tensor:
     row sum of the sk positive terms exp(z - max) is taken in other
     orders, each within (sk - 1) u of the exact sum relative to it (u =
     2^-24), exp adds two ulps a term, the division one rounding: y moves
-    by (2 (sk - 1) + 12) u of itself. A bf16 or fp16 y adds one ulp."""
+    by (2 (sk - 1) + 12) u of itself. A bf16 or fp16 y adds one ulp.
+
+    The card's forwards divide by the row sum as one correctly rounded
+    reciprocal of it and a multiply a score: two roundings where a
+    division takes one. Per side, exp's two ulps on the term and on the
+    sum and the division's rounding come to 5 u; with the reciprocal 6 u,
+    so two sides differ by at most 11 u besides the sum orders' 2 (sk -
+    1) u, within the 12 u the limit grants (the second-order terms are
+    of order (sk u)^2). ``tests/test_torch_fused_softmax.py`` emulates
+    that form on the CPU against the plain version and the JAX package
+    within this limit."""
     mag = y0.float().abs()
     lim = (2 * (y0.shape[-1] - 1) + 12) * _U * mag
     return _stored(lim, mag, y0.dtype)

@@ -22,7 +22,10 @@ Phases, each printed as it runs; any failure exits non-zero:
    same bits; the dropout keep masks read off the forward and dk/dv
    equal the plain mask); the
    fused softmax forwards (masked, causal) and backward, per element to
-   their error model; ``flat_adam`` on BERT-Large's flat buffer, bit for
+   their error model (uint8 and int32 masks read as vectors, a strided
+   and a per-query mask, a query count off the block's rows, sk 130 and
+   3000 on the generic path, a fully masked batch uniform at 1/sk, a
+   repeat the same bits); ``flat_adam`` on BERT-Large's flat buffer, bit for
    bit; on the same buffer (336,232,448 elements) ``flat_scale`` and
    ``flat_axpby`` (outputs and finite flags bit for bit, with an
    injected inf and NaN), ``flat_l2norm_partials`` (to the sum-of-squares
@@ -41,9 +44,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    (``w8_matmul`` with and without bias, ``w8_matmul_nk``) at GPT-2
    medium's decode shapes and its prefill buckets M 128, 512 and 1024
    (bf16 x there on the tensor cores), M 37 and 100, a ragged shape and
-   an x view 2 bytes past a 16-byte boundary, per element to
-   ``quant.kernels.w8_limit``, two launches the same bits, and the
-   one-launch decode the same bits across two CUDA-graph replays. The
+   an x view 2 bytes past a 16-byte boundary, the logits head at M 1, 3
+   and 8 (bf16 x on the tensor cores; N off its tile, K off its loads, an
+   unaligned x), per element to ``quant.kernels.w8_limit``, two launches
+   the same bits, and every call at M <= 8 the same bits across two
+   CUDA-graph replays. The
    LayerNorm forward also at ragged h, at teams of several warps and on
    an unaligned row base.
 3. serving — GPT-2 medium (h 1024, 24 layers, 16 heads, vocab 50304),
@@ -100,17 +105,16 @@ Phases, each printed as it runs; any failure exits non-zero:
    on the card (SGD and Adagrad bit for bit, NovoGrad per element to its
    error model), exact launches a step.
 7. times — each kernel at its path's shapes (the LayerNorm forward at
-   (1024, 1024), (8, 1024) and the BERT O2 (8192, 1024); the w8 kernels
-   at M 8, 128 (rows 21-22) and 1024, rows 21-22 also beside the bf16
-   serving linear on the dequantized weights; ``flat_sgd`` on ResNet-50's
-   flat buffer and on
-   BERT-Large's; the flash forward on contiguous tensors and on the
-   GPT prefill's ``_split_qkv`` views), its plain version, one library
-   call computing the
-   same function (device time: 20 calls captured in one CUDA graph, 3
-   for the flat kernels, replays timed with CUDA events), and the least
-   time the card could take (bytes over 3.35 TB/s or operations over
-   the peak rate for their type, the larger).
+   (1024, 1024), (8, 1024) and the BERT O2 (8192, 1024); the w8 kernels at M
+   8, 128 (rows 21-22), 1 (row 23, a prefill's logits) and 1024, rows 21-22
+   also beside the bf16 serving linear on the dequantized weights;
+   ``flat_sgd`` on ResNet-50's flat buffer and on BERT-Large's; the flash
+   forward on contiguous tensors and on the GPT prefill's ``_split_qkv``
+   views), its plain version, one library call computing the same function
+   (device time: 20 calls captured in one CUDA graph, 3 for the flat kernels,
+   replays timed with CUDA events), and the least time the card could take
+   (bytes over 3.35 TB/s or operations over the peak rate for their type, the
+   larger).
 
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
@@ -580,6 +584,43 @@ def softmax_parity(dev):
           f"causal softmax ({bc}, {sc}, {sc}) bf16: max_abs_err y {ey:.3g} "
           f"({uy:.2f} of its tolerance), dx {ed:.3g} ({ud:.2f}); zero "
           "above the diagonal")
+    # the mask read as vectors (uint8 and int32, key stride 1) or element
+    # by element (key stride 2), a (b, 1, sq, sk) mask, a query count off
+    # the block's rows, and sk 130 and 3000 on the generic path; batch 0
+    # masked everywhere
+    layouts = [  # b, heads, sq, sk, mask dtype, layout
+        (8, 16, 128, 128, torch.uint8, "key"),
+        (8, 16, 128, 128, torch.int32, "query"),
+        (4, 16, 100, 128, torch.uint8, "query"),
+        (4, 16, 100, 128, torch.int32, "strided"),
+        (2, 4, 37, 130, torch.uint8, "key"),
+        (1, 2, 5, 3000, torch.int32, "query")]
+    for b, nh, sq, sk, mdt, layout in layouts:
+        x = _rand(gen, (b, nh, sq, sk), bf, dev, 8.0)
+        dy = _rand(gen, (b, nh, sq, sk), bf, dev)
+        ks = 2 * sk if layout == "strided" else sk
+        m = torch.rand((b, 1, 1 if layout == "key" else sq, ks),
+                       generator=gen, device=dev) < 0.2
+        m[0] = True
+        mask = m.to(mdt)[..., ::2] if layout == "strided" else m.to(mdt)
+        y = fsm.masked_softmax_fwd_kernel(x, mask, SM_SCALE)
+        same = torch.equal(y, fsm.masked_softmax_fwd_kernel(x, mask,
+                                                            SM_SCALE))
+        dx = fsm.softmax_bwd_kernel(y, dy, SM_SCALE)
+        torch.cuda.synchronize()
+        y0 = fsm.masked_softmax_fwd_plain(x, mask, SM_SCALE)
+        dx0 = fsm.softmax_bwd_plain(y, dy, SM_SCALE)
+        ey, uy = _held(y, y0, fsm.fwd_limits(y0))
+        ed, ud = _held(dx, dx0, fsm.bwd_limits(y, dy, SM_SCALE, dx0))
+        uniform = torch.equal(y[0], torch.full(
+            y[0].shape, 1.0 / sk, device=dev).to(bf))
+        worst["fwd"] = max(worst["fwd"], ey)
+        worst["bwd"] = max(worst["bwd"], ed)
+        check(uy <= 1.0 and ud <= 1.0 and same and uniform,
+              f"masked softmax ({b}, {nh}, {sq}, {sk}) bf16, "
+              f"{str(mdt)[6:]} {layout} mask: max_abs_err y {ey:.3g} "
+              f"({uy:.2f} of its tolerance), dx {ed:.3g} ({ud:.2f}); a "
+              "repeat the same bits, the masked batch uniform 1/sk")
     return worst
 
 
@@ -971,8 +1012,8 @@ def w8_parity(dev):
     phase("kernel parity: int8 weight-only matmuls (tolerance per element, "
           "quant.kernels.w8_limit: 2 K 2^-24 sum_k |x||w| for two fp32 sum "
           "orders, 2^-23 of the bias sum, one ulp of a bf16 output; two "
-          "launches the same bits; the one-launch decode also across two "
-          "CUDA-graph replays)")
+          "launches the same bits; at M <= 8 also across two CUDA-graph "
+          "replays)")
     gen = torch.Generator(device=dev).manual_seed(14)
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(m, k, n, bf, "bias") for m in (8, 1024)
@@ -982,6 +1023,11 @@ def w8_parity(dev):
               (8, *W8_TABLE, bf, "nk"), (8, *W8_TABLE, f32, "nk"),
               (37, 100, 201, bf, "bias"), (37, 100, 201, f32, "nobias"),
               (37, 201, 100, bf, "nk")]   # the ragged case: byte loads
+    # the logits head's tensor-core kernel (bf16 x, M <= 8): M 3, N off
+    # its 16-channel tile, K off its 16-byte loads (byte loads), an x view
+    # 2 bytes past a 16-byte boundary
+    cases += [(3, *W8_TABLE, bf, "nk"), (8, 1024, 50300, bf, "nk"),
+              (5, 200, 1000, bf, "nk"), (8, *W8_TABLE, bf, "nk_unaligned")]
     # the tensor-core kernel at the other prefill buckets, an M between 9
     # and 127, K split or not, and an x view 2 bytes past a 16-byte
     # boundary (element loads)
@@ -997,10 +1043,10 @@ def w8_parity(dev):
     worst = dict.fromkeys(("w8_matmul", "w8_matmul_nobias", "w8_matmul_nk"),
                           0.0)
     for m, k, n, xdt, kind in cases:
-        nk = kind == "nk"
+        nk = kind.startswith("nk")
         x, wq, scale, b = w8_operands(gen, dev, m, k, n, xdt, nk,
                                       kind.startswith("bias"))
-        if kind == "bias_unaligned":
+        if kind.endswith("_unaligned"):
             buf = torch.empty(m * k + 1, dtype=xdt, device=dev)
             xv = buf[1:].view(m, k)
             xv.copy_(x)
@@ -1016,7 +1062,7 @@ def w8_parity(dev):
         got, again = fk(*args), fk(*args)
         same = torch.equal(got, again)
         note = "repeat bit-equal"
-        if m <= 8 and not nk:
+        if m <= 8:
             graph, out = _graph_of(lambda: fk(*args))
             for _ in range(2):
                 graph.replay()
@@ -1026,7 +1072,8 @@ def w8_parity(dev):
             del graph, out
         torch.cuda.synchronize()
         e, use = _held(got, fp(*args), lim)
-        name = "w8_matmul" + ("" if kind.startswith("bias") else f"_{kind}")
+        name = "w8_matmul" + ("" if kind.startswith("bias")
+                              else "_nk" if nk else f"_{kind}")
         worst[name] = max(worst[name], e)
         view = f" (x at {x.data_ptr() % 16} bytes past 16)" \
             if x.data_ptr() % 16 else ""
@@ -2434,7 +2481,8 @@ def _cycle(fns):
 
 def w8_times(dev):
     """Rows 21-23 at M 8 (a decode step's slots), M 128 (the smallest
-    prefill bucket; rows 21-22) and M 1024 (a 1024-token prefill), bf16 x
+    prefill bucket; rows 21-22), M 1 (row 23: a prefill takes the logits
+    of its last real token) and M 1024 (a 1024-token prefill), bf16 x
     as on the O2 path. The linears are timed over 24 weight copies, one
     call each in turn, as a step reads its 24 layers (72-96 MB, past the
     50 MB L2); the word table is read once (51.5 MB). The library call is
@@ -2450,7 +2498,7 @@ def w8_times(dev):
     from apex_tpu_torch.quant import dequantize_tensor
 
     w8 = kernel_modules()[5]
-    phase("times of the int8 weight-only matmuls at M 8, 128 and 1024 "
+    phase("times of the int8 weight-only matmuls at M 8, 128, 1 and 1024 "
           "(bf16 x; device ms per call, CUDA-graph replays)")
     gen = torch.Generator(device=dev).manual_seed(15)
     bf, f32 = torch.bfloat16, torch.float32
@@ -2469,7 +2517,7 @@ def w8_times(dev):
                for _ in range(copies)]
         deq = [dequantize_tensor(o[1], o[2], -1 if nk else -2, bf)
                for o in ops]
-        for m in (8, 1024) if nk else (8, 128, 1024):
+        for m in (8, 1, 1024) if nk else (8, 128, 1024):
             x = _rand(gen, (m, k), bf, dev)
             if nk:
                 fk = [lambda o=o: w8.w8_matmul_nk_kernel(x, o[1], o[2], f32)
@@ -2651,8 +2699,10 @@ def main():
                     launches_by_path=by_path[name],
                     max_abs_err=err[name], **tm[key])
                for name, src, rep, key in rows]
-    kernels[KERNEL_NAMES.index("scaled_upper_triang_softmax_fwd")]["note"] = (
-        "on no model path: reached only through "
+    kernels[KERNEL_NAMES.index("scaled_upper_triang_softmax_fwd")].update(
+        redesigned=True,
+        note="the masked forward's kernel with the causal mask k > q from "
+        "the 32-bit query; on no model path: reached only through "
         "FusedScaleMaskSoftmax(attn_mask_type=causal); held to its plain "
         "version and timed at (16, 1024, 1024) bf16")
     for name in ("flat_scale", "flat_axpby"):
@@ -2679,8 +2729,30 @@ def main():
     for k in kernels[-6:-3]:   # the w8 rows: times at M 8, and M 1024 here
         k.update(at_m1024=tm[k["name"] + "_m1024"],
                  library_call=tm["w8_library"])
-        if k["name"] != "w8_matmul_nk":
-            k.update(at_m128=tm[k["name"] + "_m128"])
+        # rows 21-22 also at the smallest prefill bucket, row 23 at a
+        # prefill's M 1 (the logits of its last real token)
+        extra = "_m1" if k["name"] == "w8_matmul_nk" else "_m128"
+        k["at" + extra] = tm[k["name"] + extra]
+    kernels[KERNEL_NAMES.index("w8_matmul_nk")].update(
+        redesigned=True,
+        note="bf16 x at M <= 8 on the tensor cores with the operands "
+        "swapped: y^T = Wq . x^T by mma.sync.m16n8k16 bf16 -> fp32, 16 "
+        "output channels the A rows, x's rows (zeros past M) the 8 B "
+        "columns; each lane reads 16 contiguous bytes of each of its two "
+        "int8 rows (coalesced, a stage of 256 bytes a row ahead of its "
+        "use), widens them in registers without conversion instructions, "
+        "and takes x's bf16 pairs at the same permuted k from a copy "
+        "staged once a block in shared memory; y = s_n * sum_k x q; K "
+        "not split (no scratch, no counters), a contiguous run of "
+        "16-channel tiles a block, two blocks an SM; fp32 x keeps the "
+        "CUDA-core gemv, M > 8 the CUDA-core tile")
+    kernels[KERNEL_NAMES.index("scaled_masked_softmax_fwd")].update(
+        redesigned=True,
+        note="rebuilt for the bytes: a block's rows share one (batch, "
+        "head) from the grid (no per-row 64-bit division), the row held "
+        "in registers in 16-byte vectors, the mask's values of a vector "
+        "read in one load where its key stride is 1, one correctly "
+        "rounded reciprocal of the row sum and a multiply a score")
     kernels[KERNEL_NAMES.index("layer_norm_fwd")].update(
         redesigned=True,
         note="built for the bytes: a team of 32-1024 threads a row, 8 "
@@ -2733,7 +2805,7 @@ def main():
                 "flat_lamb_stage1_bf16m", "flat_sgd_bert_bf16buf_castout",
                 "w8_matmul_m1024", "w8_matmul_m128",
                 "w8_matmul_nobias_m1024", "w8_matmul_nobias_m128",
-                "w8_matmul_nk_m1024"):
+                "w8_matmul_nk_m1024", "w8_matmul_nk_m1"):
         print(f"{key}: {json.dumps(tm[key])}")
     print(f"serving: {json.dumps(srv)}")
     print(f"training, card vs CPU: {json.dumps(small)}")

@@ -112,6 +112,68 @@ def test_scaled_upper_triang_softmax_matches_jax(dt, shape):
     assert bool((y.float()[..., above] == 0).all())
 
 
+def _card_forward(x, mask, scale):
+    """The card's padding-mask forward on the CPU, in fp32: z and the
+    row max as the plain version, exp(z - max), the row sum in the
+    register path's order (each thread of a row's group sums its vectors
+    j and their elements in turn, then the group's sums meet by the
+    shuffle butterfly), one correctly rounded reciprocal of the sum and
+    a multiply a score."""
+    z = torch.where(mask != 0, pfs._MASK_VALUE, x.float() * scale)
+    e = torch.exp(z - z.amax(dim=-1, keepdim=True))
+    sk = z.shape[-1]
+    vec = 16 // x.element_size()
+    nvec = sk // vec
+    chunks, lg = 4, 0       # csrc/fused_softmax.cu fwd_plan
+    while chunks > 1 and chunks >= 2 * nvec:
+        chunks //= 2
+    while (chunks << lg) < nvec and lg < 5:
+        lg += 1
+    while (chunks << lg) < nvec:
+        chunks *= 2
+    tpr = 1 << lg
+    part = torch.zeros(z.shape[:-1] + (tpr,), dtype=torch.float32)
+    for lane in range(tpr):
+        for j in range(chunks):
+            for v in range(vec):
+                c = (j * tpr + lane) * vec + v
+                if c < sk:
+                    part[..., lane] = part[..., lane] + e[..., c]
+    o = tpr // 2
+    while o:
+        part = part + part[..., [i ^ o for i in range(tpr)]]
+        o //= 2
+    r = 1.0 / part[..., :1]
+    return (e * r).to(x.dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("sk", [128, 1000])
+def test_reciprocal_form_within_fwd_limits(dt, sk):
+    """``fwd_limits``' argument for the card's division (a reciprocal of
+    the row sum and a multiply) holds where there is no card: that form,
+    summed in the kernel's order, sits within the unchanged limit of the
+    plain version and of the JAX package's kernel, a fully masked row
+    uniform at 1/sk."""
+    rng = np.random.RandomState(sk)
+    x = rng.randn(2, 3, 5, sk).astype(np.float32) * 3
+    mask = (rng.rand(2, 1, 1, sk) < 0.3).astype(np.int32)
+    mask[0] = 1
+    jx, tx = _pair(x, dt)
+    tm = torch.from_numpy(mask)
+    got = _card_forward(tx, tm, 0.7)
+    plain = pfs.masked_softmax_fwd_plain(tx, tm, 0.7)
+    jy = jfs.scaled_masked_softmax(jx, jnp.asarray(mask), 0.7)
+    _assert_within("y vs plain", got, _np(plain.float()),
+                   pfs.fwd_limits(plain))
+    _assert_within("y vs JAX", got, jy,
+                   pfs.fwd_limits(torch.from_numpy(_np(jy)).to(got.dtype)))
+    want = torch.full((sk,), 1.0 / sk).to(got.dtype)
+    assert bool((got[0] == want).all())
+    if dt == "f32":   # the form differs from the plain version's
+        assert not torch.equal(got, plain)
+
+
 def test_mask_dtypes_agree():
     """int32, bool and int64 masks give the same probabilities."""
     rng = np.random.RandomState(2)

@@ -22,9 +22,12 @@ held per element to the error models of ``fused_layer_norm.bwd_limits``,
 bound of each fp32 reduction plus one ulp per rounding to bf16), the
 limits ``chip_smoke.py`` uses. The fused softmax forward and backward
 are held per element to ``fused_softmax.fwd_limits`` and
-``fused_softmax.bwd_limits`` (the row sums in other orders, one ulp of a
-bf16 or fp16 output), and ``flat_adam`` to its plain version bit for bit
-(the same fp32 operations in the same order, no FMA). So are
+``fused_softmax.bwd_limits`` (the row sums in other orders, one ulp of a bf16
+or fp16 output; the forward also with uint8 and int32 masks read as vectors or
+through strides, a query count off a block's rows, a causal batch count past
+the grid's y limit, a fully masked batch uniform at 1/sk and a CUDA-graph
+replay the same bits), and ``flat_adam`` to its plain version bit for bit (the
+same fp32 operations in the same order, no FMA). So are
 ``flat_scale`` and ``flat_axpby`` (the outputs and the finite flags,
 with an injected inf or NaN) and LAMB's stage 1 (m, v and u); the sums
 of squares (the L2 partials, stage 1's partials, and ``flat_lamb``'s
@@ -41,8 +44,10 @@ weight-only matmuls (``w8_matmul`` with and without bias,
 (two fp32 sum orders over K, the bias rounding, one ulp of a bf16
 output) and must repeat bit for bit: the bf16 tensor-core kernel at
 prefill M (ragged shapes and an unaligned x view too), the one-launch
-decode gemv across CUDA-graph replays, and the regime each dtype and M
-takes, read off the profiler's kernel names. The LayerNorm forward also
+decode gemv across CUDA-graph replays, the logits head's tensor-core
+kernel at M <= 8 (N off its tile, K off its loads, an unaligned x, the
+same bits under graph replay), and the regime each dtype and M takes,
+read off the profiler's kernel names. The LayerNorm forward also
 runs at ragged h, at teams of one to 32 warps, at 8 and at 32 columns a
 thread, and on rows that do not start 16-byte aligned."""
 
@@ -576,7 +581,10 @@ def test_masked_softmax_kernels_match_plain(cuda_device, b, np_, sq, sk, dt,
 @pytest.mark.cuda
 @pytest.mark.parametrize("batches,sq,sk,dt", [
     (16, 1024, 1024, "bf16"), (4, 24, 24, "f32"), (3, 12, 20, "bf16"),
-    (2, 17, 17, "f32")])
+    (2, 17, 17, "f32"),
+    (65537, 2, 8, "bf16"),     # batches past the grid's y limit
+    (2, 37, 2048, "bf16"),     # eight vectors a thread
+    (3, 40, 3000, "f32")])     # the generic path
 def test_causal_softmax_kernel_matches_plain(cuda_device, batches, sq, sk,
                                              dt):
     rng = np.random.RandomState(1)
@@ -593,6 +601,72 @@ def test_causal_softmax_kernel_matches_plain(cuda_device, batches, sq, sk,
                    fsm.bwd_limits(y, dy, 1.3, fsm.softmax_bwd_plain(
                        y, dy, 1.3)))
     assert bool((y.float()[:, fsm._causal(sq, sk, cuda_device)] == 0).all())
+
+
+_MASK_LAYOUTS = [
+    # (b, np, sq, sk, x dtype, mask dtype, layout): "key" (b, 1, 1, sk),
+    # "query" (b, 1, sq, sk), "strided" a (b, 1, sq, 2 sk) mask read at
+    # every second key, "offset" a key mask one element past an aligned
+    # start (element reads); sq 37 leaves the last block's rows partly
+    # empty, and batch 0 is masked everywhere
+    (64, 16, 128, 128, "bf16", "u8", "key"),     # the BERT-Large step
+    (64, 16, 128, 128, "bf16", "i32", "key"),
+    (4, 8, 37, 128, "bf16", "u8", "query"),
+    (4, 8, 37, 128, "bf16", "i32", "query"),
+    (2, 4, 37, 96, "f32", "u8", "query"),
+    (2, 4, 37, 96, "f32", "i32", "key"),
+    (2, 4, 37, 128, "f16", "u8", "key"),
+    (2, 4, 37, 128, "bf16", "i32", "strided"),
+    (2, 4, 37, 128, "bf16", "u8", "offset"),
+    (2, 3, 37, 130, "bf16", "u8", "query"),      # the generic path
+    (1, 2, 5, 3000, "bf16", "u8", "key"),        # past the register path
+    (1, 2, 5, 3000, "f32", "i32", "query"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,np_,sq,sk,dt,mdt,layout", _MASK_LAYOUTS)
+def test_masked_softmax_mask_layouts(cuda_device, b, np_, sq, sk, dt, mdt,
+                                     layout):
+    """The forward reads uint8 and int32 masks in one vector load a 16
+    bytes of x where their key stride is 1 and their rows are aligned,
+    element by element otherwise; each within ``fwd_limits``, a fully
+    masked batch uniform at 1/sk, a repeat and a CUDA-graph replay the
+    same bits."""
+    rng = np.random.RandomState(sk + sq)
+    x = _t(rng.randn(b, np_, sq, sk) * 3, dt, cuda_device)
+    qs = 1 if layout == "key" or layout == "offset" else sq
+    ks = 2 * sk if layout == "strided" else sk
+    m = rng.rand(b, 1, qs, ks + (1 if layout == "offset" else 0)) < 0.3
+    m[0] = True
+    mt = torch.from_numpy(m).to(cuda_device)
+    mt = mt.to(torch.uint8 if mdt == "u8" else torch.int32)
+    if layout == "strided":
+        mt = mt[..., ::2]
+    elif layout == "offset":
+        mt = mt[..., 1:]
+    assert mt.shape[-1] == sk
+    before = fsm.SOFTMAX_FWD.launches
+    y = fsm.masked_softmax_fwd_kernel(x, mt, 0.125)
+    again = fsm.masked_softmax_fwd_kernel(x, mt, 0.125)
+    torch.cuda.synchronize()
+    assert fsm.SOFTMAX_FWD.launches == before + 2
+    y0 = fsm.masked_softmax_fwd_plain(x, mt, 0.125)
+    _assert_within("y", y, y0, fsm.fwd_limits(y0))
+    assert torch.equal(y, again)
+    assert torch.equal(y[0], torch.full(y[0].shape, 1.0 / sk,
+                                        device=cuda_device).to(y.dtype))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fsm.masked_softmax_fwd_kernel(x, mt, 0.125)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fsm.masked_softmax_fwd_kernel(x, mt, 0.125)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, y)
 
 
 @pytest.mark.cuda
@@ -832,7 +906,7 @@ def test_w8_matmul_kernels_match_plain(cuda_device, m, k, n, xdt, bias):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdt", ["f32", "bf16"])
-@pytest.mark.parametrize("m", [1, 8, 1024])
+@pytest.mark.parametrize("m", [1, 8, 1024, 3])
 def test_w8_matmul_nk_kernel_matches_plain(cuda_device, m, xdt):
     """Row 23, the tied logits head over the (50304, 1024) word table."""
     x, wq, scale, _ = _w8_operands(cuda_device, m, 1024, 50304, xdt, True,
@@ -861,9 +935,13 @@ def test_w8_kernels_take_any_shape(cuda_device, m, k, n, odt):
 
 
 def _w8_kernel_names(fn):
-    """The device kernels one call of ``fn`` launches, by the profiler."""
+    """The device kernels one call of ``fn`` launches, by the profiler.
+    A first call outside the profiler builds and loads what the call
+    needs: on the H100 a kernel library loaded while the profiler ran
+    left the process's later profiler sessions without device events."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -934,6 +1012,47 @@ def test_w8_kernel_by_dtype_and_m(cuda_device, xdt, m, kind):
         assert all("w8_tiled" in n or "w8_reduce" in n for n in names)
     else:
         assert len(names) == 1, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,offset", [
+    (8, 1024, 50304, 1), (1, 1024, 50300, 0), (3, 1024, 1000, 1),
+    (8, 1024, 4097, 0), (5, 72, 200, 0), (8, 200, 37, 1), (7, 3056, 300, 0),
+    (2, 4000, 96, 0)])
+@pytest.mark.parametrize("odt", ["f32", "bf16"])
+def test_w8_mma_nk_takes_any_shape(cuda_device, m, k, n, offset, odt):
+    """Row 23 with a bf16 x at M <= 8: N off the 16-channel tile, K off
+    the 16-byte loads (byte loads), an x view 2 bytes past a 16-byte
+    boundary (element staging), the largest K whose x is staged in
+    shared memory and one past it (the CUDA-core gemv): within
+    ``w8_limit``, an aligned copy of x the same bits, and two replays of
+    a CUDA graph of the call the same bits as an eager call."""
+    x, wq, scale, _ = _w8_operands(cuda_device, m, k, n, "bf16", True, False,
+                                   seed=m + k + n)
+    xv = x
+    if offset:
+        buf = torch.empty(m * k + offset, dtype=x.dtype, device=x.device)
+        xv = buf[offset:].view(m, k)
+        xv.copy_(x)
+        assert xv.data_ptr() % 16 == 2 and xv.is_contiguous()
+    args = (xv, wq, scale, _DT[odt])
+    _w8_check(w8.w8_matmul_nk_kernel, w8.w8_matmul_nk_plain,
+              w8.W8_MATMUL_NK, args,
+              w8.w8_limit(x, wq, scale, None, _DT[odt], nk=True))
+    want = w8.w8_matmul_nk_kernel(x, wq, scale, _DT[odt])
+    assert torch.equal(w8.w8_matmul_nk_kernel(*args), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w8.w8_matmul_nk_kernel(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = w8.w8_matmul_nk_kernel(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -220,40 +220,66 @@ def test_w8_matmul_nk_matches_jax(xdt, odt, lead, k, n):
     assert port_quant.w8_matmul_nk(px, pwq, pws).dtype == torch.float32
 
 
-def _tensor_core_order(x2, wq, scale, bias, out_dtype):
-    """The card's tensor-core order for a bf16 x at M > 8, on the CPU:
-    each bf16 x times int8 q product exact in fp32, the products summed
-    in fp32 over 16-wide k steps, then one multiply by the channel's
-    scale, the bias added in fp32, one cast."""
-    xf, q = x2.float(), wq.float()
-    acc = torch.zeros((x2.shape[0], wq.shape[1]), dtype=torch.float32)
-    for k0 in range(0, wq.shape[0], 16):
-        acc = acc + torch.matmul(xf[:, k0:k0 + 16], q[k0:k0 + 16])
+def _tensor_core_order(x2, wq, scale, bias, out_dtype, nk=False):
+    """The card's tensor-core orders on the CPU: each bf16 x times int8 q
+    product exact in fp32, the products summed in fp32 one k16 step at a
+    time, then one multiply by the channel's scale, the bias added in
+    fp32, one cast. A step of the KN kernel (bf16 x at M > 8) is 16
+    neighbouring k; one of the NK kernel (the logits head, bf16 x at M <=
+    8) takes, in each 64-wide chunk c of k, k = 64 c + 16 t + 4 j + e for
+    its four lanes t and bytes e of step j (each lane reads 16 contiguous
+    bytes a row, word j a step)."""
+    xf, q = x2.float(), (wq.t() if nk else wq).float()   # q: (K, N)
+    k_all = q.shape[0]
+    if nk:
+        steps = [[c + 16 * t + 4 * j + e for t in range(4) for e in range(4)
+                  if c + 16 * t + 4 * j + e < k_all]
+                 for c in range(0, k_all, 64) for j in range(4)]
+    else:
+        steps = [list(range(k0, min(k0 + 16, k_all)))
+                 for k0 in range(0, k_all, 16)]
+    acc = torch.zeros((x2.shape[0], q.shape[1]), dtype=torch.float32)
+    for ks in steps:
+        if ks:
+            acc = acc + torch.matmul(xf[:, ks], q[ks])
     y = acc * scale
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)
 
 
-@pytest.mark.parametrize("odt", ["f32", "bf16"])
-@pytest.mark.parametrize("with_bias", [True, False],
-                         ids=["bias", "nobias"])
-@pytest.mark.parametrize("k", [1024, 4096])
-def test_w8_tensor_core_order_within_limit(k, with_bias, odt):
-    """``w8_limit``'s argument for the tensor-core order (s_n times the
-    fp32 sum of exact products) holds where there is no card: that order
+_TC_CASES = [(k, b, o, False) for k in (1024, 4096) for b in (True, False)
+             for o in ("f32", "bf16")]
+_TC_CASES += [(1024, False, o, True) for o in ("f32", "bf16")]
+
+
+@pytest.mark.parametrize(
+    "k,with_bias,odt,nk", _TC_CASES,
+    ids=[("nk-" if nk else "") + f"{k}-{'bias' if b else 'nobias'}-{o}"
+         for k, b, o, nk in _TC_CASES])
+def test_w8_tensor_core_order_within_limit(k, with_bias, odt, nk):
+    """``w8_limit``'s argument for the tensor-core orders (s_n times the
+    fp32 sum of exact products) holds where there is no card: each order
     sits within the unchanged limit of the plain version and of the JAX
-    package's w8 kernel, at GPT-2 medium's contractions."""
-    (x, wq, ws, b), (px, pwq, pws, pb) = _w8_case((4,), k, 96, False, "bf16",
-                                                  with_bias, seed=k)
-    got = _tensor_core_order(px, pwq, pws, pb, _TDT[odt])
-    lim = port_quant.w8_limit(px, pwq, pws, pb, _TDT[odt])
-    _held(got, port_qk.w8_matmul_plain(px, pwq, pws, pb, _TDT[odt]), lim)
-    _held(got, jax_quant.w8_matmul(x, wq, ws, b, out_dtype=_JDT[odt]), lim)
+    package's w8 kernel, at GPT-2 medium's contractions (the NK case:
+    the logits head at a decode step's M 8)."""
+    lead = (8,) if nk else (4,)
+    (x, wq, ws, b), (px, pwq, pws, pb) = _w8_case(lead, k, 96, nk, "bf16",
+                                                  with_bias, seed=k + nk)
+    got = _tensor_core_order(px, pwq, pws, pb, _TDT[odt], nk)
+    if nk:
+        lim = port_quant.w8_limit(px, pwq, pws, None, _TDT[odt], nk=True)
+        plain = port_qk.w8_matmul_nk_plain(px, pwq, pws, _TDT[odt])
+        ref = jax_quant.w8_matmul_nk(x, wq, ws, out_dtype=_JDT[odt])
+    else:
+        lim = port_quant.w8_limit(px, pwq, pws, pb, _TDT[odt])
+        plain = port_qk.w8_matmul_plain(px, pwq, pws, pb, _TDT[odt])
+        ref = jax_quant.w8_matmul(x, wq, ws, b, out_dtype=_JDT[odt])
+    _held(got, plain, lim)
+    _held(got, ref, lim)
     # the order differs from the plain version's in fp32
     if odt == "f32":
-        assert not torch.equal(
-            got, port_qk.w8_matmul_plain(px, pwq, pws, pb, _TDT[odt]))
+        assert not torch.equal(got, plain)
 
 
 def test_w8_limit_catches_a_lost_scale():
