@@ -12,6 +12,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from apex_tpu_torch.utils.tree import tree_map
+
 _NORM_PATH_MARKERS = (
     "batchnorm", "batch_norm", "bn", "layernorm", "layer_norm", "norm",
     "groupnorm", "group_norm", "rmsnorm", "rms_norm",
@@ -57,6 +59,29 @@ def cast_params(params: Any, dtype: torch.dtype,
         return x.to(target)
 
     return _map_with_path(cast, params, precast)
+
+
+def master_params(params: Any) -> Any:
+    """fp32 master copy of a (possibly reduced-precision) param tree
+    (``apex.amp.master_params``)."""
+    return cast_inputs(params, torch.float32)
+
+
+def model_params_from_master(master: Any, like: Any,
+                             precast: Optional[Any] = None) -> Any:
+    """Re-cast master weights to the dtypes of the compute tree ``like``;
+    leaves of ``precast`` (an optimizer's cast-out) whose dtype already
+    matches ``like`` are taken as they are."""
+    def cast(m, lk, pc=None):
+        if not isinstance(lk, torch.Tensor):
+            return m
+        if pc is not None and pc.dtype == lk.dtype:
+            return pc
+        return m.to(lk.dtype)
+
+    if precast is None:
+        return tree_map(cast, master, like)
+    return tree_map(cast, master, like, precast)
 
 
 def cast_inputs(batch: Any, dtype: torch.dtype) -> Any:

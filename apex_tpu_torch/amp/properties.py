@@ -28,30 +28,56 @@ class Properties:
                 raise ValueError(f"Tried to set unexpected option {k!r}")
             setattr(self, k, v)
 
+    @property
+    def half_dtype(self):
+        return self.cast_model_type
+
 
 HALF = torch.bfloat16
 
 
-def _preset(opt_level, cast_model_type, patch, keep_bn, master, scale):
-    def apply(properties: Properties) -> Properties:
+class _OptLevel:
+    """An opt level: ``__call__`` sets the five knobs on a
+    :class:`Properties` (the reference's O0-O3 classes)."""
+
+    brief = ""
+    _knobs: tuple = ()
+
+    def __call__(self, properties: Properties) -> Properties:
+        (properties.cast_model_type, properties.patch_torch_functions,
+         properties.keep_batchnorm_fp32, properties.master_weights,
+         properties.loss_scale) = self._knobs
         properties.enabled = True
-        properties.opt_level = opt_level
-        properties.cast_model_type = cast_model_type
-        properties.patch_torch_functions = patch
-        properties.keep_batchnorm_fp32 = keep_bn
-        properties.master_weights = master
-        properties.loss_scale = scale
+        properties.opt_level = type(self).__name__
         return properties
-    return apply
 
 
-opt_levels = {
-    # pure reduced precision
-    "O3": _preset("O3", HALF, False, False, False, 1.0),
-    # half model + fp32 norms + fp32 master weights + dynamic scale
-    "O2": _preset("O2", HALF, False, True, True, "dynamic"),
-    # per-op autocast
-    "O1": _preset("O1", None, True, None, None, "dynamic"),
-    # pure fp32
-    "O0": _preset("O0", torch.float32, False, False, False, 1.0),
-}
+class O3(_OptLevel):
+    """FP16/BF16 everything ("speed of light" baseline)."""
+
+    brief = "O3: Pure reduced precision (bf16)."
+    _knobs = (HALF, False, False, False, 1.0)
+
+
+class O2(_OptLevel):
+    """Half model + fp32 batchnorm + fp32 master weights + dynamic scale."""
+
+    brief = "O2: cast model to reduced precision, keep master weights in fp32."
+    _knobs = (HALF, False, True, True, "dynamic")
+
+
+class O1(_OptLevel):
+    """Op-policy autocast (the reference's patch-torch-functions mode)."""
+
+    brief = "O1: per-op autocast via the amp op-policy lists."
+    _knobs = (None, True, None, None, "dynamic")
+
+
+class O0(_OptLevel):
+    """Pure fp32 (the off switch that still goes through the amp API)."""
+
+    brief = "O0: pure fp32."
+    _knobs = (torch.float32, False, False, False, 1.0)
+
+
+opt_levels = {"O3": O3(), "O2": O2(), "O1": O1(), "O0": O0()}

@@ -76,6 +76,9 @@ class LossScaler:
             unskipped=torch.tensor(0, dtype=torch.int32, device=dev),
             overflows=torch.tensor(0, dtype=torch.int32, device=dev))
 
+    def loss_scale(self, state: LossScalerState) -> torch.Tensor:
+        return state.loss_scale
+
     # -- hot path -------------------------------------------------------
     def scale(self, loss: torch.Tensor, state: LossScalerState
               ) -> torch.Tensor:

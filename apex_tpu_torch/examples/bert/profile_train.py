@@ -17,11 +17,12 @@ numbers::
         --attention softmax --flat-kernel
     python -m apex_tpu_torch.examples.bert.profile_train \
         --optimizer lamb --flat-kernel
+    python -m apex_tpu_torch.examples.bert.profile_train --dropout-seed 0
 
 ``--attention softmax`` runs the unfused attention (the fused softmax
-kernels), ``--optimizer lamb`` FusedLAMB in place of FusedAdam, and
-``--flat-kernel`` the optimizer's flat path, as in
-``examples/bert/train.py``.
+kernels), ``--optimizer lamb`` FusedLAMB in place of FusedAdam,
+``--flat-kernel`` the optimizer's flat path and ``--dropout-seed`` the
+model's dropout, as in ``examples/bert/train.py``.
 """
 
 import argparse
@@ -37,6 +38,7 @@ from apex_tpu_torch.examples.bert.train import (
 )
 from apex_tpu_torch.examples.gpt.profile_serving import window
 from apex_tpu_torch.models.bert import bert_large
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import resolve_device
 
 BATCH, SEQ = 64, 128
@@ -46,7 +48,8 @@ OURS = ("layer_norm_fwd_kernel", "layer_norm_bwd", "flash_fwd_kernel",
         "flash_dkv_kernel", "flash_dkv_tc_kernel", "xent_fwd_kernel",
         "xent_bwd_kernel", "softmax_fwd", "softmax_bwd", "adam_kernel",
         "l2_partials_kernel", "lamb_stage1_kernel", "sgd_kernel",
-        "adagrad_kernel", "novograd_kernel")
+        "adagrad_kernel", "novograd_kernel", "dropout_kernel",
+        "bits_kernel")
 GEMM = ("gemm", "xmma", "cutlass", "sm90_", "cublas", "nvjet")
 
 
@@ -69,7 +72,10 @@ def main(argv=None):
     p.add_argument("--optimizer", choices=sorted(OPTIMIZERS),
                    default="adam")
     p.add_argument("--flat-kernel", action="store_true")
+    p.add_argument("--dropout-seed", type=int, default=None)
     args = p.parse_args(argv)
+    key = None if args.dropout_seed is None else prng.PRNGKey(
+        args.dropout_seed)
     dev = resolve_device(None)
     cfg = dataclasses.replace(bert_large(),
                               fused_attention=args.attention == "flash")
@@ -77,18 +83,20 @@ def main(argv=None):
     for mode, (m_dtype, emit) in STATE_MODES.items():
         step, make_state, (ids, mask) = make_bert_train_step(
             BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit, device=dev,
-            use_flat_kernel=args.flat_kernel, optimizer=args.optimizer)
+            use_flat_kernel=args.flat_kernel, optimizer=args.optimizer,
+            dropout_rng=key)
         state = list(make_state())
         for _ in range(2):
             *state, _ = step(*state, ids, mask)
         t_grads, t_opt = [], []
-        for _ in range(3):
+        for i in range(3):
             master, opt_state, scaler = state[:3]
             compute = state[3] if emit else None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            p, _, grads, found, scaler = step.grads(master, scaler, ids,
-                                                    mask, compute)
+            p, _, grads, found, scaler = step.grads(
+                master, scaler, ids, mask, compute,
+                dropout_rng=None if key is None else prng.fold_in(key, i))
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             kw = dict(found_inf=found)

@@ -17,7 +17,10 @@ attention, or the score product, the fused softmax and the context
 product), the optimizer, and its ``use_flat_kernel`` (the tree path, or
 packed buffers stepped by one ``flat_adam`` kernel, or by LAMB's
 grad-norm pre-pass and stage-1 kernels); the defaults are flash
-attention and the tree-path FusedAdam.
+attention and the tree-path FusedAdam. With a ``dropout_rng`` (a
+``utils.prng`` key) step ``i`` runs the model's hidden and attention
+dropout on ``fold_in(dropout_rng, i)``; without one the step is the JAX
+benchmark's, which runs none.
 
 Random weights from a seed and one fixed batch of random ids (every
 position predicted). Runs on the CUDA device by default::
@@ -27,6 +30,7 @@ position predicted). Runs on the CUDA device by default::
         --flat-kernel
     python -m apex_tpu_torch.examples.bert.train --optimizer lamb \
         --flat-kernel
+    python -m apex_tpu_torch.examples.bert.train --dropout-seed 0
 
 and on the CPU (the kernels' plain versions) with ``--device cpu``::
 
@@ -48,6 +52,7 @@ from apex_tpu_torch.models.bert import (
     mlm_loss,
 )
 from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 CONFIGS = {"tiny": bert_tiny, "base": bert_base, "large": bert_large}
@@ -61,32 +66,40 @@ OPTIMIZERS = {"adam": (FusedAdam, 1e-4), "lamb": (FusedLAMB, 1e-3)}
 class BertTrainStep:
     """``step(master, opt_state, scaler_state, [compute,] ids, mask)``
     returns ``(master, opt_state, scaler_state, [compute,] loss)``, the
-    JAX ``train_step``'s tuple; :meth:`grads` is its first half."""
+    JAX ``train_step``'s tuple; :meth:`grads` is its first half. With
+    ``dropout_rng``, the ``steps``-th call draws its dropout on
+    ``fold_in(dropout_rng, steps)``."""
 
     def __init__(self, cfg: BertConfig, handle: amp.Amp,
-                 opt: Union[FusedAdam, FusedLAMB]):
+                 opt: Union[FusedAdam, FusedLAMB], dropout_rng=None):
         self.cfg = cfg
         self.amp = handle
         self.opt = opt
+        self.dropout_rng = dropout_rng
+        self.steps = 0
         self._value_and_grad = handle.value_and_grad(self.loss_fn)
 
-    def loss_fn(self, p, ids, mask):
-        out = apply_bert(p, self.cfg, ids, mask)
+    def loss_fn(self, p, ids, mask, dropout_rng=None):
+        out = apply_bert(p, self.cfg, ids, mask, dropout_rng=dropout_rng)
         return mlm_loss(out["mlm_logits"], ids, mask)
 
     def grads(self, master, scaler_state, ids, mask,
-              compute: Optional[Any] = None):
-        """(compute tree p, loss, grads, found_inf, new scaler state)."""
+              compute: Optional[Any] = None, dropout_rng=None):
+        """(compute tree p, loss, grads, found_inf, new scaler state);
+        ``dropout_rng`` is the model's key as it is (no ``fold_in``)."""
         p = self.amp.cast_model(master, precast=compute)
         loss, grads, found_inf, scaler_state = self._value_and_grad(
-            p, scaler_state, ids, mask)
+            p, scaler_state, ids, mask, dropout_rng=dropout_rng)
         return p, loss, grads, found_inf, scaler_state
 
     def __call__(self, master, opt_state, scaler_state, *rest):
         *compute, ids, mask = rest
+        rng = None if self.dropout_rng is None else prng.fold_in(
+            self.dropout_rng, self.steps)
+        self.steps += 1
         p, loss, grads, found_inf, scaler_state = self.grads(
             master, scaler_state, ids, mask,
-            compute[0] if compute else None)
+            compute[0] if compute else None, dropout_rng=rng)
         if self.opt.emit_compute_params:
             master, opt_state, c = self.opt.step(
                 grads, master, opt_state, found_inf=found_inf,
@@ -102,13 +115,14 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
                          emit_compute: bool = False,
                          device: DeviceLike = None, opt_level: str = "O2",
                          seed: int = 0, use_flat_kernel: bool = False,
-                         optimizer: str = "adam"
+                         optimizer: str = "adam", dropout_rng=None
                          ) -> Tuple[BertTrainStep, Any, Tuple]:
     """Returns ``(train_step, make_state, (ids, mask))`` as the JAX
     ``_bert_step`` does; ``cfg.fused_attention``, ``optimizer``
     (``"adam"``: ``FusedAdam(lr=1e-4)``; ``"lamb"``: ``FusedLAMB(lr=
     1e-3)``; both with weight decay 0.01) and ``use_flat_kernel`` pick
-    the configuration.
+    the configuration; ``dropout_rng`` turns the model's dropout on
+    (``BertTrainStep``).
     ``make_state()`` draws the fp32 master tree
     from ``seed`` (on a generator on ``device``) and returns ``(master,
     opt_state, scaler_state)``, plus the compute tree with
@@ -132,7 +146,7 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
     ids = torch.randint(0, cfg.vocab_size, (batch, seq),
                         generator=torch.Generator().manual_seed(1)).to(dev)
     mask = torch.ones((batch, seq), dtype=torch.int32, device=dev)
-    return BertTrainStep(cfg, h, opt), make_state, (ids, mask)
+    return BertTrainStep(cfg, h, opt, dropout_rng), make_state, (ids, mask)
 
 
 def parse_args(argv=None):
@@ -153,6 +167,10 @@ def parse_args(argv=None):
                    help="use_flat_kernel=True: the optimizer steps packed "
                    "buffers through its flat kernels")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dropout-seed", type=int, default=None,
+                   help="run the model's dropout (0.1) on keys from "
+                   "PRNGKey(dropout seed); off without it, as in the JAX "
+                   "benchmark's step")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -167,7 +185,9 @@ def main(argv=None) -> int:
     step, make_state, (ids, mask) = make_bert_train_step(
         args.batch, args.seq, cfg, m_dtype=m_dtype, emit_compute=emit,
         device=dev, seed=args.seed, use_flat_kernel=args.flat_kernel,
-        optimizer=args.optimizer)
+        optimizer=args.optimizer,
+        dropout_rng=None if args.dropout_seed is None
+        else prng.PRNGKey(args.dropout_seed))
     state = make_state()
 
     def sync():

@@ -1,12 +1,13 @@
 """KV-cached GPT generation CLI for the PyTorch/CUDA port — drives
 ``apex_tpu_torch.serving`` end to end: bf16 inference params (``amp``
 O2 model cast), a preallocated KV cache updated in place, bucketed
-prefill, and greedy continuous batching over a fixed slot set.
+prefill, and continuous batching over a fixed slot set with greedy or
+temperature/top-k sampling.
 
 Synthetic weights and prompts. Runs on the CUDA device by default::
 
     python -m apex_tpu_torch.examples.gpt.generate --num-requests 8 \\
-        --num-slots 4 --max-new-tokens 24
+        --num-slots 4 --max-new-tokens 24 --temperature 0.8 --top-k 50
 
 and on the CPU (the kernels' plain versions) with ``--device cpu``.
 Explicit prompts as comma-separated token ids::
@@ -43,6 +44,7 @@ def parse_args(argv=None):
     s = p.add_argument_group("serving")
     s.add_argument("--num-slots", type=int, default=4)
     s.add_argument("--max-len", type=int, default=128)
+    s.add_argument("--top-k", type=int, default=0)
     s.add_argument("--device", default=None,
                    help="'cuda' (the default) or 'cpu'")
     r = p.add_argument_group("requests")
@@ -51,6 +53,7 @@ def parse_args(argv=None):
                         "--num-requests random prompts")
     r.add_argument("--num-requests", type=int, default=8)
     r.add_argument("--max-new-tokens", type=int, default=16)
+    r.add_argument("--temperature", type=float, default=0.0)
     r.add_argument("--eos-id", type=int, default=1)
     r.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
@@ -72,7 +75,7 @@ def main(argv=None):
 
     engine = DecodeEngine(params, cfg, num_slots=ns.num_slots,
                           max_len=ns.max_len, cache_dtype=cache_dtype,
-                          device=device)
+                          top_k=ns.top_k, device=device)
     sched = ContinuousBatchingScheduler(engine, eos_id=ns.eos_id)
 
     if ns.prompt:
@@ -83,9 +86,11 @@ def main(argv=None):
             tuple(int(t) for t in rng.randint(
                 2, cfg.vocab_size, size=rng.randint(4, ns.max_len // 2)))
             for _ in range(ns.num_requests)]
-    for prompt in prompts:
+    for i, prompt in enumerate(prompts):
         sched.submit(Request(prompt=prompt,
-                             max_new_tokens=ns.max_new_tokens))
+                             max_new_tokens=ns.max_new_tokens,
+                             temperature=ns.temperature,
+                             seed=ns.seed + i))
 
     t0 = time.perf_counter()
     with torch.inference_mode():

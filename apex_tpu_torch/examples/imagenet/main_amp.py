@@ -42,6 +42,7 @@ from apex_tpu_torch.models.resnet import (
     apply_resnet, cross_entropy_loss, init_resnet,
 )
 from apex_tpu_torch.optimizers import FusedSGD
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.metrics import AverageMeter, Throughput
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -114,12 +115,15 @@ def make_resnet_train_step(depth: int = 50, opt_level: str = "O0",
 def synthetic_batch(i: int, batch: int, image_size: int, num_classes: int,
                     device: torch.device
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Step ``i``'s images (N, H, W, 3) and labels, the same on every
-    device (drawn on the CPU from a generator seeded 1000 + i)."""
-    gen = torch.Generator().manual_seed(1000 + i)
-    images = torch.randn((batch, image_size, image_size, 3), generator=gen)
-    labels = torch.randint(0, num_classes, (batch,), generator=gen)
-    return images.to(device), labels.to(device)
+    """Step ``i``'s images (N, H, W, 3) and int64 labels, drawn on
+    ``device`` from ``PRNGKey(1000 + i)`` as the JAX example draws them
+    (``normal`` and ``randint`` on the same key): the labels are the JAX
+    example's exactly, the images within ``prng.normal_limit``."""
+    key = prng.PRNGKey(1000 + i)
+    images = prng.normal(key, (batch, image_size, image_size, 3),
+                         device=device)
+    labels = prng.randint(key, (batch,), 0, num_classes, device=device)
+    return images, labels.to(torch.int64)
 
 
 def parse_args(argv=None):

@@ -11,9 +11,15 @@ The param tree has the JAX tree's keys, dtypes and layout, the encoder
 a list of per-layer dicts, so the O2 cast keeps every ``layernorm``
 leaf fp32 as in JAX.
 
-Not ported (raise): ``remat``, and hidden / attention dropout drawn
-from ``dropout_rng`` (threefry bits torch cannot reproduce); the
-training step of the JAX benchmark uses neither.
+Dropout follows the JAX package key for key: ``dropout_rng`` splits
+into 2L + 1 keys (the embeddings', then per layer the attention's and
+the hidden one's), the hidden dropout and the unfused branch's
+probability dropout go through ``utils.prng.dropout`` (the threefry
+kernel on the card; its backward regenerates each mask from its key),
+and the flash branch hands its key to ``flash_attention``. ``remat``
+recomputes each encoder layer in the backward
+(``torch.utils.checkpoint``) with the same keys, so it gives the same
+numbers.
 """
 
 import dataclasses
@@ -22,6 +28,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.models import layers as L
@@ -29,6 +36,7 @@ from apex_tpu_torch.normalization import fused_layer_norm_affine
 from apex_tpu_torch.transformer.functional import (
     flash_attention, scaled_masked_softmax,
 )
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -65,11 +73,6 @@ def bert_tiny() -> BertConfig:  # for tests
     return BertConfig(vocab_size=1024, hidden_size=128, num_layers=2,
                       num_heads=4, intermediate_size=256,
                       max_position_embeddings=128)
-
-
-def check_config(cfg: BertConfig) -> None:
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
 
 
 def init_bert(cfg: BertConfig, generator: torch.Generator,
@@ -131,7 +134,7 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _attention(p, cfg: BertConfig, x, mask):
+def _attention(p, cfg: BertConfig, x, mask, dropout_rng=None):
     b, s, h = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     # the fused projection is laid out (3, nh, hd): q, k, v are strided
@@ -141,7 +144,8 @@ def _attention(p, cfg: BertConfig, x, mask):
     if cfg.fused_attention:
         ctx = flash_attention(q, k, v, mask,
                               softmax_scale=1.0 / math.sqrt(hd),
-                              dropout_rate=cfg.attention_dropout)
+                              dropout_rate=cfg.attention_dropout,
+                              dropout_rng=dropout_rng)
     else:
         # the unfused path: plain products in the compute dtype around the
         # fused softmax, whose mask is nonzero where a key is padding
@@ -152,39 +156,57 @@ def _attention(p, cfg: BertConfig, x, mask):
             inv = torch.zeros((b, 1, 1, s), dtype=torch.int32,
                               device=x.device)
         probs = scaled_masked_softmax(scores, inv, 1.0 / math.sqrt(hd))
+        probs = _maybe_dropout(probs, cfg.attention_dropout, dropout_rng)
         ctx = torch.matmul(probs, v)
     ctx = ctx.transpose(1, 2).reshape(b, s, h)
     return L.dense(p["out"], ctx)
+
+
+def _maybe_dropout(x, rate, rng):
+    if rng is None or rate <= 0:
+        return x
+    return prng.dropout(rng, x, rate)
 
 
 def apply_bert(params: Dict[str, Any], cfg: BertConfig,
                input_ids: torch.Tensor,
                attention_mask: Optional[torch.Tensor] = None,
                token_type_ids: Optional[torch.Tensor] = None, *,
-               dropout_rng=None) -> Dict[str, torch.Tensor]:
+               dropout_rng=None,
+               compute_dtype: Optional[torch.dtype] = None
+               ) -> Dict[str, torch.Tensor]:
     """Returns {"hidden": (b, s, h), "mlm_logits": (b, s, vocab) fp32,
-    "pooled": (b, h)}. No dropout: ``dropout_rng`` raises."""
-    check_config(cfg)
-    if dropout_rng is not None:
-        raise NotImplementedError(
-            "dropout_rng: hidden dropout draws threefry bits that torch "
-            "cannot reproduce; not ported")
+    "pooled": (b, h)}. ``dropout_rng`` (a ``utils.prng`` key) turns on
+    the hidden and attention dropout; ``compute_dtype`` casts the
+    embedding tables before the lookups, as in JAX."""
     s = input_ids.shape[1]
     emb = params["embeddings"]
-    x = L.embedding(emb["word"], input_ids)
+    x = L.embedding(emb["word"], input_ids, compute_dtype)
     x = x + L.embedding(emb["position"],
-                        torch.arange(s, device=input_ids.device))[None]
+                        torch.arange(s, device=input_ids.device),
+                        compute_dtype)[None]
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
-    x = x + L.embedding(emb["token_type"], token_type_ids)
+    x = x + L.embedding(emb["token_type"], token_type_ids, compute_dtype)
     x = _ln(emb["layernorm"], x, cfg.layer_norm_eps)
 
-    for layer in params["encoder"]:
-        att = _attention(layer["attention"], cfg, x, attention_mask)
+    n_keys = 2 * cfg.num_layers + 1
+    rngs = (prng.split(dropout_rng, n_keys) if dropout_rng is not None
+            else [None] * n_keys)
+    x = _maybe_dropout(x, cfg.hidden_dropout, rngs[0])
+
+    def encoder_layer(layer, x, rng_a, rng_h):
+        att = _attention(layer["attention"], cfg, x, attention_mask, rng_a)
+        att = _maybe_dropout(att, cfg.hidden_dropout, rng_h)
         x = _ln(layer["attention"]["layernorm"], x + att, cfg.layer_norm_eps)
         mlp = L.dense(layer["mlp"]["fc2"],
                       _gelu(L.dense(layer["mlp"]["fc1"], x)))
-        x = _ln(layer["mlp"]["layernorm"], x + mlp, cfg.layer_norm_eps)
+        return _ln(layer["mlp"]["layernorm"], x + mlp, cfg.layer_norm_eps)
+
+    for li, layer in enumerate(params["encoder"]):
+        args = (layer, x, rngs[2 * li + 1], rngs[2 * li + 2])
+        x = (checkpoint(encoder_layer, *args, use_reentrant=False)
+             if cfg.remat else encoder_layer(*args))
 
     head = params["mlm_head"]
     t = _gelu(L.dense(head["transform"], x))

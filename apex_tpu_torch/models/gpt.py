@@ -231,11 +231,17 @@ def dense(p, x):
 
 
 def apply_gpt_unsharded(params: Dict[str, Any], cfg: GPTConfig,
-                        input_ids: torch.Tensor) -> torch.Tensor:
-    """ids (b, s) -> final hidden (b, s, h), no dropout."""
+                        input_ids: torch.Tensor, *,
+                        compute_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """ids (b, s) -> final hidden (b, s, h), no dropout; with
+    ``compute_dtype`` the word table is cast before the lookup."""
     check_config(cfg)
     s = input_ids.shape[1]
-    x = params["embedding"]["word"]["embedding"][input_ids]
+    table = params["embedding"]["word"]["embedding"]
+    if compute_dtype is not None:
+        table = table.to(compute_dtype)
+    x = table[input_ids]
     pos = params["embedding"]["position"]["embedding"][:s]
     x = x + pos.to(x.dtype)[None]
     layers = params["layers"]

@@ -54,17 +54,19 @@ def trunc_normal(generator: torch.Generator, shape: Sequence[int],
 # -- dense ------------------------------------------------------------------
 
 def init_dense(generator: torch.Generator, in_features: int,
-               out_features: int, dtype: torch.dtype = torch.float32,
-               device: DeviceLike = None, init=trunc_normal) -> dict:
+               out_features: int, *, bias: bool = True, init=trunc_normal,
+               dtype: torch.dtype = torch.float32,
+               device: DeviceLike = None) -> dict:
     """kernel (in, out) from ``init`` (:func:`trunc_normal`, stddev 0.02,
     or a fan-in initializer such as :func:`lecun_normal`), zero bias."""
     shape = (in_features, out_features)
-    kernel = trunc_normal(generator, shape, dtype=dtype, device=device) \
-        if init is trunc_normal else \
-        init(generator, shape, in_features, dtype=dtype, device=device)
-    return {"kernel": kernel,
-            "bias": torch.zeros((out_features,), dtype=dtype,
-                                device=resolve_device(device))}
+    p = {"kernel": trunc_normal(generator, shape, dtype=dtype, device=device)
+         if init is trunc_normal else
+         init(generator, shape, in_features, dtype=dtype, device=device)}
+    if bias:
+        p["bias"] = torch.zeros((out_features,), dtype=dtype,
+                                device=resolve_device(device))
+    return p
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -92,13 +94,20 @@ def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv(params: dict, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """NHWC ``x`` through an HWIO kernel (cast to x's dtype) with JAX's
-    "SAME" padding, uneven where the stride needs it (the JAX ``conv``'s
-    default, the only padding its ResNet uses)."""
+def conv(params: dict, x: torch.Tensor, stride: int = 1,
+         padding="SAME") -> torch.Tensor:
+    """NHWC ``x`` through an HWIO kernel (cast to x's dtype).
+    ``padding`` as ``lax.conv_general_dilated`` takes it: "SAME"
+    (uneven where the stride needs it, the only padding the JAX ResNet
+    uses), "VALID", or ((top, bottom), (left, right))."""
     k = params["kernel"].to(x.dtype)
-    (ht, hb), (wl, wr) = (same_pads(x.shape[1], k.shape[0], stride),
-                          same_pads(x.shape[2], k.shape[1], stride))
+    if padding == "SAME":
+        (ht, hb), (wl, wr) = (same_pads(x.shape[1], k.shape[0], stride),
+                              same_pads(x.shape[2], k.shape[1], stride))
+    elif padding == "VALID":
+        ht = hb = wl = wr = 0
+    else:
+        (ht, hb), (wl, wr) = padding
     xn = x.permute(0, 3, 1, 2)           # NCHW view, channels_last memory
     pad = (ht, wl)
     if (ht, wl) != (hb, wr):
@@ -169,5 +178,11 @@ def init_embedding(generator: torch.Generator, vocab: int, features: int,
                                       dtype=dtype, device=device)}
 
 
-def embedding(params: dict, ids: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][ids]
+def embedding(params: dict, ids: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Rows of the table for ``ids``; with ``dtype`` the table is cast
+    before the lookup, as in JAX."""
+    table = params["embedding"]
+    if dtype is not None:
+        table = table.to(dtype)
+    return table[ids]

@@ -64,8 +64,8 @@ def init_resnet(generator: torch.Generator, depth: int = 50,
             params[f"layer{si + 1}_{bi}"] = bp
             stats[f"layer{si + 1}_{bi}"] = bs
             in_ch = out_ch
-    params["fc"] = L.init_dense(generator, in_ch, num_classes, dtype, dev,
-                                init=L.lecun_normal)
+    params["fc"] = L.init_dense(generator, in_ch, num_classes,
+                                init=L.lecun_normal, dtype=dtype, device=dev)
     return params, stats
 
 

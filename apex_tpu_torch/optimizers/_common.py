@@ -39,6 +39,10 @@ def check_m_dtype(m_dtype: torch.dtype) -> torch.dtype:
     return m_dtype
 
 
+def tree_zeros_f32(params: Any) -> Any:
+    return tree_zeros(params, torch.float32)
+
+
 def tree_zeros(params: Any, dtype: torch.dtype) -> Any:
     return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype,
                                           device=p.device), params)

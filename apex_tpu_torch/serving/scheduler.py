@@ -1,12 +1,19 @@
 """Continuous batching over a fixed-slot KV cache (counterpart of
-``apex_tpu/serving/scheduler.py``; dense cache, greedy, plain decode,
-bf16/fp32 or weight-only int8 params).
+``apex_tpu/serving/scheduler.py``; dense cache, greedy and sampled
+requests with the engine's top-k / top-p, plain decode, bf16/fp32 or
+weight-only int8 params).
 
 A FIFO of requests is multiplexed onto ``num_slots`` cache rows. A slot
 is admitted with one bucketed prefill, then every tick advances ALL
 occupied slots with one batched decode step; a slot is evicted the
 moment it emits EOS, hits its ``max_new_tokens``, or fills its cache
 row, and the freed row is re-admitted from the queue on the next tick.
+
+A sampled request's token ``n`` draws with the key ``fold_in(PRNGKey(
+seed), n)`` (``utils.prng``): the prefill's first token with ``n = 0``,
+each decode step with ``n = len(generated)``; slots that are not
+decoding get ``PRNGKey(0)``, as in the JAX scheduler. So a replayed
+stream, and the JAX scheduler's, commit the same tokens.
 
 Every committed token passes two gates first: its logits row is finite
 and the sampled id is inside the vocabulary. A row that fails raises
@@ -29,6 +36,7 @@ from apex_tpu_torch.serving.cache import init_cache
 from apex_tpu_torch.serving.decode import make_decode_fn, make_prefill_fn
 from apex_tpu_torch.serving.health import NonFiniteLogits, RequestOutcome
 from apex_tpu_torch.serving.sampling import finite_rows, sample_tokens
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 from apex_tpu_torch.utils.seqlen import (
     bucket_for, default_buckets, pad_to_bucket,
@@ -37,9 +45,8 @@ from apex_tpu_torch.utils.seqlen import (
 
 @dataclasses.dataclass(frozen=True)
 class Request:
-    """One generation request. ``temperature <= 0`` means greedy (the
-    only mode of this slice); ``seed`` roots the request's random
-    stream once sampling is ported."""
+    """One generation request. ``temperature <= 0`` means greedy;
+    ``seed`` roots a sampled request's random stream."""
     prompt: Tuple[int, ...]
     max_new_tokens: int = 16
     temperature: float = 0.0
@@ -60,10 +67,12 @@ class DecodeEngine:
     must already lie on ``device`` (``None`` means the card). A
     weight-only int8 tree (``quant.quantize_params``) is detected and
     served through the w8 kernels; ``compute_dtype`` is then the
-    activations' dtype (fp32 with None), as in the JAX engine."""
+    activations' dtype (fp32 with None), as in the JAX engine.
+    ``top_k`` / ``top_p`` restrict every sampled row (0 = off)."""
 
     def __init__(self, params, cfg: GPTConfig, num_slots: int,
                  max_len: int, cache_dtype: torch.dtype = torch.bfloat16,
+                 top_k: int = 0, top_p: float = 0.0,
                  buckets: Optional[Sequence[int]] = None,
                  compute_dtype: Optional[torch.dtype] = None,
                  device: DeviceLike = None):
@@ -72,6 +81,8 @@ class DecodeEngine:
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
+        self.top_k = top_k
+        self.top_p = top_p
         if buckets is None:
             buckets = default_buckets(max_len, min(128, max_len))
         # clamp the ladder to the cache: prefill rejects buckets beyond
@@ -109,10 +120,16 @@ class DecodeEngine:
         self.cache, logits = self._decode(self.params, self.cache, tok, act)
         return logits
 
-    def sample(self, logits: torch.Tensor,
+    def sample(self, logits: torch.Tensor, keys,
                temperature: Sequence[float]) -> torch.Tensor:
-        return sample_tokens(logits, torch.tensor(
-            list(temperature), dtype=torch.float32, device=logits.device))
+        """(B,) int32 tokens; ``keys`` (B, 2) and ``temperature`` (B,)
+        on the host. A batch of greedy rows only takes the argmax and
+        draws nothing."""
+        if max(temperature) <= 0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return sample_tokens(logits, keys, torch.tensor(
+            list(temperature), dtype=torch.float32, device=logits.device),
+            self.top_k, self.top_p)
 
     def finite(self, logits: torch.Tensor) -> torch.Tensor:
         """(B,) bool: which logits rows are safe to sample."""
@@ -129,6 +146,13 @@ class DecodeEngine:
 
     def free_slot(self, slot: int) -> None:
         """Release slot-owned resources on eviction (none here)."""
+
+
+def _slot_key(slot: _Slot) -> torch.Tensor:
+    """The key of the slot's next token: ``fold_in(PRNGKey(seed),
+    len(generated))``."""
+    return prng.fold_in(prng.PRNGKey(slot.request.seed),
+                        len(slot.generated))
 
 
 class ContinuousBatchingScheduler:
@@ -205,7 +229,9 @@ class ContinuousBatchingScheduler:
             self._prefill_ticks[rid] = self._prefill_ticks.get(rid, 0) + 1
             self._charge_work(len(tokens))
             finite = bool(eng.finite(logits).all())
-            first_tok = int(eng.sample(logits, [req.temperature])[0])
+            key = prng.fold_in(prng.PRNGKey(req.seed), 0)
+            first_tok = int(eng.sample(logits, key[None],
+                                       [req.temperature])[0])
             self._check(finite, first_tok, f"request {rid}: prefill")
             self._queue.popleft()
             self._slots[i] = _Slot(rid, req, len(req.prompt), [],
@@ -241,10 +267,12 @@ class ContinuousBatchingScheduler:
         active = [s is not None for s in self._slots]
         temps = [s.request.temperature if s is not None else 0.0
                  for s in self._slots]
+        keys = torch.stack([_slot_key(s) if s is not None
+                            else prng.PRNGKey(0) for s in self._slots])
         logits = eng.decode(tokens, active)
         self.decode_steps += 1
         finite = eng.finite(logits).tolist()
-        next_tokens = eng.sample(logits, temps).tolist()
+        next_tokens = eng.sample(logits, keys, temps).tolist()
         for i in occupied:
             self._check(finite[i], next_tokens[i],
                         f"slot {i} (request {self._slots[i].request_id})"

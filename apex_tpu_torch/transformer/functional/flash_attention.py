@@ -44,6 +44,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.cuda_build import CudaLibrary, Kernel
 from apex_tpu_torch.utils.platform import on_card
 
@@ -467,8 +468,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     softmax_scale: Optional[float] = None,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[Sequence[int]] = None
-                    ) -> torch.Tensor:
+                    dropout_rng=None) -> torch.Tensor:
     """Scaled-dot-product attention.
 
     Args:
@@ -477,16 +477,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       causal: apply the implicit upper-triangular mask.
       softmax_scale: defaults to 1/sqrt(head_dim).
       dropout_rate: probability dropout after normalisation; active
-        only when ``dropout_seed`` is given.
-      dropout_seed: two uint32 words seeding the position hash (the JAX
-        function draws them as ``jax.random.bits(rng, (2,), uint32)``).
+        only when ``dropout_rng`` is given.
+      dropout_rng: a ``utils.prng`` key; its ``bits(key, (2,))`` seed
+        the position hash, as in the JAX function. Drawn on the host:
+        the kernels take the two words as launch arguments.
 
     Returns (batch, heads, seq, head_dim) in q's dtype.
     """
     if softmax_scale is None:
         softmax_scale = 1.0 / (q.shape[-1] ** 0.5)
-    rate = float(dropout_rate) if dropout_seed is not None else 0.0
-    seed = (0, 0) if rate <= 0.0 else \
-        (int(dropout_seed[0]) & _M32, int(dropout_seed[1]) & _M32)
+    rate = float(dropout_rate) if dropout_rng is not None else 0.0
+    seed = prng.host_bits(dropout_rng, 2) if rate > 0.0 else (0, 0)
     return _Flash.apply(q, k, v, mask, seed, bool(causal),
                         float(softmax_scale), rate)

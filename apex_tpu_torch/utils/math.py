@@ -1,6 +1,18 @@
 """Small integer-math helpers (counterpart of ``apex_tpu/utils/math.py``)."""
 
 
+def ensure_divisibility(numerator: int, denominator: int) -> None:
+    if numerator % denominator != 0:
+        raise ValueError(
+            f"{numerator} is not divisible by {denominator}"
+        )
+
+
+def divide(numerator: int, denominator: int) -> int:
+    ensure_divisibility(numerator, denominator)
+    return numerator // denominator
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

@@ -6,9 +6,11 @@ works at a few shapes only and the padding fraction is bounded by the
 ladder's ratio. The mask marks the real positions.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
+
+from apex_tpu_torch.utils.tree import tree_leaves, tree_map
 
 _DEFAULT_MIN = 128
 
@@ -37,23 +39,33 @@ def bucket_for(length: int, buckets: Sequence[int]) -> int:
         f"{max(buckets)}; truncate upstream or extend the buckets")
 
 
-def pad_to_bucket(x: torch.Tensor, length: int, *, seq_axis: int = 1,
+def pad_to_bucket(batch: Any, length: int, *, seq_axis: int = 1,
                   buckets: Optional[Sequence[int]] = None,
-                  pad_value=0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pad ``x`` along ``seq_axis`` from ``length`` to its bucket;
-    returns ``(padded, mask)`` where ``mask`` is ``(bucket,)`` int32 on
-    ``x``'s device with 1 = real position."""
+                  pad_value=0) -> Tuple[Any, torch.Tensor]:
+    """Pad every leaf of ``batch`` (a tensor, or a dict/list/tuple tree
+    of them: ids, mask, labels) along ``seq_axis`` from ``length`` to its
+    bucket; returns ``(padded_batch, mask)`` where ``mask`` is
+    ``(bucket,)`` int32 with 1 = real position, on the first leaf's
+    device. ``length`` is the current length; a leaf of another length
+    raises ``ValueError``. Call it in the data loader."""
     if buckets is None:
         buckets = default_buckets(length)
     target = bucket_for(length, buckets)
-    if x.shape[seq_axis] != length:
-        raise ValueError(
-            f"tensor has seq length {x.shape[seq_axis]}, expected "
-            f"{length}")
-    if target != length:
+
+    def pad(x):
+        x = torch.as_tensor(x)
+        if x.shape[seq_axis] != length:
+            raise ValueError(
+                f"leaf has seq length {x.shape[seq_axis]}, expected "
+                f"{length}")
+        if target == length:
+            return x
         shape = list(x.shape)
         shape[seq_axis] = target - length
-        x = torch.cat([x, x.new_full(shape, pad_value)], dim=seq_axis)
-    mask = (torch.arange(target, device=x.device) < length).to(
-        torch.int32)
-    return x, mask
+        return torch.cat([x, x.new_full(shape, pad_value)], dim=seq_axis)
+
+    padded = tree_map(pad, batch)
+    leaves = tree_leaves(padded)
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    mask = (torch.arange(target, device=dev) < length).to(torch.int32)
+    return padded, mask

@@ -7,7 +7,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. build — nvcc builds every CUDA source (layer norm, flash attention,
    softmax cross entropy, fused softmax, the multi-tensor kernels, the
-   int8 weight-only matmuls; one process per source, all at once); TF32
+   int8 weight-only matmuls, the threefry bits and dropout; one process
+   per source, all at once); TF32
    is switched off so fp32 products and convolutions are full fp32.
 2. kernel parity — each kernel against its plain PyTorch version on the
    same card inputs, max error beside the stated tolerance: the
@@ -50,7 +51,15 @@ Phases, each printed as it runs; any failure exits non-zero:
    the same bits, and every call at M <= 8 the same bits across two
    CUDA-graph replays. The
    LayerNorm forward also at ragged h, at teams of several warps and on
-   an unaligned row base.
+   an unaligned row base. The threefry streams (``utils.prng``): a table
+   of jax 0.9.0's known answers as constants; the bits kernel bit for bit
+   against its plain int64 version at 1 and 3 words, the decode tick's 8
+   keys x 50304 and one key over (64, 128, 1024); the fused dropout (fp32
+   and bf16, BERT-Large's hidden shape and its unfused probabilities) bit
+   for bit, twice and under a CUDA-graph replay. The sampler:
+   ``sample_tokens`` on the card against the CPU on (8, 50304) logits at
+   temperatures 0, 0.7 and 1.3 with top_k 50, top_p 0.9 and both: the
+   same tokens, or a flip inside the gumbel error model.
 3. serving — GPT-2 medium (h 1024, 24 layers, 16 heads, vocab 50304),
    random weights from seed 0, O2-cast to bf16, served by the port's
    ``DecodeEngine`` + ``ContinuousBatchingScheduler`` (8 slots, max_len
@@ -63,7 +72,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    decode steps against the full forward of the dequantized tree; then
    the same 16 requests on the quantized O2 params with bf16 compute,
    counts set to 0 before and read after, exact launches of every
-   kernel.
+   kernel. ``serving_sampled``: the 16 requests on the O2 params with
+   the odd ones sampled at temperature 0.8 (seed = index) on
+   ``DecodeEngine(top_k=50)``, twice: the replay commits the same
+   streams; the bits kernel once a sampled prefill and at most once a
+   decode tick.
 4. training — BERT-Large width (h 1024, 16 heads, ffn 4096, vocab
    30522). (a) Two layers, batch 8, seq 128: one step of
    ``make_bert_train_step`` on the card (kernels) against the same step
@@ -80,7 +93,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    FusedAdam (``use_flat_kernel=True``: one ``flat_adam`` kernel a
    step); ``flash_lamb_flat``, flash attention with the flat FusedLAMB
    (``FusedLAMB(lr=1e-3, weight_decay=0.01, use_flat_kernel=True)``: one
-   ``flat_l2norm_partials`` and one ``flat_lamb_stage1`` a step).
+   ``flat_l2norm_partials`` and one ``flat_lamb_stage1`` a step). With
+   dropout (``dropout_rng``): (a) again in ``flash_tree`` and
+   ``softmax_flat`` at the unchanged limits (the masks are the same bits
+   on both devices), and (b) six ``flash_tree`` steps in the fp32 mode
+   with hidden and attention dropout 0.1, the dropout kernel 2 (L + 1)
+   times a step.
 5. ResNet training — ``examples/imagenet/main_amp.py``'s step
    (``make_resnet_train_step``) in three configurations:
    ``resnet_tree_o0`` (the JAX example's defaults, the tree-path
@@ -114,7 +132,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    (device time: 20 calls captured in one CUDA graph, 3 for the flat kernels,
    replays timed with CUDA events), and the least time the card could take
    (bytes over 3.35 TB/s or operations over the peak rate for their type, the
-   larger).
+   larger; for the threefry kernels the integer-ALU operations over 64
+   lanes an SM at the card's maximum SM clock, with ``F.dropout`` beside
+   as a different function).
 
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
@@ -147,7 +167,7 @@ def phase(name):
 
 
 def kernel_modules():
-    """The six wrapper modules (the packages re-export some functions
+    """The seven wrapper modules (the packages re-export some functions
     under their modules' names, so import them by path)."""
     return (importlib.import_module(
                 "apex_tpu_torch.normalization.fused_layer_norm"),
@@ -158,7 +178,8 @@ def kernel_modules():
                 "apex_tpu_torch.transformer.functional.fused_softmax"),
             importlib.import_module(
                 "apex_tpu_torch.multi_tensor_apply.kernels"),
-            importlib.import_module("apex_tpu_torch.quant.kernels"))
+            importlib.import_module("apex_tpu_torch.quant.kernels"),
+            importlib.import_module("apex_tpu_torch.utils.prng"))
 
 
 def check(ok, msg):
@@ -1086,6 +1107,149 @@ def w8_parity(dev):
     return worst
 
 
+# jax 0.9.0's threefry streams (jax_threefry_partitionable=True) as
+# constants, since the card's machine has no JAX (tests/test_torch_prng.py
+# holds this table to the installed jax on the CPU): (call, words).
+THREEFRY_KNOWN = (
+    ("split(PRNGKey(0), 2)", [0x6B200159, 0x99BA4EFE, 0x375F238F,
+                              0xCDDB151D]),
+    ("fold_in(PRNGKey(0), 1)", [0x375F238F, 0xCDDB151D]),
+    ("bits(PRNGKey(0), (4,))", [0xF29A4FA7, 0xFA843692, 0x55110E28,
+                                0x77FAA835]),
+    ("split(PRNGKey(42), 3)", [0x6D3E048F, 0x1022172D, 0x03D7B32D,
+                               0xADD083F4, 0x92FB20EA, 0x0F38D913]),
+    ("fold_in(PRNGKey(7), 2**32 - 1)", [0xDA0AA245, 0x667B358E]),
+    ("bits(PRNGKey(1), (6,))", [0x704A38B7, 0x88A4083E, 0x7227B57A,
+                                0x703ABFF1, 0xE5B993A4, 0x8F1716BC]),
+    ("bits(fold_in(PRNGKey(3), 5), (3,))", [0x5D4A0FCC, 0x60842230,
+                                            0xC6633E99]),
+    ("bits(PRNGKey(-1), (2,))", [0x84B8C06F, 0x8C00439D]),
+    ("uniform(PRNGKey(0), (4,)) as fp32 bits", [0x3F729A4E, 0x3F7A8436,
+                                                0x3EAA221C, 0x3EEFF550]),
+    ("randint(PRNGKey(1000), (6,), 0, 1000)", [244, 176, 595, 213, 280,
+                                               349]),
+)
+
+
+def threefry_call(call, dev):
+    """One row of ``THREEFRY_KNOWN`` computed by the port on ``dev`` (the
+    bulk draws through the kernel on the card)."""
+    p = kernel_modules()[6]
+    k = p.PRNGKey
+    out = {
+        "split(PRNGKey(0), 2)": lambda: p.split(k(0), 2),
+        "fold_in(PRNGKey(0), 1)": lambda: p.fold_in(k(0), 1),
+        "bits(PRNGKey(0), (4,))": lambda: p.bits(k(0), (4,), device=dev),
+        "split(PRNGKey(42), 3)": lambda: p.split(k(42), 3),
+        "fold_in(PRNGKey(7), 2**32 - 1)": lambda: p.fold_in(k(7),
+                                                            2 ** 32 - 1),
+        "bits(PRNGKey(1), (6,))": lambda: p.bits(k(1), (6,), device=dev),
+        "bits(fold_in(PRNGKey(3), 5), (3,))": lambda: p.bits(
+            p.fold_in(k(3), 5), (3,), device=dev),
+        "bits(PRNGKey(-1), (2,))": lambda: p.bits(k(-1), (2,), device=dev),
+        "uniform(PRNGKey(0), (4,)) as fp32 bits": lambda: p.uniform(
+            k(0), (4,), device=dev).view(torch.int32).to(torch.int64)
+        & p.M32,
+        "randint(PRNGKey(1000), (6,), 0, 1000)": lambda: p.randint(
+            k(1000), (6,), 0, 1000, device=dev),
+    }[call]()
+    return [int(w) for w in out.reshape(-1).tolist()]
+
+
+# the shapes the paths draw at: the decode tick's gumbel noise (8 slots x
+# GPT-2's vocabulary), BERT-Large's hidden dropout and its unfused
+# attention probabilities (batch 64, seq 128)
+BITS_SHAPES = ((1, 1), (1, 3), (8, 50304), (1, 64 * 128 * 1024))
+HIDDEN_SHAPE, PROBS_SHAPE = (64, 128, 1024), (64, 16, 128, 128)
+
+
+def threefry_parity(dev):
+    """The bits kernel and the fused dropout against their plain int64
+    versions on the same card inputs, bit for bit; the known answers."""
+    p = kernel_modules()[6]
+    phase("kernel parity: threefry bits and dropout (bit for bit against "
+          "the plain int64 version; jax 0.9.0's known answers)")
+    for call, want in THREEFRY_KNOWN:
+        got = threefry_call(call, dev)
+        check(got == want, f"{call}: {[hex(w) for w in got]}")
+    for rows, n in BITS_SHAPES:
+        keys = p.split(p.PRNGKey(rows * 7 + n), rows)
+        got = p.threefry_bits_kernel(keys, n, dev)
+        again = p.threefry_bits_kernel(keys, n, dev)
+        want = p.threefry_bits_plain(keys, n, dev)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(got, again),
+              f"bits, {rows} key(s) x {n}: equal to the plain version, "
+              "twice")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+    for shape, dt, rate in ((HIDDEN_SHAPE, torch.bfloat16, 0.1),
+                            (HIDDEN_SHAPE, torch.float32, 0.1),
+                            (PROBS_SHAPE, torch.bfloat16, 0.1),
+                            ((1001,), torch.float32, 0.5)):
+        x = _rand(gen, shape, dt, dev)
+        words = p.host_bits(p.PRNGKey(len(shape)), 2)
+        got = p.dropout_kernel(x, words, rate)
+        again = p.dropout_kernel(x, words, rate)
+        want = p.dropout_plain(x, words, rate)
+        static = torch.empty_like(x)
+        graph, _ = _graph_of(lambda: static.copy_(p.dropout_kernel(
+            x, words, rate)))
+        graph.replay()
+        torch.cuda.synchronize()
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        kept = float((want != 0).float().mean())
+        check(torch.equal(got, want) and torch.equal(got, again)
+              and torch.equal(static, got),
+              f"dropout {tuple(shape)} {str(dt)[6:]} rate {rate}: equal to "
+              f"the plain version, twice and under a graph replay "
+              f"({kept:.4f} kept)")
+    return {"threefry_bits": 0.0, "threefry_dropout": worst}
+
+
+def sampler_parity(dev):
+    """``sample_tokens`` on the card against the CPU on the same logits and
+    keys: tokens equal, or a flip of a sampled row inside the error model
+    (its two best perturbed scores within twice ``prng.gumbel_limit``, or
+    its top-k / nucleus support moved: the card's softmax and running sum
+    round otherwise at the boundary)."""
+    from apex_tpu_torch.serving.sampling import _restrict, sample_tokens
+
+    p = kernel_modules()[6]
+    phase("sampler parity: sample_tokens on the card vs the CPU, (8, 50304) "
+          "fp32 logits, temperatures 0 / 0.7 / 1.3, top_k 50, top_p 0.9 and "
+          "both")
+    v = 50304
+    logits = torch.randn(8, v, generator=torch.Generator().manual_seed(5)) \
+        * 3
+    temps = torch.tensor([0.0, 0.7, 1.3, 0.7, 1.3, 0.0, 0.7, 1.3])
+    keys = torch.stack([p.fold_in(p.PRNGKey(i), 3) for i in range(8)])
+    out = {}
+    drawn = temps > 0
+    for top_k, top_p in ((0, 0.0), (50, 0.0), (0, 0.9), (50, 0.9)):
+        got = sample_tokens(logits.to(dev), keys, temps.to(dev), top_k,
+                            top_p).cpu()
+        want = sample_tokens(logits, keys, temps, top_k, top_p)
+        support = torch.isfinite(_restrict(logits, top_k, top_p))
+        moved = (torch.isfinite(_restrict(logits.to(dev), top_k, top_p))
+                 .cpu() != support).any(-1)
+        score = torch.where(support, logits, -torch.inf) / temps.clamp(
+            min=1e-6)[:, None] + p.gumbel_rows(keys, v, "cpu")
+        top2 = score.topk(2).values
+        gap = top2[:, 0] - top2[:, 1]
+        lim = 2 * p.gumbel_limit(top2[:, 0])
+        flips = int((got != want).sum())
+        ok = bool(((got == want) | (drawn & ((gap <= lim) | moved))).all())
+        check(ok, f"top_k {top_k}, top_p {top_p}: {flips} of 8 tokens "
+              f"differ from the CPU's; smallest top-two gap of a sampled "
+              f"row {float(gap[drawn].min()):.3g} (limit "
+              f"{float(lim[drawn].max()):.3g}); rows whose support moved "
+              f"on the card: {int(moved.sum())}")
+        out[f"k{top_k}_p{top_p}"] = dict(flips=flips, min_gap=float(
+            gap[temps > 0].min()))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 3. serving at full width
 # ---------------------------------------------------------------------------
@@ -1143,11 +1307,12 @@ def dequantized(qparams):
             word["embedding"], word["scale"], -1)}))
 
 
-def serve_mix(dev, cfg, params, kern, **engine_kw):
+def serve_mix(dev, cfg, params, kern, temps=None, **engine_kw):
     """The 16-request mix on one engine (8 slots, bf16 cache), after a
     one-request warm-up; every kernel's count set to 0 just before the
-    run and read just after. Returns the streams, launches, decode
-    steps and wall time."""
+    run and read just after. ``temps``: each request's temperature
+    (greedy without), its seed its index. Returns the streams, launches,
+    decode steps and wall time."""
     from apex_tpu_torch.serving import (
         ContinuousBatchingScheduler, DecodeEngine, Request,
     )
@@ -1162,10 +1327,12 @@ def serve_mix(dev, cfg, params, kern, **engine_kw):
     sched = ContinuousBatchingScheduler(eng, eos_id=-1)
     rng = np.random.RandomState(0)
     lens = rng.randint(64, 961, size=N_REQUESTS)
-    for n in lens:
+    for i, n in enumerate(lens):
         prompt = tuple(int(t) for t in rng.randint(0, cfg.vocab_size,
                                                    size=int(n)))
-        sched.submit(Request(prompt=prompt, max_new_tokens=NEW_TOKENS))
+        sched.submit(Request(prompt=prompt, max_new_tokens=NEW_TOKENS,
+                             temperature=0.0 if temps is None else temps[i],
+                             seed=i))
     torch.cuda.synchronize()
     for k in kern.values():
         k.launches = 0
@@ -1248,6 +1415,7 @@ def serve(dev, kern):
             "flash_attention_fwd": L * N_REQUESTS,
             "w8_matmul": 4 * L * forwards_w8,
             "w8_matmul_nk": forwards_w8}, "w8 serving")
+        sp = serve_sampled(dev, cfg, params, kern, bf["streams"])
     pairs = [(a, b) for s, t in zip(bf["streams"], w8["streams"])
              for a, b in zip(s, t)]
     same = sum(a == b for a, b in pairs)
@@ -1256,9 +1424,51 @@ def serve(dev, kern):
           f" w8 {w8['tokens_per_s']:.1f}", flush=True)
     for res in (bf, w8):
         del res["streams"]
-    out.update(bf16=bf, w8=w8, w8_tokens_equal_to_bf16=same,
+    out.update(bf16=bf, w8=w8, sampled=sp, w8_tokens_equal_to_bf16=same,
                tokens_compared=len(pairs))
     return out
+
+
+SAMPLED_T, SAMPLED_TOP_K = 0.8, 50   # examples/gpt/generate.py's example
+
+
+def serve_sampled(dev, cfg, params, kern, greedy_streams):
+    """The 16 requests again on the O2 params, the odd ones sampled at
+    temperature 0.8 with their index as seed, on DecodeEngine(top_k=50),
+    twice: the replay commits the same streams; exact launches of every
+    kernel but the bits kernel, whose launches are one per sampled
+    prefill and one per decode tick that holds a sampled slot."""
+    L = cfg.num_layers
+    phase(f"serving_sampled: the same 16 requests on the O2 params, the "
+          f"odd ones sampled at temperature {SAMPLED_T} (seed = request "
+          f"index), DecodeEngine(top_k={SAMPLED_TOP_K}), run twice")
+    temps = [SAMPLED_T if i % 2 else 0.0 for i in range(N_REQUESTS)]
+    runs = [serve_mix(dev, cfg, params, kern, temps=temps,
+                      top_k=SAMPLED_TOP_K) for _ in range(2)]
+    sp = runs[0]
+    check(runs[0]["streams"] == runs[1]["streams"],
+          f"replay: the second run commits the same {N_REQUESTS} streams")
+    n_sampled, steps = N_REQUESTS // 2, sp["decode_steps"]
+    bits = sp["launches"]["threefry_bits"]
+    check(n_sampled <= bits <= n_sampled + steps,
+          f"threefry_bits launches {bits}: {n_sampled} sampled prefills "
+          f"and at most one a decode tick ({steps} ticks)")
+    check_launches(sp["launches"], {
+        "layer_norm_fwd": (2 * L + 1) * (N_REQUESTS + steps),
+        "flash_attention_fwd": L * N_REQUESTS, "threefry_bits": bits},
+        "sampled serving")
+    same = sum(sp["streams"][i] == greedy_streams[i]
+               for i in range(0, N_REQUESTS, 2))
+    print(f"greedy requests equal to the serving phase's streams (for "
+          f"information): {same} of {N_REQUESTS - n_sampled}; bits launches "
+          f"a decode tick {(bits - n_sampled) / steps:.3f}; smoke reading, "
+          f"not a benchmark: {sp['tokens_per_s']:.1f} tokens/s (greedy "
+          "run's in the serving phase)", flush=True)
+    del sp["streams"]
+    sp.update(greedy_equal_to_serving=same,
+              bits_per_decode_tick=(bits - n_sampled) / steps,
+              replay_wall_s=runs[1]["wall_s"])
+    return sp
 
 
 # ---------------------------------------------------------------------------
@@ -1327,7 +1537,8 @@ KERNEL_NAMES = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
                 "flat_adam", "flat_scale", "flat_axpby",
                 "flat_l2norm_partials", "flat_lamb_stage1",
                 "w8_matmul_nobias", "w8_matmul", "w8_matmul_nk", "flat_sgd",
-                "flat_adagrad", "flat_novograd")
+                "flat_adagrad", "flat_novograd", "threefry_bits",
+                "threefry_dropout")
 # kernels on no model path (held to their plain versions and timed)
 OFF_PATH = ("scaled_upper_triang_softmax_fwd", "flat_scale", "flat_axpby",
             "w8_matmul_nobias")
@@ -1353,15 +1564,31 @@ def _key(name, label):
     return label if name == "flash_tree" else f"{label} {name}"
 
 
+# the configurations the dropout runs take: flash attention (the flash
+# kernels' hash, seeded by bits(key, (2,))) and the unfused attention
+# (Bernoulli draws on the probabilities through the dropout kernel)
+DROPOUT_CONFIGS = ("flash_tree", "softmax_flat")
+DROPOUT_SEED = 0
+
+
 def train_small(dev):
     """One step of the 2-layer full-width model on the card and on the
-    CPU from the same weights, in O0 and O2, in each configuration."""
+    CPU from the same weights, in O0 and O2, in each configuration; then
+    the same step with the model's dropout (``dropout_rng``) in the
+    dropout configurations, held to the unchanged limits: the masks are
+    the same bits on both devices."""
     out = {}
     for name, (_, opt, flat) in STEP_CONFIGS.items():
         cfg = _step_cfg(name, num_layers=SMALL_LAYERS)
         for level, lim in STEP_LIMITS.items():
             out[_key(name, level)] = _train_small_one(
                 dev, cfg, opt, flat, level, lim, name)
+    for name in DROPOUT_CONFIGS:
+        _, opt, flat = STEP_CONFIGS[name]
+        cfg = _step_cfg(name, num_layers=SMALL_LAYERS)
+        for level, lim in STEP_LIMITS.items():
+            out[_key(name, level) + " dropout"] = _train_small_one(
+                dev, cfg, opt, flat, level, lim, name, dropout=True)
     return out
 
 
@@ -1411,32 +1638,38 @@ def _share(got, want, lim):
                              torch.full_like(d, float("inf"))).max())
 
 
-def _train_small_one(dev, cfg, opt, flat, level, lim, name):
+def _train_small_one(dev, cfg, opt, flat, level, lim, name, dropout=False):
     from apex_tpu_torch.examples.bert.train import make_bert_train_step
     from apex_tpu_torch.utils.tree import tree_leaves, tree_map
 
+    p = kernel_modules()[6]
+    key = p.PRNGKey(DROPOUT_SEED) if dropout else None
+    with_drop = (f", dropout {cfg.hidden_dropout} on PRNGKey("
+                 f"{DROPOUT_SEED})") if dropout else ""
     phase(f"training ({name}): BERT-Large width, {SMALL_LAYERS} layers, "
-          f"batch {SMALL_BATCH}, seq {SEQ}, {level}: one step on the "
-          "card (kernels) vs the same step on the CPU (plain versions)")
+          f"batch {SMALL_BATCH}, seq {SEQ}, {level}{with_drop}: one step on "
+          "the card (kernels) vs the same step on the CPU (plain versions)")
     step_d, make_state, (ids, mask) = make_bert_train_step(
         SMALL_BATCH, SEQ, cfg, device=dev, opt_level=level,
-        use_flat_kernel=flat, optimizer=opt)
+        use_flat_kernel=flat, optimizer=opt, dropout_rng=key)
     state_d = list(make_state())
     step_c, _, (ids_c, mask_c) = make_bert_train_step(
         SMALL_BATCH, SEQ, cfg, device="cpu", opt_level=level,
-        use_flat_kernel=flat, optimizer=opt)
+        use_flat_kernel=flat, optimizer=opt, dropout_rng=key)
+    # the step's first call draws on fold_in(key, 0): so do its gradients
+    key0 = None if key is None else p.fold_in(key, 0)
     master_c = tree_map(lambda t: t.cpu(), state_d[0])
     state_c = [master_c, step_c.opt.init(master_c),
                step_c.amp.init_state("cpu")]
     check(torch.equal(ids.cpu(), ids_c), "same ids on both devices")
     t0 = time.perf_counter()
     _, _, grads_d, found_d, _ = step_d.grads(state_d[0], state_d[2],
-                                             ids, mask)
+                                             ids, mask, dropout_rng=key0)
     new_d = step_d(*state_d, ids, mask)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     _, _, grads_c, found_c, _ = step_c.grads(state_c[0], state_c[2],
-                                             ids_c, mask_c)
+                                             ids_c, mask_c, dropout_rng=key0)
     new_c = step_c(*state_c, ids_c, mask_c)
     t2 = time.perf_counter()
     loss_d, loss_c = float(new_d[-1]), float(new_c[-1])
@@ -1475,8 +1708,13 @@ def _train_small_one(dev, cfg, opt, flat, level, lim, name):
     return got
 
 
-def per_step_launches(name, L):
-    """Exact launches of each kernel in one BERT step of ``L`` layers."""
+def per_step_launches(name, L, dropout=False):
+    """Exact launches of each kernel in one BERT step of ``L`` layers:
+    with dropout, the dropout kernel once forward and once backward (the
+    backward regenerates the mask) on the embeddings and each layer's
+    attention output, and in the unfused attention on each layer's
+    probabilities too; the bits kernel never (the flash seed is drawn on
+    the host)."""
     flash, opt, flat = STEP_CONFIGS[name]
     out = dict.fromkeys(KERNEL_NAMES, 0)
     out.update(layer_norm_fwd=2 * L + 2, layer_norm_bwd=2 * L + 2,
@@ -1490,6 +1728,8 @@ def per_step_launches(name, L):
         out.update(flat_adam=1)
     elif flat:
         out.update(flat_l2norm_partials=1, flat_lamb_stage1=1)
+    if dropout:
+        out.update(threefry_dropout=2 * (L + 1) if flash else 2 * (2 * L + 1))
     return out
 
 
@@ -1504,23 +1744,28 @@ def train_big(dev, kern):
         for mode, (m_dtype, emit) in STATE_MODES.items():
             out[_key(name, mode)] = _train_big_one(dev, kern, name, mode,
                                                    m_dtype, emit)
+    out["fp32 dropout"] = _train_big_one(dev, kern, "flash_tree", "fp32",
+                                         *STATE_MODES["fp32"], dropout=True)
     return out
 
 
-def _train_big_one(dev, kern, name, mode, m_dtype, emit):
+def _train_big_one(dev, kern, name, mode, m_dtype, emit, dropout=False):
     from apex_tpu_torch.examples.bert.train import make_bert_train_step
     from apex_tpu_torch.utils.tree import tree_leaves
 
     cfg = _step_cfg(name)
     L = cfg.num_layers
-    per_step = per_step_launches(name, L)
+    per_step = per_step_launches(name, L, dropout)
+    with_drop = (f", hidden and attention dropout {cfg.hidden_dropout} on "
+                 f"fold_in(PRNGKey({DROPOUT_SEED}), step)") if dropout else ""
     phase(f"training ({name}): BERT-Large ({L} layers), O2 dynamic loss "
           f"scale, batch {BIG_BATCH}, seq {SEQ}, {BIG_STEPS} steps, "
-          f"state mode {mode}")
+          f"state mode {mode}{with_drop}")
     _, opt, flat = STEP_CONFIGS[name]
+    key = kernel_modules()[6].PRNGKey(DROPOUT_SEED) if dropout else None
     step, make_state, (ids, mask) = make_bert_train_step(
         BIG_BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit,
-        device=dev, use_flat_kernel=flat, optimizer=opt)
+        device=dev, use_flat_kernel=flat, optimizer=opt, dropout_rng=key)
     state = list(make_state())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1551,6 +1796,10 @@ def _train_big_one(dev, kern, name, mode, m_dtype, emit):
                            for n in kern),
           f"launches per step exactly {per_step} ({launches} over "
           f"{BIG_STEPS} steps)")
+    if dropout:
+        print(f"threefry dropout launches a step: "
+              f"{launches['threefry_dropout'] / BIG_STEPS:g} (bits "
+              f"{launches['threefry_bits'] / BIG_STEPS:g})", flush=True)
     if emit:
         m_ok = all(t.dtype == torch.bfloat16
                    for t in tree_leaves(state[1].m))
@@ -2564,6 +2813,75 @@ def w8_times(dev):
     return res
 
 
+# The integer-ALU operations an element (csrc/threefry.cu's note): the 20
+# rounds' funnel shift and xor (40), the xor of the two words (1) and, for
+# the dropout, the shift and or that build the uniform (2). Funnel shifts
+# and logic ops run only on the integer ALU, 64 lanes an SM on Hopper;
+# the 32 adds of the hash can run as IMAD on the FMA pipe beside them,
+# so the ALU operations bound the kernels.
+BITS_ALU_OPS, DROPOUT_ALU_OPS = 41, 43
+ALU_LANES_PER_SM = 64
+
+
+def max_sm_clock_mhz():
+    """The card's maximum SM clock (``nvidia-smi``), or the H100 SXM's
+    1980 MHz when it cannot be read."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()
+        return float(out[0]) if out else 1980.0
+    except (OSError, subprocess.TimeoutExpired, ValueError):
+        return 1980.0
+
+
+def threefry_times(dev):
+    """The bits kernel at the decode tick's (8, 50304) and at one key
+    over BERT-Large's hidden shape; the dropout at the hidden shape and
+    at the unfused attention's probabilities (bf16). Bounds: the
+    integer-ALU operations over 64 lanes an SM at the maximum SM clock,
+    or the bytes, the larger; ``F.dropout`` (Philox: a different
+    function) beside."""
+    p = kernel_modules()[6]
+    clock = max_sm_clock_mhz()
+    peak = (torch.cuda.get_device_properties(dev).multi_processor_count
+            * ALU_LANES_PER_SM * clock * 1e6)
+    phase(f"times of the threefry kernels (device ms per call; bound by "
+          f"the integer ALU at {clock:.0f} MHz, {peak / 1e12:.2f} T op/s)")
+    res = {}
+    keys8 = p._to_int32(p.split(p.PRNGKey(1), 8)).to(dev)
+    key1 = p._to_int32(p.PRNGKey(2)[None]).to(dev)
+    for label, keys, n in (("threefry_bits_8x50304", keys8, 50304),
+                           ("threefry_bits_hidden", key1,
+                            64 * 128 * 1024)):
+        elems = keys.shape[0] * n
+        _entry(res, label,
+               time_ms(lambda: p.threefry_bits_kernel(keys, n, dev)),
+               time_ms(lambda: p.threefry_bits_plain(keys, n, dev)), None,
+               4 * elems, BITS_ALU_OPS * elems, peak,
+               f"threefry bits, {keys.shape[0]} key(s) x {n}", "no library")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    words = p.host_bits(p.PRNGKey(3), 2)
+    for label, shape in (("threefry_dropout_hidden", HIDDEN_SHAPE),
+                         ("threefry_dropout_probs", PROBS_SHAPE)):
+        x = _rand(gen, shape, torch.bfloat16, dev)
+        _entry(res, label,
+               time_ms(lambda: p.dropout_kernel(x, words, 0.1)),
+               time_ms(lambda: p.dropout_plain(x, words, 0.1)), None,
+               2 * 2 * x.numel(), DROPOUT_ALU_OPS * x.numel(), peak,
+               f"threefry dropout {shape} bf16 rate 0.1", "no library")
+        t_f = time_ms(lambda: F.dropout(x, 0.1, training=True))
+        res[label]["f_dropout_ms"] = t_f
+        print(f"  F.dropout at the same shape (Philox bits: a different "
+              f"function): {t_f:.5f}", flush=True)
+    for v in res.values():
+        v["bound_clock_mhz"] = clock
+    del x
+    torch.cuda.empty_cache()
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -2583,7 +2901,7 @@ def main():
               "script runs on a CUDA device", file=sys.stderr)
         return 2
     try:
-        ln, fa, xent, fsm, mta, w8 = kernel_modules()
+        ln, fa, xent, fsm, mta, w8, prng = kernel_modules()
     except ImportError as e:
         print(f"chip_smoke: cannot import apex_tpu_torch ({e}); run it "
               "from the root of the repository", file=sys.stderr)
@@ -2594,7 +2912,7 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
-    build([ln.LIB, fa.LIB, xent.LIB, fsm.LIB, mta.LIB, w8.LIB])
+    build([ln.LIB, fa.LIB, xent.LIB, fsm.LIB, mta.LIB, w8.LIB, prng.LIB])
     err = {"layer_norm_fwd": ln_parity(dev),
            "flash_attention_fwd": flash_parity(dev),
            "layer_norm_bwd": ln_bwd_parity(dev)}
@@ -2615,13 +2933,15 @@ def main():
     sf = sgd_family_parity(dev)
     err.update(flat_sgd=sf["flat_sgd"], flat_adagrad=sf["flat_adagrad"],
                flat_novograd=sf["flat_novograd"])
+    err.update(threefry_parity(dev))
+    samp = sampler_parity(dev)
     kern = dict(zip(KERNEL_NAMES, (
         ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
         xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
         fsm.SOFTMAX_BWD, mta.FLAT_ADAM, mta.FLAT_SCALE, mta.FLAT_AXPBY,
         mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1, w8.W8_MATMUL_NOBIAS,
         w8.W8_MATMUL, w8.W8_MATMUL_NK, mta.FLAT_SGD, mta.FLAT_ADAGRAD,
-        mta.FLAT_NOVOGRAD)))
+        mta.FLAT_NOVOGRAD, prng.THREEFRY_BITS, prng.THREEFRY_DROPOUT)))
     torch.cuda.empty_cache()
     srv = serve(dev, kern)
     small = train_small(dev)
@@ -2635,8 +2955,12 @@ def main():
     tm.update(flat_times(dev))
     tm.update(w8_times(dev))
     tm.update(sgd_family_times(dev))
+    tm.update(threefry_times(dev))
     by_path = {n: {"serving": srv["bf16"]["launches"][n],
-                   "serving_w8": srv["w8"]["launches"][n]} for n in kern}
+                   "serving_w8": srv["w8"]["launches"][n],
+                   "serving_sampled": srv["sampled"]["launches"][n],
+                   "training_dropout": big["fp32 dropout"]["launches"][n]}
+               for n in kern}
     for cfg_name in STEP_CONFIGS:
         path = _key(cfg_name, "training").replace(" ", "_")
         for n in kern:
@@ -2699,6 +3023,30 @@ def main():
                     launches_by_path=by_path[name],
                     max_abs_err=err[name], **tm[key])
                for name, src, rep, key in rows]
+    # port kernels with no Pallas counterpart: the JAX package draws these
+    # bits through jax.random, which XLA expands into integer ops
+    kernels += [dict(
+        name=name, route="cuda", source="apex_tpu_torch/csrc/threefry.cu",
+        replaces=rep, tpu_row=None, launches=sum(by_path[name].values()),
+        launches_by_path=by_path[name], max_abs_err=err[name], **tm[key],
+        **{k: tm[x] for k, x in extra.items()}, note=note)
+        for name, rep, key, extra, note in (
+            ("threefry_bits",
+             "jax/_src/prng.py:1184 (_threefry_random_bits_partitionable; "
+             "the sampler's jax.random.categorical, "
+             "apex_tpu/serving/sampling.py:70)", "threefry_bits_8x50304",
+             {"at_bert_hidden_one_key": "threefry_bits_hidden"},
+             "threefry2x32-20 words, one key a row (the decode tick's 8 "
+             "slots), 20 rounds of add, funnel shift and xor in registers; "
+             "bound by the integer ALU's funnel shifts and xors"),
+            ("threefry_dropout",
+             "apex_tpu/models/bert.py:149 (_maybe_dropout: x * "
+             "jax.random.bernoulli(key, 1 - rate, x.shape) / (1 - rate))",
+             "threefry_dropout_hidden",
+             {"at_unfused_probs": "threefry_dropout_probs"},
+             "the mask's bits, uniform and compare in registers, never "
+             "stored; the backward regenerates it from the key (a second "
+             "launch on the gradient); 16-byte loads and stores"))]
     kernels[KERNEL_NAMES.index("scaled_upper_triang_softmax_fwd")].update(
         redesigned=True,
         note="the masked forward's kernel with the causal mask k > q from "
@@ -2726,7 +3074,9 @@ def main():
         "timed at K 4096, N 1024")
     kernels[KERNEL_NAMES.index("w8_matmul")].update(redesigned=True,
                                                     note=w8_design)
-    for k in kernels[-6:-3]:   # the w8 rows: times at M 8, and M 1024 here
+    for k in (kernels[KERNEL_NAMES.index(n)] for n in (
+            "w8_matmul_nobias", "w8_matmul", "w8_matmul_nk")):
+        # the w8 rows: times at M 8, and M 1024 here
         k.update(at_m1024=tm[k["name"] + "_m1024"],
                  library_call=tm["w8_library"])
         # rows 21-22 also at the smallest prefill bucket, row 23 at a
@@ -2805,8 +3155,10 @@ def main():
                 "flat_lamb_stage1_bf16m", "flat_sgd_bert_bf16buf_castout",
                 "w8_matmul_m1024", "w8_matmul_m128",
                 "w8_matmul_nobias_m1024", "w8_matmul_nobias_m128",
-                "w8_matmul_nk_m1024", "w8_matmul_nk_m1"):
+                "w8_matmul_nk_m1024", "w8_matmul_nk_m1",
+                "threefry_bits_hidden", "threefry_dropout_probs"):
         print(f"{key}: {json.dumps(tm[key])}")
+    print(f"sampler parity: {json.dumps(samp)}")
     print(f"serving: {json.dumps(srv)}")
     print(f"training, card vs CPU: {json.dumps(small)}")
     print(f"training, BERT-Large: {json.dumps(big)}")

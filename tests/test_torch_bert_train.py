@@ -81,6 +81,7 @@ from apex_tpu_torch.examples.bert.train import make_bert_train_step
 from apex_tpu_torch.multi_tensor_apply.flatten import (
     make_spec, unflatten_tensors,
 )
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.math import cdiv
 from apex_tpu_torch.utils.tree import tree_leaves
 
@@ -324,15 +325,97 @@ def test_apply_bert_and_mlm_loss_match_jax(level):
 
 
 def test_unported_options_raise():
+    """``remat`` and ``dropout_rng`` raised until the threefry streams were
+    ported; both run now, and a key that is not two uint32 words
+    raises."""
     cfg = port_bert.bert_tiny()
     params = port_bert.init_bert(cfg, torch.Generator().manual_seed(0),
                                  device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
     c = port_bert.BertConfig(**{**cfg.__dict__, "remat": True})
-    with pytest.raises(NotImplementedError, match="remat"):
-        port_bert.apply_bert(params, c, ids)
-    with pytest.raises(NotImplementedError, match="dropout_rng"):
+    out = port_bert.apply_bert(params, c, ids, dropout_rng=prng.PRNGKey(0))
+    assert bool(torch.isfinite(out["mlm_logits"]).all())
+    with pytest.raises(TypeError, match="PRNG key"):
         port_bert.apply_bert(params, cfg, ids, dropout_rng=object())
+
+
+def _dropout_case(level, fused, seed=1):
+    """bert_tiny at ``level`` with dropout on PRNGKey(3): (jax outputs,
+    jax gradients of the MLM loss, port params, ids, mask, port cfg).
+    The JAX side runs under jit, as its training step does."""
+    cfg = dataclasses.replace(jax_bert.bert_tiny(), fused_attention=fused)
+    params = jax_amp.initialize(level, verbosity=0).cast_model(
+        jax_bert.init_bert(jax.random.PRNGKey(seed), cfg))
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    mask = np.ones((B, S), np.int32)
+    mask[1, S - 5:] = 0
+    jids, jmask = jnp.asarray(ids), jnp.asarray(mask)
+
+    def loss(p):
+        out = jax_bert.apply_bert(p, cfg, jids, jmask,
+                                  dropout_rng=jax.random.PRNGKey(3))
+        return jax_bert.mlm_loss(out["mlm_logits"], jids, jmask), out
+
+    (_, want), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        params)
+    pcfg = dataclasses.replace(port_bert.bert_tiny(), fused_attention=fused)
+    return (want, grads, _port(params), torch.from_numpy(
+        ids.astype(np.int64)), torch.from_numpy(mask), pcfg)
+
+
+def _port_dropout(params, cfg, ids, mask):
+    p = {k: v for k, v in params.items()}
+    leaves = [t.requires_grad_(True) for t in tree_leaves(p)
+              if t.is_floating_point()]
+    out = port_bert.apply_bert(p, cfg, ids, mask,
+                               dropout_rng=prng.PRNGKey(3))
+    port_bert.mlm_loss(out["mlm_logits"], ids, mask).backward()
+    grads = {k: torch.zeros_like(t) if t.grad is None else t.grad
+             for k, t in _by_path(p).items() if t.is_floating_point()}
+    for t in leaves:
+        t.grad = None
+    return out, grads
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["flash", "unfused"])
+@pytest.mark.parametrize("level", ["O0", "O2"])
+def test_apply_bert_with_dropout_matches_jax(level, fused):
+    """``apply_bert(dropout_rng=PRNGKey(3))``: the same 2L + 1 keys, the
+    same hidden masks (threefry bits), the same attention masks (the
+    flash hash seeded by ``bits(key, (2,))``, or Bernoulli draws on the
+    unfused probabilities). O0 outputs within 1e-5 and gradients within
+    1e-5 in relative norm; O2 the file's bf16 limits (outputs 5e-2,
+    gradients 0.05 in relative norm)."""
+    want, jgrads, params, ids, mask, cfg = _dropout_case(level, fused)
+    got, grads = _port_dropout(params, cfg, ids, mask)
+    tol = 1e-5 if level == "O0" else 5e-2
+    for key in ("hidden", "mlm_logits", "pooled"):
+        np.testing.assert_allclose(
+            got[key].detach().float().numpy(),
+            np.asarray(want[key]).astype(np.float32), rtol=tol, atol=tol)
+    off = port_bert.apply_bert(params, cfg, ids, mask)["hidden"]
+    assert not torch.allclose(off.float(), got["hidden"].detach().float())
+    jg = _by_path(_port(jgrads))
+    assert jg.keys() == grads.keys()
+    gtol = 1e-5 if level == "O0" else 0.05
+    worst = max(_relnorm(jg[k].float(), grads[k].float()) for k in jg)
+    print(f"{level} {'flash' if fused else 'unfused'} dropout: worst "
+          f"gradient relative norm {worst:.3g}")
+    assert worst <= gtol
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["flash", "unfused"])
+def test_remat_equals_no_remat(fused):
+    """``remat=True`` recomputes each layer in the backward with the same
+    keys: outputs and gradients equal to ``remat=False``."""
+    _, _, params, ids, mask, cfg = _dropout_case("O2", fused)
+    a, ga = _port_dropout(params, cfg, ids, mask)
+    b, gb = _port_dropout(params, dataclasses.replace(cfg, remat=True),
+                          ids, mask)
+    for key in a:
+        assert torch.equal(a[key], b[key])
+    assert all(torch.equal(ga[k], gb[k]) for k in ga)
 
 
 def _steps(level, mode, monkeypatch, config="flash_tree"):

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from apex_tpu_torch.models.gpt import _split_qkv
+from apex_tpu_torch.utils import prng
 
 # the packages re-export the function under the module's name
 jax_fa = importlib.import_module(
@@ -111,10 +112,9 @@ def test_dropout_matches_jax(dt):
     s, d = 130, 16
     q, k, v, mask = _inputs(s, d, dt, seed=2)
     rng = jax.random.PRNGKey(7)
-    seed = tuple(int(x) for x in jax.random.bits(rng, (2,), jnp.uint32))
     got = _f32(port_fa.flash_attention(
         _torch(q), _torch(k), _torch(v), torch.from_numpy(mask),
-        causal=True, dropout_rate=0.1, dropout_seed=seed))
+        causal=True, dropout_rate=0.1, dropout_rng=prng.PRNGKey(7)))
     for use_kernel in (True, False):
         want = jax_fa.flash_attention(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -122,7 +122,7 @@ def test_dropout_matches_jax(dt):
             dropout_rng=rng, use_kernel=use_kernel)
         np.testing.assert_allclose(got, _f32(want), rtol=_TOL[dt],
                                    atol=_TOL[dt])
-    # dropout without a seed is off, as in JAX without a key
+    # dropout without a key is off, as in JAX
     off = _f32(port_fa.flash_attention(
         _torch(q), _torch(k), _torch(v), torch.from_numpy(mask),
         causal=True, dropout_rate=0.1))

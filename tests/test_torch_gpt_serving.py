@@ -1,12 +1,13 @@
 """Port parity for the serving slice: ``apex_tpu_torch`` GPT prefill,
-decode and greedy continuous batching against the JAX package on
+decode and continuous batching (greedy, and sampled with top-k / top-p)
+against the JAX package on
 ``gpt_tiny``, with the JAX parameters carried across by
 ``params_from_jax``. The port runs on the CPU (plain versions of its
 kernels); the JAX side runs as its own serving tests run it.
 
 Tolerances: logits fp32 1e-4, bf16 5e-2 (O2 params and a bf16 cache,
-where the two frameworks round at different places); greedy token
-streams and tick accounting exactly."""
+where the two frameworks round at different places); greedy and sampled
+token streams and tick accounting exactly."""
 
 import os
 import subprocess
@@ -21,10 +22,13 @@ import torch
 from apex_tpu import amp as jax_amp
 from apex_tpu.models import gpt as jax_gpt
 from apex_tpu import serving as jax_serving
+from apex_tpu.serving import sampling as jax_sampling
 from apex_tpu.utils import seqlen as jax_seqlen
 from apex_tpu_torch import amp as port_amp
 from apex_tpu_torch.models import gpt as port_gpt
 from apex_tpu_torch import serving as port_serving
+from apex_tpu_torch.serving import sampling as port_sampling
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils import seqlen as port_seqlen
 
 S_MAX = 64
@@ -303,14 +307,96 @@ def test_nonfinite_logits_raise_and_never_commit(jax_params):
 
 
 def test_sampled_rows_not_ported(jax_params):
-    eng = port_serving.DecodeEngine(_port_params(jax_params),
-                                    port_gpt.gpt_tiny(), num_slots=1,
-                                    max_len=S_MAX, device="cpu")
-    sched = port_serving.ContinuousBatchingScheduler(eng, eos_id=1)
-    sched.submit(port_serving.Request(prompt=(5, 6), temperature=0.8))
-    with torch.inference_mode(), \
-            pytest.raises(NotImplementedError, match="threefry"):
-        sched.run()
+    """Sampled rows raised until the threefry streams were ported; a
+    sampled request runs now, and a replay commits the same stream."""
+    streams = []
+    for _ in range(2):
+        eng = port_serving.DecodeEngine(_port_params(jax_params),
+                                        port_gpt.gpt_tiny(), num_slots=1,
+                                        max_len=S_MAX, device="cpu")
+        sched = port_serving.ContinuousBatchingScheduler(eng, eos_id=-1)
+        sched.submit(port_serving.Request(prompt=(5, 6), temperature=0.8,
+                                          max_new_tokens=6, seed=3))
+        with torch.inference_mode():
+            streams.append(sched.run())
+    assert streams[0] == streams[1] and len(streams[0][0]) == 6
+
+
+_TEMPS = (0.0, 0.7, 1.3, 0.0, 0.7, 1.3)
+
+
+def _smallest_gap(pp, pcfg, reqs, streams, top_k, top_p):
+    """Over every sampled token committed, the gap between the two best
+    perturbed scores the port drew it from (teacher-forced logits, the
+    token's key ``fold_in(PRNGKey(seed), n)``): how close a draw came to
+    a flip."""
+    gaps = []
+    for i, ((p, _), toks) in enumerate(zip(reqs, streams)):
+        if _TEMPS[i] <= 0:
+            continue
+        seq = torch.tensor([list(p) + toks[:-1]])
+        rows = _full_logits(pp, pcfg, seq)[0, len(p) - 1:]
+        keys = torch.stack([prng.fold_in(prng.PRNGKey(i), n)
+                            for n in range(len(toks))])
+        scaled = port_sampling._restrict(rows, top_k, top_p) / _TEMPS[i]
+        score = scaled + prng.gumbel_rows(keys, rows.shape[-1], "cpu")
+        top2 = score.topk(2).values
+        gaps.append(float((top2[:, 0] - top2[:, 1]).min()))
+    return min(gaps)
+
+
+def test_sample_token_grid_matches_jax():
+    """The verify step's sampler over (B, k1, V) logits, one key a
+    position and one temperature a slot: the JAX package's tokens."""
+    rng = np.random.RandomState(3)
+    logits = (rng.randn(2, 3, 97) * 2).astype(np.float32)
+    keys = np.stack([np.stack([np.asarray(jax.random.fold_in(
+        jax.random.PRNGKey(b), j)) for j in range(3)]) for b in range(2)])
+    temps = np.array([0.9, 0.0], np.float32)
+    want = jax_sampling.sample_token_grid(
+        jnp.asarray(logits), jnp.asarray(keys), jnp.asarray(temps), 5, 0.9)
+    got = port_sampling.sample_token_grid(
+        torch.from_numpy(logits), torch.from_numpy(keys.astype(np.int64)),
+        torch.from_numpy(temps), 5, 0.9)
+    assert got.dtype == torch.int32 and got.shape == (2, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("top_p", [0.0, 0.9])
+@pytest.mark.parametrize("top_k", [0, 5])
+def test_sampled_streams_identical_to_jax(jax_params, top_k, top_p):
+    """Greedy requests beside sampled ones at temperatures 0.7 and 1.3
+    (seed = request index), on engines with ``top_k`` / ``top_p``: the
+    port's committed streams equal the JAX scheduler's. A token may flip
+    only where its two best perturbed scores lie within twice
+    ``prng.gumbel_limit`` (the test prints the smallest gap met)."""
+    cfg = jax_gpt.gpt_tiny()
+    reqs = _requests(cfg.vocab_size)
+    jeng = jax_serving.DecodeEngine(jax_params, cfg, num_slots=2,
+                                    max_len=S_MAX, cache_dtype=jnp.float32,
+                                    top_k=top_k, top_p=top_p)
+    jsched = jax_serving.ContinuousBatchingScheduler(jeng, eos_id=_EOS)
+    for i, (p, m) in enumerate(reqs):
+        jsched.submit(jax_serving.Request(prompt=p, max_new_tokens=m,
+                                          temperature=_TEMPS[i], seed=i))
+    want = jsched.run()
+    pcfg = port_gpt.gpt_tiny()
+    pp = _port_params(jax_params)
+    peng = port_serving.DecodeEngine(pp, pcfg, num_slots=2, max_len=S_MAX,
+                                     cache_dtype=torch.float32, top_k=top_k,
+                                     top_p=top_p, device="cpu")
+    psched = port_serving.ContinuousBatchingScheduler(peng, eos_id=_EOS)
+    for i, (p, m) in enumerate(reqs):
+        psched.submit(port_serving.Request(prompt=p, max_new_tokens=m,
+                                           temperature=_TEMPS[i], seed=i))
+    with torch.inference_mode():
+        got = psched.run()
+        gap = _smallest_gap(pp, pcfg, reqs, got, top_k, top_p)
+    print(f"top_k {top_k}, top_p {top_p}: smallest top-two gap of a "
+          f"sampled token {gap:.3g}")
+    assert got == want
+    assert [psched.outcomes[i].reason for i in range(len(reqs))] == [
+        jsched.outcomes[i].reason for i in range(len(reqs))]
 
 
 def test_seqlen_helpers_match_jax():
@@ -326,6 +412,36 @@ def test_seqlen_helpers_match_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
     assert gmask.dtype == torch.int32
+
+
+def test_pad_to_bucket_pads_every_leaf_like_jax():
+    """A dict batch (ids and labels) pads leaf by leaf, called with the
+    reference's keyword ``batch``."""
+    rng = np.random.RandomState(2)
+    batch = {"ids": rng.randint(0, 100, size=(2, 11)).astype(np.int32),
+             "labels": rng.randint(0, 100, size=(2, 11, 3)).astype(
+                 np.int32)}
+    want, wmask = jax_seqlen.pad_to_bucket(batch=batch, length=11,
+                                           buckets=(16,), pad_value=-1)
+    got, gmask = port_seqlen.pad_to_bucket(
+        batch={k: torch.from_numpy(v) for k, v in batch.items()},
+        length=11, buckets=(16,), pad_value=-1)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
+
+
+def test_pad_to_bucket_ragged_leaf_raises_like_jax():
+    batch = {"ids": np.zeros((2, 11), np.int32),
+             "mask": np.zeros((2, 9), np.int32)}
+    with pytest.raises(ValueError) as want:
+        jax_seqlen.pad_to_bucket(batch, 11, buckets=(16,))
+    with pytest.raises(ValueError) as got:
+        port_seqlen.pad_to_bucket({k: torch.from_numpy(v)
+                                   for k, v in batch.items()}, 11,
+                                  buckets=(16,))
+    assert str(got.value) == str(want.value)
 
 
 def test_generate_cli_runs_on_cpu():

@@ -49,7 +49,13 @@ kernel at M <= 8 (N off its tile, K off its loads, an unaligned x, the
 same bits under graph replay), and the regime each dtype and M takes,
 read off the profiler's kernel names. The LayerNorm forward also
 runs at ragged h, at teams of one to 32 warps, at 8 and at 32 columns a
-thread, and on rows that do not start 16-byte aligned."""
+thread, and on rows that do not start 16-byte aligned. The threefry bits
+and dropout (``utils.prng``) are held to their plain int64 versions bit
+for bit (one key and eight, aligned and unaligned views, a repeat, a
+CUDA-graph replay), jax 0.9.0's known answers as constants, and the
+samplers on the card to the CPU: uniforms, Bernoulli draws and
+``randint`` bit for bit, ``normal`` and ``gumbel`` to
+``prng.normal_limit`` and ``prng.gumbel_limit``."""
 
 import importlib
 
@@ -1278,3 +1284,118 @@ def test_sgd_family_refused_launch_keeps_the_count(cuda_device):
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         mta.flat_adagrad_kernel(p.cpu(), p.cpu(), p.cpu(), hp.cpu())
     assert mta.FLAT_ADAGRAD.launches == n
+
+
+# ---------------------------------------------------------------------------
+# threefry (utils.prng): the bits kernel and the fused dropout against
+# their plain int64 versions, bit for bit, and the table of known answers
+# (jax 0.9.0, partitionable threefry) as constants: this machine may have
+# no JAX.
+# ---------------------------------------------------------------------------
+
+prng = importlib.import_module("apex_tpu_torch.utils.prng")
+
+_KNOWN_BITS = [0xF29A4FA7, 0xFA843692, 0x55110E28, 0x77FAA835]
+
+
+@pytest.mark.cuda
+def test_threefry_known_answers_on_card(cuda_device):
+    k = prng.PRNGKey(0)
+    assert prng.split(k, 2).tolist() == [[0x6B200159, 0x99BA4EFE],
+                                         [0x375F238F, 0xCDDB151D]]
+    assert prng.bits(k, (4,), device=cuda_device).cpu().tolist() == \
+        _KNOWN_BITS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 1), (1, 3), (1, 1001), (8, 50304),
+                                    (3, 7), (1, 64 * 128 * 1024)])
+def test_threefry_bits_kernel_matches_plain(cuda_device, rows, n):
+    keys = prng.split(prng.PRNGKey(rows + n), rows)
+    before = prng.THREEFRY_BITS.launches
+    got = prng.threefry_bits_kernel(keys, n, cuda_device)
+    again = prng.threefry_bits_kernel(keys, n, cuda_device)
+    want = prng.threefry_bits_plain(keys, n, cuda_device)
+    torch.cuda.synchronize()
+    assert prng.THREEFRY_BITS.launches == before + 2
+    assert got.shape == (rows, n) and got.dtype == torch.int32
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("n,offset", [(64 * 128 * 1024, 0), (1001, 0),
+                                      (4099, 1), (17, 3)])
+def test_threefry_dropout_kernel_matches_plain(cuda_device, dt, rate, n,
+                                               offset):
+    """Bit for bit, on aligned buffers (16-byte vectors) and on views
+    that start off a 16-byte boundary (element loads), twice, and under
+    a CUDA-graph replay."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    base = torch.randn(n + offset, generator=g, device=cuda_device).to(
+        _DT[dt])
+    x = base[offset:]
+    kw = (prng.host_bits(prng.PRNGKey(n), 2), rate)
+    before = prng.THREEFRY_DROPOUT.launches
+    got = prng.dropout_kernel(x, *kw)
+    again = prng.dropout_kernel(x, *kw)
+    want = prng.dropout_plain(x, *kw)
+    torch.cuda.synchronize()
+    assert prng.THREEFRY_DROPOUT.launches == before + 2
+    assert torch.equal(got.view(-1).float(), want.view(-1).float())
+    assert torch.equal(got, again)
+    keep = (want != 0).float().mean().item()
+    assert abs(keep - (1 - rate)) < 0.05 or n < 5000
+    static = torch.empty_like(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static.copy_(prng.dropout_kernel(x, *kw))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, got)
+
+
+@pytest.mark.cuda
+def test_threefry_dropout_autograd_regenerates_the_mask(cuda_device):
+    x = torch.randn(64, 1024, device=cuda_device, requires_grad=True)
+    key = prng.PRNGKey(4)
+    y = prng.dropout(key, x, 0.1)
+    y.backward(torch.ones_like(y))
+    want = prng.dropout_plain(torch.ones_like(x), prng._key_words(key), 0.1)
+    assert torch.equal(x.grad, want)
+    assert torch.equal((y != 0), (x.grad != 0) & (x != 0))
+
+
+@pytest.mark.cuda
+def test_threefry_samplers_on_card_match_the_cpu(cuda_device):
+    """uniform, bernoulli, randint and normal's uniforms bit for bit
+    across devices; gumbel within its limit (torch's log on the card
+    rounds otherwise than on the CPU)."""
+    k = prng.PRNGKey(1000)
+    for fn in (lambda d: prng.uniform(k, (64, 1001), device=d),
+               lambda d: prng.bernoulli(k, 0.9, (64, 1001), device=d),
+               lambda d: prng.randint(k, (4096,), 0, 1000, device=d)):
+        assert torch.equal(fn(cuda_device).cpu(), fn("cpu"))
+    z_d, z_c = (prng.normal(k, (4096,), device=d).cpu()
+                for d in (cuda_device, "cpu"))
+    assert bool(((z_d - z_c).abs() <= prng.normal_limit(z_c)).all())
+    keys = prng.split(k, 8)
+    g_d = prng.gumbel_rows(keys, 50304, cuda_device).cpu()
+    g_c = prng.gumbel_rows(keys, 50304, "cpu")
+    assert bool(((g_d - g_c).abs() <= prng.gumbel_limit(g_c)).all())
+
+
+@pytest.mark.cuda
+def test_threefry_refused_launch_keeps_the_count(cuda_device):
+    counts = (prng.THREEFRY_BITS.launches, prng.THREEFRY_DROPOUT.launches)
+    with pytest.raises(RuntimeError, match="fp32/bf16"):
+        prng.dropout_kernel(torch.ones(8, device=cuda_device,
+                                       dtype=torch.float16), (1, 2), 0.1)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        prng.dropout_kernel(torch.ones(8), (1, 2), 0.1)
+    with pytest.raises(RuntimeError, match="1 to 65535 keys"):
+        prng.threefry_bits_kernel(torch.zeros((65536, 2), dtype=torch.int64),
+                                  4, cuda_device)
+    assert (prng.THREEFRY_BITS.launches,
+            prng.THREEFRY_DROPOUT.launches) == counts

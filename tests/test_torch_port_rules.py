@@ -11,9 +11,16 @@
   run outside the repository;
 - each ported optimizer's constructor has the reference's signature:
   names, order, kinds and defaults (dtypes by name: ``jnp.float32`` is
-  ``torch.float32``)."""
+  ``torch.float32``);
+- every ported module's public functions, classes and methods have the
+  reference module's names and parameters (an AST scan of the
+  reference against the port's signatures), except the deliberate
+  departures, listed by name, and the names owed to later queue-A items
+  of ``ROADMAP.md``, listed by item; modules with no reference are
+  listed as port-only."""
 
 import ast
+import enum
 import importlib
 import inspect
 import os
@@ -44,6 +51,7 @@ fsm = importlib.import_module(
     "apex_tpu_torch.transformer.functional.fused_softmax")
 mta = importlib.import_module("apex_tpu_torch.multi_tensor_apply.kernels")
 w8 = importlib.import_module("apex_tpu_torch.quant.kernels")
+prng = importlib.import_module("apex_tpu_torch.utils.prng")
 
 # the plain forwards, saved before any test patches them
 _plain = {"ln": ln.layer_norm_fwd_plain, "fa": fa.attention_fwd_plain,
@@ -127,7 +135,7 @@ def dispatch_to_card(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("plain version reached on the CUDA path")
 
-    for mod in (ln, fa, xent, fsm, mta, w8):
+    for mod in (ln, fa, xent, fsm, mta, w8, prng):
         monkeypatch.setattr(mod, "on_card", lambda t, what="": True)
     for mod, name in ((ln, "layer_norm_fwd_plain"),
                       (ln, "layer_norm_bwd_plain"),
@@ -147,7 +155,9 @@ def dispatch_to_card(monkeypatch):
                       (mta, "flat_adagrad_plain"),
                       (mta, "flat_novograd_plain"),
                       (w8, "w8_matmul_plain"),
-                      (w8, "w8_matmul_nk_plain")):
+                      (w8, "w8_matmul_nk_plain"),
+                      (prng, "threefry_bits_plain"),
+                      (prng, "dropout_plain")):
         monkeypatch.setattr(mod, name, plain)
 
 
@@ -163,6 +173,46 @@ def test_cuda_path_never_reaches_plain_attention(dispatch_to_card):
     q = torch.randn(1, 2, 8, 16)
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         fa.flash_attention(q, q, q, causal=True)
+
+
+def test_cuda_path_never_reaches_plain_threefry(monkeypatch,
+                                                dispatch_to_card):
+    """The dropout goes to its kernel wrapper, which refuses a CPU
+    tensor; bits on a CUDA device go to the kernel wrapper, never to the
+    plain version."""
+    x = torch.randn(4, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        prng.dropout(prng.PRNGKey(0), x, 0.1)
+    calls = []
+    monkeypatch.setattr(prng, "threefry_bits_kernel",
+                        lambda *a: calls.append(a[2]))
+    prng._bits_rows(prng.PRNGKey(0), 4, torch.device("cuda"))
+    assert calls == [torch.device("cuda")]
+    monkeypatch.undo()
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        prng.threefry_bits_kernel(prng.PRNGKey(0), 4, "cpu")
+
+
+def test_step_without_dropout_rng_draws_nothing(monkeypatch):
+    """A training step without ``dropout_rng`` (the JAX benchmark's step)
+    and a greedy serving tick reach no threefry draw."""
+    def fail(*a, **k):
+        raise AssertionError("threefry drawn")
+
+    monkeypatch.setattr(prng, "_bits_rows", fail)
+    monkeypatch.setattr(prng, "_dropout_any", fail)
+    step, make_state, (ids, mask) = make_bert_train_step(
+        2, 8, port_bert.bert_tiny(), device="cpu")
+    step(*make_state(), ids, mask)
+    cfg = port_gpt.gpt_tiny()
+    eng = port_serving.DecodeEngine(
+        port_gpt.init_gpt(cfg, torch.Generator().manual_seed(0),
+                          device="cpu"), cfg, num_slots=2, max_len=16,
+        device="cpu")
+    sched = port_serving.ContinuousBatchingScheduler(eng, eos_id=-1)
+    sched.submit(port_serving.Request(prompt=(3, 4), max_new_tokens=3))
+    with torch.inference_mode():
+        assert len(sched.run()[0]) == 3
 
 
 def test_cuda_path_never_reaches_plain_xentropy(dispatch_to_card):
@@ -317,9 +367,10 @@ def test_quantized_engine_prefill_never_reaches_plain(monkeypatch,
         eng.prefill(0, [3, 4, 5])
 
 
-@pytest.mark.parametrize("mod", [ln, fa, xent, fsm, mta, w8],
+@pytest.mark.parametrize("mod", [ln, fa, xent, fsm, mta, w8, prng],
                          ids=["layer_norm", "flash", "xentropy",
-                              "fused_softmax", "flat_adam", "w8_matmul"])
+                              "fused_softmax", "flat_adam", "w8_matmul",
+                              "threefry"])
 def test_wrappers_have_no_fallback(mod):
     """No ``try`` in a wrapper module: a failed launch raises."""
     with open(mod.__file__) as f:
@@ -420,3 +471,290 @@ def test_optimizer_signatures_match_the_reference(name):
 _REF_FILES = {"FusedAdam": "fused_adam", "FusedLAMB": "fused_lamb",
               "FusedSGD": "fused_sgd", "FusedAdagrad": "fused_adagrad",
               "FusedNovoGrad": "fused_novograd"}
+
+
+# ---------------------------------------------------------------------------
+# The public surface against the reference: every ported module's public
+# functions, classes and methods, by name and parameters (names, order,
+# kinds, defaults), read from the reference's source with ``ast`` and from
+# the port with ``inspect``.
+# ---------------------------------------------------------------------------
+
+# Port modules with no module of the JAX package behind them.
+PORT_ONLY = {
+    "utils/cuda_build.py": "builds csrc/*.cu with nvcc, binds with ctypes",
+    "utils/prng.py": "jax.random's threefry streams (the JAX package calls "
+                     "jax.random)",
+    "utils/tree.py": "the port's stand-in for jax.tree",
+    "models/_convert.py": "carries JAX weight trees across",
+    "examples/bert/train.py": "bench.py::_bert_step as a module and CLI",
+    "examples/bert/profile_train.py": "a profiler window on the card",
+    "examples/gpt/profile_serving.py": "a profiler window on the card",
+    "examples/imagenet/profile_train.py": "a profiler window on the card",
+    "examples/kernel_ab.py": "kernels of two checkouts in one process",
+}
+
+# Departures every module takes (the ground rules): no Pallas interpret
+# mode and no kernel switch (``interpret=``, ``use_kernel=`` dropped), a
+# ``jax.random`` key becomes a ``torch.Generator``, and an entry point may
+# take a trailing ``device=``.
+_DROPPED = {"interpret", "use_kernel"}
+_RENAMED = {"key": "generator"}
+
+# Deliberate departures of one name: "module:name" -> what the port does.
+DEPARTURES = {
+    "amp/frontend.py:Amp.value_and_grad":
+        "no **grad_kwargs: jax.value_and_grad's options (argnums, ...) have "
+        "no torch.autograd counterpart",
+    "examples/gpt/generate.py:parse_args": "argv=, so tests drive the CLI",
+    "examples/gpt/generate.py:main": "argv=, so tests drive the CLI",
+    "examples/imagenet/main_amp.py:parse_args":
+        "argv=, so tests drive the CLI",
+    "examples/imagenet/main_amp.py:main": "argv=, so tests drive the CLI",
+    "models/bert.py:init_bert": "(cfg, generator): the generator after cfg",
+    "models/gpt.py:init_gpt": "(cfg, generator): the generator after cfg",
+    "multi_tensor_apply/kernels.py:flat_adam":
+        "found_inf=: the overflow skip inside the kernel",
+    "multi_tensor_apply/kernels.py:flat_sgd":
+        "found_inf=: the overflow skip inside the kernel",
+    "multi_tensor_apply/kernels.py:flat_adagrad":
+        "found_inf=: the overflow skip inside the kernel",
+    "multi_tensor_apply/kernels.py:flat_novograd":
+        "tile_counts in place of num_tensors, found_inf=",
+    "normalization/fused_layer_norm.py:FusedLayerNorm.init":
+        "FusedLayerNorm is an nn.Module: its parameters are its own",
+    "normalization/fused_layer_norm.py:FusedLayerNorm.apply":
+        "FusedLayerNorm is an nn.Module: call it (apply is Module.apply)",
+    "quant/kernels.py:kernel_variant":
+        "a TPU tile choice; the C entries choose from pointers and shapes",
+    "transformer/functional/flash_attention.py:kernel_variant":
+        "a TPU tile choice; the C entries choose from pointers and shapes",
+    "utils/platform.py:apply_test_platform_override":
+        "Pallas/TPU platform helper: device= takes its place",
+    "utils/platform.py:has_tpu":
+        "Pallas/TPU platform helper: device= takes its place",
+    "utils/platform.py:interpret_default":
+        "Pallas/TPU platform helper: device= takes its place",
+    "utils/platform.py:pallas_interpret":
+        "Pallas/TPU platform helper: device= takes its place",
+}
+
+# Names (or parameters) owed to later items of ROADMAP.md queue A. When an
+# item lands, delete its entry: the scan then holds every one of its names
+# to the reference.
+OWED = {
+    "A3 GPT training": [
+        "models/gpt.py:draft_gpt_tiny", "models/gpt.py:draft_gpt_medium",
+        "models/gpt.py:GPTModel", "models/gpt.py:gpt_loss_unsharded",
+        "models/gpt.py:accumulate_tied_word_grads",
+        "models/gpt.py:apply_gpt_unsharded"],            # dropout_rng=
+    "A4.1 paged cache": [
+        "serving/cache.py:PagedKVCache", "serving/cache.py:max_pages_per_slot",
+        "serving/cache.py:init_paged_cache",
+        "serving/cache.py:audit_block_tables",
+        "serving/decode.py:make_paged_prefill_fn",
+        "serving/decode.py:make_paged_decode_fn",
+        "serving/decode.py:make_copy_page_fn",
+        "serving/scheduler.py:PagedDecodeEngine",
+        "serving/scheduler.py:DecodeEngine.check_invariants",
+        "serving/scheduler.py:DecodeEngine.pool_snapshot",
+        "serving/scheduler.py:DecodeEngine.pool_gauges",
+        "serving/scheduler.py:DecodeEngine.pop_admit_charge",
+        "quant/kernels.py:kv_quantize", "quant/kernels.py:kv_dequantize"],
+    "A4.2 speculative decoding": [
+        "serving/decode.py:make_verify_fn",
+        "serving/decode.py:make_paged_verify_fn",
+        "serving/decode.py:make_tree_verify_fn",
+        "serving/decode.py:make_paged_tree_verify_fn",
+        "serving/sampling.py:speculative_accept",
+        "serving/sampling.py:tree_speculative_accept",
+        "serving/scheduler.py:DecodeEngine.__init__",  # spec_k, draft_model,
+        # tree_spec, adaptive_spec; injector and tracer (A4.4)
+        "serving/scheduler.py:DecodeEngine.draft",
+        "serving/scheduler.py:DecodeEngine.draft_batch",
+        "serving/scheduler.py:DecodeEngine.draft_tree_batch",
+        "serving/scheduler.py:DecodeEngine.verify",
+        "serving/scheduler.py:DecodeEngine.tree_verify",
+        "serving/scheduler.py:DecodeEngine.commit",
+        "serving/scheduler.py:DecodeEngine.sample_grid",
+        "serving/scheduler.py:DecodeEngine.prepare_decode"],   # n_new
+    "A4.3 chunked prefill": [
+        "serving/decode.py:make_chunk_prefill_fn",
+        "serving/decode.py:make_paged_chunk_prefill_fn",
+        "serving/scheduler.py:DecodeEngine.begin_chunk_prefill",
+        "serving/scheduler.py:DecodeEngine.chunk_prefill",
+        "serving/scheduler.py:DecodeEngine.finish_chunk_prefill"],
+    "A4.4 faults, tracer and tenancy": [
+        f"serving/health.py:{n}" for n in (
+            "PoolExhausted", "RetryBudgetExhausted", "DeadlineExceeded",
+            "AdmissionRejected", "LivelockError", "PoolInvariantError",
+            "TransferFailed", "TransferCorrupt", "ReshardFailed",
+            "ReplicaUnavailable", "SpillFailed", "PromoteFailed",
+            "StreamFailed", "QuotaExhausted", "SloViolation",
+            "ReplicaHealth", "ServingStats", "snapshot",
+            "ServingError.__init__", "RequestOutcome.ok")] + [
+        "serving/scheduler.py:ContinuousBatchingScheduler.__init__",
+        "serving/scheduler.py:ContinuousBatchingScheduler.clock",
+        "serving/scheduler.py:ContinuousBatchingScheduler.advance_clock",
+        "serving/scheduler.py:ContinuousBatchingScheduler.submit"],
+    "A4.5 tensor-parallel serving": [
+        f"serving/decode.py:make_tp_{n}_fn" for n in (
+            "prefill", "decode", "verify", "paged_prefill", "paged_decode",
+            "paged_verify", "tree_verify", "chunk_prefill",
+            "paged_chunk_prefill", "paged_tree_verify")],
+    "A5 optimizer and amp tier": [
+        "amp/frontend.py:Amp.__init__", "amp/frontend.py:initialize",
+        "amp/frontend.py:Amp.master_params", "amp/frontend.py:Amp.autocast",
+        "amp/frontend.py:Amp.state_dict", "amp/frontend.py:Amp.load_state_dict",
+        "optimizers/fused_adam.py:FusedAdam.step",
+        "optimizers/fused_lamb.py:FusedLAMB.step",
+        "optimizers/fused_sgd.py:FusedSGD.step",
+        "optimizers/fused_adagrad.py:FusedAdagrad.step",
+        "optimizers/fused_novograd.py:FusedNovoGrad.step",
+        "multi_tensor_apply/kernels.py:flat_lamb"],  # grad_scale, grad_norm
+    "A6 data and model parallelism": [
+        "models/bert.py:bert_partition_specs",
+        "models/gpt.py:gpt_partition_specs",
+        "models/gpt.py:gpt_to_pipeline_params",
+        "models/gpt.py:gpt_pipeline_partition_specs",
+        "models/gpt.py:gpt_pipeline_model", "models/gpt.py:gpt_tp_bench",
+        "models/layers.py:batchnorm",                  # axis_index_groups
+        "quant/params.py:quant_partition_specs",
+        "serving/cache.py:cache_partition_specs",
+        "serving/cache.py:paged_cache_partition_specs",
+        "optimizers/fused_adam.py:FusedAdam.state_partition_specs"],
+}
+
+
+def _ported_modules():
+    """Port modules (paths under apex_tpu_torch/, ``__init__`` files
+    aside) and their reference files: ``apex_tpu/x`` for ``x``, the
+    repo's ``examples/`` for ``examples/``; None where there is none."""
+    out = {}
+    for dirpath, dirnames, filenames in os.walk(PORT):
+        dirnames.sort()
+        for f in sorted(filenames):
+            if not f.endswith(".py") or f == "__init__.py":
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), PORT)
+            ref = os.path.join(REPO, rel) if rel.startswith("examples/") \
+                else os.path.join(REPO, "apex_tpu", rel)
+            out[rel] = ref if os.path.exists(ref) else None
+    return out
+
+
+_MODULES = _ported_modules()
+
+
+def _default(node, namespace):
+    """A reference default as a value: literals and arithmetic, the
+    port module's names for the reference's (``trunc_normal``,
+    ``AttnMaskType.padding``), ``jnp.<dtype>`` as ``torch.<dtype>``;
+    otherwise its source text."""
+    if node is None:
+        return inspect.Parameter.empty
+    src = ast.unparse(node)
+    try:
+        return eval(src, {"__builtins__": {}, "jnp": torch},  # noqa: S307
+                    namespace)
+    except (NameError, AttributeError, TypeError):
+        return src
+
+
+def _ref_params(fn, namespace):
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    if pos and pos[0].arg in ("self", "cls"):
+        pos = pos[1:]
+    dflt = [None] * (len(pos) - len(a.defaults)) + list(a.defaults)
+    out = [(x.arg, "P", d) for x, d in zip(pos, dflt)]
+    out += [("*" + a.vararg.arg, "V", None)] if a.vararg else []
+    out += [(x.arg, "K", d) for x, d in zip(a.kwonlyargs, a.kw_defaults)]
+    out += [("**" + a.kwarg.arg, "VK", None)] if a.kwarg else []
+    return [(_RENAMED.get(n, n), k, _default(d, namespace))
+            for n, k, d in out if n not in _DROPPED]
+
+
+_KIND = {"POSITIONAL_ONLY": "P", "POSITIONAL_OR_KEYWORD": "P",
+         "KEYWORD_ONLY": "K", "VAR_POSITIONAL": "V", "VAR_KEYWORD": "VK"}
+
+
+def _port_params(obj):
+    ps = list(inspect.signature(obj).parameters.values())
+    if ps and ps[0].name in ("self", "cls"):
+        ps = ps[1:]
+    star = {"VAR_POSITIONAL": "*", "VAR_KEYWORD": "**"}
+    return [(star.get(p.kind.name, "") + p.name, _KIND[p.kind.name],
+             p.default) for p in ps if p.name != "device"]
+
+
+def _same(ref, port):
+    if [(n, k) for n, k, _ in ref] != [(n, k) for n, k, _ in port]:
+        return False
+    for (_, _, d), (_, _, e) in zip(ref, port):
+        if isinstance(e, enum.Enum) or callable(e) or isinstance(
+                e, torch.dtype):
+            if d is not e:
+                return False
+        elif not (d == e or (d != d and e != e)):
+            return False
+    return True
+
+
+def _surface_findings(rel):
+    """The "module:name" keys where the port departs from the reference:
+    a public function, class or method that is missing, or whose
+    parameters differ."""
+    with open(_MODULES[rel]) as f:
+        tree = ast.parse(f.read())
+    mod = importlib.import_module(
+        "apex_tpu_torch." + rel[:-3].replace("/", "."))
+    ns = vars(mod)
+    found = []
+    for node in tree.body:
+        if not isinstance(node, (ast.FunctionDef, ast.ClassDef)) \
+                or node.name.startswith("_"):
+            continue
+        obj = getattr(mod, node.name, None)
+        key = f"{rel}:{node.name}"
+        if obj is None:
+            found.append(key)
+            continue
+        if isinstance(node, ast.FunctionDef):
+            if not _same(_ref_params(node, ns), _port_params(obj)):
+                found.append(key)
+            continue
+        for m in node.body:
+            if not isinstance(m, ast.FunctionDef) or (
+                    m.name.startswith("_") and m.name != "__init__"):
+                continue
+            mkey = f"{key}.{m.name}"
+            pm = inspect.getattr_static(obj, m.name, None)
+            if pm is None or pm is object.__init__:
+                found.append(mkey)
+            elif isinstance(pm, property):
+                continue
+            elif not _same(_ref_params(m, ns),
+                           _port_params(getattr(obj, m.name))):
+                found.append(mkey)
+    return found
+
+
+def test_port_only_modules_are_listed():
+    """Every port module without a reference is listed (prng.py among
+    them), and every listed one exists."""
+    assert {r for r, ref in _MODULES.items() if ref is None} == \
+        set(PORT_ONLY)
+    assert "utils/prng.py" in PORT_ONLY
+
+
+@pytest.mark.parametrize("rel", sorted(r for r, ref in _MODULES.items()
+                                       if ref is not None))
+def test_public_surface_matches_the_reference(rel):
+    """Names and parameters against the reference, minus the listed
+    departures and the names owed to later queue-A items: a new gap
+    fails, and so does a listed gap that is gone (delete its entry)."""
+    owed = {k for keys in OWED.values() for k in keys}
+    listed = {k for k in set(DEPARTURES) | owed
+              if k.startswith(rel + ":")}
+    assert sorted(_surface_findings(rel)) == sorted(listed)

@@ -384,3 +384,20 @@ def test_unported_options_raise(jax_init):
                     axis_name="data")
     with pytest.raises(SystemExit):
         main_amp.parse_args(["--resume", "ck.pt"])
+
+
+@pytest.mark.parametrize("i", [0, 3])
+def test_synthetic_batch_is_the_jax_examples(i):
+    """``synthetic_batch(i)`` draws what ``examples/imagenet/main_amp.py``
+    draws for step i (``normal`` and ``randint`` on PRNGKey(1000 + i)):
+    the labels exactly, the images within ``prng.normal_limit``."""
+    from apex_tpu_torch.utils import prng
+
+    k = jax.random.PRNGKey(1000 + i)
+    want_x = np.asarray(jax.random.normal(k, (4, 16, 16, 3), jnp.float32))
+    want_y = np.asarray(jax.random.randint(k, (4,), 0, 1000))
+    x, y = main_amp.synthetic_batch(i, 4, 16, 1000, torch.device("cpu"))
+    assert x.dtype == torch.float32 and y.dtype == torch.int64
+    np.testing.assert_array_equal(y.numpy(), want_y)
+    lim = prng.normal_limit(torch.from_numpy(want_x.copy())).numpy()
+    assert np.all(np.abs(x.numpy() - want_x) <= lim)
