@@ -9,7 +9,9 @@ Synthetic weights and prompts. Runs on the CUDA device by default::
     python -m apex_tpu_torch.examples.gpt.generate --num-requests 8 \\
         --num-slots 4 --max-new-tokens 24 --temperature 0.8 --top-k 50
 
-and on the CPU (the kernels' plain versions) with ``--device cpu``.
+and on the CPU (the kernels' plain versions) with ``--device cpu``;
+``--use-rope`` gives the model rotary positions in place of the learned
+table.
 Explicit prompts as comma-separated token ids::
 
     python -m apex_tpu_torch.examples.gpt.generate --prompt 5,7,11 \\
@@ -38,6 +40,7 @@ def parse_args(argv=None):
     m.add_argument("--num-layers", type=int, default=4)
     m.add_argument("--num-heads", type=int, default=8)
     m.add_argument("--ffn-hidden-size", type=int, default=128)
+    m.add_argument("--use-rope", action="store_true")
     m.add_argument("--fp32", action="store_true",
                    help="skip the O2 bf16 model cast (and use an fp32 "
                         "KV cache)")
@@ -66,7 +69,8 @@ def main(argv=None):
         vocab_size=ns.vocab_size, hidden_size=ns.hidden_size,
         num_layers=ns.num_layers, num_heads=ns.num_heads,
         ffn_hidden_size=ns.ffn_hidden_size,
-        max_position_embeddings=ns.max_len, hidden_dropout=0.0)
+        max_position_embeddings=ns.max_len, use_rope=ns.use_rope,
+        hidden_dropout=0.0)
     params = init_gpt(cfg, torch.Generator().manual_seed(ns.seed),
                       device=device)
     if not ns.fp32:

@@ -19,7 +19,8 @@ logits)``.
 import torch
 
 from apex_tpu_torch.models.gpt import (
-    GPTConfig, _block_decode, _block_prefill, _ln, check_config, layer,
+    GPTConfig, _block_decode, _block_prefill, _ln, _rope_or_none, _unstack,
+    check_config,
 )
 from apex_tpu_torch.models.gpt import dense as _dense
 from apex_tpu_torch.quant.kernels import w8_matmul, w8_matmul_nk
@@ -40,12 +41,11 @@ def _prefill_core(params, cfg: GPTConfig, cache: KVCache, ids, mask,
                          f"{cache.k.shape[3]}")
     slot = int(slot)
     x = embed_fn(params, ids)
+    freqs = _rope_or_none(cfg, s, ids.device)
     key_mask = mask[None, :]
     mz = mask.to(x.dtype)[None, None, :, None]
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        x, k, v = _block_prefill(layer(layers, i), x, cfg, key_mask,
-                                 dense_fn)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x, k, v = _block_prefill(lp, x, cfg, freqs, key_mask, dense_fn)
         # zero the pad tail before it enters the cache: the decode mask
         # never reaches rows past the length, and zeroed rows keep the
         # cache independent of pad ids
@@ -64,17 +64,21 @@ def _decode_core(params, cfg: GPTConfig, cache: KVCache, tokens, active,
     the length advance. Returns (cache, logits (B, V) fp32)."""
     pos = cache.lengths.clone()
     x = embed_fn(params, tokens[:, None], pos=pos)
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        x = _block_decode(layer(layers, i), x, cache.k[i], cache.v[i], pos,
-                          cfg, dense_fn)
+    freqs = _rope_or_none(cfg, cache.k.shape[3], tokens.device)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x = _block_decode(lp, x, cache.k[i], cache.v[i], pos, cfg, freqs,
+                          dense_fn)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
     logits = logits_fn(params, hidden[:, 0])
     cache.lengths.copy_(torch.where(active, pos + 1, pos))
     return cache, logits
 
 
-def _add_positions(params, x, ids, pos):
+def _add_positions(cfg, params, x, ids, pos):
+    """Learned positions (none under RoPE, which rotates q and k in the
+    blocks instead)."""
+    if cfg.use_rope:
+        return x
     ptab = params["embedding"]["position"]["embedding"]
     if pos is None:
         return x + ptab[: ids.shape[1]].to(x.dtype)[None]
@@ -89,7 +93,7 @@ def _embed_unsharded(cfg: GPTConfig, compute_dtype):
         x = params["embedding"]["word"]["embedding"][ids]
         if compute_dtype is not None:
             x = x.to(compute_dtype)
-        return _add_positions(params, x, ids, pos)
+        return _add_positions(cfg, params, x, ids, pos)
     return embed
 
 
@@ -115,7 +119,7 @@ def _embed_w8(cfg: GPTConfig, compute_dtype):
         word = params["embedding"]["word"]
         x = word["embedding"][ids].float() * word["scale"][ids][..., None]
         x = x.to(torch.float32 if compute_dtype is None else compute_dtype)
-        return _add_positions(params, x, ids, pos)
+        return _add_positions(cfg, params, x, ids, pos)
 
     return embed
 

@@ -135,6 +135,32 @@ Phases, each printed as it runs; any failure exits non-zero:
    larger; for the threefry kernels the integer-ALU operations over 64
    lanes an SM at the card's maximum SM clock, with ``F.dropout`` beside
    as a different function).
+8. GPT: RoPE and training — the JAX package's decode benchmark's RoPE
+   model (``bench.py``'s ``_decode_bench_setup``) and its tp=1
+   GPT-medium step (``gpt_tp_bench(on_tpu, n_devices=1)``). Kernel
+   parity at the step's shapes: the causal flash forward, dq and dk/dv
+   at b 8, h 16, s 1024, d 64 on RoPE'd q and k beside a view v (with
+   and without a key mask), the cross entropy on (8192, 50304) bf16
+   logits; RoPE on the card against the CPU (training shape, the decode
+   tick with per-slot positions, the cached form's dcos and dsin) and
+   its device time a call. ``serving_rope``: GPT-2 medium with
+   ``use_rope=True`` (no position table), decode logits against the full
+   forward (fp32 1e-5, O2 0.0625), the 16 requests twice on the O2
+   params: the replay commits the same streams, exact launches. GPT
+   training card vs CPU: GPT-medium width at 2 layers, batch 2, seq 256,
+   one ``make_gpt_train_step`` step with fp32 and bf16 compute, each
+   with learned positions and RoPE, and bf16 RoPE with dropout 0.1, to
+   the BERT check's limits. ``gpt_training``: full GPT-medium (24
+   layers, remat), batch 8, seq 1024, bf16 compute over fp32 params,
+   six steps on one batch from ``randint(PRNGKey(1000))`` (labels =
+   ids) as ``gpt_tree`` (the JAX step exactly, tree FusedAdam) and
+   ``gpt_rope_dropout`` (RoPE, dropout 0.1 on ``fold_in(PRNGKey(0),
+   step)``, flat FusedAdam): finite, falling losses and each kernel's
+   launches a step exactly ``gpt_per_step_launches``. Then
+   ``examples/gpt/pretrain_gpt.py`` at its defaults (finite losses,
+   DONE), and the step's kernels timed at its shapes beside SDPA's
+   causal forward and backward, ``F.cross_entropy`` on bf16 and
+   ``torch._fused_adamw_`` over GPT-medium's tensors.
 
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
@@ -2882,6 +2908,582 @@ def threefry_times(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 8. GPT: RoPE serving and training (the JAX package's decode benchmark's
+#    RoPE model, bench.py's _decode_bench_setup, and its tp=1 GPT-medium
+#    step, gpt_tp_bench(on_tpu, n_devices=1))
+# ---------------------------------------------------------------------------
+
+GPT_BATCH, GPT_SEQ, GPT_STEPS = 8, 1024, 6
+GPT_SMALL_BATCH, GPT_SMALL_SEQ, GPT_SMALL_LAYERS = 2, 256, 2
+U32_ULP = 2.0 ** -24
+
+
+def _gpt_qkv(gen, dev, b, h, s, d):
+    """q, k, v as the GPT training path hands them to flash: q and k
+    rotated by RoPE from the ``_split_qkv`` views of a fused (b, s, 3 h
+    d) bf16 projection, v still a view."""
+    from apex_tpu_torch.models.gpt import _split_qkv
+    from apex_tpu_torch.transformer.functional import (
+        fused_apply_rotary_pos_emb_bhsd, rope_frequencies,
+    )
+
+    q, k, v = _split_qkv(_rand(gen, (b, s, 3 * h * d), torch.bfloat16,
+                               dev), d)
+    freqs = rope_frequencies(d, s, device=dev)
+    return (fused_apply_rotary_pos_emb_bhsd(q, freqs),
+            fused_apply_rotary_pos_emb_bhsd(k, freqs), v)
+
+
+def gpt_kernel_parity(dev):
+    """The flash forward, dq and dk/dv at GPT-medium's training shape
+    (causal, b 8, h 16, s 1024, d 64, bf16; q and k out of RoPE, v a
+    view of the projection; with and without a key mask as prefill
+    passes one), and the cross entropy on (8192, 50304) bf16 logits,
+    each against its plain version per element to its error model."""
+    fa, xent = kernel_modules()[1:3]
+    phase("kernel parity at GPT-medium's training shapes (flash causal b8 "
+          "h16 s1024 d64 bf16, RoPE'd q and k, v a view: o_limit and "
+          "bwd_limits; cross entropy (8192, 50304) bf16: xentropy.limits; "
+          "a second launch gives the same bits)")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, h, s, d = GPT_BATCH, 16, GPT_SEQ, 64
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "xent_fwd": 0.0,
+             "xent_bwd": 0.0}
+    seed, kw = (0, 0), dict(causal=True, scale=d ** -0.5, rate=0.0)
+    q, k, v = _gpt_qkv(gen, dev, b, h, s, d)
+    do = _rand(gen, (b, s, h, d), torch.bfloat16, dev).transpose(1, 2)
+    for mask in (None, _flash_mask(b, s, dev, 8)):
+        o, lse = fa.attention_fwd_kernel(q, k, v, mask, seed, **kw)
+        o2, lse2 = fa.attention_fwd_kernel(q, k, v, mask, seed, **kw)
+        got = fa.attention_bwd_kernel(q, k, v, mask, o, lse, do, seed, **kw)
+        again = fa.attention_bwd_kernel(q, k, v, mask, o, lse, do, seed,
+                                         **kw)
+        torch.cuda.synchronize()
+        o0, lse0 = fa.attention_fwd_plain(q, k, v, mask, seed, **kw)
+        e_o, use_o = _held(o, o0, fa.o_limit(q, k, v, mask, o0, causal=True,
+                                             scale=d ** -0.5))
+        fin = torch.isfinite(lse0)
+        le = float((lse - lse0)[fin].abs().max())
+        ok = use_o <= 1.0 and le <= LSE_TOL[torch.bfloat16]
+        ok &= torch.equal(o, o2) and torch.equal(lse, lse2)
+        want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, seed, **kw)
+        lims = fa.bwd_limits(q, k, v, mask, o, lse, do, *want, **kw)
+        parts = []
+        for name, g, g2, w0, lim in zip(("dq", "dk", "dv"), got, again,
+                                        want, lims):
+            e, use = _held(g, w0, lim)
+            ok &= use <= 1.0 and bool(torch.isfinite(g).all())
+            ok &= torch.equal(g, g2)
+            key = "dq" if name == "dq" else "dkv"
+            worst[key] = max(worst[key], e)
+            parts.append(f"{name} {e:.3g} ({use:.2f})")
+        worst["fwd"] = max(worst["fwd"], e_o)
+        check(ok, f"flash causal b{b} h{h} s{s} d{d} bf16, RoPE'd q and k "
+              f"({_load_variant(q, k)}), v a view ({_load_variant(v)}), "
+              f"mask={mask is not None}: max_abs_err (share of its "
+              f"tolerance) o {e_o:.3g} ({use_o:.2f}), lse {le:.3g}, "
+              + ", ".join(parts) + "; repeats bit-equal")
+        del o, o2, got, again, want, lims, o0
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    n, vv = GPT_BATCH * GPT_SEQ, 50304
+    x = _rand(gen, (n, vv), torch.bfloat16, dev, 3.0)
+    labels = torch.randint(0, vv, (n,), generator=gen, device=dev)
+    dloss = torch.full((n,), 1.0 / n, device=dev)   # the mean's gradient
+    loss, lse = xent.xentropy_fwd_kernel(x, labels, 0.0)
+    dx = xent.xentropy_bwd_kernel(x, labels, lse, dloss, 0.0)
+    dx2 = xent.xentropy_bwd_kernel(x, labels, lse, dloss, 0.0)
+    loss2, _ = xent.xentropy_fwd_kernel(x, labels, 0.0)
+    torch.cuda.synchronize()
+    loss0, lse0 = xent.xentropy_fwd_plain(x, labels, 0.0)
+    dx0 = xent.xentropy_bwd_plain(x, labels, lse0, dloss, 0.0)
+    lims = xent.limits(x, labels, 0.0, loss0, lse0, dloss, dx0)
+    res = [_held(g, w0, lim) for g, w0, lim in zip(
+        (loss, lse, dx), (loss0, lse0, dx0), lims)]
+    ok = all(use <= 1.0 for _, use in res) and dx.dtype == torch.bfloat16
+    ok &= torch.equal(dx, dx2) and torch.equal(loss, loss2)
+    worst["xent_fwd"] = max(res[0][0], res[1][0])
+    worst["xent_bwd"] = res[2][0]
+    check(ok, f"xentropy ({n}, {vv}) bf16 (393 x 128 columns): max_abs_err "
+          "(share of its tolerance) " + ", ".join(
+              f"{nm} {e:.3g} ({use:.2f})" for nm, (e, use) in zip(
+                  ("loss", "lse", "dx bf16"), res)) + "; repeats bit-equal")
+    return worst
+
+
+def _rope_limit(t, cos, sin, want):
+    """The RoPE error model (``fused_rope``'s docstring): 8 u of |t| |cos|
+    + |rotate_half(t)| |sin| on the rotated channels, plus one ulp of a
+    bf16 output."""
+    from apex_tpu_torch.transformer.functional.fused_rope import (
+        _rotate_half,
+    )
+
+    t = t.float()
+    lim = 8 * U32_ULP * (t.abs() * cos.abs()
+                         + _rotate_half(t).abs() * sin.abs())
+    if want.dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * want.float().abs()
+    return lim
+
+
+def rope_parity(dev):
+    """RoPE on the card against the same calls on the CPU: the forward
+    and dt at the training shape (q of the fused projection, bf16) and
+    at the decode tick with per-slot positions; dcos and dsin of the
+    cached form; each call's device time."""
+    from apex_tpu_torch.models.gpt import _split_qkv
+    from apex_tpu_torch.transformer.functional import fused_rope as rope
+    from apex_tpu_torch.transformer.functional.fused_rope import (
+        _rotate_half,
+    )
+
+    phase("RoPE, card vs CPU (fused_rope's error model: 8 u (|t| |cos| + "
+          "|rotate_half(t)| |sin|) plus one ulp of a bf16 output; dcos, "
+          "dsin 2 n u sum |g t| over the n broadcast terms)")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    b, h, d = GPT_BATCH, 16, 64
+    out = {}
+    cases = (("train", GPT_SEQ, None), ("decode", 1, "per-slot"))
+    for name, s, positions in cases:
+        t = _split_qkv(_rand(gen, (b, s, 3 * h * d), torch.bfloat16, dev),
+                       d)[0].requires_grad_(True)
+        g = _rand(gen, (b, h, s, d), torch.bfloat16, dev)
+        # training rotates rows 0..s-1 of an s-row table; decode gathers
+        # each slot's row of the cache's S_max-row table
+        freqs = rope.rope_frequencies(d, s if positions is None else
+                                      MAX_LEN, device=dev)
+        pos = None if positions is None else torch.linspace(
+            0, MAX_LEN - 1, b, device=dev).long()
+        y = rope.fused_apply_rotary_pos_emb_bhsd(t, freqs, pos)
+        (dt,) = torch.autograd.grad(y, (t,), g)
+        tc = t.detach().cpu().requires_grad_(True)
+        yc = rope.fused_apply_rotary_pos_emb_bhsd(
+            tc, freqs.cpu(), None if pos is None else pos.cpu())
+        (dtc,) = torch.autograd.grad(yc, (tc,), g.cpu())
+        f2 = freqs.cpu().reshape(freqs.shape[0], d).double()
+        idx = torch.arange(s) if pos is None else pos.cpu()[:, None]
+        c = torch.cos(f2)[idx].reshape((1 if pos is None else b), 1, s, d)
+        sn = torch.sin(f2)[idx].reshape(c.shape)
+        yc = yc.detach()
+        uy = _share(y.detach().cpu(), yc, _rope_limit(tc.detach(), c, sn,
+                                                      yc))
+        ud = _share(dt.cpu(), dtc, _rope_limit(g.cpu(), c, sn, dtc))
+        check(uy <= 1.0 and ud <= 1.0 and y.dtype == torch.bfloat16,
+              f"RoPE {name} ({b}, {h}, {s}, {d}) bf16"
+              f"{', positions per slot' if pos is not None else ''}: "
+              f"forward {uy:.3f} and dt {ud:.3f} of their limits")
+        tv = t.detach()
+        t_f = time_ms(lambda: rope.fused_apply_rotary_pos_emb_bhsd(
+            tv, freqs, pos))
+        # the backward's dt: the same form with -sin, on the tables the
+        # forward gathered (autograd stays out of the captured graph)
+        cd, sd = c.float().to(dev), sn.float().to(dev)
+        t_fb = t_f + time_ms(lambda: rope._apply(g, cd, -sd))
+        # one read of t and one write of the output, the table's rows
+        nbytes = 2 * t.numel() * 2 + 2 * s * d * 4
+        out[name] = dict(fwd_ms=t_f, fwd_bwd_ms=t_fb, bound_ms=bound(
+            nbytes, 6 * t.numel(), FP32_FLOPS)[0], forward_share=uy,
+            dt_share=ud)
+        print(f"RoPE {name}: forward {t_f:.5f} ms, forward + dt "
+              f"{t_fb:.5f} ms a call (CUDA-graph replays), bytes bound "
+              f"{out[name]['bound_ms']:.5f}", flush=True)
+    cos, sin = rope.rope_cos_sin(d, GPT_SEQ, device=dev)
+    t = _rand(gen, (GPT_SEQ, b, h, d), torch.float32, dev)
+    g = _rand(gen, (GPT_SEQ, b, h, d), torch.float32, dev)
+    got, want = [], []
+    for dv, lst in ((dev, got), ("cpu", want)):
+        cc = cos.to(dv).requires_grad_(True)
+        ss = sin.to(dv).requires_grad_(True)
+        y = rope.fused_apply_rotary_pos_emb_cached(t.to(dv), cc, ss)
+        lst += torch.autograd.grad(y, (cc, ss), g.to(dv))
+    tt, gg = t.cpu().double(), g.cpu().double()
+    lims = [2 * b * h * U32_ULP * (gg * x).abs().sum((1, 2), keepdim=True)
+            for x in (tt, _rotate_half(tt))]
+    uc = max(_share(a.cpu(), w, lim) for a, w, lim in zip(got, want, lims))
+    check(uc <= 1.0, f"RoPE cached ({GPT_SEQ}, {b}, {h}, {d}) fp32: dcos "
+          f"and dsin {uc:.3f} of their limits")
+    out["cached_table_grads_share"] = uc
+    return out
+
+
+def gpt_per_step_launches(L, remat, dropout, flat):
+    """Exact launches of each kernel in one GPT step of ``L`` layers
+    (``examples/gpt/train.py``): forward 2L + 1 LayerNorms, L flash
+    forwards, one cross entropy; backward the same LayerNorms, L dq and L
+    dk/dv, one cross-entropy backward. With ``remat`` each layer's
+    forward runs again in the backward up to its last saved result, the
+    fc2 product (non-reentrant checkpoint's early stop): 2 more
+    LayerNorms, one more flash forward and, with dropout, the attention
+    output's dropout (salt 0) again, but not fc2's (salt 1). Dropout
+    launches once forward and once backward (the backward regenerates
+    the mask) after each layer's attention output and fc2: 2L + 2L,
+    plus L under remat. The flat FusedAdam launches ``flat_adam`` once;
+    the tree path no kernel."""
+    rec = L if remat else 0
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    out.update(layer_norm_fwd=2 * L + 1 + 2 * rec, layer_norm_bwd=2 * L + 1,
+               flash_attention_fwd=L + rec, flash_attention_bwd_dq=L,
+               flash_attention_bwd_dkv=L, xentropy_fwd=1, xentropy_bwd=1)
+    if dropout:
+        out["threefry_dropout"] = 4 * L + rec
+    if flat:
+        out["flat_adam"] = 1
+    return out
+
+
+# The GPT card-vs-CPU step: gradients, m, v and master to STEP_LIMITS (the
+# BERT check's). The loss with bf16 compute differs: GPT's tied logits are
+# bf16 (BERT's MLM logits are cast to fp32 before the loss), and card and
+# CPU sum each logit's products in other orders before that rounding, so a
+# logit may land one bf16 ulp apart and the loss carries it: held to the
+# bf16 loss limit the CPU parity tests give the port against JAX (2e-4
+# relative, tests/test_torch_gpt_train.py and test_torch_bert_train.py;
+# 2.98e-05 measured on an H100 at these seeds).
+GPT_STEP_LIMITS = {"O0": STEP_LIMITS["O0"],
+                   "O2": dict(STEP_LIMITS["O2"], loss=2e-4)}
+GPT_SMALL_CASES = {  # name -> (compute dtype, use_rope, dropout)
+    "fp32": (None, False, False), "fp32 rope": (None, True, False),
+    "bf16": (torch.bfloat16, False, False),
+    "bf16 rope": (torch.bfloat16, True, False),
+    "bf16 rope dropout": (torch.bfloat16, True, True),
+}
+
+
+def gpt_train_small(dev):
+    """One step of GPT-medium width (h 1024, 16 heads, vocab 50304) at 2
+    layers on the card and on the CPU from the same weights and batch:
+    fp32 and bf16 compute, each with learned positions and with RoPE,
+    and bf16 with RoPE and dropout 0.1; held to the BERT check's limits
+    (``STEP_LIMITS``: fp32 compute as O0, bf16 as O2), the bf16 loss to
+    ``GPT_STEP_LIMITS``."""
+    import dataclasses
+
+    from apex_tpu_torch.examples.gpt.train import (
+        make_gpt_train_step, make_state, synthetic_batch,
+    )
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.utils.tree import tree_map
+
+    p = kernel_modules()[6]
+    out = {}
+    b, s, L = GPT_SMALL_BATCH, GPT_SMALL_SEQ, GPT_SMALL_LAYERS
+    for name, (cdt, rope, drop) in GPT_SMALL_CASES.items():
+        lim = GPT_STEP_LIMITS["O0" if cdt is None else "O2"]
+        cfg = dataclasses.replace(gpt_medium(), num_layers=L, use_rope=rope)
+        key = p.PRNGKey(DROPOUT_SEED) if drop else None
+        phase(f"GPT training ({name}), card vs CPU: GPT-medium width, {L} "
+              f"layers (remat), batch {b}, seq {s}, one step of "
+              "make_gpt_train_step (FusedAdam lr 1e-4, wd 0.01)"
+              + (f", dropout {cfg.hidden_dropout}" if drop else ""))
+        step_d = make_gpt_train_step(cfg, compute_dtype=cdt, dropout_rng=key)
+        step_c = make_gpt_train_step(cfg, compute_dtype=cdt, dropout_rng=key)
+        params_d, opt_d = make_state(cfg, step_d.opt, 0, dev)
+        params_c = tree_map(lambda t: t.cpu(), params_d)
+        opt_c = step_c.opt.init(params_c)
+        ids = synthetic_batch(0, b, s, cfg.vocab_size, dev)
+        ids_c = synthetic_batch(0, b, s, cfg.vocab_size, "cpu")
+        check(torch.equal(ids.cpu(), ids_c), "same ids on both devices")
+        k0 = None if key is None else p.fold_in(key, 0)
+        t0 = time.perf_counter()
+        _, grads_d = step_d.grads(params_d, ids, ids, dropout_rng=k0)
+        new_d = step_d(params_d, opt_d, ids, ids)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, grads_c = step_c.grads(params_c, ids_c, ids_c, dropout_rng=k0)
+        new_c = step_c(params_c, opt_c, ids_c, ids_c)
+        t2 = time.perf_counter()
+        loss_d, loss_c = float(new_d[2]), float(new_c[2])
+        got = {"loss": abs(loss_d - loss_c) / abs(loss_c),
+               "grads": _relnorm(grads_d, grads_c),
+               "m": _relnorm(new_d[1].m, new_c[1].m),
+               "v": _relnorm(new_d[1].v, new_c[1].v),
+               "master": _maxabs(new_d[0], new_c[0])}
+        print(f"card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s; loss card "
+              f"{loss_d:.6f}, CPU {loss_c:.6f}", flush=True)
+        for k, val in got.items():
+            what = "max abs" if k == "master" else "relative"
+            check(val <= lim[k] and np.isfinite(val), f"{name} {k}: card "
+                  f"vs CPU {what} {val:.3g} <= {lim[k]:g}")
+        out[name] = got
+        del params_d, opt_d, grads_d, new_d, step_d
+        torch.cuda.empty_cache()
+    return out
+
+
+GPT_BIG = {  # name -> (use_rope, dropout, flat FusedAdam)
+    "gpt_tree": (False, False, False),
+    "gpt_rope_dropout": (True, True, True),
+}
+
+
+def gpt_train_big(dev, kern):
+    """Six steps of full GPT-medium (24 layers, remat) at gpt_tp_bench's
+    tp=1 shape, batch 8, seq 1024, bf16 compute over fp32 params, on one
+    fixed batch from ``randint(PRNGKey(1000))`` with labels = ids:
+    ``gpt_tree`` (the JAX benchmark's step exactly, tree FusedAdam) and
+    ``gpt_rope_dropout`` (RoPE, dropout 0.1 on ``fold_in(PRNGKey(0),
+    step)``, flat FusedAdam). Counts set to 0 before each run and read
+    after it; losses finite and falling; exact launches a step."""
+    import dataclasses
+
+    from apex_tpu_torch.examples.gpt.train import (
+        make_gpt_train_step, make_state, synthetic_batch,
+    )
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.utils.tree import tree_leaves
+
+    p = kernel_modules()[6]
+    out = {}
+    for name, (rope, drop, flat) in GPT_BIG.items():
+        cfg = dataclasses.replace(gpt_medium(), use_rope=rope)
+        L = cfg.num_layers
+        per_step = gpt_per_step_launches(L, cfg.remat, drop, flat)
+        phase(f"GPT training ({name}): gpt_medium ({L} layers, remat "
+              f"{cfg.remat}, {'RoPE' if rope else 'learned positions'}), "
+              f"batch {GPT_BATCH}, seq {GPT_SEQ}, bf16 compute over fp32 "
+              f"params, {'flat' if flat else 'tree'} FusedAdam(lr=1e-4, "
+              f"weight_decay=0.01), {GPT_STEPS} steps"
+              + (f", dropout {cfg.hidden_dropout} on fold_in(PRNGKey("
+                 f"{DROPOUT_SEED}), step)" if drop else ""))
+        step = make_gpt_train_step(
+            cfg, FusedAdam(lr=1e-4, weight_decay=0.01, use_flat_kernel=flat),
+            dropout_rng=p.PRNGKey(DROPOUT_SEED) if drop else None)
+        params, opt_state = make_state(cfg, step.opt, 0, dev)
+        ids = synthetic_batch(0, GPT_BATCH, GPT_SEQ, cfg.vocab_size, dev)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kern.values():
+            k.launches = 0
+        losses, times, steps_ok = [], [], True
+        for _ in range(GPT_STEPS):
+            before = {n: k.launches for n, k in kern.items()}
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, ids, ids)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            steps_ok &= all(kern[n].launches - before[n] == per_step[n]
+                            for n in kern)
+        launches = {n: k.launches for n, k in kern.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(x) for x in losses]
+        print(f"losses {[round(x, 5) for x in losses]}", flush=True)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              "every loss finite, the last below the first")
+        check(steps_ok and all(launches[n] == GPT_STEPS * per_step[n]
+                               for n in kern),
+              f"launches per step exactly "
+              f"{ {n: c for n, c in per_step.items() if c} } (every other "
+              f"kernel 0; {launches} over {GPT_STEPS} steps)")
+        med = statistics.median(times[1:])
+        print(f"smoke reading, not a benchmark: median step "
+              f"{med * 1e3:.1f} ms over steps 2-{GPT_STEPS} "
+              f"({GPT_BATCH * GPT_SEQ / med:.0f} tokens/s); first step "
+              f"{times[0] * 1e3:.1f} ms; peak device memory {peak:.2f} GiB; "
+              f"{n_params} parameters", flush=True)
+        out[name] = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                         median_step_ms=med * 1e3,
+                         tokens_per_s=GPT_BATCH * GPT_SEQ / med,
+                         launches=launches, per_step=per_step,
+                         peak_gib=peak, parameters=n_params)
+        del params, opt_state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def pretrain_defaults(dev):
+    """``examples/gpt/pretrain_gpt.py`` at its defaults (the reference
+    CLI's: 4 layers, h 64, seq 64, global batch 8 in 4 microbatches, 10
+    steps) on the card: finite losses on its printed steps, then DONE."""
+    import contextlib
+    import io
+
+    from apex_tpu_torch.examples.gpt import pretrain_gpt
+
+    phase("pretrain_gpt.py at its defaults on the card")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pretrain_gpt.main([])
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    losses = [float(ln.split()[3]) for ln in text.splitlines()
+              if ln.startswith("step ")]
+    check(rc == 0 and len(losses) >= 3 and all(np.isfinite(losses))
+          and text.strip().endswith("DONE"),
+          f"{len(losses)} finite losses printed, then DONE")
+    return losses
+
+
+def serve_rope(dev, kern):
+    """``serving_rope``: GPT-medium with ``use_rope=True`` (the JAX decode
+    benchmark's model: bench.py's _decode_bench_setup), random weights
+    from seed 0, no position table; decode logits against the full
+    forward (fp32 and O2), then the 16 requests on the O2 params twice:
+    the replay commits the same streams, exact launches."""
+    import dataclasses
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+
+    phase("serving_rope: gpt_medium with use_rope=True (no position "
+          "table), 16 greedy requests x 32 tokens, 8 slots, run twice")
+    cfg = dataclasses.replace(gpt_medium(), use_rope=True)
+    L = cfg.num_layers
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=dev)
+    check("position" not in params["embedding"], "no position table")
+    out = {}
+    with torch.inference_mode():
+        out["decode_err_fp32"] = decode_vs_full(
+            params, cfg, dev, torch.float32, "RoPE, fp32 params and cache",
+            1e-5)
+        params = amp.initialize("O2", verbosity=0).cast_model(params)
+        torch.cuda.empty_cache()
+        out["decode_err_bf16"] = decode_vs_full(
+            params, cfg, dev, torch.bfloat16,
+            "RoPE, O2 bf16 params and cache", 0.0625)
+        runs = [serve_mix(dev, cfg, params, kern) for _ in range(2)]
+    check(runs[0]["streams"] == runs[1]["streams"],
+          f"replay: the second run commits the same {N_REQUESTS} streams")
+    sr = runs[0]
+    forwards = N_REQUESTS + sr["decode_steps"]
+    check_launches(sr["launches"], {
+        "layer_norm_fwd": (2 * L + 1) * forwards,
+        "flash_attention_fwd": L * N_REQUESTS}, "RoPE serving")
+    print(f"smoke reading, not a benchmark: {sr['tokens_per_s']:.1f} and "
+          f"{runs[1]['tokens_per_s']:.1f} tokens/s", flush=True)
+    del sr["streams"]
+    out.update(sr, replay_tokens_per_s=runs[1]["tokens_per_s"])
+    return out
+
+
+def gpt_times(dev):
+    """The GPT-medium step's kernels at its shapes (device ms per call,
+    CUDA-graph replays): the causal flash forward, dq and dk/dv at b 8,
+    h 16, s 1024, d 64 on RoPE'd q and k and a view v, against SDPA's
+    causal forward and backward; the cross entropy on (8192, 50304) bf16
+    against ``F.cross_entropy``; ``flat_adam`` on GPT-medium's flat
+    buffer against ``torch._fused_adamw_``. The LayerNorm's (8192,
+    1024) bf16 x, fp32 w is the BERT step's shape, timed above."""
+    from apex_tpu_torch.multi_tensor_apply.flatten import (
+        flatten_tensors, unflatten_tensors,
+    )
+    from apex_tpu_torch.multi_tensor_apply.kernels import adam_hparams
+    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+    from apex_tpu_torch.utils.tree import tree_flatten
+
+    fa, xent = kernel_modules()[1:3]
+    mta = kernel_modules()[4]
+    phase("times at the GPT-medium step's shapes (batch 8, seq 1024; "
+          "device ms per call, CUDA-graph replays)")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    res = {}
+    b, h, s, d = GPT_BATCH, 16, GPT_SEQ, 64
+    q, k, v = _gpt_qkv(gen, dev, b, h, s, d)
+    do = _rand(gen, (b, s, h, d), torch.bfloat16, dev).transpose(1, 2)
+    kw = dict(causal=True, scale=d ** -0.5, rate=0.0)
+    o, lse = fa.attention_fwd_kernel(q, k, v, None, (0, 0), **kw)
+    delta = (do.float() * o.float()).sum(-1).reshape(-1, s)
+    qc, kc, vc = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+    doc = do.contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                              scale=d ** -0.5)
+
+    t_lf = time_ms(lambda: sdpa().detach())
+    t_lfb = time_ms(lambda: torch.autograd.grad(sdpa(), (qc, kc, vc), doc))
+    t_pb = time_ms(lambda: fa.attention_bwd_plain(q, k, v, None, o, lse, do,
+                                                  (0, 0), **kw), reps=5,
+                   inner=3)
+    pairs = b * h * s * (s + 1) // 2
+    qkvo = 4 * b * h * s * d * 2
+    rowstats = 2 * b * h * s * 4
+    label = f"b{b} h{h} s{s} d{d} causal bf16, RoPE'd q, k and a view v"
+    _entry(res, "gpt_flash_fwd",
+           time_ms(lambda: fa.attention_fwd_kernel(q, k, v, None, (0, 0),
+                                                   **kw)),
+           time_ms(lambda: fa.attention_fwd_plain(q, k, v, None, (0, 0),
+                                                  **kw), reps=5, inner=3),
+           t_lf, qkvo + b * h * s * 4, 4 * d * pairs, BF16_TC_FLOPS,
+           f"flash fwd {label}", "scaled_dot_product_attention causal")
+    _entry(res, "gpt_flash_dq",
+           time_ms(lambda: fa.attention_dq_kernel(q, k, v, None, do, lse,
+                                                  delta, (0, 0), **kw)),
+           t_pb, t_lfb - t_lf, qkvo + rowstats + b * h * s * d * 2,
+           6 * d * pairs, BF16_TC_FLOPS, f"flash dq {label}",
+           "sdpa causal backward (fwd+bwd - fwd; plain: whole backward)")
+    _entry(res, "gpt_flash_dkv",
+           time_ms(lambda: fa.attention_dkv_kernel(q, k, v, None, do, lse,
+                                                   delta, (0, 0), **kw)),
+           t_pb, t_lfb - t_lf, qkvo + rowstats + 2 * b * h * s * d * 2,
+           8 * d * pairs, BF16_TC_FLOPS, f"flash dk/dv {label}",
+           "sdpa causal backward (fwd+bwd - fwd; plain: whole backward)")
+    del q, k, v, do, o, qc, kc, vc, doc
+    torch.cuda.empty_cache()
+    n, vv = b * s, 50304
+    logits = _rand(gen, (n, vv), torch.bfloat16, dev, 3.0)
+    labels = torch.randint(0, vv, (n,), generator=gen, device=dev)
+    dloss = torch.full((n,), 1.0 / n, device=dev)
+    _, xlse = xent.xentropy_fwd_plain(logits, labels, 0.0)
+    lr = logits.clone().requires_grad_(True)
+
+    def ce():
+        return F.cross_entropy(lr, labels, reduction="none")
+
+    t_cf = time_ms(lambda: ce().detach(), inner=5)
+    t_cfb = time_ms(lambda: torch.autograd.grad(ce(), lr, dloss.to(
+        torch.bfloat16)), inner=5)
+    _entry(res, "gpt_xent_fwd",
+           time_ms(lambda: xent.xentropy_fwd_kernel(logits, labels, 0.0),
+                   inner=5),
+           time_ms(lambda: xent.xentropy_fwd_plain(logits, labels, 0.0),
+                   reps=5, inner=3),
+           t_cf, n * vv * 2 + n * 8 + 2 * n * 4, 4 * n * vv, FP32_FLOPS,
+           f"xentropy fwd ({n}, {vv}) bf16", "F.cross_entropy (bf16)")
+    _entry(res, "gpt_xent_bwd",
+           time_ms(lambda: xent.xentropy_bwd_kernel(logits, labels, xlse,
+                                                    dloss, 0.0), inner=5),
+           time_ms(lambda: xent.xentropy_bwd_plain(logits, labels, xlse,
+                                                   dloss, 0.0), reps=5,
+                   inner=3),
+           t_cfb - t_cf, 2 * n * vv * 2 + n * (8 + 4 + 4), 4 * n * vv,
+           FP32_FLOPS, f"xentropy bwd ({n}, {vv}) bf16",
+           "F.cross_entropy backward (bf16; fwd+bwd - fwd)")
+    del logits, lr, xlse
+    torch.cuda.empty_cache()
+    params = init_gpt(gpt_medium(), torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    leaves, _ = tree_flatten(params)
+    p, spec = flatten_tensors(leaves)
+    del params, leaves
+    g = _rand(gen, p.shape, torch.float32, dev, 1e-3)
+    m = _rand(gen, p.shape, torch.float32, dev, 1e-4)
+    vv2 = _rand(gen, p.shape, torch.float32, dev, 1e-6).abs()
+    hp = adam_hparams(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                      step=torch.tensor(3, device=dev), weight_decay=0.01,
+                      adam_w_mode=True, bias_correction=True, grad_scale=1.0,
+                      device=dev)
+    nel = p.numel()
+    views = [unflatten_tensors(t, spec) for t in (p, g, m, vv2)]
+    _entry(res, "gpt_flat_adam",
+           time_ms(lambda: mta.flat_adam_kernel(g, p, m, vv2, hp, None,
+                                                None), reps=5, inner=3),
+           time_ms(lambda: mta.flat_adam_plain(g, p, m, vv2, hp, None, None),
+                   reps=5, inner=3),
+           time_ms(_fused_adamw(views[:2], views[2], views[3], dev), reps=5,
+                   inner=3),
+           nel * (4 * 4 + 4 * 3), 16 * nel, FP32_FLOPS,
+           f"flat_adam GPT-medium's ({spec.total_rows}, 128) fp32, "
+           f"{nel} parameters", "torch._fused_adamw_ over the tree's tensors")
+    del p, g, m, vv2, views
+    torch.cuda.empty_cache()
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -2935,6 +3537,14 @@ def main():
                flat_novograd=sf["flat_novograd"])
     err.update(threefry_parity(dev))
     samp = sampler_parity(dev)
+    gk = gpt_kernel_parity(dev)
+    for name, key in (("flash_attention_fwd", "fwd"),
+                      ("flash_attention_bwd_dq", "dq"),
+                      ("flash_attention_bwd_dkv", "dkv"),
+                      ("xentropy_fwd", "xent_fwd"),
+                      ("xentropy_bwd", "xent_bwd")):
+        err[name] = max(err[name], gk[key])
+    rope = rope_parity(dev)
     kern = dict(zip(KERNEL_NAMES, (
         ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
         xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
@@ -2944,11 +3554,15 @@ def main():
         mta.FLAT_NOVOGRAD, prng.THREEFRY_BITS, prng.THREEFRY_DROPOUT)))
     torch.cuda.empty_cache()
     srv = serve(dev, kern)
+    srv_rope = serve_rope(dev, kern)
     small = train_small(dev)
+    gpt_small = gpt_train_small(dev)
     big = train_big(dev, kern)
+    gpt_big = gpt_train_big(dev, kern)
     rn_small = resnet_small(dev)
     rn_big = resnet_big(dev, kern)
     opt = opt_steps(dev, kern)
+    pre = pretrain_defaults(dev)
     tm = times(dev)
     tm.update(train_times(dev))
     tm.update(step_times(dev))
@@ -2956,11 +3570,16 @@ def main():
     tm.update(w8_times(dev))
     tm.update(sgd_family_times(dev))
     tm.update(threefry_times(dev))
+    tm.update(gpt_times(dev))
     by_path = {n: {"serving": srv["bf16"]["launches"][n],
                    "serving_w8": srv["w8"]["launches"][n],
                    "serving_sampled": srv["sampled"]["launches"][n],
+                   "serving_rope": srv_rope["launches"][n],
                    "training_dropout": big["fp32 dropout"]["launches"][n]}
                for n in kern}
+    for name, res in gpt_big.items():
+        for n in kern:
+            by_path[n][name] = res["launches"][n]
     for cfg_name in STEP_CONFIGS:
         path = _key(cfg_name, "training").replace(" ", "_")
         for n in kern:
@@ -3141,6 +3760,20 @@ def main():
         "stage 2 sums the partial rows per column in a fixed order with "
         "coalesced 128-byte reads; no float atomics",
         at_2048x4096=tm["ln_bwd_4096"])
+    # GPT-medium's training step (gpt_tp_bench's tp=1 shape): the
+    # LayerNorm's (8192, 1024) bf16 x, fp32 w and the dropout's 8.4M bf16
+    # elements are the BERT step's shapes, timed above
+    for name, key in (("layer_norm_fwd", "ln_fwd_train"),
+                      ("layer_norm_bwd", "ln_bwd"),
+                      ("flash_attention_fwd", "gpt_flash_fwd"),
+                      ("flash_attention_bwd_dq", "gpt_flash_dq"),
+                      ("flash_attention_bwd_dkv", "gpt_flash_dkv"),
+                      ("xentropy_fwd", "gpt_xent_fwd"),
+                      ("xentropy_bwd", "gpt_xent_bwd"),
+                      ("flat_adam", "gpt_flat_adam")):
+        kernels[KERNEL_NAMES.index(name)]["at_gpt_train"] = tm[key]
+    kernels[KERNEL_NAMES.index("threefry_dropout")]["at_gpt_train"] = \
+        tm["threefry_dropout_hidden"]
     for name in ("flat_adagrad", "flat_novograd"):
         kernels[KERNEL_NAMES.index(name)]["note"] = (
             "on no model path of the JAX package: driven through its "
@@ -3166,6 +3799,14 @@ def main():
     print(f"ResNet-50 training: {json.dumps(rn_big)}")
     print(f"optimizer steps on BERT-Large's parameter set: "
           f"{json.dumps(opt)}")
+    for key in ("gpt_flash_fwd", "gpt_flash_dq", "gpt_flash_dkv",
+                "gpt_xent_fwd", "gpt_xent_bwd", "gpt_flat_adam"):
+        print(f"{key}: {json.dumps(tm[key])}")
+    print(f"RoPE: {json.dumps(rope)}")
+    print(f"serving_rope: {json.dumps(srv_rope)}")
+    print(f"GPT training, card vs CPU: {json.dumps(gpt_small)}")
+    print(f"GPT-medium training: {json.dumps(gpt_big)}")
+    print(f"pretrain_gpt losses: {json.dumps(pre)}")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -40,6 +40,22 @@ def jax_params():
     return jax_gpt.init_gpt(jax.random.PRNGKey(0), jax_gpt.gpt_tiny())
 
 
+def _rope_cfgs():
+    """gpt_tiny with RoPE: (JAX config, port config)."""
+    import dataclasses
+
+    return (dataclasses.replace(jax_gpt.gpt_tiny(), use_rope=True),
+            dataclasses.replace(port_gpt.gpt_tiny(), use_rope=True))
+
+
+@pytest.fixture(scope="module")
+def rope_params():
+    # key 3: every greedy choice of the stream test clears its near-tie
+    # guard (keys 0-2 leave a top-2 margin under 1e-3 on this tiny
+    # random model, where an fp32 reordering could flip a token)
+    return jax_gpt.init_gpt(jax.random.PRNGKey(3), _rope_cfgs()[0])
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -102,8 +118,19 @@ def test_init_gpt_matches_jax_tree():
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_prefill_and_decode_match_jax(jax_params, dt):
-    cfg = jax_gpt.gpt_tiny()
-    jp = jax_params
+    _prefill_and_decode(jax_params, jax_gpt.gpt_tiny(), port_gpt.gpt_tiny(),
+                        dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rope_prefill_and_decode_match_jax(rope_params, dt):
+    """The RoPE model (no position table; q and k rotated in prefill,
+    and at each slot's position in decode)."""
+    assert "position" not in rope_params["embedding"]
+    _prefill_and_decode(rope_params, *_rope_cfgs(), dt)
+
+
+def _prefill_and_decode(jp, cfg, pcfg, dt):
     if dt == "bf16":
         jp = jax_amp.initialize("O2", verbosity=0).cast_model(jp)
     pp = _port_params(jp)
@@ -121,10 +148,9 @@ def test_prefill_and_decode_match_jax(jax_params, dt):
     jcache = jax_serving.init_cache(cfg, 2, S_MAX, jdt)
     jcache, jl = jax_serving.make_prefill_fn(cfg)(
         jp, jcache, jnp.asarray(ids), jnp.asarray(mask), jnp.int32(slot))
-    pcache = port_serving.init_cache(port_gpt.gpt_tiny(), 2, S_MAX, tdt,
-                                     "cpu")
+    pcache = port_serving.init_cache(pcfg, 2, S_MAX, tdt, "cpu")
     with torch.inference_mode():
-        pcache, pl = port_serving.make_prefill_fn(port_gpt.gpt_tiny())(
+        pcache, pl = port_serving.make_prefill_fn(pcfg)(
             pp, pcache, torch.from_numpy(ids).long(),
             torch.from_numpy(mask), slot)
         assert pl.dtype == torch.float32 and pl.shape == (1, 512)
@@ -135,7 +161,7 @@ def test_prefill_and_decode_match_jax(jax_params, dt):
         assert pcache.lengths.tolist() == np.asarray(jcache.lengths).tolist()
 
         jdecode = jax_serving.make_decode_fn(cfg)
-        pdecode = port_serving.make_decode_fn(port_gpt.gpt_tiny())
+        pdecode = port_serving.make_decode_fn(pcfg)
         active = np.asarray([False, True])
         tok = int(np.argmax(np.asarray(jl)[0]))
         for _ in range(6):
@@ -162,8 +188,16 @@ def _full_logits(params, cfg, seq):
 def test_decode_matches_full_forward(jax_params):
     """Port-only headline contract: cached decode logits equal the
     port's full-sequence forward at the same positions."""
-    cfg = port_gpt.gpt_tiny()
-    pp = _port_params(jax_params)
+    _decode_vs_full(_port_params(jax_params), port_gpt.gpt_tiny())
+
+
+def test_rope_decode_matches_full_forward(rope_params):
+    """The same contract with RoPE: decode rotates q and k at each
+    slot's own position, the full forward at rows 0..s-1."""
+    _decode_vs_full(_port_params(rope_params), _rope_cfgs()[1])
+
+
+def _decode_vs_full(pp, cfg):
     seq = torch.from_numpy(np.random.RandomState(4).randint(
         0, cfg.vocab_size, size=(1, 20))).long()
     prompt = 8
@@ -195,7 +229,19 @@ def _requests(vocab):
 
 
 def test_greedy_streams_identical_to_jax(jax_params):
-    cfg = jax_gpt.gpt_tiny()
+    reasons = _greedy_streams(jax_params, jax_gpt.gpt_tiny(),
+                              port_gpt.gpt_tiny())
+    assert "eos" in reasons
+
+
+def test_rope_greedy_streams_identical_to_jax(rope_params):
+    """The RoPE model's greedy streams and tick accounting equal the JAX
+    scheduler's."""
+    _greedy_streams(rope_params, *_rope_cfgs())
+
+
+def _greedy_streams(jax_params, cfg, pcfg):
+    """Both schedulers on one request mix; the JAX side's reasons."""
     reqs = _requests(cfg.vocab_size)
     jeng = jax_serving.DecodeEngine(jax_params, cfg, num_slots=2,
                                     max_len=S_MAX, cache_dtype=jnp.float32)
@@ -204,9 +250,8 @@ def test_greedy_streams_identical_to_jax(jax_params):
         jsched.submit(jax_serving.Request(prompt=p, max_new_tokens=m))
     want = jsched.run()
     reasons = [jsched.outcomes[i].reason for i in range(len(reqs))]
-    assert "eos" in reasons and "length" in reasons
+    assert "length" in reasons
 
-    pcfg = port_gpt.gpt_tiny()
     pp = _port_params(jax_params)
     with torch.inference_mode():
         # guard: every greedy choice wins by a clear top-2 margin, so a
@@ -229,6 +274,7 @@ def test_greedy_streams_identical_to_jax(jax_params):
         assert (a.tokens, a.reason, a.ttft_ticks, a.total_ticks,
                 a.prefill_ticks) == (b.tokens, b.reason, b.ttft_ticks,
                                      b.total_ticks, b.prefill_ticks)
+    return reasons
 
 
 @pytest.mark.parametrize("n_req", [1, 2])
@@ -444,11 +490,39 @@ def test_pad_to_bucket_ragged_leaf_raises_like_jax():
     assert str(got.value) == str(want.value)
 
 
-def test_generate_cli_runs_on_cpu():
+def _generate(*flags):
     out = subprocess.run(
         [sys.executable, "-m", "apex_tpu_torch.examples.gpt.generate",
          "--device", "cpu", "--num-requests", "3", "--num-slots", "2",
-         "--max-new-tokens", "4", "--max-len", "64", "--eos-id=-1"],
+         "--max-new-tokens", "4", "--max-len", "64", "--eos-id=-1", *flags],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "generated 12 tokens across 3 requests" in out.stdout
+
+
+def test_generate_cli_runs_on_cpu():
+    _generate()
+
+
+def test_generate_cli_runs_on_cpu_with_rope():
+    """``--use-rope``, as the reference CLI takes it."""
+    _generate("--use-rope")
+
+
+def test_rope_tree_serves_past_the_position_table(rope_params):
+    """A RoPE tree has no position leaf: ``quantize_params`` and the
+    cache take it, and the cache may outrun ``max_position_embeddings``
+    (the angle table covers the cache), as in the JAX package."""
+    from apex_tpu_torch.quant import quantize_params
+
+    _, pcfg = _rope_cfgs()
+    q = quantize_params(_port_params(rope_params))
+    assert "position" not in q["embedding"]
+    n = 2 * pcfg.max_position_embeddings
+    eng = port_serving.DecodeEngine(q, pcfg, num_slots=1, max_len=n,
+                                    cache_dtype=torch.float32, device="cpu")
+    with torch.inference_mode():
+        logits = eng.prefill(0, list(range(2, 2 + n - 8)))
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="learned position table"):
+        port_serving.init_cache(port_gpt.gpt_tiny(), 1, n, device="cpu")

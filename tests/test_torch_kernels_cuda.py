@@ -513,7 +513,8 @@ def test_flash_bwd_kernels_match_plain(cuda_device, b, h, s, d, dt, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,v,dt,eps", [
     (8192, 30522, "f32", 0.0), (8192, 30522, "f32", 0.1),
-    (100, 1000, "bf16", 0.1), (5, 77, "f32", 0.0)])
+    (100, 1000, "bf16", 0.1), (5, 77, "f32", 0.0),
+    (8192, 50304, "bf16", 0.0)])   # GPT-medium's step: 393 x 128 columns
 def test_xentropy_kernels_match_plain(cuda_device, n, v, dt, eps):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = (torch.randn((n, v), generator=g, device=cuda_device) * 3.0).to(
@@ -537,6 +538,98 @@ def test_xentropy_kernels_match_plain(cuda_device, n, v, dt, eps):
     assert dx.dtype == x.dtype
     assert bool((loss[labels < 0] == 0).all())
     assert bool((dx[labels < 0] == 0).all())
+
+
+def _gpt_qkv(b, h, s, d, dev, seed=0):
+    """q, k, v as the GPT training step hands them to flash: q and k out
+    of RoPE (new tensors), v a ``_split_qkv`` view of the fused bf16
+    projection; and a do laid out (b, s, h, d) as the heads' merge
+    gives it."""
+    from apex_tpu_torch.transformer.functional import (
+        fused_apply_rotary_pos_emb_bhsd, rope_frequencies,
+    )
+
+    rng = np.random.RandomState(seed)
+    q, k, v = _split_qkv(_t(rng.randn(b, s, 3 * h * d), "bf16", dev), d)
+    freqs = rope_frequencies(d, s, device=dev)
+    do = _t(rng.randn(b, s, h, d), "bf16", dev).transpose(1, 2)
+    return (fused_apply_rotary_pos_emb_bhsd(q, freqs),
+            fused_apply_rotary_pos_emb_bhsd(k, freqs), v, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_gpt_training_shape_mixed_strides(cuda_device, masked):
+    """The causal forward, dq and dk/dv at GPT-medium's training shape
+    (b 8, h 16, s 1024, d 64) on RoPE'd q and k beside a view v (three
+    tensors with different strides), with and without a key mask: per
+    element to ``o_limit`` and ``bwd_limits``, a repeat the same bits."""
+    b, h, s, d = 8, 16, 1024, 64
+    q, k, v, do = _gpt_qkv(b, h, s, d, cuda_device)
+    m = None
+    if masked:
+        m = torch.ones((b, s), dtype=torch.int32, device=cuda_device)
+        m[:, s - s // 8:] = 0
+    kw = dict(causal=True, scale=d ** -0.5, rate=0.0)
+    o, lse = attention_fwd_kernel(q, k, v, m, (0, 0), **kw)
+    o2, lse2 = attention_fwd_kernel(q, k, v, m, (0, 0), **kw)
+    got = attention_bwd_kernel(q, k, v, m, o, lse, do, (0, 0), **kw)
+    again = attention_bwd_kernel(q, k, v, m, o, lse, do, (0, 0), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(g, g2) for g, g2 in zip(got, again))
+    o0, lse0 = attention_fwd_plain(q, k, v, m, (0, 0), **kw)
+    _assert_o_close(o, o0, q, k, v, m, True, d ** -0.5)
+    fin = torch.isfinite(lse0)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], lse0[fin], rtol=0.0,
+                               atol=_LSE_TOL["bf16"])
+    want = attention_bwd_plain(q, k, v, m, o, lse, do, (0, 0), **kw)
+    lims = fa_mod.bwd_limits(q, k, v, m, o, lse, do, *want, **kw)
+    for name, g, w0, lim in zip(("dq", "dk", "dv"), got, want, lims):
+        assert bool(torch.isfinite(g).all())
+        _assert_within(name, g, w0, lim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,decode", [((8, 16, 1024, 64), False),
+                                          ((8, 16, 1, 64), True)],
+                         ids=["train", "decode"])
+def test_rope_on_card_matches_cpu(cuda_device, shape, decode):
+    """``fused_apply_rotary_pos_emb_bhsd`` and its dt on the card against
+    the CPU on the same bf16 input: within ``fused_rope``'s error model
+    (8 u of |t| |cos| + |rotate_half(t)| |sin|, plus one bf16 ulp of the
+    output), per-slot positions at the decode tick."""
+    from apex_tpu_torch.transformer.functional import fused_rope as rope
+
+    rng = np.random.RandomState(1)
+    b, h, s, d = shape
+    t = _t(rng.randn(*shape), "bf16", cuda_device).requires_grad_(True)
+    g = _t(rng.randn(*shape), "bf16", cuda_device)
+    rows = 1024
+    freqs = rope.rope_frequencies(d, rows if decode else s,
+                                  device=cuda_device)
+    pos = torch.tensor([0, 1, 63, 100, 511, 512, 900, 1023],
+                       device=cuda_device) if decode else None
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        tt = t.detach().to(dev).requires_grad_(True)
+        y = rope.fused_apply_rotary_pos_emb_bhsd(
+            tt, freqs.to(dev), None if pos is None else pos.to(dev))
+        (dt,) = torch.autograd.grad(y, (tt,), g.to(dev))
+        outs.append((y.detach().cpu(), dt.cpu()))
+    f2 = freqs.cpu().reshape(-1, d).double()
+    idx = pos.cpu()[:, None] if decode else torch.arange(s)
+    cos = torch.cos(f2)[idx].reshape(b if decode else 1, 1, s, d)
+    sin = torch.sin(f2)[idx].reshape(cos.shape)
+    for x, (got, want) in ((t, (outs[0][0], outs[1][0])),
+                           (g, (outs[0][1], outs[1][1]))):
+        x = x.detach().cpu().double()
+        half = d // 2
+        rot = torch.cat([-x[..., half:], x[..., :half]], -1)
+        lim = 8 * 2.0 ** -24 * (x.abs() * cos.abs() + rot.abs() * sin.abs()) \
+            + 2.0 ** -7 * want.double().abs()
+        _assert_within("rope", got.double(), want.double(), lim)
 
 
 _SOFTMAX_CASES = [

@@ -13,13 +13,15 @@
   names, order, kinds and defaults (dtypes by name: ``jnp.float32`` is
   ``torch.float32``);
 - every ported module's public functions, classes and methods have the
-  reference module's names and parameters (an AST scan of the
-  reference against the port's signatures), except the deliberate
+  reference module's names and parameters, and its dataclasses and named
+  tuples the reference's fields, names and defaults (an AST scan of the
+  reference against the port's signatures and fields), except the deliberate
   departures, listed by name, and the names owed to later queue-A items
   of ``ROADMAP.md``, listed by item; modules with no reference are
   listed as port-only."""
 
 import ast
+import dataclasses
 import enum
 import importlib
 import inspect
@@ -33,6 +35,8 @@ import torch
 
 from apex_tpu_torch import amp as port_amp
 from apex_tpu_torch.examples.bert.train import make_bert_train_step
+from apex_tpu_torch.examples.gpt import pretrain_gpt
+from apex_tpu_torch.examples.gpt import train as gpt_train
 from apex_tpu_torch.examples.imagenet.main_amp import make_resnet_train_step
 from apex_tpu_torch.models import bert as port_bert
 from apex_tpu_torch.models import gpt as port_gpt
@@ -52,6 +56,8 @@ fsm = importlib.import_module(
 mta = importlib.import_module("apex_tpu_torch.multi_tensor_apply.kernels")
 w8 = importlib.import_module("apex_tpu_torch.quant.kernels")
 prng = importlib.import_module("apex_tpu_torch.utils.prng")
+rope = importlib.import_module(
+    "apex_tpu_torch.transformer.functional.fused_rope")
 
 # the plain forwards, saved before any test patches them
 _plain = {"ln": ln.layer_norm_fwd_plain, "fa": fa.attention_fwd_plain,
@@ -105,7 +111,9 @@ def no_cuda(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "resolve_device", "init_gpt", "init_cache", "DecodeEngine",
     "params_from_jax", "init_bert", "make_bert_train_step",
-    "scaler_init_state", "init_resnet", "resnet_step_init_state"])
+    "scaler_init_state", "init_resnet", "resnet_step_init_state",
+    "init_gpt_from_key", "rope_frequencies", "rope_cos_sin",
+    "gpt_make_state", "gpt_train_main", "pretrain_gpt_main"])
 def test_default_device_is_the_card(no_cuda, entry):
     cfg = port_gpt.gpt_tiny()
     bcfg = port_bert.bert_tiny()
@@ -122,6 +130,14 @@ def test_default_device_is_the_card(no_cuda, entry):
         "init_resnet": lambda: init_resnet(torch.Generator(), 10, 10),
         "resnet_step_init_state": lambda: make_resnet_train_step(
             10).init_state({"w": torch.zeros(2)}, {}),
+        "init_gpt_from_key": lambda: port_gpt.init_gpt_from_key(
+            prng.PRNGKey(0), cfg),
+        "rope_frequencies": lambda: rope.rope_frequencies(8, 4),
+        "rope_cos_sin": lambda: rope.rope_cos_sin(8, 4),
+        "gpt_make_state": lambda: gpt_train.make_state(
+            cfg, port_optimizers.FusedAdam()),
+        "gpt_train_main": lambda: gpt_train.main(["--config", "tiny"]),
+        "pretrain_gpt_main": lambda: pretrain_gpt.main([]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -333,6 +349,27 @@ def test_gpt_on_card_path_never_reaches_plain(dispatch_to_card):
                                      torch.zeros((1, 4), dtype=torch.long))
 
 
+@pytest.mark.parametrize("use_rope", [False, True], ids=["learned", "rope"])
+def test_gpt_training_on_card_path_never_reaches_plain(monkeypatch,
+                                                       dispatch_to_card,
+                                                       use_rope):
+    """The GPT training step with dropout on the card path, the norm and
+    attention forwards let through (swapped for the saved plain
+    versions): the next kernel wrapper it reaches (the dropout's)
+    refuses the CPU tensors; RoPE is plain PyTorch on either device."""
+    import dataclasses
+
+    monkeypatch.setattr(ln, "layer_norm_fwd_kernel", _plain["ln"])
+    monkeypatch.setattr(fa, "attention_fwd_kernel", _plain["fa"])
+    cfg = dataclasses.replace(port_gpt.gpt_tiny(), use_rope=use_rope)
+    params = port_gpt.init_gpt(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    step = gpt_train.make_gpt_train_step(cfg, dropout_rng=prng.PRNGKey(0))
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="dropout kernel needs CUDA"):
+        step(params, step.opt.init(params), ids, ids)
+
+
 @pytest.mark.parametrize("fn", ["w8_matmul", "w8_matmul_nobias",
                                 "w8_matmul_nk"])
 def test_cuda_path_never_reaches_plain_w8(dispatch_to_card, fn):
@@ -490,6 +527,9 @@ PORT_ONLY = {
     "examples/bert/train.py": "bench.py::_bert_step as a module and CLI",
     "examples/bert/profile_train.py": "a profiler window on the card",
     "examples/gpt/profile_serving.py": "a profiler window on the card",
+    "examples/gpt/train.py": "bench.py's GPT tp=1 step (gpt_tp_bench's "
+                             "body1) as a module and CLI",
+    "examples/gpt/profile_train.py": "a profiler window on the card",
     "examples/imagenet/profile_train.py": "a profiler window on the card",
     "examples/kernel_ab.py": "kernels of two checkouts in one process",
 }
@@ -508,6 +548,7 @@ DEPARTURES = {
         "no torch.autograd counterpart",
     "examples/gpt/generate.py:parse_args": "argv=, so tests drive the CLI",
     "examples/gpt/generate.py:main": "argv=, so tests drive the CLI",
+    "examples/gpt/pretrain_gpt.py:main": "argv=, so tests drive the CLI",
     "examples/imagenet/main_amp.py:parse_args":
         "argv=, so tests drive the CLI",
     "examples/imagenet/main_amp.py:main": "argv=, so tests drive the CLI",
@@ -543,11 +584,6 @@ DEPARTURES = {
 # item lands, delete its entry: the scan then holds every one of its names
 # to the reference.
 OWED = {
-    "A3 GPT training": [
-        "models/gpt.py:draft_gpt_tiny", "models/gpt.py:draft_gpt_medium",
-        "models/gpt.py:GPTModel", "models/gpt.py:gpt_loss_unsharded",
-        "models/gpt.py:accumulate_tied_word_grads",
-        "models/gpt.py:apply_gpt_unsharded"],            # dropout_rng=
     "A4.1 paged cache": [
         "serving/cache.py:PagedKVCache", "serving/cache.py:max_pages_per_slot",
         "serving/cache.py:init_paged_cache",
@@ -592,7 +628,11 @@ OWED = {
             "ReplicaUnavailable", "SpillFailed", "PromoteFailed",
             "StreamFailed", "QuotaExhausted", "SloViolation",
             "ReplicaHealth", "ServingStats", "snapshot",
-            "ServingError.__init__", "RequestOutcome.ok")] + [
+            "ServingError.__init__", "RequestOutcome.ok",
+            "RequestOutcome.error", "RequestOutcome.retries",
+            "RequestOutcome.tenant_id", "RequestOutcome.slo")] + [
+        "serving/scheduler.py:Request.deadline_ticks",
+        "serving/scheduler.py:Request.tenant_id",
         "serving/scheduler.py:ContinuousBatchingScheduler.__init__",
         "serving/scheduler.py:ContinuousBatchingScheduler.clock",
         "serving/scheduler.py:ContinuousBatchingScheduler.advance_clock",
@@ -613,6 +653,7 @@ OWED = {
         "optimizers/fused_novograd.py:FusedNovoGrad.step",
         "multi_tensor_apply/kernels.py:flat_lamb"],  # grad_scale, grad_norm
     "A6 data and model parallelism": [
+        "models/gpt.py:GPTModel",
         "models/bert.py:bert_partition_specs",
         "models/gpt.py:gpt_partition_specs",
         "models/gpt.py:gpt_to_pipeline_params",
@@ -701,10 +742,53 @@ def _same(ref, port):
     return True
 
 
+def _is_record(node):
+    """A dataclass or a NamedTuple in the reference's source."""
+    return any("dataclass" in ast.unparse(d) for d in node.decorator_list) \
+        or any("NamedTuple" in ast.unparse(b) for b in node.bases)
+
+
+def _port_fields(obj):
+    """{field: default} of a port dataclass or NamedTuple (empty where
+    a field has none); None for another kind of class."""
+    if dataclasses.is_dataclass(obj):
+        out = {}
+        for f in dataclasses.fields(obj):
+            out[f.name] = (
+                f.default if f.default is not dataclasses.MISSING
+                else f.default_factory()
+                if f.default_factory is not dataclasses.MISSING
+                else inspect.Parameter.empty)
+        return out
+    if isinstance(obj, type) and issubclass(obj, tuple) \
+            and hasattr(obj, "_fields"):
+        return {n: obj._field_defaults.get(n, inspect.Parameter.empty)
+                for n in obj._fields}
+    return None
+
+
+def _field_findings(key, node, obj, ns):
+    """``key.field`` for each field of the reference record ``node``
+    that the port's class lacks or gives another default, and for each
+    field the port adds."""
+    ref = {s.target.id: _default(s.value, ns) for s in node.body
+           if isinstance(s, ast.AnnAssign) and isinstance(s.target, ast.Name)}
+    port = _port_fields(obj)
+    if port is None:
+        return [f"{key}.{n}" for n in ref]
+    found = []
+    for n, d in ref.items():
+        if n not in port or not _same([(n, "F", d)], [(n, "F", port[n])]):
+            found.append(f"{key}.{n}")
+    return found + [f"{key}.{n}" for n in port if n not in ref]
+
+
 def _surface_findings(rel):
     """The "module:name" keys where the port departs from the reference:
     a public function, class or method that is missing, or whose
-    parameters differ."""
+    parameters differ; and "module:Class.field" keys where a reference
+    dataclass or NamedTuple's field is missing, has another default, or
+    the port adds one."""
     with open(_MODULES[rel]) as f:
         tree = ast.parse(f.read())
     mod = importlib.import_module(
@@ -724,6 +808,8 @@ def _surface_findings(rel):
             if not _same(_ref_params(node, ns), _port_params(obj)):
                 found.append(key)
             continue
+        if _is_record(node):
+            found += _field_findings(key, node, obj, ns)
         for m in node.body:
             if not isinstance(m, ast.FunctionDef) or (
                     m.name.startswith("_") and m.name != "__init__"):
@@ -738,6 +824,50 @@ def _surface_findings(rel):
                            _port_params(getattr(obj, m.name))):
                 found.append(mkey)
     return found
+
+
+def test_field_scan_finds_a_missing_or_changed_field(monkeypatch):
+    """The scan reports a reference dataclass field the port lacks, one
+    whose default differs, and one the port adds, by
+    ``module:Class.field`` (GPTConfig lacked six fields unseen before
+    fields were scanned); a NamedTuple's fields likewise."""
+    from typing import NamedTuple
+
+    kept = [(f.name, f.type, dataclasses.field(
+        default=500.0 if f.name == "rope_base" else f.default))
+        for f in dataclasses.fields(port_gpt.GPTConfig) if f.name != "remat"]
+    monkeypatch.setattr(port_gpt, "GPTConfig", dataclasses.make_dataclass(
+        "GPTConfig", kept + [("extra", int, dataclasses.field(default=0))],
+        frozen=True))
+    found = _surface_findings("models/gpt.py")
+    assert {"models/gpt.py:GPTConfig.remat",
+            "models/gpt.py:GPTConfig.rope_base",
+            "models/gpt.py:GPTConfig.extra"} <= set(found)
+    cache = importlib.import_module("apex_tpu_torch.serving.cache")
+
+    class KVCache(NamedTuple):
+        k: torch.Tensor
+        v: torch.Tensor
+
+    monkeypatch.setattr(cache, "KVCache", KVCache)
+    assert "serving/cache.py:KVCache.lengths" in _surface_findings(
+        "serving/cache.py")
+
+
+def test_gpt_config_has_every_reference_field():
+    """GPTConfig carries the reference's fields with its defaults, and
+    gpt_medium() checkpoints its layers as the reference's does."""
+    assert [f.name for f in dataclasses.fields(port_gpt.GPTConfig)] == [
+        "vocab_size", "hidden_size", "num_layers", "num_heads",
+        "ffn_hidden_size", "max_position_embeddings", "layer_norm_eps",
+        "use_rope", "rope_base", "hidden_dropout", "remat", "remat_policy",
+        "sequence_parallel", "context_parallel", "context_parallel_impl",
+        "gradient_accumulation_fusion"]
+    assert port_gpt.gpt_medium().remat is True
+    assert not _field_findings("models/gpt.py:GPTConfig", next(
+        n for n in ast.parse(open(_MODULES["models/gpt.py"]).read()).body
+        if isinstance(n, ast.ClassDef) and n.name == "GPTConfig"),
+        port_gpt.GPTConfig, vars(port_gpt))
 
 
 def test_port_only_modules_are_listed():
