@@ -134,7 +134,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    (bytes over 3.35 TB/s or operations over the peak rate for their type, the
    larger; for the threefry kernels the integer-ALU operations over 64
    lanes an SM at the card's maximum SM clock, with ``F.dropout`` beside
-   as a different function).
+   as a different function, and the card's launch floor: a 1-element
+   ``add_`` in the same harness).
 8. GPT: RoPE and training — the JAX package's decode benchmark's RoPE
    model (``bench.py``'s ``_decode_bench_setup``) and its tp=1
    GPT-medium step (``gpt_tp_bench(on_tpu, n_devices=1)``). Kernel
@@ -2887,6 +2888,13 @@ def threefry_times(dev):
                time_ms(lambda: p.threefry_bits_plain(keys, n, dev)), None,
                4 * elems, BITS_ALU_OPS * elems, peak,
                f"threefry bits, {keys.shape[0]} key(s) x {n}", "no library")
+    # the card's launch floor: one 1-element op in the same harness (a
+    # floor on any launch's time, not a bound on the bits' work)
+    one = torch.zeros(1, device=dev)
+    floor = time_ms(lambda: one.add_(1))
+    res["threefry_bits_8x50304"]["launch_floor_ms"] = floor
+    print(f"  launch floor (a 1-element add_, CUDA-graph replays): "
+          f"{floor:.5f}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(12)
     words = p.host_bits(p.PRNGKey(3), 2)
     for label, shape in (("threefry_dropout_hidden", HIDDEN_SHAPE),
@@ -3715,6 +3723,15 @@ def main():
         "not split (no scratch, no counters), a contiguous run of "
         "16-channel tiles a block, two blocks an SM; fp32 x keeps the "
         "CUDA-core gemv, M > 8 the CUDA-core tile")
+    kernels[KERNEL_NAMES.index("xentropy_bwd")].update(
+        redesigned=True,
+        note="rebuilt for the bytes: a persistent grid (SMs x the blocks an "
+        "SM holds) walking the rows with no barrier, each row's label, lse "
+        "and dloss read once, a row ahead; 16-byte streaming loads (4 "
+        "vectors a thread in flight) and stores from a 256-byte block of "
+        "the row, a scalar head and tail around them; 32-bit columns; the "
+        "label column patched in its one vector; an ignored row a zero "
+        "stream; the parent's operations in its order (the same bits)")
     kernels[KERNEL_NAMES.index("scaled_masked_softmax_fwd")].update(
         redesigned=True,
         note="rebuilt for the bytes: a block's rows share one (batch, "

@@ -20,7 +20,11 @@ one row more. The backward kernels and the softmax cross entropy are
 held per element to the error models of ``fused_layer_norm.bwd_limits``,
 ``flash_attention.bwd_limits`` and ``xentropy.limits`` (the sum-order
 bound of each fp32 reduction plus one ulp per rounding to bf16), the
-limits ``chip_smoke.py`` uses. The fused softmax forward and backward
+limits ``chip_smoke.py`` uses; the cross-entropy backward also on rows
+that do not start 16-byte aligned, a row shorter than one vector, labels
+on a row's first and last column, every row ignored, x views off and on
+dx's 16-byte phase, and two launches at GPT-medium's shape bit for bit.
+The fused softmax forward and backward
 are held per element to ``fused_softmax.fwd_limits`` and
 ``fused_softmax.bwd_limits`` (the row sums in other orders, one ulp of a bf16
 or fp16 output; the forward also with uint8 and int32 masks read as vectors or
@@ -514,7 +518,9 @@ def test_flash_bwd_kernels_match_plain(cuda_device, b, h, s, d, dt, causal,
 @pytest.mark.parametrize("n,v,dt,eps", [
     (8192, 30522, "f32", 0.0), (8192, 30522, "f32", 0.1),
     (100, 1000, "bf16", 0.1), (5, 77, "f32", 0.0),
-    (8192, 50304, "bf16", 0.0)])   # GPT-medium's step: 393 x 128 columns
+    (8192, 50304, "bf16", 0.0),    # GPT-medium's step: 393 x 128 columns
+    (64, 50257, "bf16", 0.1),      # GPT-2's vocabulary: rows at any even byte
+    (3, 7, "bf16", 0.0)])          # a row shorter than one 16-byte vector
 def test_xentropy_kernels_match_plain(cuda_device, n, v, dt, eps):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = (torch.randn((n, v), generator=g, device=cuda_device) * 3.0).to(
@@ -538,6 +544,64 @@ def test_xentropy_kernels_match_plain(cuda_device, n, v, dt, eps):
     assert dx.dtype == x.dtype
     assert bool((loss[labels < 0] == 0).all())
     assert bool((dx[labels < 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v,dt,eps,labels,offset", [
+    # labels on the first and the last column of their rows, and each
+    # row's scalar head and tail (rows of 30522 fp32 start at 8-byte
+    # steps, of 50257 bf16 at 2-byte steps)
+    (64, 50257, "bf16", 0.1, "edges", 0),
+    (9, 30522, "f32", 0.0, "edges", 0),
+    (3, 7, "bf16", 0.1, "edges", 0),
+    (16, 50304, "bf16", 0.0, "ignored", 0),   # every row ignored
+    (9, 30522, "f32", 0.1, "ignored", 0),
+    # x a view at an element offset: off dx's 16-byte phase (one element
+    # a vector) or on it (8 bf16, 4 fp32: the vectors)
+    (33, 1003, "bf16", 0.0, "edges", 1),
+    (33, 1003, "f32", 0.1, "edges", 2),
+    (33, 1003, "bf16", 0.0, "edges", 8),
+    (33, 1003, "f32", 0.0, "edges", 4)])
+def test_xentropy_bwd_rows_and_labels_match_plain(cuda_device, n, v, dt, eps,
+                                                  labels, offset):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    buf = (torch.randn((n * v + offset,), generator=g, device=cuda_device)
+           * 3.0).to(_DT[dt])
+    x = buf[offset:].view(n, v)
+    lab = torch.full((n,), -1, dtype=torch.int64, device=cuda_device)
+    if labels == "edges":
+        lab[0::2] = 0
+        lab[1::2] = v - 1
+    dloss = torch.rand((n,), generator=g, device=cuda_device) + 0.5
+    loss, lse = xent.xentropy_fwd_kernel(x, lab, eps)
+    dx = xent.xentropy_bwd_kernel(x, lab, lse, dloss, eps)
+    torch.cuda.synchronize()
+    loss0, lse0 = xent.xentropy_fwd_plain(x, lab, eps)
+    dx0 = xent.xentropy_bwd_plain(x, lab, lse0, dloss, eps)
+    lim_loss, lim_lse, lim_dx = xent.limits(x, lab, eps, loss0, lse0,
+                                            dloss, dx0)
+    _assert_within("loss", loss, loss0, lim_loss)
+    _assert_within("lse", lse, lse0, lim_lse)
+    _assert_within("dx", dx, dx0, lim_dx)
+    assert dx.dtype == x.dtype and bool(torch.isfinite(dx).all())
+    assert bool((dx[lab < 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_xentropy_bwd_repeats_bit_equal(cuda_device):
+    """Two launches at GPT-medium's (8192, 50304) bf16 give the same
+    bits: nothing is reduced across threads."""
+    n, v = 8192, 50304
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (torch.randn((n, v), generator=g, device=cuda_device) * 3.0).to(
+        torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=g, device=cuda_device)
+    dloss = torch.full((n,), 1.0 / n, device=cuda_device)
+    _, lse = xent.xentropy_fwd_kernel(x, labels, 0.0)
+    dx = xent.xentropy_bwd_kernel(x, labels, lse, dloss, 0.0)
+    again = xent.xentropy_bwd_kernel(x, labels, lse, dloss, 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, again)
 
 
 def _gpt_qkv(b, h, s, d, dev, seed=0):
