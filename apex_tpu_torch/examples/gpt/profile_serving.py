@@ -15,10 +15,20 @@ reports the w8 kernels' share of the device time: the counterpart of
 ``bench.py::_w8_decode_ab_pair``, with learned positions. ``--use-rope``
 serves the RoPE model (the JAX decode benchmark's, ``bench.py``'s
 ``_decode_bench_setup``) and reports RoPE's device time and kernel
-count in each window. Runs on the CUDA device::
+count in each window.
+
+``--paged`` profiles instead the JAX package's paged A/B configuration
+(``bench.py``'s ``_paged_vs_dense_decode_ab_pair``: the RoPE GPT-2
+medium, 32 slots, max_len 512, pages of 64 rows, ragged lengths from 32
+to 511): one decode tick on the dense engine and one on
+``PagedDecodeEngine``, each after the same 32 prompts were admitted,
+with the paged decode attention's share of the paged tick's device
+time, and before them one prefill of the longest prompt on each;
+``--kv8`` gives the paged engine an int8 pool. Runs on the CUDA
+device::
 
     python -m apex_tpu_torch.examples.gpt.profile_serving [--w8] \
-        [--use-rope]
+        [--use-rope] [--paged [--kv8]]
 """
 
 import argparse
@@ -35,7 +45,7 @@ from apex_tpu_torch import amp
 from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
 from apex_tpu_torch.quant import quantize_params
 from apex_tpu_torch.serving import (
-    ContinuousBatchingScheduler, DecodeEngine, Request,
+    ContinuousBatchingScheduler, DecodeEngine, PagedDecodeEngine, Request,
 )
 from apex_tpu_torch.utils.platform import resolve_device
 
@@ -144,22 +154,92 @@ def w8_share(kern):
     return {"w8 kernels": w8, "other": sum(kern.values()) - w8}
 
 
+def paged_share(kern):
+    """Device ms of the paged decode attention kernel and the rest."""
+    paged = sum(t for k, t in kern.items() if "paged_decode" in k)
+    return {"paged attention": paged, "other": sum(kern.values()) - paged}
+
+
+def ab_lengths(slots=32, s_max=512):
+    """The paged A/B ladder (``bench.py``: ``s_max // 16`` to ``s_max``
+    over the slots), each below ``s_max`` so the tick's row fits."""
+    lo = s_max // 16
+    return [min(lo + round(i * (s_max - lo) / (slots - 1)), s_max - 1)
+            for i in range(slots)]
+
+
+def paged_ab(params, cfg, dev, kv8, compute_dtype=None):
+    """One decode tick on the dense engine and one on the paged engine
+    (bf16 or int8 pool) at the A/B configuration, after the same 32
+    prompts were admitted."""
+    lengths = ab_lengths()
+    rng = np.random.RandomState(4)
+    prompts = [tuple(int(t) for t in rng.randint(0, cfg.vocab_size, size=n))
+               for n in lengths]
+    res = {"lengths": lengths}
+    engines = {
+        "dense": lambda: DecodeEngine(
+            params, cfg, num_slots=32, max_len=512,
+            cache_dtype=torch.bfloat16, buckets=(128, 256, 512),
+            compute_dtype=compute_dtype, device=dev),
+        "paged": lambda: PagedDecodeEngine(
+            params, cfg, num_slots=32, max_len=512, num_pages=2 + 32 * 8,
+            page_size=64, cache_dtype=torch.int8 if kv8 else torch.bfloat16,
+            buckets=(128, 256, 512), compute_dtype=compute_dtype,
+            device=dev)}
+    long_prompt = prompts[-1]
+    for name, make in engines.items():
+        eng = make()
+        eng.prefill(0, long_prompt)            # warm-up
+        eng.free_slot(0)
+        res[f"prefill_{name}"] = window(
+            f"prefill_{len(long_prompt)}_tokens_{name}",
+            lambda: eng.prefill(0, long_prompt))
+        eng.free_slot(0)
+        sched = ContinuousBatchingScheduler(eng, eos_id=-1)
+        for p in prompts:
+            sched.submit(Request(prompt=p, max_new_tokens=4))
+        sched.step()  # admits all 32 slots, then one decode tick
+        sched.step()  # a second tick, outside the window
+        res[f"decode_tick_{name}"] = window(
+            f"decode_tick_{name}{'_kv8' if kv8 and name == 'paged' else ''}",
+            sched.step, paged_share if name == "paged" else None)
+        del eng, sched
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--w8", action="store_true",
                     help="serve the weight-only int8 tree (bf16 compute)")
     ap.add_argument("--use-rope", action="store_true",
                     help="rotary positions in place of the learned table")
+    ap.add_argument("--paged", action="store_true",
+                    help="a decode tick on the paged and on the dense "
+                    "engine at the JAX package's paged A/B configuration "
+                    "(RoPE, 32 slots, max_len 512, pages of 64)")
+    ap.add_argument("--kv8", action="store_true",
+                    help="with --paged: an int8 page pool")
     args = ap.parse_args(argv)
+    if args.kv8 and not args.paged:
+        ap.error("--kv8 needs --paged")
     dev = resolve_device(None)
-    cfg = dataclasses.replace(gpt_medium(), use_rope=args.use_rope)
+    cfg = dataclasses.replace(gpt_medium(),
+                              use_rope=args.use_rope or args.paged)
     params = amp.initialize("O2", verbosity=0).cast_model(
         init_gpt(cfg, torch.Generator().manual_seed(0), device=dev))
     compute_dtype, groups = None, None
     if args.w8:
         params, compute_dtype, groups = (quantize_params(params),
                                          torch.bfloat16, w8_share)
-    res = {"w8": args.w8, "use_rope": args.use_rope}
+    res = {"w8": args.w8, "use_rope": cfg.use_rope, "paged": args.paged,
+           "kv8": args.kv8}
+    if args.paged:
+        with torch.inference_mode():
+            res.update(paged_ab(params, cfg, dev, args.kv8, compute_dtype))
+        print(json.dumps(res))
+        return
     with torch.inference_mode(), rope_marked():
         eng = DecodeEngine(params, cfg, num_slots=8, max_len=1024,
                            cache_dtype=torch.bfloat16,

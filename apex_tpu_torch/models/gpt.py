@@ -12,10 +12,12 @@ selective-checkpoint policy). Attention goes through the port's
 entropy, the hidden dropout through ``utils.prng.dropout``; the dense
 products, RoPE, decode attention and embeddings are plain PyTorch, as
 they are plain ``jnp`` in the JAX package. Positions are learned or
-rotary (``use_rope``). The tensor-, sequence- and context-parallel
-paths (``GPTModel`` and its fields) and the paged, verify and tree
-blocks are later slices. Weight-only int8 trees run the serving blocks
-with ``serving/decode.py``'s w8 linears.
+rotary (``use_rope``). The paged decode blocks (bf16/fp32 and int8
+pools) attend through ``paged_decode_attention`` (a kernel on the card;
+XLA in the JAX package). The tensor-, sequence- and context-parallel
+paths (``GPTModel`` and its fields) and the verify and tree blocks are
+later slices. Weight-only int8 trees run the serving blocks with
+``serving/decode.py``'s w8 linears.
 """
 
 import dataclasses
@@ -32,8 +34,10 @@ from torch.utils.checkpoint import (
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.models._convert import params_from_jax  # noqa: F401
 from apex_tpu_torch.normalization import fused_layer_norm_affine
+from apex_tpu_torch.quant.kernels import kv_dequantize, kv_quantize
 from apex_tpu_torch.transformer.functional import (
-    flash_attention, fused_apply_rotary_pos_emb_bhsd, rope_frequencies,
+    flash_attention, fused_apply_rotary_pos_emb_bhsd, paged_decode_attention,
+    rope_frequencies,
 )
 from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -349,6 +353,70 @@ def _block_decode(lp, x, k_cache, v_cache, pos, cfg, rope_freqs, dense):
     att = _decode_attention(
         dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
         v_cache, pos, cfg, rope_freqs)
+    x = x + dense(lp["out"], att)
+    return x + _mlp(lp, x, cfg, dense)
+
+
+def _q8_page_insert(pool, scale, pages, rows, new_row):
+    """Insert ``new_row`` (b, nh, hd) fp32 into the int8 page ``pages``
+    of each slot at row ``rows`` by a whole-page read-modify-write
+    requant, IN PLACE: dequantize the page, set the exact new row,
+    recompute the per-head amax scale over the whole page, requantize
+    and scatter page and scale back. Re-quantizing untouched rows at an
+    unchanged scale is round-to-nearest idempotent, so a page whose amax
+    the new row does not raise comes back bit-identical."""
+    b = pages.shape[0]
+    tile = kv_dequantize(pool[pages], scale[pages])  # (b, nh, page, hd)
+    tile[torch.arange(b, device=pages.device), :, rows] = new_row
+    nq, ns = kv_quantize(tile)
+    pool[pages] = nq
+    scale[pages] = ns
+
+
+def _paged_decode_attention(q_k_v, k_pages, v_pages, block_tables, pos,
+                            cfg: GPTConfig,
+                            rope_freqs: Optional[torch.Tensor],
+                            k_scale=None, v_scale=None):
+    """Single-query attention against one layer's paged pool (the JAX
+    package's ``_paged_decode_attention``, and with ``k_scale`` /
+    ``v_scale`` its ``_paged_decode_attention_q8``).
+
+    ``q_k_v`` (b, 1, 3*h); ``k_pages``/``v_pages`` (num_pages, nh,
+    page_size, hd), written IN PLACE (an int8 pool with its (num_pages,
+    nh) fp32 scales); ``block_tables`` (b, max_pages) int32; ``pos``
+    (b,) int32 each slot's length, the new token's position (RoPE
+    rotates q and k there). The new row is written into physical page
+    ``block_tables[b, pos // page_size]`` at row ``pos % page_size``
+    BEFORE attending (an int8 page by :func:`_q8_page_insert`); the
+    attention over the logical positions ``0..pos`` is
+    ``paged_decode_attention`` (the kernel on the card). Rows past
+    ``pos`` take no part, so the logits do not depend on the physical
+    page assignment. Returns ctx (b, 1, h)."""
+    b = q_k_v.shape[0]
+    q, k, v = _split_qkv(q_k_v, cfg.head_dim)       # (b, nh, 1, hd)
+    q, k = _rotate(q, k, rope_freqs, positions=pos)
+    logical = torch.clamp(pos.long() // k_pages.shape[2], 0,
+                          block_tables.shape[1] - 1)
+    pages = block_tables.gather(1, logical[:, None])[:, 0].long()
+    rows = pos.long() % k_pages.shape[2]
+    if k_scale is None:
+        k_pages[pages, :, rows] = k[:, :, 0].to(k_pages.dtype)
+        v_pages[pages, :, rows] = v[:, :, 0].to(v_pages.dtype)
+    else:
+        _q8_page_insert(k_pages, k_scale, pages, rows, k[:, :, 0].float())
+        _q8_page_insert(v_pages, v_scale, pages, rows, v[:, :, 0].float())
+    ctx = paged_decode_attention(q[:, :, 0].contiguous(), k_pages, v_pages,
+                                 block_tables, pos, k_scale, v_scale)
+    return ctx.reshape(b, 1, -1)
+
+
+def _block_decode_paged(lp, x, k_pages, v_pages, block_tables, pos, cfg,
+                        rope_freqs, dense, k_scale=None, v_scale=None):
+    """:func:`_block_decode` over one layer's paged pool (and an int8
+    pool's scales)."""
+    att = _paged_decode_attention(
+        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
+        v_pages, block_tables, pos, cfg, rope_freqs, k_scale, v_scale)
     x = x + dense(lp["out"], att)
     return x + _mlp(lp, x, cfg, dense)
 

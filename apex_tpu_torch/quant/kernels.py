@@ -274,3 +274,30 @@ def w8_limit(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     if out_dtype == torch.bfloat16:
         lim = lim + _BF16_ULP * (y.abs() + lim)
     return (lim + 2.0 ** -126).reshape(lead + (w.shape[1],))
+
+
+# ---------------------------------------------------------------------------
+# int8 KV page codecs (plain PyTorch on either device, as plain jnp in the
+# JAX package; the paged decode kernel dequantizes in registers)
+# ---------------------------------------------------------------------------
+
+def kv_quantize(t: torch.Tensor):
+    """Quantize KV page tiles per page per head: ``t (..., nh, page,
+    hd)`` -> ``(int8 tiles, fp32 scales (..., nh))``. Symmetric amax
+    over each head's page, ``scale = amax / 127``, ``q = clip(round(t /
+    scale), -127, 127)`` (round half to even; a division, as the JAX
+    package's, not a reciprocal multiply); all-zero pages keep scale 0
+    and quantize to exact zeros."""
+    ft = t.float()
+    amax = ft.abs().amax(dim=(-2, -1))
+    scale = amax / 127.0
+    safe = torch.where(scale > 0, scale,
+                       torch.ones((), device=t.device))[..., None, None]
+    q = torch.clamp(torch.round(ft / safe), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``q (..., nh, page, hd)`` int8 * ``scale (..., nh)`` fp32 ->
+    fp32 tiles."""
+    return q.float() * scale.float()[..., None, None]

@@ -14,17 +14,26 @@ embedding lookup and tied logits head swapped for the w8 versions.
 Both update the cache IN PLACE — the counterpart of the JAX package's
 donated cache — and return it for the same call shape, ``(cache,
 logits)``.
+
+The paged steps run the same forwards over ``PagedKVCache``: the paged
+prefill cuts each layer's k/v tiles into whole pages and scatters them
+to the host's ``write_pages`` (prefix-shared pages and the pad tail go
+to ``SCRATCH_PAGE``; an int8 pool quantizes each page per head) and
+installs the slot's block-table row; the paged decode writes each new
+row through the block table and attends with
+``paged_decode_attention``. ``make_copy_page_fn`` clones one page across
+all layers (copy-on-write), with its int8 scales.
 """
 
 import torch
 
 from apex_tpu_torch.models.gpt import (
-    GPTConfig, _block_decode, _block_prefill, _ln, _rope_or_none, _unstack,
-    check_config,
+    GPTConfig, _block_decode, _block_decode_paged, _block_prefill, _ln,
+    _rope_or_none, _unstack, check_config,
 )
 from apex_tpu_torch.models.gpt import dense as _dense
-from apex_tpu_torch.quant.kernels import w8_matmul, w8_matmul_nk
-from apex_tpu_torch.serving.cache import KVCache
+from apex_tpu_torch.quant.kernels import kv_quantize, w8_matmul, w8_matmul_nk
+from apex_tpu_torch.serving.cache import KVCache, PagedKVCache
 
 
 def _prefill_core(params, cfg: GPTConfig, cache: KVCache, ids, mask,
@@ -68,6 +77,89 @@ def _decode_core(params, cfg: GPTConfig, cache: KVCache, tokens, active,
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         x = _block_decode(lp, x, cache.k[i], cache.v[i], pos, cfg, freqs,
                           dense_fn)
+    hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
+    logits = logits_fn(params, hidden[:, 0])
+    cache.lengths.copy_(torch.where(active, pos + 1, pos))
+    return cache, logits
+
+
+def _paged_prefill_core(params, cfg: GPTConfig, cache: PagedKVCache, ids,
+                        mask, slot, write_pages, table_row, *, embed_fn,
+                        dense_fn, logits_fn):
+    """Bucketed prefill into the page pool: the forward of
+    :func:`_prefill_core`; each layer's k/v tiles (pad tail zeroed) are
+    cut into whole pages and scattered to ``write_pages`` (one physical
+    page per bucket page, the host's redirects to ``SCRATCH_PAGE``
+    included), and ``table_row`` ((max_pages,) int32, NULL-padded)
+    becomes the slot's block-table row. An int8 pool quantizes each page
+    per head (``kv_quantize``) and stores tiles and scales together."""
+    if ids.dim() != 2 or ids.shape[0] != 1:
+        raise ValueError(f"prefill takes one slot's (1, s) ids, got "
+                         f"{tuple(ids.shape)}")
+    s = ids.shape[1]
+    page_size = cache.k.shape[3]
+    if s % page_size:
+        raise ValueError(f"prompt bucket {s} is not a multiple of "
+                         f"page_size {page_size}")
+    n_bucket_pages = s // page_size
+    if tuple(write_pages.shape) != (n_bucket_pages,):
+        raise ValueError(f"write_pages {tuple(write_pages.shape)} != one "
+                         f"page per bucket page ({n_bucket_pages},)")
+    if tuple(table_row.shape) != (cache.block_tables.shape[1],):
+        raise ValueError(f"table_row {tuple(table_row.shape)} != "
+                         f"block-table row "
+                         f"({cache.block_tables.shape[1]},)")
+    slot = int(slot)
+    write = write_pages.long()
+    x = embed_fn(params, ids)
+    freqs = _rope_or_none(cfg, s, ids.device)
+    key_mask = mask[None, :]
+    mz = mask.to(x.dtype)[None, :, None]
+
+    def tiles(t):
+        # (1, nh, s, hd) -> (n_bucket_pages, nh, page_size, hd), the
+        # zeroed pad tail included (scratch eats it)
+        nh, hd = t.shape[1], t.shape[3]
+        t = (t[0] * mz).reshape(nh, n_bucket_pages, page_size, hd)
+        return t.transpose(0, 1)
+
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x, k, v = _block_prefill(lp, x, cfg, freqs, key_mask, dense_fn)
+        if cache.k_scale is not None:
+            kq, ks = kv_quantize(tiles(k))
+            vq, vs = kv_quantize(tiles(v))
+            cache.k[i, write] = kq
+            cache.v[i, write] = vq
+            cache.k_scale[i, write] = ks
+            cache.v_scale[i, write] = vs
+        else:
+            cache.k[i, write] = tiles(k).to(cache.k.dtype)
+            cache.v[i, write] = tiles(v).to(cache.v.dtype)
+    hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
+    length = mask.sum().to(torch.int32)
+    h_last = hidden.index_select(1, (length - 1).reshape(1).long())[:, 0]
+    cache.lengths[slot] = length
+    cache.block_tables[slot] = table_row.to(torch.int32)
+    return cache, logits_fn(params, h_last)
+
+
+def _paged_decode_core(params, cfg: GPTConfig, cache: PagedKVCache,
+                       tokens, active, *, embed_fn, dense_fn, logits_fn):
+    """One token for every slot against the page pool; the host has made
+    every slot's write target exclusive (page-boundary allocation and
+    copy-on-write in ``PagedDecodeEngine.prepare_decode``) before this
+    runs."""
+    pos = cache.lengths.clone()
+    bt = cache.block_tables
+    x = embed_fn(params, tokens[:, None], pos=pos)
+    freqs = _rope_or_none(cfg, bt.shape[1] * cache.k.shape[3],
+                          tokens.device)
+    quant = cache.k_scale is not None
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x = _block_decode_paged(lp, x, cache.k[i], cache.v[i], bt, pos, cfg,
+                                freqs, dense_fn,
+                                cache.k_scale[i] if quant else None,
+                                cache.v_scale[i] if quant else None)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
     logits = logits_fn(params, hidden[:, 0])
     cache.lengths.copy_(torch.where(active, pos + 1, pos))
@@ -169,3 +261,54 @@ def make_decode_fn(cfg: GPTConfig, compute_dtype=None,
                             logits_fn=logits_fn)
 
     return decode
+
+
+def make_paged_prefill_fn(cfg: GPTConfig, compute_dtype=None,
+                          quantized=False):
+    """``prefill(params, cache, ids, mask, slot, write_pages, table_row)
+    -> (cache, logits)`` over the page pool, updated in place."""
+    check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
+
+    def prefill(params, cache, ids, mask, slot, write_pages, table_row):
+        return _paged_prefill_core(params, cfg, cache, ids, mask, slot,
+                                   write_pages, table_row, embed_fn=embed,
+                                   dense_fn=dense_fn, logits_fn=logits_fn)
+
+    return prefill
+
+
+def make_paged_decode_fn(cfg: GPTConfig, compute_dtype=None,
+                         quantized=False):
+    """``decode(params, cache, tokens, active) -> (cache, logits)`` over
+    the page pool, updated in place."""
+    check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
+
+    def decode(params, cache, tokens, active):
+        return _paged_decode_core(params, cfg, cache, tokens, active,
+                                  embed_fn=embed, dense_fn=dense_fn,
+                                  logits_fn=logits_fn)
+
+    return decode
+
+
+def make_copy_page_fn():
+    """``copy(cache, src, dst) -> cache``: clone physical page ``src``
+    into ``dst`` across all layers, in place — the device half of
+    copy-on-write (the host picks the pages, ``PagePool.needs_copy``).
+    An int8 pool clones the page's scales with its tiles, so the copy
+    dequantizes to the same values."""
+
+    def copy(cache, src, dst):
+        src, dst = int(src), int(dst)
+        cache.k[:, dst] = cache.k[:, src]
+        cache.v[:, dst] = cache.v[:, src]
+        if cache.k_scale is not None:
+            cache.k_scale[:, dst] = cache.k_scale[:, src]
+            cache.v_scale[:, dst] = cache.v_scale[:, src]
+        return cache
+
+    return copy

@@ -1,23 +1,66 @@
-"""Request outcomes and the non-finite-logits error (counterpart of the
-part of ``apex_tpu/serving/health.py`` this slice needs).
+"""Request outcomes and the serving errors (counterpart of the part of
+``apex_tpu/serving/health.py`` the ported slices need).
 
-This slice has no quarantine or retry path: a non-finite logits row
-(or an out-of-vocabulary sample) raises :class:`NonFiniteLogits` and is
-never committed. The fault taxonomy, retry budgets, deadlines and the
-watchdog are later slices.
+This port has no quarantine or retry path: a non-finite logits row (or
+an out-of-vocabulary sample) raises :class:`NonFiniteLogits` and is
+never committed. The page pool raises :class:`PoolExhausted` when it
+cannot cover an admission (the scheduler waits for evictions), and its
+audits raise :class:`PoolInvariantError`; the tenancy ledger's books
+raise :class:`QuotaExhausted`. The fault taxonomy's other classes,
+retry budgets, deadlines and the watchdog are a later slice.
 """
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 class ServingError(RuntimeError):
-    """Base of the serving failure taxonomy."""
+    """Base of the serving failure taxonomy. Every instance carries a
+    ``payload`` dict of host-side diagnostics."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.payload: Dict[str, Any] = {}
+
+
+class PoolExhausted(ServingError):
+    """The page pool cannot cover an allocation even after LRU prefix
+    eviction. Transient under load: evictions free pages and the
+    scheduler retries the admission."""
+
+    def __init__(self, msg: str, *, need: int = 0, free: int = 0,
+                 cached: int = 0):
+        super().__init__(msg)
+        self.need = need
+        self.free = free
+        self.cached = cached
 
 
 class NonFiniteLogits(ServingError):
     """A prefill or decode step produced NaN/Inf logits (or the sampler
     returned a token outside the vocabulary) for a slot."""
+
+
+class PoolInvariantError(ServingError):
+    """The page allocator's books are inconsistent (refcounts vs. free
+    list vs. prefix registry vs. block tables) — raised by the runtime
+    audit, ``PagePool.check_invariants``."""
+
+
+class QuotaExhausted(ServingError):
+    """A tenant's page quota cannot cover a request's worst-case page
+    reservation; raised by :class:`~apex_tpu_torch.serving.paging.
+    QuotaLedger` when a charge would exceed the quota."""
+
+    def __init__(self, msg: str, *, tenant: str = "", need: int = 0,
+                 quota: int = 0, charged: int = 0):
+        super().__init__(msg)
+        self.tenant = tenant
+        self.need = need
+        self.quota = quota
+        self.charged = charged
+        self.payload.update(tenant=tenant, need=need, quota=quota,
+                            charged=charged)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,8 +7,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. build — nvcc builds every CUDA source (layer norm, flash attention,
    softmax cross entropy, fused softmax, the multi-tensor kernels, the
-   int8 weight-only matmuls, the threefry bits and dropout; one process
-   per source, all at once); TF32
+   int8 weight-only matmuls, the threefry bits and dropout, the paged
+   decode attention; one process per source, all at once); TF32
    is switched off so fp32 products and convolutions are full fp32.
 2. kernel parity — each kernel against its plain PyTorch version on the
    same card inputs, max error beside the stated tolerance: the
@@ -163,6 +163,30 @@ Phases, each printed as it runs; any failure exits non-zero:
    causal forward and backward, ``F.cross_entropy`` on bf16 and
    ``torch._fused_adamw_`` over GPT-medium's tensors.
 
+9. paged serving — ``PagedDecodeEngine`` (8 slots, max_len 1024, 2 + 8
+   x 16 pages of 64 rows) on GPT-2 medium, seed 0. Kernel parity of the
+   paged decode attention (``csrc/paged_attention.cu``) against its
+   plain version per element to ``paged_attention.paged_limit``: bf16,
+   fp32 and int8 pools at page 16 and 64, pos at 0, at a page's last row
+   and at the next page's first; a repeat the same bits; the same
+   logical rows under permuted physical pages the same bits.
+   ``serving_paged``: decode logits against the full forward (fp32 pool
+   1e-5, O2 bf16 0.0625), the 16 requests on the O2 params with exact
+   launches (the paged attention L a decode tick), again with
+   ``free_order`` reversed (the same streams; teacher-forced logits the
+   same bits). ``serving_paged_prefix``: 16 prompts of one of two shared
+   512-token prefixes plus a private suffix of 64-448 tokens:
+   ``check_invariants()`` after every tick, pages matched from the
+   prefix cache, exact launches; on a pool of 2 + 40 pages at least one
+   preemption and every request finished. ``serving_paged_kv8``: the
+   int8 pool, decode logits in fp32 compute within ``KV8_REL`` of the
+   full forward's largest |logit| (the JAX package's kv8 envelope), the
+   16 requests with exact launches. The paged attention's times at the
+   JAX package's paged A/B configuration (32 slots, S_max 512, page 64,
+   lengths 32..512; bf16 and int8 pools) and at ``serving_paged``'s,
+   beside its plain version, its bound and SDPA on the already-gathered
+   K and V (a different function). Each phase prints its seconds.
+
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
 card's name and power limit, and last ``{"ok": true, "device":
@@ -189,12 +213,21 @@ N_REQUESTS, NEW_TOKENS, NUM_SLOTS, MAX_LEN = 16, 32, 8, 1024
 BUCKETS = (128, 256, 512, 1024)
 
 
+_PHASE = {"name": None, "t0": 0.0}
+
+
 def phase(name):
+    """Print a phase's name, and how long the previous phase took."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"   ({now - _PHASE['t0']:.1f} s: {_PHASE['name'][:60]})",
+              flush=True)
+    _PHASE.update(name=name, t0=now)
     print(f"== {name}", flush=True)
 
 
 def kernel_modules():
-    """The seven wrapper modules (the packages re-export some functions
+    """The eight wrapper modules (the packages re-export some functions
     under their modules' names, so import them by path)."""
     return (importlib.import_module(
                 "apex_tpu_torch.normalization.fused_layer_norm"),
@@ -206,7 +239,9 @@ def kernel_modules():
             importlib.import_module(
                 "apex_tpu_torch.multi_tensor_apply.kernels"),
             importlib.import_module("apex_tpu_torch.quant.kernels"),
-            importlib.import_module("apex_tpu_torch.utils.prng"))
+            importlib.import_module("apex_tpu_torch.utils.prng"),
+            importlib.import_module(
+                "apex_tpu_torch.transformer.functional.paged_attention"))
 
 
 def check(ok, msg):
@@ -1289,21 +1324,27 @@ def _logits_full(params, cfg, seq):
     return torch.matmul(hidden, table.to(hidden.dtype).t()).float()
 
 
-def decode_vs_full(params, cfg, dev, cache_dtype, label, tol, ref=None):
+def decode_vs_full(params, cfg, dev, cache_dtype, label, tol, ref=None,
+                   engine=None, tol_rel=False, **engine_kw):
     """Prefill one prompt, decode 4 greedy steps, and hold the 4 decode
     logits rows against the full forward of ``ref`` (default the same
-    params) at the same positions."""
+    params) at the same positions. ``engine``: the engine class
+    (``DecodeEngine`` by default; a paged engine gets
+    ``prepare_decode`` before each step); ``tol_rel``: ``tol`` is a share
+    of the full forward's largest |logit|."""
     from apex_tpu_torch.serving import DecodeEngine
 
-    eng = DecodeEngine(params, cfg, num_slots=1, max_len=MAX_LEN,
-                       cache_dtype=cache_dtype, buckets=BUCKETS,
-                       device=dev)
+    eng = (engine or DecodeEngine)(params, cfg, num_slots=1,
+                                   max_len=MAX_LEN, cache_dtype=cache_dtype,
+                                   buckets=BUCKETS, device=dev, **engine_kw)
     rng = np.random.RandomState(1)
     prompt = [int(t) for t in rng.randint(0, cfg.vocab_size, size=100)]
     tok = int(eng.prefill(0, prompt)[0].argmax())
     fed, rows = [], []
     for _ in range(4):
         fed.append(tok)
+        check(eng.prepare_decode({0: len(prompt) + len(fed) - 1}) == [],
+              "no preemption")
         logits = eng.decode([tok], [True])
         rows.append(logits[0])
         tok = int(logits[0].argmax())
@@ -1312,9 +1353,10 @@ def decode_vs_full(params, cfg, dev, cache_dtype, label, tol, ref=None):
     want = _logits_full(params if ref is None else ref, cfg,
                         seq)[0, len(prompt):]
     err = float((got - want).abs().max())
-    check(err <= tol, f"decode vs full forward ({label}), 4 steps: "
-          f"max_abs_err {err:.4g} <= {tol:g} (max|logit| "
-          f"{float(want.abs().max()):.3g})")
+    top = float(want.abs().max())
+    lim = tol * top if tol_rel else tol
+    check(err <= lim, f"decode vs full forward ({label}), 4 steps: "
+          f"max_abs_err {err:.4g} <= {lim:.4g} (max|logit| {top:.3g})")
     return err
 
 
@@ -1334,29 +1376,50 @@ def dequantized(qparams):
             word["embedding"], word["scale"], -1)}))
 
 
-def serve_mix(dev, cfg, params, kern, temps=None, **engine_kw):
+def mix_prompts(cfg):
+    """The 16 prompts of the serving mix: 64-960 random tokens each."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(64, 961, size=N_REQUESTS)
+    return [tuple(int(t) for t in rng.randint(0, cfg.vocab_size,
+                                              size=int(n))) for n in lens]
+
+
+def serve_mix(dev, cfg, params, kern, temps=None, engine=None, prompts=None,
+              audit=False, cache_dtype=torch.bfloat16, **engine_kw):
     """The 16-request mix on one engine (8 slots, bf16 cache), after a
     one-request warm-up; every kernel's count set to 0 just before the
     run and read just after. ``temps``: each request's temperature
-    (greedy without), its seed its index. Returns the streams, launches,
-    decode steps and wall time."""
+    (greedy without), its seed its index. ``engine``: the engine class
+    (``DecodeEngine`` by default); ``prompts``: other prompts than
+    :func:`mix_prompts`'; ``audit``: ``check_invariants()`` after every
+    tick. Returns the streams, launches, prefills, decode steps and wall
+    time, and a paged engine's pool counts (pages matched from the
+    prefix cache, copy-on-write clones, preemptions, refused
+    admissions)."""
     from apex_tpu_torch.serving import (
         ContinuousBatchingScheduler, DecodeEngine, Request,
     )
 
-    eng = DecodeEngine(params, cfg, num_slots=NUM_SLOTS, max_len=MAX_LEN,
-                       cache_dtype=torch.bfloat16, buckets=BUCKETS,
-                       device=dev, **engine_kw)
+    eng = (engine or DecodeEngine)(params, cfg, num_slots=NUM_SLOTS,
+                                   max_len=MAX_LEN, cache_dtype=cache_dtype,
+                                   buckets=BUCKETS, device=dev, **engine_kw)
     # warm-up: one short request (library handles, allocator)
     warm = ContinuousBatchingScheduler(eng, eos_id=-1)
     warm.submit(Request(prompt=(1, 2, 3), max_new_tokens=2))
     warm.run()
+    shared = [0]
+    if eng.paged:
+        matched = eng.pool.match_prefix
+
+        def counting(keys):
+            pages = matched(keys)
+            shared[0] += len(pages)
+            return pages
+
+        eng.pool.match_prefix = counting
     sched = ContinuousBatchingScheduler(eng, eos_id=-1)
-    rng = np.random.RandomState(0)
-    lens = rng.randint(64, 961, size=N_REQUESTS)
-    for i, n in enumerate(lens):
-        prompt = tuple(int(t) for t in rng.randint(0, cfg.vocab_size,
-                                                   size=int(n)))
+    prompts = mix_prompts(cfg) if prompts is None else prompts
+    for i, prompt in enumerate(prompts):
         sched.submit(Request(prompt=prompt, max_new_tokens=NEW_TOKENS,
                              temperature=0.0 if temps is None else temps[i],
                              seed=i))
@@ -1364,11 +1427,20 @@ def serve_mix(dev, cfg, params, kern, temps=None, **engine_kw):
     for k in kern.values():
         k.launches = 0
     t0 = time.perf_counter()
+    ticks = audits = 0
+    while sched.busy:
+        sched.step()
+        ticks += 1
+        if audit:
+            audits += bool(eng.check_invariants())
     streams = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in kern.items()}
-    print(f"prompt lengths {lens.tolist()}")
+    if audit:
+        check(audits == ticks, f"check_invariants() true after each of "
+              f"the {ticks} ticks")
+    print(f"prompt lengths {[len(p) for p in prompts]}")
     reasons = [sched.outcomes[i].reason for i in range(N_REQUESTS)]
     n_tok = sum(len(s) for s in streams)
     check(len(streams) == N_REQUESTS
@@ -1381,9 +1453,15 @@ def serve_mix(dev, cfg, params, kern, temps=None, **engine_kw):
     print(f"served {n_tok} tokens in {wall:.3f} s wall: "
           f"{n_tok / wall:.1f} tokens/s (prefill included)", flush=True)
     print(f"first stream: {streams[0][:8]}...")
-    return dict(streams=streams, launches=launches, wall_s=wall,
-                tokens=n_tok, tokens_per_s=n_tok / wall,
-                decode_steps=sched.decode_steps)
+    out = dict(streams=streams, launches=launches, wall_s=wall,
+               tokens=n_tok, tokens_per_s=n_tok / wall,
+               decode_steps=sched.decode_steps,
+               prefills=sum(o.prefill_ticks for o in sched.outcomes.values()))
+    if eng.paged:
+        out.update(shared_pages=shared[0], cached=eng.pool.num_cached,
+                   cow_copies=eng.cow_copies, preemptions=eng.preemptions,
+                   pool_exhausted=eng.pool_exhausted)
+    return out
 
 
 def check_launches(launches, want, label):
@@ -1449,11 +1527,11 @@ def serve(dev, kern):
     print(f"greedy tokens equal to the bf16 run's (for information): "
           f"{same} of {len(pairs)}; tokens/s bf16 {bf['tokens_per_s']:.1f},"
           f" w8 {w8['tokens_per_s']:.1f}", flush=True)
-    for res in (bf, w8):
-        del res["streams"]
+    dense_streams = bf.pop("streams")
+    del w8["streams"]
     out.update(bf16=bf, w8=w8, sampled=sp, w8_tokens_equal_to_bf16=same,
                tokens_compared=len(pairs))
-    return out
+    return out, dense_streams
 
 
 SAMPLED_T, SAMPLED_TOP_K = 0.8, 50   # examples/gpt/generate.py's example
@@ -1565,7 +1643,7 @@ KERNEL_NAMES = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
                 "flat_l2norm_partials", "flat_lamb_stage1",
                 "w8_matmul_nobias", "w8_matmul", "w8_matmul_nk", "flat_sgd",
                 "flat_adagrad", "flat_novograd", "threefry_bits",
-                "threefry_dropout")
+                "threefry_dropout", "paged_decode_attention")
 # kernels on no model path (held to their plain versions and timed)
 OFF_PATH = ("scaled_upper_triang_softmax_fwd", "flat_scale", "flat_axpby",
             "w8_matmul_nobias")
@@ -3492,6 +3570,346 @@ def gpt_times(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 9. paged serving: the page pool, prefix sharing, preemption, int8 pages
+# ---------------------------------------------------------------------------
+
+PAGE = 64
+PAGED_POOL = 2 + NUM_SLOTS * 16          # every slot can hold max_len rows
+PAGED_TIGHT_POOL = 2 + 40
+PREFIX_LEN, SUFFIX_LENS = 512, (64, 448)
+# the JAX package's int8-pool envelope, 0.02 absolute on gpt_tiny whose
+# teacher-forced logits reach 0.664 (tests/L0/run_serving/test_quant.py:44
+# and its gate's fp32 golden): held as a share of the largest |logit|
+KV8_REL = 0.02 / 0.664
+
+
+def _paged_inputs(gen, dev, lengths, page, max_pages, kv, qdt, nh=16,
+                  hd=64, contiguous=True):
+    """One layer's paged attention operands at GPT-medium's heads: q
+    (b, nh, hd), pools holding each slot's pages (a contiguous run a
+    slot, or a random placement), the block tables (NULL past a slot's
+    run) and ``pos = lengths`` (int32); int8 pools with fp32 scales."""
+    from apex_tpu_torch.serving.cache import NULL_PAGE, RESERVED_PAGES
+
+    b = len(lengths)
+    s_len = page * max_pages
+    runs = [min(-(-(int(n) + 1) // page), max_pages) for n in lengths]
+    num_pages = RESERVED_PAGES + sum(runs)
+    order = torch.arange(RESERVED_PAGES, num_pages) if contiguous else \
+        RESERVED_PAGES + torch.randperm(num_pages - RESERVED_PAGES,
+                                        generator=torch.Generator()
+                                        .manual_seed(len(lengths)))
+    rows, nxt = [], 0
+    for n in runs:
+        rows.append(order[nxt:nxt + n].tolist() + [NULL_PAGE] * (
+            max_pages - n))
+        nxt += n
+    bt = torch.tensor(rows, dtype=torch.int32, device=dev)
+    pos = torch.tensor([min(int(n), s_len) for n in lengths],
+                       dtype=torch.int32, device=dev)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    q = _rand(gen, (b, nh, hd), dt[qdt], dev)
+    shape = (num_pages, nh, page, hd)
+    if kv == "i8":
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((num_pages, nh), generator=gen, device=dev)
+                  * 0.02 for _ in range(2))
+    else:
+        k, v = (_rand(gen, shape, dt[kv], dev) for _ in range(2))
+        ks = vs = None
+    return q, k, v, bt, pos, ks, vs
+
+
+def ab_lengths(slots=32, s_max=512):
+    """The JAX package's paged-vs-dense A/B ladder (bench.py:1357-1359):
+    ``s_max // 16`` to ``s_max``, evenly spread over the slots."""
+    lo = s_max // 16
+    return [lo + round(i * (s_max - lo) / (slots - 1)) for i in range(slots)]
+
+
+def paged_parity(dev):
+    """The paged decode attention kernel against its plain version, per
+    element to ``paged_limit``, in bf16, fp32 and int8 pools at page 16
+    and 64, with pos at 0, at a page's last row and at the next page's
+    first row among ragged lengths; two launches the same bits; the same
+    logical rows under two page placements the same bits."""
+    pa = kernel_modules()[7]
+    phase("kernel parity: paged decode attention (per element to "
+          "paged_attention.paged_limit; bf16, fp32 and int8 pools at page "
+          "16 and 64; two page placements give the same bits)")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    max_err = 0.0
+    for page in (16, 64):
+        lengths = [0, page - 1, page, 2 * page - 1, 1023, 300, 517, 64]
+        for qdt, kv in (("bf16", "bf16"), ("f32", "f32"), ("bf16", "i8"),
+                        ("f32", "i8")):
+            args = _paged_inputs(gen, dev, lengths, page, 1024 // page, kv,
+                                 qdt, contiguous=False)
+            got = pa.paged_decode_attention_kernel(*args)
+            want = pa.paged_decode_attention_plain(*args)
+            again = pa.paged_decode_attention_kernel(*args)
+            lim = pa.paged_limit(*args[:5], want, *args[5:])
+            err = (got.float() - want.float()).abs()
+            share = float(torch.where(lim > 0, err / lim, err).max())
+            max_err = max(max_err, float(err.max()))
+            check(bool((err <= lim).all()) and torch.equal(got, again),
+                  f"paged attention page {page}, q {qdt}, pool {kv}, pos "
+                  f"{lengths}: max_abs_err {float(err.max()):.3g}, worst "
+                  f"share of paged_limit {share:.3f}; a repeat the same "
+                  "bits")
+    for kv in ("bf16", "i8"):
+        q, k, v, bt, pos, ks, vs = _paged_inputs(gen, dev, ab_lengths(),
+                                                 PAGE, 8, kv, "bf16")
+        base = pa.paged_decode_attention_kernel(q, k, v, bt, pos, ks, vs)
+        # the same logical rows on other physical pages
+        perm = torch.arange(k.shape[0], device=dev)
+        perm[2:] = 2 + torch.randperm(k.shape[0] - 2, device=dev,
+                                      generator=gen)
+        moved = []
+        for t in (k, v, ks, vs):
+            m = None if t is None else torch.empty_like(t)
+            if t is not None:
+                m[perm] = t
+            moved.append(m)
+        got = pa.paged_decode_attention_kernel(
+            q, moved[0], moved[1], perm[bt.long()].to(torch.int32), pos,
+            moved[2], moved[3])
+        check(torch.equal(got, base),
+              f"placement ({kv} pool, 32 slots, lengths 32..512): the same "
+              "logical rows on permuted physical pages give the same bits")
+    return max_err
+
+
+def paged_logits(params, cfg, dev, free_order, cache_dtype):
+    """Two slots prefilled and decoded 4 teacher-forced steps on the
+    paged engine: the logits, to compare placements bit for bit."""
+    from apex_tpu_torch.serving import PagedDecodeEngine
+
+    eng = PagedDecodeEngine(params, cfg, num_slots=NUM_SLOTS,
+                            max_len=MAX_LEN, num_pages=PAGED_POOL,
+                            page_size=PAGE, buckets=BUCKETS,
+                            cache_dtype=cache_dtype, free_order=free_order,
+                            device=dev)
+    prompts = mix_prompts(cfg)[:2]
+    rows = [eng.prefill(2, prompts[0]), eng.prefill(5, prompts[1])]
+    toks = [0] * NUM_SLOTS
+    act = [i in (2, 5) for i in range(NUM_SLOTS)]
+    for t in range(4):
+        check(eng.prepare_decode({2: len(prompts[0]) + t,
+                                  5: len(prompts[1]) + t}) == [],
+              "no preemption")
+        toks[2], toks[5] = 11 + t, 13 + t
+        rows.append(eng.decode(toks, act)[[2, 5]])
+    return torch.cat(rows)
+
+
+def _paged_launches(res, L, label):
+    """Exact launches of a paged run: LN 2L + 1 a forward, flash L a
+    prefill, the paged attention L a decode tick."""
+    steps, prefills = res["decode_steps"], res["prefills"]
+    check_launches(res["launches"], {
+        "layer_norm_fwd": (2 * L + 1) * (prefills + steps),
+        "flash_attention_fwd": L * prefills,
+        "paged_decode_attention": L * steps}, label)
+
+
+def _same_share(a, b):
+    pairs = [(x, y) for s, t in zip(a, b) for x, y in zip(s, t)]
+    return sum(x == y for x, y in pairs), len(pairs)
+
+
+def serve_paged(dev, kern, dense_streams):
+    """``serving_paged``: GPT-2 medium (the JAX ``gpt_medium``) on
+    ``PagedDecodeEngine(8 slots, max_len 1024, 2 + 8 x 16 pages of 64)``:
+    decode logits against the full forward (fp32 pool 1e-5, O2 bf16
+    0.0625, the dense phase's limits); the 16 requests on the O2 params
+    with exact launches; again with ``free_order`` reversed (the same
+    streams, and teacher-forced logits the same bits). Returns the
+    results and the fp32 and O2 params (the later paged phases reuse
+    them)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+    from apex_tpu_torch.serving import PagedDecodeEngine
+
+    phase(f"serving_paged: gpt_medium on PagedDecodeEngine({NUM_SLOTS} "
+          f"slots, max_len {MAX_LEN}, {PAGED_POOL} pages of {PAGE}), the 16 "
+          "requests, run twice (free_order reversed)")
+    cfg = gpt_medium()
+    L = cfg.num_layers
+    kw = dict(engine=PagedDecodeEngine, num_pages=PAGED_POOL,
+              page_size=PAGE)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=dev)
+    out = {}
+    with torch.inference_mode():
+        out["decode_err_fp32"] = decode_vs_full(
+            params, cfg, dev, torch.float32, "paged, fp32 params and pool",
+            1e-5, **kw)
+        o2 = amp.initialize("O2", verbosity=0).cast_model(params)
+        out["decode_err_bf16"] = decode_vs_full(
+            o2, cfg, dev, torch.bfloat16, "paged, O2 bf16 params and pool",
+            0.0625, **kw)
+        usable = list(range(2, PAGED_POOL))
+        runs = [serve_mix(dev, cfg, o2, kern, free_order=order, **kw)
+                for order in (None, usable[::-1])]
+        bits = [paged_logits(o2, cfg, dev, order, torch.bfloat16)
+                for order in (None, usable[::-1])]
+    pg = runs[0]
+    _paged_launches(pg, L, "paged serving")
+    check(runs[1]["streams"] == pg["streams"],
+          "placement: the mix with free_order reversed commits the same "
+          f"{N_REQUESTS} streams")
+    check(torch.equal(bits[0], bits[1]),
+          "placement: teacher-forced logits (2 slots, prefill + 4 decode "
+          "steps) the same bits under free_order reversed")
+    same, total = _same_share(pg["streams"], dense_streams)
+    print(f"tokens equal to the dense serving phase's (for information): "
+          f"{same} of {total}; smoke reading, not a benchmark: "
+          f"{pg['tokens_per_s']:.1f} and {runs[1]['tokens_per_s']:.1f} "
+          f"tokens/s; pages matched from the prefix cache "
+          f"{pg['shared_pages']}", flush=True)
+    del pg["streams"]
+    out.update(pg, tokens_equal_to_dense=same, tokens_compared=total,
+               reversed_tokens_per_s=runs[1]["tokens_per_s"])
+    return out, params, o2
+
+
+def prefix_prompts(cfg):
+    """16 prompts: one of two shared 512-token prefixes (8 whole pages)
+    plus a private suffix of 64-448 tokens."""
+    rng = np.random.RandomState(7)
+    prefixes = [tuple(int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                  size=PREFIX_LEN))
+                for _ in range(2)]
+    lens = rng.randint(SUFFIX_LENS[0], SUFFIX_LENS[1] + 1, size=N_REQUESTS)
+    return [prefixes[i % 2] + tuple(int(t) for t in rng.randint(
+        0, cfg.vocab_size, size=int(n))) for i, n in enumerate(lens)]
+
+
+def serve_paged_prefix(dev, kern, o2):
+    """``serving_paged_prefix``: the serving_paged engine on 16 prompts
+    that share two 512-token prefixes: pages matched from the prefix
+    cache, ``check_invariants()`` after every tick, exact launches; then
+    a pool of 2 + 40 pages, where the engine must preempt and still
+    finish every request."""
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.serving import PagedDecodeEngine
+
+    phase("serving_paged_prefix: the same engine, 16 prompts = one of two "
+          f"shared {PREFIX_LEN}-token prefixes + a private suffix of "
+          f"{SUFFIX_LENS[0]}-{SUFFIX_LENS[1]} tokens; then on "
+          f"{PAGED_TIGHT_POOL} pages")
+    cfg = gpt_medium()
+    prompts = prefix_prompts(cfg)
+    with torch.inference_mode():
+        roomy = serve_mix(dev, cfg, o2, kern, engine=PagedDecodeEngine,
+                          prompts=prompts, audit=True, num_pages=PAGED_POOL,
+                          page_size=PAGE)
+        _paged_launches(roomy, cfg.num_layers, "prefix-sharing serving")
+        check(roomy["cached"] > 0 and roomy["shared_pages"] > 0,
+              f"prefix sharing: {roomy['shared_pages']} pages matched from "
+              f"the prefix cache at admission, {roomy['cached']} cached at "
+              f"the end, {roomy['cow_copies']} copy-on-write clones")
+        tight = serve_mix(dev, cfg, o2, kern, engine=PagedDecodeEngine,
+                          prompts=prompts, audit=True,
+                          num_pages=PAGED_TIGHT_POOL, page_size=PAGE)
+    _paged_launches(tight, cfg.num_layers, "tight-pool serving")
+    check(tight["preemptions"] > 0,
+          f"tight pool: {tight['preemptions']} preemptions, "
+          f"{tight['pool_exhausted']} admissions refused and retried, "
+          f"every request finished")
+    same, total = _same_share(tight["streams"], roomy["streams"])
+    print(f"tight pool: tokens equal to the roomy pool's (for "
+          f"information: a resumed request re-prefills its rows, so the "
+          f"bits are not promised on the card) {same} of {total}",
+          flush=True)
+    for res in (roomy, tight):
+        del res["streams"]
+    return dict(roomy=roomy, tight=tight, tight_tokens_equal=same,
+                tokens_compared=total)
+
+
+def serve_paged_kv8(dev, kern, params, o2, paged_streams=None):
+    """``serving_paged_kv8``: the serving_paged engine with an int8 pool:
+    decode logits in fp32 compute against the full forward, held to
+    ``KV8_REL`` of its largest |logit|; the 16 requests on the O2 params
+    with exact launches."""
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.serving import PagedDecodeEngine
+
+    phase("serving_paged_kv8: the serving_paged engine with "
+          "cache_dtype=torch.int8")
+    cfg = gpt_medium()
+    kw = dict(engine=PagedDecodeEngine, num_pages=PAGED_POOL,
+              page_size=PAGE)
+    with torch.inference_mode():
+        err = decode_vs_full(params, cfg, dev, torch.int8,
+                             f"int8 pool, fp32 params and compute; limit "
+                             f"{KV8_REL:.4f} of max|logit|, the JAX "
+                             "package's kv8 envelope", KV8_REL,
+                             tol_rel=True, **kw)
+        res = serve_mix(dev, cfg, o2, kern, cache_dtype=torch.int8, **kw)
+    _paged_launches(res, cfg.num_layers, "int8-pool serving")
+    del res["streams"]
+    res["decode_err_fp32_compute"] = err
+    return res
+
+
+def paged_times(dev):
+    """The paged decode attention at the JAX package's paged A/B
+    configuration (RoPE GPT-2-medium heads, 32 slots, S_max 512, page 64,
+    lengths 32..512; bf16 and int8 pools) and at ``serving_paged``'s (8
+    slots, S_max 1024, lengths 64..992): kernel, plain version, bound
+    (the live K/V rows plus q, ctx, tables and positions over 3.35 TB/s),
+    and SDPA on the already-gathered (b, nh, S, hd) bf16 K and V with
+    the ``s <= pos`` mask (a different function: it leaves out the
+    gather)."""
+    pa = kernel_modules()[7]
+    phase("times of the paged decode attention (device ms a call, one "
+          "layer; medians of CUDA-graph replays)")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    res = {}
+    cases = {"ab": (ab_lengths(), 8, "bf16"),
+             "ab_kv8": (ab_lengths(), 8, "i8"),
+             "serving_paged": ([64 + round(i * 928 / 7) for i in range(8)],
+                               16, "bf16")}
+    with torch.inference_mode():
+        for key, (lengths, max_pages, kv) in cases.items():
+            q, k, v, bt, pos, ks, vs = _paged_inputs(
+                gen, dev, lengths, PAGE, max_pages, kv, "bf16")
+            args = (q, k, v, bt, pos, ks, vs)
+            t_k = time_ms(lambda: pa.paged_decode_attention_kernel(*args))
+            t_p = time_ms(lambda: pa.paged_decode_attention_plain(*args))
+            s_len = PAGE * max_pages
+            live = sum(min(int(p) + 1, s_len) for p in pos.tolist())
+            b, nh, hd = q.shape
+            esz = k.element_size()
+            nbytes = (2 * live * nh * hd * esz + 2 * b * nh * hd * 2
+                      + bt.numel() * 4 + b * 4)
+            if ks is not None:        # a K and a V scale a live page
+                nbytes += 2 * nh * 4 * sum(
+                    -(-min(int(p) + 1, s_len) // PAGE) for p in pos.tolist())
+            flops = 4 * live * nh * hd
+            t_l = None
+            if ks is None:
+                kg = k[bt.long()].transpose(1, 2).reshape(b, nh, s_len, hd)
+                vg = v[bt.long()].transpose(1, 2).reshape(b, nh, s_len, hd)
+                mask = (torch.arange(s_len, device=dev)[None, :]
+                        <= pos[:, None].long())[:, None, None, :]
+                q4 = q[:, :, None, :]
+                t_l = time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, kg, vg, attn_mask=mask))
+            _entry(res, f"paged_{key}", t_k, t_p, t_l, nbytes, flops,
+                   FP32_FLOPS,
+                   f"paged decode attention, {key} ({b} slots, S {s_len}, "
+                   f"{kv} pool, {live} live rows)",
+                   "SDPA on the gathered K/V (a different function)")
+            res[f"paged_{key}"].update(live_rows=live, slots=b,
+                                       per_tick_24_layers_ms=24 * t_k)
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -3511,7 +3929,7 @@ def main():
               "script runs on a CUDA device", file=sys.stderr)
         return 2
     try:
-        ln, fa, xent, fsm, mta, w8, prng = kernel_modules()
+        ln, fa, xent, fsm, mta, w8, prng, pa = kernel_modules()
     except ImportError as e:
         print(f"chip_smoke: cannot import apex_tpu_torch ({e}); run it "
               "from the root of the repository", file=sys.stderr)
@@ -3522,7 +3940,8 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t_start = time.perf_counter()
-    build([ln.LIB, fa.LIB, xent.LIB, fsm.LIB, mta.LIB, w8.LIB, prng.LIB])
+    build([ln.LIB, fa.LIB, xent.LIB, fsm.LIB, mta.LIB, w8.LIB, prng.LIB,
+           pa.LIB])
     err = {"layer_norm_fwd": ln_parity(dev),
            "flash_attention_fwd": flash_parity(dev),
            "layer_norm_bwd": ln_bwd_parity(dev)}
@@ -3553,16 +3972,23 @@ def main():
                       ("xentropy_bwd", "xent_bwd")):
         err[name] = max(err[name], gk[key])
     rope = rope_parity(dev)
+    err["paged_decode_attention"] = paged_parity(dev)
     kern = dict(zip(KERNEL_NAMES, (
         ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
         xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
         fsm.SOFTMAX_BWD, mta.FLAT_ADAM, mta.FLAT_SCALE, mta.FLAT_AXPBY,
         mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1, w8.W8_MATMUL_NOBIAS,
         w8.W8_MATMUL, w8.W8_MATMUL_NK, mta.FLAT_SGD, mta.FLAT_ADAGRAD,
-        mta.FLAT_NOVOGRAD, prng.THREEFRY_BITS, prng.THREEFRY_DROPOUT)))
+        mta.FLAT_NOVOGRAD, prng.THREEFRY_BITS, prng.THREEFRY_DROPOUT,
+        pa.PAGED_DECODE)))
     torch.cuda.empty_cache()
-    srv = serve(dev, kern)
+    srv, dense_streams = serve(dev, kern)
     srv_rope = serve_rope(dev, kern)
+    srv_paged, params_f32, params_o2 = serve_paged(dev, kern, dense_streams)
+    srv_prefix = serve_paged_prefix(dev, kern, params_o2)
+    srv_kv8 = serve_paged_kv8(dev, kern, params_f32, params_o2)
+    del params_f32, params_o2
+    torch.cuda.empty_cache()
     small = train_small(dev)
     gpt_small = gpt_train_small(dev)
     big = train_big(dev, kern)
@@ -3579,10 +4005,16 @@ def main():
     tm.update(sgd_family_times(dev))
     tm.update(threefry_times(dev))
     tm.update(gpt_times(dev))
+    tm.update(paged_times(dev))
     by_path = {n: {"serving": srv["bf16"]["launches"][n],
                    "serving_w8": srv["w8"]["launches"][n],
                    "serving_sampled": srv["sampled"]["launches"][n],
                    "serving_rope": srv_rope["launches"][n],
+                   "serving_paged": srv_paged["launches"][n],
+                   "serving_paged_prefix": (
+                       srv_prefix["roomy"]["launches"][n]
+                       + srv_prefix["tight"]["launches"][n]),
+                   "serving_paged_kv8": srv_kv8["launches"][n],
                    "training_dropout": big["fp32 dropout"]["launches"][n]}
                for n in kern}
     for name, res in gpt_big.items():
@@ -3796,6 +4228,25 @@ def main():
             "on no model path of the JAX package: driven through its "
             "optimizer's flat step on BERT-Large's parameter set "
             "(launches_by_path optimizer_steps_bert_large)")
+    # a port kernel with no Pallas counterpart: the JAX package runs this
+    # attention as XLA (apex_tpu/models/gpt.py:403 and :951)
+    kernels.append(dict(
+        name="paged_decode_attention", route="cuda",
+        source="apex_tpu_torch/csrc/paged_attention.cu",
+        replaces="apex_tpu/models/gpt.py:403 (_paged_decode_attention) and "
+        ":951 (_paged_decode_attention_q8), XLA gathers of each slot's "
+        "block-table row", tpu_row=None,
+        launches=sum(by_path["paged_decode_attention"].values()),
+        launches_by_path=by_path["paged_decode_attention"],
+        max_abs_err=err["paged_decode_attention"], **tm["paged_ab"],
+        at_ab_kv8=tm["paged_ab_kv8"],
+        at_serving_paged=tm["paged_serving_paged"],
+        note="library_ms is SDPA on K and V already gathered to (b, nh, S, "
+        "hd) bf16 with the s <= pos mask: a different function (it leaves "
+        "out the gather); times at the JAX package's paged A/B "
+        "configuration (bench.py:1324, 32 slots, S_max 512, page 64, "
+        "lengths 32..512), one layer; one block a (head, slot), the live "
+        "rows only, in logical order"))
     check(all(sum(by_path[n].values()) > 0 for n in KERNEL_NAMES
               if n not in OFF_PATH),
           "every kernel of a path launched on that path")
@@ -3821,9 +4272,15 @@ def main():
         print(f"{key}: {json.dumps(tm[key])}")
     print(f"RoPE: {json.dumps(rope)}")
     print(f"serving_rope: {json.dumps(srv_rope)}")
+    print(f"serving_paged: {json.dumps(srv_paged)}")
+    print(f"serving_paged_prefix: {json.dumps(srv_prefix)}")
+    print(f"serving_paged_kv8: {json.dumps(srv_kv8)}")
+    for key in ("paged_ab", "paged_ab_kv8", "paged_serving_paged"):
+        print(f"{key}: {json.dumps(tm[key])}")
     print(f"GPT training, card vs CPU: {json.dumps(gpt_small)}")
     print(f"GPT-medium training: {json.dumps(gpt_big)}")
     print(f"pretrain_gpt losses: {json.dumps(pre)}")
+    phase("results")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1556,3 +1556,96 @@ def test_threefry_refused_launch_keeps_the_count(cuda_device):
                                   4, cuda_device)
     assert (prng.THREEFRY_BITS.launches,
             prng.THREEFRY_DROPOUT.launches) == counts
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+pa_mod = importlib.import_module(
+    "apex_tpu_torch.transformer.functional.paged_attention")
+
+
+def _paged_case(dev, b, nh, hd, page, max_pages, kv, qdt, seed=0):
+    """q (b, nh, hd), pools of max_pages * b + 2 pages, each slot's
+    table row a random run of distinct pages, ragged positions with 0, a
+    page's last row and the next page's first among them; int8 pools
+    with (num_pages, nh) scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    num_pages = b * max_pages + 2
+    q = torch.randn((b, nh, hd), generator=g, device=dev).to(_DT[qdt])
+    shape = (num_pages, nh, page, hd)
+    if kv == "i8":
+        k, v = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((num_pages, nh), generator=g, device=dev)
+                  * 0.05 for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=g, device=dev).to(_DT[kv])
+                for _ in range(2))
+        ks = vs = None
+    perm = 2 + torch.randperm(num_pages - 2, generator=g, device=dev)
+    bt = perm[:b * max_pages].reshape(b, max_pages).to(torch.int32)
+    s_len = page * max_pages
+    fixed = [0, page - 1, page, s_len - 1]
+    pos = torch.randint(0, s_len, (b,), generator=g, device=dev)
+    pos[:min(b, 4)] = torch.tensor(fixed[:min(b, 4)], device=dev)
+    return q, k, v, bt, pos.to(torch.int32), ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kv", [("f32", "f32"), ("bf16", "bf16"),
+                                    ("f32", "bf16"), ("bf16", "i8"),
+                                    ("f32", "i8")])
+@pytest.mark.parametrize("page,hd", [(16, 64), (64, 64), (4, 8), (8, 48),
+                                     (64, 128)])
+def test_paged_attention_kernel_within_limit(cuda_device, qdt, kv, page,
+                                             hd):
+    args = _paged_case(cuda_device, 9, 4, hd, page, 5, kv, qdt)
+    n0 = pa_mod.PAGED_DECODE.launches
+    got = pa_mod.paged_decode_attention(*args)
+    want = pa_mod.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert pa_mod.PAGED_DECODE.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    lim = pa_mod.paged_limit(*args[:5], want, *args[5:])
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= lim).all()), float((err / lim).max())
+    again = pa_mod.paged_decode_attention_kernel(*args)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8"])
+def test_paged_attention_kernel_placement_invariant(cuda_device, kv):
+    """The same logical rows scattered to two permutations of the
+    physical pages: the same bits."""
+    q, k, v, bt, pos, ks, vs = _paged_case(cuda_device, 32, 16, 64, 64, 8,
+                                           kv, "bf16", seed=1)
+    outs = []
+    for seed in (2, 3):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        perm = torch.arange(k.shape[0], device=cuda_device)
+        perm[2:] = 2 + torch.randperm(k.shape[0] - 2, generator=g,
+                                      device=cuda_device)
+        k2, v2 = torch.empty_like(k), torch.empty_like(v)
+        k2[perm], v2[perm] = k, v
+        s2 = [None if s is None else torch.empty_like(s) for s in (ks, vs)]
+        for dst, src in zip(s2, (ks, vs)):
+            if src is not None:
+                dst[perm] = src
+        outs.append(pa_mod.paged_decode_attention_kernel(
+            q, k2, v2, perm[bt.long()].to(torch.int32), pos, *s2))
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_paged_attention_kernel_refuses_without_counting(cuda_device):
+    q, k, v, bt, pos, _, _ = _paged_case(cuda_device, 2, 2, 512, 4, 2,
+                                         "f32", "f32")
+    n0 = pa_mod.PAGED_DECODE.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pa_mod.paged_decode_attention_kernel(q, k, v, bt, pos)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        pa_mod.paged_decode_attention_kernel(q.cpu(), k, v, bt, pos)
+    assert pa_mod.PAGED_DECODE.launches == n0

@@ -58,6 +58,8 @@ w8 = importlib.import_module("apex_tpu_torch.quant.kernels")
 prng = importlib.import_module("apex_tpu_torch.utils.prng")
 rope = importlib.import_module(
     "apex_tpu_torch.transformer.functional.fused_rope")
+pa = importlib.import_module(
+    "apex_tpu_torch.transformer.functional.paged_attention")
 
 # the plain forwards, saved before any test patches them
 _plain = {"ln": ln.layer_norm_fwd_plain, "fa": fa.attention_fwd_plain,
@@ -113,7 +115,8 @@ def no_cuda(monkeypatch):
     "params_from_jax", "init_bert", "make_bert_train_step",
     "scaler_init_state", "init_resnet", "resnet_step_init_state",
     "init_gpt_from_key", "rope_frequencies", "rope_cos_sin",
-    "gpt_make_state", "gpt_train_main", "pretrain_gpt_main"])
+    "gpt_make_state", "gpt_train_main", "pretrain_gpt_main",
+    "init_paged_cache", "PagedDecodeEngine"])
 def test_default_device_is_the_card(no_cuda, entry):
     cfg = port_gpt.gpt_tiny()
     bcfg = port_bert.bert_tiny()
@@ -138,6 +141,10 @@ def test_default_device_is_the_card(no_cuda, entry):
             cfg, port_optimizers.FusedAdam()),
         "gpt_train_main": lambda: gpt_train.main(["--config", "tiny"]),
         "pretrain_gpt_main": lambda: pretrain_gpt.main([]),
+        "init_paged_cache": lambda: port_serving.init_paged_cache(
+            cfg, 1, 8, 4, 4),
+        "PagedDecodeEngine": lambda: port_serving.PagedDecodeEngine(
+            {}, cfg, 1, 8, num_pages=4, page_size=4, buckets=(8,)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -151,7 +158,7 @@ def dispatch_to_card(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("plain version reached on the CUDA path")
 
-    for mod in (ln, fa, xent, fsm, mta, w8, prng):
+    for mod in (ln, fa, xent, fsm, mta, w8, prng, pa):
         monkeypatch.setattr(mod, "on_card", lambda t, what="": True)
     for mod, name in ((ln, "layer_norm_fwd_plain"),
                       (ln, "layer_norm_bwd_plain"),
@@ -173,7 +180,8 @@ def dispatch_to_card(monkeypatch):
                       (w8, "w8_matmul_plain"),
                       (w8, "w8_matmul_nk_plain"),
                       (prng, "threefry_bits_plain"),
-                      (prng, "dropout_plain")):
+                      (prng, "dropout_plain"),
+                      (pa, "paged_decode_attention_plain")):
         monkeypatch.setattr(mod, name, plain)
 
 
@@ -404,10 +412,40 @@ def test_quantized_engine_prefill_never_reaches_plain(monkeypatch,
         eng.prefill(0, [3, 4, 5])
 
 
-@pytest.mark.parametrize("mod", [ln, fa, xent, fsm, mta, w8, prng],
+def test_cuda_path_never_reaches_plain_paged_attention(dispatch_to_card):
+    q = torch.randn(2, 2, 8)
+    k = torch.randn(5, 2, 4, 8)
+    bt = torch.full((2, 2), 2, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        pa.paged_decode_attention(q, k, k, bt, torch.zeros(2,
+                                                           dtype=torch.int32))
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16_pool", "int8_pool"])
+def test_paged_decode_on_card_path_reaches_the_kernel(monkeypatch,
+                                                      dispatch_to_card,
+                                                      cache_dtype):
+    """The paged engine's decode step on the card path (the norm kernel
+    swapped for the saved plain version): each layer's attention goes to
+    the paged kernel's wrapper, which refuses CPU tensors; no gathered
+    plain attention runs."""
+    monkeypatch.setattr(ln, "layer_norm_fwd_kernel", _plain["ln"])
+    cfg = port_gpt.gpt_tiny()
+    params = port_gpt.init_gpt(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    eng = port_serving.PagedDecodeEngine(
+        params, cfg, num_slots=2, max_len=16, num_pages=8, page_size=4,
+        buckets=(8, 16), cache_dtype=cache_dtype, device="cpu")
+    with pytest.raises(RuntimeError, match="paged_decode_attention kernel "
+                       "needs CUDA"):
+        eng.decode([3, 4], [True, True])
+
+
+@pytest.mark.parametrize("mod", [ln, fa, xent, fsm, mta, w8, prng, pa],
                          ids=["layer_norm", "flash", "xentropy",
                               "fused_softmax", "flat_adam", "w8_matmul",
-                              "threefry"])
+                              "threefry", "paged_attention"])
 def test_wrappers_have_no_fallback(mod):
     """No ``try`` in a wrapper module: a failed launch raises."""
     with open(mod.__file__) as f:
@@ -532,6 +570,9 @@ PORT_ONLY = {
     "examples/gpt/profile_train.py": "a profiler window on the card",
     "examples/imagenet/profile_train.py": "a profiler window on the card",
     "examples/kernel_ab.py": "kernels of two checkouts in one process",
+    "transformer/functional/paged_attention.py":
+        "the paged decode attention kernel (XLA inside the JAX package's "
+        "models/gpt.py: _paged_decode_attention and its int8 form)",
 }
 
 # Departures every module takes (the ground rules): no Pallas interpret
@@ -579,24 +620,19 @@ DEPARTURES = {
     "utils/platform.py:pallas_interpret":
         "Pallas/TPU platform helper: device= takes its place",
 }
+# ``key`` in serving/paging.py is a sha256 chain digest, not a jax.random
+# key: the scan's key -> generator rename does not apply, and the port
+# keeps the reference's name.
+DEPARTURES.update({
+    f"serving/paging.py:{n}": "key= is a prefix chain digest (bytes), kept "
+    "under the reference's name" for n in (
+        "encode_spill_header", "PrefixRegistry.put", "PrefixRegistry.get",
+        "PrefixRegistry.drop", "PagePool.evict_prefix")})
 
 # Names (or parameters) owed to later items of ROADMAP.md queue A. When an
 # item lands, delete its entry: the scan then holds every one of its names
 # to the reference.
 OWED = {
-    "A4.1 paged cache": [
-        "serving/cache.py:PagedKVCache", "serving/cache.py:max_pages_per_slot",
-        "serving/cache.py:init_paged_cache",
-        "serving/cache.py:audit_block_tables",
-        "serving/decode.py:make_paged_prefill_fn",
-        "serving/decode.py:make_paged_decode_fn",
-        "serving/decode.py:make_copy_page_fn",
-        "serving/scheduler.py:PagedDecodeEngine",
-        "serving/scheduler.py:DecodeEngine.check_invariants",
-        "serving/scheduler.py:DecodeEngine.pool_snapshot",
-        "serving/scheduler.py:DecodeEngine.pool_gauges",
-        "serving/scheduler.py:DecodeEngine.pop_admit_charge",
-        "quant/kernels.py:kv_quantize", "quant/kernels.py:kv_dequantize"],
     "A4.2 speculative decoding": [
         "serving/decode.py:make_verify_fn",
         "serving/decode.py:make_paged_verify_fn",
@@ -613,22 +649,25 @@ OWED = {
         "serving/scheduler.py:DecodeEngine.tree_verify",
         "serving/scheduler.py:DecodeEngine.commit",
         "serving/scheduler.py:DecodeEngine.sample_grid",
-        "serving/scheduler.py:DecodeEngine.prepare_decode"],   # n_new
+        "serving/scheduler.py:DecodeEngine.prepare_decode",    # n_new
+        "serving/scheduler.py:PagedDecodeEngine.prepare_decode"],
     "A4.3 chunked prefill": [
         "serving/decode.py:make_chunk_prefill_fn",
         "serving/decode.py:make_paged_chunk_prefill_fn",
         "serving/scheduler.py:DecodeEngine.begin_chunk_prefill",
         "serving/scheduler.py:DecodeEngine.chunk_prefill",
-        "serving/scheduler.py:DecodeEngine.finish_chunk_prefill"],
+        "serving/scheduler.py:DecodeEngine.finish_chunk_prefill",
+        "serving/scheduler.py:PagedDecodeEngine.begin_chunk_prefill",
+        "serving/scheduler.py:PagedDecodeEngine.chunk_prefill",
+        "serving/scheduler.py:PagedDecodeEngine.finish_chunk_prefill"],
     "A4.4 faults, tracer and tenancy": [
         f"serving/health.py:{n}" for n in (
-            "PoolExhausted", "RetryBudgetExhausted", "DeadlineExceeded",
-            "AdmissionRejected", "LivelockError", "PoolInvariantError",
+            "RetryBudgetExhausted", "DeadlineExceeded",
+            "AdmissionRejected", "LivelockError",
             "TransferFailed", "TransferCorrupt", "ReshardFailed",
             "ReplicaUnavailable", "SpillFailed", "PromoteFailed",
-            "StreamFailed", "QuotaExhausted", "SloViolation",
-            "ReplicaHealth", "ServingStats", "snapshot",
-            "ServingError.__init__", "RequestOutcome.ok",
+            "StreamFailed", "SloViolation",
+            "ReplicaHealth", "ServingStats", "snapshot", "RequestOutcome.ok",
             "RequestOutcome.error", "RequestOutcome.retries",
             "RequestOutcome.tenant_id", "RequestOutcome.slo")] + [
         "serving/scheduler.py:Request.deadline_ticks",
@@ -664,6 +703,26 @@ OWED = {
         "serving/cache.py:cache_partition_specs",
         "serving/cache.py:paged_cache_partition_specs",
         "optimizers/fused_adam.py:FusedAdam.state_partition_specs"],
+}
+
+
+# Parameters the port takes with the reference's name and default but
+# refuses (NotImplementedError naming the item) at any other value, by
+# the later queue-A item that brings them. The signature scan sees no
+# gap here; ``test_owed_values_raise_naming_their_item`` holds each.
+OWED_VALUES = {
+    "A4.1b host spill tier": [
+        ("PagedDecodeEngine", "host_tier", object()),
+        ("PagedDecodeEngine", "promote_ticks_per_page", 0.5)],
+    "A4.2 speculative decoding": [
+        ("PagedDecodeEngine", "spec_k", 2),
+        ("PagedDecodeEngine", "draft_model", object()),
+        ("PagedDecodeEngine", "tree_spec", True),
+        ("PagedDecodeEngine", "adaptive_spec", True)],
+    "A4.4 faults, tracer and tenancy": [
+        ("PagedDecodeEngine", "injector", object()),
+        ("PagedDecodeEngine", "tracer", object()),
+        ("PagePool", "injector", object())],
 }
 
 
@@ -888,3 +947,20 @@ def test_public_surface_matches_the_reference(rel):
     listed = {k for k in set(DEPARTURES) | owed
               if k.startswith(rel + ":")}
     assert sorted(_surface_findings(rel)) == sorted(listed)
+
+
+@pytest.mark.parametrize("item,cls,name,value", [
+    (item, cls, name, value) for item, cases in sorted(OWED_VALUES.items())
+    for cls, name, value in cases],
+    ids=lambda v: v if isinstance(v, str) else None)
+def test_owed_values_raise_naming_their_item(item, cls, name, value):
+    """Each parameter kept under the reference's name and default but
+    owed to a later item raises at any other value, naming the item."""
+    cfg = port_gpt.gpt_tiny()
+    make = {"PagedDecodeEngine": lambda **kw: port_serving.PagedDecodeEngine(
+                {}, cfg, 1, 8, num_pages=4, page_size=4, buckets=(8,),
+                device="cpu", **kw),
+            "PagePool": lambda **kw: port_serving.PagePool(4, 4, **kw)}[cls]
+    assert name in inspect.signature(getattr(port_serving, cls)).parameters
+    with pytest.raises(NotImplementedError, match=item.split()[0]):
+        make(**{name: value})
