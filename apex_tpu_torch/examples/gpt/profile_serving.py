@@ -24,11 +24,18 @@ to 511): one decode tick on the dense engine and one on
 ``PagedDecodeEngine``, each after the same 32 prompts were admitted,
 with the paged decode attention's share of the paged tick's device
 time, and before them one prefill of the longest prompt on each;
-``--kv8`` gives the paged engine an int8 pool. Runs on the CUDA
-device::
+``--kv8`` gives the paged engine an int8 pool. ``--spec-k K`` profiles,
+at the same configuration, one speculative verify tick (``spec_k`` K,
+the host n-gram drafter; ``--draft-model self`` the target as its own
+``DraftModel``; ``--tree`` tree speculation) against one plain tick of
+the same engine shape, each after the same 32 prompts were admitted
+(a random 8-32-token motif repeated to each A/B length, capped so every
+slot keeps the rows of four full verify ticks), with the paged attention's share of
+each tick's device time. Runs on the CUDA device::
 
     python -m apex_tpu_torch.examples.gpt.profile_serving [--w8] \
-        [--use-rope] [--paged [--kv8]]
+        [--use-rope] [--paged [--kv8]] \
+        [--spec-k K [--draft-model self] [--tree]]
 """
 
 import argparse
@@ -45,7 +52,8 @@ from apex_tpu_torch import amp
 from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
 from apex_tpu_torch.quant import quantize_params
 from apex_tpu_torch.serving import (
-    ContinuousBatchingScheduler, DecodeEngine, PagedDecodeEngine, Request,
+    ContinuousBatchingScheduler, DecodeEngine, DraftModel, PagedDecodeEngine,
+    Request,
 )
 from apex_tpu_torch.utils.platform import resolve_device
 
@@ -155,8 +163,9 @@ def w8_share(kern):
 
 
 def paged_share(kern):
-    """Device ms of the paged decode attention kernel and the rest."""
-    paged = sum(t for k, t in kern.items() if "paged_decode" in k)
+    """Device ms of the paged attention kernel (decode and verify) and
+    the rest."""
+    paged = sum(t for k, t in kern.items() if "paged_attention" in k)
     return {"paged attention": paged, "other": sum(kern.values()) - paged}
 
 
@@ -209,6 +218,56 @@ def paged_ab(params, cfg, dev, kv8, compute_dtype=None):
     return res
 
 
+def spec_ab(params, cfg, dev, spec_k, draft, tree, kv8,
+            compute_dtype=None):
+    """One verify tick (``spec_k``; the n-gram drafter, or the target as
+    its own ``DraftModel``; linear or tree) against one plain tick, each
+    on ``PagedDecodeEngine`` at the A/B configuration after the same 32
+    motif prompts were admitted."""
+    # capped so every slot keeps the rows of four full verify ticks: a
+    # slot near max_len would narrow (tree) or cancel (linear) every
+    # slot's speculation
+    lengths = [min(n, 512 - 4 * (spec_k + 1) - 8) for n in ab_lengths()]
+    rng = np.random.RandomState(4)
+    prompts = [tuple(int(t) for t in np.resize(
+        rng.randint(0, cfg.vocab_size, size=rng.randint(8, 33)), n))
+        for n in lengths]
+    res = {"lengths": lengths, "spec_k": spec_k, "draft_model": draft,
+           "tree": tree}
+    for name, k in (("plain", 0), ("verify", spec_k)):
+        kw = {}
+        if k:
+            kw = dict(spec_k=k, tree_spec=tree, draft_model=DraftModel(
+                params, cfg, 32, 512, compute_dtype=compute_dtype,
+                device=dev) if draft else None)
+        eng = PagedDecodeEngine(
+            params, cfg, num_slots=32, max_len=512, num_pages=2 + 32 * 8,
+            page_size=64, cache_dtype=torch.int8 if kv8 else torch.bfloat16,
+            buckets=(128, 256, 512), compute_dtype=compute_dtype,
+            device=dev, **kw)
+        sched = ContinuousBatchingScheduler(eng, eos_id=-1)
+        for p in prompts:   # enough tokens that no slot ends in 3 ticks
+            sched.submit(Request(prompt=p, max_new_tokens=3 * (k + 1) + 1))
+        sched.step()  # admits all 32 slots, then one tick
+        sched.step()  # a second tick, outside the window
+        before = (sched.spec_ticks, sched.tokens_drafted,
+                  sched.tokens_accepted)
+        res[f"tick_{name}"] = window(f"tick_{name}", sched.step,
+                                     paged_share)
+        res[f"tick_{name}"].update(
+            spec_ticks=sched.spec_ticks - before[0],
+            tokens_drafted=sched.tokens_drafted - before[1],
+            tokens_accepted=sched.tokens_accepted - before[2])
+        del eng, sched
+        torch.cuda.empty_cache()
+    v, p = res["tick_verify"], res["tick_plain"]
+    if v.get("device_ms") and p.get("device_ms"):
+        res["verify_over_plain_device"] = v["device_ms"] / p["device_ms"]
+        print(f"verify tick / plain tick device time: "
+              f"{res['verify_over_plain_device']:.3f}")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--w8", action="store_true",
@@ -221,9 +280,20 @@ def main(argv=None):
                     "(RoPE, 32 slots, max_len 512, pages of 64)")
     ap.add_argument("--kv8", action="store_true",
                     help="with --paged: an int8 page pool")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="with --paged: one verify tick of this draft depth "
+                    "against one plain tick")
+    ap.add_argument("--draft-model", choices=("self",), default=None,
+                    help="with --spec-k: the target as its own draft model")
+    ap.add_argument("--tree", action="store_true",
+                    help="with --spec-k: tree speculation")
     args = ap.parse_args(argv)
     if args.kv8 and not args.paged:
         ap.error("--kv8 needs --paged")
+    if args.spec_k and not args.paged:
+        ap.error("--spec-k needs --paged")
+    if (args.draft_model or args.tree) and not args.spec_k:
+        ap.error("--draft-model and --tree need --spec-k")
     dev = resolve_device(None)
     cfg = dataclasses.replace(gpt_medium(),
                               use_rope=args.use_rope or args.paged)
@@ -237,7 +307,13 @@ def main(argv=None):
            "kv8": args.kv8}
     if args.paged:
         with torch.inference_mode():
-            res.update(paged_ab(params, cfg, dev, args.kv8, compute_dtype))
+            if args.spec_k:
+                res.update(spec_ab(params, cfg, dev, args.spec_k,
+                                   args.draft_model == "self", args.tree,
+                                   args.kv8, compute_dtype))
+            else:
+                res.update(paged_ab(params, cfg, dev, args.kv8,
+                                    compute_dtype))
         print(json.dumps(res))
         return
     with torch.inference_mode(), rope_marked():

@@ -12,12 +12,14 @@ selective-checkpoint policy). Attention goes through the port's
 entropy, the hidden dropout through ``utils.prng.dropout``; the dense
 products, RoPE, decode attention and embeddings are plain PyTorch, as
 they are plain ``jnp`` in the JAX package. Positions are learned or
-rotary (``use_rope``). The paged decode blocks (bf16/fp32 and int8
-pools) attend through ``paged_decode_attention`` (a kernel on the card;
-XLA in the JAX package). The tensor-, sequence- and context-parallel
-paths (``GPTModel`` and its fields) and the verify and tree blocks are
-later slices. Weight-only int8 trees run the serving blocks with
-``serving/decode.py``'s w8 linears.
+rotary (``use_rope``). The paged decode and verify blocks (bf16/fp32
+and int8 pools, linear and tree masks) attend through
+``paged_decode_attention`` and ``paged_verify_attention`` (one kernel on
+the card; XLA in the JAX package); the dense verify and tree blocks and
+the paged prompt-chunk block are plain PyTorch, as they are XLA there.
+The tensor-, sequence- and context-parallel paths (``GPTModel`` and its
+fields) are a later slice. Weight-only int8 trees run the serving blocks
+with ``serving/decode.py``'s w8 linears.
 """
 
 import dataclasses
@@ -37,8 +39,9 @@ from apex_tpu_torch.normalization import fused_layer_norm_affine
 from apex_tpu_torch.quant.kernels import kv_dequantize, kv_quantize
 from apex_tpu_torch.transformer.functional import (
     flash_attention, fused_apply_rotary_pos_emb_bhsd, paged_decode_attention,
-    rope_frequencies,
+    paged_verify_attention, rope_frequencies,
 )
+from apex_tpu_torch.transformer.functional.paged_attention import visible
 from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -309,7 +312,8 @@ def _prefill_attention(q_k_v: torch.Tensor, cfg: GPTConfig,
 def _decode_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, pos: torch.Tensor,
                       cfg: GPTConfig, rope_freqs: Optional[torch.Tensor]):
-    """Single-query attention against one layer's per-slot cache.
+    """Single-query attention against one layer's per-slot cache: the
+    one-column :func:`_verify_attention`.
 
     ``q_k_v`` (b, 1, 3*h); ``k_cache``/``v_cache`` (b, nh, S_max, hd),
     written IN PLACE; ``pos`` (b,) each slot's current length, the new
@@ -318,23 +322,7 @@ def _decode_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
     ``dynamic_update_slice`` clamps) BEFORE attending, so the ``s <=
     pos`` mask only admits rows that hold real tokens. Scores and
     softmax in fp32; returns ctx (b, 1, h)."""
-    b = q_k_v.shape[0]
-    hd = cfg.head_dim
-    q, k, v = _split_qkv(q_k_v, hd)            # (b, nh, 1, hd)
-    q, k = _rotate(q, k, rope_freqs, positions=pos)
-    s_max = k_cache.shape[2]
-    rows = torch.arange(b, device=pos.device)
-    wpos = pos.clamp(max=s_max - 1)
-    k_cache[rows, :, wpos] = k[:, :, 0].to(k_cache.dtype)
-    v_cache[rows, :, wpos] = v[:, :, 0].to(v_cache.dtype)
-    scores = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) \
-        / math.sqrt(hd)
-    valid = torch.arange(s_max, device=pos.device)[None, None, None, :] \
-        <= pos[:, None, None, None]
-    scores = torch.where(valid, scores, torch.finfo(torch.float32).min)
-    probs = torch.softmax(scores, dim=-1)
-    ctx = torch.matmul(probs, v_cache.float()).to(q_k_v.dtype)
-    return ctx.transpose(1, 2).reshape(b, 1, -1)
+    return _verify_attention(q_k_v, k_cache, v_cache, pos, cfg, rope_freqs)
 
 
 def _block_prefill(lp, x, cfg, rope_freqs, key_mask, dense):
@@ -357,18 +345,41 @@ def _block_decode(lp, x, k_cache, v_cache, pos, cfg, rope_freqs, dense):
     return x + _mlp(lp, x, cfg, dense)
 
 
-def _q8_page_insert(pool, scale, pages, rows, new_row):
+def _q8_page_insert(pool, scale, pages, rows, new_row, rescale=True,
+                    zero_dead=False):
     """Insert ``new_row`` (b, nh, hd) fp32 into the int8 page ``pages``
     of each slot at row ``rows`` by a whole-page read-modify-write
     requant, IN PLACE: dequantize the page, set the exact new row,
     recompute the per-head amax scale over the whole page, requantize
     and scatter page and scale back. Re-quantizing untouched rows at an
     unchanged scale is round-to-nearest idempotent, so a page whose amax
-    the new row does not raise comes back bit-identical."""
+    the new row does not raise comes back bit-identical.
+
+    The verify steps pass ``zero_dead=True``: the rows past the insert
+    (stale or speculative, never admitted by a mask) are zeroed before
+    the amax, so the scale is a function of live rows only, and two runs
+    that drafted different rejected tails requantize alike.
+    ``rescale=False`` (a verify's columns j >= 1) keeps the page's scale
+    unless the row lands at page row 0: the new row quantizes (clipped)
+    against it, so a speculative row never re-rounds committed history
+    (the JAX ``_q8_page_insert``)."""
     b = pages.shape[0]
-    tile = kv_dequantize(pool[pages], scale[pages])  # (b, nh, page, hd)
+    old = scale[pages]                                 # (b, nh)
+    tile = kv_dequantize(pool[pages], old)             # (b, nh, page, hd)
     tile[torch.arange(b, device=pages.device), :, rows] = new_row
+    if zero_dead:
+        live = torch.arange(tile.shape[2], device=pages.device)[
+            None, None, :, None] <= rows[:, None, None, None]
+        tile = torch.where(live, tile, torch.zeros((), device=tile.device))
     nq, ns = kv_quantize(tile)
+    if not rescale:
+        keep = (rows > 0)[:, None]                     # (b, 1) over heads
+        sel = torch.where(keep, old, ns)
+        safe = torch.where(sel > 0, sel, torch.ones(
+            (), device=sel.device))[..., None, None]
+        qk = torch.clamp(torch.round(tile / safe), -127, 127).to(pool.dtype)
+        nq = torch.where(keep[..., None, None], qk, nq)
+        ns = sel
     pool[pages] = nq
     scale[pages] = ns
 
@@ -417,6 +428,239 @@ def _block_decode_paged(lp, x, k_pages, v_pages, block_tables, pos, cfg,
     att = _paged_decode_attention(
         dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
         v_pages, block_tables, pos, cfg, rope_freqs, k_scale, v_scale)
+    x = x + dense(lp["out"], att)
+    return x + _mlp(lp, x, cfg, dense)
+
+
+def _write_rows(cache, new, start):
+    """Write ``new`` (b, nh, k1, hd) into ``cache`` (b, nh, S, hd) at rows
+    ``start .. start + k1 - 1`` of each slot, the start clamped so the
+    block fits, as ``lax.dynamic_update_slice`` clamps."""
+    b, _, k1, _ = new.shape
+    start = start.long().clamp(0, cache.shape[2] - k1)
+    idx = start[:, None] + torch.arange(k1, device=start.device)[None, :]
+    cache[torch.arange(b, device=start.device)[:, None], :, idx] = \
+        new.transpose(1, 2).to(cache.dtype)
+
+
+def _cache_attention(q, k_cache, v_cache, vis, dtype):
+    """fp32 attention of q (b, nh, q, hd) over a (b, nh, S, hd) cache,
+    ``vis`` (b, q, S) the admitted rows (``finfo.min`` elsewhere, so
+    their probabilities are exactly 0); ctx (b, q, h) in ``dtype``."""
+    hd = q.shape[-1]
+    scores = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) \
+        / math.sqrt(hd)
+    scores = torch.where(vis[:, None], scores,
+                         torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    return _merge_heads(torch.matmul(probs, v_cache.float()).to(dtype))
+
+
+def _verify_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, pos: torch.Tensor,
+                      cfg: GPTConfig, rope_freqs: Optional[torch.Tensor]):
+    """Speculative verify attention against one layer's per-slot cache:
+    the k1-query :func:`_decode_attention`. ``q_k_v`` (b, k1, 3*h), the
+    pending token and the drafts; query j sits at ``pos + j`` (RoPE
+    rotates from ``pos``). All k1 rows are written (in place) BEFORE
+    attending, and the mask ``s <= pos + j`` admits the committed rows
+    and the candidate's own prefix, so logits row j is a teacher-forced
+    forward at ``pos + j``; rows past the accepted prefix are never
+    admitted before a later step rewrites them. The caller keeps ``pos
+    + k1 <= S_max``. Returns ctx (b, k1, h)."""
+    k1 = q_k_v.shape[1]
+    q, k, v = _split_qkv(q_k_v, cfg.head_dim)        # (b, nh, k1, hd)
+    q, k = _rotate(q, k, rope_freqs, positions=pos)
+    _write_rows(k_cache, k, pos)
+    _write_rows(v_cache, v, pos)
+    s_idx = torch.arange(k_cache.shape[2], device=pos.device)
+    qpos = pos.long()[:, None] + torch.arange(k1, device=pos.device)
+    vis = s_idx[None, None, :] <= qpos[:, :, None]
+    return _cache_attention(q, k_cache, v_cache, vis, q_k_v.dtype)
+
+
+def _block_verify(lp, x, k_cache, v_cache, pos, cfg, rope_freqs, dense):
+    """:func:`_block_decode` over k1 candidate positions at once."""
+    att = _verify_attention(
+        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
+        v_cache, pos, cfg, rope_freqs)
+    x = x + dense(lp["out"], att)
+    return x + _mlp(lp, x, cfg, dense)
+
+
+def _tree_score_mask(pos, anc, s_max):
+    """(b, k1, s_max) bool: key position s admitted for query node j —
+    ``s < pos`` (committed history), or window node ``i = s - pos`` with
+    ``anc[b, i, j]`` (ancestor-or-self), as the JAX ``_tree_score_mask``
+    (which returns it as (b, 1, k1, s_max))."""
+    return visible(pos, anc.shape[1], s_max, anc)
+
+
+def _tree_verify_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos: torch.Tensor,
+                           depth: torch.Tensor, anc: torch.Tensor,
+                           cfg: GPTConfig,
+                           rope_freqs: Optional[torch.Tensor]):
+    """Tree-mask verify attention against one layer's per-slot cache:
+    node j (topological order, node 0 the pending token) writes its row
+    at physical row ``pos + j`` but attends (and rotates) at position
+    ``pos + depth[j]``, seeing the committed rows and its ancestors
+    (``anc`` (b, k1, k1) bool). Write-then-attend as
+    :func:`_verify_attention`. Returns ctx (b, k1, h)."""
+    q, k, v = _split_qkv(q_k_v, cfg.head_dim)
+    if rope_freqs is not None:
+        tpos = pos.long()[:, None] + depth.long()
+        q, k = _rotate(q, k, rope_freqs, positions=tpos)
+    _write_rows(k_cache, k, pos)
+    _write_rows(v_cache, v, pos)
+    vis = _tree_score_mask(pos, anc, k_cache.shape[2])
+    return _cache_attention(q, k_cache, v_cache, vis, q_k_v.dtype)
+
+
+def _block_tree_verify(lp, x, k_cache, v_cache, pos, depth, anc, cfg,
+                       rope_freqs, dense):
+    """:func:`_block_verify` under the tree-attention mask."""
+    att = _tree_verify_attention(
+        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
+        v_cache, pos, depth, anc, cfg, rope_freqs)
+    x = x + dense(lp["out"], att)
+    return x + _mlp(lp, x, cfg, dense)
+
+
+def _paged_write_window(k_pages, v_pages, block_tables, pos, k, v,
+                        k_scale=None, v_scale=None):
+    """Write the k1 new rows (b, nh, k1, hd) of each slot at logical
+    positions ``pos .. pos + k1 - 1`` through the block table, one
+    position at a time (same-page rows compose). An int8 pool inserts by
+    the whole-page requant with ``rescale=(j == 0)`` and
+    ``zero_dead=True``."""
+    page_size = k_pages.shape[2]
+    for j in range(k.shape[2]):
+        p = pos.long() + j
+        logical = torch.clamp(p // page_size, 0, block_tables.shape[1] - 1)
+        pages = block_tables.gather(1, logical[:, None])[:, 0].long()
+        rows = p % page_size
+        if k_scale is None:
+            k_pages[pages, :, rows] = k[:, :, j].to(k_pages.dtype)
+            v_pages[pages, :, rows] = v[:, :, j].to(v_pages.dtype)
+        else:
+            _q8_page_insert(k_pages, k_scale, pages, rows,
+                            k[:, :, j].float(), rescale=(j == 0),
+                            zero_dead=True)
+            _q8_page_insert(v_pages, v_scale, pages, rows,
+                            v[:, :, j].float(), rescale=(j == 0),
+                            zero_dead=True)
+
+
+def _paged_verify_attention(q_k_v, k_pages, v_pages, block_tables, pos,
+                            cfg: GPTConfig,
+                            rope_freqs: Optional[torch.Tensor],
+                            k_scale=None, v_scale=None):
+    """Verify attention against one layer's paged pool: the JAX
+    ``_paged_verify_attention`` and, with ``k_scale`` / ``v_scale``, its
+    ``_paged_verify_attention_q8``. The k1 rows are written through the
+    block table (:func:`_paged_write_window`; the host has made every
+    written page exclusive, ``prepare_decode(..., n_new=k1)``), then
+    ``paged_verify_attention`` (the kernel on the card) attends with the
+    linear mask ``s <= pos + j``. Returns ctx (b, k1, h)."""
+    q, k, v = _split_qkv(q_k_v, cfg.head_dim)        # (b, nh, k1, hd)
+    q, k = _rotate(q, k, rope_freqs, positions=pos)
+    _paged_write_window(k_pages, v_pages, block_tables, pos, k, v,
+                        k_scale, v_scale)
+    return _merge_heads(paged_verify_attention(
+        q.contiguous(), k_pages, v_pages, block_tables, pos, None, k_scale,
+        v_scale))
+
+
+def _block_verify_paged(lp, x, k_pages, v_pages, block_tables, pos, cfg,
+                        rope_freqs, dense, k_scale=None, v_scale=None):
+    """:func:`_block_verify` over one layer's paged pool (and an int8
+    pool's scales: the JAX ``_block_verify_paged_q8``)."""
+    att = _paged_verify_attention(
+        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
+        v_pages, block_tables, pos, cfg, rope_freqs, k_scale, v_scale)
+    x = x + dense(lp["out"], att)
+    return x + _mlp(lp, x, cfg, dense)
+
+
+def _paged_tree_verify_attention(q_k_v, k_pages, v_pages, block_tables,
+                                 pos, depth, anc, cfg: GPTConfig,
+                                 rope_freqs: Optional[torch.Tensor]):
+    """:func:`_tree_verify_attention` over one layer's paged pool: node j
+    written at logical position ``pos + j``, rotated at ``pos +
+    depth[j]``, attending through ``paged_verify_attention`` under
+    ``anc``. Not offered over the int8 pool (the JAX package refuses it:
+    a branch commit would re-round history at branch-dependent scales).
+    Returns ctx (b, k1, h)."""
+    if k_pages.dtype == torch.int8:
+        raise ValueError("tree verify is not offered over the int8 page "
+                         "pool (kv8 keeps linear speculation)")
+    q, k, v = _split_qkv(q_k_v, cfg.head_dim)
+    if rope_freqs is not None:
+        tpos = pos.long()[:, None] + depth.long()
+        q, k = _rotate(q, k, rope_freqs, positions=tpos)
+    _paged_write_window(k_pages, v_pages, block_tables, pos, k, v)
+    return _merge_heads(paged_verify_attention(
+        q.contiguous(), k_pages, v_pages, block_tables, pos,
+        anc.contiguous()))
+
+
+def _block_tree_verify_paged(lp, x, k_pages, v_pages, block_tables, pos,
+                             depth, anc, cfg, rope_freqs, dense):
+    """:func:`_block_tree_verify` over one layer's paged pool."""
+    att = _paged_tree_verify_attention(
+        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
+        v_pages, block_tables, pos, depth, anc, cfg, rope_freqs)
+    x = x + dense(lp["out"], att)
+    return x + _mlp(lp, x, cfg, dense)
+
+
+def _paged_chunk_prefill_attention(q_k_v, k_pages, v_pages, write_pages,
+                                   gather_row, pos, cfg: GPTConfig,
+                                   rope_freqs: Optional[torch.Tensor],
+                                   key_mask: torch.Tensor):
+    """One slot's prompt chunk against one layer's paged pool (the JAX
+    ``_paged_chunk_prefill_attention``): ``q_k_v`` (1, sc, 3*h), sc a
+    multiple of the page size, token j at ``pos + j``; the chunk's rows
+    (pad rows zeroed by ``key_mask`` (1, sc)) are cut into page tiles
+    and written to ``write_pages`` (shared pages redirected to scratch
+    by the host), then every query attends the slot's ``gather_row``
+    with the mask ``s <= pos + j``. Plain PyTorch, as XLA computes it in
+    the JAX package. Returns ctx (1, sc, h)."""
+    sc = q_k_v.shape[1]
+    hd = cfg.head_dim
+    page_size = k_pages.shape[2]
+    q, k, v = _split_qkv(q_k_v, hd)                  # (1, nh, sc, hd)
+    p1 = pos.reshape(1)
+    q, k = _rotate(q, k, rope_freqs, positions=p1)
+    mz = key_mask.to(k.dtype)[:, None, :, None]
+
+    def tiles(t):
+        # (1, nh, sc, hd) -> (sc // page, nh, page, hd)
+        t = (t * mz)[0]
+        t = t.reshape(t.shape[0], sc // page_size, page_size, hd)
+        return t.transpose(0, 1).to(k_pages.dtype)
+
+    write = write_pages.long()
+    k_pages[write] = tiles(k)
+    v_pages[write] = tiles(v)
+    row = gather_row.long()
+    kg = k_pages[row].transpose(0, 1).reshape(1, k.shape[1], -1, hd)
+    vg = v_pages[row].transpose(0, 1).reshape(1, k.shape[1], -1, hd)
+    s_idx = torch.arange(kg.shape[2], device=pos.device)
+    qpos = p1.long()[:, None] + torch.arange(sc, device=pos.device)
+    vis = s_idx[None, None, :] <= qpos[:, :, None]
+    return _cache_attention(q, kg, vg, vis, q_k_v.dtype)
+
+
+def _block_chunk_prefill_paged(lp, x, k_pages, v_pages, write_pages,
+                               gather_row, pos, cfg, rope_freqs, key_mask,
+                               dense):
+    """:func:`_block_verify` for one slot's prompt chunk over the paged
+    pool."""
+    att = _paged_chunk_prefill_attention(
+        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
+        v_pages, write_pages, gather_row, pos, cfg, rope_freqs, key_mask)
     x = x + dense(lp["out"], att)
     return x + _mlp(lp, x, cfg, dense)
 

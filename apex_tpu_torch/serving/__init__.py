@@ -1,20 +1,26 @@
 """Serving: KV-cached incremental decode for the port's GPT — the dense
 per-slot cache and the paged cache (a page pool with per-slot block
-tables, prefix sharing, copy-on-write and preemption, bf16/fp32 or int8
-pages), greedy and sampled continuous batching, bf16/fp32 or weight-only
-int8 params (detected by the engines). See ``scheduler.py``."""
+tables, prefix sharing, copy-on-write, preemption and a host spill tier,
+bf16/fp32 or int8 pages), greedy and sampled continuous batching,
+speculative decoding (n-gram, model and tree drafts), bf16/fp32 or
+weight-only int8 params (detected by the engines). See
+``scheduler.py``."""
 
 from apex_tpu_torch.serving.cache import (  # noqa: F401
     KVCache, PagedKVCache, audit_block_tables, init_cache,
     init_paged_cache,
 )
 from apex_tpu_torch.serving.decode import (  # noqa: F401
-    make_copy_page_fn, make_decode_fn, make_paged_decode_fn,
-    make_paged_prefill_fn, make_prefill_fn,
+    make_copy_page_fn, make_decode_fn, make_paged_chunk_prefill_fn,
+    make_paged_decode_fn, make_paged_prefill_fn, make_paged_tree_verify_fn,
+    make_paged_verify_fn, make_prefill_fn, make_tree_verify_fn,
+    make_verify_fn,
 )
+from apex_tpu_torch.serving.draft import ngram_draft, tree_arrays  # noqa: F401
+from apex_tpu_torch.serving.draft_model import DraftModel  # noqa: F401
 from apex_tpu_torch.serving.health import (  # noqa: F401
-    NonFiniteLogits, PoolExhausted, PoolInvariantError, QuotaExhausted,
-    RequestOutcome, ServingError,
+    NonFiniteLogits, PoolExhausted, PoolInvariantError, PromoteFailed,
+    QuotaExhausted, RequestOutcome, ServingError, SpillFailed,
 )
 from apex_tpu_torch.serving.paging import (  # noqa: F401
     PAGE_KEY_VERSION, SPILL_DTYPE_TAGS, PagePool, PrefixRegistry,
@@ -22,9 +28,13 @@ from apex_tpu_torch.serving.paging import (  # noqa: F401
     prefix_page_keys, spill_checksum,
 )
 from apex_tpu_torch.serving.sampling import (  # noqa: F401
-    finite_rows,
-    sample_tokens,
+    finite_rows, sample_token_grid, sample_tokens, speculative_accept,
+    tree_speculative_accept,
 )
 from apex_tpu_torch.serving.scheduler import (  # noqa: F401
     ContinuousBatchingScheduler, DecodeEngine, PagedDecodeEngine, Request,
+)
+from apex_tpu_torch.serving.transfer import (  # noqa: F401
+    make_extract_pages_fn, make_extract_pages_quant_fn,
+    make_insert_pages_fn, make_insert_pages_quant_fn,
 )

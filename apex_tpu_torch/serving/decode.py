@@ -23,13 +23,33 @@ installs the slot's block-table row; the paged decode writes each new
 row through the block table and attends with
 ``paged_decode_attention``. ``make_copy_page_fn`` clones one page across
 all layers (copy-on-write), with its int8 scales.
+
+- **verify** (speculative decoding) advances every slot over k1
+  candidate positions at once — the pending token plus the drafts —
+  and returns per-position logits (B, k1, V): all k1 K/V rows are
+  written before attending (per-query ``s <= pos + j`` masks), and the
+  lengths are NOT advanced; the host commits the accepted prefix
+  (``DecodeEngine.commit``), so a rejected candidate's row is never
+  admitted by a mask before a later step rewrites it.
+- **tree verify** scores a draft tree a slot: node j writes its row at
+  ``pos + j``, attends (and takes its position) at ``pos + depth[j]``
+  under an ancestor matrix ``anc``.
+
+The dense verify steps attend in plain PyTorch (XLA in the JAX package);
+the paged ones through ``paged_verify_attention``, one kernel launch a
+layer on the card. The paged prompt-chunk step
+(``make_paged_chunk_prefill_fn``) runs the verify mechanics over one
+slot's page-aligned prompt chunk; the host spill tier prefills the
+suffix past its promoted pages with it.
 """
 
 import torch
 
 from apex_tpu_torch.models.gpt import (
-    GPTConfig, _block_decode, _block_decode_paged, _block_prefill, _ln,
-    _rope_or_none, _unstack, check_config,
+    GPTConfig, _block_chunk_prefill_paged, _block_decode, _block_decode_paged,
+    _block_prefill, _block_tree_verify, _block_tree_verify_paged,
+    _block_verify, _block_verify_paged, _ln, _rope_or_none, _unstack,
+    check_config,
 )
 from apex_tpu_torch.models.gpt import dense as _dense
 from apex_tpu_torch.quant.kernels import kv_quantize, w8_matmul, w8_matmul_nk
@@ -166,6 +186,132 @@ def _paged_decode_core(params, cfg: GPTConfig, cache: PagedKVCache,
     return cache, logits
 
 
+def _verify_core(params, cfg: GPTConfig, cache: KVCache, tokens, *,
+                 embed_fn, dense_fn, logits_fn):
+    """Speculative verify over the dense cache: tokens (B, k1) — column 0
+    each slot's pending token, columns 1.. its drafts; row j sits at
+    ``lengths + j``. Returns (cache, logits (B, k1, V) fp32); lengths are
+    not advanced. The caller keeps ``lengths + k1 <= S_max``."""
+    pos = cache.lengths.clone()
+    x = embed_fn(params, tokens, pos=pos)
+    freqs = _rope_or_none(cfg, cache.k.shape[3], tokens.device)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x = _block_verify(lp, x, cache.k[i], cache.v[i], pos, cfg, freqs,
+                          dense_fn)
+    hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
+    return cache, logits_fn(params, hidden)
+
+
+def _tree_verify_core(params, cfg: GPTConfig, cache: KVCache, tokens,
+                      depth, anc, *, embed_fn, dense_fn, logits_fn):
+    """Tree verify over the dense cache: tokens (B, k1) in topological
+    order (column 0 the pending token), depth (B, k1) node depths, anc
+    (B, k1, k1) bool ancestor-or-self matrix. Node j's position is
+    ``lengths + depth[j]``; logits row j is the teacher-forced
+    distribution after j's root-to-node path. Lengths are not
+    advanced."""
+    pos = cache.lengths.clone()
+    x = embed_fn(params, tokens, pos=pos[:, None].long() + depth.long())
+    freqs = _rope_or_none(cfg, cache.k.shape[3], tokens.device)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x = _block_tree_verify(lp, x, cache.k[i], cache.v[i], pos, depth,
+                               anc, cfg, freqs, dense_fn)
+    hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
+    return cache, logits_fn(params, hidden)
+
+
+def _paged_verify_core(params, cfg: GPTConfig, cache: PagedKVCache,
+                       tokens, *, embed_fn, dense_fn, logits_fn):
+    """:func:`_verify_core` over the page pool; the host has made every
+    page the k1 positions touch exclusive
+    (``prepare_decode(..., n_new=k1)``). An int8 pool writes by the
+    whole-page requant (column 0 may rescale its page, the drafts keep
+    the scale)."""
+    pos = cache.lengths.clone()
+    bt = cache.block_tables
+    x = embed_fn(params, tokens, pos=pos)
+    freqs = _rope_or_none(cfg, bt.shape[1] * cache.k.shape[3],
+                          tokens.device)
+    quant = cache.k_scale is not None
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x = _block_verify_paged(lp, x, cache.k[i], cache.v[i], bt, pos, cfg,
+                                freqs, dense_fn,
+                                cache.k_scale[i] if quant else None,
+                                cache.v_scale[i] if quant else None)
+    hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
+    return cache, logits_fn(params, hidden)
+
+
+def _paged_tree_verify_core(params, cfg: GPTConfig, cache: PagedKVCache,
+                            tokens, depth, anc, *, embed_fn, dense_fn,
+                            logits_fn):
+    """:func:`_tree_verify_core` over the page pool (the exclusivity
+    precondition of :func:`_paged_verify_core`). Refused for the int8
+    pool: a non-leftmost branch commit would re-round quantized history
+    at branch-dependent scales."""
+    if cache.k_scale is not None:
+        raise ValueError("tree verify is not offered over the int8 page "
+                         "pool (kv8 keeps linear speculation)")
+    pos = cache.lengths.clone()
+    bt = cache.block_tables
+    x = embed_fn(params, tokens, pos=pos[:, None].long() + depth.long())
+    freqs = _rope_or_none(cfg, bt.shape[1] * cache.k.shape[3],
+                          tokens.device)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x = _block_tree_verify_paged(lp, x, cache.k[i], cache.v[i], bt, pos,
+                                     depth, anc, cfg, freqs, dense_fn)
+    hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
+    return cache, logits_fn(params, hidden)
+
+
+def _paged_chunk_prefill_core(params, cfg: GPTConfig,
+                              cache: PagedKVCache, ids, mask, slot, pos,
+                              write_pages, gather_row, store_row, *,
+                              embed_fn, dense_fn, logits_fn):
+    """One page-aligned prompt chunk of one slot into the page pool:
+    ids (1, sc) bucket-padded, mask (sc,) 1 = real token, ``pos`` the
+    chunk's first position. The chunk's rows are written to
+    ``write_pages`` and attend through ``gather_row``; ``store_row``
+    becomes the slot's block-table row and its length ``pos +
+    sum(mask)``. Returns (cache, logits (1, V)) at the last real token.
+    Refused for the int8 pool, as in the JAX package."""
+    if cache.k_scale is not None:
+        raise ValueError("chunked prefill is not offered over the int8 "
+                         "page pool (kv8 keeps monolithic prefill)")
+    if ids.dim() != 2 or ids.shape[0] != 1:
+        raise ValueError(f"chunk prefill takes one slot's (1, sc) ids, "
+                         f"got {tuple(ids.shape)}")
+    sc = ids.shape[1]
+    page_size = cache.k.shape[3]
+    if sc % page_size:
+        raise ValueError(f"chunk bucket {sc} is not a multiple of "
+                         f"page_size {page_size}")
+    if tuple(write_pages.shape) != (sc // page_size,):
+        raise ValueError(f"write_pages {tuple(write_pages.shape)} != one "
+                         f"page per chunk page ({sc // page_size},)")
+    max_pages = cache.block_tables.shape[1]
+    for name, row in (("gather_row", gather_row),
+                      ("store_row", store_row)):
+        if tuple(row.shape) != (max_pages,):
+            raise ValueError(f"{name} {tuple(row.shape)} != block-table "
+                             f"row ({max_pages},)")
+    slot = int(slot)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=ids.device)
+    x = embed_fn(params, ids, pos=pos.reshape(1))
+    freqs = _rope_or_none(cfg, max_pages * page_size, ids.device)
+    key_mask = mask[None, :]
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x = _block_chunk_prefill_paged(lp, x, cache.k[i], cache.v[i],
+                                       write_pages, gather_row, pos, cfg,
+                                       freqs, key_mask, dense_fn)
+    hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
+    n_real = mask.sum().to(torch.int32)
+    h_last = hidden.index_select(1, (n_real - 1).reshape(1).long())[:, 0]
+    cache.lengths[slot] = pos + n_real
+    cache.block_tables[slot] = store_row.to(torch.int32)
+    return cache, logits_fn(params, h_last)
+
+
 def _add_positions(cfg, params, x, ids, pos):
     """Learned positions (none under RoPE, which rotates q and k in the
     blocks instead)."""
@@ -174,9 +320,13 @@ def _add_positions(cfg, params, x, ids, pos):
     ptab = params["embedding"]["position"]["embedding"]
     if pos is None:
         return x + ptab[: ids.shape[1]].to(x.dtype)[None]
-    # decode: slot b's token sits at absolute position pos[b]
-    idx = pos[:, None].long() + torch.arange(
-        ids.shape[1], device=ids.device)[None, :]
+    # decode and verify: slot b's s tokens sit at pos[b], pos[b] + 1,
+    # ...; tree verify passes explicit (b, s) positions
+    if pos.dim() == 2:
+        idx = pos.long()
+    else:
+        idx = pos[:, None].long() + torch.arange(
+            ids.shape[1], device=ids.device)[None, :]
     return x + ptab[idx].to(x.dtype)
 
 
@@ -293,6 +443,89 @@ def make_paged_decode_fn(cfg: GPTConfig, compute_dtype=None,
                                   logits_fn=logits_fn)
 
     return decode
+
+
+def make_verify_fn(cfg: GPTConfig, compute_dtype=None, quantized=False):
+    """``verify(params, cache, tokens) -> (cache, logits (B, k1, V))``
+    over the dense cache, updated in place; lengths are not advanced."""
+    check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
+
+    def verify(params, cache, tokens):
+        return _verify_core(params, cfg, cache, tokens, embed_fn=embed,
+                            dense_fn=dense_fn, logits_fn=logits_fn)
+
+    return verify
+
+
+def make_paged_verify_fn(cfg: GPTConfig, compute_dtype=None,
+                         quantized=False):
+    """``verify(params, cache, tokens) -> (cache, logits (B, k1, V))``
+    over the page pool, updated in place."""
+    check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
+
+    def verify(params, cache, tokens):
+        return _paged_verify_core(params, cfg, cache, tokens,
+                                  embed_fn=embed, dense_fn=dense_fn,
+                                  logits_fn=logits_fn)
+
+    return verify
+
+
+def make_tree_verify_fn(cfg: GPTConfig, compute_dtype=None,
+                        quantized=False):
+    """``verify(params, cache, tokens, depth, anc) -> (cache, logits
+    (B, k1, V))`` over the dense cache (see :func:`_tree_verify_core`)."""
+    check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
+
+    def verify(params, cache, tokens, depth, anc):
+        return _tree_verify_core(params, cfg, cache, tokens, depth, anc,
+                                 embed_fn=embed, dense_fn=dense_fn,
+                                 logits_fn=logits_fn)
+
+    return verify
+
+
+def make_paged_tree_verify_fn(cfg: GPTConfig, compute_dtype=None,
+                              quantized=False):
+    """``verify(params, cache, tokens, depth, anc) -> (cache, logits)``
+    over the page pool; an int8 pool raises the reference's
+    ``ValueError``."""
+    check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
+
+    def verify(params, cache, tokens, depth, anc):
+        return _paged_tree_verify_core(params, cfg, cache, tokens, depth,
+                                       anc, embed_fn=embed,
+                                       dense_fn=dense_fn,
+                                       logits_fn=logits_fn)
+
+    return verify
+
+
+def make_paged_chunk_prefill_fn(cfg: GPTConfig, compute_dtype=None,
+                                quantized=False):
+    """``chunk_prefill(params, cache, ids, mask, slot, pos, write_pages,
+    gather_row, store_row) -> (cache, logits)`` over the page pool,
+    updated in place (see :func:`_paged_chunk_prefill_core`)."""
+    check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
+
+    def chunk_prefill(params, cache, ids, mask, slot, pos, write_pages,
+                      gather_row, store_row):
+        return _paged_chunk_prefill_core(
+            params, cfg, cache, ids, mask, slot, pos, write_pages,
+            gather_row, store_row, embed_fn=embed, dense_fn=dense_fn,
+            logits_fn=logits_fn)
+
+    return chunk_prefill
 
 
 def make_copy_page_fn():

@@ -6,8 +6,11 @@ an out-of-vocabulary sample) raises :class:`NonFiniteLogits` and is
 never committed. The page pool raises :class:`PoolExhausted` when it
 cannot cover an admission (the scheduler waits for evictions), and its
 audits raise :class:`PoolInvariantError`; the tenancy ledger's books
-raise :class:`QuotaExhausted`. The fault taxonomy's other classes,
-retry budgets, deadlines and the watchdog are a later slice.
+raise :class:`QuotaExhausted`. The host spill tier's promotion check
+raises :class:`PromoteFailed` (the engine drops the stale record and
+re-prefills); :class:`SpillFailed` names a dropped spill. The fault
+taxonomy's other classes, retry budgets, deadlines and the watchdog are
+a later slice.
 """
 
 import dataclasses
@@ -61,6 +64,31 @@ class QuotaExhausted(ServingError):
         self.charged = charged
         self.payload.update(tenant=tenant, need=need, quota=quota,
                             charged=charged)
+
+
+class SpillFailed(ServingError):
+    """A page spill to the host tier was dropped before the payload
+    reached it. A cache-efficiency loss only: the evicted prefix leaves
+    both tiers and a later admission re-prefills it."""
+
+    def __init__(self, msg: str, *, key: str = ""):
+        super().__init__(msg)
+        self.key = key
+        self.payload.update(key=key)
+
+
+class PromoteFailed(ServingError):
+    """A host-to-device page promotion failed verification: the record's
+    checksum did not recompute, or its versioned header named another
+    prompt chain or pool geometry. The stale record is dropped and the
+    admission re-prefills the uncovered rest of the prompt, so the
+    committed stream is the spill-free one."""
+
+    def __init__(self, msg: str, *, key: str = "", pages: int = 0):
+        super().__init__(msg)
+        self.key = key
+        self.pages = pages
+        self.payload.update(key=key, pages=pages)
 
 
 @dataclasses.dataclass(frozen=True)

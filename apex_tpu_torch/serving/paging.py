@@ -41,8 +41,8 @@ logical position lives in happens here, on the host, in plain Python:
   tier's checksum-bound wire discipline), then a device scatter into
   freshly allocated pages. int8 pools spill their per-page-per-head
   scales with the payload. The engine's side of the tier (its spill
-  hook and promotion, and the page extract/insert steps) is ROADMAP
-  item A4.1b; the pool's and the registry's host code is here whole.
+  hook and promotion) is ``scheduler.PagedDecodeEngine``'s, the page
+  extract/insert steps ``serving.transfer``'s.
 
 - **audit** — ``check_invariants()`` cross-checks refcounts against
   the free list, the prefix registry, and (given the engine's per-slot

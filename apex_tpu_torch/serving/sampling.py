@@ -16,6 +16,12 @@ the sorted probabilities whose mass before the token is below
 (``jnp.cumsum`` is an fp32 sum in XLA's order), so a token whose
 preceding mass lies within about ``V * 2^-23`` of ``top_p`` may fall on
 the other side.
+
+Speculative decoding samples a verify step's (B, k1, V) grid with the
+plain stream's key at every position (:func:`sample_token_grid`), so
+its accept rules (:func:`speculative_accept`,
+:func:`tree_speculative_accept`) only compare tokens: the committed
+stream is the plain one, and acceptance changes the step count only.
 """
 
 import torch
@@ -68,6 +74,54 @@ def sample_token_grid(logits: torch.Tensor, keys, temperature: torch.Tensor,
                          torch.as_tensor(keys).reshape(b * k1, 2),
                          temperature.repeat_interleave(k1), top_k, top_p)
     return toks.reshape(b, k1)
+
+
+def speculative_accept(tokens: torch.Tensor, drafts: torch.Tensor,
+                       draft_lens: torch.Tensor) -> torch.Tensor:
+    """The linear accept rule: ``tokens`` (B, k1) the grid-sampled
+    tokens, ``drafts`` (B, k) the 0-padded drafts, ``draft_lens`` (B,)
+    their true lengths. Draft j is accepted iff every draft before it
+    matched its sample and ``tokens[:, j] == drafts[:, j]`` with ``j <
+    draft_len``. Returns (B,) int32 accepted counts in [0, k]; the
+    commit is ``tokens[:, :accepted + 1]``. The sampled grid already IS
+    the plain stream (each position drew with the plain stream's key),
+    so acceptance is "did the plain stream reproduce the draft"."""
+    k = drafts.shape[1]
+    idx = torch.arange(k, device=drafts.device)
+    match = (tokens[:, :k] == drafts) & (idx[None, :]
+                                         < draft_lens[:, None])
+    return torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(
+        torch.int32)
+
+
+def tree_speculative_accept(samples: torch.Tensor, tokens: torch.Tensor,
+                            parents: torch.Tensor, valid: torch.Tensor,
+                            start=None):
+    """:func:`speculative_accept` over a draft TREE: from ``cur =
+    start`` (the walk root, the last forced column; 0 without it) commit
+    ``samples[cur]`` and descend to the valid child whose INPUT token
+    equals it (children of one node carry distinct tokens), until no
+    child matches. ``samples``, ``tokens`` (B, k1), ``parents`` (B, k1)
+    each node's parent column, ``valid`` (B, k1) bool the draft-node
+    columns. Returns (counts (B,) int32 in [1, k1], path (B, k1) int32
+    visited columns, -1 past the path)."""
+    b, k1 = samples.shape
+    dev = samples.device
+    cur = torch.zeros((b,), dtype=torch.long, device=dev) \
+        if start is None else torch.as_tensor(start, device=dev).long()
+    alive = torch.ones((b,), dtype=torch.bool, device=dev)
+    idx = torch.arange(k1, device=dev)[None, :]
+    path = []
+    for _ in range(k1):
+        s = samples.gather(1, cur[:, None])[:, 0]
+        cand = valid & (parents == cur[:, None]) & \
+            (tokens == s[:, None]) & (idx > cur[:, None])
+        nxt = torch.argmax(cand.to(torch.int32), dim=1)
+        path.append(torch.where(alive, cur, torch.full_like(cur, -1)))
+        alive = alive & cand.any(dim=1)
+        cur = torch.where(alive, nxt, cur)
+    path = torch.stack(path, dim=1).to(torch.int32)
+    return (path >= 0).sum(dim=1).to(torch.int32), path
 
 
 def finite_rows(logits: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Transformer building blocks (the functional attention paths, the
-paged decode attention and RoPE)."""
+paged decode and verify attention and RoPE)."""
 from apex_tpu_torch.transformer.functional.flash_attention import (  # noqa: F401
     flash_attention,
 )
@@ -9,7 +9,7 @@ from apex_tpu_torch.transformer.functional.fused_rope import (  # noqa: F401
     rope_cos_sin, rope_frequencies,
 )
 from apex_tpu_torch.transformer.functional.paged_attention import (  # noqa: F401
-    paged_decode_attention,
+    paged_decode_attention, paged_verify_attention,
 )
 from apex_tpu_torch.transformer.functional.fused_softmax import (  # noqa: F401
     FusedScaleMaskSoftmax, scaled_masked_softmax,

@@ -8,7 +8,7 @@ Phases, each printed as it runs; any failure exits non-zero:
 1. build — nvcc builds every CUDA source (layer norm, flash attention,
    softmax cross entropy, fused softmax, the multi-tensor kernels, the
    int8 weight-only matmuls, the threefry bits and dropout, the paged
-   decode attention; one process per source, all at once); TF32
+   decode and verify attention; one process per source, all at once); TF32
    is switched off so fp32 products and convolutions are full fp32.
 2. kernel parity — each kernel against its plain PyTorch version on the
    same card inputs, max error beside the stated tolerance: the
@@ -185,7 +185,30 @@ Phases, each printed as it runs; any failure exits non-zero:
    JAX package's paged A/B configuration (32 slots, S_max 512, page 64,
    lengths 32..512; bf16 and int8 pools) and at ``serving_paged``'s,
    beside its plain version, its bound and SDPA on the already-gathered
-   K and V (a different function). Each phase prints its seconds.
+   K and V (a different function).
+10. speculative decoding and the host spill tier — kernel parity of the
+   multi-query paged attention (the decode kernel's k1 > 1 instances:
+   k1 1, 2, 5 and 9, linear and tree masks from ``tree_arrays``, fp32,
+   bf16 and int8 pools, page 64 and 24, hd 64 and 48) per element to
+   ``paged_limit`` per query row; a repeat, two page placements and
+   column j of a linear verify against the decode kernel at pos + j, bit
+   for bit; k1 65 refused. ``serving_spec``: the ``serving_paged``
+   engine with ``spec_k`` 4 on 16 motif prompts (a random 8-32-token
+   motif repeated to 64-960 tokens), half sampled at 0.8: verify rows
+   against a teacher-forced decode (fp32 1e-5, O2 0.0625); the mix with
+   ``spec_k`` 0, the n-gram drafter, the target as its own
+   ``DraftModel``, tree speculation, the adaptive depth, an int8 pool
+   and ``quantize_params`` (8 requests), each with exact launches (the
+   multi-query kernel L a verify tick), its drafter's counters and
+   tokens/s. ``serving_paged_tiered``: four 512-token prefixes cycling
+   over 2 slots on 2 + 40 pages with ``host_tier=PrefixRegistry(1 <<
+   30)``: spills and promotes, every promoted page (and int8 scale
+   plane) the spilled bits, the int8 streams equal to the same pool's
+   without a tier, the audit after every tick (the bf16 run's at its
+   end). The multi-query kernel's times at k1 1 and 5 at
+   ``serving_spec``'s shape and the A/B configuration, beside the decode
+   kernel, its plain version, its bound and SDPA on the gathered K/V
+   with the per-query mask. Each phase prints its seconds.
 
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
@@ -210,6 +233,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 BF16_TC_FLOPS = 989e12      # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 N_REQUESTS, NEW_TOKENS, NUM_SLOTS, MAX_LEN = 16, 32, 8, 1024
+# the host spill tier's counters (the JAX ServingStats names)
+TIER_COUNTERS = ("host_spills", "host_spill_bytes", "host_promotes",
+                 "host_promote_bytes", "host_promote_ticks",
+                 "host_promote_failures")
 BUCKETS = (128, 256, 512, 1024)
 
 
@@ -1385,24 +1412,29 @@ def mix_prompts(cfg):
 
 
 def serve_mix(dev, cfg, params, kern, temps=None, engine=None, prompts=None,
-              audit=False, cache_dtype=torch.bfloat16, **engine_kw):
-    """The 16-request mix on one engine (8 slots, bf16 cache), after a
+              audit=False, cache_dtype=torch.bfloat16, num_slots=NUM_SLOTS,
+              setup=None, **engine_kw):
+    """The request mix on one engine (8 slots, bf16 cache), after a
     one-request warm-up; every kernel's count set to 0 just before the
     run and read just after. ``temps``: each request's temperature
     (greedy without), its seed its index. ``engine``: the engine class
     (``DecodeEngine`` by default); ``prompts``: other prompts than
     :func:`mix_prompts`'; ``audit``: ``check_invariants()`` after every
-    tick. Returns the streams, launches, prefills, decode steps and wall
-    time, and a paged engine's pool counts (pages matched from the
-    prefix cache, copy-on-write clones, preemptions, refused
-    admissions)."""
+    tick; ``setup(engine)``: called on the new engine, returns counters
+    (name -> zero-argument callable) read as deltas over the run.
+    Returns the streams, launches, prefills, decode steps and wall time,
+    the scheduler's speculation counters, and a paged engine's pool
+    counts (pages matched from the prefix cache, copy-on-write clones,
+    preemptions, refused admissions; a host tier's spills and
+    promotions)."""
     from apex_tpu_torch.serving import (
         ContinuousBatchingScheduler, DecodeEngine, Request,
     )
 
-    eng = (engine or DecodeEngine)(params, cfg, num_slots=NUM_SLOTS,
+    eng = (engine or DecodeEngine)(params, cfg, num_slots=num_slots,
                                    max_len=MAX_LEN, cache_dtype=cache_dtype,
                                    buckets=BUCKETS, device=dev, **engine_kw)
+    probes = setup(eng) if setup is not None else {}
     # warm-up: one short request (library handles, allocator)
     warm = ContinuousBatchingScheduler(eng, eos_id=-1)
     warm.submit(Request(prompt=(1, 2, 3), max_new_tokens=2))
@@ -1419,6 +1451,7 @@ def serve_mix(dev, cfg, params, kern, temps=None, engine=None, prompts=None,
         eng.pool.match_prefix = counting
     sched = ContinuousBatchingScheduler(eng, eos_id=-1)
     prompts = mix_prompts(cfg) if prompts is None else prompts
+    n_req = len(prompts)
     for i, prompt in enumerate(prompts):
         sched.submit(Request(prompt=prompt, max_new_tokens=NEW_TOKENS,
                              temperature=0.0 if temps is None else temps[i],
@@ -1426,6 +1459,8 @@ def serve_mix(dev, cfg, params, kern, temps=None, engine=None, prompts=None,
     torch.cuda.synchronize()
     for k in kern.values():
         k.launches = 0
+    base = {n: f() for n, f in probes.items()}
+    tier0 = {n: getattr(eng, n, 0) for n in TIER_COUNTERS}
     t0 = time.perf_counter()
     ticks = audits = 0
     while sched.busy:
@@ -1441,9 +1476,9 @@ def serve_mix(dev, cfg, params, kern, temps=None, engine=None, prompts=None,
         check(audits == ticks, f"check_invariants() true after each of "
               f"the {ticks} ticks")
     print(f"prompt lengths {[len(p) for p in prompts]}")
-    reasons = [sched.outcomes[i].reason for i in range(N_REQUESTS)]
+    reasons = [sched.outcomes[i].reason for i in range(n_req)]
     n_tok = sum(len(s) for s in streams)
-    check(len(streams) == N_REQUESTS
+    check(len(streams) == n_req
           and all(r == "length" for r in reasons)
           and all(len(s) == NEW_TOKENS for s in streams),
           f"{len(streams)} requests finished, reasons {set(reasons)}, "
@@ -1454,13 +1489,22 @@ def serve_mix(dev, cfg, params, kern, temps=None, engine=None, prompts=None,
           f"{n_tok / wall:.1f} tokens/s (prefill included)", flush=True)
     print(f"first stream: {streams[0][:8]}...")
     out = dict(streams=streams, launches=launches, wall_s=wall,
-               tokens=n_tok, tokens_per_s=n_tok / wall,
-               decode_steps=sched.decode_steps,
-               prefills=sum(o.prefill_ticks for o in sched.outcomes.values()))
+               tokens=n_tok, tokens_per_s=n_tok / wall, ticks=ticks,
+               clock=sched._tick_no, decode_steps=sched.decode_steps,
+               plain_ticks=sched.plain_ticks, spec_ticks=sched.spec_ticks,
+               tokens_drafted=sched.tokens_drafted,
+               tokens_accepted=sched.tokens_accepted,
+               acceptance_rate=sched.acceptance_rate,
+               prefills=sum(o.prefill_ticks for o in sched.outcomes.values()),
+               **{n: f() - base[n] for n, f in probes.items()})
     if eng.paged:
         out.update(shared_pages=shared[0], cached=eng.pool.num_cached,
                    cow_copies=eng.cow_copies, preemptions=eng.preemptions,
                    pool_exhausted=eng.pool_exhausted)
+        if eng.host_tier is not None:
+            out.update({n: getattr(eng, n) - tier0[n]
+                        for n in TIER_COUNTERS})
+            out["host_hit_rate"] = eng.host_tier.hit_rate
     return out
 
 
@@ -1643,7 +1687,8 @@ KERNEL_NAMES = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
                 "flat_l2norm_partials", "flat_lamb_stage1",
                 "w8_matmul_nobias", "w8_matmul", "w8_matmul_nk", "flat_sgd",
                 "flat_adagrad", "flat_novograd", "threefry_bits",
-                "threefry_dropout", "paged_decode_attention")
+                "threefry_dropout", "paged_decode_attention",
+                "paged_verify_attention")
 # kernels on no model path (held to their plain versions and timed)
 OFF_PATH = ("scaled_upper_triang_softmax_fwd", "flat_scale", "flat_axpby",
             "w8_matmul_nobias")
@@ -3910,6 +3955,493 @@ def paged_times(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 10. speculative decoding and the host spill tier
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_TEMPS = [0.8 if i % 2 else 0.0 for i in range(N_REQUESTS)]
+# the self-drafter's catch-up chunk; its dense cache holds max_len +
+# chunk rows, which the learned position table (1024 rows) bounds: max
+# len 1008 covers every history of the mix (a 960-token prompt, 32 new
+# tokens and 4 drafts)
+SPEC_DRAFT_CHUNK = 16
+SPEC_DRAFT_MAX_LEN = MAX_LEN - SPEC_DRAFT_CHUNK
+# the tiered mix: four 512-token prefixes cycling A B C D over two slots,
+# fewer slots than prefixes, so each prefix goes cold between its
+# requests; 2 + 40 pages spill and promote without preempting (a CPU
+# rehearsal at 2-layer width with the same lengths, pages and vocabulary)
+TIER_PREFIXES, TIER_SLOTS, TIER_POOL = 4, 2, 2 + 40
+VERIFY_K1 = (1, 2, 5, 9)
+
+
+def _anc(b, k1, gen_seed):
+    """(b, k1, k1) bool visibility of random valid draft trees (forced
+    chains and trees of random shape, packed by ``tree_arrays``)."""
+    from apex_tpu_torch.serving.draft import tree_arrays
+
+    rng = np.random.RandomState(gen_seed)
+    forced, trees = [], []
+    for _ in range(b):
+        f = rng.randint(1, k1 + 1)
+        forced.append([1] * f)
+        n = k1 - f
+        trees.append(([2] * n, [int(rng.randint(-1, i)) for i in range(n)])
+                     if n else None)
+    return torch.from_numpy(tree_arrays(forced, trees, k1)[2])
+
+
+def _verify_inputs(gen, dev, lengths, page, max_pages, kv, qdt, k1, tree,
+                   nh=16, hd=64, contiguous=False):
+    """:func:`_paged_inputs` for k1 queries a slot: q (b, nh, k1, hd),
+    each slot's pages holding its rows 0 .. pos + k1 - 1, ``anc`` random
+    trees or None (the linear mask)."""
+    q, k, v, bt, pos, ks, vs = _paged_inputs(
+        gen, dev, [n + k1 - 1 for n in lengths], page, max_pages, kv, qdt,
+        nh, hd, contiguous)
+    pos = pos - (k1 - 1)
+    q = _rand(gen, (len(lengths), nh, k1, hd), q.dtype, dev)
+    anc = _anc(len(lengths), k1, k1 + len(lengths)).to(dev) if tree \
+        else None
+    return q, k, v, bt, pos, anc, ks, vs
+
+
+def paged_verify_parity(dev):
+    """The multi-query paged attention against its plain version, per
+    element to ``paged_limit`` (per query row): k1 1, 2, 5 and 9, linear
+    and tree masks, fp32, bf16 and int8 pools, page 64 and 24, hd 64 and
+    48; a repeat the same bits; two page placements the same bits; and
+    column j of a linear verify the decode kernel's bits at pos + j."""
+    pa = kernel_modules()[7]
+    phase("kernel parity: multi-query paged attention (per element to "
+          "paged_attention.paged_limit per query row; k1 1, 2, 5, 9; linear "
+          "and tree masks; fp32, bf16 and int8 pools; page 64 and 24; hd 64 "
+          "and 48; placements and decode columns bit for bit)")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    max_err, worst = 0.0, 0.0
+    for page, hd in ((64, 64), (24, 48)):
+        mp = 1024 // page
+        lengths = [0, page - 1, page, 2 * page - 1, mp * page - 9, 300, 517,
+                   64]
+        for qdt, kv in (("bf16", "bf16"), ("f32", "f32"), ("bf16", "i8")):
+            for k1 in VERIFY_K1:
+                for tree in (False, True):
+                    args = _verify_inputs(gen, dev, lengths, page, mp, kv,
+                                          qdt, k1, tree, hd=hd)
+                    got = pa.paged_verify_attention_kernel(*args)
+                    want = pa.paged_verify_attention_plain(*args)
+                    again = pa.paged_verify_attention_kernel(*args)
+                    q, k, v, bt, pos, anc, ks, vs = args
+                    lim = pa.paged_limit(q, k, v, bt, pos, want, ks, vs,
+                                         anc=anc)
+                    err = (got.float() - want.float()).abs()
+                    share = float(torch.where(lim > 0, err / lim, err).max())
+                    max_err = max(max_err, float(err.max()))
+                    worst = max(worst, share)
+                    check(bool((err <= lim).all()) and torch.equal(got, again),
+                          f"multi-query paged attention page {page}, hd {hd}, "
+                          f"q {qdt}, pool {kv}, k1 {k1}, "
+                          f"{'tree' if tree else 'linear'}: max_abs_err "
+                          f"{float(err.max()):.3g}, worst share of "
+                          f"paged_limit {share:.3f}; a repeat the same bits")
+                    if tree:
+                        continue
+                    cols = all(torch.equal(
+                        got[:, :, j], pa.paged_decode_attention_kernel(
+                            q[:, :, j].contiguous(), k, v, bt, pos + j, ks,
+                            vs)) for j in range(k1))
+                    check(cols, f"k1 {k1}, {kv} pool, page {page}, hd {hd}: "
+                          "column j of the linear verify is the decode "
+                          "kernel's bits at pos + j")
+    for kv in ("bf16", "i8"):
+        q, k, v, bt, pos, anc, ks, vs = _verify_inputs(
+            gen, dev, ab_lengths(), PAGE, 8, kv, "bf16", 5, True)
+        base = pa.paged_verify_attention_kernel(q, k, v, bt, pos, anc, ks, vs)
+        perm = torch.arange(k.shape[0], device=dev)
+        perm[2:] = 2 + torch.randperm(k.shape[0] - 2, device=dev,
+                                      generator=gen)
+        moved = []
+        for t in (k, v, ks, vs):
+            m = None if t is None else torch.empty_like(t)
+            if t is not None:
+                m[perm] = t
+            moved.append(m)
+        got = pa.paged_verify_attention_kernel(
+            q, moved[0], moved[1], perm[bt.long()].to(torch.int32), pos, anc,
+            moved[2], moved[3])
+        check(torch.equal(got, base),
+              f"placement ({kv} pool, 32 slots, k1 5, tree): the same "
+              "logical rows on permuted physical pages give the same bits")
+    big = _verify_inputs(gen, dev, [100, 200], PAGE, 8, "bf16", "bf16",
+                         pa.MAX_K1 + 1, False)
+    try:
+        pa.paged_verify_attention_kernel(*big)
+        refused = False
+    except RuntimeError as e:
+        refused = "CUDA error" in str(e)
+    check(refused, f"k1 {pa.MAX_K1 + 1} refused by the C entry (k1 "
+          f"{pa.MAX_K1} is the most it holds)")
+    print(f"multi-query paged attention: worst share of paged_limit "
+          f"{worst:.3f}", flush=True)
+    return max_err
+
+
+def spec_prompts(cfg):
+    """The 16 prompts of the speculative mix: a random 8-32-token motif
+    repeated to 64-960 tokens (the JAX spec setup's repetitive prompts,
+    bench.py:1138-1141, at full width) — the n-gram drafter's home
+    turf."""
+    rng = np.random.RandomState(3)
+    lens = rng.randint(64, 961, size=N_REQUESTS)
+    out = []
+    for n in lens:
+        motif = rng.randint(0, cfg.vocab_size, size=rng.randint(8, 33))
+        out.append(tuple(int(t) for t in np.resize(motif, int(n))))
+    return out
+
+
+def verify_vs_decode(params, cfg, dev, cache_dtype, label, tol):
+    """One 100-token prompt on a speculating and a plain paged engine:
+    the first verify step's row j (the pending token and 4 drafts) held
+    against a teacher-forced plain decode at pos + j fed the same
+    tokens."""
+    from apex_tpu_torch.serving import PagedDecodeEngine
+
+    kw = dict(num_slots=1, max_len=MAX_LEN, num_pages=PAGED_POOL,
+              page_size=PAGE, cache_dtype=cache_dtype, buckets=BUCKETS,
+              device=dev)
+    spec = PagedDecodeEngine(params, cfg, spec_k=SPEC_K, **kw)
+    plain = PagedDecodeEngine(params, cfg, **kw)
+    prompt = list(spec_prompts(cfg)[0][:100])
+    tok = int(plain.prefill(0, prompt)[0].argmax())
+    spec.prefill(0, prompt)
+    fed, rows = [], []
+    for j in range(SPEC_K + 1):
+        fed.append(tok)
+        check(plain.prepare_decode({0: len(prompt) + j}) == [],
+              "no preemption")
+        logits = plain.decode([tok], [True])
+        rows.append(logits[0])
+        tok = int(logits[0].argmax())
+    check(spec.prepare_decode({0: len(prompt)}, n_new=SPEC_K + 1) == [],
+          "no preemption")
+    got = spec.verify([fed])[0]
+    err = float((got - torch.stack(rows)).abs().max())
+    check(err <= tol, f"verify rows vs teacher-forced decode ({label}), "
+          f"k1 {SPEC_K + 1}: max_abs_err {err:.4g} <= {tol}")
+    return err
+
+
+def _spec_launches(res, L, label, w8=False):
+    """Exact launches of a speculative run: LN 2L + 1 a forward (the
+    target's prefills and ticks, and a model drafter's forwards); flash
+    L a prefill; the paged decode attention L a plain tick, the
+    multi-query one L a verify tick; the w8 products 4L and 1 a target
+    forward; the bits kernel at most once a sampled prefill and a
+    tick."""
+    fwd = res["prefills"] + res["decode_steps"]
+    want = {"layer_norm_fwd": (2 * L + 1) * (fwd + res.get("draft_forwards",
+                                                           0)),
+            "flash_attention_fwd": L * res["prefills"],
+            "paged_decode_attention": L * res["plain_ticks"],
+            "paged_verify_attention": L * res["spec_ticks"]}
+    if w8:
+        want.update(w8_matmul=4 * L * fwd, w8_matmul_nk=fwd)
+    bits = res["launches"]["threefry_bits"]
+    sampled = sum(t > 0 for t in SPEC_TEMPS[:len(res["streams"])])
+    check(0 < bits <= sampled + res["decode_steps"],
+          f"{label}: threefry_bits launches {bits}, at most {sampled} "
+          f"sampled prefills and one a tick ({res['decode_steps']} ticks)")
+    want["threefry_bits"] = bits
+    check_launches(res["launches"], want, label)
+
+
+def _count_drafter(dm):
+    """Count the drafter's forwards (its verify-shaped catch-up chunks
+    and greedy decode steps): each launches the LN kernel 2L + 1
+    times."""
+    calls = [0]
+    for name in ("_verify", "_decode"):
+        fn = getattr(dm, name)
+
+        def counted(*a, _fn=fn, **kw):
+            calls[0] += 1
+            return _fn(*a, **kw)
+
+        setattr(dm, name, counted)
+    return lambda eng: {"draft_forwards": lambda: calls[0]}
+
+
+def serve_spec(dev, kern, params, o2):
+    """``serving_spec``: the serving_paged engine with ``spec_k`` 4 on the
+    motif mix (half greedy, half sampled at 0.8): verify rows against a
+    teacher-forced decode (fp32 1e-5, O2 0.0625); the mix plain and with
+    the n-gram drafter, the target as its own ``DraftModel``, tree
+    speculation, the adaptive depth, an int8 pool, and on
+    ``quantize_params`` (8 requests), each with exact launches
+    (:func:`_spec_launches`) and the drafter's counters."""
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.quant import quantize_params
+    from apex_tpu_torch.serving import DraftModel, PagedDecodeEngine
+
+    phase(f"serving_spec: gpt_medium on PagedDecodeEngine({NUM_SLOTS} slots, "
+          f"max_len {MAX_LEN}, {PAGED_POOL} pages of {PAGE}, spec_k "
+          f"{SPEC_K}), 16 motif prompts of 64-960 tokens, half sampled at "
+          "0.8: plain, n-gram, model, tree, adaptive, int8 pool, w8")
+    cfg = gpt_medium()
+    L = cfg.num_layers
+    prompts = spec_prompts(cfg)
+    out = {}
+    kw = dict(engine=PagedDecodeEngine, num_pages=PAGED_POOL,
+              page_size=PAGE, prompts=prompts, temps=SPEC_TEMPS)
+    with torch.inference_mode():
+        out["verify_err_fp32"] = verify_vs_decode(
+            params, cfg, dev, torch.float32, "fp32 params and pool", 1e-5)
+        out["verify_err_bf16"] = verify_vs_decode(
+            o2, cfg, dev, torch.bfloat16, "O2 bf16 params and pool", 0.0625)
+        runs = {"plain": serve_mix(dev, cfg, o2, kern, **kw)}
+        runs["ngram"] = serve_mix(dev, cfg, o2, kern, spec_k=SPEC_K, **kw)
+        for name, extra in (("model", {}), ("tree", {"tree_spec": True})):
+            dm = DraftModel(o2, cfg, NUM_SLOTS, SPEC_DRAFT_MAX_LEN,
+                            chunk=SPEC_DRAFT_CHUNK, device=dev)
+            runs[name] = serve_mix(dev, cfg, o2, kern, spec_k=SPEC_K,
+                                   draft_model=dm, setup=_count_drafter(dm),
+                                   **extra, **kw)
+            del dm
+        runs["adaptive"] = serve_mix(dev, cfg, o2, kern, spec_k=SPEC_K,
+                                     adaptive_spec=True, **kw)
+        runs["kv8"] = serve_mix(dev, cfg, o2, kern, spec_k=SPEC_K,
+                                cache_dtype=torch.int8, **kw)
+        w8 = dict(kw, prompts=prompts[:8])
+        runs["w8"] = serve_mix(dev, cfg, quantize_params(o2), kern,
+                               spec_k=SPEC_K, compute_dtype=torch.bfloat16,
+                               **w8)
+    plain = runs["plain"]
+    _spec_launches(plain, L, "serving_spec, spec_k 0")
+    for name, res in runs.items():
+        if name == "plain":
+            continue
+        _spec_launches(res, L, f"serving_spec ({name})", w8=name == "w8")
+        # the self-drafter proposes the target's own greedy tokens: its
+        # runs must accept; the n-gram runs' acceptance is a reading
+        check(res["spec_ticks"] > 0 and res["tokens_drafted"] > 0
+              and (res["tokens_accepted"] > 0
+                   or name not in ("model", "tree")),
+              f"serving_spec ({name}): {res['spec_ticks']} verify ticks, "
+              f"{res['plain_ticks']} plain, {res['tokens_accepted']} of "
+              f"{res['tokens_drafted']} drafts accepted "
+              f"({res['acceptance_rate']:.3f})")
+        # (the w8 run's weights differ: its streams are no reference's)
+        same, total = _same_share(res["streams"], plain["streams"]) \
+            if name != "w8" else (None, None)
+        res.update(tokens_equal_to_plain=same, tokens_compared=total,
+                   speedup_tokens_per_s=res["tokens_per_s"]
+                   / plain["tokens_per_s"])
+        print(f"serving_spec ({name}): tokens equal to the spec_k=0 run's "
+              f"{same} of {total} (the card's verify sums other rows than "
+              f"a decode step: bf16 near-ties may flip); "
+              f"{res['tokens_per_s']:.1f} tokens/s against "
+              f"{plain['tokens_per_s']:.1f}, {res['ticks']} ticks against "
+              f"{plain['ticks']}", flush=True)
+    for res in runs.values():
+        del res["streams"]
+    out.update(runs)
+    return out
+
+
+def tier_prompts(cfg):
+    """16 prompts: one of four 512-token prefixes (four tenants'
+    templates, 8 whole pages), cycling A B C D, plus a private suffix of
+    64-448 tokens."""
+    rng = np.random.RandomState(7)
+    prefixes = [tuple(int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                  size=PREFIX_LEN))
+                for _ in range(TIER_PREFIXES)]
+    lens = rng.randint(SUFFIX_LENS[0], SUFFIX_LENS[1] + 1, size=N_REQUESTS)
+    return [prefixes[i % TIER_PREFIXES] + tuple(int(t) for t in rng.randint(
+        0, cfg.vocab_size, size=int(n))) for i, n in enumerate(lens)]
+
+
+def _promote_checker(eng):
+    """Wrap the engine's batched promote insert: after it, the promoted
+    pages must hold the tiles it was given (the verified spill records'
+    payload, the int8 scale planes too) bit for bit."""
+    insert, extract = eng._tier_insert, eng._tier_extract
+    seen = [0, 0]
+
+    def checked(cache, pages, *tiles):
+        cache = insert(cache, pages, *tiles)
+        back = extract(cache, pages)
+        for t, b in zip(tiles, back):
+            host = torch.from_numpy(np.ascontiguousarray(t))
+            b = b.cpu()
+            if b.dtype == torch.bfloat16:
+                b = b.view(torch.int16)
+            seen[1] += not torch.equal(host, b)
+        seen[0] += len(pages)
+        return cache
+
+    eng._tier_insert = checked
+    return {"promoted_pages_checked": lambda: seen[0],
+            "promoted_pages_differing": lambda: seen[1]}
+
+
+def serve_tiered(dev, kern, o2):
+    """``serving_paged_tiered``: four 512-token prefixes cycling over two
+    slots on 2 + 40 pages with ``host_tier=PrefixRegistry(1 << 30)``, O2
+    bf16 compute: an int8 pool (monolithic prefill; every promoted page
+    and scale plane the spilled bits; the streams equal the same pool's
+    without a tier, the reference's spill-disabled engine) and a bf16
+    pool (the promoted prefix skipped, the suffix prefilled as one
+    chunk); the audit after every tick, exact launches, spills and
+    promotes > 0. The int8 mix on a roomy pool without a tier is read
+    beside them: a decode write requantizes its whole page, stale rows
+    of a recycled page included (the JAX package's ``_q8_page_insert``),
+    so a tight pool's streams are not the roomy pool's bit for bit."""
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.serving import PagedDecodeEngine, PrefixRegistry
+
+    phase(f"serving_paged_tiered: {TIER_PREFIXES} shared {PREFIX_LEN}-token "
+          f"prefixes cycling over {TIER_SLOTS} slots, {TIER_POOL} pages, "
+          "host_tier=PrefixRegistry(1 << 30); int8 and bf16 pools, and the "
+          "int8 mix without a tier on the same and on a roomy pool")
+    cfg = gpt_medium()
+    L = cfg.num_layers
+    prompts = tier_prompts(cfg)
+    kw = dict(engine=PagedDecodeEngine, page_size=PAGE, prompts=prompts,
+              temps=SPEC_TEMPS, num_slots=TIER_SLOTS)
+    out, engines = {}, {}
+    with torch.inference_mode():
+        ref = {name: serve_mix(dev, cfg, o2, kern, num_pages=pages,
+                               cache_dtype=torch.int8, audit=True, **kw)
+               for name, pages in (("roomy", PAGED_POOL),
+                                   ("no_tier", TIER_POOL))}
+        # the int8 run audits after every tick; the bf16 run once at its
+        # end (the audit recomputes every host record's sha256, some
+        # 0.3 s a tick over the bf16 pool's records)
+        for name, dt in (("int8", torch.int8), ("bf16", torch.bfloat16)):
+            chunks = [0]
+
+            def setup(eng, chunks=chunks, name=name):
+                engines[name] = eng
+                run = eng._chunk_prefill
+
+                def counted(*a, **k):
+                    chunks[0] += 1
+                    return run(*a, **k)
+
+                eng._chunk_prefill = counted
+                return dict(_promote_checker(eng),
+                            suffix_chunk_prefills=lambda: chunks[0])
+
+            out[name] = serve_mix(dev, cfg, o2, kern, num_pages=TIER_POOL,
+                                  cache_dtype=dt,
+                                  host_tier=PrefixRegistry(1 << 30),
+                                  setup=setup, audit=name == "int8", **kw)
+        check(engines["bf16"].check_invariants(),
+              "tiered bf16 pool: the audit (pool, block tables, every host "
+              "record's checksum) true at the end of the run")
+    for name, res in ref.items():
+        steps, prefills = res["decode_steps"], res["prefills"]
+        check_launches(res["launches"], {
+            "layer_norm_fwd": (2 * L + 1) * (prefills + steps),
+            "flash_attention_fwd": L * prefills,
+            "paged_decode_attention": L * steps,
+            "threefry_bits": res["launches"]["threefry_bits"]},
+            f"tiered mix without a tier ({name} pool)")
+    for name, res in out.items():
+        steps, prefills = res["decode_steps"], res["prefills"]
+        chunked = res["suffix_chunk_prefills"]
+        check_launches(res["launches"], {
+            "layer_norm_fwd": (2 * L + 1) * (prefills + steps),
+            "flash_attention_fwd": L * (prefills - chunked),
+            "paged_decode_attention": L * steps,
+            "threefry_bits": res["launches"]["threefry_bits"]},
+            f"tiered serving ({name} pool)")
+        check(res["host_spills"] > 0 and res["host_promotes"] > 0
+              and res["promoted_pages_checked"] == res["host_promotes"]
+              and res["promoted_pages_differing"] == 0,
+              f"host tier ({name} pool): {res['host_spills']} spills "
+              f"({res['host_spill_bytes']} bytes), {res['host_promotes']} "
+              f"promotes charged {res['host_promote_ticks']} ticks, every "
+              "promoted page the spilled bits"
+              f"{' (scale planes too)' if name == 'int8' else ''}; "
+              f"{chunked} suffix-only prefills")
+        for rname, r in ref.items():
+            same, total = _same_share(res["streams"], r["streams"])
+            res[f"tokens_equal_to_{rname}"] = same
+        print(f"tiered ({name} pool): {res['tokens_per_s']:.1f} tokens/s "
+              f"against {ref['no_tier']['tokens_per_s']:.1f} without a tier "
+              f"and {ref['roomy']['tokens_per_s']:.1f} on the roomy pool; "
+              f"tokens equal to the int8 runs without a tier: "
+              f"{res['tokens_equal_to_no_tier']} (same pool), "
+              f"{res['tokens_equal_to_roomy']} (roomy) of {total}; clock "
+              f"{res['clock']} ticks against {ref['no_tier']['clock']}",
+              flush=True)
+    check(out["int8"]["streams"] == ref["no_tier"]["streams"],
+          "tiered int8 pool: the streams equal the same pool's without a "
+          "tier (the spill-disabled engine)")
+    out.update(ref)
+    for res in out.values():
+        del res["streams"]
+    return out
+
+
+def verify_times(dev):
+    """The multi-query paged attention at k1 1 and 5 (linear mask) at
+    ``serving_spec``'s shape (8 slots, S_max 1024, the motif mix's
+    lengths) and at the JAX package's paged A/B configuration (32 slots,
+    S_max 512): kernel, the decode kernel at the same lengths, plain
+    version, bound (the live K/V rows once, plus q, ctx, tables and anc,
+    over 3.35 TB/s, or 4 k1 fp32 operations a K/V element pair over 67
+    TFLOP/s) and SDPA on the already-gathered K/V with the same
+    per-query mask (a different function: it leaves out the gather)."""
+    pa = kernel_modules()[7]
+    phase("times of the multi-query paged attention (device ms a call, one "
+          "layer; medians of CUDA-graph replays)")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    res = {}
+    from apex_tpu_torch.models.gpt import gpt_medium
+
+    spec_lens = sorted(len(p) + NEW_TOKENS // 2 for p in
+                       spec_prompts(gpt_medium())[:NUM_SLOTS])
+    cases = {"serving_spec": (spec_lens, 16), "ab": (ab_lengths(), 8)}
+    with torch.inference_mode():
+        for key, (lengths, max_pages) in cases.items():
+            for k1 in (1, 5):
+                q, k, v, bt, pos, anc, ks, vs = _verify_inputs(
+                    gen, dev, [min(n, PAGE * max_pages - k1)
+                               for n in lengths], PAGE, max_pages, "bf16",
+                    "bf16", k1, False, contiguous=True)
+                args = (q, k, v, bt, pos, anc, ks, vs)
+                t_k = time_ms(lambda: pa.paged_verify_attention_kernel(*args))
+                t_p = time_ms(lambda: pa.paged_verify_attention_plain(*args))
+                qd = q[:, :, 0].contiguous()
+                t_d = time_ms(lambda: pa.paged_decode_attention_kernel(
+                    qd, k, v, bt, pos, ks, vs))
+                s_len = PAGE * max_pages
+                b, nh, _, hd = q.shape
+                live = sum(min(int(p) + k1, s_len) for p in pos.tolist())
+                nbytes = (2 * live * nh * hd * k.element_size()
+                          + 2 * b * nh * k1 * hd * 2 + bt.numel() * 4 + b * 4)
+                flops = 4 * k1 * live * nh * hd
+                kg = k[bt.long()].transpose(1, 2).reshape(b, nh, s_len, hd)
+                vg = v[bt.long()].transpose(1, 2).reshape(b, nh, s_len, hd)
+                vis = pa.visible(pos, k1, s_len)[:, None]
+                t_l = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, kg, vg, attn_mask=vis))
+                _entry(res, f"verify_{key}_k{k1}", t_k, t_p, t_l, nbytes,
+                       flops, FP32_FLOPS,
+                       f"multi-query paged attention, {key} ({b} slots, S "
+                       f"{s_len}, k1 {k1}, {live} live rows; the decode "
+                       f"kernel {t_d:.5f})",
+                       "SDPA on the gathered K/V (a different function)")
+                res[f"verify_{key}_k{k1}"].update(
+                    live_rows=live, slots=b, decode_kernel_ms=t_d,
+                    per_tick_24_layers_ms=24 * t_k)
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -3973,6 +4505,7 @@ def main():
         err[name] = max(err[name], gk[key])
     rope = rope_parity(dev)
     err["paged_decode_attention"] = paged_parity(dev)
+    err["paged_verify_attention"] = paged_verify_parity(dev)
     kern = dict(zip(KERNEL_NAMES, (
         ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
         xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
@@ -3980,13 +4513,15 @@ def main():
         mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1, w8.W8_MATMUL_NOBIAS,
         w8.W8_MATMUL, w8.W8_MATMUL_NK, mta.FLAT_SGD, mta.FLAT_ADAGRAD,
         mta.FLAT_NOVOGRAD, prng.THREEFRY_BITS, prng.THREEFRY_DROPOUT,
-        pa.PAGED_DECODE)))
+        pa.PAGED_DECODE, pa.PAGED_VERIFY)))
     torch.cuda.empty_cache()
     srv, dense_streams = serve(dev, kern)
     srv_rope = serve_rope(dev, kern)
     srv_paged, params_f32, params_o2 = serve_paged(dev, kern, dense_streams)
     srv_prefix = serve_paged_prefix(dev, kern, params_o2)
     srv_kv8 = serve_paged_kv8(dev, kern, params_f32, params_o2)
+    srv_spec = serve_spec(dev, kern, params_f32, params_o2)
+    srv_tier = serve_tiered(dev, kern, params_o2)
     del params_f32, params_o2
     torch.cuda.empty_cache()
     small = train_small(dev)
@@ -4006,6 +4541,7 @@ def main():
     tm.update(threefry_times(dev))
     tm.update(gpt_times(dev))
     tm.update(paged_times(dev))
+    tm.update(verify_times(dev))
     by_path = {n: {"serving": srv["bf16"]["launches"][n],
                    "serving_w8": srv["w8"]["launches"][n],
                    "serving_sampled": srv["sampled"]["launches"][n],
@@ -4015,11 +4551,18 @@ def main():
                        srv_prefix["roomy"]["launches"][n]
                        + srv_prefix["tight"]["launches"][n]),
                    "serving_paged_kv8": srv_kv8["launches"][n],
+                   "serving_paged_tiered": sum(
+                       srv_tier[r]["launches"][n]
+                       for r in ("roomy", "no_tier", "int8", "bf16")),
                    "training_dropout": big["fp32 dropout"]["launches"][n]}
                for n in kern}
     for name, res in gpt_big.items():
         for n in kern:
             by_path[n][name] = res["launches"][n]
+    for name in ("plain", "ngram", "model", "tree", "adaptive", "kv8", "w8"):
+        path = "serving_spec" + ("" if name == "plain" else f"_{name}")
+        for n in kern:
+            by_path[n][path] = srv_spec[name]["launches"][n]
     for cfg_name in STEP_CONFIGS:
         path = _key(cfg_name, "training").replace(" ", "_")
         for n in kern:
@@ -4247,6 +4790,29 @@ def main():
         "configuration (bench.py:1324, 32 slots, S_max 512, page 64, "
         "lengths 32..512), one layer; one block a (head, slot), the live "
         "rows only, in logical order"))
+    # the slice's kernel: the verify steps of the paged engine; the JAX
+    # package runs this attention as XLA (apex_tpu/models/gpt.py:537,
+    # :816 and :1004)
+    kernels.append(dict(
+        name="paged_verify_attention", route="cuda",
+        source="apex_tpu_torch/csrc/paged_attention.cu",
+        replaces="apex_tpu/models/gpt.py:537 (_paged_verify_attention), "
+        ":816 (_paged_tree_verify_attention) and :1004 "
+        "(_paged_verify_attention_q8), XLA gathers of each slot's "
+        "block-table row", tpu_row=None,
+        launches=sum(by_path["paged_verify_attention"].values()),
+        launches_by_path=by_path["paged_verify_attention"],
+        max_abs_err=err["paged_verify_attention"], **tm["verify_ab_k5"],
+        at_ab_k1=tm["verify_ab_k1"],
+        at_serving_spec_k5=tm["verify_serving_spec_k5"],
+        at_serving_spec_k1=tm["verify_serving_spec_k1"],
+        note="k1 queries a slot (5 in the main time: spec_k 4); "
+        "library_ms is SDPA on K and V already gathered to (b, nh, S, hd) "
+        "bf16 with the same per-query mask: a different function (it "
+        "leaves out the gather); one block a (head, slot) reads the rows 0 "
+        ".. pos + k1 - 1 once for all k1 queries, in tiles of 128 logical "
+        "positions; the decode step is its k1 = 1 instance, and column j "
+        "of a linear verify gives the decode kernel's bits at pos + j"))
     check(all(sum(by_path[n].values()) > 0 for n in KERNEL_NAMES
               if n not in OFF_PATH),
           "every kernel of a path launched on that path")
@@ -4275,8 +4841,12 @@ def main():
     print(f"serving_paged: {json.dumps(srv_paged)}")
     print(f"serving_paged_prefix: {json.dumps(srv_prefix)}")
     print(f"serving_paged_kv8: {json.dumps(srv_kv8)}")
-    for key in ("paged_ab", "paged_ab_kv8", "paged_serving_paged"):
+    for key in ("paged_ab", "paged_ab_kv8", "paged_serving_paged",
+                "verify_ab_k1", "verify_ab_k5", "verify_serving_spec_k1",
+                "verify_serving_spec_k5"):
         print(f"{key}: {json.dumps(tm[key])}")
+    print(f"serving_spec: {json.dumps(srv_spec)}")
+    print(f"serving_paged_tiered: {json.dumps(srv_tier)}")
     print(f"GPT training, card vs CPU: {json.dumps(gpt_small)}")
     print(f"GPT-medium training: {json.dumps(gpt_big)}")
     print(f"pretrain_gpt losses: {json.dumps(pre)}")

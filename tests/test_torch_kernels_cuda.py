@@ -59,7 +59,13 @@ for bit (one key and eight, aligned and unaligned views, a repeat, a
 CUDA-graph replay), jax 0.9.0's known answers as constants, and the
 samplers on the card to the CPU: uniforms, Bernoulli draws and
 ``randint`` bit for bit, ``normal`` and ``gumbel`` to
-``prng.normal_limit`` and ``prng.gumbel_limit``."""
+``prng.normal_limit`` and ``prng.gumbel_limit``. The paged attention
+(one kernel: decode at one query a slot, speculative verify at k1) is
+held per element to ``paged_attention.paged_limit`` (per query row;
+linear and tree masks, fp32, bf16 and int8 pools, odd pages, hd 48), a
+repeat and two page placements bit for bit, column j of a linear verify
+to the decode kernel at pos + j bit for bit, and k1 past ``MAX_K1``
+refused without a launch counted."""
 
 import importlib
 
@@ -1649,3 +1655,133 @@ def test_paged_attention_kernel_refuses_without_counting(cuda_device):
     with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         pa_mod.paged_decode_attention_kernel(q.cpu(), k, v, bt, pos)
     assert pa_mod.PAGED_DECODE.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# multi-query (speculative verify) paged attention
+# ---------------------------------------------------------------------------
+
+def _anc(b, k1, tree, seed):
+    """(b, k1, k1) visibility: the linear chain (None) or random valid
+    draft trees packed by ``serving.draft.tree_arrays`` (forced chains
+    and trees of random shape)."""
+    if not tree:
+        return None
+    from apex_tpu_torch.serving.draft import tree_arrays
+
+    rng = np.random.RandomState(seed)
+    forced, trees = [], []
+    for _ in range(b):
+        f = rng.randint(1, k1 + 1)
+        forced.append([1] * f)
+        n = k1 - f
+        trees.append(([2] * n, [int(rng.randint(-1, i)) for i in range(n)])
+                     if n else None)
+    return torch.from_numpy(tree_arrays(forced, trees, k1)[2])
+
+
+def _verify_case(dev, b, nh, hd, page, max_pages, kv, qdt, k1, tree,
+                 seed=0):
+    """q (b, nh, k1, hd) over the pools of :func:`_paged_case`, positions
+    with their k1-row window inside the table (0, a page's last row, the
+    next's first and the table's end among them)."""
+    _, k, v, bt, _, ks, vs = _paged_case(dev, b, nh, hd, page, max_pages,
+                                         kv, qdt, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    q = torch.randn((b, nh, k1, hd), generator=g, device=dev).to(_DT[qdt])
+    s_len = page * max_pages
+    pos = torch.randint(0, s_len - k1 + 1, (b,), generator=g, device=dev)
+    fixed = [0, page - 1, page, s_len - k1]
+    pos[:min(b, 4)] = torch.tensor(fixed[:min(b, 4)], device=dev)
+    anc = _anc(b, k1, tree, seed)
+    return (q, k, v, bt, pos.to(torch.int32),
+            None if anc is None else anc.to(dev), ks, vs)
+
+
+_VERIFY_KV = [("f32", "f32"), ("bf16", "bf16"), ("bf16", "i8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kv", _VERIFY_KV)
+@pytest.mark.parametrize("page,hd", [(64, 64), (7, 48)])
+@pytest.mark.parametrize("tree", [False, True], ids=["linear", "tree"])
+@pytest.mark.parametrize("k1", [1, 2, 5, 9])
+def test_paged_verify_kernel_within_limit(cuda_device, qdt, kv, page, hd,
+                                          tree, k1):
+    """The k1-query kernel against its plain version within
+    ``paged_limit`` (per query row), and the same bits on a second
+    launch."""
+    args = _verify_case(cuda_device, 9, 4, hd, page, 5, kv, qdt, k1, tree)
+    n0 = pa_mod.PAGED_VERIFY.launches
+    got = pa_mod.paged_verify_attention(*args)
+    want = pa_mod.paged_verify_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert pa_mod.PAGED_VERIFY.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    q, k, v, bt, pos, anc, ks, vs = args
+    lim = pa_mod.paged_limit(q, k, v, bt, pos, want, ks, vs, anc=anc)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= lim).all()), float((err / lim).max())
+    assert torch.equal(pa_mod.paged_verify_attention_kernel(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8"])
+@pytest.mark.parametrize("tree", [False, True], ids=["linear", "tree"])
+def test_paged_verify_kernel_placement_invariant(cuda_device, kv, tree):
+    """The same logical rows under two permutations of the physical
+    pages: the same bits, k1 = 5."""
+    q, k, v, bt, pos, anc, ks, vs = _verify_case(
+        cuda_device, 32, 16, 64, 64, 8, kv, "bf16", 5, tree, seed=1)
+    outs = []
+    for seed in (2, 3):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        perm = torch.arange(k.shape[0], device=cuda_device)
+        perm[2:] = 2 + torch.randperm(k.shape[0] - 2, generator=g,
+                                      device=cuda_device)
+        k2, v2 = torch.empty_like(k), torch.empty_like(v)
+        k2[perm], v2[perm] = k, v
+        s2 = [None if s is None else torch.empty_like(s) for s in (ks, vs)]
+        for dst, src in zip(s2, (ks, vs)):
+            if src is not None:
+                dst[perm] = src
+        outs.append(pa_mod.paged_verify_attention_kernel(
+            q, k2, v2, perm[bt.long()].to(torch.int32), pos, anc, *s2))
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kv", _VERIFY_KV)
+@pytest.mark.parametrize("page,hd", [(64, 64), (7, 48)])
+def test_paged_verify_column_is_the_decode_kernel(cuda_device, qdt, kv,
+                                                  page, hd):
+    """Column j of a linear verify gives the bits of the decode kernel
+    at pos + j on the same pools (one template, one per-query order)."""
+    q, k, v, bt, pos, _, ks, vs = _verify_case(cuda_device, 9, 4, hd, page,
+                                               5, kv, qdt, 9, False)
+    ctx = pa_mod.paged_verify_attention_kernel(q, k, v, bt, pos, None, ks,
+                                               vs)
+    for j in range(q.shape[2]):
+        dec = pa_mod.paged_decode_attention_kernel(
+            q[:, :, j].contiguous(), k, v, bt, pos + j, ks, vs)
+        assert torch.equal(ctx[:, :, j], dec), j
+
+
+@pytest.mark.cuda
+def test_paged_verify_kernel_k1_limit(cuda_device):
+    """k1 = MAX_K1 launches; one more is refused by the C entry with a
+    non-zero code the wrapper raises, and no launch is counted."""
+    k1 = pa_mod.MAX_K1
+    args = _verify_case(cuda_device, 2, 2, 64, 64, 4, "bf16", "bf16", k1,
+                        True)
+    got = pa_mod.paged_verify_attention(*args)
+    want = pa_mod.paged_verify_attention_plain(*args)
+    q, k, v, bt, pos, anc, ks, vs = args
+    lim = pa_mod.paged_limit(q, k, v, bt, pos, want, ks, vs, anc=anc)
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+    big = _verify_case(cuda_device, 2, 2, 64, 64, 4, "bf16", "bf16",
+                       k1 + 1, False)
+    n0 = pa_mod.PAGED_VERIFY.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pa_mod.paged_verify_attention_kernel(*big)
+    assert pa_mod.PAGED_VERIFY.launches == n0

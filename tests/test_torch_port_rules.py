@@ -571,8 +571,10 @@ PORT_ONLY = {
     "examples/imagenet/profile_train.py": "a profiler window on the card",
     "examples/kernel_ab.py": "kernels of two checkouts in one process",
     "transformer/functional/paged_attention.py":
-        "the paged decode attention kernel (XLA inside the JAX package's "
-        "models/gpt.py: _paged_decode_attention and its int8 form)",
+        "the paged decode and verify attention kernel (XLA inside the JAX "
+        "package's models/gpt.py: _paged_decode_attention, "
+        "_paged_verify_attention, _paged_tree_verify_attention and their "
+        "int8 forms)",
 }
 
 # Departures every module takes (the ground rules): no Pallas interpret
@@ -620,40 +622,24 @@ DEPARTURES = {
     "utils/platform.py:pallas_interpret":
         "Pallas/TPU platform helper: device= takes its place",
 }
-# ``key`` in serving/paging.py is a sha256 chain digest, not a jax.random
-# key: the scan's key -> generator rename does not apply, and the port
-# keeps the reference's name.
+# ``key`` in serving/paging.py (and the host tier's errors in
+# serving/health.py) is a sha256 chain digest, not a jax.random key: the
+# scan's key -> generator rename does not apply, and the port keeps the
+# reference's name.
 DEPARTURES.update({
-    f"serving/paging.py:{n}": "key= is a prefix chain digest (bytes), kept "
-    "under the reference's name" for n in (
-        "encode_spill_header", "PrefixRegistry.put", "PrefixRegistry.get",
-        "PrefixRegistry.drop", "PagePool.evict_prefix")})
+    f"serving/{n}": "key= is a prefix chain digest (bytes), kept under "
+    "the reference's name" for n in (
+        "paging.py:encode_spill_header", "paging.py:PrefixRegistry.put",
+        "paging.py:PrefixRegistry.get", "paging.py:PrefixRegistry.drop",
+        "paging.py:PagePool.evict_prefix", "health.py:SpillFailed.__init__",
+        "health.py:PromoteFailed.__init__")})
 
 # Names (or parameters) owed to later items of ROADMAP.md queue A. When an
 # item lands, delete its entry: the scan then holds every one of its names
 # to the reference.
 OWED = {
-    "A4.2 speculative decoding": [
-        "serving/decode.py:make_verify_fn",
-        "serving/decode.py:make_paged_verify_fn",
-        "serving/decode.py:make_tree_verify_fn",
-        "serving/decode.py:make_paged_tree_verify_fn",
-        "serving/sampling.py:speculative_accept",
-        "serving/sampling.py:tree_speculative_accept",
-        "serving/scheduler.py:DecodeEngine.__init__",  # spec_k, draft_model,
-        # tree_spec, adaptive_spec; injector and tracer (A4.4)
-        "serving/scheduler.py:DecodeEngine.draft",
-        "serving/scheduler.py:DecodeEngine.draft_batch",
-        "serving/scheduler.py:DecodeEngine.draft_tree_batch",
-        "serving/scheduler.py:DecodeEngine.verify",
-        "serving/scheduler.py:DecodeEngine.tree_verify",
-        "serving/scheduler.py:DecodeEngine.commit",
-        "serving/scheduler.py:DecodeEngine.sample_grid",
-        "serving/scheduler.py:DecodeEngine.prepare_decode",    # n_new
-        "serving/scheduler.py:PagedDecodeEngine.prepare_decode"],
     "A4.3 chunked prefill": [
         "serving/decode.py:make_chunk_prefill_fn",
-        "serving/decode.py:make_paged_chunk_prefill_fn",
         "serving/scheduler.py:DecodeEngine.begin_chunk_prefill",
         "serving/scheduler.py:DecodeEngine.chunk_prefill",
         "serving/scheduler.py:DecodeEngine.finish_chunk_prefill",
@@ -665,17 +651,20 @@ OWED = {
             "RetryBudgetExhausted", "DeadlineExceeded",
             "AdmissionRejected", "LivelockError",
             "TransferFailed", "TransferCorrupt", "ReshardFailed",
-            "ReplicaUnavailable", "SpillFailed", "PromoteFailed",
-            "StreamFailed", "SloViolation",
+            "ReplicaUnavailable", "StreamFailed", "SloViolation",
             "ReplicaHealth", "ServingStats", "snapshot", "RequestOutcome.ok",
             "RequestOutcome.error", "RequestOutcome.retries",
             "RequestOutcome.tenant_id", "RequestOutcome.slo")] + [
+        "serving/scheduler.py:DecodeEngine.__init__",  # injector, tracer
         "serving/scheduler.py:Request.deadline_ticks",
         "serving/scheduler.py:Request.tenant_id",
         "serving/scheduler.py:ContinuousBatchingScheduler.__init__",
         "serving/scheduler.py:ContinuousBatchingScheduler.clock",
         "serving/scheduler.py:ContinuousBatchingScheduler.advance_clock",
-        "serving/scheduler.py:ContinuousBatchingScheduler.submit"],
+        "serving/scheduler.py:ContinuousBatchingScheduler.submit"] + [
+        f"serving/transfer.py:{n}" for n in (
+            "make_tile_transfer_fns", "make_reshard_extract_fn",
+            "transfer_checksum", "PageTransfer", "PageReshard")],
     "A4.5 tensor-parallel serving": [
         f"serving/decode.py:make_tp_{n}_fn" for n in (
             "prefill", "decode", "verify", "paged_prefill", "paged_decode",
@@ -711,14 +700,6 @@ OWED = {
 # the later queue-A item that brings them. The signature scan sees no
 # gap here; ``test_owed_values_raise_naming_their_item`` holds each.
 OWED_VALUES = {
-    "A4.1b host spill tier": [
-        ("PagedDecodeEngine", "host_tier", object()),
-        ("PagedDecodeEngine", "promote_ticks_per_page", 0.5)],
-    "A4.2 speculative decoding": [
-        ("PagedDecodeEngine", "spec_k", 2),
-        ("PagedDecodeEngine", "draft_model", object()),
-        ("PagedDecodeEngine", "tree_spec", True),
-        ("PagedDecodeEngine", "adaptive_spec", True)],
     "A4.4 faults, tracer and tenancy": [
         ("PagedDecodeEngine", "injector", object()),
         ("PagedDecodeEngine", "tracer", object()),
