@@ -44,6 +44,12 @@
 // page placement give the same bits, and column j of a linear verify
 // gives the bits of a decode step at pos + j (the rows the verify
 // loads beyond a query's reach enter its sums as exact zeros).
+//
+// A launch takes a slice of the window's queries: nq queries from q0
+// of a window of wk (q, out and anc keep the window's shape). Shared
+// memory holds the slice's queries, so a window wider than one launch
+// holds (kMaxK1, or fewer at a wide hd) runs as consecutive slices,
+// and by the order above they give the bits of one launch over all.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -239,8 +245,10 @@ paged_attention_kernel(const TQ* __restrict__ q,
                        const int* __restrict__ bt,
                        const int* __restrict__ pos,
                        const uint8_t* __restrict__ anc,
-                       TQ* __restrict__ out, int nh, int k1, int page,
-                       int hd, int max_pages, float scale) {
+                       TQ* __restrict__ out, int nh, int wk, int q0,
+                       int k1, int page, int hd, int max_pages,
+                       float scale) {
+  // k1: the slice's queries, window queries q0 .. q0 + k1 - 1 of wk
   using T = Tile<TKV, VE, kQ8>;
   extern __shared__ __align__(16) float sm[];
   const int hp = padded(hd), ld = hp + kPad;
@@ -257,10 +265,13 @@ paged_attention_kernel(const TQ* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int s_len = max_pages * page;
   const int p0 = pos[b];
-  const int nmax = min(p0 + k1, s_len);    // rows any query may see
-  const long long qoff = (static_cast<long long>(b) * nh + h) * k1 * hd;
+  // rows any query of the slice may see: a tree's ancestors may lie
+  // anywhere in the window, a linear query's up to its own row
+  const int nmax = min(p0 + (anc != nullptr ? wk : q0 + k1), s_len);
+  const long long qoff =
+      ((static_cast<long long>(b) * nh + h) * wk + q0) * hd;
   const uint8_t* a = anc == nullptr
-      ? nullptr : anc + static_cast<long long>(b) * k1 * k1;
+      ? nullptr : anc + static_cast<long long>(b) * wk * wk;
 
   for (int i = threadIdx.x; i < k1 * hp; i += kThreads) {
     const int j = i / hp, e = i % hp;
@@ -298,8 +309,10 @@ paged_attention_kernel(const TQ* __restrict__ q,
       const int j = pr / kT, r = pr % kT;
       const int t = t0 + r, w = t - p0;
       const bool vis = t < s_len
-          && (w < 0 || (w < k1 && (a != nullptr ? a[w * k1 + j] != 0
-                                                : w <= j)));
+          && (w < 0 || (w < wk && (a != nullptr
+                                   ? a[static_cast<long long>(w) * wk + q0
+                                       + j] != 0
+                                   : w <= q0 + j)));
       float d = 0.f;
       if (vis) {
         const float4* qv = reinterpret_cast<const float4*>(sq + j * hp);
@@ -410,8 +423,9 @@ template <typename TQ, typename TKV, int VE>
 cudaError_t launch_ve(const void* q, const void* kp, const void* vp,
                       const float* ks, const float* vs, const int* bt,
                       const int* pos, const uint8_t* anc, void* out,
-                      int b, int nh, int k1, int page, int hd,
-                      int max_pages, float scale, cudaStream_t st) {
+                      int b, int nh, int wk, int q0, int k1, int page,
+                      int hd, int max_pages, float scale,
+                      cudaStream_t st) {
   if constexpr (VE * sizeof(TKV) > 16) {
     return cudaErrorInvalidValue;
   } else {
@@ -429,8 +443,8 @@ cudaError_t launch_ve(const void* q, const void* kp, const void* vp,
         if (e != cudaSuccess) return e;
       }
       kernel<<<grid, kThreads, smem, st>>>(qq, kk, vv, ks, vs, bt, pos,
-                                           anc, oo, nh, k1, page, hd,
-                                           max_pages, scale);
+                                           anc, oo, nh, wk, q0, k1, page,
+                                           hd, max_pages, scale);
       return cudaGetLastError();
     };
     if (ks != nullptr)
@@ -445,8 +459,8 @@ template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const float* ks, const float* vs, const int* bt,
                    const int* pos, const uint8_t* anc, void* out, int b,
-                   int nh, int k1, int page, int hd, int max_pages,
-                   float scale, cudaStream_t st) {
+                   int nh, int wk, int q0, int k1, int page, int hd,
+                   int max_pages, float scale, cudaStream_t st) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(kp)
       | reinterpret_cast<uintptr_t>(vp);
   const int row_bytes = hd * static_cast<int>(sizeof(TKV));
@@ -458,7 +472,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 #define APX_VE(N)                                                          \
   if (ve == N)                                                             \
     return launch_ve<TQ, TKV, N>(q, kp, vp, ks, vs, bt, pos, anc, out, b,  \
-                                 nh, k1, page, hd, max_pages, scale, st);
+                                 nh, wk, q0, k1, page, hd, max_pages,      \
+                                 scale, st);
   APX_VE(16) APX_VE(8) APX_VE(4) APX_VE(2) APX_VE(1)
 #undef APX_VE
   return cudaErrorInvalidValue;
@@ -468,21 +483,23 @@ template <typename TQ>
 cudaError_t launch_q(const void* q, const void* kp, const void* vp,
                      const float* ks, const float* vs, const int* bt,
                      const int* pos, const uint8_t* anc, void* out, int b,
-                     int nh, int k1, int page, int hd, int max_pages,
-                     int kv_dtype, float scale, cudaStream_t st) {
+                     int nh, int wk, int q0, int k1, int page, int hd,
+                     int max_pages, int kv_dtype, float scale,
+                     cudaStream_t st) {
   switch (kv_dtype) {
     case kF32:
       return launch<TQ, float>(q, kp, vp, nullptr, nullptr, bt, pos, anc,
-                               out, b, nh, k1, page, hd, max_pages, scale,
-                               st);
+                               out, b, nh, wk, q0, k1, page, hd, max_pages,
+                               scale, st);
     case kBF16:
       return launch<TQ, __nv_bfloat16>(q, kp, vp, nullptr, nullptr, bt,
-                                       pos, anc, out, b, nh, k1, page, hd,
-                                       max_pages, scale, st);
+                                       pos, anc, out, b, nh, wk, q0, k1,
+                                       page, hd, max_pages, scale, st);
     case kI8:
       if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
       return launch<TQ, int8_t>(q, kp, vp, ks, vs, bt, pos, anc, out, b,
-                                nh, k1, page, hd, max_pages, scale, st);
+                                nh, wk, q0, k1, page, hd, max_pages, scale,
+                                st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -496,31 +513,33 @@ const char* apx_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The most queries a slot the kernel holds.
+// The most queries a slot one launch holds.
 int apx_paged_attention_max_k1() { return kMaxK1; }
 
-// q, out: (b, nh, k1, hd) contiguous, dtype q_dtype (0 fp32, 1 bf16).
+// q, out: (b, nh, wk, hd) contiguous, dtype q_dtype (0 fp32, 1 bf16);
+// the launch computes the window's queries q0 .. q0 + k1 - 1.
 // k_pages, v_pages: (num_pages, nh, page, hd) contiguous, dtype kv_dtype
 // (0 fp32, 1 bf16, 2 int8); k_scale, v_scale: (num_pages, nh) fp32 for
 // int8, else null. block_tables: (b, max_pages) int32; pos: (b,) int32.
-// anc: (b, k1, k1) bytes, anc[b][i][j] != 0 when window row i is
+// anc: (b, wk, wk) bytes, anc[b][i][j] != 0 when window row i is
 // visible to query j, or null for the linear mask (i <= j). Query j
 // attends logical rows s < max_pages * page with s < pos, or s - pos in
-// [0, k1) admitted by the mask. 1 <= k1 <= 64, hd <= 256, the shared
-// memory of (k1, hd) within the card's 227 KB; b <= 65535. Launches on
-// `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for
-// arguments outside these limits.
+// [0, wk) admitted by the mask. 1 <= k1 <= 64, q0 >= 0, q0 + k1 <= wk,
+// hd <= 256, the shared memory of (k1, hd) within the card's 227 KB;
+// b <= 65535. Launches on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments outside these limits.
 int apx_paged_attention(const void* q, const void* k_pages,
                         const void* v_pages, const void* k_scale,
                         const void* v_scale, const void* block_tables,
                         const void* pos, const void* anc, void* out, int b,
-                        int nh, int k1, int page, int hd, int max_pages,
-                        int q_dtype, int kv_dtype, float scale,
-                        void* stream) {
+                        int nh, int wk, int q0, int k1, int page, int hd,
+                        int max_pages, int q_dtype, int kv_dtype,
+                        float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b < 1 || b > 65535 || nh < 1 || nh > 65535 || k1 < 1
-      || k1 > kMaxK1 || page < 1 || hd < 1 || hd > kMaxHd
-      || max_pages < 1 || smem_bytes(k1, hd) > kMaxSmem)
+      || k1 > kMaxK1 || q0 < 0 || wk < k1 || q0 > wk - k1 || page < 1
+      || hd < 1 || hd > kMaxHd || max_pages < 1
+      || smem_bytes(k1, hd) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
@@ -530,12 +549,12 @@ int apx_paged_attention(const void* q, const void* k_pages,
   cudaError_t err;
   if (q_dtype == kF32)
     err = launch_q<float>(q, k_pages, v_pages, ks, vs, bt, ps, an, out, b,
-                          nh, k1, page, hd, max_pages, kv_dtype, scale,
-                          st);
+                          nh, wk, q0, k1, page, hd, max_pages, kv_dtype,
+                          scale, st);
   else if (q_dtype == kBF16)
     err = launch_q<__nv_bfloat16>(q, k_pages, v_pages, ks, vs, bt, ps, an,
-                                  out, b, nh, k1, page, hd, max_pages,
-                                  kv_dtype, scale, st);
+                                  out, b, nh, wk, q0, k1, page, hd,
+                                  max_pages, kv_dtype, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

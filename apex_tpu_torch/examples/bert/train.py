@@ -22,6 +22,19 @@ attention and the tree-path FusedAdam. With a ``dropout_rng`` (a
 dropout on ``fold_in(dropout_rng, i)``; without one the step is the JAX
 benchmark's, which runs none.
 
+Data parallelism (the JAX ``bench.py::bench_ddp_bert``, ``BASELINE.json``
+config #4): with a ``parallel.DistributedDataParallel``, each rank takes
+its slice of the global batch, the master tree is broadcast from rank 0
+once (in ``make_state``), and ``allreduce_grads`` averages the gradients
+over the data group between ``grads()`` and the optimizer step; each
+rank takes ``found_inf`` from its own gradients, before the all-reduce,
+as the reference does. At one rank it is the plain step's numbers. The
+CLI takes the world from the process group, which a launcher's
+environment brings up::
+
+    torchrun --nproc_per_node 4 -m apex_tpu_torch.examples.bert.train \
+        --batch 256
+
 Random weights from a seed and one fixed batch of random ids (every
 position predicted). Runs on the CUDA device by default::
 
@@ -40,11 +53,13 @@ and on the CPU (the kernels' plain versions) with ``--device cpu``::
 
 import argparse
 import dataclasses
+import os
 import statistics
 import time
 from typing import Any, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch import amp
 from apex_tpu_torch.models.bert import (
@@ -52,6 +67,8 @@ from apex_tpu_torch.models.bert import (
     mlm_loss,
 )
 from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+from apex_tpu_torch.parallel import DistributedDataParallel
+from apex_tpu_torch.transformer import parallel_state as ps
 from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -68,14 +85,18 @@ class BertTrainStep:
     returns ``(master, opt_state, scaler_state, [compute,] loss)``, the
     JAX ``train_step``'s tuple; :meth:`grads` is its first half. With
     ``dropout_rng``, the ``steps``-th call draws its dropout on
-    ``fold_in(dropout_rng, steps)``."""
+    ``fold_in(dropout_rng, steps)``. With ``ddp``, the gradients are
+    all-reduced between :meth:`grads` and the optimizer step, and the
+    loss returned is the mean over the data group."""
 
     def __init__(self, cfg: BertConfig, handle: amp.Amp,
-                 opt: Union[FusedAdam, FusedLAMB], dropout_rng=None):
+                 opt: Union[FusedAdam, FusedLAMB], dropout_rng=None,
+                 ddp: Optional[DistributedDataParallel] = None):
         self.cfg = cfg
         self.amp = handle
         self.opt = opt
         self.dropout_rng = dropout_rng
+        self.ddp = ddp
         self.steps = 0
         self._value_and_grad = handle.value_and_grad(self.loss_fn)
 
@@ -100,6 +121,12 @@ class BertTrainStep:
         p, loss, grads, found_inf, scaler_state = self.grads(
             master, scaler_state, ids, mask,
             compute[0] if compute else None, dropout_rng=rng)
+        if self.ddp is not None:
+            grads = self.ddp.allreduce_grads(grads)
+            group, size = ps.axis_group(self.ddp.axis_name)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / size
         if self.opt.emit_compute_params:
             master, opt_state, c = self.opt.step(
                 grads, master, opt_state, found_inf=found_inf,
@@ -115,7 +142,8 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
                          emit_compute: bool = False,
                          device: DeviceLike = None, opt_level: str = "O2",
                          seed: int = 0, use_flat_kernel: bool = False,
-                         optimizer: str = "adam", dropout_rng=None
+                         optimizer: str = "adam", dropout_rng=None,
+                         ddp: Optional[DistributedDataParallel] = None
                          ) -> Tuple[BertTrainStep, Any, Tuple]:
     """Returns ``(train_step, make_state, (ids, mask))`` as the JAX
     ``_bert_step`` does; ``cfg.fused_attention``, ``optimizer``
@@ -127,7 +155,9 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
     from ``seed`` (on a generator on ``device``) and returns ``(master,
     opt_state, scaler_state)``, plus the compute tree with
     ``emit_compute``. ``ids`` come from a CPU generator seeded 1, so they
-    are the same on every device; ``mask`` is all ones."""
+    are the same on every device; ``mask`` is all ones. With ``ddp``,
+    ``batch`` is the global batch: ``(ids, mask)`` are this rank's slice
+    of it, and ``make_state`` broadcasts the master tree from rank 0."""
     dev = resolve_device(device)
     h = amp.initialize(opt_level, loss_scale="dynamic", verbosity=0)
     cls, lr = OPTIMIZERS[optimizer]
@@ -138,6 +168,8 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
     def make_state():
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = init_bert(cfg, gen, device=dev)
+        if ddp is not None:
+            params = ddp.broadcast_params(params)
         base = (params, opt.init(params), h.init_state(dev))
         if not emit_compute:
             return base
@@ -146,13 +178,18 @@ def make_bert_train_step(batch: int, seq: int, cfg: BertConfig, *,
     ids = torch.randint(0, cfg.vocab_size, (batch, seq),
                         generator=torch.Generator().manual_seed(1)).to(dev)
     mask = torch.ones((batch, seq), dtype=torch.int32, device=dev)
-    return BertTrainStep(cfg, h, opt, dropout_rng), make_state, (ids, mask)
+    if ddp is not None:
+        ids, mask = ddp.shard_batch((ids, mask))
+    return (BertTrainStep(cfg, h, opt, dropout_rng, ddp), make_state,
+            (ids, mask))
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", choices=sorted(CONFIGS), default="large")
-    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--batch", type=int, default=64,
+                   help="the global batch (split over the data ranks "
+                   "under a launcher)")
     p.add_argument("--seq", type=int, default=128)
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--state-mode", choices=sorted(STATE_MODES),
@@ -182,12 +219,17 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(CONFIGS[args.config](),
                               fused_attention=args.attention == "flash")
     m_dtype, emit = STATE_MODES[args.state_mode]
+    ddp = None
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        ps.initialize_model_parallel(device=dev)
+        ddp = DistributedDataParallel()
+    rank0 = ddp is None or dist.get_rank() == 0
     step, make_state, (ids, mask) = make_bert_train_step(
         args.batch, args.seq, cfg, m_dtype=m_dtype, emit_compute=emit,
         device=dev, seed=args.seed, use_flat_kernel=args.flat_kernel,
         optimizer=args.optimizer,
         dropout_rng=None if args.dropout_seed is None
-        else prng.PRNGKey(args.dropout_seed))
+        else prng.PRNGKey(args.dropout_seed), ddp=ddp)
     state = make_state()
 
     def sync():
@@ -202,19 +244,23 @@ def main(argv=None) -> int:
         sync()
         times.append(time.perf_counter() - t0)
         scaler = state[2]
-        print(f"step {i}: loss {float(loss):.5f}, loss scale "
-              f"{float(scaler.loss_scale):g}, unskipped "
-              f"{int(scaler.unskipped)}, {times[-1] * 1e3:.1f} ms",
-              flush=True)
+        if rank0:
+            print(f"step {i}: loss {float(loss):.5f}, loss scale "
+                  f"{float(scaler.loss_scale):g}, unskipped "
+                  f"{int(scaler.unskipped)}, {times[-1] * 1e3:.1f} ms",
+                  flush=True)
     # the first step carries the warm-up (library handles, allocator)
     med = statistics.median(times[1:] or times)
     over = f"steps 2-{len(times)}" if len(times) > 1 else "one step"
-    print(f"bert {args.config} batch {args.batch} seq {args.seq} "
-          f"{args.state_mode}, {args.attention} attention, "
-          f"{'flat' if args.flat_kernel else 'tree'} "
-          f"{type(step.opt).__name__} on {dev}: "
-          f"median step {med * 1e3:.1f} ms "
-          f"over {over}, {args.batch / med:.1f} samples/s")
+    dp = "" if ddp is None else f" over {ps.get_data_parallel_world_size()} " \
+        "data ranks"
+    if rank0:
+        print(f"bert {args.config} batch {args.batch}{dp} seq {args.seq} "
+              f"{args.state_mode}, {args.attention} attention, "
+              f"{'flat' if args.flat_kernel else 'tree'} "
+              f"{type(step.opt).__name__} on {dev}: "
+              f"median step {med * 1e3:.1f} ms "
+              f"over {over}, {args.batch / med:.1f} samples/s")
     return 0
 
 

@@ -1,15 +1,18 @@
 """Time the fused softmax forwards (rows 10-11), the w8 logits head (row
-23) and the softmax cross entropy (rows 8-9) of this checkout against
-the same CUDA sources of another checkout, in one process on one card.
+23), the softmax cross entropy (rows 8-9) and the paged attention's
+decode and verify instances of this checkout against the
+same CUDA sources of another checkout, in one process on one card.
 
     python -m apex_tpu_torch.examples.kernel_ab --other DIR [DIR ...]
 
 Run it from the root of the repository: it times as ``chip_smoke.py``
 does and imports its ``time_ms``. ``DIR`` is the root of another
 checkout (or a copy with one constant changed). Each of its
-``apex_tpu_torch/csrc/{fused_softmax,w8_matmul,xentropy}.cu`` is built
-with the same nvcc flags and swapped in under this checkout's wrappers,
-so both sides take the same arguments and allocations. Cases run in
+``apex_tpu_torch/csrc/{fused_softmax,w8_matmul,xentropy,paged_attention}.cu``
+is built with the same nvcc flags and swapped in under this checkout's
+wrappers, so both sides take the same arguments and allocations (a
+paged-attention source whose C entry predates the launch's query slice
+is called without ``wk`` and ``q0``, over the whole window). Cases run in
 turns (this, other, other, this for each other), each time the median
 device ms of CUDA-graph replays of 20 back-to-back calls (5 for the
 cross entropy's (8192, V) logits), inputs L2-warm. The softmax backward
@@ -18,12 +21,13 @@ controls of the noise, and ``copy_`` of the logits as the card's
 streaming pace for the cross entropy's bytes. Each case also says
 whether both sides gave the same bits. Prints one JSON object a case,
 the card's name and power limit first; then, for each library, the
-static SASS instruction count of each forward, w8 NK and cross-entropy
-backward kernel (``cuobjdump -sass``), by opcode.
+static SASS instruction count of each forward, w8 NK, cross-entropy
+backward and paged attention kernel (``cuobjdump -sass``), by opcode.
 """
 
 import argparse
 import collections
+import ctypes
 import functools
 import importlib
 import json
@@ -36,11 +40,13 @@ import torch
 
 from apex_tpu_torch.utils.cuda_build import CudaLibrary, build_all
 
-_SOURCES = ("fused_softmax", "w8_matmul", "xentropy")
+_SOURCES = ("fused_softmax", "w8_matmul", "xentropy", "paged_attention")
 _MODULES = {
     "fused_softmax": "apex_tpu_torch.transformer.functional.fused_softmax",
     "w8_matmul": "apex_tpu_torch.quant.kernels",
-    "xentropy": "apex_tpu_torch.contrib.xentropy"}
+    "xentropy": "apex_tpu_torch.contrib.xentropy",
+    "paged_attention":
+        "apex_tpu_torch.transformer.functional.paged_attention"}
 
 
 def _other_libs(root, tag):
@@ -120,7 +126,65 @@ def _cases(dev):
             (f"copy_ {name}: the streaming pace (no kernel of either side)",
              "xentropy", functools.partial(
                  torch.Tensor.copy_, torch.empty_like(logits), logits), 5)]
+    return cases + _paged_cases(dev)
+
+
+def _paged_cases(dev):
+    """The paged attention as ``chip_smoke.py`` times it, one layer of
+    GPT-2 medium's heads: the decode instance (k1 = 1; bf16 and int8
+    pools) and the linear verify at k1 = 5, at the JAX package's A/B
+    configuration (32 slots, S_max 512) and at ``serving_spec``'s 8
+    slots (S_max 1024, the motif mix's lengths)."""
+    from chip_smoke import (NEW_TOKENS, NUM_SLOTS, PAGE, _paged_inputs,
+                            _verify_inputs, ab_lengths, spec_prompts)
+    from apex_tpu_torch.models.gpt import gpt_medium
+
+    pa = importlib.import_module(_MODULES["paged_attention"])
+    gen = torch.Generator(device=dev).manual_seed(17)
+    spec_lens = sorted(len(p) + NEW_TOKENS // 2
+                       for p in spec_prompts(gpt_medium())[:NUM_SLOTS])
+    cases = []
+    for key, lengths, max_pages in (
+            ("A/B (32 slots, S 512)", ab_lengths(), 8),
+            ("serving_spec (8 slots, S 1024)", spec_lens, 16)):
+        for kv in ("bf16", "i8") if max_pages == 8 else ("bf16",):
+            args = _paged_inputs(gen, dev, lengths, PAGE, max_pages, kv,
+                                 "bf16")
+            cases.append((f"paged_decode {key}, {kv} pool",
+                          "paged_attention", functools.partial(
+                              pa.paged_decode_attention_kernel, *args), 20))
+        args = _verify_inputs(gen, dev, [min(n, PAGE * max_pages - 5)
+                                         for n in lengths], PAGE, max_pages,
+                              "bf16", "bf16", 5, False, contiguous=True)
+        cases.append((f"paged_verify k1 5 {key}, bf16 pool, linear",
+                      "paged_attention", functools.partial(
+                          pa.paged_verify_attention_kernel, *args), 20))
     return cases
+
+
+def _entry(lib, kernel):
+    """``lib``'s C function for ``kernel``. A paged-attention source from
+    before the launch's query slice (its entry takes no ``wk`` and
+    ``q0``) is called without them, over the whole window only."""
+    fn = getattr(lib.load(), kernel.symbol)
+    fn.restype = ctypes.c_int
+    with open(lib.source) as f:
+        sliced = "int q0" in f.read()
+    if kernel.symbol != "apx_paged_attention" or sliced:
+        fn.argtypes = kernel.argtypes
+        return fn
+    # (9 pointers, b, nh, wk, q0, nq, page, ...) -> (9 pointers, b, nh,
+    # k1, page, ...)
+    fn.argtypes = kernel.argtypes[:11] + kernel.argtypes[13:]
+
+    def whole_window(*a):
+        wk, q0, nq = a[11:14]
+        if q0 != 0 or nq != wk:
+            raise ValueError(f"{lib.source} launches the whole window "
+                             "only")
+        return fn(*a[:11], *a[13:])
+
+    return whole_window
 
 
 def _swapped(lib_of, fn, source):
@@ -137,7 +201,7 @@ def _swapped(lib_of, fn, source):
         try:
             if lib is not None:
                 for k in kernels:
-                    k.lib, k._fn = lib, None
+                    k.lib, k._fn = lib, _entry(lib, k)
                 mod.LIB = lib
             return fn()
         finally:
@@ -153,7 +217,8 @@ def _same_bits(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-_SASS_KERNELS = ("softmax_fwd", "w8_mma_nk", "w8_gemv_nk", "xent_bwd_kernel")
+_SASS_KERNELS = ("softmax_fwd", "w8_mma_nk", "w8_gemv_nk", "xent_bwd_kernel",
+                 "paged_attention_kernel")
 
 
 def sass_counts(lib):

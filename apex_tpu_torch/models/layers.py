@@ -21,6 +21,7 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -130,9 +131,29 @@ def init_batchnorm(ch: int, device: DeviceLike = None) -> Tuple[dict, dict]:
             {"mean": full(0.0), "var": full(1.0)})
 
 
+class _GroupMean(torch.autograd.Function):
+    """``lax.pmean`` over a process group: the all-reduced sum divided by
+    the group's size; its backward is pmean's transpose, the cotangent
+    divided by the size and all-reduced (``dist.all_reduce`` itself
+    carries no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y / size
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g / ctx.size
+        dist.all_reduce(g, group=ctx.group)
+        return g, None, None
+
+
 def batchnorm(params: Optional[dict], state: Optional[dict],
               x: torch.Tensor, *, train: bool, momentum: float = 0.9,
-              eps: float = 1e-5, axis_name: Optional[str] = None
+              eps: float = 1e-5, axis_name=None, axis_index_groups=None
               ) -> Tuple[torch.Tensor, Optional[dict]]:
     """BatchNorm over all but the channel (last) axis, as the JAX package
     computes it (not ``F.batch_norm``'s conventions): in fp32, var =
@@ -141,20 +162,35 @@ def batchnorm(params: Optional[dict], state: Optional[dict],
     n / (n - 1); the output is cast back to x's dtype. ``params=None``
     skips the affine transform; ``state=None`` tracks no running stats
     (batch statistics even when not training). The new running stats
-    carry no gradient. ``axis_name`` (SyncBatchNorm across ranks) is not
-    ported yet and raises."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "batchnorm(axis_name=...) (SyncBatchNorm) waits for the port "
-            "of apex_tpu.parallel on torch.distributed")
+    carry no gradient.
+
+    ``axis_name`` (a ``ProcessGroup``) syncs the batch statistics across
+    its ranks, the SyncBatchNorm hook: each rank's E[x] and E[x^2] are
+    stacked in one fp32 buffer and averaged over the group (one
+    all-reduce, then the division by the group's size; the backward
+    averages the cotangent the same way), and the running variance
+    counts the group's elements. A mesh axis and its
+    ``axis_index_groups`` (groupbn's ``bn_group``) are resolved into
+    that group by the caller, with ``parallel_state.axis_group``, so
+    ``axis_index_groups`` stays None here."""
+    if isinstance(axis_name, str) or axis_index_groups is not None:
+        raise ValueError(
+            "batchnorm syncs over a ProcessGroup: resolve a mesh axis and "
+            "its axis_index_groups with parallel_state.axis_group first")
     x32 = x.float()
     if train or state is None:
         axes = tuple(range(x.dim() - 1))
         mean = x32.mean(axes)
-        var = (x32 * x32).mean(axes) - mean * mean
+        mean_sq = (x32 * x32).mean(axes)
+        n = x32.numel() // x32.shape[-1]
+        if axis_name is not None:
+            size = dist.get_world_size(axis_name)
+            mean, mean_sq = _GroupMean.apply(torch.stack([mean, mean_sq]),
+                                             axis_name, size)
+            n = n * size
+        var = mean_sq - mean * mean
         new_state = state
         if train and state is not None:
-            n = x32.numel() // x32.shape[-1]
             with torch.no_grad():
                 unbiased = var * (n / max(n - 1, 1))
                 new_state = {

@@ -8,7 +8,7 @@ tensor ops in fp32, the stem's max pool ``F.max_pool2d``: in the JAX
 package they are XLA ops outside any Pallas kernel.
 """
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,7 +69,7 @@ def init_resnet(generator: torch.Generator, depth: int = 50,
     return params, stats
 
 
-def _block(bp, bs, x, *, stride, bottleneck, train, momentum):
+def _block(bp, bs, x, *, stride, bottleneck, train, axis_name, momentum):
     ns = {}
     y = x
     n_convs = 3 if bottleneck else 2
@@ -78,13 +78,15 @@ def _block(bp, bs, x, *, stride, bottleneck, train, momentum):
         s = stride if ci == (2 if bottleneck else 1) else 1
         y = L.conv(bp[f"conv{ci}"], y, s)
         y, ns[f"bn{ci}"] = L.batchnorm(bp[f"bn{ci}"], bs[f"bn{ci}"], y,
-                                       train=train, momentum=momentum)
+                                       train=train, axis_name=axis_name,
+                                       momentum=momentum)
         if ci < n_convs:
             y = F.relu(y)
     if "proj_conv" in bp:
         sc = L.conv(bp["proj_conv"], x, stride)
         sc, ns["proj_bn"] = L.batchnorm(bp["proj_bn"], bs["proj_bn"], sc,
-                                        train=train, momentum=momentum)
+                                        train=train, axis_name=axis_name,
+                                        momentum=momentum)
     else:
         sc = x
     return F.relu(y + sc), ns
@@ -92,20 +94,18 @@ def _block(bp, bs, x, *, stride, bottleneck, train, momentum):
 
 def apply_resnet(params: Dict, stats: Dict, x: torch.Tensor,
                  depth: int = 50, *, train: bool = True,
-                 axis_name: Optional[str] = None, momentum: float = 0.9
+                 axis_name: Any = None, momentum: float = 0.9
                  ) -> Tuple[torch.Tensor, Dict]:
     """x: (N, H, W, 3). Returns (logits, new_batch_stats). ``axis_name``
-    (SyncBatchNorm) is not ported yet and raises."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "apply_resnet(axis_name=...) (SyncBatchNorm) waits for the port "
-            "of apex_tpu.parallel on torch.distributed")
+    (a ``ProcessGroup``) syncs every BatchNorm's batch statistics across
+    its ranks (``layers.batchnorm``); ``parallel.convert_syncbn_model``
+    binds a mesh axis's group."""
     blocks, bottleneck = _SPECS[depth]
     new_stats: Dict[str, Any] = {}
     y = L.conv(params["stem_conv"], x, 2)
     y, new_stats["stem_bn"] = L.batchnorm(
         params["stem_bn"], stats["stem_bn"], y, train=train,
-        momentum=momentum)
+        axis_name=axis_name, momentum=momentum)
     y = F.relu(y)
     # reduce_window max, 3x3 stride 2, (1, 1) padding of -inf
     y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, padding=1).permute(
@@ -116,7 +116,8 @@ def apply_resnet(params: Dict, stats: Dict, x: torch.Tensor,
             y, new_stats[name] = _block(
                 params[name], stats[name], y,
                 stride=2 if (si > 0 and bi == 0) else 1,
-                bottleneck=bottleneck, train=train, momentum=momentum)
+                bottleneck=bottleneck, train=train, axis_name=axis_name,
+                momentum=momentum)
     y = y.mean(dim=(1, 2))
     return L.dense(params["fc"], y), new_stats
 

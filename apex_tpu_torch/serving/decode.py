@@ -327,7 +327,14 @@ def _add_positions(cfg, params, x, ids, pos):
     else:
         idx = pos[:, None].long() + torch.arange(
             ids.shape[1], device=ids.device)[None, :]
-    return x + ptab[idx].to(x.dtype)
+    # jnp.take's "fill", as the JAX engine reads the table: a position
+    # past it (a free slot's stale length under a wide verify window)
+    # reads NaN, and that slot's rows are never committed
+    n = ptab.shape[0]
+    rows = ptab[idx.clamp(0, n - 1)].to(x.dtype)
+    inside = ((idx >= 0) & (idx < n))[..., None]
+    return x + torch.where(inside, rows, torch.full(
+        (), float("nan"), dtype=x.dtype, device=x.device))
 
 
 def _embed_unsharded(cfg: GPTConfig, compute_dtype):

@@ -1,1 +1,18 @@
-"""Transformer building blocks (the functional attention of this slice)."""
+"""Transformer building blocks (counterpart of
+``apex_tpu/transformer/__init__.py``): the functional attention, the
+enums, ``parallel_state`` and the logging helpers. ``tensor_parallel``,
+``pipeline_parallel`` and ``layers`` are not ported yet (ROADMAP.md queue
+A, A6's tensor- and pipeline-parallel half)."""
+
+from apex_tpu_torch.transformer import functional  # noqa: F401
+from apex_tpu_torch.transformer import parallel_state  # noqa: F401
+from apex_tpu_torch.transformer.enums import (  # noqa: F401
+    AttnMaskType,
+    AttnType,
+    LayerType,
+    ModelType,
+)
+from apex_tpu_torch.transformer.log_util import (  # noqa: F401
+    get_transformer_logger,
+    set_logging_level,
+)

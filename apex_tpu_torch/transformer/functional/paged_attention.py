@@ -31,6 +31,13 @@ They sum in other orders and are held to each other by
 :func:`paged_limit`. Dispatch: a CUDA tensor launches the kernel
 (``PAGED_DECODE`` for one query a slot, ``PAGED_VERIFY`` for k1) or
 raises; a CPU tensor runs the plain version.
+
+One launch holds at most :data:`MAX_K1` queries a slot, fewer where
+their shared memory would pass the card's (:func:`verify_slices`). A
+wider verify window runs as one launch a slice of its queries, each
+slice reading the window's rows as a whole launch would: query j's sums
+do not depend on the other queries, so the slices give the bits of one
+launch over all of them.
 """
 
 import ctypes
@@ -45,13 +52,14 @@ from apex_tpu_torch.utils.platform import on_card
 LIB = CudaLibrary("paged_attention")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P]
+_ARGS = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P]
 # one C entry; the two wrappers count their launches apart
 PAGED_DECODE = Kernel(LIB, "apx_paged_attention", _ARGS)
 PAGED_VERIFY = Kernel(LIB, "apx_paged_attention", _ARGS)
-#: The most queries a slot the kernel holds (tree grids at spec_k up to
-#: 31 with their forced chains); its C entry refuses more.
+#: The most queries a slot one launch holds; its C entry refuses more.
 MAX_K1 = 64
+# csrc/paged_attention.cu's kT, kPad and kMaxSmem, for verify_slices
+_KT, _KPAD, _MAX_SMEM = 128, 4, 232448
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _U = 2.0 ** -24      # fp32 unit roundoff
@@ -114,6 +122,23 @@ def _check(q, k_pages, v_pages, block_tables, pos, k_scale, v_scale,
     return b, nh, k1, page, hd, block_tables.shape[1]
 
 
+def verify_slices(k1: int, hd: int):
+    """``[(q0, nq), ...]``: the window's k1 queries in consecutive
+    slices of as many as one launch holds, at most :data:`MAX_K1` and
+    within the card's shared memory at ``hd``: the C file's
+    ``smem_bytes(k1, hd)``, 4 bytes times two tiles of K and V rows
+    plus, a query, q, its accumulator, its scores and three floats,
+    solved for the most queries within ``kMaxSmem``."""
+    hp = (hd + 3) // 4 * 4
+    fit = (_MAX_SMEM // 4 - 2 * _KT * (hp + _KPAD)) // (2 * hp + _KT + 3)
+    step = min(MAX_K1, fit)
+    if step < 1:
+        raise ValueError(f"head_dim {hd}: no query fits the paged "
+                         f"attention kernel's shared memory ({_MAX_SMEM} "
+                         "bytes)")
+    return [(q0, min(step, k1 - q0)) for q0 in range(0, k1, step)]
+
+
 def _scale(hd: int, softmax_scale: Optional[float]) -> float:
     return 1.0 / math.sqrt(hd) if softmax_scale is None else softmax_scale
 
@@ -130,10 +155,13 @@ def _gather(pool, scale, block_tables):
 
 
 def visible(pos: torch.Tensor, k1: int, s_len: int,
-            anc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(b, k1, s_len) bool: key row s visible to query j of slot b — the
-    JAX ``_tree_score_mask``: ``s < pos``, or ``0 <= s - pos < k1`` and
-    ``anc[b, s - pos, j]`` (``s - pos <= j`` without ``anc``)."""
+            anc: Optional[torch.Tensor] = None, q0: int = 0,
+            nq: Optional[int] = None) -> torch.Tensor:
+    """(b, nq, s_len) bool: key row s visible to query q0 + j of slot b
+    (all k1 queries by default) — the JAX ``_tree_score_mask``: ``s <
+    pos``, or ``0 <= s - pos < k1`` and ``anc[b, s - pos, q0 + j]``
+    (``s - pos <= q0 + j`` without ``anc``)."""
+    nq = k1 - q0 if nq is None else nq
     s_idx = torch.arange(s_len, device=pos.device)
     rel = s_idx[None, :] - pos.long()[:, None]            # (b, s)
     committed = rel < 0
@@ -141,11 +169,11 @@ def visible(pos: torch.Tensor, k1: int, s_len: int,
     relc = rel.clamp(0, k1 - 1)
     if anc is None:
         win = relc[:, None, :] <= torch.arange(
-            k1, device=pos.device)[None, :, None]          # (b, q, s)
+            q0, q0 + nq, device=pos.device)[None, :, None]  # (b, q, s)
     else:
         b = pos.shape[0]
-        win = torch.gather(anc, 1, relc[:, :, None].expand(
-            b, s_len, k1)).transpose(1, 2)                 # (b, q, s)
+        win = torch.gather(anc[:, :, q0:q0 + nq], 1, relc[:, :, None].expand(
+            b, s_len, nq)).transpose(1, 2)                 # (b, q, s)
     return committed[:, None, :] | (in_win[:, None, :] & win)
 
 
@@ -179,19 +207,24 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, pos,
 
 def paged_verify_attention_plain(q, k_pages, v_pages, block_tables, pos,
                                  anc=None, k_scale=None, v_scale=None,
-                                 softmax_scale=None) -> torch.Tensor:
+                                 softmax_scale=None, q0: int = 0,
+                                 nq: Optional[int] = None) -> torch.Tensor:
     """Plain version: the JAX ``_paged_verify_attention`` (``anc``
     None: the linear mask ``s <= pos + j``) or
     ``_paged_tree_verify_attention`` (``anc`` (b, k1, k1) bool) after
     their writes — gather, upcast (dequantize), fp32 scores masked with
     ``finfo.min`` where a query cannot see the row, fp32 softmax and
-    product with V, one cast to q's dtype. q (b, nh, k1, hd)."""
+    product with V, one cast to q's dtype. q (b, nh, k1, hd); returns
+    the ctx of the window's queries ``q0 .. q0 + nq - 1`` (all k1 by
+    default), as one kernel launch of that slice computes them."""
     k1 = _check(q, k_pages, v_pages, block_tables, pos, k_scale, v_scale,
                 anc, queries=True)[2]
+    nq = k1 - q0 if nq is None else nq
     kg = _gather(k_pages, k_scale, block_tables)
     vg = _gather(v_pages, v_scale, block_tables)
-    vis = visible(pos, k1, kg.shape[2], anc)
-    return torch.matmul(_probs(q, kg, vis, softmax_scale), vg).to(q.dtype)
+    vis = visible(pos, k1, kg.shape[2], anc, q0, nq)
+    return torch.matmul(_probs(q[:, :, q0:q0 + nq], kg, vis, softmax_scale),
+                        vg).to(q.dtype)
 
 
 def paged_limit(q, k_pages, v_pages, block_tables, pos, ctx0,
@@ -238,9 +271,10 @@ def paged_limit(q, k_pages, v_pages, block_tables, pos, ctx0,
 
 
 def _launch(kernel, q, k_pages, v_pages, block_tables, pos, anc, k_scale,
-            v_scale, softmax_scale, queries):
+            v_scale, softmax_scale, queries, q0=0, nq=None, out=None):
     b, nh, k1, page, hd, mp = _check(q, k_pages, v_pages, block_tables,
                                      pos, k_scale, v_scale, anc, queries)
+    nq = k1 - q0 if nq is None else nq
     ts = [q, k_pages, v_pages, block_tables, pos] + (
         [k_scale, v_scale] if k_scale is not None else []) + (
         [anc] if anc is not None else [])
@@ -251,13 +285,18 @@ def _launch(kernel, q, k_pages, v_pages, block_tables, pos, anc, k_scale,
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name} kernel needs contiguous q, pools, "
                          "scales, block_tables, pos and anc")
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
+    elif out.shape != q.shape or out.dtype != q.dtype \
+            or out.device != q.device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous tensor like q "
+                         f"{tuple(q.shape)} {_name(q.dtype)}")
     kernel(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
            None if k_scale is None else k_scale.data_ptr(),
            None if v_scale is None else v_scale.data_ptr(),
            block_tables.data_ptr(), pos.data_ptr(),
            None if anc is None else anc.data_ptr(), out.data_ptr(),
-           b, nh, k1, page, hd, mp, _Q_DTYPES[q.dtype],
+           b, nh, k1, q0, nq, page, hd, mp, _Q_DTYPES[q.dtype],
            _KV_DTYPES[k_pages.dtype], float(_scale(hd, softmax_scale)),
            torch.cuda.current_stream(q.device).cuda_stream)
     return out
@@ -275,12 +314,18 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables, pos,
 
 def paged_verify_attention_kernel(q, k_pages, v_pages, block_tables, pos,
                                   anc=None, k_scale=None, v_scale=None,
-                                  softmax_scale=None) -> torch.Tensor:
-    """Launch ``csrc/paged_attention.cu`` at k1 queries a slot (at most
-    :data:`MAX_K1`; the C entry refuses more). Every tensor on one CUDA
-    device and contiguous; returns ctx (b, nh, k1, hd) in q's dtype."""
+                                  softmax_scale=None, q0: int = 0,
+                                  nq: Optional[int] = None,
+                                  out: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """One launch of ``csrc/paged_attention.cu`` over the window's
+    queries ``q0 .. q0 + nq - 1`` of q's k1 (all by default; at most
+    :data:`MAX_K1` and the shared memory :func:`verify_slices` allows,
+    or the C entry refuses). Every tensor on one CUDA device and
+    contiguous; writes those queries' ctx into ``out`` (b, nh, k1, hd)
+    in q's dtype, a new tensor by default, and returns it."""
     return _launch(PAGED_VERIFY, q, k_pages, v_pages, block_tables, pos,
-                   anc, k_scale, v_scale, softmax_scale, True)
+                   anc, k_scale, v_scale, softmax_scale, True, q0, nq, out)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -314,9 +359,16 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     of each slot against one layer's pools, as
     :func:`paged_decode_attention`, query j seeing the rows ``s < pos``
     and the window rows ``anc`` (b, k1, k1) bool admits (``s <= pos +
-    j`` without it). A CUDA q launches the kernel; a CPU q runs the
-    plain version."""
-    fn = paged_verify_attention_kernel if on_card(q, "q") \
-        else paged_verify_attention_plain
-    return fn(q, k_pages, v_pages, block_tables, pos, anc, k_scale,
-              v_scale, softmax_scale)
+    j`` without it). Any k1: a CUDA q launches the kernel once a slice
+    of :func:`verify_slices` (once up to :data:`MAX_K1` queries at hd
+    64); a CPU q runs the plain version."""
+    if not on_card(q, "q"):
+        return paged_verify_attention_plain(
+            q, k_pages, v_pages, block_tables, pos, anc, k_scale, v_scale,
+            softmax_scale)
+    out = torch.empty_like(q)
+    for q0, nq in verify_slices(q.shape[2], q.shape[-1]):
+        paged_verify_attention_kernel(q, k_pages, v_pages, block_tables,
+                                      pos, anc, k_scale, v_scale,
+                                      softmax_scale, q0, nq, out)
+    return out

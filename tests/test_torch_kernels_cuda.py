@@ -65,7 +65,12 @@ held per element to ``paged_attention.paged_limit`` (per query row;
 linear and tree masks, fp32, bf16 and int8 pools, odd pages, hd 48), a
 repeat and two page placements bit for bit, column j of a linear verify
 to the decode kernel at pos + j bit for bit, and k1 past ``MAX_K1``
-refused without a launch counted."""
+refused by the C entry without a launch counted; the wrapper at k1 = 80
+launches once a slice of ``verify_slices`` and gives the bits of
+one-query launches (linear and tree), and a ``PagedDecodeEngine`` at
+``spec_k`` 64 and 80 serves with the CPU's streams. A data-parallel
+BERT step on an NCCL world of one equals the plain step bit for
+bit."""
 
 import importlib
 
@@ -1785,3 +1790,155 @@ def test_paged_verify_kernel_k1_limit(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA error"):
         pa_mod.paged_verify_attention_kernel(*big)
     assert pa_mod.PAGED_VERIFY.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kv", [("bf16", "bf16"), ("f32", "f32")])
+@pytest.mark.parametrize("tree", [False, True], ids=["linear", "tree"])
+def test_paged_verify_wrapper_slices_past_max_k1(cuda_device, qdt, kv,
+                                                 tree):
+    """``paged_verify_attention`` at k1 = 80 (hd 64): one launch a slice
+    of ``verify_slices`` (two), within ``paged_limit`` of the plain
+    version, and bit for bit the launches of one query each: the decode
+    kernel at pos + j (linear) or the slice (j, 1) of the window
+    (tree). At k1 = MAX_K1 it stays one launch."""
+    k1 = 80
+    args = _verify_case(cuda_device, 5, 4, 64, 64, 4, kv, qdt, k1, tree)
+    q, k, v, bt, pos, anc, ks, vs = args
+    n0 = pa_mod.PAGED_VERIFY.launches
+    got = pa_mod.paged_verify_attention(*args)
+    torch.cuda.synchronize()
+    assert pa_mod.verify_slices(k1, 64) == [(0, 64), (64, 16)]
+    assert pa_mod.PAGED_VERIFY.launches == n0 + 2
+    want = pa_mod.paged_verify_attention_plain(*args)
+    lim = pa_mod.paged_limit(q, k, v, bt, pos, want, ks, vs, anc=anc)
+    assert bool(((got.float() - want.float()).abs() <= lim).all())
+    for j in range(k1):
+        if tree:
+            one = pa_mod.paged_verify_attention_kernel(
+                q, k, v, bt, pos, anc, ks, vs, q0=j, nq=1)[:, :, j]
+        else:
+            one = pa_mod.paged_decode_attention_kernel(
+                q[:, :, j].contiguous(), k, v, bt, pos + j, ks, vs)
+        assert torch.equal(got[:, :, j], one), j
+    small = _verify_case(cuda_device, 5, 4, 64, 64, 4, kv, qdt,
+                         pa_mod.MAX_K1, tree)
+    n0 = pa_mod.PAGED_VERIFY.launches
+    pa_mod.paged_verify_attention(*small)
+    assert pa_mod.PAGED_VERIFY.launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_paged_verify_slice_is_the_c_entrys_limit(cuda_device):
+    """At hd 128 shared memory holds 62 queries: ``verify_slices``'s
+    slice launches, one query more is refused by the C entry (its
+    formula agrees with the C file's ``smem_bytes``)."""
+    nq = pa_mod.verify_slices(100, 128)[0][1]
+    assert nq == 62
+    args = _verify_case(cuda_device, 2, 2, 128, 64, 4, "bf16", "bf16", 100,
+                        False)
+    out = pa_mod.paged_verify_attention_kernel(*args, q0=0, nq=nq)
+    torch.cuda.synchronize()
+    want = pa_mod.paged_verify_attention_plain(*args, q0=0, nq=nq)
+    q, k, v, bt, pos, anc, ks, vs = args
+    lim = pa_mod.paged_limit(q, k, v, bt, pos,
+                             pa_mod.paged_verify_attention_plain(*args),
+                             ks, vs, anc=anc)[:, :, :nq]
+    assert bool(((out[:, :, :nq].float() - want.float()).abs()
+                 <= lim).all())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pa_mod.paged_verify_attention_kernel(*args, q0=0, nq=nq + 1)
+
+
+def spec_engine_streams(dev, spec_k, tree):
+    """Greedy streams of a fp32 ``gpt_tiny`` (positions to 256, seed 0)
+    on a ``PagedDecodeEngine`` with ``spec_k``: linear n-gram drafts
+    (a verify window of spec_k + 1 every verify tick), or tree drafts
+    from the target as its own fp32 ``DraftModel`` (its chain plus an
+    alternate root child: a window of spec_k + 1). Three prompts: a
+    random run of 90-110 tokens and its first three again, so the n-gram
+    drafter proposes the run's next tokens. Returns (streams, spec
+    ticks, verify launches, layers)."""
+    import dataclasses
+
+    from apex_tpu_torch.models.gpt import gpt_tiny, init_gpt
+    from apex_tpu_torch.serving import (
+        ContinuousBatchingScheduler, DraftModel, PagedDecodeEngine, Request,
+    )
+    from apex_tpu_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(gpt_tiny(), max_position_embeddings=256)
+    params = tree_map(lambda t: t.to(dev), init_gpt(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    eng = PagedDecodeEngine(params, cfg, num_slots=2, max_len=256,
+                            num_pages=40, page_size=16, buckets=(128, 256),
+                            cache_dtype=torch.float32, spec_k=spec_k,
+                            tree_spec=tree, device=dev,
+                            draft_model=DraftModel(
+                                params, cfg, 2, 240, chunk=16,
+                                cache_dtype=torch.float32, device=dev)
+                            if tree else None)
+    sched = ContinuousBatchingScheduler(eng, eos_id=-1)
+    rng = np.random.RandomState(5)
+    for n in (90, 110, 100):
+        run = [int(t) for t in rng.randint(0, cfg.vocab_size, size=n)]
+        sched.submit(Request(prompt=tuple(run + run[:3]), max_new_tokens=8))
+    n0 = pa_mod.PAGED_VERIFY.launches
+    with torch.inference_mode():
+        streams = sched.run()
+    return (streams, sched.spec_ticks, pa_mod.PAGED_VERIFY.launches - n0,
+            cfg.num_layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_k", [64, 80])
+@pytest.mark.parametrize("tree", [False, True], ids=["linear", "tree"])
+def test_paged_engine_speculates_past_max_k1(cuda_device, spec_k, tree):
+    """A ``PagedDecodeEngine`` at ``spec_k`` 64 and 80 serves to the end
+    on the card, with the CPU's streams; its verify ticks past
+    ``MAX_K1`` queries launch the kernel once a slice (more than one
+    launch a layer a verify tick)."""
+    got, ticks, launches, L = spec_engine_streams(cuda_device, spec_k, tree)
+    want = spec_engine_streams(torch.device("cpu"), spec_k, tree)[0]
+    assert got == want
+    assert ticks > 0 and launches > L * ticks
+
+
+@pytest.mark.cuda
+def test_ddp_bert_step_world_one_nccl_is_the_plain_step(cuda_device):
+    """``BertTrainStep`` with ``DistributedDataParallel`` on an NCCL world
+    of one (``initialize_model_parallel()`` brings it up): two O2 steps of
+    ``bert_tiny`` equal the plain step's master, m, v and loss bit for
+    bit (the all-reduce over one rank and the division by 1 are
+    exact)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.examples.bert.train import make_bert_train_step
+    from apex_tpu_torch.models.bert import bert_tiny
+    from apex_tpu_torch.parallel import DistributedDataParallel
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.utils.tree import tree_leaves
+
+    assert not dist.is_initialized()
+    ps.initialize_model_parallel()
+    try:
+        assert dist.get_backend() == "nccl"
+        runs = []
+        for ddp in (None, DistributedDataParallel()):
+            step, make_state, (ids, mask) = make_bert_train_step(
+                4, 32, bert_tiny(), device=cuda_device, ddp=ddp)
+            state = make_state()
+            losses = []
+            for _ in range(2):
+                *state, loss = step(*state, ids, mask)
+                losses.append(loss)
+            runs.append((state, losses))
+        (plain, lp), (ddp_state, ld) = runs
+        assert all(torch.equal(a, b) for a, b in zip(lp, ld))
+        for a, b in zip(tree_leaves((plain[0], plain[1].m, plain[1].v)),
+                        tree_leaves((ddp_state[0], ddp_state[1].m,
+                                     ddp_state[1].v))):
+            assert torch.equal(a, b)
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()

@@ -375,13 +375,28 @@ def test_example_runs_on_the_cpu(capsys):
     assert "FINAL speed" in out and "step_time" in out
 
 
-def test_unported_options_raise(jax_init):
-    with pytest.raises(NotImplementedError, match="SyncBatchNorm"):
+def test_unported_options_raise(jax_init, monkeypatch):
+    """The example's checkpoint flags are not ported (A7). SyncBatchNorm
+    is, on ``torch.distributed`` (``tests/test_torch_parallel.py``):
+    ``convert_syncbn_model`` resolves the ``data`` axis at the call, and
+    with no process group brings up the card's, so on a host without
+    CUDA it raises naming ``device='cpu'``, and never falls back to gloo
+    by itself. The model zoo takes the resolved ``ProcessGroup`` only:
+    a mesh axis name there raises."""
+    from apex_tpu_torch.parallel import convert_syncbn_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert_syncbn_model(apply_resnet)(
+            _port(jax_init[0]), _port(jax_init[1]),
+            torch.zeros(1, 32, 32, 3), DEPTH)
+    with pytest.raises(ValueError, match="ProcessGroup"):
         apply_resnet(_port(jax_init[0]), _port(jax_init[1]),
                      torch.zeros(1, 32, 32, 3), DEPTH, axis_name="data")
-    with pytest.raises(NotImplementedError, match="SyncBatchNorm"):
+    with pytest.raises(ValueError, match="ProcessGroup"):
         L.batchnorm(None, None, torch.zeros(2, 3), train=True,
                     axis_name="data")
+    assert not torch.distributed.is_initialized()
     with pytest.raises(SystemExit):
         main_amp.parse_args(["--resume", "ck.pt"])
 

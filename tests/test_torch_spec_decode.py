@@ -270,6 +270,91 @@ def test_verify_plain_linear_is_the_tree_form_with_a_chain():
         pa.paged_verify_attention(q, pk, pv, pbt, ppos, chain.int())
 
 
+@pytest.mark.parametrize("tree", [False, True], ids=["linear", "tree"])
+def test_verify_wrapper_slices_past_max_k1(monkeypatch, tree):
+    """k1 = 80 at hd 64: on the card path ``paged_verify_attention``
+    launches once a slice of ``verify_slices`` ((0, 64) and (64, 16)),
+    each slice writing its queries of the window, and the slices'
+    plain versions put together equal one plain call over the window
+    within ``paged_limit`` (the kernel is stood in for by its plain
+    version of the same slice)."""
+    rng = np.random.RandomState(9)
+    b, nh, hd, page, mp, k1 = 3, 2, 64, 8, 24, 80
+    pos = torch.tensor([0, 7, 112], dtype=torch.int32)
+    pk = torch.from_numpy(rng.randn(2 + b * mp, nh, page, hd)
+                          .astype(np.float32))
+    pv = torch.from_numpy(rng.randn(*pk.shape).astype(np.float32))
+    bt = torch.from_numpy(2 + rng.permutation(b * mp).reshape(b, mp)
+                          .astype(np.int32))
+    q = torch.from_numpy(rng.randn(b, nh, k1, hd).astype(np.float32))
+    anc = None
+    if tree:
+        forced, trees = [], []
+        for _ in range(b):
+            f = rng.randint(1, k1 + 1)
+            forced.append([1] * f)
+            n = k1 - f
+            trees.append(([2] * n, [int(rng.randint(-1, i))
+                                    for i in range(n)]) if n else None)
+        anc = torch.from_numpy(port_serving.tree_arrays(forced, trees,
+                                                        k1)[2])
+    calls = []
+
+    def kernel(q, k, v, bt, pos, anc, ks, vs, scale, q0, nq, out):
+        calls.append((q0, nq))
+        out[:, :, q0:q0 + nq] = pa.paged_verify_attention_plain(
+            q, k, v, bt, pos, anc, ks, vs, scale, q0=q0, nq=nq)
+        return out
+
+    monkeypatch.setattr(pa, "on_card", lambda t, what="tensor": True)
+    monkeypatch.setattr(pa, "paged_verify_attention_kernel", kernel)
+    got = pa.paged_verify_attention(q, pk, pv, bt, pos, anc)
+    assert calls == pa.verify_slices(k1, hd) == [(0, 64), (64, 16)]
+    want = pa.paged_verify_attention_plain(q, pk, pv, bt, pos, anc)
+    lim = pa.paged_limit(q, pk, pv, bt, pos, want, anc=anc)
+    assert bool(((got - want).abs() <= lim).all())
+    assert pa.verify_slices(5, hd) == [(0, 5)]
+    assert pa.verify_slices(100, 128) == [(0, 62), (62, 38)]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_wide_verify_past_a_free_slots_position_table(paged):
+    """Learned positions (a 64-row table, max_len 64) at spec_k 24 (k1
+    25): once the 50-token request finishes, its free slot's stale
+    length plus the window passes the table while the other slot
+    speculates. The JAX engine reads those rows as ``jnp.take``'s fill
+    (NaN, in a row nobody commits); the port reads them the same way and
+    serves the JAX scheduler's streams, which equal its spec_k=0
+    streams."""
+    jcfg = dataclasses.replace(jax_gpt.gpt_tiny(), hidden_dropout=0.0)
+    pcfg = dataclasses.replace(port_gpt.gpt_tiny(), hidden_dropout=0.0)
+    jp = jax_gpt.init_gpt(jax.random.PRNGKey(1), jcfg)
+    rng = np.random.RandomState(2)
+    reqs = [dict(prompt=tuple(int(t) for t in rng.randint(1, 512, 50)),
+                 max_new_tokens=4),
+            dict(prompt=(7, 11, 13, 7, 11, 13, 7, 11, 13, 7),
+                 max_new_tokens=24)]
+
+    def run(mod, params, cfg, spec_k, **extra):
+        if paged:
+            extra.update(num_pages=40, page_size=4)
+        eng = (mod.PagedDecodeEngine if paged else mod.DecodeEngine)(
+            params, cfg, num_slots=2, max_len=64, buckets=(32, 64),
+            spec_k=spec_k, **extra)
+        sched = mod.ContinuousBatchingScheduler(eng, eos_id=EOS)
+        for r in reqs:
+            sched.submit(mod.Request(**r))
+        with torch.inference_mode():
+            out = sched.run()
+        return out, sched
+
+    want, jsched = run(jax_serving, jp, jcfg, 24)
+    got, psched = run(port_serving, _port(jp), pcfg, 24, device="cpu")
+    plain, _ = run(port_serving, _port(jp), pcfg, 0, device="cpu")
+    assert got == want == plain
+    assert psched.spec_ticks == jsched.stats.spec_ticks > 0
+
+
 # -- verify steps --------------------------------------------------------------
 
 PROMPTS = ((7, 11, 7, 11, 7), (5, 3, 5, 3, 9, 2))
