@@ -31,17 +31,33 @@ the host n-gram drafter; ``--draft-model self`` the target as its own
 the same engine shape, each after the same 32 prompts were admitted
 (a random 8-32-token motif repeated to each A/B length, capped so every
 slot keeps the rows of four full verify ticks), with the paged attention's share of
-each tick's device time. Runs on the CUDA device::
+each tick's device time.
+
+``--chunked`` profiles whole serving runs instead: 16 prompts of 64-960
+tokens (32 new tokens each, EOS -1, all submitted at once) on
+``PagedDecodeEngine`` (GPT-2 medium with learned positions, 8 slots,
+max_len 1024, 2 + 8 x 16 pages of 64, a bf16 pool), chunked at
+``chunk_tokens`` 256 and monolithic, each after a one-request warm-up.
+For each run it gives the device time of the chunk attention: the
+kernels launched inside ``models.gpt._paged_chunk_prefill_attention``
+(the page-tile write) and the verify kernel's launches over one slot
+(a decode tick launches the paged attention kernel over all 8 slots; the
+profiler links no CPU range to a kernel launched through ``ctypes``, so
+the launches are told apart by their grid in the profiler's Chrome
+trace), and the paged attention kernel's time on the whole run.
+Runs on the CUDA device::
 
     python -m apex_tpu_torch.examples.gpt.profile_serving [--w8] \
         [--use-rope] [--paged [--kv8]] \
-        [--spec-k K [--draft-model self] [--tree]]
+        [--spec-k K [--draft-model self] [--tree]] [--chunked]
 """
 
 import argparse
 import contextlib
 import dataclasses
 import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -58,14 +74,18 @@ from apex_tpu_torch.serving import (
 from apex_tpu_torch.utils.platform import resolve_device
 
 
+# the profiler ranges of :func:`marked`
+RANGES = ("rope", "chunk_attention")
+
+
 def device_ms(prof):
-    """Device ms per profiler key, CUDA entries only (a ``rope`` range of
-    :func:`rope_marked` shows on the device's timeline too, spanning its
+    """Device ms per profiler key, CUDA entries only (a range of
+    :func:`marked` shows on the device's timeline too, spanning its
     kernels and the gaps between them: it is left out)."""
     out = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or e.key == "rope":
+                or e.key in RANGES:
             continue
         t = getattr(e, "self_device_time_total", 0.0) or getattr(
             e, "device_time_total", 0.0)
@@ -74,21 +94,17 @@ def device_ms(prof):
 
 
 @contextlib.contextmanager
-def rope_marked():
-    """Run the models' RoPE (the angle table and the rotation of q and
-    k, ``models.gpt._rope_or_none`` and ``_rotate``) under profiler
-    ranges named ``rope``, patched in for the block only."""
-    import apex_tpu_torch.models.gpt as gpt
-    import apex_tpu_torch.serving.decode as decode
-
+def marked(name, targets):
+    """Run each ``(module, attribute)`` function of ``targets`` under a
+    profiler range ``name`` (one of :data:`RANGES`), patched in for the
+    block only."""
     def mark(fn):
-        def marked(*args, **kw):
-            with record_function("rope"):
+        def marked_fn(*args, **kw):
+            with record_function(name):
                 return fn(*args, **kw)
-        return marked
+        return marked_fn
 
-    saved = [(m, n, getattr(m, n)) for m, n in (
-        (gpt, "_rotate"), (gpt, "_rope_or_none"), (decode, "_rope_or_none"))]
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
     for m, n, fn in saved:
         setattr(m, n, mark(fn))
     try:
@@ -98,13 +114,24 @@ def rope_marked():
             setattr(m, n, fn)
 
 
-def rope_kernels(prof):
-    """(device ms, kernel count) of the kernels launched inside a
-    ``rope`` range (:func:`rope_marked`) or by RoPE's backward
-    (``_RopeCoreBackward``)."""
+def rope_marked():
+    """The models' RoPE (the angle table and the rotation of q and k,
+    ``models.gpt._rope_or_none`` and ``_rotate``) under ``rope``
+    ranges."""
+    import apex_tpu_torch.models.gpt as gpt
+    import apex_tpu_torch.serving.decode as decode
+
+    return marked("rope", ((gpt, "_rotate"), (gpt, "_rope_or_none"),
+                           (decode, "_rope_or_none")))
+
+
+def range_kernels(prof, name, backward=None):
+    """(device ms, kernel count) of the kernels launched inside a range
+    ``name`` of :func:`marked` (or by an autograd node whose name holds
+    ``backward``)."""
     def ours(e):
         while e is not None:
-            if e.name == "rope" or "_RopeCoreBackward" in e.name:
+            if e.name == name or (backward and backward in e.name):
                 return True
             e = e.cpu_parent
         return False
@@ -117,12 +144,27 @@ def rope_kernels(prof):
     return ms, n
 
 
-def window(name, work, groups=None, n_top=8, rope=False):
+def kernel_launches(prof, match):
+    """(grid, device ms) of every kernel launch whose name holds
+    ``match``, read from the profiler's Chrome trace (where each launch
+    keeps its grid)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return [(tuple(e.get("args", {}).get("grid", ())), e["dur"] / 1e3)
+            for e in events
+            if e.get("cat") == "kernel" and match in e.get("name", "")]
+
+
+def window(name, work, groups=None, n_top=8, rope=False, inspect=None):
     """Profile ``work()``: wall ms, summed device ms, busy share and the
     ``n_top`` top device entries; ``groups`` optionally maps the per-key
     device ms to named sums, printed and returned too; ``rope`` adds
-    RoPE's device ms and kernel count (:func:`rope_kernels`; run
-    ``work`` inside :func:`rope_marked`)."""
+    RoPE's device ms and kernel count (:func:`range_kernels`; run
+    ``work`` inside :func:`rope_marked`); ``inspect(prof, out)`` adds
+    its own readings to the returned dict."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -142,10 +184,13 @@ def window(name, work, groups=None, n_top=8, rope=False):
     out = dict(wall_ms=wall, device_ms=busy,
                top=[[k[:90], t] for k, t in top])
     if rope:
-        out["rope_ms"], out["rope_kernels"] = rope_kernels(prof)
+        out["rope_ms"], out["rope_kernels"] = range_kernels(
+            prof, "rope", "_RopeCoreBackward")
         print(f"    rope: {out['rope_ms']:.3f} ms ("
               f"{100 * out['rope_ms'] / busy:.1f}%), "
               f"{out['rope_kernels']} kernels")
+    if inspect is not None:
+        inspect(prof, out)
     if groups is not None:
         out["groups"] = groups(kern)
         print("    by group: " + ", ".join(
@@ -250,14 +295,14 @@ def spec_ab(params, cfg, dev, spec_k, draft, tree, kv8,
             sched.submit(Request(prompt=p, max_new_tokens=3 * (k + 1) + 1))
         sched.step()  # admits all 32 slots, then one tick
         sched.step()  # a second tick, outside the window
-        before = (sched.spec_ticks, sched.tokens_drafted,
-                  sched.tokens_accepted)
+        before = (sched.stats.spec_ticks, sched.stats.tokens_drafted,
+                  sched.stats.tokens_accepted)
         res[f"tick_{name}"] = window(f"tick_{name}", sched.step,
                                      paged_share)
         res[f"tick_{name}"].update(
-            spec_ticks=sched.spec_ticks - before[0],
-            tokens_drafted=sched.tokens_drafted - before[1],
-            tokens_accepted=sched.tokens_accepted - before[2])
+            spec_ticks=sched.stats.spec_ticks - before[0],
+            tokens_drafted=sched.stats.tokens_drafted - before[1],
+            tokens_accepted=sched.stats.tokens_accepted - before[2])
         del eng, sched
         torch.cuda.empty_cache()
     v, p = res["tick_verify"], res["tick_plain"]
@@ -265,6 +310,62 @@ def spec_ab(params, cfg, dev, spec_k, draft, tree, kv8,
         res["verify_over_plain_device"] = v["device_ms"] / p["device_ms"]
         print(f"verify tick / plain tick device time: "
               f"{res['verify_over_plain_device']:.3f}")
+    return res
+
+
+def chunked_runs(params, cfg, dev, chunk=256):
+    """Whole serving runs on the paged engine, chunked at ``chunk`` and
+    monolithic, each profiled after a one-request warm-up, with the chunk
+    attention's device time (:func:`marked` around
+    ``models.gpt._paged_chunk_prefill_attention``)."""
+    import apex_tpu_torch.models.gpt as gpt
+
+    rng = np.random.RandomState(5)
+    prompts = [tuple(int(t) for t in rng.randint(0, cfg.vocab_size, size=n))
+               for n in rng.randint(64, 961, size=16)]
+    res = {"prompt_lengths": [len(p) for p in prompts], "chunk": chunk}
+
+    def inspect(prof, out):
+        out["chunk_write_ms"], out["chunk_write_kernels"] = range_kernels(
+            prof, "chunk_attention")
+        # grid (heads, slots): a chunk's launches cover one slot
+        one_slot = [t for g, t in kernel_launches(prof, "paged_attention")
+                    if len(g) > 1 and g[1] == 1]
+        out["chunk_verify_ms"] = sum(one_slot)
+        out["chunk_verify_launches"] = len(one_slot)
+        out["chunk_attention_ms"] = (out["chunk_write_ms"]
+                                     + out["chunk_verify_ms"])
+        out["chunk_attention_share"] = (out["chunk_attention_ms"]
+                                        / out["device_ms"])
+        print(f"    chunk attention: {out['chunk_attention_ms']:.3f} ms "
+              f"({100 * out['chunk_attention_share']:.1f}% of the device "
+              f"time): the verify kernel {out['chunk_verify_ms']:.3f} ms in "
+              f"{out['chunk_verify_launches']} one-slot launches, the page "
+              f"write {out['chunk_write_ms']:.3f} ms in "
+              f"{out['chunk_write_kernels']} kernels")
+
+    for name, ct in (("chunked", chunk), ("monolithic", None)):
+        eng = PagedDecodeEngine(
+            params, cfg, num_slots=8, max_len=1024, num_pages=2 + 8 * 16,
+            page_size=64, cache_dtype=torch.bfloat16,
+            buckets=(128, 256, 512, 1024), device=dev)
+        warm = ContinuousBatchingScheduler(eng, eos_id=-1, chunk_tokens=ct)
+        warm.submit(Request(prompt=(1, 2, 3), max_new_tokens=2))
+        warm.run()
+        sched = ContinuousBatchingScheduler(eng, eos_id=-1, chunk_tokens=ct)
+        for i, p in enumerate(prompts):
+            sched.submit(Request(prompt=p, max_new_tokens=32, seed=i))
+        chunks0 = eng.stats.prefill_chunks
+        with marked("chunk_attention",
+                    ((gpt, "_paged_chunk_prefill_attention"),)):
+            res[name] = window(f"run_{name}", sched.run, paged_share,
+                               inspect=inspect)
+        res[name].update(prefill_chunks=eng.stats.prefill_chunks - chunks0,
+                         decode_steps=sched.decode_steps,
+                         tokens=sum(len(o.tokens)
+                                    for o in sched.outcomes.values()))
+        del eng, sched, warm
+        torch.cuda.empty_cache()
     return res
 
 
@@ -287,6 +388,10 @@ def main(argv=None):
                     help="with --spec-k: the target as its own draft model")
     ap.add_argument("--tree", action="store_true",
                     help="with --spec-k: tree speculation")
+    ap.add_argument("--chunked", action="store_true",
+                    help="whole serving runs on the paged engine, chunked "
+                    "at 256 and monolithic, with the chunk attention's "
+                    "device time")
     args = ap.parse_args(argv)
     if args.kv8 and not args.paged:
         ap.error("--kv8 needs --paged")
@@ -294,6 +399,8 @@ def main(argv=None):
         ap.error("--spec-k needs --paged")
     if (args.draft_model or args.tree) and not args.spec_k:
         ap.error("--draft-model and --tree need --spec-k")
+    if args.chunked and (args.paged or args.w8 or args.use_rope):
+        ap.error("--chunked runs alone")
     dev = resolve_device(None)
     cfg = dataclasses.replace(gpt_medium(),
                               use_rope=args.use_rope or args.paged)
@@ -305,6 +412,11 @@ def main(argv=None):
                                          torch.bfloat16, w8_share)
     res = {"w8": args.w8, "use_rope": cfg.use_rope, "paged": args.paged,
            "kv8": args.kv8}
+    if args.chunked:
+        with torch.inference_mode():
+            res.update(chunked_runs(params, cfg, dev))
+        print(json.dumps(res))
+        return
     if args.paged:
         with torch.inference_mode():
             if args.spec_k:

@@ -12,11 +12,11 @@ selective-checkpoint policy). Attention goes through the port's
 entropy, the hidden dropout through ``utils.prng.dropout``; the dense
 products, RoPE, decode attention and embeddings are plain PyTorch, as
 they are plain ``jnp`` in the JAX package. Positions are learned or
-rotary (``use_rope``). The paged decode and verify blocks (bf16/fp32
-and int8 pools, linear and tree masks) attend through
+rotary (``use_rope``). The paged decode, verify and prompt-chunk blocks
+(bf16/fp32 and int8 pools, linear and tree masks) attend through
 ``paged_decode_attention`` and ``paged_verify_attention`` (one kernel on
-the card; XLA in the JAX package); the dense verify and tree blocks and
-the paged prompt-chunk block are plain PyTorch, as they are XLA there.
+the card; XLA in the JAX package); the dense verify, tree and
+prompt-chunk blocks are plain PyTorch, as they are XLA there.
 The tensor-, sequence- and context-parallel paths (``GPTModel`` and its
 fields) are a later slice. Weight-only int8 trees run the serving blocks
 with ``serving/decode.py``'s w8 linears.
@@ -615,18 +615,61 @@ def _block_tree_verify_paged(lp, x, k_pages, v_pages, block_tables, pos,
     return x + _mlp(lp, x, cfg, dense)
 
 
+def _chunk_prefill_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, slot: int,
+                             pos: torch.Tensor, cfg: GPTConfig,
+                             rope_freqs: Optional[torch.Tensor],
+                             key_mask: torch.Tensor):
+    """One slot's prompt chunk against one layer's per-slot cache (the
+    JAX ``_chunk_prefill_attention``, the prompt-sized
+    :func:`_verify_attention`): ``q_k_v`` (1, sc, 3*h), token j at ``pos
+    + j`` (``pos`` a 0-d int32); the chunk's k/v rows, pad rows zeroed by
+    ``key_mask`` (1, sc), are written (in place) at ``pos`` BEFORE
+    attending, so the mask ``s <= pos + j`` admits the earlier chunks and
+    the token's own prefix, and row j is a teacher-forced forward at
+    ``pos + j``. Plain PyTorch, as XLA computes it in the JAX package.
+    Returns ctx (1, sc, h)."""
+    sc = q_k_v.shape[1]
+    p1 = pos.reshape(1)
+    q, k, v = _split_qkv(q_k_v, cfg.head_dim)        # (1, nh, sc, hd)
+    q, k = _rotate(q, k, rope_freqs, positions=p1)
+    mz = key_mask.to(k.dtype)[:, None, :, None]
+    kc, vc = k_cache[slot:slot + 1], v_cache[slot:slot + 1]
+    _write_rows(kc, k * mz, p1)
+    _write_rows(vc, v * mz, p1)
+    s_idx = torch.arange(kc.shape[2], device=pos.device)
+    qpos = p1.long()[:, None] + torch.arange(sc, device=pos.device)
+    vis = s_idx[None, None, :] <= qpos[:, :, None]
+    return _cache_attention(q, kc, vc, vis, q_k_v.dtype)
+
+
+def _block_chunk_prefill(lp, x, k_cache, v_cache, slot, pos, cfg,
+                         rope_freqs, key_mask, dense):
+    """:func:`_block_verify` for one slot's prompt chunk."""
+    att = _chunk_prefill_attention(
+        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
+        v_cache, slot, pos, cfg, rope_freqs, key_mask)
+    x = x + dense(lp["out"], att)
+    return x + _mlp(lp, x, cfg, dense)
+
+
 def _paged_chunk_prefill_attention(q_k_v, k_pages, v_pages, write_pages,
                                    gather_row, pos, cfg: GPTConfig,
                                    rope_freqs: Optional[torch.Tensor],
                                    key_mask: torch.Tensor):
     """One slot's prompt chunk against one layer's paged pool (the JAX
     ``_paged_chunk_prefill_attention``): ``q_k_v`` (1, sc, 3*h), sc a
-    multiple of the page size, token j at ``pos + j``; the chunk's rows
-    (pad rows zeroed by ``key_mask`` (1, sc)) are cut into page tiles
-    and written to ``write_pages`` (shared pages redirected to scratch
-    by the host), then every query attends the slot's ``gather_row``
-    with the mask ``s <= pos + j``. Plain PyTorch, as XLA computes it in
-    the JAX package. Returns ctx (1, sc, h)."""
+    multiple of the page size, token j at ``pos + j`` (``pos`` a 0-d
+    int32); the chunk's rows (pad rows zeroed by ``key_mask`` (1, sc))
+    are cut into page tiles and written to ``write_pages`` (shared pages
+    redirected to scratch by the host), then every query attends the
+    slot's ``gather_row`` ((max_pages,) int32) with the mask ``s <= pos
+    + j``. A chunk of sc queries at ``pos`` is a linear verify window of
+    k1 = sc, so it attends through ``paged_verify_attention`` (the
+    kernel on the card, one launch a slice of ``verify_slices``). The
+    row is passed apart from the slot's stored block-table row, which
+    the scheduler parks on scratch until the final chunk. Returns ctx
+    (1, sc, h)."""
     sc = q_k_v.shape[1]
     hd = cfg.head_dim
     page_size = k_pages.shape[2]
@@ -644,13 +687,8 @@ def _paged_chunk_prefill_attention(q_k_v, k_pages, v_pages, write_pages,
     write = write_pages.long()
     k_pages[write] = tiles(k)
     v_pages[write] = tiles(v)
-    row = gather_row.long()
-    kg = k_pages[row].transpose(0, 1).reshape(1, k.shape[1], -1, hd)
-    vg = v_pages[row].transpose(0, 1).reshape(1, k.shape[1], -1, hd)
-    s_idx = torch.arange(kg.shape[2], device=pos.device)
-    qpos = p1.long()[:, None] + torch.arange(sc, device=pos.device)
-    vis = s_idx[None, None, :] <= qpos[:, :, None]
-    return _cache_attention(q, kg, vg, vis, q_k_v.dtype)
+    return _merge_heads(paged_verify_attention(
+        q.contiguous(), k_pages, v_pages, gather_row[None], p1, None))
 
 
 def _block_chunk_prefill_paged(lp, x, k_pages, v_pages, write_pages,

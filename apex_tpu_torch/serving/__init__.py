@@ -2,25 +2,29 @@
 per-slot cache and the paged cache (a page pool with per-slot block
 tables, prefix sharing, copy-on-write, preemption and a host spill tier,
 bf16/fp32 or int8 pages), greedy and sampled continuous batching,
-speculative decoding (n-gram, model and tree drafts), bf16/fp32 or
-weight-only int8 params (detected by the engines). See
-``scheduler.py``."""
+speculative decoding (n-gram, model and tree drafts), chunked prefill,
+bf16/fp32 or weight-only int8 params (detected by the engines), and the
+tracer and metrics registry with tick-clock latency (``observe.py``).
+See ``scheduler.py``."""
 
 from apex_tpu_torch.serving.cache import (  # noqa: F401
     KVCache, PagedKVCache, audit_block_tables, init_cache,
     init_paged_cache,
 )
 from apex_tpu_torch.serving.decode import (  # noqa: F401
-    make_copy_page_fn, make_decode_fn, make_paged_chunk_prefill_fn,
-    make_paged_decode_fn, make_paged_prefill_fn, make_paged_tree_verify_fn,
-    make_paged_verify_fn, make_prefill_fn, make_tree_verify_fn,
-    make_verify_fn,
+    make_chunk_prefill_fn, make_copy_page_fn, make_decode_fn,
+    make_paged_chunk_prefill_fn, make_paged_decode_fn, make_paged_prefill_fn,
+    make_paged_tree_verify_fn, make_paged_verify_fn, make_prefill_fn,
+    make_tree_verify_fn, make_verify_fn,
 )
 from apex_tpu_torch.serving.draft import ngram_draft, tree_arrays  # noqa: F401
 from apex_tpu_torch.serving.draft_model import DraftModel  # noqa: F401
 from apex_tpu_torch.serving.health import (  # noqa: F401
     NonFiniteLogits, PoolExhausted, PoolInvariantError, PromoteFailed,
-    QuotaExhausted, RequestOutcome, ServingError, SpillFailed,
+    QuotaExhausted, RequestOutcome, ServingError, ServingStats, SpillFailed,
+)
+from apex_tpu_torch.serving.observe import (  # noqa: F401
+    FlightRecorder, MetricsRegistry, TraceEvent, Tracer,
 )
 from apex_tpu_torch.serving.paging import (  # noqa: F401
     PAGE_KEY_VERSION, SPILL_DTYPE_TAGS, PagePool, PrefixRegistry,

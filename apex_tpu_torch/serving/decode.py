@@ -35,18 +35,28 @@ all layers (copy-on-write), with its int8 scales.
   ``pos + j``, attends (and takes its position) at ``pos + depth[j]``
   under an ancestor matrix ``anc``.
 
-The dense verify steps attend in plain PyTorch (XLA in the JAX package);
-the paged ones through ``paged_verify_attention``, one kernel launch a
-layer on the card. The paged prompt-chunk step
-(``make_paged_chunk_prefill_fn``) runs the verify mechanics over one
-slot's page-aligned prompt chunk; the host spill tier prefills the
-suffix past its promoted pages with it.
+- **chunk prefill** runs the prompt forward INCREMENTALLY, one chunk
+  of ``chunk_tokens`` positions a call, write-then-attend against the
+  rows earlier chunks wrote (the verify mechanics at prompt width);
+  each call sets the slot's length to the chunk's end, and the final
+  chunk's logits row (at the last REAL token) is the first-token
+  sampling input. On the paged cache chunks are whole pages, written to
+  the host's ``write_pages`` while attention gathers through the slot's
+  real row (``gather_row``); the stored row stays parked on scratch
+  until the final chunk. The host spill tier prefills the suffix past
+  its promoted pages with the same step.
+
+The dense verify and chunk steps attend in plain PyTorch (XLA in the JAX
+package); the paged ones through ``paged_verify_attention``, one kernel
+launch a layer a slice of ``verify_slices`` on the card (a chunk of sc
+queries is a linear verify window of k1 = sc).
 """
 
 import torch
 
 from apex_tpu_torch.models.gpt import (
-    GPTConfig, _block_chunk_prefill_paged, _block_decode, _block_decode_paged,
+    GPTConfig, _block_chunk_prefill, _block_chunk_prefill_paged,
+    _block_decode, _block_decode_paged,
     _block_prefill, _block_tree_verify, _block_tree_verify_paged,
     _block_verify, _block_verify_paged, _ln, _rope_or_none, _unstack,
     check_config,
@@ -262,6 +272,38 @@ def _paged_tree_verify_core(params, cfg: GPTConfig, cache: PagedKVCache,
                                      depth, anc, cfg, freqs, dense_fn)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
     return cache, logits_fn(params, hidden)
+
+
+def _chunk_prefill_core(params, cfg: GPTConfig, cache: KVCache, ids, mask,
+                        slot, pos, *, embed_fn, dense_fn, logits_fn):
+    """One prompt chunk of one slot into the dense cache: ids (1, sc)
+    bucket-padded, mask (sc,) 1 = real token (all ones but on the final
+    chunk), ``slot`` the cache row and ``pos`` the chunk's first
+    position. Runs the verify-style write-then-attend forward over the
+    chunk, sets the slot's length to ``pos + sum(mask)`` (the prompt's
+    length after the final chunk) and returns (cache, logits (1, V)) at
+    the chunk's last REAL token — only the final chunk's row feeds a
+    sample."""
+    if ids.dim() != 2 or ids.shape[0] != 1:
+        raise ValueError(f"chunk prefill takes one slot's (1, sc) ids, "
+                         f"got {tuple(ids.shape)}")
+    sc = ids.shape[1]
+    if sc > cache.k.shape[3]:
+        raise ValueError(f"chunk bucket {sc} exceeds cache max_len "
+                         f"{cache.k.shape[3]}")
+    slot = int(slot)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=ids.device)
+    x = embed_fn(params, ids, pos=pos.reshape(1))
+    freqs = _rope_or_none(cfg, cache.k.shape[3], ids.device)
+    key_mask = mask[None, :]
+    for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
+        x = _block_chunk_prefill(lp, x, cache.k[i], cache.v[i], slot, pos,
+                                 cfg, freqs, key_mask, dense_fn)
+    hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
+    n_real = mask.sum().to(torch.int32)
+    h_last = hidden.index_select(1, (n_real - 1).reshape(1).long())[:, 0]
+    cache.lengths[slot] = pos + n_real
+    return cache, logits_fn(params, h_last)
 
 
 def _paged_chunk_prefill_core(params, cfg: GPTConfig,
@@ -514,6 +556,24 @@ def make_paged_tree_verify_fn(cfg: GPTConfig, compute_dtype=None,
                                        logits_fn=logits_fn)
 
     return verify
+
+
+def make_chunk_prefill_fn(cfg: GPTConfig, compute_dtype=None,
+                          quantized=False):
+    """``chunk_prefill(params, cache, ids, mask, slot, pos) -> (cache,
+    logits)`` over the dense cache, updated in place (see
+    :func:`_chunk_prefill_core`); the scheduler pads every chunk to one
+    ``chunk_tokens`` bucket."""
+    check_config(cfg)
+    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
+                                                quantized)
+
+    def chunk_prefill(params, cache, ids, mask, slot, pos):
+        return _chunk_prefill_core(params, cfg, cache, ids, mask, slot, pos,
+                                   embed_fn=embed, dense_fn=dense_fn,
+                                   logits_fn=logits_fn)
+
+    return chunk_prefill
 
 
 def make_paged_chunk_prefill_fn(cfg: GPTConfig, compute_dtype=None,

@@ -1,5 +1,8 @@
-"""Request outcomes and the serving errors (counterpart of the part of
-``apex_tpu/serving/health.py`` the ported slices need).
+"""Request outcomes, the serving counters and the serving errors
+(counterpart of the part of ``apex_tpu/serving/health.py`` the ported
+slices need). :class:`ServingStats` is the counter block an engine and
+its scheduler share, a view over the tracer's
+:class:`~apex_tpu_torch.serving.observe.MetricsRegistry`.
 
 This port has no quarantine or retry path: a non-finite logits row (or
 an out-of-vocabulary sample) raises :class:`NonFiniteLogits` and is
@@ -15,6 +18,8 @@ a later slice.
 
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
+
+from apex_tpu_torch.serving.observe import MetricsRegistry
 
 
 class ServingError(RuntimeError):
@@ -91,6 +96,127 @@ class PromoteFailed(ServingError):
         self.payload.update(key=key, pages=pages)
 
 
+#: ``ServingStats`` counter fields -> help text. Order defines the
+#: ``as_dict`` / Prometheus export order; each field is backed by a
+#: ``serving_<field>_total`` counter in the stats' MetricsRegistry.
+STAT_FIELDS = {
+    "admission_rejections": "submit() refused: queue full",
+    "pool_exhausted": "admissions parked waiting for pages",
+    "preemptions": "slots requeued on page pressure",
+    "cow_copies": "shared pages cloned before append",
+    "retries": "fault-path requeues (budgeted)",
+    "nan_events": "non-finite logits quarantines",
+    "bad_samples": "out-of-vocab sampled tokens",
+    "deadline_expired": "requests cut at deadline_ticks",
+    "evictions": "healthy completions freeing a slot",
+    "tokens_drafted": "speculative candidates proposed",
+    "tokens_accepted": "drafted candidates that committed",
+    "draft_faults": "draft_exec faults (degraded ticks)",
+    "spec_ticks": "verify-step ticks (linear or tree)",
+    "plain_ticks": "single-token decode ticks",
+    "prefill_chunks": "chunked-prefill chunk forwards run",
+    "remote_prefills": "admissions prefilled on the remote replica",
+    "colocated_prefills": "admissions served colocated (fallback)",
+    "transfers": "page handoffs delivered and verified",
+    "transfer_pages_deduped": "handoff pages skipped: receiver held them",
+    "transfer_retries": "page-handoff attempts retried",
+    "transfer_corrupt": "handoff payloads quarantined on checksum",
+    "transfer_failures": "handoffs abandoned (budget exhausted)",
+    "reshards": "device-to-device page reshards delivered and verified",
+    "reshard_retries": "reshard attempts retried over the ICI/DCN link",
+    "reshard_corrupt": "reshard payloads quarantined on checksum",
+    "reshard_failures": "reshards abandoned (degraded to host staging)",
+    "route_fallbacks": "pool_route faults: fixed-order routing used",
+    "rebalances": "decode placement moved to a sibling replica",
+    "failovers": "active-replica switches (slots drained + requeued)",
+    "host_spills": "pages spilled HBM->host on LRU eviction",
+    "host_spill_failures": "spills dropped (fault or tier rejection)",
+    "host_spill_bytes": "payload bytes spilled to the host tier",
+    "host_promotes": "pages promoted host->HBM on a prefix hit",
+    "host_promote_failures": "promotions abandoned (fault/verification)",
+    "host_promote_bytes": "payload bytes promoted from the host tier",
+    "host_promote_ticks": "tick-clock cost charged for promotions",
+    "stream_batches": "per-token stream batches delivered",
+    "stream_tokens": "tokens delivered through token streams",
+    "stream_failures": "stream_emit faults: streams closed early",
+    "quota_exhausted": "submits refused on tenant page quota",
+    "quota_deferrals": "admissions deferred on tenant quota pressure",
+    "chunk_deferrals": "prefill chunks deferred on fair-share overrun",
+    "tenant_preemptions": "slots requeued for a higher-priority tenant",
+    "slo_violations": "finished requests that broke their tenant SLO",
+}
+
+
+class ServingStats:
+    """Degradation counters, shared by an engine and its scheduler:
+    plain host-side ints.
+
+    A *view* over a
+    :class:`~apex_tpu_torch.serving.observe.MetricsRegistry`: every
+    field in :data:`STAT_FIELDS` is backed by the
+    ``serving_<field>_total`` counter in ``registry`` (attribute reads
+    and ``+=`` writes go straight to the counter object), so the
+    counter block and the Prometheus/JSON exports share storage and
+    cannot drift. The engine passes its tracer's registry; a bare
+    ``ServingStats()`` owns a private registry. The fields of the
+    slices not ported yet (faults, transfers, tenancy, streams) stay
+    0.
+    """
+
+    FIELDS = tuple(STAT_FIELDS)
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 **counts: int):
+        unknown = set(counts) - set(STAT_FIELDS)
+        if unknown:
+            raise TypeError(f"unknown ServingStats fields: {sorted(unknown)}")
+        d = self.__dict__
+        d["registry"] = registry if registry is not None else MetricsRegistry()
+        d["_counters"] = {
+            f: d["registry"].counter(f"serving_{f}_total", help=doc)
+            for f, doc in STAT_FIELDS.items()}
+        for f, v in counts.items():
+            d["_counters"][f].value = int(v)
+
+    def __getattr__(self, name):
+        c = self.__dict__.get("_counters", {}).get(name)
+        if c is None:
+            raise AttributeError(name)
+        return c.value
+
+    def __setattr__(self, name, value):
+        c = self.__dict__.get("_counters", {}).get(name)
+        if c is None:
+            raise AttributeError(f"ServingStats has no counter {name!r}")
+        c.value = int(value)
+
+    def __eq__(self, other):
+        if not isinstance(other, ServingStats):
+            return NotImplemented
+        return ({f: c.value for f, c in self._counters.items()} ==
+                {f: c.value for f, c in other._counters.items()})
+
+    def __repr__(self):
+        inner = ", ".join(f"{f}={c.value}"
+                          for f, c in self._counters.items())
+        return f"ServingStats({inner})"
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Accepted / drafted speculative candidates (0.0 before any
+        draft). The number that prices the verify step: at depth k and
+        acceptance rate a, the expected tokens per parameter read is
+        the expected accepted-prefix length + 1."""
+        if not self.tokens_drafted:
+            return 0.0
+        return self.tokens_accepted / self.tokens_drafted
+
+    def as_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {f: c.value for f, c in self._counters.items()}
+        d["acceptance_rate"] = round(self.acceptance_rate, 6)
+        return d
+
+
 @dataclasses.dataclass(frozen=True)
 class RequestOutcome:
     """How one request ended: its committed tokens and a reason
@@ -104,3 +230,13 @@ class RequestOutcome:
     ttft_ticks: Optional[int] = None
     total_ticks: Optional[int] = None
     prefill_ticks: Optional[int] = None
+
+
+def snapshot(obj: Any) -> Dict:
+    """Best-effort plain-dict view of a stats/outcome object for error
+    payloads and bench ``extra`` blocks."""
+    if hasattr(obj, "as_dict"):
+        return obj.as_dict()
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.asdict(obj)
+    return dict(obj)

@@ -56,7 +56,36 @@ hits the tier promotes the records back (checksum and header verified)
 and prefills only the suffix, its admission charged the suffix's depth
 plus ``promote_ticks_per_page`` a promoted page.
 
-Faults, tracing, tenancy, streams and chunked prefill are later slices.
+Chunked prefill (``chunk_tokens=``, the Sarathi-Serve move): a
+monolithic prompt forward stalls every co-tenant decode for the whole
+prompt, which is what blows up the tail of inter-token latency under
+mixed prompt/decode load. With chunking on, admission only STAGES a
+prefill (on the paged engine its pages are allocated up front, all or
+nothing); each tick then runs the decode step first and spends what
+remains of ``tick_token_budget`` on prompt chunks of ``chunk_tokens``
+(at least one chunk a tick, the concurrent prefills round-robined one
+chunk at a time in request order). A mid-prefill slot is invisible to
+the decode path, and on the paged cache its block-table row stays parked
+on scratch until the final chunk installs it. The final chunk's logits
+are the monolithic prefill's first-token logits, sampled with the same
+key, so the committed streams are the monolithic scheduler's: chunking
+only moves when prompt work runs.
+
+The tick clock (``clock``): every forward advances it by the sequential
+depth it covers (a decode tick 1, a verify tick that commits m tokens m,
+a prefill of S tokens S, a chunk its length), so a monolithic S-token
+prefill opens an S-tick gap in co-tenant streams and a chunked one at
+most about the tick token budget. ``submit(..., at_tick=)`` backdates an
+open-loop arrival and ``advance_clock`` jumps an idle scheduler to the
+next one. Outcomes carry TTFT, total and prefill ticks; with an enabled
+:class:`~apex_tpu_torch.serving.observe.Tracer` on the engine
+(``tracer=``) every phase is a span and every lifecycle step an instant,
+and the TTFT and inter-token gaps land in the tracer's histograms
+(``latency_summary``). The engine's counters are one
+:class:`~apex_tpu_torch.serving.health.ServingStats` (``engine.stats``,
+shared as ``scheduler.stats``), a view over the tracer's registry.
+
+Faults, tenancy and streams are later slices.
 
 The engine's cache is updated in place by each step.
 """
@@ -75,15 +104,17 @@ from apex_tpu_torch.serving.cache import (
     init_paged_cache, max_pages_per_slot,
 )
 from apex_tpu_torch.serving.decode import (
-    make_copy_page_fn, make_decode_fn, make_paged_chunk_prefill_fn,
-    make_paged_decode_fn, make_paged_prefill_fn, make_paged_tree_verify_fn,
-    make_paged_verify_fn, make_prefill_fn, make_tree_verify_fn,
-    make_verify_fn,
+    make_chunk_prefill_fn, make_copy_page_fn, make_decode_fn,
+    make_paged_chunk_prefill_fn, make_paged_decode_fn, make_paged_prefill_fn,
+    make_paged_tree_verify_fn, make_paged_verify_fn, make_prefill_fn,
+    make_tree_verify_fn, make_verify_fn,
 )
 from apex_tpu_torch.serving.draft import ngram_draft, tree_arrays
 from apex_tpu_torch.serving.health import (
     NonFiniteLogits, PoolExhausted, PromoteFailed, RequestOutcome,
+    ServingStats,
 )
+from apex_tpu_torch.serving.observe import Tracer
 from apex_tpu_torch.serving.paging import (
     PAGE_KEY_VERSION, SPILL_DTYPE_TAGS, PagePool, PrefixRegistry,
     SpillRecord, decode_spill_header, encode_spill_header, prefix_page_keys,
@@ -114,12 +145,25 @@ class Request:
 
 
 @dataclasses.dataclass
+class _PrefillProgress:
+    """A slot's chunked prefill in flight: the whole teacher-forcing
+    sequence, the next chunk's start, and the engine's opaque staging
+    state from ``begin_chunk_prefill`` (page plan, prefix keys). While
+    ``_Slot.prefill`` holds one the slot owns cache capacity but the
+    decode path does not see it."""
+    tokens: Tuple[int, ...]
+    next: int
+    state: Dict
+
+
+@dataclasses.dataclass
 class _Slot:
     request_id: int
     request: Request
     prompt_len: int
     generated: List[int]
     pos: int            # cache rows written (prompt + decode steps)
+    prefill: Optional[_PrefillProgress] = None
 
 
 class DecodeEngine:
@@ -131,7 +175,11 @@ class DecodeEngine:
     ``top_k`` / ``top_p`` restrict every sampled row (0 = off).
     ``spec_k`` is the draft depth (0: no speculation); ``draft_model``
     (a :class:`~apex_tpu_torch.serving.draft_model.DraftModel`),
-    ``tree_spec`` and ``adaptive_spec`` need ``spec_k >= 1``."""
+    ``tree_spec`` and ``adaptive_spec`` need ``spec_k >= 1``.
+    ``tracer`` hooks the observability sites (``serving.observe``;
+    disabled by default, one attribute check a site); ``stats`` is the
+    :class:`~apex_tpu_torch.serving.health.ServingStats` counter block
+    the scheduler shares, a view over the tracer's registry."""
 
     paged = False
 
@@ -141,7 +189,9 @@ class DecodeEngine:
                  buckets: Optional[Sequence[int]] = None,
                  compute_dtype: Optional[torch.dtype] = None,
                  draft_model=None, tree_spec: bool = False,
-                 adaptive_spec: bool = False, device: DeviceLike = None):
+                 adaptive_spec: bool = False,
+                 tracer: Optional[Tracer] = None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -154,6 +204,8 @@ class DecodeEngine:
         self.draft_model = draft_model
         self.tree_spec = tree_spec
         self.adaptive_spec = adaptive_spec
+        self.tracer = tracer if tracer is not None else Tracer(enabled=False)
+        self.stats = ServingStats(registry=self.tracer.registry)
         if buckets is None:
             buckets = default_buckets(max_len, min(128, max_len))
         # clamp the ladder to the cache: prefill rejects buckets beyond
@@ -168,6 +220,8 @@ class DecodeEngine:
         self.cache = init_cache(cfg, num_slots, max_len, cache_dtype,
                                 self.device)
         self._prefill = make_prefill_fn(cfg, compute_dtype, quantized)
+        self._chunk_prefill = make_chunk_prefill_fn(cfg, compute_dtype,
+                                                    quantized)
         self._decode = make_decode_fn(cfg, compute_dtype, quantized)
         self._verify = make_verify_fn(cfg, compute_dtype, quantized)
         self._tree_verify = make_tree_verify_fn(
@@ -201,9 +255,51 @@ class DecodeEngine:
         ids = torch.tensor([list(prompt)], dtype=torch.int64,
                            device=self.device)
         ids, mask = pad_to_bucket(ids, ids.shape[1], buckets=self.buckets)
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("prefill")
         self.cache, logits = self._prefill(self.params, self.cache, ids,
                                            mask, slot)
+        if trc.enabled:
+            trc.end("prefill", slot=slot, bucket=int(ids.shape[1]))
         return logits
+
+    # -- chunked prefill ------------------------------------------------
+
+    def begin_chunk_prefill(self, slot: int, prompt: Sequence[int]) -> Dict:
+        """Stage a chunked prefill of ``prompt`` into ``slot``; returns
+        the opaque state :meth:`chunk_prefill` takes. The dense cache's
+        rows belong to their slot, so it only carries the first chunk's
+        start."""
+        if len(prompt) > self.max_len:
+            raise ValueError(
+                f"prompt length {len(prompt)} exceeds cache max_len "
+                f"{self.max_len}")
+        return {"start": 0}
+
+    def chunk_prefill(self, slot: int, chunk: Sequence[int], pos: int,
+                      state: Dict, bucket: int,
+                      final: bool) -> torch.Tensor:
+        """Run ONE prompt chunk (rows ``pos .. pos + len(chunk) - 1``) of
+        ``slot``, padded to ``bucket`` tokens. Returns the chunk's
+        last-real-token logits (1, V); only the final chunk's feed the
+        first sampled token."""
+        ids = torch.tensor([list(chunk)], dtype=torch.int64,
+                           device=self.device)
+        ids, mask = pad_to_bucket(ids, ids.shape[1], buckets=(bucket,))
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("chunk_prefill")
+        self.cache, logits = self._chunk_prefill(
+            self.params, self.cache, ids, mask, slot, pos)
+        if trc.enabled:
+            trc.end("chunk_prefill", slot=slot, pos=pos, bucket=bucket,
+                    final=final)
+        return logits
+
+    def finish_chunk_prefill(self, slot: int, state: Dict) -> None:
+        """Bookkeeping after the final chunk (the paged engine registers
+        the prompt's prefix); nothing for the dense cache."""
 
     def decode(self, tokens: Sequence[int],
                active: Sequence[bool]) -> torch.Tensor:
@@ -213,7 +309,12 @@ class DecodeEngine:
                            device=self.device)
         act = torch.tensor(list(active), dtype=torch.bool,
                            device=self.device)
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("exec")
         self.cache, logits = self._decode(self.params, self.cache, tok, act)
+        if trc.enabled:
+            trc.end("exec", kind="decode")
         return logits
 
     def sample(self, logits: torch.Tensor, keys,
@@ -259,8 +360,13 @@ class DecodeEngine:
         Returns (num_slots, k1, V) fp32 logits; the lengths advance
         separately (:meth:`commit`) once the accept walk knows each
         slot's count."""
-        self.cache, logits = self._verify(self.params, self.cache,
-                                          self._ids(tokens))
+        tok = self._ids(tokens)
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("exec")
+        self.cache, logits = self._verify(self.params, self.cache, tok)
+        if trc.enabled:
+            trc.end("exec", kind="verify", k1=int(tok.shape[1]))
         return logits
 
     def tree_verify(self, tokens, depth, anc) -> torch.Tensor:
@@ -269,9 +375,15 @@ class DecodeEngine:
         writes its row at ``lengths + j``, takes position ``lengths +
         depth[:, j]`` and sees the committed rows and its ancestors
         under ``anc``. Returns (num_slots, k1, V) fp32 logits."""
+        tok = self._ids(tokens)
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("exec")
         self.cache, logits = self._tree_verify(
-            self.params, self.cache, self._ids(tokens), self._ids(depth),
+            self.params, self.cache, tok, self._ids(depth),
             self._ids(anc, torch.bool))
+        if trc.enabled:
+            trc.end("exec", kind="tree_verify", k1=int(tok.shape[1]))
         return logits
 
     def commit(self, counts: Sequence[int]) -> None:
@@ -279,7 +391,12 @@ class DecodeEngine:
         host half of the verify step's rollback: rows past ``lengths +
         count`` were written but no mask admits them before a later
         step rewrites them."""
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("commit")
         self.cache.lengths.add_(self._ids(counts, torch.int32))
+        if trc.enabled:
+            trc.end("commit", rows=int(sum(int(c) for c in counts)))
 
     def sample_grid(self, logits: torch.Tensor, keys,
                     temperature: Sequence[float]) -> torch.Tensor:
@@ -351,20 +468,20 @@ class PagedDecodeEngine(DecodeEngine):
     page a slot is about to append into, so a step only writes pages
     the slot owns alone (or scratch). ``free_order`` permutes the
     initial free list: the logits do not depend on physical placement.
-    ``cow_copies``, ``preemptions`` and ``pool_exhausted`` count the
-    copy-on-write clones, the preemptions and the admissions the pool
-    refused (the JAX engine's ``ServingStats`` names).
+    ``stats.cow_copies``, ``stats.preemptions`` and
+    ``stats.pool_exhausted`` count the copy-on-write clones, the
+    preemptions and the admissions the pool refused.
 
     ``host_tier`` (a :class:`~apex_tpu_torch.serving.paging.
     PrefixRegistry`) catches the prefix pages the pool evicts and
     promotes them back at admission, each promotion charged
-    ``promote_ticks_per_page`` on the admission clock; ``host_spills``,
-    ``host_spill_bytes``, ``host_promotes``, ``host_promote_bytes``,
-    ``host_promote_ticks``, ``host_spill_failures`` and
-    ``host_promote_failures`` count its traffic (the JAX names).
-    Tree speculation is refused over the int8 pool, as in the JAX
-    engine. ``injector`` and ``tracer`` (ROADMAP A4.4, faults and
-    tracer) raise on a value other than their default."""
+    ``promote_ticks_per_page`` on the admission clock; the ``stats``
+    fields ``host_spills``, ``host_spill_bytes``, ``host_promotes``,
+    ``host_promote_bytes``, ``host_promote_ticks``,
+    ``host_spill_failures`` and ``host_promote_failures`` count its
+    traffic. Tree speculation is refused over the int8 pool, as in the
+    JAX engine. ``injector`` (ROADMAP A4.4, the fault tier) raises on a
+    value other than its default."""
 
     paged = True
 
@@ -381,8 +498,7 @@ class PagedDecodeEngine(DecodeEngine):
                  host_tier: Optional[PrefixRegistry] = None,
                  promote_ticks_per_page: float = 0.125,
                  device: DeviceLike = None):
-        _owed("A4.4 (faults, tracer and tenancy)",
-              injector=injector is not None, tracer=tracer is not None)
+        _owed("A4.4 (faults and tenancy)", injector=injector is not None)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -412,11 +528,8 @@ class PagedDecodeEngine(DecodeEngine):
         self.draft_model = draft_model
         self.tree_spec = tree_spec
         self.adaptive_spec = adaptive_spec
-        self.cow_copies = self.preemptions = self.pool_exhausted = 0
-        self.host_spills = self.host_spill_bytes = 0
-        self.host_promotes = self.host_promote_bytes = 0
-        self.host_promote_ticks = 0
-        self.host_spill_failures = self.host_promote_failures = 0
+        self.tracer = tracer if tracer is not None else Tracer(enabled=False)
+        self.stats = ServingStats(registry=self.tracer.registry)
         quantized = is_quantized_tree(params)
         self.cache = init_paged_cache(cfg, num_slots, max_len, num_pages,
                                       page_size, cache_dtype, self.device)
@@ -429,7 +542,7 @@ class PagedDecodeEngine(DecodeEngine):
         # suffix's depth plus the promote ticks (pop_admit_charge)
         self.host_tier = host_tier
         self.promote_ticks_per_page = float(promote_ticks_per_page)
-        self._admit_charge: Optional[int] = None
+        self._admit_extra = 0
         if host_tier is not None:
             name = str(cache_dtype).replace("torch.", "")
             if name not in SPILL_DTYPE_TAGS:
@@ -446,6 +559,10 @@ class PagedDecodeEngine(DecodeEngine):
                                  if quant else make_insert_pages_fn())
             self.pool.spill_hook = self._spill_page
         self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
+        # slots mid chunked prefill: their device block-table row is
+        # parked on scratch (begin_chunk_prefill), so the audit expects
+        # it empty rather than mirroring _slot_pages
+        self._prefill_parked: set = set()
         self._prefill = make_paged_prefill_fn(cfg, compute_dtype,
                                               quantized)
         self._chunk_prefill = make_paged_chunk_prefill_fn(
@@ -472,12 +589,55 @@ class PagedDecodeEngine(DecodeEngine):
         ONLY the private pages (shared and promoted ones are redirected
         to scratch; their rows are reused as they are) — and register
         the chain for later requests. With a host tier, fully covered
-        leading pages are skipped: the suffix runs as one prompt chunk
-        attending the covered pages through the real row (an int8 pool
-        keeps the whole forward). Raises :class:`PoolExhausted` when the
-        pool cannot cover the prompt even after LRU eviction, having
-        released every page reference it took; ``ValueError`` for a
-        prompt beyond ``max_len`` before touching the pool."""
+        leading pages are skipped: the suffix runs as the one final
+        chunk of a chunked prefill, attending the covered pages through
+        the real row (an int8 pool keeps the whole forward). Raises
+        :class:`PoolExhausted` when the pool cannot cover the prompt
+        even after LRU eviction, having released every page reference
+        it took; ``ValueError`` for a prompt beyond ``max_len`` before
+        touching the pool."""
+        state = self.begin_chunk_prefill(slot, prompt)
+        toks, start = state["tokens"], state["start"]
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("prefill")
+        if self.host_tier is not None and start \
+                and self.cache.k_scale is None:
+            bucket = bucket_for(len(toks) - start, self.buckets)
+            logits = self._run_chunk(slot, toks[start:], start, state,
+                                     bucket, final=True)
+            # the forward ran the suffix's depth only
+            self._admit_extra -= start
+        else:
+            self._prefill_parked.discard(slot)
+            ids = torch.tensor([toks], dtype=torch.int64,
+                               device=self.device)
+            ids, mask = pad_to_bucket(ids, ids.shape[1],
+                                      buckets=self.buckets)
+            bucket = int(ids.shape[1])
+            write = np.full((bucket // self.page_size,), SCRATCH_PAGE,
+                            np.int32)
+            write[state["shared"]:state["n_pages"]] = \
+                state["pages"][state["shared"]:]
+            self.cache, logits = self._prefill(
+                self.params, self.cache, ids, mask, slot,
+                self._ids(write, torch.int32),
+                self._ids(state["row"], torch.int32))
+        if trc.enabled:
+            trc.end("prefill", slot=slot, bucket=bucket,
+                    shared_pages=state["shared"])
+        self.finish_chunk_prefill(slot, state)
+        return logits
+
+    def _claim_pages(self, slot: int, prompt: Sequence[int]):
+        """An admission's pages: the longest cached prefix run, the next
+        links of the chain promoted from the host tier, private pages for
+        the rest — all or nothing: :class:`PoolExhausted` when the pool
+        cannot cover the prompt after LRU eviction, every reference taken
+        released first; ``ValueError`` for a prompt beyond ``max_len``
+        before touching the pool. The pages become the slot's. Returns
+        ``(tokens, prefix keys, pages, covered, promote ticks)``: the
+        first ``covered`` pages are shared or promoted."""
         toks = [int(t) for t in prompt]
         if len(toks) > self.max_len:
             raise ValueError(
@@ -508,45 +668,88 @@ class PagedDecodeEngine(DecodeEngine):
             private.append(p)
         pages = shared + promoted + private
         self._slot_pages[slot] = list(pages)
+        return toks, keys, pages, covered, promote_ticks
+
+    # -- chunked prefill ------------------------------------------------
+
+    def begin_chunk_prefill(self, slot: int, prompt: Sequence[int]) -> Dict:
+        """Stage a chunked prefill: share the longest cached prefix run,
+        promote host-tier links, and allocate the private pages UP FRONT
+        (all or nothing, rolled back as :meth:`prefill` rolls back), but
+        run no forward yet. While chunks are in flight the slot's device
+        block-table row stays parked on scratch: co-tenant decode and
+        verify steps write a garbage row for EVERY slot, and a
+        mid-prefill slot's write target could be a shared page. Fully
+        covered leading pages are skipped (their rows are reused as they
+        are); the last page always runs, so the final chunk yields the
+        first-token logits."""
+        toks, keys, pages, covered, promote_ticks = self._claim_pages(
+            slot, prompt)
+        n_pages = len(pages)
+        self._prefill_parked.add(slot)
+        # promotions cost transfer ticks, added to the admission's next
+        # charge (several staged prefills may promote before one)
+        self._admit_extra += promote_ticks
         row = np.full((self.max_pages,), NULL_PAGE, np.int32)
         row[:n_pages] = pages
-        skip = 0
-        if self.host_tier is not None and covered \
-                and self.cache.k_scale is None:
-            skip = min(covered, max(n_pages - 1, 0))
-        start = skip * self.page_size
-        ids = torch.tensor([toks[start:]], dtype=torch.int64,
-                           device=self.device)
-        ids, mask = pad_to_bucket(ids, ids.shape[1], buckets=self.buckets)
-        write = np.full((ids.shape[1] // self.page_size,), SCRATCH_PAGE,
-                        np.int32)
-        if skip:
-            for j in range(write.shape[0]):
-                if covered <= skip + j < n_pages:
-                    write[j] = pages[skip + j]
-            self.cache, logits = self._chunk_prefill(
-                self.params, self.cache, ids, mask, slot, start,
-                self._ids(write, torch.int32), self._ids(row, torch.int32),
-                self._ids(row, torch.int32))
-        else:
-            write[covered:n_pages] = private
-            self.cache, logits = self._prefill(
-                self.params, self.cache, ids, mask, slot,
-                self._ids(write, torch.int32), self._ids(row, torch.int32))
-        if self.prefix_sharing:
-            self.pool.register_prefix(keys, pages)
-        if self.host_tier is not None:
-            # the forward ran the suffix's depth only, and each
-            # promotion costs transfer ticks
-            self._admit_charge = (len(toks) - start) + promote_ticks
+        skip = min(covered, max(n_pages - 1, 0))
+        return {"tokens": toks, "keys": keys, "pages": pages,
+                "shared": covered, "n_pages": n_pages, "row": row,
+                "start": skip * self.page_size}
+
+    def chunk_prefill(self, slot: int, chunk: Sequence[int], pos: int,
+                      state: Dict, bucket: int,
+                      final: bool) -> torch.Tensor:
+        """Run one page-aligned prompt chunk of ``slot``: its rows write
+        whole private pages (shared and past-the-prompt pages go to
+        scratch) while attention gathers through the real NULL-padded
+        row, so earlier chunks' pages and the shared prefix are visible.
+        The final chunk also installs the real block-table row, ending
+        the parking."""
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("chunk_prefill")
+        logits = self._run_chunk(slot, chunk, pos, state, bucket, final)
+        if trc.enabled:
+            trc.end("chunk_prefill", slot=slot, pos=pos, bucket=bucket,
+                    final=final, shared_pages=state["shared"])
         return logits
 
+    def _run_chunk(self, slot: int, chunk: Sequence[int], pos: int,
+                   state: Dict, bucket: int, final: bool) -> torch.Tensor:
+        """The chunk forward of :meth:`chunk_prefill`, untraced."""
+        ids = torch.tensor([list(chunk)], dtype=torch.int64,
+                           device=self.device)
+        ids, mask = pad_to_bucket(ids, ids.shape[1], buckets=(bucket,))
+        first_page = pos // self.page_size
+        write = np.full((bucket // self.page_size,), SCRATCH_PAGE, np.int32)
+        for j in range(write.shape[0]):
+            if state["shared"] <= first_page + j < state["n_pages"]:
+                write[j] = state["pages"][first_page + j]
+        if final:
+            store = state["row"]
+            self._prefill_parked.discard(slot)
+        else:
+            store = np.full((self.max_pages,), SCRATCH_PAGE, np.int32)
+        self.cache, logits = self._chunk_prefill(
+            self.params, self.cache, ids, mask, slot, pos,
+            self._ids(write, torch.int32), self._ids(state["row"],
+                                                     torch.int32),
+            self._ids(store, torch.int32))
+        return logits
+
+    def finish_chunk_prefill(self, slot: int, state: Dict) -> None:
+        """Register the prompt's prefix chain for later admissions, as
+        the monolithic prefill does."""
+        if self.prefix_sharing:
+            self.pool.register_prefix(state["keys"], state["pages"])
+
     def pop_admit_charge(self, default: int) -> int:
-        """Pop the staged admission charge: a host-tier prefill stages
-        the suffix's depth plus its promote ticks; otherwise
-        ``default``."""
-        charge, self._admit_charge = self._admit_charge, None
-        return default if charge is None else charge
+        """Pop the staged admission charge: the forward's depth
+        ``default`` plus the promote ticks staged since the last charge,
+        less the covered rows a host-tier prefill skipped."""
+        extra, self._admit_extra = self._admit_extra, 0
+        return default + extra
 
     @staticmethod
     def _host(t: torch.Tensor) -> np.ndarray:
@@ -570,8 +773,11 @@ class PagedDecodeEngine(DecodeEngine):
         rec = SpillRecord(header, k, v, ks, vs,
                           spill_checksum(header, k, v, ks, vs))
         if self.host_tier.put(key, rec):
-            self.host_spills += 1
-            self.host_spill_bytes += rec.nbytes
+            self.stats.host_spills += 1
+            self.stats.host_spill_bytes += rec.nbytes
+            if self.tracer.enabled:
+                self.tracer.instant("host_spill", page=page,
+                                    bytes=rec.nbytes)
 
     def _verify_spill(self, key: bytes, rec: SpillRecord) -> None:
         """Checksum and header verification of a record about to be
@@ -624,7 +830,10 @@ class PagedDecodeEngine(DecodeEngine):
             pages.append(p)
             records.append(rec)
         if failed:
-            self.host_promote_failures += 1
+            self.stats.host_promote_failures += 1
+            if self.tracer.enabled:
+                self.tracer.instant("host_promote", ok=False,
+                                    pages=len(pages))
         if not pages:
             return [], 0
         k = np.concatenate([r.k for r in records], axis=1)
@@ -637,9 +846,13 @@ class PagedDecodeEngine(DecodeEngine):
             self.cache = self._tier_insert(self.cache, pages, k, v)
         ticks = max(1, int(np.ceil(
             len(pages) * self.promote_ticks_per_page)))
-        self.host_promotes += len(pages)
-        self.host_promote_bytes += sum(r.nbytes for r in records)
-        self.host_promote_ticks += ticks
+        nbytes = sum(r.nbytes for r in records)
+        self.stats.host_promotes += len(pages)
+        self.stats.host_promote_bytes += nbytes
+        self.stats.host_promote_ticks += ticks
+        if self.tracer.enabled:
+            self.tracer.instant("host_promote", pages=len(pages),
+                                bytes=nbytes, ticks=ticks)
         return pages, ticks
 
     def prepare_decode(self, positions: Dict[int, int],
@@ -680,7 +893,7 @@ class PagedDecodeEngine(DecodeEngine):
                             continue
                         self._preempt(i, preempted)
                         break
-                    self.cow_copies += 1
+                    self.stats.cow_copies += 1
                     self.cache = self._copy(self.cache, pages[idx], dst)
                     self.cache.block_tables[i, idx] = dst
                     self.pool.release(pages[idx])
@@ -689,7 +902,7 @@ class PagedDecodeEngine(DecodeEngine):
 
     def _preempt(self, slot: int, preempted: List[int]) -> None:
         self.free_slot(slot)
-        self.preemptions += 1
+        self.stats.preemptions += 1
         preempted.append(slot)
 
     def free_slot(self, slot: int) -> None:
@@ -699,6 +912,7 @@ class PagedDecodeEngine(DecodeEngine):
         for p in self._slot_pages[slot]:
             self.pool.release(p)
         self._slot_pages[slot] = []
+        self._prefill_parked.discard(slot)
         self.cache.block_tables[slot] = SCRATCH_PAGE
         if self.draft_model is not None:
             self.draft_model.free_slot(slot)
@@ -709,9 +923,14 @@ class PagedDecodeEngine(DecodeEngine):
         (:meth:`~apex_tpu_torch.serving.paging.PagePool.check_invariants`),
         then the device block tables against the same lists
         (:func:`~apex_tpu_torch.serving.cache.audit_block_tables`).
-        Raises :class:`~apex_tpu_torch.serving.health.PoolInvariantError`."""
+        A slot mid chunked prefill holds its pages but parks its device
+        row on scratch until the final chunk, so its row is audited as
+        empty. Raises
+        :class:`~apex_tpu_torch.serving.health.PoolInvariantError`."""
         self.pool.check_invariants(self._slot_pages)
-        audit_block_tables(self.cache.block_tables, self._slot_pages)
+        expect = [[] if i in self._prefill_parked else p
+                  for i, p in enumerate(self._slot_pages)]
+        audit_block_tables(self.cache.block_tables, expect)
         return True
 
     def pool_snapshot(self) -> Dict:
@@ -740,26 +959,67 @@ def _slot_key(slot: _Slot) -> torch.Tensor:
 
 class ContinuousBatchingScheduler:
     """FIFO -> fixed slots -> batched decode (or verify) ticks, with
-    typed outcomes in ``self.outcomes``. Counters (the JAX
-    ``ServingStats`` names): ``decode_steps`` the batched decode and
-    verify steps run, ``plain_ticks`` and ``spec_ticks`` the ticks of
-    each kind, ``tokens_drafted`` and ``tokens_accepted`` the draft
-    candidates proposed and accepted (:attr:`acceptance_rate`)."""
+    typed outcomes in ``self.outcomes`` and the engine's counter block
+    shared as ``self.stats`` (``plain_ticks``, ``spec_ticks``,
+    ``tokens_drafted``, ``tokens_accepted``, ``prefill_chunks``,
+    ``evictions``, ...; ``stats.acceptance_rate``); ``decode_steps``
+    counts the batched decode and verify steps run. ``chunk_tokens``
+    turns on chunked prefill under ``tick_token_budget`` tokens a tick
+    (default: every slot's decode token plus one chunk), see the module
+    doc."""
 
-    def __init__(self, engine: DecodeEngine, eos_id: int):
+    def __init__(self, engine: DecodeEngine, eos_id: int, *,
+                 chunk_tokens: Optional[int] = None,
+                 tick_token_budget: Optional[int] = None):
         self.engine = engine
         self.eos_id = eos_id
+        if chunk_tokens is not None:
+            chunk_tokens = int(chunk_tokens)
+            if chunk_tokens < 1:
+                raise ValueError(f"chunk_tokens must be >= 1, got "
+                                 f"{chunk_tokens}")
+            if engine.max_len % chunk_tokens:
+                raise ValueError(
+                    f"chunk_tokens {chunk_tokens} must divide the "
+                    f"cache max_len {engine.max_len} (chunk starts "
+                    "must never overrun the cache row)")
+            if engine.paged and chunk_tokens % engine.page_size:
+                raise ValueError(
+                    f"paged chunks write whole pages: chunk_tokens "
+                    f"{chunk_tokens} is not a multiple of page_size "
+                    f"{engine.page_size}")
+            if getattr(engine.cache, "k_scale", None) is not None:
+                raise ValueError(
+                    "chunked prefill is not offered over the int8 "
+                    "page pool: incremental chunk writes would "
+                    "re-round committed history at chunk-dependent "
+                    "scales; kv8 keeps monolithic prefill")
+        self.chunk_tokens = chunk_tokens
+        if tick_token_budget is not None:
+            tick_token_budget = int(tick_token_budget)
+            if tick_token_budget < 1:
+                raise ValueError(f"tick_token_budget must be >= 1, "
+                                 f"got {tick_token_budget}")
+        elif chunk_tokens is not None:
+            # every decode slot's token plus one prefill chunk
+            tick_token_budget = engine.num_slots + chunk_tokens
+        self.tick_token_budget = tick_token_budget
+        self.stats = engine.stats      # one counter block an engine
+        self.tracer = engine.tracer    # and one tracer
         self.outcomes: Dict[int, RequestOutcome] = {}
         self._queue: deque = deque()
         self._slots: List[Optional[_Slot]] = [None] * engine.num_slots
         self._next_id = 0
         self._submit_tick: Dict[int, int] = {}
+        # tick-clock latency bookkeeping (RequestOutcome's ticks and,
+        # when tracing, the TTFT and inter-token histograms)
         self._first_token_tick: Dict[int, int] = {}
+        self._last_token_tick: Dict[int, int] = {}
+        # the ticks that ran prefill work for a request
         self._prefill_ticks: Dict[int, int] = {}
         self._tick_no = 0
+        self._tokens_emitted = 0
         self.decode_steps = 0
-        self.plain_ticks = self.spec_ticks = 0
-        self.tokens_drafted = self.tokens_accepted = 0
         # adaptive controller: a slot's EWMA of its measured acceptance
         # (reset to 1.0 at admission); a slot converged to depth 0 gets
         # a probe draft every _probe_every ticks
@@ -767,13 +1027,21 @@ class ContinuousBatchingScheduler:
         self._probe_every = 16
 
     @property
-    def acceptance_rate(self) -> float:
-        """Accepted / drafted candidates (0.0 before any draft)."""
-        if not self.tokens_drafted:
-            return 0.0
-        return self.tokens_accepted / self.tokens_drafted
+    def clock(self) -> int:
+        """The work-charged tick clock (decode-step equivalents): every
+        forward advances it by the sequential depth it covers, so an
+        open-loop load generator can pace arrivals against it."""
+        return self._tick_no
 
-    def submit(self, request: Request) -> int:
+    def advance_clock(self, tick: int) -> None:
+        """Fast-forward an idle scheduler's clock to ``tick`` (a no-op
+        when already past it): a load generator jumps the quiet gaps
+        between arrivals instead of spinning empty ticks."""
+        self._tick_no = max(self._tick_no, int(tick))
+        if self.tracer.enabled:
+            self.tracer.set_tick(self._tick_no)
+
+    def submit(self, request: Request, at_tick: Optional[int] = None) -> int:
         if not len(request.prompt):
             raise ValueError("empty prompt")
         if len(request.prompt) > self.engine.max_len:
@@ -790,7 +1058,16 @@ class ContinuousBatchingScheduler:
             + self.engine.spec_k)
         rid = self._next_id
         self._next_id += 1
-        self._submit_tick[rid] = self._tick_no
+        # ``at_tick`` backdates an open-loop arrival: a charged forward
+        # can move the clock PAST a request's arrival before the load
+        # generator submits it, and the wait behind that forward must
+        # still count in its TTFT (or monolithic prefill would hide the
+        # head-of-line blocking chunked prefill is measured against)
+        self._submit_tick[rid] = self._tick_no if at_tick is None \
+            else min(int(at_tick), self._tick_no)
+        if self.tracer.enabled:
+            self.tracer.instant("submitted", request_id=rid,
+                                prompt_len=len(request.prompt))
         # (id, request, tokens committed before a preemption)
         self._queue.append((rid, request, []))
         return rid
@@ -799,23 +1076,49 @@ class ContinuousBatchingScheduler:
         ttft = None
         if rid in self._first_token_tick:
             ttft = self._first_token_tick[rid] - self._submit_tick[rid]
+        if self.tracer.enabled:
+            self.tracer.instant("finished", request_id=rid, reason=reason,
+                                ok=True)
         self.outcomes[rid] = RequestOutcome(
             tuple(int(t) for t in tokens), reason, ttft_ticks=ttft,
             total_ticks=self._tick_no - self._submit_tick[rid],
             prefill_ticks=self._prefill_ticks.get(rid))
 
     def _charge_work(self, tokens: int) -> None:
-        """Tick clock: a forward that advances one stream by ``tokens``
-        positions costs that many ticks (a decode step is one); the
-        engine may reprice it (``pop_admit_charge``)."""
+        """Advance the clock by a prefill forward's sequential depth: a
+        forward that advances one stream by ``tokens`` positions costs
+        that many ticks (a decode step one, so the tick itself pays the
+        first). A monolithic S-token prefill opens an S-tick gap in
+        co-tenant streams, a chunked one a gap bounded by the tick token
+        budget. Accounting only: sampling keys fold in token counts,
+        never ticks. The engine may reprice the charge
+        (``pop_admit_charge``)."""
         tokens = self.engine.pop_admit_charge(tokens)
         if tokens > 1:
             self._tick_no += tokens - 1
+            if self.tracer.enabled:
+                self.tracer.set_tick(self._tick_no)
+
+    def _note_token(self, rid: int, slot: int) -> None:
+        """A committed token's tick-clock bookkeeping: the first stamps
+        TTFT, a later one the inter-token gap (tokens of one multi-token
+        speculative commit share a tick, so their gap is 0)."""
+        tick = self._tick_no
+        trc = self.tracer
+        if rid not in self._first_token_tick:
+            self._first_token_tick[rid] = tick
+            if trc.enabled:
+                trc.instant("first_token", request_id=rid, slot=slot)
+                trc.observe_ttft(tick - self._submit_tick[rid])
+        elif trc.enabled:
+            trc.observe_itl(tick - self._last_token_tick[rid])
+        self._last_token_tick[rid] = tick
 
     def _append(self, i: int, tok: int) -> None:
         slot = self._slots[i]
         slot.generated.append(tok)
-        self._first_token_tick.setdefault(slot.request_id, self._tick_no)
+        self._tokens_emitted += 1
+        self._note_token(slot.request_id, i)
 
     def _commit(self, i: int, tok: int) -> None:
         self._append(i, tok)
@@ -829,7 +1132,38 @@ class ContinuousBatchingScheduler:
             raise NonFiniteLogits(
                 f"{what}: sampled token {tok} outside [0, {vocab})")
 
+    def _first_token(self, logits: torch.Tensor, req: Request,
+                     rid: int) -> int:
+        """The first generated token, from the prefill's (or the final
+        chunk's) logits with the key ``fold_in(PRNGKey(seed), 0)``,
+        through both gates."""
+        finite = bool(self.engine.finite(logits).all())
+        key = prng.fold_in(prng.PRNGKey(req.seed), 0)
+        tok = int(self.engine.sample(logits, key[None],
+                                     [req.temperature])[0])
+        self._check(finite, tok, f"request {rid}: prefill")
+        return tok
+
+    def _pool_exhausted(self, rid: int, e: PoolExhausted) -> None:
+        """Count a refused admission (the queue then waits in FIFO order
+        for evictions), unless the pool cannot serve the head even with
+        every slot free: submit-time validation should have refused it,
+        and that raises."""
+        self.stats.pool_exhausted += 1
+        if all(s is None for s in self._slots):
+            err = PoolExhausted(
+                "page pool cannot admit the queue head even with every "
+                f"slot free (request {rid}) — submit-time validation "
+                "should have rejected it", need=e.need, free=e.free,
+                cached=e.cached)
+            if self.tracer.enabled:
+                self.tracer.attach(err)
+            raise err from e
+
     def _admit(self) -> None:
+        if self.chunk_tokens is not None:
+            self._admit_chunked()
+            return
         eng = self.engine
         for i in range(eng.num_slots):
             if self._slots[i] is not None or not self._queue:
@@ -842,30 +1176,18 @@ class ContinuousBatchingScheduler:
             try:
                 logits = eng.prefill(i, tokens)
             except PoolExhausted as e:
-                # out of pages: keep FIFO order and wait for evictions,
-                # unless the pool cannot serve the head even with every
-                # slot free (submit-time validation should have refused
-                # it)
-                eng.pool_exhausted += 1
-                if all(s is None for s in self._slots):
-                    raise PoolExhausted(
-                        "page pool cannot admit the queue head even with "
-                        f"every slot free (request {rid}) — submit-time "
-                        "validation should have rejected it", need=e.need,
-                        free=e.free, cached=e.cached) from e
+                self._pool_exhausted(rid, e)
                 break
             self._prefill_ticks[rid] = self._prefill_ticks.get(rid, 0) + 1
             self._charge_work(len(tokens))
-            first_tok = None
-            if not resume:
-                # the first generated token comes from the prefill
-                # logits; a resumed request has it already
-                finite = bool(eng.finite(logits).all())
-                key = prng.fold_in(prng.PRNGKey(req.seed), 0)
-                first_tok = int(eng.sample(logits, key[None],
-                                           [req.temperature])[0])
-                self._check(finite, first_tok, f"request {rid}: prefill")
+            # the first generated token comes from the prefill logits; a
+            # resumed request has it already
+            first_tok = None if resume else self._first_token(logits, req,
+                                                               rid)
             self._queue.popleft()
+            if self.tracer.enabled:
+                self.tracer.instant("admitted", request_id=rid, slot=i,
+                                    resumed=bool(resume))
             self._slots[i] = _Slot(rid, req, len(req.prompt), list(resume),
                                    len(tokens))
             self._accept_ewma[i] = 1.0
@@ -873,6 +1195,90 @@ class ContinuousBatchingScheduler:
                 self._maybe_evict(i)
             else:
                 self._commit(i, first_tok)
+
+    def _admit_chunked(self) -> None:
+        """Chunked admission: claim a free slot and STAGE the prefill
+        (pages allocated, no forward run); the chunks run in
+        :meth:`_prefill_phase` under the tick token budget."""
+        eng = self.engine
+        for i in range(eng.num_slots):
+            if self._slots[i] is not None or not self._queue:
+                continue
+            rid, req, resume = self._queue[0]
+            tokens = tuple(req.prompt) + tuple(resume[:-1])
+            try:
+                state = eng.begin_chunk_prefill(i, tokens)
+            except PoolExhausted as e:
+                self._pool_exhausted(rid, e)
+                break
+            self._queue.popleft()
+            slot = _Slot(rid, req, len(req.prompt), list(resume),
+                         len(tokens))
+            slot.prefill = _PrefillProgress(
+                tokens=tokens, next=int(state.get("start", 0)), state=state)
+            if self.tracer.enabled:
+                self.tracer.instant("admitted", request_id=rid, slot=i,
+                                    resumed=bool(resume), chunked=True)
+            self._slots[i] = slot
+            self._accept_ewma[i] = 1.0
+
+    @staticmethod
+    def _decoding(s: Optional[_Slot]) -> bool:
+        """A slot the decode path may touch: occupied AND past its
+        (possibly in-flight chunked) prefill."""
+        return s is not None and s.prefill is None
+
+    def _finish_prefill(self, i: int, logits: torch.Tensor) -> None:
+        """The final chunk just ran: register the prefix, then sample the
+        first token from the chunk's logits with the monolithic path's
+        gates and key, and the slot joins the decode set."""
+        s = self._slots[i]
+        self.engine.finish_chunk_prefill(i, s.prefill.state)
+        s.prefill = None
+        if s.generated:         # resumed: its first token exists
+            self._maybe_evict(i)
+        else:
+            self._commit(i, self._first_token(logits, s.request,
+                                              s.request_id))
+
+    def _prefill_phase(self, spent: int) -> None:
+        """Run prompt chunks with the token budget the decode phase left
+        (at least one chunk a tick, so a full decode batch cannot starve
+        admission). The prefilling slots are taken in the reference's
+        order, earliest deadline first with the request id as the
+        tiebreak; with no deadlines or tenancy in this port that is the
+        request id. They are round-robined one chunk at a time; each
+        chunk counts ``prefill_chunks`` and charges the clock its
+        length."""
+        if not any(s is not None and s.prefill is not None
+                   for s in self._slots):
+            return
+        budget = max(self.tick_token_budget - spent, 0)
+        n_chunks = max(budget // self.chunk_tokens, 1)
+        order = deque(sorted(
+            (i for i, s in enumerate(self._slots)
+             if s is not None and s.prefill is not None),
+            key=lambda i: self._slots[i].request_id))
+        progressed = set()
+        while n_chunks > 0 and order:
+            i = order.popleft()
+            s = self._slots[i]
+            p = s.prefill
+            n_chunks -= 1
+            chunk = p.tokens[p.next:p.next + self.chunk_tokens]
+            final = p.next + self.chunk_tokens >= len(p.tokens)
+            logits = self.engine.chunk_prefill(i, chunk, p.next, p.state,
+                                               self.chunk_tokens, final)
+            self.stats.prefill_chunks += 1
+            progressed.add(s.request_id)
+            self._charge_work(len(chunk))
+            if final:
+                self._finish_prefill(i, logits)
+            else:
+                p.next += self.chunk_tokens
+                order.append(i)
+        for rid in sorted(progressed):
+            self._prefill_ticks[rid] = self._prefill_ticks.get(rid, 0) + 1
 
     def _maybe_evict(self, i: int) -> None:
         slot = self._slots[i]
@@ -886,6 +1292,7 @@ class ContinuousBatchingScheduler:
             reason = "cache_full"
         else:
             return
+        self.stats.evictions += 1
         self._finish(slot.request_id, slot.generated, reason)
         self._slots[i] = None
         self.engine.free_slot(i)
@@ -944,32 +1351,51 @@ class ContinuousBatchingScheduler:
         ``PRNGKey(0)``'s fold otherwise."""
         rows = []
         for i, s in enumerate(self._slots):
-            base = prng.PRNGKey(s.request.seed if s is not None else 0)
+            base = prng.PRNGKey(s.request.seed if self._decoding(s) else 0)
             rows.append(torch.stack([prng.fold_in(base, int(o))
                                      for o in offs[i]]))
         return torch.stack(rows)
 
     def _temps(self) -> List[float]:
-        return [s.request.temperature if s is not None else 0.0
+        return [s.request.temperature if self._decoding(s) else 0.0
                 for s in self._slots]
 
-    def _requeue(self, preempted: List[int]) -> None:
-        """Requeue preempted slots at the queue front in submission
-        order: appendleft of the newest first leaves the oldest at the
-        front."""
+    def _prepare(self, positions: Dict[int, int], n_new: int) -> List[int]:
+        """Give every decoding slot an exclusive write target for this
+        tick (``prepare_decode``), and requeue the slots the pool cannot
+        serve at the queue front in submission order (appendleft of the
+        newest first leaves the oldest at the front). Returns those
+        slots."""
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("prepare_decode")
+        preempted = self.engine.prepare_decode(positions, n_new=n_new)
+        if trc.enabled:
+            trc.end("prepare_decode", preempted=len(preempted))
         for i in sorted(preempted, key=lambda j: self._slots[j].request_id,
                         reverse=True):
             s = self._slots[i]
+            if trc.enabled:
+                trc.instant("preempted", request_id=s.request_id, slot=i)
             self._queue.appendleft((s.request_id, s.request,
                                     list(s.generated)))
             self._slots[i] = None
+        return preempted
+
+    def _tick(self) -> None:
+        spent = self._decode_phase()
+        if self.chunk_tokens is not None:
+            self._prefill_phase(spent)
 
     def _decode_phase(self) -> int:
-        """One decode or verify step over every occupied slot (the JAX
-        scheduler's decode phase); returns the positions computed."""
+        """One decode or verify step over every DECODING slot (slots mid
+        chunked prefill are invisible here); returns the positions
+        computed, which the prefill phase takes from the tick token
+        budget."""
         eng = self.engine
+        trc = self.tracer
         positions = {i: s.pos for i, s in enumerate(self._slots)
-                     if s is not None}
+                     if self._decoding(s)}
         if eng.tree_spec and eng.spec_k > 0 and positions:
             spent = self._tree_tick(positions)
             if spent is not None:
@@ -980,8 +1406,13 @@ class ContinuousBatchingScheduler:
             # speculate only when EVERY active slot has k1 rows of
             # headroom and some draft is non-empty; an adaptive engine
             # narrows the grid to 1 + the widest draft proposed
-            drafts = self._draft_all(self._spec_ks(positions)) \
-                if eng.spec_k > 0 and positions else None
+            drafts = None
+            if eng.spec_k > 0 and positions:
+                if trc.enabled:
+                    trc.begin("draft")
+                drafts = self._draft_all(self._spec_ks(positions))
+                if trc.enabled:
+                    trc.end("draft", proposed=sum(len(d) for d in drafts))
             k1 = eng.spec_k + 1
             if drafts is not None and eng.adaptive_spec:
                 k1 = 1 + max((len(drafts[i]) for i in positions),
@@ -990,24 +1421,29 @@ class ContinuousBatchingScheduler:
                         and all(pos + k1 <= eng.max_len
                                 for pos in positions.values())
                         and any(drafts[i] for i in positions))
-        self._requeue(eng.prepare_decode(positions,
-                                         n_new=k1 if spec else 1))
-        occupied = [i for i, s in enumerate(self._slots) if s is not None]
+        self._prepare(positions, k1 if spec else 1)
+        occupied = [i for i, s in enumerate(self._slots)
+                    if self._decoding(s)]
         if not occupied:
             return 0
         if spec:
             self._spec_tick(drafts, k1)
             return k1 * len(occupied)
-        self.plain_ticks += 1
-        tokens = [s.generated[-1] if s is not None else 0
-                  for s in self._slots]
-        active = [s is not None for s in self._slots]
-        keys = torch.stack([_slot_key(s) if s is not None
-                            else prng.PRNGKey(0) for s in self._slots])
-        logits = eng.decode(tokens, active)
+        self.stats.plain_ticks += 1
+        live = [self._decoding(s) for s in self._slots]
+        tokens = [s.generated[-1] if d else 0
+                  for s, d in zip(self._slots, live)]
+        keys = torch.stack([_slot_key(s) if d else prng.PRNGKey(0)
+                            for s, d in zip(self._slots, live)])
+        logits = eng.decode(tokens, live)
         self.decode_steps += 1
+        if trc.enabled:
+            trc.begin("accept")
         finite = eng.finite(logits).tolist()
         next_tokens = eng.sample(logits, keys, self._temps()).tolist()
+        if trc.enabled:
+            trc.end("accept")
+            trc.begin("commit")
         for i in occupied:
             self._check(finite[i], next_tokens[i],
                         f"slot {i} (request {self._slots[i].request_id})"
@@ -1015,6 +1451,8 @@ class ContinuousBatchingScheduler:
         for i in occupied:
             self._slots[i].pos += 1
             self._commit(i, next_tokens[i])
+        if trc.enabled:
+            trc.end("commit")
         return len(occupied)
 
     def _spec_tick(self, drafts: List[List[int]], k1: int) -> None:
@@ -1027,22 +1465,25 @@ class ContinuousBatchingScheduler:
         committed position passes the finiteness and vocabulary gates
         before anything of the tick is committed."""
         eng = self.engine
-        self.spec_ticks += 1
+        trc = self.tracer
+        self.stats.spec_ticks += 1
         rows = []
         for i, s in enumerate(self._slots):
             d = drafts[i][:k1 - 1]
-            rows.append([s.generated[-1] if s is not None else 0]
+            rows.append([s.generated[-1] if self._decoding(s) else 0]
                         + d + [0] * (k1 - 1 - len(d)))
-        offs = [[(len(s.generated) if s is not None else 0) + j
+        offs = [[(len(s.generated) if self._decoding(s) else 0) + j
                  for j in range(k1)] for s in self._slots]
         keys = self._key_grid(offs)
         logits = eng.verify(rows)
         self.decode_steps += 1
+        if trc.enabled:
+            trc.begin("accept")
         finite = eng.finite(logits).tolist()                 # (B, k1)
         grid = eng.sample_grid(logits, keys, self._temps()).tolist()
         walks: Dict[int, List[int]] = {}
         for i, slot in enumerate(self._slots):
-            if slot is None:
+            if not self._decoding(slot):
                 continue
             draft = drafts[i]
             walk: List[int] = []
@@ -1059,8 +1500,10 @@ class ContinuousBatchingScheduler:
                         >= slot.request.max_new_tokens or not matched:
                     break
             walks[i] = walk
-            self.tokens_drafted += len(draft)
-            self.tokens_accepted += accepted
+            self.stats.tokens_drafted += len(draft)
+            self.stats.tokens_accepted += accepted
+            if trc.enabled and draft:
+                trc.stream_acceptance(i, accepted / len(draft))
             if eng.adaptive_spec and draft:
                 self._accept_ewma[i] = 0.5 * self._accept_ewma[i] \
                     + 0.5 * accepted / len(draft)
@@ -1070,6 +1513,8 @@ class ContinuousBatchingScheduler:
                 self._append(i, tok)
             self._slots[i].pos += len(walk)
             counts[i] = len(walk)
+        if trc.enabled:
+            trc.end("accept", committed=sum(counts))
         eng.commit(counts)
         # a tick that commits m tokens counts m on the clock
         if max(counts) > 1:
@@ -1090,10 +1535,16 @@ class ContinuousBatchingScheduler:
         0 when every slot was preempted, or None (tick not taken) when
         every forced chain is trivial and no draft survived."""
         eng = self.engine
+        trc = self.tracer
+        if trc.enabled:
+            trc.begin("draft")
         trees = self._draft_trees(self._spec_ks(positions))
+        if trc.enabled:
+            trc.end("draft", proposed=sum(len(t[0]) for t in trees
+                                          if t is not None))
         forced: Dict[int, List[int]] = {}
         for i, s in enumerate(self._slots):
-            if s is not None:
+            if self._decoding(s):
                 h = list(s.request.prompt) + list(s.generated)
                 forced[i] = h[s.pos:]        # f >= 1: the pending token
         if all(len(f) == 1 for f in forced.values()) \
@@ -1107,16 +1558,14 @@ class ContinuousBatchingScheduler:
                  + (len(trees[i][0]) if trees[i] is not None else 0)
                  for i in positions)
         k1 = max(1, min(k1, avail))
-        preempted = eng.prepare_decode(positions, n_new=k1)
-        for i in preempted:
+        for i in self._prepare(positions, k1):
             forced.pop(i, None)
-        self._requeue(preempted)
         if not forced:
             return 0
         f_chain: List[List[int]] = []
         g_trees: List[Optional[Tuple[List[int], List[int]]]] = []
         for i, s in enumerate(self._slots):
-            if s is None:
+            if not self._decoding(s):
                 f_chain.append([0])
                 g_trees.append(None)
                 continue
@@ -1138,12 +1587,14 @@ class ContinuousBatchingScheduler:
         # generated token: the plain stream's key offset there
         offs = np.zeros((eng.num_slots, k1), np.int64)
         for i, s in enumerate(self._slots):
-            if s is not None:
+            if self._decoding(s):
                 offs[i] = len(s.generated) - len(f_chain[i]) + 1 \
                     + dep_np[i]
         keys = self._key_grid(offs.tolist())
         logits = eng.tree_verify(tok_np, dep_np, anc_np)
         self.decode_steps += 1
+        if trc.enabled:
+            trc.begin("accept")
         finite = eng.finite(logits)                       # (B, k1)
         grid = eng.sample_grid(logits, keys, self._temps())
         cnts, path = tree_speculative_accept(
@@ -1154,7 +1605,7 @@ class ContinuousBatchingScheduler:
         plans: Dict[int, Tuple[int, List[int]]] = {}
         new_tok_max = 0
         for i, slot in enumerate(self._slots):
-            if slot is None:
+            if not self._decoding(slot):
                 continue
             f = len(f_chain[i])
             if f < len(forced[i]):
@@ -1184,8 +1635,10 @@ class ContinuousBatchingScheduler:
             # pending token, as in the linear walk)
             plans[i] = (f + g, walk)
             new_tok_max = max(new_tok_max, len(walk))
-            self.tokens_drafted += nodes
-            self.tokens_accepted += accepted
+            self.stats.tokens_drafted += nodes
+            self.stats.tokens_accepted += accepted
+            if trc.enabled and nodes:
+                trc.stream_acceptance(i, accepted / nodes)
             if eng.adaptive_spec and nodes:
                 self._accept_ewma[i] = 0.5 * self._accept_ewma[i] \
                     + 0.5 * accepted / nodes
@@ -1195,8 +1648,10 @@ class ContinuousBatchingScheduler:
                 self._append(i, tok)
             self._slots[i].pos += rows
             counts[i] = rows
+        if trc.enabled:
+            trc.end("accept", committed=sum(counts))
         eng.commit(counts)
-        self.spec_ticks += 1
+        self.stats.spec_ticks += 1
         if new_tok_max > 1:
             self._tick_no += new_tok_max - 1
         for i, (rows, _) in plans.items():
@@ -1210,11 +1665,21 @@ class ContinuousBatchingScheduler:
         return bool(self._queue) or any(s is not None for s in self._slots)
 
     def step(self) -> None:
-        """One scheduler tick: admit into free slots, then decode (or
-        verify)."""
+        """One scheduler tick: admit into free slots, decode (or
+        verify), and with chunked prefill on run prompt chunks with the
+        budget the decode phase left. Public, so an open-loop load
+        generator can interleave ``submit`` calls with ticks; :meth:`run`
+        is the drain loop over it."""
+        trc = self.tracer
         self._tick_no += 1
+        if trc.enabled:
+            trc.set_tick(self._tick_no)
+        before = self._tokens_emitted
         self._admit()
-        self._decode_phase()
+        self._tick()
+        if trc.enabled:
+            trc.tick_metrics(self._tokens_emitted - before,
+                             len(self._queue), self.engine.pool_gauges())
 
     def run(self) -> List[List[int]]:
         """Drain the queue; returns generated tokens (EOS included when

@@ -230,6 +230,27 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``resnet_small`` holds the card; the ranks' results bit for bit
    equal. Every process group is destroyed before the results.
 
+12. chunked prefill and the serving tracer — kernel parity of the
+   verify attention at a prompt chunk's shape (one slot, 16 heads, hd
+   64, k1 256 at pos 0, 256 and 512, bf16 and fp32 pools, through a
+   gather row): per element to ``paged_limit``, every query the decode
+   kernel's bits at pos + j, one launch a slice of ``verify_slices``.
+   ``serving_chunked``: the ``serving_paged`` engine and the dense
+   ``DecodeEngine`` (GPT-2 medium O2 bf16, 8 slots, max_len 1024) on the
+   16 prompts open-loop on the work clock (the 8 shortest at tick 0, the
+   8 longest one every 16 ticks, submitted with ``at_tick``, the JAX
+   package's ``_drive_poisson`` loop), with ``chunk_tokens`` 256 and
+   monolithic: exact launches (a chunk's attention the verify kernel L x
+   4 launches), the tick-clock TTFT and inter-token p50/p99 from the
+   tracer's ``latency_summary`` (ticks, not seconds), wall time,
+   tokens/s, the share of tokens equal to the monolithic run's; the
+   chunked p99 gap below the monolithic one and the TTFT median within 2
+   x monolithic + 1. At 2 layers of GPT-2 medium's width, a 700-token
+   prompt chunked at 256 on both engines: the final chunk's logits
+   against a one-shot prefill (fp32 1e-5, O2 0.0625). The chunk
+   attention's times at pos 0, 256, 512 and 768 beside its plain
+   version, its bound and SDPA on the gathered K/V.
+
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
 card's name and power limit, and last ``{"ok": true, "device":
@@ -1480,7 +1501,9 @@ def serve_mix(dev, cfg, params, kern, temps=None, engine=None, prompts=None,
     for k in kern.values():
         k.launches = 0
     base = {n: f() for n, f in probes.items()}
-    tier0 = {n: getattr(eng, n, 0) for n in TIER_COUNTERS}
+    # the engine's counters, as deltas over the run (the warm-up's ticks
+    # count on the same engine)
+    st0 = eng.stats.as_dict()
     t0 = time.perf_counter()
     ticks = audits = 0
     while sched.busy:
@@ -1511,18 +1534,19 @@ def serve_mix(dev, cfg, params, kern, temps=None, engine=None, prompts=None,
     out = dict(streams=streams, launches=launches, wall_s=wall,
                tokens=n_tok, tokens_per_s=n_tok / wall, ticks=ticks,
                clock=sched._tick_no, decode_steps=sched.decode_steps,
-               plain_ticks=sched.plain_ticks, spec_ticks=sched.spec_ticks,
-               tokens_drafted=sched.tokens_drafted,
-               tokens_accepted=sched.tokens_accepted,
-               acceptance_rate=sched.acceptance_rate,
+               **{n: sched.stats.as_dict()[n] - st0[n] for n in (
+                   "plain_ticks", "spec_ticks", "tokens_drafted",
+                   "tokens_accepted")},
                prefills=sum(o.prefill_ticks for o in sched.outcomes.values()),
                **{n: f() - base[n] for n, f in probes.items()})
+    out["acceptance_rate"] = (out["tokens_accepted"] / out["tokens_drafted"]
+                              if out["tokens_drafted"] else 0.0)
     if eng.paged:
         out.update(shared_pages=shared[0], cached=eng.pool.num_cached,
-                   cow_copies=eng.cow_copies, preemptions=eng.preemptions,
-                   pool_exhausted=eng.pool_exhausted)
+                   **{n: eng.stats.as_dict()[n] - st0[n] for n in (
+                       "cow_copies", "preemptions", "pool_exhausted")})
         if eng.host_tier is not None:
-            out.update({n: getattr(eng, n) - tier0[n]
+            out.update({n: eng.stats.as_dict()[n] - st0[n]
                         for n in TIER_COUNTERS})
             out["host_hit_rate"] = eng.host_tier.hit_rate
     return out
@@ -4322,7 +4346,9 @@ def serve_tiered(dev, kern, o2):
     without a tier, the reference's spill-disabled engine) and a bf16
     pool (the promoted prefix skipped, the suffix prefilled as one
     chunk); the audit after every tick, exact launches, spills and
-    promotes > 0. The int8 mix on a roomy pool without a tier is read
+    promotes > 0; a suffix prefill's attention launches the verify
+    kernel once a slice a layer. The int8 mix on a roomy pool without a
+    tier is read
     beside them: a decode write requantizes its whole page, stale rows
     of a recycled page included (the JAX package's ``_q8_page_insert``),
     so a tight pool's streams are not the roomy pool's bit for bit."""
@@ -4347,8 +4373,11 @@ def serve_tiered(dev, kern, o2):
         # the int8 run audits after every tick; the bf16 run once at its
         # end (the audit recomputes every host record's sha256, some
         # 0.3 s a tick over the bf16 pool's records)
+        pa = kernel_modules()[7]
         for name, dt in (("int8", torch.int8), ("bf16", torch.bfloat16)):
-            chunks = [0]
+            # suffix-only prefills, and the verify kernel's slices they
+            # launch a layer (a suffix of sc tokens: verify_slices(sc))
+            chunks = [0, 0]
 
             def setup(eng, chunks=chunks, name=name):
                 engines[name] = eng
@@ -4356,11 +4385,14 @@ def serve_tiered(dev, kern, o2):
 
                 def counted(*a, **k):
                     chunks[0] += 1
+                    chunks[1] += len(pa.verify_slices(a[2].shape[1],
+                                                      cfg.head_dim))
                     return run(*a, **k)
 
                 eng._chunk_prefill = counted
                 return dict(_promote_checker(eng),
-                            suffix_chunk_prefills=lambda: chunks[0])
+                            suffix_chunk_prefills=lambda: chunks[0],
+                            suffix_verify_slices=lambda: chunks[1])
 
             out[name] = serve_mix(dev, cfg, o2, kern, num_pages=TIER_POOL,
                                   cache_dtype=dt,
@@ -4384,6 +4416,7 @@ def serve_tiered(dev, kern, o2):
             "layer_norm_fwd": (2 * L + 1) * (prefills + steps),
             "flash_attention_fwd": L * (prefills - chunked),
             "paged_decode_attention": L * steps,
+            "paged_verify_attention": L * res["suffix_verify_slices"],
             "threefry_bits": res["launches"]["threefry_bits"]},
             f"tiered serving ({name} pool)")
         check(res["host_spills"] > 0 and res["host_promotes"] > 0
@@ -4421,9 +4454,10 @@ def verify_times(dev):
     lengths) and at the JAX package's paged A/B configuration (32 slots,
     S_max 512): kernel, the decode kernel at the same lengths, plain
     version, bound (the live K/V rows once, plus q, ctx, tables and anc,
-    over 3.35 TB/s, or 4 k1 fp32 operations a K/V element pair over 67
-    TFLOP/s) and SDPA on the already-gathered K/V with the same
-    per-query mask (a different function: it leaves out the gather)."""
+    over 3.35 TB/s, or 4 k1 operations a K/V element pair over the bf16
+    tensor-core peak, the operands' type) and SDPA on the
+    already-gathered K/V with the same per-query mask (a different
+    function: it leaves out the gather)."""
     pa = kernel_modules()[7]
     phase("times of the multi-query paged attention (device ms a call, one "
           "layer; medians of CUDA-graph replays)")
@@ -4459,7 +4493,7 @@ def verify_times(dev):
                 t_l = time_ms(lambda: F.scaled_dot_product_attention(
                     q, kg, vg, attn_mask=vis))
                 _entry(res, f"verify_{key}_k{k1}", t_k, t_p, t_l, nbytes,
-                       flops, FP32_FLOPS,
+                       flops, BF16_TC_FLOPS,
                        f"multi-query paged attention, {key} ({b} slots, S "
                        f"{s_len}, k1 {k1}, {live} live rows; the decode "
                        f"kernel {t_d:.5f})",
@@ -4805,6 +4839,336 @@ def ddp_two_ranks(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# 12. chunked prefill and the serving tracer
+# ---------------------------------------------------------------------------
+
+CHUNK = 256          # the prompt chunk of serving_chunked
+ARRIVAL_GAP = 16     # ticks between the long prompts' arrivals
+CHUNK_LOGITS_LAYERS = 2
+
+
+def chunked_arrivals(cfg):
+    """The serving mix open-loop on the work clock: the 8 shortest
+    prompts at tick 0, the 8 longest one every ``ARRIVAL_GAP`` ticks
+    after it (each group in the mix's order)."""
+    prompts = mix_prompts(cfg)
+    order = sorted(range(len(prompts)), key=lambda i: (len(prompts[i]), i))
+    half = len(order) // 2
+    return ([(0, i) for i in sorted(order[:half])]
+            + [(ARRIVAL_GAP * (j + 1), i)
+               for j, i in enumerate(sorted(order[half:]))])
+
+
+def drive_open_loop(sched, arrivals):
+    """The JAX package's ``bench.py::_drive_poisson``: submit each
+    arrival once the scheduler's work clock reaches its tick, backdated
+    to it (``at_tick``), step while busy, and jump an idle clock to the
+    next arrival. Returns the streams in submission order."""
+    i = 0
+    while i < len(arrivals) or sched.busy:
+        while i < len(arrivals) and arrivals[i][0] <= sched.clock:
+            t, req = arrivals[i]
+            sched.submit(req, at_tick=t)
+            i += 1
+        if sched.busy:
+            sched.step()
+        elif i < len(arrivals):
+            sched.advance_clock(arrivals[i][0])
+    return [list(sched.outcomes[rid].tokens)
+            for rid in sorted(sched.outcomes)]
+
+
+def serve_open_loop(dev, cfg, params, kern, engine, chunk, **engine_kw):
+    """:func:`chunked_arrivals` on one engine (8 slots, max_len 1024, bf16
+    cache), chunked at ``chunk`` or monolithic (None), after a
+    one-request warm-up; a fresh enabled ``Tracer`` on the engine for the
+    measured run; every kernel's count set to 0 just before it and read
+    just after. Returns the streams, launches, wall time, the work clock,
+    the tracer's ``latency_summary()`` (ticks), chunks and prefills."""
+    from apex_tpu_torch.serving import (
+        ContinuousBatchingScheduler, Request, ServingStats, Tracer,
+    )
+
+    eng = engine(params, cfg, num_slots=NUM_SLOTS, max_len=MAX_LEN,
+                 cache_dtype=torch.bfloat16, buckets=BUCKETS, device=dev,
+                 **engine_kw)
+    warm = ContinuousBatchingScheduler(eng, eos_id=-1, chunk_tokens=chunk)
+    warm.submit(Request(prompt=(1, 2, 3), max_new_tokens=2))
+    warm.run()
+    eng.tracer = Tracer()
+    eng.stats = ServingStats(registry=eng.tracer.registry)
+    sched = ContinuousBatchingScheduler(eng, eos_id=-1, chunk_tokens=chunk)
+    prompts = mix_prompts(cfg)
+    arrivals = [(t, Request(prompt=prompts[i], max_new_tokens=NEW_TOKENS,
+                            seed=i)) for t, i in chunked_arrivals(cfg)]
+    torch.cuda.synchronize()
+    for k in kern.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    streams = drive_open_loop(sched, arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kern.items()}
+    outs = [sched.outcomes[i] for i in range(len(arrivals))]
+    n_tok = sum(len(s) for s in streams)
+    check(len(streams) == len(arrivals)
+          and all(o.reason == "length" for o in outs)
+          and all(len(s) == NEW_TOKENS for s in streams)
+          and all(0 <= t < cfg.vocab_size for s in streams for t in s),
+          f"{len(streams)} requests finished (length), {n_tok} tokens, "
+          "every token inside the vocabulary")
+    return dict(streams=streams, launches=launches, wall_s=wall,
+                tokens=n_tok, tokens_per_s=n_tok / wall,
+                clock=sched.clock, latency=eng.tracer.latency_summary(),
+                prefill_chunks=sched.stats.prefill_chunks,
+                decode_steps=sched.decode_steps,
+                prefills=sum(o.prefill_ticks for o in outs),
+                ttft_ticks=[o.ttft_ticks for o in outs])
+
+
+def chunked_final_logits(dev):
+    """GPT-2 medium's width at 2 layers, seed 0: one 700-token prompt
+    prefilled in chunks of 256 (three: the last 188 tokens padded) on the
+    paged and the dense engine, the final chunk's logits against a
+    one-shot prefill of the same prompt on the same engine: fp32 params
+    and cache within 1e-5, O2 bf16 within 0.0625 (the decode-vs-full
+    limits); the paged chunks launch the verify kernel once a slice a
+    layer."""
+    import dataclasses
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+    from apex_tpu_torch.serving import DecodeEngine, PagedDecodeEngine
+
+    pa = kernel_modules()[7]
+    L = CHUNK_LOGITS_LAYERS
+    cfg = dataclasses.replace(gpt_medium(), num_layers=L)
+    params = init_gpt(cfg, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.RandomState(3)
+    prompt = tuple(int(t) for t in rng.randint(0, cfg.vocab_size, size=700))
+    n_chunks = -(-len(prompt) // CHUNK)
+    out = {}
+    with torch.inference_mode():
+        o2 = amp.initialize("O2", verbosity=0).cast_model(params)
+        for label, p, dt, tol in (("fp32", params, torch.float32, 1e-5),
+                                  ("O2 bf16", o2, torch.bfloat16, 0.0625)):
+            for engine, kw in ((PagedDecodeEngine, dict(
+                    num_pages=PAGED_POOL, page_size=PAGE)),
+                               (DecodeEngine, {})):
+
+                def make():
+                    return engine(p, cfg, num_slots=2, max_len=MAX_LEN,
+                                  cache_dtype=dt, buckets=BUCKETS,
+                                  device=dev, **kw)
+
+                one_shot = make().prefill(1, prompt)
+                eng = make()
+                state = eng.begin_chunk_prefill(1, prompt)
+                n0 = pa.PAGED_VERIFY.launches
+                for pos in range(0, len(prompt), CHUNK):
+                    logits = eng.chunk_prefill(
+                        1, prompt[pos:pos + CHUNK], pos, state, CHUNK,
+                        pos + CHUNK >= len(prompt))
+                eng.finish_chunk_prefill(1, state)
+                torch.cuda.synchronize()
+                launched = pa.PAGED_VERIFY.launches - n0
+                want = L * n_chunks * len(pa.verify_slices(CHUNK,
+                                                           cfg.head_dim))
+                err = float((logits - one_shot).abs().max())
+                key = f"{engine.__name__}_{label.split()[-1]}"
+                out[key] = err
+                check(err <= tol and launched == (want if eng.paged else 0)
+                      and bool(eng.check_invariants()),
+                      f"chunked final logits ({engine.__name__}, {label}, "
+                      f"{L} layers, {n_chunks} chunks of {CHUNK}) against a "
+                      f"one-shot prefill: max_abs_err {err:.3g} <= {tol}; "
+                      f"verify launches {launched}")
+    return out
+
+
+def chunk_verify_parity(dev):
+    """The verify attention at a prompt chunk's shape: one slot, GPT-2
+    medium's 16 heads, hd 64, k1 = 256 at pos 0, 256 and 512, bf16 and
+    fp32 pools of pages of 64, through a gather row (the slot's stored
+    row parked on scratch): one launch a slice of ``verify_slices``, per
+    element to ``paged_limit``, every query the bits of the decode kernel
+    at pos + j."""
+    pa = kernel_modules()[7]
+    phase(f"kernel parity: the verify attention at a prompt chunk's shape "
+          f"(one slot, k1 {CHUNK}, {pa.verify_slices(CHUNK, 64)}), pos 0, "
+          "256 and 512, bf16 and fp32 pools, against the plain version and "
+          "one-query launches")
+    max_err = 0.0
+    for kv in (torch.bfloat16, torch.float32):
+        for pos in (0, 256, 512):
+            q, k, v, row, p = _chunk_inputs(dev, kv, pos, seed=pos + 7)
+            n0 = pa.PAGED_VERIFY.launches
+            got = pa.paged_verify_attention(q, k, v, row, p, None)
+            torch.cuda.synchronize()
+            launched = pa.PAGED_VERIFY.launches - n0
+            want = pa.paged_verify_attention_plain(q, k, v, row, p, None)
+            lim = pa.paged_limit(q, k, v, row, p, want)
+            err = (got.float() - want.float()).abs()
+            max_err = max(max_err, float(err.max()))
+            same = all(torch.equal(got[:, :, j],
+                                   pa.paged_decode_attention_kernel(
+                                       q[:, :, j].contiguous(), k, v, row,
+                                       p + j))
+                       for j in range(CHUNK))
+            check(launched == len(pa.verify_slices(CHUNK, 64))
+                  and bool((err <= lim).all()) and same,
+                  f"chunk attention, {str(kv)[6:]} pool, pos {pos}: "
+                  f"{launched} launches; max_abs_err {float(err.max()):.3g} "
+                  "within paged_limit; every query the decode kernel's bits")
+    return max_err
+
+
+def _chunk_inputs(dev, kv, pos, seed):
+    """One slot's chunk operands: q (1, 16, CHUNK, 64) in the pool's dtype,
+    pools of 2 + 32 pages of 64, a gather row of distinct random pages for
+    the rows 0 .. pos + CHUNK - 1 (NULL past them) in a table of 16, and
+    ``pos``."""
+    from apex_tpu_torch.serving.cache import NULL_PAGE, RESERVED_PAGES
+
+    nh, hd, max_pages = 16, 64, MAX_LEN // PAGE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    num_pages = RESERVED_PAGES + 2 * max_pages
+    k, v = (_rand(g, (num_pages, nh, PAGE, hd), kv, dev) for _ in range(2))
+    q = _rand(g, (1, nh, CHUNK, hd), kv, dev)
+    live = (pos + CHUNK) // PAGE
+    row = torch.full((1, max_pages), NULL_PAGE, dtype=torch.int32,
+                     device=dev)
+    row[0, :live] = (RESERVED_PAGES + torch.randperm(
+        num_pages - RESERVED_PAGES, generator=g, device=dev)[:live]).to(
+            torch.int32)
+    return q, k, v, row, torch.tensor([pos], dtype=torch.int32, device=dev)
+
+
+def serve_chunked(dev, kern, o2):
+    """``serving_chunked``: the ``serving_paged`` engine (GPT-2 medium O2
+    bf16, 8 slots, max_len 1024, pages of 64) and the dense
+    ``DecodeEngine`` on :func:`chunked_arrivals` (EOS -1), each chunked at
+    256 and monolithic: exact launches (a chunk's attention the verify
+    kernel once a slice of ``verify_slices(256, 64)`` a layer), the
+    tick-clock latency (TTFT and inter-token p50/p99, ticks), wall time,
+    tokens/s and the share of tokens equal to the monolithic run's; the
+    chunked p99 inter-token gap below the monolithic one and the TTFT
+    median within 2 x monolithic + 1 (the JAX package's bound). Then the
+    chunked final logits at 2 layers (:func:`chunked_final_logits`)."""
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.serving import DecodeEngine, PagedDecodeEngine
+
+    pa = kernel_modules()[7]
+    cfg = gpt_medium()
+    L = cfg.num_layers
+    slices = len(pa.verify_slices(CHUNK, cfg.head_dim))
+    phase(f"serving_chunked: the 16 requests open-loop (8 shortest at tick "
+          f"0, 8 longest one every {ARRIVAL_GAP} ticks), chunk_tokens "
+          f"{CHUNK} and monolithic, on PagedDecodeEngine and DecodeEngine")
+    out = {}
+    runs = {"paged": (PagedDecodeEngine, dict(num_pages=PAGED_POOL,
+                                              page_size=PAGE)),
+            "dense": (DecodeEngine, {})}
+    with torch.inference_mode():
+        for name, (engine, kw) in runs.items():
+            for chunk in (CHUNK, None):
+                key = name + ("_chunked" if chunk else "_monolithic")
+                out[key] = serve_open_loop(dev, cfg, o2, kern, engine, chunk,
+                                           **kw)
+    for name in runs:
+        ch, mono = out[name + "_chunked"], out[name + "_monolithic"]
+        paged = name == "paged"
+        check_launches(ch["launches"], {
+            "layer_norm_fwd": (2 * L + 1) * (ch["prefill_chunks"]
+                                             + ch["decode_steps"]),
+            "paged_decode_attention": L * ch["decode_steps"] if paged else 0,
+            "paged_verify_attention": (L * slices * ch["prefill_chunks"]
+                                       if paged else 0)},
+            f"chunked serving ({name})")
+        check_launches(mono["launches"], {
+            "layer_norm_fwd": (2 * L + 1) * (mono["prefills"]
+                                             + mono["decode_steps"]),
+            "flash_attention_fwd": L * mono["prefills"],
+            "paged_decode_attention": (L * mono["decode_steps"] if paged
+                                       else 0)},
+            f"monolithic open-loop serving ({name})")
+        same, total = _same_share(ch["streams"], mono["streams"])
+        lc, lm = ch["latency"], mono["latency"]
+        ch.update(tokens_equal_to_monolithic=same, tokens_compared=total,
+                  verify_launches_per_chunk=L * slices if paged else 0)
+        print(f"{name}: chunked {CHUNK}: {ch['prefill_chunks']} chunks, "
+              f"{ch['decode_steps']} decode steps, clock {ch['clock']} "
+              f"ticks, latency (ticks) {json.dumps(lc)}, "
+              f"{ch['wall_s']:.3f} s wall, {ch['tokens_per_s']:.1f} "
+              f"tokens/s; monolithic: {mono['prefills']} prefills, "
+              f"{mono['decode_steps']} decode steps, clock {mono['clock']} "
+              f"ticks, latency (ticks) {json.dumps(lm)}, "
+              f"{mono['wall_s']:.3f} s wall, {mono['tokens_per_s']:.1f} "
+              f"tokens/s; tokens equal to the monolithic run's: {same} of "
+              f"{total}", flush=True)
+        if paged:
+            print(f"verify kernel launches a {CHUNK}-token chunk: {L} layers "
+                  f"x {slices} slices = {L * slices}; in the run "
+                  f"{ch['launches']['paged_verify_attention']} for "
+                  f"{ch['prefill_chunks']} chunks", flush=True)
+        check(lc["itl_p99"] < lm["itl_p99"]
+              and lc["ttft_p50"] <= 2.0 * lm["ttft_p50"] + 1.0,
+              f"{name}: chunked p99 inter-token gap {lc['itl_p99']} ticks < "
+              f"monolithic {lm['itl_p99']}; TTFT p50 {lc['ttft_p50']} <= 2 x "
+              f"{lm['ttft_p50']} + 1")
+    out["final_logits_max_abs_err"] = chunked_final_logits(dev)
+    for res in out.values():
+        res.pop("streams", None)
+    return out
+
+
+def chunk_times(dev):
+    """The verify attention at a prompt chunk's shape (one slot, 16
+    heads, hd 64, k1 256 at pos 0, 256, 512 and 768 over a table of 16
+    pages of 64, bf16): the wrapper (one launch a slice of
+    ``verify_slices``), its plain version, the bound (the live K/V rows
+    once, q, ctx and the table over 3.35 TB/s, or 4 operations a query a
+    visible K/V element over the bf16 tensor-core peak, the operands'
+    type; the larger) and SDPA on the already-gathered K/V with the same
+    causal window mask (a different function: it leaves out the
+    gather)."""
+    pa = kernel_modules()[7]
+    phase(f"times of the verify attention at a prompt chunk's shape (one "
+          f"slot, k1 {CHUNK}; device ms a call, one layer; medians of "
+          "CUDA-graph replays)")
+    res = {}
+    with torch.inference_mode():
+        for pos in (0, 256, 512, 768):
+            q, k, v, row, p = _chunk_inputs(dev, torch.bfloat16, pos,
+                                            seed=pos + 9)
+            args = (q, k, v, row, p, None)
+            t_k = time_ms(lambda: pa.paged_verify_attention(*args))
+            t_p = time_ms(lambda: pa.paged_verify_attention_plain(*args))
+            _, nh, sc, hd = q.shape
+            s_len = row.shape[1] * PAGE
+            live = pos + sc
+            nbytes = (2 * live * nh * hd * 2 + 2 * sc * nh * hd * 2
+                      + row.numel() * 4 + 4)
+            seen = sum(pos + j + 1 for j in range(sc))
+            flops = 4 * seen * nh * hd
+            kg = k[row.long()].transpose(1, 2).reshape(1, nh, s_len, hd)
+            vg = v[row.long()].transpose(1, 2).reshape(1, nh, s_len, hd)
+            vis = pa.visible(p, sc, s_len)[:, None]
+            t_l = time_ms(lambda: F.scaled_dot_product_attention(
+                q, kg, vg, attn_mask=vis))
+            key = f"verify_chunk_pos{pos}"
+            _entry(res, key, t_k, t_p, t_l, nbytes, flops, BF16_TC_FLOPS,
+                   f"verify attention at a chunk's shape (1 slot, k1 {sc}, "
+                   f"pos {pos}, {live} live rows, "
+                   f"{len(pa.verify_slices(sc, hd))} launches)",
+                   "SDPA on the gathered K/V (a different function)")
+            res[key].update(live_rows=live,
+                            launches=len(pa.verify_slices(sc, hd)),
+                            per_chunk_24_layers_ms=24 * t_k)
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -4869,7 +5233,8 @@ def main():
     rope = rope_parity(dev)
     err["paged_decode_attention"] = paged_parity(dev)
     err["paged_verify_attention"] = max(paged_verify_parity(dev),
-                                        verify_past_max_k1(dev))
+                                        verify_past_max_k1(dev),
+                                        chunk_verify_parity(dev))
     kern = dict(zip(KERNEL_NAMES, (
         ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
         xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
@@ -4886,6 +5251,7 @@ def main():
     srv_kv8 = serve_paged_kv8(dev, kern, params_f32, params_o2)
     srv_spec = serve_spec(dev, kern, params_f32, params_o2)
     srv_tier = serve_tiered(dev, kern, params_o2)
+    srv_chunk = serve_chunked(dev, kern, params_o2)
     del params_f32, params_o2
     torch.cuda.empty_cache()
     small = train_small(dev)
@@ -4908,6 +5274,7 @@ def main():
     tm.update(gpt_times(dev))
     tm.update(paged_times(dev))
     tm.update(verify_times(dev))
+    tm.update(chunk_times(dev))
     by_path = {n: {"serving": srv["bf16"]["launches"][n],
                    "serving_w8": srv["w8"]["launches"][n],
                    "serving_sampled": srv["sampled"]["launches"][n],
@@ -4920,6 +5287,9 @@ def main():
                    "serving_paged_tiered": sum(
                        srv_tier[r]["launches"][n]
                        for r in ("roomy", "no_tier", "int8", "bf16")),
+                   **{f"serving_{k}": srv_chunk[k]["launches"][n]
+                      for k in ("paged_chunked", "paged_monolithic",
+                                "dense_chunked", "dense_monolithic")},
                    "training_dropout": big["fp32 dropout"]["launches"][n],
                    "training_ddp_world1": ddp1["launches"][n]}
                for n in kern}
@@ -5174,6 +5544,10 @@ def main():
         at_ab_k1=tm["verify_ab_k1"],
         at_serving_spec_k5=tm["verify_serving_spec_k5"],
         at_serving_spec_k1=tm["verify_serving_spec_k1"],
+        **{f"at_prompt_chunk_pos{p}": tm[f"verify_chunk_pos{p}"]
+           for p in (0, 256, 512, 768)},
+        launches_per_prompt_chunk=srv_chunk["paged_chunked"][
+            "verify_launches_per_chunk"],
         note="k1 queries a slot (5 in the main time: spec_k 4), any k1: "
         "one launch up to 64 queries at hd 64, past that one launch a "
         "slice of verify_slices (serving_spec_ngram_k64: k1 65, two); "
@@ -5182,7 +5556,10 @@ def main():
         "leaves out the gather); one block a (head, slot) reads the rows 0 "
         ".. pos + k1 - 1 once for all k1 queries, in tiles of 128 logical "
         "positions; the decode step is its k1 = 1 instance, and column j "
-        "of a linear verify gives the decode kernel's bits at pos + j"))
+        "of a linear verify gives the decode kernel's bits at pos + j; a "
+        f"chunked prefill's chunk of {CHUNK} queries is a linear window of "
+        f"k1 {CHUNK}, one slot, through its gather row (launches_by_path "
+        "serving_paged_chunked; at_prompt_chunk_pos*: one layer's call)"))
     check(all(sum(by_path[n].values()) > 0 for n in KERNEL_NAMES
               if n not in OFF_PATH),
           "every kernel of a path launched on that path")
@@ -5213,10 +5590,13 @@ def main():
     print(f"serving_paged_kv8: {json.dumps(srv_kv8)}")
     for key in ("paged_ab", "paged_ab_kv8", "paged_serving_paged",
                 "verify_ab_k1", "verify_ab_k5", "verify_serving_spec_k1",
-                "verify_serving_spec_k5"):
+                "verify_serving_spec_k5", "verify_chunk_pos0",
+                "verify_chunk_pos256", "verify_chunk_pos512",
+                "verify_chunk_pos768"):
         print(f"{key}: {json.dumps(tm[key])}")
     print(f"serving_spec: {json.dumps(srv_spec)}")
     print(f"serving_paged_tiered: {json.dumps(srv_tier)}")
+    print(f"serving_chunked: {json.dumps(srv_chunk)}")
     print(f"GPT training, card vs CPU: {json.dumps(gpt_small)}")
     print(f"GPT-medium training: {json.dumps(gpt_big)}")
     print(f"pretrain_gpt losses: {json.dumps(pre)}")

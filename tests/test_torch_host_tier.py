@@ -138,8 +138,8 @@ def test_spill_on_evict_then_promote_bitwise_equal(model, dtype):
     assert len(snap) == (4 if dtype == "int8" else 2)
     eng.free_slot(0)
     held = _drain(eng)
-    assert eng.host_spills == len(keys) == 2
-    assert eng.host_spill_bytes == sum(tier.get(k).nbytes for k in keys)
+    assert eng.stats.host_spills == len(keys) == 2
+    assert eng.stats.host_spill_bytes == sum(tier.get(k).nbytes for k in keys)
     rec = tier.get(keys[0])
     assert (rec.k_scale is not None) == (dtype == "int8")
     tier.check_invariants()
@@ -148,8 +148,8 @@ def test_spill_on_evict_then_promote_bitwise_equal(model, dtype):
     hits = tier.hits
     promoted, ticks = eng._promote_chain(keys, 0)
     assert len(promoted) == 2 and ticks == 1 and tier.hits == hits + 2
-    assert (eng.host_promotes, eng.host_promote_ticks) == (2, 1)
-    assert eng.host_promote_bytes == eng.host_spill_bytes
+    assert (eng.stats.host_promotes, eng.stats.host_promote_ticks) == (2, 1)
+    assert eng.stats.host_promote_bytes == eng.stats.host_spill_bytes
     for a, b in zip(snap, _snap(eng, promoted)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     for p in promoted:
@@ -192,7 +192,7 @@ def test_attended_pages_never_spill(model):
     keys = prefix_page_keys(list(HOT), eng.page_size)
     assert all(eng.pool.refcount(p) == 2 for p in eng._slot_pages[0])
     held = _drain(eng)
-    assert eng.host_spills == 0 and len(tier) == 0
+    assert eng.stats.host_spills == 0 and len(tier) == 0
     assert all(k not in tier for k in keys)
     assert all(eng.pool.refcount(p) == 1 for p in eng._slot_pages[0])
     for p in held:
@@ -266,7 +266,7 @@ def test_corrupt_record_quarantined_promote_degrades(model, golden_run):
     tier._entries[keys[0]] = bad
     promoted, ticks = eng._promote_chain(keys, 0)
     assert promoted == [] and ticks == 0
-    assert eng.host_promote_failures == 1
+    assert eng.stats.host_promote_failures == 1
     assert keys[0] not in tier
     _, outs = _drive(_engine(model, host_tier=PrefixRegistry(1 << 20)))
     assert outs == golden
@@ -282,7 +282,7 @@ def test_stale_header_key_is_rejected(model):
     tier._entries[other[0]] = rec
     tier._bytes += rec.nbytes
     promoted, _ = eng._promote_chain(other, 0)
-    assert promoted == [] and eng.host_promote_failures == 1
+    assert promoted == [] and eng.stats.host_promote_failures == 1
     assert other[0] not in tier
     geom = eng._spill_geometry
     eng._spill_geometry = geom[:2] + (8,) + geom[3:]
@@ -313,17 +313,18 @@ def test_streams_bit_identical_to_spill_disabled_and_jax(model, case):
                   **kw)
     sched, outs = _drive(eng)
     assert outs == golden
-    assert eng.host_spills > 0 and eng.host_promotes > 0
-    assert eng.host_promote_ticks >= 1 and tier.hit_rate > 0
+    assert eng.stats.host_spills > 0 and eng.stats.host_promotes > 0
+    assert eng.stats.host_promote_ticks >= 1 and tier.hit_rate > 0
     jtier = jax_serving.PrefixRegistry(1 << 20)
     jeng = _jax_engine(model, host_tier=jtier,
                        cache_dtype=getattr(jnp, dtype), **kw)
     jsched, want = _jax_drive(jeng)
     assert outs == want
     st = jeng.stats
-    assert (eng.host_spills, eng.host_spill_bytes, eng.host_promotes,
-            eng.host_promote_bytes, eng.host_promote_ticks,
-            eng.host_promote_failures) == (
+    ps = eng.stats
+    assert (ps.host_spills, ps.host_spill_bytes, ps.host_promotes,
+            ps.host_promote_bytes, ps.host_promote_ticks,
+            ps.host_promote_failures) == (
         st.host_spills, st.host_spill_bytes, st.host_promotes,
         st.host_promote_bytes, st.host_promote_ticks,
         st.host_promote_failures)

@@ -67,7 +67,10 @@ repeat and two page placements bit for bit, column j of a linear verify
 to the decode kernel at pos + j bit for bit, and k1 past ``MAX_K1``
 refused by the C entry without a launch counted; the wrapper at k1 = 80
 launches once a slice of ``verify_slices`` and gives the bits of
-one-query launches (linear and tree), and a ``PagedDecodeEngine`` at
+one-query launches (linear and tree), as it does at a prompt chunk's
+shape (one slot, k1 = 256 at pos 0, 256 and 512, bf16 and fp32 pools,
+over a gather row apart from the parked stored row), and a
+``PagedDecodeEngine`` at
 ``spec_k`` 64 and 80 serves with the CPU's streams. A data-parallel
 BERT step on an NCCL world of one equals the plain step bit for
 bit."""
@@ -1850,6 +1853,50 @@ def test_paged_verify_slice_is_the_c_entrys_limit(cuda_device):
         pa_mod.paged_verify_attention_kernel(*args, q0=0, nq=nq + 1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
+@pytest.mark.parametrize("pos", [0, 256, 512])
+def test_paged_verify_at_a_prompt_chunks_shape(cuda_device, kv, pos):
+    """A chunked prefill's attention: one slot, 16 heads, hd 64, a chunk
+    of 256 queries at ``pos`` (a linear verify window of k1 = 256),
+    pages of 64 in a table of 16, attending through the slot's gather
+    row while its stored row is parked on scratch. The wrapper launches
+    once a slice of ``verify_slices(256, 64)``, within ``paged_limit``
+    of the plain version, every query the bits of its one-query launch
+    (the decode kernel at pos + j); the parked row reads other rows."""
+    from apex_tpu_torch.serving.cache import NULL_PAGE, SCRATCH_PAGE
+
+    dev, sc, nh, hd, page, max_pages = cuda_device, 256, 16, 64, 64, 16
+    g = torch.Generator(device=dev).manual_seed(pos + 7)
+    num_pages = 2 + 2 * max_pages
+    k, v = (torch.randn((num_pages, nh, page, hd), generator=g,
+                        device=dev).to(_DT[kv]) for _ in range(2))
+    q = torch.randn((1, nh, sc, hd), generator=g, device=dev).to(_DT[kv])
+    live = (pos + sc) // page
+    row = torch.full((max_pages,), NULL_PAGE, dtype=torch.int32,
+                     device=dev)
+    row[:live] = (2 + torch.randperm(num_pages - 2, generator=g,
+                                     device=dev)[:live]).to(torch.int32)
+    gather = row[None].contiguous()
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    n0 = pa_mod.PAGED_VERIFY.launches
+    got = pa_mod.paged_verify_attention(q, k, v, gather, p, None)
+    torch.cuda.synchronize()
+    assert pa_mod.PAGED_VERIFY.launches - n0 \
+        == len(pa_mod.verify_slices(sc, hd)) == 4
+    want = pa_mod.paged_verify_attention_plain(q, k, v, gather, p, None)
+    lim = pa_mod.paged_limit(q, k, v, gather, p, want)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= lim).all()), float((err / lim).max())
+    for j in range(sc):
+        one = pa_mod.paged_decode_attention_kernel(
+            q[:, :, j].contiguous(), k, v, gather, p + j)
+        assert torch.equal(got[:, :, j], one), j
+    parked = torch.full_like(gather, SCRATCH_PAGE)
+    assert not torch.equal(
+        pa_mod.paged_verify_attention(q, k, v, parked, p, None), got)
+
+
 def spec_engine_streams(dev, spec_k, tree):
     """Greedy streams of a fp32 ``gpt_tiny`` (positions to 256, seed 0)
     on a ``PagedDecodeEngine`` with ``spec_k``: linear n-gram drafts
@@ -1886,8 +1933,8 @@ def spec_engine_streams(dev, spec_k, tree):
     n0 = pa_mod.PAGED_VERIFY.launches
     with torch.inference_mode():
         streams = sched.run()
-    return (streams, sched.spec_ticks, pa_mod.PAGED_VERIFY.launches - n0,
-            cfg.num_layers)
+    return (streams, sched.stats.spec_ticks,
+            pa_mod.PAGED_VERIFY.launches - n0, cfg.num_layers)
 
 
 @pytest.mark.cuda

@@ -146,13 +146,14 @@ def test_paged_streams_identical_to_jax(jax_params, case):
     assert _outcomes(psched, len(reqs)) == _outcomes(jsched, len(reqs))
     assert psched.decode_steps == jsched.stats.plain_ticks
     assert peng.pool.num_cached == jeng.pool.num_cached > 0
-    assert (peng.cow_copies, peng.preemptions, peng.pool_exhausted) == (
+    ps = peng.stats
+    assert (ps.cow_copies, ps.preemptions, ps.pool_exhausted) == (
         jeng.stats.cow_copies, jeng.stats.preemptions,
         jeng.stats.pool_exhausted)
     assert peng.pool_snapshot() == jeng.pool_snapshot()
     assert peng.pool_gauges() == jeng.pool_gauges()
     if case == "rope_tight_pool":
-        assert peng.preemptions > 0 and peng.pool_exhausted > 0
+        assert peng.stats.preemptions > 0 and peng.stats.pool_exhausted > 0
 
 
 def test_paged_streams_identical_to_dense(jax_params):
@@ -187,9 +188,9 @@ def test_preemption_matches_roomy_pool_and_jax(jax_params, temperature):
     tight, psched, peng = _port_run(pp, pcfg, reqs, num_pages=7, **kw)
     want, jsched, jeng = _jax_run(jp, cfg, reqs, num_pages=7,
                                   page_size=PAGE, cache_dtype=jnp.float32)
-    assert peng.preemptions > 0
+    assert peng.stats.preemptions > 0
     assert tight == roomy == want
-    assert peng.preemptions == jeng.stats.preemptions
+    assert peng.stats.preemptions == jeng.stats.preemptions
     assert _outcomes(psched, 2) == _outcomes(jsched, 2)
 
 
@@ -254,7 +255,7 @@ def test_prefix_pages_stored_once_and_cow_keeps_them(jax_params):
         shared = eng._slot_pages[0][1]
         assert eng.pool.refcount(shared) == 3     # 2 slots + registry
         assert eng.prepare_decode({0: 6, 1: 6}) == []
-        assert eng.cow_copies == 2 and eng.pool.refcount(shared) == 1
+        assert eng.stats.cow_copies == 2 and eng.pool.refcount(shared) == 1
         step = eng.decode([31, 37], [True, True])
         eng.check_invariants()
     for i in range(2):

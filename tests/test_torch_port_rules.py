@@ -584,6 +584,8 @@ PORT_ONLY = {
     "examples/gpt/profile_train.py": "a profiler window on the card",
     "examples/imagenet/profile_train.py": "a profiler window on the card",
     "examples/kernel_ab.py": "kernels of two checkouts in one process",
+    "examples/gpt/tiered_ab.py": "chip_smoke.py's tiered serving phase of "
+                                 "two checkouts in turns",
     "transformer/functional/paged_attention.py":
         "the paged decode and verify attention kernel (XLA inside the JAX "
         "package's models/gpt.py: _paged_decode_attention, "
@@ -657,30 +659,21 @@ DEPARTURES.update({
 # item lands, delete its entry: the scan then holds every one of its names
 # to the reference.
 OWED = {
-    "A4.3 chunked prefill": [
-        "serving/decode.py:make_chunk_prefill_fn",
-        "serving/scheduler.py:DecodeEngine.begin_chunk_prefill",
-        "serving/scheduler.py:DecodeEngine.chunk_prefill",
-        "serving/scheduler.py:DecodeEngine.finish_chunk_prefill",
-        "serving/scheduler.py:PagedDecodeEngine.begin_chunk_prefill",
-        "serving/scheduler.py:PagedDecodeEngine.chunk_prefill",
-        "serving/scheduler.py:PagedDecodeEngine.finish_chunk_prefill"],
     "A4.4 faults, tracer and tenancy": [
         f"serving/health.py:{n}" for n in (
             "RetryBudgetExhausted", "DeadlineExceeded",
             "AdmissionRejected", "LivelockError",
             "TransferFailed", "TransferCorrupt", "ReshardFailed",
             "ReplicaUnavailable", "StreamFailed", "SloViolation",
-            "ReplicaHealth", "ServingStats", "snapshot", "RequestOutcome.ok",
+            "ReplicaHealth", "RequestOutcome.ok",
             "RequestOutcome.error", "RequestOutcome.retries",
             "RequestOutcome.tenant_id", "RequestOutcome.slo")] + [
-        "serving/scheduler.py:DecodeEngine.__init__",  # injector, tracer
+        # only injector= is owed (the fault tier); tracer= has landed
+        "serving/scheduler.py:DecodeEngine.__init__",
         "serving/scheduler.py:Request.deadline_ticks",
         "serving/scheduler.py:Request.tenant_id",
-        "serving/scheduler.py:ContinuousBatchingScheduler.__init__",
-        "serving/scheduler.py:ContinuousBatchingScheduler.clock",
-        "serving/scheduler.py:ContinuousBatchingScheduler.advance_clock",
-        "serving/scheduler.py:ContinuousBatchingScheduler.submit"] + [
+        # max_retries, max_queue, watchdog_limit, audit, tenancy, streams
+        "serving/scheduler.py:ContinuousBatchingScheduler.__init__"] + [
         f"serving/transfer.py:{n}" for n in (
             "make_tile_transfer_fns", "make_reshard_extract_fn",
             "transfer_checksum", "PageTransfer", "PageReshard")],
@@ -761,7 +754,6 @@ EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer")
 OWED_VALUES = {
     "A4.4 faults, tracer and tenancy": [
         ("PagedDecodeEngine", "injector", object()),
-        ("PagedDecodeEngine", "tracer", object()),
         ("PagePool", "injector", object())],
 }
 

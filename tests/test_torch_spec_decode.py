@@ -352,7 +352,7 @@ def test_wide_verify_past_a_free_slots_position_table(paged):
     got, psched = run(port_serving, _port(jp), pcfg, 24, device="cpu")
     plain, _ = run(port_serving, _port(jp), pcfg, 0, device="cpu")
     assert got == want == plain
-    assert psched.spec_ticks == jsched.stats.spec_ticks > 0
+    assert psched.stats.spec_ticks == jsched.stats.spec_ticks > 0
 
 
 # -- verify steps --------------------------------------------------------------
@@ -527,8 +527,9 @@ def _jax_run(params, paged, dtype, reqs=None, **kw):
 
 
 def _counters(sched):
-    return (sched.spec_ticks, sched.plain_ticks, sched.tokens_drafted,
-            sched.tokens_accepted)
+    st = sched.stats
+    return (st.spec_ticks, st.plain_ticks, st.tokens_drafted,
+            st.tokens_accepted)
 
 
 def _jax_counters(sched):
@@ -570,14 +571,14 @@ def test_spec_streams_match_jax_and_plain(params, case):
     assert got == want
     assert got == plain
     assert _counters(psched) == _jax_counters(jsched)
-    assert psched.tokens_drafted > 0
+    assert psched.stats.tokens_drafted > 0
     for rid in range(len(got)):
         o, w = psched.outcomes[rid], jsched.outcomes[rid]
         assert (o.reason, o.ttft_ticks, o.total_ticks) == (
             w.reason, w.ttft_ticks, w.total_ticks)
     if "model" in case or "tree" in case:
-        assert psched.tokens_accepted > 0
-        assert 0 < psched.acceptance_rate <= 1
+        assert psched.stats.tokens_accepted > 0
+        assert 0 < psched.stats.acceptance_rate <= 1
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
@@ -590,7 +591,7 @@ def test_spec_stream_bit_identical_to_plain(params, spec_k, paged):
     plain, _ = _port_run(params[1], paged, "bfloat16")
     spec, sched = _port_run(params[1], paged, "bfloat16", spec_k=spec_k)
     assert spec == plain
-    assert sched.tokens_drafted > 0 and sched.tokens_accepted >= 0
+    assert sched.stats.tokens_drafted > 0 and sched.stats.tokens_accepted >= 0
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
@@ -602,7 +603,7 @@ def test_tree_spec_stream_bit_identical_to_plain(params, paged):
     spec, sched = _port_run(params[1], paged, "bfloat16", spec_k=3,
                             draft_model="self", tree_spec=True)
     assert spec == plain
-    assert sched.spec_ticks > 0 and sched.tokens_accepted > 0
+    assert sched.stats.spec_ticks > 0 and sched.stats.tokens_accepted > 0
 
 
 def test_spec_near_max_len_degrades_to_plain(params):
@@ -626,7 +627,7 @@ def test_spec_near_max_len_degrades_to_plain(params):
     assert got == run(port_serving, params[1], pcfg, 0)[0]
     want, jsched = run(jax_serving, params[0], jcfg, 3)
     assert got == want
-    assert psched.plain_ticks == jsched.stats.plain_ticks > 0
+    assert psched.stats.plain_ticks == jsched.stats.plain_ticks > 0
 
 
 def test_spec_config_validation(params):
@@ -667,7 +668,7 @@ def test_spec_stream_w8_bit_identical_to_plain(params):
     for paged in (False, True):
         plain, _ = _port_run(pp, paged, "float32", reqs)
         spec, sched = _port_run(pp, paged, "float32", reqs, spec_k=2)
-        assert spec == plain and sched.tokens_drafted > 0
+        assert spec == plain and sched.stats.tokens_drafted > 0
 
 
 def test_kv8_rejected_tails_do_not_perturb(params):
