@@ -50,11 +50,18 @@
 // memory holds the slice's queries, so a window wider than one launch
 // holds (kMaxK1, or fewer at a wide hd) runs as consecutive slices,
 // and by the order above they give the bits of one launch over all.
+//
+// The prompt-chunk attention (apx_paged_chunk_attention, below the
+// decode and verify kernel) is a second kernel of this file: one slot's
+// chunk of sc bf16 queries against a bf16 pool on the tensor cores. Its
+// note stands above its code.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -505,6 +512,572 @@ cudaError_t launch_q(const void* q, const void* kp, const void* vp,
   }
 }
 
+// -- the prompt-chunk attention on the tensor cores --------------------------
+//
+// One slot's prompt chunk: sc bf16 queries at logical positions pos ..
+// pos + sc - 1 against one layer's bf16 page pool, query j seeing the
+// rows s <= pos + j (the linear mask) through the slot's gather row.
+// No Pallas kernel is replaced: the JAX package computes it as XLA in
+// apex_tpu/models/gpt.py:659 _paged_chunk_prefill_attention, a gather
+// of the whole row, fp32 scores divided by sqrt(hd), finfo(f32).min
+// where a query cannot see the row, an fp32 softmax and an fp32 product
+// with V, one cast to bf16. It promises no bit relation between a chunk
+// query and a decode step, and speculation never reaches this path, so
+// this kernel leaves the decode kernel's per-query order behind.
+//
+// What bounds it on an H100: bytes. The live K and V rows are read once
+// for all sc queries (4 (pos + sc) nh hd bytes) against 4 operations a
+// query a visible K/V element, between sc / 2 and sc operations a byte:
+// below the bf16 tensor cores' 295 at sc = 256. What bounded the verify
+// kernel's route (16 blocks a launch, scalar fp32 dots from shared
+// memory, four launches a chunk in series), and what bounds this
+// kernel as built, is the latency of a block's walk over its tiles.
+//
+// Design. One launch a chunk: one 256-thread block a (64-query tile,
+// head, part, slot), the longest tiles first. Two warps share each 16
+// queries, each taking half of every tile's 64 keys (two warps a
+// scheduler hide each other's mma and exp latency; the halves' m, l and
+// acc are combined at the end, first half first). The block walks
+// 64-row logical K/V tiles from row 0 to the last row its last query
+// sees (tiles wholly past it are never loaded); each row's address
+// comes from the gather row (held in shared memory) at s / page and s %
+// page, copied by 16-byte cp.async.cg into a three-tile ring of bf16
+// rows padded by 16 bytes (ldmatrix reads eight rows on distinct
+// banks), hd zero-padded to 32, 64 or 128, two tiles in flight while
+// one is used (flash_attention.cu's ring, one stage deeper: a slot's
+// chunk leaves one block an SM, so nothing else hides the copies'
+// latency). S = q k^T by mma.sync.m16n8k16 with bf16 operands and fp32
+// accumulators (exact products, as the reference's upcast einsum), then
+// multiplied by the scale in fp32 (q is not prescaled and rounded). The
+// mask is applied only on tiles that cross a warp's diagonal or the
+// last row read. An online softmax keeps m, l and the accumulator in
+// fp32, with expf. P V keeps the fp32 probabilities: p is split into a
+// bf16 hi and a bf16 lo = bf16(p - hi) (p - hi is exact), two mma into
+// the same fp32 accumulator, hi then lo, so each p keeps about 16 bits
+// (its residual below 2^-16 p) where one rounding would keep 8. ctx =
+// acc / l, rounded once to bf16, staged through shared memory and
+// written as 16-byte rows.
+//
+// The split: one slot's chunk fills few blocks (64 at sc 256, 16
+// heads), and a tile's block walks up to pos / 64 + 4 tiles in series.
+// The rows are cut into at most `splits` parts of at least kMinTiles
+// tiles (the count from pos, on the card: the grid is sized from the
+// table, parts past it exit at once; the grid places every first part
+// before any later one, so the first parts spread over the SMs). Each
+// part writes its m, l and fp32 accumulator; the last part to arrive,
+// by an integer counter that it resets, combines them in part order
+// (weights exp(m_p - M)) and writes ctx. No float atomics: the same bits
+// on every launch, whichever part arrives last. The ring's depth, the
+// key halves and kMinTiles were chosen by their times on the card
+// (PERF.md): at pos 768 the split walk takes about 0.7 of one part's.
+//
+// Every sum's order depends only on logical positions, pos, sc and hd,
+// never on physical page ids: the same logical contents under any page
+// placement give the same bits. Shared memory is (64 + 6 x 64) padded
+// rows plus the gather row, 64.5 KB at hd 64; at most 128 registers a
+// thread at hd <= 64, so two blocks fit an SM (one at hd 128).
+namespace chunk {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kBQ = 64;        // queries a block: four row groups of 16
+constexpr int kBK = 64;        // logical rows a K/V tile
+constexpr int kKW = kBK / 2;   // keys of a tile a warp takes: one half
+constexpr int kThreads = 256;  // two warps (key halves) a row group
+constexpr int kStages = 3;     // K/V tiles in the ring
+constexpr int kPad = 8;        // bf16 padding a shared row: 16 bytes
+constexpr int kMinTiles = 2;   // the fewest tiles a part of a split walk
+constexpr int kMaxSplits = 4;
+constexpr int kMaxHd = 128;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// Four 8x8 b16 matrices (ldmatrix; .trans for an operand stored k-major)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) . b (16x8 bf16, col); lane (g =
+// lane / 4, t = lane % 4) holds c[0..1] at row g, cols 2t, 2t + 1 and
+// c[2..3] at row g + 8 (flash_attention.cu's mma_bf16)
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// p's bf16 hi and lo = bf16(p - hi) for two columns (low column in the
+// low half); p - hi is exact in fp32
+__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo,
+                                           float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 16 bytes global -> shared, bypassing L1; `full` false zero-fills
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// This lane's row address for an x4 ldmatrix of the 16 x 16 slice at
+// (row0, col0): A operand (row major), B from n-major rows, B from
+// k-major rows (.trans); flash_attention.cu's a_addr, bn_addr, bk_addr
+template <int LD>
+__device__ __forceinline__ uint32_t a_addr(const bf16* t, int row0, int col0,
+                                           int lane) {
+  return smem_addr(t + (row0 + (lane & 15)) * LD + col0 + (lane >> 4) * 8);
+}
+
+template <int LD>
+__device__ __forceinline__ uint32_t bn_addr(const bf16* t, int n0, int k0,
+                                            int lane) {
+  return smem_addr(t + (n0 + (lane >> 4) * 8 + (lane & 7)) * LD + k0 +
+                   ((lane >> 3) & 1) * 8);
+}
+
+template <int LD>
+__device__ __forceinline__ uint32_t bk_addr(const bf16* t, int k0, int n0,
+                                            int lane) {
+  return smem_addr(t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
+                   (lane >> 4) * 8);
+}
+
+struct Params {
+  const bf16* q;     // (b, nh, sc, hd)
+  const bf16* kp;    // (num_pages, nh, page, hd)
+  const bf16* vp;
+  const int* bt;     // (b, max_pages)
+  const int* pos;    // (b,)
+  bf16* out;         // (b, nh, sc, hd)
+  float* work;       // parts' m, l, acc; null without a split
+  int* counters;     // arrival counters, zero; null without a split
+  int nb, nh, sc, page, hd, max_pages, splits, nqt;
+  float scale;
+};
+
+// head_dim rounded up to the tile width the kernel is built for
+__host__ __device__ __forceinline__ int tile_dm(int hd) {
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+}
+
+size_t smem_bytes(int hd, int max_pages) {
+  return static_cast<size_t>(kBQ + 2 * kStages * kBK) * (tile_dm(hd) + kPad) *
+             2 +
+         (static_cast<size_t>(max_pages) + 3) / 4 * 16;
+}
+
+// two blocks an SM at hd <= 64 (at most 128 registers a thread), one
+// at 128
+template <int DM>
+__global__ void __launch_bounds__(kThreads, DM == 128 ? 1 : 2)
+chunk_attention_kernel(const Params p) {
+  constexpr int LD = DM + kPad;
+  constexpr int KC = DM / 16;          // k chunks of q k^T
+  constexpr int NT = kKW / 8;          // score n-tiles a warp
+  constexpr int ND = DM / 8;           // output n-tiles
+  constexpr int CH = DM / 8;           // 16-byte chunks a row
+  constexpr int ITER = kBK * CH / kThreads;
+  constexpr int RSTEP = kThreads / CH; // rows between a thread's copies
+  static_assert(kBK * CH % kThreads == 0 && kBQ == kBK, "whole copies");
+  extern __shared__ float4 smem4[];
+  __shared__ int s_last;
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* Ks = Qs + kBQ * LD;                  // kStages buffers
+  bf16* Vs = Ks + kStages * kBK * LD;        // kStages buffers
+  int* Ts = reinterpret_cast<int*>(Vs + kStages * kBK * LD);  // gather row
+
+  // the grid runs x (tiles, the longest first), then heads, then (part,
+  // slot): every slot's first parts are placed before any later part
+  const int qt = p.nqt - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y;
+  const int part = blockIdx.z / p.nb, b = blockIdx.z % p.nb;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // warp (qw, kh): queries qw * 16 .. + 15 of the tile, keys kh * kKW ..
+  // + kKW - 1 of each K/V tile
+  const int qw = warp & 3, kh = warp >> 2, kc0 = kh * kKW;
+  const int j0 = qt * kBQ;
+  const int p0 = p.pos[b];
+  // the rows this tile's queries see: 0 .. nrows - 1
+  const int nrows = min(p0 + min(j0 + kBQ, p.sc), p.max_pages * p.page);
+  const int n_kt = (nrows + kBK - 1) / kBK;
+  const int ns = max(1, min(p.splits, n_kt / kMinTiles));
+  if (part >= ns) return;
+  const int kt_lo = part * n_kt / ns, kt_hi = (part + 1) * n_kt / ns;
+
+  const int* row = p.bt + static_cast<long long>(b) * p.max_pages;
+  for (int i = tid; i * p.page < nrows; i += kThreads) Ts[i] = row[i];
+  __syncthreads();
+
+  const long long page_stride = static_cast<long long>(p.nh) * p.page * p.hd;
+  const bf16* kg = p.kp + static_cast<long long>(h) * p.page * p.hd;
+  const bf16* vg = p.vp + static_cast<long long>(h) * p.page * p.hd;
+  const int cc = (tid % CH) * 8;       // this thread's column of every row
+  // tile kt's rows, each from its page in the gather row (one division a
+  // tile, then steps of RSTEP rows); zeros past the last row read and hd
+  auto issue = [&](int kt) {
+    int r = tid / CH, s = kt * kBK + r;
+    int lp = s / p.page, rin = s % p.page;
+    bf16* kd = Ks + (kt % kStages) * kBK * LD;
+    bf16* vd = Vs + (kt % kStages) * kBK * LD;
+#pragma unroll
+    for (int it = 0; it < ITER; ++it) {
+      const bool in = s < nrows && cc < p.hd;
+      long long off = 0;
+      if (in)
+        off = Ts[lp] * page_stride + static_cast<long long>(rin) * p.hd + cc;
+      cp_async16(smem_addr(kd + r * LD + cc), kg + off, in);
+      cp_async16(smem_addr(vd + r * LD + cc), vg + off, in);
+      r += RSTEP;
+      s += RSTEP;
+      for (rin += RSTEP; rin >= p.page; rin -= p.page) ++lp;
+    }
+  };
+  const bf16* qg =
+      p.q + ((static_cast<long long>(b) * p.nh + h) * p.sc + j0) * p.hd;
+#pragma unroll
+  for (int it = 0; it < ITER; ++it) {
+    const int r = tid / CH + it * RSTEP;
+    const bool in = j0 + r < p.sc && cc < p.hd;
+    cp_async16(smem_addr(Qs + r * LD + cc), in ? qg + r * p.hd + cc : qg,
+               in);
+  }
+  // one commit group a tile (the first with q): tile kt has landed once
+  // at most kStages - 2 later groups are pending
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (kt_lo + st < kt_hi) issue(kt_lo + st);
+    cp_async_commit();
+  }
+
+  const int row0 = j0 + qw * 16;      // this warp's first query
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  uint32_t qf[KC][4];
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile kt landed; tile kt - 1's buffer consumed
+    if (kt + kStages - 1 < kt_hi) issue(kt + kStages - 1);
+    cp_async_commit();
+    if (kt == kt_lo) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        ldsm_x4(qf[kc], a_addr<LD>(Qs, qw * 16, kc * 16, lane));
+    }
+    const int k0 = kt * kBK + kc0;    // this warp's first key
+    const bf16* Kb = Ks + (kt % kStages) * kBK * LD + kc0 * LD;
+    const bf16* Vb = Vs + (kt % kStages) * kBK * LD + kc0 * LD;
+
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t r[4];
+        ldsm_x4(r, bn_addr<LD>(Kb, j * 16, kc * 16, lane));
+        mma_bf16(s[2 * j], qf[kc], r[0], r[1]);
+        mma_bf16(s[2 * j + 1], qf[kc], r[2], r[3]);
+      }
+
+    // the online softmax over this lane's rows row0 + g and row0 + g +
+    // 8: scores times the scale in fp32; -inf (p = 0) where a query
+    // cannot see the row, on tiles that cross the warp's diagonal or the
+    // last row read
+    auto softmax = [&](auto masked) {
+      constexpr bool MASKED = decltype(masked)::value;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[n][i] *= p.scale;
+          if constexpr (MASKED) {
+            const int col = k0 + n * 8 + 2 * t4 + (i & 1);
+            if (col >= nrows || col > p0 + row0 + g + (i >> 1) * 8)
+              s[n][i] = -CUDART_INF_F;
+          }
+        }
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = rescale(m[r], m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float pr;
+          if constexpr (MASKED)
+            pr = s[n][i] == -CUDART_INF_F ? 0.f : expf(s[n][i] - m[i >> 1]);
+          else
+            pr = expf(s[n][i] - m[i >> 1]);
+          l[i >> 1] += pr;
+          s[n][i] = pr;
+        }
+    };
+    if (k0 + kKW > nrows || k0 + kKW - 1 > p0 + row0)
+      softmax(std::true_type());
+    else
+      softmax(std::false_type());
+
+    // acc += p v, p as hi + lo: the score accumulator's layout is the A
+    // operand's, two n-tiles to a k chunk of 16 rows
+#pragma unroll
+    for (int kk = 0; kk < kKW / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_bf16(hi[0], lo[0], s[2 * kk][0], s[2 * kk][1]);
+      split_bf16(hi[1], lo[1], s[2 * kk][2], s[2 * kk][3]);
+      split_bf16(hi[2], lo[2], s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      split_bf16(hi[3], lo[3], s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {
+        uint32_t r[4];
+        ldsm_x4_t(r, bk_addr<LD>(Vb, kk * 16, j * 16, lane));
+        mma_bf16(acc[2 * j], hi, r[0], r[1]);
+        mma_bf16(acc[2 * j], lo, r[0], r[1]);
+        mma_bf16(acc[2 * j + 1], hi, r[2], r[3]);
+        mma_bf16(acc[2 * j + 1], lo, r[2], r[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  {
+    // the second key half's m, l and acc into the first's, through the
+    // ring's shared memory: acc = acc_0 e^(m_0 - m) + acc_1 e^(m_1 - m)
+    constexpr int XW = 16 * DM + 32;
+    float* x = reinterpret_cast<float*>(Ks) + qw * XW;
+    __syncthreads();                   // every warp is past the ring
+    if (kh == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+          *reinterpret_cast<float2*>(x + (g + 8 * r) * DM + n * 8 + 2 * t4) =
+              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+        if (t4 == 0) {
+          x[16 * DM + g + 8 * r] = m[r];
+          x[16 * DM + 16 + g + 8 * r] = l[r];
+        }
+      }
+    }
+    __syncthreads();
+    if (kh == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m1 = x[16 * DM + g + 8 * r];
+        const float mm = fmaxf(m[r], m1);
+        const float c0 = rescale(m[r], mm), c1 = rescale(m1, mm);
+        l[r] = l[r] * c0 + x[16 * DM + 16 + g + 8 * r] * c1;
+        m[r] = mm;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          const float2 a1 = *reinterpret_cast<const float2*>(
+              x + (g + 8 * r) * DM + n * 8 + 2 * t4);
+          acc[n][2 * r] = acc[n][2 * r] * c0 + a1.x * c1;
+          acc[n][2 * r + 1] = acc[n][2 * r + 1] * c0 + a1.y * c1;
+        }
+      }
+    }
+  }
+  bf16* og = p.out + ((static_cast<long long>(b) * p.nh + h) * p.sc + j0) *
+                         p.hd;
+  if (ns == 1) {
+    if (kh != 0) return;
+    // ctx = acc / l through this warp's own 16 rows of the q tile, out
+    // in 16-byte rows
+    bf16* Qw = Qs + qw * 16 * LD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(Qw + (g + 8 * r) * LD + n * 8 +
+                                           2 * t4) =
+            __floats2bfloat162_rn(acc[n][2 * r] / l[r],
+                                  acc[n][2 * r + 1] / l[r]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 16 * CH / 32; ++it) {
+      const int i = lane + it * 32;
+      const int r = i / CH, c = (i % CH) * 8, j = qw * 16 + r;
+      if (j0 + j < p.sc && c < p.hd)
+        *reinterpret_cast<uint4*>(og + static_cast<long long>(j) * p.hd + c) =
+            *reinterpret_cast<const uint4*>(Qw + r * LD + c);
+    }
+    return;
+  }
+
+  // a split walk: this part's m, l and acc, then the last part to arrive
+  // combines the parts in part order
+  const long long unit = (static_cast<long long>(b) * p.nh + h) * p.nqt + qt;
+  const long long part_floats = static_cast<long long>(kBQ) * (p.hd + 2);
+  float* mine = p.work + (unit * p.splits + part) * part_floats;
+  if (kh == 0) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = n * 8 + 2 * t4;
+      if (c < p.hd)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(mine + (qw * 16 + g + 8 * r) * p.hd +
+                                     c) =
+              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+    if (t4 == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = qw * 16 + g + 8 * r;
+        mine[kBQ * p.hd + j] = m[r];
+        mine[kBQ * p.hd + kBQ + j] = l[r];
+      }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int prev = atomicAdd(p.counters + unit, 1);
+    s_last = prev == ns - 1;
+    if (s_last) p.counters[unit] = 0;   // for the next launch
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* parts = p.work + unit * p.splits * part_floats;
+  float* W = reinterpret_cast<float*>(Qs);   // [ns][kBQ] weights, [kBQ] L
+  if (tid < kBQ) {
+    float mm = -CUDART_INF_F;
+    for (int q = 0; q < ns; ++q)
+      mm = fmaxf(mm, __ldcg(parts + q * part_floats + kBQ * p.hd + tid));
+    float big_l = 0.f;
+    for (int q = 0; q < ns; ++q) {
+      const float* pq = parts + q * part_floats + kBQ * p.hd;
+      const float w = rescale(__ldcg(pq + tid), mm);
+      W[q * kBQ + tid] = w;
+      big_l += w * __ldcg(pq + kBQ + tid);
+    }
+    W[ns * kBQ + tid] = big_l;
+  }
+  __syncthreads();
+  // ctx = sum over parts (in part order) of w_q acc_q, over L: each
+  // thread ITEMS float4s of the tile, every part's loads in flight
+  constexpr int Q4 = DM / 4;
+  constexpr int ITEMS = kBQ * Q4 / kThreads;
+  float4 o[ITEMS];
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) o[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int q = 0; q < kMaxSplits; ++q) {
+    if (q < ns) {
+#pragma unroll
+      for (int u = 0; u < ITEMS; ++u) {
+        const int i = tid + u * kThreads, j = i / Q4, c = (i % Q4) * 4;
+        if (c < p.hd && j0 + j < p.sc) {
+          const float4 a = __ldcg(reinterpret_cast<const float4*>(
+              parts + q * part_floats + j * p.hd + c));
+          const float w = W[q * kBQ + j];
+          o[u].x += w * a.x;
+          o[u].y += w * a.y;
+          o[u].z += w * a.z;
+          o[u].w += w * a.w;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    const int i = tid + u * kThreads, j = i / Q4, c = (i % Q4) * 4;
+    if (c < p.hd && j0 + j < p.sc) {
+      const float big_l = W[ns * kBQ + j];
+      const __nv_bfloat162 lo2 =
+          __floats2bfloat162_rn(o[u].x / big_l, o[u].y / big_l);
+      const __nv_bfloat162 hi2 =
+          __floats2bfloat162_rn(o[u].z / big_l, o[u].w / big_l);
+      uint2 v;
+      v.x = *reinterpret_cast<const uint32_t*>(&lo2);
+      v.y = *reinterpret_cast<const uint32_t*>(&hi2);
+      *reinterpret_cast<uint2*>(og + static_cast<long long>(j) * p.hd + c) = v;
+    }
+  }
+}
+
+template <int DM>
+cudaError_t launch_chunk(const Params& p, cudaStream_t st) {
+  const size_t smem = smem_bytes(p.hd, p.max_pages);
+  auto kernel = chunk_attention_kernel<DM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(p.nqt, p.nh, p.splits * p.nb);
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace chunk
+
 }  // namespace
 
 extern "C" {
@@ -557,6 +1130,70 @@ int apx_paged_attention(const void* q, const void* k_pages,
                                   max_pages, kv_dtype, scale, st);
   else
     err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The most parts a chunk tile's key walk is cut into, and the fewest
+// 64-row tiles a part holds.
+int apx_paged_chunk_max_splits() { return chunk::kMaxSplits; }
+int apx_paged_chunk_min_tiles() { return chunk::kMinTiles; }
+
+// The prompt-chunk attention. q, out: (b, nh, sc, hd) bf16 contiguous;
+// k_pages, v_pages: (num_pages, nh, page, hd) bf16 contiguous;
+// block_tables: (b, max_pages) int32 (each slot's gather row); pos: (b,)
+// int32. Query j of slot b attends the logical rows s <= pos[b] + j, s <
+// max_pages * page. splits: 1 .. 4, the most parts a 64-query tile's
+// walk over the rows is cut into (the count on the card from pos); with
+// splits > 1, work holds splits * b * nh * ceil(sc / 64) * 64 * (hd + 2)
+// fp32 and counters b * nh * ceil(sc / 64) int32 zeros (left zero).
+// 8 <= hd <= 128, hd % 8 == 0; q, pools and out 16-byte aligned;
+// nh, b * splits <= 65535. Launches on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments outside these limits.
+int apx_paged_chunk_attention(const void* q, const void* k_pages,
+                              const void* v_pages, const void* block_tables,
+                              const void* pos, void* out, void* work,
+                              void* counters, int b, int nh, int sc,
+                              int page, int hd, int max_pages, int splits,
+                              float scale, void* stream) {
+  const uintptr_t addr =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pages) |
+      reinterpret_cast<uintptr_t>(v_pages) | reinterpret_cast<uintptr_t>(out);
+  if (b < 1 || nh < 1 || nh > 65535 || sc < 1 || page < 1 || hd < 8 ||
+      hd > chunk::kMaxHd || hd % 8 || max_pages < 1 || splits < 1 ||
+      splits > chunk::kMaxSplits || b * splits > 65535 || addr % 16 ||
+      (splits > 1 && (work == nullptr || counters == nullptr)) ||
+      chunk::smem_bytes(hd, max_pages) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  chunk::Params p;
+  p.q = static_cast<const chunk::bf16*>(q);
+  p.kp = static_cast<const chunk::bf16*>(k_pages);
+  p.vp = static_cast<const chunk::bf16*>(v_pages);
+  p.bt = static_cast<const int*>(block_tables);
+  p.pos = static_cast<const int*>(pos);
+  p.out = static_cast<chunk::bf16*>(out);
+  p.work = static_cast<float*>(work);
+  p.counters = static_cast<int*>(counters);
+  p.nb = b;
+  p.nh = nh;
+  p.sc = sc;
+  p.page = page;
+  p.hd = hd;
+  p.max_pages = max_pages;
+  p.splits = splits;
+  p.nqt = (sc + chunk::kBQ - 1) / chunk::kBQ;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (chunk::tile_dm(hd)) {
+    case 32:
+      err = chunk::launch_chunk<32>(p, st);
+      break;
+    case 64:
+      err = chunk::launch_chunk<64>(p, st);
+      break;
+    default:
+      err = chunk::launch_chunk<128>(p, st);
+  }
   return static_cast<int>(err);
 }
 

@@ -40,11 +40,12 @@ max_len 1024, 2 + 8 x 16 pages of 64, a bf16 pool), chunked at
 ``chunk_tokens`` 256 and monolithic, each after a one-request warm-up.
 For each run it gives the device time of the chunk attention: the
 kernels launched inside ``models.gpt._paged_chunk_prefill_attention``
-(the page-tile write) and the verify kernel's launches over one slot
-(a decode tick launches the paged attention kernel over all 8 slots; the
-profiler links no CPU range to a kernel launched through ``ctypes``, so
-the launches are told apart by their grid in the profiler's Chrome
-trace), and the paged attention kernel's time on the whole run.
+(the page-tile write), the chunk kernel's launches and any verify
+kernel launches over one slot (a decode tick launches the paged
+attention kernel over all 8 slots; the profiler links no CPU range to a
+kernel launched through ``ctypes``, so the launches are told apart by
+name and grid in the profiler's Chrome trace), and the paged attention
+kernel's time on the whole run.
 Runs on the CUDA device::
 
     python -m apex_tpu_torch.examples.gpt.profile_serving [--w8] \
@@ -144,18 +145,19 @@ def range_kernels(prof, name, backward=None):
     return ms, n
 
 
-def kernel_launches(prof, match):
-    """(grid, device ms) of every kernel launch whose name holds
-    ``match``, read from the profiler's Chrome trace (where each launch
-    keeps its grid)."""
+def kernel_launches(prof, *matches):
+    """For each of ``matches``, (grid, device ms) of every kernel launch
+    whose name holds it, read from the profiler's Chrome trace (where
+    each launch keeps its grid; a profile exports its trace once)."""
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
-    return [(tuple(e.get("args", {}).get("grid", ())), e["dur"] / 1e3)
-            for e in events
-            if e.get("cat") == "kernel" and match in e.get("name", "")]
+    return [[(tuple(e.get("args", {}).get("grid", ())), e["dur"] / 1e3)
+             for e in events
+             if e.get("cat") == "kernel" and match in e.get("name", "")]
+            for match in matches]
 
 
 def window(name, work, groups=None, n_top=8, rope=False, inspect=None):
@@ -329,17 +331,24 @@ def chunked_runs(params, cfg, dev, chunk=256):
         out["chunk_write_ms"], out["chunk_write_kernels"] = range_kernels(
             prof, "chunk_attention")
         # grid (heads, slots): a chunk's launches cover one slot
-        one_slot = [t for g, t in kernel_launches(prof, "paged_attention")
-                    if len(g) > 1 and g[1] == 1]
+        paged, chunk = kernel_launches(prof, "paged_attention",
+                                       "chunk_attention_kernel")
+        one_slot = [t for g, t in paged if len(g) > 1 and g[1] == 1]
         out["chunk_verify_ms"] = sum(one_slot)
         out["chunk_verify_launches"] = len(one_slot)
+        chunk = [t for _, t in chunk]
+        out["chunk_kernel_ms"] = sum(chunk)
+        out["chunk_kernel_launches"] = len(chunk)
         out["chunk_attention_ms"] = (out["chunk_write_ms"]
+                                     + out["chunk_kernel_ms"]
                                      + out["chunk_verify_ms"])
         out["chunk_attention_share"] = (out["chunk_attention_ms"]
                                         / out["device_ms"])
         print(f"    chunk attention: {out['chunk_attention_ms']:.3f} ms "
               f"({100 * out['chunk_attention_share']:.1f}% of the device "
-              f"time): the verify kernel {out['chunk_verify_ms']:.3f} ms in "
+              f"time): the chunk kernel {out['chunk_kernel_ms']:.3f} ms in "
+              f"{out['chunk_kernel_launches']} launches, the verify kernel "
+              f"{out['chunk_verify_ms']:.3f} ms in "
               f"{out['chunk_verify_launches']} one-slot launches, the page "
               f"write {out['chunk_write_ms']:.3f} ms in "
               f"{out['chunk_write_kernels']} kernels")

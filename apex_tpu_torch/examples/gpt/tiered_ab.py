@@ -2,19 +2,22 @@
 512-token prefixes cycling over two slots on 2 + 40 pages with a host
 spill tier; an int8 and a bf16 pool, and the int8 mix without a tier on
 the same and on a roomy pool; GPT-2 medium O2, random weights from seed
-0) in this checkout against another checkout, on one card.
+0), or with ``--phase chunked`` its ``serving_chunked`` phase (the
+serving mix open-loop, chunked at 256 and monolithic, on the paged and
+the dense engine), in this checkout against another checkout, on one
+card.
 
     python -m apex_tpu_torch.examples.gpt.tiered_ab --other DIR \
-        [--logs DIR]
+        [--phase tiered|chunked] [--logs DIR]
 
 Run it from the root of the repository. ``DIR`` is the root of another
 checkout whose ``chip_smoke.py`` has the same ``serve_tiered(dev, kern,
-o2)``. Each run is a process of its own in its checkout's root (its
+o2)`` and ``serve_chunked(dev, kern, o2)``. Each run is a process of its own in its checkout's root (its
 kernels built from its own sources into its own build directory), in
 turns: this, other, other, this. A run's whole output goes to
 ``--logs``; this script prints, for each run, its checkout and the wall
-seconds, tokens and tokens/s of each of the phase's four mixes, one
-JSON object a run, the card's name and power limit first.
+seconds, tokens and tokens/s of each of the phase's four runs, one JSON
+object a run, the card's name and power limit first.
 """
 
 import argparse
@@ -41,25 +44,27 @@ kern = dict(zip(cs.KERNEL_NAMES, (
     mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1, w8.W8_MATMUL_NOBIAS,
     w8.W8_MATMUL, w8.W8_MATMUL_NK, mta.FLAT_SGD, mta.FLAT_ADAGRAD,
     mta.FLAT_NOVOGRAD, prng.THREEFRY_BITS, prng.THREEFRY_DROPOUT,
-    pa.PAGED_DECODE, pa.PAGED_VERIFY)))
+    pa.PAGED_DECODE, pa.PAGED_VERIFY) + tuple(
+        getattr(pa, n) for n in ("PAGED_CHUNK",) if hasattr(pa, n))))
 params = init_gpt(gpt_medium(), torch.Generator().manual_seed(0), device=dev)
 with torch.inference_mode():
     o2 = amp.initialize("O2", verbosity=0).cast_model(params)
 del params
-out = cs.serve_tiered(dev, kern, o2)
+out = getattr(cs, "serve_" + PHASE)(dev, kern, o2)
 print("RESULT " + json.dumps({
     k: {f: v[f] for f in ("wall_s", "tokens", "tokens_per_s")}
     for k, v in out.items() if isinstance(v, dict) and "wall_s" in v}))
 '''
 
 
-def run(root, label, logs, i):
+def run(root, label, logs, i, phase):
     """One run of the phase in ``root``; its readings, or its exit code
     and the log's path when it failed."""
-    log = os.path.join(logs, f"tiered_ab_{i}_{label}.log")
+    log = os.path.join(logs, f"{phase}_ab_{i}_{label}.log")
     with open(log, "w") as f:
-        proc = subprocess.run([sys.executable, "-c", _RUN], cwd=root,
-                              stdout=f, stderr=subprocess.STDOUT)
+        proc = subprocess.run(
+            [sys.executable, "-c", f"PHASE = {phase!r}\n" + _RUN],
+            cwd=root, stdout=f, stderr=subprocess.STDOUT)
     res = None
     with open(log) as f:
         for line in f:
@@ -73,6 +78,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the checkout to compare with")
+    ap.add_argument("--phase", choices=("tiered", "chunked"),
+                    default="tiered", help="the chip_smoke.py phase timed")
     ap.add_argument("--logs", default="chiprun_out",
                     help="directory for each run's whole output")
     args = ap.parse_args(argv)
@@ -85,7 +92,7 @@ def main(argv=None):
     failed = False
     for i, (label, root) in enumerate((("this", this), ("other", other),
                                        ("other", other), ("this", this))):
-        res = run(root, label, args.logs, i)
+        res = run(root, label, args.logs, i, args.phase)
         failed |= res["rc"] != 0 or res["mixes"] is None
         print(json.dumps(res), flush=True)
     return 1 if failed else 0

@@ -12,10 +12,12 @@ selective-checkpoint policy). Attention goes through the port's
 entropy, the hidden dropout through ``utils.prng.dropout``; the dense
 products, RoPE, decode attention and embeddings are plain PyTorch, as
 they are plain ``jnp`` in the JAX package. Positions are learned or
-rotary (``use_rope``). The paged decode, verify and prompt-chunk blocks
-(bf16/fp32 and int8 pools, linear and tree masks) attend through
+rotary (``use_rope``). The paged decode and verify blocks (bf16/fp32
+and int8 pools, linear and tree masks) attend through
 ``paged_decode_attention`` and ``paged_verify_attention`` (one kernel on
-the card; XLA in the JAX package); the dense verify, tree and
+the card; XLA in the JAX package), the paged prompt-chunk block through
+``paged_chunk_attention`` (on the card a tensor-core kernel for a bf16
+chunk, the verify kernel otherwise); the dense verify, tree and
 prompt-chunk blocks are plain PyTorch, as they are XLA there.
 The tensor-, sequence- and context-parallel paths (``GPTModel`` and its
 fields) are a later slice. Weight-only int8 trees run the serving blocks
@@ -41,7 +43,9 @@ from apex_tpu_torch.transformer.functional import (
     flash_attention, fused_apply_rotary_pos_emb_bhsd, paged_decode_attention,
     paged_verify_attention, rope_frequencies,
 )
-from apex_tpu_torch.transformer.functional.paged_attention import visible
+from apex_tpu_torch.transformer.functional.paged_attention import (
+    paged_chunk_attention, visible,
+)
 from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -664,12 +668,12 @@ def _paged_chunk_prefill_attention(q_k_v, k_pages, v_pages, write_pages,
     are cut into page tiles and written to ``write_pages`` (shared pages
     redirected to scratch by the host), then every query attends the
     slot's ``gather_row`` ((max_pages,) int32) with the mask ``s <= pos
-    + j``. A chunk of sc queries at ``pos`` is a linear verify window of
-    k1 = sc, so it attends through ``paged_verify_attention`` (the
-    kernel on the card, one launch a slice of ``verify_slices``). The
-    row is passed apart from the slot's stored block-table row, which
-    the scheduler parks on scratch until the final chunk. Returns ctx
-    (1, sc, h)."""
+    + j``, through ``paged_chunk_attention``: on the card one launch of
+    the chunk kernel (tensor cores) for bf16 q and pool, the verify
+    kernel's slices otherwise (an fp32 chunk is a linear verify window of
+    k1 = sc). The row is passed apart from the slot's stored block-table
+    row, which the scheduler parks on scratch until the final chunk.
+    Returns ctx (1, sc, h)."""
     sc = q_k_v.shape[1]
     hd = cfg.head_dim
     page_size = k_pages.shape[2]
@@ -687,8 +691,8 @@ def _paged_chunk_prefill_attention(q_k_v, k_pages, v_pages, write_pages,
     write = write_pages.long()
     k_pages[write] = tiles(k)
     v_pages[write] = tiles(v)
-    return _merge_heads(paged_verify_attention(
-        q.contiguous(), k_pages, v_pages, gather_row[None], p1, None))
+    return _merge_heads(paged_chunk_attention(
+        q.contiguous(), k_pages, v_pages, gather_row[None], p1))
 
 
 def _block_chunk_prefill_paged(lp, x, k_pages, v_pages, write_pages,

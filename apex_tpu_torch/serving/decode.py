@@ -47,9 +47,11 @@ all layers (copy-on-write), with its int8 scales.
   its promoted pages with the same step.
 
 The dense verify and chunk steps attend in plain PyTorch (XLA in the JAX
-package); the paged ones through ``paged_verify_attention``, one kernel
-launch a layer a slice of ``verify_slices`` on the card (a chunk of sc
-queries is a linear verify window of k1 = sc).
+package). The paged verify attends through ``paged_verify_attention``,
+one kernel launch a layer a slice of ``verify_slices`` on the card; the
+paged chunk through ``paged_chunk_attention``, on the card one launch a
+layer of the chunk kernel for a bf16 chunk over a bf16 pool (an fp32
+chunk is a linear verify window of k1 = sc on the verify kernel).
 """
 
 import torch

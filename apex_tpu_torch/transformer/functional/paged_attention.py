@@ -1,13 +1,15 @@
 """Attention against a paged KV pool, reading K and V through each
-slot's block table: the attention of one decode step (one query a slot)
-or one speculative verify step (k1 queries a slot) over
-``serving.cache.PagedKVCache``, after the step has written its rows.
+slot's block table: the attention of one decode step (one query a slot),
+one speculative verify step (k1 queries a slot) or one slot's prompt
+chunk (sc queries) over ``serving.cache.PagedKVCache``, after the step
+has written its rows.
 
 The JAX package computes it as plain XLA inside
 ``apex_tpu/models/gpt.py``: ``_paged_decode_attention`` (:403),
 ``_paged_verify_attention`` (:537), ``_paged_tree_verify_attention``
-(:816) and the int8 forms ``_paged_decode_attention_q8`` (:951) and
-``_paged_verify_attention_q8`` (:1004). It gathers each slot's whole
+(:816), the int8 forms ``_paged_decode_attention_q8`` (:951) and
+``_paged_verify_attention_q8`` (:1004), and the chunk's
+``_paged_chunk_prefill_attention`` (:659). It gathers each slot's whole
 block-table row out of the pool (``k_pages[block_tables]``), upcasts it
 to fp32 (dequantizes an int8 pool against its per-page-per-head
 scales), takes fp32 scores over the logical positions, sets those a
@@ -15,29 +17,38 @@ query cannot see to ``finfo(f32).min`` (probability exactly 0), and
 takes the fp32 softmax and the fp32 product with V, cast to q's dtype.
 Query j of a slot at length ``pos`` sees row s when ``s < pos``, or when
 ``0 <= s - pos < k1`` and ``anc[s - pos, j]`` (``_tree_score_mask``,
-:739); the linear verify is ``s <= pos + j``, the decode step ``s <=
-pos``. Two versions of that function:
+:739); the linear verify and the chunk are ``s <= pos + j``, the decode
+step ``s <= pos``. Three versions of that function:
 
-- the kernel (``csrc/paged_attention.cu``): reads the rows ``0 .. pos +
-  k1 - 1`` once for all k1 queries, each row's physical page from the
-  table, with an online softmax in fp32 a query in an order fixed by
-  logical position — the same logical contents under any page placement
-  give the same bits, and column j of a linear verify the bits of a
-  decode step at ``pos + j``;
+- the decode and verify kernel (``csrc/paged_attention.cu``,
+  ``apx_paged_attention``): reads the rows ``0 .. pos + k1 - 1`` once
+  for all k1 queries, each row's physical page from the table, with an
+  online softmax in fp32 a query in an order fixed by logical position
+  — the same logical contents under any page placement give the same
+  bits, and column j of a linear verify the bits of a decode step at
+  ``pos + j``;
+- the prompt-chunk kernel (the same file, ``apx_paged_chunk_attention``):
+  bf16 q and pool on the tensor cores, one launch a chunk over a (query
+  tile, part, head, slot) grid; no bit relation to the decode step (the
+  reference promises none, and speculation does not reach it), the same
+  bits under any page placement;
 - the plain version, the JAX function's gather, upcast, mask, softmax
   and product in its order of operations.
 
 They sum in other orders and are held to each other by
-:func:`paged_limit`. Dispatch: a CUDA tensor launches the kernel
-(``PAGED_DECODE`` for one query a slot, ``PAGED_VERIFY`` for k1) or
-raises; a CPU tensor runs the plain version.
+:func:`paged_limit` and :func:`chunk_limit`. Dispatch: a CUDA tensor
+launches a kernel (``PAGED_DECODE`` for one query a slot,
+``PAGED_VERIFY`` for k1, ``PAGED_CHUNK`` for a chunk that
+:func:`chunk_kernel_takes`) or raises; a CPU tensor runs the plain
+version.
 
-One launch holds at most :data:`MAX_K1` queries a slot, fewer where
-their shared memory would pass the card's (:func:`verify_slices`). A
-wider verify window runs as one launch a slice of its queries, each
+One verify launch holds at most :data:`MAX_K1` queries a slot, fewer
+where their shared memory would pass the card's (:func:`verify_slices`).
+A wider verify window runs as one launch a slice of its queries, each
 slice reading the window's rows as a whole launch would: query j's sums
 do not depend on the other queries, so the slices give the bits of one
-launch over all of them.
+launch over all of them. An fp32 chunk, or one whose head width the
+chunk kernel does not take, is such a window.
 """
 
 import ctypes
@@ -56,6 +67,8 @@ _ARGS = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P]
 # one C entry; the two wrappers count their launches apart
 PAGED_DECODE = Kernel(LIB, "apx_paged_attention", _ARGS)
 PAGED_VERIFY = Kernel(LIB, "apx_paged_attention", _ARGS)
+PAGED_CHUNK = Kernel(LIB, "apx_paged_chunk_attention",
+                     [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P])
 #: The most queries a slot one launch holds; its C entry refuses more.
 MAX_K1 = 64
 # csrc/paged_attention.cu's kT, kPad and kMaxSmem, for verify_slices
@@ -63,6 +76,12 @@ _KT, _KPAD, _MAX_SMEM = 128, 4, 232448
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _U = 2.0 ** -24      # fp32 unit roundoff
+#: The widest head the chunk kernel takes (a multiple of 8).
+CHUNK_MAX_HD = 128
+# csrc/paged_attention.cu's chunk::kBQ (= kBK), kMinTiles and kMaxSplits
+_CBQ, _MIN_TILES, _MAX_SPLITS = 64, 2, 4
+# the chunk kernel's arrival counters, one zeroed buffer a device
+_CHUNK_COUNTERS = {}
 
 
 def _name(dt: torch.dtype) -> str:
@@ -248,9 +267,21 @@ def paged_limit(q, k_pages, v_pages, block_tables, pos, ctx0,
     - a bf16 ctx is rounded once on each side: one bf16 ulp more,
       2^-7 |ctx0|."""
     queries = q.dim() == 4
-    b, nh, k1, page, hd, mp = _check(q, k_pages, v_pages, block_tables,
-                                     pos, k_scale, v_scale, anc, queries)
-    q4 = q if queries else q[:, :, None]
+    d_max, a, n, o, s_len, hd = _limit_terms(
+        q if queries else q[:, :, None], k_pages, v_pages, block_tables,
+        pos, ctx0 if queries else ctx0[:, :, None], k_scale, v_scale,
+        softmax_scale, anc)
+    lim = _paged_terms(q, d_max, a, n, o, s_len, hd)
+    return lim if queries else lim[:, :, 0]
+
+
+def _limit_terms(q4, k_pages, v_pages, block_tables, pos, ctx0, k_scale,
+                 v_scale, softmax_scale, anc):
+    """The quantities of the error models, per query row of q4 (b, nh,
+    k1, hd): D (b, nh, k1, 1), A and |ctx0| (b, nh, k1, hd), n (b, 1, k1,
+    1), S and hd."""
+    b, nh, k1, page, hd, mp = _check(q4, k_pages, v_pages, block_tables,
+                                     pos, k_scale, v_scale, anc, True)
     kg = _gather(k_pages, k_scale, block_tables)
     vg = _gather(v_pages, v_scale, block_tables)
     s_len = mp * page
@@ -259,15 +290,54 @@ def paged_limit(q, k_pages, v_pages, block_tables, pos, ctx0,
     dots = torch.matmul(q4.float().abs(), kg.abs().transpose(-1, -2)) \
         * scale                                           # (b, nh, k1, S)
     d_max = torch.where(vis[:, None], dots,
-                        torch.zeros((), device=q.device)).amax(-1)
+                        torch.zeros((), device=q4.device)).amax(-1)
     a = torch.matmul(_probs(q4, kg, vis, softmax_scale), vg.abs())
     n = vis.sum(-1).float()[:, None, :, None]             # (b, 1, k1, 1)
-    o = (ctx0 if queries else ctx0[:, :, None]).float().abs()
-    lim = _U * ((2 * hd * d_max + 8)[..., None] * (a + o)
-                + (n + s_len + 32) * a)
+    return d_max[..., None], a, n, ctx0.float().abs(), s_len, hd
+
+
+def _paged_terms(q, d_max, a, n, o, s_len, hd):
+    lim = _U * ((2 * hd * d_max + 8) * (a + o) + (n + s_len + 32) * a)
     if q.dtype == torch.bfloat16:
         lim = lim + 2.0 ** -7 * o
-    return lim if queries else lim[:, :, 0]
+    return lim
+
+
+def chunk_limit(q, k_pages, v_pages, gather_row, pos, ctx0,
+                softmax_scale=None) -> torch.Tensor:
+    """How far, per element, the chunk kernel's ctx may sit from the
+    plain version's ``ctx0`` on the same inputs (q (b, nh, sc, hd), the
+    linear mask): :func:`paged_limit`'s terms, and what the tensor-core
+    path changes. With u = 2^-24, D, A and S as there, and Dm = hd
+    rounded up to 32, 64 or 128 (the kernel's zero-padded tile):
+
+    - a step of ``mma.sync`` adds 16 exact bf16 products to its fp32
+      accumulator, aligned to the largest and each truncated at 2^-23 of
+      it (the model of NVIDIA's tensor cores in Fasi et al., 2021): at
+      most 17 x 2u of the step's sum of |terms| with the accumulator's.
+      A score takes Dm / 16 steps, 34 Dm / 16 u D, which moves each p_j
+      relatively and ctx by that times (A + |ctx|);
+    - the exps (``expf``, 2 ulp), the rescales of acc and l on each of
+      up to S / 64 + 1 tiles (one rounding each), the combine of a
+      block's two key halves and of a split walk's parts (weights
+      exp(m_p - M), their products and sums over up to 4 parts): (2 (S
+      / 64 + 1) + 24) u (A + |ctx|);
+    - P V: each output's accumulator takes two steps (hi, lo) a 16-row
+      group of every tile read, up to S + 64 rows: (S + 64) / 8 steps of
+      34 u A;
+    - p is multiplied as hi + lo, its residual below 2^-16 p: 2^-16 A.
+
+    A product the tensor core flushes as subnormal (p below 2^-126) is
+    below every term here."""
+    d_max, a, n, o, s_len, hd = _limit_terms(
+        q, k_pages, v_pages, gather_row, pos, ctx0, None, None,
+        softmax_scale, None)
+    dm = 32 if hd <= 32 else 64 if hd <= 64 else 128
+    mma = 34 * _U
+    return (_paged_terms(q, d_max, a, n, o, s_len, hd)
+            + (mma * dm / 16 * d_max
+               + _U * (2 * (s_len / 64 + 1) + 24)) * (a + o)
+            + (mma * (s_len + 64) / 8 + 2.0 ** -16) * a)
 
 
 def _launch(kernel, q, k_pages, v_pages, block_tables, pos, anc, k_scale,
@@ -372,3 +442,121 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                       pos, anc, k_scale, v_scale,
                                       softmax_scale, q0, nq, out)
     return out
+
+
+def chunk_kernel_takes(q: torch.Tensor, k_pages: torch.Tensor) -> bool:
+    """The chunk's dispatch rule on the card, from dtypes and shapes
+    alone: bf16 q and a bf16 pool, head width a multiple of 8 up to
+    :data:`CHUNK_MAX_HD`, go to the chunk kernel; anything else (an fp32
+    q or pool, another width) to :func:`paged_verify_attention` as a
+    linear verify window of k1 = sc."""
+    hd = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and k_pages.dtype == torch.bfloat16
+            and hd % 8 == 0 and hd <= CHUNK_MAX_HD)
+
+
+def chunk_splits(s_len: int) -> int:
+    """The most parts the chunk kernel cuts a 64-query tile's walk over
+    the rows into, from the table's ``s_len`` rows (the grid is sized
+    before ``pos`` is known): one part for every 2 64-row tiles, at most
+    4 (the C file's kMinTiles and kMaxSplits). On the card a query tile
+    takes ``min(splits, tiles // 2)`` parts, at least one, of the tiles
+    its queries see."""
+    return max(1, min(_MAX_SPLITS, -(-s_len // _CBQ) // _MIN_TILES))
+
+
+def paged_chunk_attention_plain(q, k_pages, v_pages, gather_row, pos,
+                                softmax_scale=None) -> torch.Tensor:
+    """Plain version: the JAX ``_paged_chunk_prefill_attention`` after
+    its write — :func:`paged_verify_attention_plain` over the linear
+    mask ``s <= pos + j``: gather through ``gather_row``, upcast, fp32
+    scores masked with ``finfo.min``, fp32 softmax and product with V,
+    one cast to q's dtype."""
+    return paged_verify_attention_plain(q, k_pages, v_pages, gather_row,
+                                        pos, None,
+                                        softmax_scale=softmax_scale)
+
+
+def _chunk_counters(units: int, dev) -> torch.Tensor:
+    """The split walk's arrival counters: a zeroed int32 buffer kept per
+    device and grown as needed. Each launch finds its counters zero and
+    leaves them zero (the last part of a tile resets its own), so one
+    buffer serves every launch on the device, CUDA-graph replays
+    included; split launches must not run on two streams of one device
+    at once."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    buf = _CHUNK_COUNTERS.get(key)
+    if buf is None or buf.numel() < units:
+        buf = torch.zeros((max(units, 1024),), dtype=torch.int32, device=dev)
+        _CHUNK_COUNTERS[key] = buf
+    return buf
+
+
+def paged_chunk_attention_kernel(q, k_pages, v_pages, gather_row, pos,
+                                 softmax_scale=None,
+                                 splits: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """One launch of ``csrc/paged_attention.cu``'s chunk kernel: q (b,
+    nh, sc, hd) bf16 against bf16 pools through ``gather_row`` (b,
+    max_pages) int32 at ``pos`` (b,) int32, the linear mask. ``splits``
+    (1 to 4) caps the parts of a tile's walk, :func:`chunk_splits` of
+    the table by default. Every tensor on one CUDA device and
+    contiguous; returns ctx (b, nh, sc, hd) bf16."""
+    b, nh, sc, page, hd, mp = _check(q, k_pages, v_pages, gather_row, pos,
+                                     None, None, queries=True)
+    name = "paged_chunk_attention"
+    if not chunk_kernel_takes(q, k_pages):
+        raise ValueError(f"{name} kernel takes bf16 q and pools with "
+                         f"head_dim a multiple of 8 up to {CHUNK_MAX_HD}, "
+                         f"got {_name(q.dtype)}/{_name(k_pages.dtype)}, "
+                         f"hd {hd}")
+    ts = (q, k_pages, v_pages, gather_row, pos)
+    if any(t.device != q.device or t.device.type != "cuda" for t in ts):
+        raise RuntimeError(f"{name} kernel needs CUDA tensors on one "
+                           "device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} kernel needs contiguous q, pools, "
+                         "gather_row and pos")
+    splits = chunk_splits(mp * page) if splits is None else splits
+    units = b * nh * -(-sc // _CBQ)
+    work = counters = None
+    if splits > 1:
+        work = torch.empty((splits * units * _CBQ * (hd + 2),),
+                           dtype=torch.float32, device=q.device)
+        counters = _chunk_counters(units, q.device)
+    out = torch.empty_like(q)
+    PAGED_CHUNK(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                gather_row.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                None if work is None else work.data_ptr(),
+                None if counters is None else counters.data_ptr(),
+                b, nh, sc, page, hd, mp, splits,
+                float(_scale(hd, softmax_scale)),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, gather_row: torch.Tensor,
+                          pos: torch.Tensor,
+                          softmax_scale: Optional[float] = None
+                          ) -> torch.Tensor:
+    """ctx (b, nh, sc, hd) in q's dtype: a prompt chunk's queries q (b,
+    nh, sc, hd), query j at logical position ``pos + j``, against one
+    layer's fp32 or bf16 pools through ``gather_row`` (b, max_pages)
+    int32, seeing the rows ``s <= pos + j``. An int8 pool is refused, as
+    the JAX package refuses chunked prefill over it. A CPU q runs the
+    plain version. A CUDA q launches the chunk kernel once where
+    :func:`chunk_kernel_takes` (bf16 q and pool, hd a multiple of 8 up
+    to 128), else goes through :func:`paged_verify_attention` (one
+    launch a slice of ``verify_slices(sc, hd)``)."""
+    if k_pages.dtype == torch.int8:
+        raise ValueError("chunked prefill is not offered over the int8 "
+                         "page pool (kv8 keeps monolithic prefill)")
+    if not on_card(q, "q"):
+        return paged_chunk_attention_plain(q, k_pages, v_pages, gather_row,
+                                           pos, softmax_scale)
+    if chunk_kernel_takes(q, k_pages):
+        return paged_chunk_attention_kernel(q, k_pages, v_pages, gather_row,
+                                            pos, softmax_scale)
+    return paged_verify_attention(q, k_pages, v_pages, gather_row, pos, None,
+                                  softmax_scale=softmax_scale)

@@ -231,25 +231,29 @@ Phases, each printed as it runs; any failure exits non-zero:
    equal. Every process group is destroyed before the results.
 
 12. chunked prefill and the serving tracer — kernel parity of the
-   verify attention at a prompt chunk's shape (one slot, 16 heads, hd
-   64, k1 256 at pos 0, 256 and 512, bf16 and fp32 pools, through a
-   gather row): per element to ``paged_limit``, every query the decode
-   kernel's bits at pos + j, one launch a slice of ``verify_slices``.
+   chunk attention at a prompt chunk's shape (one slot, 16 heads, hd
+   64, 256 queries at pos 0, 256, 512 and 768, through a gather row):
+   the bf16 pool on the chunk kernel (tensor cores, one launch) per
+   element to ``chunk_limit``, two placements the same bits; the fp32
+   pool on the verify kernel per element to ``paged_limit``, every
+   query the decode kernel's bits at pos + j, one launch a slice of
+   ``verify_slices``.
    ``serving_chunked``: the ``serving_paged`` engine and the dense
    ``DecodeEngine`` (GPT-2 medium O2 bf16, 8 slots, max_len 1024) on the
    16 prompts open-loop on the work clock (the 8 shortest at tick 0, the
    8 longest one every 16 ticks, submitted with ``at_tick``, the JAX
    package's ``_drive_poisson`` loop), with ``chunk_tokens`` 256 and
-   monolithic: exact launches (a chunk's attention the verify kernel L x
-   4 launches), the tick-clock TTFT and inter-token p50/p99 from the
+   monolithic: exact launches (a chunk's attention the chunk kernel L
+   launches), the tick-clock TTFT and inter-token p50/p99 from the
    tracer's ``latency_summary`` (ticks, not seconds), wall time,
    tokens/s, the share of tokens equal to the monolithic run's; the
    chunked p99 gap below the monolithic one and the TTFT median within 2
    x monolithic + 1. At 2 layers of GPT-2 medium's width, a 700-token
    prompt chunked at 256 on both engines: the final chunk's logits
    against a one-shot prefill (fp32 1e-5, O2 0.0625). The chunk
-   attention's times at pos 0, 256, 512 and 768 beside its plain
-   version, its bound and SDPA on the gathered K/V.
+   kernel's times at pos 0, 256, 512 and 768 beside its plain version,
+   its bound, SDPA on the gathered K/V, the kernel without its split
+   walk and the verify kernel's route the chunk took before.
 
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
@@ -1732,7 +1736,7 @@ KERNEL_NAMES = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
                 "w8_matmul_nobias", "w8_matmul", "w8_matmul_nk", "flat_sgd",
                 "flat_adagrad", "flat_novograd", "threefry_bits",
                 "threefry_dropout", "paged_decode_attention",
-                "paged_verify_attention")
+                "paged_verify_attention", "paged_chunk_attention")
 # kernels on no model path (held to their plain versions and timed)
 OFF_PATH = ("scaled_upper_triang_softmax_fwd", "flat_scale", "flat_axpby",
             "w8_matmul_nobias")
@@ -4346,8 +4350,8 @@ def serve_tiered(dev, kern, o2):
     without a tier, the reference's spill-disabled engine) and a bf16
     pool (the promoted prefix skipped, the suffix prefilled as one
     chunk); the audit after every tick, exact launches, spills and
-    promotes > 0; a suffix prefill's attention launches the verify
-    kernel once a slice a layer. The int8 mix on a roomy pool without a
+    promotes > 0; a suffix prefill's attention launches the chunk kernel
+    once a layer. The int8 mix on a roomy pool without a
     tier is read
     beside them: a decode write requantizes its whole page, stale rows
     of a recycled page included (the JAX package's ``_q8_page_insert``),
@@ -4373,11 +4377,9 @@ def serve_tiered(dev, kern, o2):
         # the int8 run audits after every tick; the bf16 run once at its
         # end (the audit recomputes every host record's sha256, some
         # 0.3 s a tick over the bf16 pool's records)
-        pa = kernel_modules()[7]
         for name, dt in (("int8", torch.int8), ("bf16", torch.bfloat16)):
-            # suffix-only prefills, and the verify kernel's slices they
-            # launch a layer (a suffix of sc tokens: verify_slices(sc))
-            chunks = [0, 0]
+            # suffix-only prefills (each one chunk kernel launch a layer)
+            chunks = [0]
 
             def setup(eng, chunks=chunks, name=name):
                 engines[name] = eng
@@ -4385,14 +4387,11 @@ def serve_tiered(dev, kern, o2):
 
                 def counted(*a, **k):
                     chunks[0] += 1
-                    chunks[1] += len(pa.verify_slices(a[2].shape[1],
-                                                      cfg.head_dim))
                     return run(*a, **k)
 
                 eng._chunk_prefill = counted
                 return dict(_promote_checker(eng),
-                            suffix_chunk_prefills=lambda: chunks[0],
-                            suffix_verify_slices=lambda: chunks[1])
+                            suffix_chunk_prefills=lambda: chunks[0])
 
             out[name] = serve_mix(dev, cfg, o2, kern, num_pages=TIER_POOL,
                                   cache_dtype=dt,
@@ -4416,7 +4415,7 @@ def serve_tiered(dev, kern, o2):
             "layer_norm_fwd": (2 * L + 1) * (prefills + steps),
             "flash_attention_fwd": L * (prefills - chunked),
             "paged_decode_attention": L * steps,
-            "paged_verify_attention": L * res["suffix_verify_slices"],
+            "paged_chunk_attention": L * chunked,
             "threefry_bits": res["launches"]["threefry_bits"]},
             f"tiered serving ({name} pool)")
         check(res["host_spills"] > 0 and res["host_promotes"] > 0
@@ -4933,8 +4932,8 @@ def chunked_final_logits(dev):
     paged and the dense engine, the final chunk's logits against a
     one-shot prefill of the same prompt on the same engine: fp32 params
     and cache within 1e-5, O2 bf16 within 0.0625 (the decode-vs-full
-    limits); the paged chunks launch the verify kernel once a slice a
-    layer."""
+    limits); the paged chunks launch the chunk kernel once a layer (O2)
+    or the verify kernel once a slice a layer (fp32)."""
     import dataclasses
 
     from apex_tpu_torch import amp
@@ -4965,62 +4964,96 @@ def chunked_final_logits(dev):
                 one_shot = make().prefill(1, prompt)
                 eng = make()
                 state = eng.begin_chunk_prefill(1, prompt)
-                n0 = pa.PAGED_VERIFY.launches
+                n0 = (pa.PAGED_CHUNK.launches, pa.PAGED_VERIFY.launches)
                 for pos in range(0, len(prompt), CHUNK):
                     logits = eng.chunk_prefill(
                         1, prompt[pos:pos + CHUNK], pos, state, CHUNK,
                         pos + CHUNK >= len(prompt))
                 eng.finish_chunk_prefill(1, state)
                 torch.cuda.synchronize()
-                launched = pa.PAGED_VERIFY.launches - n0
-                want = L * n_chunks * len(pa.verify_slices(CHUNK,
-                                                           cfg.head_dim))
+                launched = (pa.PAGED_CHUNK.launches - n0[0],
+                            pa.PAGED_VERIFY.launches - n0[1])
+                want = (0, 0)
+                if eng.paged:
+                    want = ((L * n_chunks, 0) if dt == torch.bfloat16 else
+                            (0, L * n_chunks * len(pa.verify_slices(
+                                CHUNK, cfg.head_dim))))
                 err = float((logits - one_shot).abs().max())
                 key = f"{engine.__name__}_{label.split()[-1]}"
                 out[key] = err
-                check(err <= tol and launched == (want if eng.paged else 0)
+                check(err <= tol and launched == want
                       and bool(eng.check_invariants()),
                       f"chunked final logits ({engine.__name__}, {label}, "
                       f"{L} layers, {n_chunks} chunks of {CHUNK}) against a "
                       f"one-shot prefill: max_abs_err {err:.3g} <= {tol}; "
-                      f"verify launches {launched}")
+                      f"launches (chunk, verify) {launched}")
     return out
 
 
 def chunk_verify_parity(dev):
-    """The verify attention at a prompt chunk's shape: one slot, GPT-2
-    medium's 16 heads, hd 64, k1 = 256 at pos 0, 256 and 512, bf16 and
-    fp32 pools of pages of 64, through a gather row (the slot's stored
-    row parked on scratch): one launch a slice of ``verify_slices``, per
-    element to ``paged_limit``, every query the bits of the decode kernel
-    at pos + j."""
+    """The chunk attention at a prompt chunk's shape: one slot, GPT-2
+    medium's 16 heads, hd 64, 256 queries at pos 0, 256, 512 and 768
+    over a table of 16 pages of 64, through a gather row (the slot's
+    stored row parked on scratch). A bf16 pool: ``paged_chunk_attention``
+    launches the chunk kernel once, per element within ``chunk_limit``,
+    the same bits under a second page placement (pos 768 walks in
+    parts). An fp32 pool (pos 0, 256 and 512): the verify kernel, one
+    launch a slice of ``verify_slices``, per element within
+    ``paged_limit``, every query the bits of the decode kernel at pos +
+    j. Returns the largest error of each."""
     pa = kernel_modules()[7]
-    phase(f"kernel parity: the verify attention at a prompt chunk's shape "
-          f"(one slot, k1 {CHUNK}, {pa.verify_slices(CHUNK, 64)}), pos 0, "
-          "256 and 512, bf16 and fp32 pools, against the plain version and "
-          "one-query launches")
-    max_err = 0.0
-    for kv in (torch.bfloat16, torch.float32):
-        for pos in (0, 256, 512):
-            q, k, v, row, p = _chunk_inputs(dev, kv, pos, seed=pos + 7)
-            n0 = pa.PAGED_VERIFY.launches
-            got = pa.paged_verify_attention(q, k, v, row, p, None)
-            torch.cuda.synchronize()
-            launched = pa.PAGED_VERIFY.launches - n0
-            want = pa.paged_verify_attention_plain(q, k, v, row, p, None)
-            lim = pa.paged_limit(q, k, v, row, p, want)
-            err = (got.float() - want.float()).abs()
-            max_err = max(max_err, float(err.max()))
-            same = all(torch.equal(got[:, :, j],
-                                   pa.paged_decode_attention_kernel(
-                                       q[:, :, j].contiguous(), k, v, row,
-                                       p + j))
-                       for j in range(CHUNK))
-            check(launched == len(pa.verify_slices(CHUNK, 64))
-                  and bool((err <= lim).all()) and same,
-                  f"chunk attention, {str(kv)[6:]} pool, pos {pos}: "
-                  f"{launched} launches; max_abs_err {float(err.max()):.3g} "
-                  "within paged_limit; every query the decode kernel's bits")
+    phase(f"kernel parity: the chunk attention at a prompt chunk's shape "
+          f"(one slot, {CHUNK} queries), the bf16 pool on the chunk "
+          "kernel at pos 0, 256, 512 and 768, the fp32 pool on the verify "
+          f"kernel ({pa.verify_slices(CHUNK, 64)}) at pos 0, 256 and 512")
+    max_err = {"bf16": 0.0, "fp32": 0.0}
+    for pos in (0, 256, 512, 768):
+        q, k, v, row, p = _chunk_inputs(dev, torch.bfloat16, pos,
+                                        seed=pos + 7)
+        n0, v0 = pa.PAGED_CHUNK.launches, pa.PAGED_VERIFY.launches
+        got = pa.paged_chunk_attention(q, k, v, row, p)
+        torch.cuda.synchronize()
+        launched = (pa.PAGED_CHUNK.launches - n0,
+                    pa.PAGED_VERIFY.launches - v0)
+        want = pa.paged_chunk_attention_plain(q, k, v, row, p)
+        lim = pa.chunk_limit(q, k, v, row, p, want)
+        err = (got.float() - want.float()).abs()
+        max_err["bf16"] = max(max_err["bf16"], float(err.max()))
+        perm = torch.arange(k.shape[0], device=dev)
+        perm[2:] = 2 + torch.randperm(k.shape[0] - 2, device=dev)
+        k2, v2 = torch.empty_like(k), torch.empty_like(v)
+        k2[perm], v2[perm] = k, v
+        moved = pa.paged_chunk_attention(q, k2, v2,
+                                         perm[row.long()].to(torch.int32), p)
+        check(launched == (1, 0) and bool((err <= lim).all())
+              and torch.equal(moved, got),
+              f"chunk attention, bf16 pool, pos {pos}: launches (chunk, "
+              f"verify) {launched}; max_abs_err {float(err.max()):.3g}, "
+              f"at most {float((err / lim).max()):.3g} of chunk_limit; "
+              "another page placement the same bits")
+        if pos == 768:
+            continue
+        q, k, v, row, p = _chunk_inputs(dev, torch.float32, pos,
+                                        seed=pos + 7)
+        n0, c0 = pa.PAGED_VERIFY.launches, pa.PAGED_CHUNK.launches
+        got = pa.paged_chunk_attention(q, k, v, row, p)
+        torch.cuda.synchronize()
+        launched = (pa.PAGED_CHUNK.launches - c0,
+                    pa.PAGED_VERIFY.launches - n0)
+        want = pa.paged_verify_attention_plain(q, k, v, row, p, None)
+        lim = pa.paged_limit(q, k, v, row, p, want)
+        err = (got.float() - want.float()).abs()
+        max_err["fp32"] = max(max_err["fp32"], float(err.max()))
+        same = all(torch.equal(got[:, :, j],
+                               pa.paged_decode_attention_kernel(
+                                   q[:, :, j].contiguous(), k, v, row,
+                                   p + j))
+                   for j in range(CHUNK))
+        check(launched == (0, len(pa.verify_slices(CHUNK, 64)))
+              and bool((err <= lim).all()) and same,
+              f"chunk attention, fp32 pool, pos {pos}: launches (chunk, "
+              f"verify) {launched}; max_abs_err {float(err.max()):.3g} "
+              "within paged_limit; every query the decode kernel's bits")
     return max_err
 
 
@@ -5049,8 +5082,8 @@ def serve_chunked(dev, kern, o2):
     """``serving_chunked``: the ``serving_paged`` engine (GPT-2 medium O2
     bf16, 8 slots, max_len 1024, pages of 64) and the dense
     ``DecodeEngine`` on :func:`chunked_arrivals` (EOS -1), each chunked at
-    256 and monolithic: exact launches (a chunk's attention the verify
-    kernel once a slice of ``verify_slices(256, 64)`` a layer), the
+    256 and monolithic: exact launches (a chunk's attention the chunk
+    kernel once a layer), the
     tick-clock latency (TTFT and inter-token p50/p99, ticks), wall time,
     tokens/s and the share of tokens equal to the monolithic run's; the
     chunked p99 inter-token gap below the monolithic one and the TTFT
@@ -5059,10 +5092,8 @@ def serve_chunked(dev, kern, o2):
     from apex_tpu_torch.models.gpt import gpt_medium
     from apex_tpu_torch.serving import DecodeEngine, PagedDecodeEngine
 
-    pa = kernel_modules()[7]
     cfg = gpt_medium()
     L = cfg.num_layers
-    slices = len(pa.verify_slices(CHUNK, cfg.head_dim))
     phase(f"serving_chunked: the 16 requests open-loop (8 shortest at tick "
           f"0, 8 longest one every {ARRIVAL_GAP} ticks), chunk_tokens "
           f"{CHUNK} and monolithic, on PagedDecodeEngine and DecodeEngine")
@@ -5083,8 +5114,8 @@ def serve_chunked(dev, kern, o2):
             "layer_norm_fwd": (2 * L + 1) * (ch["prefill_chunks"]
                                              + ch["decode_steps"]),
             "paged_decode_attention": L * ch["decode_steps"] if paged else 0,
-            "paged_verify_attention": (L * slices * ch["prefill_chunks"]
-                                       if paged else 0)},
+            "paged_chunk_attention": (L * ch["prefill_chunks"] if paged
+                                      else 0)},
             f"chunked serving ({name})")
         check_launches(mono["launches"], {
             "layer_norm_fwd": (2 * L + 1) * (mono["prefills"]
@@ -5096,7 +5127,7 @@ def serve_chunked(dev, kern, o2):
         same, total = _same_share(ch["streams"], mono["streams"])
         lc, lm = ch["latency"], mono["latency"]
         ch.update(tokens_equal_to_monolithic=same, tokens_compared=total,
-                  verify_launches_per_chunk=L * slices if paged else 0)
+                  chunk_launches_per_chunk=L if paged else 0)
         print(f"{name}: chunked {CHUNK}: {ch['prefill_chunks']} chunks, "
               f"{ch['decode_steps']} decode steps, clock {ch['clock']} "
               f"ticks, latency (ticks) {json.dumps(lc)}, "
@@ -5108,9 +5139,9 @@ def serve_chunked(dev, kern, o2):
               f"tokens/s; tokens equal to the monolithic run's: {same} of "
               f"{total}", flush=True)
         if paged:
-            print(f"verify kernel launches a {CHUNK}-token chunk: {L} layers "
-                  f"x {slices} slices = {L * slices}; in the run "
-                  f"{ch['launches']['paged_verify_attention']} for "
+            print(f"chunk kernel launches a {CHUNK}-token chunk: {L} (one "
+                  f"a layer); in the run "
+                  f"{ch['launches']['paged_chunk_attention']} for "
                   f"{ch['prefill_chunks']} chunks", flush=True)
         check(lc["itl_p99"] < lm["itl_p99"]
               and lc["ttft_p50"] <= 2.0 * lm["ttft_p50"] + 1.0,
@@ -5124,27 +5155,32 @@ def serve_chunked(dev, kern, o2):
 
 
 def chunk_times(dev):
-    """The verify attention at a prompt chunk's shape (one slot, 16
-    heads, hd 64, k1 256 at pos 0, 256, 512 and 768 over a table of 16
-    pages of 64, bf16): the wrapper (one launch a slice of
-    ``verify_slices``), its plain version, the bound (the live K/V rows
-    once, q, ctx and the table over 3.35 TB/s, or 4 operations a query a
-    visible K/V element over the bf16 tensor-core peak, the operands'
-    type; the larger) and SDPA on the already-gathered K/V with the same
-    causal window mask (a different function: it leaves out the
-    gather)."""
+    """The chunk kernel at a prompt chunk's shape (one slot, 16 heads, hd
+    64, 256 queries at pos 0, 256, 512 and 768 over a table of 16 pages
+    of 64, bf16; one launch of ``chunk_splits`` parts at most): the
+    wrapper, its plain version, the bound (the live K/V rows once, q,
+    ctx and the table over 3.35 TB/s, or 4 operations a query a visible
+    K/V element over the bf16 tensor-core peak, the operands' type; the
+    larger), SDPA on the already-gathered K/V with the same causal
+    window mask (a different function: it leaves out the gather), the
+    kernel without the split walk (``splits=1``), and the verify
+    kernel's route the chunk took before (``paged_verify_attention``,
+    one launch a slice of ``verify_slices``), all in this call."""
     pa = kernel_modules()[7]
-    phase(f"times of the verify attention at a prompt chunk's shape (one "
-          f"slot, k1 {CHUNK}; device ms a call, one layer; medians of "
-          "CUDA-graph replays)")
+    phase(f"times of the chunk attention at a prompt chunk's shape (one "
+          f"slot, {CHUNK} queries; device ms a call, one layer; medians "
+          "of CUDA-graph replays)")
     res = {}
     with torch.inference_mode():
         for pos in (0, 256, 512, 768):
             q, k, v, row, p = _chunk_inputs(dev, torch.bfloat16, pos,
                                             seed=pos + 9)
-            args = (q, k, v, row, p, None)
-            t_k = time_ms(lambda: pa.paged_verify_attention(*args))
-            t_p = time_ms(lambda: pa.paged_verify_attention_plain(*args))
+            args = (q, k, v, row, p)
+            t_k = time_ms(lambda: pa.paged_chunk_attention(*args))
+            t_1 = time_ms(lambda: pa.paged_chunk_attention_kernel(
+                *args, splits=1))
+            t_v = time_ms(lambda: pa.paged_verify_attention(*args, None))
+            t_p = time_ms(lambda: pa.paged_chunk_attention_plain(*args))
             _, nh, sc, hd = q.shape
             s_len = row.shape[1] * PAGE
             live = pos + sc
@@ -5157,15 +5193,19 @@ def chunk_times(dev):
             vis = pa.visible(p, sc, s_len)[:, None]
             t_l = time_ms(lambda: F.scaled_dot_product_attention(
                 q, kg, vg, attn_mask=vis))
-            key = f"verify_chunk_pos{pos}"
+            key = f"chunk_pos{pos}"
+            splits = pa.chunk_splits(s_len)
             _entry(res, key, t_k, t_p, t_l, nbytes, flops, BF16_TC_FLOPS,
-                   f"verify attention at a chunk's shape (1 slot, k1 {sc}, "
-                   f"pos {pos}, {live} live rows, "
-                   f"{len(pa.verify_slices(sc, hd))} launches)",
+                   f"chunk kernel (1 slot, {sc} queries, pos {pos}, {live} "
+                   f"live rows, splits {splits})",
                    "SDPA on the gathered K/V (a different function)")
-            res[key].update(live_rows=live,
-                            launches=len(pa.verify_slices(sc, hd)),
+            res[key].update(live_rows=live, splits=splits, splits1_ms=t_1,
+                            verify_route_ms=t_v,
+                            verify_route_launches=len(
+                                pa.verify_slices(sc, hd)),
                             per_chunk_24_layers_ms=24 * t_k)
+            print(f"  without the split walk {t_1:.5f}; the verify "
+                  f"kernel's route {t_v:.5f}", flush=True)
     return res
 
 
@@ -5232,9 +5272,11 @@ def main():
         err[name] = max(err[name], gk[key])
     rope = rope_parity(dev)
     err["paged_decode_attention"] = paged_parity(dev)
+    chunk_err = chunk_verify_parity(dev)
     err["paged_verify_attention"] = max(paged_verify_parity(dev),
                                         verify_past_max_k1(dev),
-                                        chunk_verify_parity(dev))
+                                        chunk_err["fp32"])
+    err["paged_chunk_attention"] = chunk_err["bf16"]
     kern = dict(zip(KERNEL_NAMES, (
         ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
         xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
@@ -5242,7 +5284,7 @@ def main():
         mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1, w8.W8_MATMUL_NOBIAS,
         w8.W8_MATMUL, w8.W8_MATMUL_NK, mta.FLAT_SGD, mta.FLAT_ADAGRAD,
         mta.FLAT_NOVOGRAD, prng.THREEFRY_BITS, prng.THREEFRY_DROPOUT,
-        pa.PAGED_DECODE, pa.PAGED_VERIFY)))
+        pa.PAGED_DECODE, pa.PAGED_VERIFY, pa.PAGED_CHUNK)))
     torch.cuda.empty_cache()
     srv, dense_streams = serve(dev, kern)
     srv_rope = serve_rope(dev, kern)
@@ -5544,10 +5586,6 @@ def main():
         at_ab_k1=tm["verify_ab_k1"],
         at_serving_spec_k5=tm["verify_serving_spec_k5"],
         at_serving_spec_k1=tm["verify_serving_spec_k1"],
-        **{f"at_prompt_chunk_pos{p}": tm[f"verify_chunk_pos{p}"]
-           for p in (0, 256, 512, 768)},
-        launches_per_prompt_chunk=srv_chunk["paged_chunked"][
-            "verify_launches_per_chunk"],
         note="k1 queries a slot (5 in the main time: spec_k 4), any k1: "
         "one launch up to 64 queries at hd 64, past that one launch a "
         "slice of verify_slices (serving_spec_ngram_k64: k1 65, two); "
@@ -5556,10 +5594,34 @@ def main():
         "leaves out the gather); one block a (head, slot) reads the rows 0 "
         ".. pos + k1 - 1 once for all k1 queries, in tiles of 128 logical "
         "positions; the decode step is its k1 = 1 instance, and column j "
-        "of a linear verify gives the decode kernel's bits at pos + j; a "
-        f"chunked prefill's chunk of {CHUNK} queries is a linear window of "
-        f"k1 {CHUNK}, one slot, through its gather row (launches_by_path "
-        "serving_paged_chunked; at_prompt_chunk_pos*: one layer's call)"))
+        "of a linear verify gives the decode kernel's bits at pos + j; an "
+        f"fp32 prompt chunk is a linear window of k1 = the chunk, one "
+        "slot, through its gather row (a bf16 chunk: paged_chunk_attention)"))
+    # the chunked prefill's attention over a bf16 pool; the JAX package
+    # runs it as XLA (apex_tpu/models/gpt.py:659)
+    kernels.append(dict(
+        name="paged_chunk_attention", route="cuda",
+        source="apex_tpu_torch/csrc/paged_attention.cu",
+        replaces="apex_tpu/models/gpt.py:659 "
+        "(_paged_chunk_prefill_attention), an XLA gather of the slot's "
+        "block-table row", tpu_row=None,
+        launches=sum(by_path["paged_chunk_attention"].values()),
+        launches_by_path=by_path["paged_chunk_attention"],
+        max_abs_err=err["paged_chunk_attention"], **tm["chunk_pos768"],
+        **{f"at_pos{p}": tm[f"chunk_pos{p}"] for p in (0, 256, 512)},
+        launches_per_prompt_chunk=srv_chunk["paged_chunked"][
+            "chunk_launches_per_chunk"],
+        note=f"one slot's chunk of {CHUNK} bf16 queries at pos 768 (at_pos*: "
+        "0, 256, 512), one layer's call; one launch over a (64-query tile, "
+        "part, head, slot) grid, mma.sync.m16n8k16 bf16 -> fp32 for q k^T "
+        "and for P V with p split into bf16 hi + lo (two products into one "
+        "fp32 accumulator), 16-byte cp.async rows through the gather row "
+        "into a double-buffered ring, the walk over the rows cut into up "
+        "to chunk_splits parts combined in part order by the last to "
+        "arrive; library_ms is SDPA on K and V already gathered to (b, "
+        "nh, S, hd) with the same mask: a different function (it leaves "
+        "out the gather); splits1_ms the kernel in one part; "
+        "verify_route_ms the verify kernel's slices, the route before"))
     check(all(sum(by_path[n].values()) > 0 for n in KERNEL_NAMES
               if n not in OFF_PATH),
           "every kernel of a path launched on that path")
@@ -5590,9 +5652,8 @@ def main():
     print(f"serving_paged_kv8: {json.dumps(srv_kv8)}")
     for key in ("paged_ab", "paged_ab_kv8", "paged_serving_paged",
                 "verify_ab_k1", "verify_ab_k5", "verify_serving_spec_k1",
-                "verify_serving_spec_k5", "verify_chunk_pos0",
-                "verify_chunk_pos256", "verify_chunk_pos512",
-                "verify_chunk_pos768"):
+                "verify_serving_spec_k5", "chunk_pos0", "chunk_pos256",
+                "chunk_pos512", "chunk_pos768"):
         print(f"{key}: {json.dumps(tm[key])}")
     print(f"serving_spec: {json.dumps(srv_spec)}")
     print(f"serving_paged_tiered: {json.dumps(srv_tier)}")

@@ -8,9 +8,11 @@ requests.
 
 - The chunk attentions: the dense one against the JAX
   ``_chunk_prefill_attention`` and the paged one (through
-  ``paged_verify_attention``, the kernel's wrapper) against the JAX
-  ``_paged_chunk_prefill_attention``, fp32 within 1e-5, the written
-  cache rows equal.
+  ``paged_chunk_attention``, whose plain version runs on the CPU)
+  against the JAX ``_paged_chunk_prefill_attention``, fp32 within 1e-5,
+  the written cache rows equal; on the card's dispatch a bf16 chunk
+  takes the chunk kernel and an fp32 one the verify kernel, once a
+  layer; ``chunk_limit`` covers ``paged_limit``.
 - The port's chunked streams equal the JAX chunked scheduler's token for
   token (dense and paged, ``chunk_tokens`` 4 and 8, every tick token
   budget, with speculation, prefix sharing mid-chunk, a preempted
@@ -218,36 +220,108 @@ def test_paged_chunk_attention_matches_jax(model, pos, n_real):
                                atol=1e-5)
 
 
-def test_paged_chunk_attends_through_the_verify_wrapper(model, monkeypatch):
-    """Every layer of a paged chunk calls ``paged_verify_attention`` (the
-    kernel on the card) once, as a linear verify window of k1 = the
-    chunk's width at the chunk's position, over the slot's real gather
-    row — while the stored row stays parked on scratch until the final
-    chunk installs it."""
-    calls = []
-    real = port_gpt.paged_verify_attention
+def _chunk_routes(model, monkeypatch, cache_dtype):
+    """Drive a 13-token prompt through a paged engine's chunks of 8 with
+    the card's dispatch in ``paged_attention`` (the launches replaced by
+    their plain versions): the params in the pool's dtype, so q is too.
+    Returns, per chunk, the model's ``paged_chunk_attention`` calls
+    (shape, gather row, pos) and the kernel routes taken, and checks the
+    parked stored row and the audit between chunks."""
+    from apex_tpu_torch.transformer.functional import paged_attention as pa
+    from apex_tpu_torch.utils.tree import tree_map
 
-    def spy(q, k_pages, v_pages, block_tables, pos, anc=None, *a, **kw):
-        calls.append((tuple(q.shape), block_tables.tolist(), pos.tolist(),
-                      anc))
-        return real(q, k_pages, v_pages, block_tables, pos, anc, *a, **kw)
+    _, _, cfg, params = model
+    calls, routes = [], []
+    real = port_gpt.paged_chunk_attention
 
-    monkeypatch.setattr(port_gpt, "paged_verify_attention", spy)
-    eng = _port_engine(model, True)
+    def spy(q, k_pages, v_pages, gather_row, pos, *a, **kw):
+        calls.append((tuple(q.shape), gather_row.tolist(), pos.tolist()))
+        return real(q, k_pages, v_pages, gather_row, pos, *a, **kw)
+
+    def kernel(*a, **kw):
+        routes.append("chunk")
+        return pa.paged_chunk_attention_plain(*a, **kw)
+
+    def verify(q, k_pages, v_pages, block_tables, pos, anc=None, **kw):
+        routes.append(("verify", anc))
+        return pa.paged_verify_attention_plain(q, k_pages, v_pages,
+                                               block_tables, pos, anc, **kw)
+
+    monkeypatch.setattr(port_gpt, "paged_chunk_attention", spy)
+    monkeypatch.setattr(pa, "on_card", lambda t, what="": True)
+    monkeypatch.setattr(pa, "paged_chunk_attention_kernel", kernel)
+    monkeypatch.setattr(pa, "paged_verify_attention", verify)
+    params = tree_map(lambda t: t.to(cache_dtype), params)
+    eng = port_serving.PagedDecodeEngine(
+        params, cfg, num_slots=2, max_len=MAX_LEN, num_pages=24,
+        page_size=4, buckets=(16, 32), cache_dtype=cache_dtype,
+        device="cpu")
     prompt = tuple(range(2, 15))                     # 13 tokens, 4 pages
     state = eng.begin_chunk_prefill(1, prompt)
-    L, nh, hd = model[2].num_layers, model[2].num_heads, model[2].head_dim
+    out = []
     with torch.inference_mode():
         for pos in range(0, 13, 8):
             calls.clear()
+            routes.clear()
             final = pos + 8 >= len(prompt)
             eng.chunk_prefill(1, prompt[pos:pos + 8], pos, state, 8, final)
-            assert calls == [((1, nh, 8, hd), [state["row"].tolist()],
-                              [pos], None)] * L
+            out.append((pos, list(calls), list(routes)))
             stored = eng.cache.block_tables[1].tolist()
             assert stored == (state["row"].tolist() if final
                               else [SCRATCH_PAGE] * eng.max_pages)
             assert eng.check_invariants()
+    return out, [state["row"].tolist()]
+
+
+def test_paged_chunk_attends_through_the_verify_wrapper(model, monkeypatch):
+    """An fp32 pool's chunk goes through ``paged_verify_attention`` on
+    the card: every layer calls ``paged_chunk_attention`` once, over the
+    slot's real gather row at the chunk's position, and it launches the
+    verify kernel's route (a linear window of k1 = the chunk), never the
+    chunk kernel — while the stored row stays parked on scratch until
+    the final chunk installs it."""
+    L, nh, hd = model[2].num_layers, model[2].num_heads, model[2].head_dim
+    chunks, row = _chunk_routes(model, monkeypatch, torch.float32)
+    for pos, calls, routes in chunks:
+        assert calls == [((1, nh, 8, hd), row, [pos])] * L
+        assert routes == [("verify", None)] * L
+
+
+def test_paged_chunk_attends_through_the_chunk_wrapper(model, monkeypatch):
+    """A bf16 chunk over a bf16 pool goes to the chunk kernel on the
+    card: every layer calls ``paged_chunk_attention`` once, over the
+    slot's real gather row at the chunk's position, and it launches the
+    chunk kernel once, never the verify kernel."""
+    L, nh, hd = model[2].num_layers, model[2].num_heads, model[2].head_dim
+    chunks, row = _chunk_routes(model, monkeypatch, torch.bfloat16)
+    for pos, calls, routes in chunks:
+        assert calls == [((1, nh, 8, hd), row, [pos])] * L
+        assert routes == ["chunk"] * L
+
+
+@pytest.mark.parametrize("sc,pos,page,hd", [(8, 4, 4, 16), (64, 40, 24, 48)])
+def test_chunk_limit_covers_paged_limit(sc, pos, page, hd):
+    """``chunk_limit`` is finite, positive and at least ``paged_limit``
+    on the same bf16 chunk (the tensor-core terms add to it); the plain
+    chunk is the plain linear verify over the gather row."""
+    from apex_tpu_torch.transformer.functional import paged_attention as pa
+
+    rng = np.random.RandomState(sc + pos)
+    nh, max_pages = 2, -(-(pos + sc) // page) + 1
+    num_pages = 2 + max_pages
+    k, v = (torch.from_numpy(rng.randn(num_pages, nh, page, hd).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    q = torch.from_numpy(rng.randn(1, nh, sc, hd).astype(
+        np.float32)).to(torch.bfloat16)
+    row = torch.from_numpy((2 + rng.permutation(max_pages)).astype(
+        np.int32))[None]
+    p = torch.tensor([pos], dtype=torch.int32)
+    ctx = pa.paged_chunk_attention(q, k, v, row, p)
+    assert torch.equal(ctx, pa.paged_verify_attention_plain(q, k, v, row, p))
+    lim = pa.chunk_limit(q, k, v, row, p, ctx)
+    assert lim.shape == ctx.shape
+    assert bool(torch.isfinite(lim).all()) and bool((lim > 0).all())
+    assert bool((lim >= pa.paged_limit(q, k, v, row, p, ctx)).all())
 
 
 # -- streams against the JAX scheduler ----------------------------------------

@@ -67,10 +67,13 @@ repeat and two page placements bit for bit, column j of a linear verify
 to the decode kernel at pos + j bit for bit, and k1 past ``MAX_K1``
 refused by the C entry without a launch counted; the wrapper at k1 = 80
 launches once a slice of ``verify_slices`` and gives the bits of
-one-query launches (linear and tree), as it does at a prompt chunk's
-shape (one slot, k1 = 256 at pos 0, 256 and 512, bf16 and fp32 pools,
-over a gather row apart from the parked stored row), and a
-``PagedDecodeEngine`` at
+one-query launches (linear and tree), as it does for an fp32 prompt
+chunk (one slot, k1 = 256 at pos 0, 256 and 512, over a gather row
+apart from the parked stored row). The prompt-chunk kernel (bf16, tensor
+cores) is held per element to ``paged_attention.chunk_limit`` at pages
+of 16, 24 and 64, hd 64 and 48, sc 64 and 256, pos 0, mid-page and 768
+(a split walk), repeats and two page placements bit for bit, and
+refuses without a launch counted. A ``PagedDecodeEngine`` at
 ``spec_k`` 64 and 80 serves with the CPU's streams. A data-parallel
 BERT step on an NCCL world of one equals the plain step bit for
 bit."""
@@ -1853,17 +1856,136 @@ def test_paged_verify_slice_is_the_c_entrys_limit(cuda_device):
         pa_mod.paged_verify_attention_kernel(*args, q0=0, nq=nq + 1)
 
 
+def _chunk_case(dev, sc, pos, page, hd, kv="bf16", nh=16, seed=0,
+                extra_pages=0):
+    """One slot's prompt chunk: q (1, nh, sc, hd), pools of 2 + 2 x the
+    table's pages, a gather row of distinct random pages for the rows 0
+    .. pos + sc - 1 (NULL_PAGE past them, ``extra_pages`` more entries),
+    and ``pos``."""
+    from apex_tpu_torch.serving.cache import NULL_PAGE
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    live = -(-(pos + sc) // page)
+    max_pages = live + extra_pages
+    num_pages = 2 + 2 * max_pages
+    k, v = (torch.randn((num_pages, nh, page, hd), generator=g,
+                        device=dev).to(_DT[kv]) for _ in range(2))
+    q = torch.randn((1, nh, sc, hd), generator=g, device=dev).to(_DT[kv])
+    row = torch.full((1, max_pages), NULL_PAGE, dtype=torch.int32,
+                     device=dev)
+    row[0, :live] = (2 + torch.randperm(num_pages - 2, generator=g,
+                                        device=dev)[:live]).to(torch.int32)
+    return q, k, v, row, torch.tensor([pos], dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 24, 64])
+@pytest.mark.parametrize("hd", [64, 48])
+@pytest.mark.parametrize("sc", [64, 256])
+@pytest.mark.parametrize("where", ["0", "mid_page", "768"])
+def test_paged_chunk_kernel_within_limit(cuda_device, page, hd, sc, where):
+    """The chunk kernel (one launch) against its plain version within
+    ``chunk_limit`` per element, at pos 0, mid-page (1.5 pages) and 768
+    (a split walk: the table holds 1024 rows or more), and the same bits
+    on a second launch."""
+    pos = {"0": 0, "mid_page": page + page // 2, "768": 768}[where]
+    args = _chunk_case(cuda_device, sc, pos, page, hd, nh=4, seed=pos + sc,
+                       extra_pages=1024 // page)
+    n0 = pa_mod.PAGED_CHUNK.launches
+    v0 = pa_mod.PAGED_VERIFY.launches
+    got = pa_mod.paged_chunk_attention(*args)
+    torch.cuda.synchronize()
+    assert pa_mod.PAGED_CHUNK.launches == n0 + 1
+    assert pa_mod.PAGED_VERIFY.launches == v0
+    want = pa_mod.paged_chunk_attention_plain(*args)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    lim = pa_mod.chunk_limit(*args, want)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= lim).all()), float((err / lim).max())
+    assert torch.equal(pa_mod.paged_chunk_attention_kernel(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 768])
+def test_paged_chunk_kernel_placement_invariant(cuda_device, pos):
+    """The same logical rows under two permutations of the physical
+    pages: the same bits (pos 768 walks in parts), and again on a repeat
+    launch."""
+    q, k, v, row, p = _chunk_case(cuda_device, 256, pos, 64, 64, seed=3,
+                                  extra_pages=2)
+    outs = []
+    for seed in (2, 3):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        perm = torch.arange(k.shape[0], device=cuda_device)
+        perm[2:] = 2 + torch.randperm(k.shape[0] - 2, generator=g,
+                                      device=cuda_device)
+        k2, v2 = torch.empty_like(k), torch.empty_like(v)
+        k2[perm], v2[perm] = k, v
+        row2 = perm[row.long()].to(torch.int32)
+        outs.append(pa_mod.paged_chunk_attention_kernel(q, k2, v2, row2, p))
+        outs.append(pa_mod.paged_chunk_attention_kernel(q, k2, v2, row2, p))
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_paged_chunk_kernel_reads_through_the_gather_row(cuda_device):
+    """A parked row (every entry the scratch page) reads other rows than
+    the gather row: another ctx."""
+    from apex_tpu_torch.serving.cache import SCRATCH_PAGE
+
+    q, k, v, row, p = _chunk_case(cuda_device, 256, 256, 64, 64, seed=4)
+    got = pa_mod.paged_chunk_attention_kernel(q, k, v, row, p)
+    parked = torch.full_like(row, SCRATCH_PAGE)
+    assert not torch.equal(
+        pa_mod.paged_chunk_attention_kernel(q, k, v, parked, p), got)
+
+
+@pytest.mark.cuda
+def test_paged_chunk_kernel_refuses_without_counting(cuda_device):
+    """The C entry refuses splits past its most, an unaligned q and a
+    table past the shared memory with a non-zero code the wrapper
+    raises; the wrapper refuses CPU tensors and an fp32 pool; no launch
+    is counted. Its split constants are the wrapper's."""
+    lib = pa_mod.LIB.load()
+    assert (lib.apx_paged_chunk_max_splits(),
+            lib.apx_paged_chunk_min_tiles()) == (pa_mod._MAX_SPLITS,
+                                                 pa_mod._MIN_TILES)
+    q, k, v, row, p = _chunk_case(cuda_device, 64, 0, 16, 64, nh=2)
+    n0 = pa_mod.PAGED_CHUNK.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pa_mod.paged_chunk_attention_kernel(q, k, v, row, p, splits=5)
+    base = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    q_off = base[1:].view(q.shape)
+    q_off.copy_(q)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pa_mod.paged_chunk_attention_kernel(q_off, k, v, row, p)
+    wide = torch.full((1, 60000), 2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pa_mod.paged_chunk_attention_kernel(q, k, v, wide, p)
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+        pa_mod.paged_chunk_attention_kernel(q.cpu(), k, v, row, p)
+    with pytest.raises(ValueError, match="bf16 q and pools"):
+        pa_mod.paged_chunk_attention_kernel(q.float(), k.float(), v.float(),
+                                            row, p)
+    assert pa_mod.PAGED_CHUNK.launches == n0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["bf16", "f32"])
 @pytest.mark.parametrize("pos", [0, 256, 512])
 def test_paged_verify_at_a_prompt_chunks_shape(cuda_device, kv, pos):
     """A chunked prefill's attention: one slot, 16 heads, hd 64, a chunk
-    of 256 queries at ``pos`` (a linear verify window of k1 = 256),
-    pages of 64 in a table of 16, attending through the slot's gather
-    row while its stored row is parked on scratch. The wrapper launches
-    once a slice of ``verify_slices(256, 64)``, within ``paged_limit``
-    of the plain version, every query the bits of its one-query launch
-    (the decode kernel at pos + j); the parked row reads other rows."""
+    of 256 queries at ``pos``, pages of 64 in a table of 16, attending
+    through the slot's gather row while its stored row is parked on
+    scratch. bf16: ``paged_chunk_attention`` launches the chunk kernel
+    once, within ``chunk_limit`` of the plain version (the reference
+    promises no decode bits for a chunk query, and speculation does not
+    reach this path). fp32: the verify wrapper launches once a slice of
+    ``verify_slices(256, 64)``, within ``paged_limit`` of the plain
+    version, every query the bits of its one-query launch (the decode
+    kernel at pos + j), and ``paged_chunk_attention`` takes that route.
+    The parked row reads other rows."""
     from apex_tpu_torch.serving.cache import NULL_PAGE, SCRATCH_PAGE
 
     dev, sc, nh, hd, page, max_pages = cuda_device, 256, 16, 64, 64, 16
@@ -1879,12 +2001,26 @@ def test_paged_verify_at_a_prompt_chunks_shape(cuda_device, kv, pos):
                                      device=dev)[:live]).to(torch.int32)
     gather = row[None].contiguous()
     p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    parked = torch.full_like(gather, SCRATCH_PAGE)
+    want = pa_mod.paged_verify_attention_plain(q, k, v, gather, p, None)
+    if kv == "bf16":
+        n0 = pa_mod.PAGED_CHUNK.launches
+        v0 = pa_mod.PAGED_VERIFY.launches
+        got = pa_mod.paged_chunk_attention(q, k, v, gather, p)
+        torch.cuda.synchronize()
+        assert pa_mod.PAGED_CHUNK.launches - n0 == 1
+        assert pa_mod.PAGED_VERIFY.launches == v0
+        lim = pa_mod.chunk_limit(q, k, v, gather, p, want)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= lim).all()), float((err / lim).max())
+        assert not torch.equal(
+            pa_mod.paged_chunk_attention(q, k, v, parked, p), got)
+        return
     n0 = pa_mod.PAGED_VERIFY.launches
     got = pa_mod.paged_verify_attention(q, k, v, gather, p, None)
     torch.cuda.synchronize()
     assert pa_mod.PAGED_VERIFY.launches - n0 \
         == len(pa_mod.verify_slices(sc, hd)) == 4
-    want = pa_mod.paged_verify_attention_plain(q, k, v, gather, p, None)
     lim = pa_mod.paged_limit(q, k, v, gather, p, want)
     err = (got.float() - want.float()).abs()
     assert bool((err <= lim).all()), float((err / lim).max())
@@ -1892,7 +2028,9 @@ def test_paged_verify_at_a_prompt_chunks_shape(cuda_device, kv, pos):
         one = pa_mod.paged_decode_attention_kernel(
             q[:, :, j].contiguous(), k, v, gather, p + j)
         assert torch.equal(got[:, :, j], one), j
-    parked = torch.full_like(gather, SCRATCH_PAGE)
+    c0 = pa_mod.PAGED_CHUNK.launches
+    assert torch.equal(pa_mod.paged_chunk_attention(q, k, v, gather, p), got)
+    assert pa_mod.PAGED_CHUNK.launches == c0
     assert not torch.equal(
         pa_mod.paged_verify_attention(q, k, v, parked, p, None), got)
 

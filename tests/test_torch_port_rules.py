@@ -195,7 +195,8 @@ def dispatch_to_card(monkeypatch):
                       (w8, "w8_matmul_nk_plain"),
                       (prng, "threefry_bits_plain"),
                       (prng, "dropout_plain"),
-                      (pa, "paged_decode_attention_plain")):
+                      (pa, "paged_decode_attention_plain"),
+                      (pa, "paged_chunk_attention_plain")):
         monkeypatch.setattr(mod, name, plain)
 
 
@@ -454,6 +455,42 @@ def test_paged_decode_on_card_path_reaches_the_kernel(monkeypatch,
     with pytest.raises(RuntimeError, match="paged_decode_attention kernel "
                        "needs CUDA"):
         eng.decode([3, 4], [True, True])
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16_pool", "int8_pool"])
+def test_paged_chunk_on_card_path_reaches_the_kernel(monkeypatch,
+                                                     dispatch_to_card,
+                                                     cache_dtype):
+    """A paged engine's prompt chunk on the card path (bf16 params, the
+    norm kernel swapped for the saved plain version): over a bf16 pool
+    each layer's attention goes to the chunk kernel's wrapper, which
+    refuses CPU tensors; an int8 pool is refused, by the engine and by
+    ``paged_chunk_attention`` itself, as the JAX package refuses
+    chunked prefill over it."""
+    from apex_tpu_torch.utils.tree import tree_map
+
+    monkeypatch.setattr(ln, "layer_norm_fwd_kernel", _plain["ln"])
+    cfg = port_gpt.gpt_tiny()
+    params = tree_map(lambda t: t.to(torch.bfloat16), port_gpt.init_gpt(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    eng = port_serving.PagedDecodeEngine(
+        params, cfg, num_slots=2, max_len=16, num_pages=8, page_size=4,
+        buckets=(8, 16), cache_dtype=cache_dtype, device="cpu")
+    state = eng.begin_chunk_prefill(0, (3, 4, 5, 6, 7))
+    if cache_dtype == torch.int8:
+        with pytest.raises(ValueError, match="int8 page pool"):
+            eng.chunk_prefill(0, (3, 4, 5, 6), 0, state, 4, False)
+        k = torch.zeros((4, 2, 4, 8), dtype=torch.int8)
+        with pytest.raises(ValueError, match="int8 page pool"):
+            pa.paged_chunk_attention(
+                torch.zeros((1, 2, 4, 8), dtype=torch.bfloat16), k, k,
+                torch.zeros((1, 1), dtype=torch.int32),
+                torch.zeros(1, dtype=torch.int32))
+        return
+    with pytest.raises(RuntimeError, match="paged_chunk_attention kernel "
+                       "needs CUDA"):
+        eng.chunk_prefill(0, (3, 4, 5, 6), 0, state, 4, False)
 
 
 @pytest.mark.parametrize("mod", [ln, fa, xent, fsm, mta, w8, prng, pa],
