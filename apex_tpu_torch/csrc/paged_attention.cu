@@ -20,36 +20,72 @@
 // What bounds it on an H100: bytes. The slot's live K and V rows are
 // read once for all k1 queries (2 (pos + k1) nh hd sizeof(pool) bytes,
 // plus an int8 pool's scales), against about 4 k1 flops a K/V element
-// pair; below the card's 295 flops a byte for any k1 <= 64.
+// pair; below the card's 295 flops a byte for any k1 <= 64. What bound
+// the first design (one block a (head, slot) walking the slot's rows
+// in tiles of 128, four barriers a tile) was the latency of that walk:
+// 128 blocks on 132 SMs at 8 slots, the longest slot's tiles in series.
 //
-// Design (a simple first version): one block of 256 threads a (head,
-// slot), at most 128 registers a thread so that two blocks share an
-// SM. q (k1 x hd) and the k1 accumulators live in shared memory in
-// fp32. The block walks the rows in tiles of 128 logical positions: the
-// tile's K and V rows are loaded (each row's physical page read from the
-// table at its logical page), upcast (dequantized) into shared memory,
-// and the next tile's loads are issued before this tile is computed.
-// Rows are padded to whole float4s (zeros past hd). Scores: a thread a
-// (query, row) pair, its dot product over the float4s in element order.
-// Softmax: one warp a query, four rows a
-// lane (r + 32 i): tile max, rescale c = exp(m - m'), p = exp(s - m'),
-// the tile's sum of p (each lane's four in order, then a butterfly). PV: 8
-// lanes an item of 4 elements of one query, each summing every 8th row
-// of the tile in order, the 8 parts then a butterfly. A tile a query
-// cannot see is skipped for it. ctx = acc / l, rounded once to q's type.
+// Design. Each slot's rows are cut into parts of kPart = 128 logical
+// positions, a constant of this file; one block of 128 threads a
+// (part, head, slot). The grid is sized from the table (pos lies on the
+// card): a part past the rows any query of the launch may see exits at
+// once. A block reads pos and each of its rows' physical page (the
+// table at the row's logical page) together, stages q in fp32 in shared
+// memory, then copies the part's K rows and V rows, in the pool's own
+// type, by cp.async (16-byte copies where hd and the pools allow, else
+// 8, 4, 2 or 1; rows past the last one read are zero-filled), K and V
+// in two groups so that V lands while the scores are taken (rows too
+// wide for both beside 64 queries, a function of hd and the pool's type:
+// V into K's buffer after the scores). Scores: a thread a row, the dot
+// product with each query over the row in element order, K converted in
+// registers from 16-byte shared reads (an int8 element dequantized by
+// the one __fmul_rn(int8, scale) of the plain version), q read by
+// broadcast. Softmax over the part: one warp a query, four rows a lane
+// (r + 32 u): the part's max m_p, p = exp(s - m_p), the part's sum l_p
+// (the lane's four in order, then a butterfly). P V: 8 lanes an item of
+// 4 elements, lane i summing rows i, i + 8, ... in order, then a
+// butterfly. Past one query, a thread takes the scores and P V sums of
+// up to four queries at once (their accumulators in registers, each K
+// and V element read once for them): every query's sums keep the order
+// above. Four block barriers (two more for the parts' count) and no
+// rescale inside a part. Blocks an SM asked of the compiler: 8 over an
+// int8 pool (its rows are small enough for 8 in shared memory; the
+// 64-register cap spills 8-28 bytes, and 5 blocks were 9 % slower on an
+// H100 at the A/B configuration), 5 over a bf16 or fp32 pool (shared
+// memory holds about 5 at hd 64 over bf16 and fewer above; 91-96
+// registers and no spill, where 8 capped them at 64 for an occupancy
+// that shared memory never gave).
 //
-// The order of every operation of query j depends only on logical
-// positions, hd and the rows it can see, never on k1, the other
-// queries, or physical page ids. So the same logical contents under any
-// page placement give the same bits, and column j of a linear verify
-// gives the bits of a decode step at pos + j (the rows the verify
-// loads beyond a query's reach enter its sums as exact zeros).
+// A slot whose rows fit one part writes ctx = acc / l, rounded once to
+// q's type. Otherwise each part writes its (m_p, l_p, acc_p) to a work
+// buffer, and the last part of a (head, slot) to arrive, by an integer
+// counter that it resets (the counters are zero at every launch and
+// are left zero, so CUDA-graph replays find them so), combines the
+// parts in part order: M = max m_p, w_p = exp(m_p - M) (exactly 1 at
+// M), L = sum w_p l_p and acc = sum w_p acc_p from the first part the
+// query sees, each product and sum rounded once; ctx = acc / L. No
+// float atomics: the same bits whichever part arrives last.
+//
+// Query j's order of operations depends only on logical positions, hd
+// and the rows it can see, never on k1, the other queries, the slot
+// count, the card's occupancy or physical page ids: part p holds the
+// rows 128 p .. 128 p + 127 whatever the launch; inside it each of j's
+// sums runs over the part's logical rows in a fixed order, rows j
+// cannot see entering as exact zeros (p = 0, and rows past the
+// launch's last are zero-filled); a part where j sees no row carries
+// m_p = -inf, which the combine skips (an exact no-op); and one part
+// alone gives acc / l, the combine's 1 * acc / (1 * l) too. So the same
+// logical contents under any page placement give the same bits, and
+// column j of a linear verify at pos meets the parts and sums of a
+// decode step at pos + j, whose part boundaries are the same logical
+// rows.
 //
 // A launch takes a slice of the window's queries: nq queries from q0
-// of a window of wk (q, out and anc keep the window's shape). Shared
-// memory holds the slice's queries, so a window wider than one launch
-// holds (kMaxK1, or fewer at a wide hd) runs as consecutive slices,
-// and by the order above they give the bits of one launch over all.
+// of a window of wk (q, out and anc keep the window's shape). By the
+// order above, a window launched in slices gives the bits of one
+// launch over all of it. Shared memory holds the part's raw K and V
+// rows and, a query, q, its scores and m, l: 64 queries fit at every
+// hd and pool type but an fp32 pool at hd above 252 (62 at 256).
 //
 // The prompt-chunk attention (apx_paged_chunk_attention, below the
 // decode and verify kernel) is a second kernel of this file: one slot's
@@ -65,31 +101,24 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;   // four warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kT = 128;        // logical positions a tile (four a lane)
-constexpr int kParts = 8;      // lanes a (query, 4 elements) of the PV sum
-constexpr int kPad = 4;        // K and V row padding in shared memory
-constexpr int kMaxV = 8;       // vectors a thread has in flight
+constexpr int kPart = 128;      // logical positions a part
+constexpr int kLanes = 8;       // lanes a (query, 4 elements) P V item
+constexpr int kItems = kThreads / kLanes;
+constexpr int kRowPad = 16;     // bytes after each K/V row in shared memory
+constexpr int kBatch = 8;       // parts' (m, l) a thread has in flight
+constexpr int kSumBatch = 4;    // parts' (m, l, acc) a thread has in flight
+constexpr int kGroup = 4;       // the most queries a thread takes at once
 constexpr int kMaxK1 = 64;
 constexpr int kMaxHd = 256;
 constexpr int kMaxSmem = 232448;
 
 enum { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
-template <int VB> struct Raw;
-template <> struct Raw<16> { using T = uint4; };
-template <> struct Raw<8> { using T = uint2; };
-template <> struct Raw<4> { using T = uint32_t; };
-template <> struct Raw<2> { using T = uint16_t; };
-template <> struct Raw<1> { using T = uint8_t; };
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(int8_t x) {
-  return static_cast<float>(x);
 }
 __device__ __forceinline__ void from_f(float x, float* out) { *out = x; }
 __device__ __forceinline__ void from_f(float x, __nv_bfloat16* out) {
@@ -101,412 +130,544 @@ __device__ __forceinline__ float rescale(float a, float b) {
   return a == -CUDART_INF_F ? 0.f : expf(a - b);
 }
 
-// head_dim rounded up to whole float4s: q and the tiles' rows carry
-// zeros past hd, so every dot product and PV sum runs over float4s
-__host__ __device__ __forceinline__ int padded(int hd) {
-  return (hd + 3) / 4 * 4;
+// A K/V row's bytes in shared memory: whole 16-byte chunks, then
+// kRowPad more (eight rows read at once fall on distinct banks)
+__host__ __device__ constexpr int row_stride(int hd, int esz) {
+  return (hd * esz + 15) / 16 * 16 + kRowPad;
 }
 
-size_t smem_bytes(int k1, int hd) {
-  const size_t hp = padded(hd);
-  return sizeof(float) * (2 * static_cast<size_t>(kT) * (hp + kPad)
-                          + 2 * static_cast<size_t>(k1) * hp
-                          + static_cast<size_t>(k1) * kT + 3 * k1);
+// q's floats a query in shared memory: hd rounded up to float4s
+__host__ __device__ constexpr int q_width(int hd) { return (hd + 3) / 4 * 4; }
+
+// the row offsets, the K and V rows, a query's q, scores, m and l, the
+// int8 scales and the last arrival's flag (16 bytes)
+__host__ __device__ constexpr size_t smem_parts(int nq, int hd, int esz,
+                                                int kv_rows) {
+  return sizeof(long long) * kPart +
+         static_cast<size_t>(kv_rows) * row_stride(hd, esz) +
+         sizeof(float) * (static_cast<size_t>(nq) * (q_width(hd) + kPart + 2)
+                          + 2 * kPart) + 16;
 }
 
-// The tile's K and V rows as VE-element vectors: vector v < 2 kT rv
-// (rv vectors a row) is K (v < kT rv) or V, row (v / rv) % kT, column
-// (v % rv) VE. A thread's first kMaxV vectors (every vector of a tile up
-// to 2048 of them) keep their row, column and logical page in registers
-// from tile to tile, so the hot loop divides nothing; wider tiles load
-// the rest through the general path.
-template <typename TKV, int VE, bool kQ8>
-struct Tile {
-  using R = typename Raw<VE * sizeof(TKV)>::T;
-  const TKV* kp;
-  const TKV* vp;
-  const float* ks;
-  const float* vs;
-  const int* row;
-  int nh, h, page, hd, rv, nmax;
-  int q_t, r_t;                  // kT / page, kT % page
-  int r[kMaxV], c[kMaxV], lp[kMaxV], rin[kMaxV], phys[kMaxV];
+// Whether the V rows reuse the K rows' buffer once the scores are taken:
+// rows too wide for both beside kMaxK1 queries (a function of hd and the
+// pool's type alone).
+__host__ __device__ constexpr bool kv_shared(int hd, int esz) {
+  return smem_parts(kMaxK1, hd, esz, 2 * kPart) > kMaxSmem;
+}
 
-  __device__ __forceinline__ int total() const { return 2 * kT * rv; }
-  __device__ __forceinline__ bool is_k(int i) const {
-    return static_cast<int>(threadIdx.x) + i * kThreads < kT * rv;
-  }
-  __device__ __forceinline__ bool on(int i) const {
-    return static_cast<int>(threadIdx.x) + i * kThreads < total();
-  }
+__host__ __device__ constexpr size_t smem_bytes(int nq, int hd, int esz) {
+  return smem_parts(nq, hd, esz, kv_shared(hd, esz) ? kPart : 2 * kPart);
+}
 
-  __device__ __forceinline__ void init() {
-    q_t = kT / page;
-    r_t = kT % page;
-#pragma unroll
-    for (int i = 0; i < kMaxV; ++i) {
-      const int v = threadIdx.x + i * kThreads;
-      r[i] = (v / rv) % kT;
-      c[i] = (v % rv) * VE;
-      lp[i] = r[i] / page;
-      rin[i] = r[i] % page;
-    }
-  }
+static_assert(kThreads == kPart && kPart % 32 == 0 && kPart % kLanes == 0,
+              "a thread a row; whole warps and lane groups a part");
 
-  // the next tile: every row kT positions on
-  __device__ __forceinline__ void advance() {
-#pragma unroll
-    for (int i = 0; i < kMaxV; ++i) {
-      lp[i] += q_t;
-      rin[i] += r_t;
-      if (rin[i] >= page) {
-        rin[i] -= page;
-        ++lp[i];
-      }
-    }
-  }
+__device__ __forceinline__ uint32_t shared_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
 
-  // issue the loads of the thread's first kMaxV vectors of tile t0
-  __device__ __forceinline__ void fetch(R* raw, int t0) {
-#pragma unroll
-    for (int i = 0; i < kMaxV; ++i) {
-      if (on(i) && t0 + r[i] < nmax) {
-        phys[i] = row[lp[i]];
-        const long long off =
-            ((static_cast<long long>(phys[i]) * nh + h) * page + rin[i])
-            * hd + c[i];
-        raw[i] = *reinterpret_cast<const R*>((is_k(i) ? kp : vp) + off);
-      } else {
-        raw[i] = R();
-      }
-    }
+// VB bytes global -> shared; `in` false zero-fills (cp.async for 4, 8
+// and 16 bytes, a load and a store below)
+template <int VB>
+__device__ __forceinline__ void stage(unsigned char* dst,
+                                      const unsigned char* src, bool in) {
+  if constexpr (VB == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     shared_addr(dst)),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  } else if constexpr (VB >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     shared_addr(dst)),
+                 "l"(src), "n"(VB), "r"(in ? VB : 0)
+                 : "memory");
+  } else {
+    using R = std::conditional_t<VB == 2, uint16_t, uint8_t>;
+    *reinterpret_cast<R*>(dst) = in ? *reinterpret_cast<const R*>(src) : R();
   }
+}
 
-  // 16-byte stores where the vector has 4 elements or more (rows and
-  // columns are then multiples of 4 floats): scalar stores of 8-element
-  // vectors would put 8 lanes of a warp on each bank
-  __device__ __forceinline__ void store(const R& raw, float* dst,
-                                        float sc) const {
-    const TKV* e = reinterpret_cast<const TKV*>(&raw);
-    float f[VE];
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ float i8_at(uint32_t w, int k, float sc) {
+  return __fmul_rn(static_cast<float>(static_cast<int8_t>(w >> (8 * k))),
+                   sc);
+}
+
+// the 16 / sizeof(TKV) elements of a 16-byte chunk of a row in fp32 (an
+// int8 element times its page's scale, one rounding)
+template <typename TKV>
+__device__ __forceinline__ void unpack16(const uint4& r, float sc,
+                                         float* f) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-    for (int u = 0; u < VE; ++u)
-      f[u] = kQ8 ? __fmul_rn(to_f(e[u]), sc) : to_f(e[u]);
-    if constexpr (VE % 4 == 0) {
-#pragma unroll
-      for (int u = 0; u < VE; u += 4)
-        *reinterpret_cast<float4*>(dst + u) =
-            make_float4(f[u], f[u + 1], f[u + 2], f[u + 3]);
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(TKV) == 4) {
+      f[i] = __uint_as_float(w[i]);
+    } else if constexpr (sizeof(TKV) == 2) {
+      f[2 * i] = bf_lo(w[i]);
+      f[2 * i + 1] = bf_hi(w[i]);
     } else {
 #pragma unroll
-      for (int u = 0; u < VE; ++u) dst[u] = f[u];
+      for (int k = 0; k < 4; ++k) f[4 * i + k] = i8_at(w[i], k, sc);
     }
   }
+}
 
-  // upcast (dequantize) them into the tile (K and V rows hd + kPad
-  // floats apart)
-  __device__ __forceinline__ void put(const R* raw, int t0, float* sk,
-                                      float* sv) const {
-    const int ld = padded(hd) + kPad;
-#pragma unroll
-    for (int i = 0; i < kMaxV; ++i) {
-      if (on(i)) {
-        float sc = 1.f;
-        if (kQ8 && t0 + r[i] < nmax)
-          sc = (is_k(i) ? ks : vs)[static_cast<long long>(phys[i]) * nh + h];
-        store(raw[i], (is_k(i) ? sk : sv) + r[i] * ld + c[i], sc);
-      }
-    }
+// element e of a row in fp32
+template <typename TKV>
+__device__ __forceinline__ float elem(const unsigned char* row, int e,
+                                      float sc) {
+  if constexpr (sizeof(TKV) == 4) {
+    return reinterpret_cast<const float*>(row)[e];
+  } else if constexpr (sizeof(TKV) == 2) {
+    return to_f(reinterpret_cast<const __nv_bfloat16*>(row)[e]);
+  } else {
+    return __fmul_rn(static_cast<float>(
+                         reinterpret_cast<const int8_t*>(row)[e]), sc);
   }
+}
 
-  // the vectors past the first kMaxV a thread (tiles of more than 2048
-  // vectors), loaded and stored by the general path
-  __device__ __forceinline__ void rest(int t0, float* sk, float* sv) const {
-    const int ld = padded(hd) + kPad;
-    for (int v = threadIdx.x + kMaxV * kThreads; v < total();
-         v += kThreads) {
-      const bool k = v < kT * rv;
-      const int rr = (v / rv) % kT, cc = (v % rv) * VE, t = t0 + rr;
-      R raw = R();
-      float sc = 1.f;
-      if (t < nmax) {
-        const int ph = row[t / page];
-        const long long off =
-            ((static_cast<long long>(ph) * nh + h) * page + t % page) * hd
-            + cc;
-        raw = *reinterpret_cast<const R*>((k ? kp : vp) + off);
-        if (kQ8) sc = (k ? ks : vs)[static_cast<long long>(ph) * nh + h];
-      }
-      store(raw, (k ? sk : sv) + rr * ld + cc, sc);
-    }
+// elements e .. e + 3 of a row in fp32 (e a multiple of 4; past hd the
+// values are never used)
+template <typename TKV>
+__device__ __forceinline__ float4 load4(const unsigned char* row, int e,
+                                        float sc) {
+  if constexpr (sizeof(TKV) == 4) {
+    return *reinterpret_cast<const float4*>(row + 4 * e);
+  } else if constexpr (sizeof(TKV) == 2) {
+    const uint2 r = *reinterpret_cast<const uint2*>(row + 2 * e);
+    return make_float4(bf_lo(r.x), bf_hi(r.x), bf_lo(r.y), bf_hi(r.y));
+  } else {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(row + e);
+    return make_float4(i8_at(w, 0, sc), i8_at(w, 1, sc), i8_at(w, 2, sc),
+                       i8_at(w, 3, sc));
   }
+}
+
+struct Params {
+  const void* q;         // (b, nh, wk, hd)
+  const void* kp;        // (num_pages, nh, page, hd)
+  const void* vp;
+  const float* ks;       // (num_pages, nh) int8 scales, else null
+  const float* vs;
+  const int* bt;         // (b, max_pages)
+  const int* pos;        // (b,)
+  const uint8_t* anc;    // (b, wk, wk) or null
+  void* out;             // (b, nh, wk, hd)
+  float* work;           // the parts' records; null with one part
+  int* counters;         // (b nh) arrival counters, zero
+  int nh, wk, q0, nq, page, hd, max_pages, parts;
+  float scale;
 };
 
-template <typename TQ, typename TKV, int VE, bool kQ8>
-__global__ void __launch_bounds__(kThreads, 2)
-paged_attention_kernel(const TQ* __restrict__ q,
-                       const TKV* __restrict__ kp,
-                       const TKV* __restrict__ vp,
-                       const float* __restrict__ ks,
-                       const float* __restrict__ vs,
-                       const int* __restrict__ bt,
-                       const int* __restrict__ pos,
-                       const uint8_t* __restrict__ anc,
-                       TQ* __restrict__ out, int nh, int wk, int q0,
-                       int k1, int page, int hd, int max_pages,
-                       float scale) {
-  // k1: the slice's queries, window queries q0 .. q0 + k1 - 1 of wk
-  using T = Tile<TKV, VE, kQ8>;
-  extern __shared__ __align__(16) float sm[];
-  const int hp = padded(hd), ld = hp + kPad;
-  float* sk = sm;                          // kT x ld
-  float* sv = sk + kT * ld;                // kT x ld
-  float* sq = sv + kT * ld;                // k1 x hp
-  float* sacc = sq + k1 * hp;              // k1 x hp
-  float* sp = sacc + k1 * hp;              // k1 x kT scores, then p
-  float* sm_m = sp + k1 * kT;              // k1
-  float* sm_l = sm_m + k1;                 // k1
-  float* sm_c = sm_l + k1;                 // k1; -1: tile skipped
+template <typename TQ, typename TKV, int VB>
+__global__ void __launch_bounds__(kThreads, sizeof(TKV) == 1 ? 8 : 5)
+paged_attention_kernel(const Params p) {
+  // nq: the slice's queries, window queries q0 .. q0 + nq - 1 of wk
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = p.hd, nq = p.nq, hq = q_width(hd);
+  const int rs = row_stride(hd, sizeof(TKV));
+  const bool shared = kv_shared(hd, sizeof(TKV));
+  long long* srow = reinterpret_cast<long long*>(smem);  // kPart; -1 unread
+  unsigned char* sk = smem + sizeof(long long) * kPart;  // kPart x rs
+  unsigned char* sv = shared ? sk : sk + kPart * rs;     // kPart x rs
+  float* sq = reinterpret_cast<float*>(sv + kPart * rs); // nq x hq
+  float* sp = sq + nq * hq;                              // nq x kPart
+  float* sm = sp + nq * kPart;                           // nq
+  float* sl = sm + nq;                                   // nq
+  float* sks = sl + nq;                                  // kPart
+  float* svs = sks + kPart;                              // kPart
+  int* s_last = reinterpret_cast<int*>(svs + kPart);     // 1
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int s_len = max_pages * page;
-  const int p0 = pos[b];
+  const int part = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s_len = p.max_pages * p.page;
+  const int r0 = part * kPart, tr = r0 + tid;  // this thread's row
+  // its physical page, read beside pos
+  long long ph = 0;
+  if (tid < kPart && tr < s_len)
+    ph = p.bt[static_cast<long long>(b) * p.max_pages + tr / p.page];
+  const int p0 = p.pos[b];
   // rows any query of the slice may see: a tree's ancestors may lie
   // anywhere in the window, a linear query's up to its own row
-  const int nmax = min(p0 + (anc != nullptr ? wk : q0 + k1), s_len);
-  const long long qoff =
-      ((static_cast<long long>(b) * nh + h) * wk + q0) * hd;
-  const uint8_t* a = anc == nullptr
-      ? nullptr : anc + static_cast<long long>(b) * wk * wk;
+  const int nmax = min(p0 + (p.anc != nullptr ? p.wk : p.q0 + nq), s_len);
+  const int ns = (nmax + kPart - 1) / kPart;
+  if (part >= ns) return;
+  const long long unit = static_cast<long long>(b) * p.nh + h;
+  const long long qoff = (unit * p.wk + p.q0) * hd;
+  const uint8_t* a = p.anc == nullptr
+      ? nullptr : p.anc + static_cast<long long>(b) * p.wk * p.wk;
 
-  for (int i = threadIdx.x; i < k1 * hp; i += kThreads) {
-    const int j = i / hp, e = i % hp;
-    sq[i] = e < hd ? to_f(q[qoff + j * hd + e]) : 0.f;
-    sacc[i] = 0.f;
+  // each row's place in the pool
+  if (tid < kPart)
+    srow[tid] =
+        tr < nmax ? ((ph * p.nh + h) * p.page + tr % p.page) * hd : -1;
+  const TQ* qg = static_cast<const TQ*>(p.q) + qoff;
+  for (int i = tid; i < nq * hq; i += kThreads) {
+    const int j = i / hq, e = i % hq;
+    sq[i] = e < hd ? to_f(qg[j * hd + e]) : 0.f;
   }
-  // the rows' columns past hd stay zero (no load writes them)
-  for (int i = threadIdx.x; i < 2 * kT * (hp - hd); i += kThreads) {
-    const int rr = i / (hp - hd), e = hd + i % (hp - hd);
-    sk[rr * ld + e] = 0.f;               // rr < 2 kT: K then V rows
-  }
-  for (int j = threadIdx.x; j < k1; j += kThreads) {
-    sm_m[j] = -CUDART_INF_F;
-    sm_l[j] = 0.f;
-  }
+  __syncthreads();
 
-  T tile{kp, vp, ks, vs, bt + static_cast<long long>(b) * max_pages,
-         nh, h, page, hd, hd / VE, nmax};
-  tile.init();
-  typename T::R raw[kMaxV];
-  tile.fetch(raw, 0);
-
-  for (int t0 = 0; t0 < nmax; t0 += kT) {
-    tile.put(raw, t0, sk, sv);
-    tile.rest(t0, sk, sv);
-    __syncthreads();
-    if (t0 + kT < nmax) {                     // in flight below
-      tile.advance();
-      tile.fetch(raw, t0 + kT);
-    }
-
-    // scores, a thread a (query, row): the dot product over the
-    // float4s of q and of the K row, in element order
-    for (int pr = threadIdx.x; pr < k1 * kT; pr += kThreads) {
-      const int j = pr / kT, r = pr % kT;
-      const int t = t0 + r, w = t - p0;
-      const bool vis = t < s_len
-          && (w < 0 || (w < wk && (a != nullptr
-                                   ? a[static_cast<long long>(w) * wk + q0
-                                       + j] != 0
-                                   : w <= q0 + j)));
-      float d = 0.f;
-      if (vis) {
-        const float4* qv = reinterpret_cast<const float4*>(sq + j * hp);
-        const float4* kv = reinterpret_cast<const float4*>(sk + r * ld);
-#pragma unroll 4
-        for (int e = 0; e < hp / 4; ++e) {
-          const float4 x = qv[e], y = kv[e];
-          d = fmaf(x.x, y.x, d);
-          d = fmaf(x.y, y.y, d);
-          d = fmaf(x.z, y.z, d);
-          d = fmaf(x.w, y.w, d);
-        }
+  // the part's K rows, then its V rows, VB bytes a copy
+  const int rv = hd * static_cast<int>(sizeof(TKV)) / VB;  // copies a row
+  auto copy_rows = [&](unsigned char* dst, const void* pool) {
+    const unsigned char* src = static_cast<const unsigned char*>(pool);
+    if (kThreads % rv == 0) {        // a thread's column fixed
+      const int c = (tid % rv) * VB, step = kThreads / rv;
+      for (int r = tid / rv; r < kPart; r += step) {
+        const long long off = srow[r];
+        stage<VB>(dst + r * rs + c,
+                  src + (off < 0 ? 0 : off * sizeof(TKV)) + c, off >= 0);
       }
-      sp[j * kT + r] = vis ? d * scale : -CUDART_INF_F;
-    }
-    __syncthreads();
-
-    // online softmax, a warp a query, rows lane + 32 i a lane
-    for (int j = warp; j < k1; j += kWarps) {
-      constexpr int kRows = kT / 32;
-      float sv4[kRows], p[kRows];
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) {
-        sv4[u] = sp[j * kT + 32 * u + lane];
-        mx = fmaxf(mx, sv4[u]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      if (mx == -CUDART_INF_F) {           // warp-uniform
-        if (lane == 0) sm_c[j] = -1.f;
-        continue;
-      }
-      const float m_old = sm_m[j];
-      const float mn = fmaxf(m_old, mx);
-      const float c = rescale(m_old, mn);
-      float ps = 0.f;
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) {
-        p[u] = sv4[u] == -CUDART_INF_F ? 0.f : expf(sv4[u] - mn);
-        ps = __fadd_rn(ps, p[u]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, o);
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) sp[j * kT + 32 * u + lane] = p[u];
-      if (lane == 0) {
-        sm_c[j] = c;
-        sm_m[j] = mn;
-        sm_l[j] = __fadd_rn(__fmul_rn(sm_l[j], c), ps);
+    } else {
+      for (int v = tid; v < kPart * rv; v += kThreads) {
+        const int r = v / rv, c = (v % rv) * VB;
+        const long long off = srow[r];
+        stage<VB>(dst + r * rs + c,
+                  src + (off < 0 ? 0 : off * sizeof(TKV)) + c, off >= 0);
       }
     }
-    __syncthreads();
+    stage_commit();
+  };
+  copy_rows(sk, p.kp);
+  if (!shared) copy_rows(sv, p.vp);
+  // the int8 scales while the rows are in flight
+  if (std::is_same<TKV, int8_t>::value && tid < kPart) {
+    sks[tid] = tr < nmax ? p.ks[ph * p.nh + h] : 0.f;
+    svs[tid] = tr < nmax ? p.vs[ph * p.nh + h] : 0.f;
+  }
+  if (shared)
+    stage_wait<0>();
+  else
+    stage_wait<1>();
+  __syncthreads();
 
-    // acc = acc c + sum of the tile's p v: kParts lanes an item of 4
-    // elements of one query, part q summing rows q, q + kParts, ... in
-    // order, then a butterfly; the items padded to a multiple of the
-    // block's so that every lane reaches every shuffle
+  // scores, a thread a row and G queries at a time, each query's dot
+  // product over the row in element order
+  auto score = [&](auto group, int j0) {
+    constexpr int G = decltype(group)::value;
+    constexpr int kCE = 16 / sizeof(TKV);  // elements a 16-byte chunk
+    const int r = tid, t = r0 + r, w = t - p0;
+    const unsigned char* kr = sk + r * rs;
+    const float sc = sks[r];
+    const int full = hd / kCE;
     {
-      constexpr int kItems = kThreads / kParts;
-      const int part = threadIdx.x % kParts, nq = hp / 4;
-      const int n_items = (k1 * nq + kItems - 1) / kItems * kItems;
-      for (int i = threadIdx.x / kParts; i < n_items; i += kItems) {
-        const int j = min(i / nq, k1 - 1), e = (i % nq) * 4;
-        const bool on = i < k1 * nq && sm_c[j] >= 0.f;
-        float4 s4 = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (on) {
-#pragma unroll 4
-          for (int r = part; r < kT; r += kParts) {
-            const float pj = sp[j * kT + r];
-            const float4 v4 = *reinterpret_cast<const float4*>(
-                sv + r * ld + e);
-            s4.x = fmaf(pj, v4.x, s4.x);
-            s4.y = fmaf(pj, v4.y, s4.y);
-            s4.z = fmaf(pj, v4.z, s4.z);
-            s4.w = fmaf(pj, v4.w, s4.w);
+      bool vis[G];
+      bool any = false;
+      const float* qj[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int j = j0 + g;
+        vis[g] = j < nq && t < s_len
+            && (w < 0 || (w < p.wk && (a != nullptr
+                                       ? a[static_cast<long long>(w) * p.wk
+                                           + p.q0 + j] != 0
+                                       : w <= p.q0 + j)));
+        any = any || vis[g];
+        qj[g] = sq + min(j, nq - 1) * hq;
+      }
+      float d[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) d[g] = 0.f;
+      if (any) {
+        for (int c = 0; c < full; ++c) {
+          float f[kCE];
+          unpack16<TKV>(*reinterpret_cast<const uint4*>(kr + 16 * c), sc, f);
+#pragma unroll
+          for (int u = 0; u < kCE; u += 4) {
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const float4 x =
+                  *reinterpret_cast<const float4*>(qj[g] + c * kCE + u);
+              d[g] = fmaf(x.x, f[u], d[g]);
+              d[g] = fmaf(x.y, f[u + 1], d[g]);
+              d[g] = fmaf(x.z, f[u + 2], d[g]);
+              d[g] = fmaf(x.w, f[u + 3], d[g]);
+            }
           }
         }
+        for (int e = full * kCE; e < hd; ++e) {
+          const float ke = elem<TKV>(kr, e, sc);
 #pragma unroll
-        for (int o = 1; o < kParts; o <<= 1) {
-          s4.x += __shfl_xor_sync(0xffffffffu, s4.x, o);
-          s4.y += __shfl_xor_sync(0xffffffffu, s4.y, o);
-          s4.z += __shfl_xor_sync(0xffffffffu, s4.z, o);
-          s4.w += __shfl_xor_sync(0xffffffffu, s4.w, o);
+          for (int g = 0; g < G; ++g) d[g] = fmaf(qj[g][e], ke, d[g]);
         }
-        if (on && part == 0) {
-          float* acc = sacc + j * hp + e;
-          const float c = sm_c[j];
-          acc[0] = __fadd_rn(__fmul_rn(acc[0], c), s4.x);
-          acc[1] = __fadd_rn(__fmul_rn(acc[1], c), s4.y);
-          acc[2] = __fadd_rn(__fmul_rn(acc[2], c), s4.z);
-          acc[3] = __fadd_rn(__fmul_rn(acc[3], c), s4.w);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (j0 + g < nq)
+          sp[(j0 + g) * kPart + r] = vis[g] ? d[g] * p.scale : -CUDART_INF_F;
+    }
+  };
+  for (int j0 = 0; j0 < nq;) {
+    if (nq - j0 >= kGroup) {
+      score(std::integral_constant<int, kGroup>(), j0);
+      j0 += kGroup;
+    } else if (nq - j0 >= 2) {
+      score(std::integral_constant<int, 2>(), j0);
+      j0 += 2;
+    } else {
+      score(std::integral_constant<int, 1>(), j0);
+      j0 += 1;
+    }
+  }
+  if (shared) {                      // V into K's buffer
+    __syncthreads();
+    copy_rows(sv, p.vp);
+  }
+  stage_wait<0>();
+  __syncthreads();
+
+  // the parts' records: acc (hq floats) a (slot, head, part, query),
+  // then (m, l) a (slot, head, query, part)
+  const long long units = static_cast<long long>(gridDim.z) * p.nh;
+  float* acc0 = p.work + unit * p.parts * nq * hq;    // this (slot, head)
+  float2* ml0 = reinterpret_cast<float2*>(p.work + units * p.parts * nq * hq)
+      + unit * nq * p.parts;
+
+  // the part's softmax, a warp a query, rows lane + 32 u a lane
+  for (int j = warp; j < nq; j += kWarps) {
+    constexpr int kRows = kPart / 32;
+    float* sj = sp + j * kPart;
+    float sv4[kRows];
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      sv4[u] = sj[lane + 32 * u];
+      mx = fmaxf(mx, sv4[u]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float l = 0.f;
+    if (mx != -CUDART_INF_F) {           // warp-uniform
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        sv4[u] = rescale(sv4[u], mx);
+        l = __fadd_rn(l, sv4[u]);
+        sj[lane + 32 * u] = sv4[u];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, o));
+    }
+    if (lane == 0) {
+      sm[j] = mx;
+      sl[j] = l;
+      if (ns > 1) ml0[j * p.parts + part] = make_float2(mx, l);
+    }
+  }
+  __syncthreads();
+
+  // acc = sum of p v: kLanes lanes an item of 4 elements, G queries at a
+  // time, lane i summing rows i, i + kLanes, ... in order, then a
+  // butterfly; the items padded to a multiple of the block's so that
+  // every lane reaches every shuffle
+  TQ* og = static_cast<TQ*>(p.out) + qoff;
+  const int nq4 = hq / 4, li = tid % kLanes;
+  auto pv = [&](auto group, int i, int j0) {
+    constexpr int G = decltype(group)::value;
+    const int e = min(i, nq4 - 1) * 4;
+    float4 s4[G];
+    const float* pj[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      s4[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+      pj[g] = sp + (j0 + g) * kPart;
+    }
+#pragma unroll 4
+    for (int k = 0; k < kPart / kLanes; ++k) {
+      const int r = li + k * kLanes;
+      const float4 v4 = load4<TKV>(sv + r * rs, e, svs[r]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float pr = pj[g][r];
+        s4[g].x = fmaf(pr, v4.x, s4[g].x);
+        s4[g].y = fmaf(pr, v4.y, s4[g].y);
+        s4[g].z = fmaf(pr, v4.z, s4[g].z);
+        s4[g].w = fmaf(pr, v4.w, s4[g].w);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int o = 1; o < kLanes; o <<= 1) {
+        s4[g].x = __fadd_rn(s4[g].x, __shfl_xor_sync(0xffffffffu, s4[g].x, o));
+        s4[g].y = __fadd_rn(s4[g].y, __shfl_xor_sync(0xffffffffu, s4[g].y, o));
+        s4[g].z = __fadd_rn(s4[g].z, __shfl_xor_sync(0xffffffffu, s4[g].z, o));
+        s4[g].w = __fadd_rn(s4[g].w, __shfl_xor_sync(0xffffffffu, s4[g].w, o));
+      }
+    }
+    if (li != 0 || i >= nq4) return;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int j = j0 + g;
+      if (sm[j] == -CUDART_INF_F) continue;
+      if (ns == 1) {
+        const float l = sl[j];
+        const float o4[4] = {s4[g].x / l, s4[g].y / l, s4[g].z / l,
+                             s4[g].w / l};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (e + u < hd) from_f(o4[u], og + j * hd + e + u);
+      } else {
+        *reinterpret_cast<float4*>(acc0 + (part * nq + j) * hq + e) = s4[g];
+      }
+    }
+  };
+  const int n_items = (nq4 + kItems - 1) / kItems * kItems;
+  for (int i = tid / kLanes; i < n_items; i += kItems) {
+    for (int j0 = 0; j0 < nq;) {
+      if (nq - j0 >= kGroup) {
+        pv(std::integral_constant<int, kGroup>(), i, j0);
+        j0 += kGroup;
+      } else if (nq - j0 >= 2) {
+        pv(std::integral_constant<int, 2>(), i, j0);
+        j0 += 2;
+      } else {
+        pv(std::integral_constant<int, 1>(), i, j0);
+        j0 += 1;
+      }
+    }
+  }
+  if (ns == 1) return;
+
+  // the last part of this (head, slot) to arrive combines the parts:
+  // the block's records, then (one thread) a fence and the count
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const int prev = atomicAdd(p.counters + unit, 1);
+    *s_last = prev == ns - 1;
+    if (*s_last) {
+      p.counters[unit] = 0;             // for the next launch
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (!*s_last) return;
+  // a thread an item (query j, elements e .. e + 3): the parts' (m, l)
+  // kBatch at a time for the largest m_p, then the sums in part order,
+  // each part's (m, l) and acc read together
+  for (int i = tid; i < nq * nq4; i += kThreads) {
+    const int j = i / nq4, e = (i % nq4) * 4;
+    const float2* mlj = ml0 + j * p.parts;
+    const float* aj = acc0 + j * hq + e;
+    float mm = -CUDART_INF_F;
+    for (int q0 = 0; q0 < ns; q0 += kBatch) {
+      float2 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        v[u] = q0 + u < ns ? __ldcg(mlj + q0 + u)
+                           : make_float2(-CUDART_INF_F, 0.f);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) mm = fmaxf(mm, v[u].x);
+    }
+    float big_l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    bool first = true;
+    for (int q0 = 0; q0 < ns; q0 += kSumBatch) {
+      float2 v[kSumBatch];
+      float4 a4[kSumBatch];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) {
+        v[u] = make_float2(-CUDART_INF_F, 0.f);
+        if (q0 + u < ns) {
+          v[u] = __ldcg(mlj + q0 + u);
+          a4[u] = __ldcg(reinterpret_cast<const float4*>(
+              aj + static_cast<long long>(q0 + u) * nq * hq));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) {
+        if (v[u].x == -CUDART_INF_F) continue;  // no row of j in the part
+        const float w = v[u].x == mm ? 1.f : expf(v[u].x - mm);
+        if (first) {
+          big_l = __fmul_rn(w, v[u].y);
+          acc = make_float4(__fmul_rn(w, a4[u].x), __fmul_rn(w, a4[u].y),
+                            __fmul_rn(w, a4[u].z), __fmul_rn(w, a4[u].w));
+          first = false;
+        } else {
+          big_l = __fadd_rn(big_l, __fmul_rn(w, v[u].y));
+          acc.x = __fadd_rn(acc.x, __fmul_rn(w, a4[u].x));
+          acc.y = __fadd_rn(acc.y, __fmul_rn(w, a4[u].y));
+          acc.z = __fadd_rn(acc.z, __fmul_rn(w, a4[u].z));
+          acc.w = __fadd_rn(acc.w, __fmul_rn(w, a4[u].w));
         }
       }
     }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < k1 * hd; i += kThreads) {
-    const int j = i / hd;
-    from_f(sacc[j * hp + i % hd] / sm_l[j], out + qoff + i);
+    const float o4[4] = {acc.x / big_l, acc.y / big_l, acc.z / big_l,
+                         acc.w / big_l};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (e + u < hd) from_f(o4[u], og + j * hd + e + u);
   }
 }
 
-template <typename TQ, typename TKV, int VE>
-cudaError_t launch_ve(const void* q, const void* kp, const void* vp,
-                      const float* ks, const float* vs, const int* bt,
-                      const int* pos, const uint8_t* anc, void* out,
-                      int b, int nh, int wk, int q0, int k1, int page,
-                      int hd, int max_pages, float scale,
-                      cudaStream_t st) {
-  if constexpr (VE * sizeof(TKV) > 16) {
+template <typename TQ, typename TKV, int VB>
+cudaError_t launch_vb(const Params& p, int b, cudaStream_t st) {
+  if constexpr (VB < static_cast<int>(sizeof(TKV))) {
     return cudaErrorInvalidValue;
   } else {
-    const size_t smem = smem_bytes(k1, hd);
-    const dim3 grid(nh, b);
-    const TQ* qq = static_cast<const TQ*>(q);
-    TQ* oo = static_cast<TQ*>(out);
-    const TKV* kk = static_cast<const TKV*>(kp);
-    const TKV* vv = static_cast<const TKV*>(vp);
-    auto run = [&](auto kernel) {
-      if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return e;
-      }
-      kernel<<<grid, kThreads, smem, st>>>(qq, kk, vv, ks, vs, bt, pos,
-                                           anc, oo, nh, wk, q0, k1, page,
-                                           hd, max_pages, scale);
-      return cudaGetLastError();
-    };
-    if (ks != nullptr)
-      return run(paged_attention_kernel<TQ, TKV, VE, true>);
-    return run(paged_attention_kernel<TQ, TKV, VE, false>);
+    const size_t smem = smem_bytes(p.nq, p.hd, sizeof(TKV));
+    auto kernel = paged_attention_kernel<TQ, TKV, VB>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    kernel<<<dim3(p.parts, p.nh, b), kThreads, smem, st>>>(p);
+    return cudaGetLastError();
   }
 }
 
-// The widest vector (16, 8, 4, 2 or 1 bytes) that divides a row and
-// the pools' base addresses.
+// The widest copy (16, 8, 4, 2 or 1 bytes) that divides a row and the
+// pools' base addresses.
 template <typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const float* ks, const float* vs, const int* bt,
-                   const int* pos, const uint8_t* anc, void* out, int b,
-                   int nh, int wk, int q0, int k1, int page, int hd,
-                   int max_pages, float scale, cudaStream_t st) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(kp)
-      | reinterpret_cast<uintptr_t>(vp);
-  const int row_bytes = hd * static_cast<int>(sizeof(TKV));
+cudaError_t launch(const Params& p, int b, cudaStream_t st) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p.kp)
+      | reinterpret_cast<uintptr_t>(p.vp);
+  const int row_bytes = p.hd * static_cast<int>(sizeof(TKV));
   int vb = 16;
   while (vb > static_cast<int>(sizeof(TKV))
          && (row_bytes % vb || addr % vb))
     vb >>= 1;
-  const int ve = vb / static_cast<int>(sizeof(TKV));
-#define APX_VE(N)                                                          \
-  if (ve == N)                                                             \
-    return launch_ve<TQ, TKV, N>(q, kp, vp, ks, vs, bt, pos, anc, out, b,  \
-                                 nh, wk, q0, k1, page, hd, max_pages,      \
-                                 scale, st);
-  APX_VE(16) APX_VE(8) APX_VE(4) APX_VE(2) APX_VE(1)
-#undef APX_VE
-  return cudaErrorInvalidValue;
+  switch (vb) {
+    case 16: return launch_vb<TQ, TKV, 16>(p, b, st);
+    case 8: return launch_vb<TQ, TKV, 8>(p, b, st);
+    case 4: return launch_vb<TQ, TKV, 4>(p, b, st);
+    case 2: return launch_vb<TQ, TKV, 2>(p, b, st);
+    default: return launch_vb<TQ, TKV, 1>(p, b, st);
+  }
 }
 
 template <typename TQ>
-cudaError_t launch_q(const void* q, const void* kp, const void* vp,
-                     const float* ks, const float* vs, const int* bt,
-                     const int* pos, const uint8_t* anc, void* out, int b,
-                     int nh, int wk, int q0, int k1, int page, int hd,
-                     int max_pages, int kv_dtype, float scale,
+cudaError_t launch_q(const Params& p, int b, int kv_dtype,
                      cudaStream_t st) {
   switch (kv_dtype) {
     case kF32:
-      return launch<TQ, float>(q, kp, vp, nullptr, nullptr, bt, pos, anc,
-                               out, b, nh, wk, q0, k1, page, hd, max_pages,
-                               scale, st);
+      return launch<TQ, float>(p, b, st);
     case kBF16:
-      return launch<TQ, __nv_bfloat16>(q, kp, vp, nullptr, nullptr, bt,
-                                       pos, anc, out, b, nh, wk, q0, k1,
-                                       page, hd, max_pages, scale, st);
+      return launch<TQ, __nv_bfloat16>(p, b, st);
     case kI8:
-      if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
-      return launch<TQ, int8_t>(q, kp, vp, ks, vs, bt, pos, anc, out, b,
-                                nh, wk, q0, k1, page, hd, max_pages, scale,
-                                st);
+      if (p.ks == nullptr || p.vs == nullptr) return cudaErrorInvalidValue;
+      return launch<TQ, int8_t>(p, b, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1086,8 +1247,10 @@ const char* apx_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The most queries a slot one launch holds.
+// The most queries a slot one launch holds, and the logical positions
+// a part of a slot's rows holds.
 int apx_paged_attention_max_k1() { return kMaxK1; }
+int apx_paged_attention_part_rows() { return kPart; }
 
 // q, out: (b, nh, wk, hd) contiguous, dtype q_dtype (0 fp32, 1 bf16);
 // the launch computes the window's queries q0 .. q0 + k1 - 1.
@@ -1097,37 +1260,59 @@ int apx_paged_attention_max_k1() { return kMaxK1; }
 // anc: (b, wk, wk) bytes, anc[b][i][j] != 0 when window row i is
 // visible to query j, or null for the linear mask (i <= j). Query j
 // attends logical rows s < max_pages * page with s < pos, or s - pos in
-// [0, wk) admitted by the mask. 1 <= k1 <= 64, q0 >= 0, q0 + k1 <= wk,
-// hd <= 256, the shared memory of (k1, hd) within the card's 227 KB;
-// b <= 65535. Launches on `stream`; returns cudaGetLastError(), or
+// [0, wk) admitted by the mask. With parts = ceil(max_pages * page /
+// 128) > 1, work holds b * nh * parts * k1 * (2 + ceil(hd / 4) * 4) fp32
+// and counters b * nh int32 zeros (left zero); with one part both may
+// be null. 1 <= k1 <= 64, q0 >= 0, q0 + k1 <= wk, hd <= 256, b <= 65535.
+// Launches on `stream`; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments outside these limits.
 int apx_paged_attention(const void* q, const void* k_pages,
                         const void* v_pages, const void* k_scale,
                         const void* v_scale, const void* block_tables,
-                        const void* pos, const void* anc, void* out, int b,
-                        int nh, int wk, int q0, int k1, int page, int hd,
-                        int max_pages, int q_dtype, int kv_dtype,
-                        float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                        const void* pos, const void* anc, void* out,
+                        void* work, void* counters, int b, int nh, int wk,
+                        int q0, int k1, int page, int hd, int max_pages,
+                        int q_dtype, int kv_dtype, float scale,
+                        void* stream) {
+  const long long parts =
+      (static_cast<long long>(max_pages) * page + kPart - 1) / kPart;
   if (b < 1 || b > 65535 || nh < 1 || nh > 65535 || k1 < 1
       || k1 > kMaxK1 || q0 < 0 || wk < k1 || q0 > wk - k1 || page < 1
       || hd < 1 || hd > kMaxHd || max_pages < 1
-      || smem_bytes(k1, hd) > kMaxSmem)
+      || static_cast<long long>(max_pages) * page > 0x7fffffff
+      || (parts > 1 && (work == nullptr || counters == nullptr))
+      || (kv_dtype >= kF32 && kv_dtype <= kI8
+          && smem_bytes(k1, hd, kv_dtype == kF32 ? 4 : kv_dtype == kBF16 ? 2
+                                                                         : 1)
+                 > kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* ps = static_cast<const int*>(pos);
-  const uint8_t* an = static_cast<const uint8_t*>(anc);
+  Params p;
+  p.q = q;
+  p.kp = k_pages;
+  p.vp = v_pages;
+  p.ks = static_cast<const float*>(k_scale);
+  p.vs = static_cast<const float*>(v_scale);
+  p.bt = static_cast<const int*>(block_tables);
+  p.pos = static_cast<const int*>(pos);
+  p.anc = static_cast<const uint8_t*>(anc);
+  p.out = out;
+  p.work = static_cast<float*>(work);
+  p.counters = static_cast<int*>(counters);
+  p.nh = nh;
+  p.wk = wk;
+  p.q0 = q0;
+  p.nq = k1;
+  p.page = page;
+  p.hd = hd;
+  p.max_pages = max_pages;
+  p.parts = static_cast<int>(parts);
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == kF32)
-    err = launch_q<float>(q, k_pages, v_pages, ks, vs, bt, ps, an, out, b,
-                          nh, wk, q0, k1, page, hd, max_pages, kv_dtype,
-                          scale, st);
+    err = launch_q<float>(p, b, kv_dtype, st);
   else if (q_dtype == kBF16)
-    err = launch_q<__nv_bfloat16>(q, k_pages, v_pages, ks, vs, bt, ps, an,
-                                  out, b, nh, wk, q0, k1, page, hd,
-                                  max_pages, kv_dtype, scale, st);
+    err = launch_q<__nv_bfloat16>(p, b, kv_dtype, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

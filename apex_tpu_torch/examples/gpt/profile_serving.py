@@ -330,10 +330,10 @@ def chunked_runs(params, cfg, dev, chunk=256):
     def inspect(prof, out):
         out["chunk_write_ms"], out["chunk_write_kernels"] = range_kernels(
             prof, "chunk_attention")
-        # grid (heads, slots): a chunk's launches cover one slot
+        # grid (parts, heads, slots): a chunk's launches cover one slot
         paged, chunk = kernel_launches(prof, "paged_attention",
                                        "chunk_attention_kernel")
-        one_slot = [t for g, t in paged if len(g) > 1 and g[1] == 1]
+        one_slot = [t for g, t in paged if len(g) > 2 and g[2] == 1]
         out["chunk_verify_ms"] = sum(one_slot)
         out["chunk_verify_launches"] = len(one_slot)
         chunk = [t for _, t in chunk]

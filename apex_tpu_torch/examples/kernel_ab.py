@@ -11,8 +11,8 @@ checkout (or a copy with one constant changed). Each of its
 ``apex_tpu_torch/csrc/{fused_softmax,w8_matmul,xentropy,paged_attention}.cu``
 is built with the same nvcc flags and swapped in under this checkout's
 wrappers, so both sides take the same arguments and allocations (a
-paged-attention source whose C entry predates the launch's query slice
-is called without ``wk`` and ``q0``, over the whole window). Cases run in
+paged-attention source whose C entry predates the split walk is called
+without ``work`` and ``counters``). Cases run in
 turns (this, other, other, this for each other), each time the median
 device ms of CUDA-graph replays of 20 back-to-back calls (5 for the
 cross entropy's (8192, V) logits), inputs L2-warm. The softmax backward
@@ -21,8 +21,9 @@ controls of the noise, and ``copy_`` of the logits as the card's
 streaming pace for the cross entropy's bytes. Each case also says
 whether both sides gave the same bits. Prints one JSON object a case,
 the card's name and power limit first; then, for each library, the
-static SASS instruction count of each forward, w8 NK, cross-entropy
-backward and paged attention kernel (``cuobjdump -sass``), by opcode.
+registers and spill bytes (``ptxas -v``) and the static SASS
+instruction count by opcode (``cuobjdump -sass``) of each forward, w8
+NK, cross-entropy backward and paged attention kernel instance.
 """
 
 import argparse
@@ -133,10 +134,14 @@ def _paged_cases(dev):
     """The paged attention as ``chip_smoke.py`` times it, one layer of
     GPT-2 medium's heads: the decode instance (k1 = 1; bf16 and int8
     pools) and the linear verify at k1 = 5, at the JAX package's A/B
-    configuration (32 slots, S_max 512) and at ``serving_spec``'s 8
-    slots (S_max 1024, the motif mix's lengths)."""
-    from chip_smoke import (NEW_TOKENS, NUM_SLOTS, PAGE, _paged_inputs,
-                            _verify_inputs, ab_lengths, spec_prompts)
+    configuration (32 slots, S_max 512), at ``serving_spec``'s 8 slots
+    (S_max 1024, the motif mix's lengths) and, decode only, at
+    ``serving_paged``'s 8 slots (lengths 64..992); and an fp32 prompt
+    chunk at pos 768 through the verify wrapper (one slot, 256 queries,
+    one launch a slice of ``verify_slices``)."""
+    from chip_smoke import (NEW_TOKENS, NUM_SLOTS, PAGE, _chunk_inputs,
+                            _paged_inputs, _verify_inputs, ab_lengths,
+                            serving_paged_lengths, spec_prompts)
     from apex_tpu_torch.models.gpt import gpt_medium
 
     pa = importlib.import_module(_MODULES["paged_attention"])
@@ -159,32 +164,37 @@ def _paged_cases(dev):
         cases.append((f"paged_verify k1 5 {key}, bf16 pool, linear",
                       "paged_attention", functools.partial(
                           pa.paged_verify_attention_kernel, *args), 20))
+    args = _paged_inputs(gen, dev, serving_paged_lengths(), PAGE, 16,
+                         "bf16", "bf16")
+    cases.append(("paged_decode serving_paged (8 slots, S 1024), bf16 pool",
+                  "paged_attention", functools.partial(
+                      pa.paged_decode_attention_kernel, *args), 20))
+    chunk = _chunk_inputs(dev, torch.float32, 768, seed=777)
+    cases.append(("paged_verify fp32 chunk (1 slot, 256 queries, pos 768), "
+                  "the wrapper's slices", "paged_attention",
+                  functools.partial(pa.paged_verify_attention, *chunk, None),
+                  20))
     return cases
 
 
 def _entry(lib, kernel):
     """``lib``'s C function for ``kernel``. A paged-attention source from
-    before the launch's query slice (its entry takes no ``wk`` and
-    ``q0``) is called without them, over the whole window only."""
-    fn = getattr(lib.load(), kernel.symbol)
+    before the split walk (its entry takes no ``work`` and ``counters``)
+    is called without them."""
+    so = lib.load()
+    fn = getattr(so, kernel.symbol)
     fn.restype = ctypes.c_int
-    with open(lib.source) as f:
-        sliced = "int q0" in f.read()
-    if kernel.symbol != "apx_paged_attention" or sliced:
+    if kernel.symbol != "apx_paged_attention" or hasattr(
+            so, "apx_paged_attention_part_rows"):
         fn.argtypes = kernel.argtypes
         return fn
-    # (9 pointers, b, nh, wk, q0, nq, page, ...) -> (9 pointers, b, nh,
-    # k1, page, ...)
-    fn.argtypes = kernel.argtypes[:11] + kernel.argtypes[13:]
+    # (9 pointers, work, counters, b, ...) -> (9 pointers, b, ...)
+    fn.argtypes = kernel.argtypes[:9] + kernel.argtypes[11:]
 
-    def whole_window(*a):
-        wk, q0, nq = a[11:14]
-        if q0 != 0 or nq != wk:
-            raise ValueError(f"{lib.source} launches the whole window "
-                             "only")
-        return fn(*a[:11], *a[13:])
+    def unsplit(*a):
+        return fn(*a[:9], *a[11:])
 
-    return whole_window
+    return unsplit
 
 
 def _swapped(lib_of, fn, source):
@@ -244,6 +254,31 @@ def sass_counts(lib):
             for (name, ops), plain in zip(found, names)}
 
 
+def ptxas_functions(lib):
+    """[(kernel, registers, spill stores, spill loads)] of every entry
+    function whose name holds one of ``_SASS_KERNELS``, from the
+    library's ``ptxas -v`` build log, the names demangled."""
+    found, name = [], None
+    for line in lib.build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            if any(k in name for k in _SASS_KERNELS):
+                found.append((name, int(m.group(1))) + spills)
+            name = None
+    names = subprocess.run(["c++filt"], input="\n".join(f[0] for f in found),
+                           capture_output=True, text=True).stdout.split("\n")
+    return [(plain or f[0],) + f[1:] for f, plain in zip(found, names)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", nargs="+", required=True,
@@ -285,6 +320,10 @@ def main(argv=None):
                 row["same_bits"][root] = _same_bits(this(), that())
             print(json.dumps(row), flush=True)
     for lib in libs:
+        for name, regs, stores, loads in ptxas_functions(lib):
+            print(json.dumps({"library": lib.name, "kernel": name,
+                              "registers": regs, "spill_stores": stores,
+                              "spill_loads": loads}))
         for name, (n, ops) in sass_counts(lib).items():
             print(json.dumps({"library": lib.name, "kernel": name,
                               "sass_instructions": n, "top": ops}))

@@ -21,12 +21,14 @@ Query j of a slot at length ``pos`` sees row s when ``s < pos``, or when
 step ``s <= pos``. Three versions of that function:
 
 - the decode and verify kernel (``csrc/paged_attention.cu``,
-  ``apx_paged_attention``): reads the rows ``0 .. pos + k1 - 1`` once
-  for all k1 queries, each row's physical page from the table, with an
-  online softmax in fp32 a query in an order fixed by logical position
-  — the same logical contents under any page placement give the same
-  bits, and column j of a linear verify the bits of a decode step at
-  ``pos + j``;
+  ``apx_paged_attention``): each slot's rows ``0 .. pos + k1 - 1`` cut
+  into parts of :data:`PART_ROWS` logical positions, one block a (part,
+  head, slot) reading its part's rows once for all k1 queries, each
+  row's physical page from the table; a part's softmax in fp32 a query
+  in an order fixed by logical position, the parts combined in part
+  order — the same logical contents under any page placement give the
+  same bits, and column j of a linear verify the bits of a decode step
+  at ``pos + j``;
 - the prompt-chunk kernel (the same file, ``apx_paged_chunk_attention``):
   bf16 q and pool on the tensor cores, one launch a chunk over a (query
   tile, part, head, slot) grid; no bit relation to the decode step (the
@@ -42,13 +44,12 @@ launches a kernel (``PAGED_DECODE`` for one query a slot,
 :func:`chunk_kernel_takes`) or raises; a CPU tensor runs the plain
 version.
 
-One verify launch holds at most :data:`MAX_K1` queries a slot, fewer
-where their shared memory would pass the card's (:func:`verify_slices`).
-A wider verify window runs as one launch a slice of its queries, each
-slice reading the window's rows as a whole launch would: query j's sums
-do not depend on the other queries, so the slices give the bits of one
-launch over all of them. An fp32 chunk, or one whose head width the
-chunk kernel does not take, is such a window.
+One verify launch holds at most :data:`MAX_K1` queries a slot
+(:func:`verify_slices`). A wider verify window runs as one launch a
+slice of its queries, each slice reading the window's rows as a whole
+launch would: query j's sums do not depend on the other queries, so the
+slices give the bits of one launch over all of them. An fp32 chunk, or
+one whose head width the chunk kernel does not take, is such a window.
 """
 
 import ctypes
@@ -63,7 +64,7 @@ from apex_tpu_torch.utils.platform import on_card
 LIB = CudaLibrary("paged_attention")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P]
+_ARGS = [_P] * 11 + [_I] * 10 + [ctypes.c_float, _P]
 # one C entry; the two wrappers count their launches apart
 PAGED_DECODE = Kernel(LIB, "apx_paged_attention", _ARGS)
 PAGED_VERIFY = Kernel(LIB, "apx_paged_attention", _ARGS)
@@ -71,8 +72,13 @@ PAGED_CHUNK = Kernel(LIB, "apx_paged_chunk_attention",
                      [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P])
 #: The most queries a slot one launch holds; its C entry refuses more.
 MAX_K1 = 64
-# csrc/paged_attention.cu's kT, kPad and kMaxSmem, for verify_slices
-_KT, _KPAD, _MAX_SMEM = 128, 4, 232448
+#: The widest head the decode and verify kernel takes.
+MAX_HD = 256
+#: The logical positions a part of a slot's rows holds in the decode and
+#: verify kernel (csrc/paged_attention.cu's kPart).
+PART_ROWS = 128
+# csrc/paged_attention.cu's kRowPad and kMaxSmem, for verify_slices
+_ROW_PAD, _MAX_SMEM = 16, 232448
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _U = 2.0 ** -24      # fp32 unit roundoff
@@ -80,8 +86,10 @@ _U = 2.0 ** -24      # fp32 unit roundoff
 CHUNK_MAX_HD = 128
 # csrc/paged_attention.cu's chunk::kBQ (= kBK), kMinTiles and kMaxSplits
 _CBQ, _MIN_TILES, _MAX_SPLITS = 64, 2, 4
-# the chunk kernel's arrival counters, one zeroed buffer a device
-_CHUNK_COUNTERS = {}
+# the split kernels' arrival counters and work buffers: per device, every
+# buffer ever handed out, the newest last
+_COUNTERS = {}
+_WORK = {}
 
 
 def _name(dt: torch.dtype) -> str:
@@ -141,21 +149,56 @@ def _check(q, k_pages, v_pages, block_tables, pos, k_scale, v_scale,
     return b, nh, k1, page, hd, block_tables.shape[1]
 
 
+def _smem(nq: int, hd: int, esz: int) -> int:
+    """The C file's ``smem_bytes(nq, hd, esz)``: a part's row offsets
+    (8 bytes a row), its K and V rows (``hd * esz`` rounded up to 16
+    bytes, plus 16; V in K's buffer when both would not fit beside
+    :data:`MAX_K1` queries), a query's q (hd rounded up to 4 floats),
+    scores, m and l, the int8 scales (two floats a row) and a 16-byte
+    flag."""
+    rs = -(-hd * esz // 16) * 16 + _ROW_PAD
+    hq = -(-hd // 4) * 4
+
+    def of(n, kv_rows):
+        return (8 * PART_ROWS + kv_rows * rs
+                + 4 * (n * (hq + PART_ROWS + 2) + 2 * PART_ROWS) + 16)
+
+    kv_rows = 2 * PART_ROWS if of(MAX_K1, 2 * PART_ROWS) <= _MAX_SMEM \
+        else PART_ROWS
+    return of(nq, kv_rows)
+
+
 def verify_slices(k1: int, hd: int):
     """``[(q0, nq), ...]``: the window's k1 queries in consecutive
-    slices of as many as one launch holds, at most :data:`MAX_K1` and
-    within the card's shared memory at ``hd``: the C file's
-    ``smem_bytes(k1, hd)``, 4 bytes times two tiles of K and V rows
-    plus, a query, q, its accumulator, its scores and three floats,
-    solved for the most queries within ``kMaxSmem``."""
-    hp = (hd + 3) // 4 * 4
-    fit = (_MAX_SMEM // 4 - 2 * _KT * (hp + _KPAD)) // (2 * hp + _KT + 3)
-    step = min(MAX_K1, fit)
-    if step < 1:
-        raise ValueError(f"head_dim {hd}: no query fits the paged "
-                         f"attention kernel's shared memory ({_MAX_SMEM} "
-                         "bytes)")
+    slices of as many as one launch holds: :data:`MAX_K1`, fewer where
+    their shared memory at ``hd`` would pass the card's for some pool
+    type (the C file's ``smem_bytes``; 62 at hd 256 over an fp32
+    pool)."""
+    if hd > MAX_HD:
+        raise ValueError(f"head_dim {hd}: the paged attention kernel takes "
+                         f"head_dim up to {MAX_HD}")
+    step = max(n for n in range(1, MAX_K1 + 1)
+               if all(_smem(n, hd, esz) <= _MAX_SMEM for esz in (1, 2, 4)))
     return [(q0, min(step, k1 - q0)) for q0 in range(0, k1, step)]
+
+
+def paged_parts(s_len: int) -> int:
+    """The parts of :data:`PART_ROWS` logical positions the decode and
+    verify kernel's grid holds a (head, slot) for a table of ``s_len``
+    rows (the grid is sized before ``pos`` is known; on the card a
+    launch's parts past the last row its queries may see exit at once)."""
+    return -(-s_len // PART_ROWS)
+
+
+def paged_work_floats(b: int, nh: int, nq: int, hd: int, s_len: int) -> int:
+    """The fp32 work buffer one launch of the decode and verify kernel
+    takes: a (slot, head, part, query)'s accumulator (hd rounded up to 4
+    floats) and its m and l; 0 when every slot's rows fit one part (the
+    kernel writes ctx directly)."""
+    parts = paged_parts(s_len)
+    if parts == 1:
+        return 0
+    return b * nh * parts * nq * (-(-hd // 4) * 4 + 2)
 
 
 def _scale(hd: int, softmax_scale: Optional[float]) -> float:
@@ -264,6 +307,14 @@ def paged_limit(q, k_pages, v_pages, block_tables, pos, ctx0,
       + 8) u, and ctx by that times (A + |ctx|);
     - the sums over the rows add at most (n + S + 32) u A (a sequential
       sum's worst case on each side);
+    - the kernel cuts the rows into parts of :data:`PART_ROWS`, at most
+      N = :func:`paged_parts` (S) of them, each with its own max m_p,
+      and weighs part p by w_p = exp(m_p - M), M the largest m_p: the
+      subtraction's rounding (u |m_p - M| <= 2 u D), the exp's 2 ulp
+      (4 u), one rounding of each product w_p l_p and w_p acc_p, and
+      the sums over the parts one rounding a part, N - 1: each term of
+      acc and of l moves by a relative (2 D + N + 4) u, and ctx by that
+      times (A + |ctx|);
     - a bf16 ctx is rounded once on each side: one bf16 ulp more,
       2^-7 |ctx0|."""
     queries = q.dim() == 4
@@ -271,7 +322,8 @@ def paged_limit(q, k_pages, v_pages, block_tables, pos, ctx0,
         q if queries else q[:, :, None], k_pages, v_pages, block_tables,
         pos, ctx0 if queries else ctx0[:, :, None], k_scale, v_scale,
         softmax_scale, anc)
-    lim = _paged_terms(q, d_max, a, n, o, s_len, hd)
+    lim = (_paged_terms(q, d_max, a, n, o, s_len, hd)
+           + _U * (2 * d_max + paged_parts(s_len) + 4) * (a + o))
     return lim if queries else lim[:, :, 0]
 
 
@@ -340,6 +392,41 @@ def chunk_limit(q, k_pages, v_pages, gather_row, pos, ctx0,
             + (mma * (s_len + 64) / 8 + 2.0 ** -16) * a)
 
 
+def _cached(store, n: int, dev, make) -> torch.Tensor:
+    """The newest buffer of ``store`` on ``dev`` if it holds ``n``
+    elements, else a new one of ``make(size)`` (at least twice the old).
+    Older buffers stay referenced: a CUDA graph captured against one
+    keeps valid pointers."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    bufs = store.setdefault(key, [])
+    if not bufs or bufs[-1].numel() < n:
+        old = bufs[-1].numel() if bufs else 0
+        bufs.append(make(max(n, 2 * old, 1024)))
+    return bufs[-1]
+
+
+def _counters(units: int, dev) -> torch.Tensor:
+    """The split kernels' arrival counters (the decode and verify
+    kernel's and the chunk kernel's): a zeroed int32 buffer kept per
+    device and grown as needed. Each launch finds its counters zero and
+    leaves them zero (the last part of a unit resets its own), so one
+    buffer serves every launch on the device, CUDA-graph replays
+    included; split launches must not run on two streams of one device
+    at once."""
+    return _cached(_COUNTERS, units, dev, lambda n: torch.zeros(
+        (n,), dtype=torch.int32, device=dev))
+
+
+def _work(floats: int, dev) -> torch.Tensor:
+    """The split kernels' fp32 work buffer (the parts' records), kept per
+    device beside :func:`_counters` and grown as needed. A launch reads
+    only records it wrote itself, after its arrival count, so launches
+    in one stream share it; as for the counters, split launches must not
+    run on two streams of one device at once."""
+    return _cached(_WORK, floats, dev, lambda n: torch.empty(
+        (n,), dtype=torch.float32, device=dev))
+
+
 def _launch(kernel, q, k_pages, v_pages, block_tables, pos, anc, k_scale,
             v_scale, softmax_scale, queries, q0=0, nq=None, out=None):
     b, nh, k1, page, hd, mp = _check(q, k_pages, v_pages, block_tables,
@@ -361,11 +448,18 @@ def _launch(kernel, q, k_pages, v_pages, block_tables, pos, anc, k_scale,
             or out.device != q.device or not out.is_contiguous():
         raise ValueError(f"out must be a contiguous tensor like q "
                          f"{tuple(q.shape)} {_name(q.dtype)}")
+    work = counters = None
+    floats = paged_work_floats(b, nh, nq, hd, mp * page)
+    if floats:
+        work = _work(floats, q.device)
+        counters = _counters(b * nh, q.device)
     kernel(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
            None if k_scale is None else k_scale.data_ptr(),
            None if v_scale is None else v_scale.data_ptr(),
            block_tables.data_ptr(), pos.data_ptr(),
            None if anc is None else anc.data_ptr(), out.data_ptr(),
+           None if work is None else work.data_ptr(),
+           None if counters is None else counters.data_ptr(),
            b, nh, k1, q0, nq, page, hd, mp, _Q_DTYPES[q.dtype],
            _KV_DTYPES[k_pages.dtype], float(_scale(hd, softmax_scale)),
            torch.cuda.current_stream(q.device).cuda_stream)
@@ -477,21 +571,6 @@ def paged_chunk_attention_plain(q, k_pages, v_pages, gather_row, pos,
                                         softmax_scale=softmax_scale)
 
 
-def _chunk_counters(units: int, dev) -> torch.Tensor:
-    """The split walk's arrival counters: a zeroed int32 buffer kept per
-    device and grown as needed. Each launch finds its counters zero and
-    leaves them zero (the last part of a tile resets its own), so one
-    buffer serves every launch on the device, CUDA-graph replays
-    included; split launches must not run on two streams of one device
-    at once."""
-    key = dev.index if dev.index is not None else torch.cuda.current_device()
-    buf = _CHUNK_COUNTERS.get(key)
-    if buf is None or buf.numel() < units:
-        buf = torch.zeros((max(units, 1024),), dtype=torch.int32, device=dev)
-        _CHUNK_COUNTERS[key] = buf
-    return buf
-
-
 def paged_chunk_attention_kernel(q, k_pages, v_pages, gather_row, pos,
                                  softmax_scale=None,
                                  splits: Optional[int] = None
@@ -521,9 +600,8 @@ def paged_chunk_attention_kernel(q, k_pages, v_pages, gather_row, pos,
     units = b * nh * -(-sc // _CBQ)
     work = counters = None
     if splits > 1:
-        work = torch.empty((splits * units * _CBQ * (hd + 2),),
-                           dtype=torch.float32, device=q.device)
-        counters = _chunk_counters(units, q.device)
+        work = _work(splits * units * _CBQ * (hd + 2), q.device)
+        counters = _counters(units, q.device)
     out = torch.empty_like(q)
     PAGED_CHUNK(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 gather_row.data_ptr(), pos.data_ptr(), out.data_ptr(),

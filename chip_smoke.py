@@ -3715,6 +3715,34 @@ def _paged_inputs(gen, dev, lengths, page, max_pages, kv, qdt, nh=16,
     return q, k, v, bt, pos, ks, vs
 
 
+def serving_paged_lengths():
+    """``serving_paged``'s 8 slots of a kernel timing: 64 to 992 rows,
+    evenly spread (the mix's prompts, 64-960 tokens, mid-decode)."""
+    return [64 + round(i * 928 / 7) for i in range(8)]
+
+
+PAGED_DESIGN = (
+    "redesigned: each slot's rows cut into parts of 128 logical positions, "
+    "one 128-thread block a (part, head, slot), the part's K and V rows "
+    "copied in the pool's own type by cp.async through the block table "
+    "and converted in registers, scores "
+    "a thread a row and P V 8 lanes an item, each for up to four queries "
+    "at once, the part's softmax a warp a query; the parts' (m, l, acc) "
+    "combined in part order by the last part to arrive (an integer "
+    "counter it resets; no float atomics), one part written directly")
+
+
+def paged_blocks(pos, k1, s_len, nh):
+    """(working, grid): the decode and verify kernel's blocks that read
+    a part of rows, and its grid, for slots at ``pos`` (a list) with k1
+    queries (linear) over tables of ``s_len`` rows: a (part, head, slot)
+    block a part of ``paged_attention.PART_ROWS`` positions up to
+    ``pos + k1``; the grid holds every part of the table."""
+    pa = kernel_modules()[7]
+    working = nh * sum(pa.paged_parts(min(int(p) + k1, s_len)) for p in pos)
+    return working, nh * len(pos) * pa.paged_parts(s_len)
+
+
 def ab_lengths(slots=32, s_max=512):
     """The JAX package's paged-vs-dense A/B ladder (bench.py:1357-1359):
     ``s_max // 16`` to ``s_max``, evenly spread over the slots."""
@@ -3965,8 +3993,7 @@ def paged_times(dev):
     res = {}
     cases = {"ab": (ab_lengths(), 8, "bf16"),
              "ab_kv8": (ab_lengths(), 8, "i8"),
-             "serving_paged": ([64 + round(i * 928 / 7) for i in range(8)],
-                               16, "bf16")}
+             "serving_paged": (serving_paged_lengths(), 16, "bf16")}
     with torch.inference_mode():
         for key, (lengths, max_pages, kv) in cases.items():
             q, k, v, bt, pos, ks, vs = _paged_inputs(
@@ -4000,6 +4027,10 @@ def paged_times(dev):
                    "SDPA on the gathered K/V (a different function)")
             res[f"paged_{key}"].update(live_rows=live, slots=b,
                                        per_tick_24_layers_ms=24 * t_k)
+            working, grid = paged_blocks(pos.tolist(), 1, s_len, nh)
+            print(f"  parts that read rows {working} of a grid of {grid} "
+                  f"(part, head, slot) blocks (derived from "
+                  f"paged_parts and the lengths, not measured)", flush=True)
     return res
 
 
@@ -4500,6 +4531,11 @@ def verify_times(dev):
                 res[f"verify_{key}_k{k1}"].update(
                     live_rows=live, slots=b, decode_kernel_ms=t_d,
                     per_tick_24_layers_ms=24 * t_k)
+                working, grid = paged_blocks(pos.tolist(), k1, s_len, nh)
+                print(f"  parts that read rows {working} of a grid of "
+                      f"{grid} (part, head, slot) blocks (derived from "
+                      f"paged_parts and the lengths, not measured)",
+                      flush=True)
     return res
 
 
@@ -5165,7 +5201,9 @@ def chunk_times(dev):
     window mask (a different function: it leaves out the gather), the
     kernel without the split walk (``splits=1``), and the verify
     kernel's route the chunk took before (``paged_verify_attention``,
-    one launch a slice of ``verify_slices``), all in this call."""
+    one launch a slice of ``verify_slices``), on the bf16 chunk and on
+    the same chunk in fp32 (the route an fp32 chunk takes), all in this
+    call."""
     pa = kernel_modules()[7]
     phase(f"times of the chunk attention at a prompt chunk's shape (one "
           f"slot, {CHUNK} queries; device ms a call, one layer; medians "
@@ -5180,6 +5218,9 @@ def chunk_times(dev):
             t_1 = time_ms(lambda: pa.paged_chunk_attention_kernel(
                 *args, splits=1))
             t_v = time_ms(lambda: pa.paged_verify_attention(*args, None))
+            f32 = _chunk_inputs(dev, torch.float32, pos, seed=pos + 9)
+            t_vf = time_ms(lambda: pa.paged_verify_attention(*f32, None))
+            del f32
             t_p = time_ms(lambda: pa.paged_chunk_attention_plain(*args))
             _, nh, sc, hd = q.shape
             s_len = row.shape[1] * PAGE
@@ -5200,12 +5241,13 @@ def chunk_times(dev):
                    f"live rows, splits {splits})",
                    "SDPA on the gathered K/V (a different function)")
             res[key].update(live_rows=live, splits=splits, splits1_ms=t_1,
-                            verify_route_ms=t_v,
+                            verify_route_ms=t_v, verify_route_fp32_ms=t_vf,
                             verify_route_launches=len(
                                 pa.verify_slices(sc, hd)),
                             per_chunk_24_layers_ms=24 * t_k)
             print(f"  without the split walk {t_1:.5f}; the verify "
-                  f"kernel's route {t_v:.5f}", flush=True)
+                  f"kernel's route {t_v:.5f}, an fp32 chunk's {t_vf:.5f}",
+                  flush=True)
     return res
 
 
@@ -5563,13 +5605,12 @@ def main():
         launches_by_path=by_path["paged_decode_attention"],
         max_abs_err=err["paged_decode_attention"], **tm["paged_ab"],
         at_ab_kv8=tm["paged_ab_kv8"],
-        at_serving_paged=tm["paged_serving_paged"],
+        at_serving_paged=tm["paged_serving_paged"], redesigned=True,
         note="library_ms is SDPA on K and V already gathered to (b, nh, S, "
         "hd) bf16 with the s <= pos mask: a different function (it leaves "
         "out the gather); times at the JAX package's paged A/B "
         "configuration (bench.py:1324, 32 slots, S_max 512, page 64, "
-        "lengths 32..512), one layer; one block a (head, slot), the live "
-        "rows only, in logical order"))
+        "lengths 32..512), one layer; " + PAGED_DESIGN))
     # the slice's kernel: the verify steps of the paged engine; the JAX
     # package runs this attention as XLA (apex_tpu/models/gpt.py:537,
     # :816 and :1004)
@@ -5585,18 +5626,17 @@ def main():
         max_abs_err=err["paged_verify_attention"], **tm["verify_ab_k5"],
         at_ab_k1=tm["verify_ab_k1"],
         at_serving_spec_k5=tm["verify_serving_spec_k5"],
-        at_serving_spec_k1=tm["verify_serving_spec_k1"],
+        at_serving_spec_k1=tm["verify_serving_spec_k1"], redesigned=True,
         note="k1 queries a slot (5 in the main time: spec_k 4), any k1: "
-        "one launch up to 64 queries at hd 64, past that one launch a "
-        "slice of verify_slices (serving_spec_ngram_k64: k1 65, two); "
-        "library_ms is SDPA on K and V already gathered to (b, nh, S, hd) "
-        "bf16 with the same per-query mask: a different function (it "
-        "leaves out the gather); one block a (head, slot) reads the rows 0 "
-        ".. pos + k1 - 1 once for all k1 queries, in tiles of 128 logical "
-        "positions; the decode step is its k1 = 1 instance, and column j "
-        "of a linear verify gives the decode kernel's bits at pos + j; an "
-        f"fp32 prompt chunk is a linear window of k1 = the chunk, one "
-        "slot, through its gather row (a bf16 chunk: paged_chunk_attention)"))
+        "one launch up to 64 queries, past that one launch a slice of "
+        "verify_slices (serving_spec_ngram_k64: k1 65, two); library_ms is "
+        "SDPA on K and V already gathered to (b, nh, S, hd) bf16 with the "
+        "same per-query mask: a different function (it leaves out the "
+        "gather); the decode step is its k1 = 1 instance, and column j of "
+        "a linear verify gives the decode kernel's bits at pos + j; an "
+        "fp32 prompt chunk is a linear window of k1 = the chunk, one slot, "
+        "through its gather row (a bf16 chunk: paged_chunk_attention); "
+        + PAGED_DESIGN))
     # the chunked prefill's attention over a bf16 pool; the JAX package
     # runs it as XLA (apex_tpu/models/gpt.py:659)
     kernels.append(dict(

@@ -62,10 +62,15 @@ samplers on the card to the CPU: uniforms, Bernoulli draws and
 ``prng.normal_limit`` and ``prng.gumbel_limit``. The paged attention
 (one kernel: decode at one query a slot, speculative verify at k1) is
 held per element to ``paged_attention.paged_limit`` (per query row;
-linear and tree masks, fp32, bf16 and int8 pools, odd pages, hd 48), a
-repeat and two page placements bit for bit, column j of a linear verify
-to the decode kernel at pos + j bit for bit, and k1 past ``MAX_K1``
-refused by the C entry without a launch counted; the wrapper at k1 = 80
+linear and tree masks, fp32, bf16 and int8 pools, odd pages, hd 6, 48
+and 256), a repeat and two page placements bit for bit, column j of a
+linear verify to the decode kernel at pos + j bit for bit (also across
+the boundaries of its parts of ``PART_ROWS`` rows, and a tree's chain
+columns), slots of 1, ``PART_ROWS``, ``PART_ROWS`` + 1 and S_max rows
+under two placements bit for bit, a split launch's CUDA-graph replays
+bit for bit with the arrival counters left zero, and k1 past
+``MAX_K1`` refused by the C entry without a launch counted or a counter
+moved; the wrapper at k1 = 80
 launches once a slice of ``verify_slices`` and gives the bits of
 one-query launches (linear and tree), as it does for an fp32 prompt
 chunk (one slot, k1 = 256 at pos 0, 256 and 512, over a gather row
@@ -78,6 +83,7 @@ refuses without a launch counted. A ``PagedDecodeEngine`` at
 BERT step on an NCCL world of one equals the plain step bit for
 bit."""
 
+import functools
 import importlib
 
 import numpy as np
@@ -1615,7 +1621,7 @@ def _paged_case(dev, b, nh, hd, page, max_pages, kv, qdt, seed=0):
                                     ("f32", "bf16"), ("bf16", "i8"),
                                     ("f32", "i8")])
 @pytest.mark.parametrize("page,hd", [(16, 64), (64, 64), (4, 8), (8, 48),
-                                     (64, 128)])
+                                     (64, 128), (64, 256), (8, 6), (32, 6)])
 def test_paged_attention_kernel_within_limit(cuda_device, qdt, kv, page,
                                              hd):
     args = _paged_case(cuda_device, 9, 4, hd, page, 5, kv, qdt)
@@ -1836,12 +1842,13 @@ def test_paged_verify_wrapper_slices_past_max_k1(cuda_device, qdt, kv,
 
 @pytest.mark.cuda
 def test_paged_verify_slice_is_the_c_entrys_limit(cuda_device):
-    """At hd 128 shared memory holds 62 queries: ``verify_slices``'s
-    slice launches, one query more is refused by the C entry (its
-    formula agrees with the C file's ``smem_bytes``)."""
-    nq = pa_mod.verify_slices(100, 128)[0][1]
+    """At hd 256 over an fp32 pool, the widest row the C entry takes,
+    shared memory holds 62 queries: ``verify_slices``'s slice launches
+    within ``paged_limit``, one query more is refused by the C entry
+    (its formula agrees with the C file's ``smem_bytes``)."""
+    nq = pa_mod.verify_slices(100, 256)[0][1]
     assert nq == 62
-    args = _verify_case(cuda_device, 2, 2, 128, 64, 4, "bf16", "bf16", 100,
+    args = _verify_case(cuda_device, 2, 2, 256, 64, 4, "f32", "f32", 100,
                         False)
     out = pa_mod.paged_verify_attention_kernel(*args, q0=0, nq=nq)
     torch.cuda.synchronize()
@@ -1854,6 +1861,168 @@ def test_paged_verify_slice_is_the_c_entrys_limit(cuda_device):
                  <= lim).all())
     with pytest.raises(RuntimeError, match="CUDA error"):
         pa_mod.paged_verify_attention_kernel(*args, q0=0, nq=nq + 1)
+
+
+# ---------------------------------------------------------------------------
+# the split into parts of PART_ROWS logical positions
+# ---------------------------------------------------------------------------
+
+def _moved(k, v, ks, vs, bt, seed, dev):
+    """The same pools, scales and tables with the physical pages past the
+    reserved two permuted."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.arange(k.shape[0], device=dev)
+    perm[2:] = 2 + torch.randperm(k.shape[0] - 2, generator=g, device=dev)
+    out = []
+    for t in (k, v, ks, vs):
+        m = None if t is None else torch.empty_like(t)
+        if t is not None:
+            m[perm] = t
+        out.append(m)
+    return out[0], out[1], perm[bt.long()].to(torch.int32), out[2], out[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,kv", _VERIFY_KV)
+@pytest.mark.parametrize("tree", [False, True], ids=["linear", "tree"])
+def test_paged_verify_column_is_the_decode_kernel_across_parts(
+        cuda_device, qdt, kv, tree):
+    """k1 = 5 windows at pos PART_ROWS - 2 (straddling the first part
+    boundary; query 2's reach ends on part 1's first row), 2 PART_ROWS -
+    3 (query 3's on part 2's), PART_ROWS - 5 (inside part 0) and 3
+    PART_ROWS - 1: column j of a linear verify, and the forced-chain
+    columns of a tree, give the decode kernel's bits at pos + j; a tree
+    column whose ancestors skip a window row gives the bits of its
+    one-query slice launch; all within ``paged_limit``."""
+    part = pa_mod.PART_ROWS
+    q, k, v, bt, _, _, ks, vs = _verify_case(cuda_device, 4, 4, 64, 16,
+                                             4 * part // 16, kv, qdt, 5,
+                                             False, seed=7)
+    pos = torch.tensor([part - 2, 2 * part - 3, part - 5, 3 * part - 1],
+                       dtype=torch.int32, device=cuda_device)
+    anc, chain = None, 5
+    if tree:
+        from apex_tpu_torch.serving.draft import tree_arrays
+
+        # three forced rows, then two draft nodes on the walk root: the
+        # last sees the window rows 0, 1, 2 and 4
+        anc = torch.from_numpy(tree_arrays([[1] * 3] * 4,
+                                           [([2, 2], [-1, -1])] * 4, 5)[2])
+        anc, chain = anc.to(cuda_device), 3
+    ctx = pa_mod.paged_verify_attention_kernel(q, k, v, bt, pos, anc, ks,
+                                               vs)
+    for j in range(5):
+        if j < chain:
+            one = pa_mod.paged_decode_attention_kernel(
+                q[:, :, j].contiguous(), k, v, bt, pos + j, ks, vs)
+        else:
+            one = pa_mod.paged_verify_attention_kernel(
+                q, k, v, bt, pos, anc, ks, vs, q0=j, nq=1)[:, :, j]
+        assert torch.equal(ctx[:, :, j], one), j
+    want = pa_mod.paged_verify_attention_plain(q, k, v, bt, pos, anc, ks,
+                                               vs)
+    lim = pa_mod.paged_limit(q, k, v, bt, pos, want, ks, vs, anc=anc)
+    assert bool(((ctx.float() - want.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "i8"])
+@pytest.mark.parametrize("k1", [1, 5])
+def test_paged_attention_parts_placement_invariant(cuda_device, kv, k1):
+    """Slots of 1 (k1 for a verify window), PART_ROWS, PART_ROWS + 1 and
+    S_max rows (the table's three parts) in one launch: one part, one
+    part exactly, a second part of one row, every part. Two permutations of
+    the physical pages give the same bits, and the kernel stays within
+    ``paged_limit``."""
+    part = pa_mod.PART_ROWS
+    page, mp = 16, 3 * pa_mod.PART_ROWS // 16
+    q, k, v, bt, _, _, ks, vs = _verify_case(cuda_device, 4, 4, 64, page,
+                                             mp, kv, "bf16", k1, False,
+                                             seed=8)
+    pos = torch.tensor([max(n - k1, 0) for n in (1, part, part + 1,
+                                                 page * mp)],
+                       dtype=torch.int32, device=cuda_device)
+    if k1 == 1:
+        q = q[:, :, 0].contiguous()
+
+    def run(k, v, bt, ks, vs):
+        if k1 == 1:
+            return pa_mod.paged_decode_attention_kernel(q, k, v, bt, pos, ks,
+                                                        vs)
+        return pa_mod.paged_verify_attention_kernel(q, k, v, bt, pos, None,
+                                                    ks, vs)
+
+    outs = [run(*_moved(k, v, ks, vs, bt, seed, cuda_device))
+            for seed in (2, 3)]
+    assert torch.equal(outs[0], outs[1])
+    base = run(k, v, bt, ks, vs)
+    assert torch.equal(base, outs[0])
+    if k1 == 1:
+        want = pa_mod.paged_decode_attention_plain(q, k, v, bt, pos, ks, vs)
+    else:
+        want = pa_mod.paged_verify_attention_plain(q, k, v, bt, pos, None,
+                                                   ks, vs)
+    lim = pa_mod.paged_limit(q, k, v, bt, pos, want, ks, vs)
+    assert bool(((base.float() - want.float()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k1", [1, 5])
+def test_paged_attention_split_launch_replays_in_a_cuda_graph(cuda_device,
+                                                              k1):
+    """A launch whose slots span up to 8 parts (8 slots, 16 heads,
+    S_max 1024), captured in a CUDA graph and replayed twice: each
+    replay the eager launch's bits, and the arrival counters zero after
+    both."""
+    q, k, v, bt, pos, _, ks, vs = _verify_case(cuda_device, 8, 16, 64, 64,
+                                               16, "bf16", "bf16", k1,
+                                               False, seed=9)
+    if k1 == 1:
+        q = q[:, :, 0].contiguous()
+        fn = functools.partial(pa_mod.paged_decode_attention_kernel, q, k,
+                               v, bt, pos)
+    else:
+        fn = functools.partial(pa_mod.paged_verify_attention_kernel, q, k,
+                               v, bt, pos)
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    counters = pa_mod._counters(8 * 16, q.device)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_paged_attention_refused_launch_keeps_counts_and_counters(
+        cuda_device):
+    """A split launch the C entry refuses (k1 past ``MAX_K1``) leaves the
+    launch count and the arrival counters as they were; the C file's
+    part size is the wrapper's ``PART_ROWS``."""
+    lib = pa_mod.LIB.load()
+    assert lib.apx_paged_attention_part_rows() == pa_mod.PART_ROWS
+    pa_mod.paged_verify_attention_kernel(*_verify_case(
+        cuda_device, 2, 2, 64, 64, 4, "bf16", "bf16", 5, False))
+    torch.cuda.synchronize()
+    counters = pa_mod._counters(4, cuda_device)
+    before = counters.clone()
+    big = _verify_case(cuda_device, 2, 2, 64, 64, 4, "bf16", "bf16",
+                       pa_mod.MAX_K1 + 1, False)
+    n0 = pa_mod.PAGED_VERIFY.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pa_mod.paged_verify_attention_kernel(*big)
+    torch.cuda.synchronize()
+    assert pa_mod.PAGED_VERIFY.launches == n0
+    assert torch.equal(counters, before)
+    assert int(counters.abs().sum()) == 0
 
 
 def _chunk_case(dev, sc, pos, page, hd, kv="bf16", nh=16, seed=0,

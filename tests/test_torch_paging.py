@@ -383,6 +383,76 @@ def test_plain_attention_skips_rows_past_pos(quant):
     assert bool(torch.isfinite(lim).all())
 
 
+def test_paged_parts_and_work_buffer():
+    """The decode and verify kernel's split, as the wrapper sizes it: a
+    part a ``PART_ROWS`` (128) logical positions of the table, and a work
+    record a (slot, head, part, query) of hd rounded up to 4 floats and
+    m, l, none when the table fits one part; ``verify_slices`` steps
+    ``MAX_K1``, 62 at hd 256 (an fp32 pool's shared memory), and refuses
+    a head wider than the kernel takes."""
+    assert pa.PART_ROWS == 128
+    assert [pa.paged_parts(n) for n in (1, 127, 128, 129, 512, 1024)] == [
+        1, 1, 1, 2, 4, 8]
+    assert pa.paged_work_floats(8, 16, 1, 64, 128) == 0
+    assert pa.paged_work_floats(8, 16, 1, 64, 1024) == 8 * 16 * 8 * 66
+    assert pa.paged_work_floats(2, 4, 5, 6, 200) == 2 * 4 * 2 * 5 * 10
+    assert pa.verify_slices(100, 128) == [(0, 64), (64, 36)]
+    assert pa.verify_slices(100, 256) == [(0, 62), (62, 38)]
+    assert pa.verify_slices(64, 6) == [(0, 64)]
+    assert pa._smem(62, 256, 4) <= pa._MAX_SMEM < pa._smem(63, 256, 4)
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        pa.verify_slices(5, 257)
+
+
+def test_split_buffers_are_cached_per_device():
+    """The split kernels' work buffers and counters come from one cache
+    a device: a request the newest buffer holds returns it, a larger one
+    a new buffer of at least twice the size, and the older buffers stay
+    referenced (a captured CUDA graph keeps valid pointers)."""
+    store, dev = {}, torch.device("cpu", 0)
+    made = []
+
+    def make(n):
+        made.append(n)
+        return torch.zeros((n,), dtype=torch.int32)
+
+    first = pa._cached(store, 10, dev, make)
+    assert made == [1024] and pa._cached(store, 1024, dev, make) is first
+    second = pa._cached(store, 1500, dev, make)
+    assert made == [1024, 2048] and second.numel() == 2048
+    assert store[0] == [first, second]
+    assert pa._cached(store, 3, torch.device("cpu", 1), make) is not second
+    assert sorted(store) == [0, 1]
+
+
+@pytest.mark.parametrize("s_len", [128, 1024])
+def test_paged_limit_adds_the_part_combine(s_len):
+    """``paged_limit`` is the sequential walk's terms plus the parts'
+    combine, (2 D + N + 4) u (A + |ctx|) with N = ``paged_parts(S)``:
+    per element never below the walk's terms, and above them by that
+    much."""
+    rng = np.random.RandomState(11)
+    b, nh, hd, page = 2, 2, 16, 16
+    mp = s_len // page
+    q = torch.from_numpy(rng.randn(b, nh, hd).astype(np.float32))
+    k = torch.from_numpy(rng.randn(2 + b * mp, nh, page, hd).astype(
+        np.float32))
+    v = torch.from_numpy(rng.randn(*k.shape).astype(np.float32))
+    bt = torch.from_numpy(2 + np.arange(b * mp, dtype=np.int32).reshape(
+        b, mp))
+    pos = torch.tensor([s_len - 1, s_len // 3], dtype=torch.int32)
+    ctx = pa.paged_decode_attention(q, k, v, bt, pos)
+    lim = pa.paged_limit(q, k, v, bt, pos, ctx)
+    d_max, a, n, o, s, h = pa._limit_terms(q[:, :, None], k, v, bt, pos,
+                                           ctx[:, :, None], None, None,
+                                           None, None)
+    walk = pa._paged_terms(q, d_max, a, n, o, s, h)[:, :, 0]
+    extra = (pa._U * (2 * d_max + pa.paged_parts(s_len) + 4)
+             * (a + o))[:, :, 0]
+    assert bool((lim >= walk).all())
+    torch.testing.assert_close(lim - walk, extra, rtol=1e-5, atol=0)
+
+
 def test_paged_attention_checks_operands():
     q = torch.zeros(2, 2, 8)
     k = torch.zeros(5, 2, 4, 8)

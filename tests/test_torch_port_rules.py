@@ -623,6 +623,9 @@ PORT_ONLY = {
     "examples/kernel_ab.py": "kernels of two checkouts in one process",
     "examples/gpt/tiered_ab.py": "chip_smoke.py's tiered serving phase of "
                                  "two checkouts in turns",
+    "examples/gpt/stream_ab.py": "chip_smoke.py's paged serving mixes on "
+                                 "two checkouts' paged attention, where "
+                                 "their streams part",
     "transformer/functional/paged_attention.py":
         "the paged decode and verify attention kernel (XLA inside the JAX "
         "package's models/gpt.py: _paged_decode_attention, "

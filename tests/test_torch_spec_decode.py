@@ -314,7 +314,7 @@ def test_verify_wrapper_slices_past_max_k1(monkeypatch, tree):
     lim = pa.paged_limit(q, pk, pv, bt, pos, want, anc=anc)
     assert bool(((got - want).abs() <= lim).all())
     assert pa.verify_slices(5, hd) == [(0, 5)]
-    assert pa.verify_slices(100, 128) == [(0, 62), (62, 38)]
+    assert pa.verify_slices(100, 128) == [(0, 64), (64, 36)]
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
