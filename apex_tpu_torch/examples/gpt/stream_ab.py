@@ -78,32 +78,7 @@ def serve(params, cfg, dev, prompts, temps, engine_kw):
         sched.submit(Request(prompt=prompt, max_new_tokens=cs.NEW_TOKENS,
                              temperature=0.0 if temps is None else temps[i],
                              seed=i))
-    last, rows = {}, {}
-    sample, grid, append = eng.sample, eng.sample_grid, sched._append
-
-    def sampling(fn, is_grid):
-        def run(logits, keys, temperature):
-            last.update(logits=logits, keys=torch.as_tensor(keys),
-                        temps=list(temperature), grid=is_grid, used={})
-            return fn(logits, keys, temperature)
-        return run
-
-    def appending(i, tok):
-        slot = sched._slots[i]
-        if last["grid"]:              # row j of slot i's verify window
-            j = last["used"].get(i, 0)
-            last["used"][i] = j + 1
-            at = (i, j)
-        else:                         # a decode row, or a prefill's (1, V)
-            at = (i if last["logits"].shape[0] > 1 else 0,)
-        rows[(slot.request_id, len(slot.generated))] = (
-            last["logits"][at].float().clone(),
-            float(last["temps"][at[0]]), last["keys"][at].clone())
-        append(i, tok)
-
-    eng.sample = sampling(sample, False)
-    eng.sample_grid = sampling(grid, True)
-    sched._append = appending
+    rows = cs.capture_rows(eng, sched)
     streams = sched.run()
     torch.cuda.synchronize()
     return streams, rows
@@ -133,20 +108,10 @@ def _plain(pa):
     return saved
 
 
-def _scores(row, temp, key):
-    """The sampler's scores of a row: the logits (greedy), else logits /
-    T plus the key's Gumbel noise (``prng.categorical_rows``)."""
-    from apex_tpu_torch.utils import prng
-
-    if temp <= 0:
-        return row
-    scaled = row / torch.clamp(torch.tensor(temp, device=row.device),
-                               min=1e-6)
-    return prng.gumbel_rows(key[None], row.shape[-1], row.device)[0] + scaled
-
-
 def compare(mix, runs, a, b):
     """The JSON lines of runs ``a`` and ``b`` (see the module's note)."""
+    import chip_smoke as cs
+
     sa, ra = runs[a]
     sb, rb = runs[b]
     diffs, lines = [], []
@@ -160,8 +125,8 @@ def compare(mix, runs, a, b):
             continue
         ta, tb = xa[part], xb[part]
         row_a, temp, key = ra[(rid, part)]
-        za = _scores(row_a, temp, key)
-        zb = _scores(rb[(rid, part)][0], temp, key)
+        za = cs.decision_scores(row_a, temp, key)
+        zb = cs.decision_scores(rb[(rid, part)][0], temp, key)
         line = dict(mix=mix, runs=f"{a}-{b}", request=rid, token=part,
                     temperature=temp, tokens={a: ta, b: tb},
                     margin={a: float(za[ta] - za[tb]),
@@ -170,7 +135,7 @@ def compare(mix, runs, a, b):
         if "plain" in runs and "plain" not in (a, b):
             sp, rp = runs["plain"]
             if sp[rid][:part] == xa[:part]:
-                zp = _scores(rp[(rid, part)][0], temp, key)
+                zp = cs.decision_scores(rp[(rid, part)][0], temp, key)
                 line.update(plain_token=sp[rid][part],
                             plain_margin_a_over_b=float(zp[ta] - zp[tb]))
         lines.append(line)

@@ -450,10 +450,13 @@ def _write_rows(cache, new, start):
 def _cache_attention(q, k_cache, v_cache, vis, dtype):
     """fp32 attention of q (b, nh, q, hd) over a (b, nh, S, hd) cache,
     ``vis`` (b, q, S) the admitted rows (``finfo.min`` elsewhere, so
-    their probabilities are exactly 0); ctx (b, q, h) in ``dtype``."""
-    hd = q.shape[-1]
+    their probabilities are exactly 0); ctx (b, q, h) in ``dtype``. The
+    scores are scaled (times 1/sqrt(hd)) and normalised as the
+    prefill's plain attention does (``flash_attention.attention_probs``),
+    so an fp32 cache's final prompt chunk gives a one-shot prefill's
+    bits."""
     scores = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) \
-        / math.sqrt(hd)
+        * (1.0 / math.sqrt(q.shape[-1]))
     scores = torch.where(vis[:, None], scores,
                          torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)

@@ -3,9 +3,14 @@ per-slot cache and the paged cache (a page pool with per-slot block
 tables, prefix sharing, copy-on-write, preemption and a host spill tier,
 bf16/fp32 or int8 pages), greedy and sampled continuous batching,
 speculative decoding (n-gram, model and tree drafts), chunked prefill,
-bf16/fp32 or weight-only int8 params (detected by the engines), and the
-tracer and metrics registry with tick-clock latency (``observe.py``).
-See ``scheduler.py``."""
+bf16/fp32 or weight-only int8 params (detected by the engines), the
+tracer and metrics registry with tick-clock latency (``observe.py``),
+the fault tier (``faults.py``: a deterministic ``FaultInjector``
+consulted at named host-side sites; ``health.py``: the typed failure
+taxonomy, quarantine, retry budgets, deadlines, backpressure and the
+watchdog), and the multi-tenant front end (``tenancy.py``: weighted fair
+share, page quotas, priority preemption, SLOs; ``streaming.py``:
+per-token delivery). See ``scheduler.py``."""
 
 from apex_tpu_torch.serving.cache import (  # noqa: F401
     KVCache, PagedKVCache, audit_block_tables, init_cache,
@@ -19,9 +24,16 @@ from apex_tpu_torch.serving.decode import (  # noqa: F401
 )
 from apex_tpu_torch.serving.draft import ngram_draft, tree_arrays  # noqa: F401
 from apex_tpu_torch.serving.draft_model import DraftModel  # noqa: F401
+from apex_tpu_torch.serving.faults import (  # noqa: F401
+    SITES, FaultInjector, InjectedFault, fault_draw,
+)
 from apex_tpu_torch.serving.health import (  # noqa: F401
-    NonFiniteLogits, PoolExhausted, PoolInvariantError, PromoteFailed,
-    QuotaExhausted, RequestOutcome, ServingError, ServingStats, SpillFailed,
+    FINISH_REASONS, HEALTH_STATES, AdmissionRejected, DeadlineExceeded,
+    LivelockError, NonFiniteLogits, PoolExhausted, PoolInvariantError,
+    PromoteFailed, QuotaExhausted, ReplicaHealth, ReplicaUnavailable,
+    RequestOutcome, ReshardFailed, RetryBudgetExhausted, ServingError,
+    ServingStats, SloViolation, SpillFailed, StreamFailed,
+    TransferCorrupt, TransferFailed,
 )
 from apex_tpu_torch.serving.observe import (  # noqa: F401
     FlightRecorder, MetricsRegistry, TraceEvent, Tracer,
@@ -37,6 +49,12 @@ from apex_tpu_torch.serving.sampling import (  # noqa: F401
 )
 from apex_tpu_torch.serving.scheduler import (  # noqa: F401
     ContinuousBatchingScheduler, DecodeEngine, PagedDecodeEngine, Request,
+)
+from apex_tpu_torch.serving.streaming import (  # noqa: F401
+    StreamMux, TokenStream,
+)
+from apex_tpu_torch.serving.tenancy import (  # noqa: F401
+    DEFAULT_TENANT, Tenant, TenancyPolicy,
 )
 from apex_tpu_torch.serving.transfer import (  # noqa: F401
     make_extract_pages_fn, make_extract_pages_quant_fn,

@@ -46,9 +46,10 @@ logical position lives in happens here, on the host, in plain Python:
 
 - **audit** — ``check_invariants()`` cross-checks refcounts against
   the free list, the prefix registry, and (given the engine's per-slot
-  page lists) the slots' references. The JAX package's ``pool_alloc``
-  fault site (``injector=``) arrives with the fault tier (ROADMAP A4.4);
-  until then ``PagePool`` takes ``injector=None`` only.
+  page lists) the slots' references; the chaos tier runs it after
+  every scheduler tick. The ``pool_alloc`` fault site
+  (``serving.faults``) hooks ``alloc()`` to simulate transient
+  exhaustion deterministically.
 
 Determinism: nothing here touches device state or RNG — identical
 request streams replay identical page decisions, and the decode math
@@ -63,6 +64,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 
 from apex_tpu_torch.serving.cache import RESERVED_PAGES
+from apex_tpu_torch.serving.faults import FaultInjector
 from apex_tpu_torch.serving.health import PoolInvariantError, QuotaExhausted
 
 #: Version tag baked into every hashed page record. The chained key is
@@ -421,12 +423,8 @@ class PagePool:
 
     def __init__(self, num_pages: int, page_size: int,
                  free_order: Optional[Sequence[int]] = None,
-                 injector=None,
+                 injector: Optional[FaultInjector] = None,
                  host_tier: Optional[PrefixRegistry] = None):
-        if injector is not None:
-            raise NotImplementedError(
-                "PagePool(injector=...): the fault injector is ROADMAP "
-                "item A4.4 (faults, tracer and tenancy), not ported yet")
         if page_size < 1:
             raise ValueError(f"page_size must be positive, got {page_size}")
         if num_pages <= RESERVED_PAGES:
@@ -442,6 +440,9 @@ class PagePool:
             raise ValueError(
                 f"free_order must be a permutation of {usable}")
         self._free = deque(free_order)
+        # fault hook: the ``pool_alloc`` site makes alloc() report a
+        # transient exhaustion (no LRU sweep, nothing evicted)
+        self.injector = injector or FaultInjector()
         self._ref: Dict[int, int] = {}  # page -> refcount; absent = free
         # chained prefix key -> page holding that page's rows; each
         # entry owns one reference on its page; insertion order = LRU
@@ -488,7 +489,11 @@ class PagePool:
 
     def alloc(self) -> Optional[int]:
         """An exclusively-owned page (refcount 1), evicting LRU prefix
-        entries as needed; None when genuinely out of pages."""
+        entries as needed; None when genuinely out of pages (or when
+        the ``pool_alloc`` fault site fires — a transient refusal that
+        leaves the registry untouched)."""
+        if self.injector.fire("pool_alloc"):
+            return None
         while not self._free and self._prefix:
             key, page = self._prefix.popitem(last=False)
             # spill on the way out — but NEVER a page a slot still

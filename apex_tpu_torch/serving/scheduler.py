@@ -15,10 +15,34 @@ each decode step with ``n = len(generated)``; slots that are not
 decoding get ``PRNGKey(0)``, as in the JAX scheduler. So a replayed
 stream, and the JAX scheduler's, commit the same tokens.
 
-Every committed token passes two gates first: its logits row is finite
-and the sampled id is inside the vocabulary. A row that fails raises
-:class:`~apex_tpu_torch.serving.health.NonFiniteLogits` before anything
-of that tick is committed.
+Failure is an expected state (``serving.health``): pool exhaustion,
+non-finite logits, bad samples and transient exec faults degrade
+instead of crashing or spinning, as in the JAX scheduler:
+
+- every committed token passes two always-on gates: its logits row is
+  finite and the sampled id is inside the vocabulary. A slot that fails
+  one is QUARANTINED — the corrupt token is never committed, the slot
+  is freed and its request requeued at the queue front with its
+  progress; the resumed stream is the fault-free one, and co-tenant
+  slots never notice. Each fault-path requeue (a quarantine, an
+  injected prefill or chunk fault) charges the request's retry budget
+  (``max_retries``); exhausting it ends the request with a
+  :class:`~apex_tpu_torch.serving.health.RetryBudgetExhausted`.
+  Capacity preemptions charge nothing.
+- ``max_queue`` bounds the admission queue (``submit`` raises
+  :class:`~apex_tpu_torch.serving.health.AdmissionRejected` past it);
+  ``Request.deadline_ticks`` bounds a request's lifetime in ticks
+  (:class:`~apex_tpu_torch.serving.health.DeadlineExceeded` with the
+  tokens committed so far).
+- the watchdog raises :class:`~apex_tpu_torch.serving.health.
+  LivelockError` (the stuck requests and a pool snapshot) after
+  ``watchdog_limit`` ticks without a committed token, a finished
+  request, a retry or a prefill chunk; ``audit=True`` runs the engine's
+  invariant check after every tick.
+
+The fault injector (``serving.faults``, the engine's ``injector=``)
+drives these paths deterministically at the named host-side sites, so a
+chaos run replays its faults, streams and tick-clock events exactly.
 
 On the paged engine (:class:`PagedDecodeEngine`) admission shares the
 longest cached prompt prefix (whole pages, and an exact partial last
@@ -85,7 +109,15 @@ and the TTFT and inter-token gaps land in the tracer's histograms
 :class:`~apex_tpu_torch.serving.health.ServingStats` (``engine.stats``,
 shared as ``scheduler.stats``), a view over the tracer's registry.
 
-Faults, tenancy and streams are later slices.
+Tenancy (``tenancy=``, ``serving.tenancy``) picks which queued request
+to admit (priority rung, then the tenant's stride-clock vtime), defers
+admissions a tenant's page quota cannot cover, lets a higher rung
+requeue a resident lower one, and checks each finished request against
+its tenant's SLO bounds; it moves WHEN work runs, never WHAT commits.
+``streams=True`` (``serving.streaming``) delivers each request's
+committed tokens at the end of every tick; a dropped delivery (the
+``stream_emit`` site) closes that stream, its delivered tokens a strict
+prefix of the committed ones.
 
 The engine's cache is updated in place by each step.
 """
@@ -110,9 +142,11 @@ from apex_tpu_torch.serving.decode import (
     make_tree_verify_fn, make_verify_fn,
 )
 from apex_tpu_torch.serving.draft import ngram_draft, tree_arrays
+from apex_tpu_torch.serving.faults import FaultInjector, InjectedFault
 from apex_tpu_torch.serving.health import (
-    NonFiniteLogits, PoolExhausted, PromoteFailed, RequestOutcome,
-    ServingStats,
+    AdmissionRejected, DeadlineExceeded, LivelockError, NonFiniteLogits,
+    PoolExhausted, PromoteFailed, QuotaExhausted, RequestOutcome,
+    RetryBudgetExhausted, ServingStats,
 )
 from apex_tpu_torch.serving.observe import Tracer
 from apex_tpu_torch.serving.paging import (
@@ -123,6 +157,7 @@ from apex_tpu_torch.serving.paging import (
 from apex_tpu_torch.serving.sampling import (
     finite_rows, sample_token_grid, sample_tokens, tree_speculative_accept,
 )
+from apex_tpu_torch.serving.streaming import StreamMux
 from apex_tpu_torch.serving.transfer import (
     make_extract_pages_fn, make_extract_pages_quant_fn, make_insert_pages_fn,
     make_insert_pages_quant_fn,
@@ -137,11 +172,18 @@ from apex_tpu_torch.utils.seqlen import (
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One generation request. ``temperature <= 0`` means greedy;
-    ``seed`` roots a sampled request's random stream."""
+    ``seed`` roots a sampled request's random stream. ``deadline_ticks``,
+    when set, bounds the request's lifetime in scheduler ticks since
+    submission (an overrun ends in a ``deadline`` outcome with the
+    tokens committed so far). ``tenant_id`` names the traffic class the
+    tenancy front-end (``serving.tenancy``) accounts the request under;
+    the default tenant keeps an untenanted scheduler as it is."""
     prompt: Tuple[int, ...]
     max_new_tokens: int = 16
     temperature: float = 0.0
     seed: int = 0
+    deadline_ticks: Optional[int] = None
+    tenant_id: str = "default"
 
 
 @dataclasses.dataclass
@@ -176,18 +218,24 @@ class DecodeEngine:
     ``spec_k`` is the draft depth (0: no speculation); ``draft_model``
     (a :class:`~apex_tpu_torch.serving.draft_model.DraftModel`),
     ``tree_spec`` and ``adaptive_spec`` need ``spec_k >= 1``.
+    ``injector`` hooks the fault sites (``serving.faults``; inert by
+    default, one dict lookup and one increment a site visit);
     ``tracer`` hooks the observability sites (``serving.observe``;
     disabled by default, one attribute check a site); ``stats`` is the
     :class:`~apex_tpu_torch.serving.health.ServingStats` counter block
     the scheduler shares, a view over the tracer's registry."""
 
     paged = False
+    #: The tenant whose request the scheduler is admitting, stamped (with
+    #: tenancy on) just before ``prefill`` / ``begin_chunk_prefill``.
+    admission_tenant: Optional[str] = None
 
     def __init__(self, params, cfg: GPTConfig, num_slots: int,
                  max_len: int, cache_dtype: torch.dtype = torch.bfloat16,
                  top_k: int = 0, top_p: float = 0.0, spec_k: int = 0,
                  buckets: Optional[Sequence[int]] = None,
                  compute_dtype: Optional[torch.dtype] = None,
+                 injector: Optional[FaultInjector] = None,
                  draft_model=None, tree_spec: bool = False,
                  adaptive_spec: bool = False,
                  tracer: Optional[Tracer] = None,
@@ -204,6 +252,7 @@ class DecodeEngine:
         self.draft_model = draft_model
         self.tree_spec = tree_spec
         self.adaptive_spec = adaptive_spec
+        self.injector = injector or FaultInjector()
         self.tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.stats = ServingStats(registry=self.tracer.registry)
         if buckets is None:
@@ -251,7 +300,10 @@ class DecodeEngine:
 
     def prefill(self, slot: int, prompt: Sequence[int]) -> torch.Tensor:
         """Full forward over ``prompt`` into cache row ``slot``; returns
-        the last-real-token logits (1, V)."""
+        the last-real-token logits (1, V). An armed ``prefill_exec``
+        fault site raises :class:`~apex_tpu_torch.serving.faults.
+        InjectedFault` before the forward."""
+        self._fault("prefill_exec")
         ids = torch.tensor([list(prompt)], dtype=torch.int64,
                            device=self.device)
         ids, mask = pad_to_bucket(ids, ids.shape[1], buckets=self.buckets)
@@ -283,7 +335,10 @@ class DecodeEngine:
         """Run ONE prompt chunk (rows ``pos .. pos + len(chunk) - 1``) of
         ``slot``, padded to ``bucket`` tokens. Returns the chunk's
         last-real-token logits (1, V); only the final chunk's feed the
-        first sampled token."""
+        first sampled token. An armed ``chunk_prefill_exec`` fault site
+        raises :class:`~apex_tpu_torch.serving.faults.InjectedFault`
+        before touching the cache."""
+        self._fault("chunk_prefill_exec")
         ids = torch.tensor([list(chunk)], dtype=torch.int64,
                            device=self.device)
         ids, mask = pad_to_bucket(ids, ids.shape[1], buckets=(bucket,))
@@ -301,10 +356,36 @@ class DecodeEngine:
         """Bookkeeping after the final chunk (the paged engine registers
         the prompt's prefix); nothing for the dense cache."""
 
+    def _fault(self, site: str) -> None:
+        """Raise :class:`InjectedFault` when ``site``'s draw fires."""
+        if self.injector.fire(site):
+            raise InjectedFault(site, self.injector.calls(site) - 1)
+
+    def _nan_row(self, logits: torch.Tensor) -> torch.Tensor:
+        """The ``decode_exec`` site, drawn after a decode or verify step:
+        when it fires, one victim slot's logits (every position of a
+        verify step) become NaN; the other rows keep their bits."""
+        fired, payload = self.injector.draw("decode_exec")
+        if fired:
+            logits[int(payload % logits.shape[0])] = float("nan")
+        return logits
+
+    def _bad_sample(self, toks: torch.Tensor) -> torch.Tensor:
+        """The ``sample`` site: when it fires, one victim slot's token
+        (its first position on a verify grid) becomes an
+        out-of-vocabulary id, negative so it never collides with a real
+        token."""
+        fired, payload = self.injector.draw("sample")
+        if fired:
+            victim = int(payload % toks.shape[0])
+            toks[(victim,) + (0,) * (toks.dim() - 1)] = -1 - payload % 7
+        return toks
+
     def decode(self, tokens: Sequence[int],
                active: Sequence[bool]) -> torch.Tensor:
         """One token for every slot; ``active`` gates the length
-        advance. Returns (num_slots, V) fp32 logits."""
+        advance. Returns (num_slots, V) fp32 logits, through the
+        ``decode_exec`` fault site (:meth:`_nan_row`)."""
         tok = torch.tensor(list(tokens), dtype=torch.int64,
                            device=self.device)
         act = torch.tensor(list(active), dtype=torch.bool,
@@ -315,18 +396,21 @@ class DecodeEngine:
         self.cache, logits = self._decode(self.params, self.cache, tok, act)
         if trc.enabled:
             trc.end("exec", kind="decode")
-        return logits
+        return self._nan_row(logits)
 
     def sample(self, logits: torch.Tensor, keys,
                temperature: Sequence[float]) -> torch.Tensor:
         """(B,) int32 tokens; ``keys`` (B, 2) and ``temperature`` (B,)
         on the host. A batch of greedy rows only takes the argmax and
-        draws nothing."""
+        draws nothing. Through the ``sample`` fault site
+        (:meth:`_bad_sample`)."""
         if max(temperature) <= 0:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        return sample_tokens(logits, keys, torch.tensor(
-            list(temperature), dtype=torch.float32, device=logits.device),
-            self.top_k, self.top_p)
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            toks = sample_tokens(logits, keys, torch.tensor(
+                list(temperature), dtype=torch.float32,
+                device=logits.device), self.top_k, self.top_p)
+        return self._bad_sample(toks)
 
     def finite(self, logits: torch.Tensor) -> torch.Tensor:
         """(B,) bool (or (B, k1) for a verify step's logits): which rows
@@ -337,21 +421,53 @@ class DecodeEngine:
 
     def draft(self, history: Sequence[int]) -> List[int]:
         """Host-side n-gram draft of up to ``spec_k`` candidates from
-        one slot's prompt + generated history."""
+        one slot's prompt + generated history. An armed ``draft_exec``
+        fault site raises :class:`InjectedFault`: the scheduler degrades
+        that slot to an empty draft for the tick, charging no retry."""
+        self._fault("draft_exec")
         return ngram_draft(history, self.spec_k)
+
+    def _draft_ladder(self) -> bool:
+        """The model drafter's two-rung ``draft_exec`` ladder: one draw
+        decides whether the MODEL draft fails this tick; a fired draw
+        counts a draft fault and takes a second draw deciding whether
+        the n-gram fallback fails too (raising :class:`InjectedFault`,
+        which the scheduler turns into a plain tick). Returns True when
+        the caller should use the n-gram rung. No rung charges retry
+        budget."""
+        if not self.injector.fire("draft_exec"):
+            return False
+        self.stats.draft_faults += 1
+        self._fault("draft_exec")
+        return True
 
     def draft_batch(self, histories, ks) -> List[List[int]]:
         """Model-draft every slot in one batched call: up to ``ks[i]``
         greedy continuation tokens of ``histories[i]`` from the attached
         :class:`~apex_tpu_torch.serving.draft_model.DraftModel` (a
-        ``None`` history or ``k = 0`` yields an empty draft)."""
+        ``None`` history or ``k = 0`` yields an empty draft). The
+        ``draft_exec`` ladder (:meth:`_draft_ladder`) degrades model ->
+        n-gram -> plain."""
+        if self._draft_ladder():
+            return [list(ngram_draft(h, k)) if h is not None else []
+                    for h, k in zip(histories, ks)]
         return [[int(t) for t in c]
                 for c in self.draft_model.draft(histories, ks)]
 
     def draft_tree_batch(self, histories, ks):
         """Tree drafts (``(tokens, parents)`` a slot, ``None`` when
         inactive) from the model drafter: a greedy chain plus an
-        alternate root branch (:meth:`DraftModel.draft_tree`)."""
+        alternate root branch (:meth:`DraftModel.draft_tree`). The same
+        ``draft_exec`` ladder; its n-gram rung gives single-chain
+        trees."""
+        if self._draft_ladder():
+            out = []
+            for h, k in zip(histories, ks):
+                c = [int(t) for t in ngram_draft(h, k)] \
+                    if h is not None else []
+                out.append((c, [-1] + list(range(len(c) - 1)))
+                           if c else None)
+            return out
         return self.draft_model.draft_tree(histories, ks)
 
     def verify(self, tokens) -> torch.Tensor:
@@ -367,7 +483,7 @@ class DecodeEngine:
         self.cache, logits = self._verify(self.params, self.cache, tok)
         if trc.enabled:
             trc.end("exec", kind="verify", k1=int(tok.shape[1]))
-        return logits
+        return self._nan_row(logits)
 
     def tree_verify(self, tokens, depth, anc) -> torch.Tensor:
         """One tree-attention verify step over a packed draft grid
@@ -384,7 +500,7 @@ class DecodeEngine:
             self._ids(anc, torch.bool))
         if trc.enabled:
             trc.end("exec", kind="tree_verify", k1=int(tok.shape[1]))
-        return logits
+        return self._nan_row(logits)
 
     def commit(self, counts: Sequence[int]) -> None:
         """Advance slot lengths by each slot's committed row count — the
@@ -402,12 +518,16 @@ class DecodeEngine:
                     temperature: Sequence[float]) -> torch.Tensor:
         """Sample every (slot, position) of a verify step's logits
         (B, k1, V) with its own key (keys (B, k1, 2)); (B, k1) int32. A
-        greedy-only batch takes the argmax and draws nothing."""
+        greedy-only batch takes the argmax and draws nothing. The
+        ``sample`` fault site corrupts the victim slot's FIRST position
+        (the one a plain tick would have drawn)."""
         if max(temperature) <= 0:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        return sample_token_grid(logits, keys, torch.tensor(
-            list(temperature), dtype=torch.float32, device=logits.device),
-            self.top_k, self.top_p)
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            toks = sample_token_grid(logits, keys, torch.tensor(
+                list(temperature), dtype=torch.float32,
+                device=logits.device), self.top_k, self.top_p)
+        return self._bad_sample(toks)
 
     # scheduler hooks, no-ops for the dense engine: a cache row needs no
     # per-token capacity and frees by being overwritten
@@ -447,16 +567,6 @@ class DecodeEngine:
         return default
 
 
-def _owed(item: str, **given) -> None:
-    """Raise for a parameter owed to a later ROADMAP item when it is
-    given a value other than its default."""
-    names = [n for n, set_ in given.items() if set_]
-    if names:
-        raise NotImplementedError(
-            f"PagedDecodeEngine({', '.join(names)}=...): ROADMAP item "
-            f"{item}, not ported yet")
-
-
 class PagedDecodeEngine(DecodeEngine):
     """:class:`DecodeEngine` over the paged cache: a fixed page pool,
     per-slot block tables, and a host-side
@@ -480,8 +590,9 @@ class PagedDecodeEngine(DecodeEngine):
     ``host_promote_bytes``, ``host_promote_ticks``,
     ``host_spill_failures`` and ``host_promote_failures`` count its
     traffic. Tree speculation is refused over the int8 pool, as in the
-    JAX engine. ``injector`` (ROADMAP A4.4, the fault tier) raises on a
-    value other than its default."""
+    JAX engine. ``injector`` also hooks the pool's ``pool_alloc`` site,
+    the ``cow_clone`` site of :meth:`prepare_decode` and the host tier's
+    ``host_spill`` and ``host_promote`` sites."""
 
     paged = True
 
@@ -492,13 +603,14 @@ class PagedDecodeEngine(DecodeEngine):
                  buckets: Optional[Sequence[int]] = None,
                  compute_dtype: Optional[torch.dtype] = None,
                  free_order: Optional[Sequence[int]] = None,
-                 prefix_sharing: bool = True, injector=None,
+                 prefix_sharing: bool = True,
+                 injector: Optional[FaultInjector] = None,
                  draft_model=None, tree_spec: bool = False,
-                 adaptive_spec: bool = False, tracer=None,
+                 adaptive_spec: bool = False,
+                 tracer: Optional[Tracer] = None,
                  host_tier: Optional[PrefixRegistry] = None,
                  promote_ticks_per_page: float = 0.125,
                  device: DeviceLike = None):
-        _owed("A4.4 (faults and tenancy)", injector=injector is not None)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -528,13 +640,14 @@ class PagedDecodeEngine(DecodeEngine):
         self.draft_model = draft_model
         self.tree_spec = tree_spec
         self.adaptive_spec = adaptive_spec
+        self.injector = injector or FaultInjector()
         self.tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.stats = ServingStats(registry=self.tracer.registry)
         quantized = is_quantized_tree(params)
         self.cache = init_paged_cache(cfg, num_slots, max_len, num_pages,
                                       page_size, cache_dtype, self.device)
         self.pool = PagePool(num_pages, page_size, free_order,
-                             host_tier=host_tier)
+                             injector=self.injector, host_tier=host_tier)
         # the host spill tier: the pool's eviction sweep calls
         # _spill_page for pages the prefix registry alone holds; an
         # admission's registry miss promotes records back
@@ -593,10 +706,20 @@ class PagedDecodeEngine(DecodeEngine):
         chunk of a chunked prefill, attending the covered pages through
         the real row (an int8 pool keeps the whole forward). Raises
         :class:`PoolExhausted` when the pool cannot cover the prompt
-        even after LRU eviction, having released every page reference
-        it took; ``ValueError`` for a prompt beyond ``max_len`` before
-        touching the pool."""
+        even after LRU eviction, and :class:`InjectedFault` under an
+        armed ``prefill_exec`` site; both release every page reference
+        taken first. ``ValueError`` for a prompt beyond ``max_len``
+        before touching the pool."""
         state = self.begin_chunk_prefill(slot, prompt)
+        if self.injector.fire("prefill_exec"):
+            # roll back the claim; the slot's device row was never set
+            self._admit_extra -= state["promote_ticks"]
+            for q in self._slot_pages[slot]:
+                self.pool.release(q)
+            self._slot_pages[slot] = []
+            self._prefill_parked.discard(slot)
+            raise InjectedFault("prefill_exec",
+                                self.injector.calls("prefill_exec") - 1)
         toks, start = state["tokens"], state["start"]
         trc = self.tracer
         if trc.enabled:
@@ -695,7 +818,8 @@ class PagedDecodeEngine(DecodeEngine):
         skip = min(covered, max(n_pages - 1, 0))
         return {"tokens": toks, "keys": keys, "pages": pages,
                 "shared": covered, "n_pages": n_pages, "row": row,
-                "start": skip * self.page_size}
+                "start": skip * self.page_size,
+                "promote_ticks": promote_ticks}
 
     def chunk_prefill(self, slot: int, chunk: Sequence[int], pos: int,
                       state: Dict, bucket: int,
@@ -705,7 +829,10 @@ class PagedDecodeEngine(DecodeEngine):
         scratch) while attention gathers through the real NULL-padded
         row, so earlier chunks' pages and the shared prefix are visible.
         The final chunk also installs the real block-table row, ending
-        the parking."""
+        the parking. An armed ``chunk_prefill_exec`` site raises
+        :class:`InjectedFault` before touching the cache; the caller
+        frees the slot, which releases every staged page."""
+        self._fault("chunk_prefill_exec")
         trc = self.tracer
         if trc.enabled:
             trc.begin("chunk_prefill")
@@ -763,8 +890,14 @@ class PagedDecodeEngine(DecodeEngine):
     def _spill_page(self, key: bytes, page: int) -> None:
         """Pool eviction hook: copy ``page`` (held by the prefix registry
         alone, so its content is pristine — copy-on-write guarantees no
-        slot appended to it) out to the host tier under its chain
-        key."""
+        slot appended to it) out to the host tier under its chain key.
+        A fired ``host_spill`` site drops the spill: the prefix leaves
+        both tiers and a later admission re-prefills it."""
+        if self.injector.fire("host_spill"):
+            self.stats.host_spill_failures += 1
+            if self.tracer.enabled:
+                self.tracer.instant("host_spill", page=page, ok=False)
+            return
         tiles = [self._host(t) for t in self._tier_extract(self.cache,
                                                            [page])]
         k, v = tiles[:2]
@@ -806,30 +939,35 @@ class PagedDecodeEngine(DecodeEngine):
         """Extend a device prefix match by promoting consecutive chain
         links from the host tier: verify each record, allocate a page,
         and copy the payloads back in one batched insert. The chain
-        breaks at the first miss, failed verification (the stale record
-        is dropped and counted) or pool exhaustion; pages promoted so
-        far are kept and the rest of the prompt re-prefills. Returns
+        breaks at the first miss, fired ``host_promote`` site, failed
+        verification (the stale record is dropped) or pool exhaustion;
+        a fault or failed verification is counted. Pages promoted so far
+        are kept and the rest of the prompt re-prefills. Returns
         ``(pages, ticks)``; the caller owns one reference a page and
         charges ``ticks`` on the admission clock."""
         pages: List[int] = []
         records: List[SpillRecord] = []
-        failed = False
+        failed: Optional[PromoteFailed] = None
         for key in keys[start:]:
             rec = self.host_tier.get(key)
             if rec is None:
                 break
+            if self.injector.fire("host_promote"):
+                failed = PromoteFailed("injected host_promote fault",
+                                       key=key.hex(), pages=len(pages))
+                break
             try:
                 self._verify_spill(key, rec)
-            except PromoteFailed:
+            except PromoteFailed as e:
                 self.host_tier.drop(key)
-                failed = True
+                failed = e
                 break
             p = self.pool.alloc()
             if p is None:
                 break
             pages.append(p)
             records.append(rec)
-        if failed:
+        if failed is not None:
             self.stats.host_promote_failures += 1
             if self.tracer.enabled:
                 self.tracer.instant("host_promote", ok=False,
@@ -864,10 +1002,10 @@ class PagedDecodeEngine(DecodeEngine):
         allocation's registry eviction left the slot sole owner, when
         the append proceeds in place. Pages past the committed length
         may exist from an earlier verify tick's overshoot; they are
-        private and reused. A slot the pool cannot serve is preempted:
-        its pages are released (often unblocking the rest of the batch)
-        and the caller requeues its request. Returns the preempted
-        slots."""
+        private and reused. A slot the pool cannot serve (or whose
+        ``cow_clone`` fault site fired) is preempted: its pages are
+        released (often unblocking the rest of the batch) and the caller
+        requeues its request. Returns the preempted slots."""
         preempted: List[int] = []
         for i, pos in sorted(positions.items()):
             pages = self._slot_pages[i]
@@ -882,7 +1020,8 @@ class PagedDecodeEngine(DecodeEngine):
                     pages.append(p)
                     self.cache.block_tables[i, idx] = p
                 elif self.pool.needs_copy(pages[idx]):  # COW
-                    dst = self.pool.alloc()
+                    dst = None if self.injector.fire("cow_clone") \
+                        else self.pool.alloc()
                     if dst is None:
                         # the failed alloc's LRU sweep emptied the
                         # prefix registry; if the registry was the
@@ -958,21 +1097,35 @@ def _slot_key(slot: _Slot) -> torch.Tensor:
 
 
 class ContinuousBatchingScheduler:
-    """FIFO -> fixed slots -> batched decode (or verify) ticks, with
-    typed outcomes in ``self.outcomes`` and the engine's counter block
-    shared as ``self.stats`` (``plain_ticks``, ``spec_ticks``,
-    ``tokens_drafted``, ``tokens_accepted``, ``prefill_chunks``,
-    ``evictions``, ...; ``stats.acceptance_rate``); ``decode_steps``
+    """FIFO -> fixed slots -> batched decode (or verify) ticks, with the
+    graceful-degradation layer (see the module doc): typed outcomes in
+    ``self.outcomes``, the engine's counter block shared as
+    ``self.stats`` (``plain_ticks``, ``spec_ticks``, ``tokens_drafted``,
+    ``tokens_accepted``, ``prefill_chunks``, ``evictions``, ``retries``,
+    ...; ``stats.acceptance_rate``), per-request retry budgets
+    (``max_retries``), deterministic deadlines, a bounded admission queue
+    (``max_queue``), a progress watchdog (``watchdog_limit``) and an
+    optional per-tick invariant audit (``audit``). ``decode_steps``
     counts the batched decode and verify steps run. ``chunk_tokens``
     turns on chunked prefill under ``tick_token_budget`` tokens a tick
-    (default: every slot's decode token plus one chunk), see the module
-    doc."""
+    (default: every slot's decode token plus one chunk). ``tenancy`` (a
+    :class:`~apex_tpu_torch.serving.tenancy.TenancyPolicy`) adds weighted
+    fair share, page quotas, priority preemption and SLOs; ``streams``
+    (True, or a :class:`~apex_tpu_torch.serving.streaming.StreamMux`)
+    delivers committed tokens per request at the end of every tick."""
 
     def __init__(self, engine: DecodeEngine, eos_id: int, *,
+                 max_retries: int = 3, max_queue: Optional[int] = None,
+                 watchdog_limit: int = 64, audit: bool = False,
                  chunk_tokens: Optional[int] = None,
-                 tick_token_budget: Optional[int] = None):
+                 tick_token_budget: Optional[int] = None,
+                 tenancy=None, streams=None):
         self.engine = engine
         self.eos_id = eos_id
+        self.max_retries = max_retries
+        self.max_queue = max_queue
+        self.watchdog_limit = watchdog_limit
+        self.audit = audit
         if chunk_tokens is not None:
             chunk_tokens = int(chunk_tokens)
             if chunk_tokens < 1:
@@ -1010,21 +1163,52 @@ class ContinuousBatchingScheduler:
         self._queue: deque = deque()
         self._slots: List[Optional[_Slot]] = [None] * engine.num_slots
         self._next_id = 0
+        self._retries: Dict[int, int] = {}
         self._submit_tick: Dict[int, int] = {}
         # tick-clock latency bookkeeping (RequestOutcome's ticks and,
         # when tracing, the TTFT and inter-token histograms)
         self._first_token_tick: Dict[int, int] = {}
         self._last_token_tick: Dict[int, int] = {}
-        # the ticks that ran prefill work for a request
+        # the ticks that ran prefill work for a request, across retries
         self._prefill_ticks: Dict[int, int] = {}
         self._tick_no = 0
         self._tokens_emitted = 0
         self.decode_steps = 0
+        # the progress watchdog's state, held here so a load generator
+        # can call step() directly
+        self._stalled = 0
+        self._watch_snap = None
         # adaptive controller: a slot's EWMA of its measured acceptance
         # (reset to 1.0 at admission); a slot converged to depth 0 gets
         # a probe draft every _probe_every ticks
         self._accept_ewma = [1.0] * engine.num_slots
         self._probe_every = 16
+        # tenancy front-end (serving.tenancy): admission selection,
+        # quotas, priority preemption, per-tenant SLOs; None keeps the
+        # untenanted FIFO path as it is. The quota ledger hangs under
+        # the engine's page pool, so the pool audit covers its books.
+        self.tenancy = tenancy
+        if tenancy is not None:
+            if tenancy.needs_quota and not getattr(engine, "paged", False):
+                raise ValueError(
+                    "tenant page quotas price KV pages: they need a "
+                    "paged engine (drop the quotas or use "
+                    "PagedDecodeEngine)")
+            pool = getattr(engine, "pool", None)
+            if pool is not None:
+                pool.ledger = tenancy.ledger
+        # per-token streaming (serving.streaming): True builds a
+        # StreamMux on the engine's injector, tracer and stats; a
+        # StreamMux passed in keeps the caller's sink; None stages
+        # nothing
+        if streams is True:
+            streams = StreamMux(injector=engine.injector,
+                                tracer=engine.tracer, stats=engine.stats)
+        self.streams = streams
+        self._req_tenant: Dict[int, str] = {}
+        # each request's worst inter-token gap (tenancy only: the ITL
+        # SLO check at finish)
+        self._max_itl: Dict[int, int] = {}
 
     @property
     def clock(self) -> int:
@@ -1036,12 +1220,19 @@ class ContinuousBatchingScheduler:
     def advance_clock(self, tick: int) -> None:
         """Fast-forward an idle scheduler's clock to ``tick`` (a no-op
         when already past it): a load generator jumps the quiet gaps
-        between arrivals instead of spinning empty ticks."""
+        between arrivals instead of spinning empty ticks through the
+        watchdog."""
         self._tick_no = max(self._tick_no, int(tick))
         if self.tracer.enabled:
             self.tracer.set_tick(self._tick_no)
 
     def submit(self, request: Request, at_tick: Optional[int] = None) -> int:
+        if self.max_queue is not None \
+                and len(self._queue) >= self.max_queue:
+            self.stats.admission_rejections += 1
+            raise AdmissionRejected(
+                f"admission queue is at its bound ({self.max_queue}); "
+                "shed load and retry after completions")
         if not len(request.prompt):
             raise ValueError("empty prompt")
         if len(request.prompt) > self.engine.max_len:
@@ -1056,33 +1247,88 @@ class ContinuousBatchingScheduler:
         self.engine.page_demand(
             len(request.prompt) + request.max_new_tokens
             + self.engine.spec_k)
+        ten = self.tenancy
+        if ten is not None:
+            if not ten.has(request.tenant_id):
+                raise ValueError(
+                    f"unknown tenant {request.tenant_id!r}: declare it "
+                    "in the TenancyPolicy before submitting under it")
+            # the quota's fail-fast: a request whose worst-case
+            # reservation can NEVER fit its tenant's quota is refused
+            # here, not deferred forever at admission
+            need = self._quota_need(request)
+            if not ten.fits_quota(request.tenant_id, need):
+                self.stats.quota_exhausted += 1
+                raise QuotaExhausted(
+                    f"request needs {need} pages worst-case but tenant "
+                    f"{request.tenant_id!r} is capped at "
+                    f"{ten.tenants[request.tenant_id].page_quota}",
+                    tenant=request.tenant_id, need=need,
+                    quota=ten.tenants[request.tenant_id].page_quota)
         rid = self._next_id
         self._next_id += 1
+        self._req_tenant[rid] = request.tenant_id
+        if ten is not None:
+            # idle -> backlogged: a returning tenant's vtime is clamped
+            # to the busy floor; one with work outstanding keeps its
+            # fair-share deficit
+            ten.note_enqueued(request.tenant_id)
+        if self.streams is not None:
+            self.streams.open(rid, request.tenant_id)
         # ``at_tick`` backdates an open-loop arrival: a charged forward
         # can move the clock PAST a request's arrival before the load
         # generator submits it, and the wait behind that forward must
-        # still count in its TTFT (or monolithic prefill would hide the
-        # head-of-line blocking chunked prefill is measured against)
+        # still count in its TTFT and its deadline (or monolithic
+        # prefill would hide the head-of-line blocking chunked prefill
+        # is measured against)
         self._submit_tick[rid] = self._tick_no if at_tick is None \
             else min(int(at_tick), self._tick_no)
         if self.tracer.enabled:
             self.tracer.instant("submitted", request_id=rid,
                                 prompt_len=len(request.prompt))
-        # (id, request, tokens committed before a preemption)
+        # (id, request, tokens committed before a preemption or a
+        # quarantine)
         self._queue.append((rid, request, []))
         return rid
 
-    def _finish(self, rid: int, tokens: Sequence[int], reason: str) -> None:
+    # -- typed termination ------------------------------------------------
+
+    def _finish(self, rid: int, tokens: Sequence[int], reason: str,
+                error=None) -> None:
         ttft = None
         if rid in self._first_token_tick:
-            ttft = self._first_token_tick[rid] - self._submit_tick[rid]
-        if self.tracer.enabled:
-            self.tracer.instant("finished", request_id=rid, reason=reason,
-                                ok=True)
+            ttft = (self._first_token_tick[rid]
+                    - self._submit_tick.get(rid, 0))
+        total = self._tick_no - self._submit_tick.get(rid, self._tick_no)
+        trc = self.tracer
+        if trc.enabled:
+            if error is not None:
+                trc.attach(error)       # ship the flight-recorder ring
+            trc.instant("finished", request_id=rid, reason=reason,
+                        ok=error is None)
+        tenant = self._req_tenant.get(rid, "default")
+        ten = self.tenancy
+        slo = None
+        if ten is not None:
+            # the one exit every request passes through: its quota
+            # reservation is credited here and only here
+            ten.credit(rid)
+            ten.note_finished(tenant)
+            slo = ten.slo_check(tenant, ttft, self._max_itl.get(rid))
+            if slo is not None:
+                self.stats.slo_violations += 1
+                if trc.enabled:
+                    trc.attach(slo)
+                    trc.instant("slo_violation", request_id=rid,
+                                tenant=tenant, metric=slo.metric,
+                                observed=slo.observed, bound=slo.bound)
+        if self.streams is not None:
+            self.streams.finish(rid, reason)
         self.outcomes[rid] = RequestOutcome(
-            tuple(int(t) for t in tokens), reason, ttft_ticks=ttft,
-            total_ticks=self._tick_no - self._submit_tick[rid],
-            prefill_ticks=self._prefill_ticks.get(rid))
+            tuple(int(t) for t in tokens), reason, error,
+            retries=self._retries.get(rid, 0), ttft_ticks=ttft,
+            total_ticks=total, prefill_ticks=self._prefill_ticks.get(rid),
+            tenant_id=tenant, slo=slo)
 
     def _charge_work(self, tokens: int) -> None:
         """Advance the clock by a prefill forward's sequential depth: a
@@ -1102,17 +1348,37 @@ class ContinuousBatchingScheduler:
     def _note_token(self, rid: int, slot: int) -> None:
         """A committed token's tick-clock bookkeeping: the first stamps
         TTFT, a later one the inter-token gap (tokens of one multi-token
-        speculative commit share a tick, so their gap is 0)."""
+        speculative commit share a tick, so their gap is 0). With
+        tenancy the token advances its tenant's stride clock; with
+        streams it is staged for the end-of-tick flush."""
         tick = self._tick_no
         trc = self.tracer
+        ten = self.tenancy
         if rid not in self._first_token_tick:
             self._first_token_tick[rid] = tick
             if trc.enabled:
                 trc.instant("first_token", request_id=rid, slot=slot)
-                trc.observe_ttft(tick - self._submit_tick[rid])
-        elif trc.enabled:
-            trc.observe_itl(tick - self._last_token_tick[rid])
+                trc.observe_ttft(tick - self._submit_tick.get(rid, tick))
+                if ten is not None:
+                    trc.observe_tenant_ttft(
+                        self._req_tenant.get(rid, "default"),
+                        tick - self._submit_tick.get(rid, tick))
+        else:
+            gap = tick - self._last_token_tick[rid]
+            if ten is not None and gap > self._max_itl.get(rid, 0):
+                self._max_itl[rid] = gap
+            if trc.enabled:
+                trc.observe_itl(gap)
+                if ten is not None:
+                    trc.observe_tenant_itl(
+                        self._req_tenant.get(rid, "default"), gap)
         self._last_token_tick[rid] = tick
+        if ten is not None:
+            # stride clock: a committed token advances the tenant's
+            # virtual time by 1 / weight
+            ten.charge_tokens(self._req_tenant.get(rid, "default"), 1)
+        if self.streams is not None:
+            self.streams.stage(rid, self._slots[slot].generated[-1])
 
     def _append(self, i: int, tok: int) -> None:
         slot = self._slots[i]
@@ -1120,37 +1386,185 @@ class ContinuousBatchingScheduler:
         self._tokens_emitted += 1
         self._note_token(slot.request_id, i)
 
-    def _commit(self, i: int, tok: int) -> None:
-        self._append(i, tok)
-        self._maybe_evict(i)
+    def _charge_retry(self, rid: int) -> bool:
+        """Consume one unit of ``rid``'s retry budget; True when the
+        budget is now exhausted (the caller must terminate it)."""
+        if self.tracer.enabled:
+            self.tracer.instant("retried", request_id=rid)
+        self.stats.retries += 1
+        n = self._retries.get(rid, 0) + 1
+        self._retries[rid] = n
+        return n > self.max_retries
 
-    def _check(self, finite: bool, tok: int, what: str) -> None:
-        vocab = self.engine.cfg.vocab_size
-        if not finite:
-            raise NonFiniteLogits(f"{what}: non-finite logits")
-        if not 0 <= tok < vocab:
-            raise NonFiniteLogits(
-                f"{what}: sampled token {tok} outside [0, {vocab})")
+    def _budget_error(self, rid: int, cause) -> RetryBudgetExhausted:
+        return RetryBudgetExhausted(
+            f"request {rid}: retry budget ({self.max_retries}) "
+            f"exhausted; last fault: {cause}", request_id=rid,
+            retries=self._retries.get(rid, 0))
 
-    def _first_token(self, logits: torch.Tensor, req: Request,
-                     rid: int) -> int:
-        """The first generated token, from the prefill's (or the final
-        chunk's) logits with the key ``fold_in(PRNGKey(seed), 0)``,
-        through both gates."""
-        finite = bool(self.engine.finite(logits).all())
-        key = prng.fold_in(prng.PRNGKey(req.seed), 0)
-        tok = int(self.engine.sample(logits, key[None],
-                                     [req.temperature])[0])
-        self._check(finite, tok, f"request {rid}: prefill")
-        return tok
+    def _quarantine(self, i: int, err: NonFiniteLogits) -> None:
+        """Free a slot whose tick output was corrupt; retry the request
+        from its committed tokens (requeued at the FRONT: the resumed
+        stream is the uncontended one) or, with the budget gone,
+        terminate it typed."""
+        s = self._slots[i]
+        if self.tracer.enabled:
+            self.tracer.instant("quarantined", request_id=s.request_id,
+                                slot=i, cause=str(err))
+        self._slots[i] = None
+        self.engine.free_slot(i)
+        rid = s.request_id
+        if self._charge_retry(rid):
+            self._finish(rid, s.generated, "retry_budget",
+                         self._budget_error(rid, err))
+        else:
+            self._queue.appendleft((rid, s.request, list(s.generated)))
+
+    def _quarantine_all(self, quarantined) -> None:
+        """Quarantine AFTER the healthy slots commit, requeueing at the
+        front in submission order (the preemption rule)."""
+        for i, err in sorted(quarantined,
+                             key=lambda t: self._slots[t[0]].request_id,
+                             reverse=True):
+            self._quarantine(i, err)
+
+    def _expire_deadlines(self) -> None:
+        def expired(req: Request, rid: int) -> bool:
+            return (req.deadline_ticks is not None
+                    and self._tick_no - self._submit_tick.get(rid, 0)
+                    >= req.deadline_ticks)
+
+        if any(expired(req, rid) for rid, req, _ in self._queue):
+            keep: deque = deque()
+            for rid, req, resume in self._queue:
+                if expired(req, rid):
+                    self.stats.deadline_expired += 1
+                    self._finish(rid, resume, "deadline", DeadlineExceeded(
+                        f"request {rid}: queued past its "
+                        f"{req.deadline_ticks}-tick deadline"))
+                else:
+                    keep.append((rid, req, resume))
+            self._queue = keep
+        for i, s in enumerate(self._slots):
+            if s is not None and expired(s.request, s.request_id):
+                self.stats.deadline_expired += 1
+                self._slots[i] = None
+                self.engine.free_slot(i)
+                self._finish(s.request_id, s.generated, "deadline",
+                             DeadlineExceeded(
+                                 f"request {s.request_id}: exceeded its "
+                                 f"{s.request.deadline_ticks}-tick "
+                                 "deadline mid-decode"))
+
+    # -- tenancy: selection, quotas, priority preemption ------------------
+
+    def _quota_need(self, req: Request) -> int:
+        """A request's worst-case page reservation: the pages holding
+        prompt + ``max_new_tokens`` + the verify step's spec_k
+        overshoot, capped at the cache row (the sizing ``page_demand``
+        prices at submit); 0 on a dense engine."""
+        eng = self.engine
+        page_size = getattr(eng, "page_size", None)
+        if page_size is None:
+            return 0
+        total = min(len(req.prompt) + req.max_new_tokens + eng.spec_k,
+                    eng.max_len)
+        return max_pages_per_slot(total, page_size)
+
+    def _best_queued(self):
+        """The best queued candidate under the tenancy policy: ``(key,
+        queue index, request)`` with the key ``(chargeable, priority
+        desc, vtime asc, tenant id, queue index)``."""
+        ten = self.tenancy
+        best = None
+        for idx, (rid, req, _resume) in enumerate(self._queue):
+            chargeable = ten.can_admit(rid, req.tenant_id,
+                                       self._quota_need(req))
+            k = ten.selection_key(req.tenant_id, chargeable) + (idx,)
+            if best is None or k < best[0]:
+                best = (k, idx, req)
+        return best
+
+    def _promote_next(self) -> bool:
+        """Tenancy admission selection: rotate the best queued candidate
+        to the queue FRONT (the head-pop admission then runs as it is),
+        keeping the others' order (FIFO within a tenant). False when
+        every candidate's tenant is quota-blocked: admission defers
+        until a completion credits pages back. Untenanted: strict FIFO
+        (always True)."""
+        if self.tenancy is None:
+            return True
+        key, best, _ = self._best_queued()
+        if key[0] == 1:          # even the best candidate is quota-blocked
+            self.stats.quota_deferrals += 1
+            return False
+        if best:
+            items = list(self._queue)
+            sel = items.pop(best)
+            self._queue.clear()
+            self._queue.append(sel)
+            self._queue.extend(items)
+        return True
+
+    def _charge_head_admission(self, rid: int, req: Request) -> None:
+        """Reserve the queue head's quota pages (idempotent: a preempted
+        request being re-admitted holds its reservation already) and
+        stamp the admitting tenant on the engine. Called only after
+        :meth:`_promote_next` returned True, so the charge cannot
+        fail."""
+        ten = self.tenancy
+        if ten is None:
+            return
+        ten.charge_admission(rid, req.tenant_id, self._quota_need(req))
+        self.engine.admission_tenant = req.tenant_id
+
+    def _preempt_for_priority(self) -> None:
+        """A strictly-higher-priority waiting tenant may requeue ONE
+        resident lower-priority slot a tick, through the requeue-resume
+        path pool pressure uses (committed tokens ride along), with no
+        retry charged: a capacity decision, not a fault. A free slot, or
+        a quota-blocked burst, preempts nobody."""
+        ten = self.tenancy
+        if ten is None or not self._queue:
+            return
+        if any(s is None for s in self._slots):
+            return
+        key, _, best = self._best_queued()
+        if key[0] == 1:
+            return
+        wait_prio = ten.priority(best.tenant_id)
+        victim = victim_key = None
+        for i, s in enumerate(self._slots):
+            rung = ten.priority(s.request.tenant_id)
+            if rung >= wait_prio:
+                continue            # only STRICTLY lower rungs
+            k = (rung, -s.request_id)   # lowest rung, then newest work
+            if victim_key is None or k < victim_key:
+                victim_key, victim = k, i
+        if victim is None:
+            return
+        s = self._slots[victim]
+        self.stats.tenant_preemptions += 1
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "preempted", request_id=s.request_id, slot=victim,
+                cause="tenant_priority",
+                tenant=self._req_tenant.get(s.request_id, "default"))
+        self._queue.appendleft((s.request_id, s.request,
+                                list(s.generated)))
+        self._slots[victim] = None
+        self.engine.free_slot(victim)
+
+    # -- admission --------------------------------------------------------
 
     def _pool_exhausted(self, rid: int, e: PoolExhausted) -> None:
         """Count a refused admission (the queue then waits in FIFO order
         for evictions), unless the pool cannot serve the head even with
-        every slot free: submit-time validation should have refused it,
-        and that raises."""
+        every slot free and no fault injector to blame: submit-time
+        validation should have refused it, and that raises."""
         self.stats.pool_exhausted += 1
-        if all(s is None for s in self._slots):
+        if all(s is None for s in self._slots) \
+                and not self.engine.injector.armed:
             err = PoolExhausted(
                 "page pool cannot admit the queue head even with every "
                 f"slot free (request {rid}) — submit-time validation "
@@ -1160,7 +1574,29 @@ class ContinuousBatchingScheduler:
                 self.tracer.attach(err)
             raise err from e
 
+    def _first_token(self, logits: torch.Tensor, req: Request, rid: int):
+        """The first generated token, from the prefill's (or the final
+        chunk's) logits with the key ``fold_in(PRNGKey(seed), 0)``,
+        through both gates; ``(token, None)``, or ``(None, error)`` when
+        a gate refused it (counted in ``nan_events`` or
+        ``bad_samples``)."""
+        eng = self.engine
+        if not bool(eng.finite(logits).all()):
+            self.stats.nan_events += 1
+            return None, NonFiniteLogits(
+                f"request {rid}: non-finite prefill logits")
+        key = prng.fold_in(prng.PRNGKey(req.seed), 0)
+        tok = int(eng.sample(logits, key[None], [req.temperature])[0])
+        if not 0 <= tok < eng.cfg.vocab_size:
+            self.stats.bad_samples += 1
+            return None, NonFiniteLogits(
+                f"request {rid}: first sampled token {tok} outside "
+                f"[0, {eng.cfg.vocab_size})")
+        return tok, None
+
     def _admit(self) -> None:
+        if self.tenancy is not None:
+            self._preempt_for_priority()
         if self.chunk_tokens is not None:
             self._admit_chunked()
             return
@@ -1168,7 +1604,10 @@ class ContinuousBatchingScheduler:
         for i in range(eng.num_slots):
             if self._slots[i] is not None or not self._queue:
                 continue
+            if not self._promote_next():
+                break
             rid, req, resume = self._queue[0]
+            self._charge_head_admission(rid, req)
             # a preempted request resumes by re-prefilling everything it
             # had produced EXCEPT its last token, which the next decode
             # tick feeds
@@ -1178,23 +1617,51 @@ class ContinuousBatchingScheduler:
             except PoolExhausted as e:
                 self._pool_exhausted(rid, e)
                 break
+            except InjectedFault as e:
+                # a transient exec failure; the engine rolled back its
+                # page references, the request stays at the queue front
+                if self._charge_retry(rid):
+                    self._queue.popleft()
+                    self._finish(rid, resume, "retry_budget",
+                                 self._budget_error(rid, e))
+                    continue
+                break
             self._prefill_ticks[rid] = self._prefill_ticks.get(rid, 0) + 1
             self._charge_work(len(tokens))
-            # the first generated token comes from the prefill logits; a
-            # resumed request has it already
-            first_tok = None if resume else self._first_token(logits, req,
-                                                               rid)
+            first_tok = None
+            if not resume:
+                # the first generated token comes from the prefill
+                # logits; a resumed request has it already
+                first_tok, err = self._first_token(logits, req, rid)
+                if err is not None:
+                    if self._fail_admission(i, rid, err):
+                        continue
+                    break
             self._queue.popleft()
+            slot = _Slot(rid, req, len(req.prompt), list(resume),
+                         len(tokens))
             if self.tracer.enabled:
                 self.tracer.instant("admitted", request_id=rid, slot=i,
                                     resumed=bool(resume))
-            self._slots[i] = _Slot(rid, req, len(req.prompt), list(resume),
-                                   len(tokens))
+            self._slots[i] = slot
+            if first_tok is not None:
+                self._append(i, first_tok)
             self._accept_ewma[i] = 1.0
-            if first_tok is None:
-                self._maybe_evict(i)
-            else:
-                self._commit(i, first_tok)
+            self._maybe_evict(i)
+
+    def _fail_admission(self, i: int, rid: int, err) -> bool:
+        """Roll back a corrupt admission (slot freed, retry charged).
+        True when the request terminated (budget gone) and the caller
+        moves on; False when it should back off and retry later."""
+        self.engine.free_slot(i)
+        if self._charge_retry(rid):
+            self._queue.popleft()
+            # only fresh admissions sample a first token: nothing
+            # committed to carry into the outcome
+            self._finish(rid, (), "retry_budget",
+                         self._budget_error(rid, err))
+            return True
+        return False
 
     def _admit_chunked(self) -> None:
         """Chunked admission: claim a free slot and STAGE the prefill
@@ -1204,7 +1671,10 @@ class ContinuousBatchingScheduler:
         for i in range(eng.num_slots):
             if self._slots[i] is not None or not self._queue:
                 continue
+            if not self._promote_next():
+                break
             rid, req, resume = self._queue[0]
+            self._charge_head_admission(rid, req)
             tokens = tuple(req.prompt) + tuple(resume[:-1])
             try:
                 state = eng.begin_chunk_prefill(i, tokens)
@@ -1228,6 +1698,22 @@ class ContinuousBatchingScheduler:
         (possibly in-flight chunked) prefill."""
         return s is not None and s.prefill is None
 
+    def _fail_prefill(self, i: int, err) -> None:
+        """A chunk faulted or the completed prefill's first token was
+        corrupt: free the slot (releasing every staged page), charge the
+        retry budget, and requeue at the FRONT with any committed
+        progress; the retried prefill restarts from the prompt's
+        start."""
+        s = self._slots[i]
+        self._slots[i] = None
+        self.engine.free_slot(i)
+        rid = s.request_id
+        if self._charge_retry(rid):
+            self._finish(rid, s.generated, "retry_budget",
+                         self._budget_error(rid, err))
+        else:
+            self._queue.appendleft((rid, s.request, list(s.generated)))
+
     def _finish_prefill(self, i: int, logits: torch.Tensor) -> None:
         """The final chunk just ran: register the prefix, then sample the
         first token from the chunk's logits with the monolithic path's
@@ -1235,43 +1721,82 @@ class ContinuousBatchingScheduler:
         s = self._slots[i]
         self.engine.finish_chunk_prefill(i, s.prefill.state)
         s.prefill = None
-        if s.generated:         # resumed: its first token exists
-            self._maybe_evict(i)
-        else:
-            self._commit(i, self._first_token(logits, s.request,
-                                              s.request_id))
+        if not s.generated:     # a resumed request has its first token
+            tok, err = self._first_token(logits, s.request, s.request_id)
+            if err is not None:
+                self._fail_prefill(i, err)
+                return
+            self._append(i, tok)
+        self._maybe_evict(i)
 
     def _prefill_phase(self, spent: int) -> None:
         """Run prompt chunks with the token budget the decode phase left
         (at least one chunk a tick, so a full decode batch cannot starve
-        admission). The prefilling slots are taken in the reference's
-        order, earliest deadline first with the request id as the
-        tiebreak; with no deadlines or tenancy in this port that is the
-        request id. They are round-robined one chunk at a time; each
-        chunk counts ``prefill_chunks`` and charges the clock its
-        length."""
+        admission). The prefilling slots are taken earliest deadline
+        first with the request id as the tiebreak (with tenancy: the
+        priority rung, then the tenant's vtime, first) and round-robined
+        one chunk at a time; each chunk counts ``prefill_chunks``,
+        charges the clock its length and, with tenancy, its tenant's
+        stride clock. Tenancy also throttles: a tenant whose vtime ran
+        more than one chunk stride past the busy floor (the least vtime
+        among resident tenants) defers its chunk this tick
+        (``chunk_deferrals``); the floor tenant always qualifies."""
         if not any(s is not None and s.prefill is not None
                    for s in self._slots):
             return
+        eng = self.engine
+        ten = self.tenancy
         budget = max(self.tick_token_budget - spent, 0)
         n_chunks = max(budget // self.chunk_tokens, 1)
+
+        def key(i):
+            s = self._slots[i]
+            dl = s.request.deadline_ticks
+            abs_dl = (self._submit_tick.get(s.request_id, 0) + dl
+                      if dl is not None else float("inf"))
+            if ten is not None:
+                t = s.request.tenant_id
+                return (-ten.priority(t), ten.vtime(t), abs_dl,
+                        s.request_id)
+            return (abs_dl, s.request_id)
+
         order = deque(sorted(
             (i for i, s in enumerate(self._slots)
-             if s is not None and s.prefill is not None),
-            key=lambda i: self._slots[i].request_id))
+             if s is not None and s.prefill is not None), key=key))
+        floor = None
+        if ten is not None:
+            for s in self._slots:
+                if s is not None:
+                    v = ten.vtime(s.request.tenant_id)
+                    if floor is None or v < floor:
+                        floor = v
         progressed = set()
         while n_chunks > 0 and order:
             i = order.popleft()
             s = self._slots[i]
+            if ten is not None:
+                t = s.request.tenant_id
+                if ten.vtime(t) > floor + self.chunk_tokens \
+                        / ten.tenants[t].weight:
+                    # over its share this interval: out of this tick's
+                    # rotation only
+                    self.stats.chunk_deferrals += 1
+                    continue
             p = s.prefill
             n_chunks -= 1
             chunk = p.tokens[p.next:p.next + self.chunk_tokens]
             final = p.next + self.chunk_tokens >= len(p.tokens)
-            logits = self.engine.chunk_prefill(i, chunk, p.next, p.state,
-                                               self.chunk_tokens, final)
+            try:
+                logits = eng.chunk_prefill(i, chunk, p.next, p.state,
+                                           self.chunk_tokens, final)
+            except InjectedFault as e:
+                self._fail_prefill(i, e)
+                continue
             self.stats.prefill_chunks += 1
             progressed.add(s.request_id)
             self._charge_work(len(chunk))
+            if ten is not None:
+                ten.charge_tokens(s.request.tenant_id, len(chunk))
             if final:
                 self._finish_prefill(i, logits)
             else:
@@ -1321,27 +1846,47 @@ class ContinuousBatchingScheduler:
                 if s is not None and ks[i] > 0 else None
                 for i, s in enumerate(self._slots)]
 
+    def _ngram_or_empty(self, history) -> List[int]:
+        """One slot's n-gram draft; a fired ``draft_exec`` site degrades
+        it to an empty draft (plain pace, no retry charged)."""
+        try:
+            return self.engine.draft(history)
+        except InjectedFault:
+            self.stats.draft_faults += 1
+            return []
+
     def _draft_all(self, ks: List[int]) -> List[List[int]]:
         """One linear draft a slot, up to ``ks[i]`` tokens deep (empty
-        for free and depth-0 slots)."""
+        for free and depth-0 slots, and for a fired ``draft_exec`` site;
+        a model drafter walks its ladder in ``draft_batch``)."""
         eng = self.engine
         hists = self._histories(ks)
         if eng.draft_model is not None:
-            return eng.draft_batch(hists, ks)
-        return [[] if h is None else [int(t) for t in eng.draft(h)[:ks[i]]]
+            try:
+                return eng.draft_batch(hists, ks)
+            except InjectedFault:
+                self.stats.draft_faults += 1
+                return [[] for _ in self._slots]
+        return [[] if h is None else
+                [int(t) for t in self._ngram_or_empty(h)[:ks[i]]]
                 for i, h in enumerate(hists)]
 
     def _draft_trees(self, ks: List[int]):
-        """One draft tree a slot (``None`` for free and depth-0 slots):
-        the model drafter's chain plus alternate root child, or the
-        n-gram draft as a single chain."""
+        """One draft tree a slot (``None`` for free and depth-0 slots and
+        fault-degraded ticks): the model drafter's chain plus alternate
+        root child, or the n-gram draft as a single chain."""
         eng = self.engine
         hists = self._histories(ks)
         if eng.draft_model is not None:
-            return eng.draft_tree_batch(hists, ks)
+            try:
+                return eng.draft_tree_batch(hists, ks)
+            except InjectedFault:
+                self.stats.draft_faults += 1
+                return [None] * eng.num_slots
         trees = []
         for i, h in enumerate(hists):
-            d = [] if h is None else [int(t) for t in eng.draft(h)[:ks[i]]]
+            d = [] if h is None else \
+                [int(t) for t in self._ngram_or_empty(h)[:ks[i]]]
             trees.append((d, [-1] + list(range(len(d) - 1))) if d else None)
         return trees
 
@@ -1381,6 +1926,23 @@ class ContinuousBatchingScheduler:
                                     list(s.generated)))
             self._slots[i] = None
         return preempted
+
+    def _gate(self, i: int, finite: bool, tok: int, what: str):
+        """The always-on production gates of a committed position: a
+        ``NonFiniteLogits`` (counted in ``nan_events`` or
+        ``bad_samples``) when the logits row is not finite or the
+        sampled id lies outside the vocabulary, else None."""
+        rid = self._slots[i].request_id
+        if not finite:
+            self.stats.nan_events += 1
+            return NonFiniteLogits(f"slot {i} (request {rid}): non-finite "
+                                   f"{what} logits")
+        vocab = self.engine.cfg.vocab_size
+        if not 0 <= tok < vocab:
+            self.stats.bad_samples += 1
+            return NonFiniteLogits(f"slot {i} (request {rid}): sampled "
+                                   f"token {tok} outside [0, {vocab})")
+        return None
 
     def _tick(self) -> None:
         spent = self._decode_phase()
@@ -1444,15 +2006,18 @@ class ContinuousBatchingScheduler:
         if trc.enabled:
             trc.end("accept")
             trc.begin("commit")
+        quarantined = []
         for i in occupied:
-            self._check(finite[i], next_tokens[i],
-                        f"slot {i} (request {self._slots[i].request_id})"
-                        ": decode")
-        for i in occupied:
+            err = self._gate(i, finite[i], next_tokens[i], "decode")
+            if err is not None:
+                quarantined.append((i, err))
+                continue
             self._slots[i].pos += 1
-            self._commit(i, next_tokens[i])
+            self._append(i, next_tokens[i])
+            self._maybe_evict(i)
         if trc.enabled:
             trc.end("commit")
+        self._quarantine_all(quarantined)
         return len(occupied)
 
     def _spec_tick(self, drafts: List[List[int]], k1: int) -> None:
@@ -1461,9 +2026,9 @@ class ContinuousBatchingScheduler:
         longest prefix of grid samples reproducing the drafts plus the
         first non-matching sample (1..k1 tokens a slot). Position j
         samples with ``fold_in(seed, n_generated + j)``, the plain
-        stream's key, so the committed stream is the plain one. Every
-        committed position passes the finiteness and vocabulary gates
-        before anything of the tick is committed."""
+        stream's key, so the committed stream is the plain one. The
+        gates run on each committed position; a slot that fails one is
+        quarantined, keeping the positions committed before it."""
         eng = self.engine
         trc = self.tracer
         self.stats.spec_ticks += 1
@@ -1481,25 +2046,30 @@ class ContinuousBatchingScheduler:
             trc.begin("accept")
         finite = eng.finite(logits).tolist()                 # (B, k1)
         grid = eng.sample_grid(logits, keys, self._temps()).tolist()
-        walks: Dict[int, List[int]] = {}
+        counts = [0] * eng.num_slots
+        quarantined = []
         for i, slot in enumerate(self._slots):
             if not self._decoding(slot):
                 continue
             draft = drafts[i]
-            walk: List[int] = []
-            accepted = 0
+            committed = accepted = 0
             for j in range(k1):
+                # the gates run per committed position only: the grid's
+                # tail past the walk conditions on rejected drafts
                 tok = grid[i][j]
-                self._check(finite[i][j], tok,
-                            f"slot {i} (request {slot.request_id}): "
-                            "verify")
-                walk.append(tok)
+                err = self._gate(i, finite[i][j], tok, "verify")
+                if err is not None:
+                    quarantined.append((i, err))
+                    break
+                slot.pos += 1
+                self._append(i, tok)
+                committed += 1
                 matched = j < len(draft) and draft[j] == tok
                 accepted += matched
-                if tok == self.eos_id or len(slot.generated) + len(walk) \
+                if tok == self.eos_id or len(slot.generated) \
                         >= slot.request.max_new_tokens or not matched:
                     break
-            walks[i] = walk
+            counts[i] = committed
             self.stats.tokens_drafted += len(draft)
             self.stats.tokens_accepted += accepted
             if trc.enabled and draft:
@@ -1507,20 +2077,19 @@ class ContinuousBatchingScheduler:
             if eng.adaptive_spec and draft:
                 self._accept_ewma[i] = 0.5 * self._accept_ewma[i] \
                     + 0.5 * accepted / len(draft)
-        counts = [0] * eng.num_slots
-        for i, walk in walks.items():
-            for tok in walk:
-                self._append(i, tok)
-            self._slots[i].pos += len(walk)
-            counts[i] = len(walk)
         if trc.enabled:
             trc.end("accept", committed=sum(counts))
         eng.commit(counts)
         # a tick that commits m tokens counts m on the clock
         if max(counts) > 1:
             self._tick_no += max(counts) - 1
-        for i in walks:
-            self._maybe_evict(i)
+        qset = {i for i, _ in quarantined}
+        for i, slot in enumerate(self._slots):
+            if slot is not None and i not in qset and counts[i]:
+                self._maybe_evict(i)
+        # a quarantined slot keeps its committed (plain-stream) tokens:
+        # the requeue resumes from them
+        self._quarantine_all(quarantined)
 
     def _tree_tick(self, positions: Dict[int, int]) -> Optional[int]:
         """Tree-speculative tick: pack every slot's FORCED chain (the
@@ -1602,8 +2171,9 @@ class ContinuousBatchingScheduler:
             torch.from_numpy(val_np), torch.from_numpy(start_np))
         cnts, path = cnts.tolist(), path.tolist()
         finite, grid = finite.tolist(), grid.tolist()
-        plans: Dict[int, Tuple[int, List[int]]] = {}
+        counts = [0] * eng.num_slots          # cache ROWS to commit
         new_tok_max = 0
+        quarantined = []
         for i, slot in enumerate(self._slots):
             if not self._decoding(slot):
                 continue
@@ -1611,30 +2181,35 @@ class ContinuousBatchingScheduler:
             if f < len(forced[i]):
                 # catch-up only: the truncated chain's rows commit,
                 # nothing is sampled for this slot this tick
-                plans[i] = (f, [])
+                counts[i] = f
+                slot.pos += f
                 continue
             nodes = len(g_trees[i][0]) if g_trees[i] is not None else 0
-            walk: List[int] = []
-            accepted = g = 0
+            committed = accepted = g = 0
+            bad = None
             for v in range(cnts[i]):
                 col = path[i][v]
+                # the gates run per VISITED node only: unvisited columns
+                # condition on rejected branches
                 tok = grid[i][col]
-                self._check(finite[i][col], tok,
-                            f"slot {i} (request {slot.request_id}): "
-                            "tree verify")
-                walk.append(tok)
+                bad = self._gate(i, finite[i][col], tok, "tree-verify")
+                if bad is not None:
+                    break
+                self._append(i, tok)
+                committed += 1
                 if v:
                     accepted += 1
                     if g == v - 1 and col == f - 1 + v:
                         g += 1    # the walk stayed on the leftmost chain
-                if tok == self.eos_id or len(slot.generated) + len(walk) \
+                if tok == self.eos_id or len(slot.generated) \
                         >= slot.request.max_new_tokens:
                     break
             # rows: the forced chain plus the contiguous accepted run
             # (the last committed sample has no row yet: it is the next
             # pending token, as in the linear walk)
-            plans[i] = (f + g, walk)
-            new_tok_max = max(new_tok_max, len(walk))
+            counts[i] = f + g
+            slot.pos += f + g
+            new_tok_max = max(new_tok_max, committed)
             self.stats.tokens_drafted += nodes
             self.stats.tokens_accepted += accepted
             if trc.enabled and nodes:
@@ -1642,22 +2217,37 @@ class ContinuousBatchingScheduler:
             if eng.adaptive_spec and nodes:
                 self._accept_ewma[i] = 0.5 * self._accept_ewma[i] \
                     + 0.5 * accepted / nodes
-        counts = [0] * eng.num_slots
-        for i, (rows, walk) in plans.items():
-            for tok in walk:
-                self._append(i, tok)
-            self._slots[i].pos += rows
-            counts[i] = rows
+            if bad is not None:
+                quarantined.append((i, bad))
         if trc.enabled:
             trc.end("accept", committed=sum(counts))
         eng.commit(counts)
         self.stats.spec_ticks += 1
         if new_tok_max > 1:
             self._tick_no += new_tok_max - 1
-        for i, (rows, _) in plans.items():
-            if rows:
+        qset = {i for i, _ in quarantined}
+        for i, slot in enumerate(self._slots):
+            if slot is not None and i not in qset and counts[i]:
                 self._maybe_evict(i)
+        self._quarantine_all(quarantined)
         return k1 * len(forced)
+
+    # -- drive loop -------------------------------------------------------
+
+    def _raise_livelock(self, stalled: int) -> None:
+        stuck = {"queued": [rid for rid, _, _ in self._queue],
+                 "slots": {i: s.request_id
+                           for i, s in enumerate(self._slots)
+                           if s is not None}}
+        err = LivelockError(
+            f"no progress (token committed, request terminated, or "
+            f"retry consumed) in {stalled} consecutive scheduler "
+            f"ticks; stuck requests: queued={stuck['queued']} "
+            f"slots={stuck['slots']}; pool={self.engine.pool_snapshot()}",
+            stuck=stuck, pool=self.engine.pool_snapshot())
+        if self.tracer.enabled:
+            self.tracer.attach(err)     # the stuck slots' last events
+        raise err
 
     @property
     def busy(self) -> bool:
@@ -1665,25 +2255,49 @@ class ContinuousBatchingScheduler:
         return bool(self._queue) or any(s is not None for s in self._slots)
 
     def step(self) -> None:
-        """One scheduler tick: admit into free slots, decode (or
-        verify), and with chunked prefill on run prompt chunks with the
-        budget the decode phase left. Public, so an open-loop load
-        generator can interleave ``submit`` calls with ticks; :meth:`run`
-        is the drain loop over it."""
+        """One scheduler tick: expire deadlines, admit into free slots,
+        decode (or verify), and with chunked prefill on run prompt
+        chunks with the budget the decode phase left; then flush the
+        streams, audit the pool (``audit``) and feed the progress
+        watchdog. Public, so an open-loop load generator can interleave
+        ``submit`` calls with ticks; :meth:`run` is the drain loop over
+        it. A chunk forward counts as progress, with tokens,
+        completions and retries."""
         trc = self.tracer
         self._tick_no += 1
         if trc.enabled:
             trc.set_tick(self._tick_no)
         before = self._tokens_emitted
+        self._expire_deadlines()
         self._admit()
         self._tick()
+        if self.streams is not None:
+            # end-of-tick delivery: each stream gets the tokens this tick
+            # committed for it, one stream_emit draw a delivering stream
+            self.streams.flush()
         if trc.enabled:
             trc.tick_metrics(self._tokens_emitted - before,
                              len(self._queue), self.engine.pool_gauges())
+            if self.tenancy is not None:
+                trc.tenant_gauges(self.tenancy.gauge_snapshot())
+        if self.audit:
+            self.engine.check_invariants()
+        snap = (self._tokens_emitted, len(self.outcomes),
+                self.stats.retries, self.stats.prefill_chunks)
+        if snap == self._watch_snap:
+            self._stalled += 1
+            if self._stalled >= self.watchdog_limit:
+                self._raise_livelock(self._stalled)
+        else:
+            self._stalled, self._watch_snap = 0, snap
 
     def run(self) -> List[List[int]]:
         """Drain the queue; returns generated tokens (EOS included when
-        emitted) per request, in submission order."""
+        emitted) per request, in submission order. Typed outcomes —
+        degraded ones too, whose tokens are a prefix of the fault-free
+        stream — are in ``self.outcomes``. Raises :class:`LivelockError`
+        after ``watchdog_limit`` ticks without progress instead of
+        spinning."""
         while self.busy:
             self.step()
         return [list(self.outcomes[rid].tokens)

@@ -130,19 +130,22 @@ def attention_probs(q, k, mask, *, causal: bool, scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax probabilities (b, h, s_q, s_k) fp32 from fp32 scores (q
     and k upcast), 0 where masked and on fully masked rows, and the
-    base-2 logsumexp (b*h, s_q), +inf on fully masked rows."""
+    base-2 logsumexp (b*h, s_q), +inf on fully masked rows. The scores
+    are normalised by ``torch.softmax`` with the masked ones at -1e30,
+    as the serving caches' attentions normalise theirs
+    (``models.gpt._cache_attention``, the paged plain versions): a
+    masked key adds an exact 0, so a prompt's last row has the same
+    bits in a one-shot prefill as in its final chunk."""
     b, h, sq, _ = q.shape
     dev = q.device
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     valid = _valid(q, k, mask, causal)
     s = torch.where(valid, s, torch.full((), _NEG, device=dev))
-    m = s.amax(-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), torch.zeros((), device=dev))
-    l = p.sum(-1, keepdim=True)
-    p = torch.where(l > 0, p / torch.where(l > 0, l, torch.ones_like(l)),
+    live = valid.any(-1)
+    p = torch.where(live[..., None], torch.softmax(s, dim=-1),
                     torch.zeros((), device=dev))
-    lse = torch.where(l[..., 0] > 0, (m[..., 0] + torch.log(l[..., 0]))
-                      * LOG2E, torch.full((), math.inf, device=dev))
+    lse = torch.where(live, torch.logsumexp(s, dim=-1) * LOG2E,
+                      torch.full((), math.inf, device=dev))
     return p, lse.reshape(b * h, sq)
 
 

@@ -241,12 +241,11 @@ def visible(pos: torch.Tensor, k1: int, s_len: int,
 
 def _probs(q, kg, vis, softmax_scale):
     """The plain version's fp32 probabilities (b, nh, k1, S): scores
-    divided by sqrt(hd) (or times ``softmax_scale``), ``finfo.min``
-    where a query cannot see the row, softmax."""
-    hd = q.shape[-1]
-    scores = torch.matmul(q.float(), kg.transpose(-1, -2))
-    scores = scores / math.sqrt(hd) if softmax_scale is None \
-        else scores * softmax_scale
+    times 1/sqrt(hd) (or ``softmax_scale``; the prefill's scale, so an
+    fp32 chunk's rows are a one-shot prefill's), ``finfo.min`` where a
+    query cannot see the row, softmax."""
+    scores = torch.matmul(q.float(), kg.transpose(-1, -2)) \
+        * _scale(q.shape[-1], softmax_scale)
     scores = torch.where(vis[:, None], scores,
                          torch.finfo(torch.float32).min)
     return torch.softmax(scores, dim=-1)

@@ -255,6 +255,31 @@ Phases, each printed as it runs; any failure exits non-zero:
    its bound, SDPA on the gathered K/V, the kernel without its split
    walk and the verify kernel's route the chunk took before.
 
+13. the serving fault tier — ``serving_chaos``: the ``serving_paged``
+   engine (GPT-2 medium O2 bf16, 8 slots, max_len 1024, pages of 64,
+   EOS -1, 32 new tokens) with a ``FaultInjector``, an enabled
+   ``Tracer`` and ``audit=True`` in every run, each configuration's
+   fault-free run in this process its golden: (a) the prefix mix, half
+   sampled, under a pinned schedule with a fault at each single-engine
+   site (``pool_alloc``, ``cow_clone``, ``prefill_exec`` — four in a row
+   end one request as ``retry_budget`` —, ``decode_exec``, ``sample``),
+   on the bf16 pool and again on an fp32 pool; (b) chunked at 256,
+   ``chunk_prefill_exec`` once mid-prompt and once on a final chunk;
+   (c) n-gram speculation with ``draft_exec`` firing; (d) the tiered
+   int8 pool with ``host_spill`` and ``host_promote`` firing; (e) three
+   tenants with quotas, priorities, weights and an ITL SLO, streams on,
+   ``stream_emit`` at 0.02; (f) a queued and a mid-decode request cut by
+   ``deadline_ticks`` and a submit past ``max_queue``; (g) (a) again.
+   Held: every outcome's reason in ``FINISH_REASONS``, degraded streams
+   golden prefixes, every request no fault touched equal to its golden
+   stream (every request on the fp32 pool and in (b) and (d)), each
+   pinned site fired and its counter moved, the pool whole after each
+   run (nothing leaked, the quota charge 0), (e)'s deliveries strict
+   prefixes of the committed tokens, the replay identical (streams,
+   outcomes, counters, tick stream), exact launches in (a) and (f). The
+   touched requests' tokens equal to golden and the margins where they
+   part are printed, with each run's wall time and tokens/s.
+
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
 card's name and power limit, and last ``{"ok": true, "device":
@@ -314,6 +339,20 @@ def kernel_modules():
             importlib.import_module("apex_tpu_torch.utils.prng"),
             importlib.import_module(
                 "apex_tpu_torch.transformer.functional.paged_attention"))
+
+
+def kernel_counters():
+    """Each kernel's launch counter (``Kernel.launches``) by its name in
+    :data:`KERNEL_NAMES`."""
+    ln, fa, xent, fsm, mta, w8, prng, pa = kernel_modules()
+    return dict(zip(KERNEL_NAMES, (
+        ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
+        xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
+        fsm.SOFTMAX_BWD, mta.FLAT_ADAM, mta.FLAT_SCALE, mta.FLAT_AXPBY,
+        mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1, w8.W8_MATMUL_NOBIAS,
+        w8.W8_MATMUL, w8.W8_MATMUL_NK, mta.FLAT_SGD, mta.FLAT_ADAGRAD,
+        mta.FLAT_NOVOGRAD, prng.THREEFRY_BITS, prng.THREEFRY_DROPOUT,
+        pa.PAGED_DECODE, pa.PAGED_VERIFY, pa.PAGED_CHUNK)))
 
 
 def check(ok, msg):
@@ -5251,6 +5290,561 @@ def chunk_times(dev):
     return res
 
 
+# -- the serving fault tier ------------------------------------------------
+
+# (a)'s pinned schedule, one fault (or a run of them) at each single-engine
+# site: an allocation refused during the first admissions; the first
+# copy-on-write clone (a request's first decode tick); the first prefill and
+# four in a row later (the head request then exhausts max_retries = 3); one
+# decode tick's NaN row; one bad first token
+CHAOS_PINNED = {"pool_alloc": (5,), "cow_clone": (0,),
+                "prefill_exec": (0, 3, 4, 5, 6), "decode_exec": (10,),
+                "sample": (1,)}
+# the ServingStats counter each fired site moves
+SITE_COUNTERS = {"pool_alloc": "pool_exhausted", "cow_clone": "preemptions",
+                 "prefill_exec": "retries", "chunk_prefill_exec": "retries",
+                 "decode_exec": "nan_events", "sample": "bad_samples",
+                 "draft_exec": "draft_faults",
+                 "host_spill": "host_spill_failures",
+                 "host_promote": "host_promote_failures",
+                 "stream_emit": "stream_failures"}
+CHAOS_TIER_REQUESTS = 8    # the tiered mix's first 8: each prefix twice
+CHAOS_GOLD_STEP = 3        # (e): the gold tenant's requests arrive then
+# serving_paged's reading, the same mix on the same engine, before the
+# engines carried fault sites (PERF.md section 6)
+PAGED_BEFORE_FAULTS = ("413.4 tokens/s (1.238 s wall) before the fault "
+                       "sites, NVIDIA H100 80GB HBM3, 700.00 W")
+# the kernels the phase's paths launch (every other kernel stays at 0)
+CHAOS_KERNELS = ("layer_norm_fwd", "flash_attention_fwd", "threefry_bits",
+                 "paged_decode_attention", "paged_verify_attention",
+                 "paged_chunk_attention")
+
+
+def decision_scores(row, temp, key):
+    """The sampler's scores of a logits row: the row (greedy), else
+    row / T plus the key's Gumbel noise (``prng.categorical_rows``);
+    ``examples/gpt/stream_ab.py`` reads its margins with it too."""
+    from apex_tpu_torch.utils import prng
+
+    if temp <= 0:
+        return row
+    return prng.gumbel_rows(key[None], row.shape[-1], row.device)[0] \
+        + row / max(temp, 1e-6)
+
+
+def capture_rows(eng, sched):
+    """Keep every committed token's logits row with its temperature and
+    key, under (request id, token index): wrappers on the engine's
+    samplers and the scheduler's commit (``examples/gpt/stream_ab.py``
+    captures its runs' rows with it too). Returns the dict, filled as
+    the scheduler runs."""
+    last, rows = {}, {}
+    sample, grid, append = eng.sample, eng.sample_grid, sched._append
+
+    def sampling(fn, is_grid):
+        def run(logits, keys, temperature):
+            last.update(logits=logits, keys=torch.as_tensor(keys),
+                        temps=list(temperature), grid=is_grid, used={})
+            return fn(logits, keys, temperature)
+        return run
+
+    def appending(i, tok):
+        slot = sched._slots[i]
+        if last["grid"]:
+            j = last["used"].get(i, 0)
+            last["used"][i] = j + 1
+            at = (i, j)
+        else:
+            at = (i if last["logits"].shape[0] > 1 else 0,)
+        rows[(slot.request_id, len(slot.generated))] = (
+            last["logits"][at].float().clone(), float(last["temps"][at[0]]),
+            last["keys"][at].clone())
+        append(i, tok)
+
+    eng.sample = sampling(sample, False)
+    eng.sample_grid = sampling(grid, True)
+    sched._append = appending
+    return rows
+
+
+def _pool_whole(eng, sched, label):
+    """After a run: the audit holds, no slot holds a page, every page is
+    free or the prefix registry's alone (no reference leaked), and a
+    tenancy ledger's charge is back to 0."""
+    check(eng.check_invariants(), f"{label}: check_invariants() at the end")
+    snap = eng.pool.snapshot()
+    charged = sched.tenancy.charged_total() if sched.tenancy else 0
+    check(all(not p for p in eng._slot_pages)
+          and all(n == 1 for n in snap["refcounts"].values())
+          and len(snap["refcounts"]) == snap["num_cached"]
+          and eng.pool.num_free + eng.pool.num_cached == eng.pool.num_usable
+          and charged == 0,
+          f"{label}: no page leaked ({eng.pool.num_free} free + "
+          f"{eng.pool.num_cached} the registry's alone = "
+          f"{eng.pool.num_usable} usable), quota charge {charged}")
+
+
+def chaos_run(dev, cfg, params, kern, prompts, temps, label, faults=None,
+              capture=False, submit=None, arrivals=(), engine_kw=None,
+              **sched_kw):
+    """One run of the ``serving_chaos`` phase on ``serving_paged``'s
+    engine (8 slots, max_len 1024, pages of 64, bf16 pool unless
+    ``engine_kw`` says otherwise) with an enabled ``Tracer``, ``audit=True``
+    and a ``FaultInjector(**faults)`` (inert without). The prompts are
+    submitted with their temperatures (seed = index), or ``submit(sched)``
+    submits; ``arrivals`` ((step, request) pairs) are submitted as the
+    drain reaches their step. Every kernel's count is set to 0 just
+    before the drain and read just after; every fired draw is logged with the clock and the
+    resident requests; ``capture`` keeps each committed token's logits
+    row. The pool is audited whole at the end."""
+    from apex_tpu_torch.serving import (
+        ContinuousBatchingScheduler, FaultInjector, PagedDecodeEngine,
+        Request, Tracer,
+    )
+
+    kw = dict(num_slots=NUM_SLOTS, num_pages=PAGED_POOL, page_size=PAGE,
+              cache_dtype=torch.bfloat16)
+    kw.update(engine_kw or {})
+    eng = PagedDecodeEngine(params, cfg, max_len=MAX_LEN, buckets=BUCKETS,
+                            injector=FaultInjector(**faults) if faults
+                            else None, tracer=Tracer(), device=dev, **kw)
+    sched = ContinuousBatchingScheduler(eng, eos_id=-1, audit=True,
+                                        **sched_kw)
+    fired = []
+    draw = eng.injector.draw
+
+    def logged(site):
+        hit = draw(site)
+        if hit[0]:
+            fired.append((site, sched.clock, sorted(
+                s.request_id for s in sched._slots if s is not None)))
+        return hit
+
+    eng.injector.draw = logged
+    rows = capture_rows(eng, sched) if capture else None
+    if submit is None:
+        for i, p in enumerate(prompts):
+            sched.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS,
+                                 temperature=temps[i] if temps else 0.0,
+                                 seed=i))
+    else:
+        submit(sched)
+    torch.cuda.synchronize()
+    for k in kern.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    pending = sorted(arrivals, key=lambda a: a[0])
+    steps = 0
+    while pending or sched.busy:
+        while pending and pending[0][0] <= steps:
+            sched.submit(pending.pop(0)[1])
+        sched.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kern.items()}
+    _pool_whole(eng, sched, label)
+    outs = [sched.outcomes[rid] for rid in sorted(sched.outcomes)]
+    n_tok = sum(len(o.tokens) for o in outs)
+    print(f"{label}: {len(outs)} requests, {n_tok} tokens in {wall:.3f} s "
+          f"wall: {n_tok / wall:.1f} tokens/s (prefill included); faults "
+          f"fired {({s: c for s, c in eng.injector.counts.items() if c})}",
+          flush=True)
+    return dict(sched=sched, eng=eng, outs=outs,
+                streams=[list(o.tokens) for o in outs], rows=rows,
+                fired=fired, launches=launches, wall_s=wall, tokens=n_tok,
+                tokens_per_s=n_tok / wall,
+                prefills=sum(o.prefill_ticks or 0 for o in outs),
+                decode_steps=sched.decode_steps)
+
+
+def _preempted(res):
+    return {e.request_id for e in res["eng"].tracer.events
+            if e.name == "preempted"}
+
+
+def _parting(golden, res, rid):
+    """Where request ``rid``'s stream parts from the golden run's, and how
+    near a tie: both tokens, each run's decision margin between them (the
+    sampler's scores) and the row's largest logit difference; None when
+    the two streams are the same up to the shorter."""
+    a, b = golden["streams"][rid], res["streams"][rid]
+    t = next((j for j, (u, w) in enumerate(zip(a, b)) if u != w), None)
+    if t is None or golden["rows"] is None or res["rows"] is None:
+        return None if t is None else {"token": t}
+    ga, temp, key = golden["rows"][(rid, t)]
+    rb = res["rows"][(rid, t)][0]
+    za = decision_scores(ga, temp, key)
+    zb = decision_scores(rb, temp, key)
+    return dict(token=t, golden_token=a[t], token_here=b[t],
+                temperature=temp,
+                golden_margin=float(za[a[t]] - za[b[t]]),
+                margin_here=float(zb[b[t]] - zb[a[t]]),
+                max_abs_logit_diff=float((ga - rb).abs().max()))
+
+
+def chaos_contract(golden, res, label, touched=(), strict=False):
+    """The reference's degradation contract on a chaos run (its
+    ``_check_contract``, ``tests/L0/run_serving/test_faults.py:70-80``):
+    every request has an outcome whose reason is in ``FINISH_REASONS``,
+    a degraded stream is a golden prefix, and every request no fault
+    touched equals the golden stream token for token. A touched request
+    that finished ok is held the same with ``strict``; otherwise its
+    tokens equal to golden and the margins where it parts are printed
+    (a retried request re-prefills its committed tokens through the
+    prefill's kernels, not the decode kernel's sums). Returns the
+    partings."""
+    from apex_tpu_torch.serving import FINISH_REASONS
+
+    outs, gold = res["outs"], golden["streams"]
+    check(len(outs) == len(gold)
+          and all(o.reason in FINISH_REASONS for o in outs),
+          f"{label}: every request has an outcome, reasons "
+          f"{sorted({o.reason for o in outs})}")
+    bad = [rid for rid, o in enumerate(outs)
+           if not o.ok and list(o.tokens) != gold[rid][:len(o.tokens)]]
+    check(not bad, f"{label}: every degraded stream a golden prefix "
+          f"({sum(not o.ok for o in outs)} degraded)")
+    loose = set(touched) if not strict else set()
+    diff = [rid for rid, o in enumerate(outs) if o.ok and rid not in loose
+            and list(o.tokens) != gold[rid]]
+    held = sum(o.ok and rid not in loose for rid, o in enumerate(outs))
+    check(not diff, f"{label}: {held} requests{' (every one)' if strict else ' no fault touched'} equal the golden "
+          f"streams token for token (differing: {diff})")
+    partings = {}
+    for rid in sorted(loose):
+        if outs[rid].ok:
+            part = _parting(golden, res, rid)
+            same = sum(u == w for u, w in zip(gold[rid], outs[rid].tokens))
+            partings[rid] = dict(tokens_equal=same, tokens=len(gold[rid]),
+                                 parting=part)
+    if partings:
+        print(f"{label}: touched requests (retried, preempted or resident "
+              f"at a fault), tokens equal to golden and the margin where "
+              f"each parts: {json.dumps(partings)}", flush=True)
+    return partings
+
+
+def _fired(res, sites, label):
+    """Each pinned site fired, and its ServingStats counter moved."""
+    counts = res["eng"].injector.counts
+    stats = res["sched"].stats.as_dict()
+    check(all(counts[s] >= 1 and stats[SITE_COUNTERS[s]] >= 1
+              for s in sites),
+          f"{label}: every pinned site fired: "
+          f"{({s: counts[s] for s in sites})}, counters "
+          f"{({SITE_COUNTERS[s]: stats[SITE_COUNTERS[s]] for s in sites})}")
+
+
+def _summary(res):
+    return ([(tuple(o.tokens), o.reason, o.retries, type(o.error).__name__,
+              o.ttft_ticks, o.total_ticks, o.prefill_ticks)
+             for o in res["outs"]], res["sched"].stats.as_dict(),
+            res["eng"].injector.counts, res["eng"].tracer.tick_stream())
+
+
+def _chaos_launches(res, L, label):
+    """Exact launches of a monolithic paged run: LN 2L + 1 a forward,
+    flash L a prefill forward, the paged attention L a decode tick; the
+    sampler's bits as counted."""
+    check_launches(res["launches"], {
+        "layer_norm_fwd": (2 * L + 1) * (res["prefills"]
+                                         + res["decode_steps"]),
+        "flash_attention_fwd": L * res["prefills"],
+        "paged_decode_attention": L * res["decode_steps"],
+        "threefry_bits": res["launches"]["threefry_bits"]}, label)
+
+
+def serve_chaos(dev, kern, o2, paged_run):
+    """``serving_chaos``: the fault tier at GPT-2 medium's full width on
+    ``serving_paged``'s engine (O2 bf16, 8 slots, max_len 1024, pages of
+    64, EOS -1, 32 new tokens), each configuration's fault-free run in
+    this process its golden, every run traced and audited after every
+    tick: (a) the prefix mix, half sampled, under :data:`CHAOS_PINNED`
+    (bf16 pool, and again over an fp32 pool, where every request must
+    equal its golden); (b) chunked at 256, ``chunk_prefill_exec`` once
+    mid-prompt and once on a final chunk (two runs, their indices read
+    off the golden run); (c) n-gram speculation (``spec_k`` 4, the motif
+    mix) with ``draft_exec`` firing; (d) the tiered int8 pool (2 slots, 2
+    + 40 pages, a host tier) with ``host_spill`` and ``host_promote``
+    firing; (e) three tenants (quotas, priorities, weights, an ITL SLO),
+    streams on, ``stream_emit`` at 0.02; (f) a queued and a mid-decode
+    request cut by ``deadline_ticks`` and a submit past ``max_queue``;
+    (g) (a) again: the same streams, outcomes and tick stream."""
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.serving import (
+        AdmissionRejected, DeadlineExceeded, PrefixRegistry, Request,
+        RetryBudgetExhausted, StreamFailed, Tenant, TenancyPolicy,
+    )
+
+    cfg = gpt_medium()
+    L = cfg.num_layers
+    phase("serving_chaos: the fault tier on the serving_paged engine: "
+          "pinned faults at every single-engine site (bf16 and fp32 pools), "
+          "chunked, n-gram, tiered int8, three tenants with streams, "
+          "deadlines and backpressure, a replay")
+    print(f"inert injector at every site: serving_paged in this run "
+          f"{paged_run['tokens_per_s']:.1f} tokens/s ({paged_run['wall_s']:.3f}"
+          f" s wall), beside {PAGED_BEFORE_FAULTS}; {card_line()}",
+          flush=True)
+    prompts = prefix_prompts(cfg)
+    out, runs, tally = {}, {}, []
+
+    def run(*args, **kw):
+        res = chaos_run(dev, cfg, o2, kern, *args, **kw)
+        tally.append(res["launches"])
+        return res
+
+    with torch.inference_mode():
+        # (a), (g): pinned faults, bf16 pool, run twice; fp32 pool
+        for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            ekw = dict(cache_dtype=dt)
+            gold = run(prompts, SPEC_TEMPS,
+                       f"(a) golden, {name} pool", capture=True,
+                       engine_kw=ekw)
+            res = run(prompts, SPEC_TEMPS,
+                      f"(a) pinned faults, {name} pool",
+                      faults=dict(schedule=CHAOS_PINNED),
+                      capture=True, engine_kw=ekw)
+            _chaos_launches(gold, L, f"(a) golden, {name} pool")
+            _chaos_launches(res, L, f"(a) pinned faults, {name} pool")
+            _fired(res, CHAOS_PINNED, f"(a) {name} pool")
+            touched = {rid for rid, o in enumerate(res["outs"])
+                       if o.retries} | _preempted(res)
+            parts = chaos_contract(gold, res, f"(a) {name} pool", touched,
+                                   strict=name == "fp32")
+            budget = [o for o in res["outs"] if o.reason == "retry_budget"]
+            print(f"(a) {name} pool: retries by request "
+                  f"{[o.retries for o in res['outs']]}", flush=True)
+            check(len(budget) == 1 and isinstance(budget[0].error,
+                                                  RetryBudgetExhausted)
+                  and budget[0].retries == 4,
+                  f"(a) {name} pool: one request ended retry_budget with "
+                  f"a RetryBudgetExhausted after 4 retries (max_retries "
+                  f"3), {len(budget[0].tokens)} tokens committed before")
+            runs[f"a_{name}"] = (gold, res)
+            out[f"a_{name}"] = dict(
+                golden_tokens_per_s=gold["tokens_per_s"],
+                golden_wall_s=gold["wall_s"],
+                tokens_per_s=res["tokens_per_s"], wall_s=res["wall_s"],
+                counts=res["eng"].injector.counts,
+                stats={k: v for k, v in res["sched"].stats.as_dict().items()
+                       if v}, touched=sorted(touched), partings=parts,
+                reasons=[o.reason for o in res["outs"]])
+        replay = run(prompts, SPEC_TEMPS,
+                     "(g) the bf16 pinned run again",
+                     faults=dict(schedule=CHAOS_PINNED))
+        first = runs["a_bf16"][1]
+        check(replay["streams"] == first["streams"]
+              and _summary(replay) == _summary(first),
+              "(g) replay: streams, outcomes (reason, retries, error class, "
+              "ticks), stats, injector counts and tracer.tick_stream() the "
+              f"same ({len(replay['eng'].tracer.tick_stream())} events)")
+        out["g_replay_tokens_per_s"] = replay["tokens_per_s"]
+        del runs, replay, first
+
+        # (b) chunked at 256: the golden run's chunk calls pick the indices
+        calls = []
+
+        def log_chunks(sched):
+            eng = sched.engine
+            orig = eng.chunk_prefill
+
+            def logged(slot, chunk, pos, state, bucket, final):
+                calls.append((pos != state.get("start", 0), final))
+                return orig(slot, chunk, pos, state, bucket, final)
+
+            eng.chunk_prefill = logged
+            for i, p in enumerate(prompts):
+                sched.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS,
+                                     temperature=SPEC_TEMPS[i], seed=i))
+
+        gold = run(prompts, SPEC_TEMPS,
+                   "(b) golden, chunked 256", submit=log_chunks,
+                   chunk_tokens=CHUNK)
+        mid = next(i for i, (inner, final) in enumerate(calls)
+                   if inner and not final)
+        fin = next(i for i, (_, final) in enumerate(calls) if final)
+        out["b_chunked"] = {"golden_tokens_per_s": gold["tokens_per_s"]}
+        for where, index in (("mid_prompt", mid), ("final_chunk", fin)):
+            res = run(prompts, SPEC_TEMPS,
+                      f"(b) chunk_prefill_exec[{index}], {where}",
+                      faults=dict(schedule={
+                          "chunk_prefill_exec": (index,)}),
+                      chunk_tokens=CHUNK)
+            _fired(res, ("chunk_prefill_exec",), f"(b) {where}")
+            check(res["sched"].stats.retries == 1
+                  and res["launches"]["paged_chunk_attention"] > 0,
+                  f"(b) {where}: one retry; the chunk kernel launched "
+                  f"{res['launches']['paged_chunk_attention']} times")
+            # a faulted chunk's request had committed nothing: its retry
+            # recomputes the same chunks, so every stream is held
+            chaos_contract(gold, res, f"(b) {where}", strict=True)
+            out["b_chunked"][where] = dict(
+                index=index, tokens_per_s=res["tokens_per_s"],
+                launches={n: c for n, c in res["launches"].items() if c})
+
+        # (c) n-gram speculation, draft_exec firing
+        spec = spec_prompts(cfg)
+        ekw = dict(spec_k=SPEC_K)
+        gold = run(spec, SPEC_TEMPS,
+                   "(c) golden, n-gram spec_k 4", engine_kw=ekw)
+        res = run(spec, SPEC_TEMPS,
+                  "(c) draft_exec pinned", engine_kw=ekw,
+                  faults=dict(schedule={"draft_exec": (3, 4, 5, 11,
+                  40)}))
+        _fired(res, ("draft_exec",), "(c)")
+        touched = {rid for site, _, resident in res["fired"]
+                   for rid in resident}
+        check(res["sched"].stats.retries == 0
+              and res["launches"]["paged_verify_attention"] > 0,
+              f"(c): no retry charged; {res['sched'].stats.spec_ticks} "
+              "verify ticks")
+        out["c_spec"] = dict(
+            tokens_per_s=res["tokens_per_s"],
+            golden_tokens_per_s=gold["tokens_per_s"],
+            draft_faults=res["sched"].stats.draft_faults,
+            touched=sorted(touched),
+            partings=chaos_contract(gold, res, "(c)", touched))
+
+        # (d) the tiered int8 pool, host_spill and host_promote firing
+        tier = tier_prompts(cfg)[:CHAOS_TIER_REQUESTS]
+
+        def tiered():
+            return dict(num_slots=TIER_SLOTS, num_pages=TIER_POOL,
+                        cache_dtype=torch.int8,
+                        host_tier=PrefixRegistry(1 << 30))
+
+        gold = run(tier, SPEC_TEMPS,
+                   "(d) golden, tiered int8 pool", engine_kw=tiered())
+        res = run(tier, SPEC_TEMPS,
+                  "(d) host_spill[0] and host_promote[0]",
+                  engine_kw=tiered(), faults=dict(schedule={
+                  "host_spill": (0,), "host_promote": (0,)}))
+        gs = gold["sched"].stats
+        check(gs.host_spills > 0 and gs.host_promotes > 0,
+              f"(d) golden: {gs.host_spills} spills, {gs.host_promotes} "
+              "promotes")
+        _fired(res, ("host_spill", "host_promote"), "(d)")
+        # an int8 pool recomputes a prompt's pages the same whether they
+        # were promoted or re-prefilled (serving_paged_tiered's check)
+        chaos_contract(gold, res, "(d)", strict=True)
+        out["d_tiered"] = dict(
+            tokens_per_s=res["tokens_per_s"],
+            golden_tokens_per_s=gold["tokens_per_s"],
+            stats={k: v for k, v in res["sched"].stats.as_dict().items()
+                   if k.startswith("host_")})
+
+        # (e) three tenants, streams on, stream_emit at a rate
+        mix = mix_prompts(cfg)
+        tenants = ("gold", "silver", "bronze")
+        policy = [Tenant("gold", weight=3.0, priority=2),
+                  Tenant("silver", weight=2.0, priority=1, page_quota=64),
+                  Tenant("bronze", weight=1.0, page_quota=40,
+                         itl_slo_ticks=1)]
+        untenanted = run(mix, SPEC_TEMPS,
+                         "(e) golden, untenanted")
+
+        # silver and bronze at once, gold CHAOS_GOLD_STEP ticks later:
+        # gold's higher rung finds the slots full of lower ones
+        arrivals = [(CHAOS_GOLD_STEP if i % 3 == 0 else 0,
+                     Request(prompt=p, max_new_tokens=NEW_TOKENS,
+                             temperature=SPEC_TEMPS[i], seed=i,
+                             tenant_id=tenants[i % 3]))
+                    for i, p in enumerate(mix)]
+        res = run(mix, SPEC_TEMPS,
+                  "(e) three tenants, stream_emit at 0.02",
+                  submit=lambda sched: None, arrivals=arrivals,
+                  faults=dict(seed=0, rates={"stream_emit": 0.02}),
+                  tenancy=TenancyPolicy(policy), streams=True)
+        _fired(res, ("stream_emit",), "(e)")
+        st = res["sched"].stats
+        streams = res["sched"].streams.streams
+        failed = [rid for rid, s in streams.items() if s.failed]
+        check(all(o.ok for o in res["outs"])
+              and all(s.closed for s in streams.values())
+              and all(isinstance(streams[r].error, StreamFailed)
+                      and len(streams[r].delivered)
+                      < len(res["outs"][r].tokens)
+                      and streams[r].delivered
+                      == list(res["outs"][r].tokens)[:len(
+                          streams[r].delivered)] for r in failed)
+              and all(s.delivered == list(res["outs"][r].tokens)
+                      for r, s in streams.items() if not s.failed)
+              and len(failed) == st.stream_failures > 0,
+              f"(e): every request ok; {len(failed)} streams dropped a "
+              "batch (StreamFailed), each a strict prefix of its committed "
+              "tokens, the others whole")
+        check(st.slo_violations == sum(o.slo is not None
+                                       for o in res["outs"]) > 0
+              and st.quota_deferrals > 0 and st.tenant_preemptions > 0
+              and {o.tenant_id for o in res["outs"]} == set(tenants),
+              f"(e): {st.slo_violations} SLO violations stamped (bronze's "
+              f"1-tick ITL bound), {st.quota_deferrals} quota deferrals, "
+              f"{st.tenant_preemptions} priority preemptions")
+        touched = _preempted(res)
+        # request ids follow the arrival order; the golden run's, the mix's
+        order = [i for _, i in sorted(
+            ((CHAOS_GOLD_STEP if i % 3 == 0 else 0, i)
+             for i in range(len(mix))), key=lambda a: a[0])]
+        gold = dict(untenanted, rows=None,
+                    streams=[untenanted["streams"][i] for i in order])
+        out["e_tenants"] = dict(
+            tokens_per_s=res["tokens_per_s"],
+            golden_tokens_per_s=untenanted["tokens_per_s"],
+            stream_failures=st.stream_failures,
+            quota_deferrals=st.quota_deferrals,
+            tenant_preemptions=st.tenant_preemptions,
+            slo_violations=st.slo_violations,
+            gauges=res["sched"].tenancy.gauge_snapshot(),
+            partings=chaos_contract(gold, res, "(e)", touched))
+
+        # (f) deadlines and backpressure
+        dl = 1 + sum(len(p) - 1 for p in mix[:NUM_SLOTS]) + 10
+
+        def deadlines(sched):
+            for i in range(NUM_SLOTS + 1):
+                sched.submit(Request(
+                    prompt=mix[i], max_new_tokens=NEW_TOKENS,
+                    temperature=SPEC_TEMPS[i], seed=i,
+                    deadline_ticks={0: dl, NUM_SLOTS: 2}.get(i)))
+            try:
+                sched.submit(Request(prompt=mix[9], max_new_tokens=2))
+                rejected = False
+            except AdmissionRejected:
+                rejected = True
+            check(rejected, "(f): a submit past max_queue "
+                  f"({NUM_SLOTS + 1}) raised AdmissionRejected")
+
+        res = run(mix, SPEC_TEMPS,
+                  "(f) deadlines and backpressure", submit=deadlines,
+                  max_queue=NUM_SLOTS + 1)
+        o, q = res["outs"][0], res["outs"][NUM_SLOTS]
+        st = res["sched"].stats
+        check(o.reason == "deadline" and isinstance(o.error, DeadlineExceeded)
+              and 0 < len(o.tokens) < NEW_TOKENS
+              and q.reason == "deadline" and not q.tokens
+              and isinstance(q.error, DeadlineExceeded)
+              and st.deadline_expired == 2 and st.admission_rejections == 1,
+              f"(f): request 0 cut mid-decode at {len(o.tokens)} tokens "
+              f"(deadline {dl} ticks), request {NUM_SLOTS} cut queued "
+              "with none, one submit refused")
+        gold = dict(untenanted, streams=untenanted["streams"][:NUM_SLOTS + 1])
+        chaos_contract(gold, res, "(f)")
+        _chaos_launches(res, L, "(f)")
+        out["f_deadlines"] = dict(cut_at_tokens=len(o.tokens),
+                                  deadline_ticks=dl,
+                                  tokens_per_s=res["tokens_per_s"])
+    launches = {n: sum(r[n] for r in tally) for n in kern}
+    check(all(launches[n] > 0 for n in CHAOS_KERNELS)
+          and not any(c for n, c in launches.items()
+                      if n not in CHAOS_KERNELS),
+          f"serving_chaos launched {({n: c for n, c in launches.items() if c})}"
+          f": every kernel of its paths, nothing else")
+    out["launches"] = launches
+    return out
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -5319,14 +5913,7 @@ def main():
                                         verify_past_max_k1(dev),
                                         chunk_err["fp32"])
     err["paged_chunk_attention"] = chunk_err["bf16"]
-    kern = dict(zip(KERNEL_NAMES, (
-        ln.LN_FWD, ln.LN_BWD, fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
-        xent.XENT_FWD, xent.XENT_BWD, fsm.SOFTMAX_FWD, fsm.SOFTMAX_CAUSAL_FWD,
-        fsm.SOFTMAX_BWD, mta.FLAT_ADAM, mta.FLAT_SCALE, mta.FLAT_AXPBY,
-        mta.FLAT_L2NORM, mta.FLAT_LAMB_STAGE1, w8.W8_MATMUL_NOBIAS,
-        w8.W8_MATMUL, w8.W8_MATMUL_NK, mta.FLAT_SGD, mta.FLAT_ADAGRAD,
-        mta.FLAT_NOVOGRAD, prng.THREEFRY_BITS, prng.THREEFRY_DROPOUT,
-        pa.PAGED_DECODE, pa.PAGED_VERIFY, pa.PAGED_CHUNK)))
+    kern = kernel_counters()
     torch.cuda.empty_cache()
     srv, dense_streams = serve(dev, kern)
     srv_rope = serve_rope(dev, kern)
@@ -5336,6 +5923,7 @@ def main():
     srv_spec = serve_spec(dev, kern, params_f32, params_o2)
     srv_tier = serve_tiered(dev, kern, params_o2)
     srv_chunk = serve_chunked(dev, kern, params_o2)
+    srv_chaos = serve_chaos(dev, kern, params_o2, srv_paged)
     del params_f32, params_o2
     torch.cuda.empty_cache()
     small = train_small(dev)
@@ -5374,6 +5962,7 @@ def main():
                    **{f"serving_{k}": srv_chunk[k]["launches"][n]
                       for k in ("paged_chunked", "paged_monolithic",
                                 "dense_chunked", "dense_monolithic")},
+                   "serving_chaos": srv_chaos["launches"][n],
                    "training_dropout": big["fp32 dropout"]["launches"][n],
                    "training_ddp_world1": ddp1["launches"][n]}
                for n in kern}
@@ -5698,6 +6287,7 @@ def main():
     print(f"serving_spec: {json.dumps(srv_spec)}")
     print(f"serving_paged_tiered: {json.dumps(srv_tier)}")
     print(f"serving_chunked: {json.dumps(srv_chunk)}")
+    print(f"serving_chaos: {json.dumps(srv_chaos)}")
     print(f"GPT training, card vs CPU: {json.dumps(gpt_small)}")
     print(f"GPT-medium training: {json.dumps(gpt_big)}")
     print(f"pretrain_gpt losses: {json.dumps(pre)}")

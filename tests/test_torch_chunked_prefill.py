@@ -20,10 +20,9 @@ requests.
   ``begin_chunk_prefill``) and the port's own monolithic streams; the
   outcomes' tick fields equal the JAX ones.
 - ``check_invariants`` holds between chunks (the parked row audited as
-  empty). The final chunk's logits are held to a one-shot prefill within
-  fp32 1e-5, not bitwise: the JAX test of that contract
-  (``test_chunked_final_logits_match_one_shot_paged``, a bitwise
-  assertion) is red on the CPU with jax 0.9.0.
+  empty). The final chunk's logits are a one-shot prefill's bit for bit
+  on an fp32 cache, on both engines: the contract of the JAX test
+  ``test_chunked_final_logits_match_one_shot_paged``.
 - The reference's refusals, with its messages; and on the long-context
   Poisson mix of ``bench.py::_chunked_vs_monolithic_ab_pair`` (its
   arrivals from ``_scenario_arrivals``, driven by its ``_drive_poisson``)
@@ -498,18 +497,17 @@ def _chunks(eng, slot, prompt, ct):
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_final_chunk_logits_match_one_shot(model, paged):
-    """The final chunk's last-token logits against a one-shot prefill of
-    the same 13-token prompt (four chunks of 4), fp32 within 1e-5 — not
-    bitwise as the JAX test asserts, since that assertion is red on the
-    CPU with jax 0.9.0; then a second prompt sharing two cached pages,
-    chunked from past them, against its own one-shot prefill."""
+    """The final chunk's last-token logits are BITWISE a one-shot
+    prefill's on an fp32 cache (the JAX test's contract), for the same
+    13-token prompt in four chunks of 4; then a second prompt sharing
+    two cached pages, chunked from past them, against its own one-shot
+    prefill."""
     prompt = tuple(range(2, 15))
     with torch.inference_mode():
         one_shot = _port_engine(model, paged).prefill(0, prompt)
         eng = _port_engine(model, paged)
         logits, _ = _chunks(eng, 0, prompt, 4)
-        np.testing.assert_allclose(logits.numpy(), one_shot.numpy(),
-                                   rtol=1e-5, atol=1e-5)
+        assert torch.equal(logits, one_shot)
         assert int(eng.cache.lengths[0]) == len(prompt)
         if not paged:
             return
@@ -518,8 +516,7 @@ def test_final_chunk_logits_match_one_shot(model, paged):
         got, state = _chunks(eng, 1, other, 4)
         assert (state["shared"], state["start"]) == (2, 8)
         assert eng._slot_pages[1][:2] == eng._slot_pages[0][:2]
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
-                                   atol=1e-5)
+        assert torch.equal(got, want)
 
 
 def test_free_slot_mid_chunk_releases_its_pages(model):

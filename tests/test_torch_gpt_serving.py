@@ -339,16 +339,26 @@ def test_submit_validation_matches_jax(jax_params, prompt, buckets):
 
 
 def test_nonfinite_logits_raise_and_never_commit(jax_params):
+    """NaN params make every prefill's logits non-finite: the admission
+    gate quarantines each attempt (the reference's always-on gate, no
+    token committed), and once the retry budget is spent the request
+    ends typed — a ``retry_budget`` outcome whose
+    ``RetryBudgetExhausted`` names the non-finite logits — with every
+    slot free."""
     pp = _port_params(jax_params)
     pp["final_ln"]["weight"][3] = float("nan")
     eng = port_serving.DecodeEngine(pp, port_gpt.gpt_tiny(), num_slots=2,
                                     max_len=S_MAX, device="cpu")
-    sched = port_serving.ContinuousBatchingScheduler(eng, eos_id=1)
+    sched = port_serving.ContinuousBatchingScheduler(eng, eos_id=1,
+                                                     max_retries=2)
     sched.submit(port_serving.Request(prompt=(5, 6, 7)))
-    with torch.inference_mode(), \
-            pytest.raises(port_serving.NonFiniteLogits, match="non-finite"):
-        sched.run()
-    assert sched.outcomes == {}
+    with torch.inference_mode():
+        assert sched.run() == [[]]
+    out = sched.outcomes[0]
+    assert (out.reason, out.retries, out.ok) == ("retry_budget", 3, False)
+    assert isinstance(out.error, port_serving.RetryBudgetExhausted)
+    assert "non-finite prefill logits" in str(out.error)
+    assert sched.stats.nan_events == 3 and sched.stats.retries == 3
     assert all(s is None for s in sched._slots)
 
 

@@ -81,7 +81,9 @@ of 16, 24 and 64, hd 64 and 48, sc 64 and 256, pos 0, mid-page and 768
 refuses without a launch counted. A ``PagedDecodeEngine`` at
 ``spec_k`` 64 and 80 serves with the CPU's streams. A data-parallel
 BERT step on an NCCL world of one equals the plain step bit for
-bit."""
+bit. A ``PagedDecodeEngine`` with a ``FaultInjector`` quarantines a NaN
+decode row on the card without touching the co-tenant's stream and
+leaves the pool whole."""
 
 import functools
 import importlib
@@ -2296,3 +2298,65 @@ def test_ddp_bert_step_world_one_nccl_is_the_plain_step(cuda_device):
     finally:
         ps.destroy_model_parallel()
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_paged_engine_quarantines_a_nan_decode_row(cuda_device):
+    """The fault tier on the card: a 2-layer ``gpt_tiny`` on a bf16
+    ``PagedDecodeEngine`` with the ``decode_exec`` site pinned at its
+    first draw. With no retry budget the victim ends typed
+    (``retry_budget``, its prefill token committed, the corrupt one
+    never), the co-tenant's stream equals the fault-free run's token for
+    token, the paged kernel ran every decode tick, and the pool is whole:
+    no slot holds a page, every referenced page is the prefix registry's
+    alone."""
+    import dataclasses
+
+    from apex_tpu_torch.models.gpt import gpt_tiny, init_gpt
+    from apex_tpu_torch.serving import (
+        ContinuousBatchingScheduler, FaultInjector, PagedDecodeEngine,
+        Request, RetryBudgetExhausted, Tracer,
+    )
+    from apex_tpu_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(gpt_tiny(), num_layers=2)
+    params = tree_map(lambda t: t.to(cuda_device, torch.bfloat16), init_gpt(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    reqs = [Request(prompt=(7, 11, 13), max_new_tokens=6),
+            Request(prompt=(23, 29), max_new_tokens=6, temperature=0.8,
+                    seed=3)]
+
+    def run(injector=None):
+        eng = PagedDecodeEngine(params, cfg, num_slots=2, max_len=32,
+                                num_pages=20, page_size=4, buckets=(16, 32),
+                                injector=injector, tracer=Tracer(),
+                                device=cuda_device)
+        sched = ContinuousBatchingScheduler(eng, eos_id=-1, audit=True,
+                                            max_retries=0)
+        for r in reqs:
+            sched.submit(r)
+        n0 = pa_mod.PAGED_DECODE.launches
+        with torch.inference_mode():
+            streams = sched.run()
+        return sched, streams, pa_mod.PAGED_DECODE.launches - n0
+
+    _, golden, _ = run()
+    sched, _, launches = run(FaultInjector(schedule={"decode_exec": (0,)}))
+    eng = sched.engine
+    assert eng.injector.counts["decode_exec"] == 1
+    assert sched.stats.nan_events == 1 and sched.stats.retries == 1
+    bad = [rid for rid, o in sched.outcomes.items() if not o.ok]
+    assert len(bad) == 1
+    victim = sched.outcomes[bad[0]]
+    assert victim.reason == "retry_budget"
+    assert isinstance(victim.error, RetryBudgetExhausted)
+    assert list(victim.tokens) == golden[bad[0]][:1]
+    ok = 1 - bad[0]
+    assert list(sched.outcomes[ok].tokens) == golden[ok]
+    assert launches == cfg.num_layers * sched.decode_steps > 0
+    eng.check_invariants()
+    snap = eng.pool.snapshot()
+    assert all(not p for p in eng._slot_pages)
+    assert all(n == 1 for n in snap["refcounts"].values())
+    assert len(snap["refcounts"]) == snap["num_cached"]
+    assert eng.pool.num_free + eng.pool.num_cached == eng.pool.num_usable

@@ -20,6 +20,7 @@ import torch
 
 from apex_tpu.models import gpt as jax_gpt
 from apex_tpu.quant import kernels as jax_quant
+from apex_tpu.serving import faults as jax_faults
 from apex_tpu.serving import health as jax_health
 from apex_tpu.serving import paging as jax_paging
 from apex_tpu_torch.models import gpt as port_gpt
@@ -152,8 +153,24 @@ def test_pool_errors_match_jax():
 
 
 def test_pool_injector_is_owed():
-    with pytest.raises(NotImplementedError, match="A4.4"):
-        port_paging.PagePool(6, 4, injector=object())
+    """The injector the pool once owed (the fault tier): a fired
+    ``pool_alloc`` draw refuses one allocation without sweeping the
+    prefix registry, as the JAX pool's does."""
+    from apex_tpu_torch.serving.faults import FaultInjector
+
+    pools = [mod.PagePool(6, 4, injector=inj) for mod, inj in (
+        (port_paging, FaultInjector(schedule={"pool_alloc": (1,)})),
+        (jax_paging, jax_faults.FaultInjector(schedule={"pool_alloc": (1,)})))]
+    for pool in pools:
+        first = pool.alloc()
+        pool.register_prefix([b"k"], [first])
+        pool.release(first)
+    got = [[pool.alloc() for _ in range(4)] + [pool.num_cached,
+                                                pool.injector.counts]
+           for pool in pools]
+    assert got[0] == got[1]
+    assert got[0][0] is None and got[0][4] == 1
+    assert got[0][5]["pool_alloc"] == 1
 
 
 def _record(mod, key, rng, quant):

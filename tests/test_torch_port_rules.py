@@ -699,29 +699,19 @@ DEPARTURES.update({
 # item lands, delete its entry: the scan then holds every one of its names
 # to the reference.
 OWED = {
-    "A4.4 faults, tracer and tenancy": [
-        f"serving/health.py:{n}" for n in (
-            "RetryBudgetExhausted", "DeadlineExceeded",
-            "AdmissionRejected", "LivelockError",
-            "TransferFailed", "TransferCorrupt", "ReshardFailed",
-            "ReplicaUnavailable", "StreamFailed", "SloViolation",
-            "ReplicaHealth", "RequestOutcome.ok",
-            "RequestOutcome.error", "RequestOutcome.retries",
-            "RequestOutcome.tenant_id", "RequestOutcome.slo")] + [
-        # only injector= is owed (the fault tier); tracer= has landed
-        "serving/scheduler.py:DecodeEngine.__init__",
-        "serving/scheduler.py:Request.deadline_ticks",
-        "serving/scheduler.py:Request.tenant_id",
-        # max_retries, max_queue, watchdog_limit, audit, tenancy, streams
-        "serving/scheduler.py:ContinuousBatchingScheduler.__init__"] + [
-        f"serving/transfer.py:{n}" for n in (
-            "make_tile_transfer_fns", "make_reshard_extract_fn",
-            "transfer_checksum", "PageTransfer", "PageReshard")],
+    "A4.4.5 transfer.py's rest": [
+        f"serving/{m}:{n}" for m in ("transfer.py", "__init__.py")
+        for n in ("make_tile_transfer_fns", "make_reshard_extract_fn",
+                  "transfer_checksum", "PageTransfer", "PageReshard")],
+    "A4.4.6 router.py": [
+        "serving/__init__.py:DisaggregatedRouter",
+        "serving/__init__.py:PoolRouter"],
     "A4.5 tensor-parallel serving": [
-        f"serving/decode.py:make_tp_{n}_fn" for n in (
-            "prefill", "decode", "verify", "paged_prefill", "paged_decode",
-            "paged_verify", "tree_verify", "chunk_prefill",
-            "paged_chunk_prefill", "paged_tree_verify")],
+        f"serving/{m}:make_tp_{n}_fn" for m in ("decode.py", "__init__.py")
+        for n in ("prefill", "decode", "verify", "paged_prefill",
+                  "paged_decode", "paged_verify", "tree_verify",
+                  "chunk_prefill", "paged_chunk_prefill",
+                  "paged_tree_verify")],
     "A5 optimizer and amp tier": [
         "amp/frontend.py:Amp.__init__", "amp/frontend.py:initialize",
         "amp/frontend.py:Amp.master_params", "amp/frontend.py:Amp.autocast",
@@ -745,6 +735,8 @@ OWED = {
         "quant/params.py:quant_partition_specs",
         "serving/cache.py:cache_partition_specs",
         "serving/cache.py:paged_cache_partition_specs",
+        "serving/__init__.py:cache_partition_specs",
+        "serving/__init__.py:paged_cache_partition_specs",
         "optimizers/fused_adam.py:FusedAdam.state_partition_specs",
         "transformer/__init__.py:layers",
         "transformer/__init__.py:pipeline_parallel",
@@ -783,19 +775,9 @@ DEPARTURES_IN_MEANING = {
 }
 
 # Packages whose ``__init__`` exports are held to the reference's (the
-# packages of the slices since the data-parallel one).
-EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer")
-
-
-# Parameters the port takes with the reference's name and default but
-# refuses (NotImplementedError naming the item) at any other value, by
-# the later queue-A item that brings them. The signature scan sees no
-# gap here; ``test_owed_values_raise_naming_their_item`` holds each.
-OWED_VALUES = {
-    "A4.4 faults, tracer and tenancy": [
-        ("PagedDecodeEngine", "injector", object()),
-        ("PagePool", "injector", object())],
-}
+# packages of the slices since the data-parallel one, and serving since
+# its fault tier).
+EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer", "serving")
 
 
 def _ported_modules():
@@ -1019,23 +1001,6 @@ def test_public_surface_matches_the_reference(rel):
     listed = {k for k in set(DEPARTURES) | owed
               if k.startswith(rel + ":")}
     assert sorted(_surface_findings(rel)) == sorted(listed)
-
-
-@pytest.mark.parametrize("item,cls,name,value", [
-    (item, cls, name, value) for item, cases in sorted(OWED_VALUES.items())
-    for cls, name, value in cases],
-    ids=lambda v: v if isinstance(v, str) else None)
-def test_owed_values_raise_naming_their_item(item, cls, name, value):
-    """Each parameter kept under the reference's name and default but
-    owed to a later item raises at any other value, naming the item."""
-    cfg = port_gpt.gpt_tiny()
-    make = {"PagedDecodeEngine": lambda **kw: port_serving.PagedDecodeEngine(
-                {}, cfg, 1, 8, num_pages=4, page_size=4, buckets=(8,),
-                device="cpu", **kw),
-            "PagePool": lambda **kw: port_serving.PagePool(4, 4, **kw)}[cls]
-    assert name in inspect.signature(getattr(port_serving, cls)).parameters
-    with pytest.raises(NotImplementedError, match=item.split()[0]):
-        make(**{name: value})
 
 
 def _export_findings(pkg):
