@@ -10,7 +10,11 @@ consulted at named host-side sites; ``health.py``: the typed failure
 taxonomy, quarantine, retry budgets, deadlines, backpressure and the
 watchdog), and the multi-tenant front end (``tenancy.py``: weighted fair
 share, page quotas, priority preemption, SLOs; ``streaming.py``:
-per-token delivery). See ``scheduler.py``."""
+per-token delivery), and the cross-replica tier (``transfer.py``: the
+verified page handoff ``PageTransfer`` and its device-to-device tier
+``PageReshard``; ``router.py``: the disaggregated prefill/decode pair
+``DisaggregatedRouter`` and the N x M ``PoolRouter``). See
+``scheduler.py``."""
 
 from apex_tpu_torch.serving.cache import (  # noqa: F401
     KVCache, PagedKVCache, audit_block_tables, init_cache,
@@ -43,6 +47,9 @@ from apex_tpu_torch.serving.paging import (  # noqa: F401
     QuotaLedger, SpillRecord, decode_spill_header, encode_spill_header,
     prefix_page_keys, spill_checksum,
 )
+from apex_tpu_torch.serving.router import (  # noqa: F401
+    DisaggregatedRouter, PoolRouter,
+)
 from apex_tpu_torch.serving.sampling import (  # noqa: F401
     finite_rows, sample_token_grid, sample_tokens, speculative_accept,
     tree_speculative_accept,
@@ -57,6 +64,7 @@ from apex_tpu_torch.serving.tenancy import (  # noqa: F401
     DEFAULT_TENANT, Tenant, TenancyPolicy,
 )
 from apex_tpu_torch.serving.transfer import (  # noqa: F401
-    make_extract_pages_fn, make_extract_pages_quant_fn,
-    make_insert_pages_fn, make_insert_pages_quant_fn,
+    PageReshard, PageTransfer, make_extract_pages_fn,
+    make_extract_pages_quant_fn, make_insert_pages_fn,
+    make_insert_pages_quant_fn, transfer_checksum,
 )

@@ -159,8 +159,8 @@ from apex_tpu_torch.serving.sampling import (
 )
 from apex_tpu_torch.serving.streaming import StreamMux
 from apex_tpu_torch.serving.transfer import (
-    make_extract_pages_fn, make_extract_pages_quant_fn, make_insert_pages_fn,
-    make_insert_pages_quant_fn,
+    _host, make_extract_pages_fn, make_extract_pages_quant_fn,
+    make_insert_pages_fn, make_insert_pages_quant_fn,
 )
 from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -878,15 +878,6 @@ class PagedDecodeEngine(DecodeEngine):
         extra, self._admit_extra = self._admit_extra, 0
         return default + extra
 
-    @staticmethod
-    def _host(t: torch.Tensor) -> np.ndarray:
-        """A tile as a host array; bf16 crosses as its 16-bit integer
-        bits (numpy has no bf16)."""
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
-        return t.numpy()
-
     def _spill_page(self, key: bytes, page: int) -> None:
         """Pool eviction hook: copy ``page`` (held by the prefix registry
         alone, so its content is pristine — copy-on-write guarantees no
@@ -898,7 +889,7 @@ class PagedDecodeEngine(DecodeEngine):
             if self.tracer.enabled:
                 self.tracer.instant("host_spill", page=page, ok=False)
             return
-        tiles = [self._host(t) for t in self._tier_extract(self.cache,
+        tiles = [_host(t) for t in self._tier_extract(self.cache,
                                                            [page])]
         k, v = tiles[:2]
         ks, vs = (tiles[2], tiles[3]) if len(tiles) == 4 else (None, None)

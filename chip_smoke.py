@@ -280,6 +280,36 @@ Phases, each printed as it runs; any failure exits non-zero:
    touched requests' tokens equal to golden and the margins where they
    part are printed, with each run's wall time and tokens/s.
 
+14. the cross-replica tier — ``serving_disagg``: replicas of the
+   ``serving_paged`` engine (one O2 params tree for all) on one card, a
+   shared ``FaultInjector`` and ``Tracer``, ``audit=True`` in every run,
+   each mix's colocated run in this process its golden: (a) a
+   ``DisaggregatedRouter`` pair on the serving mix and the prefix mix,
+   half sampled, every admission prefilled on the remote replica and its
+   pages shipped over the verified host-staged channel; (b) a 2x2
+   ``PoolRouter`` on both mixes over the device-to-device tier and once
+   host-staged, every request queued at tick 0; (c) the pair and the
+   colocated scheduler open-loop on the work clock. Held: every stream
+   the colocated one, the prefix mix's handoffs deduped, the pool's clock
+   at most the pair's, (c)'s tick readings the CPU's prediction
+   (``DISAGG_OPEN_LOOP``) with the pair's p99 inter-token gap at most the
+   colocated one. (d) the router chaos: the 2x2 pool under a pinned
+   schedule firing every cross-replica site (a reshard exhaustion
+   degrading to host staging, a dropped send, two corrupt payloads, a
+   routing fault, the active decode replica down mid-stream and failed
+   over), with fp32 params and pool (every stream golden), and O2 bf16
+   params over an fp32 pool and over the bf16 pool (the undrained
+   requests golden, the drained ones' equal tokens and margins printed;
+   the bf16 run twice, the same outcomes, counters and tick stream), and
+   both decode replicas down in fp32 (a prefill replica borrowed, then
+   the slots home). (e) the host-staged channel's wall ms a page for one
+   8-page prompt: device to host, sha256, host to device, a whole
+   ``ship``, beside the card's name and power limit. Exact launches in
+   every run; the pair's runs and the pool's runs, each counted apart
+   from the colocated goldens (``serving_disagg``, ``serving_pool``,
+   ``serving_disagg_colocated``), launch the LayerNorm, flash forward,
+   paged decode and threefry kernels and nothing else.
+
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
 card's name and power limit, and last ``{"ok": true, "device":
@@ -5370,46 +5400,65 @@ def capture_rows(eng, sched):
 def _pool_whole(eng, sched, label):
     """After a run: the audit holds, no slot holds a page, every page is
     free or the prefix registry's alone (no reference leaked), and a
-    tenancy ledger's charge is back to 0."""
+    tenancy ledger's charge is back to 0; on every replica of a
+    router."""
     check(eng.check_invariants(), f"{label}: check_invariants() at the end")
-    snap = eng.pool.snapshot()
     charged = sched.tenancy.charged_total() if sched.tenancy else 0
-    check(all(not p for p in eng._slot_pages)
-          and all(n == 1 for n in snap["refcounts"].values())
-          and len(snap["refcounts"]) == snap["num_cached"]
-          and eng.pool.num_free + eng.pool.num_cached == eng.pool.num_usable
-          and charged == 0,
-          f"{label}: no page leaked ({eng.pool.num_free} free + "
-          f"{eng.pool.num_cached} the registry's alone = "
-          f"{eng.pool.num_usable} usable), quota charge {charged}")
+    replicas = getattr(eng, "_replicas", {"engine": eng})
+    for name, rep in replicas.items():
+        snap = rep.pool.snapshot()
+        pool = rep.pool
+        check(all(not p for p in rep._slot_pages)
+              and all(n == 1 for n in snap["refcounts"].values())
+              and len(snap["refcounts"]) == snap["num_cached"]
+              and pool.num_free + pool.num_cached == pool.num_usable
+              and charged == 0,
+              f"{label}: no page leaked on {name} ({pool.num_free} free + "
+              f"{pool.num_cached} the registry's alone = "
+              f"{pool.num_usable} usable), quota charge {charged}")
 
 
 def chaos_run(dev, cfg, params, kern, prompts, temps, label, faults=None,
               capture=False, submit=None, arrivals=(), engine_kw=None,
-              **sched_kw):
+              route=None, open_loop=None, **sched_kw):
     """One run of the ``serving_chaos`` phase on ``serving_paged``'s
     engine (8 slots, max_len 1024, pages of 64, bf16 pool unless
     ``engine_kw`` says otherwise) with an enabled ``Tracer``, ``audit=True``
-    and a ``FaultInjector(**faults)`` (inert without). The prompts are
+    and a ``FaultInjector(**faults)`` (inert without). ``route``:
+    ``"pair"`` serves through a ``DisaggregatedRouter`` over two such
+    engines, ``"pool"`` through a 2x2 ``PoolRouter`` (one params tree,
+    one injector and one tracer for all). The prompts are
     submitted with their temperatures (seed = index), or ``submit(sched)``
     submits; ``arrivals`` ((step, request) pairs) are submitted as the
-    drain reaches their step. Every kernel's count is set to 0 just
-    before the drain and read just after; every fired draw is logged with the clock and the
-    resident requests; ``capture`` keeps each committed token's logits
-    row. The pool is audited whole at the end."""
+    drain reaches their step; ``open_loop`` ((tick, request) pairs) is
+    driven by :func:`drive_open_loop` instead. Every kernel's count is set
+    to 0 just before the drain and read just after; every fired draw is
+    logged with the clock and the resident requests; ``capture`` keeps
+    each committed token's logits row. Every pool is audited whole at the
+    end."""
     from apex_tpu_torch.serving import (
-        ContinuousBatchingScheduler, FaultInjector, PagedDecodeEngine,
-        Request, Tracer,
+        ContinuousBatchingScheduler, DisaggregatedRouter, FaultInjector,
+        PagedDecodeEngine, PoolRouter, Request, Tracer,
     )
 
     kw = dict(num_slots=NUM_SLOTS, num_pages=PAGED_POOL, page_size=PAGE,
               cache_dtype=torch.bfloat16)
     kw.update(engine_kw or {})
-    eng = PagedDecodeEngine(params, cfg, max_len=MAX_LEN, buckets=BUCKETS,
-                            injector=FaultInjector(**faults) if faults
-                            else None, tracer=Tracer(), device=dev, **kw)
-    sched = ContinuousBatchingScheduler(eng, eos_id=-1, audit=True,
-                                        **sched_kw)
+    inj, trc = FaultInjector(**(faults or {})), Tracer()
+    engines = [PagedDecodeEngine(params, cfg, max_len=MAX_LEN,
+                                 buckets=BUCKETS, injector=inj, tracer=trc,
+                                 device=dev, **kw)
+               for _ in range({None: 1, "pair": 2, "pool": 4}[route])]
+    if route is None:
+        sched = ContinuousBatchingScheduler(engines[0], eos_id=-1,
+                                            audit=True, **sched_kw)
+    elif route == "pair":
+        sched = DisaggregatedRouter(*engines, eos_id=-1, audit=True,
+                                    **sched_kw)
+    else:
+        sched = PoolRouter(engines[:2], engines[2:], eos_id=-1, audit=True,
+                           **sched_kw)
+    eng = sched.engine
     fired = []
     draw = eng.injector.draw
 
@@ -5422,17 +5471,19 @@ def chaos_run(dev, cfg, params, kern, prompts, temps, label, faults=None,
 
     eng.injector.draw = logged
     rows = capture_rows(eng, sched) if capture else None
-    if submit is None:
+    if submit is not None:
+        submit(sched)
+    elif open_loop is None:
         for i, p in enumerate(prompts):
             sched.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS,
                                  temperature=temps[i] if temps else 0.0,
                                  seed=i))
-    else:
-        submit(sched)
     torch.cuda.synchronize()
     for k in kern.values():
         k.launches = 0
     t0 = time.perf_counter()
+    if open_loop is not None:
+        drive_open_loop(sched, open_loop)
     pending = sorted(arrivals, key=lambda a: a[0])
     steps = 0
     while pending or sched.busy:
@@ -5450,12 +5501,16 @@ def chaos_run(dev, cfg, params, kern, prompts, temps, label, faults=None,
           f"wall: {n_tok / wall:.1f} tokens/s (prefill included); faults "
           f"fired {({s: c for s, c in eng.injector.counts.items() if c})}",
           flush=True)
+    # a handoff that lost its budget ran the remote forward, then the
+    # colocated one: a forward with no prefill tick of its own
+    lost = sched.stats.transfer_failures
     return dict(sched=sched, eng=eng, outs=outs,
                 streams=[list(o.tokens) for o in outs], rows=rows,
                 fired=fired, launches=launches, wall_s=wall, tokens=n_tok,
                 tokens_per_s=n_tok / wall,
-                prefills=sum(o.prefill_ticks or 0 for o in outs),
-                decode_steps=sched.decode_steps)
+                prefills=sum(o.prefill_ticks or 0 for o in outs) + lost,
+                decode_steps=sched.decode_steps, clock=sched.clock,
+                latency=trc.latency_summary())
 
 
 def _preempted(res):
@@ -5845,6 +5900,317 @@ def serve_chaos(dev, kern, o2, paged_run):
     return out
 
 
+# -- the cross-replica tier ------------------------------------------------
+
+# (c): the open-loop mix's tick-clock readings, the same on any device (the
+# clock counts work, not time); tests/test_torch_router.py derives them on
+# the CPU from a one-layer model
+DISAGG_OPEN_LOOP = {
+    "colocated": {"clock": 9506, "ttft_p50": 4930.0, "itl_p99": 3833.554},
+    "pair": {"clock": 160, "ttft_p50": 1.727, "itl_p99": 1.724}}
+# (d): the 2x2 pool's pinned schedule, every cross-replica site. The first
+# handoff's device-to-device reshard loses its budget (reshard_send 0-2) and
+# re-ships host-staged, whose first send drops (page_send 0) and first payload
+# is corrupt (page_recv 0); the next reshard's payload is corrupt
+# (reshard_recv 0); the third remote admission's pick degrades to fixed order
+# (pool_route 2); the active decode0 fails its probes at ticks 10 and 11 (the
+# probe order prefill0, prefill1, decode0, decode1 a tick: index 4 (t - 1) +
+# 2), the slots fail over to decode1 and decode0 climbs back up its ladder
+POOL_PINNED = {"reshard_send": (0, 1, 2), "page_send": (0,),
+               "page_recv": (0,), "reshard_recv": (0,), "pool_route": (2,),
+               "replica_health": (38, 42)}
+# both decode replicas fail at ticks 10 and 11: the slots borrow a prefill
+# replica, then move home once a decode replica is routable again
+POOL_DECODE_DOWN = {"replica_health": (38, 39, 42, 43)}
+# the ServingStats counter each fired cross-replica site moves
+ROUTE_COUNTERS = {"reshard_send": "reshard_retries",
+                  "reshard_recv": "reshard_corrupt",
+                  "page_send": "transfer_retries",
+                  "page_recv": "transfer_corrupt",
+                  "pool_route": "route_fallbacks",
+                  "replica_health": "failovers"}
+DISAGG_KERNELS = ("layer_norm_fwd", "flash_attention_fwd", "threefry_bits",
+                  "paged_decode_attention")
+SHIP_PAGES = 8       # (e): one 512-token prompt's pages
+
+
+def _route_metric(res, name, replicas):
+    """A per-replica labeled counter of the run's registry, summed."""
+    reg = res["eng"].tracer.registry
+    got = [reg.get(name, labels={"replica": r}) for r in replicas]
+    return sum(int(g.value) for g in got if g is not None)
+
+
+def ship_cost(dev, cfg, params):
+    """(e): the host-staged channel's cost on the card for one prompt of
+    ``SHIP_PAGES`` pages of the ``serving_paged`` engine (bf16 pool):
+    wall ms of the device -> host gather, the sha256 and the host ->
+    device insert, each timed alone (the stream synchronized around it),
+    and of a whole ``PageTransfer.ship`` (gather and two digests); the
+    median of 5 repeats after one warm-up, per page. The inserted pages
+    must equal the source pages bit for bit."""
+    from apex_tpu_torch.serving import (
+        PagedDecodeEngine, PageTransfer, prefix_page_keys, transfer_checksum,
+    )
+    from apex_tpu_torch.serving.transfer import (
+        _default_gather, make_extract_pages_fn, make_insert_pages_fn,
+    )
+
+    eng = PagedDecodeEngine(params, cfg, num_slots=NUM_SLOTS,
+                            max_len=MAX_LEN, num_pages=PAGED_POOL,
+                            page_size=PAGE, buckets=BUCKETS, device=dev)
+    prompt = list(prefix_prompts(cfg)[0][:SHIP_PAGES * PAGE])
+    eng.prefill(0, prompt)
+    src = list(eng._slot_pages[0])
+    dst = [eng.pool.alloc() for _ in src]
+    key = prefix_page_keys(prompt, PAGE)[-1]
+    extract, insert = make_extract_pages_fn(), make_insert_pages_fn()
+    transfer = PageTransfer(tracer=eng.tracer, stats=eng.stats)
+    laps = {"device_to_host": [], "sha256": [], "host_to_device": [],
+            "ship": []}
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k, v = _default_gather(*extract(eng.cache, src))
+        t1 = time.perf_counter()
+        transfer_checksum(k, v, key)
+        t2 = time.perf_counter()
+        insert(eng.cache, dst, k, v)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        transfer.ship(eng, prompt, src)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for name, t in zip(laps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            laps[name].append(t)
+    check(len(src) == SHIP_PAGES
+          and torch.equal(eng.cache.k[:, dst], eng.cache.k[:, src])
+          and torch.equal(eng.cache.v[:, dst], eng.cache.v[:, src]),
+          f"(e) {len(src)} pages staged through the host and inserted bit "
+          "for bit")
+    nbytes = k.nbytes + v.nbytes
+    out = {f"{n}_ms_per_page": statistics.median(t[1:]) * 1e3 / len(src)
+           for n, t in laps.items()}
+    out.update(pages=len(src), bytes=int(nbytes), card=card_line(),
+               device_to_host_gb_per_s=nbytes / statistics.median(
+                   laps["device_to_host"][1:]) / 1e9,
+               sha256_gb_per_s=nbytes / statistics.median(
+                   laps["sha256"][1:]) / 1e9)
+    print(f"(e) the host-staged channel, {len(src)} pages of {PAGE} "
+          f"({nbytes / 1e6:.1f} MB of bf16 tiles), ms a page: "
+          + ", ".join(f"{n} {out[n + '_ms_per_page']:.3f}" for n in laps)
+          + f"; {card_line()}", flush=True)
+    return out
+
+
+def serve_disagg(dev, kern, f32, o2):
+    """``serving_disagg``: the cross-replica tier at GPT-2 medium's full
+    width, replicas of ``serving_paged``'s engine (O2 bf16 params, one
+    tree for all, 8 slots, max_len 1024, pages of 64, ``PAGED_POOL``
+    pages, EOS -1) on one card, every run traced and audited every tick,
+    each mix's colocated run in this process its golden: (a) a
+    ``DisaggregatedRouter`` on the serving mix and the shared-prefix mix,
+    half sampled: every stream golden, the prefix mix's handoffs deduped;
+    (b) a 2x2 ``PoolRouter`` on both mixes over the reshard tier and once
+    host-staged: (a)'s streams, every request queued at tick 0, the
+    pool's clock at most the pair's; (c) the pair and the colocated
+    scheduler open-loop (:func:`chunked_arrivals`): the same streams, and
+    the tick readings :data:`DISAGG_OPEN_LOOP`; (d) the pool under
+    :data:`POOL_PINNED` with fp32 params and pool (every stream golden),
+    with O2 bf16 params over an fp32 pool and over the bf16 pool (the
+    undrained requests golden, the drained ones' equal tokens and margins
+    printed: a failover re-prefills their committed tokens through the
+    prefill's sums, not the decode ticks', which bf16 compute rounds
+    apart), the bf16 run twice (the same outcomes, counters and tick
+    stream), and :data:`POOL_DECODE_DOWN` in fp32; (e)
+    :func:`ship_cost`."""
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.serving import Request
+
+    cfg = gpt_medium()
+    L = cfg.num_layers
+    phase("serving_disagg: a DisaggregatedRouter pair and a 2x2 PoolRouter "
+          "of serving_paged's engine on one card: fault-free against "
+          "colocated, open-loop ticks, the router chaos, the host-staged "
+          "channel's cost")
+    mixes = {"mix": mix_prompts(cfg), "prefix": prefix_prompts(cfg)}
+    out, tally = {}, {"pair": [], "pool": [], "colocated": []}
+
+    def run(label, prompts=None, temps=SPEC_TEMPS, route=None,
+            params=o2, **kw):
+        res = chaos_run(dev, cfg, params, kern, prompts, temps, label,
+                        route=route, **kw)
+        tally[route or "colocated"].append(res["launches"])
+        _chaos_launches(res, L, label)
+        return res
+
+    with torch.inference_mode():
+        # (a), (b): fault-free, every request queued at tick 0
+        gold = {}
+        for name, prompts in mixes.items():
+            gold[name] = run(f"(a) golden, colocated, {name}", prompts,
+                             capture=name == "prefix")
+            pair = run(f"(a) pair, {name}", prompts, route="pair")
+            pool = run(f"(b) 2x2 pool, {name}", prompts, route="pool")
+            runs = {"pair": pair, "pool": pool}
+            if name == "mix":
+                runs["pool_host_staged"] = run(
+                    "(b) 2x2 pool, host-staged, mix", prompts,
+                    route="pool", use_reshard=False)
+            for rname, res in runs.items():
+                st = res["sched"].stats
+                check(res["streams"] == gold[name]["streams"]
+                      and st.remote_prefills == len(prompts)
+                      and st.colocated_prefills == 0,
+                      f"{rname}, {name}: every stream the colocated one, "
+                      f"{st.remote_prefills} remote prefills")
+            check(pool["clock"] <= pair["clock"],
+                  f"(b) {name}: the pool's clock {pool['clock']} <= the "
+                  f"pair's {pair['clock']} (handoffs from two prefill "
+                  "replicas overlap)")
+            out[name] = {}
+            for rname, res in runs.items():
+                st = res["sched"].stats
+                reps = (("prefill",) if rname == "pair"
+                        else ("prefill0", "prefill1"))
+                shipped = sum(_route_metric(res, f"{fam}_src_bytes_total",
+                                            reps)
+                              for fam in ("serving_transfer",
+                                          "serving_reshard"))
+                out[name][rname] = dict(
+                    remote_prefills=st.remote_prefills,
+                    transfers=st.transfers, reshards=st.reshards,
+                    pages_deduped=st.transfer_pages_deduped,
+                    bytes_shipped=shipped, clock=res["clock"],
+                    wall_s=res["wall_s"], tokens_per_s=res["tokens_per_s"])
+                print(f"{rname}, {name}: {json.dumps(out[name][rname])}",
+                      flush=True)
+            out[name]["golden"] = dict(clock=gold[name]["clock"],
+                                       wall_s=gold[name]["wall_s"],
+                                       tokens_per_s=gold[name][
+                                           "tokens_per_s"])
+            if name == "prefix":
+                check(all(out[name][r]["pages_deduped"] > 0 for r in runs),
+                      "(a), (b) prefix mix: pages deduped "
+                      f"{[out[name][r]['pages_deduped'] for r in runs]}")
+            del runs, pair, pool
+
+        # (c) open-loop tick clock, greedy, no chunking
+        prompts = mixes["mix"]
+
+        def arrivals():
+            return [(t, Request(prompt=prompts[i], max_new_tokens=NEW_TOKENS,
+                                seed=i)) for t, i in chunked_arrivals(cfg)]
+
+        ol = {r: run(f"(c) open loop, {r}", route=None if r == "colocated"
+                     else "pair", open_loop=arrivals())
+              for r in ("colocated", "pair")}
+        ticks = {r: {"clock": res["clock"],
+                     "ttft_p50": res["latency"]["ttft_p50"],
+                     "itl_p99": res["latency"]["itl_p99"]}
+                 for r, res in ol.items()}
+        print(f"(c) open loop, tick-clock latency (ticks): "
+              f"{json.dumps(ticks)}", flush=True)
+        check(ol["pair"]["streams"] == ol["colocated"]["streams"]
+              and ticks == DISAGG_OPEN_LOOP
+              and ticks["pair"]["itl_p99"] <= ticks["colocated"]["itl_p99"],
+              "(c) the pair's streams the colocated ones, and the ticks the "
+              "CPU's prediction: inter-token p99 "
+              f"{ticks['pair']['itl_p99']} <= {ticks['colocated']['itl_p99']}")
+        out["c_open_loop"] = {r: dict(ticks[r], wall_s=res["wall_s"])
+                              for r, res in ol.items()}
+        del ol
+
+        # (d) the router chaos on the pool
+        prompts = mixes["prefix"]
+        fp32 = dict(cache_dtype=torch.float32)
+        gold32 = run("(d) golden, colocated, fp32", prompts, params=f32,
+                     engine_kw=fp32)
+        res32 = run("(d) pinned faults, fp32", prompts, route="pool",
+                    params=f32, engine_kw=fp32,
+                    faults=dict(schedule=POOL_PINNED))
+        chaos_contract(gold32, res32, "(d) fp32", strict=True)
+        # serving's own O2 bf16 params over the fp32 pool: the undrained
+        # requests held, the drained ones' equal tokens and margins printed
+        gold_o2 = run("(d) golden, colocated, O2 params, fp32 pool",
+                      prompts, engine_kw=fp32, capture=True)
+        o2f = run("(d) pinned faults, O2 params, fp32 pool", prompts,
+                  route="pool", engine_kw=fp32,
+                  faults=dict(schedule=POOL_PINNED), capture=True)
+        touched_o2f = _preempted(o2f)
+        parts_o2f = chaos_contract(gold_o2, o2f,
+                                   "(d) O2 params, fp32 pool", touched_o2f)
+        bf = run("(d) pinned faults, bf16 pool", prompts, route="pool",
+                 faults=dict(schedule=POOL_PINNED), capture=True)
+        touched = _preempted(bf)
+        parts = chaos_contract(gold["prefix"], bf, "(d) bf16 pool", touched)
+        replay = run("(d) the bf16 pinned run again", prompts,
+                     route="pool", faults=dict(schedule=POOL_PINNED))
+        check(replay["streams"] == bf["streams"]
+              and _summary(replay) == _summary(bf),
+              "(d) replay: streams, outcomes, stats, injector counts and "
+              f"tracer.tick_stream() the same "
+              f"({len(replay['eng'].tracer.tick_stream())} events)")
+        for label, res in (("fp32", res32), ("O2 params, fp32 pool", o2f),
+                           ("bf16", bf)):
+            counts = res["eng"].injector.counts
+            st = res["sched"].stats
+            health = {n: h.state for n, h in res["sched"].health.items()}
+            degrade = [dict(e.args) for e in res["eng"].tracer.events
+                       if e.name == "failover"
+                       and dict(e.args).get("cause") == "ReshardFailed"]
+            check(all(counts[s] >= 1 and getattr(st, c) >= 1
+                      for s, c in ROUTE_COUNTERS.items())
+                  and st.reshard_failures == 1 and len(degrade) == 1
+                  and st.failovers == 1
+                  and res["eng"].active_name == "decode1"
+                  and health["decode0"] != "down"
+                  and st.colocated_prefills == 0,
+                  f"(d) {label}: every cross-replica site fired "
+                  f"({({s: counts[s] for s in POOL_PINNED})}); one "
+                  f"ReshardFailed degraded to host staging; decode0 failed "
+                  f"over to decode1 and climbed back ({health['decode0']})")
+        down = run("(d) both decode replicas down, fp32", prompts,
+                   route="pool", params=f32, engine_kw=fp32,
+                   faults=dict(schedule=POOL_DECODE_DOWN))
+        chaos_contract(gold32, down, "(d) decode replicas down", strict=True)
+        ds = down["sched"].stats
+        moves = [dict(e.args) for e in down["eng"].tracer.events
+                 if e.name == "rebalance"]
+        check(ds.failovers >= 1 and ds.rebalances >= 2
+              and any(m["target"].startswith("prefill") for m in moves)
+              and down["eng"].active_name in down["eng"].decode_names,
+              f"(d) both decode replicas down: the slots moved {moves} "
+              "(a prefill replica borrowed, then home)")
+        out["d_chaos"] = dict(
+            counts=bf["eng"].injector.counts, touched=sorted(touched),
+            partings=parts, touched_o2_fp32_pool=sorted(touched_o2f),
+            partings_o2_fp32_pool=parts_o2f, moves=moves,
+            stats={k: v for k, v in bf["sched"].stats.as_dict().items()
+                   if v},
+            tokens_per_s=dict(fp32=res32["tokens_per_s"],
+                              bf16=bf["tokens_per_s"],
+                              o2_fp32_pool=o2f["tokens_per_s"],
+                              fp32_golden=gold32["tokens_per_s"]),
+            tick_events=len(bf["eng"].tracer.tick_stream()))
+        del gold, gold32, res32, gold_o2, o2f, bf, replay, down
+        torch.cuda.empty_cache()
+        out["e_ship"] = ship_cost(dev, cfg, o2)
+    launches = {path: {n: sum(r[n] for r in runs) for n in kern}
+                for path, runs in tally.items()}
+    for path in ("pair", "pool"):
+        got = launches[path]
+        check(all(got[n] > 0 for n in DISAGG_KERNELS)
+              and not any(c for n, c in got.items()
+                          if n not in DISAGG_KERNELS),
+              f"serving_disagg's {path} runs launched "
+              f"{({n: c for n, c in got.items() if c})}: every kernel of "
+              "their path, nothing else")
+    out["launches"] = launches
+    torch.cuda.empty_cache()
+    return out
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -5924,6 +6290,7 @@ def main():
     srv_tier = serve_tiered(dev, kern, params_o2)
     srv_chunk = serve_chunked(dev, kern, params_o2)
     srv_chaos = serve_chaos(dev, kern, params_o2, srv_paged)
+    srv_disagg = serve_disagg(dev, kern, params_f32, params_o2)
     del params_f32, params_o2
     torch.cuda.empty_cache()
     small = train_small(dev)
@@ -5963,6 +6330,10 @@ def main():
                       for k in ("paged_chunked", "paged_monolithic",
                                 "dense_chunked", "dense_monolithic")},
                    "serving_chaos": srv_chaos["launches"][n],
+                   "serving_disagg": srv_disagg["launches"]["pair"][n],
+                   "serving_pool": srv_disagg["launches"]["pool"][n],
+                   "serving_disagg_colocated": (
+                       srv_disagg["launches"]["colocated"][n]),
                    "training_dropout": big["fp32 dropout"]["launches"][n],
                    "training_ddp_world1": ddp1["launches"][n]}
                for n in kern}
@@ -6288,6 +6659,7 @@ def main():
     print(f"serving_paged_tiered: {json.dumps(srv_tier)}")
     print(f"serving_chunked: {json.dumps(srv_chunk)}")
     print(f"serving_chaos: {json.dumps(srv_chaos)}")
+    print(f"serving_disagg: {json.dumps(srv_disagg)}")
     print(f"GPT training, card vs CPU: {json.dumps(gpt_small)}")
     print(f"GPT-medium training: {json.dumps(gpt_big)}")
     print(f"pretrain_gpt losses: {json.dumps(pre)}")

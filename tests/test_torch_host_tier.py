@@ -16,7 +16,11 @@ params carried across by ``params_from_jax``.
   tier, with its spill and promote counters and its outcomes' tick
   accounting: a promoted admission is charged its suffix's depth plus
   the promote ticks, so the re-admitted prompt's TTFT beats the
-  re-prefill's.
+  re-prefill's;
+- through a ``DisaggregatedRouter`` whose replicas share one registry,
+  the routed streams equal the tier-less pair's, and the JAX pair's
+  stats, tick stream and ticks; a registry on one replica only is
+  refused.
 
 The fault-site cases (``host_spill`` / ``host_promote`` injection) wait
 for the fault injector (ROADMAP A4.4)."""
@@ -356,3 +360,63 @@ def test_host_tier_takes_known_dtypes_only(model):
             params, cfg, num_slots=1, max_len=MAX_LEN, num_pages=10,
             page_size=4, buckets=(16, 32), cache_dtype=torch.float64,
             host_tier=PrefixRegistry(1 << 20), device="cpu")
+
+
+# -- the disaggregated pair over one registry ---------------------------------
+
+def _disagg(model, tier, mod=port_serving):
+    """The churn drive through a ``DisaggregatedRouter`` whose replicas
+    (fp32 pools of 10 pages) share ``tier``, traced."""
+    jcfg, jp, pcfg, pp = model
+    inj, trc = mod.FaultInjector(), mod.Tracer()
+    if mod is port_serving:
+        pe, de = (_engine(model, host_tier=tier, injector=inj, tracer=trc)
+                  for _ in range(2))
+    else:
+        pe, de = (_jax_engine(model, host_tier=tier, injector=inj,
+                              tracer=trc) for _ in range(2))
+    router = mod.DisaggregatedRouter(pe, de, eos_id=EOS, audit=True)
+    for r in _churn_reqs(mod.Request):
+        router.submit(r)
+    with torch.inference_mode():
+        outs = router.run()
+    return pe, de, router, outs
+
+
+def test_disagg_pair_shares_one_registry(model):
+    """Both replicas spill into and promote from ONE registry (the
+    active side promotes the remote's spills), the routed streams equal
+    the tier-less pair's, and the JAX pair's streams, stats, tick
+    stream and outcomes' ticks with the same tier."""
+    golden = _disagg(model, None)[3]
+    tier = PrefixRegistry(1 << 20)
+    pe, de, router, outs = _disagg(model, tier)
+    assert outs == golden
+    assert de.stats.host_promotes > 0
+    assert pe.stats.host_spills + de.stats.host_spills > 0
+    assert tier.hit_rate > 0
+    jtier = jax_serving.PrefixRegistry(1 << 20)
+    _, _, jrouter, jouts = _disagg(model, jtier, jax_serving)
+    assert outs == jouts
+    assert router.stats.as_dict() == jrouter.stats.as_dict()
+    assert router.tracer.tick_stream() == jrouter.tracer.tick_stream()
+    assert [(o.ttft_ticks, o.total_ticks) for _, o in
+            sorted(router.outcomes.items())] == [
+        (o.ttft_ticks, o.total_ticks) for _, o in
+        sorted(jrouter.outcomes.items())]
+    assert tier.stats() == jtier.stats()
+
+
+def test_disagg_rejects_mismatched_tiers(model):
+    """A tier on one replica only is refused, with the JAX message."""
+    def refuse(mod, make):
+        inj, trc = mod.FaultInjector(), mod.Tracer()
+        pe = make(model, host_tier=mod.PrefixRegistry(1024), injector=inj,
+                  tracer=trc)
+        de = make(model, host_tier=None, injector=inj, tracer=trc)
+        with pytest.raises(ValueError, match="share ONE PrefixRegistry") \
+                as ei:
+            mod.DisaggregatedRouter(pe, de, eos_id=EOS)
+        return str(ei.value)
+
+    assert refuse(port_serving, _engine) == refuse(jax_serving, _jax_engine)

@@ -83,7 +83,9 @@ refuses without a launch counted. A ``PagedDecodeEngine`` at
 BERT step on an NCCL world of one equals the plain step bit for
 bit. A ``PagedDecodeEngine`` with a ``FaultInjector`` quarantines a NaN
 decode row on the card without touching the co-tenant's stream and
-leaves the pool whole."""
+leaves the pool whole. A ``DisaggregatedRouter`` pair and a 2x2
+``PoolRouter`` of paged engines on one card commit the colocated
+scheduler's streams, a corrupt handoff quarantined and retried."""
 
 import functools
 import importlib
@@ -2360,3 +2362,67 @@ def test_paged_engine_quarantines_a_nan_decode_row(cuda_device):
     assert all(n == 1 for n in snap["refcounts"].values())
     assert len(snap["refcounts"]) == snap["num_cached"]
     assert eng.pool.num_free + eng.pool.num_cached == eng.pool.num_usable
+
+
+@pytest.mark.cuda
+def test_routed_serving_on_the_card_equals_colocated(cuda_device):
+    """The cross-replica tier on the card: a 2-layer ``gpt_tiny`` on bf16
+    ``PagedDecodeEngine`` replicas sharing one card. A
+    ``DisaggregatedRouter`` pair and a 2x2 ``PoolRouter`` serve every
+    admission remotely and commit the colocated scheduler's greedy and
+    sampled streams token for token (the pages copied verbatim, the same
+    kernels on the same inputs); a ``page_recv`` corruption on the pair
+    is quarantined at the checksum and retried to the same streams; the
+    paged kernel ran every decode tick."""
+    import dataclasses
+
+    from apex_tpu_torch.models.gpt import gpt_tiny, init_gpt
+    from apex_tpu_torch.serving import (
+        ContinuousBatchingScheduler, DisaggregatedRouter, FaultInjector,
+        PagedDecodeEngine, PoolRouter, Request, Tracer,
+    )
+    from apex_tpu_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(gpt_tiny(), num_layers=2)
+    params = tree_map(lambda t: t.to(cuda_device, torch.bfloat16), init_gpt(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    reqs = [Request(prompt=(1, 2, 3, 4, 5), max_new_tokens=8),
+            Request(prompt=(6, 7, 8), max_new_tokens=6, temperature=0.8,
+                    seed=7),
+            Request(prompt=(1, 2, 3, 4, 9, 10), max_new_tokens=5)]
+
+    def engines(n, injector):
+        trc = Tracer()
+        return [PagedDecodeEngine(params, cfg, num_slots=2, max_len=32,
+                                  num_pages=20, page_size=4,
+                                  buckets=(16, 32), injector=injector,
+                                  tracer=trc, device=cuda_device)
+                for _ in range(n)]
+
+    def run(sched):
+        for r in reqs:
+            sched.submit(r)
+        n0 = pa_mod.PAGED_DECODE.launches
+        with torch.inference_mode():
+            streams = sched.run()
+        assert pa_mod.PAGED_DECODE.launches - n0 \
+            == cfg.num_layers * sched.decode_steps > 0
+        return streams
+
+    golden = run(ContinuousBatchingScheduler(engines(1, None)[0], eos_id=-1,
+                                             audit=True))
+    pair = DisaggregatedRouter(*engines(2, FaultInjector()), eos_id=-1,
+                               audit=True)
+    assert run(pair) == golden
+    assert pair.stats.remote_prefills == len(reqs)
+    assert pair.stats.transfer_pages_deduped == 1
+    e = engines(4, FaultInjector())
+    pool = PoolRouter(e[:2], e[2:], eos_id=-1, audit=True)
+    assert run(pool) == golden
+    assert pool.stats.reshards == pool.stats.remote_prefills == len(reqs)
+    bad = DisaggregatedRouter(*engines(2, FaultInjector(
+        schedule={"page_recv": (0,)})), eos_id=-1, audit=True)
+    assert run(bad) == golden
+    assert bad.stats.transfer_corrupt == 1 and bad.stats.transfer_retries == 1
+    assert bad.stats.transfer_failures == 0
+    assert all(o.ok for o in bad.outcomes.values())

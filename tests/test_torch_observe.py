@@ -16,7 +16,11 @@ side on the same inputs.
   speculative, chunked and host-tier runs with no
   fault injector, and so do its registry (Prometheus text), its
   ``latency_summary()`` and its outcomes' tick fields; the Perfetto dump
-  is the JAX dump up to the wall-clock fields.
+  is the JAX dump up to the wall-clock fields;
+- the disaggregated pair's and the 2x2 pool's spans, per-replica
+  counters, histograms and gauges under a pinned fault schedule: their
+  tick streams replay and equal the JAX package's, and so do their
+  registries.
 """
 
 import dataclasses
@@ -412,3 +416,111 @@ def test_perfetto_jsonl_dump_matches_jax(traced, tmp_path):
     got = load(tp, "port.jsonl")
     assert {d["ph"] for d in got} == {"X", "i"}
     assert got == load(tj, "jax.jsonl")
+
+
+# -- the cross-replica tier ---------------------------------------------------
+
+def _routed(model, mod, pool):
+    """The reference's traced routed run on either package: the pair
+    under one pinned ``page_send`` drop, or the 2x2 pool under a pinned
+    reshard drop and decode0's death; three sampled requests."""
+    jcfg, jp, pcfg, pp = model
+    if pool:
+        inj = mod.FaultInjector(schedule={"reshard_send": (0,),
+                                          "replica_health": (2, 6)})
+    else:
+        inj = mod.FaultInjector(schedule={"page_send": (0,)})
+    trc = mod.Tracer()
+    cfg, params = (pcfg, pp) if mod is port_serving else (jcfg, jp)
+    dev = {"device": "cpu"} if mod is port_serving else {}
+    engines = [mod.PagedDecodeEngine(
+        params, cfg, num_slots=2, max_len=MAX_LEN, num_pages=20,
+        page_size=4, buckets=(16, 32), injector=inj, tracer=trc, **dev)
+        for _ in range(4 if pool else 2)]
+    if pool:
+        router = mod.PoolRouter(engines[:2], engines[2:], EOS, audit=True)
+    else:
+        router = mod.DisaggregatedRouter(*engines, EOS, audit=True)
+    for s in range(3):
+        router.submit(mod.Request(prompt=(7, 11, 13 + s), max_new_tokens=6,
+                                  temperature=0.7, seed=s))
+    with torch.inference_mode():
+        router.run()
+    return router, trc
+
+
+def _same_as_jax(model, pool):
+    router, trc = _routed(model, port_serving, pool)
+    jrouter, jtrc = _routed(model, jax_serving, pool)
+    assert trc.tick_stream() == jtrc.tick_stream()
+    assert trc.registry.to_prometheus() == jtrc.registry.to_prometheus()
+    assert router.stats.as_dict() == jrouter.stats.as_dict()
+    again = _routed(model, port_serving, pool)[1]
+    assert trc.tick_stream() == again.tick_stream()
+    return router, trc
+
+
+def test_disagg_transfer_metrics_and_replay(model):
+    """The pair's observability: one ``page_transfer`` span a handoff
+    (the pinned drop retried inside the first), per-replica labeled
+    transfer counters, the ``serving_transfer_ticks`` histogram, both
+    health gauges, one counter block; the tick stream replays and
+    equals the JAX package's, and so does the registry."""
+    router, trc = _same_as_jax(model, pool=False)
+    names = {e.name for e in trc.events}
+    assert "page_transfer" in names
+    assert names <= set(port_observe.PHASES) | set(port_observe.LIFECYCLE)
+    spans = [e for e in trc.events if e.name == "page_transfer"]
+    assert len(spans) == router.stats.remote_prefills == 3
+    assert router.stats.transfer_retries == 1
+    assert router.stats.transfer_failures == 0
+    reg = trc.registry
+    labels = {"replica": "prefill"}
+    assert reg.get("serving_transfer_src_bytes_total",
+                   labels=labels).value > 0
+    assert reg.get("serving_transfer_src_retries_total",
+                   labels=labels).value == 1
+    assert reg.get("serving_transfer_src_failures_total",
+                   labels=labels).value == 0
+    assert reg.get("serving_transfer_ticks", labels=labels).count == 3
+    for replica in ("prefill", "decode"):
+        assert reg.get("serving_replica_health",
+                       labels={"replica": replica}).value \
+            == port_serving.HEALTH_STATES.index("healthy")
+    assert router.stats.registry is reg
+    assert reg.counter("serving_transfers_total").value \
+        == router.stats.transfers == 3
+
+
+def test_pool_metrics_and_replay(model):
+    """The pool's observability: one ``reshard`` span a device-to-device
+    handoff, the routing counters by reason, the per-replica load gauge,
+    labeled reshard counters, the ``rebalance`` instant of the failover
+    move; the tick stream replays and equals the JAX package's, and so
+    does the registry."""
+    pool, trc = _same_as_jax(model, pool=True)
+    names = {e.name for e in trc.events}
+    assert {"reshard", "rebalance"} <= names
+    assert names <= set(port_observe.PHASES) | set(port_observe.LIFECYCLE)
+    spans = [e for e in trc.events if e.name == "reshard"]
+    assert len(spans) == pool.stats.reshards >= 3
+    assert pool.stats.reshard_retries == 1
+    assert pool.stats.reshard_failures == 0
+    assert pool.stats.failovers == 1 and pool.stats.rebalances == 1
+    reg = trc.registry
+    assert reg.get("serving_pool_routing_total",
+                   labels={"reason": "load"}).value \
+        == pool.stats.remote_prefills
+    for replica in ("prefill0", "prefill1"):
+        assert reg.get("serving_pool_replica_load",
+                       labels={"replica": replica}) is not None
+    total = sum(
+        reg.get("serving_reshard_src_bytes_total", labels={"replica": r})
+        .value for r in ("prefill0", "prefill1")
+        if reg.get("serving_reshard_src_bytes_total",
+                   labels={"replica": r}) is not None)
+    assert total > 0
+    for replica in ("prefill0", "prefill1", "decode0", "decode1"):
+        g = reg.get("serving_replica_health", labels={"replica": replica})
+        assert g is not None \
+            and g.value <= port_serving.HEALTH_STATES.index("healthy")

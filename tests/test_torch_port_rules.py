@@ -699,13 +699,6 @@ DEPARTURES.update({
 # item lands, delete its entry: the scan then holds every one of its names
 # to the reference.
 OWED = {
-    "A4.4.5 transfer.py's rest": [
-        f"serving/{m}:{n}" for m in ("transfer.py", "__init__.py")
-        for n in ("make_tile_transfer_fns", "make_reshard_extract_fn",
-                  "transfer_checksum", "PageTransfer", "PageReshard")],
-    "A4.4.6 router.py": [
-        "serving/__init__.py:DisaggregatedRouter",
-        "serving/__init__.py:PoolRouter"],
     "A4.5 tensor-parallel serving": [
         f"serving/{m}:make_tp_{n}_fn" for m in ("decode.py", "__init__.py")
         for n in ("prefill", "decode", "verify", "paged_prefill",
@@ -737,6 +730,9 @@ OWED = {
         "serving/cache.py:paged_cache_partition_specs",
         "serving/__init__.py:cache_partition_specs",
         "serving/__init__.py:paged_cache_partition_specs",
+        # the page transfer between two sub-meshes needs the model axis
+        *[f"serving/{m}:{n}" for m in ("transfer.py", "__init__.py")
+          for n in ("make_tile_transfer_fns", "make_reshard_extract_fn")],
         "optimizers/fused_adam.py:FusedAdam.state_partition_specs",
         "transformer/__init__.py:layers",
         "transformer/__init__.py:pipeline_parallel",
@@ -772,6 +768,10 @@ DEPARTURES_IN_MEANING = {
         "the identity: each process holds its own replica",
     "parallel/distributed.py:DistributedDataParallel.replicate":
         "the identity: each process holds its own copy",
+    "serving/transfer.py:PageReshard.__init__":
+        "src_mesh= / dst_mesh= (a reshard between two sub-meshes) raise "
+        "NotImplementedError naming A6; at None, the reference's default, "
+        "the tiles take the host round trip",
 }
 
 # Packages whose ``__init__`` exports are held to the reference's (the

@@ -17,10 +17,12 @@ slots, max_len 32, pages of 4, the params carried across by
   is stamped with ``ok`` untouched;
 - the multi-fault tenant chaos replays exactly, and on its first seed
   the outcomes, stats, injector counts, tick stream, the tenant gauges
-  and the stream mux's ``snapshot()`` equal the JAX scheduler's.
+  and the stream mux's ``snapshot()`` equal the JAX scheduler's;
+- the same identity and strict-prefix delivery through the
+  ``PoolRouter`` (two prefill replicas, one decode replica, one shared
+  injector and tracer), the pool's ``stream_emit`` chaos equal to the
+  JAX pool's.
 
-The pool-router cases (``test_pool_tenanted_streams_bit_identical``,
-``test_stream_emit_chaos_on_pool``) wait for the port's ``router.py``.
 The port runs on one CPU thread (the module's fixture).
 """
 
@@ -195,6 +197,63 @@ def test_tenanted_streams_bit_identical_to_untenanted(model, spec_k,
         assert st.delivered == golden[rid]
     assert sched.tenancy.charged_total() == 0
     assert sched.stats.stream_tokens == sum(len(g) for g in golden)
+
+
+def test_pool_tenanted_streams_bit_identical(model):
+    """The same identity through the pool tier: tenancy and streaming
+    ride the PoolRouter's composite engine without moving a token."""
+    golden = _golden(model)
+    inj, trc = S.FaultInjector(), S.Tracer()
+    pool = S.PoolRouter([_engine(model, inj, tracer=trc) for _ in range(2)],
+                        [_engine(model, inj, tracer=trc)], EOS, audit=True,
+                        tenancy=S.TenancyPolicy(_tenants(S)), streams=True)
+    assert _drive(pool) == golden
+    for rid, out in sorted(pool.outcomes.items()):
+        assert out.ok and out.tenant_id == _REQS[rid].tenant_id
+        assert pool.streams.streams[rid].delivered == golden[rid]
+    assert pool.tenancy.charged_total() == 0
+    assert pool.stats.remote_prefills == len(_REQS)
+
+
+def _pool_emit_chaos(model, mod=S):
+    """The reference's pool ``stream_emit`` chaos on either package."""
+    jcfg, jp, _, _ = model
+    inj, trc = mod.FaultInjector(seed=5, rates={"stream_emit": 0.5}), \
+        mod.Tracer()
+    if mod is S:
+        engines = [_engine(model, inj, tracer=trc) for _ in range(3)]
+    else:
+        engines = [jax_serving.PagedDecodeEngine(
+            jp, jcfg, num_slots=2, max_len=MAX_LEN, num_pages=24,
+            page_size=4, buckets=(16, 32), injector=inj, tracer=trc)
+            for _ in range(3)]
+    pool = mod.PoolRouter(engines[:2], engines[2:], EOS, audit=True,
+                          tenancy=mod.TenancyPolicy(_tenants(mod)),
+                          streams=True)
+    for r in _reqs(mod):
+        pool.submit(r)
+    with torch.inference_mode():
+        pool.run()
+    return pool
+
+
+def test_stream_emit_chaos_on_pool(model):
+    """The strict-prefix contract through the pool: the mux draws
+    ``stream_emit`` on the pool's shared injector; the run replays
+    exactly, and equals the JAX pool's (outcomes, stats, counts, tick
+    stream, stream snapshots and deliveries)."""
+    golden = _golden(model)
+    pool = _pool_emit_chaos(model)
+    assert pool.stats.stream_failures > 0
+    for rid, out in sorted(pool.outcomes.items()):
+        assert out.ok and list(out.tokens) == golden[rid]
+        st = pool.streams.streams[rid]
+        assert st.delivered == golden[rid][:len(st.delivered)]
+    got = _tenant_summary(pool, [])
+    assert _tenant_summary(_pool_emit_chaos(model), []) == got
+    want = _tenant_summary(_pool_emit_chaos(model, jax_serving), [])
+    for key in want:
+        assert got[key] == want[key], key
 
 
 # -- stream_emit chaos: strict-prefix delivery --------------------------------
