@@ -1,3 +1,9 @@
+from apex_tpu_torch.amp.autocast import (  # noqa: F401
+    autocast,
+    autocast_dtype,
+    cast_args,
+    is_autocast_enabled,
+)
 from apex_tpu_torch.amp.frontend import Amp, initialize  # noqa: F401
 from apex_tpu_torch.amp.policy import (  # noqa: F401
     cast_inputs,
@@ -12,3 +18,4 @@ from apex_tpu_torch.amp.scaler import (  # noqa: F401
     LossScalerState,
     apply_if_finite,
 )
+from apex_tpu_torch.amp import lists  # noqa: F401

@@ -9,14 +9,22 @@ overrides; the handle casts a param tree and carries the loss scaler.
     loss, grads, found_inf, state = h.value_and_grad(loss_fn)(p, state, x)
     master, opt_state = opt.step(grads, master, opt_state,
                                  found_inf=found_inf)
+
+O1 leaves the params fp32 and casts per op instead: run the forward
+inside ``h.autocast()``, where the package's dense, convolution and
+attention products take the compute dtype (``amp.lists``).
+``num_losses=N`` gives N independent scaler states: ``init_state``
+returns a tuple and the reference's ``loss_id`` is plain indexing.
 """
 
 import logging
+import warnings
 from typing import Any, Callable, Optional
 
 import torch
 
 from apex_tpu_torch.amp import policy as _policy
+from apex_tpu_torch.amp.autocast import autocast
 from apex_tpu_torch.amp.properties import Properties, opt_levels
 from apex_tpu_torch.amp.scaler import LossScaler, LossScalerState
 from apex_tpu_torch.utils.platform import DeviceLike
@@ -24,10 +32,12 @@ from apex_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 class Amp:
-    """An opt level's Properties, the model cast and a LossScaler."""
+    """An opt level's Properties, the model cast and a LossScaler
+    (``num_losses`` independent scaler states)."""
 
-    def __init__(self, properties: Properties):
+    def __init__(self, properties: Properties, num_losses: int = 1):
         self.properties = properties
+        self.num_losses = int(num_losses)
         self.scaler = LossScaler(loss_scale=properties.loss_scale)
 
     def cast_model(self, params: Any, precast: Any = None) -> Any:
@@ -51,9 +61,28 @@ class Amp:
             return batch
         return _policy.cast_inputs(batch, p.cast_model_type)
 
+    def master_params(self, params: Any) -> Any:
+        """The fp32 master copy (the tree itself without
+        ``master_weights``)."""
+        if not self.properties.master_weights:
+            return params
+        return _policy.master_params(params)
+
+    def autocast(self):
+        """The O1 context: op-policy casting for the package's ops in
+        scope, in ``cast_model_type`` or bf16; a no-op context unless the
+        opt level patches functions (O1)."""
+        p = self.properties
+        dtype = p.cast_model_type or torch.bfloat16
+        return autocast(dtype=dtype, enabled=bool(p.patch_torch_functions))
+
     # -- scaler ---------------------------------------------------------
-    def init_state(self, device: DeviceLike = None) -> LossScalerState:
-        return self.scaler.init_state(device)
+    def init_state(self, device: DeviceLike = None):
+        """One scaler state, or a tuple of ``num_losses`` of them."""
+        if self.num_losses == 1:
+            return self.scaler.init_state(device)
+        return tuple(self.scaler.init_state(device)
+                     for _ in range(self.num_losses))
 
     def scale_loss(self, loss, state: LossScalerState):
         return self.scaler.scale(loss, state)
@@ -105,11 +134,42 @@ class Amp:
 
         return wrapped
 
+    # -- checkpointing (the reference's ``amp.state_dict``) -------------
+    def state_dict(self, state) -> dict:
+        """One ``loss_scalerI`` entry a scaler state (a single state is
+        scaler 0); host values."""
+        states = state if isinstance(state, (list, tuple)) else (state,)
+        return {f"loss_scaler{i}": self.scaler.state_dict(s)
+                for i, s in enumerate(states)}
+
+    def load_state_dict(self, d: dict, device: DeviceLike = None):
+        """Inverse of :meth:`state_dict`. A count of ``loss_scaler``
+        entries other than ``num_losses`` warns and loads the overlap:
+        surplus entries are dropped, missing scalers start from a fresh
+        state (the reference's ``zip`` truncates silently)."""
+        prefix = "loss_scaler"
+        keys = sorted((k for k in d if k.startswith(prefix)
+                       and k[len(prefix):].isdigit()),
+                      key=lambda k: int(k[len(prefix):]))
+        if len(keys) != self.num_losses:
+            warnings.warn(
+                f"amp state_dict has {len(keys)} loss_scaler entries but "
+                f"this handle was initialized with num_losses="
+                f"{self.num_losses}; loading the overlap — surplus "
+                "checkpoint entries are ignored, missing scalers start "
+                "from a fresh init_state()", stacklevel=2)
+        states = tuple(
+            self.scaler.load_state_dict(d[keys[i]], device)
+            if i < len(keys) else self.scaler.init_state(device)
+            for i in range(self.num_losses))
+        return states[0] if self.num_losses == 1 else states
+
 
 def initialize(opt_level: str = "O1", *, cast_model_type=None,
                keep_batchnorm_fp32: Optional[bool] = None,
                master_weights: Optional[bool] = None, loss_scale=None,
-               enabled: bool = True, verbosity: int = 1) -> Amp:
+               enabled: bool = True, verbosity: int = 1,
+               num_losses: int = 1) -> Amp:
     """Build an :class:`Amp` handle from an opt level + overrides
     (``apex.amp.initialize``'s knobs; nothing is mutated)."""
     if opt_level not in opt_levels:
@@ -135,4 +195,4 @@ def initialize(opt_level: str = "O1", *, cast_model_type=None,
     if verbosity > 0:
         logging.getLogger("apex_tpu_torch").info(
             "amp.initialize: opt_level=%s properties=%s", opt_level, props)
-    return Amp(props)
+    return Amp(props, num_losses=num_losses)

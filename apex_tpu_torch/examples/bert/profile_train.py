@@ -1,6 +1,8 @@
-"""Where the BERT-Large O2 training step's time goes, on the CUDA device:
-random weights from seed 0, batch 64, seq 128, in each optimizer-state
-mode (``fp32``, ``bf16m_castout``), after two warm-up steps.
+"""Where the BERT-Large training step's time goes, on the CUDA device:
+random weights from seed 0, batch 64, seq 128, amp O2 (or ``--opt-level
+O1``: the fp32 params, each forward inside ``h.autocast()``), in each
+optimizer-state mode (``fp32``, ``bf16m_castout``; ``--state-mode``
+picks one), after two warm-up steps.
 
 For each mode it prints, from host clocks around work that ends in a
 device synchronise, the median time of the gradient half of the step
@@ -18,6 +20,8 @@ numbers::
     python -m apex_tpu_torch.examples.bert.profile_train \
         --optimizer lamb --flat-kernel
     python -m apex_tpu_torch.examples.bert.profile_train --dropout-seed 0
+    python -m apex_tpu_torch.examples.bert.profile_train --opt-level O1 \
+        --state-mode fp32
 
 ``--attention softmax`` runs the unfused attention (the fused softmax
 kernels), ``--optimizer lamb`` FusedLAMB in place of FusedAdam,
@@ -73,6 +77,10 @@ def main(argv=None):
                    default="adam")
     p.add_argument("--flat-kernel", action="store_true")
     p.add_argument("--dropout-seed", type=int, default=None)
+    p.add_argument("--opt-level", choices=("O0", "O1", "O2"), default="O2")
+    p.add_argument("--state-mode", choices=sorted(STATE_MODES),
+                   default=None, help="one optimizer-state mode (both "
+                   "without it)")
     args = p.parse_args(argv)
     key = None if args.dropout_seed is None else prng.PRNGKey(
         args.dropout_seed)
@@ -80,11 +88,13 @@ def main(argv=None):
     cfg = dataclasses.replace(bert_large(),
                               fused_attention=args.attention == "flash")
     res = {}
-    for mode, (m_dtype, emit) in STATE_MODES.items():
+    modes = STATE_MODES if args.state_mode is None else {
+        args.state_mode: STATE_MODES[args.state_mode]}
+    for mode, (m_dtype, emit) in modes.items():
         step, make_state, (ids, mask) = make_bert_train_step(
             BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit, device=dev,
             use_flat_kernel=args.flat_kernel, optimizer=args.optimizer,
-            dropout_rng=key)
+            dropout_rng=key, opt_level=args.opt_level)
         state = list(make_state())
         for _ in range(2):
             *state, _ = step(*state, ids, mask)

@@ -2,7 +2,9 @@
 the counterpart of the JAX benchmark's ``bench.py::_bert_step``.
 
 One step: ``amp.initialize("O2", loss_scale="dynamic")`` casts the fp32
-master tree (bf16 but the LayerNorm leaves), ``Amp.value_and_grad``
+master tree (bf16 but the LayerNorm leaves; ``opt_level="O1"`` leaves it
+fp32 and runs the forward inside ``h.autocast()``, where the dense and
+attention products take bf16), ``Amp.value_and_grad``
 takes the scaled loss's gradients through the LayerNorm, flash-attention
 and softmax-cross-entropy kernels, unscales them and advances the
 dynamic loss scaler, and ``FusedAdam(lr=1e-4, weight_decay=0.01)`` (or
@@ -109,8 +111,9 @@ class BertTrainStep:
         """(compute tree p, loss, grads, found_inf, new scaler state);
         ``dropout_rng`` is the model's key as it is (no ``fold_in``)."""
         p = self.amp.cast_model(master, precast=compute)
-        loss, grads, found_inf, scaler_state = self._value_and_grad(
-            p, scaler_state, ids, mask, dropout_rng=dropout_rng)
+        with self.amp.autocast():   # O1's op policy; off at other levels
+            loss, grads, found_inf, scaler_state = self._value_and_grad(
+                p, scaler_state, ids, mask, dropout_rng=dropout_rng)
         return p, loss, grads, found_inf, scaler_state
 
     def __call__(self, master, opt_state, scaler_state, *rest):

@@ -81,8 +81,10 @@ class ResNetTrainStep:
         """(loss, new bn_stats, grads, found_inf, new scaler state)."""
         p = self.amp.cast_model(master)
         images = self.amp.cast_input(images)
-        (loss, new_stats), grads, found_inf, scaler_state = \
-            self._value_and_grad(p, scaler_state, bn_stats, images, labels)
+        with self.amp.autocast():   # O1's op policy; off at other levels
+            (loss, new_stats), grads, found_inf, scaler_state = \
+                self._value_and_grad(p, scaler_state, bn_stats, images,
+                                     labels)
         return loss, new_stats, grads, found_inf, scaler_state
 
     def __call__(self, master, bn_stats, opt_state, scaler_state, images,

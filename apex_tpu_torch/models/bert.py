@@ -5,7 +5,11 @@ through ``fused_layer_norm_affine``, attention through
 product, ``scaled_masked_softmax`` and the context product
 (``fused_attention=False``), the MLM loss through the fused softmax
 cross entropy. The dense products, embeddings and activations are plain
-PyTorch, as they are plain ``jnp`` in the JAX package.
+PyTorch, as they are plain ``jnp`` in the JAX package. Under O1
+(``amp.autocast``) the dense products and the unfused branch's two
+attention products take the compute dtype through the op policy, as
+the JAX package's ``cast_args`` sites do; outside it they are the
+products as given.
 
 The param tree has the JAX tree's keys, dtypes and layout, the encoder
 a list of per-layer dicts, so the O2 cast keeps every ``layernorm``
@@ -19,7 +23,8 @@ kernel on the card; its backward regenerates each mask from its key),
 and the flash branch hands its key to ``flash_attention``. ``remat``
 recomputes each encoder layer in the backward
 (``torch.utils.checkpoint``) with the same keys, so it gives the same
-numbers.
+numbers; the recompute re-enters the autocast context of the forward
+(the backward may run on another thread, whose context is its own).
 """
 
 import dataclasses
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from apex_tpu_torch.amp.autocast import autocast, autocast_dtype, cast_args
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.models import layers as L
 from apex_tpu_torch.normalization import fused_layer_norm_affine
@@ -149,7 +155,7 @@ def _attention(p, cfg: BertConfig, x, mask, dropout_rng=None):
     else:
         # the unfused path: plain products in the compute dtype around the
         # fused softmax, whose mask is nonzero where a key is padding
-        scores = torch.matmul(q, k.transpose(-1, -2))
+        scores = torch.matmul(*cast_args("einsum", q, k.transpose(-1, -2)))
         if mask is not None:
             inv = (1 - mask)[:, None, None, :]
         else:
@@ -157,7 +163,7 @@ def _attention(p, cfg: BertConfig, x, mask, dropout_rng=None):
                               device=x.device)
         probs = scaled_masked_softmax(scores, inv, 1.0 / math.sqrt(hd))
         probs = _maybe_dropout(probs, cfg.attention_dropout, dropout_rng)
-        ctx = torch.matmul(probs, v)
+        ctx = torch.matmul(*cast_args("einsum", probs, v))
     ctx = ctx.transpose(1, 2).reshape(b, s, h)
     return L.dense(p["out"], ctx)
 
@@ -202,6 +208,14 @@ def apply_bert(params: Dict[str, Any], cfg: BertConfig,
         mlp = L.dense(layer["mlp"]["fc2"],
                       _gelu(L.dense(layer["mlp"]["fc1"], x)))
         return _ln(layer["mlp"]["layernorm"], x + mlp, cfg.layer_norm_eps)
+
+    if cfg.remat:
+        ac = autocast_dtype()
+        plain_layer = encoder_layer
+
+        def encoder_layer(*args):
+            with autocast(ac, enabled=ac is not None):
+                return plain_layer(*args)
 
     for li, layer in enumerate(params["encoder"]):
         args = (layer, x, rngs[2 * li + 1], rngs[2 * li + 2])

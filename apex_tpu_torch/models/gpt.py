@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from apex_tpu_torch.amp.autocast import cast_args
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.models._convert import params_from_jax  # noqa: F401
 from apex_tpu_torch.normalization import fused_layer_norm_affine
@@ -826,10 +827,10 @@ def gpt_loss_unsharded(params: Dict[str, Any], cfg: GPTConfig,
                                  dropout_rng=dropout_rng,
                                  compute_dtype=compute_dtype)
     table = params["embedding"]["word"]["embedding"]
-    # The JAX package passes the product through amp's cast_args, which
-    # casts only under O1 (amp.autocast, ROADMAP A5); elsewhere it is
-    # the identity, as here.
-    logits = torch.matmul(hidden, table.to(hidden.dtype).t())
+    # the op policy: under O1 (amp.autocast) both operands take the
+    # compute dtype, elsewhere the product is as given
+    logits = torch.matmul(*cast_args("matmul", hidden,
+                                     table.to(hidden.dtype).t()))
     v = logits.shape[-1]
     nll = softmax_cross_entropy_loss(logits.reshape(-1, v),
                                      labels.reshape(-1))

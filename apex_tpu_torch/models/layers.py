@@ -1,9 +1,10 @@
 """Minimal functional layers (counterpart of
 ``apex_tpu/models/layers.py``), the part BERT and ResNet need: params are
 dicts of tensors, ``init_*(generator, ...) -> params`` plus an apply
-function. Compute follows the caller's AMP policy (params cast outside).
-The JAX ``dense`` and ``conv`` also pass through the O1 ``cast_args`` op
-policy; O1 is not ported, so here they are the plain products.
+function. Compute follows the caller's AMP policy: params cast outside
+(O2), and ``dense`` and ``conv`` pass their operands through the O1 op
+policy (``amp.autocast.cast_args``), which casts them to the compute
+dtype inside ``amp.autocast`` and is the identity outside it.
 
 Layouts are the JAX package's: activations NHWC, conv kernels HWIO, so a
 tree carried across from JAX (and its flat optimizer layout) lines up
@@ -24,6 +25,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from apex_tpu_torch.amp.autocast import cast_args
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -71,8 +73,14 @@ def init_dense(generator: torch.Generator, in_features: int,
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return (torch.matmul(x, params["kernel"].to(x.dtype))
-            + params["bias"].to(x.dtype))
+    """``x @ kernel + bias`` in x's dtype; under O1 both operands take
+    the compute dtype first (``dense`` is on ``FP16_FUNCS``) and the
+    bias follows the product's."""
+    x, kernel = cast_args("dense", x, params["kernel"])
+    y = torch.matmul(x, kernel.to(x.dtype))
+    if "bias" in params:
+        y = y + params["bias"].to(x.dtype)
+    return y
 
 
 # -- conv (NHWC) ------------------------------------------------------------
@@ -100,8 +108,10 @@ def conv(params: dict, x: torch.Tensor, stride: int = 1,
     """NHWC ``x`` through an HWIO kernel (cast to x's dtype).
     ``padding`` as ``lax.conv_general_dilated`` takes it: "SAME"
     (uneven where the stride needs it, the only padding the JAX ResNet
-    uses), "VALID", or ((top, bottom), (left, right))."""
-    k = params["kernel"].to(x.dtype)
+    uses), "VALID", or ((top, bottom), (left, right)). Under O1 both
+    operands take the compute dtype (``conv2d`` is on ``FP16_FUNCS``)."""
+    x, k = cast_args("conv2d", x, params["kernel"])
+    k = k.to(x.dtype)
     if padding == "SAME":
         (ht, hb), (wl, wr) = (same_pads(x.shape[1], k.shape[0], stride),
                               same_pads(x.shape[2], k.shape[1], stride))

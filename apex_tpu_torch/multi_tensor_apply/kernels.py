@@ -475,20 +475,28 @@ def lamb_p_limit(p_new, u, p_parts, u_parts, tile_ids, tile_counts,
     return (step + ulp).view_as(p_new)
 
 
-def lamb_inv_clip(grad_partials: torch.Tensor,
-                  max_grad_norm: float) -> torch.Tensor:
-    """The pre-pass's result, ``1 / clip``, on the device: the global
-    grad norm ``sqrt(sum(partials))``, and the clip ``norm /
-    max_grad_norm`` where it exceeds ``max_grad_norm`` (1 elsewhere, and
-    when ``max_grad_norm`` is not positive). (JAX's ``grad_scale / clip``
-    with the grad scale 1, the only one the port's callers use.)"""
-    dev = grad_partials.device
-    grad_norm = torch.sqrt(grad_partials.sum())
+def lamb_inv_clip(grad_partials: Optional[torch.Tensor],
+                  max_grad_norm: float, grad_scale: Scalar = 1.0,
+                  grad_norm: Optional[Scalar] = None,
+                  device=None) -> torch.Tensor:
+    """Stage 1's gradient factor ``grad_scale / clip``, on the device, as
+    the JAX ``flat_lamb`` takes it: the global norm of the scaled grads,
+    ``sqrt(sum(partials) * gs * gs)`` from the pre-pass's partials (with
+    the scale 1 the products are exact), or the caller's ``grad_norm``
+    (then ``grad_partials`` may be None, and ``device`` says where); the
+    clip ``norm / max_grad_norm`` where the norm exceeds
+    ``max_grad_norm`` (1 elsewhere, and when ``max_grad_norm`` is not
+    positive)."""
+    dev = grad_partials.device if grad_partials is not None else device
+    gs = _f32(grad_scale, dev)
+    if grad_norm is None:
+        grad_norm = torch.sqrt(grad_partials.sum() * gs * gs)
+    else:
+        grad_norm = _f32(grad_norm, dev)
     max_norm = _f32(max_grad_norm, dev)
-    one = _f32(1.0, dev)
     clip = torch.where((max_norm > 0) & (grad_norm > max_norm),
-                       grad_norm / max_norm, one)
-    return one / clip
+                       grad_norm / max_norm, _f32(1.0, dev))
+    return gs / clip
 
 
 def lamb_stage2(params: torch.Tensor, u: torch.Tensor,
@@ -515,7 +523,8 @@ def flat_lamb(grads: torch.Tensor, params: torch.Tensor, m: torch.Tensor,
               beta2: float, eps: float, step: Scalar, weight_decay: Scalar,
               adam_w_mode: bool = True, grad_averaging: bool = True,
               bias_correction: bool = True, use_nvlamb: bool = False,
-              max_grad_norm: float = 1.0,
+              max_grad_norm: float = 1.0, grad_scale: Scalar = 1.0,
+              grad_norm: Optional[Scalar] = None,
               emit_compute_dtype: Optional[torch.dtype] = None,
               found_inf: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, ...]:
@@ -523,7 +532,10 @@ def flat_lamb(grads: torch.Tensor, params: torch.Tensor, m: torch.Tensor,
     multiple of 8), in the CUDA two-stage split of the JAX package:
 
     - the pre-pass: ``flat_l2norm_partials`` of the grads gives the
-      global grad norm and the clip (``lamb_inv_clip``);
+      global norm of the grads times ``grad_scale`` and the clip
+      (``lamb_inv_clip``); a caller's ``grad_norm`` (a 0-d tensor or a
+      number, the norm of the scaled grads) takes its place, and the
+      pre-pass is not run;
     - stage 1 (one kernel): m, v, the raw update u and each sub-tile's
       ``||p||^2`` and ``||u||^2`` partials;
     - stage 2 (PyTorch, as the JAX package leaves it to XLA,
@@ -534,7 +546,7 @@ def flat_lamb(grads: torch.Tensor, params: torch.Tensor, m: torch.Tensor,
       device.
 
     ``bias_correction=False`` takes c1 = c2 = 1, ``grad_averaging=False``
-    beta3 = 1, as in JAX.
+    beta3 = 1, as in JAX. ``grad_scale`` multiplies the grads.
 
     Returns ``(p, m, v)``, or ``(p, m, v, compute)`` with
     ``emit_compute_dtype``. ``m`` may be bf16 (fp32 accumulate);
@@ -546,8 +558,9 @@ def flat_lamb(grads: torch.Tensor, params: torch.Tensor, m: torch.Tensor,
     hp = lamb_hparams(
         beta1=beta1, beta2=beta2, eps=eps, step=step,
         weight_decay=weight_decay, adam_w_mode=adam_w_mode,
-        gs_over_clip=lamb_inv_clip(flat_l2norm_partials(grads),
-                                   max_grad_norm),
+        gs_over_clip=lamb_inv_clip(
+            None if grad_norm is not None else flat_l2norm_partials(grads),
+            max_grad_norm, grad_scale, grad_norm, params.device),
         device=params.device, bias_correction=bias_correction,
         grad_averaging=grad_averaging)
     stage1 = flat_lamb_stage1_kernel if on_card(params, "params") else \

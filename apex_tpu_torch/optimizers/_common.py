@@ -8,10 +8,14 @@ Every optimizer is functional, as in the JAX package::
     params, state = opt.step(grads, params, state [, found_inf=...])
 
 ``found_inf`` (the scaler's 0-d bool tensor) turns the step into a
-no-op by selects on the device, with no host sync.
+no-op by selects on the device, with no host sync. ``lr=`` and
+``weight_decay=`` override the constructor's values for one step (a
+Python number or a 0-d tensor), and ``grad_scale=`` MULTIPLIES the
+gradients (pass ``1 / loss_scale`` to unscale; the reference's
+``scale=`` divides), as in the JAX package.
 """
 
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,6 +58,24 @@ def select_finite(found_inf: Optional[torch.Tensor], new: Any,
     if found_inf is None:
         return new
     return apply_if_finite(new, old, found_inf)
+
+
+class StepArgs(NamedTuple):
+    """One step's hyperparameters: the constructor's ``lr`` and
+    ``weight_decay`` unless the step overrides them, and ``grad_scale``
+    (None for the Python 1.0, a multiply the tree paths leave out: ``g *
+    1.0`` is ``g`` bit for bit)."""
+    lr: Any
+    weight_decay: Any
+    grad_scale: Any
+    grad_norm: Any = None   # LAMB's: the caller's global grad norm
+
+
+def scaled(g: torch.Tensor, gs: Optional[torch.Tensor]) -> torch.Tensor:
+    """``g`` in fp32 times the step's grad scale, as the JAX tree paths
+    take it (``g.astype(f32) * gs``)."""
+    g = g.float()
+    return g if gs is None else g * gs
 
 
 def f32(x, device) -> torch.Tensor:
@@ -152,10 +174,15 @@ class FusedOptimizer:
       path; :meth:`_zeros` makes one zeroed buffer of either kind). The
       default is Adam's and LAMB's: a first moment m in ``m_dtype`` and
       a second moment v in fp32;
-    - ``_tree_step(grads, params, state)``: ``(params, state)``;
-    - ``_flat_update(gbuf, pbuf, state, t, layout, emit, found_inf)``:
-      the flat kernel's ``(p buffer, {field: new state}, compute buffer
-      or None)``, with ``t`` the new step count."""
+    - ``_tree_step(grads, params, state, args)``: ``(params, state)``,
+      with ``args`` the step's :class:`StepArgs` (``lr`` and
+      ``weight_decay`` as 0-d fp32 tensors on the state's device,
+      ``grad_scale`` one too or None);
+    - ``_flat_update(gbuf, pbuf, state, t, layout, emit, found_inf,
+      args)``: the flat kernel's ``(p buffer, {field: new state},
+      compute buffer or None)``, with ``t`` the new step count and
+      ``args`` as given to the step (the kernels' hyperparameter vectors
+      take Python numbers and tensors alike)."""
 
     State: type
 
@@ -190,21 +217,40 @@ class FusedOptimizer:
             if self.use_flat_kernel else None
         return self.State(step=step, **self._zero_state(params, spec))
 
-    def step(self, grads: Any, params: Any, state, *,
+    def step(self, grads: Any, params: Any, state, *, lr=None,
+             grad_scale=1.0, weight_decay=None,
              found_inf: Optional[torch.Tensor] = None,
              compute_params: Optional[Any] = None):
-        """One step on unscaled gradients (the loss scaler's ``unscale``
-        comes first).
+        """One step on the gradients times ``grad_scale`` (unscaled
+        gradients with its default 1.0; else pass ``1 / loss_scale``).
+        ``lr`` and ``weight_decay`` override the constructor's for this
+        step.
 
         With ``found_inf`` True the step is skipped: params, the state
         and the step count stay put. With ``emit_compute_params`` the
         return grows to ``(params, state, compute)``, the updated params
         cast to the dtypes of ``compute_params`` (or bf16 without it)."""
+        args = StepArgs(self.lr if lr is None else lr,
+                        self.weight_decay if weight_decay is None
+                        else weight_decay, grad_scale)
+        return self._step(grads, params, state, args, found_inf,
+                          compute_params)
+
+    def _step(self, grads, params, state, args: StepArgs, found_inf,
+              compute_params):
         if self.use_flat_kernel:
-            new_params, new_state, pc = self._flat_step(grads, params, state,
-                                                        found_inf)
+            new_params, new_state, pc = self._flat_step(
+                grads, params, state, found_inf, args)
         else:
-            new_params, new_state = self._tree_step(grads, params, state)
+            dev = state.step.device
+            gs = args.grad_scale
+            tree_args = StepArgs(
+                f32(args.lr, dev), f32(args.weight_decay, dev),
+                None if not isinstance(gs, torch.Tensor) and gs == 1.0
+                else f32(gs, dev),
+                None if args.grad_norm is None else f32(args.grad_norm, dev))
+            new_params, new_state = self._tree_step(grads, params, state,
+                                                    tree_args)
             new_params = select_finite(found_inf, new_params, params)
             new_state = select_finite(found_inf, new_state, state)
             pc = None
@@ -214,7 +260,7 @@ class FusedOptimizer:
                                         found_inf, precomputed=pc)
         return new_params, new_state, compute
 
-    def _flat_step(self, grads, params, state, found_inf):
+    def _flat_step(self, grads, params, state, found_inf, args):
         """Grads and params flattened to fp32 buffers, the subclass's
         kernel, and the new params as views of its output buffer. The
         kernel handles ``found_inf`` itself (it writes the old values), so
@@ -226,7 +272,8 @@ class FusedOptimizer:
         t = state.step + 1
         emit = torch.bfloat16 if self.emit_compute_params else None
         p_new, fields, pc_buf = self._flat_update(gbuf, pbuf, state, t,
-                                                  layout, emit, found_inf)
+                                                  layout, emit, found_inf,
+                                                  args)
         new_params = unflatten_pytree(p_new, spec, treedef)
         pc = None if pc_buf is None else \
             unflatten_pytree(pc_buf, spec, treedef, cast_back=False)

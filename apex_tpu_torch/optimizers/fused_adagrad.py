@@ -14,7 +14,7 @@ import torch
 
 from apex_tpu_torch.multi_tensor_apply.kernels import flat_adagrad
 from apex_tpu_torch.optimizers._common import (
-    FusedOptimizer, f32, tree_unzip,
+    FusedOptimizer, f32, scaled, tree_unzip,
 )
 from apex_tpu_torch.utils.tree import tree_map
 
@@ -45,14 +45,13 @@ class FusedAdagrad(FusedOptimizer):
     def _zero_state(self, params, spec):
         return dict(sum=self._zeros(params, spec, torch.float32))
 
-    def _tree_step(self, grads, params, state):
-        dev = state.step.device
-        lr, eps, wd = (f32(x, dev) for x in (self.lr, self.eps,
-                                              self.weight_decay))
+    def _tree_step(self, grads, params, state, args):
+        lr, wd, gs = args.lr, args.weight_decay, args.grad_scale
+        eps = f32(self.eps, state.step.device)
         w = self.adagrad_w_mode
 
         def upd(g, p, s):
-            g = g.float()
+            g = scaled(g, gs)
             p32 = p.float()
             if not w:
                 g = g + wd * p32
@@ -66,10 +65,12 @@ class FusedAdagrad(FusedOptimizer):
         new_params, new_sum = tree_unzip(out, 2)
         return new_params, AdagradState(step=state.step + 1, sum=new_sum)
 
-    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf):
+    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf,
+                     args):
         outs = flat_adagrad(
-            gbuf, pbuf, state.sum, lr=self.lr, eps=self.eps,
-            weight_decay=self.weight_decay,
-            adagrad_w_mode=self.adagrad_w_mode, emit_compute_dtype=emit,
+            gbuf, pbuf, state.sum, lr=args.lr, eps=self.eps,
+            weight_decay=args.weight_decay,
+            adagrad_w_mode=self.adagrad_w_mode,
+            grad_scale=args.grad_scale, emit_compute_dtype=emit,
             found_inf=found_inf)
         return outs[0], dict(sum=outs[1]), outs[2] if emit else None

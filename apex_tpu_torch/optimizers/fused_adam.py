@@ -18,7 +18,7 @@ import torch
 
 from apex_tpu_torch.multi_tensor_apply.kernels import flat_adam
 from apex_tpu_torch.optimizers._common import (
-    FusedOptimizer, f32, tree_unzip,
+    FusedOptimizer, f32, scaled, tree_unzip,
 )
 from apex_tpu_torch.utils.tree import tree_map
 
@@ -54,10 +54,11 @@ class FusedAdam(FusedOptimizer):
         self.adam_w_mode = adam_w_mode
         self.weight_decay = weight_decay
 
-    def _tree_step(self, grads, params, state):
+    def _tree_step(self, grads, params, state, args):
         dev = state.step.device
-        lr, wd, b1, b2, eps = (f32(x, dev) for x in (
-            self.lr, self.weight_decay, self.beta1, self.beta2, self.eps))
+        lr, wd, gs = args.lr, args.weight_decay, args.grad_scale
+        b1, b2, eps = (f32(x, dev) for x in (self.beta1, self.beta2,
+                                             self.eps))
         t = state.step + 1
         tf = t.to(torch.float32)
         one = f32(1.0, dev)
@@ -69,7 +70,7 @@ class FusedAdam(FusedOptimizer):
         md = self.m_dtype
 
         def upd(g, p, m, v):
-            g = g.to(torch.float32)
+            g = scaled(g, gs)
             p32 = p.to(torch.float32)
             if not aw:
                 g = g + wd * p32
@@ -84,12 +85,14 @@ class FusedAdam(FusedOptimizer):
         new_params, new_m, new_v = tree_unzip(out, 3)
         return new_params, AdamState(step=t, m=new_m, v=new_v)
 
-    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf):
+    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf,
+                     args):
         outs = flat_adam(
-            gbuf, pbuf, state.m, state.v, lr=self.lr, beta1=self.beta1,
+            gbuf, pbuf, state.m, state.v, lr=args.lr, beta1=self.beta1,
             beta2=self.beta2, eps=self.eps, step=t,
-            weight_decay=self.weight_decay, adam_w_mode=self.adam_w_mode,
-            bias_correction=self.bias_correction, emit_compute_dtype=emit,
+            weight_decay=args.weight_decay, adam_w_mode=self.adam_w_mode,
+            bias_correction=self.bias_correction,
+            grad_scale=args.grad_scale, emit_compute_dtype=emit,
             found_inf=found_inf)
         return outs[0], dict(m=outs[1], v=outs[2]), \
             outs[3] if emit else None

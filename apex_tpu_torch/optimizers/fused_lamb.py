@@ -15,13 +15,13 @@ norm, Adam-style moments and the raw update ``u = m^ / (sqrt(v^) + eps)
   no select pass over params or state.
 """
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from apex_tpu_torch.multi_tensor_apply.kernels import flat_lamb
 from apex_tpu_torch.optimizers._common import (
-    FusedOptimizer, f32, global_grad_norm, tree_unzip,
+    FusedOptimizer, StepArgs, f32, global_grad_norm, scaled, tree_unzip,
 )
 from apex_tpu_torch.utils.tree import tree_map
 
@@ -35,8 +35,8 @@ class LambState(NamedTuple):
 class FusedLAMB(FusedOptimizer):
     """LAMB; ``bias_correction=False`` takes c1 = c2 = 1 and
     ``grad_averaging=False`` beta3 = 1 (the m update's weight on g).
-    ``init`` and ``step`` are ``FusedOptimizer``'s, with the signature of
-    ``FusedAdam``'s."""
+    ``init`` is ``FusedOptimizer``'s; ``step`` takes the reference's
+    arguments in its order, ``grad_norm=`` among them."""
 
     State = LambState
 
@@ -64,10 +64,25 @@ class FusedLAMB(FusedOptimizer):
         # NVLAMB: the trust ratio even for tensors without weight decay
         self.use_nvlamb = use_nvlamb
 
-    def _tree_step(self, grads, params, state):
+    def step(self, grads: Any, params: Any, state: LambState, *, lr=None,
+             weight_decay=None, grad_scale=1.0,
+             grad_norm: Optional[torch.Tensor] = None,
+             found_inf: Optional[torch.Tensor] = None,
+             compute_params: Optional[Any] = None):
+        """``FusedOptimizer.step``'s arguments, and ``grad_norm``: the
+        global norm of the scaled gradients, when the caller has it (then
+        the grad-norm pre-pass is not run)."""
+        args = StepArgs(self.lr if lr is None else lr,
+                        self.weight_decay if weight_decay is None
+                        else weight_decay, grad_scale, grad_norm)
+        return self._step(grads, params, state, args, found_inf,
+                          compute_params)
+
+    def _tree_step(self, grads, params, state, args):
         dev = state.step.device
-        lr, wd, b1, b2, eps = (f32(x, dev) for x in (
-            self.lr, self.weight_decay, self.beta1, self.beta2, self.eps))
+        lr, wd, gs, grad_norm = args
+        b1, b2, eps = (f32(x, dev) for x in (self.beta1, self.beta2,
+                                             self.eps))
         one = f32(1.0, dev)
         t = state.step + 1
         tf = t.to(torch.float32)
@@ -77,14 +92,16 @@ class FusedLAMB(FusedOptimizer):
         else:
             c1 = c2 = one
         # stage 1 preamble: clip by the global grad norm
-        grad_norm = global_grad_norm(tree_map(lambda g: g.float(), grads))
+        if grad_norm is None:
+            grad_norm = global_grad_norm(tree_map(lambda g: scaled(g, gs),
+                                                  grads))
         max_norm = f32(self.max_grad_norm, dev)
         clip = torch.where((max_norm > 0) & (grad_norm > max_norm),
                            grad_norm / max_norm, one)
         aw, md = self.adam_w_mode, self.m_dtype
 
         def upd(g, p, m, v):
-            g = g.float() / clip
+            g = scaled(g, gs) / clip
             p32 = p.float()
             if not aw:
                 g = g + wd * p32
@@ -108,15 +125,17 @@ class FusedLAMB(FusedOptimizer):
         new_params, new_m, new_v = tree_unzip(out, 3)
         return new_params, LambState(step=t, m=new_m, v=new_v)
 
-    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf):
+    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf,
+                     args):
         tile_ids, tile_counts = layout[3:]
         outs = flat_lamb(
-            gbuf, pbuf, state.m, state.v, tile_ids, tile_counts, lr=self.lr,
+            gbuf, pbuf, state.m, state.v, tile_ids, tile_counts, lr=args.lr,
             beta1=self.beta1, beta2=self.beta2, eps=self.eps, step=t,
-            weight_decay=self.weight_decay, adam_w_mode=self.adam_w_mode,
+            weight_decay=args.weight_decay, adam_w_mode=self.adam_w_mode,
             grad_averaging=self.grad_averaging,
             bias_correction=self.bias_correction,
             use_nvlamb=self.use_nvlamb, max_grad_norm=self.max_grad_norm,
+            grad_scale=args.grad_scale, grad_norm=args.grad_norm,
             emit_compute_dtype=emit, found_inf=found_inf)
         return outs[0], dict(m=outs[1], v=outs[2]), \
             outs[3] if emit else None

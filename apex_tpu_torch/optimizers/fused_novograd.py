@@ -19,7 +19,7 @@ import torch
 
 from apex_tpu_torch.multi_tensor_apply.kernels import flat_novograd
 from apex_tpu_torch.optimizers._common import (
-    FusedOptimizer, f32, tree_unzip,
+    FusedOptimizer, f32, scaled, tree_unzip,
 )
 from apex_tpu_torch.utils.tree import tree_map
 
@@ -72,10 +72,11 @@ class FusedNovoGrad(FusedOptimizer):
         return dict(m=m, v=tree_map(lambda p: torch.zeros(
             (), dtype=torch.float32, device=p.device), params))
 
-    def _tree_step(self, grads, params, state):
+    def _tree_step(self, grads, params, state, args):
         dev = state.step.device
-        lr, wd, b1, b2, eps = (f32(x, dev) for x in (
-            self.lr, self.weight_decay, self.beta1, self.beta2, self.eps))
+        lr, wd, gs = args.lr, args.weight_decay, args.grad_scale
+        b1, b2, eps = (f32(x, dev) for x in (self.beta1, self.beta2,
+                                             self.eps))
         one = f32(1.0, dev)
         t = state.step + 1
         tf = t.to(torch.float32)
@@ -88,7 +89,7 @@ class FusedNovoGrad(FusedOptimizer):
         reg = self.reg_inside_moment
 
         def upd(g, p, m, v):
-            g = g.float()
+            g = scaled(g, gs)
             p32 = p.float()
             gsq = torch.sum(g * g)
             ema = b2 * v + (one - b2) * gsq
@@ -106,16 +107,17 @@ class FusedNovoGrad(FusedOptimizer):
         new_params, new_m, new_v = tree_unzip(out, 3)
         return new_params, NovoGradState(step=t, m=new_m, v=new_v)
 
-    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf):
+    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf,
+                     args):
         tile_ids, tile_counts = layout[3:]
         outs = flat_novograd(
-            gbuf, pbuf, state.m, state.v, tile_ids, tile_counts, lr=self.lr,
+            gbuf, pbuf, state.m, state.v, tile_ids, tile_counts, lr=args.lr,
             beta1=self.beta1, beta2=self.beta2, eps=self.eps, step=t,
-            weight_decay=self.weight_decay,
+            weight_decay=args.weight_decay,
             grad_averaging=self.grad_averaging,
             bias_correction=self.bias_correction,
             reg_inside_moment=self.reg_inside_moment,
-            init_zero=self.init_zero, emit_compute_dtype=emit,
-            found_inf=found_inf)
+            init_zero=self.init_zero, grad_scale=args.grad_scale,
+            emit_compute_dtype=emit, found_inf=found_inf)
         return outs[0], dict(m=outs[1], v=outs[2]), \
             outs[3] if emit else None

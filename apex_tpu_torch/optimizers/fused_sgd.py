@@ -19,7 +19,7 @@ import torch
 
 from apex_tpu_torch.multi_tensor_apply.kernels import flat_sgd
 from apex_tpu_torch.optimizers._common import (
-    FusedOptimizer, f32, tree_unzip,
+    FusedOptimizer, f32, scaled, tree_unzip,
 )
 from apex_tpu_torch.utils.tree import tree_map
 
@@ -57,15 +57,15 @@ class FusedSGD(FusedOptimizer):
     def _zero_state(self, params, spec):
         return dict(momentum_buf=self._zeros(params, spec, self.m_dtype))
 
-    def _tree_step(self, grads, params, state):
+    def _tree_step(self, grads, params, state, args):
         dev = state.step.device
-        lr, mom, damp, wd = (f32(x, dev) for x in (
-            self.lr, self.momentum, self.dampening, self.weight_decay))
+        lr, wd, gs = args.lr, args.weight_decay, args.grad_scale
+        mom, damp = (f32(x, dev) for x in (self.momentum, self.dampening))
         one = f32(1.0, dev)
         first = state.step == 0
 
         def upd(g, p, buf):
-            g = g.float()
+            g = scaled(g, gs)
             p32 = p.float()
             if not self.wd_after_momentum:
                 g = g + wd * p32
@@ -85,13 +85,14 @@ class FusedSGD(FusedOptimizer):
         return new_params, SGDState(step=state.step + 1,
                                     momentum_buf=new_buf)
 
-    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf):
+    def _flat_update(self, gbuf, pbuf, state, t, layout, emit, found_inf,
+                     args):
         outs = flat_sgd(
-            gbuf, pbuf, state.momentum_buf, lr=self.lr,
+            gbuf, pbuf, state.momentum_buf, lr=args.lr,
             momentum=self.momentum, dampening=self.dampening,
-            weight_decay=self.weight_decay, nesterov=self.nesterov,
+            weight_decay=args.weight_decay, nesterov=self.nesterov,
             wd_after_momentum=self.wd_after_momentum,
-            first_run=state.step == 0, emit_compute_dtype=emit,
-            found_inf=found_inf)
+            first_run=state.step == 0, grad_scale=args.grad_scale,
+            emit_compute_dtype=emit, found_inf=found_inf)
         return outs[0], dict(momentum_buf=outs[1]), \
             outs[2] if emit else None

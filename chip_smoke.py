@@ -310,6 +310,37 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``serving_disagg_colocated``), launch the LayerNorm, flash forward,
    paged decode and threefry kernels and nothing else.
 
+15. amp O1, LARC and FP16_Optimizer — ``training_o1``: BERT-Large (24
+   layers, batch 64, seq 128) under ``amp.initialize("O1")``, each step's
+   forward inside ``h.autocast()``, six steps on one batch in two
+   configurations (flash attention with the tree FusedAdam; the unfused
+   softmax with the flat FusedAdam): finite losses, the scaler's state
+   after six clean steps, exact launches a step (``per_step_launches``,
+   as at O2), and a ``TorchDispatchMode`` count of the forward's aten
+   products: every ``mm``/``bmm``/``addmm``/convolution in bf16 inside
+   ``autocast()``, none outside it; at 2 layers one O1 step on the card
+   against the CPU, to O2's limits. ``resnet_larc``: ResNet-50 (batch
+   64, 224 x 224) through ``make_resnet_train_step``'s ``optimizer=``
+   with ``LARC(FusedSGD(use_flat_kernel=True))``, six steps, each step's
+   update held bit for bit against the same LARC over the plain flat SGD
+   on the same gradients on the card. ``fp16_optimizer``: ResNet-50
+   ``network_to_half`` (fp16 convolutions, fp32 BatchNorm leaves) with
+   ``FP16_Optimizer(FusedSGD(use_flat_kernel=True),
+   dynamic_loss_scale=True)``, its first scale the largest power of two
+   that keeps the gradients 8 times under fp16's range, six steps: the
+   first step's gradients carry an inf (the forced overflow), it is
+   skipped (params and masters bit for bit) and the scale halves; the
+   others go through. ``optimizer step arguments``: each of the five
+   optimizers' flat step on BERT-Large's tree with ``lr=``,
+   ``weight_decay=`` and ``grad_scale=2**-16`` overriding its defaults,
+   held bit for bit against the same step through the plain versions on
+   the card (LAMB's params to ``lamb_master_limit``; the grad-norm
+   partials from their kernel on both sides), exact launches, and
+   ``flat_lamb`` with a caller's ``grad_norm=``: no
+   ``flat_l2norm_partials`` launch. The LayerNorm
+   forward and backward at the O1 step's fp32 x and fp32 w (8192, 1024)
+   are held and timed with the other kernels.
+
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
 card's name and power limit, and last ``{"ok": true, "device":
@@ -320,6 +351,7 @@ JAX nor the JAX package.
 import importlib
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -434,6 +466,7 @@ def ln_parity(dev):
         (1024, 1024, bf, bf, "ln", True),
         (8, 1024, bf, bf, "ln", True),
         (8192, 1024, bf, f32, "ln", True),    # the BERT O2 step
+        (8192, 1024, f32, f32, "ln", True),   # the O1 step's residual LNs
         (333, 1000, f32, f32, "ln", True),
         (1024, 1024, bf, bf, "rms", True),
         (333, 1000, f32, f32, "ln", False),
@@ -620,6 +653,7 @@ def ln_bwd_parity(dev):
     bf, f32 = torch.bfloat16, torch.float32
     cases = [  # rows, h, x dtype, w/b dtype, mode, affine
         (8192, 1024, bf, f32, "ln", True),    # the BERT O2 step
+        (8192, 1024, f32, f32, "ln", True),   # the O1 step's residual LNs
         (1024, 1024, bf, bf, "ln", True),
         (1024, 1024, bf, bf, "rms", True),
         (333, 1000, f32, f32, "ln", False),
@@ -1859,11 +1893,12 @@ def train_small(dev):
     return out
 
 
-def lamb_master_limit(prev, state_d, state_c):
+def lamb_master_limit(prev, state_d, state_c, lr=LAMB_LR, wd=LAMB_WD):
     """{leaf: per-element limit on |master_card - master_cpu|} (a tree
-    like ``prev``) after the first flat FusedLAMB step from master
-    ``prev`` on both, the card's state ``state_d`` and the CPU's
-    ``state_c`` (the model above)."""
+    like ``prev``) after the first flat FusedLAMB step (at ``lr`` and
+    weight decay ``wd``) from master ``prev`` on both, the card's state
+    ``state_d`` and the CPU's ``state_c`` (the model above), computed on
+    ``prev``'s device."""
     from apex_tpu_torch.multi_tensor_apply.flatten import (
         make_spec, unflatten_tensors,
     )
@@ -1871,6 +1906,7 @@ def lamb_master_limit(prev, state_d, state_c):
 
     leaves, treedef = tree_flatten(prev)
     spec = make_spec(leaves)
+    dev = leaves[0].device
     # step 1's bias corrections as the kernel has them, in fp32
     c1 = float(1.0 - torch.tensor(0.9))
     c2 = float(1.0 - torch.tensor(0.999))
@@ -1879,14 +1915,14 @@ def lamb_master_limit(prev, state_d, state_c):
     for st in (state_d, state_c):
         steps = []
         for p, m, v in zip(leaves,
-                           unflatten_tensors(st.m.cpu(), spec, False),
-                           unflatten_tensors(st.v.cpu(), spec, False)):
-            p = p.cpu().double()
+                           unflatten_tensors(st.m.to(dev), spec, False),
+                           unflatten_tensors(st.v.to(dev), spec, False)):
+            p = p.double()
             u = (m.double() / c1) / (torch.sqrt(v.double() / c2)
-                                     + LAMB_EPS) + LAMB_WD * p
+                                     + LAMB_EPS) + wd * p
             wn, un = float(p.norm()), float(u.norm())
             r = wn / un if wn > 0 and un > 0 else 1.0
-            steps.append((p - LAMB_LR * r * u, LAMB_LR * r * u.abs()))
+            steps.append((p - lr * r * u, lr * r * u.abs()))
         sides.append(steps)
     lims = []
     for p, (pd, sd), (pc, sc) in zip(leaves, *sides):
@@ -2016,7 +2052,8 @@ def train_big(dev, kern):
     return out
 
 
-def _train_big_one(dev, kern, name, mode, m_dtype, emit, dropout=False):
+def _train_big_one(dev, kern, name, mode, m_dtype, emit, dropout=False,
+                   level="O2"):
     from apex_tpu_torch.examples.bert.train import make_bert_train_step
     from apex_tpu_torch.utils.tree import tree_leaves
 
@@ -2025,15 +2062,20 @@ def _train_big_one(dev, kern, name, mode, m_dtype, emit, dropout=False):
     per_step = per_step_launches(name, L, dropout)
     with_drop = (f", hidden and attention dropout {cfg.hidden_dropout} on "
                  f"fold_in(PRNGKey({DROPOUT_SEED}), step)") if dropout else ""
-    phase(f"training ({name}): BERT-Large ({L} layers), O2 dynamic loss "
-          f"scale, batch {BIG_BATCH}, seq {SEQ}, {BIG_STEPS} steps, "
-          f"state mode {mode}{with_drop}")
+    in_autocast = ", each forward inside h.autocast()" if level == "O1" \
+        else ""
+    phase(f"training ({name}): BERT-Large ({L} layers), {level} dynamic "
+          f"loss scale{in_autocast}, batch {BIG_BATCH}, seq {SEQ}, "
+          f"{BIG_STEPS} steps, state mode {mode}{with_drop}")
     _, opt, flat = STEP_CONFIGS[name]
     key = kernel_modules()[6].PRNGKey(DROPOUT_SEED) if dropout else None
     step, make_state, (ids, mask) = make_bert_train_step(
         BIG_BATCH, SEQ, cfg, m_dtype=m_dtype, emit_compute=emit,
-        device=dev, use_flat_kernel=flat, optimizer=opt, dropout_rng=key)
+        device=dev, use_flat_kernel=flat, optimizer=opt, dropout_rng=key,
+        opt_level=level)
     state = list(make_state())
+    products = o1_product_dtypes(step, state[0], ids, mask) \
+        if level == "O1" else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kern.values():
@@ -2084,6 +2126,8 @@ def _train_big_one(dev, kern, name, mode, m_dtype, emit, dropout=False):
     res = dict(losses=losses, step_ms=[t * 1e3 for t in times],
                median_step_ms=med * 1e3, samples_per_s=BIG_BATCH / med,
                launches=launches, peak_gib=peak)
+    if products is not None:
+        res["products"] = products
     del state, step
     torch.cuda.empty_cache()
     return res
@@ -2487,6 +2531,408 @@ def resnet_big(dev, kern):
 
 
 # ---------------------------------------------------------------------------
+# 15. amp O1, LARC, FP16_Optimizer and the optimizers' step arguments
+# ---------------------------------------------------------------------------
+
+PRODUCT_OPS = ("mm", "bmm", "addmm", "baddbmm", "convolution")
+O1_CONFIGS = ("flash_tree", "softmax_flat")
+STEP_ARG_GS = 2.0 ** -16     # grad_scale= of the step-argument runs
+
+
+def _product_counter():
+    """A ``TorchDispatchMode`` recording the operand dtypes of every aten
+    product (``PRODUCT_OPS``) dispatched inside it, in ``.seen``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class ProductDtypes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in PRODUCT_OPS:
+                self.seen.append((name, tuple(
+                    a.dtype for a in args if isinstance(a, torch.Tensor))))
+            return func(*args, **(kwargs or {}))
+
+    return ProductDtypes()
+
+
+def o1_product_dtypes(step, master, ids, mask):
+    """O1's dtype contract on the step's forward (``step.loss_fn``, no
+    autograd): inside ``step.amp.autocast()`` every aten product runs in
+    bf16; the same forward outside it runs none in bf16. Returns the
+    counts by op and dtype."""
+    bf = torch.bfloat16
+    with torch.no_grad():
+        with step.amp.autocast(), _product_counter() as hot:
+            step.loss_fn(master, ids, mask)
+        with _product_counter() as cold:
+            step.loss_fn(master, ids, mask)
+    torch.cuda.synchronize()
+
+    def by_op(seen):
+        out = {}
+        for op, dts in seen:
+            key = f"{op} {'/'.join(str(d)[6:] for d in dts)}"
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    hot_bf = sum(all(d == bf for d in dts) for _, dts in hot.seen)
+    cold_bf = sum(any(d == bf for d in dts) for _, dts in cold.seen)
+    check(hot.seen and hot_bf == len(hot.seen),
+          f"inside autocast(): {hot_bf} of {len(hot.seen)} forward products "
+          f"bf16 ({by_op(hot.seen)})")
+    check(len(cold.seen) == len(hot.seen) and cold_bf == 0,
+          f"outside autocast(): {cold_bf} of {len(cold.seen)} products bf16 "
+          f"({by_op(cold.seen)})")
+    return {"in_autocast": by_op(hot.seen), "outside": by_op(cold.seen)}
+
+
+def train_small_o1(dev):
+    """One O1 step of the 2-layer full-width model on the card and on the
+    CPU from the same weights, in the two O1 configurations, held to
+    O2's limits (bf16 products in both; the residual stream and the
+    LayerNorms fp32)."""
+    out = {}
+    for name in O1_CONFIGS:
+        _, opt, flat = STEP_CONFIGS[name]
+        cfg = _step_cfg(name, num_layers=SMALL_LAYERS)
+        out[_key(name, "O1")] = _train_small_one(
+            dev, cfg, opt, flat, "O1", STEP_LIMITS["O2"], name)
+    return out
+
+
+def train_o1(dev, kern):
+    """Six O1 steps of full BERT-Large at the headline's shape in the two
+    O1 configurations (``training_o1``)."""
+    return {_key(name, "O1"): _train_big_one(
+        dev, kern, name, "fp32", torch.float32, False, level="O1")
+        for name in O1_CONFIGS}
+
+
+class plain_flat:
+    """Within it the flat optimizer wrappers of ``multi_tensor_apply``
+    take their plain versions on the card's tensors (``on_card`` answers
+    False), but ``flat_l2norm_partials`` keeps its kernel with
+    ``keep_partials`` (so a plain run's sums are the kernel run's). The
+    launches made inside are put back: they compare, they are not the
+    path's."""
+
+    def __init__(self, kern, keep_partials=False):
+        self.mta = kernel_modules()[4]
+        self.kern = kern
+        self.keep = keep_partials
+
+    def __enter__(self):
+        self.saved = self.mta.on_card
+        self.counts = {n: k.launches for n, k in self.kern.items()}
+        keep = self.keep
+        self.mta.on_card = lambda t, what="": keep and what == "buf"
+        return self
+
+    def __exit__(self, *exc):
+        self.mta.on_card = self.saved
+        for n, k in self.kern.items():
+            k.launches = self.counts[n]
+
+
+def _clone(tree):
+    from apex_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _same_leaves(a, b):
+    from apex_tpu_torch.utils.tree import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def resnet_larc(dev, kern):
+    """``resnet_larc``: six steps of ResNet-50 at the example's size with
+    ``LARC(FusedSGD(use_flat_kernel=True))`` through the example's step
+    (``grads`` then the optimizer's step), each step's update held bit
+    for bit against the same LARC over the plain flat SGD on the same
+    gradients and state on the card."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.imagenet.main_amp import (
+        MOMENTUM, WEIGHT_DECAY, make_resnet_train_step, synthetic_batch,
+    )
+    from apex_tpu_torch.models.resnet import init_resnet
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.parallel import LARC
+
+    batch, size = RESNET_BIG
+    phase(f"resnet_larc: ResNet-{RESNET_DEPTH}, {RESNET_CLASSES} classes, "
+          f"amp O0, LARC(FusedSGD(lr={RESNET_BIG_LR}, momentum={MOMENTUM}, "
+          f"weight_decay={WEIGHT_DECAY}, use_flat_kernel=True)) (trust "
+          f"coefficient 0.02, clip), batch {batch}, {size} x {size}, "
+          f"{RESNET_STEPS} steps on one fixed batch; each update bit for "
+          "bit against LARC over the plain flat SGD on the same gradients")
+    larc = LARC(FusedSGD(lr=RESNET_BIG_LR, momentum=MOMENTUM,
+                         weight_decay=WEIGHT_DECAY, use_flat_kernel=True))
+    step = make_resnet_train_step(RESNET_DEPTH, "O0", optimizer=larc)
+    images, labels = synthetic_batch(0, batch, size, RESNET_CLASSES, dev)
+    params, stats = init_resnet(torch.Generator(device=dev).manual_seed(0),
+                                RESNET_DEPTH, RESNET_CLASSES, device=dev)
+    master, stats, opt_state, sc = step.init_state(params, stats, dev)
+    del params
+    for k in kern.values():
+        k.launches = 0
+    losses, times, steps_ok, same = [], [], True, True
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        loss, new_stats, grads, found, sc = step.grads(master, stats, sc,
+                                                       images, labels)
+        saved = _clone(opt_state)      # flat_sgd steps its buffer in place
+        before = {n: k.launches for n, k in kern.items()}
+        new_master, new_opt = larc.step(grads, master, opt_state,
+                                        found_inf=found)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        steps_ok &= all(kern[n].launches - before[n]
+                        == (1 if n == "flat_sgd" else 0) for n in kern)
+        with plain_flat(kern):
+            want_master, want_opt = larc.step(grads, master, saved,
+                                              found_inf=found)
+        same &= _same_leaves(new_master, want_master) and _same_leaves(
+            new_opt, want_opt)
+        stats = amp.apply_if_finite(new_stats, stats, found)
+        master, opt_state = new_master, new_opt
+        losses.append(float(loss))
+        del grads, saved, want_master, want_opt
+    launches = {n: k.launches for n, k in kern.items()}
+    print(f"losses {[round(l, 5) for l in losses]}", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "every loss finite, the last below the first")
+    check(int(sc.overflows) == 0,
+          f"no overflow (O0's static scale 1): overflows {int(sc.overflows)}")
+    check(same, "every step's params and momentum buffer bit for bit "
+          "against LARC over the plain flat SGD on the same inputs")
+    check(steps_ok and launches["flat_sgd"] == RESNET_STEPS,
+          f"launches: flat_sgd exactly one a step, every other kernel 0 "
+          f"({({n: c for n, c in launches.items() if c})})")
+    med = statistics.median(times[1:])
+    print(f"smoke reading, not a benchmark: median step {med * 1e3:.1f} ms "
+          f"over steps 2-{RESNET_STEPS} ({batch / med:.1f} img/s)",
+          flush=True)
+    out = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+               median_step_ms=med * 1e3, launches=launches)
+    del master, opt_state, stats, step
+    torch.cuda.empty_cache()
+    return out
+
+
+FP16_HEADROOM = 2.0 ** 3   # the first scale leaves the gradients this
+FP16_MAX = 65504.0         # far below fp16's largest finite value
+
+
+def fp16_optimizer_run(dev, kern):
+    """``fp16_optimizer``: ResNet-50 ``network_to_half`` (fp16 params but
+    the BatchNorm leaves) with ``FP16_Optimizer(FusedSGD(
+    use_flat_kernel=True), dynamic_loss_scale=True)``. The first scale is
+    the largest power of two that keeps the unscaled fp16 gradients'
+    largest magnitude ``FP16_HEADROOM`` times under fp16's range (from a
+    scale of 2^24 down, the gradients overflow at every halving through
+    2^19 on an H100: six skipped steps in a row); the first step's
+    gradients carry an inf, the forced overflow: it is skipped (params
+    and masters bit for bit) and the scale halves; the others go
+    through, any natural overflow held to the same rule."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.imagenet.main_amp import (
+        MOMENTUM, WEIGHT_DECAY, synthetic_batch,
+    )
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer, network_to_half
+    from apex_tpu_torch.models.resnet import (
+        apply_resnet, cross_entropy_loss, init_resnet,
+    )
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    batch, size = RESNET_BIG
+    phase(f"fp16_optimizer: ResNet-{RESNET_DEPTH} network_to_half (fp16 "
+          f"convolutions, fp32 BatchNorm leaves), FP16_Optimizer(FusedSGD("
+          f"lr={RESNET_BIG_LR}, momentum={MOMENTUM}, weight_decay="
+          f"{WEIGHT_DECAY}, use_flat_kernel=True), dynamic_loss_scale=True), "
+          f"the first scale {FP16_HEADROOM:g}x under fp16's range for the "
+          f"largest gradient, an inf in step 1's gradients, batch {batch}, "
+          f"{size} x {size}, {RESNET_STEPS} steps on one fixed batch")
+    params, stats = init_resnet(torch.Generator(device=dev).manual_seed(0),
+                                RESNET_DEPTH, RESNET_CLASSES, device=dev)
+    model = network_to_half(params)
+    del params
+    images, labels = synthetic_batch(0, batch, size, RESNET_CLASSES, dev)
+    images = images.half()
+
+    def scaled_grads(scale_loss):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), model)
+        with torch.enable_grad():
+            logits, new_stats = apply_resnet(p, stats, images, RESNET_DEPTH,
+                                             train=True)
+            loss = cross_entropy_loss(logits, labels)
+            gs = torch.autograd.grad(scale_loss(loss), tree_leaves(p))
+        return loss.detach(), new_stats, _tree_like(p, gs)
+
+    gmax = max(float(g.float().abs().max()) for g in tree_leaves(
+        scaled_grads(lambda l: l)[2]))
+    first = 2.0 ** math.floor(math.log2(FP16_MAX / (FP16_HEADROOM * gmax)))
+    print(f"largest unscaled fp16 gradient {gmax:.4g}: first scale "
+          f"{first:g}", flush=True)
+    opt = FP16_Optimizer(
+        FusedSGD(lr=RESNET_BIG_LR, momentum=MOMENTUM,
+                 weight_decay=WEIGHT_DECAY, use_flat_kernel=True),
+        dynamic_loss_scale=True, dynamic_loss_args={"init_scale": first})
+    st = opt.init(model)
+    for k in kern.values():
+        k.launches = 0
+    losses, scales, skipped, skips_ok, moved = [], [], 0, True, False
+    for i in range(RESNET_STEPS):
+        loss, new_stats, grads = scaled_grads(
+            lambda l: opt.scale_loss(l, st))
+        if i == 0:   # the forced overflow
+            leaf = tree_leaves(grads)[0]
+            leaf[(0,) * leaf.dim()] = float("inf")
+        scale = float(opt.loss_scale(st))
+        new_model, new_st = opt.step(grads, model, st)
+        found = new_st.scaler.overflows > st.scaler.overflows
+        if bool(found):
+            skipped += 1
+            skips_ok &= _same_leaves(new_model, model) and _same_leaves(
+                new_st.master, st.master) and \
+                float(opt.loss_scale(new_st)) == scale / 2
+        else:
+            moved |= not _same_leaves(new_st.master, st.master)
+        stats = amp.apply_if_finite(new_stats, stats, found)
+        model, st = new_model, new_st
+        losses.append(float(loss))
+        scales.append(scale)
+        del grads
+    launches = {n: k.launches for n, k in kern.items()}
+    print(f"losses {[round(l, 5) for l in losses]}; loss scale before "
+          f"each step {scales}; skipped {skipped}", flush=True)
+    check(all(np.isfinite(losses)), "every loss finite")
+    check(all(t.dtype == torch.float16 for t in tree_leaves(model)
+              if t.is_floating_point() and t.dim() > 1),
+          "the conv and dense kernels stay fp16")
+    check(skipped >= 1 and scales[1] == scales[0] / 2 and skips_ok,
+          f"{skipped} overflowing step(s) skipped, the forced first among "
+          "them: model params and masters bit for bit, the scale halved "
+          "each time")
+    check(skipped < RESNET_STEPS and moved,
+          f"{RESNET_STEPS - skipped} step(s) went through and moved the "
+          "masters")
+    check(launches["flat_sgd"] == RESNET_STEPS and sum(
+        launches.values()) == RESNET_STEPS,
+          f"launches: flat_sgd exactly one a step, skipped or not "
+          f"({({n: c for n, c in launches.items() if c})})")
+    out = dict(losses=losses, loss_scales=scales, skipped=skipped,
+               largest_grad=gmax, launches=launches)
+    del model, st, stats
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_like(tree, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in ``tree``'s structure."""
+    from apex_tpu_torch.utils.tree import tree_map
+
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+# name -> (constructor arguments, kernel launches of one flat step)
+ARG_CASES = {
+    "FusedAdam": (dict(lr=LR, weight_decay=0.01), {"flat_adam": 1}),
+    "FusedLAMB": (dict(lr=LAMB_LR, weight_decay=LAMB_WD),
+                  {"flat_l2norm_partials": 1, "flat_lamb_stage1": 1}),
+    **OPT_CASES,
+}
+
+
+def opt_step_args(dev, kern):
+    """Each of the five optimizers' flat step on BERT-Large's tree with
+    ``lr=`` (twice its constructor's), ``weight_decay=0.02`` and
+    ``grad_scale=2**-16`` (gradients 2^16 times too large) overriding its
+    defaults, from a fresh state, against the same call through the
+    plain versions on the card (``plain_flat``, the grad-norm partials on
+    their kernel on both sides): bit for bit (LAMB's m and v; its params
+    through the trust ratio's sums to ``lamb_master_limit``); exact
+    launches. Then ``FusedLAMB.step(grad_norm=...)``: stage 1 alone, no
+    ``flat_l2norm_partials`` launch."""
+    from apex_tpu_torch import optimizers
+    from apex_tpu_torch.models.bert import bert_large, init_bert
+    from apex_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    params = init_bert(bert_large(), torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(200)
+    grads = tree_map(lambda x: torch.randn(
+        x.shape, generator=gen, device=dev) * (1e-3 / STEP_ARG_GS), params)
+    norm = torch.sqrt(sum(((g * STEP_ARG_GS) ** 2).sum()
+                          for g in tree_leaves(grads)))
+    out = {}
+    cases = [(n, n, False) for n in ARG_CASES] + \
+        [("FusedLAMB grad_norm", "FusedLAMB", True)]
+    for label, name, with_norm in cases:
+        kw, per_step = ARG_CASES[name]
+        args = dict(lr=2 * kw["lr"], weight_decay=0.02,
+                    grad_scale=STEP_ARG_GS)
+        if with_norm:
+            args["grad_norm"] = norm
+            per_step = {"flat_lamb_stage1": 1}
+        phase(f"optimizer step arguments: {name}({kw}, use_flat_kernel="
+              f"True) on BERT-Large's parameter set, one step with lr="
+              f"{args['lr']:g}, weight_decay=0.02, grad_scale=2**-16"
+              + (", grad_norm= the scaled gradients' norm" if with_norm
+                 else "") + " (tolerance: bit for bit against the plain "
+              "versions on the card; LAMB's params to lamb_master_limit)")
+        opt = getattr(optimizers, name)(use_flat_kernel=True, **kw)
+        state0 = opt.init(params)
+        for k in kern.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_k, s_k = opt.step(grads, params, _clone(state0), **args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: k.launches for n, k in kern.items()}
+        with plain_flat(kern, keep_partials=True):
+            p_p, s_p = opt.step(grads, params, _clone(state0), **args)
+        want = {n: per_step.get(n, 0) for n in kern}
+        check(launches == want, f"{label}: launches "
+              f"{({n: c for n, c in launches.items() if c})} (exactly "
+              f"{per_step})")
+        err = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(p_k), tree_leaves(p_p)))
+        if name == "FusedLAMB":
+            st_same = torch.equal(s_k.m, s_p.m) and torch.equal(s_k.v, s_p.v)
+            lims = lamb_master_limit(params, s_k, s_p, lr=args["lr"],
+                                     wd=args["weight_decay"])
+            share = max(_share(a, b, l) for a, b, l in zip(
+                tree_leaves(p_k), tree_leaves(p_p), tree_leaves(lims)))
+            check(st_same and share <= 1.0,
+                  f"{label}: m and v bit for bit; params {share:.4f} of "
+                  f"lamb_master_limit (max_abs_err {err:.3g})")
+        else:
+            check(_same_leaves(p_k, p_p) and _same_leaves(s_k, s_p),
+                  f"{label}: params and state bit for bit against the "
+                  f"plain versions (max_abs_err {err:.3g})")
+        moved = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(p_k), tree_leaves(params)))
+        check(moved > 0, f"{label}: the params moved (max |dp| {moved:.3g})")
+        out[label] = dict(launches={n: c for n, c in launches.items() if c},
+                          step_ms=ms, max_abs_err=err)
+        del p_k, s_k, p_p, s_p, state0, opt
+        torch.cuda.empty_cache()
+    del params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 7. times
 # ---------------------------------------------------------------------------
 
@@ -2631,6 +3077,28 @@ def train_times(dev):
            12 * rows * h, FP32_FLOPS,
            f"LN bwd ({rows}, {h}) bf16 x, fp32 w, b",
            "native_layer_norm_backward (bf16 w, b)")
+    # the O1 step's residual LayerNorms: fp32 x, fp32 w and b
+    x32, dy32 = x.float(), dy.float()
+    _, mean32, rstd32 = ln.layer_norm_fwd_plain(x32, w, b, "ln", 1e-12)
+    _entry(res, "ln_fwd_train_fp32",
+           time_ms(lambda: ln.layer_norm_fwd_kernel(x32, w, b, "ln",
+                                                    1e-12)),
+           time_ms(lambda: ln.layer_norm_fwd_plain(x32, w, b, "ln", 1e-12)),
+           time_ms(lambda: F.layer_norm(x32, (h,), w, b, 1e-12)),
+           2 * rows * h * 4 + 2 * h * 4 + 2 * rows * 4, 8 * rows * h,
+           FP32_FLOPS, f"LN fwd ({rows}, {h}) fp32 x, fp32 w, b (O1)",
+           "F.layer_norm")
+    _entry(res, "ln_bwd_fp32",
+           time_ms(lambda: ln.layer_norm_bwd_kernel(dy32, x32, w, b, mean32,
+                                                    rstd32)),
+           time_ms(lambda: ln.layer_norm_bwd_plain(dy32, x32, w, b, mean32,
+                                                   rstd32)),
+           time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+               dy32, x32, [h], mean32, rstd32, w, b, [True, True, True])),
+           3 * rows * h * 4 + h * 4 + 2 * rows * 4 + 2 * h * 4,
+           12 * rows * h, FP32_FLOPS,
+           f"LN bwd ({rows}, {h}) fp32 x, fp32 w, b (O1)",
+           "native_layer_norm_backward")
     # the regime where the JAX package splits columns (h >= 2731)
     r4, h4 = 2048, 4096
     x4, dy4 = _rand(gen, (r4, h4), bf, dev), _rand(gen, (r4, h4), bf, dev)
@@ -6300,6 +6768,11 @@ def main():
     rn_small = resnet_small(dev)
     rn_big = resnet_big(dev, kern)
     opt = opt_steps(dev, kern)
+    opt_args = opt_step_args(dev, kern)
+    o1_small = train_small_o1(dev)
+    o1 = train_o1(dev, kern)
+    larc = resnet_larc(dev, kern)
+    fp16 = fp16_optimizer_run(dev, kern)
     ddp1 = ddp_world_one(dev, kern)
     ddp2 = ddp_two_ranks(dev)
     pre = pretrain_defaults(dev)
@@ -6356,6 +6829,13 @@ def main():
             by_path[n][name] = res["launches"][n]
         by_path[n]["optimizer_steps_bert_large"] = sum(
             res["launches"].get(n, 0) for res in opt.values())
+        by_path[n]["optimizer_step_args_bert_large"] = sum(
+            res["launches"].get(n, 0) for res in opt_args.values())
+        by_path[n]["training_o1"] = o1["O1"]["launches"][n]
+        by_path[n]["training_o1_softmax_flat"] = \
+            o1["O1 softmax_flat"]["launches"][n]
+        by_path[n]["resnet_larc"] = larc["launches"][n]
+        by_path[n]["fp16_optimizer"] = fp16["launches"][n]
     rows = [  # name, source, replaces (TPU kernel file:line), times key
         ("layer_norm_fwd", "layer_norm.cu",
          "normalization/fused_layer_norm.py:76", "ln_1024x1024"),
@@ -6504,7 +6984,8 @@ def main():
         "load to the store (one read of device memory), warp shuffles and, "
         "for a team of several warps, the warps' sums in warp order; "
         "element loads where h or a row base is not aligned",
-        at_8x1024=tm["ln_8x1024"], at_8192x1024_fp32_w=tm["ln_fwd_train"])
+        at_8x1024=tm["ln_8x1024"], at_8192x1024_fp32_w=tm["ln_fwd_train"],
+        at_8192x1024_fp32_x=tm["ln_fwd_train_fp32"])
     kernels[KERNEL_NAMES.index("flat_sgd")].update(
         at_bert_large=tm["flat_sgd_bert"],
         bf16_buf_castout=tm["flat_sgd_resnet50_bf16buf_castout"])
@@ -6533,7 +7014,8 @@ def main():
         "barrier, one fp32 partial row of dgamma and of dbeta a block; "
         "stage 2 sums the partial rows per column in a fixed order with "
         "coalesced 128-byte reads; no float atomics",
-        at_2048x4096=tm["ln_bwd_4096"])
+        at_2048x4096=tm["ln_bwd_4096"],
+        at_8192x1024_fp32_x=tm["ln_bwd_fp32"])
     # GPT-medium's training step (gpt_tp_bench's tp=1 shape): the
     # LayerNorm's (8192, 1024) bf16 x, fp32 w and the dropout's 8.4M bf16
     # elements are the BERT step's shapes, timed above
@@ -6626,6 +7108,7 @@ def main():
               if n not in OFF_PATH),
           "every kernel of a path launched on that path")
     for key in ("ln_8x1024", "ln_fwd_train", "ln_bwd_4096",
+                "ln_fwd_train_fp32", "ln_bwd_fp32",
                 "flash_fwd_train", "flash_b1h16s1024d64_gpt_views",
                 "flat_adam_bf16m_castout",
                 "flat_lamb_stage1_bf16m", "flat_sgd_bert_bf16buf_castout",
@@ -6642,6 +7125,11 @@ def main():
     print(f"ResNet-50 training: {json.dumps(rn_big)}")
     print(f"optimizer steps on BERT-Large's parameter set: "
           f"{json.dumps(opt)}")
+    print(f"optimizer step arguments: {json.dumps(opt_args)}")
+    print(f"training O1, card vs CPU: {json.dumps(o1_small)}")
+    print(f"training_o1, BERT-Large: {json.dumps(o1)}")
+    print(f"resnet_larc: {json.dumps(larc)}")
+    print(f"fp16_optimizer: {json.dumps(fp16)}")
     for key in ("gpt_flash_fwd", "gpt_flash_dq", "gpt_flash_dkv",
                 "gpt_xent_fwd", "gpt_xent_bwd", "gpt_flat_adam"):
         print(f"{key}: {json.dumps(tm[key])}")

@@ -135,6 +135,7 @@ _LN_CASES = [
     (1024, 1024, "bf16", "bf16", "ln", True),
     (8, 1024, "bf16", "bf16", "ln", True),
     (8192, 1024, "bf16", "f32", "ln", True),    # BERT O2
+    (8192, 1024, "f32", "f32", "ln", True),     # BERT O1's residual LNs
     (64, 1000, "bf16", "f32", "rms", True),
     (64, 1024, "f32", "bf16", "ln", True),
     (7, 1000, "bf16", "bf16", "ln", False),
@@ -424,6 +425,7 @@ def _assert_within(name, got, want, lim):
 _LN_BWD_CASES = [
     # (rows, h, x dtype, w/b dtype, mode, affine)
     (8192, 1024, "bf16", "f32", "ln", True),    # BERT O2
+    (8192, 1024, "f32", "f32", "ln", True),     # BERT O1's residual LNs
     (1024, 1024, "bf16", "bf16", "ln", True),   # GPT O2
     (1024, 1024, "bf16", "bf16", "rms", True),
     (333, 1000, "f32", "f32", "ln", False),
@@ -1044,6 +1046,98 @@ def test_flat_lamb_kernels_match_plain_and_repeat(cuda_device, m_dt):
     lim = mta.lamb_p_limit(want[0], u, pp, up, ids, counts, 1e-3)
     _assert_within("p", got[0].cpu(), want[0], lim)
     assert not torch.equal(want[0], p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_dt", ["f32", "bf16"])
+def test_flat_lamb_with_grad_norm_skips_the_pre_pass(cuda_device, m_dt):
+    """flat_lamb with a caller's ``grad_norm=`` and ``grad_scale=2**-16``
+    (the optimizers' step arguments): stage 1 alone on the card (no
+    ``flat_l2norm_partials`` launch), m and v bit for bit against the
+    same call on the CPU (the plain versions), p within lamb_p_limit;
+    the clip engages (the norm is above ``max_grad_norm``)."""
+    from apex_tpu_torch.multi_tensor_apply.flatten import flatten_tensors
+
+    rng = np.random.RandomState(17)
+    shapes = [(1024, 300), (300,), (77, 129)]
+    p, spec = flatten_tensors([torch.from_numpy(
+        rng.randn(*s).astype(np.float32)) for s in shapes])
+    g, _ = flatten_tensors([torch.from_numpy(
+        (rng.randn(*s) * 2.0 ** 16).astype(np.float32)) for s in shapes],
+        spec)
+    m = (torch.from_numpy(rng.randn(*p.shape).astype(np.float32))
+         * 1e-3).to(_DT[m_dt])
+    v = torch.from_numpy(np.abs(rng.randn(*p.shape)).astype(np.float32)
+                         ) * 1e-6
+    ids, counts = spec.tile_tensor_ids(8), spec.tile_counts(8)
+    norm = torch.tensor(3.25)
+    kw = dict(lr=2e-3, beta1=0.9, beta2=0.999, eps=1e-6, step=2,
+              weight_decay=0.02, grad_scale=2.0 ** -16, grad_norm=norm,
+              max_grad_norm=1.0)
+    dev = [t.to(cuda_device) for t in (g, p, m, v, ids, counts)]
+    before = (mta.FLAT_L2NORM.launches, mta.FLAT_LAMB_STAGE1.launches)
+    got = mta.flat_lamb(*dev, **dict(kw, grad_norm=norm.to(cuda_device)))
+    torch.cuda.synchronize()
+    assert (mta.FLAT_L2NORM.launches, mta.FLAT_LAMB_STAGE1.launches) == (
+        before[0], before[1] + 1)
+    want = mta.flat_lamb(g, p, m, v, ids, counts, **kw)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+    hp = mta.lamb_hparams(
+        beta1=0.9, beta2=0.999, eps=1e-6, step=2, weight_decay=0.02,
+        adam_w_mode=True, gs_over_clip=mta.lamb_inv_clip(
+            None, 1.0, 2.0 ** -16, norm, "cpu"), device="cpu")
+    assert float(hp[8]) == float(torch.tensor(2.0 ** -16) / norm)
+    _, _, u, pp, up = mta.flat_lamb_stage1_plain(g, p, m, v, hp)
+    lim = mta.lamb_p_limit(want[0], u, pp, up, ids, counts, 2e-3)
+    _assert_within("p", got[0].cpu(), want[0], lim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adam", "sgd"])
+def test_flat_wrappers_take_the_step_arguments_bitwise(cuda_device, opt):
+    """``flat_adam`` and ``flat_sgd`` as the optimizers' step arguments
+    call them: ``lr`` and ``weight_decay`` as 0-d tensors on the card,
+    ``grad_scale=2**-16``: the kernel against its plain version on the
+    same hyperparameter vector, bit for bit."""
+    rng = np.random.RandomState(19)
+    rows = 256 * 3
+    g = _flat_buf(rng, rows, "f32", cuda_device, 2.0 ** 16)
+    p = _flat_buf(rng, rows, "f32", cuda_device, 1.0)
+    lr = torch.tensor(2e-3, device=cuda_device)
+    wd = torch.tensor(0.02, device=cuda_device)
+    gs = 2.0 ** -16
+    if opt == "adam":
+        m = _flat_buf(rng, rows, "f32", cuda_device, 1e-2)
+        v = _t(np.abs(rng.randn(rows, 128)) * 1e-4, "f32", cuda_device)
+        kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, adam_w_mode=True,
+                  bias_correction=True)
+        before = mta.FLAT_ADAM.launches
+        got = mta.flat_adam(g, p, m, v, lr=lr, step=torch.tensor(
+            2, device=cuda_device), weight_decay=wd, grad_scale=gs, **kw)
+        torch.cuda.synchronize()
+        assert mta.FLAT_ADAM.launches == before + 1
+        hp = mta.adam_hparams(lr=lr, step=2, weight_decay=wd, grad_scale=gs,
+                              device=cuda_device, **kw)
+        assert float(hp[8]) == gs and float(hp[0]) == float(lr)
+        want = mta.flat_adam_plain(g, p, m, v, hp)
+    else:
+        buf = _flat_buf(rng, rows, "f32", cuda_device, 1e-2)
+        kw = dict(momentum=0.9, dampening=0.0, nesterov=False,
+                  wd_after_momentum=False)
+        pk, bk = p.clone(), buf.clone()
+        before = mta.FLAT_SGD.launches
+        got = mta.flat_sgd(g, pk, bk, lr=lr, weight_decay=wd,
+                           first_run=torch.tensor(False, device=cuda_device),
+                           grad_scale=gs, **kw)
+        torch.cuda.synchronize()
+        assert mta.FLAT_SGD.launches == before + 1
+        hp = mta.sgd_hparams(lr=lr, weight_decay=wd, first_run=False,
+                             grad_scale=gs, device=cuda_device, **kw)
+        want = mta.flat_sgd_plain(g, p.clone(), buf.clone(), hp)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    assert not torch.equal(got[0], p)
 
 
 w8 = importlib.import_module("apex_tpu_torch.quant.kernels")

@@ -47,6 +47,8 @@ from apex_tpu_torch.models import init_resnet
 from apex_tpu_torch.examples.simple.distributed import (
     distributed_data_parallel as ddp_example,
 )
+from apex_tpu_torch.fused_dense import FusedDense, FusedDenseGeluDense
+from apex_tpu_torch.mlp import MLP
 from apex_tpu_torch.parallel import multiproc
 from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch import optimizers as port_optimizers
@@ -125,7 +127,8 @@ def no_cuda(monkeypatch):
     "init_gpt_from_key", "rope_frequencies", "rope_cos_sin",
     "gpt_make_state", "gpt_train_main", "pretrain_gpt_main",
     "init_paged_cache", "PagedDecodeEngine", "initialize_model_parallel",
-    "ddp_example_main", "initialize_distributed"])
+    "ddp_example_main", "initialize_distributed", "mlp_init",
+    "fused_dense_init", "fused_dense_gelu_dense_init"])
 def test_default_device_is_the_card(no_cuda, entry):
     cfg = port_gpt.gpt_tiny()
     bcfg = port_bert.bert_tiny()
@@ -159,6 +162,11 @@ def test_default_device_is_the_card(no_cuda, entry):
             lambda: parallel_state.initialize_model_parallel(),
         "ddp_example_main": lambda: ddp_example.main([]),
         "initialize_distributed": lambda: multiproc.initialize_distributed(),
+        "mlp_init": lambda: MLP([4, 8]).init(torch.Generator()),
+        "fused_dense_init": lambda: FusedDense(4, 8).init(
+            torch.Generator()),
+        "fused_dense_gelu_dense_init": lambda: FusedDenseGeluDense(
+            4, 8, 4).init(torch.Generator()),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -666,6 +674,8 @@ DEPARTURES = {
         "found_inf=: the overflow skip inside the kernel",
     "multi_tensor_apply/kernels.py:flat_novograd":
         "tile_counts in place of num_tensors, found_inf=",
+    "multi_tensor_apply/kernels.py:flat_lamb":
+        "tile_counts in place of num_tensors, found_inf=",
     "normalization/fused_layer_norm.py:FusedLayerNorm.init":
         "FusedLayerNorm is an nn.Module: its parameters are its own",
     "normalization/fused_layer_norm.py:FusedLayerNorm.apply":
@@ -705,19 +715,6 @@ OWED = {
                   "paged_decode", "paged_verify", "tree_verify",
                   "chunk_prefill", "paged_chunk_prefill",
                   "paged_tree_verify")],
-    "A5 optimizer and amp tier": [
-        "amp/frontend.py:Amp.__init__", "amp/frontend.py:initialize",
-        "amp/frontend.py:Amp.master_params", "amp/frontend.py:Amp.autocast",
-        "amp/frontend.py:Amp.state_dict", "amp/frontend.py:Amp.load_state_dict",
-        "optimizers/fused_adam.py:FusedAdam.step",
-        "optimizers/fused_lamb.py:FusedLAMB.step",
-        "optimizers/fused_sgd.py:FusedSGD.step",
-        "optimizers/fused_adagrad.py:FusedAdagrad.step",
-        "optimizers/fused_novograd.py:FusedNovoGrad.step",
-        "multi_tensor_apply/kernels.py:flat_lamb",  # grad_scale, grad_norm
-        # LARC passes lr= and weight_decay= to the inner step, which the
-        # port's optimizers do not take yet
-        "parallel/__init__.py:LARC"],
     "A6 data and model parallelism": [
         "models/gpt.py:GPTModel",
         "models/bert.py:bert_partition_specs",
@@ -772,29 +769,60 @@ DEPARTURES_IN_MEANING = {
         "src_mesh= / dst_mesh= (a reshard between two sub-meshes) raise "
         "NotImplementedError naming A6; at None, the reference's default, "
         "the tiles take the host round trip",
+    "transformer/amp/__init__.py:GradScaler.unscale":
+        "ORs found_inf by an all_reduce(MAX) over this rank's "
+        "parallel_state groups along the tensor and then the pipeline "
+        "axis, not by lax.pmax over the axes a shard_map binds; an axis of "
+        "one rank, or no mesh, is skipped (the unbound axis); any other "
+        "error propagates",
 }
 
 # Packages whose ``__init__`` exports are held to the reference's (the
-# packages of the slices since the data-parallel one, and serving since
-# its fault tier).
-EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer", "serving")
+# packages of the slices since the data-parallel one, serving since its
+# fault tier, and the amp tier's; not transformer/amp, whose reference
+# imports JAX's lax and axis_size there: its GradScaler is held by the
+# surface scan).
+EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer", "serving",
+                  "amp", "fp16_utils", "mlp", "fused_dense")
+
+
+def _defines_names(path):
+    """True where the file defines a public function or class."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return any(isinstance(n, (ast.FunctionDef, ast.ClassDef))
+               and not n.name.startswith("_") for n in tree.body)
 
 
 def _ported_modules():
-    """Port modules (paths under apex_tpu_torch/, ``__init__`` files
-    aside) and their reference files: ``apex_tpu/x`` for ``x``, the
-    repo's ``examples/`` for ``examples/``; None where there is none."""
+    """Port modules (paths under apex_tpu_torch/; an ``__init__`` file
+    only where its reference defines public names, as
+    ``transformer/amp``'s does) and their reference files:
+    ``apex_tpu/x`` for ``x``, the repo's ``examples/`` for
+    ``examples/``; None where there is none."""
     out = {}
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames.sort()
         for f in sorted(filenames):
-            if not f.endswith(".py") or f == "__init__.py":
+            if not f.endswith(".py"):
                 continue
             rel = os.path.relpath(os.path.join(dirpath, f), PORT)
             ref = os.path.join(REPO, rel) if rel.startswith("examples/") \
                 else os.path.join(REPO, "apex_tpu", rel)
+            if f == "__init__.py" and not (os.path.exists(ref)
+                                            and _defines_names(ref)):
+                continue
             out[rel] = ref if os.path.exists(ref) else None
     return out
+
+
+def _port_module(rel):
+    """The port module of the path ``rel`` (a package for its
+    ``__init__.py``)."""
+    name = rel[:-3].replace("/", ".")
+    if name.endswith(".__init__"):
+        name = name[:-len(".__init__")]
+    return importlib.import_module("apex_tpu_torch." + name)
 
 
 _MODULES = _ported_modules()
@@ -904,8 +932,7 @@ def _surface_findings(rel):
     the port adds one."""
     with open(_MODULES[rel]) as f:
         tree = ast.parse(f.read())
-    mod = importlib.import_module(
-        "apex_tpu_torch." + rel[:-3].replace("/", "."))
+    mod = _port_module(rel)
     ns = vars(mod)
     found = []
     for node in tree.body:
@@ -1033,7 +1060,6 @@ def test_departures_in_meaning_name_both_sides(key):
         src = f.read()
     cls, _, meth = name.rpartition(".")
     assert f"def {meth}(" in src and (not cls or f"class {cls}" in src)
-    mod = importlib.import_module(
-        "apex_tpu_torch." + rel[:-3].replace("/", "."))
+    mod = _port_module(rel)
     obj = getattr(mod, cls or meth)
     assert callable(getattr(obj, meth) if cls else obj)
