@@ -3,11 +3,13 @@ counterpart of ``examples/gpt/pretrain_gpt.py`` on one device.
 
 It takes the reference's Megatron flags with their defaults
 (``apex_tpu/transformer/testing/arguments.py``) and its own
-(``extra_flags``). The port has no mesh yet: a tensor-, pipeline- or
+(``extra_flags``). The reference's script always runs the pipeline
+schedules (``gpt_to_pipeline_params`` and the 1F1B step, at pp 1 too),
+so its parallel flags come with them: a tensor-, pipeline- or
 context-parallel size above 1, a virtual pipeline size,
 ``--sequence-parallel``, ``--use-distributed-optimizer`` and
 ``--gradient-accumulation-fusion`` stop the script with a message naming
-ROADMAP queue A6. At data-parallel size 1 the reference's step is
+ROADMAP queue A6.2. At data-parallel size 1 the reference's step is
 ``forward_backward_no_pipelining``: the global batch split into ``M =
 global / micro`` microbatches, the loss the mean of the microbatch means,
 the gradients summed in fp32 and divided by ``M``; then
@@ -102,9 +104,9 @@ def _check_single_device(ns: argparse.Namespace) -> None:
     asked = [flag for flag, on in parallel.items() if on]
     if asked:
         raise SystemExit(
-            f"{', '.join(asked)}: the port runs one device; tensor, "
-            "pipeline, context and data parallelism and the distributed "
-            "optimizer are ROADMAP queue A6 (data and model parallelism)")
+            f"{', '.join(asked)}: the port's script runs one device; its "
+            "parallel flags come with the pipeline schedules and the "
+            "distributed optimizer, ROADMAP queue A6.2")
 
 
 def main(argv=None) -> int:

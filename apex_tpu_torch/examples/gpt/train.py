@@ -10,6 +10,9 @@ steps the params. ``gpt_medium()`` checkpoints every layer
 (``remat=True``). With a ``dropout_rng`` (a ``utils.prng`` key) step
 ``i`` runs the hidden dropout on ``fold_in(dropout_rng, i)``; without
 one the step is the JAX benchmark's, which runs none.
+``make_gpt_tp_train_step`` is the same step at tp > 1 (that function's
+``body``): ``GPTModel.loss`` inside ``parallel_state.shard_map`` over the
+installed mesh's ``model`` axis, one process a rank.
 
 Random weights from a seed and one fixed batch of ids from
 ``randint(PRNGKey(1000), (batch, seq), 0, vocab)``, the labels the ids
@@ -28,6 +31,7 @@ and on the CPU (the kernels' plain versions) with ``--device cpu``::
 
 import argparse
 import dataclasses
+import functools
 import statistics
 import time
 from typing import Any, Callable, Optional, Tuple
@@ -35,9 +39,10 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from apex_tpu_torch.models.gpt import (
-    GPTConfig, gpt_loss_unsharded, gpt_medium, gpt_tiny, init_gpt,
+    GPTConfig, GPTModel, gpt_loss_unsharded, gpt_medium, gpt_tiny, init_gpt,
 )
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.transformer import parallel_state as ps
 from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 from apex_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -115,6 +120,52 @@ def make_gpt_train_step(cfg: GPTConfig, opt: Optional[FusedAdam] = None,
     if opt is None:
         opt = FusedAdam(lr=1e-4, weight_decay=0.01)
     return GPTTrainStep(cfg, opt, compute_dtype, dropout_rng)
+
+
+class GPTTPTrainStep(GPTTrainStep):
+    """The tensor-parallel step of ``gpt_tp_bench(…, n_devices > 1)``, in
+    this rank's process: ``GPTModel.loss`` and its gradients inside
+    ``parallel_state.shard_map(in_specs=(specs, P(), P()),
+    out_specs=(P(), specs))`` (the sequence-parallel gradients
+    all-reduced before they leave it), so :meth:`grads` hands back the
+    whole gradients; the optimizer then steps the whole params, the same
+    on every rank."""
+
+    def __init__(self, model: GPTModel, opt: FusedAdam,
+                 compute_dtype: Optional[torch.dtype], dropout_rng=None):
+        super().__init__(model.cfg, opt, compute_dtype, dropout_rng)
+        self.model = model
+        self.specs = model.partition_specs()
+        vg = value_and_grad(model.loss)
+
+        def loss_and_grads(params, ids, labels, dropout_rng=None):
+            loss, grads = vg(params, ids, labels, dropout_rng=dropout_rng,
+                             compute_dtype=compute_dtype)
+            return loss, model.allreduce_sequence_parallel_grads(grads)
+
+        self._loss_and_grads = loss_and_grads
+
+    def grads(self, params, ids, labels, dropout_rng=None):
+        """(loss, whole grads); ``dropout_rng`` the model's key as it
+        is."""
+        P = ps.PartitionSpec
+        return ps.shard_map(
+            functools.partial(self._loss_and_grads, dropout_rng=dropout_rng),
+            in_specs=(self.specs, P(), P()),
+            out_specs=(P(), self.specs))(params, ids, labels)
+
+
+def make_gpt_tp_train_step(model: GPTModel, opt: Optional[FusedAdam] = None,
+                           compute_dtype: Optional[torch.dtype] =
+                           torch.bfloat16, dropout_rng=None
+                           ) -> GPTTPTrainStep:
+    """The JAX ``gpt_tp_bench(…, n_devices > 1)`` step over ``model``'s
+    tensor-parallel layers (call with the mesh installed): ``opt``
+    defaults to its ``FusedAdam(lr=1e-4, weight_decay=0.01)``,
+    ``compute_dtype`` to bf16 over fp32 params."""
+    if opt is None:
+        opt = FusedAdam(lr=1e-4, weight_decay=0.01)
+    return GPTTPTrainStep(model, opt, compute_dtype, dropout_rng)
 
 
 def make_state(cfg: GPTConfig, opt: FusedAdam, seed: int = 0,

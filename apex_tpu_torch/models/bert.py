@@ -244,3 +244,39 @@ def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
                                         flat_labels)
     m = label_mask.float()
     return losses.sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def bert_partition_specs(params: Dict[str, Any]):
+    """Megatron PartitionSpecs for a BERT param tree over the mesh axes
+    (``parallel_state.PartitionSpec``): qkv / fc1 split by columns, the
+    attention output / fc2 by rows, the word table by vocabulary; the
+    rest replicated."""
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    P = ps.PartitionSpec
+    tp = ps.TENSOR_AXIS
+
+    def spec_for(keys) -> P:
+        joined = "/".join(keys)
+        name = keys[-1]
+        if "layernorm" in joined or name == "bias" and "mlm_head" in joined:
+            return P()
+        if "word" in joined and name == "embedding":
+            return P(tp, None)          # vocabulary-split
+        if name == "embedding":
+            return P()                   # position / token-type
+        if "qkv" in joined or "fc1" in joined:
+            return P(None, tp) if name == "kernel" else P(tp)
+        if ("attention/out" in joined or "fc2" in joined) and name == "kernel":
+            return P(tp, None)           # row-parallel
+        return P()
+
+    def walk(tree, keys):
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, keys + (str(i),))
+                              for i, v in enumerate(tree))
+        return spec_for(keys)
+
+    return walk(params, ())

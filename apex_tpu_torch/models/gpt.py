@@ -1,6 +1,8 @@
-"""GPT (decoder-only transformer), the single-device subset of
-``apex_tpu/models/gpt.py``: inference (the serving blocks) and training
-(``apply_gpt_unsharded`` with dropout, ``gpt_loss_unsharded``).
+"""GPT (decoder-only transformer), the counterpart of
+``apex_tpu/models/gpt.py`` but its pipeline and context-parallel paths:
+inference (the serving blocks), training on one device
+(``apply_gpt_unsharded`` with dropout, ``gpt_loss_unsharded``) and the
+tensor- and sequence-parallel model (``GPTModel``).
 
 Parameters are a dict tree that mirrors the JAX tree, layer leaves
 stacked on a leading ``num_layers`` axis; the JAX ``lax.scan`` over
@@ -19,9 +21,19 @@ the card; XLA in the JAX package), the paged prompt-chunk block through
 ``paged_chunk_attention`` (on the card a tensor-core kernel for a bf16
 chunk, the verify kernel otherwise); the dense verify, tree and
 prompt-chunk blocks are plain PyTorch, as they are XLA there.
-The tensor-, sequence- and context-parallel paths (``GPTModel`` and its
-fields) are a later slice. Weight-only int8 trees run the serving blocks
-with ``serving/decode.py``'s w8 linears.
+Weight-only int8 trees run the serving blocks with
+``serving/decode.py``'s w8 linears.
+
+``GPTModel`` runs inside ``parallel_state.shard_map`` over the ``model``
+axis, one process a rank: the qkv and fc1 products are
+``ColumnParallelLinear``, out and fc2 ``RowParallelLinear``, the word
+table a ``VocabParallelEmbedding`` tied to the logits, whose loss is
+``vocab_parallel_cross_entropy`` (plain ops, no kernel, as in the JAX
+package); the attention and LayerNorm kernels run on each rank's local
+heads and tokens. The qkv columns are head-major, so a contiguous column
+block holds whole heads. ``sequence_parallel`` splits the activations
+outside the tensor-parallel regions along the sequence. The
+context-parallel fields and the pipeline adapter are ROADMAP.md's A6.2.
 """
 
 import dataclasses
@@ -44,6 +56,8 @@ from apex_tpu_torch.transformer.functional import (
     flash_attention, fused_apply_rotary_pos_emb_bhsd, paged_decode_attention,
     paged_verify_attention, rope_frequencies,
 )
+from apex_tpu_torch.transformer import parallel_state as ps
+from apex_tpu_torch.transformer import tensor_parallel as tp
 from apex_tpu_torch.transformer.functional.paged_attention import (
     paged_chunk_attention, visible,
 )
@@ -69,11 +83,16 @@ class GPTConfig:
     # a JAX checkpoint-policy name (``_REMAT_POLICIES``) under remat:
     # which of the layer's results are kept instead of recomputed
     remat_policy: Optional[str] = None
-    # the tensor-, sequence- and context-parallel fields: ROADMAP A6;
-    # check_config raises when one is set
+    # Megatron sequence parallelism (GPTModel): activations outside the
+    # tensor-parallel regions (LN, residuals, dropout) are split along
+    # the sequence (dim 1 of (b, s, h)) over the model axis
     sequence_parallel: bool = False
+    # ring or Ulysses context parallelism: ROADMAP A6.2; check_config
+    # raises when either is set
     context_parallel: bool = False
     context_parallel_impl: str = "ring"
+    # GPTModel's linears emit fp32 weight gradients with no round trip
+    # through the activations' dtype (linear_with_grad_accumulation)
     gradient_accumulation_fusion: bool = False
 
     @property
@@ -109,20 +128,18 @@ def draft_gpt_medium() -> GPTConfig:
                      max_position_embeddings=1024, use_rope=True)
 
 
-_PARALLEL_FIELDS = {"sequence_parallel": False, "context_parallel": False,
-                    "context_parallel_impl": "ring",
-                    "gradient_accumulation_fusion": False}
+_CONTEXT_FIELDS = {"context_parallel": False, "context_parallel_impl": "ring"}
 
 
 def check_config(cfg: GPTConfig) -> None:
-    """The tensor-, sequence- and context-parallel fields are not ported
-    (ROADMAP A6): a config that sets one raises."""
-    for name, off in _PARALLEL_FIELDS.items():
+    """The context-parallel fields are not ported (ROADMAP A6.2): a
+    config that sets one raises."""
+    for name, off in _CONTEXT_FIELDS.items():
         if getattr(cfg, name) != off:
             raise NotImplementedError(
                 f"GPTConfig.{name}={getattr(cfg, name)!r} is not ported "
-                "yet (ROADMAP queue A6: data and model parallelism); the "
-                f"port runs one device with {name}={off!r}")
+                "yet (ROADMAP queue A6.2: pipeline and context "
+                f"parallelism); the port runs {name}={off!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -285,18 +302,21 @@ def _maybe_dropout(x, rate, rng, salt):
     return prng.dropout(prng.fold_in(rng, salt), x, rate)
 
 
-def _block(lp, x, cfg, rope_freqs, dense, dropout_rng=None):
+def _block(lp, x, cfg, rope_freqs, qkv_fn, out_fn, fc1_fn, fc2_fn,
+           dropout_rng=None):
     """Pre-LN transformer block: x + Attn(LN(x)); x + MLP(LN(x)), the
     hidden dropout after the attention's output projection (salt 0)
-    and after fc2 (salt 1)."""
-    att = _causal_attention(dense(lp["qkv"], _ln(lp["ln1"], x,
-                                                 cfg.layer_norm_eps)),
+    and after fc2 (salt 1). The four linears are ``dense`` on the
+    unsharded path, the Column / Row layers' ``apply`` in GPTModel."""
+    att = _causal_attention(qkv_fn(lp["qkv"], _ln(lp["ln1"], x,
+                                                  cfg.layer_norm_eps)),
                             cfg, rope_freqs)
-    att = _maybe_dropout(dense(lp["out"], att), cfg.hidden_dropout,
+    att = _maybe_dropout(out_fn(lp["out"], att), cfg.hidden_dropout,
                          dropout_rng, 0)
     x = x + att
-    mlp = _maybe_dropout(_mlp(lp, x, cfg, dense), cfg.hidden_dropout,
-                         dropout_rng, 1)
+    mlp = fc2_fn(lp["fc2"], _gelu(fc1_fn(lp["fc1"], _ln(
+        lp["ln2"], x, cfg.layer_norm_eps))))
+    mlp = _maybe_dropout(mlp, cfg.hidden_dropout, dropout_rng, 1)
     return x + mlp
 
 
@@ -764,12 +784,14 @@ def _remat_context(policy: Optional[str]):
                              functools.partial(_keep_ops, ops))
 
 
-def _scan_layers(x, layers, cfg, freqs, dense_fn, dropout_rng):
+def _scan_layers(x, layers, cfg, freqs, qkv_fn, out_fn, fc1_fn, fc2_fn,
+                 dropout_rng):
     """Depth loop over the stacked layer leaves, each layer checkpointed
     under ``cfg.remat``; with a key, layer i draws on
     ``split(dropout_rng, num_layers)[i]``."""
     def block(lp, x, rng):
-        return _block(lp, x, cfg, freqs, dense_fn, dropout_rng=rng)
+        return _block(lp, x, cfg, freqs, qkv_fn, out_fn, fc1_fn, fc2_fn,
+                      dropout_rng=rng)
 
     kw = None
     if cfg.remat and torch.is_grad_enabled():   # no backward: no remat
@@ -810,7 +832,8 @@ def apply_gpt_unsharded(params: Dict[str, Any], cfg: GPTConfig,
         pos = params["embedding"]["position"]["embedding"][:s]
         x = x + pos.to(x.dtype)[None]
     freqs = _rope_or_none(cfg, s, input_ids.device)
-    x = _scan_layers(x, params["layers"], cfg, freqs, dense, dropout_rng)
+    x = _scan_layers(x, params["layers"], cfg, freqs, dense, dense, dense,
+                     dense, dropout_rng)
     return _ln(params["final_ln"], x, cfg.layer_norm_eps)
 
 
@@ -835,6 +858,232 @@ def gpt_loss_unsharded(params: Dict[str, Any], cfg: GPTConfig,
     nll = softmax_cross_entropy_loss(logits.reshape(-1, v),
                                      labels.reshape(-1))
     return nll.mean()
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel path: call inside parallel_state.shard_map
+# ---------------------------------------------------------------------------
+
+def gpt_partition_specs(cfg: GPTConfig) -> Dict[str, Any]:
+    """Megatron layout over the ``model`` axis (layer leaves carry the
+    leading stacked-layer dimension)."""
+    P = ps.PartitionSpec
+    t = ps.TENSOR_AXIS
+    specs = {
+        "embedding": {"word": {"embedding": P(t, None)}},
+        "layers": {
+            "ln1": {"weight": P(None), "bias": P(None)},
+            "qkv": {"kernel": P(None, None, t), "bias": P(None, t)},
+            "out": {"kernel": P(None, t, None), "bias": P(None)},
+            "ln2": {"weight": P(None), "bias": P(None)},
+            "fc1": {"kernel": P(None, None, t), "bias": P(None, t)},
+            "fc2": {"kernel": P(None, t, None), "bias": P(None)},
+        },
+        "final_ln": {"weight": P(), "bias": P()},
+    }
+    if not cfg.use_rope:
+        specs["embedding"]["position"] = {"embedding": P()}
+    return specs
+
+
+def _tied_lm_logits(hidden: torch.Tensor,
+                    table_local: torch.Tensor) -> torch.Tensor:
+    """hidden (replicated) @ this rank's vocabulary block of the table,
+    transposed, as fp32 logits: a ColumnParallelLinear in disguise. The
+    hidden passes through ``copy_to_tensor_model_parallel_region``, so
+    the backward all-reduces dhidden (each rank's product covers only its
+    vocabulary block)."""
+    hidden = tp.copy_to_tensor_model_parallel_region(hidden)
+    return torch.matmul(hidden, table_local.to(hidden.dtype).t()).float()
+
+
+class GPTModel:
+    """The tensor-parallel layers (Column / Row / VocabParallel) of one
+    config. ``apply`` / ``loss`` run inside ``parallel_state.shard_map``
+    on this rank's block of the params; ``init`` and ``partition_specs``
+    describe the whole params."""
+
+    def __init__(self, cfg: GPTConfig, tp_size: Optional[int] = None):
+        self.cfg = cfg
+        h, f = cfg.hidden_size, cfg.ffn_hidden_size
+        t = tp_size if tp_size is not None else \
+            ps.get_tensor_model_parallel_world_size()
+        if cfg.num_heads % t:
+            raise ValueError(
+                f"num_heads {cfg.num_heads} not divisible by tp {t} "
+                "(attention heads shard over the model axis)")
+        if cfg.sequence_parallel and cfg.context_parallel:
+            raise ValueError(
+                "sequence_parallel and context_parallel are mutually "
+                "exclusive (different axes, different activation "
+                "contracts)")
+        if cfg.context_parallel_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"context_parallel_impl must be 'ring' or 'ulysses', "
+                f"got {cfg.context_parallel_impl!r}")
+        if cfg.context_parallel and cfg.context_parallel_impl == "ulysses":
+            cp = ps.get_context_parallel_world_size()
+            if (cfg.num_heads // t) % cp:
+                raise ValueError(
+                    f"ulysses context parallelism needs local heads "
+                    f"({cfg.num_heads}//tp{t}) divisible by cp={cp}")
+        sp = dict(sequence_parallel_enabled=cfg.sequence_parallel,
+                  sequence_parallel_seq_dim=1,  # (b, s, h) layout
+                  gradient_accumulation_fusion=
+                  cfg.gradient_accumulation_fusion)
+        self.qkv = tp.ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                           tp_size=tp_size, **sp)
+        self.out = tp.RowParallelLinear(h, h, input_is_parallel=True,
+                                        tp_size=tp_size, **sp)
+        self.fc1 = tp.ColumnParallelLinear(h, f, gather_output=False,
+                                           tp_size=tp_size, **sp)
+        self.fc2 = tp.RowParallelLinear(f, h, input_is_parallel=True,
+                                        tp_size=tp_size, **sp)
+        self.embed = tp.VocabParallelEmbedding(cfg.vocab_size, h,
+                                               tp_size=tp_size)
+
+    def init(self, generator: torch.Generator,
+             dtype: torch.dtype = torch.float32,
+             device: DeviceLike = None) -> Dict[str, Any]:
+        return init_gpt(self.cfg, generator, dtype, device)
+
+    def partition_specs(self) -> Dict[str, Any]:
+        return gpt_partition_specs(self.cfg)
+
+    def apply(self, params: Dict[str, Any], input_ids: torch.Tensor, *,
+              dropout_rng=None,
+              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """ids (b, s) -> final hidden (b, s, h), split on s under
+        sequence parallelism. Inside shard_map over the ``model`` axis (a
+        mesh of tp 1 is fine)."""
+        cfg = self.cfg
+        if cfg.context_parallel:
+            raise NotImplementedError(
+                "GPTModel with context_parallel=True is not ported yet "
+                "(ROADMAP queue A6.2: ring and Ulysses attention over the "
+                "context axis)")
+        s = input_ids.shape[1]
+        x = self.embed.apply(params["embedding"]["word"], input_ids)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        if not cfg.use_rope:
+            pos = params["embedding"]["position"]["embedding"][:s]
+            x = x + pos.to(x.dtype)[None]
+        freqs = _rope_or_none(cfg, s, input_ids.device)
+        if cfg.sequence_parallel:
+            # enter the SP region: the sequence split over the model
+            # axis (the attention still sees all of it: Column gathers
+            # it); ranks hold different tokens, so their dropout keys
+            # differ
+            x = tp.scatter_to_sequence_parallel_region(x, 1)
+            if dropout_rng is not None:
+                dropout_rng = prng.fold_in(
+                    dropout_rng, ps.get_tensor_model_parallel_rank())
+        x = _scan_layers(x, params["layers"], cfg, freqs, self.qkv.apply,
+                         self.out.apply, self.fc1.apply, self.fc2.apply,
+                         dropout_rng)
+        return _ln(params["final_ln"], x, cfg.layer_norm_eps)
+
+    def logits_local(self, params: Dict[str, Any],
+                     hidden: torch.Tensor) -> torch.Tensor:
+        """Tied LM head: (b, s, h) -> this rank's vocabulary block of the
+        fp32 logits (b, s, V/tp) (the ``parallel_output=True``
+        convention)."""
+        return _tied_lm_logits(hidden,
+                               params["embedding"]["word"]["embedding"])
+
+    def allreduce_sequence_parallel_grads(self, grads: Dict[str, Any]
+                                          ) -> Dict[str, Any]:
+        """After the backward under sequence parallelism (ref: Megatron's
+        ``allreduce_sequence_parallel_gradients``): the layer norms' and
+        the Row-parallel biases' gradients cover only this rank's tokens;
+        all-reduce them over the model axis. The identity without SP."""
+        if not self.cfg.sequence_parallel:
+            return grads
+
+        def fix(tree, keys):
+            if isinstance(tree, dict):
+                return {k: fix(v, f"{keys}/{k}") for k, v in tree.items()}
+            # the JAX package's test, by path substrings; the region's
+            # forward is the all-reduce over the model axis
+            if ("ln1" in keys or "ln2" in keys or "final_ln" in keys
+                    or ("out" in keys and "bias" in keys)
+                    or ("fc2" in keys and "bias" in keys)):
+                return tp.reduce_from_tensor_model_parallel_region(tree)
+            return tree
+
+        return fix(grads, "")
+
+    def loss(self, params: Dict[str, Any], input_ids: torch.Tensor,
+             labels: torch.Tensor, *, dropout_rng=None,
+             compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Mean next-token loss through the vocab-parallel cross entropy
+        (``labels`` the targets as given: shift upstream)."""
+        hidden = self.apply(params, input_ids, dropout_rng=dropout_rng,
+                            compute_dtype=compute_dtype)
+        if self.cfg.sequence_parallel:
+            # leave the SP region for the head: the gather's backward
+            # reduce-scatters dhidden (the SP dual of copy_to_region)
+            hidden = tp.gather_from_sequence_parallel_region(hidden, True, 1)
+            table = params["embedding"]["word"]["embedding"]
+            logits = torch.matmul(hidden, table.to(hidden.dtype).t()).float()
+        else:
+            logits = self.logits_local(params, hidden)
+        return tp.vocab_parallel_cross_entropy(logits, labels).mean()
+
+
+def gpt_tp_bench(on_tpu: bool, n_devices: int, *,
+                 batch: Optional[int] = None, remat=False,
+                 device: DeviceLike = None):
+    """``(body, make_init, fetch, global_batch)`` of the JAX package's
+    GPT train step at tp = ``n_devices``, in this rank's process:
+    ``on_tpu`` takes ``gpt_medium()`` at batch 8, seq 1024 (the card's
+    size), else ``gpt_tiny()`` at batch 2, seq 32; ids and labels zeros;
+    bf16 compute over fp32 params; the tree ``FusedAdam(lr=1e-4,
+    weight_decay=0.01)``; weights ``init_gpt_from_key(PRNGKey(0))``.
+    ``remat`` overrides the config's both ways (a string names a JAX
+    checkpoint policy). At tp 1 the step is the unsharded one
+    (``examples/gpt/train.py``); above, the default process group must
+    hold ``n_devices`` ranks: the model axis is installed over them and
+    the step runs ``GPTModel.loss`` and its gradients inside
+    ``shard_map(in_specs=(specs, P(), P()), out_specs=(P(), specs))``,
+    each rank then stepping the whole params."""
+    from apex_tpu_torch.examples.gpt.train import (
+        make_gpt_tp_train_step, make_gpt_train_step,
+    )
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    dev = resolve_device(device)
+    cfg = gpt_medium() if on_tpu else gpt_tiny()
+    if isinstance(remat, str):
+        cfg = dataclasses.replace(cfg, remat=True, remat_policy=remat)
+    else:
+        cfg = dataclasses.replace(cfg, remat=bool(remat))
+    default_b, seq = (8, 1024) if on_tpu else (2, 32)
+    batch = default_b if batch is None else batch
+    ids = torch.zeros((batch, seq), dtype=torch.long, device=dev)
+    labels = torch.zeros((batch, seq), dtype=torch.long, device=dev)
+    opt = FusedAdam(lr=1e-4, weight_decay=0.01)
+    if n_devices == 1:
+        step = make_gpt_train_step(cfg, opt)
+    else:
+        ps.destroy_model_parallel()
+        ps.initialize_model_parallel(tensor_model_parallel_size_=n_devices,
+                                     device=dev)
+        step = make_gpt_tp_train_step(GPTModel(cfg, tp_size=n_devices), opt)
+
+    def make_init():
+        params = init_gpt_from_key(prng.PRNGKey(0), cfg, device=dev)
+        return params, opt.init(params)
+
+    def body(state):
+        p, o, _ = step(*state, ids, labels)
+        return p, o
+
+    def fetch(state):
+        return state[0]["final_ln"]["weight"].sum()
+
+    return body, make_init, fetch, batch
 
 
 def accumulate_tied_word_grads(grads: Dict[str, Any]) -> Dict[str, Any]:

@@ -54,6 +54,20 @@ class FusedAdam(FusedOptimizer):
         self.adam_w_mode = adam_w_mode
         self.weight_decay = weight_decay
 
+    def state_partition_specs(self, param_specs: Any) -> AdamState:
+        """PartitionSpecs of the tree-layout state from the params' spec
+        tree: the moments split as their params, the step counter
+        replicated. The flat kernel's packed buffer has a layout of its
+        own: with ``use_flat_kernel`` this raises."""
+        if self.use_flat_kernel:
+            raise ValueError(
+                "state_partition_specs describes the tree layout; the flat "
+                "kernel's packed buffer is sharded by its caller")
+        from apex_tpu_torch.transformer import parallel_state as ps
+
+        return AdamState(step=ps.PartitionSpec(), m=param_specs,
+                         v=param_specs)
+
     def _tree_step(self, grads, params, state, args):
         dev = state.step.device
         lr, wd, gs = args.lr, args.weight_decay, args.grad_scale

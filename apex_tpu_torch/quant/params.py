@@ -84,3 +84,22 @@ def is_quantized_tree(params: Dict[str, Any]) -> bool:
     serving engine detects it and builds the w8 steps)."""
     word = params.get("embedding", {}).get("word", {})
     return "scale" in word
+
+
+def quant_partition_specs(cfg) -> Dict[str, Any]:
+    """PartitionSpecs for a quantized tree: the bf16 specs with each
+    scale's spec its kernel's without the contracted axis: Column (qkv /
+    fc1) scales split like their bias ``P(None, t)``, Row (out / fc2)
+    scales replicate, the word table's scale rides the vocabulary split
+    ``P(t)``."""
+    from apex_tpu_torch.models.gpt import gpt_partition_specs
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    P = ps.PartitionSpec
+    t = ps.TENSOR_AXIS
+    specs = gpt_partition_specs(cfg)
+    specs["embedding"]["word"]["scale"] = P(t)
+    for name, spec in (("qkv", P(None, t)), ("fc1", P(None, t)),
+                       ("out", P(None)), ("fc2", P(None))):
+        specs["layers"][name] = dict(specs["layers"][name], scale=spec)
+    return specs

@@ -17,8 +17,8 @@ verified page handoff ``PageTransfer`` and its device-to-device tier
 ``scheduler.py``."""
 
 from apex_tpu_torch.serving.cache import (  # noqa: F401
-    KVCache, PagedKVCache, audit_block_tables, init_cache,
-    init_paged_cache,
+    KVCache, PagedKVCache, audit_block_tables, cache_partition_specs,
+    init_cache, init_paged_cache, paged_cache_partition_specs,
 )
 from apex_tpu_torch.serving.decode import (  # noqa: F401
     make_chunk_prefill_fn, make_copy_page_fn, make_decode_fn,

@@ -78,6 +78,49 @@ class PagedKVCache(NamedTuple):
     v_scale: Optional[torch.Tensor] = None  # (L, num_pages, num_heads) f32
 
 
+def _shape_of(*shape):
+    """A leaf that carries only a shape (what rule matching reads)."""
+    return torch.empty(shape, device="meta")
+
+
+def cache_partition_specs(rules=None) -> KVCache:
+    """Tensor-parallel layout: heads (axis 2) split over the ``model``
+    axis, so a rank's cache holds the heads its qkv column block
+    produces; lengths replicated. Matched from the partition-rule table
+    (``partition.kv_cache_rules`` by default, or any table covering the
+    ``k`` / ``v`` / ``lengths`` paths)."""
+    from apex_tpu_torch.partition import kv_cache_rules, match_partition_rules
+
+    if rules is None:
+        rules = kv_cache_rules()
+    template = KVCache(k=_shape_of(*(1,) * 5), v=_shape_of(*(1,) * 5),
+                       lengths=_shape_of(1))
+    return match_partition_rules(rules, template)
+
+
+def paged_cache_partition_specs(rules=None,
+                                quantized: bool = False) -> PagedKVCache:
+    """:func:`cache_partition_specs` for the paged pool: its head axis
+    (axis 2) split over ``model``; lengths and block tables replicated
+    (every rank walks the same mapping over its heads). ``quantized``
+    adds the ``k_scale`` / ``v_scale`` leaves, matched against
+    ``kv_cache_quant_rules()`` (heads, axis 2 of the scales, split like
+    the pool's)."""
+    from apex_tpu_torch.partition import (
+        kv_cache_quant_rules, kv_cache_rules, match_partition_rules,
+    )
+
+    if rules is None:
+        rules = kv_cache_quant_rules() if quantized else kv_cache_rules()
+    template = PagedKVCache(k=_shape_of(*(1,) * 5), v=_shape_of(*(1,) * 5),
+                            lengths=_shape_of(1),
+                            block_tables=_shape_of(1, 1))
+    if quantized:
+        template = template._replace(k_scale=_shape_of(1, 1, 1),
+                                     v_scale=_shape_of(1, 1, 1))
+    return match_partition_rules(rules, template)
+
+
 def max_pages_per_slot(max_len: int, page_size: int) -> int:
     return -(-max_len // page_size)
 

@@ -18,8 +18,8 @@ last chunk's logits at the final real token are the draft distribution
 for the next token: the root of the greedy chain (single-token decode
 steps after it) and of the draft tree (the top-2 root children).
 
-The tensor-parallel drafter (``model=`` / ``mesh=``) is ROADMAP item A6
-and raises.
+The tensor-parallel drafter (``model=`` / ``mesh=``) is ROADMAP item
+A4.5 (tensor-parallel serving) and raises.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -52,7 +52,7 @@ class DraftModel:
     engine's; ``max_len`` is the TARGET's max_len — the draft cache adds
     ``chunk`` rows so the last catch-up chunk's pad columns stay in
     bounds. ``model``/``mesh`` (the tensor-parallel drafter) raise
-    NotImplementedError naming ROADMAP A6."""
+    NotImplementedError naming ROADMAP A4.5."""
 
     def __init__(self, params, cfg: GPTConfig, num_slots: int,
                  max_len: int, *, chunk: int = 5, compute_dtype=None,
@@ -64,7 +64,8 @@ class DraftModel:
         if model is not None or mesh is not None:
             raise NotImplementedError(
                 "DraftModel(model=..., mesh=...): the tensor-parallel "
-                "drafter is ROADMAP item A6, not ported yet")
+                "drafter is ROADMAP item A4.5 (tensor-parallel serving), "
+                "not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -38,7 +38,7 @@ the JAX package's, so the digest of a tile is the reference's.
 :class:`~apex_tpu_torch.serving.health.ReshardFailed`) at the
 reference's single-process default, the host round trip; the transfer
 over two sub-meshes (``make_tile_transfer_fns``,
-``make_reshard_extract_fn``) waits for ROADMAP item A6.
+``make_reshard_extract_fn``) waits for ROADMAP item A4.5.
 
 The channel objects are host state (attempt counters, metric handles).
 """
@@ -351,7 +351,7 @@ class PageReshard(PageTransfer):
     the last payload was corrupt) and the pool router re-ships the same
     pages over its host-staged :class:`PageTransfer`. ``src_mesh`` /
     ``dst_mesh`` (the transfer between two sub-meshes) raise
-    NotImplementedError naming ROADMAP A6."""
+    NotImplementedError naming ROADMAP A4.5."""
 
     send_site = "reshard_send"
     recv_site = "reshard_recv"
@@ -368,8 +368,8 @@ class PageReshard(PageTransfer):
         if src_mesh is not None or dst_mesh is not None:
             raise NotImplementedError(
                 "PageReshard(src_mesh=..., dst_mesh=...): the reshard "
-                "between two sub-meshes needs the model axis, ROADMAP "
-                "item A6, not ported yet")
+                "between two sub-meshes comes with tensor-parallel "
+                "serving, ROADMAP item A4.5, not ported yet")
         super().__init__(injector=injector, tracer=tracer, stats=stats,
                          max_retries=max_retries)
 

@@ -262,86 +262,145 @@ def axis_group(axis_name: Any, axis_index_groups=None):
 
 class PartitionSpec(tuple):
     """``jax.sharding.PartitionSpec``'s spelling for :func:`shard_map`:
-    ``PartitionSpec("data")`` splits the leading dimension over the data
-    axis, ``PartitionSpec()`` passes the value whole."""
+    entry i names the mesh axis (or a tuple of axes, the first the
+    major) that dimension i is split over, None a whole dimension;
+    ``PartitionSpec()`` passes a value whole."""
 
     def __new__(cls, *axes):
         return super().__new__(cls, axes)
 
-
-def _spec_axis(spec) -> Optional[str]:
-    """None for a whole value, ``DATA_AXIS`` for the leading dimension
-    over the data axis; anything else waits for A6's tensor-parallel
-    half."""
-    axes = tuple(spec) if spec is not None else ()
-    while axes and axes[-1] is None:
-        axes = axes[:-1]
-    if not axes:
-        return None
-    if axes == (DATA_AXIS,):
-        return DATA_AXIS
-    raise NotImplementedError(
-        f"shard_map spec {axes}: only P('data') on the leading dimension "
-        "and P() are ported; other axes wait for the tensor-parallel half "
-        "of A6 (ROADMAP.md queue A)")
+    def __repr__(self):
+        return f"PartitionSpec{tuple(self)!r}"
 
 
-def _per_value(specs, n: Optional[int] = None) -> list:
-    """One spec a value: a single spec (or None) stands for all ``n``;
-    a sequence must hold ``n`` (when given)."""
-    if isinstance(specs, PartitionSpec) or specs is None:
-        return [specs] * (n or 1)
-    specs = list(specs)
-    if n is not None and len(specs) != n:
-        raise ValueError(f"{len(specs)} specs for {n} values")
-    return specs
+_SHARDED_AXES = (DATA_AXIS, TENSOR_AXIS)
+
+
+def _spec_dims(spec):
+    """``[(dim, (axis, ...)), ...]`` for each dimension a spec splits;
+    ``pipe`` and ``context`` raise (A6.2), an unknown name raises."""
+    out = []
+    for dim, entry in enumerate(tuple(spec) if spec is not None else ()):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        for ax in axes:
+            if ax in (PIPE_AXIS, CONTEXT_AXIS):
+                raise NotImplementedError(
+                    f"shard_map spec {tuple(spec)}: the {ax!r} axis waits "
+                    "for A6.2, the pipeline- and context-parallel half "
+                    "of A6 (ROADMAP.md queue A)")
+            if ax not in _SHARDED_AXES:
+                raise ParallelStateError(
+                    f"unknown mesh axis {ax!r} in spec {tuple(spec)}; the "
+                    f"axes are {MESH_AXIS_NAMES}")
+        out.append((dim, axes))
+    return out
+
+
+def _is_spec(x) -> bool:
+    return x is None or isinstance(x, PartitionSpec)
+
+
+def _map_specs(fn, specs, tree):
+    """``fn(leaf, spec)`` over ``tree``, ``specs`` a prefix of it (as
+    ``jax.shard_map`` reads ``in_specs`` and ``out_specs``): a spec (or
+    None) stands for every leaf below it; dicts must have the same
+    keys, sequences the same length. Returns a tree like ``tree``."""
+    if _is_spec(specs):
+        return tree_map(lambda x: fn(x, specs), tree)
+    if isinstance(specs, dict):
+        if not isinstance(tree, dict) or set(specs) != set(tree):
+            got = sorted(tree) if isinstance(tree, dict) \
+                else type(tree).__name__
+            raise ValueError(f"spec keys {sorted(specs)} do not match the "
+                             f"value's {got}")
+        return {k: _map_specs(fn, specs[k], v) for k, v in tree.items()}
+    if isinstance(specs, (list, tuple)) and isinstance(tree, (list, tuple)):
+        if len(specs) != len(tree):
+            raise ValueError(f"{len(specs)} specs for {len(tree)} values")
+        items = [_map_specs(fn, s, v) for s, v in zip(specs, tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    raise ValueError(f"spec {specs!r} does not match a value of type "
+                     f"{type(tree).__name__}")
+
+
+def _axis_index_and_size(mesh: Mesh, axes) -> Tuple[int, int]:
+    """This rank's block index over ``axes`` (the first the major) and
+    their number of blocks."""
+    coords = mesh._coords()
+    idx, n = 0, 1
+    for ax in axes:
+        size = mesh.shape[ax]
+        idx = idx * size + coords[MESH_AXIS_NAMES.index(ax)]
+        n *= size
+    return idx, n
+
+
+def shard_leaf(x: torch.Tensor, spec, mesh: Optional[Mesh] = None
+               ) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec``: every dimension the
+    spec names is cut into as many blocks as its axes have ranks, and
+    the block at this rank's index on them is kept (a contiguous
+    copy; ``x`` itself where nothing is cut)."""
+    mesh = mesh or get_mesh()
+    out = x
+    for dim, axes in _spec_dims(spec):
+        idx, n = _axis_index_and_size(mesh, axes)
+        if n == 1:
+            continue
+        if out.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of size {out.shape[dim]} "
+                             f"does not split over {n} ranks of {axes}")
+        size = out.shape[dim] // n
+        out = out.narrow(dim, idx * size, size)
+    return out if out is x else out.contiguous()
+
+
+def gather_leaf(x: torch.Tensor, spec, mesh: Optional[Mesh] = None
+                ) -> torch.Tensor:
+    """The whole value from each rank's block ``x`` under ``spec``:
+    every dimension the spec names is all-gathered over its axes'
+    groups, the blocks in mesh order (the minor axis first)."""
+    from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+        collective,
+    )
+
+    mesh = mesh or get_mesh()
+    out = x
+    for dim, axes in _spec_dims(spec):
+        for ax in reversed(axes):
+            if mesh.shape[ax] > 1:
+                out = collective("all_gather", out, mesh.groups[ax],
+                                 mesh.members(ax), dim=dim)
+    return out
 
 
 def shard_map(f, *, mesh: Optional[Mesh] = None, in_specs, out_specs,
               **kwargs):
     """Run ``f`` on this rank's shard, as ``jax.shard_map`` runs it on
-    each device: ``PartitionSpec("data")`` inputs are sliced on their
-    leading dimension by this rank's data index, ``PartitionSpec()``
-    inputs are passed whole; ``PartitionSpec("data")`` outputs are
-    all-gathered over the data group in data order, ``PartitionSpec()``
-    outputs are this rank's own. A spec applies to every leaf of its
-    argument or output (a single spec to all of them). The JAX wrapper's
-    ``check_vma`` / ``check_rep`` have no meaning in processes and are
-    accepted as they are."""
+    each device. ``in_specs`` is a prefix of the arguments' tuple and
+    ``out_specs`` of the result, as JAX reads them: a spec tree mirrors
+    its value, a single spec covers every leaf below it. Inputs are cut
+    by :func:`shard_leaf` (a ``data`` or ``model`` axis on any
+    dimension; ``PartitionSpec()`` whole); outputs with a named axis are
+    all-gathered by :func:`gather_leaf`, in mesh order, and
+    ``PartitionSpec()`` outputs are this rank's own. ``pipe`` and
+    ``context`` raise (A6.2). The JAX wrapper's ``check_vma`` /
+    ``check_rep`` have no meaning in processes and are accepted as they
+    are."""
     unknown = set(kwargs) - {"check_vma", "check_rep"}
     if unknown:
         raise TypeError(f"shard_map got unexpected arguments {sorted(unknown)}")
-    for spec in _per_value(in_specs) + _per_value(out_specs):
-        _spec_axis(spec)
+    tree_map(_spec_dims, (in_specs, out_specs), is_leaf=_is_spec)
 
     def run(*args):
         m = mesh or get_mesh()
-        n = m.shape[DATA_AXIS]
-        r = m._coords()[0]
-
-        def take(x):
-            if x.shape[0] % n:
-                raise ValueError(f"leading dimension {x.shape[0]} does not "
-                                 f"split over {n} data ranks")
-            size = x.shape[0] // n
-            return x[r * size:(r + 1) * size]
-
-        args = [tree_map(take, a) if _spec_axis(s) else a
-                for a, s in zip(args, _per_value(in_specs, len(args)))]
-        out = f(*args)
-        single = isinstance(out_specs, PartitionSpec) or out_specs is None
-        outs = (out,) if single else tuple(out)
-        group, order = m.groups[DATA_AXIS], m.members(DATA_AXIS)
-        pos = [sorted(order).index(g) for g in order]
-
-        def gather(x):
-            parts = [torch.empty_like(x) for _ in order]
-            dist.all_gather(parts, x.contiguous(), group=group)
-            return torch.cat([parts[i] for i in pos])
-
-        outs = [tree_map(gather, o) if _spec_axis(s) else o
-                for o, s in zip(outs, _per_value(out_specs, len(outs)))]
-        return outs[0] if single else type(out)(outs)
+        local = _map_specs(lambda x, s: shard_leaf(x, s, m), in_specs,
+                          tuple(args))
+        out = f(*local)
+        return _map_specs(lambda x, s: gather_leaf(x, s, m), out_specs, out)
 
     return run
 

@@ -2,19 +2,23 @@
 included) of tensors — the port's stand-in for ``jax.tree``. ``None``
 is an empty subtree, as in JAX: maps pass it through."""
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable, tree: Any, *rest: Any,
+             is_leaf: Optional[Callable] = None) -> Any:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
-    each tree in ``rest`` (same structure)."""
+    each tree in ``rest`` (same structure); ``is_leaf(node)`` true
+    stops the walk there (``fn`` gets the node, as JAX's ``is_leaf``)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        items = [tree_map(fn, v, *(r[i] for r in rest))
+        items = [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
                  for i, v in enumerate(tree)]
         if hasattr(tree, "_fields"):  # NamedTuple
             return type(tree)(*items)

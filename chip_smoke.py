@@ -341,6 +341,32 @@ Phases, each printed as it runs; any failure exits non-zero:
    forward and backward at the O1 step's fp32 x and fp32 w (8192, 1024)
    are held and timed with the other kernels.
 
+16. tensor parallelism — (a) ``GPTModel(gpt_medium())`` (24 layers,
+   remat) at tp 1 on an NCCL world of one, batch 8, seq 1024 from
+   ``randint(PRNGKey(1000))``, bf16 compute over fp32 params: two steps
+   of ``make_gpt_tp_train_step`` (the loss and gradients inside
+   ``shard_map(in_specs=(specs, P(), P()), out_specs=(P(), specs))``,
+   the tree FusedAdam), exact launches a step
+   (``gpt_tp_per_step_launches``: the unsharded step's but no cross
+   entropy, which is plain vocab-parallel ops), the first step's loss
+   and gradients against ``gpt_loss_unsharded`` to ``train_small``'s O2
+   bounds. (b) The same model and batch at tp 2 on two spawned gloo
+   ranks on the card (every collective staged through the host), two
+   steps with ``sequence_parallel`` off and two with it on: both ranks
+   drew (a)'s weights, their losses equal bit for bit and finite, exact
+   launches on each rank, the first step's gathered gradients (the SP
+   ones all-reduced first) against (a)'s to the same bound; each step's
+   wall time and the host-staged bytes a step. (c) On the same ranks,
+   ``ColumnParallelLinear(1024, 4096)`` and ``RowParallelLinear(4096,
+   1024)`` with ``gradient_accumulation_fusion``, forward and backward
+   on 8192 tokens, ``VocabParallelEmbedding(50304, 1024)`` and
+   ``vocab_parallel_cross_entropy`` on (8192, 50304) logits, the gathered
+   results against the dense computation on the card: each within twice
+   the dense fp32 error from float64 (plus 4 u of the largest value), the
+   embedding's forward bit for bit. Every process group is destroyed
+   before the results; the phase prints its seconds and the card's name
+   and power limit.
+
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
 card's name and power limit, and last ``{"ok": true, "device":
@@ -1817,7 +1843,7 @@ def _relnorm(got_tree, want_tree):
 
     worst = 0.0
     for g, w in zip(tree_leaves(got_tree), tree_leaves(want_tree)):
-        g, w = g.detach().cpu().double(), w.detach().double()
+        g, w = g.detach().to(w.device).double(), w.detach().double()
         n = float(w.norm())
         worst = max(worst, float((g - w).norm()) / (n if n > 0 else 1.0))
     return worst
@@ -5412,6 +5438,421 @@ def ddp_two_ranks(dev):
 
 
 # ---------------------------------------------------------------------------
+# 16. tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2         # two gloo ranks on the one card
+TP_STEPS = 2
+TP_RANK_TIMEOUT_S = 600
+TP_WIDTHS = (1024, 4096, 50304)   # the layers' h, ffn and vocab (GPT-medium)
+
+
+def gpt_tp_per_step_launches(L, remat, dropout, flat):
+    """Exact launches of each kernel in one tensor-parallel GPT step on
+    each rank (``examples/gpt/train.py``'s ``GPTTPTrainStep``): the
+    unsharded step's LayerNorm, flash and dropout launches
+    (:func:`gpt_per_step_launches`) over the rank's local heads and
+    tokens, and no cross-entropy launch: the vocab-parallel loss is plain
+    ops, as in the JAX package."""
+    out = gpt_per_step_launches(L, remat, dropout, flat)
+    out.update(xentropy_fwd=0, xentropy_bwd=0)
+    return out
+
+
+def _checksum(tree):
+    """A float64 sum of every leaf, where they lie (a cheap fingerprint
+    of a params tree, to see that two processes drew the same
+    weights)."""
+    from apex_tpu_torch.utils.tree import tree_leaves
+
+    return float(sum(t.detach().double().sum() for t in tree_leaves(tree)))
+
+
+def _tp_steps(dev, kern, sequence_parallel=False):
+    """``TP_STEPS`` steps of ``make_gpt_tp_train_step`` (gradients, then
+    the tree FusedAdam) from seed-0 weights on one fixed batch, counts
+    set to 0 before and read after. Returns the run's record and the
+    first step's gradients."""
+    import dataclasses
+
+    from apex_tpu_torch.examples.gpt.train import (
+        make_gpt_tp_train_step, make_state, synthetic_batch,
+    )
+    from apex_tpu_torch.models.gpt import GPTModel, gpt_medium
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+
+    cfg = dataclasses.replace(gpt_medium(),
+                              sequence_parallel=sequence_parallel)
+    per_step = gpt_tp_per_step_launches(cfg.num_layers, cfg.remat, False,
+                                        False)
+    step = make_gpt_tp_train_step(GPTModel(cfg))
+    params, opt_state = make_state(cfg, step.opt, 0, dev)
+    ids = synthetic_batch(0, GPT_BATCH, GPT_SEQ, cfg.vocab_size, dev)
+    rec = {"params_checksum": _checksum(params), "per_step": per_step}
+    for k in kern.values():
+        k.launches = 0
+    mappings.staged_bytes = 0
+    losses, times, exact, first = [], [], True, None
+    for i in range(TP_STEPS):
+        before = {n: k.launches for n, k in kern.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step.grads(params, ids, ids)
+        params, opt_state = step.opt.step(grads, params, opt_state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        exact &= all(kern[n].launches - before[n] == per_step[n]
+                     for n in kern)
+        if i == 0:
+            first = (ids, loss, grads)
+        del grads
+    launches = {n: k.launches for n, k in kern.items()}
+    rec.update(losses=losses, step_ms=[t * 1e3 for t in times],
+               launches=launches,
+               exact=exact and launches == {n: TP_STEPS * per_step[n]
+                                            for n in kern},
+               staged_bytes_per_step=mappings.staged_bytes / TP_STEPS)
+    return rec, first
+
+
+def tp_one(dev, kern, tmp):
+    """(a) ``GPTModel(gpt_medium())`` at tp 1 on an NCCL world of one:
+    ``TP_STEPS`` steps, exact launches a step; the first
+    step's loss and gradients held against ``gpt_loss_unsharded`` on the
+    same params and batch to ``train_small``'s O2 bounds; the gradients
+    saved to ``tmp`` for (b)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.examples.gpt.train import (
+        make_gpt_train_step, make_state,
+    )
+    from apex_tpu_torch.models.gpt import gpt_medium
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.utils.tree import tree_map
+
+    cfg = gpt_medium()
+    phase(f"tensor parallelism (a): GPTModel(gpt_medium()) at tp 1 on an "
+          f"NCCL world of one ({cfg.num_layers} layers, remat {cfg.remat}), "
+          f"batch {GPT_BATCH}, seq {GPT_SEQ}, bf16 compute over fp32 params, "
+          f"{TP_STEPS} steps of the loss and gradients inside shard_map and "
+          "the tree FusedAdam, against gpt_loss_unsharded")
+    ps.initialize_model_parallel()
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+              and ps.get_tensor_model_parallel_world_size() == 1,
+              "initialize_model_parallel() brought up an NCCL world of one")
+        rec, (ids, loss0, grads0) = _tp_steps(dev, kern)
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+    per_step = rec["per_step"]
+    check(rec["exact"], f"tp 1 launches a step exactly "
+          f"{ {n: c for n, c in per_step.items() if c} } (every other "
+          f"kernel 0; { {n: c for n, c in rec['launches'].items() if c} } "
+          f"over {TP_STEPS} steps)")
+    check(all(np.isfinite(rec["losses"])),
+          f"tp 1 losses finite: {rec['losses']}")
+    plain = make_gpt_train_step(cfg)
+    params, _ = make_state(cfg, plain.opt, 0, dev)
+    check(_checksum(params) == rec["params_checksum"],
+          "the unsharded step's weights are the tensor-parallel run's")
+    loss_u, grads_u = plain.grads(params, ids, ids)
+    lim = STEP_LIMITS["O2"]
+    rec["vs_unsharded"] = {
+        "loss": abs(float(loss0) - float(loss_u)) / abs(float(loss_u)),
+        "grads": _relnorm(grads0, grads_u)}
+    for k, v in rec["vs_unsharded"].items():
+        check(v <= lim[k], f"tp 1 vs gpt_loss_unsharded, {k} (relative): "
+              f"{v:.3g} <= {lim[k]:g}")
+    torch.save(tree_map(lambda t: t.cpu(), grads0), f"{tmp}/tp1_grads.pt")
+    print(f"smoke reading, not a benchmark: tp 1 step wall ms "
+          f"{[round(t, 1) for t in rec['step_ms']]} (the first with the "
+          f"warm-up); losses {rec['losses']}; unsharded loss "
+          f"{float(loss_u):.6f}", flush=True)
+    del params, grads0, grads_u, plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tp_layers(dev):
+    """(c) on this rank: the tensor-parallel layers at GPT-medium's widths
+    through shard_map on the step's tokens, the gathered results
+    against the dense computation on the same device and both against
+    float64 (rank 0 makes the comparisons; every rank returns checksums
+    of its results)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer import tensor_parallel as tp
+
+    P = ps.PartitionSpec
+    h, f, v = TP_WIDTHS
+    b, s = GPT_BATCH, GPT_SEQ
+    m = b * s
+    rank = dist.get_rank()
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*size, scale=1.0):
+        return torch.randn(size, generator=gen, device=dev) * scale
+
+    def grads_of(fn, *args):
+        """(fn(*args), its gradients under a fixed cotangent)."""
+        xs = [a.detach().requires_grad_(True) for a in args]
+        with torch.enable_grad():
+            y = fn(*xs)
+            cot = torch.ones_like(y) if y.dim() == 0 else torch.linspace(
+                -1, 1, y.numel(), device=y.device).reshape(y.shape)
+            gs = torch.autograd.grad(y, xs, cot)
+        return (y.detach(),) + tuple(gs)
+
+    def worst(tp_res, dense_res, ref):
+        """(max |tp - f64|, max |dense fp32 - f64|, max |f64|)."""
+        e_tp = e_d = scale = 0.0
+        for a, d, r in zip(tp_res, dense_res, ref):
+            r = r.double()
+            e_tp = max(e_tp, float((a.double() - r).abs().max()))
+            e_d = max(e_d, float((d.double() - r).abs().max()))
+            scale = max(scale, float(r.abs().max()))
+        return e_tp, e_d, scale
+
+    out, sums = {}, {}
+    for name, layer, x_spec, fan in (
+            ("column_parallel_linear",
+             tp.ColumnParallelLinear(h, f, gather_output=True,
+                                     gradient_accumulation_fusion=True),
+             P(), (h, f)),
+            ("row_parallel_linear",
+             tp.RowParallelLinear(f, h, input_is_parallel=True,
+                                  gradient_accumulation_fusion=True),
+             P(None, ps.TENSOR_AXIS), (f, h))):
+        p = {"kernel": rnd(*fan, scale=fan[0] ** -0.5),
+             "bias": rnd(fan[1], scale=0.1)}
+        x = rnd(m, fan[0])
+
+        def fn(p, x, layer=layer):
+            y, dk, db, dx = grads_of(lambda k, bias, x: layer.apply(
+                {"kernel": k, "bias": bias}, x), p["kernel"], p["bias"], x)
+            return y, {"kernel": dk, "bias": db}, dx
+
+        specs = layer.partition_specs()
+        y, g, dx = ps.shard_map(fn, in_specs=(specs, x_spec),
+                                out_specs=(P(), specs, x_spec))(p, x)
+        res = (y, g["kernel"], g["bias"], dx)
+        sums[name] = [float(t.double().sum()) for t in res]
+        if rank == 0:
+            def dense(dt):
+                return grads_of(lambda k, bias, x: x @ k + bias,
+                                p["kernel"].to(dt), p["bias"].to(dt),
+                                x.to(dt))
+
+            out[name] = worst(res, dense(torch.float32),
+                              dense(torch.float64))
+        del y, g, dx, res
+
+    emb = tp.VocabParallelEmbedding(v, h)
+    table = rnd(v, h, scale=0.02)
+    ids = torch.randint(0, v, (b, s), generator=gen, device=dev)
+    cot = rnd(b, s, h)
+
+    def emb_fn(p, ids):
+        t = p["embedding"].detach().requires_grad_(True)
+        with torch.enable_grad():
+            y = emb.apply({"embedding": t}, ids)
+            (g,) = torch.autograd.grad(y, [t], cot)
+        return y.detach(), {"embedding": g}
+
+    y, g = ps.shard_map(emb_fn, in_specs=(emb.partition_specs(), P()),
+                        out_specs=(P(), emb.partition_specs()))(
+        {"embedding": table}, ids)
+    sums["vocab_parallel_embedding"] = [float(y.double().sum()),
+                                        float(g["embedding"].double().sum())]
+    if rank == 0:
+        flat_ids, flat_cot = ids.reshape(-1), cot.reshape(-1, h)
+        g64 = torch.zeros((v, h), dtype=torch.float64, device=dev)
+        g64.index_add_(0, flat_ids, flat_cot.double())
+        g32 = torch.zeros((v, h), device=dev).index_add_(0, flat_ids,
+                                                         flat_cot)
+        out["vocab_parallel_embedding"] = dict(
+            forward_bitwise=bool(torch.equal(y, F.embedding(ids, table))),
+            table_grad=worst((g["embedding"],), (g32,), (g64,)))
+    del y, g, table
+
+    logits = rnd(m, v, scale=3.0)
+    target = torch.randint(0, v, (m,), generator=gen, device=dev)
+
+    def ce_fn(lg, t):
+        return grads_of(lambda a: tp.vocab_parallel_cross_entropy(a, t)
+                        .mean(), lg)
+
+    loss, dlogits = ps.shard_map(
+        ce_fn, in_specs=(P(None, ps.TENSOR_AXIS), P()),
+        out_specs=(P(), P(None, ps.TENSOR_AXIS)))(logits, target)
+    sums["vocab_parallel_cross_entropy"] = [float(loss),
+                                            float(dlogits.double().sum())]
+    if rank == 0:
+        def dense_ce(dt):
+            return grads_of(lambda a: F.cross_entropy(a, target),
+                            logits.to(dt))
+
+        out["vocab_parallel_cross_entropy"] = worst(
+            (loss, dlogits), dense_ce(torch.float32), dense_ce(torch.float64))
+    return out, sums
+
+
+def _tp_rank(rank, tmp, port, device):
+    """A rank of :func:`tp_two_ranks`: the default process group on gloo
+    from a launcher's environment (NCCL refuses two ranks on one card),
+    the mesh of ``TP_RANKS`` model ranks over it; (b) the GPT-medium
+    steps with ``sequence_parallel`` off and on, then (c) the layers;
+    results to ``tmp/tp_rank<r>.json``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method="env://",
+        timeout=datetime.timedelta(seconds=TP_RANK_TIMEOUT_S))
+    ps.initialize_model_parallel(TP_RANKS, device=dev)
+    try:
+        kern = kernel_counters()
+        out = {"backend": dist.get_backend(),
+               "tp": ps.get_tensor_model_parallel_world_size()}
+        want = torch.load(f"{tmp}/tp1_grads.pt", map_location=dev) \
+            if rank == 0 else None
+        for sp in (False, True):
+            rec, (_, _, grads0) = _tp_steps(dev, kern, sp)
+            rec["losses"] = [x.hex() for x in rec["losses"]]
+            if rank == 0:
+                rec["grads_vs_tp1"] = _relnorm(grads0, want)
+            out["sp" if sp else "no_sp"] = rec
+            del grads0
+        del want
+        torch.cuda.empty_cache()
+        out["layers"], out["layer_sums"] = _tp_layers(dev)
+        with open(f"{tmp}/tp_rank{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+
+
+def tp_two_ranks(dev, one, tmp):
+    """(b) and (c) on ``TP_RANKS`` spawned gloo ranks on the card (the
+    model and its kernels on the card, every collective staged through
+    the host by ``tensor_parallel.mappings.collective``): GPT-medium's
+    tensor-parallel step with ``sequence_parallel`` off and on, exact
+    launches on each rank, the ranks' losses bit for bit, every loss
+    finite, the first step's gathered gradients (all-reduced under SP
+    first) against (a)'s to ``train_small``'s O2 bound; then the layers
+    at GPT-medium's widths against the dense computation."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    h, f, v = TP_WIDTHS
+    phase(f"tensor parallelism (b, c): two gloo ranks on the card "
+          f"(host-staged collectives), GPTModel(gpt_medium()) at tp "
+          f"{TP_RANKS}, sequence_parallel off then on, {TP_STEPS} steps each "
+          "against (a)'s gradients; the Column / Row / VocabParallel layers "
+          f"and the vocab-parallel cross entropy at h {h}, ffn {f}, vocab "
+          f"{v} against the dense computation")
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.spawn(_tp_rank, args=(tmp, port, str(dev)), nprocs=TP_RANKS,
+                   join=False)
+    deadline = time.monotonic() + TP_RANK_TIMEOUT_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.terminate()
+            check(False, f"the two ranks finished within "
+                  f"{TP_RANK_TIMEOUT_S} s")
+    res = []
+    for r in range(TP_RANKS):
+        with open(f"{tmp}/tp_rank{r}.json") as fh:
+            res.append(json.load(fh))
+    check(all(r["backend"] == "gloo" and r["tp"] == TP_RANKS for r in res),
+          f"{TP_RANKS} gloo ranks, a model axis of {TP_RANKS}")
+    lim = STEP_LIMITS["O2"]
+    out = {}
+    for key in ("no_sp", "sp"):
+        recs = [r[key] for r in res]
+        check(all(r["params_checksum"] == one["params_checksum"]
+                  for r in recs),
+              f"{key}: both ranks drew (a)'s weights (checksum "
+              f"{one['params_checksum']!r})")
+        check(recs[0]["losses"] == recs[1]["losses"],
+              f"{key}: the ranks' losses equal bit for bit")
+        losses = [float.fromhex(x) for x in recs[0]["losses"]]
+        check(all(np.isfinite(losses)), f"{key}: every loss finite "
+              f"{losses}")
+        check(all(r["exact"] for r in recs),
+              f"{key}: launches a step on each rank exactly "
+              f"{ {n: c for n, c in recs[0]['per_step'].items() if c} } "
+              f"({[{n: c for n, c in r['launches'].items() if c}
+                   for r in recs]} over {TP_STEPS} steps)")
+        g = recs[0]["grads_vs_tp1"]
+        check(g <= lim["grads"], f"{key}: the first step's gathered "
+              f"gradients vs (a)'s (relative norm) {g:.3g} <= "
+              f"{lim['grads']:g}")
+        staged = [r["staged_bytes_per_step"] for r in recs]
+        print(f"host-staged reading (gloo over the host, not a tensor-"
+              f"parallel speed): {key} step wall ms "
+              f"{[[round(t, 1) for t in r['step_ms']] for r in recs]} on "
+              f"the two ranks; host-staged bytes a step "
+              f"{[int(x) for x in staged]}", flush=True)
+        out[key] = dict(losses=losses, step_ms=[r["step_ms"] for r in recs],
+                        staged_bytes_per_step=staged, grads_vs_tp1=g,
+                        launches=[r["launches"] for r in recs])
+    layers = res[0]["layers"]
+    check(res[0]["layer_sums"] == res[1]["layer_sums"],
+          "the layers' gathered results the same on both ranks")
+    for name in ("column_parallel_linear", "row_parallel_linear",
+                 "vocab_parallel_cross_entropy"):
+        e_tp, e_d, scale = layers[name]
+        check(e_tp <= 2 * e_d + 4 * U32 * scale,
+              f"{name}: tp {TP_RANKS} vs float64 {e_tp:.3g}, the dense fp32 "
+              f"computation {e_d:.3g} (max |float64| {scale:.3g}; held to "
+              "twice the dense error plus 4 u of that)")
+    e = layers["vocab_parallel_embedding"]
+    e_tp, e_d, scale = e["table_grad"]
+    check(e["forward_bitwise"] and e_tp <= 2 * e_d + 4 * U32 * scale,
+          f"vocab_parallel_embedding: forward equal to F.embedding bit for "
+          f"bit; table gradient vs float64 {e_tp:.3g}, index_add_ fp32 "
+          f"{e_d:.3g}")
+    out["layers"] = layers
+    return out
+
+
+def tensor_parallelism(dev, kern):
+    """Phase 16: (a) tp 1 on an NCCL world of one, (b) and (c) on two
+    gloo ranks; the phase's seconds and the card's name and power
+    limit."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        one = tp_one(dev, kern, tmp)
+        two = tp_two_ranks(dev, one, tmp)
+    secs = time.perf_counter() - t0
+    print(f"tensor parallelism phase: {secs:.1f} s on {card_line()}",
+          flush=True)
+    return {"tp1": one, "tp2": two, "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
 # 12. chunked prefill and the serving tracer
 # ---------------------------------------------------------------------------
 
@@ -6775,6 +7216,7 @@ def main():
     fp16 = fp16_optimizer_run(dev, kern)
     ddp1 = ddp_world_one(dev, kern)
     ddp2 = ddp_two_ranks(dev)
+    tpar = tensor_parallelism(dev, kern)
     pre = pretrain_defaults(dev)
     tm = times(dev)
     tm.update(train_times(dev))
@@ -6808,7 +7250,11 @@ def main():
                    "serving_disagg_colocated": (
                        srv_disagg["launches"]["colocated"][n]),
                    "training_dropout": big["fp32 dropout"]["launches"][n],
-                   "training_ddp_world1": ddp1["launches"][n]}
+                   "training_ddp_world1": ddp1["launches"][n],
+                   "gpt_tp1": tpar["tp1"]["launches"][n],
+                   **{f"gpt_tp2{'_sp' if k == 'sp' else ''}": sum(
+                       r[n] for r in tpar["tp2"][k]["launches"])
+                      for k in ("no_sp", "sp")}}
                for n in kern}
     for name, res in gpt_big.items():
         for n in kern:
@@ -7153,6 +7599,7 @@ def main():
     print(f"pretrain_gpt losses: {json.dumps(pre)}")
     print(f"DDP world 1 (NCCL): {json.dumps(ddp1)}")
     print(f"DDP two gloo ranks on the card: {json.dumps(ddp2)}")
+    print(f"tensor parallelism: {json.dumps(tpar)}")
     phase("results")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

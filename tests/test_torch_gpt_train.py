@@ -205,9 +205,38 @@ def test_unknown_remat_policy_raises_like_jax():
     ("context_parallel_impl", "ulysses"),
     ("gradient_accumulation_fusion", True)])
 def test_parallel_fields_raise_naming_a6(field, value):
+    """The context-parallel fields raise, naming A6.2; since the
+    tensor-parallel slice ``sequence_parallel`` and
+    ``gradient_accumulation_fusion`` build and run: the unsharded path
+    ignores them (as the JAX package's does), and ``GPTModel`` at tp 1 on
+    a world of one gives the unsharded loss."""
     cfg = dataclasses.replace(port_gpt.gpt_tiny(), **{field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}.*A6"):
-        port_gpt.init_gpt(cfg, torch.Generator(), device="cpu")
+    if field.startswith("context_parallel"):
+        with pytest.raises(NotImplementedError, match=f"{field}.*A6.2"):
+            port_gpt.init_gpt(cfg, torch.Generator(), device="cpu")
+        return
+    params = port_gpt.init_gpt(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    ids = synthetic_batch(0, B, S, cfg.vocab_size, "cpu")
+    want = port_gpt.gpt_loss_unsharded(params, cfg, ids, ids)
+    want_plain = port_gpt.gpt_loss_unsharded(
+        params, port_gpt.gpt_tiny(), ids, ids)
+    assert torch.equal(want, want_plain)
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    P = ps.PartitionSpec
+    ps.initialize_model_parallel(device="cpu")
+    try:
+        model = port_gpt.GPTModel(cfg)
+        with torch.enable_grad():
+            got = ps.shard_map(model.loss, in_specs=(
+                model.partition_specs(), P(), P()), out_specs=P())(
+                params, ids, ids)
+    finally:
+        ps.destroy_model_parallel()
+        torch.distributed.destroy_process_group()
+    assert torch.isfinite(got)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 def test_configs_match_jax():

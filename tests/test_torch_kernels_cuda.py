@@ -2520,3 +2520,77 @@ def test_routed_serving_on_the_card_equals_colocated(cuda_device):
     assert bad.stats.transfer_corrupt == 1 and bad.stats.transfer_retries == 1
     assert bad.stats.transfer_failures == 0
     assert all(o.ok for o in bad.outcomes.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_tensor_parallel_collectives_stage_only_on_gloo(cuda_device,
+                                                        backend):
+    """``tensor_parallel.mappings.collective`` on a world of one over
+    CUDA tensors: every kind returns the member's own values on the card;
+    on gloo each is staged through the host (the bytes both ways
+    counted), on NCCL nothing is staged."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+
+    assert not dist.is_initialized()
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        x = torch.arange(12.0, device=cuda_device).reshape(3, 4).to(
+            torch.bfloat16)
+        mappings.staged_bytes = 0
+        for kind in ("all_reduce", "all_gather", "reduce_scatter",
+                     "broadcast"):
+            got = mappings.collective(kind, x, group, [0], dim=1)
+            assert got.device == x.device and torch.equal(got, x), kind
+        want = 4 * 2 * x.numel() * x.element_size() \
+            if backend == "gloo" else 0
+        assert mappings.staged_bytes == want
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_gpt_model_at_tp1_is_the_unsharded_model(cuda_device):
+    """``GPTModel`` at tp 1 on an NCCL world of one (every region the
+    identity), bf16 compute over fp32 params: the final hidden equals
+    ``apply_gpt_unsharded``'s bit for bit (the same kernels and
+    products), and the vocab-parallel loss meets the fused cross
+    entropy's within 1e-5 relative (one reads the bf16 logits in fp32
+    plain ops, the other in its kernel)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    P = ps.PartitionSpec
+    cfg = gpt.gpt_tiny()
+    params = gpt.init_gpt(cfg, torch.Generator(device=cuda_device)
+                          .manual_seed(0), device=cuda_device)
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda_device,
+                        generator=torch.Generator(device=cuda_device)
+                        .manual_seed(1))
+    ps.initialize_model_parallel()
+    try:
+        assert dist.get_backend() == "nccl"
+        model = gpt.GPTModel(cfg)
+        specs = model.partition_specs()
+        hidden = ps.shard_map(
+            lambda p, i: model.apply(p, i, compute_dtype=torch.bfloat16),
+            in_specs=(specs, P()), out_specs=P())(params, ids)
+        loss = ps.shard_map(
+            lambda p, i: model.loss(p, i, i, compute_dtype=torch.bfloat16),
+            in_specs=(specs, P()), out_specs=P())(params, ids)
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+    want = gpt.apply_gpt_unsharded(params, cfg, ids,
+                                   compute_dtype=torch.bfloat16)
+    assert torch.equal(hidden, want)
+    want_loss = gpt.gpt_loss_unsharded(params, cfg, ids, ids,
+                                       compute_dtype=torch.bfloat16)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(
+        float(want_loss))

@@ -564,10 +564,17 @@ def test_shard_map_slices_and_gathers(w2):
                                    rtol=1e-6, atol=1e-6)
 
 
-def test_shard_map_refuses_other_axes():
-    with pytest.raises(NotImplementedError, match="A6"):
-        ps.shard_map(lambda x: x, in_specs=ps.PartitionSpec(ps.TENSOR_AXIS),
-                     out_specs=ps.PartitionSpec())(torch.zeros(2))
+@pytest.mark.parametrize("axis", [ps.PIPE_AXIS, ps.CONTEXT_AXIS])
+def test_shard_map_refuses_other_axes(axis):
+    """The data and model axes are ported (any dimension, spec trees);
+    pipe and context raise, naming A6.2, as an input or output spec."""
+    P = ps.PartitionSpec
+    with pytest.raises(NotImplementedError, match="A6.2"):
+        ps.shard_map(lambda x: x, in_specs=P(None, axis),
+                     out_specs=P())(torch.zeros(2, 2))
+    with pytest.raises(NotImplementedError, match="A6.2"):
+        ps.shard_map(lambda x: x, in_specs=P(),
+                     out_specs={"a": P(axis)})({"a": torch.zeros(2)})
 
 
 def test_initialize_model_parallel_world_of_one_on_cpu():

@@ -318,7 +318,7 @@ def test_reshard_exhaustion_is_typed(model):
     """Persistent drops exhaust the reshard budget with a typed
     ReshardFailed carrying the JAX package's attempts, pages and
     ``corrupt``; a clean channel then ships; the sub-mesh form raises
-    naming A6."""
+    naming A4.5."""
     err, src, shape, attempts = _typed_exhaustion(model, S)
     jerr, jsrc, jshape, jattempts = _typed_exhaustion(model, jax_serving)
     assert (err.attempts, err.pages, err.corrupt) \
@@ -328,7 +328,7 @@ def test_reshard_exhaustion_is_typed(model):
     assert src.stats.reshard_failures == 1 and src.stats.reshards == 1
     assert attempts == jattempts == 1 and tuple(shape) == tuple(jshape)
     for kw in (dict(src_mesh=object()), dict(dst_mesh=object())):
-        with pytest.raises(NotImplementedError, match="A6"):
+        with pytest.raises(NotImplementedError, match="A4.5"):
             S.PageReshard(**kw)
 
 

@@ -49,8 +49,10 @@ from apex_tpu_torch.examples.simple.distributed import (
 )
 from apex_tpu_torch.fused_dense import FusedDense, FusedDenseGeluDense
 from apex_tpu_torch.mlp import MLP
+from apex_tpu_torch.partition import make_mesh
 from apex_tpu_torch.parallel import multiproc
 from apex_tpu_torch.transformer import parallel_state
+from apex_tpu_torch.transformer import tensor_parallel as port_tp
 from apex_tpu_torch import optimizers as port_optimizers
 from apex_tpu_torch import serving as port_serving
 from apex_tpu_torch.utils import cuda_build
@@ -128,7 +130,9 @@ def no_cuda(monkeypatch):
     "gpt_make_state", "gpt_train_main", "pretrain_gpt_main",
     "init_paged_cache", "PagedDecodeEngine", "initialize_model_parallel",
     "ddp_example_main", "initialize_distributed", "mlp_init",
-    "fused_dense_init", "fused_dense_gelu_dense_init"])
+    "fused_dense_init", "fused_dense_gelu_dense_init", "make_mesh",
+    "gpt_tp_bench", "gpt_model_init", "column_parallel_init",
+    "row_parallel_init", "vocab_parallel_embedding_init"])
 def test_default_device_is_the_card(no_cuda, entry):
     cfg = port_gpt.gpt_tiny()
     bcfg = port_bert.bert_tiny()
@@ -167,6 +171,17 @@ def test_default_device_is_the_card(no_cuda, entry):
             torch.Generator()),
         "fused_dense_gelu_dense_init": lambda: FusedDenseGeluDense(
             4, 8, 4).init(torch.Generator()),
+        "make_mesh": lambda: make_mesh(),
+        "gpt_tp_bench": lambda: port_gpt.gpt_tp_bench(False, 1),
+        "gpt_model_init": lambda: port_gpt.GPTModel(cfg, tp_size=1).init(
+            torch.Generator()),
+        "column_parallel_init": lambda: port_tp.ColumnParallelLinear(
+            4, 8, tp_size=1).init(torch.Generator()),
+        "row_parallel_init": lambda: port_tp.RowParallelLinear(
+            8, 4, tp_size=1).init(torch.Generator()),
+        "vocab_parallel_embedding_init": lambda: (
+            port_tp.VocabParallelEmbedding(16, 4, tp_size=1).init(
+                torch.Generator())),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -704,6 +719,13 @@ DEPARTURES.update({
         "paging.py:PrefixRegistry.get", "paging.py:PrefixRegistry.drop",
         "paging.py:PagePool.evict_prefix", "health.py:SpillFailed.__init__",
         "health.py:PromoteFailed.__init__")})
+# ``key`` in tensor_parallel/random.py is a utils.prng threefry key (the
+# JAX package's bits), not a generator: kept under the reference's name.
+DEPARTURES.update({
+    f"transformer/tensor_parallel/random.py:{n}": "key= is a utils.prng "
+    "threefry key, bit for bit the JAX package's, kept under the "
+    "reference's name" for n in ("model_parallel_rng_key",
+                                 "data_parallel_rng_key")})
 
 # Names (or parameters) owed to later items of ROADMAP.md queue A. When an
 # item lands, delete its entry: the scan then holds every one of its names
@@ -715,25 +737,16 @@ OWED = {
                   "paged_decode", "paged_verify", "tree_verify",
                   "chunk_prefill", "paged_chunk_prefill",
                   "paged_tree_verify")],
-    "A6 data and model parallelism": [
-        "models/gpt.py:GPTModel",
-        "models/bert.py:bert_partition_specs",
-        "models/gpt.py:gpt_partition_specs",
+    # the page transfer between two sub-meshes needs tensor-parallel
+    # serving's engines
+    "A4.5 the mesh transfer functions": [
+        f"serving/{m}:{n}" for m in ("transfer.py", "__init__.py")
+        for n in ("make_tile_transfer_fns", "make_reshard_extract_fn")],
+    "A6.2 pipeline and context parallelism": [
         "models/gpt.py:gpt_to_pipeline_params",
         "models/gpt.py:gpt_pipeline_partition_specs",
-        "models/gpt.py:gpt_pipeline_model", "models/gpt.py:gpt_tp_bench",
-        "quant/params.py:quant_partition_specs",
-        "serving/cache.py:cache_partition_specs",
-        "serving/cache.py:paged_cache_partition_specs",
-        "serving/__init__.py:cache_partition_specs",
-        "serving/__init__.py:paged_cache_partition_specs",
-        # the page transfer between two sub-meshes needs the model axis
-        *[f"serving/{m}:{n}" for m in ("transfer.py", "__init__.py")
-          for n in ("make_tile_transfer_fns", "make_reshard_extract_fn")],
-        "optimizers/fused_adam.py:FusedAdam.state_partition_specs",
-        "transformer/__init__.py:layers",
-        "transformer/__init__.py:pipeline_parallel",
-        "transformer/__init__.py:tensor_parallel"],
+        "models/gpt.py:gpt_pipeline_model",
+        "transformer/__init__.py:pipeline_parallel"],
 }
 
 # Names whose signature is the reference's (the scan sees no gap) but
@@ -745,9 +758,29 @@ DEPARTURES_IN_MEANING = {
        for n in ("tensor_model_parallel", "pipeline_model_parallel",
                  "data_parallel", "context_parallel", "embedding")},
     "transformer/parallel_state.py:shard_map":
-        "runs f on this rank's shard in its own process: P('data') inputs "
-        "sliced by data rank, P() whole, P('data') outputs all-gathered; "
-        "other axes raise, naming A6's tensor-parallel half",
+        "runs f on this rank's shard in its own process: spec trees (a "
+        "prefix of the arguments and of the result); inputs cut by this "
+        "rank's index on the data and model axes, on any dimension, "
+        "P() whole; outputs with a named axis all-gathered over its group "
+        "in mesh order, P() this rank's own; pipe and context raise, "
+        "naming A6.2",
+    "partition/mesh.py:make_mesh":
+        "devices= are global ranks of the default process group, not "
+        "jax.Device objects",
+    "partition/rules.py:make_shard_and_gather_fns":
+        "a shard function keeps this rank's block of a whole value (its "
+        "index on each named axis), a gather function all-gathers the "
+        "blocks over each axis's group in mesh order; no device_put or "
+        "device_get between host and mesh",
+    "transformer/tensor_parallel/random.py:checkpoint_policy":
+        "returns a context_fn for torch.utils.checkpoint (the port's "
+        "selective-checkpoint policy of the JAX name), or None for full "
+        "recompute, not a jax.checkpoint_policies function",
+    "models/gpt.py:gpt_tp_bench":
+        "on_tpu=True takes gpt_medium at batch 8, seq 1024 on the card; "
+        "at n_devices > 1 it runs in each rank's process over a default "
+        "process group of n_devices ranks, and each rank steps the whole "
+        "params",
     "transformer/parallel_state.py:initialize_model_parallel":
         "devices= are the global ranks of the default process group, in "
         "mesh order, not jax.Device objects",
@@ -767,7 +800,7 @@ DEPARTURES_IN_MEANING = {
         "the identity: each process holds its own copy",
     "serving/transfer.py:PageReshard.__init__":
         "src_mesh= / dst_mesh= (a reshard between two sub-meshes) raise "
-        "NotImplementedError naming A6; at None, the reference's default, "
+        "NotImplementedError naming A4.5; at None, the reference's default, "
         "the tiles take the host round trip",
     "transformer/amp/__init__.py:GradScaler.unscale":
         "ORs found_inf by an all_reduce(MAX) over this rank's "
@@ -783,7 +816,8 @@ DEPARTURES_IN_MEANING = {
 # imports JAX's lax and axis_size there: its GradScaler is held by the
 # surface scan).
 EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer", "serving",
-                  "amp", "fp16_utils", "mlp", "fused_dense")
+                  "amp", "fp16_utils", "mlp", "fused_dense", "partition",
+                  "transformer/tensor_parallel", "transformer/layers")
 
 
 def _defines_names(path):

@@ -633,7 +633,7 @@ def test_spec_near_max_len_degrades_to_plain(params):
 def test_spec_config_validation(params):
     """(test_scheduler.py) draft_model / tree_spec / adaptive_spec need
     spec_k >= 1; the draft net must match the slots and vocabulary; the
-    tensor-parallel drafter is A6."""
+    tensor-parallel drafter is A4.5."""
     _, pcfg = _cfgs()
     pp = params[1]
     kw = dict(num_slots=1, max_len=MAX_LEN, device="cpu")
@@ -649,7 +649,7 @@ def test_spec_config_validation(params):
     dm.cfg = other
     with pytest.raises(ValueError, match="vocabulary"):
         port_serving.DecodeEngine(pp, pcfg, spec_k=2, draft_model=dm, **kw)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A4.5"):
         port_serving.DraftModel(pp, pcfg, num_slots=1, max_len=MAX_LEN,
                                 model=object(), device="cpu")
     with pytest.raises(ValueError, match="chunk"):
