@@ -1,50 +1,74 @@
 """Megatron-style GPT pretraining CLI for the PyTorch/CUDA port: the
-counterpart of ``examples/gpt/pretrain_gpt.py`` on one device.
+counterpart of ``examples/gpt/pretrain_gpt.py``, the whole parallel stack
+in one script.
 
 It takes the reference's Megatron flags with their defaults
-(``apex_tpu/transformer/testing/arguments.py``) and its own
-(``extra_flags``). The reference's script always runs the pipeline
-schedules (``gpt_to_pipeline_params`` and the 1F1B step, at pp 1 too),
-so its parallel flags come with them: a tensor-, pipeline- or
-context-parallel size above 1, a virtual pipeline size,
-``--sequence-parallel``, ``--use-distributed-optimizer`` and
-``--gradient-accumulation-fusion`` stop the script with a message naming
-ROADMAP queue A6.2. At data-parallel size 1 the reference's step is
-``forward_backward_no_pipelining``: the global batch split into ``M =
-global / micro`` microbatches, the loss the mean of the microbatch means,
-the gradients summed in fp32 and divided by ``M``; then
-``FusedAdam(lr=--lr, weight_decay=0.01)``.
+(``transformer.testing.arguments``) and its own (``extra_flags``), then
+follows the reference: the mesh from the flags (dp x tp x pp, printed as
+``mesh: dp= tp= pp=``); the tensor-parallel ``GPTModel`` laid out by
+``gpt_to_pipeline_params``; the schedule the flags select (no
+pipelining at pp 1, 1F1B, interleaved with
+``--virtual-pipeline-model-parallel-size``) over ``M = (global / dp) /
+micro`` microbatches; the tied word table's two gradients summed by
+``accumulate_tied_word_grads``; the sequence-parallel gradients
+all-reduced; then ``FusedAdam(lr=--lr, weight_decay=0.01)`` on the
+data-mean gradients, or with ``--use-distributed-optimizer``
+``DistributedFusedAdam`` (ZeRO: the rank's own gradients in, the
+reduce-scatter inside its step), which the reference refuses beside tp
+or pp above 1. ``--context-parallel-size`` above 1 stops with the
+reference's message.
 
-The reference keeps the tied word table twice in its pipeline layout
-(the lookup's copy and the logits head's) and adds the two gradients
-into both with ``accumulate_tied_word_grads``, so both copies take the
-same update. Here one table is tied by autograd: the lookup's and the
-head's gradients add into its one gradient, and the single copy takes
-that same update.
+Each rank runs the step on its blocks, as the reference's step runs
+inside its ``shard_map``: the params and optimizer state are cut once
+(``parallel_state.shard_map`` with the spec trees) and stay cut between
+the steps (the script prints the loss only, so nothing is gathered
+back).
+
+The default process group: when none is up, a launcher's environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, as
+``torchrun`` sets them) starts it by ``env://``, on NCCL on the card
+(one rank a card, ``LOCAL_RANK``'s) or gloo on the CPU;
+``--dist-backend gloo`` asks for gloo on the card (two ranks on one
+card: NCCL refuses them). Without a launcher the script is a world of
+one. A group the script started ends with it.
 
 Weights come from ``PRNGKey(--seed)`` through the JAX package's
 ``init_gpt`` draws (``models.gpt.init_gpt_from_key``); step ``i``'s
 batch is ``randint(PRNGKey(1000 + i), (global batch, seq), 0, vocab)``
-with the labels the ids themselves, as in the reference. Runs on the
-CUDA device by default, on the CPU with ``--device cpu``::
+with the labels the ids themselves, split over the data ranks. Runs on
+the CUDA device by default, on the CPU with ``--device cpu``::
 
     python -m apex_tpu_torch.examples.gpt.pretrain_gpt --steps 10
+    torchrun --nproc-per-node 2 -m apex_tpu_torch.examples.gpt.pretrain_gpt \\
+        --pipeline-model-parallel-size 2 --dist-backend gloo
 """
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
-from apex_tpu_torch.examples.gpt.train import (
-    synthetic_batch, value_and_grad,
-)
+from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+from apex_tpu_torch.examples.gpt.train import synthetic_batch
 from apex_tpu_torch.models.gpt import (
-    GPTConfig, gpt_loss_unsharded, init_gpt_from_key,
+    GPTConfig, GPTModel, accumulate_tied_word_grads, gpt_pipeline_model,
+    gpt_pipeline_partition_specs, gpt_to_pipeline_params, init_gpt_from_key,
 )
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.transformer import parallel_state as ps
+from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+    forward_backward_no_pipelining,
+    forward_backward_pipelining_with_interleaving,
+    forward_backward_pipelining_without_interleaving,
+)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import collective
+from apex_tpu_torch.transformer.testing import arguments
 from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.platform import resolve_device
 from apex_tpu_torch.utils.tree import tree_map
+
+P = ps.PartitionSpec
 
 
 def extra_flags(p):
@@ -56,6 +80,10 @@ def extra_flags(p):
                         "(Megatron --gradient-accumulation-fusion)")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--device", default=None, help="cuda (default) or cpu")
+    g.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="the default process group's backend when the "
+                        "script starts it from a launcher's environment "
+                        "(nccl on the card, gloo on the CPU by default)")
     return p
 
 
@@ -63,95 +91,162 @@ def parse_args(argv=None) -> argparse.Namespace:
     """The reference's Megatron flags (``transformer.testing.arguments
     .parse_args``) and :func:`extra_flags`; unknown flags are tolerated,
     as there."""
-    p = argparse.ArgumentParser(description="apex_tpu_torch GPT pretrain",
-                                allow_abbrev=False)
-    g = p.add_argument_group("parallelism")
-    g.add_argument("--tensor-model-parallel-size", type=int, default=1)
-    g.add_argument("--pipeline-model-parallel-size", type=int, default=1)
-    g.add_argument("--virtual-pipeline-model-parallel-size", type=int,
-                   default=None)
-    g.add_argument("--context-parallel-size", type=int, default=1)
-    g.add_argument("--sequence-parallel", action="store_true")
-    g = p.add_argument_group("model")
-    g.add_argument("--num-layers", type=int, default=4)
-    g.add_argument("--hidden-size", type=int, default=64)
-    g.add_argument("--num-attention-heads", type=int, default=8)
-    g.add_argument("--seq-length", type=int, default=64)
-    g.add_argument("--max-position-embeddings", type=int, default=64)
-    g.add_argument("--padded-vocab-size", type=int, default=512)
-    g = p.add_argument_group("training")
-    g.add_argument("--micro-batch-size", type=int, default=2)
-    g.add_argument("--global-batch-size", type=int, default=8)
-    g.add_argument("--lr", type=float, default=1e-4)
-    g.add_argument("--fp16", action="store_true")
-    g.add_argument("--bf16", action="store_true")
-    ns, _ = extra_flags(p).parse_known_args(argv)
-    return ns
+    return arguments.parse_args(extra_args_provider=extra_flags, args=argv)
 
 
-def _check_single_device(ns: argparse.Namespace) -> None:
-    parallel = {
-        "--tensor-model-parallel-size": ns.tensor_model_parallel_size > 1,
-        "--pipeline-model-parallel-size":
-            ns.pipeline_model_parallel_size > 1,
-        "--virtual-pipeline-model-parallel-size":
-            ns.virtual_pipeline_model_parallel_size is not None,
-        "--context-parallel-size": ns.context_parallel_size > 1,
-        "--sequence-parallel": ns.sequence_parallel,
-        "--use-distributed-optimizer": ns.use_distributed_optimizer,
-        "--gradient-accumulation-fusion": ns.gradient_accumulation_fusion,
-    }
-    asked = [flag for flag, on in parallel.items() if on]
-    if asked:
-        raise SystemExit(
-            f"{', '.join(asked)}: the port's script runs one device; its "
-            "parallel flags come with the pipeline schedules and the "
-            "distributed optimizer, ROADMAP queue A6.2")
+def _start_group(ns: argparse.Namespace, dev: torch.device) -> bool:
+    """Start the default process group from a launcher's environment
+    when none is up; True where this call started it."""
+    if dist.is_initialized() or not ("RANK" in os.environ
+                                     and "WORLD_SIZE" in os.environ):
+        return False
+    backend = ns.dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method="env://")
+    return True
+
+
+class Pretrain:
+    """The script's step on this rank, after the mesh: ``params`` and
+    ``opt_state`` are this rank's blocks, ``batch(i)`` step i's data-rank
+    block, ``loss_and_grads(params, batch)`` the schedule's loss and
+    gradients (the tied word gradients summed, the sequence-parallel ones
+    all-reduced, before any data mean), ``step(params, opt_state,
+    batch)`` one whole step."""
+
+    def __init__(self, ns: argparse.Namespace, dev: torch.device):
+        tp_sz, pp = ns.tensor_model_parallel_size, \
+            ns.pipeline_model_parallel_size
+        self.ns, self.dev = ns, dev
+        self.dp = dp = ps.get_data_parallel_world_size()
+        self.cfg = cfg = GPTConfig(
+            vocab_size=ns.padded_vocab_size, hidden_size=ns.hidden_size,
+            num_layers=ns.num_layers, num_heads=ns.num_attention_heads,
+            ffn_hidden_size=4 * ns.hidden_size,
+            max_position_embeddings=ns.max_position_embeddings,
+            sequence_parallel=ns.sequence_parallel,
+            gradient_accumulation_fusion=ns.gradient_accumulation_fusion)
+        vpp = ns.virtual_pipeline_model_parallel_size
+        self.model = GPTModel(cfg, tp_size=tp_sz)
+        params = init_gpt_from_key(prng.PRNGKey(ns.seed), cfg, device=dev)
+        pipe_params = gpt_to_pipeline_params(params, cfg, pp, vpp)
+        del params
+        self.pipe_model = gpt_pipeline_model(self.model)
+        pspecs = gpt_pipeline_partition_specs(cfg, vpp)
+
+        self.zero = ns.use_distributed_optimizer
+        if self.zero:
+            if tp_sz > 1 or pp > 1:
+                raise SystemExit(
+                    "--use-distributed-optimizer composes with pure data "
+                    "parallelism (the reference's DistributedFusedAdam is "
+                    "likewise the MLPerf DDP-BERT tool): the ZeRO flat "
+                    "layout is built from the full param tree, which inside "
+                    "a tp/pp mesh no longer matches the rank-local shapes. "
+                    "Drop --tensor/pipeline-model-parallel-size or use the "
+                    "replicated FusedAdam.")
+            self.opt = DistributedFusedAdam(lr=ns.lr, weight_decay=0.01)
+            opt_state = self.opt.init(pipe_params)
+            ospecs = self.opt.partition_spec()
+        else:
+            self.opt = FusedAdam(lr=ns.lr, weight_decay=0.01)
+            opt_state = self.opt.init(pipe_params)
+            ospecs = type(opt_state)(step=P(), m=pspecs, v=pspecs)
+
+        # microbatches are per DATA rank: local batch = global / dp
+        if ns.global_batch_size % dp:
+            raise SystemExit(f"--global-batch-size {ns.global_batch_size} "
+                             f"not divisible by dp {dp}")
+        local_batch = ns.global_batch_size // dp
+        if local_batch % ns.micro_batch_size:
+            raise SystemExit(
+                f"local batch {local_batch} (global/dp) not divisible by "
+                f"--micro-batch-size {ns.micro_batch_size} (Megatron errors "
+                "here too; silent re-sizing would train a different config)")
+        self.M = local_batch // ns.micro_batch_size
+        if pp > 1 and vpp:
+            self.fwd_bwd = forward_backward_pipelining_with_interleaving
+        elif pp > 1:
+            self.fwd_bwd = forward_backward_pipelining_without_interleaving
+        else:
+            self.fwd_bwd = forward_backward_no_pipelining
+        # this rank's blocks, cut once (out_specs P(): kept as they are)
+        self.params, self.opt_state = ps.shard_map(
+            lambda p, o: (p, o), in_specs=(pspecs, ospecs),
+            out_specs=P())(pipe_params, opt_state)
+
+    def batch(self, i: int):
+        ns = self.ns
+        ids = synthetic_batch(i, ns.global_batch_size, ns.seq_length,
+                              self.cfg.vocab_size, self.dev)
+        ids = ps.shard_leaf(ids, P(ps.DATA_AXIS))
+        return {"input_ids": ids, "labels": ids}
+
+    def _pmean_data(self, t):
+        if self.dp == 1:
+            return t
+        mesh = ps.get_mesh()
+        return collective("all_reduce", t, mesh.groups[ps.DATA_AXIS],
+                          mesh.members(ps.DATA_AXIS)) / self.dp
+
+    def loss_and_grads(self, p, batch):
+        loss, grads = self.fwd_bwd(self.pipe_model, p, batch,
+                                   num_microbatches=self.M)
+        # the tied embedding: the pipeline layout holds the word table
+        # twice (the lookup's and the head's); summing the two partial
+        # gradients into both gives both copies the same update
+        grads = accumulate_tied_word_grads(grads)
+        # SP: the LN and Row-bias gradients are partials over the model
+        # axis
+        grads = self.model.allreduce_sequence_parallel_grads(grads)
+        return loss, grads
+
+    def step(self, p, ostate, batch):
+        loss, grads = self.loss_and_grads(p, batch)
+        loss = self._pmean_data(loss)
+        if not self.zero:
+            grads = tree_map(self._pmean_data, grads)
+        # ZeRO takes the rank's own gradients: the reduce-scatter inside
+        # its step sums and averages them
+        p, ostate = self.opt.step(grads, p, ostate)
+        return p, ostate, loss
 
 
 def main(argv=None) -> int:
     ns = parse_args(argv)
-    _check_single_device(ns)
     dev = resolve_device(ns.device)
-    print(f"mesh: dp=1 tp={ns.tensor_model_parallel_size} "
-          f"pp={ns.pipeline_model_parallel_size}", flush=True)
-    cfg = GPTConfig(
-        vocab_size=ns.padded_vocab_size, hidden_size=ns.hidden_size,
-        num_layers=ns.num_layers, num_heads=ns.num_attention_heads,
-        ffn_hidden_size=4 * ns.hidden_size,
-        max_position_embeddings=ns.max_position_embeddings)
-    params = init_gpt_from_key(prng.PRNGKey(ns.seed), cfg, device=dev)
-    opt = FusedAdam(lr=ns.lr, weight_decay=0.01)
-    opt_state = opt.init(params)
+    started = _start_group(ns, dev) or not dist.is_initialized()
+    try:
+        arguments.initialize_from_args(ns, device=dev)
+        rank0 = dist.get_rank() == 0
 
-    if ns.global_batch_size % ns.micro_batch_size:
-        raise SystemExit(
-            f"local batch {ns.global_batch_size} (global/dp) not divisible "
-            f"by --micro-batch-size {ns.micro_batch_size} (Megatron errors "
-            "here too; silent re-sizing would train a different config)")
-    M = ns.global_batch_size // ns.micro_batch_size
-    vg = value_and_grad(gpt_loss_unsharded)
+        def say(text):
+            if rank0:
+                print(text, flush=True)
 
-    def train_step(p, ostate, ids):
-        # forward_backward_no_pipelining: fp32 gradient accumulation
-        # over the microbatches, the mean of their losses
-        total, grads = 0.0, None
-        for mb in ids.chunk(M):
-            loss, g = vg(p, cfg, mb, mb)
-            total = total + loss
-            grads = g if grads is None else tree_map(torch.add, grads, g)
-        grads = tree_map(lambda a: a / M, grads)
-        p, ostate = opt.step(grads, p, ostate)
-        return p, ostate, total / M
-
-    b, s = ns.global_batch_size, ns.seq_length
-    for i in range(ns.steps):
-        ids = synthetic_batch(i, b, s, cfg.vocab_size, dev)
-        params, opt_state, loss = train_step(params, opt_state, ids)
-        if i % 2 == 0 or i == ns.steps - 1:
-            print(f"step {i:3d}  loss {float(loss):.6f}", flush=True)
-    print("DONE", flush=True)
-    return 0
+        say(f"mesh: dp={ps.get_data_parallel_world_size()} "
+            f"tp={ns.tensor_model_parallel_size} "
+            f"pp={ns.pipeline_model_parallel_size}")
+        if ns.context_parallel_size > 1:
+            raise SystemExit(
+                "this script does not drive context parallelism — use "
+                "transformer.context_parallel.ring_attention directly")
+        run = Pretrain(ns, dev)
+        p, o = run.params, run.opt_state
+        for i in range(ns.steps):
+            p, o, loss = run.step(p, o, run.batch(i))
+            if i % 2 == 0 or i == ns.steps - 1:
+                say(f"step {i:3d}  loss {float(loss):.6f}")
+        say("DONE")
+        if dist.get_world_size() > 1:
+            dist.barrier()
+        return 0
+    finally:
+        ps.destroy_model_parallel()
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """GPT (decoder-only transformer), the counterpart of
-``apex_tpu/models/gpt.py`` but its pipeline and context-parallel paths:
-inference (the serving blocks), training on one device
-(``apply_gpt_unsharded`` with dropout, ``gpt_loss_unsharded``) and the
-tensor- and sequence-parallel model (``GPTModel``).
+``apex_tpu/models/gpt.py``: inference (the serving blocks), training on
+one device (``apply_gpt_unsharded`` with dropout, ``gpt_loss_unsharded``),
+the tensor-, sequence- and context-parallel model (``GPTModel``) and the
+pipeline adapter.
 
 Parameters are a dict tree that mirrors the JAX tree, layer leaves
 stacked on a leading ``num_layers`` axis; the JAX ``lax.scan`` over
@@ -32,8 +32,14 @@ table a ``VocabParallelEmbedding`` tied to the logits, whose loss is
 package); the attention and LayerNorm kernels run on each rank's local
 heads and tokens. The qkv columns are head-major, so a contiguous column
 block holds whole heads. ``sequence_parallel`` splits the activations
-outside the tensor-parallel regions along the sequence. The
-context-parallel fields and the pipeline adapter are ROADMAP.md's A6.2.
+outside the tensor-parallel regions along the sequence.
+``context_parallel`` runs the whole model on this rank's block of the
+sequence over the ``context`` axis, its attention ring or Ulysses
+(``transformer.context_parallel``), RoPE and learned positions at the
+block's global positions. The pipeline adapter
+(``gpt_to_pipeline_params``, ``gpt_pipeline_partition_specs``,
+``gpt_pipeline_model``) lays the params out as the pipeline schedules
+take them.
 """
 
 import dataclasses
@@ -87,9 +93,14 @@ class GPTConfig:
     # tensor-parallel regions (LN, residuals, dropout) are split along
     # the sequence (dim 1 of (b, s, h)) over the model axis
     sequence_parallel: bool = False
-    # ring or Ulysses context parallelism: ROADMAP A6.2; check_config
-    # raises when either is set
+    # long-context parallelism: the whole model runs on a sequence block
+    # (ids arrive (b, s/cp)) and attention is ring or Ulysses attention
+    # over the ``context`` axis; composes with tp, not with
+    # sequence_parallel
     context_parallel: bool = False
+    # "ring" rotates k/v blocks (cp - 1 shifts, any head count) or
+    # "ulysses" swaps sequence and heads by all-to-all (needs
+    # (num_heads/tp) % cp == 0)
     context_parallel_impl: str = "ring"
     # GPTModel's linears emit fp32 weight gradients with no round trip
     # through the activations' dtype (linear_with_grad_accumulation)
@@ -128,18 +139,20 @@ def draft_gpt_medium() -> GPTConfig:
                      max_position_embeddings=1024, use_rope=True)
 
 
-_CONTEXT_FIELDS = {"context_parallel": False, "context_parallel_impl": "ring"}
-
-
 def check_config(cfg: GPTConfig) -> None:
-    """The context-parallel fields are not ported (ROADMAP A6.2): a
-    config that sets one raises."""
-    for name, off in _CONTEXT_FIELDS.items():
-        if getattr(cfg, name) != off:
-            raise NotImplementedError(
-                f"GPTConfig.{name}={getattr(cfg, name)!r} is not ported "
-                "yet (ROADMAP queue A6.2: pipeline and context "
-                f"parallelism); the port runs {name}={off!r}")
+    """The parallel fields' checks of the reference's ``GPTModel`` that
+    need no mesh, with its messages: sequence and context parallelism
+    exclude each other, and the context-parallel attention is ring or
+    Ulysses."""
+    if cfg.sequence_parallel and cfg.context_parallel:
+        raise ValueError(
+            "sequence_parallel and context_parallel are mutually "
+            "exclusive (different axes, different activation "
+            "contracts)")
+    if cfg.context_parallel_impl not in ("ring", "ulysses"):
+        raise ValueError(
+            f"context_parallel_impl must be 'ring' or 'ulysses', "
+            f"got {cfg.context_parallel_impl!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +296,42 @@ def _causal_attention(q_k_v: torch.Tensor, cfg: GPTConfig,
     return _merge_heads(ctx)
 
 
+def _cp_attention(q_k_v, cfg, rope_freqs, attn_fn):
+    """Context-parallel attention: the head-major split, RoPE on this
+    rank's block (``rope_freqs`` already at its global positions),
+    ``attn_fn`` over the ``context`` axis, the heads merged back."""
+    hd = cfg.head_dim
+    q, k, v = _split_qkv(q_k_v, hd)
+    q, k = _rotate(q, k, rope_freqs)
+    ctx = attn_fn(q, k, v, causal=True, softmax_scale=1.0 / math.sqrt(hd))
+    return _merge_heads(ctx)
+
+
+def _ring_causal_attention(q_k_v: torch.Tensor, cfg: GPTConfig,
+                           rope_freqs: Optional[torch.Tensor]
+                           ) -> torch.Tensor:
+    """:func:`_cp_attention` through ``ring_attention``."""
+    from apex_tpu_torch.transformer.context_parallel import ring_attention
+
+    return _cp_attention(q_k_v, cfg, rope_freqs, ring_attention)
+
+
+def _ulysses_causal_attention(q_k_v: torch.Tensor, cfg: GPTConfig,
+                              rope_freqs: Optional[torch.Tensor]
+                              ) -> torch.Tensor:
+    """:func:`_cp_attention` through ``ulysses_attention`` (the flash
+    kernel over the whole sequence for h/cp heads)."""
+    from apex_tpu_torch.transformer.context_parallel import (
+        ulysses_attention,
+    )
+
+    return _cp_attention(q_k_v, cfg, rope_freqs, ulysses_attention)
+
+
+_CP_ATTN = {"ring": _ring_causal_attention,
+            "ulysses": _ulysses_causal_attention}
+
+
 def _gelu(x):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x, approximate="tanh")
@@ -303,14 +352,18 @@ def _maybe_dropout(x, rate, rng, salt):
 
 
 def _block(lp, x, cfg, rope_freqs, qkv_fn, out_fn, fc1_fn, fc2_fn,
-           dropout_rng=None):
+           dropout_rng=None, ring=False):
     """Pre-LN transformer block: x + Attn(LN(x)); x + MLP(LN(x)), the
     hidden dropout after the attention's output projection (salt 0)
     and after fc2 (salt 1). The four linears are ``dense`` on the
-    unsharded path, the Column / Row layers' ``apply`` in GPTModel."""
-    att = _causal_attention(qkv_fn(lp["qkv"], _ln(lp["ln1"], x,
-                                                  cfg.layer_norm_eps)),
-                            cfg, rope_freqs)
+    unsharded path, the Column / Row layers' ``apply`` in GPTModel.
+    ``ring`` selects ``cfg.context_parallel_impl``'s attention (an
+    execution path, not the config: the unsharded model runs the same
+    config with plain attention)."""
+    attn = _CP_ATTN[cfg.context_parallel_impl] if ring \
+        else _causal_attention
+    att = attn(qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)),
+               cfg, rope_freqs)
     att = _maybe_dropout(out_fn(lp["out"], att), cfg.hidden_dropout,
                          dropout_rng, 0)
     x = x + att
@@ -785,13 +838,13 @@ def _remat_context(policy: Optional[str]):
 
 
 def _scan_layers(x, layers, cfg, freqs, qkv_fn, out_fn, fc1_fn, fc2_fn,
-                 dropout_rng):
+                 dropout_rng, ring=False):
     """Depth loop over the stacked layer leaves, each layer checkpointed
     under ``cfg.remat``; with a key, layer i draws on
     ``split(dropout_rng, num_layers)[i]``."""
     def block(lp, x, rng):
         return _block(lp, x, cfg, freqs, qkv_fn, out_fn, fc1_fn, fc2_fn,
-                      dropout_rng=rng)
+                      dropout_rng=rng, ring=ring)
 
     kw = None
     if cfg.remat and torch.is_grad_enabled():   # no backward: no remat
@@ -912,15 +965,7 @@ class GPTModel:
             raise ValueError(
                 f"num_heads {cfg.num_heads} not divisible by tp {t} "
                 "(attention heads shard over the model axis)")
-        if cfg.sequence_parallel and cfg.context_parallel:
-            raise ValueError(
-                "sequence_parallel and context_parallel are mutually "
-                "exclusive (different axes, different activation "
-                "contracts)")
-        if cfg.context_parallel_impl not in ("ring", "ulysses"):
-            raise ValueError(
-                f"context_parallel_impl must be 'ring' or 'ulysses', "
-                f"got {cfg.context_parallel_impl!r}")
+        check_config(cfg)
         if cfg.context_parallel and cfg.context_parallel_impl == "ulysses":
             cp = ps.get_context_parallel_world_size()
             if (cfg.num_heads // t) % cp:
@@ -955,17 +1000,33 @@ class GPTModel:
               compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """ids (b, s) -> final hidden (b, s, h), split on s under
         sequence parallelism. Inside shard_map over the ``model`` axis (a
-        mesh of tp 1 is fine)."""
+        mesh of tp 1 is fine). Under context parallelism the ids are
+        this rank's (b, s/cp) block on the ``context`` axis and the
+        hidden is its block too."""
         cfg = self.cfg
-        if cfg.context_parallel:
-            raise NotImplementedError(
-                "GPTModel with context_parallel=True is not ported yet "
-                "(ROADMAP queue A6.2: ring and Ulysses attention over the "
-                "context axis)")
         s = input_ids.shape[1]
         x = self.embed.apply(params["embedding"]["word"], input_ids)
         if compute_dtype is not None:
             x = x.to(compute_dtype)
+        if cfg.context_parallel:
+            # the positions and rotary angles of this rank's block are
+            # the global ones, from offset rank * s
+            at = ps.get_context_parallel_rank() * s
+            if not cfg.use_rope:
+                pos = params["embedding"]["position"]["embedding"][at:at + s]
+                x = x + pos.to(x.dtype)[None]
+            freqs = _rope_or_none(
+                cfg, s * ps.get_context_parallel_world_size(),
+                input_ids.device)
+            if freqs is not None:
+                freqs = freqs[at:at + s]
+            if dropout_rng is not None:
+                dropout_rng = prng.fold_in(dropout_rng,
+                                           ps.get_context_parallel_rank())
+            x = _scan_layers(x, params["layers"], cfg, freqs,
+                             self.qkv.apply, self.out.apply, self.fc1.apply,
+                             self.fc2.apply, dropout_rng, ring=True)
+            return _ln(params["final_ln"], x, cfg.layer_norm_eps)
         if not cfg.use_rope:
             pos = params["embedding"]["position"]["embedding"][:s]
             x = x + pos.to(x.dtype)[None]
@@ -1029,7 +1090,22 @@ class GPTModel:
             logits = torch.matmul(hidden, table.to(hidden.dtype).t()).float()
         else:
             logits = self.logits_local(params, hidden)
-        return tp.vocab_parallel_cross_entropy(logits, labels).mean()
+        loss = tp.vocab_parallel_cross_entropy(logits, labels).mean()
+        if self.cfg.context_parallel:
+            # the blocks are of one size: the global mean is the mean of
+            # the ranks' means. As in the JAX package, each rank's
+            # backward gives d(its own mean)/dp (the value is the mean,
+            # the gradient passes as the identity): mean the GRADIENTS
+            # over the context axis after the backward, as DDP does over
+            # the batch
+            mesh = ps.get_mesh()
+            cp = mesh.shape[ps.CONTEXT_AXIS]
+            if cp > 1:
+                mean = tp.mappings.collective(
+                    "all_reduce", loss, mesh.groups[ps.CONTEXT_AXIS],
+                    mesh.members(ps.CONTEXT_AXIS)) / cp
+                loss = loss + (mean - loss.detach())
+        return loss
 
 
 def gpt_tp_bench(on_tpu: bool, n_devices: int, *,
@@ -1099,3 +1175,115 @@ def accumulate_tied_word_grads(grads: Dict[str, Any]) -> Dict[str, Any]:
     grads["embed"] = dict(grads["embed"], word=tied)
     grads["head"] = dict(grads["head"], word=tied)
     return grads
+
+
+# ---------------------------------------------------------------------------
+# the pipeline adapter: the {"embed", "stages", "head"} layout of the
+# pipeline schedules
+# ---------------------------------------------------------------------------
+
+def gpt_to_pipeline_params(params: Dict[str, Any], cfg: GPTConfig,
+                           pp: int, vpp: Optional[int] = None
+                           ) -> Dict[str, Any]:
+    """The stacked ``(L, ...)`` layer leaves as the schedules' stage
+    stack: ``(pp, L/pp, ...)``, or ``(vpp, pp, L/(pp*vpp), ...)`` in the
+    reference's round-robin chunk order (chunk c on rank c % pp, lane
+    c // pp); views of the leaves. The word table appears twice, the
+    lookup's copy under ``embed`` and the tied head's under ``head`` (a
+    copy of its own, so the two copies can take their updates apart)."""
+    L = cfg.num_layers
+    chunks = pp * (vpp or 1)
+    if L % chunks:
+        raise ValueError(f"num_layers {L} not divisible by {chunks}")
+    per = L // chunks
+
+    def reshape(a):
+        if vpp is None:
+            return a.reshape((pp, per) + tuple(a.shape[1:]))
+        # layer l -> chunk l // per; chunk c -> (lane c // pp, rank c % pp)
+        return a.reshape((vpp, pp, per) + tuple(a.shape[1:]))
+
+    word = params["embedding"]["word"]
+    return {
+        "embed": params["embedding"],
+        "stages": {name: {k: reshape(v) for k, v in p.items()}
+                   for name, p in params["layers"].items()},
+        "head": {"final_ln": params["final_ln"],
+                 "word": {k: v.clone() for k, v in word.items()}},
+    }
+
+
+def gpt_pipeline_partition_specs(cfg: GPTConfig,
+                                 vpp: Optional[int] = None):
+    """The specs of ``gpt_to_pipeline_params``' layout: the stage leaves
+    gain a leading ``pipe``-split stage dimension (``(vpp, pp, per,
+    ...)`` with vpp) and keep their Megatron ``model`` splits; the tied
+    word table stays vocab-split over ``model`` in both its copies (a
+    whole table would make the vocab-parallel cross entropy count
+    sum_exp twice)."""
+    P = ps.PartitionSpec
+    base = gpt_partition_specs(cfg)
+
+    def stage_spec(p):
+        tail = tuple(p)[1:]  # the stacked-L dimension's entry goes
+        if vpp is None:
+            return P(ps.PIPE_AXIS, None, *tail)
+        return P(None, ps.PIPE_AXIS, None, *tail)
+
+    return {
+        "embed": base["embedding"],
+        "stages": {name: {k: stage_spec(v) for k, v in p.items()}
+                   for name, p in base["layers"].items()},
+        "head": {"final_ln": base["final_ln"],
+                 "word": base["embedding"]["word"]},
+    }
+
+
+def gpt_pipeline_model(model: GPTModel):
+    """A ``PipelineModel`` over ``model``'s tensor-parallel block; runs
+    inside shard_map over the pipe and model axes (tp x pp). Under
+    sequence parallelism the hidden state travels the pipe split on s;
+    the stage's rotary table spans the global sequence; the loss is the
+    vocab-parallel cross entropy on the head's copy of the table."""
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+        PipelineModel,
+    )
+
+    cfg = model.cfg
+
+    def embed_fn(embed_params, mb):
+        ids = mb["input_ids"]
+        x = model.embed.apply(embed_params["word"], ids)
+        if not cfg.use_rope:
+            pos = embed_params["position"]["embedding"][:ids.shape[1]]
+            x = x + pos.to(x.dtype)[None]
+        if cfg.sequence_parallel:
+            # the hidden travels the pipe split on s; each stage's Column
+            # layers gather it and its Row layers split it again
+            x = tp.scatter_to_sequence_parallel_region(x, 1)
+        return x
+
+    def stage_fn(stage_params, x):
+        # under SP the hidden arrives split on s (s/tp): the rotary angles
+        # span the global sequence the Column gather puts back together
+        s = x.shape[1]
+        if cfg.sequence_parallel:
+            s *= ps.get_tensor_model_parallel_world_size()
+        freqs = _rope_or_none(cfg, s, x.device)
+        per = next(iter(stage_params["ln1"].values())).shape[0]
+        for lp in _unstack(stage_params, per):
+            x = _block(lp, x, cfg, freqs, model.qkv.apply, model.out.apply,
+                       model.fc1.apply, model.fc2.apply)
+        return x
+
+    def loss_fn(head_params, hidden, mb):
+        hidden = _ln(head_params["final_ln"], hidden, cfg.layer_norm_eps)
+        table = head_params["word"]["embedding"]
+        if cfg.sequence_parallel:
+            hidden = tp.gather_from_sequence_parallel_region(hidden, True, 1)
+            logits = torch.matmul(hidden, table.to(hidden.dtype).t()).float()
+        else:
+            logits = _tied_lm_logits(hidden, table)
+        return tp.vocab_parallel_cross_entropy(logits, mb["labels"]).mean()
+
+    return PipelineModel(embed_fn, stage_fn, loss_fn)

@@ -273,24 +273,16 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple(self)!r}"
 
 
-_SHARDED_AXES = (DATA_AXIS, TENSOR_AXIS)
-
-
 def _spec_dims(spec):
-    """``[(dim, (axis, ...)), ...]`` for each dimension a spec splits;
-    ``pipe`` and ``context`` raise (A6.2), an unknown name raises."""
+    """``[(dim, (axis, ...)), ...]`` for each dimension a spec splits; an
+    unknown axis name raises."""
     out = []
     for dim, entry in enumerate(tuple(spec) if spec is not None else ()):
         if entry is None:
             continue
         axes = entry if isinstance(entry, tuple) else (entry,)
         for ax in axes:
-            if ax in (PIPE_AXIS, CONTEXT_AXIS):
-                raise NotImplementedError(
-                    f"shard_map spec {tuple(spec)}: the {ax!r} axis waits "
-                    "for A6.2, the pipeline- and context-parallel half "
-                    "of A6 (ROADMAP.md queue A)")
-            if ax not in _SHARDED_AXES:
+            if ax not in MESH_AXIS_NAMES:
                 raise ParallelStateError(
                     f"unknown mesh axis {ax!r} in spec {tuple(spec)}; the "
                     f"axes are {MESH_AXIS_NAMES}")
@@ -383,11 +375,12 @@ def shard_map(f, *, mesh: Optional[Mesh] = None, in_specs, out_specs,
     each device. ``in_specs`` is a prefix of the arguments' tuple and
     ``out_specs`` of the result, as JAX reads them: a spec tree mirrors
     its value, a single spec covers every leaf below it. Inputs are cut
-    by :func:`shard_leaf` (a ``data`` or ``model`` axis on any
-    dimension; ``PartitionSpec()`` whole); outputs with a named axis are
+    by :func:`shard_leaf` (any of the four axes on any dimension: a
+    ``pipe``-sharded stage stack arrives as this stage's ``(1, ...)``
+    slice, a ``context``-sharded sequence as this rank's block;
+    ``PartitionSpec()`` whole); outputs with a named axis are
     all-gathered by :func:`gather_leaf`, in mesh order, and
-    ``PartitionSpec()`` outputs are this rank's own. ``pipe`` and
-    ``context`` raise (A6.2). The JAX wrapper's ``check_vma`` /
+    ``PartitionSpec()`` outputs are this rank's own. The JAX wrapper's ``check_vma`` /
     ``check_rep`` have no meaning in processes and are accepted as they
     are."""
     unknown = set(kwargs) - {"check_vma", "check_rep"}
@@ -433,7 +426,9 @@ def get_context_parallel_group():
 
 def get_embedding_group():
     # the reference's {first, last} pipeline stage group; as in the JAX
-    # package, the pipe axis's group (callers mask to those stages)
+    # package (which returns the pipe axis's name), the pipe axis's
+    # group: the pipeline schedules sum the embed and head gradients
+    # over it, every stage holding the whole sum
     return _group(PIPE_AXIS)
 
 

@@ -30,7 +30,12 @@ in-place ``torch.distributed`` call on the device; on a gloo group a
 CUDA tensor is copied to the host, reduced or gathered there, and copied
 back (gloo's collectives take host tensors; two ranks on one card must
 use gloo, since NCCL refuses them). The bytes so staged, both ways, add
-to :data:`staged_bytes`.
+to :data:`staged_bytes`. Two more kinds serve the pipeline and context
+axes: a ring ``"shift"`` (``lax.ppermute`` by one step along the axis
+order) and a tiled ``"all_to_all"``; :func:`shift` and
+:func:`all_to_all` are their autograd forms, each with its inverse as
+the backward (the reverse shift; the all-to-all with the two axes
+swapped), as JAX transposes ``ppermute`` and ``all_to_all``.
 """
 
 import torch
@@ -52,7 +57,8 @@ def _staged(x: torch.Tensor, group) -> bool:
 
 
 def collective(kind: str, x: torch.Tensor, group, members, *, dim: int = 0,
-               op: str = "sum", src: int = 0) -> torch.Tensor:
+               op: str = "sum", src: int = 0, step: int = 1,
+               concat_dim: int = 0) -> torch.Tensor:
     """One collective over ``group`` whose ranks, in axis order, are the
     global ranks ``members``; returns a new tensor (``x`` is not
     changed):
@@ -63,12 +69,23 @@ def collective(kind: str, x: torch.Tensor, group, members, *, dim: int = 0,
     - ``"reduce_scatter"``: the sum over the group of ``x``, this
       rank's block along ``dim`` (block i to the member at axis index
       i);
-    - ``"broadcast"``: the ``x`` of the member at axis index ``src``.
+    - ``"broadcast"``: the ``x`` of the member at axis index ``src``;
+    - ``"shift"``: the ``x`` of the member ``step`` places before this
+      one in axis order, cyclically (this rank's ``x`` goes ``step``
+      places on): one ``isend`` and one ``irecv``, both waited on, so
+      every rank posts the same exchange; a group of one rank gives
+      ``x`` and posts nothing;
+    - ``"all_to_all"``: ``x`` cut into ``n`` blocks along ``dim``, block
+      i to the member at axis index i, the blocks received concatenated
+      along ``concat_dim`` in axis order (``lax.all_to_all(...,
+      tiled=True)``).
 
     A CUDA tensor on a gloo group is staged through host memory (counted
     in :data:`staged_bytes`)."""
     global staged_bytes
     n = len(members)
+    if kind == "shift" and n == 1:
+        return x.detach().clone()
     # the group's ranks are the members sorted; slot j of a collective's
     # list is the member at axis index order[j]
     order = [members.index(r) for r in sorted(members)]
@@ -101,6 +118,25 @@ def collective(kind: str, x: torch.Tensor, group, members, *, dim: int = 0,
         buf = torch.cat([blocks[i] for i in order])
         out = t.new_empty(blocks[0].shape)
         dist.reduce_scatter_tensor(out, buf, group=group)
+    elif kind == "shift":
+        me = members.index(dist.get_rank())
+        out = torch.empty_like(t)
+        reqs = [dist.isend(t, members[(me + step) % n], group=group),
+                dist.irecv(out, members[(me - step) % n], group=group)]
+        for req in reqs:
+            req.wait()
+    elif kind == "all_to_all":
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of size {t.shape[dim]} does "
+                             f"not split over {n} ranks")
+        blocks = t.chunk(n, dim=dim)
+        send = torch.stack([blocks[i] for i in order])
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        parts = [None] * n
+        for j, i in enumerate(order):
+            parts[i] = recv[j]
+        out = torch.cat(parts, dim=concat_dim)
     else:
         raise ValueError(f"unknown collective {kind!r}")
     if staged:
@@ -241,3 +277,64 @@ def gather_from_sequence_parallel_region(x, to_model_parallel: bool = True,
 def reduce_scatter_to_sequence_parallel_region(x, seq_dim: int = 0):
     """Reduce-scatter of the sequence dimension; all-gather backward."""
     return x if _tp_size() == 1 else _ReduceScatter.apply(x, seq_dim)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline and context axes: ring shifts and all-to-alls over any axis
+# ---------------------------------------------------------------------------
+
+def _axis(axis: str):
+    """(group, members) of this rank's line along a mesh axis."""
+    mesh = ps.get_mesh()
+    return mesh.groups[axis], mesh.members(axis)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, step):
+        ctx.axis, ctx.step = axis, step
+        group, members = _axis(axis)
+        return collective("shift", x, group, members, step=step)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, members = _axis(ctx.axis)
+        return collective("shift", g, group, members, step=-ctx.step), \
+            None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim):
+        ctx.axis, ctx.dims = axis, (split_dim, concat_dim)
+        group, members = _axis(axis)
+        return collective("all_to_all", x, group, members, dim=split_dim,
+                          concat_dim=concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        group, members = _axis(ctx.axis)
+        return collective("all_to_all", g, group, members, dim=concat_dim,
+                          concat_dim=split_dim), None, None, None
+
+
+def shift(x: torch.Tensor, axis: str, step: int) -> torch.Tensor:
+    """``lax.ppermute`` of ``x`` by ``step`` places along the mesh axis
+    ``axis`` (rank i's ``x`` to rank ``i + step``, cyclically); the
+    backward shifts the gradient back by ``-step``. The identity on an
+    axis of one rank."""
+    if ps.get_mesh().shape[axis] == 1:
+        return x
+    return _Shift.apply(x, axis, step)
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``;
+    the backward is the all-to-all with the two dimensions swapped. The
+    identity on an axis of one rank."""
+    if ps.get_mesh().shape[axis] == 1:
+        return x
+    split_dim, concat_dim = split_dim % x.dim(), concat_dim % x.dim()
+    return _AllToAll.apply(x, axis, split_dim, concat_dim)

@@ -4102,28 +4102,12 @@ def serve_rope(dev, kern):
     return out
 
 
-def gpt_times(dev):
-    """The GPT-medium step's kernels at its shapes (device ms per call,
-    CUDA-graph replays): the causal flash forward, dq and dk/dv at b 8,
-    h 16, s 1024, d 64 on RoPE'd q and k and a view v, against SDPA's
-    causal forward and backward; the cross entropy on (8192, 50304) bf16
-    against ``F.cross_entropy``; ``flat_adam`` on GPT-medium's flat
-    buffer against ``torch._fused_adamw_``. The LayerNorm's (8192,
-    1024) bf16 x, fp32 w is the BERT step's shape, timed above."""
-    from apex_tpu_torch.multi_tensor_apply.flatten import (
-        flatten_tensors, unflatten_tensors,
-    )
-    from apex_tpu_torch.multi_tensor_apply.kernels import adam_hparams
-    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
-    from apex_tpu_torch.utils.tree import tree_flatten
-
-    fa, xent = kernel_modules()[1:3]
-    mta = kernel_modules()[4]
-    phase("times at the GPT-medium step's shapes (batch 8, seq 1024; "
-          "device ms per call, CUDA-graph replays)")
-    gen = torch.Generator(device=dev).manual_seed(23)
-    res = {}
-    b, h, s, d = GPT_BATCH, 16, GPT_SEQ, 64
+def _flash_times(res, prefix, dev, b, h, s, d, what, gen=None):
+    """The causal flash forward, dq and dk/dv at (b, h, s, d) bf16 on
+    RoPE'd q and k and a view v (``res[prefix + "_fwd" | "_dq" |
+    "_dkv"]``), against SDPA's causal forward and backward."""
+    gen = gen or torch.Generator(device=dev).manual_seed(23)
+    fa = kernel_modules()[1]
     q, k, v = _gpt_qkv(gen, dev, b, h, s, d)
     do = _rand(gen, (b, s, h, d), torch.bfloat16, dev).transpose(1, 2)
     kw = dict(causal=True, scale=d ** -0.5, rate=0.0)
@@ -4144,21 +4128,21 @@ def gpt_times(dev):
     pairs = b * h * s * (s + 1) // 2
     qkvo = 4 * b * h * s * d * 2
     rowstats = 2 * b * h * s * 4
-    label = f"b{b} h{h} s{s} d{d} causal bf16, RoPE'd q, k and a view v"
-    _entry(res, "gpt_flash_fwd",
+    label = f"b{b} h{h} s{s} d{d} causal bf16, {what}"
+    _entry(res, f"{prefix}_fwd",
            time_ms(lambda: fa.attention_fwd_kernel(q, k, v, None, (0, 0),
                                                    **kw)),
            time_ms(lambda: fa.attention_fwd_plain(q, k, v, None, (0, 0),
                                                   **kw), reps=5, inner=3),
            t_lf, qkvo + b * h * s * 4, 4 * d * pairs, BF16_TC_FLOPS,
            f"flash fwd {label}", "scaled_dot_product_attention causal")
-    _entry(res, "gpt_flash_dq",
+    _entry(res, f"{prefix}_dq",
            time_ms(lambda: fa.attention_dq_kernel(q, k, v, None, do, lse,
                                                   delta, (0, 0), **kw)),
            t_pb, t_lfb - t_lf, qkvo + rowstats + b * h * s * d * 2,
            6 * d * pairs, BF16_TC_FLOPS, f"flash dq {label}",
            "sdpa causal backward (fwd+bwd - fwd; plain: whole backward)")
-    _entry(res, "gpt_flash_dkv",
+    _entry(res, f"{prefix}_dkv",
            time_ms(lambda: fa.attention_dkv_kernel(q, k, v, None, do, lse,
                                                    delta, (0, 0), **kw)),
            t_pb, t_lfb - t_lf, qkvo + rowstats + 2 * b * h * s * d * 2,
@@ -4166,6 +4150,32 @@ def gpt_times(dev):
            "sdpa causal backward (fwd+bwd - fwd; plain: whole backward)")
     del q, k, v, do, o, qc, kc, vc, doc
     torch.cuda.empty_cache()
+
+
+def gpt_times(dev):
+    """The GPT-medium step's kernels at its shapes (device ms per call,
+    CUDA-graph replays): the causal flash forward, dq and dk/dv at b 8,
+    h 16, s 1024, d 64 on RoPE'd q and k and a view v, against SDPA's
+    causal forward and backward; the cross entropy on (8192, 50304) bf16
+    against ``F.cross_entropy``; ``flat_adam`` on GPT-medium's flat
+    buffer against ``torch._fused_adamw_``. The LayerNorm's (8192,
+    1024) bf16 x, fp32 w is the BERT step's shape, timed above."""
+    from apex_tpu_torch.multi_tensor_apply.flatten import (
+        flatten_tensors, unflatten_tensors,
+    )
+    from apex_tpu_torch.multi_tensor_apply.kernels import adam_hparams
+    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+    from apex_tpu_torch.utils.tree import tree_flatten
+
+    xent = kernel_modules()[2]
+    mta = kernel_modules()[4]
+    phase("times at the GPT-medium step's shapes (batch 8, seq 1024; "
+          "device ms per call, CUDA-graph replays)")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    res = {}
+    b, s = GPT_BATCH, GPT_SEQ
+    _flash_times(res, "gpt_flash", dev, b, 16, s, 64,
+                 "RoPE'd q, k and a view v", gen)
     n, vv = b * s, 50304
     logits = _rand(gen, (n, vv), torch.bfloat16, dev, 3.0)
     labels = torch.randint(0, vv, (n,), generator=gen, device=dev)
@@ -5338,7 +5348,8 @@ def _ddp_rank(rank, tmp, port, device):
     """A rank of :func:`ddp_two_ranks` on ``device``: the default process
     group started here from a launcher's environment on gloo (NCCL
     refuses two ranks on one card), then the mesh over it, the BERT and
-    ResNet steps, results to ``tmp/rank<r>.json``."""
+    ResNet steps, results to ``tmp/rank<r>.json``; a barrier before the
+    groups go."""
     import os
 
     import torch.distributed as dist
@@ -5360,6 +5371,9 @@ def _ddp_rank(rank, tmp, port, device):
                "resnet": _ddp_resnet_rank(dev, rank)}
         with open(f"{tmp}/rank{rank}.json", "w") as f:
             json.dump(out, f)
+        # no rank tears its groups down while a peer may still be in
+        # its last collective
+        dist.barrier()
     finally:
         ps.destroy_model_parallel()
         dist.destroy_process_group()
@@ -5705,7 +5719,8 @@ def _tp_rank(rank, tmp, port, device):
     from a launcher's environment (NCCL refuses two ranks on one card),
     the mesh of ``TP_RANKS`` model ranks over it; (b) the GPT-medium
     steps with ``sequence_parallel`` off and on, then (c) the layers;
-    results to ``tmp/tp_rank<r>.json``."""
+    results to ``tmp/tp_rank<r>.json``; a barrier before the groups
+    go."""
     import datetime
     import os
 
@@ -5741,6 +5756,7 @@ def _tp_rank(rank, tmp, port, device):
         out["layers"], out["layer_sums"] = _tp_layers(dev)
         with open(f"{tmp}/tp_rank{rank}.json", "w") as fh:
             json.dump(out, fh)
+        dist.barrier()
     finally:
         ps.destroy_model_parallel()
         dist.destroy_process_group()
@@ -5850,6 +5866,653 @@ def tensor_parallelism(dev, kern):
     print(f"tensor parallelism phase: {secs:.1f} s on {card_line()}",
           flush=True)
     return {"tp1": one, "tp2": two, "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
+# 17. pipeline and context parallelism
+# ---------------------------------------------------------------------------
+
+PP_RANKS = 2          # two gloo ranks on the one card
+PP_STEPS = 2
+PP_RANK_TIMEOUT_S = 900
+PP_LAYERS, PP_BATCH, PP_MICRO, PP_SEQ, PP_HIDDEN = 24, 8, 2, 1024, 1024
+# pretrain_gpt.py's flags for GPT-medium's widths at seq 1024, global
+# batch 8 in microbatches of 2 (M 4)
+PP_ARGS = ["--num-layers", str(PP_LAYERS), "--hidden-size", str(PP_HIDDEN),
+           "--num-attention-heads", "16", "--padded-vocab-size", "50304",
+           "--seq-length", str(PP_SEQ), "--max-position-embeddings",
+           str(PP_SEQ), "--global-batch-size", str(PP_BATCH),
+           "--micro-batch-size", str(PP_MICRO), "--steps", str(PP_STEPS)]
+PP_RUNS = {"pp2": (2, None), "pp2_vpp2": (2, 2)}   # name -> (pp, vpp)
+CP_BATCH, CP_SEQ = 2, 2048
+ZERO_LR = 1e-4
+PP_MEASURED = ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
+               "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def pipeline_per_step_launches(L, pp, d, M):
+    """Exact launches of each kernel in one ``pretrain_gpt.py`` step on
+    pipeline stage ``d`` of ``pp`` (``L / pp`` layers, M microbatches;
+    pp 1 is the no-pipelining schedule): each microbatch's stage forward
+    runs twice (the forward without a graph, then the recompute from the
+    saved input in its backward; at pp 1 the checkpointed stage), 2
+    LayerNorms and one flash forward a layer each time, then 2 LayerNorm
+    backwards, one dq and one dk/dv a layer; the last stage adds the
+    final LayerNorm forward and backward once a microbatch. The loss is
+    the vocab-parallel cross entropy (plain ops) and the tree FusedAdam
+    launches nothing."""
+    per = L // pp
+    last = M if d == pp - 1 else 0
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    out.update(layer_norm_fwd=4 * per * M + last,
+               layer_norm_bwd=2 * per * M + last,
+               flash_attention_fwd=2 * per * M,
+               flash_attention_bwd_dq=per * M,
+               flash_attention_bwd_dkv=per * M)
+    return out
+
+
+def pretrain_main_launches(L, pp, d, M, steps):
+    """``pretrain_gpt.main``'s launches on stage ``d``: ``steps`` times
+    :func:`pipeline_per_step_launches`, and the threefry bits of its
+    draws, one launch a draw: the weights' (``init_gpt_from_key``: the
+    word and position tables and 4 kernels a layer) and each step's
+    batch (``randint``: two draws)."""
+    out = {n: steps * c for n, c in
+           pipeline_per_step_launches(L, pp, d, M).items()}
+    out["threefry_bits"] = 2 + 4 * L + 2 * steps
+    return out
+
+
+def cp_per_step_launches(L, impl):
+    """Exact launches in one loss-and-gradients of ``GPTModel(gpt_medium()
+    )`` with ``context_parallel`` on each rank: the tensor-parallel
+    step's (remat on, :func:`gpt_tp_per_step_launches`) over the rank's
+    block of the sequence; Ulysses' flash calls run over the whole
+    sequence on h/cp heads, and the ring launches no flash kernel (its
+    block is plain PyTorch, as in the JAX package)."""
+    out = gpt_tp_per_step_launches(L, True, False, False)
+    if impl == "ring":
+        out.update(flash_attention_fwd=0, flash_attention_bwd_dq=0,
+                   flash_attention_bwd_dkv=0)
+    return out
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _paths(tree, path=()):
+    """{path: leaf} of a dict tree."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_paths(tree[k], path + (k,)))
+        return out
+    return {path: tree}
+
+
+def _run_main(argv, kern):
+    """``pretrain_gpt.main(argv)`` with every count set to 0 just before
+    and read just after: (rc, printed text, launches, host-staged bytes,
+    wall seconds)."""
+    import contextlib
+    import io
+
+    from apex_tpu_torch.examples.gpt import pretrain_gpt
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+
+    buf = io.StringIO()
+    for k in kern.values():
+        k.launches = 0
+    mappings.staged_bytes = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = pretrain_gpt.main(argv)
+    secs = time.perf_counter() - t0
+    return (rc, buf.getvalue(), {n: k.launches for n, k in kern.items()},
+            mappings.staged_bytes, secs)
+
+
+def _step0(argv, dev):
+    """The script's step-0 loss and gradients (its ``Pretrain`` pieces on
+    the mesh its flags give), the seconds of that one loss-and-gradients
+    on the host's clock, and the ``Pretrain`` run."""
+    from apex_tpu_torch.examples.gpt import pretrain_gpt
+    from apex_tpu_torch.transformer.testing import arguments
+
+    ns = pretrain_gpt.parse_args(argv)
+    arguments.initialize_from_args(ns, device=dev)
+    run = pretrain_gpt.Pretrain(ns, dev)
+    batch = run.batch(0)
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss, grads = run.loss_and_grads(run.params, batch)
+    _sync(dev)
+    return float(loss), grads, time.perf_counter() - t0, run
+
+
+def pp_world_one(dev, kern, tmp):
+    """(b) ``pretrain_gpt.py`` at pp 1 on an NCCL world of one, the
+    reference's path through the schedules (no pipelining): ``PP_STEPS``
+    steps, exact launches a step; then the step-0 loss and gradients of
+    the same pieces, saved to ``tmp`` as the unsharded reference of
+    (a)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.utils.tree import tree_map
+
+    M = PP_BATCH // PP_MICRO
+    phase(f"pipeline (b): pretrain_gpt.py at pp 1 on an NCCL world of one, "
+          f"GPT-medium widths ({PP_LAYERS} layers, h 1024, 16 heads, vocab "
+          f"50304), seq 1024, global batch {PP_BATCH} in {M} microbatches, "
+          f"fp32, {PP_STEPS} steps")
+    rc, text, launches, _, secs = _run_main(PP_ARGS, kern)
+    print(text, end="", flush=True)
+    losses = [float(ln.split()[3]) for ln in text.splitlines()
+              if ln.startswith("step ")]
+    check(rc == 0 and text.startswith("mesh: dp=1 tp=1 pp=1")
+          and text.strip().endswith("DONE") and len(losses) == PP_STEPS
+          and all(np.isfinite(losses)),
+          f"pp 1: mesh dp=1 tp=1 pp=1, {len(losses)} finite losses, DONE")
+    per = pipeline_per_step_launches(PP_LAYERS, 1, 0, M)
+    want = pretrain_main_launches(PP_LAYERS, 1, 0, M, PP_STEPS)
+    check(launches == want,
+          f"pp 1: launches a step exactly "
+          f"{ {n: c for n, c in per.items() if c} }, and "
+          f"{want['threefry_bits']} threefry draws "
+          f"({ {n: c for n, c in launches.items() if c} } over {PP_STEPS} "
+          "steps)")
+    try:
+        loss0, grads, t_grads, _ = _step0(PP_ARGS, dev)
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "the step-0 reference on an NCCL world of one")
+        torch.save({"loss": loss0, "grads": tree_map(lambda t: t.cpu(),
+                                                     grads)},
+                   f"{tmp}/pp1_step0.pt")
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+    check(abs(loss0 - losses[0]) <= 1e-6 * abs(losses[0]),
+          f"the pieces' step-0 loss {loss0:.6f} is the script's "
+          f"{losses[0]:.6f}")
+    print(f"smoke reading, not a benchmark: pp 1 main() {secs:.1f} s for "
+          f"{PP_STEPS} steps with set-up; one loss-and-gradients "
+          f"{t_grads * 1e3:.1f} ms", flush=True)
+    del grads
+    torch.cuda.empty_cache()
+    return {"losses": losses, "loss0": loss0, "launches": launches,
+            "main_s": secs, "fwd_bwd_ms": t_grads * 1e3}
+
+
+def _pp_grad_sums(grads, ref, pp, vpp, d, rank):
+    """{leaf: [sum (got - want)^2, sum want^2]} of this stage's gradient
+    blocks against the pp-1 reference's matching blocks (the embed and
+    head leaves, whole on every stage, on rank 0 only)."""
+    want = _paths(ref)
+    out = {}
+    for path, g in _paths(grads).items():
+        w = want[path]
+        if path[0] == "stages":
+            w = w[0]                                   # (L, ...)
+            rest = tuple(w.shape[1:])
+            if vpp is None:
+                w = w.reshape((pp, PP_LAYERS // pp) + rest)[d:d + 1]
+            else:
+                w = w.reshape((vpp, pp, PP_LAYERS // (pp * vpp))
+                              + rest)[:, d:d + 1]
+        elif rank != 0:
+            continue
+        w = w.to(g.device).double()
+        out["/".join(path)] = [float(((g.double() - w) ** 2).sum()),
+                               float((w ** 2).sum())]
+    return out
+
+
+def _pp_run(dev, kern, name, rank, ref):
+    """(a) on this rank: ``pretrain_gpt.main`` at ``PP_RUNS[name]``; then
+    the step-0 loss and gradients of the same pieces against the pp-1
+    reference's."""
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    pp, vpp = PP_RUNS[name]
+    argv = PP_ARGS + ["--pipeline-model-parallel-size", str(pp)]
+    if vpp:
+        argv += ["--virtual-pipeline-model-parallel-size", str(vpp)]
+    rc, text, launches, staged, secs = _run_main(argv, kern)
+    try:
+        loss0, grads, t_grads, _ = _step0(argv, dev)
+        d = ps.get_pipeline_model_parallel_rank()
+        sums = _pp_grad_sums(grads, ref["grads"], pp, vpp, d, rank)
+    finally:
+        ps.destroy_model_parallel()
+    del grads
+    torch.cuda.empty_cache()
+    return dict(rc=rc, text=text, launches=launches, stage=d,
+                staged_bytes_per_step=staged / PP_STEPS, main_s=secs,
+                loss0=loss0, fwd_bwd_ms=t_grads * 1e3, grad_sums=sums)
+
+
+def _pp_memory(dev):
+    """(c) on this rank: the peak device memory of one loss-and-gradients
+    at pp 2, M 4 and M 8 (global batch 8 and 16, micro 2), and the
+    activations one microbatch's stage forward keeps for its backward
+    (the bound on the difference)."""
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.utils.tree import tree_map
+
+    out = {}
+    for M in (4, 8):
+        argv = PP_ARGS + ["--pipeline-model-parallel-size", "2",
+                          "--global-batch-size", str(M * PP_MICRO)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _, grads, _, run = _step0(argv, dev)
+            out[f"peak_m{M}"] = torch.cuda.max_memory_allocated()
+            del grads
+            if M == 4:
+                sp = tree_map(lambda a: a[0].detach().requires_grad_(True),
+                              run.params["stages"])
+                x = torch.zeros((PP_MICRO, PP_SEQ, PP_HIDDEN), device=dev,
+                                requires_grad=True)
+                _sync(dev)
+                before = torch.cuda.memory_allocated()
+                with torch.enable_grad():
+                    y = run.pipe_model.stage_fn(sp, x)
+                _sync(dev)
+                out["stage_activations"] = \
+                    torch.cuda.memory_allocated() - before
+                del y, sp, x
+        finally:
+            ps.destroy_model_parallel()
+        del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mean_over(tree, axis):
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+        collective,
+    )
+    from apex_tpu_torch.utils.tree import tree_map
+
+    mesh = ps.get_mesh()
+    n = mesh.shape[axis]
+    return tree_map(lambda g: collective(
+        "all_reduce", g, mesh.groups[axis], mesh.members(axis)) / n, tree)
+
+
+def _cp_cfg(impl=None):
+    import dataclasses
+
+    from apex_tpu_torch.models.gpt import gpt_medium
+
+    kw = dict(context_parallel=True, context_parallel_impl=impl) if impl \
+        else {}
+    return dataclasses.replace(gpt_medium(), use_rope=True, **kw)
+
+
+def _cp_unsharded(dev):
+    """(d)'s reference on rank 0: ``gpt_loss_unsharded`` and its
+    gradients at seq ``CP_SEQ`` (RoPE, remat, bf16 compute over fp32
+    params) on the run's weights and ids."""
+    from apex_tpu_torch.examples.gpt.train import (
+        synthetic_batch, value_and_grad,
+    )
+    from apex_tpu_torch.models.gpt import gpt_loss_unsharded, \
+        init_gpt_from_key
+    from apex_tpu_torch.utils import prng
+
+    cfg = _cp_cfg()
+    params = init_gpt_from_key(prng.PRNGKey(0), cfg, device=dev)
+    ids = synthetic_batch(0, CP_BATCH, CP_SEQ, cfg.vocab_size, dev)
+    loss, grads = value_and_grad(gpt_loss_unsharded)(
+        params, cfg, ids, ids, compute_dtype=torch.bfloat16)
+    return float(loss), grads
+
+
+def _cp_run(dev, kern, impl, rank, ref):
+    """(d) on this rank: ``GPTModel(gpt_medium())`` with
+    ``context_parallel`` (``impl``) at cp ``PP_RANKS``, its loss and
+    gradients (meaned over the context axis) inside shard_map on the ids
+    split on s, counts set to 0 before and read after; rank 0 holds them
+    to the unsharded ``ref``."""
+    from apex_tpu_torch.examples.gpt.train import (
+        synthetic_batch, value_and_grad,
+    )
+    from apex_tpu_torch.models.gpt import GPTModel, init_gpt_from_key
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+    from apex_tpu_torch.utils import prng
+
+    P = ps.PartitionSpec
+    cfg = _cp_cfg(impl)
+    ps.initialize_model_parallel(context_parallel_size_=PP_RANKS,
+                                 device=dev)
+    try:
+        model = GPTModel(cfg)
+        params = init_gpt_from_key(prng.PRNGKey(0), cfg, device=dev)
+        ids = synthetic_batch(0, CP_BATCH, CP_SEQ, cfg.vocab_size, dev)
+        vg = value_and_grad(lambda p, i, lab: model.loss(
+            p, i, lab, compute_dtype=torch.bfloat16))
+
+        def run(p, i, lab):
+            loss, grads = vg(p, i, lab)
+            return loss, _mean_over(grads, ps.CONTEXT_AXIS)
+
+        specs = model.partition_specs()
+        seq = P(None, ps.CONTEXT_AXIS)
+        for k in kern.values():
+            k.launches = 0
+        mappings.staged_bytes = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, grads = ps.shard_map(run, in_specs=(specs, seq, seq),
+                                   out_specs=(P(), specs))(params, ids, ids)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kern.items()}
+        out = dict(loss=float(loss).hex(), launches=launches,
+                   staged_bytes=mappings.staged_bytes, step_ms=secs * 1e3,
+                   grads_checksum=_checksum(grads))
+        if ref is not None:
+            loss_u, grads_u = ref
+            out["vs_unsharded"] = dict(
+                loss=abs(float(loss) - loss_u) / abs(loss_u),
+                grads=_relnorm(grads, grads_u))
+    finally:
+        ps.destroy_model_parallel()
+    del grads, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zero_run(dev, rank):
+    """(e) on this rank: one ``DistributedFusedAdam`` step at dp
+    ``PP_RANKS`` on GPT-medium's params (each rank's own seeded
+    gradients), rank 0 holding the new params to ``FusedAdam`` on the
+    ranks' mean gradient (the reference's 2e-5 relative, 1e-6
+    absolute); the state's bytes a device at dp 2 and at dp 1."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt_from_key
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+    from apex_tpu_torch.utils import prng
+    from apex_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    P = ps.PartitionSpec
+    ps.initialize_model_parallel(device=dev)
+    try:
+        params = init_gpt_from_key(prng.PRNGKey(0), gpt_medium(), device=dev)
+
+        def grads_of(r):
+            gen = torch.Generator(device=dev).manual_seed(100 + r)
+            return tree_map(lambda p: torch.randn(
+                p.shape, generator=gen, device=dev) * 1e-3, params)
+
+        opt = DistributedFusedAdam(lr=ZERO_LR, weight_decay=0.01)
+        st = opt.init(params)
+        sspec = opt.partition_spec()
+        mappings.staged_bytes = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        new_p, new_st = ps.shard_map(
+            lambda g, p, s: opt.step(g, p, s),
+            in_specs=(P(), P(), sspec), out_specs=(P(), P()))(
+            grads_of(rank), params, st)
+        _sync(dev)
+        out = dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                   staged_bytes=mappings.staged_bytes,
+                   rows=list(new_st.m.shape), full_rows=list(st.m.shape),
+                   state_bytes_dp2=opt.state_bytes_per_device(params),
+                   state_bytes_dp1=DistributedFusedAdam(
+                       dp_size=1).state_bytes_per_device(params),
+                   params_checksum=_checksum(new_p))
+        del st, new_st
+        if rank == 0:
+            mean = tree_map(lambda a, b: (a + b) * 0.5, grads_of(0),
+                            grads_of(1))
+            ref = FusedAdam(lr=ZERO_LR, weight_decay=0.01)
+            want, _ = ref.step(mean, params, ref.init(params))
+            # the reference's allclose(rtol 2e-5, atol 1e-6) as one
+            # number: the largest |got - want| - 2e-5 |want|
+            out["excess"] = max(float(((g - w).abs() - 2e-5 * w.abs()).max())
+                                for g, w in zip(tree_leaves(new_p),
+                                                tree_leaves(want)))
+            out["max_abs"] = max(float((g - w).abs().max()) for g, w in
+                                 zip(tree_leaves(new_p), tree_leaves(want)))
+    finally:
+        ps.destroy_model_parallel()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_rank(rank, tmp, port, device):
+    """A rank of :func:`pp_cp_two_ranks`: the default process group on
+    gloo from a launcher's environment (NCCL refuses two ranks on one
+    card); (a) the two pipeline runs, (c) the memory, (d) ring and
+    Ulysses, (e) ZeRO; results to ``tmp/pp_rank<r>.json``; a barrier
+    before the groups go."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(PP_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method="env://",
+        timeout=datetime.timedelta(seconds=PP_RANK_TIMEOUT_S))
+    try:
+        kern = kernel_counters()
+        out = {"backend": dist.get_backend()}
+        ref = torch.load(f"{tmp}/pp1_step0.pt", mmap=True)
+        for name in PP_RUNS:
+            out[name] = _pp_run(dev, kern, name, rank, ref)
+        del ref
+        out["memory"] = _pp_memory(dev)
+        unsharded = _cp_unsharded(dev) if rank == 0 else None
+        for impl in ("ring", "ulysses"):
+            out[f"cp_{impl}"] = _cp_run(dev, kern, impl, rank, unsharded)
+        del unsharded
+        torch.cuda.empty_cache()
+        out["zero"] = _zero_run(dev, rank)
+        with open(f"{tmp}/pp_rank{rank}.json", "w") as fh:
+            json.dump(out, fh)
+        dist.barrier()
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+
+
+def pp_cp_two_ranks(dev, one, tmp):
+    """(a), (c), (d) and (e) on ``PP_RANKS`` spawned gloo ranks on the
+    card (the model and its kernels on the card, every exchange staged
+    through the host)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    M = PP_BATCH // PP_MICRO
+    lim = STEP_LIMITS["O2"]
+    glim = GPT_STEP_LIMITS["O2"]
+    phase(f"pipeline and context parallelism (a, c, d, e): two gloo ranks "
+          f"on the card (host-staged exchanges): pretrain_gpt.py at pp 2 "
+          f"and at pp 2 with vpp 2 ({PP_STEPS} steps, M {M}), bounds: the "
+          f"step-0 loss {lim['loss']:g} relative and gradients "
+          f"{lim['grads']:g} in relative norm against (b); peak memory at M "
+          f"4 and M 8 within one microbatch's stage activations; GPTModel "
+          f"with context_parallel at cp 2, seq {CP_SEQ}, RoPE, bf16 compute, "
+          f"ring and Ulysses, against gpt_loss_unsharded (loss "
+          f"{glim['loss']:g}, gradients {glim['grads']:g}); "
+          f"DistributedFusedAdam at dp 2 on GPT-medium's params against "
+          "FusedAdam (2e-5 relative, 1e-6 absolute)")
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.spawn(_pp_rank, args=(tmp, port, str(dev)), nprocs=PP_RANKS,
+                   join=False)
+    deadline = time.monotonic() + PP_RANK_TIMEOUT_S
+    while True:
+        try:
+            if ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+                break
+        except mp.ProcessExitedException as e:
+            check(False, f"pipeline ranks: rank {e.error_index} died "
+                  f"({e.signal_name or f'exit code {e.exit_code}'})")
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.terminate()
+            check(False, f"the two ranks finished within "
+                  f"{PP_RANK_TIMEOUT_S} s")
+    res = []
+    for r in range(PP_RANKS):
+        with open(f"{tmp}/pp_rank{r}.json") as fh:
+            res.append(json.load(fh))
+    check(all(r["backend"] == "gloo" for r in res), "two gloo ranks")
+    out = {}
+    for name, (pp, vpp) in PP_RUNS.items():
+        recs = [r[name] for r in res]
+        text = recs[0]["text"]
+        losses = [float(ln.split()[3]) for ln in text.splitlines()
+                  if ln.startswith("step ")]
+        check(all(r["rc"] == 0 for r in recs)
+              and text.startswith(f"mesh: dp=1 tp=1 pp={pp}")
+              and text.strip().endswith("DONE") and recs[1]["text"] == ""
+              and len(losses) == PP_STEPS and all(np.isfinite(losses)),
+              f"{name}: main() on both ranks, mesh dp=1 tp=1 pp={pp}, "
+              f"losses {losses}, DONE")
+        for r in recs:
+            per = pipeline_per_step_launches(PP_LAYERS, pp, r["stage"], M)
+            want = pretrain_main_launches(PP_LAYERS, pp, r["stage"], M,
+                                          PP_STEPS)
+            check(r["launches"] == want,
+                  f"{name}: stage {r['stage']} launches a step exactly "
+                  f"{ {n: c for n, c in per.items() if c} }, and "
+                  f"{want['threefry_bits']} threefry draws "
+                  f"({ {n: c for n, c in r['launches'].items() if c} } "
+                  f"over {PP_STEPS} steps)")
+        d_loss = abs(losses[0] - one["losses"][0]) / abs(one["losses"][0])
+        check(d_loss <= lim["loss"], f"{name}: printed step-0 loss "
+              f"{losses[0]:.6f} vs pp 1's {one['losses'][0]:.6f}: "
+              f"{d_loss:.3g} <= {lim['loss']:g} (relative)")
+        check(recs[0]["loss0"] == recs[1]["loss0"],
+              f"{name}: the ranks' step-0 losses equal bit for bit")
+        sums = {}
+        for r in recs:
+            for k, (e, w) in r["grad_sums"].items():
+                s = sums.setdefault(k, [0.0, 0.0])
+                s[0] += e
+                s[1] += w
+        worst = max(math.sqrt(e / w) if w > 0 else math.sqrt(e)
+                    for e, w in sums.values())
+        check(worst <= lim["grads"], f"{name}: step-0 gradients vs pp 1's "
+              f"(relative norm, worst leaf) {worst:.3g} <= "
+              f"{lim['grads']:g}")
+        staged = [r["staged_bytes_per_step"] for r in recs]
+        print(f"host-staged reading (gloo over the host, not a pipeline "
+              f"speed): {name} main() {[round(r['main_s'], 1) for r in recs]}"
+              f" s for {PP_STEPS} steps with set-up, one loss-and-gradients "
+              f"{[round(r['fwd_bwd_ms'], 1) for r in recs]} ms on the two "
+              f"ranks; host-staged bytes a step {[int(x) for x in staged]}",
+              flush=True)
+        out[name] = dict(losses=losses, loss0_vs_pp1=d_loss,
+                         grads_vs_pp1=worst, staged_bytes_per_step=staged,
+                         main_s=[r["main_s"] for r in recs],
+                         fwd_bwd_ms=[r["fwd_bwd_ms"] for r in recs],
+                         launches=[r["launches"] for r in recs],
+                         launches_per_step=[
+                             {n: c // PP_STEPS for n, c in r["launches"].items()
+                              if c and n in PP_MEASURED} for r in recs])
+    mem = res[0]["memory"]
+    grow = mem["peak_m8"] - mem["peak_m4"]
+    check(grow <= mem["stage_activations"],
+          f"memory: rank 0's peak at M 8 {mem['peak_m8']} B vs M 4 "
+          f"{mem['peak_m4']} B: {grow} B <= one microbatch's stage "
+          f"activations {mem['stage_activations']} B")
+    out["memory"] = [r["memory"] for r in res]
+    for impl in ("ring", "ulysses"):
+        recs = [r[f"cp_{impl}"] for r in res]
+        per = cp_per_step_launches(PP_LAYERS, impl)
+        check(all(r["launches"] == per for r in recs),
+              f"cp {impl}: launches on each rank exactly "
+              f"{ {n: c for n, c in per.items() if c} } "
+              f"({[{n: c for n, c in r['launches'].items() if c}
+                   for r in recs]})")
+        check(recs[0]["loss"] == recs[1]["loss"]
+              and recs[0]["grads_checksum"] == recs[1]["grads_checksum"],
+              f"cp {impl}: the ranks' loss and meaned gradients equal")
+        vs = recs[0]["vs_unsharded"]
+        check(vs["loss"] <= glim["loss"] and vs["grads"] <= glim["grads"],
+              f"cp {impl} vs gpt_loss_unsharded at seq {CP_SEQ}: loss "
+              f"{vs['loss']:.3g} <= {glim['loss']:g} (relative), gradients "
+              f"{vs['grads']:.3g} <= {glim['grads']:g} (relative norm)")
+        print(f"host-staged reading: cp {impl} loss-and-gradients "
+              f"{[round(r['step_ms'], 1) for r in recs]} ms on the two "
+              f"ranks; host-staged bytes {[r['staged_bytes'] for r in recs]}",
+              flush=True)
+        out[f"cp_{impl}"] = dict(
+            vs_unsharded=vs, step_ms=[r["step_ms"] for r in recs],
+            staged_bytes=[r["staged_bytes"] for r in recs],
+            launches=[r["launches"] for r in recs],
+            loss=float.fromhex(recs[0]["loss"]))
+    z = [r["zero"] for r in res]
+    check(z[0]["params_checksum"] == z[1]["params_checksum"],
+          "ZeRO: the ranks' gathered params equal")
+    check(z[0]["excess"] <= 1e-6, f"ZeRO step vs FusedAdam on the mean "
+          f"gradient: max(|got - want| - 2e-5 |want|) {z[0]['excess']:.3g} "
+          f"<= 1e-6 (max |got - want| {z[0]['max_abs']:.3g})")
+    check(z[0]["state_bytes_dp2"] * PP_RANKS == z[0]["state_bytes_dp1"]
+          and z[0]["rows"][0] * PP_RANKS == z[0]["full_rows"][0],
+          f"ZeRO: state_bytes_per_device {z[0]['state_bytes_dp2']} at dp 2, "
+          f"{z[0]['state_bytes_dp1']} at dp 1 (halved); this rank's rows "
+          f"{z[0]['rows']} of {z[0]['full_rows']}")
+    print(f"host-staged reading: ZeRO step {[round(r['step_ms'], 1) for r in z]}"
+          f" ms on the two ranks, host-staged bytes "
+          f"{[r['staged_bytes'] for r in z]}", flush=True)
+    out["zero"] = z
+    return out
+
+
+def pipeline_context_parallelism(dev, kern):
+    """Phase 17: (b) pp 1 on an NCCL world of one, then (a), (c), (d) and
+    (e) on two gloo ranks; the phase's seconds and the card's name and
+    power limit."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        one = pp_world_one(dev, kern, tmp)
+        two = pp_cp_two_ranks(dev, one, tmp)
+    secs = time.perf_counter() - t0
+    print(f"pipeline and context parallelism phase: {secs:.1f} s on "
+          f"{card_line()}", flush=True)
+    return {"pp1": one, **two, "seconds": secs}
+
+
+def ulysses_times(dev):
+    """The flash forward, dq and dk/dv at Ulysses' shape in
+    ``pipeline_context_parallelism`` (the whole sequence on h/cp heads:
+    b 2, h 8, s 2048, d 64, causal, bf16), as :func:`gpt_times` times
+    them at the GPT step's."""
+    phase("times of the flash kernels at the Ulysses shape (b 2, h 8, s "
+          "2048, d 64, causal bf16; device ms per call, CUDA-graph replays)")
+    res = {}
+    _flash_times(res, "ulysses_flash", dev, CP_BATCH, 16 // PP_RANKS,
+                 CP_SEQ, 64, "Ulysses' whole-sequence call")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -7217,6 +7880,7 @@ def main():
     ddp1 = ddp_world_one(dev, kern)
     ddp2 = ddp_two_ranks(dev)
     tpar = tensor_parallelism(dev, kern)
+    ppcp = pipeline_context_parallelism(dev, kern)
     pre = pretrain_defaults(dev)
     tm = times(dev)
     tm.update(train_times(dev))
@@ -7226,6 +7890,7 @@ def main():
     tm.update(sgd_family_times(dev))
     tm.update(threefry_times(dev))
     tm.update(gpt_times(dev))
+    tm.update(ulysses_times(dev))
     tm.update(paged_times(dev))
     tm.update(verify_times(dev))
     tm.update(chunk_times(dev))
@@ -7254,7 +7919,11 @@ def main():
                    "gpt_tp1": tpar["tp1"]["launches"][n],
                    **{f"gpt_tp2{'_sp' if k == 'sp' else ''}": sum(
                        r[n] for r in tpar["tp2"][k]["launches"])
-                      for k in ("no_sp", "sp")}}
+                      for k in ("no_sp", "sp")},
+                   "gpt_pp1_nccl": ppcp["pp1"]["launches"][n],
+                   **{f"gpt_{k}": sum(r[n] for r in ppcp[k]["launches"])
+                      for k in ("pp2", "pp2_vpp2", "cp_ring",
+                                "cp_ulysses")}}
                for n in kern}
     for name, res in gpt_big.items():
         for n in kern:
@@ -7476,6 +8145,11 @@ def main():
         kernels[KERNEL_NAMES.index(name)]["at_gpt_train"] = tm[key]
     kernels[KERNEL_NAMES.index("threefry_dropout")]["at_gpt_train"] = \
         tm["threefry_dropout_hidden"]
+    # Ulysses' whole-sequence flash calls (b 2, h 8, s 2048, d 64)
+    for name, key in (("flash_attention_fwd", "ulysses_flash_fwd"),
+                      ("flash_attention_bwd_dq", "ulysses_flash_dq"),
+                      ("flash_attention_bwd_dkv", "ulysses_flash_dkv")):
+        kernels[KERNEL_NAMES.index(name)]["at_ulysses"] = tm[key]
     for name in ("flat_adagrad", "flat_novograd"):
         kernels[KERNEL_NAMES.index(name)]["note"] = (
             "on no model path of the JAX package: driven through its "
@@ -7600,6 +8274,9 @@ def main():
     print(f"DDP world 1 (NCCL): {json.dumps(ddp1)}")
     print(f"DDP two gloo ranks on the card: {json.dumps(ddp2)}")
     print(f"tensor parallelism: {json.dumps(tpar)}")
+    for key in ("ulysses_flash_fwd", "ulysses_flash_dq", "ulysses_flash_dkv"):
+        print(f"{key}: {json.dumps(tm[key])}")
+    print(f"pipeline and context parallelism: {json.dumps(ppcp)}")
     phase("results")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

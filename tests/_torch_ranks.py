@@ -4,7 +4,13 @@ module) in ``world`` processes spawned with ``torch.multiprocessing``,
 one thread each, meeting through a file in ``tmp`` (no TCP port, so
 parallel test workers cannot clash), and returns each rank's result.
 The ranks import the test module again, so it imports no JAX at its
-top."""
+top.
+
+A rank that has saved its result waits at a barrier before the groups
+go: no rank tears its process groups down while a peer may still be
+inside its last collective (a gloo pair torn down under a peer's
+pending exchange aborts the process). A rank that dies fails the test
+with the job's name, the rank and its exit signal or code."""
 
 import datetime
 import os
@@ -29,9 +35,16 @@ def _rank_main(rank, world, tmp, job):
     try:
         out = job(rank, world, tmp)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+        dist.barrier()
     finally:
         ps.destroy_model_parallel()
         dist.destroy_process_group()
+
+
+def _end(ctx):
+    for p in ctx.processes:
+        if p.is_alive():
+            p.terminate()
 
 
 def spawn(job, world, tmp, timeout=300):
@@ -40,10 +53,22 @@ def spawn(job, world, tmp, timeout=300):
     ctx = mp.spawn(_rank_main, args=(world, str(tmp), job), nprocs=world,
                    join=False)
     deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+    while True:
+        try:
+            if ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+                break
+        except mp.ProcessExitedException as e:
+            _end(ctx)
+            how = f"signal {e.signal_name}" if e.signal_name \
+                else f"exit code {e.exit_code}"
+            pytest.fail(f"{job.__name__}: rank {e.error_index} of {world} "
+                        f"died ({how})")
+        except mp.ProcessRaisedException as e:
+            _end(ctx)
+            pytest.fail(f"{job.__name__}: rank {e.error_index} of {world} "
+                        f"raised:\n{e}")
         if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.terminate()
+            _end(ctx)
             pytest.fail(f"{job.__name__}: ranks did not finish in "
                         f"{timeout} s")
     return [torch.load(os.path.join(str(tmp), f"rank{r}.pt"))

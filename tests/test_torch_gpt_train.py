@@ -42,6 +42,7 @@ from apex_tpu_torch.examples.gpt.train import (
 from apex_tpu_torch.models import gpt as port_gpt
 from apex_tpu_torch.models._convert import params_from_jax
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.transformer.parallel_state import ParallelStateError
 from apex_tpu_torch.utils import prng
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -205,16 +206,13 @@ def test_unknown_remat_policy_raises_like_jax():
     ("context_parallel_impl", "ulysses"),
     ("gradient_accumulation_fusion", True)])
 def test_parallel_fields_raise_naming_a6(field, value):
-    """The context-parallel fields raise, naming A6.2; since the
-    tensor-parallel slice ``sequence_parallel`` and
-    ``gradient_accumulation_fusion`` build and run: the unsharded path
-    ignores them (as the JAX package's does), and ``GPTModel`` at tp 1 on
-    a world of one gives the unsharded loss."""
+    """The parallel fields build and run (the name is kept from the
+    slices when the context-parallel ones raised, naming A6.2): the
+    unsharded path ignores them, as the JAX package's does, and
+    ``GPTModel`` on a world of one (tp 1, cp 1: the ring over one block,
+    or Ulysses' identity all-to-alls around flash) gives the unsharded
+    loss."""
     cfg = dataclasses.replace(port_gpt.gpt_tiny(), **{field: value})
-    if field.startswith("context_parallel"):
-        with pytest.raises(NotImplementedError, match=f"{field}.*A6.2"):
-            port_gpt.init_gpt(cfg, torch.Generator(), device="cpu")
-        return
     params = port_gpt.init_gpt(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
     ids = synthetic_batch(0, B, S, cfg.vocab_size, "cpu")
@@ -407,9 +405,24 @@ def test_pretrain_gpt_matches_the_reference_cli(capsys, micro):
     ["--pipeline-model-parallel-size", "2"],
     ["--context-parallel-size", "2"], ["--sequence-parallel"],
     ["--use-distributed-optimizer"]])
-def test_pretrain_gpt_parallel_flags_exit_naming_a6(flag):
-    with pytest.raises(SystemExit, match="A6"):
-        pretrain_gpt.main(flag + ["--device", "cpu"])
+def test_pretrain_gpt_parallel_flags_exit_naming_a6(flag, capsys):
+    """The parallel flags on a world of one (the name is kept from the
+    slices when each stopped the script, naming A6.2; the runs on two
+    ranks are ``tests/test_torch_testing_rig.py``'s): a degree above 1
+    is refused by the mesh, as the reference's is (the world does not
+    split); sequence parallelism and ZeRO at one rank print the
+    reference's step 0 loss."""
+    argv = flag + ["--device", "cpu", "--steps", "1"]
+    if len(flag) == 2:
+        with pytest.raises(ParallelStateError, match="not divisible by "
+                           "tp\\*pp\\*cp"):
+            pretrain_gpt.main(argv)
+        assert not torch.distributed.is_initialized()
+        return
+    assert pretrain_gpt.main(argv) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "mesh: dp=1 tp=1 pp=1" and lines[-1] == "DONE"
+    assert abs(float(lines[1].split()[3]) - 6.241142) <= 1e-5
 
 
 def test_synthetic_batch_is_jax_randint():

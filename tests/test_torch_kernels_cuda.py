@@ -2554,6 +2554,83 @@ def test_tensor_parallel_collectives_stage_only_on_gloo(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_pipe_and_context_collectives_on_a_world_of_one(cuda_device,
+                                                       backend):
+    """The pipeline's and context parallelism's two kinds on a world of
+    one over CUDA tensors: a ring shift over a group of one is the
+    identity and posts nothing (no bytes staged); the tiled all-to-all
+    returns the member's own values on the card, staged through the host
+    on gloo only."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+
+    assert not dist.is_initialized()
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        x = torch.arange(24.0, device=cuda_device).reshape(2, 3, 4)
+        mappings.staged_bytes = 0
+        got = mappings.collective("shift", x, group, [0], step=1)
+        assert got.device == x.device and torch.equal(got, x)
+        assert mappings.staged_bytes == 0
+        got = mappings.collective("all_to_all", x, group, [0], dim=2,
+                                  concat_dim=1)
+        assert got.device == x.device and torch.equal(got, x)
+        want = 2 * x.numel() * x.element_size() if backend == "gloo" else 0
+        assert mappings.staged_bytes == want
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_context_parallel_at_cp1_on_the_card(cuda_device):
+    """Ring and Ulysses attention on a context axis of one (an NCCL world
+    of one), bf16 q, k, v on the card: Ulysses' all-to-alls are the
+    identity around the flash kernel, so its output is the kernel's bit
+    for bit (one flash launch); the ring's fp32 block (plain PyTorch, no
+    kernel) is within a bf16 rounding of the float64 attention."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.context_parallel import (
+        ring_attention, ulysses_attention,
+    )
+    from apex_tpu_torch.transformer.functional import flash_attention
+
+    fa = importlib.import_module(
+        "apex_tpu_torch.transformer.functional.flash_attention")
+    ps.initialize_model_parallel(device=cuda_device)
+    try:
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        q, k, v = (torch.randn((2, 4, 256, 64), generator=gen,
+                               device=cuda_device).to(torch.bfloat16)
+                   for _ in range(3))
+        want = flash_attention(q, k, v, causal=True)
+        before = fa.FLASH_FWD.launches
+        got = ulysses_attention(q, k, v, causal=True)
+        assert fa.FLASH_FWD.launches == before + 1
+        assert torch.equal(got, want)
+        ring = ring_attention(q, k, v, causal=True)
+        assert fa.FLASH_FWD.launches == before + 1
+        s = torch.matmul(q.double(), k.double().transpose(-1, -2)) / 8.0
+        s = s.masked_fill(torch.ones(256, 256, dtype=torch.bool,
+                                     device=cuda_device).triu(1),
+                          float("-inf"))
+        ref = torch.matmul(torch.softmax(s, -1), v.double())
+        err = float((ring.double() - ref).abs().max())
+        assert ring.dtype == torch.bfloat16 and err <= 2.0 ** -8 * float(
+            ref.abs().max())
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 def test_gpt_model_at_tp1_is_the_unsharded_model(cuda_device):
     """``GPTModel`` at tp 1 on an NCCL world of one (every region the
     identity), bf16 compute over fp32 params: the final hidden equals

@@ -566,15 +566,25 @@ def test_shard_map_slices_and_gathers(w2):
 
 @pytest.mark.parametrize("axis", [ps.PIPE_AXIS, ps.CONTEXT_AXIS])
 def test_shard_map_refuses_other_axes(axis):
-    """The data and model axes are ported (any dimension, spec trees);
-    pipe and context raise, naming A6.2, as an input or output spec."""
+    """The pipe and context axes are taken like data and model (the name
+    is kept from the slices when they raised, naming A6.2; their splits
+    over several ranks are ``tests/test_torch_pipeline_parallel.py``'s
+    and ``tests/test_torch_context_parallel.py``'s): on a world of one a
+    spec over either passes its value whole, as an input or an output;
+    an axis the mesh does not have is refused at the spec."""
     P = ps.PartitionSpec
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        ps.shard_map(lambda x: x, in_specs=P(None, axis),
-                     out_specs=P())(torch.zeros(2, 2))
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        ps.shard_map(lambda x: x, in_specs=P(),
-                     out_specs={"a": P(axis)})({"a": torch.zeros(2)})
+    ps.initialize_model_parallel(device="cpu")
+    try:
+        x = torch.arange(4.0).reshape(2, 2)
+        got = ps.shard_map(lambda x: {"a": x * 2}, in_specs=P(None, axis),
+                           out_specs={"a": P(axis)})(x)
+        assert torch.equal(got["a"], x * 2)
+        with pytest.raises(ps.ParallelStateError, match="unknown mesh axis"):
+            ps.shard_map(lambda x: x, in_specs=P(None, "pipes"),
+                         out_specs=P())(x)
+    finally:
+        ps.destroy_model_parallel()
+        torch.distributed.destroy_process_group()
 
 
 def test_initialize_model_parallel_world_of_one_on_cpu():

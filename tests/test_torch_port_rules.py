@@ -742,11 +742,6 @@ OWED = {
     "A4.5 the mesh transfer functions": [
         f"serving/{m}:{n}" for m in ("transfer.py", "__init__.py")
         for n in ("make_tile_transfer_fns", "make_reshard_extract_fn")],
-    "A6.2 pipeline and context parallelism": [
-        "models/gpt.py:gpt_to_pipeline_params",
-        "models/gpt.py:gpt_pipeline_partition_specs",
-        "models/gpt.py:gpt_pipeline_model",
-        "transformer/__init__.py:pipeline_parallel"],
 }
 
 # Names whose signature is the reference's (the scan sees no gap) but
@@ -760,10 +755,21 @@ DEPARTURES_IN_MEANING = {
     "transformer/parallel_state.py:shard_map":
         "runs f on this rank's shard in its own process: spec trees (a "
         "prefix of the arguments and of the result); inputs cut by this "
-        "rank's index on the data and model axes, on any dimension, "
-        "P() whole; outputs with a named axis all-gathered over its group "
-        "in mesh order, P() this rank's own; pipe and context raise, "
-        "naming A6.2",
+        "rank's index on each named axis (data, pipe, context, model), on "
+        "any dimension, P() whole; outputs with a named axis all-gathered "
+        "over its group in mesh order, P() this rank's own",
+    "transformer/pipeline_parallel/p2p_communication.py:"
+    "send_forward_recv_forward":
+        "one isend and one irecv a leaf over this rank's pipe group, both "
+        "waited on, not one ppermute of an SPMD program",
+    "transformer/pipeline_parallel/schedules.py:"
+    "forward_backward_pipelining_without_interleaving":
+        "runs this rank's stage in its own process: a bubble tick skips "
+        "its compute and still posts its exchanges, of zeros",
+    "contrib/optimizers/distributed_fused_adam.py:DistributedFusedAdam.step":
+        "the reduce-scatter of the gradients and the all-gather of the "
+        "master rows run over this rank's data group (torch.distributed), "
+        "not as psum_scatter and all_gather in an SPMD program",
     "partition/mesh.py:make_mesh":
         "devices= are global ranks of the default process group, not "
         "jax.Device objects",
@@ -812,12 +818,15 @@ DEPARTURES_IN_MEANING = {
 
 # Packages whose ``__init__`` exports are held to the reference's (the
 # packages of the slices since the data-parallel one, serving since its
-# fault tier, and the amp tier's; not transformer/amp, whose reference
+# fault tier, the amp tier's, and the pipeline, rig and ZeRO packages of
+# the pipeline- and context-parallel slice; not transformer/amp, whose reference
 # imports JAX's lax and axis_size there: its GradScaler is held by the
 # surface scan).
 EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer", "serving",
                   "amp", "fp16_utils", "mlp", "fused_dense", "partition",
-                  "transformer/tensor_parallel", "transformer/layers")
+                  "transformer/tensor_parallel", "transformer/layers",
+                  "transformer/pipeline_parallel", "transformer/testing",
+                  "contrib/optimizers")
 
 
 def _defines_names(path):
