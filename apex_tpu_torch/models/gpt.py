@@ -337,8 +337,8 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _mlp(lp, x, cfg, dense):
-    return dense(lp["fc2"], _gelu(dense(lp["fc1"], _ln(
+def _mlp(lp, x, cfg, fc1_fn, fc2_fn):
+    return fc2_fn(lp["fc2"], _gelu(fc1_fn(lp["fc1"], _ln(
         lp["ln2"], x, cfg.layer_norm_eps))))
 
 
@@ -403,24 +403,26 @@ def _decode_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
     return _verify_attention(q_k_v, k_cache, v_cache, pos, cfg, rope_freqs)
 
 
-def _block_prefill(lp, x, cfg, rope_freqs, key_mask, dense):
+def _block_prefill(lp, x, cfg, rope_freqs, key_mask, qkv_fn, out_fn, fc1_fn,
+                   fc2_fn):
     """:func:`_block` (no dropout) that also returns this layer's (k, v)
     tiles."""
     att, k, v = _prefill_attention(
-        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), cfg,
+        qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), cfg,
         rope_freqs, key_mask)
-    x = x + dense(lp["out"], att)
-    return x + _mlp(lp, x, cfg, dense), k, v
+    x = x + out_fn(lp["out"], att)
+    return x + _mlp(lp, x, cfg, fc1_fn, fc2_fn), k, v
 
 
-def _block_decode(lp, x, k_cache, v_cache, pos, cfg, rope_freqs, dense):
+def _block_decode(lp, x, k_cache, v_cache, pos, cfg, rope_freqs, qkv_fn,
+                  out_fn, fc1_fn, fc2_fn):
     """:func:`_block` against one layer's cache (updated in place): x is
     the (b, 1, h) new-token hidden."""
     att = _decode_attention(
-        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
+        qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
         v_cache, pos, cfg, rope_freqs)
-    x = x + dense(lp["out"], att)
-    return x + _mlp(lp, x, cfg, dense)
+    x = x + out_fn(lp["out"], att)
+    return x + _mlp(lp, x, cfg, fc1_fn, fc2_fn)
 
 
 def _q8_page_insert(pool, scale, pages, rows, new_row, rescale=True,
@@ -500,14 +502,15 @@ def _paged_decode_attention(q_k_v, k_pages, v_pages, block_tables, pos,
 
 
 def _block_decode_paged(lp, x, k_pages, v_pages, block_tables, pos, cfg,
-                        rope_freqs, dense, k_scale=None, v_scale=None):
+                        rope_freqs, qkv_fn, out_fn, fc1_fn, fc2_fn,
+                        k_scale=None, v_scale=None):
     """:func:`_block_decode` over one layer's paged pool (and an int8
     pool's scales)."""
     att = _paged_decode_attention(
-        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
+        qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
         v_pages, block_tables, pos, cfg, rope_freqs, k_scale, v_scale)
-    x = x + dense(lp["out"], att)
-    return x + _mlp(lp, x, cfg, dense)
+    x = x + out_fn(lp["out"], att)
+    return x + _mlp(lp, x, cfg, fc1_fn, fc2_fn)
 
 
 def _write_rows(cache, new, start):
@@ -560,13 +563,14 @@ def _verify_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
     return _cache_attention(q, k_cache, v_cache, vis, q_k_v.dtype)
 
 
-def _block_verify(lp, x, k_cache, v_cache, pos, cfg, rope_freqs, dense):
+def _block_verify(lp, x, k_cache, v_cache, pos, cfg, rope_freqs, qkv_fn,
+                  out_fn, fc1_fn, fc2_fn):
     """:func:`_block_decode` over k1 candidate positions at once."""
     att = _verify_attention(
-        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
+        qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
         v_cache, pos, cfg, rope_freqs)
-    x = x + dense(lp["out"], att)
-    return x + _mlp(lp, x, cfg, dense)
+    x = x + out_fn(lp["out"], att)
+    return x + _mlp(lp, x, cfg, fc1_fn, fc2_fn)
 
 
 def _tree_score_mask(pos, anc, s_max):
@@ -599,13 +603,13 @@ def _tree_verify_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _block_tree_verify(lp, x, k_cache, v_cache, pos, depth, anc, cfg,
-                       rope_freqs, dense):
+                       rope_freqs, qkv_fn, out_fn, fc1_fn, fc2_fn):
     """:func:`_block_verify` under the tree-attention mask."""
     att = _tree_verify_attention(
-        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
+        qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
         v_cache, pos, depth, anc, cfg, rope_freqs)
-    x = x + dense(lp["out"], att)
-    return x + _mlp(lp, x, cfg, dense)
+    x = x + out_fn(lp["out"], att)
+    return x + _mlp(lp, x, cfg, fc1_fn, fc2_fn)
 
 
 def _paged_write_window(k_pages, v_pages, block_tables, pos, k, v,
@@ -654,14 +658,15 @@ def _paged_verify_attention(q_k_v, k_pages, v_pages, block_tables, pos,
 
 
 def _block_verify_paged(lp, x, k_pages, v_pages, block_tables, pos, cfg,
-                        rope_freqs, dense, k_scale=None, v_scale=None):
+                        rope_freqs, qkv_fn, out_fn, fc1_fn, fc2_fn,
+                        k_scale=None, v_scale=None):
     """:func:`_block_verify` over one layer's paged pool (and an int8
     pool's scales: the JAX ``_block_verify_paged_q8``)."""
     att = _paged_verify_attention(
-        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
+        qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
         v_pages, block_tables, pos, cfg, rope_freqs, k_scale, v_scale)
-    x = x + dense(lp["out"], att)
-    return x + _mlp(lp, x, cfg, dense)
+    x = x + out_fn(lp["out"], att)
+    return x + _mlp(lp, x, cfg, fc1_fn, fc2_fn)
 
 
 def _paged_tree_verify_attention(q_k_v, k_pages, v_pages, block_tables,
@@ -687,13 +692,14 @@ def _paged_tree_verify_attention(q_k_v, k_pages, v_pages, block_tables,
 
 
 def _block_tree_verify_paged(lp, x, k_pages, v_pages, block_tables, pos,
-                             depth, anc, cfg, rope_freqs, dense):
+                             depth, anc, cfg, rope_freqs, qkv_fn, out_fn,
+                             fc1_fn, fc2_fn):
     """:func:`_block_tree_verify` over one layer's paged pool."""
     att = _paged_tree_verify_attention(
-        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
+        qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
         v_pages, block_tables, pos, depth, anc, cfg, rope_freqs)
-    x = x + dense(lp["out"], att)
-    return x + _mlp(lp, x, cfg, dense)
+    x = x + out_fn(lp["out"], att)
+    return x + _mlp(lp, x, cfg, fc1_fn, fc2_fn)
 
 
 def _chunk_prefill_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
@@ -725,13 +731,14 @@ def _chunk_prefill_attention(q_k_v: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _block_chunk_prefill(lp, x, k_cache, v_cache, slot, pos, cfg,
-                         rope_freqs, key_mask, dense):
+                         rope_freqs, key_mask, qkv_fn, out_fn, fc1_fn,
+                         fc2_fn):
     """:func:`_block_verify` for one slot's prompt chunk."""
     att = _chunk_prefill_attention(
-        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
+        qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_cache,
         v_cache, slot, pos, cfg, rope_freqs, key_mask)
-    x = x + dense(lp["out"], att)
-    return x + _mlp(lp, x, cfg, dense)
+    x = x + out_fn(lp["out"], att)
+    return x + _mlp(lp, x, cfg, fc1_fn, fc2_fn)
 
 
 def _paged_chunk_prefill_attention(q_k_v, k_pages, v_pages, write_pages,
@@ -774,14 +781,14 @@ def _paged_chunk_prefill_attention(q_k_v, k_pages, v_pages, write_pages,
 
 def _block_chunk_prefill_paged(lp, x, k_pages, v_pages, write_pages,
                                gather_row, pos, cfg, rope_freqs, key_mask,
-                               dense):
+                               qkv_fn, out_fn, fc1_fn, fc2_fn):
     """:func:`_block_verify` for one slot's prompt chunk over the paged
     pool."""
     att = _paged_chunk_prefill_attention(
-        dense(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
+        qkv_fn(lp["qkv"], _ln(lp["ln1"], x, cfg.layer_norm_eps)), k_pages,
         v_pages, write_pages, gather_row, pos, cfg, rope_freqs, key_mask)
-    x = x + dense(lp["out"], att)
-    return x + _mlp(lp, x, cfg, dense)
+    x = x + out_fn(lp["out"], att)
+    return x + _mlp(lp, x, cfg, fc1_fn, fc2_fn)
 
 
 def dense(p, x):

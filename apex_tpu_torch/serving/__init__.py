@@ -13,18 +13,25 @@ share, page quotas, priority preemption, SLOs; ``streaming.py``:
 per-token delivery), and the cross-replica tier (``transfer.py``: the
 verified page handoff ``PageTransfer`` and its device-to-device tier
 ``PageReshard``; ``router.py``: the disaggregated prefill/decode pair
-``DisaggregatedRouter`` and the N x M ``PoolRouter``). See
-``scheduler.py``."""
+``DisaggregatedRouter`` and the N x M ``PoolRouter``), and tensor-parallel
+serving (``decode.py``'s ``make_tp_*_fn`` steps on each rank's blocks of
+the params and the cache, the drafter over a mesh, the mesh transfer
+functions). See ``scheduler.py``."""
 
 from apex_tpu_torch.serving.cache import (  # noqa: F401
     KVCache, PagedKVCache, audit_block_tables, cache_partition_specs,
     init_cache, init_paged_cache, paged_cache_partition_specs,
 )
 from apex_tpu_torch.serving.decode import (  # noqa: F401
-    make_chunk_prefill_fn, make_copy_page_fn, make_decode_fn,
-    make_paged_chunk_prefill_fn, make_paged_decode_fn, make_paged_prefill_fn,
-    make_paged_tree_verify_fn, make_paged_verify_fn, make_prefill_fn,
-    make_tree_verify_fn, make_verify_fn,
+    gather_tp_cache, make_chunk_prefill_fn, make_copy_page_fn,
+    make_decode_fn, make_paged_chunk_prefill_fn, make_paged_decode_fn,
+    make_paged_prefill_fn, make_paged_tree_verify_fn, make_paged_verify_fn,
+    make_prefill_fn, make_tp_chunk_prefill_fn, make_tp_decode_fn,
+    make_tp_paged_chunk_prefill_fn, make_tp_paged_decode_fn,
+    make_tp_paged_prefill_fn, make_tp_paged_tree_verify_fn,
+    make_tp_paged_verify_fn, make_tp_prefill_fn, make_tp_tree_verify_fn,
+    make_tp_verify_fn, make_tree_verify_fn, make_verify_fn, shard_tp_cache,
+    shard_tp_params,
 )
 from apex_tpu_torch.serving.draft import ngram_draft, tree_arrays  # noqa: F401
 from apex_tpu_torch.serving.draft_model import DraftModel  # noqa: F401
@@ -66,5 +73,6 @@ from apex_tpu_torch.serving.tenancy import (  # noqa: F401
 from apex_tpu_torch.serving.transfer import (  # noqa: F401
     PageReshard, PageTransfer, make_extract_pages_fn,
     make_extract_pages_quant_fn, make_insert_pages_fn,
-    make_insert_pages_quant_fn, transfer_checksum,
+    make_insert_pages_quant_fn, make_reshard_extract_fn,
+    make_tile_transfer_fns, transfer_checksum,
 )

@@ -1,7 +1,8 @@
 """Prefill and single-token decode over the dense KV cache (counterpart
-of ``apex_tpu/serving/decode.py``; dense, unsharded). A weight-only int8
-tree (``quant.quantize_params``) runs the same steps with its linears,
-embedding lookup and tied logits head swapped for the w8 versions.
+of ``apex_tpu/serving/decode.py``), unsharded and tensor-parallel. A
+weight-only int8 tree (``quant.quantize_params``) runs the same steps
+with its linears, embedding lookup and tied logits head swapped for the
+w8 versions.
 
 - **prefill** runs the full forward once over one slot's bucket-padded
   prompt, writes that slot's K/V rows (pad tail zeroed) and length, and
@@ -46,6 +47,19 @@ all layers (copy-on-write), with its int8 scales.
   until the final chunk. The host spill tier prefills the suffix past
   its promoted pages with the same step.
 
+Each core takes four linears (qkv, out, fc1, fc2): the unsharded steps
+pass one linear four times. The tensor-parallel steps
+(``make_tp_*_fn``, the JAX package's ``jit(shard_map(...))`` builders)
+run the same cores in each rank's process over ``GPTModel``'s Column /
+Row / VocabParallel layers (their int8 twins with ``quantized``): heads,
+and the cache's head axis, split over the ``model`` axis; the logits
+leave through the vocab-parallel tied head and the rank-order gather,
+the whole (b, V) row on every rank; block tables, page ids, tree
+descriptors, slots, positions and masks are the same on every rank. A
+step takes this rank's block of the params (``shard_tp_params``) and of
+the cache (``shard_tp_cache``), cut once, and writes the cache block in
+place: a call moves no weight and no cache.
+
 The dense verify and chunk steps attend in plain PyTorch (XLA in the JAX
 package). The paged verify attends through ``paged_verify_attention``,
 one kernel launch a layer a slice of ``verify_slices`` on the card; the
@@ -54,22 +68,28 @@ layer of the chunk kernel for a bf16 chunk over a bf16 pool (an fp32
 chunk is a linear verify window of k1 = sc on the verify kernel).
 """
 
+from typing import Any, Dict
+
 import torch
 
 from apex_tpu_torch.models.gpt import (
-    GPTConfig, _block_chunk_prefill, _block_chunk_prefill_paged,
+    GPTConfig, GPTModel, _block_chunk_prefill, _block_chunk_prefill_paged,
     _block_decode, _block_decode_paged,
     _block_prefill, _block_tree_verify, _block_tree_verify_paged,
-    _block_verify, _block_verify_paged, _ln, _rope_or_none, _unstack,
-    check_config,
+    _block_verify, _block_verify_paged, _ln, _rope_or_none, _tied_lm_logits,
+    _unstack, check_config,
 )
 from apex_tpu_torch.models.gpt import dense as _dense
 from apex_tpu_torch.quant.kernels import kv_quantize, w8_matmul, w8_matmul_nk
-from apex_tpu_torch.serving.cache import KVCache, PagedKVCache
+from apex_tpu_torch.serving.cache import (
+    KVCache, PagedKVCache, cache_partition_specs, paged_cache_partition_specs,
+)
+from apex_tpu_torch.transformer import parallel_state as ps
+from apex_tpu_torch.transformer import tensor_parallel as tp
 
 
 def _prefill_core(params, cfg: GPTConfig, cache: KVCache, ids, mask,
-                  slot, *, embed_fn, dense_fn, logits_fn):
+                  slot, *, embed_fn, dense_fns, logits_fn):
     """ids (1, s_bucket) already bucket-padded; mask (s_bucket,) int32
     with 1 = real token; slot: cache row. Returns (cache, logits
     (1, V) fp32)."""
@@ -86,7 +106,7 @@ def _prefill_core(params, cfg: GPTConfig, cache: KVCache, ids, mask,
     key_mask = mask[None, :]
     mz = mask.to(x.dtype)[None, None, :, None]
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
-        x, k, v = _block_prefill(lp, x, cfg, freqs, key_mask, dense_fn)
+        x, k, v = _block_prefill(lp, x, cfg, freqs, key_mask, *dense_fns)
         # zero the pad tail before it enters the cache: the decode mask
         # never reaches rows past the length, and zeroed rows keep the
         # cache independent of pad ids
@@ -100,7 +120,7 @@ def _prefill_core(params, cfg: GPTConfig, cache: KVCache, ids, mask,
 
 
 def _decode_core(params, cfg: GPTConfig, cache: KVCache, tokens, active,
-                 *, embed_fn, dense_fn, logits_fn):
+                 *, embed_fn, dense_fns, logits_fn):
     """tokens (B,) — each slot's previous token; active (B,) bool gates
     the length advance. Returns (cache, logits (B, V) fp32)."""
     pos = cache.lengths.clone()
@@ -108,7 +128,7 @@ def _decode_core(params, cfg: GPTConfig, cache: KVCache, tokens, active,
     freqs = _rope_or_none(cfg, cache.k.shape[3], tokens.device)
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         x = _block_decode(lp, x, cache.k[i], cache.v[i], pos, cfg, freqs,
-                          dense_fn)
+                          *dense_fns)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
     logits = logits_fn(params, hidden[:, 0])
     cache.lengths.copy_(torch.where(active, pos + 1, pos))
@@ -117,7 +137,7 @@ def _decode_core(params, cfg: GPTConfig, cache: KVCache, tokens, active,
 
 def _paged_prefill_core(params, cfg: GPTConfig, cache: PagedKVCache, ids,
                         mask, slot, write_pages, table_row, *, embed_fn,
-                        dense_fn, logits_fn):
+                        dense_fns, logits_fn):
     """Bucketed prefill into the page pool: the forward of
     :func:`_prefill_core`; each layer's k/v tiles (pad tail zeroed) are
     cut into whole pages and scattered to ``write_pages`` (one physical
@@ -156,7 +176,7 @@ def _paged_prefill_core(params, cfg: GPTConfig, cache: PagedKVCache, ids,
         return t.transpose(0, 1)
 
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
-        x, k, v = _block_prefill(lp, x, cfg, freqs, key_mask, dense_fn)
+        x, k, v = _block_prefill(lp, x, cfg, freqs, key_mask, *dense_fns)
         if cache.k_scale is not None:
             kq, ks = kv_quantize(tiles(k))
             vq, vs = kv_quantize(tiles(v))
@@ -176,7 +196,7 @@ def _paged_prefill_core(params, cfg: GPTConfig, cache: PagedKVCache, ids,
 
 
 def _paged_decode_core(params, cfg: GPTConfig, cache: PagedKVCache,
-                       tokens, active, *, embed_fn, dense_fn, logits_fn):
+                       tokens, active, *, embed_fn, dense_fns, logits_fn):
     """One token for every slot against the page pool; the host has made
     every slot's write target exclusive (page-boundary allocation and
     copy-on-write in ``PagedDecodeEngine.prepare_decode``) before this
@@ -189,7 +209,7 @@ def _paged_decode_core(params, cfg: GPTConfig, cache: PagedKVCache,
     quant = cache.k_scale is not None
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         x = _block_decode_paged(lp, x, cache.k[i], cache.v[i], bt, pos, cfg,
-                                freqs, dense_fn,
+                                freqs, *dense_fns,
                                 cache.k_scale[i] if quant else None,
                                 cache.v_scale[i] if quant else None)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
@@ -199,7 +219,7 @@ def _paged_decode_core(params, cfg: GPTConfig, cache: PagedKVCache,
 
 
 def _verify_core(params, cfg: GPTConfig, cache: KVCache, tokens, *,
-                 embed_fn, dense_fn, logits_fn):
+                 embed_fn, dense_fns, logits_fn):
     """Speculative verify over the dense cache: tokens (B, k1) — column 0
     each slot's pending token, columns 1.. its drafts; row j sits at
     ``lengths + j``. Returns (cache, logits (B, k1, V) fp32); lengths are
@@ -209,13 +229,13 @@ def _verify_core(params, cfg: GPTConfig, cache: KVCache, tokens, *,
     freqs = _rope_or_none(cfg, cache.k.shape[3], tokens.device)
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         x = _block_verify(lp, x, cache.k[i], cache.v[i], pos, cfg, freqs,
-                          dense_fn)
+                          *dense_fns)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
     return cache, logits_fn(params, hidden)
 
 
 def _tree_verify_core(params, cfg: GPTConfig, cache: KVCache, tokens,
-                      depth, anc, *, embed_fn, dense_fn, logits_fn):
+                      depth, anc, *, embed_fn, dense_fns, logits_fn):
     """Tree verify over the dense cache: tokens (B, k1) in topological
     order (column 0 the pending token), depth (B, k1) node depths, anc
     (B, k1, k1) bool ancestor-or-self matrix. Node j's position is
@@ -227,13 +247,13 @@ def _tree_verify_core(params, cfg: GPTConfig, cache: KVCache, tokens,
     freqs = _rope_or_none(cfg, cache.k.shape[3], tokens.device)
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         x = _block_tree_verify(lp, x, cache.k[i], cache.v[i], pos, depth,
-                               anc, cfg, freqs, dense_fn)
+                               anc, cfg, freqs, *dense_fns)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
     return cache, logits_fn(params, hidden)
 
 
 def _paged_verify_core(params, cfg: GPTConfig, cache: PagedKVCache,
-                       tokens, *, embed_fn, dense_fn, logits_fn):
+                       tokens, *, embed_fn, dense_fns, logits_fn):
     """:func:`_verify_core` over the page pool; the host has made every
     page the k1 positions touch exclusive
     (``prepare_decode(..., n_new=k1)``). An int8 pool writes by the
@@ -247,7 +267,7 @@ def _paged_verify_core(params, cfg: GPTConfig, cache: PagedKVCache,
     quant = cache.k_scale is not None
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         x = _block_verify_paged(lp, x, cache.k[i], cache.v[i], bt, pos, cfg,
-                                freqs, dense_fn,
+                                freqs, *dense_fns,
                                 cache.k_scale[i] if quant else None,
                                 cache.v_scale[i] if quant else None)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
@@ -255,7 +275,7 @@ def _paged_verify_core(params, cfg: GPTConfig, cache: PagedKVCache,
 
 
 def _paged_tree_verify_core(params, cfg: GPTConfig, cache: PagedKVCache,
-                            tokens, depth, anc, *, embed_fn, dense_fn,
+                            tokens, depth, anc, *, embed_fn, dense_fns,
                             logits_fn):
     """:func:`_tree_verify_core` over the page pool (the exclusivity
     precondition of :func:`_paged_verify_core`). Refused for the int8
@@ -271,13 +291,13 @@ def _paged_tree_verify_core(params, cfg: GPTConfig, cache: PagedKVCache,
                           tokens.device)
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         x = _block_tree_verify_paged(lp, x, cache.k[i], cache.v[i], bt, pos,
-                                     depth, anc, cfg, freqs, dense_fn)
+                                     depth, anc, cfg, freqs, *dense_fns)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
     return cache, logits_fn(params, hidden)
 
 
 def _chunk_prefill_core(params, cfg: GPTConfig, cache: KVCache, ids, mask,
-                        slot, pos, *, embed_fn, dense_fn, logits_fn):
+                        slot, pos, *, embed_fn, dense_fns, logits_fn):
     """One prompt chunk of one slot into the dense cache: ids (1, sc)
     bucket-padded, mask (sc,) 1 = real token (all ones but on the final
     chunk), ``slot`` the cache row and ``pos`` the chunk's first
@@ -300,7 +320,7 @@ def _chunk_prefill_core(params, cfg: GPTConfig, cache: KVCache, ids, mask,
     key_mask = mask[None, :]
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         x = _block_chunk_prefill(lp, x, cache.k[i], cache.v[i], slot, pos,
-                                 cfg, freqs, key_mask, dense_fn)
+                                 cfg, freqs, key_mask, *dense_fns)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
     n_real = mask.sum().to(torch.int32)
     h_last = hidden.index_select(1, (n_real - 1).reshape(1).long())[:, 0]
@@ -311,7 +331,7 @@ def _chunk_prefill_core(params, cfg: GPTConfig, cache: KVCache, ids, mask,
 def _paged_chunk_prefill_core(params, cfg: GPTConfig,
                               cache: PagedKVCache, ids, mask, slot, pos,
                               write_pages, gather_row, store_row, *,
-                              embed_fn, dense_fn, logits_fn):
+                              embed_fn, dense_fns, logits_fn):
     """One page-aligned prompt chunk of one slot into the page pool:
     ids (1, sc) bucket-padded, mask (sc,) 1 = real token, ``pos`` the
     chunk's first position. The chunk's rows are written to
@@ -347,7 +367,7 @@ def _paged_chunk_prefill_core(params, cfg: GPTConfig,
     for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
         x = _block_chunk_prefill_paged(lp, x, cache.k[i], cache.v[i],
                                        write_pages, gather_row, pos, cfg,
-                                       freqs, key_mask, dense_fn)
+                                       freqs, key_mask, *dense_fns)
     hidden = _ln(params["final_ln"], x, cfg.layer_norm_eps)
     n_real = mask.sum().to(torch.int32)
     h_last = hidden.index_select(1, (n_real - 1).reshape(1).long())[:, 0]
@@ -425,9 +445,28 @@ def _logits_w8(params, hidden):
 
 
 def _unsharded_fns(cfg: GPTConfig, compute_dtype, quantized: bool):
+    """(embed, the four linears (qkv, out, fc1, fc2), logits) of the
+    unsharded steps: one linear four times."""
     if quantized:
-        return _embed_w8(cfg, compute_dtype), _dense_w8, _logits_w8
-    return _embed_unsharded(cfg, compute_dtype), _dense, _logits_unsharded
+        return (_embed_w8(cfg, compute_dtype), (_dense_w8,) * 4,
+                _logits_w8)
+    return (_embed_unsharded(cfg, compute_dtype), (_dense,) * 4,
+            _logits_unsharded)
+
+
+def _step(cfg: GPTConfig, core, fns, pool=None):
+    """``step(params, cache, *args)``: ``core`` with its (embed, the four
+    linears, logits) ``fns``; ``pool`` (an int8 pool expected or not)
+    checks the pool's kind first."""
+    embed, dense_fns, logits_fn = fns
+
+    def step(params, cache, *args):
+        if pool is not None:
+            _check_pool(cache, pool)
+        return core(params, cfg, cache, *args, embed_fn=embed,
+                    dense_fns=dense_fns, logits_fn=logits_fn)
+
+    return step
 
 
 def make_prefill_fn(cfg: GPTConfig, compute_dtype=None,
@@ -437,15 +476,8 @@ def make_prefill_fn(cfg: GPTConfig, compute_dtype=None,
     scheduler does) so prompts arrive at a few shapes. ``quantized``
     expects the weight-only int8 tree of ``quant.quantize_params``."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def prefill(params, cache, ids, mask, slot):
-        return _prefill_core(params, cfg, cache, ids, mask, slot,
-                             embed_fn=embed, dense_fn=dense_fn,
-                             logits_fn=logits_fn)
-
-    return prefill
+    return _step(cfg, _prefill_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_decode_fn(cfg: GPTConfig, compute_dtype=None,
@@ -453,15 +485,8 @@ def make_decode_fn(cfg: GPTConfig, compute_dtype=None,
     """``decode(params, cache, tokens, active) -> (cache, logits)``; the
     cache is updated in place and every slot advances together."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def decode(params, cache, tokens, active):
-        return _decode_core(params, cfg, cache, tokens, active,
-                            embed_fn=embed, dense_fn=dense_fn,
-                            logits_fn=logits_fn)
-
-    return decode
+    return _step(cfg, _decode_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_paged_prefill_fn(cfg: GPTConfig, compute_dtype=None,
@@ -469,15 +494,8 @@ def make_paged_prefill_fn(cfg: GPTConfig, compute_dtype=None,
     """``prefill(params, cache, ids, mask, slot, write_pages, table_row)
     -> (cache, logits)`` over the page pool, updated in place."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def prefill(params, cache, ids, mask, slot, write_pages, table_row):
-        return _paged_prefill_core(params, cfg, cache, ids, mask, slot,
-                                   write_pages, table_row, embed_fn=embed,
-                                   dense_fn=dense_fn, logits_fn=logits_fn)
-
-    return prefill
+    return _step(cfg, _paged_prefill_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_paged_decode_fn(cfg: GPTConfig, compute_dtype=None,
@@ -485,29 +503,16 @@ def make_paged_decode_fn(cfg: GPTConfig, compute_dtype=None,
     """``decode(params, cache, tokens, active) -> (cache, logits)`` over
     the page pool, updated in place."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def decode(params, cache, tokens, active):
-        return _paged_decode_core(params, cfg, cache, tokens, active,
-                                  embed_fn=embed, dense_fn=dense_fn,
-                                  logits_fn=logits_fn)
-
-    return decode
+    return _step(cfg, _paged_decode_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_verify_fn(cfg: GPTConfig, compute_dtype=None, quantized=False):
     """``verify(params, cache, tokens) -> (cache, logits (B, k1, V))``
     over the dense cache, updated in place; lengths are not advanced."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def verify(params, cache, tokens):
-        return _verify_core(params, cfg, cache, tokens, embed_fn=embed,
-                            dense_fn=dense_fn, logits_fn=logits_fn)
-
-    return verify
+    return _step(cfg, _verify_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_paged_verify_fn(cfg: GPTConfig, compute_dtype=None,
@@ -515,15 +520,8 @@ def make_paged_verify_fn(cfg: GPTConfig, compute_dtype=None,
     """``verify(params, cache, tokens) -> (cache, logits (B, k1, V))``
     over the page pool, updated in place."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def verify(params, cache, tokens):
-        return _paged_verify_core(params, cfg, cache, tokens,
-                                  embed_fn=embed, dense_fn=dense_fn,
-                                  logits_fn=logits_fn)
-
-    return verify
+    return _step(cfg, _paged_verify_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_tree_verify_fn(cfg: GPTConfig, compute_dtype=None,
@@ -531,15 +529,8 @@ def make_tree_verify_fn(cfg: GPTConfig, compute_dtype=None,
     """``verify(params, cache, tokens, depth, anc) -> (cache, logits
     (B, k1, V))`` over the dense cache (see :func:`_tree_verify_core`)."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def verify(params, cache, tokens, depth, anc):
-        return _tree_verify_core(params, cfg, cache, tokens, depth, anc,
-                                 embed_fn=embed, dense_fn=dense_fn,
-                                 logits_fn=logits_fn)
-
-    return verify
+    return _step(cfg, _tree_verify_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_paged_tree_verify_fn(cfg: GPTConfig, compute_dtype=None,
@@ -548,16 +539,8 @@ def make_paged_tree_verify_fn(cfg: GPTConfig, compute_dtype=None,
     over the page pool; an int8 pool raises the reference's
     ``ValueError``."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def verify(params, cache, tokens, depth, anc):
-        return _paged_tree_verify_core(params, cfg, cache, tokens, depth,
-                                       anc, embed_fn=embed,
-                                       dense_fn=dense_fn,
-                                       logits_fn=logits_fn)
-
-    return verify
+    return _step(cfg, _paged_tree_verify_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_chunk_prefill_fn(cfg: GPTConfig, compute_dtype=None,
@@ -567,15 +550,8 @@ def make_chunk_prefill_fn(cfg: GPTConfig, compute_dtype=None,
     :func:`_chunk_prefill_core`); the scheduler pads every chunk to one
     ``chunk_tokens`` bucket."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def chunk_prefill(params, cache, ids, mask, slot, pos):
-        return _chunk_prefill_core(params, cfg, cache, ids, mask, slot, pos,
-                                   embed_fn=embed, dense_fn=dense_fn,
-                                   logits_fn=logits_fn)
-
-    return chunk_prefill
+    return _step(cfg, _chunk_prefill_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_paged_chunk_prefill_fn(cfg: GPTConfig, compute_dtype=None,
@@ -584,17 +560,8 @@ def make_paged_chunk_prefill_fn(cfg: GPTConfig, compute_dtype=None,
     gather_row, store_row) -> (cache, logits)`` over the page pool,
     updated in place (see :func:`_paged_chunk_prefill_core`)."""
     check_config(cfg)
-    embed, dense_fn, logits_fn = _unsharded_fns(cfg, compute_dtype,
-                                                quantized)
-
-    def chunk_prefill(params, cache, ids, mask, slot, pos, write_pages,
-                      gather_row, store_row):
-        return _paged_chunk_prefill_core(
-            params, cfg, cache, ids, mask, slot, pos, write_pages,
-            gather_row, store_row, embed_fn=embed, dense_fn=dense_fn,
-            logits_fn=logits_fn)
-
-    return chunk_prefill
+    return _step(cfg, _paged_chunk_prefill_core,
+                 _unsharded_fns(cfg, compute_dtype, quantized))
 
 
 def make_copy_page_fn():
@@ -614,3 +581,229 @@ def make_copy_page_fn():
         return cache
 
     return copy
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel builders: heads (and the cache's head axis) over ``model``
+# ---------------------------------------------------------------------------
+
+def _tp_fns(model: GPTModel):
+    """(embed, the four linears, logits) of the tensor-parallel steps:
+    the vocab-parallel lookup, the Column / Row layers' ``apply``, and
+    the tied head over this rank's vocabulary block followed by the
+    rank-order gather, so every rank returns the whole (b, V) row (the
+    serving head samples from it, where training's vocab-parallel cross
+    entropy keeps the logits split)."""
+    cfg = model.cfg
+
+    def embed(params, ids, pos=None):
+        x = model.embed.apply(params["embedding"]["word"], ids)
+        return _add_positions(cfg, params, x, ids, pos)
+
+    def logits(params, hidden):
+        local = _tied_lm_logits(hidden,
+                                params["embedding"]["word"]["embedding"])
+        return tp.gather_from_tensor_model_parallel_region(local)
+
+    dense_fns = (model.qkv.apply, model.out.apply, model.fc1.apply,
+                 model.fc2.apply)
+    return embed, dense_fns, logits
+
+
+def _tp_quant_fns(model: GPTModel):
+    """Int8 twins of :func:`_tp_fns`, the same collectives around the
+    dequant-fused products: Column copies in and multiplies with its
+    local bias; Row multiplies with no bias (``w8_matmul`` without one
+    launches the no-bias kernel), all-reduces, then adds the replicated
+    bias once (on every rank before the reduction it would count tp
+    times); the lookup dequantizes this rank's rows, zeroes the rows
+    outside its vocabulary block and all-reduces (fp32 activations, as
+    in the JAX package); the logits are ``w8_matmul_nk`` over the local
+    vocabulary block, then the gather. The int8 tree shards like the
+    float one (``quant_partition_specs``: each scale with its output
+    channel), so each rank's product pairs its kernel block with its
+    scale block."""
+    cfg = model.cfg
+
+    def embed(params, ids, pos=None):
+        word = params["embedding"]["word"]
+        table = word["embedding"]            # this rank's (V/p, h) int8
+        per_rank = table.shape[0]
+        start = ps.get_tensor_model_parallel_rank() * per_rank
+        local = ids - start
+        in_range = (local >= 0) & (local < per_rank)
+        safe = torch.where(in_range, local, torch.zeros_like(local))
+        out = table[safe].float() * word["scale"][safe][..., None]
+        out = torch.where(in_range[..., None], out,
+                          torch.zeros((), device=out.device))
+        x = tp.reduce_from_tensor_model_parallel_region(out)
+        return _add_positions(cfg, params, x, ids, pos)
+
+    def column(p, x):
+        x = tp.copy_to_tensor_model_parallel_region(x)
+        return w8_matmul(x, p["kernel"], p["scale"], p["bias"],
+                         out_dtype=x.dtype)
+
+    def row(p, x):
+        y = w8_matmul(x, p["kernel"], p["scale"], out_dtype=x.dtype)
+        y = tp.reduce_from_tensor_model_parallel_region(y)
+        return y + p["bias"].to(y.dtype)
+
+    def logits(params, hidden):
+        word = params["embedding"]["word"]
+        hidden = tp.copy_to_tensor_model_parallel_region(hidden)
+        local = w8_matmul_nk(hidden, word["embedding"], word["scale"])
+        return tp.gather_from_tensor_model_parallel_region(local)
+
+    return embed, (column, row, column, row), logits
+
+
+def shard_tp_params(params: Dict[str, Any], model: GPTModel,
+                    quantized: bool = False, mesh=None) -> Dict[str, Any]:
+    """This rank's block of the whole ``params``: what the
+    tensor-parallel steps take, cut once under ``model.partition_specs()``
+    (``quant_partition_specs`` for the weight-only int8 tree) by
+    ``parallel_state.shard_leaf`` (a contiguous copy of each split leaf,
+    a replicated leaf itself)."""
+    from apex_tpu_torch.partition import make_shard_and_gather_fns
+    from apex_tpu_torch.quant.params import quant_partition_specs
+    from apex_tpu_torch.utils.tree import tree_map
+
+    specs = (quant_partition_specs(model.cfg) if quantized
+             else model.partition_specs())
+    shard_fns, _ = make_shard_and_gather_fns(specs, mesh)
+    return tree_map(lambda f, x: f(x), shard_fns, params)
+
+
+def _cache_specs(cache):
+    if isinstance(cache, PagedKVCache):
+        return paged_cache_partition_specs(
+            quantized=cache.k_scale is not None)
+    return cache_partition_specs()
+
+
+def _map_cache(fn, cache):
+    specs = _cache_specs(cache)
+    return type(cache)(*(None if t is None else fn(t, spec)
+                         for t, spec in zip(cache, specs)))
+
+
+def shard_tp_cache(cache, mesh=None):
+    """This rank's head block of a whole ``KVCache`` or
+    ``PagedKVCache`` (an int8 pool's scales with it): the pool's head
+    axis split over ``model``, lengths and block tables replicated
+    (``cache_partition_specs``, ``paged_cache_partition_specs``). Cut
+    once; the steps then write the block in place."""
+    return _map_cache(lambda t, spec: ps.shard_leaf(t, spec, mesh), cache)
+
+
+def gather_tp_cache(cache, mesh=None):
+    """The whole cache from each rank's head block: the head axis
+    all-gathered over ``model`` in rank order (the replicated leaves as
+    they are)."""
+    return _map_cache(lambda t, spec: ps.gather_leaf(t, spec, mesh), cache)
+
+
+def _check_pool(cache, kv_quantized: bool) -> None:
+    if (cache.k_scale is not None) != bool(kv_quantized):
+        raise ValueError(f"kv_quantized={kv_quantized} but the pool is "
+                         f"{cache.k.dtype}")
+
+
+def _tp_step(model: GPTModel, mesh, quantized: bool, core, pool=None):
+    """A tensor-parallel step over ``core`` on this rank's blocks (the
+    params cut by :func:`shard_tp_params`), with ``mesh`` installed
+    while it runs: its collectives and ranks are that mesh's (None: the
+    installed one)."""
+    check_config(model.cfg)
+    step = _step(model.cfg, core, _tp_quant_fns(model) if quantized
+                 else _tp_fns(model), pool)
+    if mesh is None:
+        return step
+
+    def run(*args):
+        with ps.use_mesh(mesh):
+            return step(*args)
+
+    return run
+
+
+def make_tp_prefill_fn(model: GPTModel, mesh=None, quantized=False):
+    """``prefill(params, cache, ids, mask, slot) -> (cache, logits)`` on
+    this rank: ``params`` its block (:func:`shard_tp_params`), ``cache``
+    its head block (:func:`shard_tp_cache`), written in place; the
+    logits (1, V) whole on every rank. Inputs other than the params and
+    the cache are the same on every rank."""
+    return _tp_step(model, mesh, quantized, _prefill_core)
+
+
+def make_tp_decode_fn(model: GPTModel, mesh=None, quantized=False):
+    """``decode(params, cache, tokens, active) -> (cache, logits (B,
+    V))`` on this rank's blocks (see :func:`make_tp_prefill_fn`)."""
+    return _tp_step(model, mesh, quantized, _decode_core)
+
+
+def make_tp_verify_fn(model: GPTModel, mesh=None, quantized=False):
+    """``verify(params, cache, tokens) -> (cache, logits (B, k1, V))``
+    on this rank's blocks; the logits leave through the vocab-parallel
+    head and the gather, as decode's."""
+    return _tp_step(model, mesh, quantized, _verify_core)
+
+
+def make_tp_paged_prefill_fn(model: GPTModel, mesh=None, quantized=False,
+                             kv_quantized=False):
+    """``prefill(params, cache, ids, mask, slot, write_pages, table_row)
+    -> (cache, logits)`` over this rank's head block of the page pool:
+    page ids and the table row are the same on every rank, so every
+    rank writes its heads' tiles to the same physical pages.
+    ``kv_quantized`` names an int8 pool (its scales split over heads
+    with it); a pool of the other kind raises."""
+    return _tp_step(model, mesh, quantized, _paged_prefill_core,
+                    pool=kv_quantized)
+
+
+def make_tp_paged_decode_fn(model: GPTModel, mesh=None, quantized=False,
+                            kv_quantized=False):
+    """``decode(params, cache, tokens, active) -> (cache, logits)`` over
+    this rank's head block of the page pool (int8 pools too)."""
+    return _tp_step(model, mesh, quantized, _paged_decode_core,
+                    pool=kv_quantized)
+
+
+def make_tp_paged_verify_fn(model: GPTModel, mesh=None, quantized=False,
+                            kv_quantized=False):
+    """``verify(params, cache, tokens) -> (cache, logits (B, k1, V))``
+    over this rank's head block of the page pool (int8 pools too)."""
+    return _tp_step(model, mesh, quantized, _paged_verify_core,
+                    pool=kv_quantized)
+
+
+def make_tp_tree_verify_fn(model: GPTModel, mesh=None, quantized=False):
+    """``verify(params, cache, tokens, depth, anc) -> (cache, logits)``
+    on this rank's blocks: the tree descriptors are the same on every
+    rank, as block tables are."""
+    return _tp_step(model, mesh, quantized, _tree_verify_core)
+
+
+def make_tp_chunk_prefill_fn(model: GPTModel, mesh=None, quantized=False):
+    """``chunk_prefill(params, cache, ids, mask, slot, pos) -> (cache,
+    logits)`` on this rank's blocks; the final chunk's (1, V) logits
+    whole on every rank."""
+    return _tp_step(model, mesh, quantized, _chunk_prefill_core)
+
+
+def make_tp_paged_chunk_prefill_fn(model: GPTModel, mesh=None,
+                                   quantized=False):
+    """``chunk_prefill(params, cache, ids, mask, slot, pos, write_pages,
+    gather_row, store_row) -> (cache, logits)`` over this rank's head
+    block of the page pool (an int8 pool raises, as the unsharded
+    step's)."""
+    return _tp_step(model, mesh, quantized, _paged_chunk_prefill_core)
+
+
+def make_tp_paged_tree_verify_fn(model: GPTModel, mesh=None,
+                                 quantized=False):
+    """``verify(params, cache, tokens, depth, anc) -> (cache, logits)``
+    over this rank's head block of the page pool (an int8 pool raises,
+    as the unsharded step's)."""
+    return _tp_step(model, mesh, quantized, _paged_tree_verify_core)

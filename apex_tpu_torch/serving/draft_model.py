@@ -18,8 +18,11 @@ last chunk's logits at the final real token are the draft distribution
 for the next token: the root of the greedy chain (single-token decode
 steps after it) and of the draft tree (the top-2 root children).
 
-The tensor-parallel drafter (``model=`` / ``mesh=``) is ROADMAP item
-A4.5 (tensor-parallel serving) and raises.
+Tensor parallelism: pass a ``GPTModel(cfg, tp_size)`` as ``model=``
+(and its ``mesh=``, the installed one by default): the drafter then runs
+``make_tp_verify_fn`` / ``make_tp_decode_fn`` on this rank's block of
+the params (cut once from the whole ``params``) and its head block of
+the draft cache, in each rank's process.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -30,7 +33,10 @@ import torch
 from apex_tpu_torch.models.gpt import GPTConfig
 from apex_tpu_torch.quant.params import is_quantized_tree
 from apex_tpu_torch.serving.cache import init_cache
-from apex_tpu_torch.serving.decode import make_decode_fn, make_verify_fn
+from apex_tpu_torch.serving.decode import (
+    make_decode_fn, make_tp_decode_fn, make_tp_verify_fn, make_verify_fn,
+    shard_tp_cache, shard_tp_params,
+)
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 __all__ = ["DraftModel"]
@@ -51,8 +57,8 @@ class DraftModel:
     target; params on ``device``); ``num_slots`` mirrors the target
     engine's; ``max_len`` is the TARGET's max_len — the draft cache adds
     ``chunk`` rows so the last catch-up chunk's pad columns stay in
-    bounds. ``model``/``mesh`` (the tensor-parallel drafter) raise
-    NotImplementedError naming ROADMAP A4.5."""
+    bounds. ``model``/``mesh`` switch the forwards to the
+    tensor-parallel builders, on this rank's blocks."""
 
     def __init__(self, params, cfg: GPTConfig, num_slots: int,
                  max_len: int, *, chunk: int = 5, compute_dtype=None,
@@ -61,11 +67,6 @@ class DraftModel:
                  device: DeviceLike = None):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        if model is not None or mesh is not None:
-            raise NotImplementedError(
-                "DraftModel(model=..., mesh=...): the tensor-parallel "
-                "drafter is ROADMAP item A4.5 (tensor-parallel serving), "
-                "not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -74,8 +75,18 @@ class DraftModel:
         self.cache = init_cache(cfg, num_slots, max_len + chunk,
                                 cache_dtype, self.device)
         quantized = is_quantized_tree(params)
-        self._verify = make_verify_fn(cfg, compute_dtype, quantized)
-        self._decode = make_decode_fn(cfg, compute_dtype, quantized)
+        if model is not None:
+            if model.cfg is not cfg and model.cfg != cfg:
+                raise ValueError("TP draft model config mismatch")
+            self.params = shard_tp_params(params, model, quantized, mesh)
+            self.cache = shard_tp_cache(self.cache, mesh)
+            self._verify = make_tp_verify_fn(model, mesh,
+                                             quantized=quantized)
+            self._decode = make_tp_decode_fn(model, mesh,
+                                             quantized=quantized)
+        else:
+            self._verify = make_verify_fn(cfg, compute_dtype, quantized)
+            self._decode = make_decode_fn(cfg, compute_dtype, quantized)
         # per-slot record of which tokens' K/V rows the cache holds
         self._tokens: List[List[int]] = [[] for _ in range(num_slots)]
 

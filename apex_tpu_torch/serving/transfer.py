@@ -35,10 +35,16 @@ tile as its 16-bit integer view (numpy has no bf16), whose bytes are
 the JAX package's, so the digest of a tile is the reference's.
 :class:`PageReshard` is the device-to-device tier of the same channel
 (its own fault sites, span, counters and typed
-:class:`~apex_tpu_torch.serving.health.ReshardFailed`) at the
-reference's single-process default, the host round trip; the transfer
-over two sub-meshes (``make_tile_transfer_fns``,
-``make_reshard_extract_fn``) waits for ROADMAP item A4.5.
+:class:`~apex_tpu_torch.serving.health.ReshardFailed`); at the
+reference's default the tiles take the host round trip. Over a
+tensor-parallel mesh each rank's pool holds its block of the heads
+(``serving.decode.shard_tp_cache``): ``make_tile_transfer_fns(mesh)``
+gives the gather (the head blocks all-gathered over the mesh's
+``model`` group in rank order, then to host arrays) and the shard (this
+rank's head block of host tiles), and ``make_reshard_extract_fn(mesh)``
+the whole tiles of a page list on the device. A ``PageReshard`` over
+two meshes runs where both hold the same ranks; a handoff between
+disjoint rank sets (a send between processes) is ROADMAP item A4.6.
 
 The channel objects are host state (attempt counters, metric handles).
 """
@@ -54,6 +60,7 @@ from apex_tpu_torch.serving.health import (
     ReshardFailed, ServingStats, TransferCorrupt, TransferFailed,
 )
 from apex_tpu_torch.serving.observe import Tracer
+from apex_tpu_torch.transformer import parallel_state as ps
 
 #: ``serving_transfer_ticks`` histogram buckets: a handoff is charged a
 #: handful of decode-step equivalents.
@@ -139,6 +146,61 @@ def _host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.numpy()
+
+
+#: a tile's layout over a tensor-parallel mesh: heads (axis 2, as the
+#: pool's) split over ``model``
+_TILE_SPEC = ps.PartitionSpec(None, None, ps.TENSOR_AXIS)
+
+
+def _gather_heads(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole tile from this rank's head block: all-gathered over the
+    mesh's ``model`` group in rank order, as raw bytes (each element's
+    bytes along the last axis: gloo gathers no 16-bit integers, and a
+    byte gather moves any dtype bit for bit)."""
+    raw = t.contiguous().view(torch.uint8)
+    return ps.gather_leaf(raw, _TILE_SPEC, mesh).view(t.dtype)
+
+
+def make_tile_transfer_fns(mesh=None, rules=None) -> Tuple[Callable,
+                                                           Callable]:
+    """``(gather_fn, shard_fn)`` for page tiles over a tensor-parallel
+    mesh (the installed one by default), the pool's head axis split over
+    ``model``: ``gather_fn(k_tile, v_tile)`` all-gathers this rank's
+    head blocks in rank order and returns whole host arrays (bf16 as its
+    16-bit bits, as the host round trip's), the same bytes on every
+    rank; ``shard_fn(k_tile, v_tile)`` keeps this rank's head block of
+    whole host tiles, for the insert into its pool. Hand them to
+    :class:`PageTransfer`. ``rules`` is not read: the tile layout is the
+    pool's."""
+    del rules
+
+    def gather_fn(k_tile, v_tile):
+        return (_host(_gather_heads(k_tile, mesh)),
+                _host(_gather_heads(v_tile, mesh)))
+
+    def shard_fn(k_tile, v_tile):
+        return (ps.shard_leaf(torch.as_tensor(k_tile), _TILE_SPEC, mesh),
+                ps.shard_leaf(torch.as_tensor(v_tile), _TILE_SPEC, mesh))
+
+    return gather_fn, shard_fn
+
+
+def make_reshard_extract_fn(mesh=None) -> Callable:
+    """The sender half of the device-to-device reshard: ``(cache,
+    page_ids) -> (k_tile, v_tile)``, this rank's head block of the
+    identified pages all-gathered over the mesh's ``model`` group in
+    rank order (the order the pool lays the heads out in), the whole
+    tiles on the device on every rank: bit for bit
+    :func:`make_extract_pages_fn` on the gathered cache. Every rank of
+    the mesh calls it with the same page ids."""
+
+    def extract(cache, page_ids):
+        ids = _ids(cache, page_ids)
+        return (_gather_heads(cache.k[:, ids], mesh),
+                _gather_heads(cache.v[:, ids], mesh))
+
+    return extract
 
 
 def _default_gather(k_tile, v_tile):
@@ -349,9 +411,12 @@ class PageReshard(PageTransfer):
     take the host round trip, as in the JAX package. A lost budget
     raises the typed :class:`ReshardFailed` (``corrupt`` says whether
     the last payload was corrupt) and the pool router re-ships the same
-    pages over its host-staged :class:`PageTransfer`. ``src_mesh`` /
-    ``dst_mesh`` (the transfer between two sub-meshes) raise
-    NotImplementedError naming ROADMAP A4.5."""
+    pages over its host-staged :class:`PageTransfer`. ``src_mesh`` gathers
+    the source pool's head blocks over its ``model`` group,
+    ``dst_mesh`` keeps this rank's head block for the receiving pool
+    (:func:`make_tile_transfer_fns`); this process is a rank of both.
+    Two meshes over different rank sets (a send between processes)
+    raise NotImplementedError naming ROADMAP A4.6."""
 
     send_site = "reshard_send"
     recv_site = "reshard_recv"
@@ -365,13 +430,22 @@ class PageReshard(PageTransfer):
                  stats: Optional[ServingStats] = None,
                  max_retries: int = 2,
                  src_mesh=None, dst_mesh=None):
-        if src_mesh is not None or dst_mesh is not None:
+        if src_mesh is not None and dst_mesh is not None and sorted(
+                src_mesh.ranks.reshape(-1).tolist()) != sorted(
+                dst_mesh.ranks.reshape(-1).tolist()):
             raise NotImplementedError(
-                "PageReshard(src_mesh=..., dst_mesh=...): the reshard "
-                "between two sub-meshes comes with tensor-parallel "
-                "serving, ROADMAP item A4.5, not ported yet")
+                "PageReshard between meshes of different ranks "
+                f"({src_mesh.ranks.reshape(-1).tolist()} -> "
+                f"{dst_mesh.ranks.reshape(-1).tolist()}): a handoff "
+                "between processes, ROADMAP item A4.6, not ported yet")
+        gather_fn, shard_fn = _default_gather, _default_shard
+        if src_mesh is not None:
+            gather_fn, _ = make_tile_transfer_fns(src_mesh)
+        if dst_mesh is not None:
+            _, shard_fn = make_tile_transfer_fns(dst_mesh)
         super().__init__(injector=injector, tracer=tracer, stats=stats,
-                         max_retries=max_retries)
+                         max_retries=max_retries, gather_fn=gather_fn,
+                         shard_fn=shard_fn)
 
     def _budget_error(self, replica: str, attempts: int, n_pages: int,
                       corrupt_last: bool):

@@ -32,6 +32,7 @@ starts the default group itself first. A launcher's environment (``RANK``,
 process is a world of one.
 """
 
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -225,6 +226,24 @@ def get_mesh() -> Mesh:
         # the world, on the card
         initialize_model_parallel()
     return _MESH
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Install ``mesh`` as the registered mesh inside the block, so the
+    region mappings' collectives and ranks are its own (the ``mesh=`` of
+    a JAX ``shard_map``); None leaves the registered one. The mesh that
+    was registered comes back after the block."""
+    global _MESH
+    if mesh is None:
+        yield
+        return
+    saved = _MESH
+    _MESH = mesh
+    try:
+        yield
+    finally:
+        _MESH = saved
 
 
 def axis_group(axis_name: Any, axis_index_groups=None):

@@ -47,7 +47,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    (bf16 x there on the tensor cores), M 37 and 100, a ragged shape and
    an x view 2 bytes past a 16-byte boundary, the logits head at M 1, 3
    and 8 (bf16 x on the tensor cores; N off its tile, K off its loads, an
-   unaligned x), per element to ``quant.kernels.w8_limit``, two launches
+   unaligned x), row 21 (no bias) at the tensor-parallel Row linears'
+   M 8, K 512 and 2048 into N 1024 in fp32 and bf16 x, per element to
+   ``quant.kernels.w8_limit``, two launches
    the same bits, and every call at M <= 8 the same bits across two
    CUDA-graph replays. The
    LayerNorm forward also at ragged h, at teams of several warps and on
@@ -352,7 +354,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    and gradients against ``gpt_loss_unsharded`` to ``train_small``'s O2
    bounds. (b) The same model and batch at tp 2 on two spawned gloo
    ranks on the card (every collective staged through the host), two
-   steps with ``sequence_parallel`` off and two with it on: both ranks
+   steps with ``sequence_parallel`` off (the second after the sharded
+   FusedAdam update) and one with it on (two until the card run's time
+   called for the cut): both ranks
    drew (a)'s weights, their losses equal bit for bit and finite, exact
    launches on each rank, the first step's gathered gradients (the SP
    ones all-reduced first) against (a)'s to the same bound; each step's
@@ -366,6 +370,38 @@ Phases, each printed as it runs; any failure exits non-zero:
    embedding's forward bit for bit. Every process group is destroyed
    before the results; the phase prints its seconds and the card's name
    and power limit.
+
+18. tensor-parallel serving — the ``make_tp_*_fn`` builders over
+   ``GPTModel(gpt_medium())`` (seed 0, its biases and LayerNorm weights
+   seeded, O2 bf16) on the serving mix's
+   first 8 prompts, one a slot: prefill and 32 greedy decode ticks on the
+   dense cache (then one verify tick at spec_k 4) and on the
+   ``serving_paged`` pool geometry (every slot's 16 pages mapped up
+   front), and the int8 tree (``quantize_params``, fp32 activations as in
+   the JAX package) for 8 ticks. (a) tp 1 on an NCCL world of one: each
+   mode beside the unsharded builders, the unsharded side greedy and the
+   tensor-parallel side fed the same tokens, every row of logits within
+   the O2 limit 0.0625 (the int8 tree's fp32 logits within 5e-4), exact
+   launches. (b) tp 2 on two spawned gloo
+   ranks (each rank its blocks of the params and of the cache, cut once):
+   the same runs held to (a)'s unsharded logits, every rank's logits the
+   same bits, exact launches on each rank (row 21, ``w8_matmul_nobias``,
+   in the int8 run), the host-staged bytes a tick, and a decode tick's
+   growth of the allocator's peak within the unsharded step's on the
+   same tick plus 5 % of the rank's weight bytes (the raw share
+   printed). (c) ``make_reshard_extract_fn`` against
+   ``make_extract_pages_fn`` on the gathered pool, bit for bit. Row 21 is
+   then timed at its tp 2 shapes (M 8; K 512 and 2048 into N 1024).
+
+19. multihead_attn — ``SelfMultiheadAttn`` (s 512, b 16, embed 1024, 16
+   heads, bf16, norm-add, dropout 0.1, causal, a key mask) and
+   ``EncdecMultiheadAttn`` (tgt 256, src 512, b 16, a key mask),
+   forward and backward through the kernels, exact launches; each
+   recorded flash call (the module's sequence-first views, s_q != s_k
+   in the encoder-decoder module) held to its plain version per element
+   (``o_limit``, ``bwd_limits``), the LayerNorm's too, and the module's
+   output and gradients against the same module on the plain versions.
+   Each of 18 and 19 prints its seconds.
 
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
@@ -1307,6 +1343,11 @@ def w8_parity(dev):
               (8, *W8_TABLE, bf, "nk"), (8, *W8_TABLE, f32, "nk"),
               (37, 100, 201, bf, "bias"), (37, 100, 201, f32, "nobias"),
               (37, 201, 100, bf, "nk")]   # the ragged case: byte loads
+    # row 21 at the tensor-parallel int8 Row linears' shapes (M 8, the
+    # decode tick's slots; out and fc2 at tp 2), fp32 x as that path
+    # gives it, and bf16 x
+    cases += [(8, k, n, xdt, "nobias") for k, n in TPS_ROW21.values()
+              for xdt in (f32, bf)]
     # the logits head's tensor-core kernel (bf16 x, M <= 8): M 3, N off
     # its 16-channel tile, K off its 16-byte loads (byte loads), an x view
     # 2 bytes past a 16-byte boundary
@@ -5457,6 +5498,9 @@ def ddp_two_ranks(dev):
 
 TP_RANKS = 2         # two gloo ranks on the one card
 TP_STEPS = 2
+# (b)'s steps on the gloo ranks by sequence_parallel: two with it off (a
+# loss after the sharded update), one with it on (the card run's time)
+TP_RANK_STEPS = {False: 2, True: 1}
 TP_RANK_TIMEOUT_S = 600
 TP_WIDTHS = (1024, 4096, 50304)   # the layers' h, ffn and vocab (GPT-medium)
 
@@ -5482,8 +5526,8 @@ def _checksum(tree):
     return float(sum(t.detach().double().sum() for t in tree_leaves(tree)))
 
 
-def _tp_steps(dev, kern, sequence_parallel=False):
-    """``TP_STEPS`` steps of ``make_gpt_tp_train_step`` (gradients, then
+def _tp_steps(dev, kern, sequence_parallel=False, steps=TP_STEPS):
+    """``steps`` steps of ``make_gpt_tp_train_step`` (gradients, then
     the tree FusedAdam) from seed-0 weights on one fixed batch, counts
     set to 0 before and read after. Returns the run's record and the
     first step's gradients."""
@@ -5507,7 +5551,7 @@ def _tp_steps(dev, kern, sequence_parallel=False):
         k.launches = 0
     mappings.staged_bytes = 0
     losses, times, exact, first = [], [], True, None
-    for i in range(TP_STEPS):
+    for i in range(steps):
         before = {n: k.launches for n, k in kern.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5524,9 +5568,9 @@ def _tp_steps(dev, kern, sequence_parallel=False):
     launches = {n: k.launches for n, k in kern.items()}
     rec.update(losses=losses, step_ms=[t * 1e3 for t in times],
                launches=launches,
-               exact=exact and launches == {n: TP_STEPS * per_step[n]
+               exact=exact and launches == {n: steps * per_step[n]
                                             for n in kern},
-               staged_bytes_per_step=mappings.staged_bytes / TP_STEPS)
+               staged_bytes_per_step=mappings.staged_bytes / steps)
     return rec, first
 
 
@@ -5745,7 +5789,8 @@ def _tp_rank(rank, tmp, port, device):
         want = torch.load(f"{tmp}/tp1_grads.pt", map_location=dev) \
             if rank == 0 else None
         for sp in (False, True):
-            rec, (_, _, grads0) = _tp_steps(dev, kern, sp)
+            rec, (_, _, grads0) = _tp_steps(dev, kern, sp,
+                                            TP_RANK_STEPS[sp])
             rec["losses"] = [x.hex() for x in rec["losses"]]
             if rank == 0:
                 rec["grads_vs_tp1"] = _relnorm(grads0, want)
@@ -5778,8 +5823,10 @@ def tp_two_ranks(dev, one, tmp):
     h, f, v = TP_WIDTHS
     phase(f"tensor parallelism (b, c): two gloo ranks on the card "
           f"(host-staged collectives), GPTModel(gpt_medium()) at tp "
-          f"{TP_RANKS}, sequence_parallel off then on, {TP_STEPS} steps each "
-          "against (a)'s gradients; the Column / Row / VocabParallel layers "
+          f"{TP_RANKS}, sequence_parallel off ({TP_RANK_STEPS[False]} "
+          f"steps) then on ({TP_RANK_STEPS[True]}) against (a)'s "
+          "gradients; the Column / Row / VocabParallel "
+          "layers "
           f"and the vocab-parallel cross entropy at h {h}, ffn {f}, vocab "
           f"{v} against the dense computation")
     torch.cuda.empty_cache()
@@ -5818,7 +5865,8 @@ def tp_two_ranks(dev, one, tmp):
               f"{key}: launches a step on each rank exactly "
               f"{ {n: c for n, c in recs[0]['per_step'].items() if c} } "
               f"({[{n: c for n, c in r['launches'].items() if c}
-                   for r in recs]} over {TP_STEPS} steps)")
+                   for r in recs]} over {TP_RANK_STEPS[key == 'sp']} "
+              "steps)")
         g = recs[0]["grads_vs_tp1"]
         check(g <= lim["grads"], f"{key}: the first step's gathered "
               f"gradients vs (a)'s (relative norm) {g:.3g} <= "
@@ -6513,6 +6561,782 @@ def ulysses_times(dev):
     _flash_times(res, "ulysses_flash", dev, CP_BATCH, 16 // PP_RANKS,
                  CP_SEQ, 64, "Ulysses' whole-sequence call")
     return res
+
+
+# ---------------------------------------------------------------------------
+# 18. tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+TPS_PROMPTS = 8        # the serving mix's first 8 prompts, one a slot
+TPS_TICKS = 32         # greedy decode ticks of the bf16 runs
+TPS_W8_TICKS = 8       # decode ticks of the int8 run
+TPS_SPEC_K = 4         # the verify tick's k1 is TPS_SPEC_K + 1
+TPS_RANKS = 2          # two gloo ranks on the one card
+TPS_RANK_TIMEOUT_S = 600
+TPS_LIMIT = 0.0625     # the O2 logits limit (decode_vs_full's)
+# the int8 tree's logits (fp32 activations): about six times the tp 2
+# difference read on the H100 (8.4e-5), set before the seeded biases
+TPS_W8_LIMIT = 5e-4
+TPS_MEMORY_SHARE = 0.05
+TPS_AFFINE_STD = 0.1   # the seeded biases and LayerNorm weights' spread
+TPS_MODES = ("dense", "paged", "w8")
+# row 21 (the int8 Row-parallel linear) at tp 2: (K, N) of out and fc2
+TPS_ROW21 = {"out": (512, 1024), "fc2": (2048, 1024)}
+TPS_RESHARD_PAGES = (2, 3, 4, 18, 19)
+
+
+def tps_per_run_launches(L, prefills, ticks, mode, verify=0):
+    """Exact launches of one tensor-parallel serving run on each rank:
+    every prefill, decode tick and verify tick a forward of 2L + 1
+    LayerNorms; the flash forward L a prefill; the paged decode kernel L
+    a paged tick; the int8 tree's Column linears (row 22) and Row linears
+    (row 21) 2L each a forward and its logits head (row 23) once."""
+    fwd = prefills + ticks + verify
+    out = {"layer_norm_fwd": (2 * L + 1) * fwd,
+           "flash_attention_fwd": L * prefills}
+    if mode == "paged":
+        out["paged_decode_attention"] = L * ticks
+    if mode == "w8":
+        out.update(w8_matmul=2 * L * fwd, w8_matmul_nobias=2 * L * fwd,
+                   w8_matmul_nk=fwd)
+    return out
+
+
+def _tps_row(slot, dev):
+    """Slot ``slot``'s block-table row: its own 16 pages of the
+    ``serving_paged`` pool (every row mapped up front, so no tick
+    allocates)."""
+    per = MAX_LEN // PAGE
+    return torch.arange(2 + per * slot, 2 + per * (slot + 1),
+                        dtype=torch.int32, device=dev)
+
+
+def _tps_steps(mode, cfg, model=None):
+    """(prefill, decode, verify) of the unsharded builders (model None)
+    or of the tensor-parallel ones over ``model``."""
+    from apex_tpu_torch.serving import decode as sd
+
+    paged, w8 = mode == "paged", mode == "w8"
+    pre = "paged_prefill" if paged else "prefill"
+    dec = "paged_decode" if paged else "decode"
+    if model is None:
+        return tuple(getattr(sd, f"make_{n}_fn")(cfg, quantized=w8)
+                     for n in (pre, dec, "verify"))
+    return tuple(getattr(sd, f"make_tp_{n}_fn")(model, quantized=w8)
+                 for n in (pre, dec, "verify"))
+
+
+def _tps_cache(mode, cfg, dev):
+    from apex_tpu_torch.serving import init_cache, init_paged_cache
+
+    if mode == "paged":
+        return init_paged_cache(cfg, TPS_PROMPTS, MAX_LEN, PAGED_POOL, PAGE,
+                                torch.bfloat16, dev)
+    return init_cache(cfg, TPS_PROMPTS, MAX_LEN, torch.bfloat16, dev)
+
+
+def _tps_serve(dev, cfg, steps, params, cache, prompts, mode, feed=None,
+               measure=False):
+    """One side's run: each prompt prefilled into its slot (bucketed as
+    the engines bucket), then the mode's decode ticks over every slot
+    and, in the dense mode, one verify tick at k1 = ``TPS_SPEC_K`` + 1
+    (the pending token and 4 drafts). ``feed``: the tokens each tick
+    decodes (None: this side's own greedy tokens). Returns the cache, the
+    logits (the prefills' (P, V), each tick's (P, V), the verify's (P,
+    k1, V)), the tokens fed, the host-staged bytes over the decode ticks
+    and, with ``measure``, the growth of the allocator's peak over tick
+    1."""
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+    from apex_tpu_torch.utils.seqlen import pad_to_bucket
+
+    prefill, decode, verify = steps
+    first = []
+    for s, prompt in enumerate(prompts):
+        ids = torch.tensor([list(prompt)], dtype=torch.int64, device=dev)
+        ids, mask = pad_to_bucket(ids, ids.shape[1], buckets=BUCKETS)
+        if mode == "paged":
+            row = _tps_row(s, dev)
+            cache, lg = prefill(params, cache, ids, mask, s,
+                                row[:ids.shape[1] // PAGE], row)
+        else:
+            cache, lg = prefill(params, cache, ids, mask, s)
+        first.append(lg[0])
+    logits = [torch.stack(first)]
+    tok = logits[0].argmax(-1) if feed is None else feed[0]
+    fed = [tok]
+    active = torch.ones(len(prompts), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    mappings.staged_bytes = 0
+    growth = None
+    ticks = TPS_W8_TICKS if mode == "w8" else TPS_TICKS
+    for t in range(ticks):
+        if measure and t == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            m0 = torch.cuda.memory_allocated(dev)
+        cache, lg = decode(params, cache, tok, active)
+        if measure and t == 1:
+            torch.cuda.synchronize()
+            growth = torch.cuda.max_memory_allocated(dev) - m0
+        logits.append(lg)
+        tok = lg.argmax(-1) if feed is None else feed[t + 1]
+        fed.append(tok)
+    staged = mappings.staged_bytes
+    if mode == "dense":
+        drafts = (tok[:, None] + torch.arange(1, TPS_SPEC_K + 1,
+                                              device=dev)) % cfg.vocab_size
+        cache, lg = verify(params, cache, torch.cat([tok[:, None], drafts],
+                                                    1))
+        logits.append(lg)
+    return cache, logits, fed, staged, growth
+
+
+def _tps_compare(got, want):
+    """(the largest |logit| difference over every row, the greedy tokens
+    of ``got`` equal to ``want``'s, the tokens compared)."""
+    err, same, n = 0.0, 0, 0
+    for g, w in zip(got, want):
+        w = w.to(g.device)
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        eq = g.argmax(-1) == w.argmax(-1)
+        same += int(eq.sum())
+        n += eq.numel()
+    return err, same, n
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _seed_affine(tree, gen, std, name=""):
+    """``tree`` with every bias drawn from N(0, std) and every LayerNorm
+    weight from 1 + N(0, std) (``init_gpt`` sets them to zeros and
+    ones), so a Row linear's bias added on each rank, or a Column bias
+    taken from another rank's block, shows in the logits."""
+    if isinstance(tree, dict):
+        return {k: _seed_affine(v, gen, std, k) for k, v in tree.items()}
+    if name not in ("bias", "weight"):
+        return tree
+    noise = torch.randn(tree.shape, generator=gen) * std
+    return noise.to(tree) + (1.0 if name == "weight" else 0.0)
+
+
+def _tps_weights(dev):
+    """GPT-2 medium's seed-0 weights, their biases and LayerNorm weights
+    seeded (:func:`_seed_affine`), O2-cast."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+
+    cfg = gpt_medium()
+    gen = torch.Generator().manual_seed(0)
+    params = _seed_affine(init_gpt(cfg, gen, device=dev), gen,
+                          TPS_AFFINE_STD)
+    o2 = amp.initialize("O2", verbosity=0).cast_model(params)
+    del params
+    torch.cuda.empty_cache()
+    return cfg, o2
+
+
+def _tps_limit(mode):
+    return TPS_W8_LIMIT if mode == "w8" else TPS_LIMIT
+
+
+def _tree_bytes(tree):
+    from apex_tpu_torch.utils.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _tps_check_growth(what, growth, ref_growth, weight_bytes):
+    """A decode tick's growth of the allocator's peak no larger than the
+    unsharded step's on the same tick plus ``TPS_MEMORY_SHARE`` of the
+    rank's weight bytes: no call copies the weights or the cache. The
+    raw share (growth over weight bytes) is printed beside it."""
+    check(growth <= ref_growth + TPS_MEMORY_SHARE * weight_bytes,
+          f"{what}: a decode tick grows the allocator's peak by {growth} "
+          f"bytes ({growth / weight_bytes:.4f} of the rank's "
+          f"{weight_bytes} weight bytes); the unsharded step's same tick "
+          f"{ref_growth} bytes; within it plus {TPS_MEMORY_SHARE} of the "
+          "weight bytes (no call copies the weights or the cache)")
+
+
+def tps_one(dev, kern, tmp):
+    """(a) The tensor-parallel builders at tp 1 on an NCCL world of one
+    against the unsharded builders, each mode's runs side by side on the
+    same prompts: the unsharded side greedy, the tensor-parallel side fed
+    the same tokens; every row of logits within ``TPS_LIMIT``, exact
+    launches. The unsharded logits and tokens are saved to ``tmp`` for
+    (b)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.models.gpt import GPTModel
+    from apex_tpu_torch.quant import quantize_params
+    from apex_tpu_torch.serving import shard_tp_cache, shard_tp_params
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    phase(f"tensor-parallel serving (a): the make_tp_*_fn builders at tp 1 "
+          f"on an NCCL world of one, gpt_medium O2, the serving mix's first "
+          f"{TPS_PROMPTS} prompts: prefill + {TPS_TICKS} greedy ticks dense "
+          f"and paged ({PAGED_POOL} pages of {PAGE}), one verify tick at "
+          f"spec_k {TPS_SPEC_K}, the int8 tree ({TPS_W8_TICKS} ticks), "
+          f"against the unsharded builders ({TPS_LIMIT})")
+    ps.initialize_model_parallel()
+    out = {}
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+              and ps.get_tensor_model_parallel_world_size() == 1,
+              "initialize_model_parallel() brought up an NCCL world of one")
+        cfg, o2 = _tps_weights(dev)
+        L = cfg.num_layers
+        model = GPTModel(cfg)
+        prompts = mix_prompts(cfg)[:TPS_PROMPTS]
+        with torch.inference_mode():
+            for mode in TPS_MODES:
+                w8 = mode == "w8"
+                full = quantize_params(o2) if w8 else o2
+                _, ref, fed, _, ref_growth = _tps_serve(
+                    dev, cfg, _tps_steps(mode, cfg), full,
+                    _tps_cache(mode, cfg, dev), prompts, mode, measure=True)
+                local = shard_tp_params(full, model, w8)
+                weight_bytes = _tree_bytes(local)
+                cache = shard_tp_cache(_tps_cache(mode, cfg, dev))
+                torch.cuda.synchronize()
+                for k in kern.values():
+                    k.launches = 0
+                t0 = time.perf_counter()
+                cache, got, _, _, growth = _tps_serve(
+                    dev, cfg, _tps_steps(mode, cfg, model), local, cache,
+                    prompts, mode, feed=fed, measure=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {n: k.launches for n, k in kern.items()}
+                ticks = len(got) - 1 - (mode == "dense")
+                check_launches(launches, tps_per_run_launches(
+                    L, TPS_PROMPTS, ticks, mode, int(mode == "dense")),
+                    f"tp 1 {mode}")
+                err, same, n = _tps_compare(got, ref)
+                lim = _tps_limit(mode)
+                check(err <= lim, f"tp 1 {mode}: every row of logits "
+                      f"within {lim} of the unsharded builders' "
+                      f"(max |diff| {err:.4g}); greedy tokens equal {same} "
+                      f"of {n}")
+                _tps_check_growth(f"tp 1 {mode}", growth, ref_growth,
+                                  weight_bytes)
+                torch.save({"logits": [r.cpu() for r in ref],
+                            "fed": [f.cpu() for f in fed],
+                            "growth": ref_growth},
+                           f"{tmp}/tps_{mode}.pt")
+                out[mode] = dict(max_abs_err=err, tokens_equal=same,
+                                 tokens_compared=n, launches=launches,
+                                 wall_s=wall, tick_peak_growth_bytes=growth,
+                                 unsharded_growth_bytes=ref_growth,
+                                 weight_bytes=weight_bytes)
+                print(f"tp 1 {mode}: max |logit diff| {err:.4g}, greedy "
+                      f"tokens equal {same} of {n}; {wall:.2f} s wall",
+                      flush=True)
+                del full, local, cache, ref, got, fed
+                torch.cuda.empty_cache()
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+    del o2
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tps_reshard(dev, cache):
+    """(c) on this rank: the reshard extract of ``TPS_RESHARD_PAGES``
+    against the extract of the gathered pool (the pool's first pages up
+    to the last of them, all-gathered over heads), bit for bit."""
+    from apex_tpu_torch.serving import (
+        gather_tp_cache, make_extract_pages_fn, make_reshard_extract_fn,
+    )
+
+    pages = list(TPS_RESHARD_PAGES)
+    k, v = make_reshard_extract_fn()(cache, pages)
+    top = max(pages) + 1
+    whole = gather_tp_cache(cache._replace(k=cache.k[:, :top],
+                                           v=cache.v[:, :top]))
+    wk, wv = make_extract_pages_fn()(whole, pages)
+    return dict(bitwise=torch.equal(k, wk) and torch.equal(v, wv),
+                digest=_digest([k, v]), shape=list(k.shape))
+
+
+def _tps_rank(rank, tmp, port, device):
+    """A rank of :func:`tps_two_ranks`: the default process group on
+    gloo from a launcher's environment, the model axis over
+    ``TPS_RANKS`` ranks; each mode's tensor-parallel run fed (a)'s
+    tokens, then (c); results to ``tmp/tps_rank<r>.json``; a barrier
+    before the groups go."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch.models.gpt import GPTModel
+    from apex_tpu_torch.quant import quantize_params
+    from apex_tpu_torch.serving import shard_tp_cache, shard_tp_params
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(TPS_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method="env://",
+        timeout=datetime.timedelta(seconds=TPS_RANK_TIMEOUT_S))
+    ps.initialize_model_parallel(TPS_RANKS, device=dev)
+    try:
+        kern = kernel_counters()
+        cfg, o2 = _tps_weights(dev)
+        L = cfg.num_layers
+        model = GPTModel(cfg)
+        prompts = mix_prompts(cfg)[:TPS_PROMPTS]
+        out = {"backend": dist.get_backend(),
+               "tp": ps.get_tensor_model_parallel_world_size()}
+        with torch.inference_mode():
+            for mode in TPS_MODES:
+                w8 = mode == "w8"
+                local = shard_tp_params(quantize_params(o2) if w8 else o2,
+                                        model, w8)
+                weight_bytes = _tree_bytes(local)
+                cache = shard_tp_cache(_tps_cache(mode, cfg, dev))
+                torch.cuda.empty_cache()
+                ref = torch.load(f"{tmp}/tps_{mode}.pt", map_location=dev)
+                torch.cuda.synchronize()
+                for k in kern.values():
+                    k.launches = 0
+                t0 = time.perf_counter()
+                cache, got, _, staged, growth = _tps_serve(
+                    dev, cfg, _tps_steps(mode, cfg, model), local, cache,
+                    prompts, mode, feed=ref["fed"], measure=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {n: k.launches for n, k in kern.items()}
+                ticks = len(got) - 1 - (mode == "dense")
+                err, same, n = _tps_compare(got, ref["logits"])
+                out[mode] = dict(
+                    max_abs_err=err, tokens_equal=same, tokens_compared=n,
+                    launches=launches, wall_s=wall, digest=_digest(got),
+                    exact=launches == {
+                        k: tps_per_run_launches(
+                            L, TPS_PROMPTS, ticks, mode,
+                            int(mode == "dense")).get(k, 0)
+                        for k in launches},
+                    staged_bytes_per_tick=staged / ticks,
+                    tick_peak_growth_bytes=growth,
+                    unsharded_growth_bytes=ref["growth"],
+                    weight_bytes=weight_bytes)
+                if mode == "paged":
+                    out["reshard"] = _tps_reshard(dev, cache)
+                del local, cache, ref, got
+                torch.cuda.empty_cache()
+        with open(f"{tmp}/tps_rank{rank}.json", "w") as fh:
+            json.dump(out, fh)
+        dist.barrier()
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+
+
+def tps_two_ranks(dev, tmp):
+    """(b) and (c) on ``TPS_RANKS`` spawned gloo ranks on the card: each
+    mode's run at tp 2 held to (a)'s unsharded logits, the ranks' logits
+    the same bits, exact launches on each rank (row 21 among them in the
+    int8 run), a decode tick's growth of the allocator's peak within the
+    unsharded step's plus ``TPS_MEMORY_SHARE`` of the rank's weight
+    bytes; then the reshard extract bit for bit."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    phase(f"tensor-parallel serving (b, c): the same runs at tp "
+          f"{TPS_RANKS} on two gloo ranks on the card (host-staged "
+          "collectives) against (a)'s unsharded logits; "
+          "make_reshard_extract_fn against the gathered pool")
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.spawn(_tps_rank, args=(tmp, port, str(dev)), nprocs=TPS_RANKS,
+                   join=False)
+    deadline = time.monotonic() + TPS_RANK_TIMEOUT_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.terminate()
+            check(False, f"the two ranks finished within "
+                  f"{TPS_RANK_TIMEOUT_S} s")
+    res = []
+    for r in range(TPS_RANKS):
+        with open(f"{tmp}/tps_rank{r}.json") as fh:
+            res.append(json.load(fh))
+    check(all(r["backend"] == "gloo" and r["tp"] == TPS_RANKS for r in res),
+          f"{TPS_RANKS} gloo ranks, a model axis of {TPS_RANKS}")
+    out = {}
+    for mode in TPS_MODES:
+        recs = [r[mode] for r in res]
+        err = max(r["max_abs_err"] for r in recs)
+        lim = _tps_limit(mode)
+        check(err <= lim, f"tp {TPS_RANKS} {mode}: every rank's "
+              f"logits within {lim} of the unsharded builders' (max "
+              f"|diff| {err:.4g}); greedy tokens equal "
+              f"{[r['tokens_equal'] for r in recs]} of "
+              f"{recs[0]['tokens_compared']}")
+        check(len({r["digest"] for r in recs}) == 1,
+              f"tp {TPS_RANKS} {mode}: every rank's logits the same bits")
+        used = [{n: c for n, c in r["launches"].items() if c} for r in recs]
+        check(all(r["exact"] for r in recs),
+              f"tp {TPS_RANKS} {mode}: exact launches on each rank {used}")
+        growth = max(r["tick_peak_growth_bytes"] for r in recs)
+        ref_growth = recs[0]["unsharded_growth_bytes"]
+        _tps_check_growth(f"tp {TPS_RANKS} {mode}", growth, ref_growth,
+                          recs[0]["weight_bytes"])
+        if mode == "w8":
+            check(all(r["launches"]["w8_matmul_nobias"] > 0 for r in recs),
+                  "row 21 (w8_matmul_nobias) launched on every rank: "
+                  f"{[r['launches']['w8_matmul_nobias'] for r in recs]}")
+        staged = [r["staged_bytes_per_tick"] for r in recs]
+        print(f"tp {TPS_RANKS} {mode}: host-staged bytes a decode tick "
+              f"{[int(x) for x in staged]}; wall s "
+              f"{[round(r['wall_s'], 2) for r in recs]} (gloo over the "
+              "host, not a tensor-parallel speed)", flush=True)
+        out[mode] = dict(max_abs_err=err,
+                         tokens_equal=[r["tokens_equal"] for r in recs],
+                         tokens_compared=recs[0]["tokens_compared"],
+                         launches=[r["launches"] for r in recs],
+                         staged_bytes_per_tick=staged,
+                         tick_peak_growth_bytes=growth,
+                         unsharded_growth_bytes=ref_growth,
+                         weight_bytes=recs[0]["weight_bytes"],
+                         wall_s=[r["wall_s"] for r in recs])
+    rs = [r["reshard"] for r in res]
+    check(all(r["bitwise"] for r in rs) and len({r["digest"] for r in rs})
+          == 1, f"make_reshard_extract_fn at tp {TPS_RANKS}: the pages "
+          f"{list(TPS_RESHARD_PAGES)} (tiles {rs[0]['shape']}) equal "
+          "make_extract_pages_fn on the gathered pool bit for bit, the same "
+          "bits on every rank")
+    out["reshard"] = rs[0]
+    return out
+
+
+def tensor_parallel_serving(dev, kern):
+    """Phase 18: (a) tp 1 on an NCCL world of one, (b) and (c) on two
+    gloo ranks; the phase's seconds and the card's name and power
+    limit."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        one = tps_one(dev, kern, tmp)
+        two = tps_two_ranks(dev, tmp)
+    secs = time.perf_counter() - t0
+    print(f"tensor-parallel serving phase: {secs:.1f} s on {card_line()}",
+          flush=True)
+    return {"tp1": one, "tp2": two, "seconds": secs}
+
+
+def tps_row21_times(dev):
+    """Row 21 at its tensor-parallel shapes (M 8, the decode tick's
+    slots; out K 512 and fc2 K 2048 into N 1024 at tp 2): fp32 x, as the
+    int8 tensor-parallel path gives it, and bf16 x, as the row's M 8
+    time; over 24 weight copies in turn, as a tick reads its layers.
+    The library call is ``torch._weight_int8pack_mm`` on the bf16 x
+    where the card's torch has it (bf16 scales and out), else
+    ``torch.matmul`` over the dequantized bf16 weights."""
+    from apex_tpu_torch.quant import dequantize_tensor
+
+    w8 = kernel_modules()[5]
+    phase("times of row 21 (w8_matmul_nobias) at its tensor-parallel "
+          "shapes (M 8; K 512 and 2048, N 1024; device ms per call)")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    bf, f32 = torch.bfloat16, torch.float32
+    int8pack = torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
+    res = {}
+    m, copies = 8, 24
+    for name, (k, n) in TPS_ROW21.items():
+        ops = [w8_operands(gen, dev, 1, k, n, bf, bias=False)
+               for _ in range(copies)]
+        if int8pack:
+            packed = [(o[1].t().contiguous(), o[2].to(bf)) for o in ops]
+        else:
+            deq = [dequantize_tensor(o[1], o[2], -2, bf) for o in ops]
+        for xdt, peak in ((f32, FP32_FLOPS), (bf, BF16_TC_FLOPS)):
+            x = _rand(gen, (m, k), xdt, dev)
+            xb = x.to(bf)
+            fk = [lambda o=o: w8.w8_matmul_kernel(x, o[1], o[2], None, xdt)
+                  for o in ops]
+            fp = [lambda o=o: w8.w8_matmul_plain(x, o[1], o[2], None, xdt)
+                  for o in ops]
+            if int8pack:
+                fl = [lambda p=p: torch._weight_int8pack_mm(xb, *p)
+                      for p in packed]
+            else:
+                fl = [lambda d=d: torch.matmul(xb, d) for d in deq]
+            size = 4 if xdt == f32 else 2
+            nbytes = m * k * size + k * n + n * 4 + m * n * size
+            _entry(res, f"w8_matmul_nobias_tp2_{name}_{str(xdt)[6:]}",
+                   time_ms(_cycle(fk), inner=copies),
+                   time_ms(_cycle(fp), inner=copies),
+                   time_ms(_cycle(fl), inner=copies), nbytes, 2 * m * k * n,
+                   peak, f"w8_matmul_nobias M {m} K {k} N {n} "
+                   f"{str(xdt)[6:]} x (tp 2 {name})",
+                   "torch._weight_int8pack_mm (bf16 x)" if int8pack
+                   else "torch.matmul over dequantized bf16 weights")
+        del ops
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 19. contrib/multihead_attn
+# ---------------------------------------------------------------------------
+
+MHA_EMBED, MHA_HEADS, MHA_DROPOUT = 1024, 16, 0.1
+MHA_SELF = (512, 16)            # seq, batch
+MHA_ENCDEC = (256, 512, 16)     # tgt, src, batch
+MHA_PLAIN_REL = 1e-2            # module vs plain versions, relative norm
+
+
+class _mha_recording:
+    """Within it the module's ``flash_attention`` and
+    ``fused_layer_norm_affine`` record their inputs, outputs and the
+    gradients that reach their outputs (the calls go through
+    unchanged)."""
+
+    def __init__(self, mod):
+        self.mod = mod
+
+    def __enter__(self):
+        mod = self.mod
+        self.saved = (mod.flash_attention, mod.fused_layer_norm_affine)
+        fa_fn, ln_fn = self.saved
+        rec = self.rec = {}
+
+        def flash(q, k, v, mask=None, **kw):
+            o = fa_fn(q, k, v, mask, **kw)
+            r = rec["flash"] = dict(q=q.detach(), k=k.detach(),
+                                    v=v.detach(), mask=mask, kw=kw,
+                                    o=o.detach())
+            o.register_hook(lambda g: r.__setitem__("do", g))
+            return o
+
+        def norm(x, w, b, shape, eps=1e-5):
+            y = ln_fn(x, w, b, shape, eps)
+            r = rec["ln"] = dict(x=x.detach(), w=w.detach(), b=b.detach(),
+                                 eps=eps)
+            y.register_hook(lambda g: r.__setitem__("dy", g))
+            return y
+
+        mod.flash_attention, mod.fused_layer_norm_affine = flash, norm
+        return rec
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention, self.mod.fused_layer_norm_affine = \
+            self.saved
+
+
+class _plain_kernels:
+    """Within it the LayerNorm and flash wrappers take their plain
+    versions on the card's tensors; the launches made inside are put
+    back."""
+
+    def __init__(self, kern):
+        self.mods = kernel_modules()[:2]
+        self.kern = kern
+
+    def __enter__(self):
+        self.saved = [m.on_card for m in self.mods]
+        self.counts = {n: k.launches for n, k in self.kern.items()}
+        for m in self.mods:
+            m.on_card = lambda t, what="": False
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m.on_card = f
+        for n, k in self.kern.items():
+            k.launches = self.counts[n]
+
+
+def _mha_kernel_parity(rec, label):
+    """The recorded flash call's forward, dq and dk/dv kernels against
+    their plain versions on its inputs (the module's sequence-first
+    views), per element to ``o_limit`` and ``bwd_limits``, a second
+    forward launch the recorded bits; the recorded LayerNorm's forward
+    (one bf16 ulp) and backward (``bwd_limits``)."""
+    from apex_tpu_torch.utils import prng
+
+    ln, fa = kernel_modules()[:2]
+    out = {}
+    f = rec["flash"]
+    q, k, v, kw = f["q"], f["k"], f["v"], f["kw"]
+    rng = kw.get("dropout_rng")
+    rate = float(kw.get("dropout_rate", 0.0)) if rng is not None else 0.0
+    seed = prng.host_bits(rng, 2) if rate > 0 else (0, 0)
+    mask = None if f["mask"] is None else f["mask"].to(torch.int32)
+    fkw = dict(causal=bool(kw.get("causal", False)),
+               scale=float(kw["softmax_scale"]), rate=rate)
+    o, lse = fa.attention_fwd_kernel(q, k, v, mask, seed, **fkw)
+    o0, lse0 = fa.attention_fwd_plain(q, k, v, mask, seed, **fkw)
+    e, use = _held(o, o0, fa.o_limit(q, k, v, mask, o0,
+                                     causal=fkw["causal"],
+                                     scale=fkw["scale"]))
+    check(use <= 1.0 and torch.equal(o, f["o"]),
+          f"{label}: flash forward on the module's views (q "
+          f"{tuple(q.shape)}, k {tuple(k.shape)}, strides q "
+          f"{q.stride()}): max_abs_err {e:.3g} ({use:.2f} of o_limit); the "
+          "module's launch the same bits")
+    out["flash_attention_fwd"] = e
+    do = f["do"] if f["do"].stride(-1) == 1 else f["do"].contiguous()
+    got = fa.attention_bwd_kernel(q, k, v, mask, o, lse, do, seed, **fkw)
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, seed, **fkw)
+    lims = fa.bwd_limits(q, k, v, mask, o, lse, do, *want, **fkw)
+    parts = []
+    for name, g, w0, lim in zip(("dq", "dk", "dv"), got, want, lims):
+        e, use = _held(g, w0, lim)
+        check(use <= 1.0 and bool(torch.isfinite(g).all()),
+              f"{label}: flash backward {name}: max_abs_err {e:.3g} "
+              f"({use:.2f} of bwd_limits)")
+        key = ("flash_attention_bwd_dq" if name == "dq"
+               else "flash_attention_bwd_dkv")
+        out[key] = max(out.get(key, 0.0), e)
+        parts.append(name)
+    if "ln" in rec:
+        r = rec["ln"]
+        x2 = r["x"].reshape(-1, r["x"].shape[-1])
+        y, _, _ = ln.layer_norm_fwd_kernel(x2, r["w"], r["b"], "ln",
+                                           r["eps"])
+        y0, mean0, rstd0 = ln.layer_norm_fwd_plain(x2, r["w"], r["b"], "ln",
+                                                   r["eps"])
+        err = (y.float() - y0.float()).abs()
+        ok = bool((err <= 2 ** -7 * y0.float().abs() + 1e-5).all())
+        check(ok, f"{label}: LayerNorm forward ({tuple(x2.shape)} bf16): "
+              f"max_abs_err {float(err.max()):.3g} (one bf16 ulp)")
+        out["layer_norm_fwd"] = float(err.max())
+        dy = r["dy"].reshape(x2.shape).contiguous()
+        got = ln.layer_norm_bwd_kernel(dy, x2, r["w"], r["b"], mean0, rstd0)
+        want = ln.layer_norm_bwd_plain(dy, x2, r["w"], r["b"], mean0, rstd0)
+        lims = ln.bwd_limits(dy, x2, r["w"], mean0, rstd0, *want)
+        worst = 0.0
+        for name, g, w0, lim in zip(("dx", "dgamma", "dbeta"), got, want,
+                                    lims):
+            e, use = _held(g, w0, lim)
+            check(use <= 1.0, f"{label}: LayerNorm backward {name}: "
+                  f"max_abs_err {e:.3g} ({use:.2f} of bwd_limits)")
+            worst = max(worst, e)
+        out["layer_norm_bwd"] = worst
+    return out
+
+
+def multihead_attn_phase(dev, kern):
+    """Phase 19: ``SelfMultiheadAttn`` (s 512, b 16, embed 1024, 16 heads,
+    bf16, norm-add, dropout 0.1, causal, a key mask) and
+    ``EncdecMultiheadAttn`` (tgt 256, src 512, b 16, dropout 0.1, a key
+    mask), forward and backward through the kernels with counts set to 0
+    before and read after (exact launches), each kernel call held on its
+    recorded inputs to its plain version per element, and the module's
+    output and gradients against the same module on the plain versions
+    (relative norm ``MHA_PLAIN_REL``)."""
+    from apex_tpu_torch.utils import prng
+    from apex_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    mod = importlib.import_module(
+        "apex_tpu_torch.contrib.multihead_attn.multihead_attn")
+    phase(f"multihead_attn: SelfMultiheadAttn (s {MHA_SELF[0]}, b "
+          f"{MHA_SELF[1]}, norm-add, causal, key mask) and "
+          f"EncdecMultiheadAttn (tgt {MHA_ENCDEC[0]}, src {MHA_ENCDEC[1]}, "
+          f"b {MHA_ENCDEC[2]}, key mask), embed {MHA_EMBED}, {MHA_HEADS} "
+          f"heads, bf16, dropout {MHA_DROPOUT}, forward and backward")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    bf = torch.bfloat16
+    out = {"errors": {}}
+
+    def key_mask(b, s):
+        lens = s - (torch.arange(b, device=dev) * 29) % (s // 4)
+        return (torch.arange(s, device=dev)[None, :]
+                < lens[:, None]).to(torch.int32)
+
+    for name in ("self", "encdec"):
+        if name == "self":
+            s, b = MHA_SELF
+            m = mod.SelfMultiheadAttn(MHA_EMBED, MHA_HEADS,
+                                      dropout=MHA_DROPOUT,
+                                      include_norm_add=True,
+                                      params_dtype=bf)
+            inputs = (_rand(gen, (s, b, MHA_EMBED), bf, dev),)
+            kw = dict(key_padding_mask=key_mask(b, s),
+                      attn_mask_causal=True)
+            want = {"layer_norm_fwd": 1, "layer_norm_bwd": 1,
+                    "threefry_bits": 1}
+        else:
+            tgt, src, b = MHA_ENCDEC
+            s = tgt
+            m = mod.EncdecMultiheadAttn(MHA_EMBED, MHA_HEADS,
+                                        dropout=MHA_DROPOUT,
+                                        params_dtype=bf)
+            inputs = (_rand(gen, (tgt, b, MHA_EMBED), bf, dev),
+                      _rand(gen, (src, b, MHA_EMBED), bf, dev))
+            kw = dict(key_padding_mask=key_mask(b, src))
+            want = {}
+        want.update(flash_attention_fwd=1, flash_attention_bwd_dq=1,
+                    flash_attention_bwd_dkv=1)
+        params = m.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+        dout = _rand(gen, (s, b, MHA_EMBED), bf, dev)
+
+        def run():
+            leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+            ins = [t.detach().requires_grad_(True) for t in inputs]
+            y = m.apply(leaves, *ins, dropout_rng=prng.PRNGKey(7), **kw)
+            y.backward(dout)
+            return [y.detach()] + [t.grad for t in ins] + [
+                t.grad for t in tree_leaves(leaves)]
+
+        with _mha_recording(mod) as rec:
+            torch.cuda.synchronize()
+            for k in kern.values():
+                k.launches = 0
+            got = run()
+            torch.cuda.synchronize()
+            launches = {n: k.launches for n, k in kern.items()}
+        check_launches(launches, want, f"multihead_attn {name}")
+        counts = {n: k.launches for n, k in kern.items()}
+        errs = _mha_kernel_parity(rec, f"multihead_attn {name}")
+        for n, k in kern.items():
+            k.launches = counts[n]
+        with _plain_kernels(kern):
+            plain = run()
+        rel = max(float((g.double() - p.double()).norm())
+                  / max(float(p.double().norm()), 1e-30)
+                  for g, p in zip(got, plain))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        check(finite and rel <= MHA_PLAIN_REL,
+              f"multihead_attn {name}: output and every gradient finite and "
+              f"within {MHA_PLAIN_REL} (relative norm) of the module on the "
+              f"plain versions: {rel:.3g}")
+        out[name] = dict(launches=launches, vs_plain_rel=rel)
+        for n, e in errs.items():
+            out["errors"][n] = max(out["errors"].get(n, 0.0), e)
+        del params, inputs, got, plain, rec
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    out["seconds"] = secs
+    used = {n: {k: c for k, c in out[n]["launches"].items() if c}
+            for n in ("self", "encdec")}
+    print(f"multihead_attn phase: {secs:.1f} s on {card_line()}; launches "
+          f"{used}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7881,12 +8705,15 @@ def main():
     ddp2 = ddp_two_ranks(dev)
     tpar = tensor_parallelism(dev, kern)
     ppcp = pipeline_context_parallelism(dev, kern)
+    tps = tensor_parallel_serving(dev, kern)
+    mha = multihead_attn_phase(dev, kern)
     pre = pretrain_defaults(dev)
     tm = times(dev)
     tm.update(train_times(dev))
     tm.update(step_times(dev))
     tm.update(flat_times(dev))
     tm.update(w8_times(dev))
+    tm.update(tps_row21_times(dev))
     tm.update(sgd_family_times(dev))
     tm.update(threefry_times(dev))
     tm.update(gpt_times(dev))
@@ -7923,8 +8750,17 @@ def main():
                    "gpt_pp1_nccl": ppcp["pp1"]["launches"][n],
                    **{f"gpt_{k}": sum(r[n] for r in ppcp[k]["launches"])
                       for k in ("pp2", "pp2_vpp2", "cp_ring",
-                                "cp_ulysses")}}
+                                "cp_ulysses")},
+                   **{f"serving_tp1_{m}": tps["tp1"][m]["launches"][n]
+                      for m in TPS_MODES},
+                   **{f"serving_tp2_{m}": sum(
+                       r[n] for r in tps["tp2"][m]["launches"])
+                      for m in TPS_MODES},
+                   **{f"multihead_attn_{k}": mha[k]["launches"][n]
+                      for k in ("self", "encdec")}}
                for n in kern}
+    for name, e in mha["errors"].items():
+        err[name] = max(err[name], e)
     for name, res in gpt_big.items():
         for n in kern:
             by_path[n][name] = res["launches"][n]
@@ -8047,10 +8883,14 @@ def main():
         "y = s_n * sum_k x q + b (exact products, one scale multiply); fp32 "
         "x at M > 8 keeps the CUDA-core tile")
     kernels[KERNEL_NAMES.index("w8_matmul_nobias")].update(
-        redesigned=True, note=w8_design + "; on no unsharded path: only the "
-        "tensor-parallel row-parallel linear calls it "
-        "(apex_tpu/serving/decode.py:880); held to its plain version and "
-        "timed at K 4096, N 1024")
+        redesigned=True, note=w8_design + "; its path is the int8 "
+        "tensor-parallel serving steps (launches_by_path serving_tp*_w8): "
+        "the Row-parallel linear before its all-reduce "
+        "(apex_tpu/serving/decode.py:880); main time at K 4096, N 1024, "
+        "at_tp2_* at tp 2's out (K 512) and fc2 (K 2048) into N 1024 with "
+        "fp32 x (the path's) and bf16 x",
+        **{f"at_tp2_{name}_{dt}_x": tm[f"w8_matmul_nobias_tp2_{name}_{dt}"]
+           for name in TPS_ROW21 for dt in ("float32", "bfloat16")})
     kernels[KERNEL_NAMES.index("w8_matmul")].update(redesigned=True,
                                                     note=w8_design)
     for k in (kernels[KERNEL_NAMES.index(n)] for n in (
@@ -8277,6 +9117,8 @@ def main():
     for key in ("ulysses_flash_fwd", "ulysses_flash_dq", "ulysses_flash_dkv"):
         print(f"{key}: {json.dumps(tm[key])}")
     print(f"pipeline and context parallelism: {json.dumps(ppcp)}")
+    print(f"tensor-parallel serving: {json.dumps(tps)}")
+    print(f"multihead_attn: {json.dumps(mha)}")
     phase("results")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

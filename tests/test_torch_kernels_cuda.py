@@ -85,7 +85,10 @@ bit. A ``PagedDecodeEngine`` with a ``FaultInjector`` quarantines a NaN
 decode row on the card without touching the co-tenant's stream and
 leaves the pool whole. A ``DisaggregatedRouter`` pair and a 2x2
 ``PoolRouter`` of paged engines on one card commit the colocated
-scheduler's streams, a corrupt handoff quarantined and retried."""
+scheduler's streams, a corrupt handoff quarantined and retried. Row 21
+is also held at int8 tensor-parallel serving's tp 2 shapes (M 8, K 512
+and 2048 into N 1024), and the flash forward, dq and dk/dv at
+``EncdecMultiheadAttn``'s sequence-first views (s_q 256 != s_k 512)."""
 
 import functools
 import importlib
@@ -541,6 +544,51 @@ def test_flash_bwd_kernels_match_plain(cuda_device, b, h, s, d, dt, causal,
         _assert_within(name, g, w0, lim)
     if masked and causal:
         assert bool((got[0][0, :, 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_kernels_at_encdec_sequence_first_views(cuda_device, rate):
+    """``EncdecMultiheadAttn``'s call (tgt 256 != src 512): q a
+    sequence-first head view of a (256, b, 1024) projection, k and v
+    views of a packed head-major (512, b, 2048) kv projection, a key mask
+    over the source; the forward, dq and dk/dv against their plain
+    versions per element (``o_limit``, ``bwd_limits``), repeats the same
+    bits."""
+    from apex_tpu_torch.contrib.multihead_attn.multihead_attn import (
+        _split_heads,
+    )
+
+    dev = cuda_device
+    rng = np.random.RandomState(3)
+    b, nh, hd, tgt, src = 4, 16, 64, 256, 512
+    q = _split_heads(_t(rng.randn(tgt, b, nh * hd), "bf16", dev), nh)
+    kv = _t(rng.randn(src, b, 2 * nh * hd), "bf16", dev).reshape(
+        src, b, nh, 2, hd)
+    k, v = (kv[:, :, :, j].permute(1, 2, 0, 3) for j in range(2))
+    do = _split_heads(_t(rng.randn(tgt, b, nh * hd), "bf16", dev), nh)
+    mask = np.ones((b, src), np.int32)
+    for i in range(b):
+        mask[i, src - 37 * i:] = 0
+    m = torch.from_numpy(mask).to(dev)
+    kw = dict(causal=False, scale=hd ** -0.5, rate=rate)
+    seed = (0x1234ABCD, 0x9876FEDC)
+    o, lse = attention_fwd_kernel(q, k, v, m, seed, **kw)
+    o2, lse2 = attention_fwd_kernel(q, k, v, m, seed, **kw)
+    o0, lse0 = attention_fwd_plain(q, k, v, m, seed, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _assert_o_close(o, o0, q, k, v, m, False, hd ** -0.5)
+    torch.testing.assert_close(lse, lse0, rtol=0.0, atol=_LSE_TOL["bf16"])
+    got = attention_bwd_kernel(q, k, v, m, o, lse, do, seed, **kw)
+    again = attention_bwd_kernel(q, k, v, m, o, lse, do, seed, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, g2) for g, g2 in zip(got, again))
+    want = attention_bwd_plain(q, k, v, m, o, lse, do, seed, **kw)
+    lims = fa_mod.bwd_limits(q, k, v, m, o, lse, do, *want, **kw)
+    for name, g, w0, lim, like in zip(("dq", "dk", "dv"), got, want, lims,
+                                      (q, k, v)):
+        assert g.shape == like.shape and bool(torch.isfinite(g).all())
+        _assert_within(name, g, w0, lim)
 
 
 @pytest.mark.cuda
@@ -1186,6 +1234,20 @@ def test_w8_matmul_kernels_match_plain(cuda_device, m, k, n, xdt, bias):
     _w8_check(w8.w8_matmul_kernel, w8.w8_matmul_plain, counter,
               (x, wq, scale, b, x.dtype),
               w8.w8_limit(x, wq, scale, b, x.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", ["f32", "bf16"])
+@pytest.mark.parametrize("k,n", [(512, 1024), (2048, 1024)],
+                         ids=["out", "fc2"])
+def test_w8_nobias_at_the_tp2_row_parallel_shapes(cuda_device, k, n, xdt):
+    """Row 21 where int8 tensor-parallel serving launches it at tp 2: the
+    Row-parallel out (K 512) and fc2 (K 2048) into N 1024 at a decode
+    tick's M 8 (fp32 x on that path; bf16 x too)."""
+    x, wq, scale, _ = _w8_operands(cuda_device, 8, k, n, xdt, False, False)
+    _w8_check(w8.w8_matmul_kernel, w8.w8_matmul_plain, w8.W8_MATMUL_NOBIAS,
+              (x, wq, scale, None, x.dtype),
+              w8.w8_limit(x, wq, scale, None, x.dtype))
 
 
 @pytest.mark.cuda

@@ -317,8 +317,8 @@ def _typed_exhaustion(model, mod):
 def test_reshard_exhaustion_is_typed(model):
     """Persistent drops exhaust the reshard budget with a typed
     ReshardFailed carrying the JAX package's attempts, pages and
-    ``corrupt``; a clean channel then ships; the sub-mesh form raises
-    naming A4.5."""
+    ``corrupt``; a clean channel then ships; sub-meshes over different
+    ranks raise naming A4.6, and over the same ranks build."""
     err, src, shape, attempts = _typed_exhaustion(model, S)
     jerr, jsrc, jshape, jattempts = _typed_exhaustion(model, jax_serving)
     assert (err.attempts, err.pages, err.corrupt) \
@@ -327,9 +327,15 @@ def test_reshard_exhaustion_is_typed(model):
     assert src.stats.as_dict() == jsrc.stats.as_dict()
     assert src.stats.reshard_failures == 1 and src.stats.reshards == 1
     assert attempts == jattempts == 1 and tuple(shape) == tuple(jshape)
-    for kw in (dict(src_mesh=object()), dict(dst_mesh=object())):
-        with pytest.raises(NotImplementedError, match="A4.5"):
-            S.PageReshard(**kw)
+    from apex_tpu_torch.transformer.parallel_state import Mesh
+
+    def mesh(ranks):
+        return Mesh(np.asarray(ranks).reshape(1, 1, 1, -1), None, {})
+
+    with pytest.raises(NotImplementedError, match="A4.6"):
+        S.PageReshard(src_mesh=mesh([0, 1]), dst_mesh=mesh([2, 3]))
+    assert S.PageReshard(src_mesh=mesh([0, 1]),
+                         dst_mesh=mesh([1, 0])).recv_site == "reshard_recv"
 
 
 def test_pool_route_fault_falls_back_fixed_order(model, jax_runs):

@@ -719,6 +719,12 @@ DEPARTURES.update({
         "paging.py:PrefixRegistry.get", "paging.py:PrefixRegistry.drop",
         "paging.py:PagePool.evict_prefix", "health.py:SpillFailed.__init__",
         "health.py:PromoteFailed.__init__")})
+# ``key`` of EncdecMultiheadAttn.apply is the encoder output, a tensor,
+# not a jax.random key: kept under the reference's name.
+DEPARTURES["contrib/multihead_attn/multihead_attn.py:"
+           "EncdecMultiheadAttn.apply"] = (
+    "key= is the encoder output (the keys' and values' input), kept under "
+    "the reference's name")
 # ``key`` in tensor_parallel/random.py is a utils.prng threefry key (the
 # JAX package's bits), not a generator: kept under the reference's name.
 DEPARTURES.update({
@@ -730,19 +736,7 @@ DEPARTURES.update({
 # Names (or parameters) owed to later items of ROADMAP.md queue A. When an
 # item lands, delete its entry: the scan then holds every one of its names
 # to the reference.
-OWED = {
-    "A4.5 tensor-parallel serving": [
-        f"serving/{m}:make_tp_{n}_fn" for m in ("decode.py", "__init__.py")
-        for n in ("prefill", "decode", "verify", "paged_prefill",
-                  "paged_decode", "paged_verify", "tree_verify",
-                  "chunk_prefill", "paged_chunk_prefill",
-                  "paged_tree_verify")],
-    # the page transfer between two sub-meshes needs tensor-parallel
-    # serving's engines
-    "A4.5 the mesh transfer functions": [
-        f"serving/{m}:{n}" for m in ("transfer.py", "__init__.py")
-        for n in ("make_tile_transfer_fns", "make_reshard_extract_fn")],
-}
+OWED = {}
 
 # Names whose signature is the reference's (the scan sees no gap) but
 # whose meaning departs: "module:name" -> what the port does.
@@ -805,9 +799,29 @@ DEPARTURES_IN_MEANING = {
     "parallel/distributed.py:DistributedDataParallel.replicate":
         "the identity: each process holds its own copy",
     "serving/transfer.py:PageReshard.__init__":
-        "src_mesh= / dst_mesh= (a reshard between two sub-meshes) raise "
-        "NotImplementedError naming A4.5; at None, the reference's default, "
-        "the tiles take the host round trip",
+        "src_mesh= and dst_mesh= over different ranks (a handoff between "
+        "processes) raise NotImplementedError naming A4.6; over the same "
+        "ranks this process gathers and keeps its head block as the "
+        "reference does",
+    **{f"serving/decode.py:make_tp_{n}_fn":
+       "runs the step on this rank's blocks in its own process: the params "
+       "cut once by shard_tp_params and the cache's head "
+       "block cut once by shard_tp_cache, written in place; the logits "
+       "whole on every rank; mesh= installs that mesh's model groups for "
+       "the call (None: the installed mesh), not jit(shard_map(...)) over "
+       "global arrays"
+       for n in ("prefill", "decode", "verify", "paged_prefill",
+                 "paged_decode", "paged_verify", "tree_verify",
+                 "chunk_prefill", "paged_chunk_prefill",
+                 "paged_tree_verify")},
+    "serving/transfer.py:make_tile_transfer_fns":
+        "gather_fn all-gathers this rank's head blocks over the mesh's model "
+        "group in rank order to host arrays; shard_fn keeps this rank's head "
+        "block of host tiles; no device_put or device_get of global arrays",
+    "serving/transfer.py:make_reshard_extract_fn":
+        "each rank all-gathers its head block of the pages over the mesh's "
+        "model group (torch.distributed) and holds the whole tiles on its "
+        "device, not one jit(shard_map(...)) over a global cache",
     "transformer/amp/__init__.py:GradScaler.unscale":
         "ORs found_inf by an all_reduce(MAX) over this rank's "
         "parallel_state groups along the tensor and then the pipeline "
@@ -818,15 +832,15 @@ DEPARTURES_IN_MEANING = {
 
 # Packages whose ``__init__`` exports are held to the reference's (the
 # packages of the slices since the data-parallel one, serving since its
-# fault tier, the amp tier's, and the pipeline, rig and ZeRO packages of
-# the pipeline- and context-parallel slice; not transformer/amp, whose reference
-# imports JAX's lax and axis_size there: its GradScaler is held by the
-# surface scan).
+# fault tier, the amp tier's, the pipeline, rig and ZeRO packages of
+# the pipeline- and context-parallel slice, and contrib/multihead_attn;
+# not transformer/amp, whose reference imports JAX's lax and axis_size
+# there: its GradScaler is held by the surface scan).
 EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer", "serving",
                   "amp", "fp16_utils", "mlp", "fused_dense", "partition",
                   "transformer/tensor_parallel", "transformer/layers",
                   "transformer/pipeline_parallel", "transformer/testing",
-                  "contrib/optimizers")
+                  "contrib/optimizers", "contrib/multihead_attn")
 
 
 def _defines_names(path):
