@@ -16,11 +16,16 @@ JAX example's defaults; the tree-path FusedSGD runs no kernel),
 ``resnet_flat_o0`` and ``resnet_flat_o2`` (``--opt-level O2``: bf16
 convolutions, fp32 BatchNorm leaves, the dynamic loss scale).
 
-Synthetic data: step i draws its images and labels from a CPU
-``torch.Generator`` seeded 1000 + i (the JAX example draws
-``jax.random`` bits, which the port does not reproduce yet). Left out
-until ``utils/checkpoint.py`` is ported: ``--checkpoint``, ``--save-freq``
-and ``--resume``. Runs on the CUDA device by default::
+Synthetic data: step i draws its images and labels on ``PRNGKey(1000 +
+i)`` through ``utils.prng``, as the JAX example draws them.
+
+Checkpoints (``utils/checkpoint.py``), as the JAX example has them:
+``--checkpoint PATH`` writes one atomic file holding the step, the master
+params, the BatchNorm statistics, the optimizer state (with
+``--flat-kernel`` FusedSGD's packed momentum buffer) and the scaler
+state, every ``--save-freq`` steps and at the end; ``--resume PATH``
+loads one and continues at its step + 1 (``nothing to do`` when that is
+past ``--steps``). Runs on the CUDA device by default::
 
     python -m apex_tpu_torch.examples.imagenet.main_amp -a resnet50 -b 64 \\
         --opt-level O0 [--flat-kernel]
@@ -41,10 +46,13 @@ from apex_tpu_torch import amp
 from apex_tpu_torch.models.resnet import (
     apply_resnet, cross_entropy_loss, init_resnet,
 )
+from apex_tpu_torch.multi_tensor_apply.flatten import LANES, make_spec
 from apex_tpu_torch.optimizers import FusedSGD
 from apex_tpu_torch.utils import prng
+from apex_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from apex_tpu_torch.utils.metrics import AverageMeter, Throughput
 from apex_tpu_torch.utils.platform import DeviceLike, resolve_device
+from apex_tpu_torch.utils.tree import tree_flatten, tree_map
 
 # name -> (opt level, FusedSGD's use_flat_kernel)
 CONFIGS = {"resnet_tree_o0": ("O0", False),
@@ -149,7 +157,38 @@ def parse_args(argv=None):
                    help="use_flat_kernel=True: FusedSGD steps one packed "
                    "buffer through the flat_sgd kernel")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    # checkpoint/resume (ref: main_amp.py --resume loading model+optimizer
+    # +amp.state_dict; here one atomic file holds the whole train state)
+    p.add_argument("--checkpoint", default=None,
+                   help="path to write checkpoints to")
+    p.add_argument("--save-freq", type=int, default=0,
+                   help="save every N steps (0: only at the end)")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint path to resume from")
     return p.parse_args(argv)
+
+
+def resume_state(path: str, opt: FusedSGD, params: Any, dev: torch.device
+                 ) -> Tuple[int, Any, Any, Any, Any]:
+    """``(next step, master, bn_stats, opt_state, scaler_state)`` from a
+    checkpoint, on ``dev``. A flat momentum buffer must have the rows of
+    the flat layout that ``params`` give (the layout is rebuilt, not
+    saved)."""
+    ck = load_checkpoint(path)
+
+    def to_dev(t):
+        return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+    master, bn_stats, opt_state, scaler_state = (
+        tree_map(to_dev, ck[k]) for k in ("params", "bn_stats", "opt_state",
+                                          "scaler_state"))
+    if opt.use_flat_kernel:
+        want = (make_spec(tree_flatten(master)[0]).total_rows, LANES)
+        got = tuple(opt_state.momentum_buf.shape)
+        if got != want:
+            raise ValueError(f"checkpoint {path}: momentum buffer {got} does "
+                             f"not match the params' flat layout {want}")
+    return int(ck["step"]) + 1, master, bn_stats, opt_state, scaler_state
 
 
 def main(argv=None) -> int:
@@ -172,6 +211,17 @@ def main(argv=None) -> int:
         args.num_classes, device=dev)
     master, stats, opt_state, scaler_state = step.init_state(params, stats,
                                                              dev)
+    start = 0
+    if args.resume:
+        start, master, stats, opt_state, scaler_state = resume_state(
+            args.resume, opt, master, dev)
+        print(f"resumed from {args.resume} at step {start}", flush=True)
+
+    def save(i):
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, {
+                "step": i, "params": master, "bn_stats": stats,
+                "opt_state": opt_state, "scaler_state": scaler_state})
 
     def sync():
         if dev.type == "cuda":
@@ -179,13 +229,17 @@ def main(argv=None) -> int:
 
     losses = AverageMeter("Loss", ":.4e")
     speed = Throughput()
+    if start >= args.steps:
+        print(f"nothing to do: resumed step {start} >= --steps "
+              f"{args.steps}")
+        return 0
     t0 = time.perf_counter()
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         images, labels = synthetic_batch(i, args.batch_size, args.image_size,
                                          args.num_classes, dev)
         master, stats, opt_state, scaler_state, loss = step(
             master, stats, opt_state, scaler_state, images, labels)
-        if i == 0:   # the first step carries the warm-up
+        if i == start:   # the first step carries the warm-up
             sync()
             speed.start()
             t0 = time.perf_counter()
@@ -195,11 +249,15 @@ def main(argv=None) -> int:
             losses.update(float(loss))
             print(f"step {i:4d}  loss {losses.val:.6f}  "
                   f"speed {speed.per_sec:8.1f} img/s", flush=True)
+        if args.save_freq and (i + 1) % args.save_freq == 0:
+            save(i)
     sync()
+    save(args.steps - 1)
     dt = time.perf_counter() - t0
-    n = (args.steps - 1) * args.batch_size
+    done = args.steps - start
+    n = (done - 1) * args.batch_size
     print(f"FINAL speed {n / max(dt, 1e-9):.1f} img/s  "
-          f"step_time {1000 * dt / max(args.steps - 1, 1):.2f} ms")
+          f"step_time {1000 * dt / max(done - 1, 1):.2f} ms")
     return 0
 
 

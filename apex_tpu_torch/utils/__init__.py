@@ -1,3 +1,4 @@
 """Small shared helpers: device resolution, integer math, bucketing,
-jax.random's threefry streams (``prng``),
-and the nvcc/ctypes build of the CUDA sources."""
+jax.random's threefry streams (``prng``), the nvcc/ctypes build of the
+CUDA sources, checkpoints (``checkpoint``) and the profiler's trace
+report (``profiler``)."""

@@ -26,6 +26,29 @@ def tree_map(fn: Callable, tree: Any, *rest: Any,
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, *rest: Any,
+                       _path: Tuple = ()) -> Any:
+    """``jax.tree_util.tree_map_with_path``: ``fn(path, leaf, *rest)``,
+    ``path`` a tuple with one entry a level: the dict key, the list or
+    tuple index (an int), or ``"." + field`` for a NamedTuple (the
+    ``str`` of JAX's ``DictKey.key``, ``SequenceKey.idx`` and
+    ``GetAttrKey``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      _path=_path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        named = hasattr(tree, "_fields")
+        items = [tree_map_with_path(
+            fn, v, *(r[i] for r in rest),
+            _path=_path + (f".{tree._fields[i]}" if named else i,))
+            for i, v in enumerate(tree)]
+        return type(tree)(*items) if named else type(tree)(items)
+    return fn(_path, tree, *rest)
+
+
 def tree_leaves(tree: Any) -> List[Any]:
     """Leaves in the order :func:`tree_map` visits them."""
     out: List[Any] = []

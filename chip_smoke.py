@@ -401,7 +401,33 @@ Phases, each printed as it runs; any failure exits non-zero:
    in the encoder-decoder module) held to its plain version per element
    (``o_limit``, ``bwd_limits``), the LayerNorm's too, and the module's
    output and gradients against the same module on the plain versions.
-   Each of 18 and 19 prints its seconds.
+   Each of 18 and 19 prints its seconds. Phase 17's two gloo ranks
+   also run (f) ZeRO's sharded checkpoint (after the dp 2 step, a second
+   step on each rank's rows held at rest, one ``save_sharded_checkpoint``
+   file a rank, the third step uninterrupted and again from a fresh init
+   loaded from the file: the params bit for bit, the rank's m its (R/2,
+   128) rows throughout) and (g) the spatially parallel bottleneck at cp
+   2 (ResNet-50's first identity block, batch 32, 56 x 56, 256 channels,
+   fp32) against the unsharded block, forward within rtol = atol 1e-5
+   and the gradient of x within 1e-4, the halos' host-staged bytes.
+
+20. checkpoints, RNN, weight norm, ASP, profiler — (a) the imagenet
+   example at ResNet-50, batch 64, 224 x 224, O2, ``--flat-kernel`` in
+   child processes: 6 straight steps, 3 steps, then ``--resume`` to 6;
+   steps 3-5's printed losses equal as strings, ``flat_sgd`` once a step
+   (deterministic algorithms only if two straight runs part); (d) the
+   byte-level mLSTM (4096 units, 64-dim embedding, 256 steps, batch 128)
+   forward and backward in fp32 against float64 on the card, and a
+   2-layer LSTM (hidden 1024) whose dropout keep mask, drawn by
+   ``threefry_bits``, equals the plain draw bit for bit; (e)
+   ``compute_weight`` on a (1024, 4096) kernel, fp32 and bf16 v, against
+   float64 per element; (f) ASP's masks on BERT-Large's 300 leaves and
+   three masked ``FusedAdam(use_flat_kernel=True)`` steps, ``flat_adam``
+   bit for bit with its plain version, the pruned slots zero in params,
+   m and v; (g) one 2-layer BERT O2 step under ``utils.profiler.trace``,
+   the trace's LayerNorm and flash kernels by name as many as their
+   launch counts. The LayerNorm kernels are also timed in both modes at
+   (8192, 1024) and (8192, 4096).
 
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
@@ -5921,7 +5947,7 @@ def tensor_parallelism(dev, kern):
 # ---------------------------------------------------------------------------
 
 PP_RANKS = 2          # two gloo ranks on the one card
-PP_STEPS = 2
+PP_STEPS = 1          # cut from 2 when phase 20 came (PERF.md §4)
 PP_RANK_TIMEOUT_S = 900
 PP_LAYERS, PP_BATCH, PP_MICRO, PP_SEQ, PP_HIDDEN = 24, 8, 2, 1024, 1024
 # pretrain_gpt.py's flags for GPT-medium's widths at seq 1024, global
@@ -6279,18 +6305,28 @@ def _cp_run(dev, kern, impl, rank, ref):
     return out
 
 
-def _zero_run(dev, rank):
-    """(e) on this rank: one ``DistributedFusedAdam`` step at dp
-    ``PP_RANKS`` on GPT-medium's params (each rank's own seeded
-    gradients), rank 0 holding the new params to ``FusedAdam`` on the
-    ranks' mean gradient (the reference's 2e-5 relative, 1e-6
-    absolute); the state's bytes a device at dp 2 and at dp 1."""
+def _zero_run(dev, rank, tmp):
+    """(e) and (f) on this rank: a ``DistributedFusedAdam`` step at dp
+    ``PP_RANKS`` on GPT-medium's params from the whole init (each rank's
+    own seeded gradients), rank 0 holding the new params to
+    ``FusedAdam`` on the ranks' mean gradient (the reference's 2e-5
+    relative, 1e-6 absolute); the state's bytes a device at dp 2 and at
+    dp 1. (f): a second step on the rank's rows held at rest
+    (``in_specs`` and ``out_specs`` ``P()`` on the state), one
+    ``save_sharded_checkpoint`` file a rank, and the third step
+    uninterrupted and again from a fresh init loaded from the file: the
+    params the same bits."""
+    import os
+
     from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
     from apex_tpu_torch.models.gpt import gpt_medium, init_gpt_from_key
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.transformer import parallel_state as ps
     from apex_tpu_torch.transformer.tensor_parallel import mappings
     from apex_tpu_torch.utils import prng
+    from apex_tpu_torch.utils.checkpoint import (
+        load_sharded_checkpoint, save_sharded_checkpoint,
+    )
     from apex_tpu_torch.utils.tree import tree_leaves, tree_map
 
     P = ps.PartitionSpec
@@ -6298,8 +6334,8 @@ def _zero_run(dev, rank):
     try:
         params = init_gpt_from_key(prng.PRNGKey(0), gpt_medium(), device=dev)
 
-        def grads_of(r):
-            gen = torch.Generator(device=dev).manual_seed(100 + r)
+        def grads_of(r, k=0):
+            gen = torch.Generator(device=dev).manual_seed(100 + r + 10 * k)
             return tree_map(lambda p: torch.randn(
                 p.shape, generator=gen, device=dev) * 1e-3, params)
 
@@ -6321,7 +6357,7 @@ def _zero_run(dev, rank):
                    state_bytes_dp1=DistributedFusedAdam(
                        dp_size=1).state_bytes_per_device(params),
                    params_checksum=_checksum(new_p))
-        del st, new_st
+        del st
         if rank == 0:
             mean = tree_map(lambda a, b: (a + b) * 0.5, grads_of(0),
                             grads_of(1))
@@ -6334,6 +6370,42 @@ def _zero_run(dev, rank):
                                                 tree_leaves(want)))
             out["max_abs"] = max(float((g - w).abs().max()) for g, w in
                                  zip(tree_leaves(new_p), tree_leaves(want)))
+            del mean, ref, want
+        torch.cuda.empty_cache()
+
+        def at_rest(p, s, g):
+            return ps.shard_map(lambda g, p, s: opt.step(g, p, s),
+                                in_specs=(P(), P(), P()),
+                                out_specs=(P(), P()))(g, p, s)
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        p2, st2 = at_rest(new_p, new_st, grads_of(rank, 1))
+        _sync(dev)
+        out["rest_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["held_rows"] = [list(new_st.m.shape), list(st2.m.shape)]
+        del new_p, new_st
+        path = os.path.join(tmp, f"zero_rank{rank}.ckpt")
+        t0 = time.perf_counter()
+        save_sharded_checkpoint(path, st2, specs=sspec)
+        out["save_s"] = time.perf_counter() - t0
+        out["ckpt_bytes"] = os.path.getsize(path)
+        g3 = grads_of(rank, 2)
+        want_p, _ = at_rest(p2, st2, g3)
+        del st2
+        torch.cuda.empty_cache()
+        fresh = ps._map_specs(ps.shard_leaf, sspec, opt.init(params))
+        t0 = time.perf_counter()
+        loaded = load_sharded_checkpoint(path, fresh, specs=sspec)
+        _sync(dev)
+        out["load_s"] = time.perf_counter() - t0
+        os.unlink(path)
+        del fresh
+        got_p, _ = at_rest(p2, loaded, g3)
+        out["resumed_same"] = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(got_p), tree_leaves(want_p)))
+        out["loaded_rows"] = list(loaded.m.shape)
+        del loaded, got_p, want_p, p2, g3
     finally:
         ps.destroy_model_parallel()
     torch.cuda.empty_cache()
@@ -6344,8 +6416,9 @@ def _pp_rank(rank, tmp, port, device):
     """A rank of :func:`pp_cp_two_ranks`: the default process group on
     gloo from a launcher's environment (NCCL refuses two ranks on one
     card); (a) the two pipeline runs, (c) the memory, (d) ring and
-    Ulysses, (e) ZeRO; results to ``tmp/pp_rank<r>.json``; a barrier
-    before the groups go."""
+    Ulysses, (e) ZeRO and (f) its sharded checkpoint, (g) the spatial
+    bottleneck; results to ``tmp/pp_rank<r>.json``; a barrier before the
+    groups go."""
     import datetime
     import os
 
@@ -6375,7 +6448,10 @@ def _pp_rank(rank, tmp, port, device):
             out[f"cp_{impl}"] = _cp_run(dev, kern, impl, rank, unsharded)
         del unsharded
         torch.cuda.empty_cache()
-        out["zero"] = _zero_run(dev, rank)
+        out["zero"] = _zero_run(dev, rank, tmp)
+        t0 = time.perf_counter()
+        out["bottleneck"] = _bottleneck_run(dev, rank)
+        out["bottleneck"]["seconds"] = time.perf_counter() - t0
         with open(f"{tmp}/pp_rank{rank}.json", "w") as fh:
             json.dump(out, fh)
         dist.barrier()
@@ -6395,7 +6471,8 @@ def pp_cp_two_ranks(dev, one, tmp):
     M = PP_BATCH // PP_MICRO
     lim = STEP_LIMITS["O2"]
     glim = GPT_STEP_LIMITS["O2"]
-    phase(f"pipeline and context parallelism (a, c, d, e): two gloo ranks "
+    phase(f"pipeline and context parallelism (a, c, d, e, f, g): two gloo "
+          f"ranks "
           f"on the card (host-staged exchanges): pretrain_gpt.py at pp 2 "
           f"and at pp 2 with vpp 2 ({PP_STEPS} steps, M {M}), bounds: the "
           f"step-0 loss {lim['loss']:g} relative and gradients "
@@ -6405,7 +6482,10 @@ def pp_cp_two_ranks(dev, one, tmp):
           f"ring and Ulysses, against gpt_loss_unsharded (loss "
           f"{glim['loss']:g}, gradients {glim['grads']:g}); "
           f"DistributedFusedAdam at dp 2 on GPT-medium's params against "
-          "FusedAdam (2e-5 relative, 1e-6 absolute)")
+          "FusedAdam (2e-5 relative, 1e-6 absolute), (f) its sharded "
+          "checkpoint and a resumed step bit for bit; (g) the spatial "
+          f"bottleneck at cp 2 (rtol = atol {BN_FWD_TOL:g} forward, "
+          f"{BN_DX_TOL:g} the gradient of x)")
     torch.cuda.empty_cache()
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
@@ -6530,7 +6610,34 @@ def pp_cp_two_ranks(dev, one, tmp):
     print(f"host-staged reading: ZeRO step {[round(r['step_ms'], 1) for r in z]}"
           f" ms on the two ranks, host-staged bytes "
           f"{[r['staged_bytes'] for r in z]}", flush=True)
+    half = [z[0]["full_rows"][0] // PP_RANKS, z[0]["full_rows"][1]]
+    check(all(r["held_rows"] == [half, half] and r["loaded_rows"] == half
+              for r in z),
+          f"ZeRO (f): each rank holds its {half} rows of m between steps "
+          f"and loads {half} ({[r['held_rows'] for r in z]})")
+    check(all(r["resumed_same"] for r in z),
+          "ZeRO (f): the third step resumed from each rank's sharded file "
+          "gives the uninterrupted step's params bit for bit")
+    print(f"ZeRO sharded checkpoint: {[r['ckpt_bytes'] for r in z]} bytes a "
+          f"rank's file (master, m and v fp32), written in "
+          f"{[round(r['save_s'], 2) for r in z]} s, read in "
+          f"{[round(r['load_s'], 2) for r in z]} s; a step on the rows at "
+          f"rest {[round(r['rest_step_ms'], 1) for r in z]} ms", flush=True)
     out["zero"] = z
+    b = [r["bottleneck"] for r in res]
+    check(all(r["fwd_excess"] <= 0 and r["dx_excess"] <= 0 for r in b),
+          f"spatial bottleneck (g) at cp {PP_RANKS} (batch {BN_BATCH}, "
+          f"{BN_HW} x {BN_HW}, {BN_CH} channels, bottleneck {BN_MID}, fp32) "
+          f"vs the unsharded block: forward max |diff| "
+          f"{[r['fwd_max_abs'] for r in b]} within rtol = atol = "
+          f"{BN_FWD_TOL:g}, the gradient of x {[r['dx_max_abs'] for r in b]} "
+          f"within {BN_DX_TOL:g}")
+    print(f"host-staged reading: the bottleneck's halos "
+          f"{[r['halo_bytes_fwd'] for r in b]} bytes forward, "
+          f"{[r['halo_bytes'] for r in b]} forward and backward a rank; "
+          f"{[round(r['seconds'], 1) for r in b]} s with the unsharded "
+          f"reference", flush=True)
+    out["bottleneck"] = b
     return out
 
 
@@ -8607,6 +8714,607 @@ def serve_disagg(dev, kern, f32, o2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 20. checkpoints and resume, the spatial tier, RNN, weight norm, ASP and
+#     the profiler
+# ---------------------------------------------------------------------------
+
+# (a) the imagenet example's kill and resume at its full configuration
+RESUME_ARGS = ("-a", f"resnet{RESNET_DEPTH}", "-b", str(RESNET_BIG[0]),
+               "--image-size", str(RESNET_BIG[1]), "--num-classes",
+               str(RESNET_CLASSES), "--print-freq", "1", "--opt-level", "O2",
+               "--flat-kernel", "--lr", str(RESNET_BIG_LR))
+RESUME_STEPS, RESUME_KILL = 6, 3
+# main_amp's main(argv) in a child process on the card: deterministic
+# algorithms when argv[1] is "1"; the kernels' launch counts on a line of
+# their own after it returns
+_MAIN_AMP = (
+    "import json, sys\n"
+    "import torch\n"
+    "if sys.argv[1] == '1':\n"
+    "    torch.use_deterministic_algorithms(True)\n"
+    "sys.path.insert(0, sys.argv[2])\n"
+    "import chip_smoke\n"
+    "from apex_tpu_torch.examples.imagenet.main_amp import main\n"
+    "rc = main(sys.argv[3:])\n"
+    "print('LAUNCHES ' + json.dumps({n: k.launches for n, k in "
+    "chip_smoke.kernel_counters().items()}), flush=True)\n"
+    "sys.exit(rc)\n")
+# (c) ResNet-50's first identity block (stage 1: 256 channels, bottleneck
+# 64, 56 x 56), fp32, and the reference's bounds (rtol = atol)
+BN_BATCH, BN_HW, BN_CH, BN_MID = 32, 56, 256, 64
+BN_FWD_TOL, BN_DX_TOL = 1e-5, 1e-4
+# (d) Radford et al. 2017's byte-level mLSTM (arXiv:1704.01444: 4096
+# units, 64-dim byte embedding, 256 steps, batch 128), and a 2-layer
+# LSTM with inter-layer dropout
+MLSTM_H, MLSTM_E, MLSTM_S, MLSTM_B = 4096, 64, 256, 128
+LSTM_H, LSTM_S, LSTM_B, LSTM_DROPOUT = 1024, 128, 64, 0.1
+# fp32 against float64 on the card, relative norms: the output over 256
+# steps of K-4096 fp32 products (u sqrt(K) ~ 4e-6 a product) and the
+# gradients summed over 256 x 128 positions
+RNN_F64_LIMITS = {"out": 1e-4, "grads": 1e-3}
+# (e) BERT-Large's intermediate dense kernel (in, out); per element
+# against float64: fp32 32 u (the norm's sum over 4096 squares, its sqrt,
+# a divide and a multiply), a bf16 result its rounding more (half an ulp:
+# at most 2^-8 of |w|)
+WN_SHAPE = (1024, 4096)
+WN_LIMITS = {torch.float32: 2.0 ** -19,
+             torch.bfloat16: 2.0 ** -8 + 2.0 ** -19}
+WN_GRAD_REL = 1e-5
+# (f) masked FusedAdam steps on BERT-Large
+ASP_STEPS = 3
+# (g) the profiled step: BERT-Large width, 2 layers, O2, batch 8, seq 128;
+# each kernel's device symbols in the trace (the LayerNorm backward's
+# stage 1 names one launch of its wrapper)
+PROF_LAYERS, PROF_BATCH = 2, 8
+PROF_SYMBOLS = {"layer_norm_fwd": ("layer_norm_fwd_kernel",),
+                "layer_norm_bwd": ("layer_norm_bwd_kernel",),
+                "flash_attention_fwd": ("flash_fwd_kernel",
+                                        "flash_fwd_tc_kernel"),
+                "flash_attention_bwd_dq": ("flash_dq_kernel",
+                                           "flash_dq_tc_kernel"),
+                "flash_attention_bwd_dkv": ("flash_dkv_kernel",
+                                            "flash_dkv_tc_kernel")}
+
+
+def _excess(got, want, rtol, atol):
+    """max(|got - want| - (atol + rtol |want|)): at most 0 where
+    ``np.allclose(got, want, rtol, atol)`` holds."""
+    g, w = got.detach().double(), want.detach().double()
+    return float(((g - w).abs() - (atol + rtol * w.abs())).max())
+
+
+def _main_amp_run(args, deterministic):
+    """``main_amp.main`` in a child process on the card: its printed
+    losses by step (as strings), its launch counts, its seconds."""
+    import os
+    import re
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    if deterministic:
+        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _MAIN_AMP,
+                        "1" if deterministic else "0", repo, *RESUME_ARGS,
+                        *args], cwd=repo, env=env, capture_output=True,
+                       text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(r.returncode == 0 and "LAUNCHES " in r.stdout,
+          f"main_amp {' '.join(args)}: exit code {r.returncode}"
+          + ("" if r.returncode == 0 else
+             f"\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}"))
+    losses = {int(m.group(1)): m.group(2) for m in re.finditer(
+        r"step\s+(\d+)\s+loss (\d+\.\d+)", r.stdout)}
+    launches = json.loads(r.stdout.split("LAUNCHES ", 1)[1].splitlines()[0])
+    return dict(losses=losses, launches=launches, seconds=secs,
+                resumed="resumed from" in r.stdout)
+
+
+def resume_phase(dev):
+    """(a) The imagenet example (``apex_tpu_torch.examples.imagenet.
+    main_amp``) at ResNet-50, batch 64, 224 x 224, 1000 classes, O2,
+    ``--flat-kernel``, in child processes on the card: 6 straight steps
+    with ``--checkpoint``, 3 steps (the kill), then ``--resume`` to 6.
+    The two straight runs' common steps (0-2) say whether the card's
+    steps repeat; if not, all three run again under
+    ``torch.use_deterministic_algorithms(True)`` and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``. Steps 3-5's printed losses equal
+    as strings; ``flat_sgd`` once a step in each run and
+    ``threefry_bits`` three times (the synthetic batch's draws)."""
+    import os
+    import tempfile
+
+    phase(f"checkpoints (a): main_amp --checkpoint / --resume, ResNet-"
+          f"{RESNET_DEPTH}, batch {RESNET_BIG[0]}, {RESNET_BIG[1]} x "
+          f"{RESNET_BIG[1]}, O2, --flat-kernel: {RESUME_STEPS} straight "
+          f"steps against {RESUME_KILL} and a resume (child processes; "
+          f"the printed losses of steps {RESUME_KILL}-{RESUME_STEPS - 1} "
+          "equal as strings)")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck_a, ck_b = os.path.join(tmp, "a.ckpt"), os.path.join(tmp, "b.ckpt")
+        straight_args = ["--steps", str(RESUME_STEPS), "--checkpoint", ck_a]
+        kill_args = ["--steps", str(RESUME_KILL), "--checkpoint", ck_b]
+        det = False
+        straight = _main_amp_run(straight_args, det)
+        killed = _main_amp_run(kill_args, det)
+        repeat = all(killed["losses"][s] == straight["losses"][s]
+                     for s in range(RESUME_KILL))
+        print(f"two straight runs on the card, steps 0-{RESUME_KILL - 1}: "
+              f"{[straight['losses'][s] for s in range(RESUME_KILL)]} and "
+              f"{[killed['losses'][s] for s in range(RESUME_KILL)]}: "
+              f"{'the same' if repeat else 'they differ'}", flush=True)
+        if not repeat:
+            det = True
+            straight = _main_amp_run(straight_args, det)
+            killed = _main_amp_run(kill_args, det)
+        nbytes = os.path.getsize(ck_b)
+        resumed = _main_amp_run(["--steps", str(RESUME_STEPS),
+                                 "--checkpoint", ck_b, "--resume", ck_b],
+                                det)
+    check(resumed["resumed"] and set(resumed["losses"]) == set(
+        range(RESUME_KILL, RESUME_STEPS)),
+          f"resumed at step {RESUME_KILL}, printed steps "
+          f"{sorted(resumed['losses'])}")
+    for s in range(RESUME_KILL, RESUME_STEPS):
+        check(resumed["losses"][s] == straight["losses"][s],
+              f"step {s}: resumed loss {resumed['losses'][s]} == straight "
+              f"{straight['losses'][s]}")
+    for name, run, steps in (("straight", straight, RESUME_STEPS),
+                             ("killed", killed, RESUME_KILL),
+                             ("resumed", resumed,
+                              RESUME_STEPS - RESUME_KILL)):
+        got = {n: c for n, c in run["launches"].items() if c}
+        want = {"flat_sgd": steps, "threefry_bits": 3 * steps}
+        check(got == want, f"{name} run: launches {got} = {want}: flat_sgd "
+              "once a step, threefry_bits three times (the step's synthetic "
+              "batch: normal and randint on its key), no other kernel")
+    print(f"checkpoint of ResNet-{RESNET_DEPTH} (master, BatchNorm "
+          f"statistics, FusedSGD's flat momentum buffer, scaler state): "
+          f"{nbytes} bytes; deterministic algorithms "
+          f"{'needed' if det else 'not needed'}; child runs "
+          f"{round(straight['seconds'], 1)}, {round(killed['seconds'], 1)}, "
+          f"{round(resumed['seconds'], 1)} s", flush=True)
+    launches = {n: sum(r["launches"][n] for r in (straight, killed, resumed))
+                for n in straight["launches"]}
+    return dict(straight_losses=straight["losses"],
+                resumed_losses=resumed["losses"], checkpoint_bytes=nbytes,
+                deterministic=det, steps_repeat=repeat, launches=launches,
+                seconds=[straight["seconds"], killed["seconds"],
+                         resumed["seconds"]])
+
+
+def _bottleneck_run(dev, rank):
+    """(g) on this rank: the spatially parallel bottleneck at cp
+    ``PP_RANKS`` (each rank half the rows of H) against the unsharded
+    block on the whole input, forward and the gradient of x of
+    sum(y**2); the halo's host-staged bytes."""
+    from apex_tpu_torch.contrib.bottleneck import (
+        init_spatial_bottleneck, spatial_bottleneck,
+        spatial_parallel_bottleneck,
+    )
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.tensor_parallel import mappings
+
+    P = ps.PartitionSpec
+    rows = P(None, ps.CONTEXT_AXIS)
+
+    def grad_of(fn):
+        def body(p, x):
+            x = x.detach().requires_grad_(True)
+            (fn(p, x) ** 2).sum().backward()
+            return x.grad
+        return body
+
+    ps.initialize_model_parallel(context_parallel_size_=PP_RANKS,
+                                 device=dev)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_spatial_bottleneck(gen, BN_CH, BN_MID, device=dev)
+        x = torch.randn((BN_BATCH, BN_HW, BN_HW, BN_CH), generator=gen,
+                        device=dev)
+        mappings.staged_bytes = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        y_local = ps.shard_map(spatial_parallel_bottleneck,
+                               in_specs=(P(), rows), out_specs=P())(params, x)
+        fwd_halo = mappings.staged_bytes
+        dx_local = ps.shard_map(grad_of(spatial_parallel_bottleneck),
+                                in_specs=(P(), rows),
+                                out_specs=P())(params, x)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        halo = mappings.staged_bytes
+        y = ps.gather_leaf(y_local, rows)
+        dx = ps.gather_leaf(dx_local, rows)
+        y_ref = spatial_bottleneck(params, x)
+        dx_ref = grad_of(spatial_bottleneck)(params, x)
+        out = dict(fwd_excess=_excess(y, y_ref, BN_FWD_TOL, BN_FWD_TOL),
+                   dx_excess=_excess(dx, dx_ref, BN_DX_TOL, BN_DX_TOL),
+                   fwd_max_abs=float((y - y_ref).abs().max()),
+                   dx_max_abs=float((dx - dx_ref).abs().max()),
+                   local_rows=y_local.shape[1], halo_bytes_fwd=fwd_halo,
+                   halo_bytes=halo, sharded_ms=secs * 1e3)
+    finally:
+        ps.destroy_model_parallel()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rnn_phase(dev, kern):
+    """(d) The byte-level mLSTM (one layer, 4096 units, 64-dim
+    embedding, 256 steps, batch 128) forward and backward in fp32 against
+    the same module in float64 on the card (relative norms
+    ``RNN_F64_LIMITS``); then a 2-layer LSTM at hidden 1024 with dropout
+    0.1, counts set to 0 before and read after: ``threefry_bits`` once
+    (layer 0's keep mask), the mask equal bit for bit to the plain int64
+    draw of ``bernoulli(fold_in(key, 0), 0.9)``, and the stack's output
+    the bits of its two layers run by hand around that mask."""
+    from apex_tpu_torch.RNN import LSTM, mLSTM
+    from apex_tpu_torch.utils import prng
+    from apex_tpu_torch.utils.tree import tree_map
+
+    phase(f"RNN (d): mLSTM (hidden {MLSTM_H}, embedding {MLSTM_E}, "
+          f"{MLSTM_S} steps, batch {MLSTM_B}) forward and backward, fp32 "
+          f"against float64 on the card (relative norm: output "
+          f"{RNN_F64_LIMITS['out']:g}, gradients "
+          f"{RNN_F64_LIMITS['grads']:g}); 2-layer LSTM (hidden {LSTM_H}, "
+          f"{LSTM_S} steps, batch {LSTM_B}) with dropout {LSTM_DROPOUT}: the "
+          "keep mask bit for bit")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = mLSTM(MLSTM_E, MLSTM_H)
+    params = model.init(gen, device=dev)
+    table = torch.randn((256, MLSTM_E), generator=gen, device=dev)
+    ids = torch.randint(0, 256, (MLSTM_S, MLSTM_B), generator=gen,
+                        device=dev)
+    xs = table[ids]
+    cot = torch.randn((MLSTM_S, MLSTM_B, MLSTM_H), generator=gen,
+                      device=dev)
+
+    def run(p, xs, cot):
+        p = tree_map(lambda a: a.detach().requires_grad_(True), p)
+        xs = xs.detach().requires_grad_(True)
+        out, _ = model.apply(p, xs)
+        out.backward(cot)
+        cell = p[0]["fwd"]
+        return out.detach(), [cell[k].grad for k in sorted(cell)] + [xs.grad]
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    out32, g32 = run(params, xs, cot)
+    _sync(dev)
+    t32 = time.perf_counter() - t0
+    out64, g64 = run(tree_map(lambda a: a.double(), params), xs.double(),
+                     cot.double())
+    _sync(dev)
+    rel_out = _relnorm(out32, out64)
+    rel_g = max(_relnorm(a, b) for a, b in zip(g32, g64))
+    check(rel_out <= RNN_F64_LIMITS["out"] and rel_g <= RNN_F64_LIMITS[
+        "grads"], f"mLSTM fp32 vs float64: output {rel_out:.3g} <= "
+          f"{RNN_F64_LIMITS['out']:g}, worst gradient (w_hh, w_ih, w_mhh, "
+          f"w_mih, b_hh, b_ih, xs) {rel_g:.3g} <= "
+          f"{RNN_F64_LIMITS['grads']:g}; fp32 forward and backward "
+          f"{t32 * 1e3:.1f} ms")
+    del params, out32, g32, out64, g64, cot
+    torch.cuda.empty_cache()
+
+    lstm = LSTM(LSTM_H, LSTM_H, num_layers=2, dropout=LSTM_DROPOUT)
+    lp = lstm.init(gen, device=dev)
+    xs = torch.randn((LSTM_S, LSTM_B, LSTM_H), generator=gen, device=dev)
+    key = prng.PRNGKey(5)
+    for k in kern.values():
+        k.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out, _ = lstm.apply(lp, xs, dropout_rng=key)
+    _sync(dev)
+    t_lstm = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kern.items()}
+    check(launches["threefry_bits"] == 1 and sum(launches.values()) == 1,
+          f"2-layer LSTM with dropout: threefry_bits once (layer 0's keep "
+          f"mask), no other kernel "
+          f"({ {n: c for n, c in launches.items() if c} })")
+    shape = (LSTM_S, LSTM_B, LSTM_H)
+    k0 = prng.fold_in(key, 0)
+    words = prng.threefry_bits_plain(k0.reshape(1, 2), math.prod(shape), dev)
+    keep_plain = prng._scaled(prng._uniform01(words).reshape(shape), 0.0,
+                              1.0) < prng._f32(1 - LSTM_DROPOUT).to(dev)
+    keep_kernel = prng.bernoulli(k0, 1 - LSTM_DROPOUT, shape, device=dev)
+    one = LSTM(LSTM_H, LSTM_H, num_layers=1)
+    with torch.no_grad():
+        h0, _ = one.apply(lp[:1], xs)
+        h0 = h0 * keep_plain / torch.tensor(1 - LSTM_DROPOUT,
+                                            dtype=h0.dtype, device=dev)
+        by_hand, _ = one.apply(lp[1:], h0)
+    check(torch.equal(keep_kernel, keep_plain)
+          and torch.equal(out, by_hand),
+          f"the keep mask ({int(keep_plain.sum())} of {keep_plain.numel()} "
+          "kept) from the threefry_bits kernel equals its plain int64 draw "
+          "bit for bit, and the stack's output equals its layers run by "
+          "hand around that mask")
+    return dict(mlstm=dict(out_rel=rel_out, grads_rel=rel_g,
+                           fp32_fwd_bwd_ms=t32 * 1e3),
+                lstm=dict(ms=t_lstm * 1e3, kept=int(keep_plain.sum())),
+                launches=launches)
+
+
+def weight_norm_phase(dev):
+    """(e) ``compute_weight`` on BERT-Large's (1024, 4096) dense kernel
+    with fp32 and bf16 v, per element against the same call in float64
+    (``WN_LIMITS`` times |w|); the fp32 gradients of g and v against
+    float64 (relative norm ``WN_GRAD_REL``)."""
+    from apex_tpu_torch.reparameterization import (
+        apply_weight_norm, compute_weight, remove_weight_norm,
+    )
+
+    phase(f"weight norm (e): compute_weight on a {WN_SHAPE} BERT-Large "
+          f"kernel, fp32 and bf16 v, against float64 (per element "
+          f"{WN_LIMITS[torch.float32]:.3g} and "
+          f"{WN_LIMITS[torch.bfloat16]:.3g} of |w|)")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randn(WN_SHAPE, generator=gen, device=dev) * 0.02
+    scale = 1.0 + 0.1 * torch.randn((WN_SHAPE[0], 1), generator=gen,
+                                    device=dev)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        g, v = apply_weight_norm(w.to(dt))
+        g = (g.float() * scale).to(dt)
+        got = compute_weight(g, v)
+        ref = compute_weight(g.double(), v.double())
+        err = (got.double() - ref).abs()
+        share = float((err / (WN_LIMITS[dt] * ref.abs()))[ref != 0].max())
+        check(got.dtype == dt and share <= 1.0
+              and bool((err[ref == 0] == 0).all())
+              and torch.equal(remove_weight_norm(g, v), got),
+              f"{str(dt)[6:]} v: w in {str(got.dtype)[6:]}, worst |w - "
+              f"w64| / ({WN_LIMITS[dt]:.3g} |w64|) {share:.3g} <= 1; "
+              "remove_weight_norm the same bits")
+        out[str(dt)[6:]] = share
+    gq, vq = (t.detach().requires_grad_(True) for t in apply_weight_norm(w))
+    gd, vd = (t.detach().double().requires_grad_(True) for t in (gq, vq))
+    cot = torch.randn(WN_SHAPE, generator=gen, device=dev)
+    compute_weight(gq, vq).backward(cot)
+    compute_weight(gd, vd).backward(cot.double())
+    rel = max(_relnorm(gq.grad, gd.grad), _relnorm(vq.grad, vd.grad))
+    check(rel <= WN_GRAD_REL, f"fp32 gradients of g and v vs float64 "
+          f"(relative norm) {rel:.3g} <= {WN_GRAD_REL:g}")
+    out["grads_rel"] = rel
+    return out
+
+
+def asp_phase(dev, kern):
+    """(f) ASP on BERT-Large's parameter tree: the masks and the
+    prunable leaf count; ``ASP_STEPS`` masked
+    ``FusedAdam(use_flat_kernel=True)`` steps with counts set to 0
+    before and read after (``flat_adam`` once a step), each step's
+    params, m and v the bits of ``flat_adam_plain`` on the same masked
+    inputs; the pruned slots exactly zero in params, m and v."""
+    from apex_tpu_torch.contrib.sparsity import ASP, apply_masks
+    from apex_tpu_torch.models.bert import bert_large, init_bert
+    from apex_tpu_torch.multi_tensor_apply import flatten as flat
+    from apex_tpu_torch.multi_tensor_apply.kernels import (
+        adam_hparams, flat_adam_plain,
+    )
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map
+
+    phase(f"ASP (f): 2:4 masks on BERT-Large's parameter tree, "
+          f"{ASP_STEPS} masked FusedAdam(use_flat_kernel=True) steps "
+          "(flat_adam bit for bit against its plain version on the same "
+          "masked inputs; pruned slots exactly zero)")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_bert(bert_large(), gen, device=dev)
+    n_leaves = len(tree_leaves(params))
+    asp = ASP()
+    _sync(dev)
+    t0 = time.perf_counter()
+    masks = asp.compute_sparse_masks(params)
+    _sync(dev)
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    mleaves = tree_leaves(masks)
+    prunable = sum(m is not True for m in mleaves)
+    kept = sum(int(m.sum()) for m in mleaves if m is not True)
+    total = sum(m.numel() for m in mleaves if m is not True)
+    check(0 < prunable < n_leaves and 2 * kept == total,
+          f"{prunable} of {n_leaves} leaves prunable ({total} weights, "
+          f"{kept} kept: half); masks in {mask_ms:.1f} ms")
+    params = apply_masks(params, masks)
+    opt = FusedAdam(lr=1e-4, weight_decay=0.01, use_flat_kernel=True)
+    state = opt.init(params)
+    step = asp.wrap_optimizer(opt, masks)
+    leaves, treedef = tree_flatten(params)
+    spec = flat.make_spec(leaves)
+    same = True
+    for k in kern.values():
+        k.launches = 0
+    for i in range(ASP_STEPS):
+        grads = tree_map(lambda p: torch.randn(
+            p.shape, generator=gen, device=dev) * 1e-3, params)
+        gbuf, _ = flat.flatten_tensors(tree_flatten(
+            apply_masks(grads, masks))[0], spec)
+        pbuf, _ = flat.flatten_tensors(tree_flatten(params)[0], spec)
+        hp = adam_hparams(lr=opt.lr, beta1=opt.beta1, beta2=opt.beta2,
+                          eps=opt.eps, step=state.step + 1,
+                          weight_decay=opt.weight_decay,
+                          adam_w_mode=opt.adam_w_mode,
+                          bias_correction=opt.bias_correction,
+                          grad_scale=1.0, device=dev)
+        p_plain, m_plain, v_plain = flat_adam_plain(gbuf, pbuf, state.m,
+                                                    state.v, hp)
+        want = apply_masks(flat.unflatten_pytree(p_plain, spec, treedef),
+                           masks)
+        params, state = step(grads, params, state)
+        same &= (torch.equal(state.m, m_plain)
+                 and torch.equal(state.v, v_plain)
+                 and all(torch.equal(a, b) for a, b in zip(
+                     tree_leaves(params), tree_leaves(want))))
+        del grads, gbuf, pbuf, p_plain, m_plain, v_plain, want
+    _sync(dev)
+    launches = {n: k.launches for n, k in kern.items()}
+    check(launches["flat_adam"] == ASP_STEPS
+          and sum(launches.values()) == ASP_STEPS,
+          f"flat_adam {launches['flat_adam']} launches = {ASP_STEPS} "
+          f"steps, no other kernel "
+          f"({ {n: c for n, c in launches.items() if c} })")
+    check(same, "each step's params, m and v the bits of flat_adam_plain "
+          "on the same masked inputs")
+    zero = True
+    m_leaves = tree_leaves(flat.unflatten_pytree(state.m, spec, treedef))
+    v_leaves = tree_leaves(flat.unflatten_pytree(state.v, spec, treedef))
+    for p, m, v, mask in zip(tree_leaves(params), m_leaves, v_leaves,
+                             mleaves):
+        if mask is not True:
+            cut = ~mask
+            zero &= bool((p[cut] == 0).all() and (m[cut] == 0).all()
+                         and (v[cut] == 0).all())
+    check(zero, f"after {ASP_STEPS} steps the pruned slots are exactly 0 "
+          "in params, m and v")
+    return dict(leaves=n_leaves, prunable=prunable, weights=total,
+                mask_ms=mask_ms, launches=launches)
+
+
+def profiler_phase(dev, kern):
+    """(g) One BERT O2 step (BERT-Large width, ``PROF_LAYERS`` layers,
+    batch 8, seq 128) traced by ``utils.profiler.trace`` after a step
+    outside it (the kernels' libraries load at their first launch):
+    ``summarize_trace(device_only=True)`` lists the LayerNorm and flash
+    kernels by their device symbols, each count equal to its wrapper's
+    launches in the traced step."""
+    import dataclasses
+    import tempfile
+
+    from apex_tpu_torch.examples.bert.train import make_bert_train_step
+    from apex_tpu_torch.models.bert import bert_large
+    from apex_tpu_torch.utils.profiler import annotate, summarize_trace, trace
+
+    phase(f"profiler (g): one BERT O2 step (BERT-Large width, {PROF_LAYERS} "
+          f"layers, batch {PROF_BATCH}, seq {SEQ}) under "
+          "utils.profiler.trace: the trace's kernel counts against the "
+          "launch counters")
+    cfg = dataclasses.replace(bert_large(), num_layers=PROF_LAYERS)
+    step, make_state, (ids, mask) = make_bert_train_step(
+        PROF_BATCH, SEQ, cfg, device=dev)
+    state = make_state()
+    *state, loss = step(*state, ids, mask)
+    _sync(dev)
+    for k in kern.values():
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            with annotate("bert_o2_step"):
+                *state, loss = step(*state, ids, mask)
+        launches = {n: k.launches for n, k in kern.items()}
+        rows = summarize_trace(d, top=10 ** 6, device_only=True)
+        host = summarize_trace(d, top=10 ** 6, device_only=False)
+    counts = {name: sum(r["count"] for r in rows
+                        if any(s in r["name"] for s in syms))
+              for name, syms in PROF_SYMBOLS.items()}
+    device_us = sum(r["total_us"] for r in rows)
+    for name in PROF_SYMBOLS:
+        check(launches[name] > 0 and counts[name] == launches[name],
+              f"trace: {name} {counts[name]} kernels by name = "
+              f"{launches[name]} launches counted")
+    check(any(r["name"] == "bert_o2_step" for r in host),
+          "the annotate range is on the host lanes")
+    print(f"profiled step: {len(rows)} device names, {device_us:.1f} us of "
+          f"device time in {sum(r['count'] for r in rows)} kernels, copies "
+          f"and sets; top: "
+          f"{[(r['name'][:40], r['count'], round(r['total_us'], 1)) for r in rows[:5]]}",
+          flush=True)
+    return dict(counts=counts, device_us=device_us, loss=float(loss),
+                launches=launches)
+
+
+def new_modules_phase(dev, kern):
+    """Phase 20: (a) resume, (d) RNN, (e) weight norm, (f) ASP and (g)
+    the profiler, each printing its seconds ((b) and (c) run in phase
+    17's two ranks); the phase's seconds and the card's name and power
+    limit."""
+    t0 = time.perf_counter()
+    out = dict(resume=resume_phase(dev), rnn=rnn_phase(dev, kern),
+               weight_norm=weight_norm_phase(dev), asp=asp_phase(dev, kern),
+               profiler=profiler_phase(dev, kern))
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"checkpoint, RNN, weight norm, ASP and profiler phase: "
+          f"{secs:.1f} s on {card_line()}", flush=True)
+    out["seconds"] = secs
+    return out
+
+
+def norm_times(dev):
+    """The LayerNorm kernels in both modes (``ln`` and ``rms``) at the
+    JAX benchmark's hidden 1024 and 4096 (``BASELINE.json`` config #2),
+    8192 rows, bf16 x, fp32 w (and b), forward and backward, beside
+    their plain versions and ``F.layer_norm`` / ``F.rms_norm`` (bf16 w,
+    b) and the backward library calls (``native_layer_norm_backward``;
+    RMS: ``F.rms_norm``'s autograd, forward + backward minus forward)."""
+    ln = kernel_modules()[0]
+    phase("times of the LayerNorm kernels, LayerNorm and RMSNorm modes, at "
+          "(8192, 1024) and (8192, 4096), bf16 x, fp32 w (device ms per "
+          "call, CUDA-graph replays)")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+    res = {}
+    rows = 8192
+    for h in (1024, 4096):
+        x = _rand(gen, (rows, h), bf, dev)
+        dy = _rand(gen, (rows, h), bf, dev)
+        w = _rand(gen, (h,), f32, dev, 0.5, 1.0)
+        b = _rand(gen, (h,), f32, dev, 0.3)
+        w16, b16 = w.to(bf), b.to(bf)
+        for mode in ("ln", "rms"):
+            bb = b if mode == "ln" else None
+            _, mean, rstd = ln.layer_norm_fwd_plain(x, w, bb, mode, 1e-5)
+            n_stats = 2 if mode == "ln" else 1
+            n_params = 2 if mode == "ln" else 1
+            if mode == "ln":
+                lib_f = time_ms(lambda: F.layer_norm(x, (h,), w16, b16, 1e-5))
+                lib_b = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [h], mean, rstd, w16, b16, [True, True, True]))
+                lib_names = ("F.layer_norm (bf16 w, b)",
+                             "native_layer_norm_backward (bf16 w, b)")
+            elif hasattr(F, "rms_norm"):
+                xg = x.detach().requires_grad_(True)
+                wg = w16.detach().requires_grad_(True)
+                lib_f = time_ms(lambda: F.rms_norm(x, (h,), w16, 1e-5))
+
+                def fwd_bwd():
+                    y = F.rms_norm(xg, (h,), wg, 1e-5)
+                    torch.autograd.grad(y, (xg, wg), dy)
+
+                lib_b = max(time_ms(fwd_bwd) - time_ms(
+                    lambda: F.rms_norm(xg, (h,), wg, 1e-5)), 0.0)
+                lib_names = ("F.rms_norm (bf16 w)", "F.rms_norm autograd "
+                             "(fwd + bwd - fwd, bf16 w)")
+            else:
+                lib_f = lib_b = None
+                lib_names = ("F.rms_norm (not in this torch)",) * 2
+            _entry(res, f"{mode}_fwd_{h}",
+                   time_ms(lambda: ln.layer_norm_fwd_kernel(x, w, bb, mode,
+                                                            1e-5)),
+                   time_ms(lambda: ln.layer_norm_fwd_plain(x, w, bb, mode,
+                                                           1e-5)),
+                   lib_f,
+                   2 * rows * h * 2 + n_params * h * 4 + n_stats * rows * 4,
+                   (8 if mode == "ln" else 5) * rows * h, FP32_FLOPS,
+                   f"{mode.upper()} fwd ({rows}, {h}) bf16 x, fp32 w",
+                   lib_names[0])
+            _entry(res, f"{mode}_bwd_{h}",
+                   time_ms(lambda: ln.layer_norm_bwd_kernel(dy, x, w, bb,
+                                                            mean, rstd)),
+                   time_ms(lambda: ln.layer_norm_bwd_plain(dy, x, w, bb,
+                                                           mean, rstd)),
+                   lib_b,
+                   3 * rows * h * 2 + h * 4 + n_stats * rows * 4
+                   + n_params * h * 4,
+                   (12 if mode == "ln" else 9) * rows * h, FP32_FLOPS,
+                   f"{mode.upper()} bwd ({rows}, {h}) bf16 x, fp32 w",
+                   lib_names[1])
+    return res
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -8707,9 +9415,11 @@ def main():
     ppcp = pipeline_context_parallelism(dev, kern)
     tps = tensor_parallel_serving(dev, kern)
     mha = multihead_attn_phase(dev, kern)
+    mods = new_modules_phase(dev, kern)
     pre = pretrain_defaults(dev)
     tm = times(dev)
     tm.update(train_times(dev))
+    tm.update(norm_times(dev))
     tm.update(step_times(dev))
     tm.update(flat_times(dev))
     tm.update(w8_times(dev))
@@ -8757,7 +9467,11 @@ def main():
                        r[n] for r in tps["tp2"][m]["launches"])
                       for m in TPS_MODES},
                    **{f"multihead_attn_{k}": mha[k]["launches"][n]
-                      for k in ("self", "encdec")}}
+                      for k in ("self", "encdec")},
+                   "resnet_resume": mods["resume"]["launches"][n],
+                   "rnn_lstm_dropout": mods["rnn"]["launches"][n],
+                   "asp_bert_large": mods["asp"]["launches"][n],
+                   "profiled_bert_step": mods["profiler"]["launches"][n]}
                for n in kern}
     for name, e in mha["errors"].items():
         err[name] = max(err[name], e)
@@ -8940,7 +9654,9 @@ def main():
         "for a team of several warps, the warps' sums in warp order; "
         "element loads where h or a row base is not aligned",
         at_8x1024=tm["ln_8x1024"], at_8192x1024_fp32_w=tm["ln_fwd_train"],
-        at_8192x1024_fp32_x=tm["ln_fwd_train_fp32"])
+        at_8192x1024_fp32_x=tm["ln_fwd_train_fp32"],
+        **{f"at_8192x{h}_{mode}": tm[f"{mode}_fwd_{h}"]
+           for h in (1024, 4096) for mode in ("ln", "rms")})
     kernels[KERNEL_NAMES.index("flat_sgd")].update(
         at_bert_large=tm["flat_sgd_bert"],
         bf16_buf_castout=tm["flat_sgd_resnet50_bf16buf_castout"])
@@ -8970,7 +9686,9 @@ def main():
         "stage 2 sums the partial rows per column in a fixed order with "
         "coalesced 128-byte reads; no float atomics",
         at_2048x4096=tm["ln_bwd_4096"],
-        at_8192x1024_fp32_x=tm["ln_bwd_fp32"])
+        at_8192x1024_fp32_x=tm["ln_bwd_fp32"],
+        **{f"at_8192x{h}_{mode}": tm[f"{mode}_bwd_{h}"]
+           for h in (1024, 4096) for mode in ("ln", "rms")})
     # GPT-medium's training step (gpt_tp_bench's tp=1 shape): the
     # LayerNorm's (8192, 1024) bf16 x, fp32 w and the dropout's 8.4M bf16
     # elements are the BERT step's shapes, timed above
@@ -9119,6 +9837,10 @@ def main():
     print(f"pipeline and context parallelism: {json.dumps(ppcp)}")
     print(f"tensor-parallel serving: {json.dumps(tps)}")
     print(f"multihead_attn: {json.dumps(mha)}")
+    print(f"checkpoints, RNN, weight norm, ASP, profiler: {json.dumps(mods)}")
+    for key in (f"{mode}_{d}_{h}" for mode in ("ln", "rms")
+                for d in ("fwd", "bwd") for h in (1024, 4096)):
+        print(f"{key}: {json.dumps(tm[key])}")
     phase("results")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

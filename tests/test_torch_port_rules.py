@@ -36,7 +36,9 @@ import sys
 import pytest
 import torch
 
+from apex_tpu_torch import RNN as port_rnn
 from apex_tpu_torch import amp as port_amp
+from apex_tpu_torch.contrib.bottleneck import init_spatial_bottleneck
 from apex_tpu_torch.examples.bert.train import make_bert_train_step
 from apex_tpu_torch.examples.gpt import pretrain_gpt
 from apex_tpu_torch.examples.gpt import train as gpt_train
@@ -132,7 +134,9 @@ def no_cuda(monkeypatch):
     "ddp_example_main", "initialize_distributed", "mlp_init",
     "fused_dense_init", "fused_dense_gelu_dense_init", "make_mesh",
     "gpt_tp_bench", "gpt_model_init", "column_parallel_init",
-    "row_parallel_init", "vocab_parallel_embedding_init"])
+    "row_parallel_init", "vocab_parallel_embedding_init",
+    "init_spatial_bottleneck", "init_lstm_cell", "init_mlstm_cell",
+    "init_gru_cell", "init_rnn_cell", "rnn_init"])
 def test_default_device_is_the_card(no_cuda, entry):
     cfg = port_gpt.gpt_tiny()
     bcfg = port_bert.bert_tiny()
@@ -182,6 +186,17 @@ def test_default_device_is_the_card(no_cuda, entry):
         "vocab_parallel_embedding_init": lambda: (
             port_tp.VocabParallelEmbedding(16, 4, tp_size=1).init(
                 torch.Generator())),
+        "init_spatial_bottleneck": lambda: init_spatial_bottleneck(
+            torch.Generator(), 8, 4),
+        "init_lstm_cell": lambda: port_rnn.init_lstm_cell(
+            torch.Generator(), 4, 4),
+        "init_mlstm_cell": lambda: port_rnn.init_mlstm_cell(
+            torch.Generator(), 4, 4),
+        "init_gru_cell": lambda: port_rnn.init_gru_cell(
+            torch.Generator(), 4, 4),
+        "init_rnn_cell": lambda: port_rnn.init_rnn_cell(
+            torch.Generator(), 4, 4),
+        "rnn_init": lambda: port_rnn.LSTM(4, 4).init(torch.Generator()),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -699,6 +714,12 @@ DEPARTURES = {
         "a TPU tile choice; the C entries choose from pointers and shapes",
     "transformer/functional/flash_attention.py:kernel_variant":
         "a TPU tile choice; the C entries choose from pointers and shapes",
+    "utils/checkpoint.py:save_sharded_checkpoint":
+        "specs=: the state's spec tree (partition_spec()), which the port's "
+        "tensors do not carry as JAX arrays carry their shardings",
+    "utils/checkpoint.py:load_sharded_checkpoint":
+        "specs=: the state's spec tree (partition_spec()), which the port's "
+        "tensors do not carry as JAX arrays carry their shardings",
     "utils/platform.py:apply_test_platform_override":
         "Pallas/TPU platform helper: device= takes its place",
     "utils/platform.py:has_tpu":
@@ -822,6 +843,37 @@ DEPARTURES_IN_MEANING = {
         "each rank all-gathers its head block of the pages over the mesh's "
         "model group (torch.distributed) and holds the whole tiles on its "
         "device, not one jit(shard_map(...)) over a global cache",
+    "utils/checkpoint.py:save_sharded_checkpoint":
+        "each rank writes its own file: its block of every sharded leaf "
+        "under the block's global slice and every replicated leaf dense "
+        "(the reference's records); one controller writing every device's "
+        "shard has no counterpart in processes",
+    "utils/checkpoint.py:load_sharded_checkpoint":
+        "returns this rank's block of each sharded leaf from this rank's "
+        "file (the template whole or this rank's blocks), on the template "
+        "leaf's device; no make_array_from_callback over a global sharding; "
+        "a file whose slices do not cover the block raises the reference's "
+        "topology mismatch",
+    "utils/checkpoint.py:load_checkpoint":
+        "returns host torch tensors (bf16 as torch.bfloat16), not numpy "
+        "arrays with ml_dtypes; files of the JAX package are not read",
+    "utils/profiler.py:summarize_trace":
+        "device_only= keeps the trace's kernel, gpu_memcpy and gpu_memset "
+        "events (CUPTI's records in a torch.profiler trace), not the "
+        "processes whose name holds /device",
+    "utils/profiler.py:trace":
+        "torch.profiler over the block (CPU, and CUDA where available), a "
+        "gzipped Chrome trace under <log_dir>/plugins/profile/<run>/; "
+        "create_perfetto_link= is accepted and does nothing",
+    "contrib/peer_memory/halo_exchange.py:PeerHaloExchanger1d.__init__":
+        "no peer_pool: the reference's peer-mapped buffers have no "
+        "counterpart, the halos move by torch.distributed sends over this "
+        "rank's group along axis_name",
+    "contrib/peer_memory/halo_exchange.py:halo_exchange_1d":
+        "the two halos move by ring shifts (isend/irecv) over this rank's "
+        "group along axis_name in its own process, not lax.ppermute in an "
+        "SPMD program; the axis size is the port mesh's members(axis_name), "
+        "not utils/compat.axis_size",
     "transformer/amp/__init__.py:GradScaler.unscale":
         "ORs found_inf by an all_reduce(MAX) over this rank's "
         "parallel_state groups along the tensor and then the pipeline "
@@ -833,14 +885,19 @@ DEPARTURES_IN_MEANING = {
 # Packages whose ``__init__`` exports are held to the reference's (the
 # packages of the slices since the data-parallel one, serving since its
 # fault tier, the amp tier's, the pipeline, rig and ZeRO packages of
-# the pipeline- and context-parallel slice, and contrib/multihead_attn;
-# not transformer/amp, whose reference imports JAX's lax and axis_size
-# there: its GradScaler is held by the surface scan).
+# the pipeline- and context-parallel slice, contrib/multihead_attn, and
+# the checkpoint slice's RNN, reparameterization, peer_memory, bottleneck
+# and sparsity; not transformer/amp, whose reference imports JAX's lax
+# and axis_size there, nor utils, whose reference exports the Pallas
+# platform helpers the port replaces with device= (its checkpoint and
+# profiler modules, like every module, are held by the surface scan).
 EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer", "serving",
                   "amp", "fp16_utils", "mlp", "fused_dense", "partition",
                   "transformer/tensor_parallel", "transformer/layers",
                   "transformer/pipeline_parallel", "transformer/testing",
-                  "contrib/optimizers", "contrib/multihead_attn")
+                  "contrib/optimizers", "contrib/multihead_attn", "RNN",
+                  "reparameterization", "contrib/peer_memory",
+                  "contrib/bottleneck", "contrib/sparsity")
 
 
 def _defines_names(path):

@@ -376,8 +376,9 @@ def test_example_runs_on_the_cpu(capsys):
 
 
 def test_unported_options_raise(jax_init, monkeypatch):
-    """The example's checkpoint flags are not ported (A7). SyncBatchNorm
-    is, on ``torch.distributed`` (``tests/test_torch_parallel.py``):
+    """The example's checkpoint flags are ported (``--resume`` parses;
+    ``tests/test_torch_checkpoint.py`` drives them) and an unknown flag
+    still exits. SyncBatchNorm is ported, on ``torch.distributed`` (``tests/test_torch_parallel.py``):
     ``convert_syncbn_model`` resolves the ``data`` axis at the call, and
     with no process group brings up the card's, so on a host without
     CUDA it raises naming ``device='cpu'``, and never falls back to gloo
@@ -397,8 +398,11 @@ def test_unported_options_raise(jax_init, monkeypatch):
         L.batchnorm(None, None, torch.zeros(2, 3), train=True,
                     axis_name="data")
     assert not torch.distributed.is_initialized()
+    args = main_amp.parse_args(["--resume", "ck.pt"])
+    assert (args.resume, args.checkpoint, args.save_freq) == ("ck.pt", None,
+                                                              0)
     with pytest.raises(SystemExit):
-        main_amp.parse_args(["--resume", "ck.pt"])
+        main_amp.parse_args(["--no-such-option", "ck.pt"])
 
 
 @pytest.mark.parametrize("i", [0, 3])
