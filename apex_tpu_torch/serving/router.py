@@ -69,6 +69,25 @@ paged kernels' arrival counters and work buffer
 counters. Replicas on one device are safe because the router runs them
 one after another on one stream; it starts no second stream.
 
+Replicas in separate processes: a replica is one rank (its engine is
+single-device). On a rank that does not hold a replica, the router is
+given a :class:`RemoteReplica` in its place: the replica's host half
+(page pool, prefix registry, block-table and length rows in host
+memory, the same fault draws and tracer spans) with no params, no pages
+and no forward. Every rank of the pool runs the router's whole host
+control (admission, routing, the work clock, the health ladders, the
+injector, every replica's bookkeeping), so the control state is the
+same on every rank; the device work runs on the replica's rank only.
+What the control reads from a forward it did not run is broadcast from
+the rank that ran it over one :class:`~apex_tpu_torch.serving.transfer.
+Wire` on every rank of the pool: the finite-row flags and the sampled
+tokens (``finite``, ``sample``, ``sample_grid`` of the active replica).
+A remote prefill's last logits row hops from the prefill replica's rank
+to the active replica's after its pages (``logits``), and the handoff
+channels send the verified pages between the two ranks (the transfer
+module doc). Failover needs no state move: the drained slots re-prefill
+on the target replica. A host tier stays in one process.
+
 This module is host state (router bookkeeping, health ladders).
 """
 
@@ -76,16 +95,22 @@ from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from apex_tpu_torch.serving.cache import NULL_PAGE
-from apex_tpu_torch.serving.faults import InjectedFault
+from apex_tpu_torch.serving.cache import (
+    NULL_PAGE, SCRATCH_PAGE, PagedKVCache, max_pages_per_slot,
+)
+from apex_tpu_torch.serving.faults import FaultInjector, InjectedFault
 from apex_tpu_torch.serving.health import (
     HEALTH_STATES, PoolExhausted, ReplicaHealth, ReplicaUnavailable,
     ReshardFailed, TransferCorrupt, TransferFailed,
 )
-from apex_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+from apex_tpu_torch.serving.observe import Tracer
+from apex_tpu_torch.serving.scheduler import (
+    ContinuousBatchingScheduler, PagedDecodeEngine,
+)
 from apex_tpu_torch.serving.transfer import (
-    PageReshard, PageTransfer, make_insert_pages_fn,
+    PageReshard, PageTransfer, Wire, make_insert_pages_fn,
 )
 
 #: The remote replica prefills every admission into this slot and frees
@@ -104,6 +129,135 @@ _REPLICA_ORDER = ("prefill", "decode")
 _PAIRED_ATTRS = ("cfg", "num_slots", "max_len", "page_size", "buckets",
                  "spec_k", "top_k", "top_p", "adaptive_spec",
                  "prefix_sharing")
+
+
+def _rows(*lead: int, vocab: int) -> torch.Tensor:
+    """A stand-in for logits a forward on another rank computed: their
+    shape and dtype, no data (the meta device)."""
+    return torch.empty(tuple(lead) + (vocab,), dtype=torch.float32,
+                       device="meta")
+
+
+class RemoteReplica(PagedDecodeEngine):
+    """The host half of a paged replica whose engine lives on the rank
+    ``rank`` (the module doc): give it to a router on every other rank
+    of the pool, built with the replica's own arguments (the
+    :class:`~apex_tpu_torch.serving.scheduler.PagedDecodeEngine`'s, less
+    the params, the compute dtype, the drafter, the host tier and the
+    device) and the pool's one injector and tracer. It keeps the page
+    pool, the prefix registry and the block-table and length rows in
+    host memory, draws the fault sites and opens the tracer spans the
+    engine does, and runs no forward: a step gives logits on the meta
+    device, and ``finite`` / ``sample`` / ``sample_grid`` give
+    placeholders the router replaces with the holder's broadcast."""
+
+    def __init__(self, rank: int, cfg, num_slots: int, max_len: int,
+                 num_pages: int, page_size: int,
+                 cache_dtype: torch.dtype = torch.bfloat16, top_k: int = 0,
+                 top_p: float = 0.0, spec_k: int = 0,
+                 buckets: Optional[Sequence[int]] = None,
+                 free_order: Optional[Sequence[int]] = None,
+                 prefix_sharing: bool = True,
+                 injector: Optional[FaultInjector] = None,
+                 adaptive_spec: bool = False,
+                 tracer: Optional[Tracer] = None):
+        self.rank = int(rank)
+        super().__init__({}, cfg, num_slots, max_len, num_pages,
+                         page_size, cache_dtype=cache_dtype, top_k=top_k,
+                         top_p=top_p, spec_k=spec_k, buckets=buckets,
+                         free_order=free_order,
+                         prefix_sharing=prefix_sharing, injector=injector,
+                         adaptive_spec=adaptive_spec, tracer=tracer,
+                         device="cpu")
+
+    def _make_cache(self, num_pages: int,
+                    cache_dtype: torch.dtype) -> PagedKVCache:
+        cfg = self.cfg
+        shape = (cfg.num_layers, num_pages, cfg.num_heads, self.page_size,
+                 cfg.head_dim)
+        # the pages' shape and dtype on the meta device: no memory
+        k, v = (torch.empty(shape, dtype=cache_dtype, device="meta")
+                for _ in range(2))
+        scales = (None, None)
+        if cache_dtype == torch.int8:
+            scales = tuple(torch.empty(shape[:3], device="meta")
+                           for _ in range(2))
+        bt = torch.full((self.num_slots, max_pages_per_slot(
+            self.max_len, self.page_size)), SCRATCH_PAGE, dtype=torch.int32)
+        lengths = torch.zeros((self.num_slots,), dtype=torch.int32)
+        return PagedKVCache(k, v, lengths, bt, *scales)
+
+    def _make_steps(self, compute_dtype, quantized) -> None:
+        vocab = self.cfg.vocab_size
+
+        # each step writes what the holder's step writes into the
+        # replica's host rows (the audit reads the block tables)
+        def prefill(params, cache, ids, mask, slot, write, row):
+            cache.lengths[int(slot)] = int(mask.sum())
+            cache.block_tables[int(slot)] = row.to(torch.int32)
+            return cache, _rows(1, vocab=vocab)
+
+        def decode(params, cache, tokens, active):
+            pos = cache.lengths
+            cache.lengths.copy_(torch.where(active, pos + 1, pos))
+            return cache, _rows(tokens.shape[0], vocab=vocab)
+
+        def verify(params, cache, tokens):
+            return cache, _rows(*tokens.shape, vocab=vocab)
+
+        self._prefill = prefill
+        self._decode = decode
+        self._verify = verify
+        # chunked prefill, the host tier and tree speculation stay
+        # colocated (the routers refuse them)
+        self._chunk_prefill = self._tree_verify = None
+        self._copy = lambda cache, src, dst: cache
+
+    def finite(self, logits: torch.Tensor) -> torch.Tensor:
+        return torch.ones(logits.shape[:-1], dtype=torch.bool)
+
+    def sample(self, logits, keys, temperature) -> torch.Tensor:
+        # the holder's ``sample`` site draw, on this rank's injector
+        return self._bad_sample(torch.zeros(logits.shape[:-1],
+                                            dtype=torch.int32))
+
+    sample_grid = sample
+
+
+def _owners(named) -> Optional[Dict[str, int]]:
+    """Replica name -> the rank holding it, when any replica is a
+    :class:`RemoteReplica` (this rank holds the engines it was given);
+    None for a pool in one process."""
+    if not any(isinstance(e, RemoteReplica) for _, e in named):
+        return None
+    me = dist.get_rank()
+    return {name: e.rank if isinstance(e, RemoteReplica) else me
+            for name, e in named}
+
+
+def _pool_wire(owners: Dict[str, int], channels) -> Wire:
+    """The wire over every rank of the pool, shared with the handoff
+    channels (a channel two meshes wired must span the same ranks);
+    every rank checks that all of them place the replicas alike."""
+    ranks = sorted(set(owners.values()))
+    wire = next((c.wire for c in channels
+                 if c is not None and c.wire is not None), None)
+    if wire is None:
+        wire = Wire(ranks)
+    elif wire.ranks != ranks:
+        raise ValueError(
+            f"the handoff channel's ranks {wire.ranks} are not the pool's "
+            f"{ranks}")
+    for c in channels:
+        if c is not None:
+            c.wire = wire
+    seen = [None] * len(wire.ranks)
+    dist.all_gather_object(seen, owners, group=wire.group)
+    if any(o != owners for o in seen):
+        raise ValueError(
+            "the ranks of the pool place its replicas differently: "
+            f"{dict(zip(wire.ranks, seen))}")
+    return wire
 
 
 def _as_pool(engines) -> List:
@@ -199,10 +353,14 @@ class _DisaggEngine:
                  transfer: PageTransfer,
                  health: Dict[str, ReplicaHealth],
                  handoff_ticks_per_page: float,
-                 backoff_ticks: int):
+                 backoff_ticks: int,
+                 owners: Optional[Dict[str, int]] = None,
+                 wire: Optional[Wire] = None):
         # the delegation table first: __getattr__ reads it
         self._replicas = {"prefill": prefill_engine,
                           "decode": decode_engine}
+        self.owners = owners
+        self.wire = wire
         self._active_name = "decode"
         self._remote_name = "prefill"
         self._order = _REPLICA_ORDER
@@ -260,6 +418,35 @@ class _DisaggEngine:
     def switch_active(self) -> None:
         self._active_name, self._remote_name = (self._remote_name,
                                                 self._active_name)
+
+    # -- what the control reads from a forward ---------------------------
+
+    def _share(self, out: torch.Tensor) -> torch.Tensor:
+        """``out`` of the active replica's rank on every rank (the module
+        doc); itself in one process."""
+        if self.wire is None:
+            return out
+        return self.wire.share(out, self.owners[self._active_name],
+                               "control")
+
+    def finite(self, logits: torch.Tensor) -> torch.Tensor:
+        return self._share(self.active.finite(logits))
+
+    def sample(self, logits: torch.Tensor, keys,
+               temperature: Sequence[float]) -> torch.Tensor:
+        return self._share(self.active.sample(logits, keys, temperature))
+
+    def sample_grid(self, logits: torch.Tensor, keys,
+                    temperature: Sequence[float]) -> torch.Tensor:
+        return self._share(self.active.sample_grid(logits, keys,
+                                                   temperature))
+
+    def _connect(self, tier: PageTransfer, rname: str) -> None:
+        """Point ``tier``'s next handoff from ``rname``'s rank to the
+        active replica's (between processes only)."""
+        if self.wire is not None:
+            tier.connect((self.owners[rname],),
+                         (self.owners[self._active_name],))
 
     # -- the admission charge -------------------------------------------
 
@@ -342,7 +529,8 @@ class _DisaggEngine:
         act.cache.block_tables[slot] = torch.as_tensor(
             row, device=act.cache.block_tables.device)
         act.cache.lengths[slot] = len(toks)
-        if private:
+        if private and k_tile is not None:
+            # (between processes the tiles reach the active's rank only)
             k_dev, v_dev = tier.shard_fn(k_tile, v_tile)
             act.cache = self._insert(act.cache, private, k_dev, v_dev)
         if act.prefix_sharing:
@@ -353,12 +541,17 @@ class _DisaggEngine:
         self._stage_charge(ticks, promote_ticks, rname)
         tier.observe_ticks(rname, ticks + promote_ticks)
         # the logits row hops replicas with the pages, its bits kept
-        return logits.to(device=act.device, copy=True)
+        if self.wire is None:
+            return logits.to(device=act.device, copy=True)
+        return self.wire.move(logits, self.owners[rname],
+                              self.owners[self._active_name], act.device,
+                              "logits")
 
     def _ship_pages(self, rem, toks, src_pages, rname: str, rhealth):
         """Move the private pages over the channel; returns ``(k_tile,
         v_tile, attempts, ticks_per_page, tier)``. The pool engine
         tries the device-to-device reshard first."""
+        self._connect(self.transfer, rname)
         k_tile, v_tile, attempts = self.transfer.ship(
             rem, toks, src_pages, replica=rname, health=rhealth)
         return (k_tile, v_tile, attempts, self.handoff_ticks_per_page,
@@ -417,11 +610,15 @@ class _PoolEngine(_DisaggEngine):
                  dcn_ticks_per_page: float,
                  backoff_ticks: int,
                  recover_after: int,
-                 placement: Optional[Mapping[str, int]]):
+                 placement: Optional[Mapping[str, int]],
+                 owners: Optional[Dict[str, int]] = None,
+                 wire: Optional[Wire] = None):
         # the delegation table first (__getattr__ reads it)
         pnames, dnames = _pool_names(len(prefills), len(decodes))
         self._replicas = dict(zip(pnames + dnames,
                                   list(prefills) + list(decodes)))
+        self.owners = owners
+        self.wire = wire
         self.prefill_names = pnames
         self.decode_names = dnames
         self._order = pnames + dnames
@@ -568,6 +765,7 @@ class _PoolEngine(_DisaggEngine):
             return super()._ship_pages(rem, toks, src_pages, rname,
                                        rhealth)
         try:
+            self._connect(self.reshard, rname)
             k_tile, v_tile, attempts = self.reshard.ship(
                 rem, toks, src_pages, replica=rname, health=rhealth)
             return (k_tile, v_tile, attempts, self._link_tpp(rname),
@@ -582,6 +780,7 @@ class _PoolEngine(_DisaggEngine):
                                     replica=rname, tier="host_staged",
                                     corrupt=e.corrupt)
             burned = e.attempts
+        self._connect(self.transfer, rname)
         k_tile, v_tile, attempts = self.transfer.ship(
             rem, toks, src_pages, replica=rname, health=rhealth)
         return (k_tile, v_tile, burned + attempts,
@@ -716,9 +915,12 @@ class DisaggregatedRouter(ContinuousBatchingScheduler):
                                     tracer=tracer,
                                     stats=decode_engine.stats,
                                     max_retries=transfer_max_retries)
+        owners = _owners([("prefill", prefill_engine),
+                          ("decode", decode_engine)])
+        wire = None if owners is None else _pool_wire(owners, [transfer])
         engine = _DisaggEngine(prefill_engine, decode_engine, transfer,
                                health, handoff_ticks_per_page,
-                               backoff_ticks)
+                               backoff_ticks, owners, wire)
         super().__init__(engine, eos_id, **kwargs)
 
     @property
@@ -808,10 +1010,15 @@ class PoolRouter(ContinuousBatchingScheduler):
                                   max_retries=transfer_max_retries)
         if not use_reshard:
             reshard = None
+        owners = _owners(list(zip(pnames + dnames,
+                                  list(prefills) + list(decodes))))
+        wire = None if owners is None \
+            else _pool_wire(owners, [reshard, transfer])
         engine = _PoolEngine(prefills, decodes, transfer, reshard,
                              handoff_ticks_per_page,
                              ici_ticks_per_page, dcn_ticks_per_page,
-                             backoff_ticks, recover_after, placement)
+                             backoff_ticks, recover_after, placement,
+                             owners, wire)
         super().__init__(engine, eos_id, **kwargs)
 
     @property

@@ -132,8 +132,8 @@ import torch
 from apex_tpu_torch.models.gpt import GPTConfig
 from apex_tpu_torch.quant.params import is_quantized_tree
 from apex_tpu_torch.serving.cache import (
-    NULL_PAGE, RESERVED_PAGES, SCRATCH_PAGE, audit_block_tables, init_cache,
-    init_paged_cache, max_pages_per_slot,
+    NULL_PAGE, RESERVED_PAGES, SCRATCH_PAGE, PagedKVCache,
+    audit_block_tables, init_cache, init_paged_cache, max_pages_per_slot,
 )
 from apex_tpu_torch.serving.decode import (
     make_chunk_prefill_fn, make_copy_page_fn, make_decode_fn,
@@ -643,9 +643,7 @@ class PagedDecodeEngine(DecodeEngine):
         self.injector = injector or FaultInjector()
         self.tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.stats = ServingStats(registry=self.tracer.registry)
-        quantized = is_quantized_tree(params)
-        self.cache = init_paged_cache(cfg, num_slots, max_len, num_pages,
-                                      page_size, cache_dtype, self.device)
+        self.cache = self._make_cache(num_pages, cache_dtype)
         self.pool = PagePool(num_pages, page_size, free_order,
                              injector=self.injector, host_tier=host_tier)
         # the host spill tier: the pool's eviction sweep calls
@@ -676,6 +674,20 @@ class PagedDecodeEngine(DecodeEngine):
         # parked on scratch (begin_chunk_prefill), so the audit expects
         # it empty rather than mirroring _slot_pages
         self._prefill_parked: set = set()
+        self._make_steps(compute_dtype, is_quantized_tree(params))
+
+    def _make_cache(self, num_pages: int,
+                    cache_dtype: torch.dtype) -> PagedKVCache:
+        """The page pool and block tables on ``self.device``."""
+        return init_paged_cache(self.cfg, self.num_slots, self.max_len,
+                                num_pages, self.page_size, cache_dtype,
+                                self.device)
+
+    def _make_steps(self, compute_dtype: Optional[torch.dtype],
+                    quantized: bool) -> None:
+        """The device steps: prefill, chunk prefill, decode, verify, tree
+        verify (with ``tree_spec``) and the copy-on-write page copy."""
+        cfg = self.cfg
         self._prefill = make_paged_prefill_fn(cfg, compute_dtype,
                                               quantized)
         self._chunk_prefill = make_paged_chunk_prefill_fn(
@@ -683,7 +695,7 @@ class PagedDecodeEngine(DecodeEngine):
         self._decode = make_paged_decode_fn(cfg, compute_dtype, quantized)
         self._verify = make_paged_verify_fn(cfg, compute_dtype, quantized)
         self._tree_verify = make_paged_tree_verify_fn(
-            cfg, compute_dtype, quantized) if tree_spec else None
+            cfg, compute_dtype, quantized) if self.tree_spec else None
         self._copy = make_copy_page_fn()
 
     def page_demand(self, total_len: int) -> None:

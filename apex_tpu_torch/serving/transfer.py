@@ -42,18 +42,34 @@ tensor-parallel mesh each rank's pool holds its block of the heads
 gives the gather (the head blocks all-gathered over the mesh's
 ``model`` group in rank order, then to host arrays) and the shard (this
 rank's head block of host tiles), and ``make_reshard_extract_fn(mesh)``
-the whole tiles of a page list on the device. A ``PageReshard`` over
-two meshes runs where both hold the same ranks; a handoff between
-disjoint rank sets (a send between processes) is ROADMAP item A4.6.
+the whole tiles of a page list on the device.
+
+Between processes: a ``PageReshard`` over two meshes of disjoint ranks
+(or a channel a router wires between its replicas' processes) sends the
+payload from the source ranks (set A) to the destination ranks (set B)
+over one group on A and B (:class:`Wire`, made once, at construction,
+by every rank). Every rank of the group calls ``ship`` and draws the
+same fault sites in the same order: A's ranks extract and gather their
+head blocks and take the digest, A's first rank sends the tiles and the
+digest to every rank of B, B's ranks apply a drawn corruption to the
+bytes they received and check the digest on them, and B's first rank
+sends the verdict (delivered or quarantined, and the tiles' bytes) to
+every rank. So every rank takes the same branch: the same attempts,
+counters, health probes, span and typed error on a lost budget. ``ship``
+returns the tiles on B's ranks, ``(None, None, attempts)`` elsewhere; a
+rank that does not hold the source passes a host stand-in with the
+source's ``page_size`` (``router.RemoteReplica``).
 
 The channel objects are host state (attempt counters, metric handles).
 """
 
+import collections
 import hashlib
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch.serving.faults import FaultInjector
 from apex_tpu_torch.serving.health import (
@@ -61,6 +77,7 @@ from apex_tpu_torch.serving.health import (
 )
 from apex_tpu_torch.serving.observe import Tracer
 from apex_tpu_torch.transformer import parallel_state as ps
+from apex_tpu_torch.transformer.tensor_parallel import mappings
 
 #: ``serving_transfer_ticks`` histogram buckets: a handoff is charged a
 #: handful of decode-step equivalents.
@@ -212,6 +229,124 @@ def _default_shard(k_tile, v_tile):
     return k_tile, v_tile
 
 
+#: the host tile dtypes a payload header names (bf16 crosses as int16)
+_WIRE_DTYPES = (np.float32, np.int16, np.float16, np.int8, np.uint8,
+                np.float64)
+_HEADER = 8        # int64s: dtype index, ndim, up to six dims
+_DIGEST = 32       # sha256
+
+
+class Wire:
+    """The processes of a cross-process handoff and of a router's control
+    (the module doc): one process group over ``ranks`` (the default group
+    when they are the whole world; else ``new_group``, which every rank
+    of the default group calls, in the same order), point-to-point sends
+    and broadcasts of host tensors, and ``sent``: the bytes this rank
+    sent, by kind (``tiles``, ``digest``, ``header``, ``verdict``,
+    ``logits``, ``control``). A CUDA tensor goes to host memory first,
+    counted in ``mappings.staged_bytes`` as ``mappings.collective``
+    counts it."""
+
+    def __init__(self, ranks: Sequence[int]):
+        self.ranks = sorted({int(r) for r in ranks})
+        self.rank = dist.get_rank()
+        if self.rank not in self.ranks:
+            raise ValueError(
+                f"rank {self.rank} is not among the handoff's ranks "
+                f"{self.ranks}")
+        world = dist.get_world_size()
+        self.group = dist.group.WORLD \
+            if self.ranks == list(range(world)) \
+            else dist.new_group(self.ranks)
+        self.sent = collections.Counter()
+
+    def send(self, t: torch.Tensor, dst: int, kind: str) -> None:
+        """Send ``t`` (to host first) to the global rank ``dst``."""
+        nbytes = t.numel() * t.element_size()
+        if t.is_cuda:
+            mappings.staged_bytes += nbytes
+        dist.send(t.detach().contiguous().cpu(), int(dst), group=self.group)
+        self.sent[kind] += nbytes
+
+    def recv(self, shape, dtype: torch.dtype, src: int) -> torch.Tensor:
+        """A host tensor of ``shape`` and ``dtype`` from rank ``src``."""
+        buf = torch.empty(tuple(shape), dtype=dtype)
+        dist.recv(buf, int(src), group=self.group)
+        return buf
+
+    def share(self, t: torch.Tensor, src: int, kind: str) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank of the wire, in host memory
+        (one broadcast through ``mappings.collective``); the other ranks
+        pass a tensor of the same shape and dtype."""
+        x = t.detach().cpu()
+        flag = x.dtype == torch.bool
+        if flag:
+            x = x.to(torch.uint8)
+        out = mappings.collective("broadcast", x, self.group, self.ranks,
+                                  src=self.ranks.index(int(src)))
+        if self.rank == src:
+            self.sent[kind] += x.numel() * x.element_size() * (
+                len(self.ranks) - 1)
+        return out.bool() if flag else out
+
+    def move(self, t: torch.Tensor, src: int, dst: int, device,
+             kind: str) -> torch.Tensor:
+        """``t`` of rank ``src`` on rank ``dst``, on ``device`` there (a
+        copy where ``src`` is ``dst``); the other ranks get their ``t``
+        back as it is (a stand-in of the same shape and dtype)."""
+        if self.rank == src == dst:
+            return t.to(device=device, copy=True)
+        if self.rank == src:
+            self.send(t, dst, kind)
+        elif self.rank == dst:
+            out = self.recv(t.shape, t.dtype, src).to(device)
+            if out.is_cuda:
+                mappings.staged_bytes += out.numel() * out.element_size()
+            return out
+        return t
+
+    def send_tiles(self, k: np.ndarray, v: np.ndarray, digest: bytes,
+                   dst: int) -> None:
+        """The payload to ``dst``: a header (dtype and shape), then the k
+        bytes, the v bytes and the digest in one message."""
+        head = np.zeros(_HEADER, np.int64)
+        head[0] = [np.dtype(d) for d in _WIRE_DTYPES].index(k.dtype)
+        head[1] = k.ndim
+        head[2:2 + k.ndim] = k.shape
+        body = np.concatenate([
+            np.ascontiguousarray(k).reshape(-1).view(np.uint8),
+            np.ascontiguousarray(v).reshape(-1).view(np.uint8),
+            np.frombuffer(digest, np.uint8)])
+        self.send(torch.from_numpy(head), dst, "header")
+        dist.send(torch.from_numpy(body), int(dst), group=self.group)
+        self.sent["tiles"] += k.nbytes + v.nbytes
+        self.sent["digest"] += len(digest)
+
+    def recv_tiles(self, src: int) -> Tuple[np.ndarray, np.ndarray, bytes]:
+        """``(k, v, digest)`` of :meth:`send_tiles` from ``src``."""
+        head = self.recv((_HEADER,), torch.int64, src).numpy()
+        dtype = np.dtype(_WIRE_DTYPES[int(head[0])])
+        shape = tuple(int(d) for d in head[2:2 + int(head[1])])
+        n = int(np.prod(shape)) * dtype.itemsize
+        body = self.recv((2 * n + _DIGEST,), torch.uint8, src).numpy()
+        k = body[:n].view(dtype).reshape(shape)
+        v = body[n:2 * n].view(dtype).reshape(shape)
+        return k, v, body[2 * n:].tobytes()
+
+
+def _flip(k_tile: np.ndarray, payload: int) -> np.ndarray:
+    """The in-flight corruption: one staged byte flipped, the payload
+    picks which (deterministic per seed, site and index); a copy."""
+    k_tile = np.array(k_tile, copy=True)
+    flat = k_tile.reshape(-1).view(np.uint8)
+    flat[payload % flat.size] ^= 0xFF
+    return k_tile
+
+
+def _mesh_ranks(mesh) -> Tuple[int, ...]:
+    return tuple(int(r) for r in mesh.ranks.reshape(-1))
+
+
 def transfer_checksum(k_tile: np.ndarray, v_tile: np.ndarray,
                       chain_key: bytes) -> bytes:
     """sha256 over the prompt's final chained page key, then the staged
@@ -270,6 +405,32 @@ class PageTransfer:
         self.shard_fn = shard_fn
         self._extract = make_extract_pages_fn()
         self._hot = {}
+        #: between processes (the module doc): the :class:`Wire` over
+        #: every rank that calls ``ship``, and the ``(source ranks,
+        #: destination ranks)`` of the next handoff, fixed by two meshes
+        #: or set by the router a handoff (:meth:`connect`)
+        self.wire: Optional[Wire] = None
+        self.link: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = None
+        self._fixed_link = False
+
+    def connect(self, src_ranks: Sequence[int],
+                dst_ranks: Sequence[int]) -> None:
+        """Point the next handoff from the ranks holding the source to the
+        ranks holding the destination. A channel whose two meshes fixed
+        its link refuses any other pair of rank sets."""
+        link = (tuple(int(r) for r in src_ranks),
+                tuple(int(r) for r in dst_ranks))
+        if self._fixed_link:
+            if link != self.link:
+                raise ValueError(
+                    f"this channel's meshes join ranks {self.link[0]} -> "
+                    f"{self.link[1]}, not {link[0]} -> {link[1]}")
+            return
+        if set(link[0]) & set(link[1]) and link[0] != link[1]:
+            raise ValueError(
+                f"a handoff's rank sets must be disjoint or the same, got "
+                f"{link[0]} -> {link[1]}")
+        self.link = link
 
     # -- per-replica labeled metrics ------------------------------------
 
@@ -325,7 +486,10 @@ class PageTransfer:
         a backoff tick. Raises :class:`TransferFailed` /
         :class:`TransferCorrupt` when the budget is gone; every attempt's
         outcome is a probe of ``health`` (the remote replica's ladder)
-        when given."""
+        when given. Between processes (``wire``) every rank of the wire
+        calls it, the tiles come back on the destination's ranks only,
+        and ``src_engine`` may be a host stand-in with the source's
+        ``page_size`` where this rank does not hold the source."""
         from apex_tpu_torch.serving.paging import prefix_page_keys
 
         inj = self.injector
@@ -347,19 +511,21 @@ class PageTransfer:
                     health.probe(False)
                 continue
             if n_pages:
-                k_tile, v_tile = self.gather_fn(*self._extract(
-                    src_engine.cache, list(src_pages)))
-                digest = transfer_checksum(k_tile, v_tile, chain_key)
-                fired, payload = inj.draw(self.recv_site)
-                if fired:
-                    # in-flight corruption: one staged byte flipped, the
-                    # payload picks which (deterministic per seed, site
-                    # and index)
-                    k_tile = np.array(k_tile, copy=True)
-                    flat = k_tile.reshape(-1).view(np.uint8)
-                    flat[payload % flat.size] ^= 0xFF
-                if transfer_checksum(k_tile, v_tile,
-                                     chain_key) != digest:
+                if self.wire is None:
+                    k_tile, v_tile = self.gather_fn(*self._extract(
+                        src_engine.cache, list(src_pages)))
+                    digest = transfer_checksum(k_tile, v_tile, chain_key)
+                    fired, payload = inj.draw(self.recv_site)
+                    if fired:
+                        # in-flight corruption of the staged payload
+                        k_tile = _flip(k_tile, payload)
+                    ok = transfer_checksum(k_tile, v_tile,
+                                           chain_key) == digest
+                    nbytes = int(k_tile.nbytes) + int(v_tile.nbytes)
+                else:
+                    k_tile, v_tile, ok, nbytes = self._cross(
+                        src_engine, src_pages, chain_key)
+                if not ok:
                     # quarantine: the tiles never reach the receiving
                     # cache; the retry re-extracts from the source
                     self._bump("corrupt")
@@ -374,7 +540,7 @@ class PageTransfer:
             setattr(self.stats, self.delivered_stat,
                     getattr(self.stats, self.delivered_stat) + 1)
             if n_pages:
-                c_bytes.inc(int(k_tile.nbytes) + int(v_tile.nbytes))
+                c_bytes.inc(nbytes)
             if health is not None:
                 health.probe(True)
             if trc.enabled:
@@ -390,6 +556,40 @@ class PageTransfer:
         err = self._budget_error(replica, self.max_retries + 1, n_pages,
                                  corrupt_last)
         raise self.tracer.attach(err) if trc.enabled else err
+
+    def _cross(self, src_engine, src_pages, chain_key: bytes):
+        """One attempt's payload between processes (the module doc):
+        ``(k_tile, v_tile, ok, tile bytes)`` on every rank, the tiles on
+        the destination's ranks only. Draws the ``recv_site`` on every
+        rank."""
+        wire = self.wire
+        src, dst = self.link
+        me = wire.rank
+        k_tile = v_tile = digest = None
+        if me in src:
+            k_tile, v_tile = self.gather_fn(*self._extract(
+                src_engine.cache, list(src_pages)))
+            if me == src[0] or me in dst:
+                digest = transfer_checksum(k_tile, v_tile, chain_key)
+            if me == src[0]:
+                for r in dst:
+                    if r not in src:
+                        wire.send_tiles(k_tile, v_tile, digest, r)
+        if me in dst and me not in src:
+            k_tile, v_tile, digest = wire.recv_tiles(src[0])
+        fired, payload = self.injector.draw(self.recv_site)
+        verdict = torch.zeros(2, dtype=torch.int64)
+        if me in dst:
+            if fired:
+                # the corruption of the bytes this rank received
+                k_tile = _flip(k_tile, payload)
+            verdict[0] = int(transfer_checksum(k_tile, v_tile,
+                                               chain_key) == digest)
+            verdict[1] = int(k_tile.nbytes) + int(v_tile.nbytes)
+        else:
+            k_tile = v_tile = None
+        ok, nbytes = wire.share(verdict, dst[0], "verdict").tolist()
+        return k_tile, v_tile, bool(ok), int(nbytes)
 
     def _budget_error(self, replica: str, attempts: int, n_pages: int,
                       corrupt_last: bool):
@@ -414,9 +614,12 @@ class PageReshard(PageTransfer):
     pages over its host-staged :class:`PageTransfer`. ``src_mesh`` gathers
     the source pool's head blocks over its ``model`` group,
     ``dst_mesh`` keeps this rank's head block for the receiving pool
-    (:func:`make_tile_transfer_fns`); this process is a rank of both.
-    Two meshes over different rank sets (a send between processes)
-    raise NotImplementedError naming ROADMAP A4.6."""
+    (:func:`make_tile_transfer_fns`). Over the same ranks this process
+    is a rank of both. Over disjoint rank sets the channel runs between
+    processes (the module doc): the :class:`Wire` over both sets is made
+    here, by every rank of the default group, and the link is fixed to
+    ``src_mesh``'s ranks -> ``dst_mesh``'s, in mesh order (the first of
+    each sends). Sets that overlap otherwise raise ValueError."""
 
     send_site = "reshard_send"
     recv_site = "reshard_recv"
@@ -430,14 +633,6 @@ class PageReshard(PageTransfer):
                  stats: Optional[ServingStats] = None,
                  max_retries: int = 2,
                  src_mesh=None, dst_mesh=None):
-        if src_mesh is not None and dst_mesh is not None and sorted(
-                src_mesh.ranks.reshape(-1).tolist()) != sorted(
-                dst_mesh.ranks.reshape(-1).tolist()):
-            raise NotImplementedError(
-                "PageReshard between meshes of different ranks "
-                f"({src_mesh.ranks.reshape(-1).tolist()} -> "
-                f"{dst_mesh.ranks.reshape(-1).tolist()}): a handoff "
-                "between processes, ROADMAP item A4.6, not ported yet")
         gather_fn, shard_fn = _default_gather, _default_shard
         if src_mesh is not None:
             gather_fn, _ = make_tile_transfer_fns(src_mesh)
@@ -446,6 +641,23 @@ class PageReshard(PageTransfer):
         super().__init__(injector=injector, tracer=tracer, stats=stats,
                          max_retries=max_retries, gather_fn=gather_fn,
                          shard_fn=shard_fn)
+        if src_mesh is None or dst_mesh is None:
+            return
+        a, b = _mesh_ranks(src_mesh), _mesh_ranks(dst_mesh)
+        if sorted(a) == sorted(b):
+            return
+        if set(a) & set(b):
+            raise ValueError(
+                f"PageReshard's meshes must hold the same ranks or "
+                f"disjoint ones, got {list(a)} -> {list(b)}")
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"PageReshard between the ranks {list(a)} and {list(b)} "
+                "sends between processes: start torch.distributed's "
+                "default process group first")
+        self.connect(a, b)
+        self._fixed_link = True
+        self.wire = Wire(a + b)
 
     def _budget_error(self, replica: str, attempts: int, n_pages: int,
                       corrupt_last: bool):

@@ -429,6 +429,26 @@ Phases, each printed as it runs; any failure exits non-zero:
    launch counts. The LayerNorm kernels are also timed in both modes at
    (8192, 1024) and (8192, 4096).
 
+21. the page handoff between two processes — two gloo ranks on the
+   card, ``serving_paged``'s engine at GPT-2 medium's width as a 1x1
+   ``PoolRouter``, the prefill replica on rank 0 and the decode replica
+   on rank 1 (a ``RemoteReplica`` in each one's place on the other), the
+   mix's first 8 prompts greedy x 32 tokens: the colocated streams
+   fault-free and under a dropped reshard send, a corrupted reshard
+   receive and an exhausted reshard budget (re-shipped host-staged),
+   both ranks' stats, injector counts, event names and tick streams
+   equal, each replica's kernels on its rank only (exact), the tile and
+   logits bytes sent between the processes, the host ms a shipped page.
+
+22. the L1 curves on the card against the port's own fp32 run (TF32
+   off) — BERT-Large's widths at 2 layers, 50 steps, O1, O2, O2 with a
+   bf16 m and O2 with the cast-out within 5 % of O0 at every step;
+   GPT-medium's widths at 2 layers, bf16 over fp32 masters within 5 %;
+   the ResNet-50 cross product (five cases at rtol 0.10 / 0.15, atol
+   0.02); int8 eval parity on the trained GPT weights (w8 dense and
+   paged, w8 over the int8 pool, the int8 pool alone within 2 % of the
+   fp32 rows); exact launches a run.
+
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
 card's name and power limit, and last ``{"ok": true, "device":
@@ -5020,7 +5040,8 @@ def serve_tiered(dev, kern, o2):
     and scale plane the spilled bits; the streams equal the same pool's
     without a tier, the reference's spill-disabled engine) and a bf16
     pool (the promoted prefix skipped, the suffix prefilled as one
-    chunk); the audit after every tick, exact launches, spills and
+    chunk); the audit at the end of each run (a per-tick audit of the
+    int8 run was cut for time, PERF.md §4), exact launches, spills and
     promotes > 0; a suffix prefill's attention launches the chunk kernel
     once a layer. The int8 mix on a roomy pool without a
     tier is read
@@ -5045,9 +5066,10 @@ def serve_tiered(dev, kern, o2):
                                cache_dtype=torch.int8, audit=True, **kw)
                for name, pages in (("roomy", PAGED_POOL),
                                    ("no_tier", TIER_POOL))}
-        # the int8 run audits after every tick; the bf16 run once at its
-        # end (the audit recomputes every host record's sha256, some
-        # 0.3 s a tick over the bf16 pool's records)
+        # each run audits once at its end: the audit recomputes every
+        # host record's sha256, some 0.2 s a tick over the int8 pool's
+        # records and 0.3 s over the bf16 pool's
+        # (tests/test_torch_host_tier.py audits every tick on the CPU)
         for name, dt in (("int8", torch.int8), ("bf16", torch.bfloat16)):
             # suffix-only prefills (each one chunk kernel launch a layer)
             chunks = [0]
@@ -5067,10 +5089,11 @@ def serve_tiered(dev, kern, o2):
             out[name] = serve_mix(dev, cfg, o2, kern, num_pages=TIER_POOL,
                                   cache_dtype=dt,
                                   host_tier=PrefixRegistry(1 << 30),
-                                  setup=setup, audit=name == "int8", **kw)
-        check(engines["bf16"].check_invariants(),
-              "tiered bf16 pool: the audit (pool, block tables, every host "
-              "record's checksum) true at the end of the run")
+                                  setup=setup, **kw)
+        for name in ("int8", "bf16"):
+            check(engines[name].check_invariants(),
+                  f"tiered {name} pool: the audit (pool, block tables, "
+                  "every host record's checksum) true at the end of the run")
     for name, res in ref.items():
         steps, prefills = res["decode_steps"], res["prefills"]
         check_launches(res["launches"], {
@@ -9315,6 +9338,633 @@ def norm_times(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 21. the page handoff between two processes (serving/transfer.py's
+# channel between rank sets, serving/router.py's RemoteReplica)
+# ---------------------------------------------------------------------------
+
+HANDOFF_RANKS = 2
+HANDOFF_PROMPTS = 8          # the serving mix's first 8, greedy
+HANDOFF_TIMEOUT_S = 600
+# name -> the pinned FaultInjector schedule of the run
+HANDOFF_CASES = {"fault_free": None,
+                 "reshard_send": {"reshard_send": (0,)},
+                 "reshard_recv": {"reshard_recv": (0,)},
+                 "reshard_exhausted": {"reshard_send": (0, 1, 2)}}
+HANDOFF_STATS = ("remote_prefills", "colocated_prefills", "reshards",
+                 "reshard_retries", "reshard_corrupt", "reshard_failures",
+                 "transfers", "transfer_failures", "transfer_pages_deduped")
+
+
+def _handoff_cfg():
+    from apex_tpu_torch.models.gpt import gpt_medium
+
+    return gpt_medium()
+
+
+def _handoff_geometry():
+    return dict(num_slots=NUM_SLOTS, max_len=MAX_LEN, num_pages=PAGED_POOL,
+                page_size=PAGE, buckets=BUCKETS,
+                cache_dtype=torch.bfloat16)
+
+
+def _timed_ship(tier, laps):
+    """``tier.ship`` wrapped: the host seconds of each call and the pages
+    it was asked to move go to ``laps``."""
+    ship = tier.ship
+
+    def timed(src_engine, tokens, src_pages, **kw):
+        t0 = time.perf_counter()
+        try:
+            return ship(src_engine, tokens, src_pages, **kw)
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            laps.append((time.perf_counter() - t0, len(src_pages)))
+
+    tier.ship = timed
+
+
+def _handoff_rank(rank, tmp, port, device):
+    """A rank of :func:`handoff_phase`: the default process group on
+    gloo; rank 0 holds the prefill replica (and serves the colocated
+    golden first), rank 1 the decode replica, each given a
+    ``RemoteReplica`` for the other; one ``PoolRouter`` run a case of
+    :data:`HANDOFF_CASES`; results to ``tmp/handoff<r>.json``; a barrier
+    before the groups go."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.gpt import init_gpt
+    from apex_tpu_torch.serving import (
+        ContinuousBatchingScheduler, FaultInjector, PagedDecodeEngine,
+        PoolRouter, Request, Tracer,
+    )
+    from apex_tpu_torch.serving.router import RemoteReplica
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(HANDOFF_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method="env://",
+        timeout=datetime.timedelta(seconds=HANDOFF_TIMEOUT_S))
+    try:
+        kern = kernel_counters()
+        cfg = _handoff_cfg()
+        o2 = amp.initialize("O2", verbosity=0).cast_model(init_gpt(
+            cfg, torch.Generator().manual_seed(0), device=dev))
+        geo = _handoff_geometry()
+        prompts = mix_prompts(cfg)[:HANDOFF_PROMPTS]
+
+        def submit(sched):
+            for p in prompts:
+                sched.submit(Request(prompt=p, max_new_tokens=NEW_TOKENS))
+
+        out = {"backend": dist.get_backend(), "cases": {}}
+        with torch.inference_mode():
+            if rank == 0:
+                sched = ContinuousBatchingScheduler(PagedDecodeEngine(
+                    o2, cfg, device=dev, **geo), eos_id=-1, audit=True)
+                submit(sched)
+                out["golden"] = sched.run()
+                del sched
+            for name, schedule in HANDOFF_CASES.items():
+                inj, trc = FaultInjector(schedule=schedule), Tracer()
+                mine = PagedDecodeEngine(o2, cfg, injector=inj, tracer=trc,
+                                         device=dev, **geo)
+                other = RemoteReplica(1 - rank, cfg, injector=inj,
+                                      tracer=trc, **geo)
+                reps = [mine, other] if rank == 0 else [other, mine]
+                pool = PoolRouter(reps[:1], reps[1:], -1, audit=True)
+                laps = []
+                _timed_ship(pool.engine.reshard, laps)
+                _timed_ship(pool.engine.transfer, laps)
+                submit(pool)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                for k in kern.values():
+                    k.launches = 0
+                t0 = time.perf_counter()
+                streams = pool.run()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                reg = trc.registry
+                shipped = sum(
+                    int(g.value) for g in (
+                        reg.get(f"serving_{t}_src_bytes_total",
+                                labels={"replica": "prefill"})
+                        for t in ("reshard", "transfer")) if g is not None)
+                out["cases"][name] = dict(
+                    streams=streams,
+                    stats=pool.stats.as_dict(),
+                    counts=dict(inj.counts),
+                    names=[e.name for e in trc.events],
+                    ticks=trc.tick_stream(),
+                    launches={n: k.launches for n, k in kern.items()},
+                    decode_steps=pool.decode_steps,
+                    sent=dict(pool.engine.wire.sent),
+                    shipped_tile_bytes=shipped,
+                    ship_s=sum(t for t, _ in laps),
+                    ship_pages=sum(n for _, n in laps),
+                    wall_s=wall)
+                del pool, mine, other
+                torch.cuda.empty_cache()
+        with open(f"{tmp}/handoff{rank}.json", "w") as fh:
+            json.dump(out, fh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def handoff_phase(dev, kern):
+    """Phase 21, the page handoff between two processes: two gloo ranks
+    on the one card, the prefill replica (``serving_paged``'s engine at
+    GPT-2 medium's full width, O2 bf16, 8 slots, ``PAGED_POOL`` pages of
+    64) on rank 0, the decode replica on rank 1, the serving mix's first
+    8 prompts greedy, 32 tokens each, through a 1x1 ``PoolRouter`` on
+    each rank. Held: every case's streams are the colocated streams of
+    the same card and shapes; both ranks' stats, injector counts, event
+    names and tick streams equal; the pinned faults land where they
+    should (a dropped send retried, a corrupted receive quarantined, an
+    exhausted reshard re-shipped host-staged); the prefills' kernels ran
+    on rank 0 only and the decode ticks' on rank 1 only, exactly; the
+    tile bytes rank 0 sent equal the tiles the runs shipped (re-sends
+    included) and the logits bytes one fp32 row a remote prefill. Prints
+    the bytes sent between the processes, the host time a shipped page
+    takes on each rank, the phase's seconds and the card."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    cfg = _handoff_cfg()
+    L = cfg.num_layers
+    phase(f"21. the page handoff between two processes: a 1x1 PoolRouter "
+          f"over two gloo ranks on the card (prefill replica on rank 0, "
+          f"decode replica on rank 1), gpt_medium O2 bf16, {NUM_SLOTS} "
+          f"slots, {PAGED_POOL} pages of {PAGE}, the mix's first "
+          f"{HANDOFF_PROMPTS} prompts greedy x {NEW_TOKENS} tokens; "
+          f"fault-free and under {[n for n in HANDOFF_CASES if n != 'fault_free']}")
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(_handoff_rank, args=(tmp, port, str(dev)),
+                       nprocs=HANDOFF_RANKS, join=False)
+        deadline = time.monotonic() + HANDOFF_TIMEOUT_S
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.terminate()
+                check(False, f"the two ranks finished within "
+                      f"{HANDOFF_TIMEOUT_S} s")
+        res = []
+        for r in range(HANDOFF_RANKS):
+            with open(f"{tmp}/handoff{r}.json") as fh:
+                res.append(json.load(fh))
+    check(all(r["backend"] == "gloo" for r in res), "two gloo ranks")
+    golden = res[0]["golden"]
+    vocab_row = cfg.vocab_size * 4
+    out = {"card": card_line(), "cases": {}}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for name in HANDOFF_CASES:
+        a, b = (r["cases"][name] for r in res)
+        check(a["streams"] == golden and b["streams"] == golden,
+              f"{name}: both ranks' streams are the colocated streams "
+              f"({len(golden)} requests)")
+        same = all(a[k] == b[k] for k in ("stats", "counts", "names",
+                                          "ticks"))
+        check(same, f"{name}: both ranks' stats, injector counts, event "
+              f"names ({len(a['names'])}) and tick streams equal")
+        st = a["stats"]
+        remote, local = st["remote_prefills"], st["colocated_prefills"]
+        # one pinned fault each: the 1x1 pool's only prefill replica walks
+        # down its health ladder when the reshard budget goes (three
+        # failed probes), so the next admission is served colocated
+        want = {"fault_free": st["reshard_retries"] == 0
+                and st["reshards"] == HANDOFF_PROMPTS and local == 0,
+                "reshard_send": st["reshard_retries"] == 1
+                and st["reshard_corrupt"] == 0 and local == 0,
+                "reshard_recv": st["reshard_corrupt"] == 1
+                and st["reshard_retries"] == 1 and local == 0,
+                "reshard_exhausted": st["reshard_failures"] == 1
+                and st["transfers"] >= 1}[name]
+        check(want and remote + local == HANDOFF_PROMPTS and remote > 0,
+              f"{name}: {({k: st[k] for k in HANDOFF_STATS})}")
+        ticks = b["decode_steps"]
+        # rank 0 runs the remote prefills (a handoff that lost both tiers
+        # ran its forward too), rank 1 the decode ticks and the colocated
+        # prefills
+        fwd0 = remote + st["transfer_failures"]
+        w0 = dict.fromkeys(KERNEL_NAMES, 0)
+        w0.update(layer_norm_fwd=fwd0 * (2 * L + 1),
+                  flash_attention_fwd=fwd0 * L)
+        w1 = dict.fromkeys(KERNEL_NAMES, 0)
+        w1.update(layer_norm_fwd=(ticks + local) * (2 * L + 1),
+                  flash_attention_fwd=local * L,
+                  paged_decode_attention=ticks * L)
+        check(a["launches"] == w0 and b["launches"] == w1,
+              f"{name}: the remote prefills' kernels on rank 0 only "
+              f"({ {k: v for k, v in a['launches'].items() if v} }), the "
+              f"{ticks} decode ticks' and {local} colocated prefills' on "
+              f"rank 1 only "
+              f"({ {k: v for k, v in b['launches'].items() if v} })")
+        for r in (a, b):
+            for n, c in r["launches"].items():
+                launches[n] += c
+        sent0, sent1 = a["sent"], b["sent"]
+        tiles = sent0.get("tiles", 0)
+        rows = sent0.get("logits", 0)
+        if name == "fault_free":
+            check(tiles == a["shipped_tile_bytes"] > 0,
+                  f"{name}: rank 0 sent the shipped tiles' bytes "
+                  f"({tiles})")
+        else:
+            check(tiles >= a["shipped_tile_bytes"] > 0,
+                  f"{name}: rank 0 sent the shipped tiles and the "
+                  f"re-sends ({tiles} >= {a['shipped_tile_bytes']})")
+        check(rows == remote * vocab_row and "tiles" not in sent1,
+              f"{name}: {rows} logits bytes sent, one fp32 row of "
+              f"{cfg.vocab_size} a remote prefill; rank 1 sent no tile")
+        per_page = [r["ship_s"] / max(r["ship_pages"], 1) * 1e3
+                    for r in (a, b)]
+        print(f"{name}: bytes sent between the processes: rank 0 "
+              f"{sent0}, rank 1 {sent1}; tiles + logits rows = "
+              f"{tiles + rows}; host ms a shipped page (rank 0 sends, rank "
+              f"1 receives) {[round(x, 3) for x in per_page]} over "
+              f"{a['ship_pages']} pages; wall s "
+              f"{[round(r['wall_s'], 3) for r in (a, b)]}; {card_line()}",
+              flush=True)
+        out["cases"][name] = dict(
+            stats={k: st[k] for k in HANDOFF_STATS}, sent=[sent0, sent1],
+            tiles_plus_logits_bytes=tiles + rows,
+            shipped_tile_bytes=a["shipped_tile_bytes"],
+            ship_ms_per_page=per_page, ship_pages=a["ship_pages"],
+            decode_steps=ticks, wall_s=[a["wall_s"], b["wall_s"]],
+            launches=[a["launches"], b["launches"]])
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21: {out['seconds']:.1f} s; {card_line()}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 22. the L1 curves on the card against the port's own fp32 run
+# ---------------------------------------------------------------------------
+
+L1_STEPS = 50
+L1_BERT_LAYERS, L1_BERT_BATCH, L1_BERT_SEQ = 2, 8, 128
+L1_GPT_LAYERS, L1_GPT_BATCH, L1_GPT_SEQ = 2, 4, 128
+# ResNet-50 at the reference's lr, each bottleneck's last BatchNorm scale
+# zeroed at init (Goyal et al. 2017, arXiv:1706.02677 §5.1): with every
+# scale 1 this depth's fixed-batch curve is chaotic (a 1e-6 change of the
+# images moves step 8 by 6-9 %, and the fp32 golden rose 3.16 -> 4.76 at
+# batch 16 on an H100; PERF.md §6), so no amp curve could track it
+L1_RESNET = dict(depth=50, classes=10, batch=32, image=64, steps=8,
+                 lr=0.01)
+# the int8 eval: prompt, teacher-forced length, cache and pages
+L1_EVAL = dict(prompt=64, total=96, s_max=128, page=16, buckets=(64, 128))
+L1_RTOL = 0.05                 # tests/L1/test_loss_curve_parity.py
+QUANT_EVAL_RTOL = 0.02         # tests/L1/test_quant_eval_parity.py
+L1_BERT_CASES = {  # name -> (opt level, m dtype, cast-out)
+    "O1": ("O1", torch.float32, False), "O2": ("O2", torch.float32, False),
+    "O2 bf16 m": ("O2", torch.bfloat16, False),
+    "O2 castout": ("O2", torch.bfloat16, True)}
+L1_RESNET_CASES = [("O1", None, "dynamic"), ("O2", True, "dynamic"),
+                   ("O2", False, 128.0), ("O3", True, 128.0),
+                   ("O3", False, "dynamic")]
+
+
+def _counted(kern, fn):
+    """``fn()``'s result and each kernel's launches while it ran."""
+    torch.cuda.synchronize()
+    for k in kern.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: k.launches for n, k in kern.items()}
+
+
+def _scaled_launches(per, n, **extra):
+    out = {k: v * n for k, v in per.items()}
+    for k, v in extra.items():
+        out[k] += v
+    return out
+
+
+def l1_bert_curve(dev, cfg, params, opt_level, loss_scale, m_dtype, emit):
+    """The reference's ``bert_curve`` on the card: ``L1_STEPS`` steps of
+    ``BertTrainStep`` from ``params`` (copied), ``FusedAdam(lr=5e-4,
+    weight_decay=0.01)``, batch i ``randint(PRNGKey(10_000 + i))``."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.bert.train import BertTrainStep
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.utils import prng
+
+    h = amp.initialize(opt_level, loss_scale=loss_scale, verbosity=0)
+    p = _clone(params)
+    opt = FusedAdam(lr=5e-4, weight_decay=0.01, m_dtype=m_dtype,
+                    emit_compute_params=emit)
+    step = BertTrainStep(cfg, h, opt)
+    state = [p, opt.init(p), h.init_state(dev)]
+    if emit:
+        state.append(h.cast_model(p))
+    losses = []
+    for i in range(L1_STEPS):
+        ids = prng.randint(prng.PRNGKey(10_000 + i),
+                           (L1_BERT_BATCH, L1_BERT_SEQ), 0, cfg.vocab_size,
+                           device=dev).long()
+        mask = torch.ones(ids.shape, dtype=torch.int32, device=dev)
+        *state, loss = step(*state, ids, mask)
+        losses.append(loss)
+    return [float(x) for x in torch.stack(losses).cpu()]
+
+
+def l1_gpt_curve(dev, cfg, params, compute_dtype, ids):
+    """The reference's ``gpt_curve`` on the card: ``L1_STEPS`` steps of
+    ``GPTTrainStep`` (``FusedAdam(lr=5e-4, weight_decay=0.01)``) on one
+    fixed batch; returns the losses and the trained params."""
+    from apex_tpu_torch.examples.gpt.train import GPTTrainStep
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    opt = FusedAdam(lr=5e-4, weight_decay=0.01)
+    p = _clone(params)
+    state = opt.init(p)
+    step = GPTTrainStep(cfg, opt, compute_dtype)
+    losses = []
+    for _ in range(L1_STEPS):
+        p, state, loss = step(p, state, ids, ids)
+        losses.append(loss)
+    return [float(x) for x in torch.stack(losses).cpu()], p
+
+
+def l1_resnet_curve(dev, params, stats, images, labels, opt_level, kbn,
+                    loss_scale):
+    """The reference's ``resnet_curve`` on the card (no ``autocast``
+    block, as the reference's recipe): cast_model, cast_input,
+    value_and_grad with the statistics as aux, FusedSGD(lr=L1_RESNET's,
+    momentum=0.9, weight_decay=1e-4) gated on found_inf, apply_if_finite
+    on the statistics."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.resnet import apply_resnet, cross_entropy_loss
+    from apex_tpu_torch.optimizers import FusedSGD
+
+    depth = L1_RESNET["depth"]
+    h = amp.initialize(opt_level, keep_batchnorm_fp32=kbn,
+                       loss_scale=loss_scale, verbosity=0)
+    master, bn = _clone(params), _clone(stats)
+    opt = FusedSGD(lr=L1_RESNET["lr"], momentum=0.9, weight_decay=1e-4)
+    state, scaler = opt.init(master), h.init_state(dev)
+
+    def loss_fn(p, bn, x, y):
+        logits, new = apply_resnet(p, bn, x, depth, train=True)
+        return cross_entropy_loss(logits, y), new
+
+    vg = h.value_and_grad(loss_fn, has_aux=True)
+    losses = []
+    for _ in range(L1_RESNET["steps"]):
+        (loss, new), grads, found_inf, scaler = vg(
+            h.cast_model(master), scaler, bn, h.cast_input(images), labels)
+        master, state = opt.step(grads, master, state, found_inf=found_inf)
+        bn = amp.apply_if_finite(new, bn, found_inf)
+        losses.append(loss)
+    return [float(x) for x in torch.stack(losses).cpu()]
+
+
+def _track(name, curve, golden, rtol, atol=0.0, differ=True):
+    """The reference's curve contract: finite, within rtol (and atol) of
+    the golden at every step, converging, and not the golden's bits."""
+    c, g = np.asarray(curve), np.asarray(golden)
+    worst = float(np.max(np.abs(c - g) / (atol + rtol * np.abs(g))))
+    check(bool(np.all(np.isfinite(c))) and worst <= 1.0,
+          f"{name}: every step within rtol {rtol}"
+          + (f", atol {atol}" if atol else "") + f" of the fp32 golden "
+          f"(worst share of the bound {worst:.3f}; first {c[0]:.5f}, last "
+          f"{c[-1]:.5f})")
+    check(c[-1] < c[0] - 0.1, f"{name}: converges ({c[0]:.4f} -> "
+          f"{c[-1]:.4f})")
+    if differ:
+        check(bool(np.any(c != g)), f"{name}: not the fp32 curve's bits")
+    return worst
+
+
+def _teacher_forced_nll(dev, cfg, params, seq, *, paged, cache_dtype,
+                        quantized):
+    """The reference's ``_teacher_forced_rows`` and ``_nll_curve`` at
+    :data:`L1_EVAL` on the card: the dense steps or the paged engine."""
+    from apex_tpu_torch.serving import (
+        PagedDecodeEngine, init_cache, make_decode_fn, make_prefill_fn,
+    )
+
+    ev = L1_EVAL
+    n0, n1 = ev["prompt"], ev["total"]
+    rows = []
+    if paged:
+        eng = PagedDecodeEngine(params, cfg, num_slots=2,
+                                max_len=ev["s_max"],
+                                num_pages=2 + 2 * ev["s_max"] // ev["page"],
+                                page_size=ev["page"],
+                                cache_dtype=cache_dtype,
+                                buckets=ev["buckets"], device=dev)
+        rows.append(eng.prefill(0, seq[:n0])[0])
+        preempted = []
+        for t in range(n0, n1):
+            preempted += eng.prepare_decode({0: t})
+            rows.append(eng.decode([seq[t], 0], [True, False])[0])
+        check(not preempted, "the paged eval run preempted nothing")
+    else:
+        prefill = make_prefill_fn(cfg, quantized=quantized)
+        decode = make_decode_fn(cfg, quantized=quantized)
+        cache = init_cache(cfg, 2, ev["s_max"], torch.float32, dev)
+        cache, logits = prefill(
+            params, cache, torch.tensor([seq[:n0]], device=dev),
+            torch.ones((n0,), dtype=torch.int32, device=dev), 0)
+        rows.append(logits[0])
+        for t in range(n0, n1):
+            cache, logits = decode(
+                params, cache, torch.tensor([seq[t], 0], device=dev),
+                torch.tensor([True, False], device=dev))
+            rows.append(logits[0])
+    r = torch.stack(rows)[:-1].double()
+    tgt = torch.tensor(seq[n0:n1], device=dev)
+    nll = torch.logsumexp(r, dim=-1) - r[torch.arange(len(tgt)), tgt]
+    return nll.cpu().numpy()
+
+
+def l1_phase(dev, kern):
+    """Phase 22, the L1 curves on the card against the port's own fp32
+    run (TF32 off: ``build`` turns it off for the matmuls and cuDNN):
+    (a) BERT-Large's widths (h 1024, 16 heads, ffn 4096, vocab 30522, seq
+    128) at ``L1_BERT_LAYERS`` layers, ``L1_STEPS`` steps: O0 fp32 the
+    golden, O1, O2, O2 with a bf16 m and O2 with the cast-out each within
+    ``L1_RTOL`` at every step, converging, not its bits; (b) GPT-medium's
+    widths at ``L1_GPT_LAYERS`` layers on one fixed batch: bf16 compute
+    over fp32 masters against fp32; (c) the ImageNet cross product on
+    ResNet-50 (:data:`L1_RESNET`): the five cases against O0 at the
+    reference's rtol 0.10 (0.15 at O3), atol 0.02; (d) int8 eval parity
+    on (b)'s trained fp32 weights: w8 dense and paged, w8 over the int8
+    pool and the int8 pool alone within ``QUANT_EVAL_RTOL`` of the fp32
+    rows at every position. Exact launches a run; the phase's seconds
+    and the card."""
+    import dataclasses
+
+    from apex_tpu_torch.models.bert import bert_large, init_bert
+    from apex_tpu_torch.models.gpt import gpt_medium, init_gpt
+    from apex_tpu_torch.models.resnet import init_resnet
+    from apex_tpu_torch.quant import quantize_params
+    from apex_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    phase(f"22. the L1 curves on the card against the port's fp32 run "
+          f"(TF32 off): BERT-Large widths at {L1_BERT_LAYERS} layers "
+          f"{L1_STEPS} steps (O0 golden; O1, O2, O2 bf16 m, O2 castout), "
+          f"GPT-medium widths at {L1_GPT_LAYERS} layers (bf16 over fp32), "
+          f"the ResNet-{L1_RESNET['depth']} cross product, int8 eval "
+          "parity")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32,
+          "TF32 off for the matmuls and cuDNN")
+    out = {"card": card_line(), "launches": {}}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def tally(path, got, want):
+        check(got == want, f"{path}: exact launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+        for n, c in got.items():
+            launches[n] += c
+        out["launches"][path] = got
+
+    # (a) BERT
+    bcfg = dataclasses.replace(bert_large(), num_layers=L1_BERT_LAYERS)
+    bparams = init_bert(bcfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    per = per_step_launches("flash_tree", L1_BERT_LAYERS)
+    bert_want = _scaled_launches(per, L1_STEPS, threefry_bits=2 * L1_STEPS)
+    golden, got = _counted(kern, lambda: l1_bert_curve(
+        dev, bcfg, bparams, "O0", 1.0, torch.float32, False))
+    tally("l1_bert_O0", got, bert_want)
+    check(golden[-1] < golden[0] - 0.1, f"BERT O0 golden converges "
+          f"({golden[0]:.4f} -> {golden[-1]:.4f})")
+    out["bert"] = {"O0": golden}
+    worst = {}
+    for name, (level, m_dtype, emit) in L1_BERT_CASES.items():
+        curve, got = _counted(kern, lambda: l1_bert_curve(
+            dev, bcfg, bparams, level, "dynamic", m_dtype, emit))
+        tally(f"l1_bert_{name.replace(' ', '_')}", got, bert_want)
+        worst[name] = _track(f"BERT {name}", curve, golden, L1_RTOL)
+        out["bert"][name] = curve
+    out["bert_worst_share"] = worst
+    del bparams
+    # (b) GPT
+    gcfg = dataclasses.replace(gpt_medium(), num_layers=L1_GPT_LAYERS)
+    gparams = init_gpt(gcfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    ids = prng.randint(prng.PRNGKey(30_000), (L1_GPT_BATCH, L1_GPT_SEQ), 0,
+                       gcfg.vocab_size, device=dev).long()
+    gper = gpt_per_step_launches(L1_GPT_LAYERS, gcfg.remat, False, False)
+    (fp32, trained), got = _counted(kern, lambda: l1_gpt_curve(
+        dev, gcfg, gparams, None, ids))
+    tally("l1_gpt_fp32", got, _scaled_launches(gper, L1_STEPS))
+    check(fp32[-1] < fp32[0] - 0.1, f"GPT fp32 converges ({fp32[0]:.4f} "
+          f"-> {fp32[-1]:.4f})")
+    (bf16, _), got = _counted(kern, lambda: l1_gpt_curve(
+        dev, gcfg, gparams, torch.bfloat16, ids))
+    tally("l1_gpt_bf16", got, _scaled_launches(gper, L1_STEPS))
+    out["gpt"] = {"fp32": fp32, "bf16": bf16,
+                  "bf16_worst_share": _track("GPT bf16 over fp32 masters",
+                                             bf16, fp32, L1_RTOL)}
+    del gparams
+    # (d) int8 eval parity on (b)'s trained fp32 weights
+    ev = L1_EVAL
+    seq = [int(t) for t in ids[0, :ev["total"]].tolist()]
+    qp = quantize_params(trained)
+    with torch.inference_mode():
+        gold_nll, got = _counted(kern, lambda: _teacher_forced_nll(
+            dev, gcfg, trained, seq, paged=False, cache_dtype=None,
+            quantized=False))
+        # the GPT curve trains labels = ids (the reference's recipe:
+        # position t's target is its own token), so the next-token rows
+        # of this eval sit above the uniform floor once (b) has learned
+        # its batch; the parity below compares the same rows either way
+        check(bool(np.all(np.isfinite(gold_nll))),
+              f"int8 eval: the fp32 rows finite (mean NLL "
+              f"{gold_nll.mean():.4f}; the uniform floor ln V "
+              f"{math.log(gcfg.vocab_size):.4f})")
+        forwards = ev["total"] - ev["prompt"] + 1
+        ticks = forwards - 1
+        Lg = L1_GPT_LAYERS
+        out["quant"] = {"fp32_mean_nll": float(gold_nll.mean())}
+        for name, p, paged, cdt, q in (
+                ("w8_dense", qp, False, None, True),
+                ("w8_paged", qp, True, torch.float32, True),
+                ("w8_kv8", qp, True, torch.int8, True),
+                ("kv8_only", trained, True, torch.int8, False)):
+            nll, got = _counted(kern, lambda: _teacher_forced_nll(
+                dev, gcfg, p, seq, paged=paged, cache_dtype=cdt,
+                quantized=q))
+            rel = float(np.max(np.abs(nll - gold_nll) / np.abs(gold_nll)))
+            check(bool(np.all(np.isfinite(nll))) and rel <= QUANT_EVAL_RTOL
+                  and bool(np.any(nll != gold_nll)),
+                  f"int8 eval {name}: every position within "
+                  f"{QUANT_EVAL_RTOL} of the fp32 rows (worst {rel:.3g}), "
+                  "not their bits")
+            check(got["w8_matmul"] == (4 * Lg * forwards if q else 0)
+                  and got["w8_matmul_nk"] == (forwards if q else 0)
+                  and got["paged_decode_attention"] == (
+                      Lg * ticks if paged else 0)
+                  and got["layer_norm_fwd"] == (2 * Lg + 1) * forwards,
+                  f"int8 eval {name}: launches "
+                  f"{ {k: v for k, v in got.items() if v} }")
+            for n, c in got.items():
+                launches[n] += c
+            out["launches"][f"l1_quant_{name}"] = got
+            out["quant"][name] = rel
+    del trained, qp
+    torch.cuda.empty_cache()
+    # (c) the ImageNet cross product
+    rn = L1_RESNET
+    rparams, rstats = init_resnet(torch.Generator(device=dev).manual_seed(0),
+                                  rn["depth"], rn["classes"], device=dev)
+    for block in rparams.values():
+        if isinstance(block, dict) and "bn3" in block:
+            block["bn3"]["scale"].zero_()
+    key = prng.PRNGKey(7_000)
+    images = prng.normal(key, (rn["batch"], rn["image"], rn["image"], 3),
+                         device=dev)
+    labels = prng.randint(key, (rn["batch"],), 0, rn["classes"],
+                          device=dev).long()
+    zero = dict.fromkeys(KERNEL_NAMES, 0)
+    rgold, got = _counted(kern, lambda: l1_resnet_curve(
+        dev, rparams, rstats, images, labels, "O0", None, 1.0))
+    tally("l1_resnet_O0", got, zero)
+    check(rgold[-1] < rgold[0] - 0.1, f"ResNet O0 golden converges "
+          f"({rgold[0]:.4f} -> {rgold[-1]:.4f})")
+    out["resnet"] = {"O0": rgold}
+    for level, kbn, ls in L1_RESNET_CASES:
+        name = f"{level} kbn={kbn} loss_scale={ls}"
+        curve, got = _counted(kern, lambda: l1_resnet_curve(
+            dev, rparams, rstats, images, labels, level, kbn, ls))
+        tally(f"l1_resnet_{level}_{kbn}_{ls}", got, zero)
+        out["resnet"][name] = curve
+        out["resnet"][name + " worst_share"] = _track(
+            f"ResNet {name}", curve, rgold, 0.15 if level == "O3" else 0.10,
+            atol=0.02, differ=level != "O1")
+    del rparams, rstats
+    torch.cuda.empty_cache()
+    out["launches_total"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22: {out['seconds']:.1f} s; {card_line()}", flush=True)
+    return out
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -9416,6 +10066,8 @@ def main():
     tps = tensor_parallel_serving(dev, kern)
     mha = multihead_attn_phase(dev, kern)
     mods = new_modules_phase(dev, kern)
+    hand = handoff_phase(dev, kern)
+    l1 = l1_phase(dev, kern)
     pre = pretrain_defaults(dev)
     tm = times(dev)
     tm.update(train_times(dev))
@@ -9471,7 +10123,9 @@ def main():
                    "resnet_resume": mods["resume"]["launches"][n],
                    "rnn_lstm_dropout": mods["rnn"]["launches"][n],
                    "asp_bert_large": mods["asp"]["launches"][n],
-                   "profiled_bert_step": mods["profiler"]["launches"][n]}
+                   "profiled_bert_step": mods["profiler"]["launches"][n],
+                   "serving_handoff": hand["launches"][n],
+                   **{path: got[n] for path, got in l1["launches"].items()}}
                for n in kern}
     for name, e in mha["errors"].items():
         err[name] = max(err[name], e)
@@ -9838,6 +10492,8 @@ def main():
     print(f"tensor-parallel serving: {json.dumps(tps)}")
     print(f"multihead_attn: {json.dumps(mha)}")
     print(f"checkpoints, RNN, weight norm, ASP, profiler: {json.dumps(mods)}")
+    print(f"the page handoff between two processes: {json.dumps(hand)}")
+    print(f"the L1 curves on the card: {json.dumps(l1)}")
     for key in (f"{mode}_{d}_{h}" for mode in ("ln", "rms")
                 for d in ("fwd", "bwd") for h in (1024, 4096)):
         print(f"{key}: {json.dumps(tm[key])}")

@@ -317,8 +317,10 @@ def _typed_exhaustion(model, mod):
 def test_reshard_exhaustion_is_typed(model):
     """Persistent drops exhaust the reshard budget with a typed
     ReshardFailed carrying the JAX package's attempts, pages and
-    ``corrupt``; a clean channel then ships; sub-meshes over different
-    ranks raise naming A4.6, and over the same ranks build."""
+    ``corrupt``; a clean channel then ships; sub-meshes over the same
+    ranks build, over overlapping ones raise, and over disjoint ones
+    need the default process group (the channel between processes,
+    ``tests/test_torch_handoff.py``)."""
     err, src, shape, attempts = _typed_exhaustion(model, S)
     jerr, jsrc, jshape, jattempts = _typed_exhaustion(model, jax_serving)
     assert (err.attempts, err.pages, err.corrupt) \
@@ -332,7 +334,9 @@ def test_reshard_exhaustion_is_typed(model):
     def mesh(ranks):
         return Mesh(np.asarray(ranks).reshape(1, 1, 1, -1), None, {})
 
-    with pytest.raises(NotImplementedError, match="A4.6"):
+    with pytest.raises(ValueError, match="disjoint"):
+        S.PageReshard(src_mesh=mesh([0, 1]), dst_mesh=mesh([1, 2]))
+    with pytest.raises(RuntimeError, match="default process group"):
         S.PageReshard(src_mesh=mesh([0, 1]), dst_mesh=mesh([2, 3]))
     assert S.PageReshard(src_mesh=mesh([0, 1]),
                          dst_mesh=mesh([1, 0])).recv_site == "reshard_recv"

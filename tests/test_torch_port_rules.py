@@ -820,10 +820,29 @@ DEPARTURES_IN_MEANING = {
     "parallel/distributed.py:DistributedDataParallel.replicate":
         "the identity: each process holds its own copy",
     "serving/transfer.py:PageReshard.__init__":
-        "src_mesh= and dst_mesh= over different ranks (a handoff between "
-        "processes) raise NotImplementedError naming A4.6; over the same "
-        "ranks this process gathers and keeps its head block as the "
-        "reference does",
+        "src_mesh= and dst_mesh= over the same ranks: this process gathers "
+        "and keeps its head block as the reference does; over disjoint "
+        "ranks the channel runs between processes, over one process group "
+        "on both sets made here by every rank of the default group, its "
+        "link fixed to the source mesh's ranks -> the destination's; "
+        "overlapping sets raise ValueError",
+    "serving/transfer.py:PageTransfer.ship":
+        "between processes every rank of the channel's wire calls it: the "
+        "source ranks gather and take the digest, the first sends the tiles "
+        "and digest to each destination rank, which applies a drawn "
+        "corruption to what it received and checks the digest, and the "
+        "first destination rank sends the verdict to every rank; the tiles "
+        "come back on the destination's ranks, (None, None, attempts) "
+        "elsewhere; a rank without the source passes a host stand-in with "
+        "its page_size (router.RemoteReplica)",
+    **{f"serving/router.py:{n}.__init__":
+       "a replica whose engine lives on another rank is given as a "
+       "RemoteReplica (its host half): every rank of the pool runs the whole "
+       "host control, each replica's forwards run on its own rank, and the "
+       "finite flags and sampled tokens of the active replica are broadcast "
+       "from its rank; one process group over the pool's ranks is made here "
+       "(a host tier stays in one process)"
+       for n in ("PoolRouter", "DisaggregatedRouter")},
     **{f"serving/decode.py:make_tp_{n}_fn":
        "runs the step on this rank's blocks in its own process: the params "
        "cut once by shard_tp_params and the cache's head "

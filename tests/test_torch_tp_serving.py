@@ -24,7 +24,7 @@ extract of the gathered pool bit for bit and the tile pair's gather and
 shard round-trip this rank's head block bit for bit (fp32 and bf16
 pools); ``PageReshard(src_mesh=m, dst_mesh=m)`` under a pinned fault
 schedule delivers the host-staged channel's bytes with its attempts and
-counters; meshes over different ranks raise naming A4.6.
+counters. (Meshes over disjoint ranks: ``tests/test_torch_handoff.py``.)
 
 Weights are the port's ``init_gpt`` from a seeded generator, its
 biases and LayerNorm weights seeded too (and its ``quantize_params``),
@@ -514,16 +514,6 @@ def test_page_reshard_over_a_mesh_under_faults(tp, ranks):
         assert rs["stats"][0] == rs["stats"][1]
         assert rs["stats"][0]["reshard_retries"] == 2
         assert rs["stats"][0]["reshard_corrupt"] == 1
-
-
-def test_page_reshard_between_rank_sets_names_a46():
-    from apex_tpu_torch.serving import PageReshard
-
-    def mesh(ranks):
-        return ps.Mesh(np.asarray(ranks).reshape(1, 1, 1, -1), None, {})
-
-    with pytest.raises(NotImplementedError, match="A4.6"):
-        PageReshard(src_mesh=mesh([0, 1]), dst_mesh=mesh([2, 3]))
 
 
 def test_tp_int8_pool_refuses_tree_and_chunk_and_checks_the_switch():
