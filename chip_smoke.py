@@ -448,6 +448,14 @@ Phases, each printed as it runs; any failure exits non-zero:
    0.02); int8 eval parity on the trained GPT weights (w8 dense and
    paged, w8 over the int8 pool, the int8 pool alone within 2 % of the
    fp32 rows); exact launches a run.
+23. the port's lint on the card's machine (no JAX there) —
+   ``apex_tpu_torch.lint``'s ``lint_paths`` over the port, its tests
+   (``tests/test_torch_*.py``) and this script with the determinism tier:
+   clean over more than 200 files, with no ``jax`` imported; then a
+   scratch copy of ``serving/scheduler.py`` in a ``serving`` directory,
+   clean, and with one seeded APX801 bug (the preemption requeue
+   iterating a set) exactly that finding at that line. The file count
+   and the seconds.
 
 It then prints the ``kernels`` JSON line (the rows redesigned since
 their port carry ``redesigned`` and a ``note`` naming the design), the
@@ -3626,12 +3634,16 @@ def w8_times(dev):
                       for o in ops]
                 fp = [lambda o=o: w8.w8_matmul_plain(x, o[1], o[2], o[3], bf)
                       for o in ops]
+            # the library baseline: one torch product at x's dtype on the
+            # weights dequantized ahead (a timing, not a dequant path)
             if nk:
+                # apxlint: disable=APX106
                 lin = [lambda d=d: torch.matmul(x, d.t()) for d in deq]
             elif kind == "bias":
                 lin = [lambda d=d, o=o: torch.addmm(o[3], x, d)
                        for d, o in zip(deq, ops)]
             else:
+                # apxlint: disable=APX106
                 lin = [lambda d=d: torch.matmul(x, d) for d in deq]
             if int8pack:
                 packed = [(o[1] if nk else o[1].t().contiguous(),
@@ -9965,6 +9977,63 @@ def l1_phase(dev, kern):
     return out
 
 
+def lint_phase():
+    """Phase 23, the port's lint (the AST and determinism tiers of
+    ``apex_tpu_torch.lint``) where there is no JAX: clean over the port,
+    its tests and this script; then one seeded APX801 bug in a scratch
+    copy of the scheduler, which must give exactly that finding."""
+    import glob
+    import os
+    import tempfile
+
+    from apex_tpu_torch.lint.engine import lint_paths
+
+    phase("23. the port's lint on the card's machine: the AST and "
+          "determinism tiers over the port, its tests and this script, "
+          "then one seeded APX801 bug (the preemption requeue over a set)")
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = [os.path.join(here, "apex_tpu_torch"),
+             os.path.abspath(__file__)] + sorted(glob.glob(
+                 os.path.join(here, "tests", "test_torch_*.py")))
+    findings, n_files = lint_paths(paths, determinism=True)
+    for f in findings:
+        print(f.render())
+    check(not findings and n_files > 200,
+          f"apxlint clean over {n_files} files (determinism tier on)")
+    check("jax" not in sys.modules, "the lint ran with no jax imported")
+    t_repo = time.perf_counter() - t0
+    with open(os.path.join(here, "apex_tpu_torch", "serving",
+                           "scheduler.py")) as fh:
+        src = fh.read()
+    anchor = ("for i in sorted(preempted, key=lambda j: self._slots[j]."
+              "request_id,\n                        reverse=True):")
+    check(src.count(anchor) == 1, "the requeue loop to seed is there once")
+    line = src[:src.index(anchor)].count("\n") + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        serving = os.path.join(tmp, "serving")
+        os.makedirs(serving)
+        dst = os.path.join(serving, "scheduler.py")
+        with open(dst, "w") as fh:
+            fh.write(src)
+        base, _ = lint_paths([dst], determinism=True)
+        check(base == [], "the scratch scheduler lints clean")
+        with open(dst, "w") as fh:
+            fh.write(src.replace(anchor, "for i in set(preempted):"))
+        seeded, _ = lint_paths([dst], determinism=True)
+    for f in seeded:
+        print("seeded: " + f.render().replace(tmp, "<tmp>"))
+    check([(f.code, f.line) for f in seeded] == [("APX801", line)],
+          f"the seeded set requeue gives exactly APX801 at line {line}")
+    out = {"files": n_files, "seconds_repo": t_repo,
+           "seconds": time.perf_counter() - t0,
+           "seeded": [f"{f.code} scheduler.py:{f.line}" for f in seeded]}
+    print(f"phase 23: {n_files} files in {t_repo:.2f} s, "
+          f"{out['seconds']:.2f} s with the seeded bug; {card_line()}",
+          flush=True)
+    return out
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -10068,6 +10137,7 @@ def main():
     mods = new_modules_phase(dev, kern)
     hand = handoff_phase(dev, kern)
     l1 = l1_phase(dev, kern)
+    lint = lint_phase()
     pre = pretrain_defaults(dev)
     tm = times(dev)
     tm.update(train_times(dev))
@@ -10494,6 +10564,7 @@ def main():
     print(f"checkpoints, RNN, weight norm, ASP, profiler: {json.dumps(mods)}")
     print(f"the page handoff between two processes: {json.dumps(hand)}")
     print(f"the L1 curves on the card: {json.dumps(l1)}")
+    print(f"the port's lint on the card's machine: {json.dumps(lint)}")
     for key in (f"{mode}_{d}_{h}" for mode in ("ln", "rms")
                 for d in ("fwd", "bwd") for h in (1024, 4096)):
         print(f"{key}: {json.dumps(tm[key])}")

@@ -22,10 +22,18 @@ params carried across by ``params_from_jax``.
   stats, tick stream and ticks; a registry on one replica only is
   refused.
 
-The fault-site cases (``host_spill`` / ``host_promote`` injection) wait
-for the fault injector (ROADMAP A4.4)."""
+- the ``host_spill`` / ``host_promote`` fault sites degrade gracefully
+  (a fired spill drops the page, a fired promote re-prefills the rest of
+  the chain) with streams left golden, and the rate-driven multi-fault
+  chaos sweep replays its faults, stats and streams; in each case the
+  JAX engine under the same injector commits the same streams, fires
+  the same faults and counts the same host stats. The sweep's seeds
+  are ``APEX_CHAOS_SPILL_SEED`` (comma-separated ints; default 0,1,2),
+  the reference's variable (``tests/L0/run_serving/test_hierarchy.py``),
+  which the CI chaos matrix fans out."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +52,9 @@ from apex_tpu_torch.serving import (
 
 EOS = -1
 MAX_LEN = 32
+_SPILL_SEEDS = tuple(
+    int(s) for s in os.environ.get("APEX_CHAOS_SPILL_SEED",
+                                   "0,1,2").split(","))
 HOT = tuple(range(7, 15))
 COLD = ((101, 102, 103, 104, 105, 106, 107, 108),
         (201, 202, 203, 204, 205, 206, 207, 208),
@@ -292,6 +303,81 @@ def test_stale_header_key_is_rejected(model):
     eng._spill_geometry = geom[:2] + (8,) + geom[3:]
     with pytest.raises(PromoteFailed, match="geometry"):
         eng._verify_spill(keys[0], rec)
+
+
+# -- fault sites -------------------------------------------------------------
+
+HOST_STATS = ("host_spills", "host_spill_failures", "host_promotes",
+              "host_promote_failures", "host_promote_ticks")
+
+
+def _faulted(model, **inj):
+    """The churn drive on the port with a fresh tier and a
+    ``FaultInjector(**inj)``."""
+    tier = PrefixRegistry(1 << 20)
+    eng = _engine(model, host_tier=tier,
+                  injector=port_serving.FaultInjector(**inj))
+    _, outs = _drive(eng)
+    return eng, tier, outs
+
+
+def _assert_faults_match_jax(model, eng, tier, outs, **inj):
+    """The JAX engine under the same tier and ``FaultInjector(**inj)``
+    commits the same streams, fires the same faults, and counts the same
+    spills, promotes and failures in its stats and its registry."""
+    jtier = jax_serving.PrefixRegistry(1 << 20)
+    jeng = _jax_engine(model, host_tier=jtier,
+                       injector=jax_serving.FaultInjector(**inj))
+    _, want = _jax_drive(jeng)
+    assert outs == want
+    for f in HOST_STATS:
+        assert getattr(eng.stats, f) == getattr(jeng.stats, f), f
+    assert tier.stats() == jtier.stats()
+    assert eng.injector.counts == jeng.injector.counts
+
+
+def test_host_spill_fault_drops_the_spill_gracefully(model, golden_run):
+    """A fired ``host_spill`` drops that page from both tiers; streams
+    stay golden (the prefix just re-prefills later), as on the JAX
+    engine with the same schedule."""
+    _, golden = golden_run
+    inj = {"schedule": {"host_spill": (0,)}}
+    eng, tier, outs = _faulted(model, **inj)
+    assert outs == golden
+    assert eng.stats.host_spill_failures == 1
+    _assert_faults_match_jax(model, eng, tier, outs, **inj)
+
+
+def test_host_promote_fault_degrades_to_reprefill(model, golden_run):
+    """A fired ``host_promote`` breaks the chain mid-promotion; the
+    remainder re-prefills and the committed stream stays golden, as on
+    the JAX engine with the same schedule."""
+    _, golden = golden_run
+    inj = {"schedule": {"host_promote": (0,)}}
+    eng, tier, outs = _faulted(model, **inj)
+    assert outs == golden
+    assert eng.stats.host_promote_failures == 1
+    _assert_faults_match_jax(model, eng, tier, outs, **inj)
+
+
+@pytest.mark.parametrize("seed", _SPILL_SEEDS)
+def test_multi_fault_chaos_seeds_stay_golden_and_replay(model, golden_run,
+                                                        seed):
+    """Rate-driven spill AND promote faults together (the chaos sweep):
+    every run stays bit-identical to golden (these sites never corrupt
+    streams), the same seed replays the same faults and stats, and the
+    JAX engine with the same seed and rates draws the same faults."""
+    _, golden = golden_run
+    inj = {"seed": seed, "rates": {"host_spill": 0.5, "host_promote": 0.5}}
+    eng_a, tier_a, outs_a = _faulted(model, **inj)
+    eng_b, tier_b, outs_b = _faulted(model, **inj)
+    assert outs_a == golden and outs_b == golden
+    for f in HOST_STATS:
+        assert getattr(eng_a.stats, f) == getattr(eng_b.stats, f), f
+    assert tier_a.stats() == tier_b.stats()
+    assert eng_a.injector.counts == eng_b.injector.counts
+    assert sum(eng_a.injector.counts.values()) > 0
+    _assert_faults_match_jax(model, eng_a, tier_a, outs_a, **inj)
 
 
 # -- streams -----------------------------------------------------------------

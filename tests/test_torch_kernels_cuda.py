@@ -1284,17 +1284,23 @@ def _w8_kernel_names(fn):
     """The device kernels one call of ``fn`` launches, by the profiler.
     A first call outside the profiler builds and loads what the call
     needs: on the H100 a kernel library loaded while the profiler ran
-    left the process's later profiler sessions without device events."""
+    left the process's later profiler sessions without device events.
+    A session that records no device event at all, as one now and then
+    does on the H100, is profiled again, up to three times; one that
+    records any device event is read as it is."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "w8_" in e.name]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return [n for n in names if "w8_" in n]
 
 
 @pytest.mark.cuda

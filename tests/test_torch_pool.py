@@ -26,6 +26,7 @@ engines share their jitted step functions (the module's fixtures).
 import dataclasses
 import functools
 import importlib
+import os
 
 import jax
 import numpy as np
@@ -39,7 +40,11 @@ from apex_tpu_torch.models import gpt as port_gpt
 
 EOS = -1
 MAX_LEN = 32
-SEEDS = (0, 1, 2)
+#: The chaos sweep's seeds; the CI chaos matrix overrides them with
+#: ``APEX_CHAOS_POOL_SEED`` (comma-separated ints), the reference's
+#: variable.
+SEEDS = tuple(int(s) for s in os.environ.get(
+    "APEX_CHAOS_POOL_SEED", "0,1,2").split(","))
 
 
 @pytest.fixture(scope="module", autouse=True)

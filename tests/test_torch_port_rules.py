@@ -756,8 +756,20 @@ DEPARTURES.update({
 
 # Names (or parameters) owed to later items of ROADMAP.md queue A. When an
 # item lands, delete its entry: the scan then holds every one of its names
-# to the reference.
-OWED = {}
+# to the reference. A path with no ":name" is a whole reference module
+# not ported yet (the Pallas- and jaxpr-bound tiers of lint/).
+OWED = {
+    "A8.2": ["lint/kernels.py", "lint/vmem.py", "lint/meta.py"],
+    "A8.3": [f"lint/traced/{m}.py" for m in (
+        "__init__", "aliases", "budgets", "cost", "jaxprlib", "memory",
+        "precision", "registry", "schedule")],
+    "A8.4": [f"lint/sharded/{m}.py" for m in (
+        "__init__", "propagation", "registry", "rules_check",
+        "schedule_check")],
+    "A8.5": [f"lint/scaling/{m}.py" for m in (
+        "__init__", "grid", "isomorphism", "memory", "registry",
+        "tables_check", "volume")],
+}
 
 # Names whose signature is the reference's (the scan sees no gap) but
 # whose meaning departs: "module:name" -> what the port does.
@@ -893,6 +905,59 @@ DEPARTURES_IN_MEANING = {
         "group along axis_name in its own process, not lax.ppermute in an "
         "SPMD program; the axis size is the port mesh's members(axis_name), "
         "not utils/compat.axis_size",
+    "lint/engine.py:lint_paths":
+        "trace=True (the default) runs no pass of its own: the JAX "
+        "package's VMEM budget pass (APX102) has no CUDA counterpart until "
+        "A8.2 gives the hand kernels shared-memory budgets, so every ported "
+        "check runs with either value; trace_registry, cost_registry, "
+        "sharding_registry and scaling_registry raise NotImplementedError "
+        "naming their ROADMAP item (A8.3-A8.5)",
+    "lint/__main__.py:main":
+        "default path apex_tpu_torch; no --no-trace, --trace, --cost, "
+        "--sharding, --scaling, --report, --write-budgets or --prune (the "
+        "tiers not ported yet); a --codes selection of only unported codes "
+        "exits 2 naming their ROADMAP item",
+    "lint/quant.py:check_module":
+        "APX106 in torch terms: scales stored or allocated below fp32 "
+        "through .to()/.half()/.bfloat16()/dtype= on any *scale* target; "
+        "products in w8/dequant functions (torch.matmul, @, mm, bmm, "
+        "einsum, F.linear) on provably fp32 operands instead of a "
+        "preferred_element_type; .to(torch.int8) needs a round unless the "
+        "source is integer already; no pallas_call declarations",
+    "lint/collectives.py:check_module":
+        "APX201 over the port's collectives (collective(kind, ...) with a "
+        "literal kind, shift, all_to_all, the region mappings, dist.*) at "
+        "splits on dist.get_rank(), the parallel_state rank and stage "
+        "queries and members.index(...); an if/elif chain is one split; "
+        "dist.send/recv/isend/irecv stay out of the compared sequence and "
+        "must meet a partner op on the same group under a rank split of "
+        "the same function; "
+        "APX202 over shift/all_to_all/_axis/axis_group/mesh.groups[...]/"
+        "mesh.members(...) against the port's parallel_state axes",
+    "lint/hygiene.py:check_files":
+        "roots are CUDA-graph capture (torch.cuda.graph bodies, "
+        "capture_begin..capture_end, make_graphed_callables), "
+        "torch.compile/torch.jit.script/torch.jit.trace, and the functions "
+        "activation checkpointing recomputes, not jit/custom_vjp/Pallas "
+        "bodies; an autograd.Function is not a root; host state is the "
+        "port's serving modules, resolved through apex_tpu_torch imports",
+    "lint/determinism/ordering.py:check_files":
+        "APX801 also flags a torch draw from the global stream on the "
+        "tick path: torch.rand*/randint/randn/randperm/multinomial/"
+        "bernoulli/normal/poisson and the in-place random_/normal_/"
+        "uniform_/... methods with no generator=",
+    "lint/determinism/contracts.py:check_files":
+        "a literal passed to a serving-scope helper whose parameter "
+        "reaches .draw/.fire/.calls counts as a consultation "
+        "(self._fault(\"chunk_prefill_exec\")); chaos references and sweep "
+        "readers count only in tests that import the scope's package",
+    "lint/determinism/taxonomy.py:check_files":
+        "taxonomy classes must be named in a test that imports the scope's "
+        "package (a JAX-package test does not vouch for the port)",
+    "lint/determinism/rng.py:check_files":
+        "a PRNGKey bound to a name used only as fold_in's key is not "
+        "consumed (_key_grid's base key); prng.split and names imported "
+        "from a prng module are key splits as jax.random.split is",
     "transformer/amp/__init__.py:GradScaler.unscale":
         "ORs found_inf by an all_reduce(MAX) over this rank's "
         "parallel_state groups along the tensor and then the pipeline "
@@ -916,7 +981,8 @@ EXPORT_SCANNED = ("parallel", "contrib/groupbn", "transformer", "serving",
                   "transformer/pipeline_parallel", "transformer/testing",
                   "contrib/optimizers", "contrib/multihead_attn", "RNN",
                   "reparameterization", "contrib/peer_memory",
-                  "contrib/bottleneck", "contrib/sparsity")
+                  "contrib/bottleneck", "contrib/sparsity", "lint",
+                  "lint/determinism")
 
 
 def _defines_names(path):
@@ -1182,6 +1248,22 @@ def test_package_exports_match_the_reference(pkg):
     owed = {k for keys in OWED.values() for k in keys
             if k.startswith(pkg + "/__init__.py:")}
     assert _export_findings(pkg) == sorted(owed)
+
+
+def test_owed_modules_are_the_unported_reference_modules():
+    """Each reference module of ``lint/`` is ported or owed by its queue
+    item (a whole module, no ":name"), and no owed module exists in the
+    port: when an item lands, its entry goes."""
+    owed = {k for keys in OWED.values() for k in keys if ":" not in k}
+    ref_lint = os.path.join(REPO, "apex_tpu", "lint")
+    refs = set()
+    for dirpath, _, filenames in os.walk(ref_lint):
+        refs |= {os.path.relpath(os.path.join(dirpath, f),
+                                 os.path.join(REPO, "apex_tpu"))
+                 for f in filenames if f.endswith(".py")}
+    ported = {r for r in refs if os.path.exists(os.path.join(PORT, r))}
+    assert refs - ported == owed
+    assert not any(os.path.exists(os.path.join(PORT, o)) for o in owed)
 
 
 @pytest.mark.parametrize("key", sorted(DEPARTURES_IN_MEANING))

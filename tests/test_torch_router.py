@@ -28,6 +28,7 @@ functions (the module's fixtures).
 import dataclasses
 import functools
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +45,11 @@ from apex_tpu_torch.serving import transfer as port_transfer
 
 EOS = -1
 MAX_LEN = 32
-SEEDS = (0, 1, 2)
+#: The chaos sweep's seeds; the CI chaos matrix overrides them with
+#: ``APEX_CHAOS_TRANSFER_SEED`` (comma-separated ints), the reference's
+#: variable.
+SEEDS = tuple(int(s) for s in os.environ.get(
+    "APEX_CHAOS_TRANSFER_SEED", "0,1,2").split(","))
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -27,6 +27,7 @@ The port runs on one CPU thread (the module's fixture).
 """
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -38,6 +39,13 @@ from apex_tpu.models import gpt as jax_gpt
 from apex_tpu.serving import tenancy as jax_tenancy
 from apex_tpu_torch import serving as S
 from apex_tpu_torch.models import gpt as port_gpt
+
+#: The tenant chaos sweep's seeds; the CI chaos matrix overrides them
+#: with ``APEX_CHAOS_TENANT_SEED`` (comma-separated ints), the reference's
+#: variable (``tests/L0/run_serving/test_tenancy.py``).
+_TENANT_SEEDS = tuple(
+    int(s) for s in os.environ.get("APEX_CHAOS_TENANT_SEED",
+                                   "0,1,2").split(","))
 
 EOS = -1
 MAX_LEN = 32
@@ -455,7 +463,7 @@ def _tenant_summary(sched, gauges):
         prometheus=sched.tracer.registry.to_prometheus())
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("seed", _TENANT_SEEDS)
 def test_multi_fault_tenant_chaos_replays_bit_for_bit(model, seed):
     """Every serving-path site armed at once over the tenanted, streaming
     scheduler, audited every tick: typed outcomes, golden or
